@@ -8,9 +8,12 @@ setup(
     description=(
         "TPU-native multi-animal pose estimation and tracking (JAX/XLA/Pallas)"
     ),
-    packages=find_packages(include=["sleap_tpu", "sleap_tpu.*"]),
+    packages=find_packages(
+        include=["sleap_tpu", "sleap_tpu.*", "sleap_tpu_torch", "sleap_tpu_torch.*"]
+    ),
     package_data={
         "sleap_tpu": ["skeletons/*.json", "training_profiles/*.json"],
+        "sleap_tpu_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=[
