@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of sleap-tpu's top-down inference path.
+"""PyTorch + CUDA port of sleap-tpu's inference paths (top-down,
+single-instance, bottom-up).
 
 The JAX package (``sleap_tpu``) is the reference: this package mirrors its
 module names (``models/``, ``data/``, ``ops/``, ``inference/``) and keeps its
@@ -6,8 +7,8 @@ public layouts (NHWC images and confidence maps, ``(samples, channels, K, 2)``
 peaks, NaN/0/mask for empty slots) so each function can be checked against
 its JAX counterpart on the same inputs.
 
-The three Pallas kernels on the top-down path are hand-written CUDA kernels
-for Hopper (``csrc/``, bound in ``ops/cuda_peaks.py`` and ``ops/cuda_crops.py``).
+The four Pallas kernels of those paths are hand-written CUDA kernels for
+Hopper (``csrc/``, bound in ``ops/cuda_peaks.py`` and ``ops/cuda_crops.py``).
 A CPU tensor runs the plain PyTorch version of each kernel; a CUDA tensor
 launches the kernel or raises. Nothing here imports JAX.
 """

@@ -1,9 +1,11 @@
 """Predictors: trained models -> PyTorch inference -> ``Labels``.
 
 Port of :mod:`sleap_tpu.inference.predictors` for the single-instance and
-top-down (centroid + centered-instance) paths. Each batch runs on the
-caller's device: preprocessing, the UNet forward, peak finding (CUDA kernels
-on a CUDA device) and the coordinate rules, which are the JAX package's:
+top-down (centroid + centered-instance) paths, and the loading and dispatch
+of bottom-up folders (:mod:`sleap_tpu_torch.inference.bottomup`). Each batch
+runs on the caller's device: preprocessing, the UNet forward, peak finding
+(CUDA kernels on a CUDA device) and the coordinate rules, which are the JAX
+package's:
 
 - peaks are scaled by the output stride, then ``/ input_scale + 0.5`` when
   the input was scaled;
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -51,7 +53,11 @@ from sleap_tpu_torch.ops.peak_finding import (
 
 @dataclass
 class TrainedModel:
-    """A module on its device plus what inference needs from its config."""
+    """A module on its device plus what inference needs from its config.
+
+    ``output_stride`` is the confidence maps' stride; bottom-up models also
+    carry the PAFs' stride and the skeleton's edges as part-name pairs.
+    """
 
     module: PoseNet
     input_scale: float
@@ -62,19 +68,23 @@ class TrainedModel:
     grayscale: bool = True
     imagenet_mode: Optional[str] = None
     skeleton: Any = None  # a sleap_tpu Skeleton, used when building Labels
+    paf_stride: Optional[int] = None
+    edges: List[Tuple[str, str]] = field(default_factory=list)
 
 
 def load_trained_model(
     model_path: str,
     device: Union[str, torch.device],
     params: Optional[Mapping[str, Any]] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> TrainedModel:
     """Load a run folder (``training_config.json`` + weights) onto ``device``.
 
     Weights come from ``params``, a flax ``variables["params"]`` tree with
     numpy leaves, or else from the folder's Keras ``best_model.h5``. Reading
     an orbax checkpoint needs JAX and is not ported yet (ROADMAP.md, queue 1):
-    a folder with neither raises.
+    a folder with neither raises. ``compute_dtype`` is the network's (float32
+    or bf16, see :class:`~sleap_tpu_torch.models.model.PoseNet`).
     """
     from sleap_tpu.config import TrainingJobConfig
 
@@ -99,24 +109,26 @@ def load_trained_model(
         )
     name, fold = model.input_conv
     in_channels = int(np.shape(layers[name]["kernel"])[2]) // fold
-    module = model.make_module(in_channels)
+    module = model.make_module(in_channels, compute_dtype)
     to_state = state_dict_from_keras if keras else state_dict_from_flax
-    module.load_state_dict(to_state(module, weights))
+    module.load_state_dict(to_state(module, weights))  # cast into the module's dtype
     module.to(device).eval()
 
     head = config.model.heads.which_oneof
+    confmaps, pafs = getattr(head, "confmaps", head), getattr(head, "pafs", None)
     pp = config.data.preprocessing
-    part_names = getattr(head, "part_names", None) or (skeleton.node_names if skeleton else [])
     return TrainedModel(
         module=module,
         input_scale=pp.input_scaling,
-        output_stride=head.output_stride,
+        output_stride=confmaps.output_stride,
         pad_to_stride=pp.pad_to_stride or model.maximum_stride,
-        part_names=list(part_names),
+        part_names=list(model.part_names),
         crop_size=config.data.instance_cropping.crop_size,
         grayscale=in_channels == 1,
         imagenet_mode=pp.imagenet_mode,
         skeleton=skeleton,
+        paf_stride=None if pafs is None else pafs.output_stride,
+        edges=list(model.edges),
     )
 
 
@@ -156,7 +168,7 @@ def _adjust_peaks(peaks: torch.Tensor, output_stride: int, input_scale: float) -
 
 
 def _skeleton(tm: TrainedModel):
-    """The model's skeleton, or one rebuilt from its part names."""
+    """The model's skeleton, or one rebuilt from its part names and edges."""
     if tm.skeleton is not None:
         return tm.skeleton
     from sleap_tpu.core.skeleton import Skeleton
@@ -164,6 +176,8 @@ def _skeleton(tm: TrainedModel):
     skeleton = Skeleton("skeleton")
     for name in tm.part_names:
         skeleton.add_node(name)
+    for src, dst in tm.edges:
+        skeleton.add_edge(src, dst)
     return skeleton
 
 
@@ -232,11 +246,13 @@ class Predictor:
         batch_size: int = 4,
         max_instances: Optional[int] = None,
         params: Optional[Mapping[str, Any]] = None,
+        compute_dtype: torch.dtype = torch.float32,
     ) -> "Predictor":
         """Dispatch by the head types of the run folder(s).
 
         ``params`` maps a model path to its flax params tree (numpy), for
-        folders whose weights are orbax checkpoints.
+        folders whose weights are orbax checkpoints. ``compute_dtype`` is the
+        networks' (float32 or bf16).
         """
         from sleap_tpu.config import TrainingJobConfig
 
@@ -251,7 +267,9 @@ class Predictor:
         params = params or {}
 
         def load(head):
-            return load_trained_model(paths[head], device, params.get(paths[head]))
+            return load_trained_model(
+                paths[head], device, params.get(paths[head]), compute_dtype=compute_dtype
+            )
 
         common = dict(
             device=torch.device(device),
@@ -269,9 +287,19 @@ class Predictor:
                 max_instances=max_instances,
                 **common,
             )
+        if set(paths) == {"multi_instance"}:
+            from sleap_tpu_torch.inference.bottomup import BottomUpPredictor
+
+            return BottomUpPredictor(
+                bottomup_model=load("multi_instance"), max_instances=max_instances, **common
+            )
         raise NotImplementedError(
             f"Head combination {sorted(paths)} is not ported yet (ROADMAP.md, queue 1)."
         )
+
+    # Whether frames of mixed-size videos are resized to one size before
+    # batching (and the results scaled back), as the JAX predictor does.
+    size_matching = True
 
     def predict(self, data, make_labels: bool = True):
         """Run inference on numpy frames (N, H, W[, C]) or anything
@@ -286,7 +314,7 @@ class Predictor:
             from sleap_tpu.data.providers import batch_examples, provider_needs_size_matching
 
             provider = _make_provider(data)
-            target_hw = provider_needs_size_matching(provider)
+            target_hw = provider_needs_size_matching(provider) if self.size_matching else None
             batches = prefetch(batch_examples(provider, self.batch_size, target_hw))
         examples = self._predict_generator(batches)
         if not make_labels:
@@ -306,12 +334,7 @@ class Predictor:
         for batch, n_valid, dev_img in stage_to_device(batches, self.device):
             with torch.inference_mode():
                 out = self._infer(dev_img)
-            ex = {k: v.cpu().numpy() for k, v in out.items()}
-            # Undo host-side size matching of mixed-size videos.
-            for key in ("instance_peaks", "centroids"):
-                if key in ex:
-                    scale = batch["scale"].reshape(-1, *([1] * (ex[key].ndim - 1)))
-                    ex[key] = ex[key] / scale
+            ex = self._postprocess({k: v.cpu().numpy() for k, v in out.items()}, batch)
             ex.update(
                 image=batch["image"],
                 video_ind=batch["video_ind"],
@@ -319,6 +342,14 @@ class Predictor:
                 n_valid=n_valid,
             )
             yield ex
+
+    def _postprocess(self, ex: Dict[str, np.ndarray], batch: dict) -> Dict[str, Any]:
+        """Host side of a batch: undo the size matching of mixed-size videos."""
+        for key in ("instance_peaks", "centroids"):
+            if key in ex:
+                scale = batch["scale"].reshape(-1, *([1] * (ex[key].ndim - 1)))
+                ex[key] = ex[key] / scale
+        return ex
 
     def _infer(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -530,11 +561,13 @@ def load_model(
     refinement: str = "integral",
     max_instances: Optional[int] = None,
     params: Optional[Mapping[str, Any]] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Predictor:
     """Load trained model folder(s) as a predictor on ``device``.
 
-    Single-instance and top-down (centroid + centered-instance) folders are
-    supported; ``params`` maps a folder to its flax params tree (numpy).
+    Single-instance, top-down (centroid + centered-instance) and bottom-up
+    (multi-instance) folders are supported; ``params`` maps a folder to its
+    flax params tree (numpy); ``compute_dtype`` is float32 or bf16.
     """
     return Predictor.from_model_paths(
         model_path,
@@ -544,4 +577,5 @@ def load_model(
         batch_size=batch_size,
         max_instances=max_instances,
         params=params,
+        compute_dtype=compute_dtype,
     )

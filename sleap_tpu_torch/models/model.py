@@ -1,18 +1,19 @@
 """Model assembly: UNet backbone + 1x1 conv heads -> ``nn.Module``.
 
 Port of :mod:`sleap_tpu.models.model` for the UNet backbones and the conv
-heads of the top-down and single-instance paths. Heads attach to the
-backbone output when their stride equals the backbone's output stride, and
-otherwise to the first decoder feature recorded at their stride
+heads of the top-down, single-instance and bottom-up paths. Heads attach to
+the backbone output when their stride equals the backbone's output stride,
+and otherwise to the first decoder feature recorded at their stride
 (``apply_heads`` in the JAX package). Inputs and outputs keep the JAX
-package's NHWC layout; the network runs NCHW inside.
+package's NHWC layout; the network runs NCHW inside, in float32, or in bf16
+with ``torch.channels_last`` memory (see :class:`PoseNet`).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -38,11 +39,24 @@ class PoseNet(nn.Module):
     """Backbone + conv heads; ``forward`` maps NHWC images to NHWC maps.
 
     Integer images are raw pixels and are scaled by their dtype's maximum
-    (``ensure_float``'s rule); the JAX module defers that past its s2d stem,
-    which moves pixels only, so the result is the same either way.
+    (``ensure_float``'s rule) in float32; the JAX module defers that past its
+    s2d stem, which moves pixels only, so the result is the same either way.
+
+    ``compute_dtype`` is the JAX module's: the input is cast to it, and in
+    bf16 the weights are bf16 (flax casts its float32 params at each layer,
+    which rounds them the same way) and the head outputs stay bf16. A bf16
+    module keeps its weights and activations in ``torch.channels_last``
+    memory: cuDNN's bf16 tensor-core convolutions take NHWC, and the NHWC
+    head outputs are then contiguous, the layout the bf16 peak kernel reads.
     """
 
-    def __init__(self, backbone: UNet, heads: Sequence[HeadSpec], in_channels: int):
+    def __init__(
+        self,
+        backbone: UNet,
+        heads: Sequence[HeadSpec],
+        in_channels: int,
+        compute_dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         self.backbone = EncoderDecoderNet(
             backbone.make_stem_blocks(),
@@ -62,11 +76,17 @@ class PoseNet(nn.Module):
             else:
                 raise ValueError(f"No feature at stride {h.output_stride} for head {h.name}.")
             self.heads[h.name] = nn.Conv2d(c, h.channels, 1)
+        self.compute_dtype = compute_dtype
+        if compute_dtype != torch.float32:
+            self.to(dtype=compute_dtype, memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if not torch.is_floating_point(x):
             x = x.float() / float(torch.iinfo(x.dtype).max)
-        out, feats = self.backbone(x.permute(0, 3, 1, 2))
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+        if self.compute_dtype != torch.float32:
+            x = x.contiguous(memory_format=torch.channels_last)
+        out, feats = self.backbone(x)
         results = {}
         for h in self.head_specs:
             src = out
@@ -97,10 +117,13 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 @dataclass
 class Model:
-    """A model description: UNet backbone + conv heads."""
+    """A model description: UNet backbone + conv heads, with the part names
+    and (for PAF heads) the edges the heads were built for."""
 
     backbone: UNet
     heads: List[HeadSpec]
+    part_names: List[str] = field(default_factory=list)
+    edges: List[Tuple[str, str]] = field(default_factory=list)
 
     @property
     def maximum_stride(self) -> int:
@@ -116,21 +139,26 @@ class Model:
         :func:`~sleap_tpu_torch.models.encoder_decoder.first_conv`)."""
         return first_conv(self.backbone.make_stem_blocks(), self.backbone.make_encoder_blocks())
 
-    def make_module(self, in_channels: int) -> PoseNet:
-        return PoseNet(self.backbone, self.heads, in_channels)
+    def make_module(
+        self, in_channels: int, compute_dtype: torch.dtype = torch.float32
+    ) -> PoseNet:
+        return PoseNet(self.backbone, self.heads, in_channels, compute_dtype)
 
     @classmethod
     def from_config(cls, config, skeleton=None) -> "Model":
         """From a ``sleap_tpu.config.ModelConfig``: UNet backbones with
-        single-instance, centroid or centered-instance heads (+ offsets).
+        single-instance, centroid, centered-instance (+ offsets) or
+        multi-instance heads (confmaps, PAFs, + offsets).
 
-        Part names missing from the head config come from ``skeleton``, as
-        in the JAX package. Other backbones and heads raise.
+        Part names and edges missing from the head config come from
+        ``skeleton``, as in the JAX package. Other backbones and heads raise.
         """
         from sleap_tpu.models.heads import (
             CenteredInstanceConfmapsHead,
             CentroidConfmapsHead,
+            MultiInstanceConfmapsHead,
             OffsetRefinementHead,
+            PartAffinityFieldsHead,
             SingleInstanceConfmapsHead,
         )
 
@@ -142,27 +170,42 @@ class Model:
         hc = config.heads.which_oneof
         head_name = config.heads.which_oneof_attrib_name
 
-        def part_names():
-            names = getattr(hc, "part_names", None)
-            if names is None:
+        def skeleton_field(value, name):
+            if value is None:
                 if skeleton is None:
                     raise ValueError("Skeleton required when head config incomplete.")
-                names = skeleton.node_names
-            return names
+                value = getattr(skeleton, name)
+            return list(value)
 
+        names: List[str] = []
+        edges: List[Tuple[str, str]] = []
+        offsets_cfg = hc
         if head_name == "single_instance":
-            heads = [SingleInstanceConfmapsHead.from_config(hc, part_names=part_names())]
+            names = skeleton_field(hc.part_names, "node_names")
+            heads = [SingleInstanceConfmapsHead.from_config(hc, part_names=names)]
         elif head_name == "centroid":
             heads = [CentroidConfmapsHead.from_config(hc)]
         elif head_name == "centered_instance":
-            heads = [CenteredInstanceConfmapsHead.from_config(hc, part_names=part_names())]
+            names = skeleton_field(hc.part_names, "node_names")
+            heads = [CenteredInstanceConfmapsHead.from_config(hc, part_names=names)]
+        elif head_name == "multi_instance":
+            offsets_cfg = hc.confmaps
+            names = skeleton_field(hc.confmaps.part_names, "node_names")
+            edges = [tuple(e) for e in skeleton_field(hc.pafs.edges, "edge_names")]
+            heads = [
+                MultiInstanceConfmapsHead.from_config(hc.confmaps, part_names=names),
+                PartAffinityFieldsHead.from_config(hc.pafs, edges=edges),
+            ]
         else:
             raise NotImplementedError(f"Head {head_name!r} is not ported yet.")
-        if hc.offset_refinement:
-            names = None if head_name == "centroid" else part_names()
-            heads.append(OffsetRefinementHead.from_config(hc, part_names=names))
+        if offsets_cfg.offset_refinement:
+            heads.append(
+                OffsetRefinementHead.from_config(offsets_cfg, part_names=names or None)
+            )
         specs = [HeadSpec(h.name, h.channels, h.activation, h.output_stride) for h in heads]
-        return cls(backbone=UNet.from_config(unet_cfg), heads=specs)
+        return cls(
+            backbone=UNet.from_config(unet_cfg), heads=specs, part_names=names, edges=edges
+        )
 
 
 def find_head(outputs: Dict[str, torch.Tensor], name_substring: str) -> Optional[str]:

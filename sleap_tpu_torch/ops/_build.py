@@ -1,11 +1,12 @@
 """Build and bind the CUDA kernels in ``sleap_tpu_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds), and
-loaded with ``ctypes``. The library lands in ``sleap_tpu_torch/build/`` under
-a name keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused. A missing ``nvcc`` or a failed build
-raises: there is no fallback to the plain versions.
+The sources are compiled at first use with ``nvcc``, one process per source
+started together, and linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), loaded with
+``ctypes``. The library lands in ``sleap_tpu_torch/build/`` under a name
+keyed by a hash of the sources and flags, so an edited source is rebuilt and
+an unchanged one is reused. A missing ``nvcc`` or a failed build raises:
+there is no fallback to the plain versions.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import List
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -25,7 +27,7 @@ SOURCES = ("peaks.cu", "crops.cu")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -33,6 +35,9 @@ _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "sleap_global_peaks": [_p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _f, _i, _p, _p, _p],
     "sleap_local_peaks": [_p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p],
+    "sleap_local_peaks_hwcs": [
+        _p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _i, _i, _p, _p, _p, _p, _p, _p,
+    ],
     "sleap_crop_unit": [_p, _i, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p],
 }
 
@@ -54,6 +59,11 @@ def find_nvcc() -> str:
     )
 
 
+def _raise_on_failure(cmd: List[str], code: int, stderr: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed with code {code}:\n{' '.join(cmd)}\n{stderr}")
+
+
 def build_library(build_dir: Path = BUILD_DIR) -> Path:
     """Compile the kernels into ``build_dir`` unless an up-to-date build is
     there; return the library's path."""
@@ -66,14 +76,30 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
     nvcc = find_nvcc()
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+    objs = [tmp.with_name(f"{tmp.name}.{Path(name).stem}.o") for name in SOURCES]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+        for name, obj in zip(SOURCES, objs)
+    ]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in compiles
+    ]
+    try:
+        for cmd, proc in zip(compiles, procs):
+            _, stderr = proc.communicate()
+            _raise_on_failure(cmd, proc.returncode, stderr)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        done = subprocess.run(link, capture_output=True, text=True)
+        _raise_on_failure(link, done.returncode, done.stderr)
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return lib
 
 

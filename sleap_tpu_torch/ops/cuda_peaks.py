@@ -1,7 +1,7 @@
 """Peak-finding kernels for Hopper: wrappers, plain versions, launch counts.
 
-Two CUDA kernels (``csrc/peaks.cu``) replace the Pallas kernels of
-:mod:`sleap_tpu.ops.pallas_peaks` on the top-down path:
+Three CUDA kernels (``csrc/peaks.cu``) replace the Pallas kernels of
+:mod:`sleap_tpu.ops.pallas_peaks` (top-down and bottom-up paths):
 
 ``global_peaks`` <- ``find_global_peaks_integral_pallas`` / ``_peak_kernel``
     Per (sample, channel) map: the max, the first-occurrence argmax and the
@@ -28,12 +28,26 @@ Two CUDA kernels (``csrc/peaks.cu``) replace the Pallas kernels of
     sorted top-K of its own pixels, and K rounds of block argmax over the
     list heads merge them; then one warp per peak refines. K <= 64.
 
+``local_peaks_hwcs`` <- ``find_local_peaks_fused_pallas_hwcs`` / ``_hwcs_kernel``
+    ``local_peaks``'s contract on bf16 maps (H*W <= 2^16, threshold > 0, the
+    5x5 window or none), through the TPU kernel's packed int32 key
+    ``bf16_bits << 16 | (H*W - 1 - index)``: one integer orders peaks by value
+    then by smaller index, so every merge is an integer max. On the bottom-up
+    main path (16 samples x 256^2 x 13 channels, channels-last from the head
+    conv) it is bound by reading the maps once: 27 MB, ~8 us at 3.35 TB/s.
+    Design: pass 1 gives each (tile of rows and columns, sample) a block that
+    stages the tile with a 2-pixel halo and all channels in shared memory,
+    keeps each channel's NMS survivors as keys, and writes each channel's
+    top K with refined offsets; pass 2 merges the tiles' candidates, one warp
+    per (sample, channel). Blocks share nothing, where the TPU kernel streamed
+    rows in order and carried its top K across grid steps.
+
 A CPU tensor runs the plain version (:func:`global_peaks_plain`,
-:func:`local_peaks_plain`); a CUDA tensor launches the kernel, and anything
-else raises. The plain versions are also what the tests and ``chip_smoke.py``
-hold the kernels against. Tolerance: values, masks and integer peak
-locations are exact; refined xy agree within 1e-4 px (window sums in
-another order, FMA contraction).
+:func:`local_peaks_plain`, :func:`local_peaks_hwcs_plain`); a CUDA tensor
+launches the kernel, and anything else raises. The plain versions are also
+what the tests and ``chip_smoke.py`` hold the kernels against. Tolerance:
+values, masks and integer peak locations are exact; refined xy agree within
+1e-4 px (window sums in another order, FMA contraction).
 """
 
 from __future__ import annotations
@@ -44,6 +58,10 @@ import torch
 import torch.nn.functional as F
 
 MAX_K = 64
+HWCS_MAX_PIXELS = 2**16  # the packed key's 16-bit index
+HWCS_HALF = 2  # kernel 4's integral window is 5 x 5
+HWCS_SMEM_BYTES = 113 * 1024  # two tile blocks per SM (227 KB each SM)
+_EMPTY_KEY = -(2**31)
 
 
 # --------------------------------------------------------------------------- #
@@ -119,6 +137,19 @@ def global_peaks_plain(
     return xy.reshape(S, C, 2), vals.reshape(S, C)
 
 
+def _nms(maps: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Strict 8-neighbour maxima above threshold of (n, H, W) maps; out-of-map
+    neighbours count as -inf."""
+    H, W = maps.shape[1], maps.shape[2]
+    padded = F.pad(maps, (1, 1, 1, 1), value=float("-inf"))
+    nbr = torch.full_like(maps, float("-inf"))
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            if (dy, dx) != (1, 1):
+                nbr = torch.maximum(nbr, padded[:, dy:dy + H, dx:dx + W])
+    return (maps > nbr) & (maps > threshold)
+
+
 def local_peaks_plain(
     cms: torch.Tensor, max_peaks: int, threshold: float, half: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,14 +166,7 @@ def local_peaks_plain(
     S, H, W, C = cms.shape
     K = max_peaks
     maps = _flat_maps(cms)
-    padded = F.pad(maps, (1, 1, 1, 1), value=float("-inf"))
-    nbr = torch.full_like(maps, float("-inf"))
-    for dy in (0, 1, 2):
-        for dx in (0, 1, 2):
-            if (dy, dx) != (1, 1):
-                nbr = torch.maximum(nbr, padded[:, dy:dy + H, dx:dx + W])
-    is_peak = (maps > nbr) & (maps > threshold)
-    masked = torch.where(is_peak, maps, float("-inf")).reshape(S * C, H * W)
+    masked = torch.where(_nms(maps, threshold), maps, float("-inf")).reshape(S * C, H * W)
     if H * W < K:
         masked = F.pad(masked, (0, K - H * W), value=float("-inf"))
     # Stable descending sort: equal values keep ascending index order.
@@ -154,6 +178,71 @@ def local_peaks_plain(
         peaks = _integral_refine(maps, peaks.reshape(-1, 2), map_inds, half)
     peaks = torch.where(torch.isfinite(vals).reshape(-1, 1), peaks.reshape(-1, 2), float("nan"))
     return peaks.reshape(S, C, K, 2), vals.reshape(S, C, K)
+
+
+def local_peaks_hwcs_plain(
+    cms: torch.Tensor, max_peaks: int, threshold: float, half: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``local_peaks_hwcs``'s contract in plain PyTorch, by its keys.
+
+    Args:
+        cms: (S, H, W, C) bf16 maps, H * W <= 2^16, any strides.
+        half: 2 for the 5x5 integral window, < 0 for unrefined peaks.
+
+    Returns:
+        As :func:`local_peaks_plain` on ``cms.float()``.
+    """
+    S, H, W, C = cms.shape
+    K = max_peaks
+    maps = _flat_maps(cms)
+    bits = cms.permute(0, 3, 1, 2).reshape(S * C, H * W).view(torch.int16).to(torch.int32)
+    inv = H * W - 1 - torch.arange(H * W, dtype=torch.int32, device=cms.device)
+    keys = ((bits & 0xFFFF) << 16) | inv
+    keys = torch.where(_nms(maps, threshold).reshape(S * C, H * W), keys, _EMPTY_KEY)
+    if H * W < K:
+        keys = F.pad(keys, (0, K - H * W), value=_EMPTY_KEY)
+    keys = torch.topk(keys, K, dim=1).values  # peak keys are unique
+    valid = keys != _EMPTY_KEY
+    lin = H * W - 1 - (keys & 0xFFFF)
+    vals = torch.where(valid, (keys & -65536).view(torch.float32), float("-inf"))
+    peaks = torch.stack([lin % W, lin // W], dim=-1).float().reshape(-1, 2)
+    if half >= 0:
+        map_inds = torch.arange(S * C, device=cms.device).repeat_interleave(K)
+        peaks = _integral_refine(maps, peaks, map_inds, half)
+    peaks = torch.where(valid.reshape(-1, 1), peaks, float("nan"))
+    return peaks.reshape(S, C, K, 2), vals.reshape(S, C, K)
+
+
+def hwcs_ok(cms: torch.Tensor, threshold: float, half: int) -> bool:
+    """Whether kernel ``local_peaks_hwcs`` takes these maps and settings:
+    bf16 (S, H, W, C) maps with H * W <= 2^16, threshold > 0 and the 5x5
+    window or none (``local_peaks_hwcs_ok`` without the TPU's tiling terms)."""
+    return (
+        cms.dtype == torch.bfloat16
+        and cms.ndim == 4
+        and cms.shape[1] * cms.shape[2] <= HWCS_MAX_PIXELS
+        and threshold > 0
+        and half in (-1, HWCS_HALF)
+    )
+
+
+def hwcs_tiling(H: int, W: int, C: int) -> Tuple[int, int]:
+    """(rows, columns) of kernel 4's tile: up to 16 full rows, fewer rows
+    and then narrower tiles while the staged tile (bf16, 2-pixel halo) and
+    its candidate lists exceed :data:`HWCS_SMEM_BYTES`."""
+
+    def smem(bh: int, bw: int) -> int:
+        tile = -(-(bh + 4) * (bw + 4) * C * 2 // 16) * 16
+        return tile + 4 * C * (1 + -(-bh // 2) * -(-bw // 2))
+
+    bh, bw = min(16, H), W
+    while smem(bh, bw) > HWCS_SMEM_BYTES and bh > 1:
+        bh //= 2
+    while smem(bh, bw) > HWCS_SMEM_BYTES and bw > 1:
+        bw = -(-bw // 2)
+    if smem(bh, bw) > HWCS_SMEM_BYTES:
+        raise ValueError(f"{C} channels do not fit one tile of the local peaks kernel.")
+    return bh, bw
 
 
 # --------------------------------------------------------------------------- #
@@ -222,6 +311,46 @@ def local_peaks_cuda(
 local_peaks_cuda.launches = 0
 
 
+def local_peaks_hwcs_cuda(
+    cms: torch.Tensor, max_peaks: int, threshold: float, half: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel ``local_peaks_hwcs``; same contract as
+    :func:`local_peaks_hwcs_plain`."""
+    if cms.dtype != torch.bfloat16 or cms.ndim != 4:
+        raise ValueError(f"Expected (S, H, W, C) bfloat16 maps, got {cms.dtype} {tuple(cms.shape)}.")
+    S, H, W, C = cms.shape
+    if H * W > HWCS_MAX_PIXELS:
+        raise ValueError(f"The bf16 local peaks kernel takes H * W <= 2**16, got {H} x {W}.")
+    if half not in (-1, HWCS_HALF):
+        raise ValueError("The bf16 local peaks kernel refines with the 5 x 5 window only.")
+    if not threshold > 0:
+        raise ValueError(f"The bf16 local peaks kernel takes threshold > 0, got {threshold}.")
+    if not 1 <= max_peaks <= MAX_K:
+        raise ValueError(f"The local peaks kernel takes 1 <= max_peaks <= {MAX_K}, got {max_peaks}.")
+    if S > 65535:
+        raise ValueError(f"The bf16 local peaks kernel takes at most 65535 samples, got {S}.")
+    if cms.device.type != "cuda":
+        raise ValueError(f"The CUDA peak kernels take CUDA tensors, got {cms.device}.")
+    peaks = torch.empty((S, C, max_peaks, 2), dtype=torch.float32, device=cms.device)
+    vals = torch.empty((S, C, max_peaks), dtype=torch.float32, device=cms.device)
+    if S * C == 0:
+        return peaks, vals
+    bh, bw = hwcs_tiling(H, W, C)
+    n_cand = -(-H // bh) * -(-W // bw) * max_peaks
+    keys = torch.empty((S * C * n_cand,), dtype=torch.int32, device=cms.device)
+    dxy = torch.empty((2, S * C * n_cand), dtype=torch.float32, device=cms.device)
+    _launch(
+        "sleap_local_peaks_hwcs", cms, int(max_peaks), float(threshold), int(half >= 0),
+        bh, bw, keys.data_ptr(), dxy[0].data_ptr(), dxy[1].data_ptr(),
+        peaks.data_ptr(), vals.data_ptr(),
+    )
+    local_peaks_hwcs_cuda.launches += 1
+    return peaks, vals
+
+
+local_peaks_hwcs_cuda.launches = 0
+
+
 # --------------------------------------------------------------------------- #
 # Device dispatch
 # --------------------------------------------------------------------------- #
@@ -239,3 +368,10 @@ def local_peaks(cms: torch.Tensor, max_peaks: int, threshold: float, half: int):
     if cms.device.type == "cpu":
         return local_peaks_plain(cms, max_peaks, threshold, half)
     return local_peaks_cuda(cms, max_peaks, threshold, half)
+
+
+def local_peaks_hwcs(cms: torch.Tensor, max_peaks: int, threshold: float, half: int):
+    """CPU tensor -> plain version; otherwise the CUDA kernel (or raise)."""
+    if cms.device.type == "cpu":
+        return local_peaks_hwcs_plain(cms, max_peaks, threshold, half)
+    return local_peaks_hwcs_cuda(cms, max_peaks, threshold, half)

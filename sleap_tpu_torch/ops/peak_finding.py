@@ -24,8 +24,10 @@ from sleap_tpu_torch.ops.cuda_crops import crop_unit
 from sleap_tpu_torch.ops.cuda_peaks import (
     extract_patches,
     global_peaks,
+    hwcs_ok,
     integral_regression,
     local_peaks,
+    local_peaks_hwcs,
 )
 
 __all__ = [
@@ -129,7 +131,10 @@ def find_local_peaks(
 
     Strict 8-neighbour NMS (out-of-map neighbours count as -inf) above
     ``threshold``, ordered by value descending then row-major index
-    ascending.
+    ascending. bf16 maps that kernel ``local_peaks_hwcs`` takes
+    (:func:`~sleap_tpu_torch.ops.cuda_peaks.hwcs_ok`), unrefined or with the
+    5x5 integral window, go to it; every other case goes to kernel
+    ``local_peaks`` on float32 maps.
 
     Returns:
         peak_points: (samples, channels, K, 2) xy; NaN where invalid.
@@ -137,7 +142,10 @@ def find_local_peaks(
         peak_mask: (samples, channels, K) bool validity.
     """
     half = _integral_half(integral_patch_size) if refinement == "integral" else -1
-    peaks, vals = local_peaks(cms, max_peaks, threshold, half)
+    if refinement != "local" and hwcs_ok(cms, threshold, half):
+        peaks, vals = local_peaks_hwcs(cms, max_peaks, threshold, half)
+    else:
+        peaks, vals = local_peaks(cms.float(), max_peaks, threshold, half)
     if refinement == "local":
         peaks = _local_direction(cms, peaks)
     valid = torch.isfinite(vals)

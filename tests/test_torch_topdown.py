@@ -210,4 +210,4 @@ def test_loading_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="orbax"):
         tp.load_trained_model(CENTROID, "cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        tp.load_model(str(RUNS / "minimal_instance.UNet.bottomup"), device="cpu")
+        tp.load_model(str(RUNS / "min_tracks_2node.UNet.topdown_multiclass"), device="cpu")
