@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive sleap_tpu_torch's top-down and bottom-up inference once on one
-CUDA card.
+CUDA card, through the run-folder loader a user calls.
 
     python3 chip_smoke.py
 
@@ -8,43 +8,54 @@ Phases; any failure exits non-zero and no result line is printed:
 
 1. The card: CUDA must be available; print its name and power limit.
 2. Build the CUDA kernels from ``sleap_tpu_torch/csrc``; print the build time.
+   Write run folders (``training_config.json`` with the skeleton in its
+   jsonpickle form) for ``bench.py``'s top-down pair and its bottom-up model
+   at full width: UNets with filters 64, filters rate 2, max stride 16,
+   output stride 4, ``up_interpolate`` and an s2d-4 stem; 13 nodes in a
+   chain; centroid input scaling 0.25, crop 160. Weights are seeded, the
+   heads made non-negative (so maps cross the 0.2 threshold and every stage
+   works), and handed over as params trees (``flax_from_state_dict``).
+   Both paths load with ``sleap_tpu_torch.load_model(folder, params=...)``
+   and no device argument: the card is the default.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (planted-Gaussian maps plus noise; crop boxes hanging
-   off every edge; local peaks with and without refinement; kernel 4 on
-   bf16 maps of 16 x 256^2 x 13, channels-last and as an NCHW view, with
-   more equal peaks than K in one map).
-4. Run the top-down path: ``bench.py``'s top-down configuration at full
-   width (1024^2 uint8 frames, UNets with filters 64 and an s2d-4 stem,
-   centroid input scaling 0.25, 13 nodes, crop 160, batch 16, 4
-   instances), seeded random weights, float32 with TF32 off, through
-   ``TopDownPredictor.predict``. The launch counts of kernels 1-3 must rise
-   in that run, and a batch of 4 must match the same predictor on the CPU.
-   Labels are not assembled (``make_labels=False``): the card's Python has
-   no ``h5py``, which ``sleap_tpu``'s ``Labels`` and ``Video`` import.
-4b. Run the bottom-up path: ``bench.py``'s bottom-up configuration at full
-   width (the same UNet, 13 nodes in a chain, confmaps at stride 4, PAFs at
-   stride 8, K = 8 peaks per node, 3 instances kept, batch 16), bf16,
-   through ``BottomUpPredictor.predict``. Kernel 4's launch count must rise
-   and a frame must hold an assembled instance of 2 or more nodes; the
-   card's bf16 head outputs, grouped on the CPU, must give the card's
-   instances; the float32 model must match the CPU on a batch of 4.
-5. Time each kernel and its plain version with CUDA events, and each
-   path's frames per second.
+   off every edge; local peaks with and without refinement). Kernel 4 on
+   bf16 maps of 16 x 256^2 x 13 channels-last (with ten equal peaks in one
+   map), as an NCHW view, on the bottom-up path's own head maps, with
+   H = 250 (not a multiple of the band), on 16 x 100^2 x 3 (W*C*2 % 16 != 0),
+   and with K = 1, K = 16 (the trained bottom-up folder's default) and
+   K = 64: values, keys and integer peaks exact, refined
+   xy within 1e-4 px.
+4. Top-down (1024^2 uint8 frames, batch 16, 4 instances, float32 with TF32
+   off): 8 timed batches of ``predict(make_labels=False)``; kernels 1-3 must
+   be launched in them. One more batch with ``make_labels=True`` must give
+   the port's ``Labels`` with the example dicts' instance count, and a batch
+   of 4 must match the same folders loaded on the CPU.
+4b. Bottom-up (K = 8 peaks per node, 3 instances kept, batch 16, bf16): the
+   same, with kernel 4; the card's bf16 head maps grouped on the CPU must
+   give the card's instances, and the float32 model must match the CPU on
+   a batch of 4.
+5. Time each kernel and its plain version: per call with CUDA events (50
+   back-to-back calls, in turns), device time with ``torch.profiler`` (the
+   kernel's own device functions over 20 calls), the bound (bytes moved at
+   3.35 TB/s, or operations at the card's peak, whichever is larger) and,
+   for crops, ``F.grid_sample`` on the float32 form of the same boxes.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
-import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
-from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # Tolerances of kernel vs plain version on the card (see ops/cuda_*.py):
 # values, masks and integer locations are exact; refined xy differ by the
@@ -69,6 +80,11 @@ TIMED_BATCHES = 8
 # K = 8 peaks per node, 3 instances kept, bf16.
 BU_CM_STRIDE, BU_PAF_STRIDE, BU_K, BU_MAX_INSTANCES = 4, 8, 8, 3
 HWCS_HALF = 2
+
+# The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
+# the tensor cores for the kernels' few operations per byte.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def log(msg):
@@ -113,6 +129,25 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, names=None, iters=20) -> float:
+    """Device time per call from ``torch.profiler``: the device functions
+    whose names hold one of ``names`` (all of them if None), over ``iters``
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if names is None or any(n in e.key for n in names)
+    )
+    return total_us / 1e3 / iters
+
+
 def planted_maps(n, h, w, c, n_peaks, gen, device) -> torch.Tensor:
     """(n, h, w, c) NHWC view of NCHW maps: Gaussians (sigma 1.5) + noise,
     laid out as a conv head's output."""
@@ -142,8 +177,99 @@ def synthetic_frames(n, seed) -> np.ndarray:
     return frames
 
 
+# --------------------------------------------------------------------------- #
+# Run folders and loading
+# --------------------------------------------------------------------------- #
+
+
+def write_run_folders(root):
+    """``bench.py``'s top-down pair and bottom-up model as run folders."""
+    from sleap_tpu_torch import config as c
+    from sleap_tpu_torch.core.skeleton import Skeleton
+
+    names = [f"n{i}" for i in range(N_NODES)]
+    skeleton = Skeleton("chain13")
+    for n in names:
+        skeleton.add_node(n)
+    for a, b in zip(names[:-1], names[1:]):
+        skeleton.add_edge(a, b)
+    unet = c.UNetConfig(max_stride=16, output_stride=4, filters=64, filters_rate=2.0,
+                        up_interpolate=True, space_to_depth=4)
+
+    def folder(name, heads, input_scaling, crop_size=None):
+        cfg = c.TrainingJobConfig(
+            data=c.DataConfig(
+                labels=c.LabelsConfig(skeletons=[skeleton]),
+                preprocessing=c.PreprocessingConfig(input_scaling=input_scaling, pad_to_stride=16),
+                instance_cropping=c.InstanceCroppingConfig(crop_size=crop_size),
+            ),
+            model=c.ModelConfig(backbone=c.BackboneConfig(unet=unet), heads=heads),
+        )
+        path = os.path.join(root, name)
+        os.makedirs(path)
+        cfg.save_json(os.path.join(path, "training_config.json"))
+        return path
+
+    return {
+        "centroid": folder("centroid", c.HeadsConfig(
+            centroid=c.CentroidsHeadConfig(output_stride=4, sigma=2.5)), 0.25),
+        "instance": folder("instance", c.HeadsConfig(
+            centered_instance=c.CenteredInstanceConfmapsHeadConfig(output_stride=4, sigma=2.5)),
+            1.0, crop_size=CROP),
+        "bottomup": folder("bottomup", c.HeadsConfig(multi_instance=c.MultiInstanceConfig(
+            confmaps=c.MultiInstanceConfmapsHeadConfig(output_stride=BU_CM_STRIDE, sigma=2.5),
+            pafs=c.PartAffinityFieldsHeadConfig(output_stride=BU_PAF_STRIDE, sigma=5.0))), 1.0),
+    }
+
+
+def seeded_params(path, gen):
+    """Seeded random weights for a run folder, non-negative in the heads,
+    as the params tree ``load_model`` takes."""
+    from sleap_tpu_torch.config import TrainingJobConfig
+    from sleap_tpu_torch.models.model import Model, init_params
+    from sleap_tpu_torch.models.params import flax_from_state_dict
+
+    cfg = TrainingJobConfig.load_json(path)
+    net = Model.from_config(cfg.model, skeleton=cfg.data.labels.skeletons[0]).make_module(1)
+    init_params(net, gen)
+    with torch.no_grad():
+        for head in net.heads.values():
+            head.weight.abs_()
+    return flax_from_state_dict(net)
+
+
+def load_predictors(folders):
+    """(top-down on the card, top-down on the CPU, bottom-up bf16 on the
+    card, bottom-up float32 on the card, bottom-up float32 on the CPU)."""
+    import sleap_tpu_torch
+
+    gen = torch.Generator().manual_seed(0)
+    td_paths = [folders["centroid"], folders["instance"]]
+    params = {p: seeded_params(p, gen) for p in (*td_paths, folders["bottomup"])}
+    td = sleap_tpu_torch.load_model(td_paths, params=params, batch_size=BATCH,
+                                    max_instances=MAX_INSTANCES)
+    td_cpu = sleap_tpu_torch.load_model(td_paths, device="cpu", params=params, batch_size=4,
+                                        max_instances=MAX_INSTANCES)
+    bu = []
+    for device, dtype, batch in ((None, torch.bfloat16, BATCH), (None, torch.float32, 4),
+                                 ("cpu", torch.float32, 4)):
+        kwargs = {} if device is None else {"device": device}
+        pred = sleap_tpu_torch.load_model(folders["bottomup"], params=params, batch_size=batch,
+                                          max_instances=BU_MAX_INSTANCES, compute_dtype=dtype,
+                                          **kwargs)
+        pred.max_peaks_per_node = BU_K
+        bu.append(pred)
+    check(td.device.type == "cuda" and bu[0].device.type == "cuda", "the card is the default")
+    return td, td_cpu, bu
+
+
+# --------------------------------------------------------------------------- #
+# Phase 3: kernels vs plain versions
+# --------------------------------------------------------------------------- #
+
+
 def check_kernels(device, gen):
-    """Phase 3: kernel vs plain version at the main path's shapes."""
+    """Kernels 1-3 at the top-down path's shapes."""
     from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
 
     errs = {}
@@ -203,11 +329,22 @@ def check_kernels(device, gen):
     return errs
 
 
-def check_hwcs(device, gen):
-    """Phase 3, kernel 4: bf16 local peaks at the bottom-up main path's
-    shape (16 samples x 256^2 x 13 channels, K = 8), as the head conv's
-    channels-last output and as an NCHW permute view; one map holds more
-    equal isolated peaks than K."""
+def path_head_maps(pred, frames):
+    """The bottom-up module's bf16 confidence maps (channels-last) on the
+    card, and its head outputs, for the given frames."""
+    from sleap_tpu_torch.inference.predictors import _preprocess
+    from sleap_tpu_torch.models.model import find_head
+
+    tm = pred.bottomup_model
+    with torch.inference_mode():
+        imgs = torch.from_numpy(frames).to(pred.device)
+        heads = tm.module(_preprocess(imgs, tm.grayscale, tm.input_scale, tm.pad_to_stride))
+    return heads[find_head(heads, "MultiInstanceConfmapsHead")], heads
+
+
+def check_hwcs(device, gen, path_maps):
+    """Kernel 4 against its plain version on every layout and size the
+    design distinguishes; returns (max error, the path maps)."""
     from sleap_tpu_torch.ops import cuda_peaks
 
     h = IMG // BU_CM_STRIDE
@@ -219,91 +356,39 @@ def check_hwcs(device, gen):
     maps[0, :, :, 0] = tied  # ten equal isolated peaks: the first eight by index win
     nchw_view = maps.to(torch.bfloat16)
     channels_last = nchw_view.contiguous()
+    cases = [
+        ("channels-last", channels_last, BU_K),
+        ("NCHW view", nchw_view, BU_K),
+        ("path maps", path_maps, BU_K),
+        ("H=250", planted_maps(4, 250, h, N_NODES, 12, gen, device).to(torch.bfloat16).contiguous(), BU_K),
+        ("16x100^2x3", planted_maps(16, 100, 100, 3, 12, gen, device).to(torch.bfloat16).contiguous(), BU_K),
+        ("K=1", channels_last, 1),
+        ("K=16", path_maps, 16),
+        ("K=64", path_maps, 64),
+    ]
     err = 0.0
-    for name, cms in (("channels-last", channels_last), ("NCHW view", nchw_view)):
+    for name, cms, K in cases:
+        fast = cuda_peaks.hwcs_fast_rows(cms)
         for half in (HWCS_HALF, -1):
-            pk_k, v_k = cuda_peaks.local_peaks_hwcs_cuda(cms, BU_K, 0.2, half)
-            pk_p, v_p = cuda_peaks.local_peaks_hwcs_plain(cms, BU_K, 0.2, half)
+            pk_k, v_k = cuda_peaks.local_peaks_hwcs_cuda(cms, K, 0.2, half)
+            pk_p, v_p = cuda_peaks.local_peaks_hwcs_plain(cms, K, 0.2, half)
             e_xy, e_v = max_abs(pk_k, pk_p), max_abs(v_k, v_p)
-            log(f"local_peaks_hwcs {name} {tuple(cms.shape)} refine={half >= 0}: "
-                f"max |dxy| {e_xy:.3g}, max |dval| {e_v:.3g}, "
+            log(f"local_peaks_hwcs {name} {tuple(cms.shape)} K={K} refine={half >= 0} "
+                f"fast rows={fast}: max |dxy| {e_xy:.3g}, max |dval| {e_v:.3g}, "
                 f"peaks {int(torch.isfinite(v_k).sum())}")
-            check(e_v == 0.0, "local_peaks_hwcs values vs plain")
-            check(e_xy <= (XY_TOL if half >= 0 else 0.0), "local_peaks_hwcs xy vs plain")
+            check(e_v == 0.0, f"local_peaks_hwcs values vs plain ({name})")
+            check(e_xy <= (XY_TOL if half >= 0 else 0.0), f"local_peaks_hwcs xy vs plain ({name})")
             err = max(err, e_xy, e_v)
+    check(cuda_peaks.hwcs_fast_rows(path_maps), "the path's maps take the 16-byte row copies")
     want = torch.stack([cols, rows], dim=1)[:BU_K].tolist()
     got = cuda_peaks.local_peaks_hwcs_cuda(channels_last, BU_K, 0.2, -1)[0][0, 0]
     check(got.cpu().tolist() == want, "local_peaks_hwcs tie order")
-    return err, (channels_last,)
+    return err, (path_maps,)
 
 
-def bench_topdown(device, gen):
-    """``bench.py``'s top-down predictor, full width, seeded weights."""
-    from sleap_tpu_torch.inference.predictors import TopDownPredictor, TrainedModel
-    from sleap_tpu_torch.models.model import HeadSpec, PoseNet, init_params
-    from sleap_tpu_torch.models.unet import UNet
-
-    unet = UNet.from_config(SimpleNamespace(
-        max_stride=16, output_stride=4, filters=64, filters_rate=2.0, up_interpolate=True,
-        space_to_depth=4, stem_stride=None, middle_block=True, stacks=1,
-    ))
-    centroid = PoseNet(unet, [HeadSpec("CentroidConfmapsHead", 1, "linear", 4)], 1)
-    instance = PoseNet(unet, [HeadSpec("CenteredInstanceConfmapsHead", N_NODES, "linear", 4)], 1)
-    for net in (centroid, instance):
-        init_params(net, gen).eval()
-        # Non-negative head kernels over ReLU features give maps with peaks
-        # above the 0.2 threshold, so every stage does real work (random
-        # signs give maps below it everywhere and an empty result).
-        with torch.no_grad():
-            for head in net.heads.values():
-                head.weight.abs_()
-
-    def predictor(dev, batch):
-        ctm = TrainedModel(module=copy.deepcopy(centroid).to(dev), input_scale=0.25,
-                           output_stride=4, pad_to_stride=16, part_names=[])
-        itm = TrainedModel(module=copy.deepcopy(instance).to(dev), input_scale=1.0,
-                           output_stride=4, pad_to_stride=16, crop_size=CROP,
-                           part_names=[f"n{i}" for i in range(N_NODES)])
-        return TopDownPredictor(device=torch.device(dev), centroid_model=ctm,
-                                confmap_model=itm, max_instances=MAX_INSTANCES,
-                                batch_size=batch)
-
-    return predictor(device, BATCH), predictor("cpu", 4)
-
-
-def bench_bottomup(device, gen):
-    """``bench.py``'s bottom-up predictor, full width, seeded weights: bf16
-    on the card, and float32 on the card and on the CPU."""
-    from sleap_tpu_torch.inference.bottomup import BottomUpPredictor
-    from sleap_tpu_torch.inference.predictors import TrainedModel
-    from sleap_tpu_torch.models.model import HeadSpec, PoseNet, init_params
-    from sleap_tpu_torch.models.unet import UNet
-
-    unet = UNet.from_config(SimpleNamespace(
-        max_stride=16, output_stride=4, filters=64, filters_rate=2.0, up_interpolate=True,
-        space_to_depth=4, stem_stride=None, middle_block=True, stacks=1,
-    ))
-    names = [f"n{i}" for i in range(N_NODES)]
-    edges = list(zip(names[:-1], names[1:]))
-    heads = [HeadSpec("MultiInstanceConfmapsHead", N_NODES, "linear", BU_CM_STRIDE),
-             HeadSpec("PartAffinityFieldsHead", 2 * len(edges), "linear", BU_PAF_STRIDE)]
-    net = init_params(PoseNet(unet, heads, 1), gen).eval()
-    with torch.no_grad():  # maps above threshold, lines above min_line_scores
-        for head in net.heads.values():
-            head.weight.abs_()
-
-    def predictor(dev, dtype, batch):
-        module = PoseNet(unet, heads, 1, dtype)
-        module.load_state_dict(net.state_dict())
-        tm = TrainedModel(module=module.to(dev).eval(), input_scale=1.0,
-                          output_stride=BU_CM_STRIDE, pad_to_stride=16, part_names=names,
-                          paf_stride=BU_PAF_STRIDE, edges=edges)
-        return BottomUpPredictor(device=torch.device(dev), bottomup_model=tm,
-                                 max_peaks_per_node=BU_K, max_instances=BU_MAX_INSTANCES,
-                                 batch_size=batch)
-
-    return (predictor(device, torch.bfloat16, BATCH), predictor(device, torch.float32, 4),
-            predictor("cpu", torch.float32, 4))
+# --------------------------------------------------------------------------- #
+# Phases 4 and 4b: the paths
+# --------------------------------------------------------------------------- #
 
 
 def merged(examples, n):
@@ -338,6 +423,25 @@ def run_path(name, pred, frames, wrappers):
     return out, launches, fps
 
 
+def check_labels(name, pred, frames, want_counts):
+    """One batch with ``make_labels=True``: the port's Labels, one frame per
+    input frame, the example dicts' instance counts."""
+    from sleap_tpu_torch.core.instance import LabeledFrame, PredictedInstance
+    from sleap_tpu_torch.core.labels import Labels
+
+    labels = pred.predict(frames)
+    check(type(labels) is Labels, f"{name}: predict returns the port's Labels")
+    check([lf.frame_idx for lf in labels] == list(range(len(frames))), f"{name}: frame indices")
+    check(all(type(lf) is LabeledFrame for lf in labels), f"{name}: labeled frames")
+    got = [len(lf.instances) for lf in labels]
+    insts = [i for lf in labels for i in lf.instances]
+    check(all(type(i) is PredictedInstance and i.numpy().shape == (N_NODES, 2) for i in insts),
+          f"{name}: predicted instances of {N_NODES} nodes")
+    log(f"{name} labels: {len(labels)} frames, {sum(got)} instances (example dicts: "
+        f"{sum(want_counts)})")
+    check(got == want_counts, f"{name}: Labels hold the example dicts' instances")
+
+
 def check_topdown(gpu_pred, cpu_pred, frames, out):
     n_frames = len(frames) - BATCH
     res = merged(out, n_frames)
@@ -347,6 +451,12 @@ def check_topdown(gpu_pred, cpu_pred, frames, out):
     check(np.isfinite(res["instance_peak_vals"]).all(), "finite peak values")
     log(f"centroids found: {int(res['centroid_mask'].sum())} of {res['centroid_mask'].size}; "
         f"instance points: {int(np.isfinite(res['instance_peaks'][..., 0]).sum())}")
+
+    # Labels on the first timed batch's frames.
+    first = merged(out[:1], BATCH)
+    want = [int(sum(m and not np.isnan(p).all() for m, p in zip(mask, pts)))
+            for mask, pts in zip(first["centroid_mask"], first["instance_peaks"])]
+    check_labels("top-down", gpu_pred, frames[BATCH:2 * BATCH], want)
 
     # GPU vs CPU on one batch of 4.
     small = frames[:4]
@@ -361,11 +471,10 @@ def check_topdown(gpu_pred, cpu_pred, frames, out):
           "GPU vs CPU values")
 
 
-def check_bottomup(preds, frames, out):
-    """The bottom-up path's outputs: shapes, assembled instances, the card's
-    bf16 maps grouped on the CPU, and float32 GPU vs CPU on 4 frames."""
-    from sleap_tpu_torch.inference.predictors import _preprocess
-
+def check_bottomup(preds, frames, out, heads):
+    """The bottom-up path's outputs: shapes, assembled instances, Labels,
+    the card's bf16 maps grouped on the CPU, and float32 GPU vs CPU on 4
+    frames."""
     bf16_pred, f32_gpu, f32_cpu = preds
     per_frame = frames_instances(out)
     check(len(per_frame) == len(frames) - BATCH, "one result per frame")
@@ -380,13 +489,14 @@ def check_bottomup(preds, frames, out):
     log(f"bottom-up instances: {sum(n_inst)} over {len(per_frame)} frames, "
         f"largest {max(sizes)} of {N_NODES} nodes")
 
-    # The card's bf16 head outputs grouped on the card and on the CPU.
-    tm = bf16_pred.bottomup_model
+    want = [int(sum(not np.isnan(q).all() for q in p)) for p, _, _ in per_frame[:BATCH]]
+    check_labels("bottom-up", bf16_pred, frames[BATCH:2 * BATCH], want)
+
+    # The card's bf16 head outputs (of frames[:4]) grouped on the card and on the CPU.
     with torch.inference_mode():
-        imgs = torch.from_numpy(frames[:4]).to(bf16_pred.device)
-        heads = tm.module(_preprocess(imgs, tm.grayscale, 1.0, tm.pad_to_stride))
-        g = {k: v.cpu() for k, v in bf16_pred.group_heads(heads).items()}
-        c = bf16_pred.group_heads({k: v.cpu() for k, v in heads.items()})
+        four = {k: v[:4] for k, v in heads.items()}
+        g = {k: v.cpu() for k, v in bf16_pred.group_heads(four).items()}
+        c = bf16_pred.group_heads({k: v.cpu() for k, v in four.items()})
     check(torch.equal(g["instance_valid"], c["instance_valid"]), "bf16 maps: GPU vs CPU instances")
     d_xy = max_abs(g["instances"], c["instances"])
     d_val = max_abs(g["instance_peak_vals"], c["instance_peak_vals"])
@@ -410,51 +520,46 @@ def check_bottomup(preds, frames, out):
     check(d_xy <= PATH_XY_TOL and d_val <= PATH_VAL_TOL, "f32 GPU vs CPU instances")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU.")
-    device = torch.device("cuda", 0)
-    card = card_line()
-    log(card)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+# --------------------------------------------------------------------------- #
+# Phase 5: times and bounds
+# --------------------------------------------------------------------------- #
 
-    # Phase 2: build.
-    from sleap_tpu_torch.ops import _build, cuda_crops, cuda_peaks
 
-    t0 = time.perf_counter()
-    lib_path = _build.build_library()
-    _build.load_library()
-    log(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
-    # Phase 3: each kernel vs its plain version.
-    gen = torch.Generator(device=device).manual_seed(0)
-    errs = check_kernels(device, gen)
-    errs["local_peaks_hwcs"] = check_hwcs(device, gen)
 
-    frames = synthetic_frames((1 + TIMED_BATCHES) * BATCH, seed=0)
-    launches, fps = {}, {}
+def crop_taps(images, top_left, box_inds, crop) -> int:
+    """Bytes of the source pixels the boxes read: the union of their
+    in-image (crop + 1)^2 tap windows."""
+    S, H, W, C = images.shape
+    touched = torch.zeros((S, H, W), dtype=torch.bool, device=images.device)
+    for (x, y), s in zip(torch.floor(top_left).long().tolist(), box_inds.tolist()):
+        touched[s, max(y, 0):max(min(y + crop + 1, H), 0), max(x, 0):max(min(x + crop + 1, W), 0)] = True
+    return int(touched.sum()) * C * images.element_size()
 
-    # Phase 4: the top-down path.
-    gpu_pred, cpu_pred = bench_topdown(device, torch.Generator().manual_seed(0))
-    td_wrappers = {
-        "local_peaks": cuda_peaks.local_peaks_cuda,
-        "crop_unit": cuda_crops.crop_unit_cuda,
-        "global_peaks": cuda_peaks.global_peaks_cuda,
-    }
-    out, counts, fps["top-down"] = run_path("top-down", gpu_pred, frames, td_wrappers)
-    launches.update(counts)
-    check_topdown(gpu_pred, cpu_pred, frames, out)
 
-    # Phase 4b: the bottom-up path.
-    bu_preds = bench_bottomup(device, torch.Generator().manual_seed(0))
-    out, counts, fps["bottom-up"] = run_path(
-        "bottom-up", bu_preds[0], frames, {"local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda}
-    )
-    launches.update(counts)
-    check_bottomup(bu_preds, frames, out)
+def grid_sample_crops(images_f32, top_left, box_inds, crop):
+    """The crops as one ``F.grid_sample`` call (bilinear, zeros padding,
+    align_corners=True) on a prepared grid: the library yardstick."""
+    S, H, W, C = images_f32.shape
+    offs = torch.arange(crop, device=images_f32.device, dtype=torch.float32)
+    xs = top_left[:, 0, None] + offs  # (n, crop)
+    ys = top_left[:, 1, None] + offs
+    gx = (2 * xs / (W - 1) - 1)[:, None, :].expand(-1, crop, -1)
+    gy = (2 * ys / (H - 1) - 1)[:, :, None].expand(-1, -1, crop)
+    grid = torch.stack([gx, gy], dim=-1)  # (n, crop, crop, 2)
+    src = images_f32.permute(0, 3, 1, 2)[box_inds]  # (n, C, H, W) gather of frames
 
-    # Phase 5: kernel and plain version times at the main-path shapes.
+    def call():
+        return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    return call
+
+
+def kernel_rows(errs, launches, card):
+    from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+
     calls = {
         "global_peaks": (lambda m: cuda_peaks.global_peaks_cuda(m, 0.2, 2),
                          lambda m: cuda_peaks.global_peaks_plain(m, 0.2, 2)),
@@ -466,28 +571,117 @@ def main() -> int:
             lambda m: cuda_peaks.local_peaks_hwcs_cuda(m, BU_K, 0.2, HWCS_HALF),
             lambda m: cuda_peaks.local_peaks_hwcs_plain(m, BU_K, 0.2, HWCS_HALF)),
     }
-    replaces = {
-        "local_peaks": ("sleap_tpu_torch/csrc/peaks.cu", "sleap_tpu/ops/pallas_peaks.py:101"),
-        "crop_unit": ("sleap_tpu_torch/csrc/crops.cu", "sleap_tpu/ops/pallas_crops.py:56"),
-        "global_peaks": ("sleap_tpu_torch/csrc/peaks.cu", "sleap_tpu/ops/pallas_peaks.py:68"),
-        "local_peaks_hwcs": ("sleap_tpu_torch/csrc/peaks.cu", "sleap_tpu/ops/pallas_peaks.py:487"),
+    # (source, TPU kernel body, device functions, outputs per map or box)
+    meta = {
+        "local_peaks": ("sleap_tpu_torch/csrc/peaks.cu", "sleap_tpu/ops/pallas_peaks.py:101",
+                        ("local_peaks_kernel",)),
+        "crop_unit": ("sleap_tpu_torch/csrc/crops.cu", "sleap_tpu/ops/pallas_crops.py:56",
+                      ("crop_unit_kernel",)),
+        "global_peaks": ("sleap_tpu_torch/csrc/peaks.cu", "sleap_tpu/ops/pallas_peaks.py:68",
+                         ("global_peaks_kernel",)),
+        "local_peaks_hwcs": ("sleap_tpu_torch/csrc/peaks.cu", "sleap_tpu/ops/pallas_peaks.py:487",
+                             ("hwcs_band_kernel",)),
     }
     kernels = []
-    for name, (source, tpu) in replaces.items():
+    for name, (source, tpu, funcs) in meta.items():
         err, args = errs[name]
         kernel_fn, plain_fn = calls[name]
+        outs = kernel_fn(*args)
         # In turns (kernel, plain, plain, kernel), each side averaged.
         k1, p1 = time_ms(lambda: kernel_fn(*args)), time_ms(lambda: plain_fn(*args))
         p2, k2 = time_ms(lambda: plain_fn(*args)), time_ms(lambda: kernel_fn(*args))
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+        dev_ms = device_ms(lambda: kernel_fn(*args), funcs)
+        plain_dev_ms = device_ms(lambda: plain_fn(*args))
+        # Bound: each input read once, each output written once; a few
+        # float32 operations per value read (compares, window sums, blends).
+        if name == "crop_unit":
+            images, top_left, box_inds = args
+            moved = crop_taps(images, top_left, box_inds, CROP) + nbytes(top_left, box_inds, outs)
+            ops = 8 * outs.numel()  # 4 taps: 4 multiplies, 4 adds per value
+        else:
+            moved = nbytes(args[0], *outs)
+            ops = 9 * args[0].numel()  # 8 neighbour compares and a threshold
+        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        library_ms = None
+        extra = ""
+        if name == "crop_unit":
+            images, top_left, box_inds = args
+            f32 = images.float()
+            lib = grid_sample_crops(f32, top_left, box_inds, CROP)
+            lib_out = lib().permute(0, 2, 3, 1)
+            e_lib = max_abs(lib_out, cuda_crops.crop_unit_plain(f32, top_left, box_inds, (CROP, CROP)))
+            f32_fn = lambda: cuda_crops.crop_unit_cuda(f32, top_left, box_inds, (CROP, CROP))
+            library_ms, f32_ms = time_ms(lib), time_ms(f32_fn)
+            lib_dev, f32_dev = device_ms(lib), device_ms(f32_fn, funcs)
+            extra = (f"; on float32 frames: kernel {f32_ms:.4f} ms per call, {f32_dev:.4f} ms "
+                     f"device; F.grid_sample {library_ms:.4f} ms per call, {lib_dev:.4f} ms device "
+                     f"(max |d| vs plain {e_lib:.3g}, float32 rounding of its normalized grid)")
+        log(f"{name}: per call {ms:.4f} ms (plain {plain_ms:.4f}); device {dev_ms:.4f} ms "
+            f"(plain {plain_dev_ms:.4f}); bound {bound_ms:.4f} ms ({moved / 1e6:.2f} MB), "
+            f"{100 * bound_ms / dev_ms:.1f} % of it{extra} ({card})")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
         })
+    return kernels
 
-    leaked = [m for m in sys.modules
-              if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx")]
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU.")
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # Phase 2: build, run folders, loading.
+    from sleap_tpu_torch.ops import _build, cuda_crops, cuda_peaks
+
+    t0 = time.perf_counter()
+    lib_path = _build.build_library()
+    _build.load_library()
+    log(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    frames = synthetic_frames((1 + TIMED_BATCHES) * BATCH, seed=0)
+    with tempfile.TemporaryDirectory() as root:
+        folders = write_run_folders(root)
+        td, td_cpu, bu = load_predictors(folders)
+    log(f"loaded {type(td).__name__} and {type(bu[0]).__name__} from run folders on "
+        f"{td.device} and {bu[0].device}")
+
+    # Phase 3: each kernel vs its plain version.
+    gen = torch.Generator(device=device).manual_seed(0)
+    errs = check_kernels(device, gen)
+    path_maps, heads = path_head_maps(bu[0], frames[:BATCH])
+    errs["local_peaks_hwcs"] = check_hwcs(device, gen, path_maps)
+
+    launches, fps = {}, {}
+    # Phase 4: the top-down path.
+    td_wrappers = {
+        "local_peaks": cuda_peaks.local_peaks_cuda,
+        "crop_unit": cuda_crops.crop_unit_cuda,
+        "global_peaks": cuda_peaks.global_peaks_cuda,
+    }
+    out, counts, fps["top-down"] = run_path("top-down", td, frames, td_wrappers)
+    launches.update(counts)
+    check_topdown(td, td_cpu, frames, out)
+
+    # Phase 4b: the bottom-up path.
+    out, counts, fps["bottom-up"] = run_path(
+        "bottom-up", bu[0], frames, {"local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda}
+    )
+    launches.update(counts)
+    check_bottomup(bu, frames, out, heads)
+
+    # Phase 5: kernel and plain version times at the main-path shapes.
+    kernels = kernel_rows(errs, launches, card)
+
+    leaked = [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2")]
     check(not leaked, f"JAX-side modules imported: {leaked[:5]}")
 
     log(f"top-down path: {fps['top-down']:.1f} FPS ({card})")

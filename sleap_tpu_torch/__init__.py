@@ -10,7 +10,15 @@ its JAX counterpart on the same inputs.
 The four Pallas kernels of those paths are hand-written CUDA kernels for
 Hopper (``csrc/``, bound in ``ops/cuda_peaks.py`` and ``ops/cuda_crops.py``).
 A CPU tensor runs the plain PyTorch version of each kernel; a CUDA tensor
-launches the kernel or raises. Nothing here imports JAX.
+launches the kernel or raises.
+
+Nothing here imports JAX or the JAX package ``sleap_tpu``: run folders,
+skeletons, videos, providers and ``Labels`` are the port's own copies in
+plain Python (``config.py``, ``core/``, ``io/``, ``data/``), so
+``load_model(folder)`` runs where only PyTorch is installed. ``h5py`` and
+``cv2`` are imported only inside the functions that read Keras weights or
+resize mixed-size frames. Entry points run on ``"cuda"`` unless the caller
+passes another device.
 """
 
 

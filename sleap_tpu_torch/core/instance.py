@@ -1,0 +1,83 @@
+"""Predicted instances and labeled frames: what ``predict`` returns.
+
+The part of :mod:`sleap_tpu.core.instance` that predictions fill, with its
+field names and semantics: points live in a structured array of the
+``.slp`` predicted-point dtype (x, y, visible, complete, score), a point with
+a NaN coordinate is missing and invisible, and ``numpy()`` gives (n_nodes, 2)
+xy with invisible points as NaN.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterable, List, Optional
+
+import numpy as np
+
+from sleap_tpu_torch.core.skeleton import Skeleton
+
+PRED_POINT_DTYPE = np.dtype(
+    [("x", "<f8"), ("y", "<f8"), ("visible", "?"), ("complete", "?"), ("score", "<f8")]
+)
+
+
+class PredictedInstance:
+    """One predicted animal: a skeleton, its points and scores."""
+
+    def __init__(self, skeleton: Skeleton, points: np.ndarray, score: float = 0.0):
+        if skeleton is None:
+            raise TypeError("PredictedInstance requires a skeleton.")
+        if points.dtype != PRED_POINT_DTYPE or len(points) != len(skeleton.nodes):
+            raise ValueError(
+                f"Expected {len(skeleton.nodes)} points of the predicted-point dtype, "
+                f"got {len(points)} of {points.dtype}."
+            )
+        self.skeleton = skeleton
+        self.points = points
+        self.score = float(score)
+
+    @classmethod
+    def from_arrays(
+        cls,
+        points: np.ndarray,
+        point_confidences: np.ndarray,
+        instance_score: float,
+        skeleton: Skeleton,
+    ) -> "PredictedInstance":
+        """From (n_nodes, 2) xy and (n_nodes,) confidences (NaN scores -> 0)."""
+        points = np.asarray(points, dtype="f8")
+        confs = np.asarray(point_confidences, dtype="f8").reshape(-1)
+        pts = np.zeros(len(points), dtype=PRED_POINT_DTYPE)
+        pts["x"] = points[:, 0]
+        pts["y"] = points[:, 1]
+        pts["visible"] = ~(np.isnan(points[:, 0]) | np.isnan(points[:, 1]))
+        pts["score"] = np.where(np.isnan(confs), 0.0, confs)
+        return cls(skeleton=skeleton, points=pts, score=instance_score)
+
+    def numpy(self) -> np.ndarray:
+        """(n_nodes, 2) xy; invisible points NaN."""
+        xy = np.stack([self.points["x"], self.points["y"]], axis=-1).astype("f8")
+        xy[~self.points["visible"]] = np.nan
+        return xy
+
+    def __repr__(self) -> str:
+        return (
+            f"PredictedInstance(points={int(self.points['visible'].sum())}/{len(self.points)}, "
+            f"score={self.score:.2f})"
+        )
+
+
+class LabeledFrame:
+    """The instances in one frame of one video."""
+
+    def __init__(self, video: Any, frame_idx: int,
+                 instances: Optional[Iterable[PredictedInstance]] = None):
+        self.video = video
+        self.frame_idx = int(frame_idx)
+        self.instances: List[PredictedInstance] = list(instances or [])
+
+    @property
+    def image(self) -> np.ndarray:
+        return self.video.get_frame(self.frame_idx)
+
+    def __repr__(self) -> str:
+        return f"LabeledFrame(frame_idx={self.frame_idx}, instances={len(self.instances)})"

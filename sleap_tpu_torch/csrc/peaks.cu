@@ -4,14 +4,15 @@
 //   - global_peaks_kernel <- _peak_kernel (find_global_peaks_integral_pallas)
 //   - local_peaks_kernel  <- _local_peaks_kernel{,_banded,_packed}
 //                            (find_local_peaks_fused_pallas)
-//   - hwcs_tile_kernel + hwcs_merge_kernel <- _hwcs_kernel
+//   - hwcs_band_kernel    <- _hwcs_kernel
 //                            (find_local_peaks_fused_pallas_hwcs)
 // Bound to PyTorch with ctypes from sleap_tpu_torch/ops/cuda_peaks.py, which
 // also holds each kernel's plain PyTorch version and the design notes.
 //
 // Maps are read in place through the caller's (S, H, W, C) element strides,
 // so an NHWC view of an NCHW conv output needs no transpose copy. Map m is
-// (sample m / C, channel m % C). One thread block owns one map.
+// (sample m / C, channel m % C). In kernels 1 and 2 one thread block owns
+// one map; kernel 4 streams bands of rows (see its section).
 //
 // Order of peaks: by value descending, ties to the smallest row-major index
 // (jnp.argmax's first occurrence; lax.top_k's lower index first).
@@ -258,191 +259,417 @@ cudaError_t launch_local(const float* cms, int64_t sS, int64_t sH, int64_t sW, i
 // -inf without changing any NMS result, and the zero-padded integral window
 // reads the same zeros.
 //
-// Pass 1, hwcs_tile_kernel: one block per (tile of BH x BW pixels, sample)
-// stages the tile, all C channels, plus a 2-pixel halo into shared memory
-// (bf16, zero outside the map; reads go through the caller's strides, so
-// threads walk the (x, c) axis that is contiguous in channels-last memory),
-// appends each NMS survivor's key to its channel's list, then one warp per
-// channel takes the list's top K by K rounds of warp max and refines each
-// winner from the staged window. Survivors are never 8-adjacent, so a list
-// holds at most ceil(BH/2) * ceil(BW/2) keys. Output: K (key, dx, dy) per
-// (sample, channel, tile), empty slots kEmptyKey.
-// Pass 2, hwcs_merge_kernel: one warp per (sample, channel) takes the top K
-// of its tiles' candidates and decodes value, x and y from the keys.
+// Bound by reading the maps once: 16 x 256^2 x 13 bf16 = 27 MB on the
+// bottom-up main path, 8.1 us at 3.35 TB/s. The design streams rows, as the
+// TPU kernel does with its 4-row VMEM ring, but in parallel bands:
 //
-// Bound by reading the maps once (16 x 256^2 x 13 bf16 = 27 MB on the
-// bottom-up main path, ~8 us at 3.35 TB/s); the halo rows add (BH+4)/BH of
-// that. Nothing carries over between blocks, unlike the TPU kernel's
-// sequential row stream with its top-K kept across grid steps.
+// - One block owns a band of 16 rows x up to 256 columns x up to 16 channels
+//   of one sample (grid: bands x column segments, samples, channel groups),
+//   and streams the band's rows, plus one halo row above and below, through
+//   a ring of kHwcsSlots row slots in shared memory. The halo costs
+//   18 / 16 of the bytes.
+// - Channels-last rows that are 16-byte aligned and contiguous (the bf16
+//   head conv's output) are copied with 16-byte cp.async, kHwcsSlots - 1 rows
+//   ahead of the row being read, so loads overlap the NMS. Any other layout
+//   (an NCHW view, W*C*2 % 16 != 0, wide or many-channel maps) stages
+//   element by element through the caller's strides, prefetched into
+//   registers a step ahead; it is the same kernel, not the plain version.
+// - blockDim = 32 * channels, so thread i always has channel i % nch and
+//   columns i / nch + 32k: its (x, c) offsets are computed once, a warp reads
+//   consecutive bf16 values, and no division is left in the row loop.
+// - NMS is separable: each thread keeps, per column, the 3-max of the row
+//   above and the centre and side max of the current row in registers, so a
+//   pixel costs three shared-memory reads, survivors or not.
+// - Survivors go into a sorted top-K of the thread's own channel in
+//   registers, behind a cut-off: the larger of the list's last key and the
+//   channel's shared one, which a thread raises (one shared-memory atomicMax)
+//   when its list's last key rises, so noisy maps soon stop inserting. At
+//   the band's end the 32 lists of a channel merge by K rounds of warp max.
+// - The merge folds into the same launch: the last block of each sample to
+//   finish (a ticket, reset after use) takes each channel's top K of the
+//   bands' candidates, decodes value and xy from the keys and refines them
+//   from the raw map, one winner per lane.
 // ---------------------------------------------------------------------------
 
-constexpr int kHwcsHalo = 2;
 constexpr int kEmptyKey = (int)0x80000000;
+constexpr int kHwcsSlots = 4;      // the row being read and 3 in flight
+constexpr int kHwcsMaxCh = 16;     // channels of one block (blockDim <= 512)
+constexpr int kHwcsCols = 8;       // columns per thread
+constexpr int kHwcsBlockCols = kHwcsCols * 32;  // columns per block
+constexpr int kHwcsRows = 16;      // rows per block (a band)
+constexpr int kHwcsSmemLimit = 200 * 1024;  // below the 227 KB opt-in, less static smem
 
 __device__ __forceinline__ float bf16_bits_to_float(uint16_t bits) {
   return __uint_as_float((uint32_t)bits << 16);
 }
 
-// Largest key in the warp (and its index); every lane gets the result.
-// Keys of one map are unique, so the index of a non-empty key is too.
-__device__ __forceinline__ void warp_max_key(int& key, int& idx) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ok = __shfl_xor_sync(0xffffffffu, key, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (ok > key || (ok == key && oi < idx)) {
-      key = ok;
-      idx = oi;
-    }
+// max that propagates NaN, as the plain version's comparisons do (a NaN
+// neighbour makes v > neighbour false).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Insert into a list sorted descending (registers: static indices only).
+template <int KMAX>
+__device__ __forceinline__ void insert_key(int (&lk)[KMAX], int key) {
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    const int cur = lk[i];
+    const bool gt = key > cur;
+    lk[i] = gt ? key : cur;
+    key = gt ? cur : key;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-hwcs_tile_kernel(const uint16_t* __restrict__ cms, int64_t sS, int64_t sH, int64_t sW,
+template <int KMAX>
+__device__ __forceinline__ void pop_head(int (&lk)[KMAX]) {
+#pragma unroll
+  for (int i = 0; i + 1 < KMAX; ++i) lk[i] = lk[i + 1];
+  lk[KMAX - 1] = kEmptyKey;
+}
+
+// Slot layout, in bf16 elements: column lx in [-1, 256] of channel cl at
+// pad + lx * nch + cl, pad = nch rounded up to 8, so column 0 of a slot is
+// 16-byte aligned for cp.async and the halo columns are slot memory too.
+// Columns past the block's stay zero, so every thread reads all its columns.
+template <int KMAX, bool FAST>
+__global__ void __launch_bounds__(kHwcsMaxCh * 32)
+hwcs_band_kernel(const uint16_t* __restrict__ cms, int64_t sS, int64_t sH, int64_t sW,
                  int64_t sC, int H, int W, int C, int K, float threshold, int refine,
-                 int BH, int BW, int n_wseg, int cap, int* __restrict__ cand_keys,
-                 float* __restrict__ cand_dx, float* __restrict__ cand_dy) {
+                 int n_segs, int nch, int slot_elems, int smem_ints,
+                 int* __restrict__ cand, unsigned* __restrict__ tickets,
+                 float* __restrict__ peaks, float* __restrict__ vals) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int TH = BH + 2 * kHwcsHalo;
-  const int TW = BW + 2 * kHwcsHalo;
-  uint16_t* tile = reinterpret_cast<uint16_t*>(smem);
-  const size_t tile_bytes = ((size_t)TH * TW * C * sizeof(uint16_t) + 15) & ~(size_t)15;
-  int* count = reinterpret_cast<int*>(smem + tile_bytes);
-  int* lists = count + C;
-
-  const int t_id = blockIdx.x;
-  const int n_tiles = gridDim.x;
-  const int s = blockIdx.y;
-  const int r0 = (t_id / n_wseg) * BH;
-  const int c0 = (t_id % n_wseg) * BW;
-  const uint16_t* map = cms + (int64_t)s * sS;
-
-  for (int c = threadIdx.x; c < C; c += blockDim.x) count[c] = 0;
-  const int row_elems = TW * C;
-  for (int i = threadIdx.x; i < TH * row_elems; i += blockDim.x) {
-    const int ty = i / row_elems;
-    const int rem = i - ty * row_elems;
-    const int tx = rem / C;
-    const int c = rem - tx * C;
-    const int y = r0 - kHwcsHalo + ty;
-    const int x = c0 - kHwcsHalo + tx;
-    uint16_t v = 0;
-    if (y >= 0 && y < H && x >= 0 && x < W) v = map[y * sH + x * sW + c * sC];
-    tile[i] = v;
-  }
-  __syncthreads();
-
-  const int HW = H * W;
-  const int inner = BW * C;
-  for (int i = threadIdx.x; i < BH * inner; i += blockDim.x) {
-    const int ly = i / inner;
-    const int rem = i - ly * inner;
-    const int lx = rem / C;
-    const int c = rem - lx * C;
-    const int y = r0 + ly;
-    const int x = c0 + lx;
-    if (y >= H || x >= W) continue;
-    const int t = ((ly + kHwcsHalo) * TW + lx + kHwcsHalo) * C + c;
-    const uint16_t bits = tile[t];
-    const float v = bf16_bits_to_float(bits);
-    if (!(v > threshold)) continue;
-    bool peak = true;
-    for (int dy = -1; dy <= 1 && peak; ++dy) {
-      for (int dx = -1; dx <= 1; ++dx) {
-        if (dy == 0 && dx == 0) continue;
-        if (!(v > bf16_bits_to_float(tile[t + (dy * TW + dx) * C]))) {
-          peak = false;
-          break;
-        }
-      }
-    }
-    if (!peak) continue;
-    const int key = (int)(((uint32_t)bits << 16) | (uint32_t)(HW - 1 - (y * W + x)));
-    lists[c * cap + atomicAdd(&count[c], 1)] = key;
-  }
-  __syncthreads();
+  __shared__ int is_last;
+  __shared__ int cut[kHwcsMaxCh];  // per channel: a key no top K needs
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int c = warp; c < C; c += blockDim.x >> 5) {
-    const int n = count[c];
-    const int* list = lists + c * cap;
-    const int64_t base = (((int64_t)s * C + c) * n_tiles + t_id) * K;
+  const int cl = threadIdx.x % nch;   // this thread's channel in the group
+  const int lx0 = threadIdx.x / nch;  // its first column; then every 32nd
+  const int part = blockIdx.x;
+  const int n_parts = gridDim.x;
+  const int band = part / n_segs;
+  const int seg = part - band * n_segs;
+  const int s = blockIdx.y;
+  const int c0 = blockIdx.z * nch;
+  const bool has_c = c0 + cl < C;
+  const int y0 = band * kHwcsRows;
+  const int y1 = min(y0 + kHwcsRows, H);
+  const int x0 = seg * kHwcsBlockCols;
+  const int bw = min(kHwcsBlockCols, W - x0);
+  const int pad = (nch + 7) & ~7;
+  const int HW = H * W;
+  const uint16_t* map = cms + (int64_t)s * sS;
+
+  // Zero the ring once: the fast path never writes the halo columns.
+  for (int i = threadIdx.x; i < kHwcsSlots * slot_elems / 2; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(ring)[i] = 0u;
+  if (threadIdx.x < nch) cut[threadIdx.x] = kEmptyKey;
+  __syncthreads();
+
+  auto slot = [&](int r) { return ring + ((r - y0 + 1) % kHwcsSlots) * slot_elems + pad; };
+  // Fast path: row r's W*C contiguous values, 16 bytes per copy.
+  auto copy_row = [&](int r) {
+    if (r > y1) return;
+    uint16_t* dst = slot(r);
+    if (r < 0 || r >= H) {  // outside the map: zeros
+      for (int e = threadIdx.x; e < W * C; e += blockDim.x) dst[e] = 0;
+      return;
+    }
+    const uint16_t* src = map + (int64_t)r * sH;
+    for (int i = threadIdx.x; i < (W * C) >> 3; i += blockDim.x)
+      cp_async16(dst + 8 * i, src + 8 * i);
+  };
+  // Strided path: this thread's columns lx0 - 1 + 32k (halo included) of
+  // its channel, fetched into registers, stored after the step's NMS.
+  uint16_t pre[kHwcsCols + 1];
+  auto fetch_row = [&](int r) {
+    const bool in_map = r >= 0 && r < H && r <= y1 && has_c;
+    const uint16_t* src = map + (int64_t)(in_map ? r : 0) * sH + (int64_t)(c0 + cl) * sC;
+#pragma unroll
+    for (int k = 0; k <= kHwcsCols; ++k) {
+      const int lx = lx0 - 1 + 32 * k;
+      const int x = x0 + lx;
+      pre[k] = (in_map && lx <= bw && x >= 0 && x < W) ? src[(int64_t)x * sW] : (uint16_t)0;
+    }
+  };
+  auto store_row = [&](int r) {
+    if (r > y1) return;
+    uint16_t* dst = slot(r) + cl;
+#pragma unroll
+    for (int k = 0; k <= kHwcsCols; ++k) {
+      const int lx = lx0 - 1 + 32 * k;
+      if (lx <= bw) dst[lx * nch] = pre[k];
+    }
+  };
+
+  // Prologue: rows y0 - 1 .. y0 + kHwcsSlots - 3 in flight.
+  for (int r = y0 - 1; r <= y0 + kHwcsSlots - 3; ++r) {
+    if constexpr (FAST) {
+      copy_row(r);
+    } else {
+      fetch_row(r);
+      store_row(r);
+    }
+    cp_async_commit();
+  }
+
+  int lk[KMAX];
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) lk[i] = kEmptyKey;
+  // The thread's columns inside the block (none if its channel is past C):
+  // lx0 + 32k < bw for k < n_cols.
+  const int n_cols = has_c ? min(max((bw - lx0 + 31) / 32, 0), kHwcsCols) : 0;
+  const unsigned col_mask = (1u << n_cols) - 1u;
+  float hm_prev[kHwcsCols], ca[kHwcsCols], sa[kHwcsCols], cb[kHwcsCols], sb[kHwcsCols];
+#pragma unroll
+  for (int k = 0; k < kHwcsCols; ++k) hm_prev[k] = ca[k] = sa[k] = cb[k] = sb[k] = 0.f;
+
+  // Step r reads row r into (c_new, s_new) and tests row r - 1, whose
+  // centres and side maxima are (c_old, s_old) and whose row above has the
+  // 3-max hm_prev. Rows go in pairs with the two register sets swapped, so
+  // nothing is copied from one step to the next.
+  auto step = [&](int r, float (&c_old)[kHwcsCols], float (&s_old)[kHwcsCols],
+                  float (&c_new)[kHwcsCols], float (&s_new)[kHwcsCols]) {
+    cp_async_wait<kHwcsSlots - 2>();
+    __syncthreads();  // row r has landed; row r - 1's slot is free
+    const int ahead = r + kHwcsSlots - 1;
+    if constexpr (FAST)
+      copy_row(ahead);
+    else
+      fetch_row(ahead);
+    cp_async_commit();
+
+    // Loads for all columns first (slots span 256 columns, so they are in
+    // bounds; columns past the block's read zeros), then a branch-free
+    // survivor mask, then inserts only where a bit is set.
+    const uint16_t* row = slot(r) + cl + lx0 * nch;
+    const int stride = 32 * nch;
+#pragma unroll
+    for (int k = 0; k < kHwcsCols; ++k) {
+      const uint16_t* q = row + k * stride;
+      c_new[k] = bf16_bits_to_float(q[0]);
+      s_new[k] = max_nan(bf16_bits_to_float(q[-nch]), bf16_bits_to_float(q[nch]));
+    }
+    // The cut-off: the larger of this list's last key and the channel's
+    // shared one (the largest last key of its threads: the block holds K
+    // keys above it, so a survivor below it is never in the top K). Its
+    // value part joins the mask, so full lists stop taking the branch.
+    const int cut_c = cut[cl];
+    const int floor_key = max(lk[KMAX - 1], cut_c);
+    const float floor_v =
+        floor_key == kEmptyKey ? -INFINITY : __int_as_float(floor_key & (int)0xffff0000);
+    unsigned mask = 0u;
+#pragma unroll
+    for (int k = 0; k < kHwcsCols; ++k) {
+      const float v = c_old[k];
+      const bool peak = v > threshold && v >= floor_v && v > s_old[k] && v > hm_prev[k] &&
+                        v > max_nan(c_new[k], s_new[k]);
+      mask |= (unsigned)peak << k;
+    }
+    mask &= r > y0 ? col_mask : 0u;
+    if (mask) {
+      const int lin0 = (r - 1) * W + x0 + lx0;
+#pragma unroll
+      for (int k = 0; k < kHwcsCols; ++k) {
+        if (mask >> k & 1u) {
+          const int key = (int)((__float_as_uint(c_old[k]) & 0xffff0000u) |
+                                (uint32_t)(HW - 1 - (lin0 + 32 * k)));
+          if (key > lk[KMAX - 1] && key > cut_c) {
+            insert_key(lk, key);
+            if (lk[KMAX - 1] > cut_c) atomicMax(cut + cl, lk[KMAX - 1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kHwcsCols; ++k) hm_prev[k] = max_nan(c_old[k], s_old[k]);
+    if constexpr (!FAST) store_row(ahead);
+  };
+  for (int r = y0 - 1; r <= y1; r += 2) {
+    step(r, ca, sa, cb, sb);
+    if (r + 1 <= y1) step(r + 1, cb, sb, ca, sa);
+  }
+
+  // The band's top K of each channel: 32 thread lists, K rounds of warp max.
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  int* lists = reinterpret_cast<int*>(smem);
+  {
+    int* mine = lists + (cl * 32 + lx0) * K;
+#pragma unroll
+    for (int t = 0; t < KMAX; ++t)
+      if (t < K) mine[t] = lk[t];
+  }
+  __syncthreads();
+  if (c0 + warp < C && warp < nch) {
+    const int* theirs = lists + (warp * 32 + lane) * K;
+    int hk[KMAX];
+#pragma unroll
+    for (int t = 0; t < KMAX; ++t) hk[t] = t < K ? theirs[t] : kEmptyKey;
+    int* out = cand + (((int64_t)s * C + c0 + warp) * n_parts + part) * K;
+    for (int j = 0; j < K; ++j) {
+      const int best = __reduce_max_sync(0xffffffffu, hk[0]);
+      if (best != kEmptyKey && hk[0] == best) pop_head(hk);
+      if (lane == 0) out[j] = best;
+    }
+  }
+
+  // The last block of sample s merges every channel's candidates.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(tickets + s, 1u) == (unsigned)(gridDim.x * gridDim.z) - 1u;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  const int n = n_parts * K;
+  const int slice = smem_ints / (blockDim.x >> 5);
+  int* stage = reinterpret_cast<int*>(smem) + warp * slice;
+  const bool staged = n <= slice;
+  for (int cc = warp; cc < C; cc += blockDim.x >> 5) {
+    const int* list = cand + ((int64_t)s * C + cc) * n;
+    if (staged) {
+      for (int t = lane; t < n; t += 32) stage[t] = __ldcg(list + t);
+      __syncwarp();
+    }
+    int win0 = kEmptyKey, win1 = kEmptyKey;
     int last = 0x7fffffff;
     for (int j = 0; j < K; ++j) {
-      int best = kEmptyKey, unused = 0;
+      int best = kEmptyKey;
       if (last != kEmptyKey) {
         for (int t = lane; t < n; t += 32) {
-          const int k = list[t];
+          const int k = staged ? stage[t] : __ldcg(list + t);
           if (k < last && k > best) best = k;
         }
       }
-      warp_max_key(best, unused);
-      float dx = 0.f, dy = 0.f;
-      if (refine && best != kEmptyKey) {
-        const int lin = HW - 1 - (best & 0xffff);
-        const int ly = lin / W - r0 + kHwcsHalo;
-        const int lx = lin % W - c0 + kHwcsHalo;
-        float z = 0.f, sx = 0.f, sy = 0.f;
-        if (lane < 25) {
-          const int u = lane / 5 - 2;
-          const int w = lane % 5 - 2;
-          const float v = bf16_bits_to_float(tile[((ly + u) * TW + lx + w) * C + c]);
-          z = v;
-          sx = v * (float)w;
-          sy = v * (float)u;
-        }
-        z = warp_sum(z);
-        dx = warp_sum(sx) / z;
-        dy = warp_sum(sy) / z;
-      }
-      if (lane == 0) {
-        cand_keys[base + j] = best;
-        cand_dx[base + j] = dx;
-        cand_dy[base + j] = dy;
+      best = __reduce_max_sync(0xffffffffu, best);
+      if (lane == (j & 31)) {
+        if (j < 32)
+          win0 = best;
+        else
+          win1 = best;
       }
       last = best;
     }
-  }
-}
+    __syncwarp();  // the slice is restaged for the next channel
 
-__global__ void __launch_bounds__(kThreads)
-hwcs_merge_kernel(const int* __restrict__ cand_keys, const float* __restrict__ cand_dx,
-                  const float* __restrict__ cand_dy, int n_maps, int n_cand, int H, int W,
-                  int K, float* __restrict__ peaks, float* __restrict__ vals) {
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (m >= n_maps) return;  // whole warps only
-  const int* keys = cand_keys + (int64_t)m * n_cand;
-  const int HW = H * W;
-  int last = 0x7fffffff;
-  for (int j = 0; j < K; ++j) {
-    int best = kEmptyKey, bi = 0;
-    if (last != kEmptyKey) {
-      for (int t = lane; t < n_cand; t += 32) {
-        const int k = keys[t];
-        if (k < last && k > best) {
-          best = k;
-          bi = t;
+    // Lane j decodes winner j (and j + 32), refined from the raw map.
+    const uint16_t* m = map + (int64_t)cc * sC;
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      if (j >= K) break;
+      const int key = h ? win1 : win0;
+      float x = NAN, y = NAN, val = -INFINITY;
+      if (key != kEmptyKey) {
+        const int lin = HW - 1 - (key & 0xffff);
+        const int iy = lin / W;
+        const int ix = lin - iy * W;
+        val = __int_as_float(key & (int)0xffff0000);
+        x = (float)ix;
+        y = (float)iy;
+        if (refine) {
+          float z = 0.f, sx = 0.f, sy = 0.f;
+#pragma unroll
+          for (int u = -2; u <= 2; ++u) {
+#pragma unroll
+            for (int w = -2; w <= 2; ++w) {
+              const int yy = iy + u;
+              const int xx = ix + w;
+              if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
+                const float v = bf16_bits_to_float(m[(int64_t)yy * sH + (int64_t)xx * sW]);
+                z += v;
+                sx += v * (float)w;
+                sy += v * (float)u;
+              }
+            }
+          }
+          x += sx / z;
+          y += sy / z;
         }
       }
+      const int64_t o = ((int64_t)s * C + cc) * K + j;
+      vals[o] = val;
+      peaks[2 * o] = x;
+      peaks[2 * o + 1] = y;
     }
-    warp_max_key(best, bi);
-    if (lane == 0) {
-      const int64_t o = (int64_t)m * K + j;
-      if (best == kEmptyKey) {
-        vals[o] = -INFINITY;
-        peaks[2 * o] = NAN;
-        peaks[2 * o + 1] = NAN;
-      } else {
-        const int lin = HW - 1 - (best & 0xffff);
-        const int64_t c = (int64_t)m * n_cand + bi;
-        vals[o] = __int_as_float(best & (int)0xffff0000);
-        peaks[2 * o] = (float)(lin % W) + cand_dx[c];
-        peaks[2 * o + 1] = (float)(lin / W) + cand_dy[c];
-      }
-    }
-    last = best;
   }
+  if (threadIdx.x == 0) tickets[s] = 0u;  // ready for the next launch
+}
+
+template <int KMAX, bool FAST>
+cudaError_t launch_hwcs_path(const uint16_t* cms, int64_t sS, int64_t sH, int64_t sW, int64_t sC,
+                             int S, int H, int W, int C, int K, float threshold, int refine,
+                             int* cand, unsigned* tickets, float* peaks, float* vals,
+                             cudaStream_t stream) {
+  const int nch = C < kHwcsMaxCh ? C : kHwcsMaxCh;
+  const int n_groups = (C + nch - 1) / nch;
+  const int n_segs = (W + kHwcsBlockCols - 1) / kHwcsBlockCols;
+  const int n_bands = (H + kHwcsRows - 1) / kHwcsRows;
+  const int pad = (nch + 7) & ~7;
+  const int slot_elems = (pad + (kHwcsCols * 32 + 1) * nch + 7) & ~7;
+  const int ring_bytes = kHwcsSlots * slot_elems * 2;
+  const int list_bytes = nch * 32 * K * 4;
+  const int smem = ring_bytes > list_bytes ? ring_bytes : list_bytes;
+  if (smem > kHwcsSmemLimit) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    // Once per process and device: dynamic shared memory above 48 KB.
+    static bool raised[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+    if (!raised[dev]) {
+      err = cudaFuncSetAttribute(hwcs_band_kernel<KMAX, FAST>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kHwcsSmemLimit);
+      if (err != cudaSuccess) return err;
+      raised[dev] = true;
+    }
+  }
+  hwcs_band_kernel<KMAX, FAST><<<dim3(n_bands * n_segs, S, n_groups), nch * 32, smem, stream>>>(
+      cms, sS, sH, sW, sC, H, W, C, K, threshold, refine, n_segs, nch, slot_elems, smem / 4,
+      cand, tickets, peaks, vals);
+  return cudaGetLastError();
+}
+
+// Rows take the 16-byte copy path when one block spans the width and all
+// channels, and each row is W * C contiguous bf16 values on a 16-byte
+// boundary (mirrored by ``hwcs_fast_rows`` in ops/cuda_peaks.py for tests).
+bool hwcs_fast_rows(const uint16_t* cms, int64_t sS, int64_t sH, int64_t sW, int64_t sC, int W,
+                    int C) {
+  return sC == 1 && sW == C && C <= kHwcsMaxCh && W <= kHwcsBlockCols && (W * C) % 8 == 0 &&
+         sH % 8 == 0 && sS % 8 == 0 && ((uintptr_t)cms & 15) == 0;
+}
+
+template <int KMAX>
+cudaError_t launch_hwcs(const uint16_t* cms, int64_t sS, int64_t sH, int64_t sW, int64_t sC,
+                        int S, int H, int W, int C, int K, float threshold, int refine,
+                        int* cand, unsigned* tickets, float* peaks, float* vals,
+                        cudaStream_t stream) {
+  if (hwcs_fast_rows(cms, sS, sH, sW, sC, W, C))
+    return launch_hwcs_path<KMAX, true>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, refine,
+                                        cand, tickets, peaks, vals, stream);
+  return launch_hwcs_path<KMAX, false>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, refine,
+                                       cand, tickets, peaks, vals, stream);
 }
 
 }  // namespace
@@ -470,34 +697,17 @@ extern "C" int sleap_local_peaks(const float* cms, int64_t sS, int64_t sH, int64
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel 4. cms holds bf16 bit patterns; (BH, BW) is the tile the caller
-// sized the candidate buffers for: ceil(H/BH) * ceil(W/BW) tiles, each
-// giving K (key, dx, dy) per (sample, channel).
+// Kernel 4. cms holds bf16 bit patterns. The caller passes a workspace:
+// cand holds S * C * ceil(H/16) * ceil(W/256) * K keys, tickets S zeros (the
+// kernel leaves them zero). K is rounded up to a list length of 8, 16 or 64.
 extern "C" int sleap_local_peaks_hwcs(const uint16_t* cms, int64_t sS, int64_t sH, int64_t sW,
                                       int64_t sC, int S, int H, int W, int C, int K,
-                                      float threshold, int refine, int BH, int BW,
-                                      int* cand_keys, float* cand_dx, float* cand_dy,
+                                      float threshold, int refine, int* cand, unsigned* tickets,
                                       float* peaks, float* vals, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if ((int64_t)H * W > 65536 || K < 1 || K > 64 || BH < 1 || BW < 1 || S > 65535)
+  if ((int64_t)H * W > 65536 || K < 1 || K > 64 || S > 65535 || C < 1)
     return (int)cudaErrorInvalidValue;
-  const int n_wseg = (W + BW - 1) / BW;
-  const int n_tiles = ((H + BH - 1) / BH) * n_wseg;
-  const int cap = ((BH + 1) / 2) * ((BW + 1) / 2);
-  const size_t tile_bytes =
-      ((size_t)(BH + 2 * kHwcsHalo) * (BW + 2 * kHwcsHalo) * C * sizeof(uint16_t) + 15) &
-      ~(size_t)15;
-  const size_t smem = tile_bytes + (size_t)C * (1 + cap) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      hwcs_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  hwcs_tile_kernel<<<dim3(n_tiles, S), kThreads, smem, st>>>(
-      cms, sS, sH, sW, sC, H, W, C, K, threshold, refine, BH, BW, n_wseg, cap, cand_keys,
-      cand_dx, cand_dy);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int warps = kThreads / 32;
-  hwcs_merge_kernel<<<(S * C + warps - 1) / warps, kThreads, 0, st>>>(
-      cand_keys, cand_dx, cand_dy, S * C, n_tiles * K, H, W, K, peaks, vals);
-  return (int)cudaGetLastError();
+  if (K <= 8) return (int)launch_hwcs<8>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, refine, cand, tickets, peaks, vals, st);
+  if (K <= 16) return (int)launch_hwcs<16>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, refine, cand, tickets, peaks, vals, st);
+  return (int)launch_hwcs<64>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, refine, cand, tickets, peaks, vals, st);
 }

@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from sleap_tpu_torch.core.instance import LabeledFrame, PredictedInstance
 from sleap_tpu_torch.inference.predictors import (
     Predictor,
     TrainedModel,
@@ -114,8 +115,6 @@ class BottomUpPredictor(Predictor):
         return {"instance_peaks": peaks, "instance_peak_vals": peak_vals, "instance_scores": scores}
 
     def _make_labeled_frames(self, examples, videos):
-        from sleap_tpu.core.instance import LabeledFrame, PredictedInstance
-
         skeleton = _skeleton(self.bottomup_model)
         frames = []
         for ex in examples:

@@ -13,9 +13,10 @@ package's:
   back to the frame dtype by truncation, and crop offsets are divided by the
   instance model's input scale.
 
-Only numpy frames with ``make_labels=False`` avoid ``sleap_tpu`` entirely;
-reading run folders, videos and ``.slp`` files, and assembling ``Labels``,
-use the JAX package's JAX-free modules (config, providers, core).
+Run folders, providers and ``Labels`` are the port's own
+(:mod:`sleap_tpu_torch.config`, :mod:`~sleap_tpu_torch.data.providers`,
+:mod:`~sleap_tpu_torch.core`): nothing here imports the JAX package. Entry
+points run on ``"cuda"`` unless the caller passes another device.
 """
 
 from __future__ import annotations
@@ -28,14 +29,27 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sleap_tpu_torch.config import TrainingJobConfig
+from sleap_tpu_torch.core.instance import LabeledFrame, PredictedInstance
+from sleap_tpu_torch.core.labels import Labels
+from sleap_tpu_torch.core.skeleton import Skeleton
 from sleap_tpu_torch.data.normalization import (
     apply_imagenet_mode,
     ensure_float,
     ensure_grayscale,
     ensure_rgb,
 )
+from sleap_tpu_torch.data.prefetch import prefetch
+from sleap_tpu_torch.data.providers import (
+    LabelsReader,
+    VideoReader,
+    batch_examples,
+    provider_needs_size_matching,
+)
 from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image
 from sleap_tpu_torch.data.streaming import stage_to_device
+from sleap_tpu_torch.io.keras_h5 import read_keras_weights
+from sleap_tpu_torch.io.video import Video
 from sleap_tpu_torch.models.model import Model, PoseNet, find_head
 from sleap_tpu_torch.models.params import state_dict_from_flax, state_dict_from_keras
 from sleap_tpu_torch.ops.peak_finding import (
@@ -67,14 +81,14 @@ class TrainedModel:
     crop_size: Optional[int] = None
     grayscale: bool = True
     imagenet_mode: Optional[str] = None
-    skeleton: Any = None  # a sleap_tpu Skeleton, used when building Labels
+    skeleton: Optional[Skeleton] = None  # used when building Labels
     paf_stride: Optional[int] = None
     edges: List[Tuple[str, str]] = field(default_factory=list)
 
 
 def load_trained_model(
     model_path: str,
-    device: Union[str, torch.device],
+    device: Union[str, torch.device] = "cuda",
     params: Optional[Mapping[str, Any]] = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> TrainedModel:
@@ -86,8 +100,6 @@ def load_trained_model(
     a folder with neither raises. ``compute_dtype`` is the network's (float32
     or bf16, see :class:`~sleap_tpu_torch.models.model.PoseNet`).
     """
-    from sleap_tpu.config import TrainingJobConfig
-
     model_dir = os.path.dirname(model_path) if model_path.endswith(".json") else model_path
     config = TrainingJobConfig.load_json(model_dir)
     skeleton = config.data.labels.skeletons[0] if config.data.labels.skeletons else None
@@ -97,8 +109,6 @@ def load_trained_model(
     if params is not None:
         weights, keras, layers = params, False, params.get("backbone", {})
     elif os.path.exists(h5_path):
-        from sleap_tpu.io.keras_h5 import read_keras_weights
-
         weights = layers = read_keras_weights(h5_path)
         keras = True
     else:
@@ -171,8 +181,6 @@ def _skeleton(tm: TrainedModel):
     """The model's skeleton, or one rebuilt from its part names and edges."""
     if tm.skeleton is not None:
         return tm.skeleton
-    from sleap_tpu.core.skeleton import Skeleton
-
     skeleton = Skeleton("skeleton")
     for name in tm.part_names:
         skeleton.add_node(name)
@@ -202,20 +210,20 @@ def _array_batches(frames: np.ndarray, batch_size: int) -> Iterator[Tuple[dict, 
 
 
 def _make_provider(data):
-    from sleap_tpu.core.labels import Labels
-    from sleap_tpu.data.providers import LabelsReader, VideoReader
-    from sleap_tpu.io.video import Video
-
-    if isinstance(data, (LabelsReader, VideoReader)):
+    """A provider from what ``data`` has: a provider already (iterable with
+    ``videos`` and ``max_height_and_width``), labels (``labeled_frames``) or a
+    video (``get_frame``): the port's types or the JAX package's."""
+    if hasattr(data, "max_height_and_width") and hasattr(data, "videos"):
         return data
-    if isinstance(data, Labels):
+    if hasattr(data, "labeled_frames"):
         return LabelsReader(labels=data)
-    if isinstance(data, Video):
+    if hasattr(data, "get_frame"):
         return VideoReader(video=data)
     if isinstance(data, str):
-        if data.endswith(".slp"):
-            return LabelsReader(labels=Labels.load_file(data))
-        return VideoReader.from_filepath(data)
+        raise NotImplementedError(
+            f"Reading {data!r} is not ported yet: .slp files and media videos need h5py "
+            "and cv2 (ROADMAP.md, queue 1). Pass numpy frames, a Video or Labels."
+        )
     raise TypeError(f"Cannot make a data provider from {type(data)}.")
 
 
@@ -226,9 +234,10 @@ def _make_provider(data):
 
 @dataclass(kw_only=True)
 class Predictor:
-    """Runs a model on batches of frames on ``device``."""
+    """Runs a model on batches of frames on ``device`` (the card unless the
+    caller asks for another)."""
 
-    device: torch.device
+    device: torch.device = field(default_factory=lambda: torch.device("cuda"))
     peak_threshold: float = 0.2
     integral_refinement: bool = True
     integral_patch_size: int = 5
@@ -239,7 +248,7 @@ class Predictor:
         cls,
         model_paths: Union[str, Sequence[str]],
         *,
-        device: Union[str, torch.device],
+        device: Union[str, torch.device] = "cuda",
         peak_threshold: float = 0.2,
         integral_refinement: bool = True,
         integral_patch_size: int = 5,
@@ -254,8 +263,6 @@ class Predictor:
         folders whose weights are orbax checkpoints. ``compute_dtype`` is the
         networks' (float32 or bf16).
         """
-        from sleap_tpu.config import TrainingJobConfig
-
         if isinstance(model_paths, str):
             model_paths = [model_paths]
         paths = {}
@@ -302,26 +309,20 @@ class Predictor:
     size_matching = True
 
     def predict(self, data, make_labels: bool = True):
-        """Run inference on numpy frames (N, H, W[, C]) or anything
-        ``sleap_tpu``'s providers read; return ``Labels``, or the per-batch
-        example dicts when ``make_labels`` is False."""
+        """Run inference on numpy frames (N, H, W[, C]), a video or labels
+        (the port's or the JAX package's); return the port's ``Labels``, or
+        the per-batch example dicts when ``make_labels`` is False."""
         t0 = time.time()
         if isinstance(data, np.ndarray):
             frames = data if data.ndim == 4 else data[..., None]
             provider, batches = None, _array_batches(frames, self.batch_size)
         else:
-            from sleap_tpu.data.prefetch import prefetch
-            from sleap_tpu.data.providers import batch_examples, provider_needs_size_matching
-
             provider = _make_provider(data)
             target_hw = provider_needs_size_matching(provider) if self.size_matching else None
             batches = prefetch(batch_examples(provider, self.batch_size, target_hw))
         examples = self._predict_generator(batches)
         if not make_labels:
             return list(examples)
-
-        from sleap_tpu.core.labels import Labels
-        from sleap_tpu.io.video import Video
 
         videos = provider.videos if provider is not None else [Video.from_numpy(frames)]
         labels = Labels(labeled_frames=self._make_labeled_frames(examples, videos))
@@ -393,8 +394,6 @@ class SingleInstancePredictor(Predictor):
         return {"instance_peaks": peaks, "instance_peak_vals": vals}
 
     def _make_labeled_frames(self, examples, videos):
-        from sleap_tpu.core.instance import LabeledFrame, PredictedInstance
-
         skeleton = _skeleton(self.confmap_model)
         frames = []
         for ex in examples:
@@ -518,8 +517,6 @@ class TopDownPredictor(Predictor):
         }
 
     def _make_labeled_frames(self, examples, videos):
-        from sleap_tpu.core.instance import LabeledFrame, PredictedInstance
-
         skeleton = _skeleton(self.confmap_model)
         frames = []
         for ex in examples:
@@ -555,7 +552,7 @@ class TopDownPredictor(Predictor):
 def load_model(
     model_path: Union[str, Sequence[str]],
     *,
-    device: Union[str, torch.device],
+    device: Union[str, torch.device] = "cuda",
     batch_size: int = 4,
     peak_threshold: float = 0.2,
     refinement: str = "integral",
@@ -563,7 +560,8 @@ def load_model(
     params: Optional[Mapping[str, Any]] = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> Predictor:
-    """Load trained model folder(s) as a predictor on ``device``.
+    """Load trained model folder(s) as a predictor on ``device`` (the card
+    by default; pass ``device="cpu"`` for the CPU: there is no fallback).
 
     Single-instance, top-down (centroid + centered-instance) and bottom-up
     (multi-instance) folders are supported; ``params`` maps a folder to its

@@ -23,6 +23,14 @@ from sleap_tpu_torch.models.encoder_decoder import (
     apply_activation,
     first_conv,
 )
+from sleap_tpu_torch.models.heads import (
+    CenteredInstanceConfmapsHead,
+    CentroidConfmapsHead,
+    MultiInstanceConfmapsHead,
+    OffsetRefinementHead,
+    PartAffinityFieldsHead,
+    SingleInstanceConfmapsHead,
+)
 from sleap_tpu_torch.models.unet import UNet
 
 
@@ -146,22 +154,14 @@ class Model:
 
     @classmethod
     def from_config(cls, config, skeleton=None) -> "Model":
-        """From a ``sleap_tpu.config.ModelConfig``: UNet backbones with
-        single-instance, centroid, centered-instance (+ offsets) or
-        multi-instance heads (confmaps, PAFs, + offsets).
+        """From a model config (:class:`sleap_tpu_torch.config.ModelConfig`,
+        or any object with its attributes, the JAX package's included): UNet
+        backbones with single-instance, centroid, centered-instance
+        (+ offsets) or multi-instance heads (confmaps, PAFs, + offsets).
 
         Part names and edges missing from the head config come from
         ``skeleton``, as in the JAX package. Other backbones and heads raise.
         """
-        from sleap_tpu.models.heads import (
-            CenteredInstanceConfmapsHead,
-            CentroidConfmapsHead,
-            MultiInstanceConfmapsHead,
-            OffsetRefinementHead,
-            PartAffinityFieldsHead,
-            SingleInstanceConfmapsHead,
-        )
-
         unet_cfg = config.backbone.unet
         if unet_cfg is None:
             raise NotImplementedError(

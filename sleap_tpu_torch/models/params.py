@@ -80,6 +80,30 @@ def state_dict_from_flax(module: nn.Module, params: Mapping[str, Any]) -> Dict[s
     return _state_dict_from_layers(module, layers, keras=False)
 
 
+def flax_from_state_dict(module: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`state_dict_from_flax`: a module's weights as a
+    flax params tree of float32 numpy arrays, the form
+    ``load_model(params=...)`` takes.
+
+    Conv kernels go OIHW -> HWIO; ``ConvTransposeSame`` kernels
+    (in, out, kh, kw) go back to flax's HWIO, flipped in both spatial axes.
+    Backbone layers sit under ``"backbone"``, each head at the top level.
+    """
+    tree: Dict[str, Any] = {"backbone": {}}
+    for key, value in module.state_dict().items():
+        mod_path, _, pname = key.rpartition(".")
+        lname = mod_path.rsplit(".", 1)[-1]
+        w = value.detach().float().cpu().numpy()
+        if pname == "weight":
+            if isinstance(module.get_submodule(mod_path), ConvTransposeSame):
+                w = w.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                w = w.transpose(2, 3, 1, 0)
+        group = tree["backbone"] if mod_path.startswith("backbone.") else tree
+        group.setdefault(lname, {})[{"weight": "kernel", "bias": "bias"}[pname]] = np.ascontiguousarray(w)
+    return tree
+
+
 def state_dict_from_keras(
     module: nn.Module, weights: Mapping[str, Mapping[str, np.ndarray]]
 ) -> Dict[str, torch.Tensor]:

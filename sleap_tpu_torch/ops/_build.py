@@ -36,7 +36,7 @@ SIGNATURES = {
     "sleap_global_peaks": [_p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _f, _i, _p, _p, _p],
     "sleap_local_peaks": [_p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p],
     "sleap_local_peaks_hwcs": [
-        _p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _i, _i, _p, _p, _p, _p, _p, _p,
+        _p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p, _p, _p,
     ],
     "sleap_crop_unit": [_p, _i, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p],
 }

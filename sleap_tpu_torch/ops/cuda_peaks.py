@@ -34,14 +34,19 @@ Three CUDA kernels (``csrc/peaks.cu``) replace the Pallas kernels of
     ``bf16_bits << 16 | (H*W - 1 - index)``: one integer orders peaks by value
     then by smaller index, so every merge is an integer max. On the bottom-up
     main path (16 samples x 256^2 x 13 channels, channels-last from the head
-    conv) it is bound by reading the maps once: 27 MB, ~8 us at 3.35 TB/s.
-    Design: pass 1 gives each (tile of rows and columns, sample) a block that
-    stages the tile with a 2-pixel halo and all channels in shared memory,
-    keeps each channel's NMS survivors as keys, and writes each channel's
-    top K with refined offsets; pass 2 merges the tiles' candidates, one warp
-    per (sample, channel). Blocks share nothing, where the TPU kernel streamed
-    rows in order and carried its top K across grid steps.
-
+    conv) it is bound by reading the maps once: 27 MB, 8.1 us at 3.35 TB/s.
+    Design (``csrc/peaks.cu``, ``hwcs_band_kernel``): the TPU kernel's row
+    stream, in parallel bands. A block owns 16 rows x up to 256 columns x up
+    to 16 channels of one sample and streams them through a 4-row ring in
+    shared memory: 16-byte ``cp.async`` copies of whole channels-last rows
+    three rows ahead where the rows allow it (:func:`hwcs_fast_rows`), else
+    strided loads prefetched into registers. Each thread has one channel and
+    fixed columns, keeps the separable NMS state of its columns and a
+    top-K of its survivors in registers behind a per-channel cut-off (no
+    atomic per survivor), and the last block of each sample merges the
+    bands' candidates and refines the winners from the raw map, in the same
+    launch. The workspace (candidates, tickets) is kept per device and
+    stream.
 A CPU tensor runs the plain version (:func:`global_peaks_plain`,
 :func:`local_peaks_plain`, :func:`local_peaks_hwcs_plain`); a CUDA tensor
 launches the kernel, and anything else raises. The plain versions are also
@@ -60,7 +65,9 @@ import torch.nn.functional as F
 MAX_K = 64
 HWCS_MAX_PIXELS = 2**16  # the packed key's 16-bit index
 HWCS_HALF = 2  # kernel 4's integral window is 5 x 5
-HWCS_SMEM_BYTES = 113 * 1024  # two tile blocks per SM (227 KB each SM)
+HWCS_BAND_ROWS = 16  # rows per block of kernel 4
+HWCS_MAX_COLS = 256  # columns per block of kernel 4 (8 per thread)
+HWCS_MAX_CHANNELS = 16  # channels per block of kernel 4 (one per 32 threads)
 _EMPTY_KEY = -(2**31)
 
 
@@ -226,23 +233,28 @@ def hwcs_ok(cms: torch.Tensor, threshold: float, half: int) -> bool:
     )
 
 
-def hwcs_tiling(H: int, W: int, C: int) -> Tuple[int, int]:
-    """(rows, columns) of kernel 4's tile: up to 16 full rows, fewer rows
-    and then narrower tiles while the staged tile (bf16, 2-pixel halo) and
-    its candidate lists exceed :data:`HWCS_SMEM_BYTES`."""
+def hwcs_blocks(H: int, W: int) -> int:
+    """Blocks of kernel 4 per sample and channel group: bands of
+    :data:`HWCS_BAND_ROWS` rows by segments of :data:`HWCS_MAX_COLS` columns.
+    Each leaves K candidate keys per channel in the workspace. Channels come
+    in groups of :data:`HWCS_MAX_CHANNELS`, so any channel count fits, and
+    the shared memory (a 4-row ring, at most 33 KB) does not depend on C."""
+    return -(-H // HWCS_BAND_ROWS) * -(-W // HWCS_MAX_COLS)
 
-    def smem(bh: int, bw: int) -> int:
-        tile = -(-(bh + 4) * (bw + 4) * C * 2 // 16) * 16
-        return tile + 4 * C * (1 + -(-bh // 2) * -(-bw // 2))
 
-    bh, bw = min(16, H), W
-    while smem(bh, bw) > HWCS_SMEM_BYTES and bh > 1:
-        bh //= 2
-    while smem(bh, bw) > HWCS_SMEM_BYTES and bw > 1:
-        bw = -(-bw // 2)
-    if smem(bh, bw) > HWCS_SMEM_BYTES:
-        raise ValueError(f"{C} channels do not fit one tile of the local peaks kernel.")
-    return bh, bw
+def hwcs_fast_rows(cms: torch.Tensor) -> bool:
+    """Whether kernel 4 copies whole rows with 16-byte async copies: one
+    block spans the width and all channels, and each row is W * C contiguous
+    bf16 values starting on a 16-byte boundary. The kernel's entry decides
+    this itself (``hwcs_fast_rows`` in ``csrc/peaks.cu``); this mirror names
+    the path in tests and in ``chip_smoke.py``."""
+    S, H, W, C = cms.shape
+    sS, sH, sW, sC = cms.stride()
+    return (
+        sC == 1 and sW == C and C <= HWCS_MAX_CHANNELS and W <= HWCS_MAX_COLS
+        and (W * C) % 8 == 0 and sH % 8 == 0 and sS % 8 == 0
+        and cms.data_ptr() % 16 == 0
+    )
 
 
 # --------------------------------------------------------------------------- #
@@ -311,6 +323,24 @@ def local_peaks_cuda(
 local_peaks_cuda.launches = 0
 
 
+_HWCS_WORKSPACES = {}
+
+
+def _hwcs_workspace(device: torch.device, n_cand: int, n_samples: int):
+    """Kernel 4's candidate keys and per-sample tickets, kept per device and
+    stream and grown on demand: the kernel leaves the tickets at zero, so
+    one ``torch.zeros`` serves every later call on that stream."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    ws = _HWCS_WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < n_cand or ws[1].numel() < n_samples:
+        ws = (
+            torch.empty(n_cand, dtype=torch.int32, device=device),
+            torch.zeros(n_samples, dtype=torch.int32, device=device),
+        )
+        _HWCS_WORKSPACES[key] = ws
+    return ws
+
+
 def local_peaks_hwcs_cuda(
     cms: torch.Tensor, max_peaks: int, threshold: float, half: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -335,14 +365,11 @@ def local_peaks_hwcs_cuda(
     vals = torch.empty((S, C, max_peaks), dtype=torch.float32, device=cms.device)
     if S * C == 0:
         return peaks, vals
-    bh, bw = hwcs_tiling(H, W, C)
-    n_cand = -(-H // bh) * -(-W // bw) * max_peaks
-    keys = torch.empty((S * C * n_cand,), dtype=torch.int32, device=cms.device)
-    dxy = torch.empty((2, S * C * n_cand), dtype=torch.float32, device=cms.device)
+    n_cand = S * C * hwcs_blocks(H, W) * max_peaks
+    cand, tickets = _hwcs_workspace(cms.device, n_cand, S)
     _launch(
         "sleap_local_peaks_hwcs", cms, int(max_peaks), float(threshold), int(half >= 0),
-        bh, bw, keys.data_ptr(), dxy[0].data_ptr(), dxy[1].data_ptr(),
-        peaks.data_ptr(), vals.data_ptr(),
+        cand.data_ptr(), tickets.data_ptr(), peaks.data_ptr(), vals.data_ptr(),
     )
     local_peaks_hwcs_cuda.launches += 1
     return peaks, vals

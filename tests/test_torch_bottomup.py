@@ -42,6 +42,7 @@ from sleap_tpu.inference import predictors as jp
 from sleap_tpu.inference.bottomup import BottomUpPredictor as JaxBottomUp
 from sleap_tpu.models.model import Model as JaxModel
 from sleap_tpu.ops.pallas_peaks import find_local_peaks_fused_pallas_hwcs
+from sleap_tpu_torch.core.labels import Labels
 from sleap_tpu_torch.inference import predictors as tp
 from sleap_tpu_torch.inference.bottomup import BottomUpPredictor
 from sleap_tpu_torch.models.model import Model
@@ -165,6 +166,7 @@ def test_trained_bottomup_outputs_match_jax(trained):
 def test_trained_bottomup_labels_match_jax(trained):
     jpred, tpred, _, frames = trained
     got, want = tpred.predict(frames), jpred.predict(frames)
+    assert type(got) is Labels  # the port's own, not the JAX package's
     assert [lf.frame_idx for lf in got] == [lf.frame_idx for lf in want]
     assert [len(lf.instances) for lf in got] == [len(lf.instances) for lf in want]
     assert sum(len(lf.instances) for lf in got) > 0

@@ -195,9 +195,23 @@ def test_hwcs_cuda_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_hwcs_tiling_fits_shared_memory():
-    assert cuda_peaks.hwcs_tiling(256, 256, 13) == (8, 256)  # the bottom-up main path
-    assert cuda_peaks.hwcs_tiling(4, 32, 2) == (4, 32)
-    bh, bw = cuda_peaks.hwcs_tiling(1, 65536, 13)  # a row wider than a tile
-    assert (bh, bw) == (1, 512)
-    with pytest.raises(ValueError, match="channels"):
-        cuda_peaks.hwcs_tiling(16, 16, 20000)
+    # Bands of 16 rows by up to 256 columns; channels come in groups of 16,
+    # so no channel count is refused and the ring stays under 33 KB.
+    assert cuda_peaks.hwcs_blocks(256, 256) == 16  # the bottom-up main path
+    assert cuda_peaks.hwcs_blocks(4, 32) == 1
+    assert cuda_peaks.hwcs_blocks(1, 65536) == 256  # a row wider than a block
+    assert cuda_peaks.hwcs_blocks(250, 257) == 16 * 2
+
+
+def test_hwcs_fast_rows_only_for_aligned_channels_last_rows():
+    """Kernel 4 copies rows with 16-byte async copies only where a row is
+    W * C contiguous, 16-byte aligned bf16 values that one block spans."""
+    fast = cuda_peaks.hwcs_fast_rows
+
+    main = torch.zeros((16, 256, 256, 13), dtype=torch.bfloat16)
+    assert fast(main)  # the head conv's channels-last output
+    assert not fast(main.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))  # NCHW view
+    assert not fast(torch.zeros((16, 100, 100, 3), dtype=torch.bfloat16))  # W*C*2 % 16 != 0
+    assert not fast(torch.zeros((1, 16, 512, 8), dtype=torch.bfloat16))  # wider than a block
+    assert not fast(torch.zeros((1, 16, 64, 17), dtype=torch.bfloat16))  # two channel groups
+    assert not fast(torch.zeros((2, 16, 64, 9), dtype=torch.bfloat16)[:, :, :, 1:])  # offset rows

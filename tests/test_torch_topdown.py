@@ -28,6 +28,7 @@ from sleap_tpu.config import (
 )
 from sleap_tpu.inference import predictors as jp
 from sleap_tpu.models.model import Model as JaxModel
+from sleap_tpu_torch.core.labels import Labels
 from sleap_tpu_torch.inference import predictors as tp
 from sleap_tpu_torch.models.model import Model
 from sleap_tpu_torch.models.params import state_dict_from_flax
@@ -118,6 +119,7 @@ def test_trained_topdown_outputs_match_jax(trained_pair):
 def test_trained_topdown_labels_match_jax(trained_pair):
     jpred, tpred, frames = trained_pair
     got, want = tpred.predict(frames), jpred.predict(frames)
+    assert type(got) is Labels  # the port's own, not the JAX package's
     assert [lf.frame_idx for lf in got] == [lf.frame_idx for lf in want]
     assert [len(lf.instances) for lf in got] == [len(lf.instances) for lf in want]
     assert sum(len(lf.instances) for lf in got) > 0
