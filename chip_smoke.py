@@ -19,7 +19,13 @@ Phases; any failure exits non-zero and no result line is printed:
    and no device argument: the card is the default.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (planted-Gaussian maps plus noise; crop boxes hanging
-   off every edge; local peaks with and without refinement). Kernel 4 on
+   off every edge; local peaks with and without refinement) and on the cases
+   each design splits on. Crops bitwise: float32 frames at the path size,
+   C = 3, 5 and 6 (every C mod 4), odd crop sizes, non-contiguous frame strides, box
+   indices -1 and B, rows of more than 512 flat elements (several segments
+   a row, C = 1 and 3) and 300 channels (shorter bands). Kernel 2: a 512^2 map, 13 channels channels-last and
+   as the NCHW view, 70 x 45, 16 x 9000, K = 1 and 64, ten equal peaks,
+   threshold 0 and -1, integral windows of half 1 and 3. Kernel 4 on
    bf16 maps of 16 x 256^2 x 13 channels-last (with ten equal peaks in one
    map), as an NCHW view, on the bottom-up path's own head maps, with
    H = 250 (not a multiple of the band), on 16 x 100^2 x 3 (W*C*2 % 16 != 0),
@@ -28,9 +34,10 @@ Phases; any failure exits non-zero and no result line is printed:
    xy within 1e-4 px.
 4. Top-down (1024^2 uint8 frames, batch 16, 4 instances, float32 with TF32
    off): 8 timed batches of ``predict(make_labels=False)``; kernels 1-3 must
-   be launched in them. One more batch with ``make_labels=True`` must give
-   the port's ``Labels`` with the example dicts' instance count, and a batch
-   of 4 must match the same folders loaded on the CPU.
+   be launched once per batch in them. One more batch with
+   ``make_labels=True`` must give the port's ``Labels`` with the example
+   dicts' instance count, and a batch of 4 must match the same folders
+   loaded on the CPU.
 4b. Bottom-up (K = 8 peaks per node, 3 instances kept, batch 16, bf16): the
    same, with kernel 4; the card's bf16 head maps grouped on the CPU must
    give the card's instances, and the float32 model must match the CPU on
@@ -129,23 +136,27 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names=None, iters=20) -> float:
+def device_ms(fn, names=None, iters=20, tries=4) -> float:
     """Device time per call from ``torch.profiler``: the device functions
     whose names hold one of ``names`` (all of them if None), over ``iters``
-    calls."""
+    calls. Every call launches the same device functions, so a session in
+    which one of them did not run a multiple of ``iters`` times lost events
+    (the profiler now and then drops a session's device events, wholly or in
+    part); it is run again, and a time is never read from it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if names is None or any(n in e.key for n in names)
-    )
-    return total_us / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                  and (names is None or any(n in e.key for n in names))]
+        if events and all(e.count % iters == 0 for e in events):
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+    raise RuntimeError(f"chip_smoke: torch.profiler lost device events in {tries} sessions")
 
 
 def planted_maps(n, h, w, c, n_peaks, gen, device) -> torch.Tensor:
@@ -268,16 +279,14 @@ def load_predictors(folders):
 # --------------------------------------------------------------------------- #
 
 
-def check_kernels(device, gen):
-    """Kernels 1-3 at the top-down path's shapes."""
-    from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+def check_global(device, gen):
+    """Kernel 1 at the top-down path's shapes: 64 crops x 13 nodes of
+    40 x 40 (instance maps, stride 4), with integral refinement (half 2) and
+    the grid peak (half -1, the rough peaks under learned offsets)."""
+    from sleap_tpu_torch.ops import cuda_peaks
 
-    errs = {}
-    # Global peaks: 64 crops x 13 nodes of 40 x 40 (instance maps, stride 4).
-    # Integral refinement (half 2) and the grid peak (half -1, the rough
-    # peaks under learned offsets).
     cms = planted_maps(BATCH * MAX_INSTANCES, CROP // 4, CROP // 4, N_NODES, 2, gen, device)
-    e_global = 0.0
+    err = 0.0
     for half in (2, -1):
         xy_k, v_k = cuda_peaks.global_peaks_cuda(cms, 0.2, half)
         xy_p, v_p = cuda_peaks.global_peaks_plain(cms, 0.2, half)
@@ -285,48 +294,150 @@ def check_kernels(device, gen):
         log(f"global_peaks {tuple(cms.shape)} refine={half >= 0}: "
             f"max |dxy| {e_xy:.3g}, max |dval| {e_v:.3g}")
         check(e_xy <= XY_TOL and e_v <= VAL_TOL, "global_peaks kernel vs plain")
-        e_global = max(e_global, e_xy, e_v)
-    errs["global_peaks"] = (e_global, (cms,))
+        err = max(err, e_xy, e_v)
+    return err, (cms,)
 
-    # Local peaks: 16 centroid maps of 64 x 64 (1024 * 0.25 / 4), K = 4.
-    cmap = planted_maps(BATCH, IMG // 16, IMG // 16, 1, 8, gen, device)
-    e_local = 0.0
-    for half in (2, -1):
-        pk_k, v_k = cuda_peaks.local_peaks_cuda(cmap, MAX_INSTANCES, 0.2, half)
-        pk_p, v_p = cuda_peaks.local_peaks_plain(cmap, MAX_INSTANCES, 0.2, half)
-        e_xy, e_v = max_abs(pk_k, pk_p), max_abs(v_k, v_p)
-        log(f"local_peaks {tuple(cmap.shape)} refine={half >= 0}: "
-            f"max |dxy| {e_xy:.3g}, max |dval| {e_v:.3g}, peaks {int(torch.isfinite(v_k).sum())}")
-        check(e_xy <= XY_TOL and e_v <= VAL_TOL, "local_peaks kernel vs plain")
-        e_local = max(e_local, e_xy, e_v)
-    errs["local_peaks"] = (e_local, (cmap,))
 
-    # Crops: 64 boxes of 160 x 160 from 16 uint8 frames of 1024^2, with
-    # boxes hanging off every edge and corner.
-    images = torch.randint(0, 256, (BATCH, IMG, IMG, 1), generator=gen, device=device,
-                           dtype=torch.uint8)
-    n = BATCH * MAX_INSTANCES
-    top_left = torch.rand(n, 2, generator=gen, device=device) * (IMG + CROP) - CROP
-    top_left[:8] = torch.tensor(
+def tied_map(h, w, device):
+    """An (h, w) map of ten equal isolated peaks, and their (x, y) in
+    row-major order."""
+    rows = 2 + (h // 10) * torch.arange(10, device=device)
+    cols = 1 + (w // 12) * torch.arange(10, device=device)
+    tied = torch.zeros(h, w, device=device)
+    tied[rows, cols] = 0.5
+    return tied, torch.stack([cols, rows], dim=1).tolist()
+
+
+def check_local(device, gen):
+    """Kernel 2 on the top-down path's 16 centroid maps of 64 x 64 and on
+    every case its design splits on: a 512^2 map, 13 channels channels-last
+    and as the NCHW view, H and W off the 8-row band (70 x 45), a map wider
+    than 32 column tiles, K = 1 and 64 (above the peak count), ten equal
+    peaks, threshold 0 and -1 (every noise maximum is a peak; the -inf border
+    decides at the edges), integral windows of half 1, 2 and 3. Values and
+    integer peaks exact, refined xy within XY_TOL."""
+    from sleap_tpu_torch.ops import cuda_peaks
+
+    h = IMG // 16
+    path = planted_maps(BATCH, h, h, 1, 8, gen, device)  # 1024 * 0.25 / 4
+    tied_path = path.clone()
+    tied, want_tied = tied_map(h, h, device)
+    tied_path[3, :, :, 0] = tied
+    multi = planted_maps(4, h, h, N_NODES, 6, gen, device)
+    cases = [
+        ("path", path, MAX_INSTANCES, 0.2, (2, -1)),
+        ("512^2", planted_maps(2, 512, 512, 1, 40, gen, device), 16, 0.2, (2, -1)),
+        ("13ch channels-last", multi.contiguous(), 8, 0.2, (2, -1)),
+        ("13ch NCHW view", multi, 8, 0.2, (2, -1)),
+        ("70x45", planted_maps(3, 70, 45, 2, 6, gen, device), 8, 0.2, (2, -1)),
+        ("16x9000", planted_maps(1, 16, 9000, 1, 60, gen, device), 8, 0.2, (2, -1)),
+        ("K=1", path, 1, 0.2, (2, -1)),
+        ("K=64", path, 64, 0.2, (2, -1)),
+        ("ten equal peaks", tied_path, 12, 0.2, (-1,)),
+        ("threshold 0", path, 64, 0.0, (2, -1)),
+        ("threshold -1", path, 64, -1.0, (-1,)),
+        ("half 1", path, MAX_INSTANCES, 0.2, (1,)),
+        ("half 3", path, MAX_INSTANCES, 0.2, (3,)),
+    ]
+    err = 0.0
+    for name, cms, K, thr, halves in cases:
+        for half in halves:
+            pk_k, v_k = cuda_peaks.local_peaks_cuda(cms, K, thr, half)
+            pk_p, v_p = cuda_peaks.local_peaks_plain(cms, K, thr, half)
+            e_xy, e_v = max_abs(pk_k, pk_p), max_abs(v_k, v_p)
+            n_found = int(torch.isfinite(v_k).sum())
+            log(f"local_peaks {name} {tuple(cms.shape)} K={K} threshold={thr} half={half}: "
+                f"max |dxy| {e_xy:.3g}, max |dval| {e_v:.3g}, peaks {n_found}")
+            check(e_v == 0.0, f"local_peaks values vs plain ({name})")
+            check(e_xy <= (XY_TOL if half >= 0 else 0.0), f"local_peaks xy vs plain ({name})")
+            err = max(err, e_xy, e_v)
+    got = cuda_peaks.local_peaks_cuda(tied_path, 12, 0.2, -1)[0][3, 0, :10]
+    check(got.cpu().tolist() == want_tied, "local_peaks tie order")
+    return err, (path,)
+
+
+def crop_boxes(n, size, crop, gen, device):
+    """n top-left corners spread over and around a size^2 frame, the first
+    eight hanging off every edge and corner."""
+    top_left = torch.rand(n, 2, generator=gen, device=device) * (size + crop) - crop
+    corners = torch.tensor(
         [[-100.5, 300.25], [950.75, 10.5], [400.125, -90.5], [10.0, 940.0],
          [-50.3, -60.7], [900.9, 920.1], [-170.0, 500.0], [1030.5, 1030.5]],
         device=device,
     )
+    top_left[:8] = corners * (size / IMG)
+    return top_left
+
+
+def check_crops(device, gen):
+    """Kernel 3 bitwise against its plain version: the path's 64 boxes of
+    160^2 from 16 uint8 frames of 1024^2 (boxes off every edge) and the same
+    boxes on float32 frames; C = 3 uint8 and float32; C = 5 and 6 (with C = 1,
+    3 and 300, every C mod 4, which picks the +C taps); odd crop sizes
+    (7, 5) and (161, 33); frames read through non-contiguous strides (an NCHW
+    tensor viewed as NHWC, a strided slice); crop rows of more than 512 flat
+    elements, so a row spans several segments ((9, 600) at C = 1 and
+    (33, 257) at C = 3, wider than the frame); 300 float32 channels, whose
+    window fills shared memory in bands of 14 rows; box indices -1 and B."""
+    from sleap_tpu_torch.ops import cuda_crops
+
+    images = torch.randint(0, 256, (BATCH, IMG, IMG, 1), generator=gen, device=device,
+                           dtype=torch.uint8)
+    n = BATCH * MAX_INSTANCES
+    top_left = crop_boxes(n, IMG, CROP, gen, device)
     box_inds = torch.arange(BATCH, device=device).repeat_interleave(MAX_INSTANCES)
-    c_k = cuda_crops.crop_unit_cuda(images, top_left, box_inds, (CROP, CROP))
-    c_p = cuda_crops.crop_unit_plain(images, top_left, box_inds, (CROP, CROP))
-    e_c = max_abs(c_k, c_p)
-    log(f"crop_unit {tuple(images.shape)} -> {tuple(c_k.shape)}: max |d| {e_c:.3g}")
-    check(e_c <= CROP_TOL, "crop_unit kernel vs plain")
-    # The float32 instantiation (frames resized before cropping), 3 channels.
-    rgb = torch.rand((2, 300, 200, 3), generator=gen, device=device) * 255
-    small_tl, small_inds = top_left[:8] * 0.25, box_inds[:8] % 2
-    e_f = max_abs(cuda_crops.crop_unit_cuda(rgb, small_tl, small_inds, (40, 24)),
-                  cuda_crops.crop_unit_plain(rgb, small_tl, small_inds, (40, 24)))
-    log(f"crop_unit float32 {tuple(rgb.shape)} -> (8, 40, 24, 3): max |d| {e_f:.3g}")
-    check(e_f <= CROP_TOL, "crop_unit float32 kernel vs plain")
-    errs["crop_unit"] = (max(e_c, e_f), (images, top_left, box_inds))
-    return errs
+    rgb_nchw = torch.randint(0, 256, (2, 3, 300, 200), generator=gen, device=device,
+                             dtype=torch.uint8)
+    rgb = rgb_nchw.permute(0, 2, 3, 1).contiguous()
+    small_tl, small_inds = crop_boxes(12, 300, 40, gen, device), torch.arange(12, device=device) % 2
+    off_inds = box_inds.clone()
+    off_inds[:2] = torch.tensor([-1, BATCH], device=device)
+    five = torch.rand((2, 120, 90, 5), generator=gen, device=device) * 255
+    six = torch.randint(0, 256, (2, 70, 50, 6), generator=gen, device=device, dtype=torch.uint8)
+    wide = torch.rand((2, 40, 30, 300), generator=gen, device=device) * 255
+    cases = [
+        ("path uint8", images, top_left, box_inds, (CROP, CROP)),
+        ("path float32", images.float(), top_left, box_inds, (CROP, CROP)),
+        ("path odd (7, 5)", images, top_left, box_inds, (7, 5)),
+        ("path odd (161, 33)", images, top_left, box_inds, (161, 33)),
+        ("C=3 uint8", rgb, small_tl, small_inds, (40, 24)),
+        ("C=3 uint8 (7, 5)", rgb, small_tl, small_inds, (7, 5)),
+        ("C=3 float32 (161, 33)", rgb.float(), small_tl, small_inds, (161, 33)),
+        ("C=3 NCHW view", rgb_nchw.permute(0, 2, 3, 1), small_tl, small_inds, (40, 24)),
+        ("strided slice", images[:, 1::2, ::3], small_tl, small_inds, (41, 23)),
+        ("C=5 float32", five, small_tl * 0.3, small_inds, (17, 29)),
+        ("C=6 uint8", six, small_tl * 0.2, small_inds, (19, 27)),
+        ("segments C=1 (9, 600)", images, top_left, box_inds, (9, 600)),
+        ("segments C=3 (33, 257)", rgb, small_tl, small_inds, (33, 257)),
+        ("C=300 float32 (17, 9)", wide, small_tl * 0.1, small_inds, (17, 9)),
+    ]
+    err = 0.0
+    for name, imgs, tl, inds, size in cases:
+        c_k = cuda_crops.crop_unit_cuda(imgs, tl, inds, size)
+        c_p = cuda_crops.crop_unit_plain(imgs, tl, inds, size)
+        e = max_abs(c_k, c_p)
+        log(f"crop_unit {name} {tuple(imgs.shape)} strides {imgs.stride()} -> "
+            f"{tuple(c_k.shape)}: max |d| {e:.3g}")
+        check(e <= CROP_TOL and torch.equal(c_k, c_p), f"crop_unit kernel vs plain ({name})")
+        err = max(err, e)
+    # Box indices -1 and B read zeros (the plain version would index frame -1
+    # and fail on B); the other boxes of the batch are unchanged.
+    c_k = cuda_crops.crop_unit_cuda(images, top_left, off_inds, (CROP, CROP))
+    c_p = cuda_crops.crop_unit_plain(images, top_left[2:], off_inds[2:], (CROP, CROP))
+    log(f"crop_unit box indices -1 and {BATCH}: zero crops {not c_k[:2].any()}, "
+        f"the others bitwise {torch.equal(c_k[2:], c_p)}")
+    check(not c_k[:2].any() and torch.equal(c_k[2:], c_p), "crop_unit box index -1 and B")
+    return err, (images, top_left, box_inds)
+
+
+def check_kernels(device, gen):
+    """Kernels 1-3 at the top-down path's shapes and the cases their designs
+    split on."""
+    return {
+        "global_peaks": check_global(device, gen),
+        "local_peaks": check_local(device, gen),
+        "crop_unit": check_crops(device, gen),
+    }
 
 
 def path_head_maps(pred, frames):
@@ -349,10 +460,7 @@ def check_hwcs(device, gen, path_maps):
 
     h = IMG // BU_CM_STRIDE
     maps = planted_maps(BATCH, h, h, N_NODES, 12, gen, device)  # NHWC view of NCHW
-    rows = 2 + (h // 10) * torch.arange(10, device=device)
-    cols = 1 + (h // 12) * torch.arange(10, device=device)
-    tied = torch.zeros(h, h, device=device)
-    tied[rows, cols] = 0.5
+    tied, want_tied = tied_map(h, h, device)
     maps[0, :, :, 0] = tied  # ten equal isolated peaks: the first eight by index win
     nchw_view = maps.to(torch.bfloat16)
     channels_last = nchw_view.contiguous()
@@ -380,9 +488,8 @@ def check_hwcs(device, gen, path_maps):
             check(e_xy <= (XY_TOL if half >= 0 else 0.0), f"local_peaks_hwcs xy vs plain ({name})")
             err = max(err, e_xy, e_v)
     check(cuda_peaks.hwcs_fast_rows(path_maps), "the path's maps take the 16-byte row copies")
-    want = torch.stack([cols, rows], dim=1)[:BU_K].tolist()
     got = cuda_peaks.local_peaks_hwcs_cuda(channels_last, BU_K, 0.2, -1)[0][0, 0]
-    check(got.cpu().tolist() == want, "local_peaks_hwcs tie order")
+    check(got.cpu().tolist() == want_tied[:BU_K], "local_peaks_hwcs tie order")
     return err, (path_maps,)
 
 
@@ -418,8 +525,9 @@ def run_path(name, pred, frames, wrappers):
     n_frames = len(frames) - BATCH
     fps = n_frames / path_s
     log(f"{name} path: {n_frames} frames in {path_s:.3f} s = {fps:.1f} FPS; launches {launches}")
+    n_batches = -(-n_frames // BATCH)
     for k, count in launches.items():
-        check(count > 0, f"{k} was not launched on the {name} path")
+        check(count == n_batches, f"{k}: {count} launches on the {name} path, want one per batch")
     return out, launches, fps
 
 
@@ -541,7 +649,9 @@ def crop_taps(images, top_left, box_inds, crop) -> int:
 
 def grid_sample_crops(images_f32, top_left, box_inds, crop):
     """The crops as one ``F.grid_sample`` call (bilinear, zeros padding,
-    align_corners=True) on a prepared grid: the library yardstick."""
+    align_corners=True) on a prepared grid: the library yardstick. The
+    frames are gathered per box (an (n, C, H, W) copy) here, outside the
+    timed call; the crop kernel reads the frames in place."""
     S, H, W, C = images_f32.shape
     offs = torch.arange(crop, device=images_f32.device, dtype=torch.float32)
     xs = top_left[:, 0, None] + offs  # (n, crop)
@@ -605,7 +715,7 @@ def kernel_rows(errs, launches, card):
         bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         library_ms = None
-        extra = ""
+        extra, crop_f32 = "", {}
         if name == "crop_unit":
             images, top_left, box_inds = args
             f32 = images.float()
@@ -615,6 +725,8 @@ def kernel_rows(errs, launches, card):
             f32_fn = lambda: cuda_crops.crop_unit_cuda(f32, top_left, box_inds, (CROP, CROP))
             library_ms, f32_ms = time_ms(lib), time_ms(f32_fn)
             lib_dev, f32_dev = device_ms(lib), device_ms(f32_fn, funcs)
+            crop_f32 = {"float32_ms": f32_ms, "float32_device_ms": f32_dev,
+                        "library_device_ms": lib_dev}
             extra = (f"; on float32 frames: kernel {f32_ms:.4f} ms per call, {f32_dev:.4f} ms "
                      f"device; F.grid_sample {library_ms:.4f} ms per call, {lib_dev:.4f} ms device "
                      f"(max |d| vs plain {e_lib:.3g}, float32 rounding of its normalized grid)")
@@ -626,6 +738,7 @@ def kernel_rows(errs, launches, card):
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            **crop_f32,
         })
     return kernels
 

@@ -11,8 +11,8 @@
 //
 // Maps are read in place through the caller's (S, H, W, C) element strides,
 // so an NHWC view of an NCHW conv output needs no transpose copy. Map m is
-// (sample m / C, channel m % C). In kernels 1 and 2 one thread block owns
-// one map; kernel 4 streams bands of rows (see its section).
+// (sample m / C, channel m % C). In kernel 1 one thread block owns one map;
+// kernels 2 and 4 spread each map over blocks (see their sections).
 //
 // Order of peaks: by value descending, ties to the smallest row-major index
 // (jnp.argmax's first occurrence; lax.top_k's lower index first).
@@ -23,9 +23,12 @@
 // version's (and nvcc may contract a*b+c into an FMA), so refined xy agree
 // within 1e-4 px, not bitwise.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -147,80 +150,235 @@ global_peaks_kernel(const float* __restrict__ cms, int64_t sS, int64_t sH, int64
   }
 }
 
-// One block per map: strict 8-neighbour NMS above threshold (out-of-map
-// neighbours count as -inf), top-K in the order above, optional integral
-// offsets on the raw map. Each thread keeps its own sorted top-K of the
-// pixels it visits (ascending index, so an equal value never displaces an
-// earlier one); K rounds of block argmax over the list heads merge them.
-// Empty slots get vals = -inf and NaN peaks.
+// ---------------------------------------------------------------------------
+// Helpers shared by kernels 2 and 4.
+// ---------------------------------------------------------------------------
+
+// max that propagates NaN, as the plain version's comparisons do (a NaN
+// neighbour makes v > neighbour false).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Insert into a list sorted descending (registers: static indices only).
+template <int KMAX, typename Key>
+__device__ __forceinline__ void insert_key(Key (&lk)[KMAX], Key key) {
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    const Key cur = lk[i];
+    const bool gt = key > cur;
+    lk[i] = gt ? key : cur;
+    key = gt ? cur : key;
+  }
+}
+
+template <int KMAX, typename Key>
+__device__ __forceinline__ void pop_head(Key (&lk)[KMAX], Key empty) {
+#pragma unroll
+  for (int i = 0; i + 1 < KMAX; ++i) lk[i] = lk[i + 1];
+  lk[KMAX - 1] = empty;
+}
+
+// ---------------------------------------------------------------------------
+// Local peaks on float32 maps (kernel 2).
+//
+// Strict 8-neighbour NMS above threshold (out-of-map neighbours count as
+// -inf), the top K in the order above, optional integral offsets on the raw
+// map; empty slots get vals = -inf and NaN peaks.
+//
+// The bytes are few (16 centroid maps of 64^2 on the top-down path are
+// 0.26 MB, 0.08 us at 3.35 TB/s, below a launch's own cost), so the kernel
+// is bound by latency: one block per map would give 16 blocks for 132 SMs,
+// and K rounds of block argmax two barriers each. This design:
+//
+// - Each map is cut into kLpParts = 8 parts (bands of rows x column
+//   segments; 8 bands of 8 rows for a 64^2 map, so the path's 16 maps give
+//   128 blocks), and the 8 blocks of a map form one thread block cluster.
+//   A part walks tiles of kLpTileRows x kLpTileCols, staging each with its
+//   one-pixel halo into shared memory (-inf outside the map), every
+//   thread's loads issued before any is stored; the NMS then reads shared
+//   memory, not 8 strided global loads per pixel.
+// - Peaks order by one 64-bit key: the value's order-preserving bits above
+//   ~index, so every comparison is an integer max with the tie rule built
+//   in (kernel 4's packed key, widened to float32 and any map size).
+// - Each thread keeps a sorted top-KMAX of its survivors in registers
+//   behind the block's cut-off (the largest last key of a full list, raised
+//   by one shared atomicMax), warps merge their 32 lists by K rounds of
+//   warp max, and one warp merges the 8 warp lists: no block-wide rounds.
+// - The merge across parts goes through the cluster's distributed shared
+//   memory: each part writes its list into the first block's shared memory,
+//   and after one cluster barrier the first block merges the 8 lists (one
+//   per lane) and refines the winners from the raw map, one warp per
+//   winner: no workspace, ticket or memory fence.
+// ---------------------------------------------------------------------------
+
+typedef unsigned long long Key64;
+constexpr Key64 kNoKey64 = 0ull;   // no real key is 0: its value bits would be a NaN
+constexpr int kLpThreads = 256;
+constexpr int kLpWarps = kLpThreads / 32;
+constexpr int kLpTileRows = 8;
+constexpr int kLpTileCols = 256;
+constexpr int kLpParts = 8;        // blocks per map: one cluster (the portable maximum)
+constexpr int kLpBatch = 4;        // staged pixels each thread loads before storing
+
+// Order-preserving bits of a float (larger float, larger unsigned), and back.
+__device__ __forceinline__ uint32_t order_bits(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_order_bits(uint32_t h) {
+  return __uint_as_float((h & 0x80000000u) ? (h & 0x7fffffffu) : ~h);
+}
+
+// Largest key of the warp, on every lane: the largest high word, then the
+// largest low word among the lanes that hold it.
+__device__ __forceinline__ Key64 warp_max_key(Key64 k) {
+  const uint32_t hi = (uint32_t)(k >> 32);
+  const uint32_t best_hi = __reduce_max_sync(0xffffffffu, hi);
+  const uint32_t lo = __reduce_max_sync(0xffffffffu, hi == best_hi ? (uint32_t)k : 0u);
+  return ((Key64)best_hi << 32) | lo;
+}
+
 template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(1, kLpParts, 1) __launch_bounds__(kLpThreads)
 local_peaks_kernel(const float* __restrict__ cms, int64_t sS, int64_t sH, int64_t sW,
                    int64_t sC, int H, int W, int C, int K, float threshold, int half,
                    float* __restrict__ peaks, float* __restrict__ vals) {
-  __shared__ float sv[32];
-  __shared__ int si[32];
-  __shared__ float win_v[KMAX];
-  __shared__ int win_i[KMAX];
+  __shared__ float tile[(kLpTileRows + 2) * (kLpTileCols + 2)];
+  __shared__ Key64 lists[kLpWarps][KMAX];
+  __shared__ Key64 all_lists[kLpParts * KMAX];  // the first block's: every part's list
+  __shared__ Key64 cut;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  // This block's part: segments as wide as a tile, up to 8, then bands.
+  int n_segs = 1;
+  while (n_segs < kLpParts && n_segs * kLpTileCols < W) n_segs *= 2;
+  const int seg_cols = (W + n_segs - 1) / n_segs;
+  const int band_rows = (H + kLpParts / n_segs - 1) / (kLpParts / n_segs);
+  const int part = blockIdx.y;  // the block's rank in its cluster
+  const int band = part / n_segs;
+  const int ya = band * band_rows;
+  const int yb = min(ya + band_rows, H);
+  const int xa = (part - band * n_segs) * seg_cols;
+  const int xb = min(xa + seg_cols, W);
   const int m = blockIdx.x;
   const float* map = cms + (int64_t)(m / C) * sS + (int64_t)(m % C) * sC;
-  const int n = H * W;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
-  float lv[KMAX];
-  int li[KMAX];
-  int cnt = 0;
-  for (int l = threadIdx.x; l < n; l += blockDim.x) {
-    const int y = l / W;
-    const int x = l - y * W;
-    const float v = map[y * sH + x * sW];
-    if (!(v > threshold)) continue;
-    if (cnt == K && !(v > lv[K - 1])) continue;
-    bool peak = true;
-    for (int dy = -1; dy <= 1 && peak; ++dy) {
-      const int yy = y + dy;
-      if (yy < 0 || yy >= H) continue;
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int xx = x + dx;
-        if ((dy == 0 && dx == 0) || xx < 0 || xx >= W) continue;
-        if (!(v > map[yy * sH + xx * sW])) {
-          peak = false;
-          break;
+  // Arrive now, wait before writing to a peer's shared memory: by then
+  // every block of the cluster has started.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (threadIdx.x == 0) cut = kNoKey64;
+  Key64 lk[KMAX];
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) lk[i] = kNoKey64;
+
+  for (int ty = ya; ty < yb; ty += kLpTileRows) {
+    const int rows = min(kLpTileRows, yb - ty);
+    for (int tx = xa; tx < xb; tx += kLpTileCols) {
+      const int cols = min(kLpTileCols, xb - tx);
+      const int pitch = cols + 2;
+      const int n_stage = (rows + 2) * pitch;
+      __syncthreads();  // the previous tile is read; cut is set
+      for (int base = threadIdx.x; base < n_stage; base += kLpThreads * kLpBatch) {
+        float v[kLpBatch];
+#pragma unroll
+        for (int k = 0; k < kLpBatch; ++k) {
+          const int t = base + k * kLpThreads;
+          v[k] = -INFINITY;
+          if (t < n_stage) {
+            const int r = t / pitch;
+            const int y = ty - 1 + r;
+            const int x = tx - 1 + t - r * pitch;
+            if (y >= 0 && y < H && x >= 0 && x < W) v[k] = __ldg(map + y * sH + x * sW);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kLpBatch; ++k) {
+          const int t = base + k * kLpThreads;
+          if (t < n_stage) tile[t] = v[k];
+        }
+      }
+      __syncthreads();
+
+      for (int p = threadIdx.x; p < rows * cols; p += kLpThreads) {
+        const int r = p / cols;
+        const int x = p - r * cols;
+        const float* c = tile + (r + 1) * pitch + x + 1;
+        const float v = c[0];
+        if (!(v > threshold)) continue;
+        const float nb = max_nan(max_nan(max_nan(c[-pitch - 1], c[-pitch]),
+                                         max_nan(c[-pitch + 1], c[-1])),
+                                 max_nan(max_nan(c[1], c[pitch - 1]),
+                                         max_nan(c[pitch], c[pitch + 1])));
+        if (!(v > nb)) continue;
+        // v + 0 turns -0 into +0: the plain version ties the two.
+        const Key64 key = ((Key64)order_bits(v + 0.f) << 32) |
+                          (uint32_t)~((ty + r) * W + tx + x);
+        const Key64 c_now = cut;
+        if (key > lk[KMAX - 1] && key > c_now) {
+          insert_key(lk, key);
+          if (lk[KMAX - 1] > c_now) atomicMax(&cut, lk[KMAX - 1]);
         }
       }
     }
-    if (!peak) continue;
-    int p = cnt < K ? cnt : K - 1;
-    while (p > 0 && lv[p - 1] < v) {
-      lv[p] = lv[p - 1];
-      li[p] = li[p - 1];
-      --p;
-    }
-    lv[p] = v;
-    li[p] = l;
-    if (cnt < K) ++cnt;
   }
 
-  int head = 0;
-  for (int j = 0; j < K; ++j) {
-    float hv = head < cnt ? lv[head] : -INFINITY;
-    int hi = head < cnt ? li[head] : kNoIndex;
-    block_argmax(hv, hi, sv, si);
-    if (head < cnt && li[head] == hi) ++head;
-    if (threadIdx.x == 0) {
-      win_v[j] = hi == kNoIndex ? -INFINITY : hv;
-      win_i[j] = hi;
+  // The part's top K: each warp merges its 32 thread lists, then warp 0
+  // merges the warp lists straight into the first block's all_lists.
+  {
+    int j = 0;
+    for (; j < K; ++j) {
+      const Key64 best = warp_max_key(lk[0]);
+      if (best == kNoKey64) break;
+      if (lk[0] == best) pop_head(lk, kNoKey64);
+      if (lane == 0) lists[warp][j] = best;
+    }
+    for (j += lane; j < K; j += 32) lists[warp][j] = kNoKey64;
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (warp == 0) {
+    Key64* out = cluster.map_shared_rank(all_lists, 0) + part * K;
+    int ptr = 0;
+    int j = 0;
+    for (; j < K; ++j) {
+      const Key64 head = lane < kLpWarps && ptr < K ? lists[lane][ptr] : kNoKey64;
+      const Key64 best = warp_max_key(head);
+      if (best == kNoKey64) break;
+      if (head == best) ++ptr;
+      if (lane == 0) out[j] = best;
+    }
+    for (j += lane; j < K; j += 32) out[j] = kNoKey64;
+  }
+  cluster.sync();  // every part's list is in the first block's all_lists
+  if (part != 0) return;
+
+  // Merge the part lists (lane = part); the winners go to lists[0].
+  if (warp == 0) {
+    const Key64* mine = all_lists + lane * K;
+    int ptr = 0;
+    for (int j = 0; j < K; ++j) {
+      const Key64 head = lane < kLpParts && ptr < K ? mine[ptr] : kNoKey64;
+      const Key64 best = warp_max_key(head);
+      if (lane == 0) lists[0][j] = best;
+      if (best != kNoKey64 && head == best) ++ptr;
     }
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int j = warp; j < K; j += blockDim.x >> 5) {
-    const int i = win_i[j];
-    float x = NAN, y = NAN;
-    if (i != kNoIndex) {
+  for (int j = warp; j < K; j += kLpWarps) {
+    const Key64 key = lists[0][j];
+    float x = NAN, y = NAN, val = -INFINITY;
+    if (key != kNoKey64) {
+      const int i = (int)~(uint32_t)key;
       const int iy = i / W;
       const int ix = i - iy * W;
+      val = from_order_bits((uint32_t)(key >> 32));
       x = (float)ix;
       y = (float)iy;
       if (half >= 0) {
@@ -231,9 +389,10 @@ local_peaks_kernel(const float* __restrict__ cms, int64_t sS, int64_t sH, int64_
       }
     }
     if (lane == 0) {
-      peaks[2 * ((int64_t)m * K + j)] = x;
-      peaks[2 * ((int64_t)m * K + j) + 1] = y;
-      vals[(int64_t)m * K + j] = win_v[j];
+      const int64_t o = (int64_t)m * K + j;
+      peaks[2 * o] = x;
+      peaks[2 * o + 1] = y;
+      vals[o] = val;
     }
   }
 }
@@ -242,7 +401,7 @@ template <int KMAX>
 cudaError_t launch_local(const float* cms, int64_t sS, int64_t sH, int64_t sW, int64_t sC,
                          int S, int H, int W, int C, int K, float threshold, int half,
                          float* peaks, float* vals, cudaStream_t stream) {
-  local_peaks_kernel<KMAX><<<S * C, kThreads, 0, stream>>>(
+  local_peaks_kernel<KMAX><<<dim3(S * C, kLpParts), kLpThreads, 0, stream>>>(
       cms, sS, sH, sW, sC, H, W, C, K, threshold, half, peaks, vals);
   return cudaGetLastError();
 }
@@ -303,14 +462,6 @@ __device__ __forceinline__ float bf16_bits_to_float(uint16_t bits) {
   return __uint_as_float((uint32_t)bits << 16);
 }
 
-// max that propagates NaN, as the plain version's comparisons do (a NaN
-// neighbour makes v > neighbour false).
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem_dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src) : "memory");
@@ -323,25 +474,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Insert into a list sorted descending (registers: static indices only).
-template <int KMAX>
-__device__ __forceinline__ void insert_key(int (&lk)[KMAX], int key) {
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    const int cur = lk[i];
-    const bool gt = key > cur;
-    lk[i] = gt ? key : cur;
-    key = gt ? cur : key;
-  }
-}
-
-template <int KMAX>
-__device__ __forceinline__ void pop_head(int (&lk)[KMAX]) {
-#pragma unroll
-  for (int i = 0; i + 1 < KMAX; ++i) lk[i] = lk[i + 1];
-  lk[KMAX - 1] = kEmptyKey;
 }
 
 // Slot layout, in bf16 elements: column lx in [-1, 256] of channel cl at
@@ -528,7 +660,7 @@ hwcs_band_kernel(const uint16_t* __restrict__ cms, int64_t sS, int64_t sH, int64
     int* out = cand + (((int64_t)s * C + c0 + warp) * n_parts + part) * K;
     for (int j = 0; j < K; ++j) {
       const int best = __reduce_max_sync(0xffffffffu, hk[0]);
-      if (best != kEmptyKey && hk[0] == best) pop_head(hk);
+      if (best != kEmptyKey && hk[0] == best) pop_head(hk, kEmptyKey);
       if (lane == 0) out[j] = best;
     }
   }
@@ -689,12 +821,13 @@ extern "C" int sleap_local_peaks(const float* cms, int64_t sS, int64_t sH, int64
                                  float threshold, int half, float* peaks, float* vals,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (H < 1 || W < 1 || K < 1 || K > 64 || (int64_t)S * C > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   if (K <= 4) return (int)launch_local<4>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, half, peaks, vals, st);
   if (K <= 8) return (int)launch_local<8>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, half, peaks, vals, st);
   if (K <= 16) return (int)launch_local<16>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, half, peaks, vals, st);
   if (K <= 32) return (int)launch_local<32>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, half, peaks, vals, st);
-  if (K <= 64) return (int)launch_local<64>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, half, peaks, vals, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_local<64>(cms, sS, sH, sW, sC, S, H, W, C, K, threshold, half, peaks, vals, st);
 }
 
 // Kernel 4. cms holds bf16 bit patterns. The caller passes a workspace:

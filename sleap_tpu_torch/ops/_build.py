@@ -6,7 +6,8 @@ interface (no PyTorch headers, so a build takes seconds), loaded with
 ``ctypes``. The library lands in ``sleap_tpu_torch/build/`` under a name
 keyed by a hash of the sources and flags, so an edited source is rebuilt and
 an unchanged one is reused. A missing ``nvcc`` or a failed build raises:
-there is no fallback to the plain versions.
+there is no fallback to the plain versions. :func:`launch` is the one way
+the wrappers call an entry point.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import List
+
+import torch
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -38,7 +41,7 @@ SIGNATURES = {
     "sleap_local_peaks_hwcs": [
         _p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p, _p, _p,
     ],
-    "sleap_crop_unit": [_p, _i, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p],
+    "sleap_crop_unit": [_p, _i, _i64, _i, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p],
 }
 
 
@@ -112,3 +115,23 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def entry(name: str):
+    """The bound C function ``name`` of the kernel library."""
+    return getattr(load_library(), name)
+
+
+def launch(name: str, device_index: int, *args) -> None:
+    """Call entry point ``name`` with ``args`` and the current stream of CUDA
+    device ``device_index``, from that device (switched to only when it is
+    not current); raise if the launch failed."""
+    fn = entry(name)
+    if device_index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    else:
+        with torch.cuda.device(device_index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}.")

@@ -6,14 +6,19 @@ The CUDA kernel ``crop_unit`` (``csrc/crops.cu``) replaces the Pallas kernel
 crop with unit sample spacing from a fractional top-left (x1, y1) in frame
 ``box_indices[i]``, zero outside the image, as float32.
 
-Bound by bytes: on the top-down main path (64 crops of 160 x 160 from 16
-uint8 frames of 1024^2) it writes 6.6 MB of float32 and gathers about a
-quarter of that in uint8 taps, at 7 FLOPs per output. Design: one thread
-per output element (box, row, col, channel), so consecutive threads write
-consecutive addresses and read neighbouring pixels of one row; the frame is
-read in place through its strides. The TPU kernel's gate (C == 1,
-crop_h % 8, crop_w % 128) was a Mosaic tiling limit: this kernel takes any
-channel count and crop size, uint8 or float32 frames.
+Bound by the float32 it writes: on the top-down main path (64 crops of
+160 x 160 from 16 uint8 frames of 1024^2) that is 6.55 MB, 2 us at
+3.35 TB/s, and it gathers about a quarter of that in uint8 taps, at 7 FLOPs
+per output. Design (``csrc/crops.cu``): one block per box, band of up to 16
+output rows and segment of up to 512 flat (column, channel) elements of a
+row (640 blocks on the path); the block reads its box once, stages the
+band's source window into shared memory as float32 with zeros outside the
+image (4 elements per load from contiguous channels-last rows, strided
+element loads otherwise), and blends flat channels-last rows, 4 outputs per
+thread and one 16-byte store, with 32-bit index math only. The TPU kernel's
+gate (C == 1, crop_h % 8, crop_w % 128) was a Mosaic tiling limit: this
+kernel takes uint8 or float32 frames with up to :data:`MAX_CHANNELS`
+channels, any crop size and any strides.
 
 The blend uses round-to-nearest intrinsics in the plain version's order (no
 FMA), so kernel and plain version agree bitwise (tolerance 0); see the note
@@ -26,7 +31,11 @@ from typing import Tuple
 
 import torch
 
+from sleap_tpu_torch.ops._build import launch
+
 _DTYPES = {torch.uint8: 0, torch.float32: 1}
+MAX_CHANNELS = 4096  # the source window of a band must fit in 48 KB of shared memory
+_INT32_MAX = 2**31 - 1
 
 
 def crop_unit_plain(
@@ -73,11 +82,10 @@ def crop_unit_cuda(
 
     A box index outside ``[0, B)`` reads zeros instead of faulting.
     """
-    from sleap_tpu_torch.ops._build import load_library
-
-    if images.device.type != "cuda":
+    dtype = _DTYPES.get(images.dtype)
+    if not images.is_cuda:
         raise ValueError(f"The CUDA crop kernel takes CUDA tensors, got {images.device}.")
-    if images.dtype not in _DTYPES or images.ndim != 4:
+    if dtype is None or images.ndim != 4:
         raise ValueError(
             f"Expected (B, H, W, C) uint8 or float32 images, got {images.dtype} {tuple(images.shape)}."
         )
@@ -86,20 +94,28 @@ def crop_unit_cuda(
     if top_left.shape != (n, 2) or box_indices.shape != (n,):
         raise ValueError("Expected top_left (n, 2) and box_indices (n,).")
     B, H, W, C = images.shape
-    out = torch.empty((n, ch, cw, C), dtype=torch.float32, device=images.device)
-    if out.numel() == 0:
+    sB, sH, sW, sC = images.stride()
+    if C > MAX_CHANNELS:
+        raise ValueError(f"The CUDA crop kernel takes at most {MAX_CHANNELS} channels, got {C}.")
+    # The kernel's index math is 32-bit within a frame and within the output.
+    if (n * ch * cw * C > _INT32_MAX or (H - 1) * sH + (W - 1) * sW + (C - 1) * sC > _INT32_MAX
+            or (W + cw + 2) * C > _INT32_MAX):
+        raise ValueError("The CUDA crop kernel takes frames and crop batches of < 2**31 elements.")
+    out = images.new_empty((n, ch, cw, C), dtype=torch.float32)
+    if n * ch * cw * C == 0:
         return out
-    tl = top_left.to(device=images.device, dtype=torch.float32).contiguous()
-    bi = box_indices.to(device=images.device, dtype=torch.int64).contiguous()
-    fn = load_library().sleap_crop_unit
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            images.data_ptr(), _DTYPES[images.dtype], *images.stride(), B, H, W, C,
-            tl.data_ptr(), bi.data_ptr(), n, ch, cw, out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"sleap_crop_unit launch failed with CUDA error {err}.")
+    index = images.get_device()
+    # Converted only where needed: on the path both are already so.
+    if (top_left.dtype != torch.float32 or top_left.get_device() != index
+            or not top_left.is_contiguous()):
+        top_left = top_left.to(device=images.device, dtype=torch.float32).contiguous()
+    if (box_indices.dtype != torch.int64 or box_indices.get_device() != index
+            or not box_indices.is_contiguous()):
+        box_indices = box_indices.to(device=images.device, dtype=torch.int64).contiguous()
+    launch(
+        "sleap_crop_unit", index, images.data_ptr(), dtype, sB, sH, sW, sC, B, H, W, C,
+        top_left.data_ptr(), box_indices.data_ptr(), n, ch, cw, out.data_ptr(),
+    )
     crop_unit_cuda.launches += 1
     return out
 

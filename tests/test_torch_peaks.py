@@ -162,6 +162,48 @@ def test_local_peaks_ties_and_fewer_than_k():
     np.testing.assert_array_equal(np.asarray(pk)[0, :5], got[0][0, 0, :5].numpy())
 
 
+# The cases the CUDA local-peaks kernel's design splits on: several channels,
+# H and W off its 8-row bands and 256-column tiles, threshold <= 0 (every
+# noise maximum is a peak and the -inf border decides at the edges), K above
+# the peak count. JAX runs its Pallas kernel in interpret mode where its gate
+# takes the maps (H % 8 == 0, W % 128 == 0), else its XLA path.
+LOCAL_CASES = {
+    "13ch_band_sized_pallas": ((2, 16, 128, 13), 8, 0.2, "integral"),
+    "3ch_threshold0_pallas": ((2, 16, 128, 3), 8, 0.0, "integral"),
+    "k_above_count_pallas": ((1, 24, 128, 2), 12, 0.2, None),
+    "70x45_xla": ((3, 70, 45, 2), 8, 0.2, "integral"),
+    "70x45_threshold_neg1_xla": ((2, 70, 45, 3), 64, -1.0, None),
+    "9x300_k_above_count_xla": ((1, 9, 300, 1), 64, 0.2, "integral"),
+}
+
+
+@pytest.mark.parametrize("case", list(LOCAL_CASES))
+def test_local_peaks_design_cases_match_jax(case):
+    (S, H, W, C), K, threshold, refinement = LOCAL_CASES[case]
+    cms = _planted_maps(seed=11, S=S, H=H, W=W, C=C, n=4)
+    got = tpf.find_local_peaks(
+        torch.from_numpy(cms), max_peaks=K, threshold=threshold, refinement=refinement
+    )
+    if H % 8 == 0 and W % 128 == 0:
+        flat = jnp.transpose(jnp.asarray(cms), (0, 3, 1, 2)).reshape(S * C, H, W)
+        pk, v = find_local_peaks_fused_pallas(
+            flat, max_peaks=K, threshold=threshold, refine=refinement == "integral", interpret=True
+        )
+        v = np.asarray(v).reshape(S, C, K)
+        valid = np.isfinite(v)
+        want = (np.where(valid[..., None], np.asarray(pk).reshape(S, C, K, 2), np.nan),
+                np.where(valid, v, 0.0), valid)
+    else:
+        want = jpf.find_local_peaks(
+            jnp.asarray(cms), max_peaks=K, threshold=threshold, refinement=refinement,
+            use_pallas=False,
+        )
+    _assert_local_equal(got, *want)
+    assert got[2].any()
+    if "k_above_count" in case:
+        assert not got[2].all()
+
+
 def test_local_peaks_with_offsets_match_xla():
     cms = _planted_maps(seed=6, C=1)
     offsets = np.random.default_rng(6).uniform(-0.5, 0.5, cms.shape[:3] + (2,)).astype(np.float32)
@@ -206,6 +248,37 @@ def test_crops_match_xla(channels, dtype):
     )
     assert got.dtype == torch.float32 and got.shape == (9, 8, 128, channels)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=0)
+
+
+# Boxes off every edge and corner of a 180 x 140 frame.
+EDGE_TOP_LEFT = np.array(
+    [[3.25, 4.5], [-4.5, 20.2], [130.9, 30.0], [40.0, -6.75], [50.5, 170.5],
+     [-8.0, -9.5], [135.3, 176.1], [-200.0, 5.0], [60.0, 300.0]],
+    np.float32,
+)
+
+
+@pytest.mark.parametrize(
+    "crop_size,channels",
+    [((7, 5), 1), ((7, 5), 3), ((161, 33), 3), ((33, 17), 1), ((1, 1), 3), ((9, 190), 3)],
+)
+def test_crops_odd_sizes_and_edges_match_xla(crop_size, channels):
+    """Crop sizes that are not multiples of the CUDA kernel's 16-row bands,
+    4-element stores or 512-element segments (190 x 3 spans two), C = 1
+    and 3, boxes off every edge. The frame widens for crops wider than it,
+    which the XLA version does not take."""
+    width = max(140, crop_size[1] + 2)
+    imgs = np.random.default_rng(10).integers(0, 256, (2, 180, width, channels)).astype(np.uint8)
+    want = jpf.crop_bboxes_unit(
+        jnp.asarray(imgs), jnp.asarray(EDGE_TOP_LEFT), jnp.asarray(BOX_INDS, jnp.int32), crop_size
+    )
+    got = tpf.crop_bboxes_unit(
+        torch.from_numpy(imgs), torch.from_numpy(EDGE_TOP_LEFT), torch.from_numpy(BOX_INDS),
+        crop_size,
+    )
+    assert got.shape == (9, *crop_size, channels)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=0)
+    assert not got[7].any()  # wholly outside the frame
 
 
 def test_crops_match_pallas_interpret():
