@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive sleap_tpu_torch's top-down and bottom-up inference once on one
-CUDA card, through the run-folder loader a user calls.
+"""Drive sleap_tpu_torch's top-down, single-instance and bottom-up inference
+once on one CUDA card, through the run-folder loader a user calls.
 
     python3 chip_smoke.py
 
@@ -9,18 +9,26 @@ Phases; any failure exits non-zero and no result line is printed:
 1. The card: CUDA must be available; print its name and power limit.
 2. Build the CUDA kernels from ``sleap_tpu_torch/csrc``; print the build time.
    Write run folders (``training_config.json`` with the skeleton in its
-   jsonpickle form) for ``bench.py``'s top-down pair and its bottom-up model
-   at full width: UNets with filters 64, filters rate 2, max stride 16,
-   output stride 4, ``up_interpolate`` and an s2d-4 stem; 13 nodes in a
-   chain; centroid input scaling 0.25, crop 160. Weights are seeded, the
-   heads made non-negative (so maps cross the 0.2 threshold and every stage
-   works), and handed over as params trees (``flax_from_state_dict``).
-   Both paths load with ``sleap_tpu_torch.load_model(folder, params=...)``
-   and no device argument: the card is the default.
+   jsonpickle form) for ``bench.py``'s top-down pair, its single-instance
+   model and its bottom-up model at full width: UNets with filters 64,
+   filters rate 2, max stride 16, output stride 4, ``up_interpolate`` and an
+   s2d-4 stem; 13 nodes in a chain; centroid input scaling 0.25, crop 160.
+   Weights are seeded, the heads made non-negative (so maps cross the 0.2
+   threshold and every stage works), and handed over as params trees
+   (``flax_from_state_dict``). Every path loads with
+   ``sleap_tpu_torch.load_model(folder, params=...)`` and no device
+   argument: the card is the default.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (planted-Gaussian maps plus noise; crop boxes hanging
    off every edge; local peaks with and without refinement) and on the cases
-   each design splits on. Crops bitwise: float32 frames at the path size,
+   each design splits on. Kernel 1: the float32 top-down maps (the NHWC
+   view of NCHW), the same maps in bf16 channels-last and as the NCHW view,
+   the single-instance path's 4 x 48^2 x 13 bf16, one 512^2 x 13 bf16 map
+   (the band route), 37 x 41 maps (rows no multiple of 16 bytes) in both
+   layouts and dtypes, slabs starting off a 16-byte boundary, a channel
+   slice and a strided slice, ten equal maxima, maps all below threshold,
+   half 1 and 3, maps holding one NaN; float16 and float64 maps refused.
+   Crops bitwise: float32 frames at the path size,
    C = 3, 5 and 6 (every C mod 4), odd crop sizes, non-contiguous frame strides, box
    indices -1 and B, rows of more than 512 flat elements (several segments
    a row, C = 1 and 3) and 300 channels (shorter bands). Kernel 2: a 512^2 map, 13 channels channels-last and
@@ -29,9 +37,9 @@ Phases; any failure exits non-zero and no result line is printed:
    bf16 maps of 16 x 256^2 x 13 channels-last (with ten equal peaks in one
    map), as an NCHW view, on the bottom-up path's own head maps, with
    H = 250 (not a multiple of the band), on 16 x 100^2 x 3 (W*C*2 % 16 != 0),
-   and with K = 1, K = 16 (the trained bottom-up folder's default) and
-   K = 64: values, keys and integer peaks exact, refined
-   xy within 1e-4 px.
+   with K = 1, K = 16 (the trained bottom-up folder's default) and
+   K = 64, and on 16 x 64^2 x 1 (the bf16 top-down centroid maps): values,
+   keys and integer peaks exact, refined xy within 1e-4 px.
 4. Top-down (1024^2 uint8 frames, batch 16, 4 instances, float32 with TF32
    off): 8 timed batches of ``predict(make_labels=False)``; kernels 1-3 must
    be launched once per batch in them. One more batch with
@@ -42,14 +50,24 @@ Phases; any failure exits non-zero and no result line is printed:
    same, with kernel 4; the card's bf16 head maps grouped on the CPU must
    give the card's instances, and the float32 model must match the CPU on
    a batch of 4.
+4c. Top-down in bf16 (``load_model(..., compute_dtype=torch.bfloat16)``):
+   8 timed batches with kernels 4, 3 and 1 launched once per batch, one
+   batch with ``Labels``; the card's bf16 instance maps of one batch,
+   post-processed on the CPU by the plain version, must give the kernel's
+   peaks (values exact, xy within 1e-4 px).
+4d. Single-instance in bf16 (192^2 uint8 frames, batch 4): the same, with
+   kernel 1 once per batch.
 5. Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
    3.35 TB/s, or operations at the card's peak, whichever is larger) and,
    for crops, ``F.grid_sample`` on the float32 form of the same boxes.
+   Kernel 1 on both the float32 and the bf16 top-down maps; a bf16
+   ``find_global_peaks`` call must launch kernel 1 alone (no cast or copy).
 
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with each kernel's launches (all
+paths' and per path), error and times; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -83,6 +101,8 @@ BU_XY_TOL = 1e-4
 
 IMG, CROP, N_NODES, BATCH, MAX_INSTANCES = 1024, 160, 13, 16, 4
 TIMED_BATCHES = 8
+# Single-instance (``bench.py:160-175,287``): 192^2 frames, batch 4, bf16.
+SI_IMG, SI_BATCH = 192, 4
 # Bottom-up (``bench.py:128-157``): confmaps at stride 4, PAFs at stride 8,
 # K = 8 peaks per node, 3 instances kept, bf16.
 BU_CM_STRIDE, BU_PAF_STRIDE, BU_K, BU_MAX_INSTANCES = 4, 8, 8, 3
@@ -136,13 +156,13 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names=None, iters=20, tries=4) -> float:
-    """Device time per call from ``torch.profiler``: the device functions
-    whose names hold one of ``names`` (all of them if None), over ``iters``
-    calls. Every call launches the same device functions, so a session in
-    which one of them did not run a multiple of ``iters`` times lost events
-    (the profiler now and then drops a session's device events, wholly or in
-    part); it is run again, and a time is never read from it."""
+def device_events(fn, names=None, iters=20, tries=4):
+    """``torch.profiler``'s device functions over ``iters`` calls of ``fn``,
+    those whose names hold one of ``names`` (all of them if None). Every
+    call launches the same device functions, so a session in which one of
+    them did not run a multiple of ``iters`` times lost events (the profiler
+    now and then drops a session's device events, wholly or in part); it is
+    run again, and nothing is read from it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -155,8 +175,13 @@ def device_ms(fn, names=None, iters=20, tries=4) -> float:
         events = [e for e in prof.key_averages() if e.self_device_time_total > 0
                   and (names is None or any(n in e.key for n in names))]
         if events and all(e.count % iters == 0 for e in events):
-            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+            return events
     raise RuntimeError(f"chip_smoke: torch.profiler lost device events in {tries} sessions")
+
+
+def device_ms(fn, names=None, iters=20) -> float:
+    """Device time per call of the device functions ``device_events`` reads."""
+    return sum(e.self_device_time_total for e in device_events(fn, names, iters)) / 1e3 / iters
 
 
 def planted_maps(n, h, w, c, n_peaks, gen, device) -> torch.Tensor:
@@ -173,16 +198,16 @@ def planted_maps(n, h, w, c, n_peaks, gen, device) -> torch.Tensor:
     return maps.permute(0, 2, 3, 1)  # (n, h, w, c), strides of NCHW
 
 
-def synthetic_frames(n, seed) -> np.ndarray:
-    """(n, 1024, 1024, 1) uint8: noise plus 4 bright Gaussian blobs each."""
+def synthetic_frames(n, seed, size=IMG, blobs=MAX_INSTANCES) -> np.ndarray:
+    """(n, size, size, 1) uint8: noise plus bright Gaussian blobs."""
     rng = np.random.default_rng(seed)
-    frames = rng.integers(0, 40, (n, IMG, IMG, 1), dtype=np.uint8)
+    frames = rng.integers(0, 40, (n, size, size, 1), dtype=np.uint8)
     r = 24
     g = np.mgrid[-r:r + 1, -r:r + 1]
     blob = np.exp(-(g[0] ** 2 + g[1] ** 2) / (2 * 8.0**2))
     for i in range(n):
-        for _ in range(MAX_INSTANCES):
-            y, x = rng.integers(r, IMG - r, 2)
+        for _ in range(blobs):
+            y, x = rng.integers(r, size - r, 2)
             patch = frames[i, y - r:y + r + 1, x - r:x + r + 1, 0].astype(np.float32)
             frames[i, y - r:y + r + 1, x - r:x + r + 1, 0] = np.clip(patch + 200 * blob, 0, 255)
     return frames
@@ -194,7 +219,8 @@ def synthetic_frames(n, seed) -> np.ndarray:
 
 
 def write_run_folders(root):
-    """``bench.py``'s top-down pair and bottom-up model as run folders."""
+    """``bench.py``'s top-down pair, single-instance and bottom-up models as
+    run folders."""
     from sleap_tpu_torch import config as c
     from sleap_tpu_torch.core.skeleton import Skeleton
 
@@ -227,6 +253,8 @@ def write_run_folders(root):
         "instance": folder("instance", c.HeadsConfig(
             centered_instance=c.CenteredInstanceConfmapsHeadConfig(output_stride=4, sigma=2.5)),
             1.0, crop_size=CROP),
+        "single": folder("single", c.HeadsConfig(
+            single_instance=c.SingleInstanceConfmapsHeadConfig(output_stride=4, sigma=2.5)), 1.0),
         "bottomup": folder("bottomup", c.HeadsConfig(multi_instance=c.MultiInstanceConfig(
             confmaps=c.MultiInstanceConfmapsHeadConfig(output_stride=BU_CM_STRIDE, sigma=2.5),
             pafs=c.PartAffinityFieldsHeadConfig(output_stride=BU_PAF_STRIDE, sigma=5.0))), 1.0),
@@ -251,16 +279,22 @@ def seeded_params(path, gen):
 
 def load_predictors(folders):
     """(top-down on the card, top-down on the CPU, bottom-up bf16 on the
-    card, bottom-up float32 on the card, bottom-up float32 on the CPU)."""
+    card, bottom-up float32 on the card, bottom-up float32 on the CPU),
+    top-down bf16 on the card, single-instance bf16 on the card."""
     import sleap_tpu_torch
 
     gen = torch.Generator().manual_seed(0)
     td_paths = [folders["centroid"], folders["instance"]]
     params = {p: seeded_params(p, gen) for p in (*td_paths, folders["bottomup"])}
+    params[folders["single"]] = seeded_params(folders["single"], gen)
     td = sleap_tpu_torch.load_model(td_paths, params=params, batch_size=BATCH,
                                     max_instances=MAX_INSTANCES)
     td_cpu = sleap_tpu_torch.load_model(td_paths, device="cpu", params=params, batch_size=4,
                                         max_instances=MAX_INSTANCES)
+    td_bf16 = sleap_tpu_torch.load_model(td_paths, params=params, batch_size=BATCH,
+                                         max_instances=MAX_INSTANCES, compute_dtype=torch.bfloat16)
+    si = sleap_tpu_torch.load_model(folders["single"], params=params, batch_size=SI_BATCH,
+                                    compute_dtype=torch.bfloat16)
     bu = []
     for device, dtype, batch in ((None, torch.bfloat16, BATCH), (None, torch.float32, 4),
                                  ("cpu", torch.float32, 4)):
@@ -270,8 +304,8 @@ def load_predictors(folders):
                                           **kwargs)
         pred.max_peaks_per_node = BU_K
         bu.append(pred)
-    check(td.device.type == "cuda" and bu[0].device.type == "cuda", "the card is the default")
-    return td, td_cpu, bu
+    check(all(p.device.type == "cuda" for p in (td, bu[0], td_bf16, si)), "the card is the default")
+    return td, td_cpu, bu, td_bf16, si
 
 
 # --------------------------------------------------------------------------- #
@@ -279,23 +313,97 @@ def load_predictors(folders):
 # --------------------------------------------------------------------------- #
 
 
+def off_boundary(maps, channels_last):
+    """``maps`` copied into storage that starts one element past a 16-byte
+    boundary, channels-last or channel-major (the NHWC view of NCHW)."""
+    S, H, W, C = maps.shape
+    store = torch.empty(maps.numel() + 1, dtype=maps.dtype, device=maps.device)[1:]
+    if channels_last:
+        return store.view(S, H, W, C).copy_(maps)
+    return store.view(S, C, H, W).copy_(maps.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
 def check_global(device, gen):
     """Kernel 1 at the top-down path's shapes: 64 crops x 13 nodes of
-    40 x 40 (instance maps, stride 4), with integral refinement (half 2) and
-    the grid peak (half -1, the rough peaks under learned offsets)."""
+    40 x 40 (instance maps, stride 4), float32 as the NHWC view of NCHW and
+    bf16 channels-last and as that view, with integral refinement (half 2)
+    and the grid peak (half -1, the rough peaks under learned offsets); then
+    every case the design splits on (see the module docstring). Values and
+    integer peaks exact, refined xy within XY_TOL. The extra cases draw from
+    their own generator, so ``gen`` gives the later phases the same inputs as
+    before they were added."""
     from sleap_tpu_torch.ops import cuda_peaks
 
+    bf16 = torch.bfloat16
     cms = planted_maps(BATCH * MAX_INSTANCES, CROP // 4, CROP // 4, N_NODES, 2, gen, device)
+    bf16_cl = cms.to(bf16).contiguous()
+    g1 = torch.Generator(device=device).manual_seed(1)
+    odd = planted_maps(3, 37, 41, 5, 2, g1, device)
+    tied_maps = cms.clone()
+    tied, want_tied = tied_map(CROP // 4, CROP // 4, device)
+    tied_maps[5, :, :, 0] = tied
+    nan_maps = cms.clone()
+    nan_maps[7, 10, 20, 3] = float("nan")
+    nan_maps[9, CROP // 4 - 1, 1, 5] = float("nan")  # in the window around (0, H)
+    cases = [
+        ("path float32 NCHW view", cms, (2, -1)),
+        ("path bf16 channels-last", bf16_cl, (2, -1)),
+        ("path bf16 NCHW view", cms.to(bf16), (2, -1)),
+        ("single-instance bf16", planted_maps(SI_BATCH, SI_IMG // 4, SI_IMG // 4, N_NODES, 1, g1,
+                                              device).to(bf16).contiguous(), (2, -1)),
+        ("512^2 x 13 bf16", planted_maps(1, 512, 512, N_NODES, 4, g1, device).to(bf16).contiguous(),
+         (2, -1)),
+        ("37x41 float32 NCHW view", odd, (2, -1)),
+        ("37x41 float32 channels-last", odd.contiguous(), (2, -1)),
+        ("37x41 bf16 NCHW view", odd.to(bf16), (2, -1)),
+        ("37x41 bf16 channels-last", odd.to(bf16).contiguous(), (2, -1)),
+        ("float32 NCHW view off 16 B", off_boundary(odd, False), (2, -1)),
+        ("bf16 channels-last off 16 B", off_boundary(odd.to(bf16).contiguous(), True), (2, -1)),
+        ("17x9 bf16, empty blocks", planted_maps(2, 17, 9, 3, 1, g1, device).to(bf16).contiguous(),
+         (2, -1)),
+        ("channel slice", cms[..., 2:9], (2, -1)),
+        ("strided slice", cms[:, 3:37, 2:39:2, 1:12], (2, -1)),
+        ("ten equal maxima", tied_maps, (2, -1)),
+        ("all below threshold", cms * 0.01, (2, -1)),
+        ("half 1", cms, (1,)),
+        ("half 3", cms, (3,)),
+        ("one NaN float32", nan_maps, (2, -1)),
+        ("one NaN bf16 channels-last", nan_maps.to(bf16).contiguous(), (2, -1)),
+    ]
+    plans = {}
     err = 0.0
-    for half in (2, -1):
-        xy_k, v_k = cuda_peaks.global_peaks_cuda(cms, 0.2, half)
-        xy_p, v_p = cuda_peaks.global_peaks_plain(cms, 0.2, half)
-        e_xy, e_v = max_abs(xy_k, xy_p), max_abs(v_k, v_p)
-        log(f"global_peaks {tuple(cms.shape)} refine={half >= 0}: "
-            f"max |dxy| {e_xy:.3g}, max |dval| {e_v:.3g}")
-        check(e_xy <= XY_TOL and e_v <= VAL_TOL, "global_peaks kernel vs plain")
-        err = max(err, e_xy, e_v)
-    return err, (cms,)
+    for name, maps, halves in cases:
+        for half in halves:
+            plans[name] = parts = cuda_peaks.global_peaks_plan(maps, half)
+            xy_k, v_k = cuda_peaks.global_peaks_cuda(maps, 0.2, half)
+            xy_p, v_p = cuda_peaks.global_peaks_plain(maps, 0.2, half)
+            e_xy, e_v = max_abs(xy_k, xy_p), max_abs(v_k, v_p)
+            log(f"global_peaks {name} {tuple(maps.shape)} {maps.dtype} strides {maps.stride()} "
+                f"{f'slab x{parts}' if parts else 'band'} half={half}: max |dxy| {e_xy:.3g}, "
+                f"max |dval| {e_v:.3g}, "
+                f"NaN xy {int(torch.isnan(xy_k[..., 0]).sum())}")
+            check(e_v == 0.0, f"global_peaks values vs plain ({name})")
+            check(e_xy <= (XY_TOL if half >= 0 else 0.0), f"global_peaks xy vs plain ({name})")
+            err = max(err, e_xy, e_v)
+    # Plans (blocks a map or sample; 0 for the band route) of the half -1 calls.
+    check(plans["path float32 NCHW view"] == plans["path bf16 channels-last"] == 1
+          and plans["single-instance bf16"] == plans["17x9 bf16, empty blocks"] == 8
+          and plans["channel slice"] == 1
+          and plans["512^2 x 13 bf16"] == plans["strided slice"] == 0,
+          f"global_peaks plans {plans}")
+    rough = cuda_peaks.global_peaks_cuda(tied_maps, 0.2, -1)[0][5, 0]
+    check(rough.cpu().tolist() == want_tied[0], "global_peaks first of equal maxima")
+    check(bool(torch.isnan(cuda_peaks.global_peaks_cuda(cms * 0.01, 0.2, 2)[0]).all()),
+          "global_peaks below threshold")
+    v_nan = cuda_peaks.global_peaks_cuda(nan_maps, 0.2, 2)[1]
+    check(int(torch.isnan(v_nan).sum()) == 2, "global_peaks NaN values")
+    for dtype in (torch.float16, torch.float64):
+        try:
+            cuda_peaks.global_peaks_cuda(cms.to(dtype), 0.2, 2)
+        except ValueError:
+            continue
+        check(False, f"global_peaks refuses {dtype} maps")
+    return err, (cms, bf16_cl)
 
 
 def tied_map(h, w, device):
@@ -464,6 +572,10 @@ def check_hwcs(device, gen, path_maps):
     maps[0, :, :, 0] = tied  # ten equal isolated peaks: the first eight by index win
     nchw_view = maps.to(torch.bfloat16)
     channels_last = nchw_view.contiguous()
+    # The bf16 top-down centroid maps (16 x 64^2 x 1, channels-last), from
+    # their own generator so that ``gen`` gives the cases below as before.
+    g1 = torch.Generator(device=device).manual_seed(1)
+    centroids = planted_maps(BATCH, IMG // 16, IMG // 16, 1, 8, g1, device).to(torch.bfloat16)
     cases = [
         ("channels-last", channels_last, BU_K),
         ("NCHW view", nchw_view, BU_K),
@@ -473,6 +585,7 @@ def check_hwcs(device, gen, path_maps):
         ("K=1", channels_last, 1),
         ("K=16", path_maps, 16),
         ("K=64", path_maps, 64),
+        ("16x64^2x1 top-down centroids", centroids.contiguous(), MAX_INSTANCES),
     ]
     err = 0.0
     for name, cms, K in cases:
@@ -510,22 +623,22 @@ def frames_instances(examples):
     return [tuple(ex[k][i] for k in keys) for ex in examples for i in range(ex["n_valid"])]
 
 
-def run_path(name, pred, frames, wrappers):
+def run_path(name, pred, frames, wrappers, batch=BATCH):
     """Warm up on one batch, zero the launch counts, predict the rest of
     the frames; return (outputs, launches, FPS)."""
-    pred.predict(frames[:BATCH], make_labels=False)  # warm-up: cuDNN plans, library
+    pred.predict(frames[:batch], make_labels=False)  # warm-up: cuDNN plans, library
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    out = pred.predict(frames[BATCH:], make_labels=False)
+    out = pred.predict(frames[batch:], make_labels=False)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    n_frames = len(frames) - BATCH
+    n_frames = len(frames) - batch
     fps = n_frames / path_s
     log(f"{name} path: {n_frames} frames in {path_s:.3f} s = {fps:.1f} FPS; launches {launches}")
-    n_batches = -(-n_frames // BATCH)
+    n_batches = -(-n_frames // batch)
     for k, count in launches.items():
         check(count == n_batches, f"{k}: {count} launches on the {name} path, want one per batch")
     return out, launches, fps
@@ -550,21 +663,27 @@ def check_labels(name, pred, frames, want_counts):
     check(got == want_counts, f"{name}: Labels hold the example dicts' instances")
 
 
-def check_topdown(gpu_pred, cpu_pred, frames, out):
+def check_topdown_outputs(name, pred, frames, out):
+    """Shapes and finite values of a top-down run, and one batch with
+    ``Labels`` on the first timed batch's frames."""
     n_frames = len(frames) - BATCH
     res = merged(out, n_frames)
     check(res["instance_peaks"].shape == (n_frames, MAX_INSTANCES, N_NODES, 2), "peaks shape")
     check(res["centroids"].shape == (n_frames, MAX_INSTANCES, 2), "centroids shape")
+    check(res["centroid_mask"].any(), f"{name}: centroids found")
     check(np.isfinite(res["centroids"][res["centroid_mask"]]).all(), "finite centroids")
     check(np.isfinite(res["instance_peak_vals"]).all(), "finite peak values")
-    log(f"centroids found: {int(res['centroid_mask'].sum())} of {res['centroid_mask'].size}; "
-        f"instance points: {int(np.isfinite(res['instance_peaks'][..., 0]).sum())}")
-
-    # Labels on the first timed batch's frames.
+    log(f"{name}: centroids found: {int(res['centroid_mask'].sum())} of "
+        f"{res['centroid_mask'].size}; instance points: "
+        f"{int(np.isfinite(res['instance_peaks'][..., 0]).sum())}")
     first = merged(out[:1], BATCH)
     want = [int(sum(m and not np.isnan(p).all() for m, p in zip(mask, pts)))
             for mask, pts in zip(first["centroid_mask"], first["instance_peaks"])]
-    check_labels("top-down", gpu_pred, frames[BATCH:2 * BATCH], want)
+    check_labels(name, pred, frames[BATCH:2 * BATCH], want)
+
+
+def check_topdown(gpu_pred, cpu_pred, frames, out):
+    check_topdown_outputs("top-down", gpu_pred, frames, out)
 
     # GPU vs CPU on one batch of 4.
     small = frames[:4]
@@ -577,6 +696,62 @@ def check_topdown(gpu_pred, cpu_pred, frames, out):
     check(d["centroids"] <= PATH_XY_TOL and d["instance_peaks"] <= PATH_XY_TOL, "GPU vs CPU points")
     check(d["centroid_vals"] <= PATH_VAL_TOL and d["instance_peak_vals"] <= PATH_VAL_TOL,
           "GPU vs CPU values")
+
+
+def head_maps(module, head, fn):
+    """Call ``fn`` with a forward hook on ``module``; return the ``head``
+    output of the module's last call."""
+    from sleap_tpu_torch.models.model import find_head
+
+    seen = []
+    handle = module.register_forward_hook(lambda mod, inputs, outputs: seen.append(outputs))
+    try:
+        fn()
+    finally:
+        handle.remove()
+    return seen[-1][find_head(seen[-1], head)]
+
+
+def check_card_maps(name, maps):
+    """The card's bf16 maps of one batch through kernel 1 and, on the CPU,
+    through the plain version: values exact, xy within XY_TOL."""
+    from sleap_tpu_torch.ops import cuda_peaks
+    from sleap_tpu_torch.ops.peak_finding import find_global_peaks
+
+    parts = cuda_peaks.global_peaks_plan(maps, 2)
+    check(maps.dtype == torch.bfloat16 and maps.is_contiguous() and parts > 0,
+          f"{name}: bf16 channels-last maps on the slab route ({parts} blocks a sample)")
+    xy_k, v_k = find_global_peaks(maps, 0.2, "integral")
+    xy_p, v_p = find_global_peaks(maps.cpu(), 0.2, "integral")
+    e_xy, e_v = max_abs(xy_k, xy_p), max_abs(v_k, v_p)
+    log(f"{name}: the card's bf16 maps {tuple(maps.shape)}, kernel 1 vs plain on the CPU: "
+        f"max |dxy| {e_xy:.3g}, max |dval| {e_v:.3g}, peaks {int(torch.isfinite(xy_k[..., 0]).sum())}")
+    check(e_v == 0.0 and e_xy <= XY_TOL, f"{name}: card maps, kernel vs plain on the CPU")
+
+
+def check_topdown_bf16(pred, frames, out):
+    check_topdown_outputs("top-down bf16", pred, frames, out)
+    maps = head_maps(pred.confmap_model.module, "CenteredInstanceConfmapsHead",
+                     lambda: pred.predict(frames[BATCH:2 * BATCH], make_labels=False))
+    check(maps.shape == (BATCH * MAX_INSTANCES, CROP // 4, CROP // 4, N_NODES), "instance maps")
+    check_card_maps("top-down bf16", maps)
+
+
+def check_single(pred, frames, out):
+    n_frames = len(frames) - SI_BATCH
+    peaks = np.concatenate([ex["instance_peaks"][:ex["n_valid"]] for ex in out])
+    vals = np.concatenate([ex["instance_peak_vals"][:ex["n_valid"]] for ex in out])
+    check(peaks.shape == (n_frames, N_NODES, 2) and vals.shape == (n_frames, N_NODES),
+          "single-instance shapes")
+    check(np.isfinite(vals).all() and np.isfinite(peaks).any(), "single-instance values")
+    log(f"single-instance bf16: {int(np.isfinite(peaks[..., 0]).sum())} of {peaks[..., 0].size} "
+        f"points above threshold")
+    want = [int(not np.isnan(p).all()) for p in peaks[:SI_BATCH]]
+    check_labels("single-instance bf16", pred, frames[SI_BATCH:2 * SI_BATCH], want)
+    maps = head_maps(pred.confmap_model.module, "SingleInstanceConfmapsHead",
+                     lambda: pred.predict(frames[SI_BATCH:2 * SI_BATCH], make_labels=False))
+    check(maps.shape == (SI_BATCH, SI_IMG // 4, SI_IMG // 4, N_NODES), "single-instance maps")
+    check_card_maps("single-instance bf16", maps)
 
 
 def check_bottomup(preds, frames, out, heads):
@@ -667,12 +842,22 @@ def grid_sample_crops(images_f32, top_left, box_inds, crop):
     return call
 
 
+def timed_pair(kernel_fn, plain_fn, funcs):
+    """(per call ms, plain per call ms, device ms, plain device ms): per call
+    in turns (kernel, plain, plain, kernel), each side averaged."""
+    k1, p1 = time_ms(kernel_fn), time_ms(plain_fn)
+    p2, k2 = time_ms(plain_fn), time_ms(kernel_fn)
+    return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel_fn, funcs), device_ms(plain_fn)
+
+
 def kernel_rows(errs, launches, card):
+    """Phase 5's rows. ``launches`` maps a kernel to its launches on each
+    path (None where no path ran)."""
     from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
 
     calls = {
-        "global_peaks": (lambda m: cuda_peaks.global_peaks_cuda(m, 0.2, 2),
-                         lambda m: cuda_peaks.global_peaks_plain(m, 0.2, 2)),
+        "global_peaks": (lambda m, *_: cuda_peaks.global_peaks_cuda(m, 0.2, 2),
+                         lambda m, *_: cuda_peaks.global_peaks_plain(m, 0.2, 2)),
         "local_peaks": (lambda m: cuda_peaks.local_peaks_cuda(m, MAX_INSTANCES, 0.2, 2),
                         lambda m: cuda_peaks.local_peaks_plain(m, MAX_INSTANCES, 0.2, 2)),
         "crop_unit": (lambda *a: cuda_crops.crop_unit_cuda(*a, (CROP, CROP)),
@@ -688,7 +873,7 @@ def kernel_rows(errs, launches, card):
         "crop_unit": ("sleap_tpu_torch/csrc/crops.cu", "sleap_tpu/ops/pallas_crops.py:56",
                       ("crop_unit_kernel",)),
         "global_peaks": ("sleap_tpu_torch/csrc/peaks.cu", "sleap_tpu/ops/pallas_peaks.py:68",
-                         ("global_peaks_kernel",)),
+                         ("global_slab_kernel", "global_band_kernel")),
         "local_peaks_hwcs": ("sleap_tpu_torch/csrc/peaks.cu", "sleap_tpu/ops/pallas_peaks.py:487",
                              ("hwcs_band_kernel",)),
     }
@@ -697,18 +882,17 @@ def kernel_rows(errs, launches, card):
         err, args = errs[name]
         kernel_fn, plain_fn = calls[name]
         outs = kernel_fn(*args)
-        # In turns (kernel, plain, plain, kernel), each side averaged.
-        k1, p1 = time_ms(lambda: kernel_fn(*args)), time_ms(lambda: plain_fn(*args))
-        p2, k2 = time_ms(lambda: plain_fn(*args)), time_ms(lambda: kernel_fn(*args))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        dev_ms = device_ms(lambda: kernel_fn(*args), funcs)
-        plain_dev_ms = device_ms(lambda: plain_fn(*args))
+        ms, plain_ms, dev_ms, plain_dev_ms = timed_pair(
+            lambda: kernel_fn(*args), lambda: plain_fn(*args), funcs)
         # Bound: each input read once, each output written once; a few
         # float32 operations per value read (compares, window sums, blends).
         if name == "crop_unit":
             images, top_left, box_inds = args
             moved = crop_taps(images, top_left, box_inds, CROP) + nbytes(top_left, box_inds, outs)
             ops = 8 * outs.numel()  # 4 taps: 4 multiplies, 4 adds per value
+        elif name == "global_peaks":
+            moved = nbytes(args[0], *outs)
+            ops = 2 * args[0].numel()  # a compare and a NaN test
         else:
             moved = nbytes(args[0], *outs)
             ops = 9 * args[0].numel()  # 8 neighbour compares and a threshold
@@ -716,6 +900,27 @@ def kernel_rows(errs, launches, card):
         bound_ms = max(bytes_ms, ops_ms)
         library_ms = None
         extra, crop_f32 = "", {}
+        if name == "global_peaks":
+            bf16 = args[1]
+            # bf16 maps reach the kernel as they lie: no cast or copy first.
+            from sleap_tpu_torch.ops.peak_finding import find_global_peaks
+
+            launched = [e.key for e in device_events(
+                lambda: find_global_peaks(bf16, 0.2, "integral"), iters=5)]
+            log(f"global_peaks on bf16 maps through find_global_peaks launches {launched}")
+            check(len(launched) == 1 and "global_slab_kernel" in launched[0],
+                  f"bf16 maps reach kernel 1 alone, with no copy: {launched}")
+            bf_ms, bf_plain_ms, bf_dev, bf_plain_dev = timed_pair(
+                lambda: kernel_fn(bf16), lambda: plain_fn(bf16), funcs)
+            bf_moved = nbytes(bf16, *kernel_fn(bf16))
+            bf_bound = max(bf_moved / HBM_BYTES_PER_S, 2 * bf16.numel() / F32_OPS_PER_S) * 1e3
+            crop_f32 = {"bfloat16_ms": bf_ms, "bfloat16_plain_ms": bf_plain_ms,
+                        "bfloat16_device_ms": bf_dev, "bfloat16_plain_device_ms": bf_plain_dev,
+                        "bfloat16_bound_ms": bf_bound}
+            extra = (f"; on the bf16 channels-last maps: per call {bf_ms:.4f} ms (plain "
+                     f"{bf_plain_ms:.4f}); device {bf_dev:.4f} ms (plain {bf_plain_dev:.4f}); "
+                     f"bound {bf_bound:.4f} ms ({bf_moved / 1e6:.2f} MB), "
+                     f"{100 * bf_bound / bf_dev:.1f} % of it")
         if name == "crop_unit":
             images, top_left, box_inds = args
             f32 = images.float()
@@ -735,7 +940,8 @@ def kernel_rows(errs, launches, card):
             f"{100 * bound_ms / dev_ms:.1f} % of it{extra} ({card})")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": None if launches[name] is None else sum(launches[name].values()),
+            "launches_by_path": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
             **crop_f32,
@@ -760,11 +966,12 @@ def main() -> int:
     _build.load_library()
     log(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     frames = synthetic_frames((1 + TIMED_BATCHES) * BATCH, seed=0)
+    si_frames = synthetic_frames((1 + TIMED_BATCHES) * SI_BATCH, seed=1, size=SI_IMG, blobs=1)
     with tempfile.TemporaryDirectory() as root:
         folders = write_run_folders(root)
-        td, td_cpu, bu = load_predictors(folders)
-    log(f"loaded {type(td).__name__} and {type(bu[0]).__name__} from run folders on "
-        f"{td.device} and {bu[0].device}")
+        td, td_cpu, bu, td_bf16, si = load_predictors(folders)
+    log(f"loaded {type(td).__name__}, {type(si).__name__} and {type(bu[0]).__name__} from run "
+        f"folders on {td.device}, {si.device} and {bu[0].device}")
 
     # Phase 3: each kernel vs its plain version.
     gen = torch.Generator(device=device).manual_seed(0)
@@ -772,23 +979,39 @@ def main() -> int:
     path_maps, heads = path_head_maps(bu[0], frames[:BATCH])
     errs["local_peaks_hwcs"] = check_hwcs(device, gen, path_maps)
 
-    launches, fps = {}, {}
+    launches = {name: {} for name in errs}  # kernel -> path -> launches
+    fps = {}
+
+    def drive(name, pred, path_frames, wrappers, batch=BATCH):
+        out, counts, fps[name] = run_path(name, pred, path_frames, wrappers, batch)
+        for kernel, n in counts.items():
+            launches[kernel][name] = n
+        return out
+
     # Phase 4: the top-down path.
     td_wrappers = {
         "local_peaks": cuda_peaks.local_peaks_cuda,
         "crop_unit": cuda_crops.crop_unit_cuda,
         "global_peaks": cuda_peaks.global_peaks_cuda,
     }
-    out, counts, fps["top-down"] = run_path("top-down", td, frames, td_wrappers)
-    launches.update(counts)
-    check_topdown(td, td_cpu, frames, out)
+    check_topdown(td, td_cpu, frames, drive("top-down", td, frames, td_wrappers))
 
     # Phase 4b: the bottom-up path.
-    out, counts, fps["bottom-up"] = run_path(
-        "bottom-up", bu[0], frames, {"local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda}
-    )
-    launches.update(counts)
+    out = drive("bottom-up", bu[0], frames, {"local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda})
     check_bottomup(bu, frames, out, heads)
+
+    # Phase 4c: the top-down path in bf16.
+    bf16_wrappers = {
+        "local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda,
+        "crop_unit": cuda_crops.crop_unit_cuda,
+        "global_peaks": cuda_peaks.global_peaks_cuda,
+    }
+    check_topdown_bf16(td_bf16, frames, drive("top-down bf16", td_bf16, frames, bf16_wrappers))
+
+    # Phase 4d: single-instance in bf16.
+    out = drive("single-instance bf16", si, si_frames,
+               {"global_peaks": cuda_peaks.global_peaks_cuda}, SI_BATCH)
+    check_single(si, si_frames, out)
 
     # Phase 5: kernel and plain version times at the main-path shapes.
     kernels = kernel_rows(errs, launches, card)
@@ -797,8 +1020,8 @@ def main() -> int:
         "jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2")]
     check(not leaked, f"JAX-side modules imported: {leaked[:5]}")
 
-    log(f"top-down path: {fps['top-down']:.1f} FPS ({card})")
-    log(f"bottom-up path: {fps['bottom-up']:.1f} FPS ({card})")
+    for name, value in fps.items():
+        log(f"{name} path: {value:.1f} FPS ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -20,7 +20,8 @@ adds, per kernel function of the built library, its registers and spills
 instructions, global and shared loads and stores, and call targets (nvcc
 emits 64-bit division as a call). ``--host-split`` adds the host time of
 the crop wrapper: whole, with its C entry point or its launch helper
-replaced by a no-op, and the allocation and lookups it makes.
+replaced by a no-op, and the allocation and lookups it makes; and of the
+global peaks wrapper with its outputs' two ways of allocating.
 """
 
 import argparse
@@ -87,7 +88,8 @@ def sass_stats():
                     c[kind] += 1
             if op.startswith("CALL"):
                 c["call " + m.group(2).strip()] += 1
-    keep = ("crop_unit_kernel", "local_peaks_kernel", "global_peaks_kernel", "hwcs_band_kernel")
+    keep = ("crop_unit_kernel", "local_peaks_kernel", "global_slab_kernel", "global_band_kernel",
+            "hwcs_band_kernel")
     return {
         f: {"ptxas": ptxas.get(f, []), **dict(c)}
         for f, c in stats.items() if any(k in f for k in keep)
@@ -106,17 +108,25 @@ def patched(module, attr, value, fn):
     return call
 
 
-def host_split(cs, crop_args):
+def host_split(cs, crop_args, global_maps):
     """Host microseconds per call of the crop wrapper on the path's boxes:
     whole, with the C entry point a no-op (the launch helper's own work
     stays), with the launch helper a no-op (the wrapper's checks, arguments
-    and allocation stay), and the calls it makes. Each part runs 500
+    and allocation stay), and the calls it makes; and of the global peaks
+    wrapper on the float32 path maps, beside its outputs allocated as two
+    tensors or as one with two ``as_strided`` views. Each part runs 500
     calls without synchronising, in turns with the others, for 7 rounds;
     the median round counts (the host's clock swings by microseconds
     between rounds)."""
-    from sleap_tpu_torch.ops import _build, cuda_crops
+    from sleap_tpu_torch.ops import _build, cuda_crops, cuda_peaks
 
     images, top_left, box_inds = crop_args
+    S, _, _, C = global_maps.shape
+
+    def one_allocation():
+        out = global_maps.new_empty(3 * S * C)
+        return out.as_strided((S, C, 2), (2 * C, 2, 1)), out.as_strided((S, C), (C, 1), 2 * S * C)
+
     crop = (cs.CROP, cs.CROP)
     shape = (top_left.shape[0], cs.CROP, cs.CROP, images.shape[-1])
     wrapper = lambda: cuda_crops.crop_unit_cuda(images, top_left, box_inds, crop)
@@ -128,6 +138,10 @@ def host_split(cs, crop_args):
         "current stream": lambda: torch._C._cuda_getCurrentRawStream(images.device.index),
         "current device": torch.cuda.current_device,
         "F.grid_sample": cs.grid_sample_crops(images.float(), top_left, box_inds, cs.CROP),
+        "global wrapper": lambda: cuda_peaks.global_peaks_cuda(global_maps, 0.2, 2),
+        "global outputs, two new_empty": lambda: (global_maps.new_empty((S, C, 2)),
+                                                  global_maps.new_empty((S, C))),
+        "global outputs, one new_empty and two views": one_allocation,
     }
     rounds = {name: [] for name in parts}
     for _ in range(7):
@@ -177,7 +191,7 @@ def main() -> int:
     if args.sass:
         res["sass"] = sass_stats()
     if args.host_split:
-        res["host_us"] = host_split(cs, errs["crop_unit"][1])
+        res["host_us"] = host_split(cs, errs["crop_unit"][1], errs["global_peaks"][1][0])
     print(json.dumps(res), flush=True)
     return 0
 

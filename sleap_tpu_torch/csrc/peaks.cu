@@ -1,7 +1,8 @@
 // Peak finding on confidence maps, hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of sleap_tpu/ops/pallas_peaks.py:
-//   - global_peaks_kernel <- _peak_kernel (find_global_peaks_integral_pallas)
+//   - global_slab_kernel, global_band_kernel <- _peak_kernel
+//                            (find_global_peaks_integral_pallas)
 //   - local_peaks_kernel  <- _local_peaks_kernel{,_banded,_packed}
 //                            (find_local_peaks_fused_pallas)
 //   - hwcs_band_kernel    <- _hwcs_kernel
@@ -11,8 +12,8 @@
 //
 // Maps are read in place through the caller's (S, H, W, C) element strides,
 // so an NHWC view of an NCHW conv output needs no transpose copy. Map m is
-// (sample m / C, channel m % C). In kernel 1 one thread block owns one map;
-// kernels 2 and 4 spread each map over blocks (see their sections).
+// (sample m / C, channel m % C). Each kernel spreads its maps over blocks as
+// its section says.
 //
 // Order of peaks: by value descending, ties to the smallest row-major index
 // (jnp.argmax's first occurrence; lax.top_k's lower index first).
@@ -32,73 +33,62 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kNoIndex = 0x7fffffff;
-
-__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-// Block-wide (max value, min index at max); every thread gets the result.
-__device__ void block_argmax(float& v, int& i, float* sv, int* si) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  warp_argmax(v, i);
-  if (lane == 0) {
-    sv[warp] = v;
-    si[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = (blockDim.x + 31) >> 5;
-    v = lane < nwarps ? sv[lane] : -INFINITY;
-    i = lane < nwarps ? si[lane] : kNoIndex;
-    warp_argmax(v, i);
-    if (lane == 0) {
-      sv[0] = v;
-      si[0] = i;
-    }
-  }
-  __syncthreads();
-  v = sv[0];
-  i = si[0];
-  __syncthreads();  // sv/si are reused by the next call
-}
+// ---------------------------------------------------------------------------
+// Helpers shared by the kernels.
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
+__device__ __forceinline__ float bf16_bits_to_float(uint16_t bits) {
+  return __uint_as_float((uint32_t)bits << 16);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(uint16_t bf16_bits) { return bf16_bits_to_float(bf16_bits); }
+
+// Order-preserving bits of a float (larger float, larger unsigned), and back.
+__device__ __forceinline__ uint32_t order_bits(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_order_bits(uint32_t h) {
+  return __uint_as_float((h & 0x80000000u) ? (h & 0x7fffffffu) : ~h);
+}
+
 // Integral regression over the (2*half+1)^2 window centred on (iy, ix),
-// zero outside the map (the zero-padded patch of the XLA path). Called by a
-// whole warp; every lane gets (dx, dy).
-__device__ void window_offsets(const float* map, int64_t sH, int64_t sW, int H, int W,
-                               int iy, int ix, int half, float& dx, float& dy) {
+// zero outside the map (the zero-padded patch of the XLA path, the masked
+// window of the TPU kernel); get(y, x) reads a map value as float32, from
+// shared or device memory. Called by a whole warp; lane t takes taps t,
+// t + 32, ..., whose (row, column) it steps without a division; every lane
+// gets (dx, dy).
+template <typename Get>
+__device__ void window_offsets(Get get, int H, int W, int iy, int ix, int half, float& dx,
+                               float& dy) {
   const int lane = threadIdx.x & 31;
   const int p = 2 * half + 1;
+  const int q = 32 / p;
+  const int r = 32 - q * p;
+  int u = lane / p;
+  int w = lane - u * p;
   float z = 0.f, sx = 0.f, sy = 0.f;
   for (int t = lane; t < p * p; t += 32) {
-    const int u = t / p - half;
-    const int w = t % p - half;
-    const int y = iy + u;
-    const int x = ix + w;
+    const int y = iy + u - half;
+    const int x = ix + w - half;
     if (y >= 0 && y < H && x >= 0 && x < W) {
-      const float v = map[y * sH + x * sW];
+      const float v = get(y, x);
       z += v;
-      sx += v * (float)w;
-      sy += v * (float)u;
+      sx += v * (float)(w - half);
+      sy += v * (float)(u - half);
+    }
+    u += q;
+    w += r;
+    if (w >= p) {
+      w -= p;
+      ++u;
     }
   }
   z = warp_sum(z);
@@ -106,48 +96,399 @@ __device__ void window_offsets(const float* map, int64_t sH, int64_t sW, int H, 
   dy = warp_sum(sy) / z;
 }
 
-// One block per map: argmax (first occurrence), optional integral offsets.
-// half < 0 gives the unrefined grid peak. xy is NaN where max < threshold.
-__global__ void __launch_bounds__(kThreads)
-global_peaks_kernel(const float* __restrict__ cms, int64_t sS, int64_t sH, int64_t sW,
-                    int64_t sC, int H, int W, int C, float threshold, int half,
-                    float* __restrict__ xy, float* __restrict__ vals) {
-  __shared__ float sv[32];
-  __shared__ int si[32];
+// ---------------------------------------------------------------------------
+// Global peaks (kernel 1).
+//
+// Per (sample, channel) map: the max, its first-occurrence row-major index,
+// and the integral-regression centroid of the (2*half+1)^2 window around it;
+// xy is NaN where max < threshold; half < 0 gives the grid peak. Maps are
+// float32 or bf16, read as they lie and compared in float32. A map holding a
+// NaN follows the TPU kernel (jnp.max propagates it, and no element equals
+// it): value NaN, index H*W, so (ix, iy) = (0, H) with the window masked to
+// the map, and xy is not NaN (NaN < threshold is false).
+//
+// Bound by reading the maps once: on the top-down path 64 crops x 13 nodes
+// of 40^2 are 5.3 MB in float32 (1.6 us at 3.35 TB/s) and 2.7 MB in bf16
+// (0.8 us), against two compares per value. Two routes:
+//
+// - Slab route, for maps laid out as a conv head writes them: one map
+//   channel-major (the NHWC view of an NCHW float32 conv output), or a
+//   sample's H x W x C block channels-last (the bf16 head conv's output), so
+//   that any band of rows is one contiguous span. A unit (one map, or one
+//   sample's maps) goes to one block or, when the units are too few to keep
+//   the SMs busy or a unit overflows shared memory, to a thread block
+//   cluster of P blocks that split its rows (P = 1 for the path's 832
+//   float32 maps and its 64 bf16 samples, 8 for single-instance's 4
+//   samples). A block copies its rows, plus the window's half-height above
+//   and below, into shared memory with one TMA bulk copy (cp.async.bulk) on
+//   an mbarrier; the span's unaligned head and tail (under 16 bytes each)
+//   come by plain loads. One warp per map scans the block's own rows from
+//   shared memory, one lane waiting on the mbarrier for it: each lane keeps
+//   its first-occurrence max by a strict compare and a NaN flag, and the
+//   lanes merge by one key (order-preserving value bits, then the smallest
+//   index) in two warp reductions (redux.sync). In a cluster every block
+//   pushes its keys into every block's shared memory and, after one cluster
+//   barrier, the block whose rows hold a map's peak merges them and reads
+//   the window from its own slab: no block barrier after the copy is
+//   issued, no second trip to device memory. Measured on the card: every
+//   thread spinning on the mbarrier cost microseconds, four chunked copies
+//   per slab lost to one, a launch with a cluster attribute of 1 cost twice
+//   a plain one, and 16-byte shared-memory reads gained nothing.
+// - Band route, for any other strides or a band too large for shared memory
+//   (e.g. 512^2 x 13): the 8 blocks of a cluster scan bands of rows of one
+//   map through its strides and push their keys into the first block's
+//   shared memory (kernel 2's split cluster barrier), which merges them and
+//   refines from the map in device memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kGpSmemLimit = 200 * 1024;       // slab route's dynamic shared memory
+constexpr int kGpMaxWarps = 32;
+constexpr int kGpMaxParts = 8;                 // blocks a cluster (the portable maximum)
+constexpr int kGpBandThreads = 256;
+constexpr int kGpBandWarps = kGpBandThreads / 32;
+constexpr uint32_t kNanKey = 0xffffffffu;      // a map holding a NaN: above every value
+constexpr uint32_t kNoIdx = 0x7fffffffu;       // no value above -inf seen
+
+// A lane's first-occurrence max over the indices it visits in increasing
+// order, and whether it saw a NaN.
+struct ArgMax {
+  float v = -INFINITY;
+  uint32_t i = kNoIdx;
+  bool nan = false;
+  __device__ __forceinline__ void add(float x, uint32_t idx) {
+    nan |= x != x;
+    if (x > v) {
+      v = x;
+      i = idx;
+    }
+  }
+  // The key: value bits (NaN above all, -0 as +0, which compare equal) and
+  // the index to take at that value (H*W for NaN).
+  __device__ __forceinline__ void key(uint32_t n_pixels, uint32_t& hi, uint32_t& idx) const {
+    hi = nan ? kNanKey : order_bits(v + 0.f);
+    idx = nan ? n_pixels : i;
+  }
+};
+
+// The warp's best key on every lane: the largest hi, then the smallest idx.
+__device__ __forceinline__ void warp_best(uint32_t& hi, uint32_t& idx) {
+  const uint32_t best = __reduce_max_sync(0xffffffffu, hi);
+  idx = __reduce_min_sync(0xffffffffu, hi == best ? idx : 0xffffffffu);
+  hi = best;
+}
+
+// One warp turns map m's merged key (idx already a pixel of the map, or
+// H*W) into its value, xy and window offsets; get(y, x) reads the map.
+template <typename Get>
+__device__ void finish_peak(Get get, int H, int W, uint32_t hi, uint32_t idx, float threshold,
+                            int half, int64_t m, float* __restrict__ xy,
+                            float* __restrict__ vals) {
+  const float val = hi == kNanKey ? NAN : from_order_bits(hi);
+  const int iy = (int)(idx / (uint32_t)W);
+  const int ix = (int)idx - iy * W;
+  float x = (float)ix, y = (float)iy;
+  if (half >= 0) {
+    float dx, dy;
+    window_offsets(get, H, W, iy, ix, half, dx, dy);
+    x += dx;
+    y += dy;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    const bool below = val < threshold;
+    xy[2 * m] = below ? NAN : x;
+    xy[2 * m + 1] = below ? NAN : y;
+    vals[m] = val;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ bool mbar_done(uint32_t bar) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar) : "memory");
+  return ok != 0;
+}
+
+// A copy that never lands (a fault of this code) traps, so the launch fails
+// instead of hanging the card; try_wait suspends the thread between tries.
+__device__ __forceinline__ void mbar_wait(uint32_t bar) {
+  for (uint32_t tries = 0; !mbar_done(bar); ++tries)
+    if (tries == (1u << 26)) __trap();
+}
+
+// Slab route. Unit u = blockIdx.x / P is channels c0 .. c0 + G - 1 of
+// sample s (channels-last: G = C, pixel p of map g at element p * C + g;
+// channel-major: G = 1, at p); the cluster's block `rank` owns rows
+// [rank * rows_per, + rows_per) and holds rows ya .. yb (its own and the
+// window's half-height around them) in dynamic shared memory, from byte
+// (address & 15) on, so the bulk copy lands 16-byte aligned. The keys follow
+// at slab_bytes: hi then idx, [P][G] each.
+template <typename T>
+__global__ void __launch_bounds__(kGpMaxWarps * 32)
+global_slab_kernel(const T* __restrict__ cms, int64_t sS, int H, int W, int C, int G, int pix,
+                   int ch, int rows_per, int slab_bytes, float threshold, int half,
+                   float* __restrict__ xy, float* __restrict__ vals) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  // Arrive now, wait before writing to a peer's shared memory.
+  if (P > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int HW = H * W;
+  const int groups = (C + G - 1) / G;
+  const int unit = blockIdx.x / P;
+  const int s = unit / groups;
+  const int c0 = (unit - s * groups) * G;
+  const int gn = min(G, C - c0);
+  const int h = max(half, 0);
+  const int y0 = min(H, rank * rows_per);
+  const int y1 = min(H, y0 + rows_per);
+  const int ya = y0 < y1 ? max(0, y0 - h) : y0;
+  const int yb = y0 < y1 ? min(H, y1 + h) : y0;
+  const int n = yb > ya ? ((yb - ya) * W - 1) * pix + (gn - 1) * ch + 1 : 0;  // slab elements
+  const T* src = cms + (int64_t)s * sS + (int64_t)c0 * ch + (int64_t)ya * W * pix;
+
+  // One bulk copy of the slab's 16-byte aligned interior; plain loads of
+  // the elements before and after it.
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t e = a + (uintptr_t)n * sizeof(T);
+  const uintptr_t a16 = (a + 15) & ~(uintptr_t)15;
+  const uintptr_t e16 = e & ~(uintptr_t)15;
+  T* data = reinterpret_cast<T*>(smem + (a & 15));
+  const uint32_t bulk = e16 > a16 ? (uint32_t)(e16 - a16) : 0u;
+  const int head = bulk ? (int)((a16 - a) / sizeof(T)) : n;  // plain: [0, head)
+  const int tail = bulk ? (int)((e16 - a) / sizeof(T)) : n;  // plain: [tail, n)
+  if (threadIdx.x == 0 && bulk) {
+    const uint32_t b = smem_addr(&bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bulk)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_addr(data + head)), "l"(src + head), "r"(bulk), "r"(b)
+        : "memory");
+  }
+  for (int j = threadIdx.x; j < head; j += blockDim.x) data[j] = src[j];
+  for (int j = tail + threadIdx.x; j < n; j += blockDim.x) data[j] = src[j];
+  __syncthreads();  // barrier initialised, head and tail stored
+  if (P > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+
+  uint32_t* key_hi = reinterpret_cast<uint32_t*>(smem + slab_bytes);
+  uint32_t* key_idx = key_hi + P * G;
+  // The own rows, as pixels from row ya.
+  const int qa = (y0 - ya) * W;
+  const int qb = (y1 - ya) * W;
+  const uint32_t base = (uint32_t)(ya * W);  // pixel index of slab pixel 0
+  for (int g = warp; g < gn; g += n_warps) {
+    const T* map = data + g * ch;
+    ArgMax am;
+    if (bulk) {
+      // One lane waits (every thread of the block spinning on the mbarrier
+      // costs microseconds); the warp's lanes see the copy after it.
+      if (lane == 0) mbar_wait(smem_addr(&bar));
+      __syncwarp();
+    }
+#pragma unroll 4
+    for (int q = qa + lane; q < qb; q += 32) am.add(to_f32(map[q * pix]), base + (uint32_t)q);
+    uint32_t hi, idx;
+    am.key((uint32_t)HW, hi, idx);
+    warp_best(hi, idx);
+    auto get = [&](int y, int x) { return to_f32(map[((y - ya) * W + x) * pix]); };
+    if (P == 1) {
+      if (idx == kNoIdx) idx = 0;  // every value is -inf: the first one
+      finish_peak(get, H, W, hi, idx, threshold, half, (int64_t)s * C + c0 + g, xy, vals);
+    } else if (lane < P) {  // this block's key into block `lane`'s shared memory
+      *cluster.map_shared_rank(key_hi + rank * G + g, lane) = hi;
+      *cluster.map_shared_rank(key_idx + rank * G + g, lane) = idx;
+    }
+  }
+  if (P == 1) return;
+  cluster.sync();  // every block's keys are in every block's shared memory
+
+  // The block whose rows hold map g's peak (row H - 1 for a NaN map's H*W)
+  // refines it from its slab.
+  for (int g = warp; g < gn; g += n_warps) {
+    uint32_t hi = lane < P ? key_hi[lane * G + g] : 0u;
+    uint32_t idx = lane < P ? key_idx[lane * G + g] : 0xffffffffu;
+    warp_best(hi, idx);
+    if (idx == kNoIdx) idx = 0;
+    if (min((int)(idx / (uint32_t)W), H - 1) / rows_per != rank) continue;
+    const T* map = data + g * ch;
+    auto get = [&](int y, int x) { return to_f32(map[((y - ya) * W + x) * pix]); };
+    finish_peak(get, H, W, hi, idx, threshold, half, (int64_t)s * C + c0 + g, xy, vals);
+  }
+}
+
+// Band route: block `part` of map m's cluster scans rows part * rows_per ..,
+// one warp a row, lanes across columns.
+template <typename T>
+__global__ void __cluster_dims__(1, kGpMaxParts, 1) __launch_bounds__(kGpBandThreads)
+global_band_kernel(const T* __restrict__ cms, int64_t sS, int64_t sH, int64_t sW, int64_t sC,
+                   int H, int W, int C, float threshold, int half, float* __restrict__ xy,
+                   float* __restrict__ vals) {
+  __shared__ uint32_t warp_hi[kGpBandWarps], warp_idx[kGpBandWarps];
+  __shared__ uint32_t part_hi[kGpMaxParts], part_idx[kGpMaxParts];  // the first block's
+  cg::cluster_group cluster = cg::this_cluster();
+  // Arrive now, wait before writing to the first block's shared memory.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int m = blockIdx.x;
-  const float* map = cms + (int64_t)(m / C) * sS + (int64_t)(m % C) * sC;
-  const int n = H * W;
+  const int part = blockIdx.y;  // the block's rank in its cluster
+  const T* map = cms + (int64_t)(m / C) * sS + (int64_t)(m % C) * sC;
+  const int rows_per = (H + kGpMaxParts - 1) / kGpMaxParts;
+  const int ya = part * rows_per;
+  const int yb = min(H, ya + rows_per);
 
-  float bv = -INFINITY;
-  int bi = kNoIndex;
-  for (int l = threadIdx.x; l < n; l += blockDim.x) {
-    const int y = l / W;
-    const int x = l - y * W;
-    const float v = map[y * sH + x * sW];
-    if (better(v, l, bv, bi)) {
-      bv = v;
-      bi = l;
+  ArgMax am;
+  for (int y = ya + warp; y < yb; y += kGpBandWarps) {
+    const T* row = map + (int64_t)y * sH;
+    for (int x = lane; x < W; x += 32) am.add(to_f32(row[(int64_t)x * sW]), (uint32_t)(y * W + x));
+  }
+  uint32_t hi, idx;
+  am.key((uint32_t)(H * W), hi, idx);
+  warp_best(hi, idx);
+  if (lane == 0) {
+    warp_hi[warp] = hi;
+    warp_idx[warp] = idx;
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (warp == 0) {
+    hi = lane < kGpBandWarps ? warp_hi[lane] : 0u;
+    idx = lane < kGpBandWarps ? warp_idx[lane] : 0xffffffffu;
+    warp_best(hi, idx);
+    if (lane == 0) {
+      *cluster.map_shared_rank(part_hi + part, 0) = hi;
+      *cluster.map_shared_rank(part_idx + part, 0) = idx;
     }
   }
-  block_argmax(bv, bi, sv, si);
+  cluster.sync();  // every part's key is in the first block's shared memory
+  if (part != 0 || warp != 0) return;
+  hi = lane < kGpMaxParts ? part_hi[lane] : 0u;
+  idx = lane < kGpMaxParts ? part_idx[lane] : 0xffffffffu;
+  warp_best(hi, idx);
+  if (idx == kNoIdx) idx = 0;  // every value is -inf: the first one
+  auto get = [&](int y, int x) { return to_f32(map[(int64_t)y * sH + (int64_t)x * sW]); };
+  finish_peak(get, H, W, hi, idx, threshold, half, (int64_t)m, xy, vals);
+}
 
-  if (threadIdx.x < 32) {
-    const int iy = bi / W;
-    const int ix = bi - iy * W;
-    float x = (float)ix, y = (float)iy;
-    if (half >= 0) {
-      float dx, dy;
-      window_offsets(map, sH, sW, H, W, iy, ix, half, dx, dy);
-      x += dx;
-      y += dy;
+// The SMs of the current device, read once per process and device.
+int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (!sms[dev] &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return sms[dev];
+}
+
+// The slab route's plan for these maps, or G = 0 for the band route.
+struct SlabPlan {
+  int G = 0, pix = 0, ch = 0, P = 1, rows_per = 0, slab_bytes = 0, smem = 0;
+};
+
+template <typename T>
+SlabPlan slab_plan(int64_t sH, int64_t sW, int64_t sC, int S, int H, int W, int C, int half) {
+  SlabPlan plan;
+  const int64_t HW = (int64_t)H * W;
+  if (sW == 1 && sH == W && (C == 1 || sC == HW)) {  // channel-major: one map a unit
+    plan.G = 1;
+    plan.pix = 1;
+    plan.ch = (int)HW;
+  } else if ((C == 1 || sC == 1) && sW == C && sH == (int64_t)W * C) {  // channels-last
+    plan.G = C;
+    plan.pix = C;
+    plan.ch = 1;
+  } else {
+    return plan;
+  }
+  // Blocks a unit: more than one only while the grid would fill under a
+  // quarter of the SMs (on the card, 64 bf16 samples of 40^2 x 13 lost
+  // 0.4 us split in two; 4 of 48^2 x 13 gained 0.8 us split in eight), each
+  // block keeping at least two rows; more if the band with its halo
+  // overflows shared memory.
+  const int64_t units = (int64_t)S * ((C + plan.G - 1) / plan.G);
+  const int64_t h = half > 0 ? half : 0;
+  const int sms = sm_count();
+  while (plan.P < kGpMaxParts && 4 * plan.P <= H && 8 * units * plan.P <= sms) plan.P *= 2;
+  for (;;) {
+    plan.rows_per = (H + plan.P - 1) / plan.P;
+    const int64_t rows = plan.rows_per + 2 * h < H ? plan.rows_per + 2 * h : H;
+    const int64_t slab = ((int64_t)plan.G * rows * W * (int64_t)sizeof(T) + 31) & ~(int64_t)15;
+    const int64_t total = slab + 8 * (int64_t)plan.P * plan.G;
+    if (total <= kGpSmemLimit) {
+      plan.slab_bytes = (int)slab;
+      plan.smem = (int)total;
+      return plan;
     }
-    if (threadIdx.x == 0) {
-      const bool below = bv < threshold;
-      xy[2 * m] = below ? NAN : x;
-      xy[2 * m + 1] = below ? NAN : y;
-      vals[m] = bv;
+    if (plan.P == kGpMaxParts || 2 * plan.P > H) break;
+    plan.P *= 2;
+  }
+  plan.G = 0;
+  return plan;
+}
+
+template <typename T>
+cudaError_t launch_global(const T* cms, int64_t sS, int64_t sH, int64_t sW, int64_t sC, int S,
+                          int H, int W, int C, float threshold, int half, float* xy, float* vals,
+                          cudaStream_t stream) {
+  const SlabPlan plan = slab_plan<T>(sH, sW, sC, S, H, W, C, half);
+  if (!plan.G) {
+    global_band_kernel<T><<<dim3(S * C, kGpMaxParts), kGpBandThreads, 0, stream>>>(
+        cms, sS, sH, sW, sC, H, W, C, threshold, half, xy, vals);
+    return cudaGetLastError();
+  }
+  if (plan.smem > 48 * 1024) {
+    // Once per process, device and dtype: dynamic shared memory above 48 KB.
+    static bool raised[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+    if (!raised[dev]) {
+      err = cudaFuncSetAttribute(global_slab_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kGpSmemLimit);
+      if (err != cudaSuccess) return err;
+      raised[dev] = true;
     }
   }
+  const int64_t blocks = (int64_t)S * ((C + plan.G - 1) / plan.G) * plan.P;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const int threads = 32 * (plan.G < kGpMaxWarps ? plan.G : kGpMaxWarps);  // a warp a map
+  if (plan.P == 1) {  // no cluster attribute: on the card it doubled the launch's cost
+    global_slab_kernel<T><<<(unsigned)blocks, threads, plan.smem, stream>>>(
+        cms, sS, H, W, C, plan.G, plan.pix, plan.ch, plan.rows_per, plan.slab_bytes, threshold,
+        half, xy, vals);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)plan.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster = {};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = (unsigned)plan.P;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, global_slab_kernel<T>, cms, sS, H, W, C,
+                                             plan.G, plan.pix, plan.ch, plan.rows_per,
+                                             plan.slab_bytes, threshold, half, xy, vals);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -222,16 +563,6 @@ constexpr int kLpTileRows = 8;
 constexpr int kLpTileCols = 256;
 constexpr int kLpParts = 8;        // blocks per map: one cluster (the portable maximum)
 constexpr int kLpBatch = 4;        // staged pixels each thread loads before storing
-
-// Order-preserving bits of a float (larger float, larger unsigned), and back.
-__device__ __forceinline__ uint32_t order_bits(float v) {
-  const uint32_t u = __float_as_uint(v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_order_bits(uint32_t h) {
-  return __uint_as_float((h & 0x80000000u) ? (h & 0x7fffffffu) : ~h);
-}
 
 // Largest key of the warp, on every lane: the largest high word, then the
 // largest low word among the lanes that hold it.
@@ -383,7 +714,8 @@ local_peaks_kernel(const float* __restrict__ cms, int64_t sS, int64_t sH, int64_
       y = (float)iy;
       if (half >= 0) {
         float dx, dy;
-        window_offsets(map, sH, sW, H, W, iy, ix, half, dx, dy);
+        window_offsets([&](int yy, int xx) { return map[yy * sH + xx * sW]; }, H, W, iy, ix,
+                       half, dx, dy);
         x += dx;
         y += dy;
       }
@@ -457,10 +789,6 @@ constexpr int kHwcsCols = 8;       // columns per thread
 constexpr int kHwcsBlockCols = kHwcsCols * 32;  // columns per block
 constexpr int kHwcsRows = 16;      // rows per block (a band)
 constexpr int kHwcsSmemLimit = 200 * 1024;  // below the 227 KB opt-in, less static smem
-
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t bits) {
-  return __uint_as_float((uint32_t)bits << 16);
-}
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem_dst);
@@ -808,12 +1136,30 @@ cudaError_t launch_hwcs(const uint16_t* cms, int64_t sS, int64_t sH, int64_t sW,
 
 // C entry points: launch on the caller's stream, allocate nothing, return the
 // launch's cudaGetLastError() (0 on success). Strides are in elements.
-extern "C" int sleap_global_peaks(const float* cms, int64_t sS, int64_t sH, int64_t sW,
-                                  int64_t sC, int S, int H, int W, int C, float threshold,
-                                  int half, float* xy, float* vals, void* stream) {
-  global_peaks_kernel<<<S * C, kThreads, 0, (cudaStream_t)stream>>>(
-      cms, sS, sH, sW, sC, H, W, C, threshold, half, xy, vals);
-  return (int)cudaGetLastError();
+
+// Kernel 1's plan for these maps, without a launch: the blocks a map or
+// sample takes on the slab route, or 0 for the band route.
+extern "C" int sleap_global_plan(int64_t sH, int64_t sW, int64_t sC, int S, int H, int W, int C,
+                                 int bf16, int half) {
+  const SlabPlan plan = bf16 ? slab_plan<uint16_t>(sH, sW, sC, S, H, W, C, half)
+                             : slab_plan<float>(sH, sW, sC, S, H, W, C, half);
+  return plan.G ? plan.P : 0;
+}
+
+// Kernel 1. cms holds bf16 bit patterns if bf16 != 0, else float32 values.
+extern "C" int sleap_global_peaks(const void* cms, int64_t sS, int64_t sH, int64_t sW,
+                                  int64_t sC, int S, int H, int W, int C, int bf16,
+                                  float threshold, int half, float* xy, float* vals,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S < 1 || H < 1 || W < 1 || C < 1 || (int64_t)H * W >= (int64_t)kNoIdx ||
+      (int64_t)S * C > 0x7fffffff || half > 4096)
+    return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return (int)launch_global(static_cast<const uint16_t*>(cms), sS, sH, sW, sC, S, H, W, C,
+                              threshold, half, xy, vals, st);
+  return (int)launch_global(static_cast<const float*>(cms), sS, sH, sW, sC, S, H, W, C, threshold,
+                            half, xy, vals, st);
 }
 
 extern "C" int sleap_local_peaks(const float* cms, int64_t sS, int64_t sH, int64_t sW,

@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C signatures of the entry points (every pointer and the stream as void*).
 SIGNATURES = {
-    "sleap_global_peaks": [_p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _f, _i, _p, _p, _p],
+    "sleap_global_peaks": [_p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p],
+    "sleap_global_plan": [_i64, _i64, _i64, _i, _i, _i, _i, _i, _i],
     "sleap_local_peaks": [_p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p],
     "sleap_local_peaks_hwcs": [
         _p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p, _p, _p,

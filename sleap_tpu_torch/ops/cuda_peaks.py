@@ -4,16 +4,28 @@ Three CUDA kernels (``csrc/peaks.cu``) replace the Pallas kernels of
 :mod:`sleap_tpu.ops.pallas_peaks` (top-down and bottom-up paths):
 
 ``global_peaks`` <- ``find_global_peaks_integral_pallas`` / ``_peak_kernel``
-    Per (sample, channel) map: the max, the first-occurrence argmax and the
-    integral-regression centroid of the (2*half+1)^2 window around it (zero
-    outside the map); xy is NaN below threshold. ``half < 0`` gives the
-    unrefined grid peak (``find_global_peaks_rough``). Bound by reading the
-    maps once: on the top-down main path (64 crops x 13 nodes of 40x40 f32)
-    that is 832 maps x 1,600 x 4 B = 5.3 MB per batch, against a few hundred
-    FLOPs per map. Design: one thread block per map reads it in place
-    through the NHWC view's strides (no transpose copy, which would double
-    the bytes), reduces (max, min index at max) with warp shuffles, and one
-    warp takes the 25-tap window sum.
+    Per (sample, channel) map of float32 or bf16 values, read as they lie:
+    the max, the first-occurrence argmax and the integral-regression
+    centroid of the (2*half+1)^2 window around it (zero outside the map);
+    xy is NaN below threshold. ``half < 0`` gives the unrefined grid peak
+    (``find_global_peaks_rough``). A map holding a NaN follows the TPU
+    kernel: value NaN, argmax H*W, so (x, y) = (0, H) plus the offsets of
+    the window there, masked to the map. Bound by reading the maps once: on
+    the top-down path (64 crops x 13 nodes of 40x40) that is 5.3 MB per
+    batch in float32, 2.7 MB in bf16, against two compares per value.
+    Design (``csrc/peaks.cu``, ``global_slab_kernel``): maps laid out as a
+    conv head writes them (one map channel-major, or a sample's H x W x C
+    block channels-last) are copied into shared memory by one TMA bulk copy
+    per block and scanned there by one warp per map; lanes merge by one key
+    (order-preserving value bits, then the smallest index) in two warp
+    reductions, and the window is read from shared memory. A block takes a
+    map or a sample, or, when those are too few to keep the SMs busy or too
+    large for shared memory, a thread block cluster splits its rows (each
+    block holding the window's halo) and exchanges keys through distributed
+    shared memory. Any other strides take ``global_band_kernel``: a cluster
+    of 8 blocks per map scans bands of rows through the strides and merges
+    in the first block's shared memory (:func:`global_peaks_plan` reads the
+    plan).
 
 ``local_peaks`` <- ``find_local_peaks_fused_pallas`` / ``_local_peaks_kernel``
     Strict 8-neighbour NMS above threshold (border = -inf), the top K by
@@ -65,9 +77,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from sleap_tpu_torch.ops._build import launch
+from sleap_tpu_torch.ops._build import entry, launch
 
 MAX_K = 64
+GLOBAL_DTYPES = (torch.float32, torch.bfloat16)  # what kernel global_peaks reads
 HWCS_MAX_PIXELS = 2**16  # the packed key's 16-bit index
 HWCS_HALF = 2  # kernel 4's integral window is 5 x 5
 HWCS_BAND_ROWS = 16  # rows per block of kernel 4
@@ -134,7 +147,9 @@ def global_peaks_plain(
         half: integral window half-size; < 0 for the grid peak.
 
     Returns:
-        xy (S, C, 2), NaN below threshold; vals (S, C).
+        xy (S, C, 2), NaN below threshold; vals (S, C). A map holding a NaN
+        gets val NaN and argmax H*W (no value equals the NaN max), whose
+        window around (0, H) is masked to the map, not clamped into it.
     """
     S, H, W, C = cms.shape
     maps = _flat_maps(cms)
@@ -142,9 +157,19 @@ def global_peaks_plain(
     vals = flat.amax(dim=1)
     lin = torch.arange(H * W, device=cms.device)
     idx = torch.where(flat == vals[:, None], lin, H * W).amin(dim=1)  # first occurrence
-    xy = torch.stack([idx % W, idx // W], dim=-1).float()
+    ix, iy = idx % W, idx // W
+    xy = torch.stack([ix, iy], dim=-1).float()
     if half >= 0:
-        xy = _integral_refine(maps, xy, torch.arange(S * C, device=cms.device), half)
+        size = 2 * half + 1
+        # One more zero row below: a NaN map's window is centred on row H.
+        padded = F.pad(maps, (half, half, half, half + 1))
+        offs = torch.arange(size, device=cms.device)
+        rows = (iy[:, None] + offs)[:, :, None]
+        cols = (ix[:, None] + offs)[:, None, :]
+        patches = padded[torch.arange(S * C, device=cms.device)[:, None, None], rows, cols]
+        gv = offs.float() - half
+        dx, dy = integral_regression(patches[..., None], xv=gv, yv=gv)
+        xy = xy + torch.cat([dx, dy], dim=1)
     xy = torch.where((vals < threshold)[:, None], float("nan"), xy)
     return xy.reshape(S, C, 2), vals.reshape(S, C)
 
@@ -267,11 +292,12 @@ def hwcs_fast_rows(cms: torch.Tensor) -> bool:
 # --------------------------------------------------------------------------- #
 
 
-def _check_maps(cms: torch.Tensor) -> None:
+def _check_maps(cms: torch.Tensor, dtypes=(torch.float32,)) -> None:
     if not cms.is_cuda:
         raise ValueError(f"The CUDA peak kernels take CUDA tensors, got {cms.device}.")
-    if cms.dtype != torch.float32 or cms.ndim != 4:
-        raise ValueError(f"Expected (S, H, W, C) float32 maps, got {cms.dtype} {tuple(cms.shape)}.")
+    if cms.dtype not in dtypes or cms.ndim != 4:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"Expected (S, H, W, C) {names} maps, got {cms.dtype} {tuple(cms.shape)}.")
     if cms.shape[1] * cms.shape[2] >= 2**31:
         raise ValueError("Maps larger than 2**31 pixels are not supported.")
 
@@ -283,19 +309,40 @@ def _launch(name: str, cms: torch.Tensor, *args) -> None:
 def global_peaks_cuda(
     cms: torch.Tensor, threshold: float, half: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel ``global_peaks``; same contract as :func:`global_peaks_plain`."""
-    _check_maps(cms)
+    """Launch kernel ``global_peaks`` on float32 or bf16 maps, read in place;
+    same contract as :func:`global_peaks_plain`, float32 outputs."""
+    _check_maps(cms, GLOBAL_DTYPES)
     S, H, W, C = cms.shape
-    xy = cms.new_empty((S, C, 2))
-    vals = cms.new_empty((S, C))
+    # One allocation, xy then vals; as_strided views cost the host less than
+    # slicing.
+    out = cms.new_empty(3 * S * C, dtype=torch.float32)
+    xy = out.as_strided((S, C, 2), (2 * C, 2, 1))
+    vals = out.as_strided((S, C), (C, 1), 2 * S * C)
     if S * C == 0:
         return xy, vals
-    _launch("sleap_global_peaks", cms, float(threshold), int(half), xy.data_ptr(), vals.data_ptr())
+    if H * W == 0:
+        raise ValueError("Global peaks of empty maps are undefined.")
+    _launch(
+        "sleap_global_peaks", cms, int(cms.dtype == torch.bfloat16), float(threshold), int(half),
+        xy.data_ptr(), vals.data_ptr(),
+    )
     global_peaks_cuda.launches += 1
     return xy, vals
 
 
 global_peaks_cuda.launches = 0
+
+
+def global_peaks_plan(cms: torch.Tensor, half: int) -> int:
+    """The plan kernel ``global_peaks`` takes for these CUDA maps, from its
+    library and without a launch: the blocks of a thread block cluster that
+    share a map or a sample on the slab route (1 for a block alone), or 0
+    for the band route."""
+    S, H, W, C = cms.shape
+    sS, sH, sW, sC = cms.stride()
+    with torch.cuda.device(cms.device):
+        return entry("sleap_global_plan")(
+            sH, sW, sC, S, H, W, C, int(cms.dtype == torch.bfloat16), int(half))
 
 
 def local_peaks_cuda(

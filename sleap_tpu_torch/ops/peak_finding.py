@@ -22,6 +22,7 @@ import torch
 
 from sleap_tpu_torch.ops.cuda_crops import crop_unit
 from sleap_tpu_torch.ops.cuda_peaks import (
+    GLOBAL_DTYPES,
     extract_patches,
     global_peaks,
     hwcs_ok,
@@ -80,15 +81,21 @@ def _local_direction(cms: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return xy + find_offsets_local_direction(patches).reshape(xy.shape)
 
 
+def _global_maps(cms: torch.Tensor) -> torch.Tensor:
+    """Maps as kernel ``global_peaks`` reads them: float32 and bf16 as they
+    lie, any other dtype cast to float32."""
+    return cms if cms.dtype in GLOBAL_DTYPES else cms.float()
+
+
 def find_global_peaks_rough(
     cms: torch.Tensor, threshold: float = 0.1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grid-aligned global maxima per sample x channel (first occurrence).
 
     Returns (samples, channels, 2) xy, NaN below threshold, and
-    (samples, channels) values.
+    (samples, channels) float32 values.
     """
-    return global_peaks(cms, threshold, -1)
+    return global_peaks(_global_maps(cms), threshold, -1)
 
 
 def find_global_peaks(
@@ -99,7 +106,7 @@ def find_global_peaks(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global peaks with optional "integral" or "local" subpixel refinement."""
     if refinement == "integral":
-        return global_peaks(cms, threshold, _integral_half(integral_patch_size))
+        return global_peaks(_global_maps(cms), threshold, _integral_half(integral_patch_size))
     xy, vals = find_global_peaks_rough(cms, threshold)
     if refinement == "local":
         xy = _local_direction(cms, xy[:, :, None])[:, :, 0]

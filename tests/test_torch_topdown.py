@@ -1,15 +1,20 @@
 """The port's predictors end to end against the JAX package's, on the same
 weights and frames: the trained top-down pair in ``.convergence_runs``, a
-shrunken integral-refinement top-down config, and single-instance.
+shrunken integral-refinement top-down config, and single-instance; and the
+shrunken configs in bf16.
 
 Tolerances: points within 0.01 px and values within 1e-4 (f32 convs sum in
 another order in each framework; refined points scale that by stride /
-input scale); masks and instance counts equal.
+input scale); masks and instance counts equal. bf16: the two frameworks
+round at other places inside the network, so the test feeds JAX's bf16
+maps to the port's post-processing, which must then give the peaks of the
+JAX path the TPU runs (the Pallas kernel in interpret mode) exactly.
 """
 
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,15 +28,18 @@ from sleap_tpu.config import (
     InstanceCroppingConfig,
     ModelConfig,
     PreprocessingConfig,
+    SingleInstanceConfmapsHeadConfig,
     TrainingJobConfig,
     UNetConfig,
 )
 from sleap_tpu.inference import predictors as jp
 from sleap_tpu.models.model import Model as JaxModel
+from sleap_tpu.ops.pallas_peaks import find_global_peaks_integral_pallas
 from sleap_tpu_torch.core.labels import Labels
 from sleap_tpu_torch.inference import predictors as tp
 from sleap_tpu_torch.models.model import Model
 from sleap_tpu_torch.models.params import state_dict_from_flax
+from sleap_tpu_torch.ops import peak_finding as tpf
 
 torch.set_num_threads(1)
 
@@ -134,7 +142,7 @@ def test_trained_topdown_labels_match_jax(trained_pair):
 # --------------------------------------------------------------------------- #
 
 
-def _shrunken_pair(head, input_scaling, seed):
+def _shrunken_pair(head, input_scaling, seed, bf16=False):
     model_cfg = ModelConfig(
         backbone=BackboneConfig(unet=UNetConfig(
             max_stride=16, output_stride=4, filters=8, filters_rate=2.0,
@@ -155,9 +163,11 @@ def _shrunken_pair(head, input_scaling, seed):
     for name in params:  # non-negative heads: maps with peaks above threshold
         if name != "backbone":
             params[name]["kernel"] = np.abs(params[name]["kernel"])
+    if bf16:
+        module = jmodel.make_flax_module(compute_dtype=jnp.bfloat16)
     jtm = jp.TrainedModel(config=cfg, model=jmodel, module=module,
                           variables={"params": params}, input_channels=1)
-    tmod = Model.from_config(model_cfg).make_module(1)
+    tmod = Model.from_config(model_cfg).make_module(1, torch.bfloat16 if bf16 else torch.float32)
     tmod.load_state_dict(state_dict_from_flax(tmod, params))
     ttm = tp.TrainedModel(
         module=tmod.eval(), input_scale=input_scaling, output_stride=4, pad_to_stride=16,
@@ -166,13 +176,17 @@ def _shrunken_pair(head, input_scaling, seed):
     return jtm, ttm
 
 
+NODES = [f"n{i}" for i in range(13)]
+CENTROID_HEAD = HeadsConfig(centroid=CentroidsHeadConfig(output_stride=4))
+INSTANCE_HEAD = HeadsConfig(centered_instance=CenteredInstanceConfmapsHeadConfig(
+    part_names=NODES, output_stride=4))
+SINGLE_HEAD = HeadsConfig(single_instance=SingleInstanceConfmapsHeadConfig(
+    part_names=NODES, output_stride=4))
+
+
 def test_shrunken_integral_topdown_matches_jax():
-    nodes = [f"n{i}" for i in range(13)]
-    jc, tc = _shrunken_pair(HeadsConfig(centroid=CentroidsHeadConfig(output_stride=4)), 0.5, 0)
-    ji, ti = _shrunken_pair(
-        HeadsConfig(centered_instance=CenteredInstanceConfmapsHeadConfig(
-            part_names=nodes, output_stride=4)), 1.0, 1,
-    )
+    jc, tc = _shrunken_pair(CENTROID_HEAD, 0.5, 0)
+    ji, ti = _shrunken_pair(INSTANCE_HEAD, 1.0, 1)
     frames = _frames(2, 128, seed=1)
     jpred = jp.TopDownPredictor(centroid_model=jc, confmap_model=ji, max_instances=4, batch_size=2)
     tpred = tp.TopDownPredictor(device=torch.device("cpu"), centroid_model=tc,
@@ -182,6 +196,71 @@ def test_shrunken_integral_topdown_matches_jax():
         jpred.predict(frames, make_labels=False),
         min_centroids=4,
     )
+
+
+def _to_torch_bf16(x):
+    bits = np.asarray(x).view(np.uint16).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("head,key", [
+    (INSTANCE_HEAD, "CenteredInstanceConfmapsHead"),
+    (SINGLE_HEAD, "SingleInstanceConfmapsHead"),
+])
+def test_bf16_maps_postprocessed_match_pallas(head, key):
+    """JAX's bf16 instance (or single-instance) maps, channels-last as the
+    bf16 head conv writes them, through the port's global peaks equal the
+    Pallas kernel's peaks: values and refined xy exact."""
+    jtm, _ = _shrunken_pair(head, 1.0, 2, bf16=True)
+    imgs = jnp.asarray(_frames(3, 64, seed=3), jnp.float32) / 255.0
+    maps = jtm.module.apply(jtm.variables, imgs, train=False)[key]
+    assert maps.dtype == jnp.bfloat16 and maps.shape == (3, 16, 16, 13)
+    want_xy, want_v = find_global_peaks_integral_pallas(maps, threshold=0.1, interpret=True)
+    got_xy, got_v = tpf.find_global_peaks(_to_torch_bf16(maps), threshold=0.1, refinement="integral")
+    found = np.isfinite(got_xy.numpy()).all(axis=-1)
+    assert 13 <= found.sum() < found.size  # peaks above and below the threshold
+    _assert_close_nan(got_xy.numpy(), np.asarray(want_xy), 0.0)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+def _assert_same_outputs_form(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            if isinstance(g[k], np.ndarray):
+                assert (g[k].shape, g[k].dtype) == (w[k].shape, w[k].dtype), k
+
+
+def test_bf16_topdown_predictor_runs_end_to_end():
+    """A bf16 TopDownPredictor (kernels 4, 3, 1 on the card; their plain
+    versions here) gives the float32 predictor's outputs in shape and dtype."""
+    preds = {}
+    for bf16 in (False, True):
+        _, tc = _shrunken_pair(CENTROID_HEAD, 0.5, 0, bf16=bf16)
+        _, ti = _shrunken_pair(INSTANCE_HEAD, 1.0, 1, bf16=bf16)
+        preds[bf16] = tp.TopDownPredictor(device=torch.device("cpu"), centroid_model=tc,
+                                          confmap_model=ti, max_instances=4, batch_size=2)
+    frames = _frames(2, 128, seed=1)
+    got = preds[True].predict(frames, make_labels=False)
+    _assert_same_outputs_form(got, preds[False].predict(frames, make_labels=False))
+    peaks = _merged(got, ("instance_peaks",))["instance_peaks"]
+    assert peaks.dtype == np.float32 and np.isfinite(peaks).any()
+    assert type(preds[True].predict(frames)) is Labels
+
+
+def test_bf16_single_instance_predictor_runs_end_to_end():
+    preds = {}
+    for bf16 in (False, True):
+        _, tm = _shrunken_pair(SINGLE_HEAD, 1.0, 2, bf16=bf16)
+        preds[bf16] = tp.SingleInstancePredictor(device=torch.device("cpu"), confmap_model=tm,
+                                                 batch_size=2)
+    frames = _frames(3, 64, seed=3)
+    got = preds[True].predict(frames, make_labels=False)
+    _assert_same_outputs_form(got, preds[False].predict(frames, make_labels=False))
+    peaks = _merged(got, ("instance_peaks",))["instance_peaks"]
+    assert peaks.shape == (3, 13, 2) and np.isfinite(peaks).any()
+    assert type(preds[True].predict(frames)) is Labels
 
 
 # --------------------------------------------------------------------------- #
