@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive sleap_tpu_torch's top-down, single-instance and bottom-up inference
-once on one CUDA card, through the run-folder loader a user calls.
+"""Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
+inference once on one CUDA card, through the run-folder loader a user calls,
+and the repo's trained run folders from their own checkpoints.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,13 @@ Phases; any failure exits non-zero and no result line is printed:
    threshold and every stage works), and handed over as params trees
    (``flax_from_state_dict``). Every path loads with
    ``sleap_tpu_torch.load_model(folder, params=...)`` and no device
-   argument: the card is the default.
+   argument: the card is the default. The top-down pair is written again
+   with the instance folder as ``multi_class_topdown`` (the same UNet and
+   crop, class vectors of 4 classes: 3 dense layers of 64 units on the
+   globally pooled stride-16 feature, as in the repo's trained multiclass
+   folder), and the bottom-up UNet as ``multi_class_bottomup`` (confmaps at
+   stride 4, sigma 2.5; class maps of 4 classes at stride 4); their seeded
+   weights keep the dense and class layers' signs.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (planted-Gaussian maps plus noise; crop boxes hanging
    off every edge; local peaks with and without refinement) and on the cases
@@ -27,7 +34,10 @@ Phases; any failure exits non-zero and no result line is printed:
    (the band route), 37 x 41 maps (rows no multiple of 16 bytes) in both
    layouts and dtypes, slabs starting off a 16-byte boundary, a channel
    slice and a strided slice, ten equal maxima, maps all below threshold,
-   half 1 and 3, maps holding one NaN; float16 and float64 maps refused.
+   half 1 and 3, maps holding one NaN, several NaNs, and a NaN after the
+   finite maximum, in both dtypes and layouts (on the grid route, half -1,
+   the first NaN's xy with value NaN, as JAX's rough peaks); float16 and
+   float64 maps refused.
    Crops bitwise: float32 frames at the path size,
    C = 3, 5 and 6 (every C mod 4), odd crop sizes, non-contiguous frame strides, box
    indices -1 and B, rows of more than 512 flat elements (several segments
@@ -57,7 +67,31 @@ Phases; any failure exits non-zero and no result line is printed:
    peaks (values exact, xy within 1e-4 px).
 4d. Single-instance in bf16 (192^2 uint8 frames, batch 4): the same, with
    kernel 1 once per batch.
-5. Time each kernel and its plain version: per call with CUDA events (50
+4e. Top-down multiclass (float32, TF32 off; 1024^2 uint8, batch 16, 4
+   instances) on frames holding one blob in each quadrant, of four sizes,
+   with the seeded class layer's output set (``fit_class_head``) to tell
+   the sizes apart: 8 timed batches with kernels 2, 3 and 1 launched once
+   per batch, at least two classes assigned in every frame; one batch with
+   ``Labels``, which must hold the 4 class tracks; a batch of 4 must match
+   the same folders loaded on the CPU (points within PATH_XY_TOL, values
+   within PATH_VAL_TOL, class probabilities within PROB_TOL).
+4f. Bottom-up multiclass in bf16 (batch 16, K = 8): 8 timed batches with
+   kernel 4 once per batch; the card's bf16 confmaps and class maps of 4
+   frames, through the plain peaks and ``classify_peaks_from_maps`` on the
+   CPU, must give the card's points (values and probabilities exact, xy
+   within BU_XY_TOL).
+4g. The trained ``.convergence_runs`` folders, loaded with
+   ``load_model(folder)`` and no params, their weights read by the port's
+   own orbax reader (each checkpoint's read time printed): the
+   ``minimal_instance`` top-down pair, its bottom-up folder (offset heads),
+   ``minimal_robot`` single-instance, and the ``min_tracks_2node``
+   multiclass folder paired with the ``minimal_instance`` centroid folder;
+   on a batch of 4 synthetic frames at the CPU tests' sizes, each with two
+   blobs of sigma 14 px, each folder must find an animal with finite points
+   in every frame (the multiclass folder an animal of each class), and
+   match the same folders on the CPU.
+5. (Run after 4d, before 4e; the launches of 4e-4g join its rows at the
+   end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
    3.35 TB/s, or operations at the card's peak, whichever is larger) and,
@@ -98,6 +132,9 @@ PATH_VAL_TOL = 1e-3
 # Bottom-up, the card's bf16 maps grouped on the card and on the CPU: the
 # same instances, refined points within the kernel's tolerance.
 BU_XY_TOL = 1e-4
+# Multiclass, GPU vs CPU class probabilities (softmax of f32 dense layers on
+# convolution features that differ by ~1e-5).
+PROB_TOL = 1e-3
 
 IMG, CROP, N_NODES, BATCH, MAX_INSTANCES = 1024, 160, 13, 16, 4
 TIMED_BATCHES = 8
@@ -107,6 +144,25 @@ SI_IMG, SI_BATCH = 192, 4
 # K = 8 peaks per node, 3 instances kept, bf16.
 BU_CM_STRIDE, BU_PAF_STRIDE, BU_K, BU_MAX_INSTANCES = 4, 8, 8, 3
 HWCS_HALF = 2
+# Multiclass folders: 4 classes (``bench.py``'s top-down and bottom-up UNets).
+CLASSES = [f"id{i}" for i in range(4)]
+# Top-down multiclass frames: four blobs a frame, one in each quadrant, of
+# these sigmas in px in a random order: animals of four sizes, which the
+# class layer ``fit_class_head`` sets tells apart.
+MC_SIGMAS = (8, 14, 20, 26)
+# The trained folders, at the sizes the CPU tests drive them: (name, run
+# folders under .convergence_runs, frame size). Their frames hold two blobs
+# of sigma 14 px, on which every folder finds an animal in each frame and
+# the multiclass folder finds both of its classes.
+TRAINED = [
+    ("trained top-down", ["minimal_instance.UNet.centroid",
+                          "minimal_instance.UNet.centered_instance"], 384),
+    ("trained bottom-up", ["minimal_instance.UNet.bottomup"], 128),
+    ("trained single-instance", ["minimal_robot.UNet.single_instance"], 160),
+    ("trained multiclass", ["minimal_instance.UNet.centroid",
+                            "min_tracks_2node.UNet.topdown_multiclass"], 384),
+]
+TRAINED_BLOBS, TRAINED_SIGMA = 2, 14.0
 
 # The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
 # the tensor cores for the kernels' few operations per byte.
@@ -156,7 +212,7 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, names=None, iters=20, tries=4):
+def device_events(fn, names=None, iters=20, tries=8):
     """``torch.profiler``'s device functions over ``iters`` calls of ``fn``,
     those whose names hold one of ``names`` (all of them if None). Every
     call launches the same device functions, so a session in which one of
@@ -198,16 +254,34 @@ def planted_maps(n, h, w, c, n_peaks, gen, device) -> torch.Tensor:
     return maps.permute(0, 2, 3, 1)  # (n, h, w, c), strides of NCHW
 
 
-def synthetic_frames(n, seed, size=IMG, blobs=MAX_INSTANCES) -> np.ndarray:
-    """(n, size, size, 1) uint8: noise plus bright Gaussian blobs."""
+def synthetic_frames(n, seed, size=IMG, blobs=MAX_INSTANCES, sigma=8.0) -> np.ndarray:
+    """(n, size, size, 1) uint8: noise plus bright Gaussian blobs of ``sigma`` px."""
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 40, (n, size, size, 1), dtype=np.uint8)
-    r = 24
+    r = int(3 * sigma)
     g = np.mgrid[-r:r + 1, -r:r + 1]
-    blob = np.exp(-(g[0] ** 2 + g[1] ** 2) / (2 * 8.0**2))
+    blob = np.exp(-(g[0] ** 2 + g[1] ** 2) / (2 * sigma**2))
     for i in range(n):
         for _ in range(blobs):
             y, x = rng.integers(r, size - r, 2)
+            patch = frames[i, y - r:y + r + 1, x - r:x + r + 1, 0].astype(np.float32)
+            frames[i, y - r:y + r + 1, x - r:x + r + 1, 0] = np.clip(patch + 200 * blob, 0, 255)
+    return frames
+
+
+def mc_frames(n, seed, size=IMG) -> np.ndarray:
+    """(n, size, size, 1) uint8: noise plus one bright Gaussian blob in each
+    quadrant, at least 96 px inside it, of the sigmas ``MC_SIGMAS``."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 40, (n, size, size, 1), dtype=np.uint8)
+    half = size // 2
+    for i in range(n):
+        for q, sigma in enumerate(rng.permutation(MC_SIGMAS)):
+            r = 3 * int(sigma)
+            g = np.mgrid[-r:r + 1, -r:r + 1]
+            blob = np.exp(-(g[0] ** 2 + g[1] ** 2) / (2 * float(sigma) ** 2))
+            y = (q // 2) * half + rng.integers(96, half - 96)
+            x = (q % 2) * half + rng.integers(96, half - 96)
             patch = frames[i, y - r:y + r + 1, x - r:x + r + 1, 0].astype(np.float32)
             frames[i, y - r:y + r + 1, x - r:x + r + 1, 0] = np.clip(patch + 200 * blob, 0, 255)
     return frames
@@ -258,22 +332,38 @@ def write_run_folders(root):
         "bottomup": folder("bottomup", c.HeadsConfig(multi_instance=c.MultiInstanceConfig(
             confmaps=c.MultiInstanceConfmapsHeadConfig(output_stride=BU_CM_STRIDE, sigma=2.5),
             pafs=c.PartAffinityFieldsHeadConfig(output_stride=BU_PAF_STRIDE, sigma=5.0))), 1.0),
+        "mc_instance": folder("mc_instance", c.HeadsConfig(
+            multi_class_topdown=c.MultiClassTopDownConfig(
+                confmaps=c.CenteredInstanceConfmapsHeadConfig(output_stride=4, sigma=2.5),
+                class_vectors=c.ClassVectorsHeadConfig(
+                    classes=CLASSES, num_fc_layers=3, num_fc_units=64, global_pool=True,
+                    output_stride=16))),
+            1.0, crop_size=CROP),
+        "mc_bottomup": folder("mc_bottomup", c.HeadsConfig(
+            multi_class_bottomup=c.MultiClassBottomUpConfig(
+                confmaps=c.MultiInstanceConfmapsHeadConfig(output_stride=BU_CM_STRIDE, sigma=2.5),
+                class_maps=c.ClassMapsHeadConfig(classes=CLASSES, output_stride=BU_CM_STRIDE))),
+            1.0),
     }
 
 
 def seeded_params(path, gen):
-    """Seeded random weights for a run folder, non-negative in the heads,
-    as the params tree ``load_model`` takes."""
+    """Seeded random weights for a run folder, non-negative in the
+    confidence-map and offset heads (the class heads keep their signs), as
+    the params tree ``load_model`` takes."""
     from sleap_tpu_torch.config import TrainingJobConfig
     from sleap_tpu_torch.models.model import Model, init_params
     from sleap_tpu_torch.models.params import flax_from_state_dict
 
     cfg = TrainingJobConfig.load_json(path)
-    net = Model.from_config(cfg.model, skeleton=cfg.data.labels.skeletons[0]).make_module(1)
+    crop = cfg.data.instance_cropping.crop_size
+    model = Model.from_config(cfg.model, skeleton=cfg.data.labels.skeletons[0])
+    net = model.make_module(1, input_hw=(crop, crop) if crop else None)
     init_params(net, gen)
     with torch.no_grad():
-        for head in net.heads.values():
-            head.weight.abs_()
+        for name, head in net.heads.items():
+            if isinstance(head, torch.nn.Conv2d) and "Class" not in name:
+                head.weight.abs_()
     return flax_from_state_dict(net)
 
 
@@ -306,6 +396,74 @@ def load_predictors(folders):
         bu.append(pred)
     check(all(p.device.type == "cuda" for p in (td, bu[0], td_bf16, si)), "the card is the default")
     return td, td_cpu, bu, td_bf16, si
+
+
+def load_multiclass(folders):
+    """(top-down multiclass float32 on the card, the same on the CPU,
+    bottom-up multiclass bf16 on the card), weights from their own
+    generator."""
+    import sleap_tpu_torch
+
+    gen = torch.Generator().manual_seed(1)
+    paths = [folders["centroid"], folders["mc_instance"], folders["mc_bottomup"]]
+    params = {p: seeded_params(p, gen) for p in paths}
+    td_paths = paths[:2]
+    td = sleap_tpu_torch.load_model(td_paths, params=params, batch_size=BATCH,
+                                    max_instances=MAX_INSTANCES)
+    td_cpu = sleap_tpu_torch.load_model(td_paths, device="cpu", params=params, batch_size=4,
+                                        max_instances=MAX_INSTANCES)
+    bu = sleap_tpu_torch.load_model(paths[2], params=params, batch_size=BATCH,
+                                    compute_dtype=torch.bfloat16)
+    check(bu.max_peaks_per_node == BU_K, "bottom-up multiclass K")
+    check(td.device.type == bu.device.type == "cuda", "the card is the default")
+    return td, td_cpu, bu
+
+
+def fit_class_head(preds, frames):
+    """Set the output layer of the seeded class-vector head so that it tells
+    4e's blobs apart by size (the seeded layer gives every crop one class).
+    ``t``, the least-squares fit of the crops' mean brightness on their last
+    hidden features, is cut into four ranges, each cut in the
+    widest gap between sorted crops within an eighth of the crops of a
+    quartile; class c's logit is the line ``s * (c * t + b_c)``, which tops
+    the others on range c. Sets the layer in every predictor of ``preds``
+    (the card's first); returns the cuts, and the smallest distance of a
+    crop to a cut over the spread of ``t``."""
+    module = preds[0].confmap_model.module
+    layer = module.heads["ClassVectorsHead"]
+    crops, feats = [], []
+    hooks = [
+        module.register_forward_pre_hook(lambda m, args: crops.append(args[0].double().cpu())),
+        layer.register_forward_hook(lambda m, args, out: feats.append(args[0].double().cpu())),
+    ]
+    try:
+        preds[0].predict(frames, make_labels=False)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    bright = torch.cat(crops).mean(dim=(1, 2, 3))
+    h = torch.cat(feats)
+    mean = h.mean(0)
+    u = torch.linalg.lstsq(h - mean, (bright - bright.mean())[:, None]).solution[:, 0]
+    ts = ((h - mean) @ u).sort().values
+    n, k = len(ts), len(CLASSES)
+    cuts = []
+    for q in range(1, k):
+        lo, hi = q * n // k - n // (2 * k), q * n // k + n // (2 * k)
+        i = lo + int(torch.argmax(ts[lo + 1:hi + 1] - ts[lo:hi]))
+        cuts.append(float(ts[i] + ts[i + 1]) / 2)
+    margin = float((ts[:, None] - torch.tensor(cuts, dtype=ts.dtype)).abs().min())
+    scale = 8.0 / margin  # logit gap >= 8 at every crop: probabilities >= 0.999
+    slopes = torch.arange(k, dtype=torch.float64)
+    offsets = torch.tensor([0.0] + list(-np.cumsum(cuts)), dtype=torch.float64)
+    weight = scale * slopes[:, None] * u[None, :]
+    bias = scale * (offsets - slopes * float(u @ mean))
+    with torch.no_grad():
+        for pred in preds:
+            out = pred.confmap_model.module.heads["ClassVectorsHead"]
+            out.weight.copy_(weight.to(out.weight))
+            out.bias.copy_(bias.to(out.bias))
+    return cuts, margin / float(ts[-1] - ts[0])
 
 
 # --------------------------------------------------------------------------- #
@@ -345,6 +503,22 @@ def check_global(device, gen):
     nan_maps = cms.clone()
     nan_maps[7, 10, 20, 3] = float("nan")
     nan_maps[9, CROP // 4 - 1, 1, 5] = float("nan")  # in the window around (0, H)
+    several = cms.clone()  # the first NaN in row-major order is (y 3, x 30)
+    for y, x in ((20, 5), (3, 31), (3, 30), (39, 0)):
+        several[2, y, x, 4] = float("nan")
+    after_max = cms.clone()  # a NaN after the map's finite maximum
+    after_max[4, 2, 2, 6] = 5.0
+    after_max[4, 30, 30, 6] = float("nan")
+    nan_rough = [
+        ("several NaNs float32 NCHW view", several),
+        ("several NaNs float32 channels-last", several.contiguous()),
+        ("several NaNs bf16 channels-last", several.to(bf16).contiguous()),
+        ("several NaNs bf16 NCHW view", several.to(bf16)),
+        ("NaN after max float32 NCHW view", after_max),
+        ("NaN after max bf16 channels-last", after_max.to(bf16).contiguous()),
+        ("one NaN float32", nan_maps),
+        ("one NaN bf16 channels-last", nan_maps.to(bf16).contiguous()),
+    ]
     cases = [
         ("path float32 NCHW view", cms, (2, -1)),
         ("path bf16 channels-last", bf16_cl, (2, -1)),
@@ -367,9 +541,7 @@ def check_global(device, gen):
         ("all below threshold", cms * 0.01, (2, -1)),
         ("half 1", cms, (1,)),
         ("half 3", cms, (3,)),
-        ("one NaN float32", nan_maps, (2, -1)),
-        ("one NaN bf16 channels-last", nan_maps.to(bf16).contiguous(), (2, -1)),
-    ]
+    ] + [(name, maps, (2, -1)) for name, maps in nan_rough]
     plans = {}
     err = 0.0
     for name, maps, halves in cases:
@@ -397,6 +569,18 @@ def check_global(device, gen):
           "global_peaks below threshold")
     v_nan = cuda_peaks.global_peaks_cuda(nan_maps, 0.2, 2)[1]
     check(int(torch.isnan(v_nan).sum()) == 2, "global_peaks NaN values")
+    for name, maps in nan_rough:  # the grid route: the first NaN, value NaN
+        xy, v = cuda_peaks.global_peaks_cuda(maps, 0.2, -1)
+        S, H, W, C = maps.shape
+        flat = maps.float().permute(0, 3, 1, 2).reshape(S * C, H * W).isnan()
+        has = flat.any(1)
+        first = flat.int().argmax(1)[has]
+        want = torch.stack([first % W, first // W], 1).float()
+        got = xy.reshape(S * C, 2)[has]
+        log(f"global_peaks {name} grid route: first NaNs at {want.cpu().tolist()}, "
+            f"kernel {got.cpu().tolist()}")
+        check(torch.equal(got, want) and bool(v.reshape(-1)[has].isnan().all())
+              and int(v.isnan().sum()) == int(has.sum()), f"global_peaks first NaN ({name})")
     for dtype in (torch.float16, torch.float64):
         try:
             cuda_peaks.global_peaks_cuda(cms.to(dtype), 0.2, 2)
@@ -804,6 +988,168 @@ def check_bottomup(preds, frames, out, heads):
 
 
 # --------------------------------------------------------------------------- #
+# Phases 4e, 4f and 4g: multiclass and the trained folders
+# --------------------------------------------------------------------------- #
+
+MC_KEYS = ("points", "point_vals", "class_probs")
+
+
+def merged_mc(examples, n):
+    return {k: np.concatenate([ex[k][:ex["n_valid"]] for ex in examples])[:n] for k in MC_KEYS}
+
+
+def check_mc_labels(name, pred, frames, points):
+    """One batch with ``Labels``: the 4 class tracks, one instance per class
+    that has a point, each on its class's track."""
+    from sleap_tpu_torch.core.labels import Labels
+
+    labels = pred.predict(frames)
+    check(type(labels) is Labels, f"{name}: predict returns the port's Labels")
+    check([t.name for t in labels.tracks] == CLASSES, f"{name}: tracks {labels.tracks}")
+    got = [[labels.tracks.index(i.track) for i in lf.instances] for lf in labels]
+    want = [[c for c in range(len(CLASSES)) if not np.isnan(p[c]).all()] for p in points]
+    insts = [i for lf in labels for i in lf.instances]
+    log(f"{name} labels: {len(labels)} frames, {len(insts)} instances on tracks "
+        f"{sorted({i.track.name for i in insts})}, tracking scores "
+        f"{[round(i.tracking_score, 4) for i in insts[:4]]}")
+    check(got == want, f"{name}: one instance per class with points")
+    check(all(np.isfinite(i.tracking_score) for i in insts), f"{name}: tracking scores")
+
+
+def check_mc_outputs(name, pred, frames, out, min_classes=1):
+    """The path's outputs: shapes, instances found, finite probabilities
+    and values at the points, at least ``min_classes`` classes in every
+    frame; then one batch with ``Labels``."""
+    n_frames = len(frames) - BATCH
+    res = merged_mc(out, n_frames)
+    check(res["points"].shape == (n_frames, len(CLASSES), N_NODES, 2), f"{name}: points shape")
+    check(res["class_probs"].shape == (n_frames, len(CLASSES), N_NODES), f"{name}: probs shape")
+    found = ~np.isnan(res["points"][..., 0]).all(-1)
+    check(found.any(), f"{name}: instances found")
+    points = np.isfinite(res["points"][..., 0])
+    check(np.isfinite(res["class_probs"][points]).all() and np.isfinite(res["point_vals"][points]).all(),
+          f"{name}: class probabilities and values where the points are")
+    per_frame = found.sum(1)
+    log(f"{name}: {int(found.sum())} instances over {n_frames} frames, classes "
+        f"{found.sum(0).tolist()}, frames with 1-4 classes "
+        f"{[int((per_frame == k).sum()) for k in range(1, len(CLASSES) + 1)]}")
+    check(per_frame.min() >= min_classes, f"{name}: at least {min_classes} classes in every frame")
+    check_mc_labels(name, pred, frames[BATCH:2 * BATCH], merged_mc(out[:1], BATCH)["points"])
+
+
+def check_topdown_mc(gpu_pred, cpu_pred, frames, out):
+    check_mc_outputs("top-down multiclass", gpu_pred, frames, out, min_classes=2)
+    small = frames[:4]
+    g = merged_mc(dataclasses.replace(gpu_pred, batch_size=4).predict(small, make_labels=False), 4)
+    c = merged_mc(cpu_pred.predict(small, make_labels=False), 4)
+    d = {k: max_abs(torch.from_numpy(g[k]), torch.from_numpy(c[k])) for k in MC_KEYS}
+    log(f"top-down multiclass GPU vs CPU (batch 4): {d}; instances "
+        f"{int((~np.isnan(g['points'][..., 0]).all(-1)).sum())}")
+    check(d["points"] <= PATH_XY_TOL and d["point_vals"] <= PATH_VAL_TOL
+          and d["class_probs"] <= PROB_TOL, "top-down multiclass GPU vs CPU")
+
+
+def module_heads(tm, device, frames):
+    """A trained model's head outputs on ``frames``, on ``device``."""
+    from sleap_tpu_torch.inference.predictors import _preprocess
+
+    with torch.inference_mode():
+        imgs = torch.from_numpy(frames).to(device)
+        return tm.module(_preprocess(imgs, tm.grayscale, tm.input_scale, tm.pad_to_stride))
+
+
+def check_bottomup_mc(pred, frames, out):
+    check_mc_outputs("bottom-up multiclass bf16", pred, frames, out)
+    heads = module_heads(pred.model, pred.device, frames[:4])
+    check(all(v.dtype == torch.bfloat16 for v in heads.values()), "bf16 head outputs")
+    with torch.inference_mode():
+        g = {k: v.cpu() for k, v in pred.classify_heads(heads).items()}
+        c = pred.classify_heads({k: v.cpu() for k, v in heads.items()})
+    d = {k: max_abs(g[k], c[k]) for k in MC_KEYS}
+    log(f"bottom-up multiclass, the card's bf16 maps classified on the card and on the CPU: "
+        f"{d}; points {int(torch.isfinite(g['points'][..., 0]).sum())}")
+    check(d["points"] <= BU_XY_TOL and d["point_vals"] == 0.0 and d["class_probs"] == 0.0,
+          "bottom-up multiclass: card maps, kernel vs plain on the CPU")
+
+
+def outputs_diff(g, c):
+    """Largest |GPU - CPU| over the point keys and over the value keys of
+    two runs' example dicts (arrays, or per-frame lists of arrays)."""
+    d_xy = d_val = 0.0
+    for eg, ec in zip(g, c):
+        for k, vg in eg.items():
+            if k in ("image", "video_ind", "frame_ind", "n_valid"):
+                continue
+            vc = ec[k]
+            pairs = zip(vg, vc) if isinstance(vg, list) else [(vg, vc)]
+            for a, b in pairs:
+                check(np.shape(a) == np.shape(b), f"{k}: GPU {np.shape(a)} vs CPU {np.shape(b)}")
+                if a.dtype == bool:
+                    check(np.array_equal(a, b), f"{k}: GPU vs CPU masks")
+                    continue
+                e = max_abs(torch.from_numpy(np.asarray(a, np.float32)),
+                            torch.from_numpy(np.asarray(b, np.float32)))
+                if "peaks" in k or k in ("centroids", "points"):
+                    d_xy = max(d_xy, e)
+                else:
+                    d_val = max(d_val, e)
+    return d_xy, d_val
+
+
+def check_trained_folders(wrappers, launches):
+    """Phase 4g: each trained folder on the card and on the CPU, weights
+    read from its checkpoint; returns the checkpoints' read times."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.io.orbax import read_params
+
+    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".convergence_runs")
+    read_s = {}
+    for name, folders, size in TRAINED:
+        paths = [os.path.join(runs, f) for f in folders]
+        for f, path in zip(folders, paths):
+            if f not in read_s:
+                t0 = time.perf_counter()
+                tree = read_params(os.path.join(path, "best_model.ckpt"))
+                read_s[f] = time.perf_counter() - t0
+                n = sum(a.size for layer in tree.values() for w in layer.values()
+                        for a in (w.values() if isinstance(w, dict) else [w]))
+                log(f"read {f}/best_model.ckpt: {n} parameters in {read_s[f]:.3f} s")
+        frames = synthetic_frames(4, seed=0, size=size, blobs=TRAINED_BLOBS, sigma=TRAINED_SIGMA)
+        gpu = sleap_tpu_torch.load_model(paths, batch_size=4, peak_threshold=0.05)
+        cpu = sleap_tpu_torch.load_model(paths, device="cpu", batch_size=4, peak_threshold=0.05)
+        check(gpu.device.type == "cuda", f"{name}: on the card")
+        gpu.predict(frames, make_labels=False)  # warm-up
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        g = gpu.predict(frames, make_labels=False)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        for kernel, count in counts.items():
+            launches[kernel][name] = count
+        c = cpu.predict(frames, make_labels=False)
+        d_xy, d_val = outputs_diff(g, c)
+        labels = gpu.predict(frames)
+        insts = [i for lf in labels for i in lf.instances]
+        per_frame = [len(lf.instances) for lf in labels]
+        n_points = sum(int(np.isfinite(i.numpy()).all(-1).sum()) for i in insts)
+        tracks = sorted({i.track.name for i in insts if i.track is not None})
+        log(f"{name} ({type(gpu).__name__}, {size}^2): launches {counts}; GPU vs CPU max |dxy| "
+            f"{d_xy:.3g}, max |dval| {d_val:.3g}; instances per frame {per_frame}, "
+            f"{n_points} finite points, tracks {tracks}")
+        check(counts, f"{name}: the kernels ran")
+        check(len(labels) == len(frames) and min(per_frame) >= 1
+              and all(np.isfinite(i.numpy()).all(-1).any() for i in insts),
+              f"{name}: an animal with finite points in every frame")
+        if labels.tracks:
+            want = gpu.confmap_model.classes
+            check([t.name for t in labels.tracks] == want and tracks == sorted(want),
+                  f"{name}: an instance of every class")
+        check(d_xy <= PATH_XY_TOL and d_val <= PATH_VAL_TOL, f"{name}: GPU vs CPU")
+    return read_s
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: times and bounds
 # --------------------------------------------------------------------------- #
 
@@ -852,7 +1198,7 @@ def timed_pair(kernel_fn, plain_fn, funcs):
 
 def kernel_rows(errs, launches, card):
     """Phase 5's rows. ``launches`` maps a kernel to its launches on each
-    path (None where no path ran)."""
+    path; each row keeps that dict as ``launches_by_path``."""
     from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
 
     calls = {
@@ -940,7 +1286,7 @@ def kernel_rows(errs, launches, card):
             f"{100 * bound_ms / dev_ms:.1f} % of it{extra} ({card})")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
-            "launches": None if launches[name] is None else sum(launches[name].values()),
+            "launches": sum(launches[name].values()),
             "launches_by_path": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
@@ -970,8 +1316,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         folders = write_run_folders(root)
         td, td_cpu, bu, td_bf16, si = load_predictors(folders)
-    log(f"loaded {type(td).__name__}, {type(si).__name__} and {type(bu[0]).__name__} from run "
-        f"folders on {td.device}, {si.device} and {bu[0].device}")
+        td_mc, td_mc_cpu, bu_mc = load_multiclass(folders)
+    log(f"loaded {type(td).__name__}, {type(si).__name__}, {type(bu[0]).__name__}, "
+        f"{type(td_mc).__name__} and {type(bu_mc).__name__} from run folders on {td.device}, "
+        f"{si.device}, {bu[0].device}, {td_mc.device} and {bu_mc.device}")
 
     # Phase 3: each kernel vs its plain version.
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1013,15 +1361,40 @@ def main() -> int:
                {"global_peaks": cuda_peaks.global_peaks_cuda}, SI_BATCH)
     check_single(si, si_frames, out)
 
-    # Phase 5: kernel and plain version times at the main-path shapes.
+    # Phase 5: kernel and plain version times at the main-path shapes, with
+    # the card in the state phases 4-4d leave it in; the launch counts of the
+    # paths after it are added to the rows at the end.
     kernels = kernel_rows(errs, launches, card)
 
+    # Phase 4e: top-down multiclass, float32, on blobs of four sizes that
+    # its class layer is set to tell apart.
+    frames_mc = mc_frames((1 + TIMED_BATCHES) * BATCH, seed=3)
+    cuts, margin = fit_class_head([td_mc, td_mc_cpu], frames_mc)
+    log(f"top-down multiclass class cuts {[round(c, 5) for c in cuts]}, crops at least "
+        f"{margin:.3g} of the spread from a cut")
+    out = drive("top-down multiclass", td_mc, frames_mc, td_wrappers)
+    check_topdown_mc(td_mc, td_mc_cpu, frames_mc, out)
+
+    # Phase 4f: bottom-up multiclass, bf16.
+    out = drive("bottom-up multiclass bf16", bu_mc, frames,
+                {"local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda})
+    check_bottomup_mc(bu_mc, frames, out)
+
+    # Phase 4g: the trained folders, read from their checkpoints.
+    all_wrappers = {**td_wrappers, "local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda}
+    read_s = check_trained_folders(all_wrappers, launches)
+    for row in kernels:
+        row["launches"] = sum(row["launches_by_path"].values())
+
     leaked = [m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2")]
+        "jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2",
+        "zstandard", "tensorstore")]
     check(not leaked, f"JAX-side modules imported: {leaked[:5]}")
 
     for name, value in fps.items():
         log(f"{name} path: {value:.1f} FPS ({card})")
+    for name, value in read_s.items():
+        log(f"checkpoint read {name}: {value:.3f} s ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

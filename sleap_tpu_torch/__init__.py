@@ -1,5 +1,5 @@
 """PyTorch + CUDA port of sleap-tpu's inference paths (top-down,
-single-instance, bottom-up).
+single-instance, bottom-up, multiclass).
 
 The JAX package (``sleap_tpu``) is the reference: this package mirrors its
 module names (``models/``, ``data/``, ``ops/``, ``inference/``) and keeps its
@@ -15,7 +15,9 @@ launches the kernel or raises.
 Nothing here imports JAX or the JAX package ``sleap_tpu``: run folders,
 skeletons, videos, providers and ``Labels`` are the port's own copies in
 plain Python (``config.py``, ``core/``, ``io/``, ``data/``), so
-``load_model(folder)`` runs where only PyTorch is installed. ``h5py`` and
+``load_model(folder)`` runs where only PyTorch is installed; orbax
+checkpoints (``best_model.ckpt``) are read by the port's own zstd, OCDBT and
+zarr readers (``io/``). ``h5py`` and
 ``cv2`` are imported only inside the functions that read Keras weights or
 resize mixed-size frames. Entry points run on ``"cuda"`` unless the caller
 passes another device.

@@ -4,7 +4,8 @@ The part of :mod:`sleap_tpu.core.instance` that predictions fill, with its
 field names and semantics: points live in a structured array of the
 ``.slp`` predicted-point dtype (x, y, visible, complete, score), a point with
 a NaN coordinate is missing and invisible, and ``numpy()`` gives (n_nodes, 2)
-xy with invisible points as NaN.
+xy with invisible points as NaN. Multiclass predictors give each instance
+the :class:`Track` of its class and a tracking score.
 """
 
 from __future__ import annotations
@@ -20,10 +21,32 @@ PRED_POINT_DTYPE = np.dtype(
 )
 
 
-class PredictedInstance:
-    """One predicted animal: a skeleton, its points and scores."""
+class Track:
+    """An identity that persists across frames. Tracks compare by identity:
+    two tracks of one name are two identities."""
 
-    def __init__(self, skeleton: Skeleton, points: np.ndarray, score: float = 0.0):
+    __slots__ = ("spawned_on", "name")
+
+    def __init__(self, spawned_on: int = 0, name: str = ""):
+        self.spawned_on = int(spawned_on)
+        self.name = name
+
+    def __repr__(self) -> str:
+        return f"Track(spawned_on={self.spawned_on}, name={self.name!r})"
+
+
+class PredictedInstance:
+    """One predicted animal: a skeleton, its points and scores, and its
+    track (identity) with the score of that assignment."""
+
+    def __init__(
+        self,
+        skeleton: Skeleton,
+        points: np.ndarray,
+        score: float = 0.0,
+        track: Optional[Track] = None,
+        tracking_score: float = 0.0,
+    ):
         if skeleton is None:
             raise TypeError("PredictedInstance requires a skeleton.")
         if points.dtype != PRED_POINT_DTYPE or len(points) != len(skeleton.nodes):
@@ -34,6 +57,8 @@ class PredictedInstance:
         self.skeleton = skeleton
         self.points = points
         self.score = float(score)
+        self.track = track
+        self.tracking_score = float(tracking_score)
 
     @classmethod
     def from_arrays(
@@ -42,6 +67,8 @@ class PredictedInstance:
         point_confidences: np.ndarray,
         instance_score: float,
         skeleton: Skeleton,
+        track: Optional[Track] = None,
+        tracking_score: float = 0.0,
     ) -> "PredictedInstance":
         """From (n_nodes, 2) xy and (n_nodes,) confidences (NaN scores -> 0)."""
         points = np.asarray(points, dtype="f8")
@@ -51,7 +78,10 @@ class PredictedInstance:
         pts["y"] = points[:, 1]
         pts["visible"] = ~(np.isnan(points[:, 0]) | np.isnan(points[:, 1]))
         pts["score"] = np.where(np.isnan(confs), 0.0, confs)
-        return cls(skeleton=skeleton, points=pts, score=instance_score)
+        return cls(
+            skeleton=skeleton, points=pts, score=instance_score, track=track,
+            tracking_score=tracking_score,
+        )
 
     def numpy(self) -> np.ndarray:
         """(n_nodes, 2) xy; invisible points NaN."""
@@ -62,7 +92,7 @@ class PredictedInstance:
     def __repr__(self) -> str:
         return (
             f"PredictedInstance(points={int(self.points['visible'].sum())}/{len(self.points)}, "
-            f"score={self.score:.2f})"
+            f"score={self.score:.2f}, track={self.track})"
         )
 
 

@@ -103,9 +103,11 @@ __device__ void window_offsets(Get get, int H, int W, int iy, int ix, int half, 
 // and the integral-regression centroid of the (2*half+1)^2 window around it;
 // xy is NaN where max < threshold; half < 0 gives the grid peak. Maps are
 // float32 or bf16, read as they lie and compared in float32. A map holding a
-// NaN follows the TPU kernel (jnp.max propagates it, and no element equals
-// it): value NaN, index H*W, so (ix, iy) = (0, H) with the window masked to
-// the map, and xy is not NaN (NaN < threshold is false).
+// NaN has value NaN, and xy is not NaN (NaN < threshold is false). Its index
+// is the first NaN's on the grid route (half < 0), as jnp.argmax takes it in
+// find_global_peaks_rough; on the integral route it follows the TPU kernel
+// (jnp.max propagates the NaN, and no element equals it): index H*W, so
+// (ix, iy) = (0, H) with the window masked to the map.
 //
 // Bound by reading the maps once: on the top-down path 64 crops x 13 nodes
 // of 40^2 are 5.3 MB in float32 (1.6 us at 3.35 TB/s) and 2.7 MB in bf16
@@ -150,23 +152,26 @@ constexpr uint32_t kNanKey = 0xffffffffu;      // a map holding a NaN: above eve
 constexpr uint32_t kNoIdx = 0x7fffffffu;       // no value above -inf seen
 
 // A lane's first-occurrence max over the indices it visits in increasing
-// order, and whether it saw a NaN.
+// order, and its first NaN.
 struct ArgMax {
   float v = -INFINITY;
   uint32_t i = kNoIdx;
-  bool nan = false;
+  uint32_t nan_i = kNoIdx;
   __device__ __forceinline__ void add(float x, uint32_t idx) {
-    nan |= x != x;
+    if (x != x) nan_i = min(nan_i, idx);
     if (x > v) {
       v = x;
       i = idx;
     }
   }
   // The key: value bits (NaN above all, -0 as +0, which compare equal) and
-  // the index to take at that value (H*W for NaN).
-  __device__ __forceinline__ void key(uint32_t n_pixels, uint32_t& hi, uint32_t& idx) const {
+  // the index to take at that value (for NaN: the first NaN's on the grid
+  // route, H*W on the integral route).
+  __device__ __forceinline__ void key(uint32_t n_pixels, bool grid, uint32_t& hi,
+                                      uint32_t& idx) const {
+    const bool nan = nan_i != kNoIdx;
     hi = nan ? kNanKey : order_bits(v + 0.f);
-    idx = nan ? n_pixels : i;
+    idx = nan ? (grid ? nan_i : n_pixels) : i;
   }
 };
 
@@ -301,7 +306,7 @@ global_slab_kernel(const T* __restrict__ cms, int64_t sS, int H, int W, int C, i
 #pragma unroll 4
     for (int q = qa + lane; q < qb; q += 32) am.add(to_f32(map[q * pix]), base + (uint32_t)q);
     uint32_t hi, idx;
-    am.key((uint32_t)HW, hi, idx);
+    am.key((uint32_t)HW, half < 0, hi, idx);
     warp_best(hi, idx);
     auto get = [&](int y, int x) { return to_f32(map[((y - ya) * W + x) * pix]); };
     if (P == 1) {
@@ -315,7 +320,7 @@ global_slab_kernel(const T* __restrict__ cms, int64_t sS, int H, int W, int C, i
   if (P == 1) return;
   cluster.sync();  // every block's keys are in every block's shared memory
 
-  // The block whose rows hold map g's peak (row H - 1 for a NaN map's H*W)
+  // The block whose rows hold map g's peak (row H - 1 for an index of H*W)
   // refines it from its slab.
   for (int g = warp; g < gn; g += n_warps) {
     uint32_t hi = lane < P ? key_hi[lane * G + g] : 0u;
@@ -356,7 +361,7 @@ global_band_kernel(const T* __restrict__ cms, int64_t sS, int64_t sH, int64_t sW
     for (int x = lane; x < W; x += 32) am.add(to_f32(row[(int64_t)x * sW]), (uint32_t)(y * W + x));
   }
   uint32_t hi, idx;
-  am.key((uint32_t)(H * W), hi, idx);
+  am.key((uint32_t)(H * W), half < 0, hi, idx);
   warp_best(hi, idx);
   if (lane == 0) {
     warp_hi[warp] = hi;

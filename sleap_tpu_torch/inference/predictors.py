@@ -2,7 +2,8 @@
 
 Port of :mod:`sleap_tpu.inference.predictors` for the single-instance and
 top-down (centroid + centered-instance) paths, and the loading and dispatch
-of bottom-up folders (:mod:`sleap_tpu_torch.inference.bottomup`). Each batch
+of bottom-up folders (:mod:`sleap_tpu_torch.inference.bottomup`) and
+multiclass folders (:mod:`sleap_tpu_torch.inference.multiclass`). Each batch
 runs on the caller's device: preprocessing, the UNet forward, peak finding
 (CUDA kernels on a CUDA device) and the coordinate rules, which are the JAX
 package's:
@@ -49,6 +50,7 @@ from sleap_tpu_torch.data.providers import (
 from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image
 from sleap_tpu_torch.data.streaming import stage_to_device
 from sleap_tpu_torch.io.keras_h5 import read_keras_weights
+from sleap_tpu_torch.io.orbax import read_params
 from sleap_tpu_torch.io.video import Video
 from sleap_tpu_torch.models.model import Model, PoseNet, find_head
 from sleap_tpu_torch.models.params import state_dict_from_flax, state_dict_from_keras
@@ -70,7 +72,8 @@ class TrainedModel:
     """A module on its device plus what inference needs from its config.
 
     ``output_stride`` is the confidence maps' stride; bottom-up models also
-    carry the PAFs' stride and the skeleton's edges as part-name pairs.
+    carry the PAFs' stride and the skeleton's edges as part-name pairs,
+    multiclass models their classes and the class maps' stride.
     """
 
     module: PoseNet
@@ -84,6 +87,8 @@ class TrainedModel:
     skeleton: Optional[Skeleton] = None  # used when building Labels
     paf_stride: Optional[int] = None
     edges: List[Tuple[str, str]] = field(default_factory=list)
+    classes: List[str] = field(default_factory=list)
+    class_maps_stride: Optional[int] = None
 
 
 def load_trained_model(
@@ -95,10 +100,12 @@ def load_trained_model(
     """Load a run folder (``training_config.json`` + weights) onto ``device``.
 
     Weights come from ``params``, a flax ``variables["params"]`` tree with
-    numpy leaves, or else from the folder's Keras ``best_model.h5``. Reading
-    an orbax checkpoint needs JAX and is not ported yet (ROADMAP.md, queue 1):
-    a folder with neither raises. ``compute_dtype`` is the network's (float32
-    or bf16, see :class:`~sleap_tpu_torch.models.model.PoseNet`).
+    numpy leaves, if given; else from the folder's Keras ``best_model.h5``;
+    else from its orbax checkpoint ``best_model.ckpt``, read by the port's
+    own readers (:func:`~sleap_tpu_torch.io.orbax.read_params`). A folder
+    with none of them raises ``FileNotFoundError``. ``compute_dtype`` is the
+    network's (float32 or bf16, see
+    :class:`~sleap_tpu_torch.models.model.PoseNet`).
     """
     model_dir = os.path.dirname(model_path) if model_path.endswith(".json") else model_path
     config = TrainingJobConfig.load_json(model_dir)
@@ -106,26 +113,31 @@ def load_trained_model(
     model = Model.from_config(config.model, skeleton=skeleton)
 
     h5_path = os.path.join(model_dir, "best_model.h5")
+    ckpt_path = os.path.join(model_dir, "best_model.ckpt")
+    keras = False
     if params is not None:
-        weights, keras, layers = params, False, params.get("backbone", {})
+        weights = params
     elif os.path.exists(h5_path):
-        weights = layers = read_keras_weights(h5_path)
-        keras = True
+        weights, keras = read_keras_weights(h5_path), True
+    elif os.path.isdir(ckpt_path):
+        weights = read_params(ckpt_path)
     else:
-        raise NotImplementedError(
-            f"No best_model.h5 in {model_dir} and no params given: reading orbax "
-            "checkpoints without JAX is not ported yet (ROADMAP.md, queue 1). "
-            "Pass the checkpoint's params tree as numpy arrays."
+        raise FileNotFoundError(
+            f"No weights in {model_dir}: no params given, and neither best_model.h5 nor "
+            "best_model.ckpt there."
         )
+    layers = weights if keras else weights.get("backbone", {})
     name, fold = model.input_conv
     in_channels = int(np.shape(layers[name]["kernel"])[2]) // fold
-    module = model.make_module(in_channels, compute_dtype)
+    crop = config.data.instance_cropping.crop_size
+    module = model.make_module(in_channels, compute_dtype, (crop, crop) if crop else None)
     to_state = state_dict_from_keras if keras else state_dict_from_flax
     module.load_state_dict(to_state(module, weights))  # cast into the module's dtype
     module.to(device).eval()
 
     head = config.model.heads.which_oneof
     confmaps, pafs = getattr(head, "confmaps", head), getattr(head, "pafs", None)
+    class_maps = getattr(head, "class_maps", None)
     pp = config.data.preprocessing
     return TrainedModel(
         module=module,
@@ -139,6 +151,8 @@ def load_trained_model(
         skeleton=skeleton,
         paf_stride=None if pafs is None else pafs.output_stride,
         edges=list(model.edges),
+        classes=list(model.classes),
+        class_maps_stride=None if class_maps is None else class_maps.output_stride,
     )
 
 
@@ -257,10 +271,11 @@ class Predictor:
         params: Optional[Mapping[str, Any]] = None,
         compute_dtype: torch.dtype = torch.float32,
     ) -> "Predictor":
-        """Dispatch by the head types of the run folder(s).
+        """Dispatch by the head types of the run folder(s), as the JAX
+        package does.
 
-        ``params`` maps a model path to its flax params tree (numpy), for
-        folders whose weights are orbax checkpoints. ``compute_dtype`` is the
+        ``params`` maps a model path to its flax params tree (numpy), which
+        then replaces the folder's own weights. ``compute_dtype`` is the
         networks' (float32 or bf16).
         """
         if isinstance(model_paths, str):
@@ -300,6 +315,19 @@ class Predictor:
             return BottomUpPredictor(
                 bottomup_model=load("multi_instance"), max_instances=max_instances, **common
             )
+        if set(paths) == {"multi_class_bottomup"}:
+            from sleap_tpu_torch.inference.multiclass import BottomUpMultiClassPredictor
+
+            return BottomUpMultiClassPredictor(model=load("multi_class_bottomup"), **common)
+        if set(paths) in ({"multi_class_topdown"}, {"centroid", "multi_class_topdown"}):
+            from sleap_tpu_torch.inference.multiclass import TopDownMultiClassPredictor
+
+            return TopDownMultiClassPredictor(
+                centroid_model=load("centroid") if "centroid" in paths else None,
+                confmap_model=load("multi_class_topdown"),
+                max_instances=max_instances,
+                **common,
+            )
         raise NotImplementedError(
             f"Head combination {sorted(paths)} is not ported yet (ROADMAP.md, queue 1)."
         )
@@ -307,6 +335,10 @@ class Predictor:
     # Whether frames of mixed-size videos are resized to one size before
     # batching (and the results scaled back), as the JAX predictor does.
     size_matching = True
+
+    def _tracks(self) -> list:
+        """Tracks every ``Labels`` of this predictor registers, in order."""
+        return []
 
     def predict(self, data, make_labels: bool = True):
         """Run inference on numpy frames (N, H, W[, C]), a video or labels
@@ -325,7 +357,9 @@ class Predictor:
             return list(examples)
 
         videos = provider.videos if provider is not None else [Video.from_numpy(frames)]
-        labels = Labels(labeled_frames=self._make_labeled_frames(examples, videos))
+        labels = Labels(
+            labeled_frames=self._make_labeled_frames(examples, videos), tracks=self._tracks()
+        )
         labels.provenance.update(
             {"predictor": type(self).__name__, "total_elapsed": time.time() - t0}
         )
@@ -431,7 +465,7 @@ class TopDownPredictor(Predictor):
 
     ``max_instances`` is the static crop count K per frame (default 8). The
     centroid-only and ground-truth-centroid modes of the JAX predictor are
-    not ported yet: both models are required.
+    not ported yet (ROADMAP.md, queue 1, item 4): both models are required.
     """
 
     centroid_model: TrainedModel
@@ -442,18 +476,17 @@ class TopDownPredictor(Predictor):
         if self.centroid_model is None or self.confmap_model is None:
             raise NotImplementedError(
                 "Centroid-only and ground-truth-centroid top-down modes are not ported yet "
-                "(ROADMAP.md, queue 1)."
+                "(ROADMAP.md, queue 1, item 4)."
             )
 
-    def _infer(self, images):
-        K = self.max_instances or 8
-        crop = int(self.confmap_model.crop_size or 128)
-        threshold = self.peak_threshold
-        refinement = "integral" if self.integral_refinement else "local"
-        patch = self.integral_patch_size
-        ctm, itm = self.centroid_model, self.confmap_model
+    @property
+    def _max_peaks(self) -> int:
+        return self.max_instances or 8
 
-        # ---- Stage 1: centroids ----
+    def _find_centroids(self, images: torch.Tensor, K: int):
+        """Stage 1: the top K centroids of each frame, in frame coordinates,
+        with their values and validity (S, K)."""
+        ctm = self.centroid_model
         imgs = _preprocess(
             images, ctm.grayscale, ctm.input_scale, ctm.pad_to_stride,
             imagenet_mode=ctm.imagenet_mode,
@@ -463,51 +496,60 @@ class TopDownPredictor(Predictor):
         off_key = find_head(out, "OffsetRefinementHead")
         if off_key is not None:
             peaks, vals, mask = find_local_peaks_with_offsets(
-                cms, out[off_key], max_peaks=K, threshold=threshold
+                cms, out[off_key], max_peaks=K, threshold=self.peak_threshold
             )
         else:
             peaks, vals, mask = find_local_peaks(
-                cms, max_peaks=K, threshold=threshold,
-                refinement=refinement, integral_patch_size=patch,
+                cms, max_peaks=K, threshold=self.peak_threshold,
+                refinement="integral" if self.integral_refinement else "local",
+                integral_patch_size=self.integral_patch_size,
             )
         # (S, 1, K, ...) -> (S, K, ...): the centroid model has one channel.
         centroids = _adjust_peaks(peaks[:, 0], ctm.output_stride, ctm.input_scale)
-        centroid_vals, centroid_mask = vals[:, 0], mask[:, 0]
+        return centroids, vals[:, 0], mask[:, 0]
 
-        # ---- Stage 2: crops on the (pre-crop resized) frames ----
+    def _crop_peaks(self, images: torch.Tensor, centroids: torch.Tensor):
+        """Stages 2 and 3: crops around the (S, K) centroids on the
+        (pre-crop resized) frames, then each crop's global peaks in frame
+        coordinates (S, K, n_nodes, 2) and values (S, K, n_nodes), and the
+        instance model's head outputs."""
+        S, K = centroids.shape[:2]
+        crop = int(self.confmap_model.crop_size or 128)
+        itm = self.confmap_model
         full, i_scale = images, itm.input_scale
         centroids_c = centroids
         if i_scale != 1.0:
             full = resize_image(ensure_float(full), i_scale)
             centroids_c = centroids * i_scale
         crop_offsets = centroids_c - crop / 2.0
-        S = images.shape[0]
         top_left = torch.nan_to_num(centroids_c.reshape(S * K, 2)) - (crop - 1) / 2.0
         sample_inds = torch.arange(S, device=images.device).repeat_interleave(K)
         crops = crop_bboxes_unit(full, top_left, sample_inds, (crop, crop))
         crops = _cast_like(crops, full.dtype)
 
-        # ---- Stage 3: instance peaks on the crops ----
         crops_p = _preprocess(
             crops, itm.grayscale, i_scale, 1, resize_img=False,
             imagenet_mode=itm.imagenet_mode,
         )
-        out2 = itm.module(crops_p)
-        cms2 = out2[find_head(out2, "CenteredInstanceConfmapsHead")]
-        off2 = find_head(out2, "OffsetRefinementHead")
-        if off2 is not None:
-            pk, pv = find_global_peaks_with_offsets(cms2, out2[off2], threshold=threshold)
+        out = itm.module(crops_p)
+        cms = out[find_head(out, "CenteredInstanceConfmapsHead")]
+        off_key = find_head(out, "OffsetRefinementHead")
+        if off_key is not None:
+            pk, pv = find_global_peaks_with_offsets(cms, out[off_key], threshold=self.peak_threshold)
         else:
             pk, pv = find_global_peaks(
-                cms2, threshold=threshold, refinement=refinement,
-                integral_patch_size=patch,
+                cms, threshold=self.peak_threshold,
+                refinement="integral" if self.integral_refinement else "local",
+                integral_patch_size=self.integral_patch_size,
             )
         pk = _adjust_peaks(pk, itm.output_stride, i_scale)  # (S*K, n_nodes, 2)
         pk = pk + (crop_offsets.reshape(S * K, 2) / i_scale)[:, None, :]
-
         n_nodes = pk.shape[1]
-        pk = pk.reshape(S, K, n_nodes, 2)
-        pv = pv.reshape(S, K, n_nodes)
+        return pk.reshape(S, K, n_nodes, 2), pv.reshape(S, K, n_nodes), out
+
+    def _infer(self, images):
+        centroids, centroid_vals, centroid_mask = self._find_centroids(images, self._max_peaks)
+        pk, pv, _ = self._crop_peaks(images, centroids)
         return {
             "instance_peaks": torch.where(centroid_mask[:, :, None, None], pk, float("nan")),
             "instance_peak_vals": torch.where(centroid_mask[:, :, None], pv, 0.0),
@@ -563,9 +605,12 @@ def load_model(
     """Load trained model folder(s) as a predictor on ``device`` (the card
     by default; pass ``device="cpu"`` for the CPU: there is no fallback).
 
-    Single-instance, top-down (centroid + centered-instance) and bottom-up
-    (multi-instance) folders are supported; ``params`` maps a folder to its
-    flax params tree (numpy); ``compute_dtype`` is float32 or bf16.
+    Single-instance, top-down (centroid + centered-instance), bottom-up
+    (multi-instance) and multiclass (multi-class bottom-up, or centroid +
+    multi-class top-down) folders are supported. Weights are the folder's
+    own (``best_model.h5`` or ``best_model.ckpt``) unless ``params`` maps the
+    folder to a flax params tree (numpy); ``compute_dtype`` is float32 or
+    bf16.
     """
     return Predictor.from_model_paths(
         model_path,

@@ -277,7 +277,7 @@ class EncoderDecoderNet(nn.Module):
     kinds: ``simple_conv``, ``pooling``, ``s2d`` and ``simple_up`` with
     concatenated skips (the UNet's). Hourglass blocks, batch norm, additive
     skips and stacked nets are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP.md, queue 1, item 12).
+    ``NotImplementedError`` (ROADMAP.md, queue 1, item 10).
     """
 
     def __init__(

@@ -1,5 +1,5 @@
 """Output head descriptors: name, channels, activation and stride of each
-1x1 conv head the port builds.
+head the port builds: 1x1 conv heads, and the dense class-vector head.
 
 A copy of the part of :mod:`sleap_tpu.models.heads` that inference uses.
 ``from_config`` reads any config object by attribute: the port's
@@ -90,6 +90,56 @@ class PartAffinityFieldsHead(Head):
     @classmethod
     def from_config(cls, config, edges=None) -> "PartAffinityFieldsHead":
         return cls(edges=edges or config.edges, output_stride=config.output_stride)
+
+
+@dataclass
+class ClassMapsHead(Head):
+    """Per-pixel class probabilities: one sigmoid map per class."""
+
+    classes: List[str] = field(default_factory=list)
+
+    @property
+    def channels(self) -> int:
+        return len(self.classes)
+
+    @property
+    def activation(self) -> str:
+        return "sigmoid"
+
+    @classmethod
+    def from_config(cls, config, classes=None) -> "ClassMapsHead":
+        return cls(classes=classes or config.classes, output_stride=config.output_stride)
+
+
+@dataclass
+class ClassVectorsHead(Head):
+    """Class probabilities of a whole crop: the feature at ``output_stride``,
+    averaged over space (``global_pool``) or flattened, through
+    ``num_fc_layers`` dense + ReLU layers of ``num_fc_units``, then a dense
+    layer and a softmax over the classes."""
+
+    classes: List[str] = field(default_factory=list)
+    num_fc_layers: int = 1
+    num_fc_units: int = 64
+    global_pool: bool = True
+
+    @property
+    def channels(self) -> int:
+        return len(self.classes)
+
+    @property
+    def activation(self) -> str:
+        return "softmax"
+
+    @classmethod
+    def from_config(cls, config, classes=None) -> "ClassVectorsHead":
+        return cls(
+            classes=classes or config.classes,
+            num_fc_layers=config.num_fc_layers,
+            num_fc_units=config.num_fc_units,
+            global_pool=config.global_pool,
+            output_stride=config.output_stride,
+        )
 
 
 @dataclass

@@ -1,10 +1,11 @@
-"""Model assembly: UNet backbone + 1x1 conv heads -> ``nn.Module``.
+"""Model assembly: UNet backbone + heads -> ``nn.Module``.
 
-Port of :mod:`sleap_tpu.models.model` for the UNet backbones and the conv
-heads of the top-down, single-instance and bottom-up paths. Heads attach to
-the backbone output when their stride equals the backbone's output stride,
-and otherwise to the first decoder feature recorded at their stride
-(``apply_heads`` in the JAX package). Inputs and outputs keep the JAX
+Port of :mod:`sleap_tpu.models.model` for the UNet backbones and the heads
+of the top-down, single-instance, bottom-up and multiclass paths: 1x1 conv
+heads, and the dense class-vector head. Heads attach to the backbone output
+when their stride equals the backbone's output stride, and otherwise to the
+first decoder feature recorded at their stride (``apply_heads`` in the JAX
+package). Inputs and outputs keep the JAX
 package's NHWC layout; the network runs NCHW inside, in float32, or in bf16
 with ``torch.channels_last`` memory (see :class:`PoseNet`).
 """
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sleap_tpu_torch.models.encoder_decoder import (
@@ -26,6 +28,8 @@ from sleap_tpu_torch.models.encoder_decoder import (
 from sleap_tpu_torch.models.heads import (
     CenteredInstanceConfmapsHead,
     CentroidConfmapsHead,
+    ClassMapsHead,
+    ClassVectorsHead,
     MultiInstanceConfmapsHead,
     OffsetRefinementHead,
     PartAffinityFieldsHead,
@@ -35,12 +39,24 @@ from sleap_tpu_torch.models.unet import UNet
 
 
 class HeadSpec(NamedTuple):
-    """One conv head: output key, channels, activation and stride."""
+    """One head: output key, channels, activation and stride; a dense head
+    (``kind="dense"``) also has its hidden layers and pooling."""
 
     name: str
     channels: int
     activation: str
     output_stride: int
+    kind: str = "conv"
+    num_fc_layers: int = 0
+    num_fc_units: int = 0
+    global_pool: bool = True
+
+    @classmethod
+    def of(cls, head) -> "HeadSpec":
+        if isinstance(head, ClassVectorsHead):
+            return cls(head.name, head.channels, head.activation, head.output_stride, "dense",
+                       head.num_fc_layers, head.num_fc_units, head.global_pool)
+        return cls(head.name, head.channels, head.activation, head.output_stride)
 
 
 class PoseNet(nn.Module):
@@ -56,6 +72,12 @@ class PoseNet(nn.Module):
     module keeps its weights and activations in ``torch.channels_last``
     memory: cuDNN's bf16 tensor-core convolutions take NHWC, and the NHWC
     head outputs are then contiguous, the layout the bf16 peak kernel reads.
+
+    A dense head (``ClassVectorsHead``) averages its feature over space, or
+    flattens it in NHWC order, and runs ``pre_classification{i}_fc`` dense +
+    ReLU layers and a dense layer named after the head, then its activation:
+    output (samples, classes). A flattening head needs ``input_hw``, the
+    network input's (height, width), to size its first layer.
     """
 
     def __init__(
@@ -64,6 +86,7 @@ class PoseNet(nn.Module):
         heads: Sequence[HeadSpec],
         in_channels: int,
         compute_dtype: torch.dtype = torch.float32,
+        input_hw: Optional[Tuple[int, int]] = None,
     ):
         super().__init__()
         self.backbone = EncoderDecoderNet(
@@ -83,7 +106,17 @@ class PoseNet(nn.Module):
                 c = self.backbone.feature_channels[h.output_stride]
             else:
                 raise ValueError(f"No feature at stride {h.output_stride} for head {h.name}.")
-            self.heads[h.name] = nn.Conv2d(c, h.channels, 1)
+            if h.kind == "conv":
+                self.heads[h.name] = nn.Conv2d(c, h.channels, 1)
+                continue
+            if not h.global_pool:
+                if input_hw is None:
+                    raise ValueError(f"Head {h.name} flattens its feature: give input_hw.")
+                c *= -(-input_hw[0] // h.output_stride) * -(-input_hw[1] // h.output_stride)
+            for i in range(h.num_fc_layers):
+                self.heads[f"pre_classification{i}_fc"] = nn.Linear(c, h.num_fc_units)
+                c = h.num_fc_units
+            self.heads[h.name] = nn.Linear(c, h.channels)
         self.compute_dtype = compute_dtype
         if compute_dtype != torch.float32:
             self.to(dtype=compute_dtype, memory_format=torch.channels_last)
@@ -100,8 +133,14 @@ class PoseNet(nn.Module):
             src = out
             if h.output_stride != self.backbone.output_stride:
                 src = next(f.tensor for f in feats if f.stride == h.output_stride)
-            y = apply_activation(self.heads[h.name](src), h.activation)
-            results[h.name] = y.permute(0, 2, 3, 1)
+            if h.kind == "conv":
+                y = apply_activation(self.heads[h.name](src), h.activation)
+                results[h.name] = y.permute(0, 2, 3, 1)
+                continue
+            y = src.mean(dim=(2, 3)) if h.global_pool else src.permute(0, 2, 3, 1).flatten(1)
+            for i in range(h.num_fc_layers):
+                y = F.relu(self.heads[f"pre_classification{i}_fc"](y))
+            results[h.name] = apply_activation(self.heads[h.name](y), h.activation)
         return results
 
 
@@ -111,11 +150,11 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     scale through the ReLU stack) and zero biases."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 w = m.weight
                 # ConvTranspose2d stores (in, out, kh, kw): fan-in is dim 0.
                 fan_in = (w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1])
-                fan_in *= w.shape[2] * w.shape[3]
+                fan_in *= w[0, 0].numel()
                 std = math.sqrt(2.0 / fan_in)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
                 if m.bias is not None:
@@ -125,13 +164,14 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 @dataclass
 class Model:
-    """A model description: UNet backbone + conv heads, with the part names
-    and (for PAF heads) the edges the heads were built for."""
+    """A model description: UNet backbone + heads, with the part names, the
+    edges (PAF heads) and the classes (multiclass heads) they were built for."""
 
     backbone: UNet
     heads: List[HeadSpec]
     part_names: List[str] = field(default_factory=list)
     edges: List[Tuple[str, str]] = field(default_factory=list)
+    classes: List[str] = field(default_factory=list)
 
     @property
     def maximum_stride(self) -> int:
@@ -148,24 +188,30 @@ class Model:
         return first_conv(self.backbone.make_stem_blocks(), self.backbone.make_encoder_blocks())
 
     def make_module(
-        self, in_channels: int, compute_dtype: torch.dtype = torch.float32
+        self,
+        in_channels: int,
+        compute_dtype: torch.dtype = torch.float32,
+        input_hw: Optional[Tuple[int, int]] = None,
     ) -> PoseNet:
-        return PoseNet(self.backbone, self.heads, in_channels, compute_dtype)
+        return PoseNet(self.backbone, self.heads, in_channels, compute_dtype, input_hw)
 
     @classmethod
     def from_config(cls, config, skeleton=None) -> "Model":
         """From a model config (:class:`sleap_tpu_torch.config.ModelConfig`,
         or any object with its attributes, the JAX package's included): UNet
         backbones with single-instance, centroid, centered-instance
-        (+ offsets) or multi-instance heads (confmaps, PAFs, + offsets).
+        (+ offsets), multi-instance (confmaps, PAFs, + offsets), multiclass
+        bottom-up (confmaps, class maps, + offsets) or multiclass top-down
+        (confmaps, class vectors, + offsets) heads.
 
         Part names and edges missing from the head config come from
-        ``skeleton``, as in the JAX package. Other backbones and heads raise.
+        ``skeleton``, as in the JAX package; a multiclass head config must
+        name its classes. Other backbones raise.
         """
         unet_cfg = config.backbone.unet
         if unet_cfg is None:
             raise NotImplementedError(
-                "Only UNet backbones are ported (ROADMAP.md, queue 1, item 12)."
+                "Only UNet backbones are ported (ROADMAP.md, queue 1, item 10)."
             )
         hc = config.heads.which_oneof
         head_name = config.heads.which_oneof_attrib_name
@@ -177,7 +223,13 @@ class Model:
                 value = getattr(skeleton, name)
             return list(value)
 
+        def class_names(value):
+            if value is None:
+                raise ValueError(f"The {head_name} head config names no classes.")
+            return list(value)
+
         names: List[str] = []
+        classes: List[str] = []
         edges: List[Tuple[str, str]] = []
         offsets_cfg = hc
         if head_name == "single_instance":
@@ -196,15 +248,34 @@ class Model:
                 MultiInstanceConfmapsHead.from_config(hc.confmaps, part_names=names),
                 PartAffinityFieldsHead.from_config(hc.pafs, edges=edges),
             ]
+        elif head_name == "multi_class_bottomup":
+            offsets_cfg = hc.confmaps
+            names = skeleton_field(hc.confmaps.part_names, "node_names")
+            classes = class_names(hc.class_maps.classes)
+            heads = [
+                MultiInstanceConfmapsHead.from_config(hc.confmaps, part_names=names),
+                ClassMapsHead.from_config(hc.class_maps, classes=classes),
+            ]
+        elif head_name == "multi_class_topdown":
+            offsets_cfg = hc.confmaps
+            names = skeleton_field(hc.confmaps.part_names, "node_names")
+            classes = class_names(hc.class_vectors.classes)
+            heads = [
+                CenteredInstanceConfmapsHead.from_config(hc.confmaps, part_names=names),
+                ClassVectorsHead.from_config(hc.class_vectors, classes=classes),
+            ]
         else:
-            raise NotImplementedError(f"Head {head_name!r} is not ported yet.")
+            raise ValueError(f"Head type {head_name!r} is unknown or unset.")
         if offsets_cfg.offset_refinement:
             heads.append(
                 OffsetRefinementHead.from_config(offsets_cfg, part_names=names or None)
             )
-        specs = [HeadSpec(h.name, h.channels, h.activation, h.output_stride) for h in heads]
         return cls(
-            backbone=UNet.from_config(unet_cfg), heads=specs, part_names=names, edges=edges
+            backbone=UNet.from_config(unet_cfg),
+            heads=[HeadSpec.of(h) for h in heads],
+            part_names=names,
+            edges=edges,
+            classes=classes,
         )
 
 

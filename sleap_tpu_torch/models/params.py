@@ -13,6 +13,9 @@ Layouts:
 - Keras ``Conv2DTranspose`` kernels are (kh, kw, out, in) with gradient-of-
   conv semantics; flax's kernel is their transpose, flipped
   (``sleap_tpu.io.keras_h5``), so they arrive at torch's layout without a flip.
+- Dense kernels (the class-vector head's ``pre_classification{i}_fc`` layers
+  and its output layer) are (in, out) in flax and Keras, and
+  ``Linear.weight`` is (out, in).
 """
 
 from __future__ import annotations
@@ -47,8 +50,11 @@ def _state_dict_from_layers(
             raise KeyError(f"No source weight {src_name!r} for layer {lname!r} ({key}).")
         w = np.asarray(layers[lname][src_name], np.float32)
         if pname == "weight":
-            transposed = isinstance(module.get_submodule(mod_path), ConvTransposeSame)
-            w = _torch_kernel(w, transposed, keras)
+            layer = module.get_submodule(mod_path)
+            if isinstance(layer, nn.Linear):
+                w = w.T
+            else:
+                w = _torch_kernel(w, isinstance(layer, ConvTransposeSame), keras)
         if tuple(w.shape) != tuple(target.shape):
             raise ValueError(
                 f"Shape mismatch at {key}: source {tuple(w.shape)} vs torch {tuple(target.shape)}."
@@ -86,7 +92,8 @@ def flax_from_state_dict(module: nn.Module) -> Dict[str, Any]:
     ``load_model(params=...)`` takes.
 
     Conv kernels go OIHW -> HWIO; ``ConvTransposeSame`` kernels
-    (in, out, kh, kw) go back to flax's HWIO, flipped in both spatial axes.
+    (in, out, kh, kw) go back to flax's HWIO, flipped in both spatial axes;
+    dense kernels go (out, in) -> (in, out).
     Backbone layers sit under ``"backbone"``, each head at the top level.
     """
     tree: Dict[str, Any] = {"backbone": {}}
@@ -95,7 +102,10 @@ def flax_from_state_dict(module: nn.Module) -> Dict[str, Any]:
         lname = mod_path.rsplit(".", 1)[-1]
         w = value.detach().float().cpu().numpy()
         if pname == "weight":
-            if isinstance(module.get_submodule(mod_path), ConvTransposeSame):
+            layer = module.get_submodule(mod_path)
+            if isinstance(layer, nn.Linear):
+                w = w.T
+            elif isinstance(layer, ConvTransposeSame):
                 w = w.transpose(2, 3, 0, 1)[::-1, ::-1]
             else:
                 w = w.transpose(2, 3, 1, 0)

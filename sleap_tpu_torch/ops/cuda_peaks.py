@@ -8,9 +8,11 @@ Three CUDA kernels (``csrc/peaks.cu``) replace the Pallas kernels of
     the max, the first-occurrence argmax and the integral-regression
     centroid of the (2*half+1)^2 window around it (zero outside the map);
     xy is NaN below threshold. ``half < 0`` gives the unrefined grid peak
-    (``find_global_peaks_rough``). A map holding a NaN follows the TPU
-    kernel: value NaN, argmax H*W, so (x, y) = (0, H) plus the offsets of
-    the window there, masked to the map. Bound by reading the maps once: on
+    (``find_global_peaks_rough``). A map holding a NaN gets value NaN and xy
+    kept (NaN < threshold is false); its argmax is the first NaN in
+    row-major order on the grid route, as ``jnp.argmax`` in the JAX rough
+    peaks, and H*W on the integral route, as in the TPU kernel, so (x, y) =
+    (0, H) plus the offsets of the window there, masked to the map. Bound by reading the maps once: on
     the top-down path (64 crops x 13 nodes of 40x40) that is 5.3 MB per
     batch in float32, 2.7 MB in bf16, against two compares per value.
     Design (``csrc/peaks.cu``, ``global_slab_kernel``): maps laid out as a
@@ -148,15 +150,20 @@ def global_peaks_plain(
 
     Returns:
         xy (S, C, 2), NaN below threshold; vals (S, C). A map holding a NaN
-        gets val NaN and argmax H*W (no value equals the NaN max), whose
-        window around (0, H) is masked to the map, not clamped into it.
+        gets val NaN and xy kept; its argmax is its first NaN when
+        ``half < 0`` (``jnp.argmax``'s), else H*W (no value equals the NaN
+        max), whose window around (0, H) is masked to the map, not clamped
+        into it.
     """
     S, H, W, C = cms.shape
     maps = _flat_maps(cms)
     flat = maps.reshape(S * C, H * W)
     vals = flat.amax(dim=1)
     lin = torch.arange(H * W, device=cms.device)
-    idx = torch.where(flat == vals[:, None], lin, H * W).amin(dim=1)  # first occurrence
+    hit = flat == vals[:, None]
+    if half < 0:
+        hit = hit | flat.isnan()
+    idx = torch.where(hit, lin, H * W).amin(dim=1)  # first occurrence
     ix, iy = idx % W, idx // W
     xy = torch.stack([ix, iy], dim=-1).float()
     if half >= 0:

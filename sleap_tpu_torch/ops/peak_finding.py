@@ -62,7 +62,9 @@ def find_offsets_local_direction(
     patches; returns (n, 2) (dx, dy)."""
     dx = centered_patches[:, 1, 2] - centered_patches[:, 1, 0]
     dy = centered_patches[:, 2, 1] - centered_patches[:, 0, 1]
-    return torch.sign(torch.stack([dx, dy], dim=1)) * delta
+    d = torch.stack([dx, dy], dim=1)
+    # torch.sign(NaN) is 0; jnp.sign(NaN), which this follows, is NaN.
+    return torch.where(torch.isnan(d), d, torch.sign(d)) * delta
 
 
 def _integral_half(integral_patch_size: int) -> int:

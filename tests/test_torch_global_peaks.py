@@ -1,8 +1,9 @@
 """Kernel 1 (global peaks) on the CPU: the port's plain version, reached
 through ``find_global_peaks``, against the Pallas kernel in interpret mode
 and JAX's rough peaks, on the layouts and dtypes the port's paths hand it:
-bf16 maps channels-last (the bf16 head conv's output), maps holding a NaN,
-and float16 maps (cast to float32 before the kernel).
+bf16 maps channels-last (the bf16 head conv's output), maps holding NaNs
+(the integral route against the Pallas kernel, the other routes against
+JAX's rough peaks), and float16 maps (cast to float32 before the kernel).
 
 Tolerances: values and integer peaks exact. On bf16 maps the refined xy are
 exact too: both sides sum the same float32 window values in the same order.
@@ -123,11 +124,80 @@ def test_nan_map_matches_pallas(dtype):
 
 
 def test_nan_map_rough_peak_is_row_h():
-    cms = _planted(4, 1, 16, 12, 2)
+    """The rough (grid) route takes the first NaN, as jnp.argmax does, and
+    keeps its xy: on the 8 x 6 map with one NaN at (y=3, x=4) that is
+    (4, 3) with value NaN. Row H stays the integral route's rule."""
+    cms = _planted(4, 1, 8, 6, 2) * 0.1
     cms[0, 3, 4, 0] = np.nan
-    xy, vals = tpf.find_global_peaks_rough(torch.from_numpy(cms), threshold=0.2)
+    t = torch.from_numpy(cms)
+    want_xy, want_v = jpf.find_global_peaks_rough(jnp.asarray(cms), threshold=0.2)
+    xy, vals = tpf.find_global_peaks_rough(t, threshold=0.2)
+    np.testing.assert_array_equal(xy[0, 0].numpy(), [4, 3])
     assert np.isnan(vals[0, 0].item()) and np.isfinite(vals[0, 1].item())
-    np.testing.assert_array_equal(xy[0, 0].numpy(), [0, 16])
+    _close_nan(xy, want_xy, 0.0)
+    _close_nan(vals, want_v, 0.0)
+    xy_int, _ = tpf.find_global_peaks(t, threshold=0.2, refinement="integral")
+    assert 6 < xy_int[0, 0, 1] < 8
+
+
+# NaN placements: alone, several (the first wins), and before and after the
+# map's finite maximum in row-major order.
+NAN_CASES = {
+    "one": [(5, 7)],
+    "several": [(9, 3), (2, 11), (2, 12), (15, 0)],
+    "before_max": [(0, 1)],
+    "after_max": [(17, 14)],
+}
+
+
+def _nan_maps(case):
+    cms = _planted(7, 2, 18, 15, 3)
+    cms[0, 8, 6, 1] = 5.0  # the finite maximum of map (0, 1), at index 8 * 15 + 6
+    for y, x in NAN_CASES[case]:
+        cms[0, y, x, 1] = np.nan
+    cms[1, 4, 4, 2] = np.nan
+    return cms
+
+
+@pytest.mark.parametrize("case", list(NAN_CASES))
+@pytest.mark.parametrize("route", ["rough", "none", "local", "offsets"])
+def test_nan_maps_match_jax(route, case):
+    """Every global-peak route but the integral one gives JAX's answer on
+    maps holding NaNs, and none raises."""
+    cms = _nan_maps(case)
+    off = np.random.RandomState(8).uniform(-0.5, 0.5, cms.shape[:3] + (6,)).astype(np.float32)
+    j, t = jnp.asarray(cms), torch.from_numpy(cms)
+    if route == "rough":
+        want = jpf.find_global_peaks_rough(j, threshold=0.2)
+        got = tpf.find_global_peaks_rough(t, threshold=0.2)
+    elif route == "offsets":
+        want = jpf.find_global_peaks_with_offsets(j, jnp.asarray(off), threshold=0.2)
+        got = tpf.find_global_peaks_with_offsets(t, torch.from_numpy(off), threshold=0.2)
+    else:
+        refinement = None if route == "none" else route
+        want = jpf.find_global_peaks(j, threshold=0.2, refinement=refinement)
+        got = tpf.find_global_peaks(t, threshold=0.2, refinement=refinement)
+    for g, w in zip(got, want):
+        _close_nan(g, w, 0.0)
+    assert np.isnan(got[1][0, 1].item()) and np.isnan(got[1][1, 2].item())
+    if route != "local":  # local: a NaN beside the peak makes its step NaN
+        assert np.isfinite(got[0][0, 1].numpy()).all()
+    y, x = NAN_CASES[case][0] if case != "several" else (2, 11)
+    if route in ("rough", "none"):
+        np.testing.assert_array_equal(got[0][0, 1].numpy(), [x, y])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nan_map_plain_rough_takes_first_nan(dtype):
+    """The plain version (phase 3's reference for the kernel) on both dtypes
+    and on the NHWC view of NCHW maps: the first NaN, value NaN."""
+    cms = _nan_maps("several")
+    t = _bf16_pair(cms)[1] if dtype == "bfloat16" else torch.from_numpy(cms)
+    for view in (t, t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)):
+        xy, vals = global_peaks_plain(view, 0.2, -1)
+        np.testing.assert_array_equal(xy[0, 1].numpy(), [11, 2])
+        np.testing.assert_array_equal(xy[1, 2].numpy(), [4, 4])
+        assert np.isnan(vals[0, 1].item()) and np.isnan(vals[1, 2].item())
 
 
 @pytest.mark.parametrize("refinement", ["integral", None])

@@ -1,9 +1,11 @@
 """The port runs without the JAX side: in a fresh interpreter whose imports of
-``sleap_tpu``, ``jax``, ``flax``, ``orbax``, ``networkx``, ``attr``, ``h5py``
-and ``cv2`` fail, every module of ``sleap_tpu_torch`` imports, a run folder
-written by the port's own config code loads through ``load_model``, and
-``predict`` returns the port's ``Labels``. Also: the entry points default to
-the card, and paths the port cannot read yet raise.
+``sleap_tpu``, ``jax``, ``flax``, ``orbax``, ``networkx``, ``attr``, ``h5py``,
+``cv2``, ``zstandard`` and ``tensorstore`` fail, every module of
+``sleap_tpu_torch`` imports, a run folder written by the port's own config
+code loads through ``load_model``, trained ``.convergence_runs`` folders load
+from their orbax checkpoints with no ``params``, and ``predict`` returns the
+port's ``Labels``. Also: the entry points default to the card, and paths the
+port cannot read yet raise.
 """
 
 import inspect
@@ -17,12 +19,14 @@ import torch
 
 from sleap_tpu_torch.config import TrainingJobConfig
 from sleap_tpu_torch.inference import bottomup as tb
+from sleap_tpu_torch.inference import multiclass as tm
 from sleap_tpu_torch.inference import predictors as tp
 from sleap_tpu_torch.models.model import Model
 from sleap_tpu_torch.models.params import flax_from_state_dict
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("sleap_tpu", "jax", "jaxlib", "flax", "orbax", "networkx", "attr", "attrs", "h5py", "cv2")
+BLOCKED = ("sleap_tpu", "jax", "jaxlib", "flax", "orbax", "networkx", "attr", "attrs", "h5py", "cv2",
+           "zstandard", "tensorstore")
 
 _SCRIPT = r"""
 import importlib, importlib.abc, json, os, pkgutil, sys
@@ -139,6 +143,21 @@ for key, paths, params in (
         "n_videos": len(labels.videos),
         "provenance": labels.provenance.get("predictor"),
     }
+# Trained folders, weights read from their orbax checkpoints by the port.
+runs = os.path.join(os.getcwd(), ".convergence_runs")
+for key, paths in (
+    ("trained_single", os.path.join(runs, "minimal_robot.UNet.single_instance")),
+    ("trained_multiclass", [os.path.join(runs, "minimal_instance.UNet.centroid"),
+                            os.path.join(runs, "min_tracks_2node.UNet.topdown_multiclass")]),
+):
+    pred = sleap_tpu_torch.load_model(paths, device="cpu", batch_size=2, peak_threshold=0.05)
+    labels = pred.predict(frames)
+    result[key] = {
+        "predictor": type(pred).__name__,
+        "labels": type(labels) is Labels,
+        "n_frames": len(labels),
+        "tracks": [t.name for t in labels.tracks],
+    }
 result["blocked_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps(result))
 """
@@ -158,8 +177,10 @@ def standalone(tmp_path_factory):
 def test_every_module_imports_with_the_jax_side_blocked(standalone):
     modules = standalone["modules"]
     for name in ("config", "core.skeleton", "core.labels", "core.instance", "io.video",
-                 "io.keras_h5", "data.providers", "data.prefetch", "models.heads",
-                 "inference.predictors", "inference.bottomup", "ops.cuda_peaks"):
+                 "io.keras_h5", "io.zstd", "io.ocdbt", "io.orbax", "data.providers",
+                 "data.prefetch", "models.heads", "inference.predictors",
+                 "inference.bottomup", "inference.multiclass", "ops.identity",
+                 "ops.cuda_peaks"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
 
@@ -177,10 +198,23 @@ def test_load_model_and_predict_labels_with_the_jax_side_blocked(standalone, pat
     assert res["n_videos"] == 1 and res["provenance"] == res["predictor"]
 
 
+@pytest.mark.parametrize("path,predictor,tracks", [
+    ("trained_single", "SingleInstancePredictor", []),
+    ("trained_multiclass", "TopDownMultiClassPredictor", ["female", "male"]),
+])
+def test_trained_folders_load_without_params_with_the_jax_side_blocked(
+        standalone, path, predictor, tracks):
+    res = standalone[path]
+    assert res["predictor"] == predictor
+    assert res["labels"] and res["n_frames"] == 3
+    assert res["tracks"] == tracks
+
+
 def test_entry_points_default_to_the_card():
     for fn in (tp.load_model, tp.load_trained_model, tp.Predictor.from_model_paths):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    for cls in (tp.SingleInstancePredictor, tp.TopDownPredictor, tb.BottomUpPredictor):
+    for cls in (tp.SingleInstancePredictor, tp.TopDownPredictor, tb.BottomUpPredictor,
+                tm.BottomUpMultiClassPredictor, tm.TopDownMultiClassPredictor):
         device = next(f for f in cls.__dataclass_fields__.values() if f.name == "device")
         assert device.default_factory() == torch.device("cuda"), cls
 

@@ -287,8 +287,12 @@ def test_single_instance_matches_jax():
     ]
 
 
-def test_loading_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="orbax"):
-        tp.load_trained_model(CENTROID, "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_loading_refuses_what_is_not_ported(tmp_path):
+    """What still refuses: a folder with no weights at all, and the
+    ground-truth-centroid mode of a multiclass top-down folder alone."""
+    (tmp_path / "training_config.json").write_text(
+        (Path(CENTROID) / "training_config.json").read_text())
+    with pytest.raises(FileNotFoundError, match="No weights"):
+        tp.load_trained_model(str(tmp_path), "cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         tp.load_model(str(RUNS / "min_tracks_2node.UNet.topdown_multiclass"), device="cpu")
