@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
-inference once on one CUDA card, through the run-folder loader a user calls,
-and the repo's trained run folders from their own checkpoints.
+inference, and flow-shift tracking, once on one CUDA card, through the
+run-folder loader a user calls, and the repo's trained run folders from their
+own checkpoints.
 
     python3 chip_smoke.py
 
@@ -90,8 +91,29 @@ Phases; any failure exits non-zero and no result line is printed:
    blobs of sigma 14 px, each folder must find an animal with finite points
    in every frame (the multiclass folder an animal of each class), and
    match the same folders on the CPU.
-5. (Run after 4d, before 4e; the launches of 4e-4g join its rows at the
-   end.) Time each kernel and its plain version: per call with CUDA events (50
+6. Tracking (``load_model(..., tracker="flow")``, the CLI defaults: window 5,
+   instance similarity, greedy matching, img_scale 1, flow window 21, 3
+   levels). 6a: phase 4's top-down float32 folders on 1 + 8 batches of
+   1024^2 frames where 4 blobs (sigma 8 px) move on smooth paths of at most
+   4 px a frame over seeded noise; ``predict`` with ``Labels`` must launch
+   kernels 2, 3 and 1 once per batch, give every instance a track and run
+   every flow call on the card; prints FPS with tracking beside phase 4's,
+   the tracker's host ms a frame, and the flow's device ms and launches per
+   call and the tracker's device launches per frame (``torch.profiler``,
+   one call a session, from two sessions that agree on every count).
+   6b: the card's instances of 32 of those frames tracked by a card tracker
+   and a CPU tracker: the same track per instance, tracking scores within
+   TRACK_SCORE_TOL, the saved flow-shifted instances within SHIFT_TOL px
+   with the same status. 6c: the trained top-down pair from its checkpoint
+   at 384^2 on 32 frames of two sigma-9 blobs over a static background
+   whose paths stay over 60 px apart: flow gives exactly 2 tracks, every
+   instance tracked, and over the frames where the detector puts one
+   instance on each blob no track changes blob; ``tracker="simple"`` and
+   the Kalman route (``kf_init_frame_count`` 5, ``kf_node_indices``
+   [0, 1], ``max_tracks`` 2) give 2 tracks each. The same paths with 4g's
+   sigma-14 blobs over fresh noise are tracked by flow and printed only.
+5. (Run after 4d, before 4e; the launches of 4e-4g and 6 join its rows at
+   the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
    3.35 TB/s, or operations at the card's peak, whichever is larger) and,
@@ -163,6 +185,21 @@ TRAINED = [
                             "min_tracks_2node.UNet.topdown_multiclass"], 384),
 ]
 TRAINED_BLOBS, TRAINED_SIGMA = 2, 14.0
+# Phase 6: blob paths of at most this many px a frame; the card's and the
+# CPU's trackers on this many frames; their tracking scores (exp(-d^2) of
+# flow points that differ by ~1e-5 px) and flow-shifted points.
+TRACK_MAX_STEP, CARD_CPU_FRAMES = 4.0, 32
+TRACK_SCORE_TOL, SHIFT_TOL = 1e-4, 1e-3
+# 6c: the trained top-down pair on 32 frames of two blobs over one static
+# noise background. On sigma-14 blobs over fresh noise (4g's blobs) the
+# detector often puts both instances on one blob and its points jump by
+# more than the instance similarity's few px from frame to frame (6c
+# prints how often; the JAX package gives the same detections and tracks),
+# so no tracker could keep identities there; on sigma-9 blobs it finds
+# one instance per blob in nearly every frame.
+TRACKED_TRAINED = ["minimal_instance.UNet.centroid", "minimal_instance.UNet.centered_instance"]
+TRACKED_SIZE, TRACKED_FRAMES, TRACKED_SIGMA, TRACKED_AMPLITUDE = 384, 32, 9.0, 240.0
+TRACKED_GAP, TRACKED_MIN_CLEAN = 60.0, 28
 
 # The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
 # the tensor cores for the kernels' few operations per byte.
@@ -233,6 +270,28 @@ def device_events(fn, names=None, iters=20, tries=8):
         if events and all(e.count % iters == 0 for e in events):
             return events
     raise RuntimeError(f"chip_smoke: torch.profiler lost device events in {tries} sessions")
+
+
+def repeated_events(fn, tries=8):
+    """``torch.profiler``'s device functions of one call of ``fn``, from the
+    first two sessions that agree on every function's count: a session of
+    a call of thousands of launches now and then drops some of its events,
+    so a count seen twice is taken as whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        counts = tuple(sorted((e.key, e.count) for e in events))
+        if counts in seen:
+            return events
+        seen.add(counts)
+    raise RuntimeError(f"chip_smoke: no two of {tries} profiler sessions saw the same launches")
 
 
 def device_ms(fn, names=None, iters=20) -> float:
@@ -370,7 +429,8 @@ def seeded_params(path, gen):
 def load_predictors(folders):
     """(top-down on the card, top-down on the CPU, bottom-up bf16 on the
     card, bottom-up float32 on the card, bottom-up float32 on the CPU),
-    top-down bf16 on the card, single-instance bf16 on the card."""
+    top-down bf16 on the card, single-instance bf16 on the card, and the
+    top-down folders again with a flow tracker."""
     import sleap_tpu_torch
 
     gen = torch.Generator().manual_seed(0)
@@ -394,8 +454,11 @@ def load_predictors(folders):
                                           **kwargs)
         pred.max_peaks_per_node = BU_K
         bu.append(pred)
-    check(all(p.device.type == "cuda" for p in (td, bu[0], td_bf16, si)), "the card is the default")
-    return td, td_cpu, bu, td_bf16, si
+    td_tracked = sleap_tpu_torch.load_model(td_paths, params=params, batch_size=BATCH,
+                                            max_instances=MAX_INSTANCES, tracker="flow")
+    check(all(p.device.type == "cuda" for p in (td, bu[0], td_bf16, si, td_tracked)),
+          "the card is the default")
+    return td, td_cpu, bu, td_bf16, si, td_tracked
 
 
 def load_multiclass(folders):
@@ -1150,6 +1213,234 @@ def check_trained_folders(wrappers, launches):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 6: tracking
+# --------------------------------------------------------------------------- #
+
+
+def blob_paths(n, size, layout, reach, seed, max_step=TRACK_MAX_STEP) -> np.ndarray:
+    """(n, blobs, 2) xy: each blob on a Lissajous path of seeded periods and
+    phases around its centre (``layout``, fractions of ``size``) within
+    ``reach`` px per axis, slowed so that no step exceeds ``max_step`` px."""
+    rng = np.random.default_rng(seed)
+    centres = np.asarray(layout, np.float64) * size
+    period = rng.uniform(60, 100, centres.shape)
+    phase = rng.uniform(0, 2 * np.pi, centres.shape)
+    t = np.arange(n)[:, None, None]
+    offsets = np.asarray(reach) * np.sin(2 * np.pi * t / period + phase)
+    step = np.linalg.norm(np.diff(offsets, axis=0), axis=-1).max()
+    return centres + offsets * min(1.0, max_step / step)
+
+
+def moving_frames(paths, size, sigma, amplitude, seed, static=False) -> np.ndarray:
+    """(n, size, size, 1) uint8: seeded noise (one background for all
+    frames if ``static``, else fresh each frame) plus a Gaussian blob of
+    ``sigma`` px at each path point."""
+    rng = np.random.default_rng(seed)
+    background = rng.integers(0, 40, (size, size)).astype(np.float32)
+    r = int(3 * sigma) + 1
+    frames = np.empty((len(paths), size, size, 1), np.uint8)
+    for i, points in enumerate(paths):
+        img = background.copy() if static else rng.integers(0, 40, (size, size)).astype(np.float32)
+        for x, y in points:
+            x0, y0 = int(round(x)) - r, int(round(y)) - r
+            yy, xx = np.mgrid[y0:y0 + 2 * r + 1, x0:x0 + 2 * r + 1]
+            blob = amplitude * np.exp(-((xx - x) ** 2 + (yy - y) ** 2) / (2 * sigma**2))
+            img[y0:y0 + 2 * r + 1, x0:x0 + 2 * r + 1] += blob
+        frames[i, ..., 0] = np.clip(img, 0, 255)
+    return frames
+
+
+def untracked_copies(labels, n):
+    """The first n labeled frames of ``labels`` as new frames over a new
+    video of their images, holding untracked copies of their instances."""
+    from sleap_tpu_torch.core.instance import LabeledFrame, PredictedInstance
+    from sleap_tpu_torch.io.video import Video
+
+    frames = list(labels)[:n]
+    video = Video.from_numpy(np.stack([lf.image for lf in frames]))
+    return [LabeledFrame(video, k, [PredictedInstance(i.skeleton, i.points.copy(), i.score)
+                                    for i in lf.instances]) for k, lf in enumerate(frames)]
+
+
+def check_tracked_path(pred, frames, wrappers, launches, fps, card):
+    """Phase 6a; returns the tracked ``Labels`` and the figures it prints."""
+    from sleap_tpu_torch.tracking import tracker as trk
+
+    check(type(pred.tracker).__name__ == "Tracker" and pred.tracker.uses_image, "a flow tracker")
+    maker = pred.tracker.candidate_maker
+    check((type(maker).__name__, maker.of_window_size, maker.of_max_levels, maker.img_scale,
+           pred.tracker.track_window, pred.tracker.similarity_function.__name__,
+           pred.tracker.matching_function.__name__)
+          == ("FlowCandidateMaker", 21, 3, 1.0, 5, "instance_similarity", "greedy_matching"),
+          "the tracker keeps the CLI defaults")
+    check(torch.device(maker.device).type == "cuda", "flow on the card")
+    pred.predict(frames[:BATCH], make_labels=False)  # warm-up; the tracker runs only with Labels
+    torch.cuda.synchronize()
+
+    flow = trk.lk_flow_pyramids
+    devices, last_call, track_s = [], [], []
+
+    def lk(*args, **kwargs):
+        out = flow(*args, **kwargs)
+        devices.append({t.device.type for t in out})
+        last_call[:] = [args, kwargs]
+        return out
+
+    track = pred.tracker.track
+
+    def timed_track(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = track(*args, **kwargs)
+        track_s.append(time.perf_counter() - t0)
+        return out
+
+    for w in wrappers.values():
+        w.launches = 0
+    trk.lk_flow_pyramids, pred.tracker.track = lk, timed_track
+    try:
+        t0 = time.perf_counter()
+        labels = pred.predict(frames[BATCH:])
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+    finally:
+        trk.lk_flow_pyramids = flow
+        del pred.tracker.track
+    counts = {k: w.launches for k, w in wrappers.items()}
+    n_frames = len(frames) - BATCH
+    n_batches = -(-n_frames // BATCH)
+    for kernel, count in counts.items():
+        check(count == n_batches, f"{kernel}: {count} launches on the tracked path, want one a batch")
+        launches[kernel]["top-down tracked"] = count
+    insts = [i for lf in labels for i in lf.instances]
+    check(len(labels) == n_frames and len(insts) >= n_frames, "tracked frames with instances")
+    check(all(i.track is not None for i in insts), "every instance has a track")
+    check(len(devices) >= n_frames - 1 and all(d == {"cuda"} for d in devices),
+          f"flow ran on the card in every frame ({len(devices)} calls)")
+    fps["top-down tracked"] = n_frames / path_s
+    host_ms = 1e3 * sum(track_s) / len(track_s)
+
+    # The flow's device time and launches a call, on the last frame's inputs
+    # (all the window's pairs, one call a frame).
+    args, kwargs = last_call
+    events = repeated_events(lambda: flow(*args, **kwargs))
+    flow_ms = sum(e.self_device_time_total for e in events) / 1e3
+    flow_launches = sum(e.count for e in events)
+    flow_wall = time_ms(lambda: flow(*args, **kwargs), iters=10, warmup=1)
+    pairs, points = args[2].shape[:2]
+
+    # Every device launch of the tracker a frame (upload, pyramid, flow):
+    # a fresh tracker fills its window on 5 frames, then each profiled call
+    # tracks the next frame.
+    tracker = trk.Tracker.make_tracker_by_name(tracker="flow")
+    copies = iter(untracked_copies(labels, 16))
+
+    def track_next():
+        lf = next(copies)
+        tracker.track(lf.instances, img=lf.image, t=lf.frame_idx)
+
+    for _ in range(5):
+        track_next()
+    frame_launches = sum(e.count for e in repeated_events(track_next, tries=10))
+    tracks = {i.track.name for i in insts}
+    log(f"top-down tracked path: {n_frames} frames in {path_s:.3f} s = "
+        f"{fps['top-down tracked']:.1f} FPS with tracking (phase 4 without: "
+        f"{fps['top-down']:.1f}); kernel launches {counts}; {len(insts)} instances, "
+        f"{len(tracks)} tracks; tracker host {host_ms:.2f} ms a frame; lk_flow on "
+        f"{pairs} pairs x {points} points: {flow_ms:.3f} ms device, {flow_wall:.3f} ms per call, "
+        f"{flow_launches:.0f} launches a call ({len(devices)} calls, one a frame); tracker "
+        f"{frame_launches:.0f} device launches a frame ({card})")
+    figures = {"fps": fps["top-down tracked"], "fps_untracked": fps["top-down"],
+               "tracker_host_ms_per_frame": host_ms, "lk_flow_device_ms": flow_ms,
+               "lk_flow_ms": flow_wall, "lk_flow_launches": flow_launches,
+               "tracker_launches_per_frame": frame_launches, "pairs": pairs, "points": points}
+    return labels, figures
+
+
+def check_tracking_card_vs_cpu(labels):
+    """Phase 6b: the card's instances of the first CARD_CPU_FRAMES tracked
+    frames, tracked anew on the card and on the CPU."""
+    from sleap_tpu_torch.tracking.tracker import Tracker, run_tracker
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tracker = Tracker.make_tracker_by_name(tracker="flow", save_shifted_instances=True,
+                                               device=device)
+        frames = untracked_copies(labels, CARD_CPU_FRAMES)
+        t0 = time.perf_counter()
+        run_tracker(frames, tracker)
+        runs[device] = (frames, tracker.candidate_maker.shifted_instances,
+                        time.perf_counter() - t0)
+    (gf, gs, g_s), (cf, cs, c_s) = runs["cuda"], runs["cpu"]
+    names = lambda fs: [[i.track.name for i in lf.instances] for lf in fs]  # noqa: E731
+    check(names(gf) == names(cf), "card and CPU trackers: the same track per instance")
+    d_score = max(abs(a.tracking_score - b.tracking_score)
+                  for lg, lc in zip(gf, cf) for a, b in zip(lg.instances, lc.instances))
+    check(d_score <= TRACK_SCORE_TOL, f"tracking scores differ by {d_score:.3g}")
+    check(list(gs) == list(cs) and len(gs) > 0, "the same frame pairs shifted")
+    d_xy, n_shifted = 0.0, 0
+    for key in gs:
+        check([s.track.name for s in gs[key]] == [s.track.name for s in cs[key]],
+              f"pair {key}: the same shifted instances")
+        for a, b in zip(gs[key], cs[key]):
+            d_xy = max(d_xy, max_abs(torch.from_numpy(a.points_array),
+                                     torch.from_numpy(b.points_array)))  # NaN = status 0
+            n_shifted += 1
+    check(d_xy <= SHIFT_TOL, f"shifted points differ by {d_xy:.3g} px")
+    log(f"tracking card vs CPU on {CARD_CPU_FRAMES} frames: same tracks "
+        f"({len(set(sum(names(gf), [])))}), max |d score| {d_score:.3g}, {n_shifted} shifted "
+        f"instances with the same status, max |dxy| {d_xy:.3g} px; card {g_s:.2f} s, CPU {c_s:.2f} s")
+
+
+def check_tracking_trained():
+    """Phase 6c: flow, simple and Kalman tracking of the trained top-down
+    pair on two blobs whose paths stay TRACKED_GAP px apart."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.tracking.tracker import Tracker
+
+    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".convergence_runs")
+    paths = [os.path.join(runs, f) for f in TRACKED_TRAINED]
+    xy = blob_paths(TRACKED_FRAMES, TRACKED_SIZE, [[0.27, 0.5], [0.73, 0.5]], [40.0, 110.0],
+                    seed=0, max_step=3.0)
+    check(np.linalg.norm(xy[:, 0] - xy[:, 1], axis=-1).min() > TRACKED_GAP, "blobs stay apart")
+    clips = {"flow on sigma-14 blobs over fresh noise":
+             moving_frames(xy, TRACKED_SIZE, TRAINED_SIGMA, 200.0, seed=0)}
+    frames = moving_frames(xy, TRACKED_SIZE, TRACKED_SIGMA, TRACKED_AMPLITUDE, seed=0, static=True)
+    clips.update({route: frames for route in ("flow", "simple", "kalman")})
+    for route, frames in clips.items():
+        pred = sleap_tpu_torch.load_model(paths, batch_size=4, peak_threshold=0.05, max_instances=2,
+                                          tracker="simple" if route == "simple" else "flow")
+        check(pred.device.type == "cuda", "on the card")
+        if route == "kalman":
+            pred.tracker = Tracker.make_tracker_by_name(
+                tracker="flow", max_tracks=2, kf_init_frame_count=5, kf_node_indices=[0, 1],
+                device=pred.device)
+        labels = pred.predict(frames)
+        blob_of, clean = {}, 0
+        for lf in labels:
+            near = {i.track.name if i.track else None: int(np.argmin(np.linalg.norm(
+                xy[lf.frame_idx] - np.nanmean(i.numpy(), axis=0), axis=-1))) for i in lf.instances}
+            if len(lf.instances) == 2 and len(set(near.values())) == 2:
+                clean += 1
+                for name, b in near.items():
+                    blob_of.setdefault(name, set()).add(b)
+        insts = [i for lf in labels for i in lf.instances]
+        n_tracked = sum(i.track is not None for i in insts)
+        swaps = sum(len(b) - 1 for b in blob_of.values())
+        log(f"trained top-down tracked ({route}, {TRACKED_SIZE}^2, {TRACKED_FRAMES} frames): "
+            f"tracks {[t.name for t in labels.tracks]}, {n_tracked} of {len(insts)} instances "
+            f"tracked, {clean} frames with one instance on each blob, blobs per track "
+            f"{ {k: sorted(v) for k, v in blob_of.items()} }")
+        if route not in ("flow", "simple", "kalman"):
+            continue  # the sigma-14 clip: printed, not checked
+        check(len(labels.tracks) == 2, f"{route}: exactly 2 tracks")
+        if route == "flow":
+            check(n_tracked == len(insts) and len(insts) >= TRACKED_FRAMES,
+                  "flow: every instance tracked")
+            check(clean >= TRACKED_MIN_CLEAN, f"flow: {clean} frames with one instance per blob")
+            check(swaps == 0 and None not in blob_of, "flow: no identity swap")
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: times and bounds
 # --------------------------------------------------------------------------- #
 
@@ -1315,7 +1606,7 @@ def main() -> int:
     si_frames = synthetic_frames((1 + TIMED_BATCHES) * SI_BATCH, seed=1, size=SI_IMG, blobs=1)
     with tempfile.TemporaryDirectory() as root:
         folders = write_run_folders(root)
-        td, td_cpu, bu, td_bf16, si = load_predictors(folders)
+        td, td_cpu, bu, td_bf16, si, td_tracked = load_predictors(folders)
         td_mc, td_mc_cpu, bu_mc = load_multiclass(folders)
     log(f"loaded {type(td).__name__}, {type(si).__name__}, {type(bu[0]).__name__}, "
         f"{type(td_mc).__name__} and {type(bu_mc).__name__} from run folders on {td.device}, "
@@ -1383,6 +1674,16 @@ def main() -> int:
     # Phase 4g: the trained folders, read from their checkpoints.
     all_wrappers = {**td_wrappers, "local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda}
     read_s = check_trained_folders(all_wrappers, launches)
+
+    # Phase 6: tracking.
+    track_paths = blob_paths((1 + TIMED_BATCHES) * BATCH, IMG,
+                             [[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]],
+                             [150.0, 150.0], seed=4)
+    track_frames = moving_frames(track_paths, IMG, 8.0, 200.0, seed=4)
+    tracked, tracking = check_tracked_path(td_tracked, track_frames, td_wrappers, launches, fps,
+                                           card)
+    check_tracking_card_vs_cpu(tracked)
+    check_tracking_trained()
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
 
@@ -1395,6 +1696,7 @@ def main() -> int:
         log(f"{name} path: {value:.1f} FPS ({card})")
     for name, value in read_s.items():
         log(f"checkpoint read {name}: {value:.3f} s ({card})")
+    log(f"tracking: {json.dumps(tracking)} ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -5,11 +5,13 @@ field names and semantics: points live in a structured array of the
 ``.slp`` predicted-point dtype (x, y, visible, complete, score), a point with
 a NaN coordinate is missing and invisible, and ``numpy()`` gives (n_nodes, 2)
 xy with invisible points as NaN. Multiclass predictors give each instance
-the :class:`Track` of its class and a tracking score.
+the :class:`Track` of its class and a tracking score; the trackers of
+:mod:`sleap_tpu_torch.tracking` set both, and read the point views below.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Iterable, List, Optional
 
 import numpy as np
@@ -89,6 +91,37 @@ class PredictedInstance:
         xy[~self.points["visible"]] = np.nan
         return xy
 
+    @property
+    def points_array(self) -> np.ndarray:
+        """(n_nodes, 2) xy with invisible points as NaN, as ``numpy()``."""
+        return self.numpy()
+
+    @property
+    def scores(self) -> np.ndarray:
+        """(n_nodes,) point confidences; NaN where a point is invisible."""
+        s = self.points["score"].astype("f8")
+        s[~self.points["visible"]] = np.nan
+        return s
+
+    @property
+    def n_visible_points(self) -> int:
+        return int(np.count_nonzero(self.points["visible"]))
+
+    @property
+    def centroid(self) -> np.ndarray:
+        """Mean xy of the visible points."""
+        return np.nanmean(self.numpy(), axis=0)
+
+    @property
+    def bounding_box(self) -> np.ndarray:
+        """[y1, x1, y2, x2] over the visible points; all NaN, without a
+        warning, when no point is visible."""
+        pts = self.numpy()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=RuntimeWarning)
+            return np.array([np.nanmin(pts[:, 1]), np.nanmin(pts[:, 0]),
+                             np.nanmax(pts[:, 1]), np.nanmax(pts[:, 0])])
+
     def __repr__(self) -> str:
         return (
             f"PredictedInstance(points={int(self.points['visible'].sum())}/{len(self.points)}, "
@@ -97,7 +130,8 @@ class PredictedInstance:
 
 
 class LabeledFrame:
-    """The instances in one frame of one video."""
+    """The instances in one frame of one video. ``instances`` is a plain
+    list, which trackers replace or cull in place."""
 
     def __init__(self, video: Any, frame_idx: int,
                  instances: Optional[Iterable[PredictedInstance]] = None):

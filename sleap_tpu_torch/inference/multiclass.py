@@ -47,6 +47,11 @@ class _ClassFrames:
     def _tracks(self) -> List[Track]:
         return self.class_tracks
 
+    def _track(self, frames):
+        """The class heads give the identities: no tracker runs, as in the
+        JAX package's multiclass predictors."""
+        return frames
+
     def _make_labeled_frames(self, examples, videos):
         skeleton = _skeleton(self._skeleton_model)
         frames = []

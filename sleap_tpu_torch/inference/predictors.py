@@ -17,7 +17,9 @@ package's:
 Run folders, providers and ``Labels`` are the port's own
 (:mod:`sleap_tpu_torch.config`, :mod:`~sleap_tpu_torch.data.providers`,
 :mod:`~sleap_tpu_torch.core`): nothing here imports the JAX package. Entry
-points run on ``"cuda"`` unless the caller passes another device.
+points run on ``"cuda"`` unless the caller passes another device. A
+predictor given a ``tracker`` (:mod:`sleap_tpu_torch.tracking`) runs it over
+the frames it built before it returns ``Labels``, as the JAX predictors do.
 """
 
 from __future__ import annotations
@@ -256,6 +258,7 @@ class Predictor:
     integral_refinement: bool = True
     integral_patch_size: int = 5
     batch_size: int = 4
+    tracker: Any = None
 
     @classmethod
     def from_model_paths(
@@ -357,13 +360,28 @@ class Predictor:
             return list(examples)
 
         videos = provider.videos if provider is not None else [Video.from_numpy(frames)]
-        labels = Labels(
-            labeled_frames=self._make_labeled_frames(examples, videos), tracks=self._tracks()
-        )
+        labeled = self._track(self._make_labeled_frames(examples, videos))
+        labels = Labels(labeled_frames=labeled, tracks=self._tracks())
         labels.provenance.update(
             {"predictor": type(self).__name__, "total_elapsed": time.time() - t0}
         )
         return labels
+
+    def _track(self, frames: List[LabeledFrame]) -> List[LabeledFrame]:
+        """Run ``tracker``, if any, over the built frames in order, then its
+        final pass (the JAX package's ``_attach_tracker``)."""
+        tracker = self.tracker
+        if tracker is None:
+            return frames
+        for lf in frames:
+            lf.instances = tracker.track(
+                untracked_instances=list(lf.instances),
+                img=lf.image if tracker.uses_image else None,
+                t=lf.frame_idx,
+            )
+        if hasattr(tracker, "final_pass"):
+            tracker.final_pass(frames)
+        return frames
 
     def _predict_generator(self, batches) -> Iterator[Dict[str, Any]]:
         for batch, n_valid, dev_img in stage_to_device(batches, self.device):
@@ -601,6 +619,9 @@ def load_model(
     max_instances: Optional[int] = None,
     params: Optional[Mapping[str, Any]] = None,
     compute_dtype: torch.dtype = torch.float32,
+    tracker: Optional[str] = None,
+    tracker_window: int = 5,
+    tracker_max_instances: Optional[int] = None,
 ) -> Predictor:
     """Load trained model folder(s) as a predictor on ``device`` (the card
     by default; pass ``device="cpu"`` for the CPU: there is no fallback).
@@ -610,9 +631,14 @@ def load_model(
     multi-class top-down) folders are supported. Weights are the folder's
     own (``best_model.h5`` or ``best_model.ckpt``) unless ``params`` maps the
     folder to a flax params tree (numpy); ``compute_dtype`` is float32 or
-    bf16.
+    bf16. ``tracker`` names a tracker of
+    :meth:`~sleap_tpu_torch.tracking.tracker.Tracker.make_tracker_by_name`
+    ("flow", "simple", ...), with a window of ``tracker_window`` frames and
+    at most ``tracker_max_instances`` tracks; its flow runs on ``device``.
+    Multiclass predictors keep the identities of their class heads and run
+    no tracker, as in the JAX package.
     """
-    return Predictor.from_model_paths(
+    predictor = Predictor.from_model_paths(
         model_path,
         device=device,
         peak_threshold=peak_threshold,
@@ -622,3 +648,13 @@ def load_model(
         params=params,
         compute_dtype=compute_dtype,
     )
+    if tracker is not None:
+        from sleap_tpu_torch.tracking.tracker import Tracker
+
+        predictor.tracker = Tracker.make_tracker_by_name(
+            tracker=tracker,
+            track_window=tracker_window,
+            max_tracks=tracker_max_instances,
+            device=predictor.device,
+        )
+    return predictor

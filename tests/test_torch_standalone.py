@@ -4,7 +4,8 @@
 ``sleap_tpu_torch`` imports, a run folder written by the port's own config
 code loads through ``load_model``, trained ``.convergence_runs`` folders load
 from their orbax checkpoints with no ``params``, and ``predict`` returns the
-port's ``Labels``. Also: the entry points default to the card, and paths the
+port's ``Labels``, with tracks when ``load_model`` is given
+``tracker="flow"``. Also: the entry points default to the card, and paths the
 port cannot read yet raise.
 """
 
@@ -23,6 +24,7 @@ from sleap_tpu_torch.inference import multiclass as tm
 from sleap_tpu_torch.inference import predictors as tp
 from sleap_tpu_torch.models.model import Model
 from sleap_tpu_torch.models.params import flax_from_state_dict
+from sleap_tpu_torch.tracking import tracker
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("sleap_tpu", "jax", "jaxlib", "flax", "orbax", "networkx", "attr", "attrs", "h5py", "cv2",
@@ -158,6 +160,26 @@ for key, paths in (
         "n_frames": len(labels),
         "tracks": [t.name for t in labels.tracks],
     }
+# Flow-shift tracking, on the CPU: the top-down folders, then the trained
+# single-instance folder.
+import sleap_tpu_torch.tracking as tracking
+
+for key, paths, params in (
+    ("tracked_topdown", [centroid, instance], {centroid: c_params, instance: i_params}),
+    ("tracked_single", os.path.join(runs, "minimal_robot.UNet.single_instance"), None),
+):
+    pred = sleap_tpu_torch.load_model(paths, device="cpu", params=params, batch_size=2,
+                                      max_instances=3, peak_threshold=0.05, tracker="flow")
+    labels = pred.predict(frames)
+    insts = [i for lf in labels for i in lf.instances]
+    result[key] = {
+        "tracker": type(pred.tracker.candidate_maker).__name__,
+        "device": str(pred.tracker.candidate_maker.device),
+        "instances": len(insts),
+        "all_tracked": all(i.track is not None for i in insts),
+        "tracks": [t.name for t in labels.tracks],
+        "exports": sorted(tracking.__all__),
+    }
 result["blocked_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps(result))
 """
@@ -180,7 +202,8 @@ def test_every_module_imports_with_the_jax_side_blocked(standalone):
                  "io.keras_h5", "io.zstd", "io.ocdbt", "io.orbax", "data.providers",
                  "data.prefetch", "models.heads", "inference.predictors",
                  "inference.bottomup", "inference.multiclass", "ops.identity",
-                 "ops.cuda_peaks"):
+                 "ops.cuda_peaks", "ops.optical_flow", "tracking", "tracking.components",
+                 "tracking.kalman", "tracking.tracker"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
 
@@ -210,9 +233,20 @@ def test_trained_folders_load_without_params_with_the_jax_side_blocked(
     assert res["tracks"] == tracks
 
 
+@pytest.mark.parametrize("path", ["tracked_topdown", "tracked_single"])
+def test_flow_tracking_with_the_jax_side_blocked(standalone, path):
+    res = standalone[path]
+    assert res["tracker"] == "FlowCandidateMaker" and res["device"] == "cpu"
+    assert res["instances"] >= 3 and res["all_tracked"]
+    assert res["tracks"] and res["tracks"][0] == "track_0"
+    assert res["exports"] == ["Tracker", "retrack", "run_tracker"]
+
+
 def test_entry_points_default_to_the_card():
-    for fn in (tp.load_model, tp.load_trained_model, tp.Predictor.from_model_paths):
+    for fn in (tp.load_model, tp.load_trained_model, tp.Predictor.from_model_paths,
+               tracker.Tracker.make_tracker_by_name):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert tracker.FlowCandidateMaker().device == "cuda"
     for cls in (tp.SingleInstancePredictor, tp.TopDownPredictor, tb.BottomUpPredictor,
                 tm.BottomUpMultiClassPredictor, tm.TopDownMultiClassPredictor):
         device = next(f for f in cls.__dataclass_fields__.values() if f.name == "device")
