@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
-inference, and flow-shift tracking, once on one CUDA card, through the
-run-folder loader a user calls, and the repo's trained run folders from their
-own checkpoints.
+inference, flow-shift tracking and training once on one CUDA card, through
+the run-folder loader and the trainer a user calls, and the repo's trained
+run folders from their own checkpoints.
 
     python3 chip_smoke.py
 
@@ -112,7 +112,27 @@ Phases; any failure exits non-zero and no result line is printed:
    the Kalman route (``kf_init_frame_count`` 5, ``kf_node_indices``
    [0, 1], ``max_tracks`` 2) give 2 tracks each. The same paths with 4g's
    sigma-14 blobs over fresh noise are tracked by flow and printed only.
-5. (Run after 4d, before 4e; the launches of 4e-4g and 6 join its rows at
+7. Training (``sleap_tpu_torch.training``), after phase 6. 7a and 7b:
+   ``bench.py``'s train cells (``_train_throughput``): the UNet above on
+   1024^2 uint8 frames of 3 instances, batch 16, float32 with TF32 off,
+   Adam at 1e-4, augmentation off; 7a centered-instance confmaps on crops
+   of 160 (13 nodes, sigma 2.5, stride 4), 7b confmaps and PAFs (stride 8,
+   sigma 5, 12 edges). ``Trainer.from_config`` on the card by default;
+   2 warm-up steps, then 20 timed and synchronised: images/s, ms a step,
+   one step's device time and launches (``torch.profiler``, two sessions
+   agreeing) and so the device's busy share, peak memory. 7e: 7a in mixed
+   precision (bf16 autocast, channels-last): float32 parameters and
+   optimizer state, finite losses, images/s. 7d: one step of a small
+   top-down and bottom-up config (filters 16, 256^2) on the card and on the
+   CPU from the same initial weights and batch: loss within 1e-5 relative,
+   each gradient within 1e-4 of its largest value. 7c: the top-down pair
+   (centroid at input scale 0.25, then centered instance) trained from
+   scratch for 300 steps each on frames of blob animals; each model's last
+   epoch loss at most half its first; the run folders loaded with
+   ``load_model`` and no params (``best_model.pt``) predict 16 held-out
+   frames with kernels 2, 3 and 1 once a batch, find every held-out animal
+   within PAIR_BOUND_PX of mean node error, and match the CPU as phase 4.
+5. (Run after 4d, before 4e; the launches of 4e-4g, 6 and 7c join its rows at
    the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
@@ -121,14 +141,15 @@ Phases; any failure exits non-zero and no result line is printed:
    Kernel 1 on both the float32 and the bf16 top-down maps; a bf16
    ``find_global_peaks`` call must launch kernel 1 alone (no cast or copy).
 
-The line before the last is a JSON object with each kernel's launches (all
-paths' and per path), error and times; the last line is
-``{"ok": true, "device": {...}}``.
+Then a JSON line of phase 7's numbers; the line before the last is a JSON
+object with each kernel's launches (all paths' and per path), error and
+times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -200,6 +221,28 @@ TRACK_SCORE_TOL, SHIFT_TOL = 1e-4, 1e-3
 TRACKED_TRAINED = ["minimal_instance.UNet.centroid", "minimal_instance.UNet.centered_instance"]
 TRACKED_SIZE, TRACKED_FRAMES, TRACKED_SIGMA, TRACKED_AMPLITUDE = 384, 32, 9.0, 240.0
 TRACKED_GAP, TRACKED_MIN_CLEAN = 60.0, 28
+
+# Phase 7, training. 7a/7b/7e: ``bench.py``'s train cells
+# (``_train_throughput``, bench.py:745-806): batch 16 of 1024^2 frames of 3
+# instances, Adam at 1e-4, augmentation off; 2 warm-up steps, 20 timed.
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 16, 2, 20
+# 7c: the top-down pair (centroid at input scale 0.25, then centered
+# instance at crop 160; the UNet of 7a) trained from scratch for a fixed
+# number of steps at learning rate 1e-3 on 1024^2 frames of 3 blob animals
+# (sigma 10 px, 13 nodes on a 6-px ring around the centre, centres 200 px
+# apart and 150 px inside); 32 held-out frames (a warm-up batch and a timed
+# one). Every held-out animal must be found, the nearest predicted
+# instance's mean node error within PAIR_BOUND_PX: about twice the largest
+# error read on an H100 (max 0.681-0.739 px over four runs, PERF.md
+# section 6).
+PAIR_TRAIN_FRAMES, PAIR_HELD_OUT, PAIR_EPOCHS, PAIR_BATCHES, PAIR_LR = 64, 32, 20, 15, 1e-3
+PAIR_ANIMALS, PAIR_SIGMA, PAIR_RING, PAIR_GAP, PAIR_MARGIN = 3, 10.0, 6.0, 200, 150
+PAIR_BOUND_PX = 1.5
+# 7d: one step on the card and on the CPU, from one init and batch, at a
+# small width; the loss within 1e-5 relative, each gradient within 1e-4 of
+# its largest magnitude (float32 convs summing in another order).
+STEP_SIZE, STEP_FILTERS, STEP_CROP = 256, 16, 64
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-4
 
 # The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
 # the tensor cores for the kernels' few operations per byte.
@@ -1441,6 +1484,305 @@ def check_tracking_trained():
 
 
 # --------------------------------------------------------------------------- #
+# Phase 7: training
+# --------------------------------------------------------------------------- #
+
+
+def chain_skeleton():
+    from sleap_tpu_torch.core.skeleton import Skeleton
+
+    skeleton = Skeleton("chain13")
+    names = [f"n{i}" for i in range(N_NODES)]
+    for n in names:
+        skeleton.add_node(n)
+    for a, b in zip(names[:-1], names[1:]):
+        skeleton.add_edge(a, b)
+    return skeleton
+
+
+def train_config(head, filters=64, crop=CROP, input_scaling=1.0, lr=1e-4, batch=TRAIN_BATCH):
+    """``bench.py``'s training config (``_train_throughput``): the UNet of
+    the inference folders, confmaps at stride 4 and sigma 2.5, PAFs at
+    stride 8 and sigma 5; ``head`` is "topdown", "centroid" or "bottomup"."""
+    from sleap_tpu_torch import config as c
+
+    cfg = c.TrainingJobConfig()
+    cfg.model.backbone.unet = c.UNetConfig(max_stride=16, output_stride=4, filters=filters,
+                                           filters_rate=2.0, up_interpolate=True, space_to_depth=4)
+    names = [f"n{i}" for i in range(N_NODES)]
+    if head == "topdown":
+        cfg.model.heads.centered_instance = c.CenteredInstanceConfmapsHeadConfig(
+            part_names=names, output_stride=4, sigma=2.5)
+    elif head == "centroid":
+        cfg.model.heads.centroid = c.CentroidsHeadConfig(output_stride=4, sigma=2.5)
+    else:
+        cfg.model.heads.multi_instance = c.MultiInstanceConfig(
+            confmaps=c.MultiInstanceConfmapsHeadConfig(part_names=names, output_stride=4,
+                                                       sigma=2.5),
+            pafs=c.PartAffinityFieldsHeadConfig(
+                edges=[[f"n{i}", f"n{i + 1}"] for i in range(N_NODES - 1)], output_stride=8,
+                sigma=5.0))
+    cfg.data.preprocessing.pad_to_stride = 16
+    cfg.data.preprocessing.input_scaling = input_scaling
+    cfg.data.instance_cropping.crop_size = crop
+    cfg.optimization.batch_size = batch
+    cfg.optimization.initial_learning_rate = lr
+    cfg.outputs.save_outputs = False
+    return cfg
+
+
+def labels_of(frames, points):
+    """The port's Labels: ``frames`` (n, H, W, 1) uint8 and ``points``
+    (n, animals, N_NODES, 2) user instances."""
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.io.video import Video
+
+    skeleton, video = chain_skeleton(), Video.from_numpy(frames)
+    return Labels([LabeledFrame(video, i, [Instance(skeleton, p) for p in pts])
+                   for i, pts in enumerate(points)])
+
+
+def bench_trainer(head, mixed_precision=False):
+    """A trainer of ``bench.py``'s config on the card (the default device),
+    set up on its 4 labeled frames of 3 instances."""
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 255, (4, IMG, IMG, 1), np.uint8)
+    labels = labels_of(frames, rng.uniform(100, IMG - 100, (4, 3, N_NODES, 2)))
+    cfg = train_config(head)
+    cfg.optimization.mixed_precision = mixed_precision
+    trainer = Trainer.from_config(cfg, training_labels=labels, validation_labels=labels)
+    check(trainer.device.type == "cuda", f"train {head}: the trainer's default device is the card")
+    trainer.setup()
+    trainer.make_optimizer()
+    return trainer
+
+
+def bench_batch(head, device, seed=0):
+    """``bench.py``'s device batch: random uint8 frames, 3 instances at
+    uniform points 100 px inside, a random target instance (top-down)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch = {
+        "image": torch.randint(0, 255, (TRAIN_BATCH, IMG, IMG, 1), generator=gen, device=device,
+                               dtype=torch.uint8),
+        "instances": 100 + (IMG - 200) * torch.rand(TRAIN_BATCH, 3, N_NODES, 2, generator=gen,
+                                                     device=device),
+        "track_inds": torch.zeros(TRAIN_BATCH, 3, dtype=torch.int32, device=device),
+    }
+    if head == "topdown":
+        batch["ctr_ind"] = torch.randint(0, 3, (TRAIN_BATCH,), generator=gen, device=device,
+                                         dtype=torch.int32)
+    return batch
+
+
+def time_train_steps(name, trainer, batch, card, steps=TRAIN_STEPS):
+    """Warm-up steps, then ``steps`` timed steps ending in a synchronise;
+    one step's device time and launches from ``torch.profiler``."""
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(batch, gen) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    events = repeated_events(lambda: trainer.train_step(batch, gen))
+    device_step_ms = sum(e.self_device_time_total for e in events) / 1e3
+    res = {
+        "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+        "step_ms": step_ms,
+        "device_step_ms": device_step_ms,
+        "device_busy": device_step_ms / step_ms,
+        "launches_per_step": sum(e.count for e in events),
+        "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "first_loss": float(losses[0]),
+        "last_loss": float(losses[-1]),
+        # The step's largest device functions: (name, ms, launches).
+        "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in sorted(
+            events, key=lambda e: -e.self_device_time_total)[:6]],
+    }
+    check(all(bool(torch.isfinite(l)) for l in losses), f"{name}: finite losses")
+    log(f"{name}: {res['images_per_s']:.1f} images/s, {step_ms:.2f} ms a step over {steps} "
+        f"steps (batch {TRAIN_BATCH}); device {device_step_ms:.2f} ms a step "
+        f"({100 * res['device_busy']:.1f} % busy), {res['launches_per_step']} launches a step; "
+        f"peak memory {res['max_memory_gib']:.2f} GiB; loss {res['first_loss']:.6f} -> "
+        f"{res['last_loss']:.6f} ({card})")
+    log(f"{name}: largest device functions a step (name, ms, launches): {res['top_kernels']}")
+    return res
+
+
+def check_train_throughput(card):
+    """7a, 7b and 7e: ``bench.py``'s train cells on the card."""
+    results = {}
+    for key, head, mixed in (("7a train top-down f32", "topdown", False),
+                             ("7b train bottom-up f32", "bottomup", False),
+                             ("7e train top-down mixed precision", "topdown", True)):
+        trainer = bench_trainer(head, mixed_precision=mixed)
+        batch = bench_batch(head, trainer.device)
+        results[key] = time_train_steps(key, trainer, batch, card)
+        if mixed:
+            params = list(trainer.module.parameters())
+            check(all(p.dtype == torch.float32 for p in params), "7e: float32 parameters")
+            check(all(t.dtype == torch.float32 for st in trainer.optimizer.state.values()
+                      for t in st.values() if torch.is_tensor(t) and t.ndim > 0),
+                  "7e: float32 optimizer state")
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return results
+
+
+def blob_animals(n, seed, size=IMG, margin=PAIR_MARGIN, gap=PAIR_GAP):
+    """(frames, points): ``n`` uint8 frames of PAIR_ANIMALS blobs (sigma
+    PAIR_SIGMA px, over noise, centres ``gap`` px apart and ``margin`` px
+    inside), each an animal whose 13 nodes lie on its blob, on a ring of
+    PAIR_RING px around the centre at fixed angles."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 40, (n, size, size, 1)).astype(np.float32)
+    angles = 2 * np.pi * np.arange(N_NODES) / N_NODES
+    ring = PAIR_RING * np.stack([np.cos(angles), np.sin(angles)], -1)
+    r = int(3 * PAIR_SIGMA)
+    g = np.mgrid[-r:r + 1, -r:r + 1]
+    blob = 200 * np.exp(-(g[0] ** 2 + g[1] ** 2) / (2 * PAIR_SIGMA**2))
+    points = np.zeros((n, PAIR_ANIMALS, N_NODES, 2))
+    for i in range(n):
+        centres = []
+        while len(centres) < PAIR_ANIMALS:
+            c = rng.integers(margin, size - margin, 2)
+            if all(np.hypot(*(c - d)) >= gap for d in centres):
+                centres.append(c)
+        for a, (x, y) in enumerate(centres):
+            frames[i, y - r:y + r + 1, x - r:x + r + 1, 0] += blob
+            points[i, a] = ring + (x, y)
+    return np.clip(frames, 0, 255).astype(np.uint8), points
+
+
+def pair_errors(out, points):
+    """Per true animal, the mean node distance of the nearest predicted
+    instance (inf where a frame found none)."""
+    res = merged(out, len(points))
+    errs = []
+    for i, truth in enumerate(points):
+        found = res["instance_peaks"][i][res["centroid_mask"][i]]
+        for animal in truth:
+            d = [np.nanmean(np.linalg.norm(f - animal, axis=-1)) for f in found]
+            d = [v for v in d if np.isfinite(v)]
+            errs.append(min(d) if d else np.inf)
+    return np.asarray(errs)
+
+
+def check_train_pair(card, wrappers, launches):
+    """7c: the top-down pair trained on blob frames for a fixed number of
+    steps; the run folders loaded with no params (``best_model.pt``) and
+    the held-out frames predicted on the card and on the CPU."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    frames, points = blob_animals(PAIR_TRAIN_FRAMES + PAIR_HELD_OUT, seed=7)
+    labels = labels_of(frames[:PAIR_TRAIN_FRAMES], points[:PAIR_TRAIN_FRAMES])
+    held_frames, held_points = frames[PAIR_TRAIN_FRAMES:], points[PAIR_TRAIN_FRAMES:]
+    res, folders = {}, []
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    for head, scaling in (("centroid", 0.25), ("topdown", 1.0)):
+        cfg = train_config(head, input_scaling=scaling, lr=PAIR_LR)
+        cfg.optimization.epochs = PAIR_EPOCHS
+        cfg.optimization.batches_per_epoch = PAIR_BATCHES
+        cfg.optimization.val_batches_per_epoch = 1
+        cfg.outputs.save_outputs = True
+        cfg.outputs.runs_folder = root
+        cfg.outputs.run_name = head
+        trainer = Trainer.from_config(cfg, training_labels=labels, validation_labels=labels)
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        losses = [row["loss"] for row in trainer.log_rows]
+        steps = PAIR_EPOCHS * PAIR_BATCHES
+        res[head] = {"epoch_losses": losses, "train_s": train_s, "steps": steps,
+                     "images_per_s": steps * TRAIN_BATCH / train_s}
+        log(f"7c trained {head} ({steps} steps of {TRAIN_BATCH}, input scale {scaling}): epoch "
+            f"losses {[round(v, 6) for v in losses]}; {train_s:.1f} s, "
+            f"{res[head]['images_per_s']:.1f} images/s with validation and checkpoints ({card})")
+        check(losses[-1] <= 0.5 * losses[0], f"7c {head}: last epoch loss at most half the first")
+        folder = os.path.join(root, head)
+        check(os.path.exists(os.path.join(folder, "best_model.pt")), f"7c {head}: best_model.pt")
+        folders.append(folder)
+        del trainer
+    gpu = sleap_tpu_torch.load_model(folders, batch_size=BATCH, max_instances=MAX_INSTANCES)
+    cpu = sleap_tpu_torch.load_model(folders, device="cpu", batch_size=4,
+                                     max_instances=MAX_INSTANCES)
+    check(gpu.device.type == "cuda", "7c: the trained pair loads on the card")
+    out, counts, fps = run_path("7c trained top-down pair", gpu, held_frames, wrappers)
+    for kernel, n in counts.items():
+        launches[kernel]["trained top-down pair (7c)"] = n
+    errs = pair_errors(out, held_points[BATCH:])
+    res["held_out_node_error_px"] = {"median": float(np.median(errs)),
+                                     "max": float(errs.max()), "animals": len(errs)}
+    log(f"7c held-out localisation: {len(errs)} animals, mean node error median "
+        f"{np.median(errs):.3f} px, max {errs.max():.3f} px (bound {PAIR_BOUND_PX} px); "
+        f"{fps:.1f} FPS ({card})")
+    check(np.isfinite(errs).all() and errs.max() <= PAIR_BOUND_PX,
+          f"7c: every held-out animal found within {PAIR_BOUND_PX} px")
+    g = merged(dataclasses.replace(gpu, batch_size=4).predict(held_frames[:4],
+                                                             make_labels=False), 4)
+    c = merged(cpu.predict(held_frames[:4], make_labels=False), 4)
+    check(np.array_equal(g["centroid_mask"], c["centroid_mask"]), "7c: GPU vs CPU centroid masks")
+    d = {k: max_abs(torch.from_numpy(g[k]), torch.from_numpy(c[k]))
+         for k in ("centroids", "instance_peaks", "centroid_vals", "instance_peak_vals")}
+    log(f"7c GPU vs CPU (batch 4): {d}")
+    check(d["centroids"] <= PATH_XY_TOL and d["instance_peaks"] <= PATH_XY_TOL,
+          "7c: GPU vs CPU points")
+    check(d["centroid_vals"] <= PATH_VAL_TOL and d["instance_peak_vals"] <= PATH_VAL_TOL,
+          "7c: GPU vs CPU values")
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def check_step_card_vs_cpu(card):
+    """7d: one step's loss and gradients on the card and on the CPU, from
+    the same initial weights and batch, for a small top-down and bottom-up
+    config (float32, TF32 off)."""
+    from sleap_tpu_torch.config import TrainingJobConfig
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    frames, points = blob_animals(4, seed=9, size=STEP_SIZE, margin=40, gap=60)
+    labels = labels_of(frames, points)
+    res = {}
+    for head in ("topdown", "bottomup"):
+        text = train_config(head, filters=STEP_FILTERS, crop=STEP_CROP, batch=4).to_json()
+        on_card, on_cpu = (Trainer.from_config(TrainingJobConfig.from_json(text),
+                                               training_labels=labels, validation_labels=labels,
+                                               device=d)
+                           for d in ("cuda", "cpu"))
+        for t in (on_card, on_cpu):
+            t.setup()
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card.module.state_dict().values(),
+                                                          on_cpu.module.state_dict().values())),
+              f"7d {head}: the same initial weights on both devices")
+        examples = [on_cpu._train_examples[i] for i in range(4)]
+        grads, losses = [], []
+        for t in (on_card, on_cpu):
+            t.module.zero_grad()
+            loss = t.compute_loss(t.to_device(t.make_batch(examples, None)),
+                                  torch.Generator(device=t.device).manual_seed(0))
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append({n: p.grad.detach().cpu() for n, p in t.module.named_parameters()})
+        loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        grad_rel = max(float((grads[0][n] - g).abs().max() / g.abs().max())
+                       for n, g in grads[1].items())
+        res[head] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "loss": losses[1]}
+        log(f"7d {head} step card vs CPU ({STEP_SIZE}^2, filters {STEP_FILTERS}): loss "
+            f"{losses[0]:.8f} vs {losses[1]:.8f} (rel {loss_rel:.2e}); largest gradient "
+            f"difference {grad_rel:.2e} of that gradient's largest value ({card})")
+        check(loss_rel <= STEP_LOSS_RTOL, f"7d {head}: loss within {STEP_LOSS_RTOL} relative")
+        check(grad_rel <= STEP_GRAD_RTOL, f"7d {head}: gradients within {STEP_GRAD_RTOL} relative")
+    return res
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: times and bounds
 # --------------------------------------------------------------------------- #
 
@@ -1684,6 +2026,13 @@ def main() -> int:
                                            card)
     check_tracking_card_vs_cpu(tracked)
     check_tracking_trained()
+
+    # Phase 7: training.
+    t7 = time.perf_counter()
+    training = {"throughput": check_train_throughput(card),
+                "step_card_vs_cpu": check_step_card_vs_cpu(card),
+                "top-down pair": check_train_pair(card, td_wrappers, launches)}
+    log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
 
@@ -1697,6 +2046,7 @@ def main() -> int:
     for name, value in read_s.items():
         log(f"checkpoint read {name}: {value:.3f} s ({card})")
     log(f"tracking: {json.dumps(tracking)} ({card})")
+    print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

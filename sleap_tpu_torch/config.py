@@ -1,14 +1,14 @@
-"""Training job configuration: the fields of ``training_config.json`` that
-inference reads.
+"""Training job configuration: ``training_config.json``.
 
-A dataclass copy of part of :mod:`sleap_tpu.config` (same field names and
-defaults), so run folders load with plain Python: no ``attr``, no JAX
-package. It covers the labels' skeletons, the preprocessing and cropping
-fields inference reads (input scaling, pad to stride, ImageNet mode, crop
-size), the UNet backbone (the other backbones are kept as raw dicts, enough to see
-that ``unet`` is None), and every head type, so that ``which_oneof`` names
-a head group the port does not run yet. Unknown fields are ignored and
-``//`` and ``/* */`` comments stripped, as in the JAX package.
+A dataclass copy of :mod:`sleap_tpu.config` (same field names and
+defaults), so run folders load and training runs with plain Python: no
+``attr``, no JAX package. It covers the data (labels, preprocessing,
+cropping), the UNet backbone (the other backbones are kept as raw dicts,
+enough to see that ``unet`` is None), every head type, the optimization
+(augmentation, hard keypoint mining, learning-rate schedule, early
+stopping) and the outputs (checkpoints, TensorBoard, ZMQ), so a config
+written by either package reads back equal in the other. Unknown fields are
+ignored and ``//`` and ``/* */`` comments stripped, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -176,6 +176,7 @@ class BackboneConfig(_OneOf):
 class ModelConfig:
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     heads: HeadsConfig = field(default_factory=HeadsConfig)
+    base_checkpoint: Optional[str] = None
 
 
 # --------------------------------------------------------------------------- #
@@ -185,19 +186,35 @@ class ModelConfig:
 
 @dataclass
 class LabelsConfig:
+    training_labels: Optional[str] = None
+    validation_labels: Optional[str] = None
+    validation_fraction: float = 0.1
+    test_labels: Optional[str] = None
+    split_by_inds: bool = False
+    training_inds: Optional[List[int]] = None
+    validation_inds: Optional[List[int]] = None
+    test_inds: Optional[List[int]] = None
+    search_path_hints: List[str] = field(default_factory=list)
     skeletons: List[Skeleton] = field(default_factory=list)
 
 
 @dataclass
 class PreprocessingConfig:
+    ensure_rgb: bool = False
+    ensure_grayscale: bool = False
     imagenet_mode: Optional[str] = None
     input_scaling: float = 1.0
     pad_to_stride: Optional[int] = None
+    resize_and_pad_to_target: bool = True
+    target_height: Optional[int] = None
+    target_width: Optional[int] = None
 
 
 @dataclass
 class InstanceCroppingConfig:
+    center_on_part: Optional[str] = None
     crop_size: Optional[int] = None
+    crop_size_detection_padding: int = 16
 
 
 @dataclass
@@ -208,14 +225,167 @@ class DataConfig:
 
 
 # --------------------------------------------------------------------------- #
+# Optimization
+# --------------------------------------------------------------------------- #
+
+
+@dataclass
+class AugmentationConfig:
+    rotate: bool = False
+    rotation_min_angle: float = -180
+    rotation_max_angle: float = 180
+    translate: bool = False
+    translate_min: int = -5
+    translate_max: int = 5
+    scale: bool = False
+    scale_min: float = 0.9
+    scale_max: float = 1.1
+    uniform_noise: bool = False
+    uniform_noise_min_val: float = 0.0
+    uniform_noise_max_val: float = 10.0
+    gaussian_noise: bool = False
+    gaussian_noise_mean: float = 5.0
+    gaussian_noise_stddev: float = 1.0
+    contrast: bool = False
+    contrast_min_gamma: float = 0.5
+    contrast_max_gamma: float = 2.0
+    brightness: bool = False
+    brightness_min_val: float = 0.0
+    brightness_max_val: float = 10.0
+    random_crop: bool = False
+    random_crop_height: int = 256
+    random_crop_width: int = 256
+    random_flip: bool = False
+    flip_horizontal: bool = True
+
+
+@dataclass
+class HardKeypointMiningConfig:
+    online_mining: bool = False
+    hard_to_easy_ratio: float = 2.0
+    min_hard_keypoints: int = 2
+    max_hard_keypoints: Optional[int] = None
+    loss_scale: float = 5.0
+
+
+@dataclass
+class LearningRateScheduleConfig:
+    reduce_on_plateau: bool = True
+    reduction_factor: float = 0.5
+    plateau_min_delta: float = 1e-6
+    plateau_patience: int = 5
+    plateau_cooldown: int = 3
+    min_learning_rate: float = 1e-8
+
+
+@dataclass
+class EarlyStoppingConfig:
+    stop_training_on_plateau: bool = True
+    plateau_min_delta: float = 1e-6
+    plateau_patience: int = 10
+
+
+@dataclass
+class OptimizationConfig:
+    """``mixed_precision`` runs the forward and backward in bf16 while the
+    parameters, the optimizer state and the loss stay float32."""
+
+    preload_data: bool = True
+    augmentation_config: AugmentationConfig = field(default_factory=AugmentationConfig)
+    online_shuffling: bool = True
+    shuffle_buffer_size: int = 128
+    prefetch: bool = True
+    batch_size: int = 8
+    batches_per_epoch: Optional[int] = None
+    min_batches_per_epoch: int = 200
+    val_batches_per_epoch: Optional[int] = None
+    min_val_batches_per_epoch: int = 10
+    epochs: int = 100
+    optimizer: str = "adam"
+    initial_learning_rate: float = 1e-4
+    learning_rate_schedule: LearningRateScheduleConfig = field(
+        default_factory=LearningRateScheduleConfig
+    )
+    hard_keypoint_mining: HardKeypointMiningConfig = field(
+        default_factory=HardKeypointMiningConfig
+    )
+    early_stopping: EarlyStoppingConfig = field(default_factory=EarlyStoppingConfig)
+    mixed_precision: bool = False
+
+
+# --------------------------------------------------------------------------- #
+# Outputs
+# --------------------------------------------------------------------------- #
+
+
+@dataclass
+class CheckpointingConfig:
+    initial_model: bool = False
+    best_model: bool = True
+    every_epoch: bool = False
+    latest_model: bool = False
+    final_model: bool = False
+
+
+@dataclass
+class TensorBoardConfig:
+    write_logs: bool = False
+    loss_frequency: str = "epoch"
+    architecture_graph: bool = False
+    profile_graph: bool = False
+    visualizations: bool = True
+
+
+@dataclass
+class ZMQConfig:
+    subscribe_to_controller: bool = False
+    controller_address: str = "tcp://127.0.0.1:9000"
+    controller_polling_timeout: int = 10
+    publish_updates: bool = False
+    publish_address: str = "tcp://127.0.0.1:9001"
+
+
+@dataclass
+class OutputsConfig:
+    save_outputs: bool = True
+    run_name: Optional[str] = None
+    run_name_prefix: str = ""
+    run_name_suffix: Optional[str] = None
+    runs_folder: str = "models"
+    tags: List[str] = field(default_factory=list)
+    save_visualizations: bool = True
+    keep_viz_images: bool = False
+    zip_outputs: bool = False
+    log_to_csv: bool = True
+    checkpointing: CheckpointingConfig = field(default_factory=CheckpointingConfig)
+    tensorboard: TensorBoardConfig = field(default_factory=TensorBoardConfig)
+    zmq: ZMQConfig = field(default_factory=ZMQConfig)
+
+    @property
+    def run_path(self) -> str:
+        if self.run_name is None:
+            raise ValueError("run_name must be set to determine run_path.")
+        name = f"{self.run_name_prefix}{self.run_name}{self.run_name_suffix or ''}"
+        return os.path.join(self.runs_folder, name)
+
+
+# --------------------------------------------------------------------------- #
 # Root
 # --------------------------------------------------------------------------- #
+
+# The JAX package's version, which its configs carry as ``sleap_version``.
+SLEAP_VERSION = "0.1.0"
 
 
 @dataclass
 class TrainingJobConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
+    outputs: OutputsConfig = field(default_factory=OutputsConfig)
+    name: Optional[str] = ""
+    description: Optional[str] = ""
+    sleap_version: Optional[str] = SLEAP_VERSION
     filename: Optional[str] = ""
 
     @classmethod

@@ -1,10 +1,12 @@
-"""Predicted instances and labeled frames: what ``predict`` returns.
+"""User and predicted instances and labeled frames: what training reads and
+``predict`` returns.
 
-The part of :mod:`sleap_tpu.core.instance` that predictions fill, with its
-field names and semantics: points live in a structured array of the
-``.slp`` predicted-point dtype (x, y, visible, complete, score), a point with
-a NaN coordinate is missing and invisible, and ``numpy()`` gives (n_nodes, 2)
-xy with invisible points as NaN. Multiclass predictors give each instance
+The part of :mod:`sleap_tpu.core.instance` that labels and predictions fill,
+with its field names and semantics: points live in a structured array of the
+``.slp`` point dtype (x, y, visible, complete; predictions add a score), a
+point with a NaN coordinate is missing and invisible, and ``numpy()`` gives
+(n_nodes, 2) xy with invisible points as NaN. A frame's user instances with
+a visible point are its training instances. Multiclass predictors give each instance
 the :class:`Track` of its class and a tracking score; the trackers of
 :mod:`sleap_tpu_torch.tracking` set both, and read the point views below.
 """
@@ -18,6 +20,7 @@ import numpy as np
 
 from sleap_tpu_torch.core.skeleton import Skeleton
 
+POINT_DTYPE = np.dtype([("x", "<f8"), ("y", "<f8"), ("visible", "?"), ("complete", "?")])
 PRED_POINT_DTYPE = np.dtype(
     [("x", "<f8"), ("y", "<f8"), ("visible", "?"), ("complete", "?"), ("score", "<f8")]
 )
@@ -37,9 +40,59 @@ class Track:
         return f"Track(spawned_on={self.spawned_on}, name={self.name!r})"
 
 
+class Instance:
+    """One labeled animal: a skeleton, its points and its track.
+
+    ``points`` is a structured array of :data:`POINT_DTYPE` or an
+    (n_nodes, 2) xy array, in which a point with a NaN coordinate is
+    invisible.
+    """
+
+    predicted = False
+
+    def __init__(self, skeleton: Skeleton, points: Any = None, track: Optional[Track] = None):
+        if skeleton is None:
+            raise TypeError("Instance requires a skeleton.")
+        self.skeleton = skeleton
+        self.track = track
+        n = len(skeleton.nodes)
+        if isinstance(points, np.ndarray) and points.dtype == POINT_DTYPE:
+            if len(points) != n:
+                raise ValueError(f"Expected {n} points, got {len(points)}.")
+            self.points = points.copy()
+            return
+        self.points = np.zeros(n, dtype=POINT_DTYPE)
+        self.points["x"] = np.nan
+        self.points["y"] = np.nan
+        if points is not None:
+            arr = np.asarray(points, dtype="f8")
+            if arr.ndim != 2 or arr.shape[0] != n or arr.shape[1] < 2:
+                raise TypeError(f"Cannot make {n} points from an array of shape {arr.shape}.")
+            self.points["x"] = arr[:, 0]
+            self.points["y"] = arr[:, 1]
+            self.points["visible"] = ~(np.isnan(arr[:, 0]) | np.isnan(arr[:, 1]))
+
+    def numpy(self) -> np.ndarray:
+        """(n_nodes, 2) xy; invisible points NaN."""
+        xy = np.stack([self.points["x"], self.points["y"]], axis=-1).astype("f8")
+        xy[~self.points["visible"]] = np.nan
+        return xy
+
+    @property
+    def n_visible_points(self) -> int:
+        return int(np.count_nonzero(self.points["visible"]))
+
+    def __repr__(self) -> str:
+        return (
+            f"Instance(points={self.n_visible_points}/{len(self.points)}, track={self.track})"
+        )
+
+
 class PredictedInstance:
     """One predicted animal: a skeleton, its points and scores, and its
     track (identity) with the score of that assignment."""
+
+    predicted = True
 
     def __init__(
         self,
@@ -133,11 +186,23 @@ class LabeledFrame:
     """The instances in one frame of one video. ``instances`` is a plain
     list, which trackers replace or cull in place."""
 
-    def __init__(self, video: Any, frame_idx: int,
-                 instances: Optional[Iterable[PredictedInstance]] = None):
+    def __init__(self, video: Any, frame_idx: int, instances: Optional[Iterable[Any]] = None):
         self.video = video
         self.frame_idx = int(frame_idx)
-        self.instances: List[PredictedInstance] = list(instances or [])
+        self.instances: List[Any] = list(instances or [])
+
+    @property
+    def user_instances(self) -> List[Instance]:
+        return [i for i in self.instances if not i.predicted]
+
+    @property
+    def training_instances(self) -> List[Instance]:
+        """User instances with at least one visible point."""
+        return [i for i in self.user_instances if i.n_visible_points > 0]
+
+    @property
+    def has_user_instances(self) -> bool:
+        return len(self.user_instances) > 0
 
     @property
     def image(self) -> np.ndarray:

@@ -1,12 +1,13 @@
-"""Skeletons: named body-part nodes and directed body edges.
+"""Skeletons: named body-part nodes, directed body edges and symmetries.
 
-The part of :mod:`sleap_tpu.core.skeleton` that inference needs, in plain
-Python (no ``networkx``, no ``attr``): nodes in order, body edges in
-insertion order, and the jsonpickle form of ``training_config.json``
-skeletons, where a node is first written as ``{"py/object": ...,
-"py/state": ...}`` and later referred to as ``{"py/id": N}``, N counting
-decoded objects (nodes and edge types) from 1 in order of appearance.
-Symmetry edges are decoded, to keep that count, and dropped.
+The part of :mod:`sleap_tpu.core.skeleton` that inference and training
+need, in plain Python (no ``networkx``, no ``attr``): nodes in order, body
+edges in insertion order, symmetric node pairs (which flip augmentation
+swaps, :meth:`Skeleton.flip_idx`), and the jsonpickle form of
+``training_config.json`` skeletons, where a node is first written as
+``{"py/object": ..., "py/state": ...}`` and later referred to as
+``{"py/id": N}``, N counting decoded objects (nodes and edge types) from 1
+in order of appearance.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
-BODY_EDGE = 1  # EdgeType.BODY; 2 is EdgeType.SYMMETRY
+BODY_EDGE = 1  # EdgeType.BODY
+SYMMETRY_EDGE = 2  # EdgeType.SYMMETRY
 
 
 @dataclass(eq=False)
@@ -27,12 +29,15 @@ class Node:
 
 
 class Skeleton:
-    """Nodes and directed body edges, compared by identity."""
+    """Nodes, directed body edges and symmetric node pairs, compared by
+    identity."""
 
     def __init__(self, name: Optional[str] = None):
         self.name = name or "Skeleton"
         self.nodes: List[Node] = []
         self.edges: List[Tuple[Node, Node]] = []
+        # Unordered symmetric pairs in the order they were added.
+        self._symmetry_links: List[Tuple[Node, Node]] = []
 
     def __repr__(self) -> str:
         return f"Skeleton(name={self.name!r}, nodes={self.node_names!r}, edges={self.edge_names!r})"
@@ -44,6 +49,68 @@ class Skeleton:
     @property
     def edge_names(self) -> List[Tuple[str, str]]:
         return [(s.name, d.name) for s, d in self.edges]
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.nodes)
+
+    @property
+    def edge_inds(self) -> List[Tuple[int, int]]:
+        """Body edges as (source, destination) node-index pairs."""
+        position = {id(n): i for i, n in enumerate(self.nodes)}
+        return [(position[id(s)], position[id(d)]) for s, d in self.edges]
+
+    @property
+    def symmetries(self) -> List[Tuple[Node, Node]]:
+        """Unique symmetric pairs, in the JAX package's graph order: by the
+        earlier node's position, that node first."""
+        out, seen = [], set()
+        for node in self.nodes:
+            for a, b in self._symmetry_links:
+                if node is not a and node is not b:
+                    continue
+                key = frozenset((id(a), id(b)))
+                if key not in seen:
+                    seen.add(key)
+                    out.append((node, b if node is a else a))
+        return out
+
+    @property
+    def symmetry_names(self) -> List[Tuple[str, str]]:
+        return [(a.name, b.name) for a, b in self.symmetries]
+
+    @property
+    def symmetric_inds(self) -> List[Tuple[int, int]]:
+        position = {id(n): i for i, n in enumerate(self.nodes)}
+        return [(position[id(a)], position[id(b)]) for a, b in self.symmetries]
+
+    def flip_idx(self) -> List[int]:
+        """Per-node index of the symmetric partner (itself where unpaired)."""
+        idx = list(range(self.n_nodes))
+        for a, b in self.symmetric_inds:
+            idx[a], idx[b] = b, a
+        return idx
+
+    def get_symmetry(self, name: str) -> Optional[Node]:
+        node = self.find_node(name)
+        for a, b in self.symmetries:
+            if a is node:
+                return b
+            if b is node:
+                return a
+        return None
+
+    def add_symmetry(self, node1: str, node2: str) -> None:
+        if node1 == node2:
+            raise ValueError("Cannot add symmetry to the same node.")
+        for name in (node1, node2):
+            other = self.get_symmetry(name)
+            if other is not None:
+                raise ValueError(f"{name} is already symmetric with {other.name}.")
+        a, b = self.find_node(node1), self.find_node(node2)
+        if a is None or b is None:
+            raise ValueError("Both nodes must exist to add a symmetry.")
+        self._symmetry_links.append((a, b))
 
     def find_node(self, name: str) -> Optional[Node]:
         return next((n for n in self.nodes if n.name == name), None)
@@ -105,10 +172,17 @@ class Skeleton:
         ]
         body.sort(key=lambda t: (t[0] is None, t[0] or 0, t[1], t[2]))
         skel.edges = [(src, dst) for *_, src, dst in body]
+        seen = set()
+        for _, src, dst, etype in links:
+            key = frozenset((id(src), id(dst)))
+            if etype != BODY_EDGE and key not in seen:
+                seen.add(key)
+                skel._symmetry_links.append((src, dst))
         return skel
 
     def to_dict(self) -> Dict[str, Any]:
-        """Encode in the jsonpickle form :meth:`from_dict` reads."""
+        """Encode in the jsonpickle form :meth:`from_dict` reads: body edges,
+        then each symmetry as two directed links, as the JAX package writes."""
         ids: Dict[int, int] = {}
 
         def encode(obj, first_form):
@@ -121,7 +195,12 @@ class Skeleton:
             return encode(n, {"py/object": "sleap.skeleton.Node",
                               "py/state": {"py/tuple": [n.name, n.weight]}})
 
-        body_type = object()
+        edge_types = {BODY_EDGE: object(), SYMMETRY_EDGE: object()}
+
+        def edge_type(t: int):
+            return encode(edge_types[t], {"py/reduce": [{"py/type": "sleap.skeleton.EdgeType"},
+                                                        {"py/tuple": [t]}]})
+
         links = []
         for i, (src, dst) in enumerate(self.edges):
             links.append({
@@ -129,9 +208,12 @@ class Skeleton:
                 "key": 0,
                 "source": node(src),
                 "target": node(dst),
-                "type": encode(body_type, {"py/reduce": [{"py/type": "sleap.skeleton.EdgeType"},
-                                                         {"py/tuple": [BODY_EDGE]}]}),
+                "type": edge_type(BODY_EDGE),
             })
+        for src, dst in self.symmetries:
+            for a, b in ((src, dst), (dst, src)):
+                links.append({"key": 0, "source": node(a), "target": node(b),
+                              "type": edge_type(SYMMETRY_EDGE)})
         return {
             "directed": True,
             "graph": {"name": self.name, "num_edges_inserted": len(self.edges)},

@@ -104,8 +104,11 @@ def load_trained_model(
     Weights come from ``params``, a flax ``variables["params"]`` tree with
     numpy leaves, if given; else from the folder's Keras ``best_model.h5``;
     else from its orbax checkpoint ``best_model.ckpt``, read by the port's
-    own readers (:func:`~sleap_tpu_torch.io.orbax.read_params`). A folder
-    with none of them raises ``FileNotFoundError``. ``compute_dtype`` is the
+    own readers (:func:`~sleap_tpu_torch.io.orbax.read_params`); else from
+    ``best_model.pt``, the ``state_dict`` the port's trainer saves
+    (:mod:`sleap_tpu_torch.training.trainer`), read with
+    ``weights_only=True``. A folder with none of them raises
+    ``FileNotFoundError``. ``compute_dtype`` is the
     network's (float32 or bf16, see
     :class:`~sleap_tpu_torch.models.model.PoseNet`).
     """
@@ -116,6 +119,9 @@ def load_trained_model(
 
     h5_path = os.path.join(model_dir, "best_model.h5")
     ckpt_path = os.path.join(model_dir, "best_model.ckpt")
+    pt_path = os.path.join(model_dir, "best_model.pt")
+    name, fold = model.input_conv
+    state = None
     keras = False
     if params is not None:
         weights = params
@@ -123,18 +129,24 @@ def load_trained_model(
         weights, keras = read_keras_weights(h5_path), True
     elif os.path.isdir(ckpt_path):
         weights = read_params(ckpt_path)
+    elif os.path.exists(pt_path):
+        state = torch.load(pt_path, map_location="cpu", weights_only=True)
     else:
         raise FileNotFoundError(
-            f"No weights in {model_dir}: no params given, and neither best_model.h5 nor "
-            "best_model.ckpt there."
+            f"No weights in {model_dir}: no params given, and none of best_model.h5, "
+            "best_model.ckpt or best_model.pt there."
         )
-    layers = weights if keras else weights.get("backbone", {})
-    name, fold = model.input_conv
-    in_channels = int(np.shape(layers[name]["kernel"])[2]) // fold
+    if state is not None:  # the port's own checkpoint: a state_dict, OIHW kernels
+        in_channels = int(state[f"backbone.layers.{name}.weight"].shape[1]) // fold
+    else:
+        layers = weights if keras else weights.get("backbone", {})
+        in_channels = int(np.shape(layers[name]["kernel"])[2]) // fold
     crop = config.data.instance_cropping.crop_size
     module = model.make_module(in_channels, compute_dtype, (crop, crop) if crop else None)
-    to_state = state_dict_from_keras if keras else state_dict_from_flax
-    module.load_state_dict(to_state(module, weights))  # cast into the module's dtype
+    if state is None:
+        to_state = state_dict_from_keras if keras else state_dict_from_flax
+        state = to_state(module, weights)
+    module.load_state_dict(state)  # cast into the module's dtype
     module.to(device).eval()
 
     head = config.model.heads.which_oneof

@@ -41,6 +41,10 @@ class Video:
         return self.data.shape[2]
 
     @property
+    def channels(self) -> int:
+        return self.data.shape[3]
+
+    @property
     def shape(self) -> Tuple[int, int, int, int]:
         return tuple(self.data.shape)
 

@@ -1,7 +1,10 @@
-"""Output head descriptors: name, channels, activation and stride of each
-head the port builds: 1x1 conv heads, and the dense class-vector head.
+"""Output head descriptors: name, channels, activation, stride and loss of
+each head the port builds: 1x1 conv heads, and the dense class-vector head.
 
-A copy of the part of :mod:`sleap_tpu.models.heads` that inference uses.
+A copy of the part of :mod:`sleap_tpu.models.heads` that inference and
+training use: every head's loss is the mean squared error except the class
+vectors', a categorical cross-entropy, each weighted by its config's
+``loss_weight`` (an offset head takes its confidence maps' weight).
 ``from_config`` reads any config object by attribute: the port's
 :mod:`sleap_tpu_torch.config` or the JAX package's.
 """
@@ -15,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 @dataclass
 class Head:
     output_stride: int = 1
+    loss_weight: float = 1.0
 
     @property
     def name(self) -> str:
@@ -28,6 +32,10 @@ class Head:
     def activation(self) -> str:
         return "linear"
 
+    @property
+    def loss_function(self) -> str:
+        return "mse"
+
 
 @dataclass
 class SingleInstanceConfmapsHead(Head):
@@ -39,7 +47,8 @@ class SingleInstanceConfmapsHead(Head):
 
     @classmethod
     def from_config(cls, config, part_names=None) -> "SingleInstanceConfmapsHead":
-        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride)
+        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride,
+                   loss_weight=config.loss_weight)
 
 
 @dataclass
@@ -50,7 +59,8 @@ class CentroidConfmapsHead(Head):
 
     @classmethod
     def from_config(cls, config) -> "CentroidConfmapsHead":
-        return cls(output_stride=config.output_stride)
+        return cls(output_stride=config.output_stride,
+                   loss_weight=config.loss_weight)
 
 
 @dataclass
@@ -63,7 +73,8 @@ class CenteredInstanceConfmapsHead(Head):
 
     @classmethod
     def from_config(cls, config, part_names=None) -> "CenteredInstanceConfmapsHead":
-        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride)
+        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride,
+                   loss_weight=config.loss_weight)
 
 
 @dataclass
@@ -76,7 +87,8 @@ class MultiInstanceConfmapsHead(Head):
 
     @classmethod
     def from_config(cls, config, part_names=None) -> "MultiInstanceConfmapsHead":
-        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride)
+        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride,
+                   loss_weight=config.loss_weight)
 
 
 @dataclass
@@ -89,7 +101,8 @@ class PartAffinityFieldsHead(Head):
 
     @classmethod
     def from_config(cls, config, edges=None) -> "PartAffinityFieldsHead":
-        return cls(edges=edges or config.edges, output_stride=config.output_stride)
+        return cls(edges=edges or config.edges, output_stride=config.output_stride,
+                   loss_weight=config.loss_weight)
 
 
 @dataclass
@@ -108,7 +121,8 @@ class ClassMapsHead(Head):
 
     @classmethod
     def from_config(cls, config, classes=None) -> "ClassMapsHead":
-        return cls(classes=classes or config.classes, output_stride=config.output_stride)
+        return cls(classes=classes or config.classes, output_stride=config.output_stride,
+                   loss_weight=config.loss_weight)
 
 
 @dataclass
@@ -131,6 +145,10 @@ class ClassVectorsHead(Head):
     def activation(self) -> str:
         return "softmax"
 
+    @property
+    def loss_function(self) -> str:
+        return "categorical_crossentropy"
+
     @classmethod
     def from_config(cls, config, classes=None) -> "ClassVectorsHead":
         return cls(
@@ -139,6 +157,7 @@ class ClassVectorsHead(Head):
             num_fc_units=config.num_fc_units,
             global_pool=config.global_pool,
             output_stride=config.output_stride,
+            loss_weight=config.loss_weight,
         )
 
 
@@ -160,4 +179,5 @@ class OffsetRefinementHead(Head):
                 part_names = config.part_names
             elif hasattr(config, "anchor_part"):
                 part_names = [config.anchor_part]
-        return cls(part_names=part_names, output_stride=config.output_stride)
+        return cls(part_names=part_names, output_stride=config.output_stride,
+                   loss_weight=config.loss_weight)

@@ -16,6 +16,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,12 +36,14 @@ from sleap_tpu_torch.models.heads import (
     PartAffinityFieldsHead,
     SingleInstanceConfmapsHead,
 )
+from sleap_tpu_torch.models.params import flax_from_state_dict, state_dict_from_flax
 from sleap_tpu_torch.models.unet import UNet
 
 
 class HeadSpec(NamedTuple):
     """One head: output key, channels, activation and stride; a dense head
-    (``kind="dense"``) also has its hidden layers and pooling."""
+    (``kind="dense"``) also has its hidden layers and pooling. Training
+    reads its loss (``"mse"`` or ``"categorical_crossentropy"``) and weight."""
 
     name: str
     channels: int
@@ -50,13 +53,16 @@ class HeadSpec(NamedTuple):
     num_fc_layers: int = 0
     num_fc_units: int = 0
     global_pool: bool = True
+    loss_function: str = "mse"
+    loss_weight: float = 1.0
 
     @classmethod
     def of(cls, head) -> "HeadSpec":
+        loss = {"loss_function": head.loss_function, "loss_weight": head.loss_weight}
         if isinstance(head, ClassVectorsHead):
             return cls(head.name, head.channels, head.activation, head.output_stride, "dense",
-                       head.num_fc_layers, head.num_fc_units, head.global_pool)
-        return cls(head.name, head.channels, head.activation, head.output_stride)
+                       head.num_fc_layers, head.num_fc_units, head.global_pool, **loss)
+        return cls(head.name, head.channels, head.activation, head.output_stride, **loss)
 
 
 class PoseNet(nn.Module):
@@ -162,6 +168,41 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+# Stddev of a standard normal truncated to [-2, 2]: flax's lecun_normal
+# divides by it so that the truncated draw has variance 1 / fan_in.
+_TRUNC_NORMAL_STD = 0.87962566
+
+
+def init_params_lecun(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Training's initial weights, as flax initializes the JAX module:
+    every kernel ``lecun_normal`` (a normal of std
+    ``sqrt(1 / fan_in) / 0.87962566`` cut at 2 std), every bias 0.
+
+    Kernels are drawn in the flax params tree's shapes
+    (:func:`~sleap_tpu_torch.models.params.flax_from_state_dict`), whose
+    fan-in is the product of all axes but the last, so each layer's fan-in
+    is flax's (the first decoder conv's covers the skip and the upsampled
+    channels), and loaded back through
+    :func:`~sleap_tpu_torch.models.params.state_dict_from_flax`.
+    """
+    def draw(tree):
+        out = {}
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[name] = draw(leaf)
+            elif name == "kernel":
+                std = math.sqrt(1.0 / math.prod(leaf.shape[:-1])) / _TRUNC_NORMAL_STD
+                w = torch.empty(leaf.shape)
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+                out[name] = w.numpy()
+            else:
+                out[name] = np.zeros_like(leaf)
+        return out
+
+    module.load_state_dict(state_dict_from_flax(module, draw(flax_from_state_dict(module))))
+    return module
+
+
 @dataclass
 class Model:
     """A model description: UNet backbone + heads, with the part names, the
@@ -196,7 +237,7 @@ class Model:
         return PoseNet(self.backbone, self.heads, in_channels, compute_dtype, input_hw)
 
     @classmethod
-    def from_config(cls, config, skeleton=None) -> "Model":
+    def from_config(cls, config, skeleton=None, tracks=None, update_config=False) -> "Model":
         """From a model config (:class:`sleap_tpu_torch.config.ModelConfig`,
         or any object with its attributes, the JAX package's included): UNet
         backbones with single-instance, centroid, centered-instance
@@ -205,8 +246,9 @@ class Model:
         (confmaps, class vectors, + offsets) heads.
 
         Part names and edges missing from the head config come from
-        ``skeleton``, as in the JAX package; a multiclass head config must
-        name its classes. Other backbones raise.
+        ``skeleton``, and classes from the names of ``tracks``, as in the JAX
+        package; with ``update_config`` they are written into the config.
+        Other backbones raise.
         """
         unet_cfg = config.backbone.unet
         if unet_cfg is None:
@@ -216,50 +258,58 @@ class Model:
         hc = config.heads.which_oneof
         head_name = config.heads.which_oneof_attrib_name
 
-        def skeleton_field(value, name):
+        def skeleton_field(cfg, attr, name):
+            value = getattr(cfg, attr)
             if value is None:
                 if skeleton is None:
                     raise ValueError("Skeleton required when head config incomplete.")
                 value = getattr(skeleton, name)
+                if update_config:
+                    setattr(cfg, attr, value)
             return list(value)
 
-        def class_names(value):
-            if value is None:
+        def class_names(cfg):
+            if cfg.classes is not None:
+                return list(cfg.classes)
+            if tracks is None:
                 raise ValueError(f"The {head_name} head config names no classes.")
-            return list(value)
+            names = [t.name for t in tracks]
+            if update_config:
+                cfg.classes = names
+            return list(names)
 
         names: List[str] = []
         classes: List[str] = []
         edges: List[Tuple[str, str]] = []
         offsets_cfg = hc
         if head_name == "single_instance":
-            names = skeleton_field(hc.part_names, "node_names")
+            names = skeleton_field(hc, "part_names", "node_names")
             heads = [SingleInstanceConfmapsHead.from_config(hc, part_names=names)]
         elif head_name == "centroid":
             heads = [CentroidConfmapsHead.from_config(hc)]
         elif head_name == "centered_instance":
-            names = skeleton_field(hc.part_names, "node_names")
+            names = skeleton_field(hc, "part_names", "node_names")
             heads = [CenteredInstanceConfmapsHead.from_config(hc, part_names=names)]
         elif head_name == "multi_instance":
             offsets_cfg = hc.confmaps
-            names = skeleton_field(hc.confmaps.part_names, "node_names")
-            edges = [tuple(e) for e in skeleton_field(hc.pafs.edges, "edge_names")]
+            names = skeleton_field(hc.confmaps, "part_names", "node_names")
+            edges = [tuple(e) for e in skeleton_field(hc.pafs, "edges", "edge_names")]
             heads = [
                 MultiInstanceConfmapsHead.from_config(hc.confmaps, part_names=names),
                 PartAffinityFieldsHead.from_config(hc.pafs, edges=edges),
             ]
         elif head_name == "multi_class_bottomup":
             offsets_cfg = hc.confmaps
-            names = skeleton_field(hc.confmaps.part_names, "node_names")
-            classes = class_names(hc.class_maps.classes)
+            names = skeleton_field(hc.confmaps, "part_names", "node_names")
+            classes = class_names(hc.class_maps)
             heads = [
                 MultiInstanceConfmapsHead.from_config(hc.confmaps, part_names=names),
                 ClassMapsHead.from_config(hc.class_maps, classes=classes),
             ]
         elif head_name == "multi_class_topdown":
             offsets_cfg = hc.confmaps
-            names = skeleton_field(hc.confmaps.part_names, "node_names")
-            classes = class_names(hc.class_vectors.classes)
+            names = skeleton_field(hc.confmaps, "part_names", "node_names")
+            classes = class_names(hc.class_vectors)
             heads = [
                 CenteredInstanceConfmapsHead.from_config(hc.confmaps, part_names=names),
                 ClassVectorsHead.from_config(hc.class_vectors, classes=classes),

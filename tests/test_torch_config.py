@@ -160,3 +160,146 @@ def test_flax_params_round_trip(dtype):
     assert set(back) == set(state)
     for key, value in state.items():
         assert torch.equal(back[key].to(dtype), value), key
+
+
+def _symmetric_skeleton(cls):
+    skel = cls("mouse")
+    for n in ("nose", "l_ear", "r_ear", "tail", "l_paw", "r_paw"):
+        skel.add_node(n)
+    for a, b in (("nose", "l_ear"), ("nose", "r_ear"), ("nose", "tail"), ("tail", "r_paw")):
+        skel.add_edge(a, b)
+    skel.add_symmetry("r_paw", "l_paw")
+    skel.add_symmetry("l_ear", "r_ear")
+    return skel
+
+
+def test_skeleton_symmetries_match_jax():
+    """Symmetric pairs, their indices, ``flip_idx``, ``edge_inds`` and the
+    written form equal the JAX package's, and survive a round trip through
+    either package's reader."""
+    from sleap_tpu.core.skeleton import Skeleton as JaxSkeleton
+
+    got, want = _symmetric_skeleton(Skeleton), _symmetric_skeleton(JaxSkeleton)
+    assert got.symmetric_inds == want.symmetric_inds == [(1, 2), (4, 5)]
+    assert got.symmetry_names == want.symmetry_names
+    assert got.flip_idx() == want.flip_idx() == [0, 2, 1, 3, 5, 4]
+    assert got.edge_inds == want.edge_inds and got.n_nodes == want.n_nodes == 6
+    assert got.to_dict() == want.to_dict()
+    for d in (got.to_dict(), want.to_dict()):
+        a, b = Skeleton.from_dict(d), JaxSkeleton.from_dict(d)
+        assert a.symmetric_inds == b.symmetric_inds == want.symmetric_inds
+        assert a.flip_idx() == b.flip_idx() == want.flip_idx()
+        assert a.to_dict() == b.to_dict()
+    with pytest.raises(ValueError):
+        got.add_symmetry("l_ear", "tail")
+
+
+def _training_config_json(skeleton) -> dict:
+    """A training config far from the defaults in every section."""
+    from sleap_tpu_torch import config as c
+
+    cfg = c.TrainingJobConfig(
+        data=c.DataConfig(
+            labels=c.LabelsConfig(skeletons=[skeleton], validation_fraction=0.2,
+                                  split_by_inds=True, training_inds=[0, 2],
+                                  validation_inds=[1], search_path_hints=["x"]),
+            preprocessing=c.PreprocessingConfig(ensure_rgb=True, input_scaling=0.5,
+                                                target_height=64, target_width=80),
+            instance_cropping=c.InstanceCroppingConfig(center_on_part="nose", crop_size=96,
+                                                       crop_size_detection_padding=8),
+        ),
+        model=c.ModelConfig(
+            backbone=c.BackboneConfig(unet=c.UNetConfig(filters=16, up_interpolate=True)),
+            heads=c.HeadsConfig(multi_class_topdown=c.MultiClassTopDownConfig(
+                confmaps=c.CenteredInstanceConfmapsHeadConfig(sigma=2.5, output_stride=4),
+                class_vectors=c.ClassVectorsHeadConfig(classes=["a", "b"], loss_weight=0.5))),
+            base_checkpoint="models/base",
+        ),
+        optimization=c.OptimizationConfig(
+            augmentation_config=c.AugmentationConfig(rotate=True, rotation_min_angle=-15,
+                                                     random_flip=True, flip_horizontal=False,
+                                                     contrast=True),
+            batch_size=16, epochs=3, optimizer="amsgrad", initial_learning_rate=3e-4,
+            learning_rate_schedule=c.LearningRateScheduleConfig(plateau_patience=2),
+            hard_keypoint_mining=c.HardKeypointMiningConfig(online_mining=True,
+                                                            max_hard_keypoints=4),
+            early_stopping=c.EarlyStoppingConfig(plateau_patience=7),
+            mixed_precision=True,
+        ),
+        outputs=c.OutputsConfig(
+            run_name="run", runs_folder="somewhere", tags=["t"], zip_outputs=True,
+            checkpointing=c.CheckpointingConfig(latest_model=True, final_model=True),
+            tensorboard=c.TensorBoardConfig(loss_frequency="batch"),
+            zmq=c.ZMQConfig(controller_polling_timeout=5),
+        ),
+        name="job", description="a job",
+    )
+    return cfg
+
+
+def test_training_config_round_trips_between_packages(tmp_path):
+    """A full training config (optimization, outputs, a skeleton with
+    symmetries) written by the port reads back equal in the JAX package, and
+    the JAX package's own writing of it reads back equal in the port."""
+    cfg = _training_config_json(_symmetric_skeleton(Skeleton))
+    port_json = json.loads(cfg.to_json())
+    cfg.save_json(str(tmp_path / "port.json"))
+    jax_cfg = JaxConfig.load_json(str(tmp_path / "port.json"))
+    jax_json = json.loads(jax_cfg.to_json())
+    for d in (port_json, jax_json):
+        d.pop("filename")
+    assert jax_json == port_json
+    assert jax_cfg.data.labels.skeletons[0].flip_idx() == [0, 2, 1, 3, 5, 4]
+    assert jax_cfg.optimization.augmentation_config.rotation_min_angle == -15
+    jax_cfg.save_json(str(tmp_path / "jax.json"))
+    back = TrainingJobConfig.load_json(str(tmp_path / "jax.json"))
+    back_json = json.loads(back.to_json())
+    back_json.pop("filename")
+    assert back_json == jax_json
+    assert back.outputs.run_path == jax_cfg.outputs.run_path
+
+
+def _attrs_fields(cls):
+    import attr
+
+    return {f.name: f for f in attr.fields(cls)}
+
+
+def test_every_jax_config_field_exists_in_the_port():
+    """Same classes, same field names in the same order, same plain
+    defaults, all the way down from ``TrainingJobConfig`` (the port keeps
+    the non-UNet backbones as raw dicts): nothing a JAX config holds is
+    dropped when the port reads it."""
+    import dataclasses
+
+    import attr
+
+    from sleap_tpu import config as jc
+    from sleap_tpu_torch import config as pc
+
+    checked = []
+
+    def walk(jax_cls, port_cls):
+        checked.append(jax_cls.__name__)
+        jf = _attrs_fields(jax_cls)
+        pf = {f.name: f for f in dataclasses.fields(port_cls)}
+        assert list(jf) == list(pf), jax_cls.__name__
+        for name, f in jf.items():
+            default = f.default
+            if isinstance(default, attr.Factory):
+                inner = getattr(pc, getattr(default.factory, "__name__", ""), None)
+                if inner is not None and dataclasses.is_dataclass(inner):
+                    walk(default.factory, inner)
+                continue
+            assert pf[name].default == default, (jax_cls.__name__, name)
+            target = getattr(pc, str(f.type).replace("Optional[", "").rstrip("]"), None)
+            jtarget = getattr(jc, str(f.type).replace("Optional[", "").rstrip("]"), None)
+            if jtarget is not None and attr.has(jtarget) and target is not None:
+                if dataclasses.is_dataclass(target):
+                    walk(jtarget, target)
+
+    walk(jc.TrainingJobConfig, pc.TrainingJobConfig)
+    for name in ("OptimizationConfig", "AugmentationConfig", "OutputsConfig", "ZMQConfig",
+                 "HeadsConfig", "MultiClassTopDownConfig", "UNetConfig", "LabelsConfig",
+                 "InstanceCroppingConfig", "PreprocessingConfig", "EarlyStoppingConfig"):
+        assert name in checked, name

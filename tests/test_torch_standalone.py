@@ -5,8 +5,10 @@
 code loads through ``load_model``, trained ``.convergence_runs`` folders load
 from their orbax checkpoints with no ``params``, and ``predict`` returns the
 port's ``Labels``, with tracks when ``load_model`` is given
-``tracker="flow"``. Also: the entry points default to the card, and paths the
-port cannot read yet raise.
+``tracker="flow"``; and a centroid model trained by the port for one
+epoch loads from its ``best_model.pt`` and predicts, paired with an
+instance folder. Also: the entry points
+default to the card, and paths the port cannot read yet raise.
 """
 
 import inspect
@@ -31,19 +33,15 @@ BLOCKED = ("sleap_tpu", "jax", "jaxlib", "flax", "orbax", "networkx", "attr", "a
            "zstandard", "tensorstore")
 
 _SCRIPT = r"""
-import importlib, importlib.abc, json, os, pkgutil, sys
+import importlib, json, os, pkgutil, sys
 
 BLOCKED = set(sys.argv[1].split(","))
 
-
-class Blocker(importlib.abc.MetaPathFinder):
-    def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in BLOCKED:
-            raise ImportError(f"blocked import: {name}")
-        return None
-
-
-sys.meta_path.insert(0, Blocker())
+# As if not installed: importing them raises ImportError, and probes such as
+# importlib.util.find_spec (which torch.optim's lazy torch._dynamo import
+# makes for networkx) find nothing.
+for name in BLOCKED:
+    sys.modules[name] = None
 
 import numpy as np
 import torch
@@ -180,7 +178,44 @@ for key, paths, params in (
         "tracks": [t.name for t in labels.tracks],
         "exports": sorted(tracking.__all__),
     }
-result["blocked_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+# Training: a tiny centroid model, one epoch, then loaded from its
+# best_model.pt and predicted with the seeded instance folder.
+from sleap_tpu_torch.core.instance import Instance
+from sleap_tpu_torch.io.video import Video
+from sleap_tpu_torch.training.trainer import Trainer
+
+video = Video.from_numpy(frames)
+train_labels = Labels([LabeledFrame(video, i, [Instance(skeleton, rng.uniform(20, 76, (13, 2)))
+                                               for _ in range(2)]) for i in range(3)])
+cfg = TrainingJobConfig(
+    data=DataConfig(preprocessing=PreprocessingConfig(input_scaling=0.5, pad_to_stride=16)),
+    model=ModelConfig(backbone=BackboneConfig(unet=unet),
+                      heads=HeadsConfig(centroid=CentroidsHeadConfig(output_stride=4))),
+)
+cfg.optimization.batch_size = 2
+cfg.optimization.batches_per_epoch = 2
+cfg.optimization.val_batches_per_epoch = 1
+cfg.optimization.epochs = 1
+cfg.outputs.runs_folder = tmp
+cfg.outputs.run_name = "trained_centroid"
+trainer = Trainer.from_config(cfg, training_labels=train_labels, validation_labels=train_labels,
+                              device="cpu")
+trainer.train()
+trained = os.path.join(tmp, "trained_centroid")
+pred = sleap_tpu_torch.load_model([trained, instance], device="cpu", batch_size=2,
+                                  peak_threshold=0.0, params={instance: i_params})
+examples = pred.predict(frames, make_labels=False)
+result["trained_here"] = {
+    "trainer": type(trainer).__name__,
+    "files": sorted(os.listdir(trained)),
+    "epochs": len(trainer.log_rows),
+    "predictor": type(pred).__name__,
+    "n_valid": sum(ex["n_valid"] for ex in examples),
+    "centroid_shapes": [list(np.shape(ex["centroids"])) for ex in examples],
+    "labels": type(pred.predict(frames)).__name__,
+}
+result["blocked_loaded"] = sorted(m for m, mod in sys.modules.items()
+                                  if mod is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(result))
 """
 
@@ -203,7 +238,9 @@ def test_every_module_imports_with_the_jax_side_blocked(standalone):
                  "data.prefetch", "models.heads", "inference.predictors",
                  "inference.bottomup", "inference.multiclass", "ops.identity",
                  "ops.cuda_peaks", "ops.optical_flow", "tracking", "tracking.components",
-                 "tracking.kalman", "tracking.tracker"):
+                 "tracking.kalman", "tracking.tracker", "training.trainer",
+                 "training.losses", "training.optimizers", "data.augmentation",
+                 "ops.confmaps", "ops.edge_maps"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
 
@@ -240,6 +277,16 @@ def test_flow_tracking_with_the_jax_side_blocked(standalone, path):
     assert res["instances"] >= 3 and res["all_tracked"]
     assert res["tracks"] and res["tracks"][0] == "track_0"
     assert res["exports"] == ["Tracker", "retrack", "run_tracker"]
+
+
+def test_train_then_predict_with_the_jax_side_blocked(standalone):
+    res = standalone["trained_here"]
+    assert res["trainer"] == "CentroidTrainer" and res["epochs"] == 1
+    assert {"best_model.pt", "training_config.json", "initial_config.json",
+            "training_log.csv"} <= set(res["files"])
+    assert res["predictor"] == "TopDownPredictor"
+    assert res["n_valid"] == 3 and res["labels"] == "Labels"
+    assert [shape[-1] for shape in res["centroid_shapes"]] == [2, 2]
 
 
 def test_entry_points_default_to_the_card():
