@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
-inference, flow-shift tracking and training once on one CUDA card, through
-the run-folder loader and the trainer a user calls, and the repo's trained
-run folders from their own checkpoints.
+inference, flow-shift tracking, training and the ``sleap-track`` CLI once on
+one CUDA card, through the run-folder loader, the trainer and the CLI a user
+calls, and the repo's trained run folders from their own checkpoints.
 
     python3 chip_smoke.py
 
@@ -132,7 +132,29 @@ Phases; any failure exits non-zero and no result line is printed:
    ``load_model`` and no params (``best_model.pt``) predict 16 held-out
    frames with kernels 2, 3 and 1 once a batch, find every held-out animal
    within PAIR_BOUND_PX of mean node error, and match the CPU as phase 4.
-5. (Run after 4d, before 4e; the launches of 4e-4g, 6 and 7c join its rows at
+8. ``sleap-track`` (``sleap_tpu_torch.cli.track.main``, in this process),
+   after phase 7, with no ``h5py`` or ``cv2``. 8a: 32 frames of 1024^2 (4
+   sigma-8 blobs moving at most 4 px a frame over noise) written by the
+   port's ``write_labels`` as a ``.slp`` (raw ``video0_raw``), tracked by the
+   CLI with ``--tracking.tracker flow --batch_size 16`` on phase 4's float32
+   top-down folders (their weights saved as ``best_model.pt``); the output
+   read back must hold 32 frames whose instances, points, scores and tracks
+   equal ``load_model(..., tracker="flow").predict(frames)`` in this process
+   within CLI_TOL, and the CLI must launch kernels 2, 3 and 1 once a batch;
+   prints the write and read seconds, the CLI's end-to-end FPS (read,
+   predict, track, write) beside the in-process tracked FPS. 8b: the
+   committed fixtures ``tests/torch_data/{raw,pkg}.slp`` (a chunked gzip
+   ``video0_raw``; PNG rows) with the trained folders: the top-down pair,
+   the centered-instance folder alone (ground-truth centroids: one instance
+   per user instance), the centroid folder alone, and bottom-up in float32,
+   each equal to the same CLI with ``--cpu`` within PATH_XY_TOL and
+   PATH_VAL_TOL; and bottom-up in bf16 (``--compute_dtype bfloat16``, kernel
+   4), equal to ``load_model`` in this process. Together they must launch
+   all four kernels. Prints the PNG frames' read and decode ms a frame (the
+   package's rows cycle through all five row filters), and the decode ms of
+   1024^2 frames whose rows are all Average, all Paeth, or cycle through all
+   five (``scripts/png_decode_time.py``'s frames), each decoded exactly.
+5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c and 8 join its rows at
    the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
@@ -243,6 +265,16 @@ PAIR_BOUND_PX = 1.5
 # its largest magnitude (float32 convs summing in another order).
 STEP_SIZE, STEP_FILTERS, STEP_CROP = 256, 16, 64
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-4
+
+# Phase 8a: the CLI against ``load_model`` in the same process on the same
+# frames: the same kernels, plans and tracker, so the same instances and
+# tracks; points and scores within CLI_TOL.
+CLI_FRAMES, CLI_TOL = 32, 1e-4
+# 8b: the committed fixtures (``scripts/make_torch_slp_fixtures.py``) and the
+# trained folders the CPU tests drive on them.
+FIXTURE_DIR = ("tests", "torch_data")
+CLI_TRAINED = ("minimal_instance.UNet.centroid", "minimal_instance.UNet.centered_instance",
+               "minimal_instance.UNet.bottomup")
 
 # The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
 # the tensor cores for the kernels' few operations per byte.
@@ -1484,6 +1516,197 @@ def check_tracking_trained():
 
 
 # --------------------------------------------------------------------------- #
+# Phase 8: sleap-track, from a .slp on disk to a .slp on disk
+# --------------------------------------------------------------------------- #
+
+
+def cli_run(args, wrappers):
+    """``sleap_tpu_torch.cli.track.main(args)`` with every kernel's count
+    zeroed first; returns (seconds, launches)."""
+    from sleap_tpu_torch.cli import track
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    track.main(args)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, {k: w.launches for k, w in wrappers.items()}
+
+
+def compare_predictions(got, want, xy_tol, val_tol, what):
+    """Two predicted ``Labels``: the same frames, instance counts, visible
+    points and track names; points and scores within the tolerances.
+    Returns (max |dxy|, max |dscore|)."""
+    check([lf.frame_idx for lf in got] == [lf.frame_idx for lf in want], f"{what}: the same frames")
+    d_xy = d_val = 0.0
+    for a, b in zip(got, want):
+        check(len(a.instances) == len(b.instances), f"{what}: instances in frame {a.frame_idx}")
+        for x, y in zip(a.instances, b.instances):
+            px, py = x.numpy(), y.numpy()
+            check(np.array_equal(np.isnan(px), np.isnan(py)), f"{what}: the same visible points")
+            d_xy = max(d_xy, float(np.abs(np.nan_to_num(px - py)).max()))
+            d_val = max(d_val, abs(x.score - y.score),
+                        float(np.abs(x.points["score"] - y.points["score"]).max()))
+            check((x.track and x.track.name) == (y.track and y.track.name), f"{what}: tracks")
+    check(d_xy <= xy_tol and d_val <= val_tol,
+          f"{what}: max |dxy| {d_xy:.3g} (tolerance {xy_tol}), max |dscore| {d_val:.3g} ({val_tol})")
+    return d_xy, d_val
+
+
+def check_cli_full_width(td, wrappers, launches, card):
+    """Phase 8a: a 1024^2 clip written as .slp, tracked by the CLI on phase
+    4's float32 top-down folders, against ``load_model(..., tracker="flow")``
+    in this process; returns the figures it prints."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.core.instance import LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.io.slp import read_labels, write_labels
+    from sleap_tpu_torch.io.video import Video
+
+    xy = blob_paths(CLI_FRAMES, IMG, [[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]],
+                    [150.0, 150.0], seed=8)
+    frames = moving_frames(xy, IMG, 8.0, 200.0, seed=8)
+    with tempfile.TemporaryDirectory() as root:
+        folders = write_run_folders(root)
+        paths = [folders["centroid"], folders["instance"]]
+        for path, tm in zip(paths, (td.centroid_model, td.confmap_model)):
+            torch.save({k: v.float().cpu() for k, v in tm.module.state_dict().items()},
+                       os.path.join(path, "best_model.pt"))
+        clip, out = os.path.join(root, "clip.slp"), os.path.join(root, "clip.predictions.slp")
+        t0 = time.perf_counter()
+        write_labels(clip, Labels([LabeledFrame(Video.from_numpy(frames), i)
+                                   for i in range(CLI_FRAMES)]))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        source = read_labels(clip)
+        read_frames = np.stack([lf.image for lf in source])
+        read_s = time.perf_counter() - t0
+        check(np.array_equal(read_frames, frames), "8a: the .slp holds the frames")
+
+        pred = sleap_tpu_torch.load_model(paths, batch_size=BATCH, max_instances=MAX_INSTANCES,
+                                          tracker="flow")
+        pred.predict(frames[:BATCH], make_labels=False)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pred.predict(frames)
+        torch.cuda.synchronize()
+        inproc_s = time.perf_counter() - t0
+        cli_s, counts = cli_run([clip, "-m", paths[0], "-m", paths[1], "--tracking.tracker", "flow",
+                                 "--batch_size", str(BATCH), "--max_instances", str(MAX_INSTANCES),
+                                 "--verbosity", "none", "-o", out], wrappers)
+        t0 = time.perf_counter()
+        got = read_labels(out)
+        out_read_s = time.perf_counter() - t0
+        out_mb = os.path.getsize(out) / 1e6
+    n_batches = -(-CLI_FRAMES // BATCH)
+    for kernel, count in counts.items():
+        check(count == n_batches, f"8a: {kernel} launched {count} times by the CLI, want one a batch")
+        launches[kernel]["CLI top-down tracked (8a)"] = count
+    insts = [i for lf in got for i in lf.instances]
+    check(len(got) == CLI_FRAMES and len(insts) >= CLI_FRAMES, "8a: frames with instances")
+    check(all(i.track is not None for i in insts), "8a: every instance tracked")
+    d_xy, d_val = compare_predictions(got, want, CLI_TOL, CLI_TOL, "8a: CLI vs in-process")
+    figures = {"frames": CLI_FRAMES, "write_s": write_s, "read_s": read_s,
+               "output_read_s": out_read_s, "output_mb": out_mb, "cli_s": cli_s,
+               "cli_fps": CLI_FRAMES / cli_s, "in_process_tracked_fps": CLI_FRAMES / inproc_s,
+               "max_abs_dxy": d_xy, "max_abs_dscore": d_val, "launches": counts}
+    log(f"8a CLI on a .slp of {CLI_FRAMES} frames of {IMG}^2: write {write_s:.3f} s, read with "
+        f"frames {read_s:.3f} s; CLI end to end (read, predict, track, write) {cli_s:.3f} s = "
+        f"{CLI_FRAMES / cli_s:.1f} FPS; in-process tracked {CLI_FRAMES / inproc_s:.1f} FPS; output "
+        f"{out_mb:.2f} MB read in {out_read_s:.3f} s; {len(insts)} instances, launches {counts}; "
+        f"vs in-process max |dxy| {d_xy:.3g}, max |dscore| {d_val:.3g} ({card})")
+    return figures
+
+
+def check_cli_fixtures(wrappers, launches, card):
+    """Phase 8b: the CLI on the committed fixtures with the trained folders
+    (the top-down pair, each of its models alone, bottom-up in float32 and
+    bf16) on the card, against the same CLI with ``--cpu`` (bf16: against
+    ``load_model`` in this process); returns the figures it prints."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.io import hdf5, png
+    from sleap_tpu_torch.io.slp import read_labels
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs, data = os.path.join(here, ".convergence_runs"), os.path.join(here, *FIXTURE_DIR)
+    centroid, instance, bottomup = (os.path.join(runs, f) for f in CLI_TRAINED)
+    common = ["--peak_threshold", "0.05", "--batch_size", "4", "--verbosity", "none"]
+    cases = [
+        ("trained top-down pair", "raw.slp", ["-m", centroid, "-m", instance]),
+        ("ground-truth centroids", "pkg.slp", ["-m", instance]),
+        ("centroid only", "raw.slp", ["-m", centroid]),
+        ("trained bottom-up", "pkg.slp", ["-m", bottomup]),
+        ("trained bottom-up bf16", "raw.slp", ["-m", bottomup, "--compute_dtype", "bfloat16"]),
+    ]
+    launched, figures = set(), {}
+    with tempfile.TemporaryDirectory() as root:
+        for k, (name, fixture, models) in enumerate(cases):
+            src, out = os.path.join(data, fixture), os.path.join(root, f"{k}.slp")
+            seconds, counts = cli_run([src, *models, *common, "-o", out], wrappers)
+            got = read_labels(out)
+            for kernel, count in counts.items():
+                if count:
+                    launched.add(kernel)
+                    launches[kernel][f"CLI {name} (8b)"] = count
+            if "bf16" in name:
+                pred = sleap_tpu_torch.load_model(bottomup, batch_size=4, peak_threshold=0.05,
+                                                  compute_dtype=torch.bfloat16)
+                d = compare_predictions(got, pred.predict(src), BU_XY_TOL, VAL_TOL,
+                                        f"8b {name}: CLI vs in-process")
+            else:
+                cpu_out = os.path.join(root, f"{k}.cpu.slp")
+                cli_run([src, *models, *common, "--cpu", "-o", cpu_out], wrappers)
+                d = compare_predictions(got, read_labels(cpu_out), PATH_XY_TOL, PATH_VAL_TOL,
+                                        f"8b {name}: GPU vs CPU")
+            n_inst = [len(lf.instances) for lf in got]
+            check(len(got) == 8 and sum(n_inst) >= 8, f"8b {name}: 8 frames with instances")
+            if name == "ground-truth centroids":
+                users = [len(lf.user_instances) for lf in read_labels(src)]
+                check(n_inst == users, f"8b {name}: one instance per user instance")
+            figures[name] = {"seconds": seconds, "launches": counts, "instances": n_inst,
+                             "max_abs_dxy": d[0], "max_abs_dscore": d[1]}
+            log(f"8b CLI {name} on {fixture}: {seconds:.3f} s, instances {n_inst}, launches "
+                f"{counts}; max |dxy| {d[0]:.3g}, max |dscore| {d[1]:.3g}")
+    check(launched == set(wrappers), f"8b: the CLI runs launched {sorted(launched)}")
+
+    # Embedded PNG frames: the package's rows read and decoded.
+    video = read_labels(os.path.join(data, "pkg.slp")).video
+    video.get_frame(0)
+    t0 = time.perf_counter()
+    for i in range(video.num_frames):
+        video.get_frame(i)
+    frame_ms = 1e3 * (time.perf_counter() - t0) / video.num_frames
+    with hdf5.File(os.path.join(data, "pkg.slp")) as f:
+        rows = [f["video0/video"][i].tobytes() for i in range(f["video0/video"].shape[0])]
+    t0 = time.perf_counter()
+    for row in rows:
+        png.imdecode(row)
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(rows)
+    figures["png"] = {"frame_ms": frame_ms, "decode_ms": decode_ms}
+    log(f"8b pkg.slp PNG frames (384^2 gray, rows in all five filters): {frame_ms:.3f} ms a "
+        f"frame read and decoded, {decode_ms:.3f} ms a frame to decode ({card})")
+
+    # The wavefront route at full size: Average, Paeth and mixed rows.
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    import png_decode_time
+
+    img = png_decode_time.frame(IMG)
+    for name in ("average", "paeth", "mixed"):
+        data = png_decode_time.encode(img, png_decode_time.FILTERS.index(name))
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = png.decode(data)
+            times.append(time.perf_counter() - t0)
+        check(np.array_equal(out[..., 0], img), f"8b: the {name} PNG at {IMG}^2 decodes exactly")
+        figures["png"][f"{name}_{IMG}_ms"] = 1e3 * float(np.median(times))
+    log(f"8b PNG decode at {IMG}^2, median of 3 (ms a frame): " + ", ".join(
+        f"{n} {figures['png'][f'{n}_{IMG}_ms']:.2f}" for n in ("average", "paeth", "mixed"))
+        + f" ({card})")
+    return figures
+
+
+# --------------------------------------------------------------------------- #
 # Phase 7: training
 # --------------------------------------------------------------------------- #
 
@@ -2033,6 +2256,12 @@ def main() -> int:
                 "step_card_vs_cpu": check_step_card_vs_cpu(card),
                 "top-down pair": check_train_pair(card, td_wrappers, launches)}
     log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
+
+    # Phase 8: sleap-track from .slp to .slp.
+    t8 = time.perf_counter()
+    cli = {"full_width": check_cli_full_width(td, td_wrappers, launches, card),
+           "fixtures": check_cli_fixtures(all_wrappers, launches, card)}
+    log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
 
@@ -2046,6 +2275,7 @@ def main() -> int:
     for name, value in read_s.items():
         log(f"checkpoint read {name}: {value:.3f} s ({card})")
     log(f"tracking: {json.dumps(tracking)} ({card})")
+    log(f"cli: {json.dumps(cli)} ({card})")
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

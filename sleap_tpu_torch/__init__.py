@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of sleap-tpu's inference paths (top-down,
-single-instance, bottom-up, multiclass).
+"""PyTorch + CUDA port of sleap-tpu: inference (top-down, single-instance,
+bottom-up, multiclass), flow-shift tracking, training, ``.slp`` and video
+I/O, and the ``sleap-track`` CLI (``python -m sleap_tpu_torch.cli.track``).
 
 The JAX package (``sleap_tpu``) is the reference: this package mirrors its
 module names (``models/``, ``data/``, ``ops/``, ``inference/``) and keeps its
@@ -17,10 +18,11 @@ skeletons, videos, providers and ``Labels`` are the port's own copies in
 plain Python (``config.py``, ``core/``, ``io/``, ``data/``), so
 ``load_model(folder)`` runs where only PyTorch is installed; orbax
 checkpoints (``best_model.ckpt``) are read by the port's own zstd, OCDBT and
-zarr readers (``io/``). ``h5py`` and
-``cv2`` are imported only inside the functions that read Keras weights or
-resize mixed-size frames. Entry points run on ``"cuda"`` unless the caller
-passes another device.
+zarr readers, and ``.slp`` files, HDF5 videos and Keras weights by its own
+HDF5 reader and writer and PNG decoder (``io/``). ``h5py`` is never
+imported; ``cv2`` only inside the functions that read media videos, still
+images or JPEG frames, or resize mixed-size frames. Entry points run on
+``"cuda"`` unless the caller passes another device.
 """
 
 
@@ -28,3 +30,10 @@ def load_model(*args, **kwargs):
     from sleap_tpu_torch.inference.predictors import load_model as _load_model
 
     return _load_model(*args, **kwargs)
+
+
+def load_file(*args, **kwargs):
+    """Read a ``.slp`` file into the port's ``Labels``."""
+    from sleap_tpu_torch.core.labels import load_file as _load_file
+
+    return _load_file(*args, **kwargs)

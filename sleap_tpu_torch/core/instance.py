@@ -41,7 +41,8 @@ class Track:
 
 
 class Instance:
-    """One labeled animal: a skeleton, its points and its track.
+    """One labeled animal: a skeleton, its points and its track, and the
+    prediction it was corrected from, if any (``from_predicted``).
 
     ``points`` is a structured array of :data:`POINT_DTYPE` or an
     (n_nodes, 2) xy array, in which a point with a NaN coordinate is
@@ -50,11 +51,18 @@ class Instance:
 
     predicted = False
 
-    def __init__(self, skeleton: Skeleton, points: Any = None, track: Optional[Track] = None):
+    def __init__(
+        self,
+        skeleton: Skeleton,
+        points: Any = None,
+        track: Optional[Track] = None,
+        from_predicted: Optional["PredictedInstance"] = None,
+    ):
         if skeleton is None:
             raise TypeError("Instance requires a skeleton.")
         self.skeleton = skeleton
         self.track = track
+        self.from_predicted = from_predicted
         n = len(skeleton.nodes)
         if isinstance(points, np.ndarray) and points.dtype == POINT_DTYPE:
             if len(points) != n:
@@ -114,6 +122,7 @@ class PredictedInstance:
         self.score = float(score)
         self.track = track
         self.tracking_score = float(tracking_score)
+        self.from_predicted = None
 
     @classmethod
     def from_arrays(

@@ -137,8 +137,10 @@ class Skeleton:
     # ------------------------------------------------------------------ #
 
     @classmethod
-    def from_dict(cls, d: Dict[str, Any]) -> "Skeleton":
-        """Decode a node-link dict whose nodes are jsonpickle records.
+    def from_dict(cls, d: Dict[str, Any], node_list: Optional[List[Node]] = None) -> "Skeleton":
+        """Decode a node-link dict whose nodes are jsonpickle records, or
+        integer indices into ``node_list`` (the ``.slp`` form, whose nodes
+        all skeletons of a file share).
 
         Nodes keep their declared order (nodes that only edges name come
         after, in order of appearance). Body edges are ordered by their
@@ -151,13 +153,13 @@ class Skeleton:
         objects: List[Any] = []
         links = []
         for link in d.get("links", []):
-            src = _decode_node(link["source"], objects)
-            dst = _decode_node(link["target"], objects)
+            src = _decode_node(link["source"], objects, node_list)
+            dst = _decode_node(link["target"], objects, node_list)
             etype = _decode_edge_type(link["type"], objects)
             links.append((link.get("edge_insert_idx"), src, dst, etype))
         skel = cls(name=d.get("graph", {}).get("name"))
         for nd in d.get("nodes", []):
-            node = _decode_node(nd["id"], objects)
+            node = _decode_node(nd["id"], objects, node_list)
             if not any(node is n for n in skel.nodes):
                 skel.nodes.append(node)
         for _, src, dst, _ in links:
@@ -180,9 +182,11 @@ class Skeleton:
                 skel._symmetry_links.append((src, dst))
         return skel
 
-    def to_dict(self) -> Dict[str, Any]:
-        """Encode in the jsonpickle form :meth:`from_dict` reads: body edges,
-        then each symmetry as two directed links, as the JAX package writes."""
+    def to_dict(self, node_to_idx: Optional[Dict[int, int]] = None) -> Dict[str, Any]:
+        """Encode in the form :meth:`from_dict` reads: body edges, then each
+        symmetry as two directed links, as the JAX package writes. Nodes are
+        jsonpickle records, or with ``node_to_idx`` (``id(node)`` -> index)
+        the integer indices of a ``.slp`` file's shared node list."""
         ids: Dict[int, int] = {}
 
         def encode(obj, first_form):
@@ -192,6 +196,8 @@ class Skeleton:
             return first_form
 
         def node(n: Node):
+            if node_to_idx is not None:
+                return node_to_idx[id(n)]
             return encode(n, {"py/object": "sleap.skeleton.Node",
                               "py/state": {"py/tuple": [n.name, n.weight]}})
 
@@ -223,7 +229,11 @@ class Skeleton:
         }
 
 
-def _decode_node(encoded: Any, objects: List[Any]) -> Node:
+def _decode_node(encoded: Any, objects: List[Any], node_list: Optional[List[Node]] = None) -> Node:
+    if isinstance(encoded, int):
+        if node_list is None:
+            raise ValueError("Integer node reference without a node list.")
+        return node_list[encoded]
     if isinstance(encoded, str):
         node = Node(encoded)
     elif isinstance(encoded, dict) and "py/object" in encoded:

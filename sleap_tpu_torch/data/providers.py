@@ -5,29 +5,52 @@ inference reads of them. The readers take any object with the attributes
 they use, so the port's ``Labels`` and ``Video`` and the JAX package's both
 work:
 
-- a labels object: ``labeled_frames`` (each with ``video``, ``frame_idx``
-  and ``image``) and ``videos``;
+- a labels object: ``labeled_frames`` (each with ``video``, ``frame_idx``,
+  ``image`` and ``instances``) and ``videos``;
 - a video: ``get_frame``, ``num_frames``, ``height`` and ``width``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from sleap_tpu_torch.core.labels import Labels
+from sleap_tpu_torch.io.video import Video, _import_cv2
 
 
 @dataclass
 class LabelsReader:
-    """Iterates the labeled frames of a labels object: dicts with ``image``
-    (H, W, C), ``video_ind``, ``frame_ind`` and ``scale``."""
+    """Iterates the labeled frames of a labels object (those at
+    ``example_indices``, if given): dicts with ``image`` (H, W, C),
+    ``video_ind``, ``frame_ind``, ``scale`` and ``instances``, the points
+    (n_instances, n_nodes, 2) of the frame's instances, invisible points
+    NaN."""
 
     labels: Any
+    example_indices: Optional[Sequence[int]] = None
+
+    @classmethod
+    def from_unlabeled_suggestions(cls, labels: Any) -> "LabelsReader":
+        """A reader over the suggested frames that have no user instance,
+        in the order of ``labels.suggestions``: their labeled frames where
+        they have one, else new empty frames."""
+        frames = [
+            labels.find_first(s.video, s.frame_idx) or _empty_frame(s.video, s.frame_idx)
+            for s in labels.unlabeled_suggestions
+        ]
+        return cls(labels=Labels(labeled_frames=frames, videos=labels.videos))
 
     @property
     def videos(self) -> List[Any]:
         return self.labels.videos
+
+    def __len__(self) -> int:
+        if self.example_indices is not None:
+            return len(self.example_indices)
+        return len(self.labels.labeled_frames)
 
     @property
     def max_height_and_width(self) -> Tuple[int, int]:
@@ -35,43 +58,70 @@ class LabelsReader:
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         video_ids = {id(v): i for i, v in enumerate(self.videos)}
-        for lf in self.labels.labeled_frames:
+        frames = self.labels.labeled_frames
+        if self.example_indices is not None:
+            frames = [frames[int(i)] for i in self.example_indices]
+        for lf in frames:
             try:
                 image = lf.image
-            except Exception:
-                continue  # an unreadable frame is skipped
+            except (KeyError, IndexError, FileNotFoundError):
+                continue  # a frame its video lacks, or a missing video, is skipped
+            instances = lf.instances
             yield {
                 "image": image,
                 "video_ind": video_ids[id(lf.video)],
                 "frame_ind": lf.frame_idx,
                 "scale": np.array([1.0, 1.0], np.float32),
+                "instances": np.stack([inst.numpy() for inst in instances]).astype(np.float32)
+                if instances else np.zeros((0, 0, 2), np.float32),
             }
+
+
+def _empty_frame(video: Any, frame_idx: int):
+    from sleap_tpu_torch.core.instance import LabeledFrame
+
+    return LabeledFrame(video=video, frame_idx=frame_idx)
 
 
 @dataclass
 class VideoReader:
-    """Iterates the frames of one video."""
+    """Iterates the frames of one video (those at ``example_indices``, if
+    given); an unreadable frame ends it."""
 
     video: Any
+    example_indices: Optional[Sequence[int]] = None
+
+    @classmethod
+    def from_filepath(cls, filename: str, example_indices: Optional[Sequence[int]] = None,
+                      **kwargs) -> "VideoReader":
+        """A reader over the video file at ``filename``; keyword arguments
+        (``dataset``, ``input_format``, ``grayscale``, ...) go to its backend."""
+        return cls(video=Video.from_filename(filename, **kwargs), example_indices=example_indices)
 
     @property
     def videos(self) -> List[Any]:
         return [self.video]
+
+    def __len__(self) -> int:
+        if self.example_indices is not None:
+            return len(self.example_indices)
+        return self.video.num_frames
 
     @property
     def max_height_and_width(self) -> Tuple[int, int]:
         return self.video.height, self.video.width
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        for i in range(self.video.num_frames):
+        indices = self.example_indices
+        for i in range(self.video.num_frames) if indices is None else indices:
             try:
-                image = self.video.get_frame(i)
-            except Exception:
-                break  # an unreadable frame ends the video
+                image = self.video.get_frame(int(i))
+            except (KeyError, IndexError):
+                break  # a frame past the video's end ends it
             yield {
                 "image": image,
                 "video_ind": 0,
-                "frame_ind": i,
+                "frame_ind": int(i),
                 "scale": np.array([1.0, 1.0], np.float32),
             }
 
@@ -83,7 +133,10 @@ def resize_and_pad_example(image: np.ndarray, target_hw: Tuple[int, int]) -> Tup
     th, tw = target_hw
     if (h, w) == (th, tw):
         return image, 1.0
-    import cv2
+    cv2 = _import_cv2(
+        "Resizing frames of videos that differ in size",
+        hint="Give the videos one frame size, or predict each size in a run of its own.",
+    )
 
     scale = min(th / h, tw / w)
     nh, nw = int(round(h * scale)), int(round(w * scale))
@@ -103,7 +156,8 @@ def batch_examples(
     The last batch is padded by repeating its final example, so shapes stay
     static; yields ``(batch, n_valid)``. With ``target_hw``, frames are
     size-matched on the host and each example's ``scale`` is carried for
-    mapping coordinates back.
+    mapping coordinates back. Examples' ground-truth ``instances`` are
+    carried as a list, one array per example.
     """
     buf: List[Dict[str, Any]] = []
 
@@ -120,6 +174,8 @@ def batch_examples(
                 [np.asarray(ex.get("scale", 1.0), "f4").reshape(-1)[0] for ex in buf], "f4"
             ),
         }
+        if "instances" in buf[0]:
+            batch["instances"] = [ex["instances"] for ex in buf]
         return batch, n_valid
 
     for ex in provider:

@@ -61,7 +61,7 @@ class BottomUpPredictor(Predictor):
             min_line_scores=self.min_line_scores,
         )
 
-    def _infer(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _infer(self, images: torch.Tensor, batch: dict) -> Dict[str, torch.Tensor]:
         tm = self.bottomup_model
         imgs = _preprocess(
             images, tm.grayscale, tm.input_scale, tm.pad_to_stride,

@@ -103,7 +103,7 @@ class BottomUpMultiClassPredictor(_ClassFrames, Predictor):
     def _skeleton_model(self) -> TrainedModel:
         return self.model
 
-    def _infer(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _infer(self, images: torch.Tensor, batch: dict) -> Dict[str, torch.Tensor]:
         tm = self.model
         imgs = _preprocess(
             images, tm.grayscale, tm.input_scale, tm.pad_to_stride,
@@ -147,10 +147,9 @@ class TopDownMultiClassPredictor(_ClassFrames, TopDownPredictor):
     class.
 
     K, the crops per frame, is ``max_instances`` or else the number of
-    classes (at least 2). The centroid model is required: the ground-truth
-    centroid mode of the JAX predictor (``centroid_model=None``) reads user
-    instances from ``.slp`` labels, which the port does not read yet
-    (ROADMAP.md, queue 1, item 4).
+    classes (at least 2). Without a centroid model, the crops are centred on
+    the ground-truth instances of the labels the frames come from, as in
+    :class:`~sleap_tpu_torch.inference.predictors.TopDownPredictor`.
     """
 
     centroid_model: Optional[TrainedModel] = None
@@ -158,11 +157,6 @@ class TopDownMultiClassPredictor(_ClassFrames, TopDownPredictor):
     size_matching = False
 
     def __post_init__(self):
-        if self.centroid_model is None:
-            raise NotImplementedError(
-                "The ground-truth-centroid mode of the multiclass top-down predictor is not "
-                "ported yet (ROADMAP.md, queue 1, item 4): give a centroid model."
-            )
         super().__post_init__()
         self.class_tracks = [Track(spawned_on=0, name=c) for c in self.confmap_model.classes]
 
@@ -174,8 +168,8 @@ class TopDownMultiClassPredictor(_ClassFrames, TopDownPredictor):
     def _max_peaks(self) -> int:
         return self.max_instances or max(len(self.confmap_model.classes), 2)
 
-    def _infer(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        centroids, _, centroid_mask = self._find_centroids(images, self._max_peaks)
+    def _infer(self, images: torch.Tensor, batch: dict) -> Dict[str, torch.Tensor]:
+        centroids, _, centroid_mask = self._centroids(images, batch, self._max_peaks)
         pk, pv, out = self._crop_peaks(images, centroids)
         S, K = centroid_mask.shape
         class_vecs = out[find_head(out, "ClassVectorsHead")].reshape(S, K, -1)

@@ -24,8 +24,10 @@ the frames it built before it returns ``Labels``, as the JAX predictors do.
 
 from __future__ import annotations
 
+import json
 import os
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -34,7 +36,7 @@ import torch
 
 from sleap_tpu_torch.config import TrainingJobConfig
 from sleap_tpu_torch.core.instance import LabeledFrame, PredictedInstance
-from sleap_tpu_torch.core.labels import Labels
+from sleap_tpu_torch.core.labels import Labels, load_file
 from sleap_tpu_torch.core.skeleton import Skeleton
 from sleap_tpu_torch.data.normalization import (
     apply_imagenet_mode,
@@ -49,6 +51,7 @@ from sleap_tpu_torch.data.providers import (
     batch_examples,
     provider_needs_size_matching,
 )
+from sleap_tpu_torch.data.instance_centroids import get_instance_centroids
 from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image
 from sleap_tpu_torch.data.streaming import stage_to_device
 from sleap_tpu_torch.io.keras_h5 import read_keras_weights
@@ -91,6 +94,7 @@ class TrainedModel:
     edges: List[Tuple[str, str]] = field(default_factory=list)
     classes: List[str] = field(default_factory=list)
     class_maps_stride: Optional[int] = None
+    center_on_part: Optional[str] = None
 
 
 def load_trained_model(
@@ -160,6 +164,7 @@ def load_trained_model(
         pad_to_stride=pp.pad_to_stride or model.maximum_stride,
         part_names=list(model.part_names),
         crop_size=config.data.instance_cropping.crop_size,
+        center_on_part=config.data.instance_cropping.center_on_part,
         grayscale=in_channels == 1,
         imagenet_mode=pp.imagenet_mode,
         skeleton=skeleton,
@@ -240,7 +245,8 @@ def _array_batches(frames: np.ndarray, batch_size: int) -> Iterator[Tuple[dict, 
 def _make_provider(data):
     """A provider from what ``data`` has: a provider already (iterable with
     ``videos`` and ``max_height_and_width``), labels (``labeled_frames``) or a
-    video (``get_frame``): the port's types or the JAX package's."""
+    video (``get_frame``): the port's types or the JAX package's; or a path,
+    a ``.slp`` file's labels or else a video file."""
     if hasattr(data, "max_height_and_width") and hasattr(data, "videos"):
         return data
     if hasattr(data, "labeled_frames"):
@@ -248,10 +254,9 @@ def _make_provider(data):
     if hasattr(data, "get_frame"):
         return VideoReader(video=data)
     if isinstance(data, str):
-        raise NotImplementedError(
-            f"Reading {data!r} is not ported yet: .slp files and media videos need h5py "
-            "and cv2 (ROADMAP.md, queue 1). Pass numpy frames, a Video or Labels."
-        )
+        if data.endswith(".slp"):
+            return LabelsReader(labels=load_file(data))
+        return VideoReader.from_filepath(data)
     raise TypeError(f"Cannot make a data provider from {type(data)}.")
 
 
@@ -263,7 +268,8 @@ def _make_provider(data):
 @dataclass(kw_only=True)
 class Predictor:
     """Runs a model on batches of frames on ``device`` (the card unless the
-    caller asks for another)."""
+    caller asks for another). ``verbosity`` "rich" prints progress on one
+    line, "json" a JSON object a batch, "none" nothing."""
 
     device: torch.device = field(default_factory=lambda: torch.device("cuda"))
     peak_threshold: float = 0.2
@@ -271,6 +277,7 @@ class Predictor:
     integral_patch_size: int = 5
     batch_size: int = 4
     tracker: Any = None
+    verbosity: str = "none"
 
     @classmethod
     def from_model_paths(
@@ -285,9 +292,11 @@ class Predictor:
         max_instances: Optional[int] = None,
         params: Optional[Mapping[str, Any]] = None,
         compute_dtype: torch.dtype = torch.float32,
+        verbosity: str = "none",
     ) -> "Predictor":
         """Dispatch by the head types of the run folder(s), as the JAX
-        package does.
+        package does: a centroid or a centered-instance folder alone gives
+        a top-down predictor in one of its evaluation modes.
 
         ``params`` maps a model path to its flax params tree (numpy), which
         then replaces the folder's own weights. ``compute_dtype`` is the
@@ -314,13 +323,14 @@ class Predictor:
             integral_refinement=integral_refinement,
             integral_patch_size=integral_patch_size,
             batch_size=batch_size,
+            verbosity=verbosity,
         )
         if set(paths) == {"single_instance"}:
             return SingleInstancePredictor(confmap_model=load("single_instance"), **common)
-        if set(paths) == {"centroid", "centered_instance"}:
+        if paths and set(paths) <= {"centroid", "centered_instance"}:
             return TopDownPredictor(
-                centroid_model=load("centroid"),
-                confmap_model=load("centered_instance"),
+                centroid_model=load("centroid") if "centroid" in paths else None,
+                confmap_model=load("centered_instance") if "centered_instance" in paths else None,
                 max_instances=max_instances,
                 **common,
             )
@@ -343,9 +353,7 @@ class Predictor:
                 max_instances=max_instances,
                 **common,
             )
-        raise NotImplementedError(
-            f"Head combination {sorted(paths)} is not ported yet (ROADMAP.md, queue 1)."
-        )
+        raise ValueError(f"Unsupported head combination: {sorted(paths)}.")
 
     # Whether frames of mixed-size videos are resized to one size before
     # batching (and the results scaled back), as the JAX predictor does.
@@ -357,8 +365,9 @@ class Predictor:
 
     def predict(self, data, make_labels: bool = True):
         """Run inference on numpy frames (N, H, W[, C]), a video or labels
-        (the port's or the JAX package's); return the port's ``Labels``, or
-        the per-batch example dicts when ``make_labels`` is False."""
+        (the port's or the JAX package's), or the path of a ``.slp`` or
+        video file; return the port's ``Labels``, or the per-batch example
+        dicts when ``make_labels`` is False."""
         t0 = time.time()
         if isinstance(data, np.ndarray):
             frames = data if data.ndim == 4 else data[..., None]
@@ -367,7 +376,8 @@ class Predictor:
             provider = _make_provider(data)
             target_hw = provider_needs_size_matching(provider) if self.size_matching else None
             batches = prefetch(batch_examples(provider, self.batch_size, target_hw))
-        examples = self._predict_generator(batches)
+        total = len(provider) if provider is not None else len(frames)
+        examples = self._predict_generator(batches, total)
         if not make_labels:
             return list(examples)
 
@@ -395,10 +405,19 @@ class Predictor:
             tracker.final_pass(frames)
         return frames
 
-    def _predict_generator(self, batches) -> Iterator[Dict[str, Any]]:
+    def _report_progress(self, done: int, total: int, t0: float) -> None:
+        rate = done / max(time.time() - t0, 1e-6)
+        if self.verbosity == "json":
+            print(json.dumps({"n_processed": done, "n_total": total,
+                              "elapsed": time.time() - t0, "rate": rate}), flush=True)
+        elif self.verbosity == "rich":
+            print(f"\rPredicting... {done}/{total} ({rate:.1f} FPS)", end="", flush=True)
+
+    def _predict_generator(self, batches, total: int = 0) -> Iterator[Dict[str, Any]]:
+        done, t0 = 0, time.time()
         for batch, n_valid, dev_img in stage_to_device(batches, self.device):
             with torch.inference_mode():
-                out = self._infer(dev_img)
+                out = self._infer(dev_img, batch)
             ex = self._postprocess({k: v.cpu().numpy() for k, v in out.items()}, batch)
             ex.update(
                 image=batch["image"],
@@ -406,6 +425,11 @@ class Predictor:
                 frame_ind=batch["frame_ind"],
                 n_valid=n_valid,
             )
+            if "instances" in batch:
+                ex["instances"] = batch["instances"]
+            done += n_valid
+            if self.verbosity != "none":
+                self._report_progress(done, total, t0)
             yield ex
 
     def _postprocess(self, ex: Dict[str, np.ndarray], batch: dict) -> Dict[str, Any]:
@@ -416,7 +440,10 @@ class Predictor:
                 ex[key] = ex[key] / scale
         return ex
 
-    def _infer(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _infer(self, images: torch.Tensor, batch: dict) -> Dict[str, torch.Tensor]:
+        """One batch's outputs from its frames on the device; ``batch`` is
+        the host batch (ground-truth instances for the top-down modes that
+        read them)."""
         raise NotImplementedError
 
     def _make_labeled_frames(self, examples, videos) -> list:
@@ -434,7 +461,7 @@ class SingleInstancePredictor(Predictor):
 
     confmap_model: TrainedModel
 
-    def _infer(self, images):
+    def _infer(self, images, batch):
         tm = self.confmap_model
         imgs = _preprocess(
             images, tm.grayscale, tm.input_scale, tm.pad_to_stride,
@@ -493,25 +520,52 @@ class SingleInstancePredictor(Predictor):
 class TopDownPredictor(Predictor):
     """Centroids -> crops -> centered-instance confidence maps.
 
-    ``max_instances`` is the static crop count K per frame (default 8). The
-    centroid-only and ground-truth-centroid modes of the JAX predictor are
-    not ported yet (ROADMAP.md, queue 1, item 4): both models are required.
+    ``max_instances`` is the static crop count K per frame (default 8).
+    With one of the two models, the JAX predictor's evaluation modes:
+
+    - no centroid model: ground-truth centroids, from the instances of
+      labels the frames come from (the anchor part, else the bounding-box
+      midpoint), are cropped; each instance's score is 1;
+    - no centered-instance model: centroids only, each valid one given the
+      points of the nearest ground-truth instance, with scores of 1.
+
+    Neither mode resizes mixed-size frames to one size.
     """
 
-    centroid_model: TrainedModel
-    confmap_model: TrainedModel
+    centroid_model: Optional[TrainedModel] = None
+    confmap_model: Optional[TrainedModel] = None
     max_instances: Optional[int] = None
 
     def __post_init__(self):
-        if self.centroid_model is None or self.confmap_model is None:
-            raise NotImplementedError(
-                "Centroid-only and ground-truth-centroid top-down modes are not ported yet "
-                "(ROADMAP.md, queue 1, item 4)."
-            )
+        if self.centroid_model is None and self.confmap_model is None:
+            raise ValueError("A top-down predictor needs a centroid or a centered-instance model.")
+
+    @property
+    def size_matching(self) -> bool:
+        return self.centroid_model is not None and self.confmap_model is not None
 
     @property
     def _max_peaks(self) -> int:
         return self.max_instances or 8
+
+    def _centroids(self, images: torch.Tensor, batch: dict, K: int):
+        """The top K centroids of each frame (S, K, 2) in frame coordinates,
+        with their values and validity (S, K): the centroid model's, or
+        without one the ground-truth instances' (values 1)."""
+        if self.centroid_model is not None:
+            return self._find_centroids(images, K)
+        tm = self.confmap_model
+        skeleton = _skeleton(tm)
+        anchor = skeleton.node_names.index(tm.center_on_part) \
+            if tm.center_on_part in skeleton.node_names else None
+        centroids = np.full((images.shape[0], K, 2), np.nan)
+        for i, gt in enumerate(batch.get("instances", [])):
+            if gt.size:
+                cents = get_instance_centroids(torch.from_numpy(gt.astype("f8")), anchor)[:K]
+                centroids[i, :len(cents)] = cents.numpy()
+        centroids = torch.from_numpy(centroids.astype(np.float32)).to(images.device)
+        mask = ~torch.isnan(centroids).any(dim=-1)
+        return centroids, mask.float(), mask
 
     def _find_centroids(self, images: torch.Tensor, K: int):
         """Stage 1: the top K centroids of each frame, in frame coordinates,
@@ -577,8 +631,14 @@ class TopDownPredictor(Predictor):
         n_nodes = pk.shape[1]
         return pk.reshape(S, K, n_nodes, 2), pv.reshape(S, K, n_nodes), out
 
-    def _infer(self, images):
-        centroids, centroid_vals, centroid_mask = self._find_centroids(images, self._max_peaks)
+    def _infer(self, images, batch):
+        centroids, centroid_vals, centroid_mask = self._centroids(images, batch, self._max_peaks)
+        if self.confmap_model is None:
+            return {
+                "centroids": torch.where(centroid_mask[..., None], centroids, float("nan")),
+                "centroid_vals": torch.where(centroid_mask, centroid_vals, 0.0),
+                "centroid_mask": centroid_mask,
+            }
         pk, pv, _ = self._crop_peaks(images, centroids)
         return {
             "instance_peaks": torch.where(centroid_mask[:, :, None, None], pk, float("nan")),
@@ -589,19 +649,28 @@ class TopDownPredictor(Predictor):
         }
 
     def _make_labeled_frames(self, examples, videos):
-        skeleton = _skeleton(self.confmap_model)
+        centroid_only = self.confmap_model is None
+        skeleton = _skeleton(self.centroid_model if centroid_only else self.confmap_model)
         frames = []
         for ex in examples:
             for i in range(ex["n_valid"]):
                 instances = []
                 for k in range(ex["centroid_mask"].shape[1]):
-                    pts = ex["instance_peaks"][i, k]
-                    if not ex["centroid_mask"][i, k] or np.all(np.isnan(pts)):
+                    if not ex["centroid_mask"][i, k]:
+                        continue
+                    if centroid_only:
+                        pts = _nearest_instance(ex.get("instances", [])[i:i + 1], ex["centroids"][i, k])
+                        if pts is None:
+                            continue
+                        vals = np.ones(len(pts), np.float32)
+                    else:
+                        pts, vals = ex["instance_peaks"][i, k], ex["instance_peak_vals"][i, k]
+                    if np.all(np.isnan(pts)):
                         continue
                     instances.append(
                         PredictedInstance.from_arrays(
                             points=pts,
-                            point_confidences=ex["instance_peak_vals"][i, k],
+                            point_confidences=vals,
                             instance_score=float(ex["centroid_vals"][i, k]),
                             skeleton=skeleton,
                         )
@@ -614,6 +683,22 @@ class TopDownPredictor(Predictor):
                     )
                 )
         return frames
+
+
+def _nearest_instance(gts: list, centroid: np.ndarray) -> Optional[np.ndarray]:
+    """Of the frame's ground-truth instances (``gts``: one array, or none),
+    the points (n_nodes, 2) of the one with the node nearest ``centroid``;
+    None without one."""
+    if not gts or gts[0].size == 0:
+        return None
+    gt = gts[0]
+    d = np.linalg.norm(gt - centroid[None, None, :], axis=-1)
+    with np.errstate(all="ignore"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        d = np.nanmin(d, axis=-1)
+    if np.all(np.isnan(d)):
+        return None
+    return gt[np.nanargmin(d)]
 
 
 # --------------------------------------------------------------------------- #

@@ -1,0 +1,948 @@
+"""A reader and a writer for the subset of HDF5 that ``.slp`` files, HDF5
+videos and Keras weight files use, in plain Python and numpy (``zlib`` from
+the standard library): the port reads and writes them where ``h5py`` is not
+installed.
+
+Reader (:class:`File`), after the HDF5 file format specification, version 3:
+
+- superblock versions 0 to 3; object headers version 1 and 2, with
+  continuation blocks;
+- groups as symbol tables (version 1 B-trees, symbol table nodes, a local
+  heap) or as compact link messages (hard links);
+- dataspaces (scalar, simple, null), fill values, datatypes: fixed-point,
+  floating point, fixed-length strings (null-padded or null-terminated),
+  enums (an ``int8`` enum of ``FALSE``/``TRUE`` is h5py's ``bool``),
+  compounds with the member offsets the file gives, arrays, and
+  variable-length strings through the global heap;
+- data layout version 3 (and 4 for compact and contiguous data): compact,
+  contiguous (an undefined address is an empty or unwritten dataset) and
+  chunked with a version 1 B-tree chunk index, through deflate and shuffle;
+- attribute messages versions 1 to 3.
+
+Anything else (dense link or attribute storage in fractal heaps, version 4
+chunk indexes, other filters, shared messages, references, soft links)
+raises :class:`UnsupportedFeature`, which names the feature and the file.
+The API is h5py's, cut down: ``File(path)``, ``f[name]``, ``.attrs``,
+``ds[...]``, ``ds.shape``, ``ds.dtype``, ``in``, ``keys()``.
+
+Writer (:class:`Writer`): what ``write_labels`` writes, laid out as h5py's
+``libver="earliest"`` lays it out: superblock version 0, symbol-table
+groups (nested too), contiguous uncompressed datasets of numeric, ``bool``
+(an ``int8`` enum), compound and fixed-length string types (empty ones with
+an undefined address), and attributes of those types.
+"""
+
+from __future__ import annotations
+
+import mmap
+import os
+import posixpath
+import struct
+import zlib
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+SIGNATURE = b"\x89HDF\r\n\x1a\n"
+
+# Object header message types.
+_DATASPACE, _LINK_INFO, _DATATYPE, _FILL_OLD, _FILL = 0x1, 0x2, 0x3, 0x4, 0x5
+_LINK, _LAYOUT, _FILTERS, _ATTRIBUTE = 0x6, 0x8, 0xB, 0xC
+_CONTINUATION, _SYMBOL_TABLE, _ATTRIBUTE_INFO = 0x10, 0x11, 0x15
+
+_FILTER_NAMES = {3: "fletcher32", 4: "szip", 5: "nbit", 6: "scaleoffset", 32000: "lzf"}
+
+
+class UnsupportedFeature(ValueError):
+    """The file uses an HDF5 feature outside the subset this module reads."""
+
+
+class VlenStr:
+    """The datatype of variable-length strings (read as ``bytes`` in
+    datasets and ``str`` in attributes, as h5py 3 reads them); each element
+    on disk is a length (4 bytes), a global heap collection's address and an
+    object index (4 bytes)."""
+
+    def __repr__(self) -> str:
+        return "VlenStr()"
+
+
+def _pad8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def _unshuffle(data: bytes, itemsize: int) -> bytes:
+    """Undo the shuffle filter: bytes grouped by their position in the element."""
+    n = len(data) // itemsize
+    if itemsize <= 1 or n <= 1:
+        return data
+    body = np.frombuffer(data, np.uint8, n * itemsize).reshape(itemsize, n).T.tobytes()
+    return body + data[n * itemsize:]
+
+
+# --------------------------------------------------------------------------- #
+# Reader
+# --------------------------------------------------------------------------- #
+
+
+class Group:
+    """A group of a read :class:`File`."""
+
+    def __init__(self, file: File, addr: int, path: str):
+        self.file, self._oh, self.name = file, addr, path
+        self._attrs_: Optional[Dict[str, Any]] = None
+
+    def __repr__(self) -> str:
+        return f"<HDF5 group {self.name!r} ({len(self.keys())} members)>"
+
+    @property
+    def _members(self) -> Dict[str, Any]:
+        return self.file._link_table(self._oh)
+
+    @property
+    def attrs(self) -> Dict[str, Any]:
+        if self._attrs_ is None:
+            self._attrs_ = self.file._attr_table(self._oh)
+        return self._attrs_
+
+    def keys(self) -> List[str]:
+        return sorted(self._members)
+
+    def _resolve(self, name: str):
+        parts = [p for p in name.split("/") if p]
+        node = self.file if name.startswith("/") else self
+        path = "/" if name.startswith("/") else self.name
+        for part in parts:
+            if not isinstance(node, Group) or part not in node._members:
+                return None
+            target = node._members[part]
+            if isinstance(target, tuple):
+                raise node.file._fail(f"{target[0]} links ({posixpath.join(path, part)})")
+            path = posixpath.join(path, part)
+            node = node.file._object(target, path)
+        return node
+
+    def __getitem__(self, name: str):
+        node = self._resolve(name)
+        if node is None:
+            raise KeyError(f"{name!r} not found in {self.file.filename}:{self.name}")
+        return node
+
+    def __contains__(self, name: str) -> bool:
+        return self._resolve(name) is not None
+
+    def visititems(self, func: Callable[[str, Any], Any]):
+        """Call ``func(relative name, object)`` on every object below this
+        group, parents first and names in order, as h5py does; stop at the
+        first value that is not None and return it."""
+        def walk(group: Group, prefix: str):
+            for key in group.keys():
+                obj = group[key]
+                name = f"{prefix}{key}"
+                out = func(name, obj)
+                if out is not None:
+                    return out
+                if isinstance(obj, Group):
+                    out = walk(obj, name + "/")
+                    if out is not None:
+                        return out
+            return None
+
+        return walk(self, "")
+
+
+class File(Group):
+    """A read-only HDF5 file: its root group, plus ``close``.
+
+    ``File(path)`` maps the file; use it as a context manager, or call
+    ``close``, to release it.
+    """
+
+    def __init__(self, path: str, mode: str = "r"):
+        if mode != "r":
+            raise ValueError("sleap_tpu_torch.io.hdf5.File reads only; use Writer to write.")
+        self.filename = str(path)
+        self._fh = open(path, "rb")
+        try:
+            self._buf = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
+        except ValueError:
+            self._fh.close()
+            raise OSError(f"{path} is empty, not an HDF5 file.")
+        self._headers: Dict[int, list] = {}
+        self._link_cache: Dict[int, Dict[str, Any]] = {}
+        self._heaps: Dict[int, Dict[int, Tuple[int, int]]] = {}
+        try:
+            root = self._read_superblock()
+        except BaseException:
+            self.close()
+            raise
+        super().__init__(self, root, "/")
+
+    def __enter__(self) -> "File":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        if self._buf is not None:
+            self._buf.close()
+            self._fh.close()
+            self._buf = None
+
+    # -- low-level access --------------------------------------------------- #
+    def _fail(self, feature: str) -> UnsupportedFeature:
+        return UnsupportedFeature(f"{self.filename}: {feature} is not supported by the port's HDF5 reader.")
+
+    def _uint(self, pos: int, n: int) -> int:
+        return int.from_bytes(self._buf[pos:pos + n], "little")
+
+    def _addr(self, pos: int) -> Optional[int]:
+        """An address field: ``None`` where it is undefined (all ones)."""
+        raw = self._uint(pos, self._O)
+        return None if raw == (1 << (8 * self._O)) - 1 else raw + self._base
+
+    def _cstr(self, pos: int) -> Tuple[str, int]:
+        """A null-terminated string and the position just after its null."""
+        end = self._buf.find(b"\0", pos)
+        return self._buf[pos:end].decode("utf-8"), end + 1
+
+    def _bytes(self, pos: int, n: int) -> np.ndarray:
+        """``n`` bytes of the file at ``pos``, as a writable uint8 array."""
+        if pos + n > len(self._buf):
+            raise OSError(f"{self.filename}: truncated file (reading {n} bytes at {pos}).")
+        return np.frombuffer(self._buf, np.uint8, n, pos).copy()
+
+    def _read_superblock(self) -> int:
+        pos = 0
+        while self._buf[pos:pos + 8] != SIGNATURE:
+            pos = 512 if pos == 0 else pos * 2
+            if pos + 8 > len(self._buf):
+                raise OSError(f"{self.filename} is not an HDF5 file (no superblock signature).")
+        version = self._buf[pos + 8]
+        if version in (0, 1):
+            self._O, self._L = self._buf[pos + 13], self._buf[pos + 14]
+            p = pos + 24 + (4 if version == 1 else 0)
+            self._base = 0
+            self._base = self._addr(p) or 0
+            root_entry = p + 4 * self._O
+            return self._addr(root_entry + self._O)
+        if version in (2, 3):
+            self._O, self._L = self._buf[pos + 9], self._buf[pos + 10]
+            self._base = 0
+            self._base = self._addr(pos + 12) or 0
+            return self._addr(pos + 12 + 3 * self._O)
+        raise self._fail(f"superblock version {version}")
+
+    # -- object headers ----------------------------------------------------- #
+    def _messages(self, addr: int) -> List[Tuple[int, int, int, int]]:
+        """``(type, flags, data position, size)`` of every message of the
+        object header at ``addr``, continuation blocks included."""
+        if addr in self._headers:
+            return self._headers[addr]
+        buf = self._buf
+        msgs = []
+        if buf[addr:addr + 4] == b"OHDR":
+            if buf[addr + 4] != 2:
+                raise self._fail(f"object header version {buf[addr + 4]}")
+            flags = buf[addr + 5]
+            p = addr + 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+            width = 1 << (flags & 3)
+            blocks = [(p + width, self._uint(p, width))]
+            head = 6 if flags & 0x04 else 4
+            while blocks:
+                start, size = blocks.pop(0)
+                p, end = start, start + size
+                while p + head <= end:
+                    mtype, msize, mflags = buf[p], self._uint(p + 1, 2), buf[p + 3]
+                    data = p + head
+                    if mtype == _CONTINUATION:
+                        cont, length = self._addr(data), self._uint(data + self._O, self._L)
+                        if buf[cont:cont + 4] != b"OCHK":
+                            raise OSError(f"{self.filename}: bad continuation block at {cont}.")
+                        blocks.append((cont + 4, length - 8))
+                    elif mtype:
+                        msgs.append((mtype, mflags, data, msize))
+                    p = data + msize
+        elif buf[addr] == 1:
+            size = self._uint(addr + 8, 4)
+            blocks = [(addr + 16, size)]
+            while blocks:
+                start, size = blocks.pop(0)
+                p, end = start, start + size
+                while p + 8 <= end:
+                    mtype, msize, mflags = struct.unpack_from("<HHB", buf, p)
+                    data = p + 8
+                    if mtype == _CONTINUATION:
+                        blocks.append((self._addr(data), self._uint(data + self._O, self._L)))
+                    elif mtype:
+                        msgs.append((mtype, mflags, data, msize))
+                    p = data + msize
+        else:
+            raise self._fail(f"object header version {buf[addr]} at {addr}")
+        for mtype, mflags, _, _ in msgs:
+            if mflags & 0x02 and mtype in (_DATATYPE, _DATASPACE, _FILL, _FILTERS, _ATTRIBUTE):
+                raise self._fail("shared object header messages (committed datatypes)")
+        self._headers[addr] = msgs
+        return msgs
+
+    def _object(self, addr: int, path: str):
+        types = {m[0] for m in self._messages(addr)}
+        if _LAYOUT in types:
+            return Dataset(self, addr, path)
+        return Group(self, addr, path)
+
+    # -- datatypes, dataspaces, attributes ---------------------------------- #
+    def _dtype(self, pos: int) -> Tuple[Any, int]:
+        """The datatype message at ``pos`` as a numpy dtype (or
+        :class:`VlenStr`), and the position after it."""
+        buf = self._buf
+        cls, version = buf[pos] & 0x0F, buf[pos] >> 4
+        bits = self._uint(pos + 1, 3)
+        size = self._uint(pos + 4, 4)
+        p = pos + 8
+        order = ">" if bits & 1 else "<"
+        if cls == 0:  # fixed-point
+            offset, precision = struct.unpack_from("<HH", buf, p)
+            if offset or precision != 8 * size or size not in (1, 2, 4, 8):
+                raise self._fail(f"a {precision}-bit integer at bit offset {offset}")
+            return np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}"), p + 4
+        if cls == 1:  # floating point
+            if size not in (2, 4, 8) or bits & 0x40:
+                raise self._fail(f"a {size}-byte (or VAX-order) float")
+            return np.dtype(f"{order}f{size}"), p + 12
+        if cls == 3:  # fixed-length string
+            if bits & 0x0F not in (0, 1):
+                raise self._fail("space-padded strings")
+            return np.dtype(f"S{size}"), p
+        if cls == 6:  # compound
+            names, formats, offsets = [], [], []
+            for _ in range(bits & 0xFFFF):
+                name, end = self._cstr(p)
+                p = p + _pad8(end - p) if version < 3 else end
+                shape: Tuple[int, ...] = ()
+                if version == 1:
+                    offset, rank = self._uint(p, 4), buf[p + 4]
+                    shape = struct.unpack_from(f"<{rank}I", buf, p + 16)
+                    p += 32
+                elif version == 2:
+                    offset = self._uint(p, 4)
+                    p += 4
+                else:
+                    width = (size.bit_length() + 7) // 8 or 1
+                    offset = self._uint(p, width)
+                    p += width
+                member, p = self._dtype(p)
+                if isinstance(member, VlenStr):
+                    raise self._fail("variable-length strings inside a compound")
+                names.append(name)
+                formats.append((member, shape) if shape else member)
+                offsets.append(offset)
+            dtype = np.dtype({"names": names, "formats": formats, "offsets": offsets, "itemsize": size})
+            return dtype, p
+        if cls == 8:  # enum
+            base, p = self._dtype(p)
+            names = []
+            for _ in range(bits & 0xFFFF):
+                name, end = self._cstr(p)
+                p = p + _pad8(end - p) if version < 3 else end
+                names.append(name)
+            values = np.frombuffer(buf, base, len(names), p).tolist()
+            p += base.itemsize * len(names)
+            if base == np.int8 and dict(zip(names, values)) == {"FALSE": 0, "TRUE": 1}:
+                return np.dtype("?"), p
+            return base, p
+        if cls == 9:  # variable-length
+            base, p = self._dtype(p)
+            if bits & 0x0F != 1:
+                raise self._fail("variable-length sequences")
+            return VlenStr(), p
+        if cls == 10:  # array
+            rank = buf[p]
+            if version < 3:
+                dims = struct.unpack_from(f"<{rank}I", buf, p + 4)
+                p += 4 + 8 * rank
+            else:
+                dims = struct.unpack_from(f"<{rank}I", buf, p + 1)
+                p += 1 + 4 * rank
+            base, p = self._dtype(p)
+            return np.dtype((base, tuple(dims))), p
+        names = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference"}
+        raise self._fail(f"the {names.get(cls, cls)} datatype class")
+
+    def _dataspace(self, pos: int) -> Optional[Tuple[int, ...]]:
+        """The dataspace message at ``pos`` as a shape; ``None`` for a null
+        dataspace."""
+        version, rank = self._buf[pos], self._buf[pos + 1]
+        if version == 1:
+            p = pos + 8
+        elif version == 2:
+            if self._buf[pos + 3] == 2:
+                return None
+            p = pos + 4
+        else:
+            raise self._fail(f"dataspace version {version}")
+        return tuple(self._uint(p + i * self._L, self._L) for i in range(rank))
+
+    def _attribute(self, pos: int) -> Tuple[str, Any]:
+        buf = self._buf
+        version = buf[pos]
+        name_size, type_size, space_size = struct.unpack_from("<HHH", buf, pos + 2)
+        if version == 1:
+            p = pos + 8
+            name = buf[p:p + name_size - 1].decode()
+            p += _pad8(name_size)
+            dtype, _ = self._dtype(p)
+            p += _pad8(type_size)
+            shape = self._dataspace(p)
+            p += _pad8(space_size)
+        elif version in (2, 3):
+            if buf[pos + 1] & 0x03:
+                raise self._fail("shared attribute datatypes or dataspaces")
+            p = pos + (8 if version == 2 else 9)
+            name = buf[p:p + name_size - 1].decode()
+            p += name_size
+            dtype, _ = self._dtype(p)
+            p += type_size
+            shape = self._dataspace(p)
+            p += space_size
+        else:
+            raise self._fail(f"attribute message version {version}")
+        if shape is None:
+            return name, None
+        count = int(np.prod(shape))
+        if isinstance(dtype, VlenStr):
+            values = [s.decode("utf-8") for s in self._vlen_strings(p, count)]
+            return name, values[0] if shape == () else np.array(values, dtype=object).reshape(shape)
+        arr = np.frombuffer(self._bytes(p, count * dtype.itemsize), dtype, count).reshape(shape)
+        return name, arr[()] if shape == () else arr
+
+    def _attr_table(self, addr: int) -> Dict[str, Any]:
+        out = {}
+        for mtype, _, data, _ in self._messages(addr):
+            if mtype == _ATTRIBUTE:
+                name, value = self._attribute(data)
+                out[name] = value
+            elif mtype == _ATTRIBUTE_INFO:
+                flags = self._buf[data + 1]
+                if self._addr(data + 2 + (2 if flags & 1 else 0)) is not None:
+                    raise self._fail("dense attribute storage (fractal heap)")
+        return out
+
+    def _vlen_strings(self, pos: int, count: int) -> List[bytes]:
+        """``count`` variable-length strings whose heap IDs start at ``pos``."""
+        out = []
+        step = 8 + self._O
+        for i in range(count):
+            p = pos + i * step
+            length, collection = self._uint(p, 4), self._addr(p + 4)
+            if collection is None or length == 0:
+                out.append(b"")
+                continue
+            start, size = self._global_heap(collection)[self._uint(p + 4 + self._O, 4)]
+            out.append(self._buf[start:start + min(size, length)])
+        return out
+
+    def _global_heap(self, addr: int) -> Dict[int, Tuple[int, int]]:
+        if addr not in self._heaps:
+            if self._buf[addr:addr + 4] != b"GCOL":
+                raise OSError(f"{self.filename}: bad global heap collection at {addr}.")
+            end = addr + self._uint(addr + 8, self._L)
+            objects, p = {}, addr + 8 + self._L
+            while p + 8 + self._L <= end:
+                index = self._uint(p, 2)
+                size = self._uint(p + 8, self._L)
+                if index == 0:
+                    break
+                objects[index] = (p + 8 + self._L, size)
+                p += 8 + self._L + _pad8(size)
+            self._heaps[addr] = objects
+        return self._heaps[addr]
+
+    # -- groups -------------------------------------------------------------- #
+    def _link_table(self, addr: int) -> Dict[str, Any]:
+        """Link name -> object header address (or ``("soft", path)``)."""
+        if addr in self._link_cache:
+            return self._link_cache[addr]
+        links: Dict[str, Any] = self._link_cache.setdefault(addr, {})
+        for mtype, _, data, _ in self._messages(addr):
+            if mtype == _SYMBOL_TABLE:
+                btree, heap = self._addr(data), self._addr(data + self._O)
+                if self._buf[heap:heap + 4] != b"HEAP":
+                    raise OSError(f"{self.filename}: bad local heap at {heap}.")
+                names_at = self._addr(heap + 8 + 2 * self._L)
+                for snod in self._btree_children(btree):
+                    if self._buf[snod:snod + 4] != b"SNOD":
+                        raise OSError(f"{self.filename}: bad symbol table node at {snod}.")
+                    entry = 2 * self._O + 24
+                    for i in range(self._uint(snod + 6, 2)):
+                        e = snod + 8 + i * entry
+                        name, _ = self._cstr(names_at + self._uint(e, self._O))
+                        links[name] = self._addr(e + self._O)
+            elif mtype == _LINK:
+                flags = self._buf[data + 1]
+                p = data + 2
+                kind = 0
+                if flags & 0x08:
+                    kind = self._buf[p]
+                    p += 1
+                p += (8 if flags & 0x04 else 0) + (1 if flags & 0x10 else 0)
+                width = 1 << (flags & 3)
+                n = self._uint(p, width)
+                name = self._buf[p + width:p + width + n].decode("utf-8")
+                p += width + n
+                if kind == 0:
+                    links[name] = self._addr(p)
+                elif kind == 1:
+                    links[name] = ("soft", self._buf[p + 2:p + 2 + self._uint(p, 2)].decode())
+                else:
+                    links[name] = ("external", "")
+            elif mtype == _LINK_INFO:
+                flags = self._buf[data + 1]
+                if self._addr(data + 2 + (8 if flags & 1 else 0)) is not None:
+                    raise self._fail("dense link storage (fractal heap)")
+        return links
+
+    def _btree_children(self, addr: int, chunk_rank: int = 0) -> Iterator[Any]:
+        """Leaf children of a version 1 B-tree: symbol table node addresses
+        for a group's tree, or ``(chunk offsets, filter mask, size,
+        address)`` for a chunk index of ``chunk_rank`` dimensions (the
+        dataset's, plus one)."""
+        buf = self._buf
+        node_type = 1 if chunk_rank else 0
+        if buf[addr:addr + 4] != b"TREE" or buf[addr + 4] != node_type:
+            raise OSError(f"{self.filename}: bad B-tree node at {addr}.")
+        level, entries = buf[addr + 5], self._uint(addr + 6, 2)
+        key_size = 8 + 8 * chunk_rank if chunk_rank else self._L
+        p = addr + 8 + 2 * self._O
+        for i in range(entries):
+            key = p + i * (key_size + self._O)
+            child = self._addr(key + key_size)
+            if level > 0:
+                yield from self._btree_children(child, chunk_rank)
+            elif not chunk_rank:
+                yield child
+            else:
+                size, mask = struct.unpack_from("<II", buf, key)
+                offsets = struct.unpack_from(f"<{chunk_rank}Q", buf, key + 8)
+                yield offsets, mask, size, child
+
+
+class Dataset:
+    """A dataset of a read :class:`File`; ``ds[...]`` reads it."""
+
+    def __init__(self, file: File, addr: int, path: str):
+        self.file, self._oh, self.name = file, addr, path
+        self._attrs_: Optional[Dict[str, Any]] = None
+        self._chunk_index: Optional[list] = None
+        self.filters: List[Tuple[int, Tuple[int, ...]]] = []
+        self.chunks: Optional[Tuple[int, ...]] = None
+        fill = None
+        for mtype, _, data, _ in file._messages(addr):
+            if mtype == _DATASPACE:
+                self._shape = file._dataspace(data)
+            elif mtype == _DATATYPE:
+                self.dtype, _ = file._dtype(data)
+            elif mtype == _LAYOUT:
+                self._layout(data)
+            elif mtype == _FILTERS:
+                self._filters(data)
+            elif mtype == _FILL:
+                version, p = file._buf[data], data + 4
+                if version == 3:
+                    defined, p = file._buf[data + 1] & 0x20, data + 2
+                else:
+                    defined = file._buf[data + 3]
+                if defined:
+                    size = file._uint(p, 4)
+                    fill = file._bytes(p + 4, size) if size else None
+            elif mtype == _FILL_OLD and fill is None:
+                size = file._uint(data, 4)
+                fill = file._bytes(data + 4, size) if size else None
+        self._fill = fill
+        for filter_id, _ in self.filters:
+            if filter_id not in (1, 2):
+                raise file._fail(f"the {_FILTER_NAMES.get(filter_id, filter_id)} filter ({path})")
+
+    def _layout(self, pos: int) -> None:
+        f = self.file
+        version, cls = f._buf[pos], f._buf[pos + 1]
+        if version not in (3, 4) or (version == 4 and cls == 2):
+            raise f._fail(f"data layout version {version}" + (" chunk indexes" if version == 4 else ""))
+        self._layout_class = cls
+        if cls == 0:
+            size = f._uint(pos + 2, 2)
+            self._compact = (pos + 4, size)
+        elif cls == 1:
+            self._data_addr = f._addr(pos + 2)
+        elif cls == 2:
+            rank = f._buf[pos + 2]
+            self._btree = f._addr(pos + 3)
+            dims = struct.unpack_from(f"<{rank}I", f._buf, pos + 3 + f._O)
+            self.chunks = tuple(dims[:-1])
+        else:
+            raise f._fail(f"the {'virtual' if cls == 3 else cls} data layout")
+
+    def _filters(self, pos: int) -> None:
+        f = self.file
+        version, count = f._buf[pos], f._buf[pos + 1]
+        p = pos + (8 if version == 1 else 2)
+        for _ in range(count):
+            filter_id = f._uint(p, 2)
+            if version == 1 or filter_id >= 256:
+                name_len = f._uint(p + 2, 2)
+                p += 4
+            else:
+                name_len = 0
+                p += 2
+            n_values = f._uint(p + 2, 2)
+            p += 4 + (_pad8(name_len) if version == 1 else name_len)
+            values = struct.unpack_from(f"<{n_values}I", f._buf, p)
+            p += 4 * n_values + (4 if version == 1 and n_values % 2 else 0)
+            self.filters.append((filter_id, values))
+
+    def __repr__(self) -> str:
+        return f"<HDF5 dataset {self.name!r}: shape {self.shape}, type {self.dtype}>"
+
+    @property
+    def shape(self) -> Optional[Tuple[int, ...]]:
+        return self._shape
+
+    @property
+    def attrs(self) -> Dict[str, Any]:
+        if self._attrs_ is None:
+            self._attrs_ = self.file._attr_table(self._oh)
+        return self._attrs_
+
+    @property
+    def parent(self) -> Group:
+        return self.file[posixpath.dirname(self.name) or "/"]
+
+    def __getitem__(self, key):
+        """Read the dataset; an int or a step-1 slice on the first axis (with
+        any index on the others) reads only the rows it selects."""
+        if self._shape is None:
+            raise self.file._fail(f"reading a dataset with a null dataspace ({self.name})")
+        if not isinstance(key, tuple):
+            key = (key,)
+        if not self._shape:
+            if key not in ((), (Ellipsis,)):
+                raise IndexError(f"{self.name} is a scalar dataset: index it with () or ...")
+            value = self._rows(0, 1)
+            return value[()] if key == () and isinstance(value, np.ndarray) else value
+        first, rest = (key[0], key[1:]) if key else (Ellipsis, ())
+        if first is not Ellipsis:
+            n = self._shape[0]
+            if isinstance(first, (int, np.integer)):
+                i = int(first) + n if first < 0 else int(first)
+                if not 0 <= i < n:
+                    raise IndexError(f"Index {int(first)} out of range for {self.name} of {n} rows.")
+                return self._rows(i, i + 1)[(0,) + rest]
+            if isinstance(first, slice) and first.step in (None, 1):
+                start, stop, _ = first.indices(n)
+                return self._rows(start, max(start, stop))[(slice(None),) + rest]
+        return self._rows(0, self._shape[0])[key]
+
+    def _rows(self, start: int, stop: int) -> np.ndarray:
+        """Rows ``[start, stop)`` of the first axis (the whole of a scalar)."""
+        f = self.file
+        shape = self._shape
+        row_shape = shape[1:] if shape else ()
+        out_shape = ((stop - start),) + row_shape if shape else ()
+        vlen = isinstance(self.dtype, VlenStr)
+        raw_dtype = np.dtype(f"V{8 + f._O}") if vlen else self.dtype
+        row_items = int(np.prod(row_shape))
+        count = (stop - start) * row_items if shape else 1
+        itemsize = raw_dtype.itemsize
+        if self._layout_class == 2:
+            raw = self._read_chunked(start, stop, raw_dtype)
+        elif self._layout_class == 0:
+            pos, _ = self._compact
+            raw = f._bytes(pos + start * row_items * itemsize, count * itemsize)
+        elif self._data_addr is None:
+            raw = self._filled(count, raw_dtype)
+        else:
+            raw = f._bytes(self._data_addr + start * row_items * itemsize, count * itemsize)
+        if vlen:
+            values = self._vlen_values(raw, count)
+            return np.array(values, dtype=object).reshape(out_shape) if shape else values[0]
+        arr = np.frombuffer(raw, self.dtype, count)
+        return arr.reshape(out_shape + self.dtype.shape)
+
+    def _vlen_values(self, raw: np.ndarray, count: int) -> List[bytes]:
+        """Heap IDs read into a buffer -> the strings they point at."""
+        f = self.file
+        out = []
+        data = raw.tobytes()
+        step = 8 + f._O
+        for i in range(count):
+            length = int.from_bytes(data[i * step:i * step + 4], "little")
+            collection = int.from_bytes(data[i * step + 4:i * step + 4 + f._O], "little")
+            index = int.from_bytes(data[i * step + 4 + f._O:(i + 1) * step], "little")
+            if length == 0 or collection == (1 << (8 * f._O)) - 1:
+                out.append(b"")
+                continue
+            start, size = f._global_heap(collection + f._base)[index]
+            out.append(f._buf[start:start + min(size, length)])
+        return out
+
+    def _filled(self, count: int, dtype: np.dtype) -> np.ndarray:
+        if self._fill is None:
+            return np.zeros(count * dtype.itemsize, np.uint8)
+        return np.tile(self._fill, count)
+
+    def _read_chunked(self, start: int, stop: int, dtype: np.dtype) -> np.ndarray:
+        f = self.file
+        shape = self._shape or (1,)
+        chunks = self.chunks
+        if self._chunk_index is None:
+            self._chunk_index = (
+                list(f._btree_children(self._btree, len(chunks) + 1)) if self._btree else []
+            )
+        out_shape = (stop - start,) + tuple(shape[1:])
+        out = self._filled(int(np.prod(out_shape)), dtype).view(dtype).reshape(out_shape)
+        flat = out.reshape(-1).view(np.uint8)
+        for offsets, mask, size, addr in self._chunk_index:
+            lo = offsets[0]
+            if lo >= stop or lo + chunks[0] <= start:
+                continue
+            raw = f._buf[addr:addr + size]
+            for i, (filter_id, values) in reversed(list(enumerate(self.filters))):
+                if mask & (1 << i):
+                    continue
+                if filter_id == 1:
+                    raw = zlib.decompress(raw)
+                else:
+                    raw = _unshuffle(raw, values[0] if values else dtype.itemsize)
+            block = np.frombuffer(raw, dtype, int(np.prod(chunks))).reshape(chunks)
+            src, dst = [], []
+            for d, (o, c, n) in enumerate(zip(offsets, chunks, shape)):
+                a, b = (max(o, start), min(o + c, stop)) if d == 0 else (o, min(o + c, n))
+                src.append(slice(a - o, b - o))
+                dst.append(slice(a - start, b - start) if d == 0 else slice(a, b))
+            out[tuple(dst)] = block[tuple(src)]
+        return flat
+
+
+# --------------------------------------------------------------------------- #
+# Writer
+# --------------------------------------------------------------------------- #
+
+_UNDEF = (1 << 64) - 1
+_LEAF_K, _INTERNAL_K = 4, 16  # h5py's group B-tree parameters
+_SNOD_SIZE = 8 + 2 * _LEAF_K * 40
+_TREE_SIZE = 24 + (2 * _INTERNAL_K + 1) * 8 + 2 * _INTERNAL_K * 8
+
+
+def _encode_dtype(dt: np.dtype) -> bytes:
+    """A version 1 datatype message for ``dt``, as h5py encodes it."""
+    order = 1 if dt.byteorder == ">" else 0
+    if dt.names is not None:
+        body = b""
+        for name in dt.names:
+            member, offset = dt.fields[name][:2]
+            encoded = name.encode() + b"\0"
+            body += encoded.ljust(_pad8(len(encoded)), b"\0")
+            body += struct.pack("<I28x", offset) + _encode_dtype(member)
+        return struct.pack("<BHxI", 0x16, len(dt.names), dt.itemsize) + body
+    if dt.kind == "b":
+        base = struct.pack("<BBxxIHH", 0x10, 0x08, 1, 0, 8)
+        names = b"FALSE\0\0\0TRUE\0\0\0\0"
+        return struct.pack("<BHxI", 0x18, 2, 1) + base + names + b"\x00\x01"
+    if dt.kind in "iu":
+        return struct.pack("<BBxxIHH", 0x10, order | (8 if dt.kind == "i" else 0), dt.itemsize, 0,
+                           8 * dt.itemsize)
+    if dt.kind == "f":
+        exp, mant, bias = {2: (5, 10, 15), 4: (8, 23, 127), 8: (11, 52, 1023)}[dt.itemsize]
+        bits = 8 * dt.itemsize
+        return struct.pack("<BBBxIHHBBBBI", 0x11, order | 0x20, bits - 1, dt.itemsize, 0, bits,
+                           mant, exp, 0, mant, bias)
+    if dt.kind == "S":
+        return struct.pack("<BBxxI", 0x13, 1, dt.itemsize)  # null-padded, ASCII
+    raise TypeError(f"Cannot write a dataset or attribute of dtype {dt} to HDF5.")
+
+
+def _encode_dataspace(shape: Tuple[int, ...]) -> bytes:
+    return struct.pack("<BBBx4x", 1, len(shape), 0) + struct.pack(f"<{len(shape)}Q", *shape)
+
+
+def _message(mtype: int, data: bytes) -> bytes:
+    data = data.ljust(_pad8(len(data)), b"\0")
+    if len(data) > 0xFFFF:
+        raise ValueError(f"An HDF5 object header message of {len(data)} bytes exceeds 64 KiB.")
+    return struct.pack("<HHB3x", mtype, len(data), 0) + data
+
+
+def _as_array(value: Any) -> np.ndarray:
+    if isinstance(value, str):
+        value = value.encode("utf-8")
+    if isinstance(value, bytes):
+        return np.array(np.bytes_(value) if value else np.bytes_(b"\0"))
+    if isinstance(value, bool):
+        return np.array(value)
+    if isinstance(value, int):
+        return np.array(value, np.int64)
+    if isinstance(value, float):
+        return np.array(value, np.float64)
+    return np.asarray(value)
+
+
+class WritableGroup:
+    """A group being built by :class:`Writer`."""
+
+    def __init__(self):
+        self.children: Dict[str, Any] = {}
+        self.attrs: Dict[str, Any] = {}
+
+    def _parent_of(self, name: str) -> Tuple["WritableGroup", str]:
+        """The group that holds ``name`` (made where missing), and its last part."""
+        parts = [p for p in name.split("/") if p]
+        group = self
+        for part in parts[:-1]:
+            group = group.children.setdefault(part, WritableGroup())
+        return group, parts[-1]
+
+    def require_group(self, name: str) -> "WritableGroup":
+        parent, leaf = self._parent_of(name)
+        return parent.children.setdefault(leaf, WritableGroup())
+
+    def create_dataset(self, name: str, data: np.ndarray) -> "WritableDataset":
+        parent, leaf = self._parent_of(name)
+        if leaf in parent.children:
+            raise ValueError(f"{name!r} already exists.")
+        _encode_dtype(np.asarray(data).dtype)  # fail now on an unwritable dtype
+        parent.children[leaf] = WritableDataset(np.ascontiguousarray(data))
+        return parent.children[leaf]
+
+
+class WritableDataset:
+    def __init__(self, data: np.ndarray):
+        self.data = data
+        self.attrs: Dict[str, Any] = {}
+
+
+class Writer(WritableGroup):
+    """Builds an HDF5 file in memory and writes it on ``close`` (or on
+    leaving a ``with`` block without an exception): the root group."""
+
+    def __init__(self, path: str):
+        super().__init__()
+        self.filename = str(path)
+
+    def __enter__(self) -> "Writer":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is None:
+            self.close()
+
+    def close(self) -> None:
+        self._blocks: List[Tuple[int, Any]] = []
+        self._eof = 96  # the superblock
+        root, stab = self._write_group(self)
+        superblock = SIGNATURE + struct.pack("<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, _LEAF_K, _INTERNAL_K, 0)
+        superblock += struct.pack("<4Q", 0, _UNDEF, self._eof, _UNDEF)
+        superblock += struct.pack("<QQII2Q", 0, root, 1, 0, *stab)
+        self._blocks.append((0, superblock))
+        tmp = self.filename + ".tmp"
+        with open(tmp, "wb") as fh:
+            for addr, data in sorted(self._blocks, key=lambda b: b[0]):
+                fh.seek(addr)
+                fh.write(data)
+            fh.truncate(self._eof)
+        os.replace(tmp, self.filename)
+
+    def _reserve(self, size: int) -> int:
+        addr = self._eof
+        self._eof += _pad8(size)
+        return addr
+
+    def _object_header(self, messages: List[bytes]) -> int:
+        body = b"".join(messages)
+        addr = self._reserve(16 + len(body))
+        self._blocks.append((addr, struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body))
+        return addr
+
+    def _attribute_messages(self, attrs: Dict[str, Any]) -> List[bytes]:
+        out = []
+        for name, value in attrs.items():
+            arr = _as_array(value)
+            encoded = name.encode() + b"\0"
+            dtype, space = _encode_dtype(arr.dtype), _encode_dataspace(arr.shape)
+            data = struct.pack("<BxHHH", 1, len(encoded), len(dtype), len(space))
+            for part in (encoded, dtype, space):
+                data += part.ljust(_pad8(len(part)), b"\0")
+            out.append(_message(_ATTRIBUTE, data + arr.tobytes()))
+        return out
+
+    def _write_dataset(self, ds: WritableDataset) -> int:
+        data = ds.data
+        if data.nbytes:
+            addr = self._reserve(data.nbytes)
+            self._blocks.append((addr, memoryview(data.reshape(-1).view(np.uint8))))
+        else:
+            addr = _UNDEF
+        messages = [
+            _message(_DATASPACE, _encode_dataspace(data.shape)),
+            _message(_DATATYPE, _encode_dtype(data.dtype)),
+            _message(_FILL, struct.pack("<4B", 2, 2, 2, 0)),  # late, if set, undefined
+            _message(_LAYOUT, struct.pack("<BBQQ", 3, 1, addr, data.nbytes)),
+        ]
+        return self._object_header(messages + self._attribute_messages(ds.attrs))
+
+    def _write_group(self, group: WritableGroup) -> Tuple[int, Tuple[int, int]]:
+        """Write a group and everything in it; return its object header
+        address and its (B-tree, local heap) addresses."""
+        names = sorted(group.children, key=lambda n: n.encode())
+        entries = []
+        for name in names:
+            child = group.children[name]
+            if isinstance(child, WritableGroup):
+                addr, stab = self._write_group(child)
+                entries.append((addr, 1, stab))
+            else:
+                entries.append((self._write_dataset(child), 0, (0, 0)))
+
+        heap, offsets = bytearray(8), []  # offset 0 is the empty name
+        for name in names:
+            offsets.append(len(heap))
+            encoded = name.encode() + b"\0"
+            heap += encoded.ljust(_pad8(len(encoded)), b"\0")
+        free = len(heap)
+        heap += struct.pack("<QQ", 1, 16)  # the free block, last of its list
+        heap_addr = self._reserve(32)
+        segment = self._reserve(len(heap))
+        self._blocks.append((heap_addr, b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap), free, segment)))
+        self._blocks.append((segment, bytes(heap)))
+
+        # Symbol table nodes of up to 2 * leaf K entries, keyed by the
+        # heap offset of their last name.
+        level: List[Tuple[int, int, int]] = []  # (address, first key, last key)
+        for i in range(0, len(entries), 2 * _LEAF_K):
+            snod = self._reserve(_SNOD_SIZE)
+            block = bytearray(b"SNOD" + struct.pack("<BxH", 1, len(entries[i:i + 2 * _LEAF_K])))
+            for j, (addr, cache, stab) in enumerate(entries[i:i + 2 * _LEAF_K]):
+                block += struct.pack("<QQII2Q", offsets[i + j], addr, cache, 0, *stab)
+            self._blocks.append((snod, bytes(block.ljust(_SNOD_SIZE, b"\0"))))
+            level.append((snod, 0, offsets[min(i + 2 * _LEAF_K, len(entries)) - 1]))
+        depth = 0
+        while True:
+            nodes = []
+            groups = [level[i:i + 2 * _INTERNAL_K] for i in range(0, len(level), 2 * _INTERNAL_K)]
+            addrs = [self._reserve(_TREE_SIZE) for _ in groups or [[]]]
+            for n, children in enumerate(groups or [[]]):
+                left = addrs[n - 1] if n else _UNDEF
+                right = addrs[n + 1] if n + 1 < len(addrs) else _UNDEF
+                block = bytearray(b"TREE" + struct.pack("<BBHQQ", 0, depth, len(children), left, right))
+                block += struct.pack("<Q", groups[n - 1][-1][2] if n else 0)
+                for addr, _, last in children:
+                    block += struct.pack("<QQ", addr, last)
+                self._blocks.append((addrs[n], bytes(block.ljust(_TREE_SIZE, b"\0"))))
+                nodes.append((addrs[n], 0, children[-1][2] if children else 0))
+            if len(nodes) == 1:
+                btree = nodes[0][0]
+                break
+            level, depth = nodes, depth + 1
+
+        messages = [_message(_SYMBOL_TABLE, struct.pack("<QQ", btree, heap_addr))]
+        return self._object_header(messages + self._attribute_messages(group.attrs)), (btree, heap_addr)

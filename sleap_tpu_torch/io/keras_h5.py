@@ -8,7 +8,8 @@ differences of the Keras models:
 - UNet middle blocks carry ``_middle_expand`` / ``_middle_contract`` infixes;
 - head layers get a Keras uniquing suffix (``CentroidConfmapsHead_0``).
 
-``h5py`` is imported inside the function: the package imports without it.
+The file is read with the port's own HDF5 reader (:mod:`sleap_tpu_torch.io.hdf5`),
+so no ``h5py`` is needed.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import re
 from typing import Dict
 
 import numpy as np
+
+from sleap_tpu_torch.io import hdf5
 
 _STRIDE_INFIX = re.compile(r"_s\d+_to_s\d+")
 _MIDDLE_INFIX = re.compile(r"_middle_(expand|contract)")
@@ -35,16 +38,8 @@ def _canonical(layer_name: str) -> str:
 
 def read_keras_weights(h5_path: str) -> Dict[str, Dict[str, np.ndarray]]:
     """``{layer name: {weight name: array}}`` from a Keras ``.h5`` file."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            f"Reading Keras weights ({h5_path}) needs h5py, which is not installed. "
-            "Pass the weights as a params tree of numpy arrays instead."
-        ) from e
-
     out: Dict[str, Dict[str, np.ndarray]] = {}
-    with h5py.File(h5_path, "r") as f:
+    with hdf5.File(h5_path) as f:
         grp = f["model_weights"] if "model_weights" in f else f
         layer_names = [
             n.decode() if isinstance(n, bytes) else n for n in grp.attrs.get("layer_names", [])
@@ -57,7 +52,7 @@ def read_keras_weights(h5_path: str) -> Dict[str, Dict[str, np.ndarray]]:
             weights: Dict[str, np.ndarray] = {}
 
             def visit(name, obj, weights=weights):
-                if isinstance(obj, h5py.Dataset):
+                if isinstance(obj, hdf5.Dataset):
                     weights[name.split("/")[-1].split(":")[0]] = obj[:]
 
             grp[lname].visititems(visit)

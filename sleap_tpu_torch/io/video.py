@@ -1,35 +1,336 @@
-"""Videos over in-memory frames.
+"""Videos: uniform frame access over several storage backends.
 
-The numpy backend of :class:`sleap_tpu.io.video.Video`, which is what
-``predict`` builds for numpy frames. Media files and ``.slp``-embedded
-videos need ``cv2`` or ``h5py`` and are not read by the port yet
-(ROADMAP.md, queue 1).
+A copy of :mod:`sleap_tpu.io.video` without ``attr`` and ``h5py``: frames
+come back as numpy (H, W, C) arrays from
+
+- :class:`HDF5Video`: raw frames in an HDF5 dataset (``channels_last`` or
+  ``channels_first``), or encoded frames embedded in a ``.pkg.slp`` with
+  their ``frame_numbers`` and ``source_video``, read by the port's own HDF5
+  reader (:mod:`sleap_tpu_torch.io.hdf5`) and PNG decoder
+  (:mod:`sleap_tpu_torch.io.png`); JPEG frames need ``cv2``;
+- :class:`NumpyVideo`: an in-memory array or a ``.npy`` file;
+- :class:`MediaVideo` (mp4, avi, ...) and :class:`SingleImageVideo`, which
+  need ``cv2`` and import it only when they read a frame;
+- :class:`DummyVideo`, a placeholder of a given shape.
+
+:class:`Video` wraps a backend and (de)serializes it as the ``videos_json``
+entries of ``.slp`` files. Videos compare by identity, as the port's
+``Labels`` registers them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import json
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from sleap_tpu_torch.io import hdf5, png
 
-class Video:
-    """Frames (n, H, W, C) in memory; (n, H, W) gains a channel axis.
-    Compared by identity, as the JAX package compares numpy videos."""
 
-    def __init__(self, data: np.ndarray):
-        data = np.asarray(data)
-        self.data = data[..., None] if data.ndim == 3 else data
+def _import_cv2(what: str, hint: str = "Convert the video to an HDF5 dataset or embed "
+                "its frames in a .slp to read it without cv2."):
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{what} needs cv2 (OpenCV), which is not installed. {hint}") from e
+    return cv2
 
-    @classmethod
-    def from_numpy(cls, data: np.ndarray) -> "Video":
-        return cls(data)
 
-    def __repr__(self) -> str:
-        return f"Video(shape={self.shape})"
+@dataclass(eq=False)
+class DummyVideo:
+    """A placeholder video of blank frames."""
+
+    filename: str = ""
+    height: int = 2000
+    width: int = 2000
+    frames: int = 10000
+    channels: int = 1
+    dummy: bool = True
+
+    def get_frame(self, idx: int) -> np.ndarray:
+        return np.zeros((self.height, self.width, self.channels), dtype="uint8")
+
+
+@dataclass(eq=False)
+class MediaVideo:
+    """A media file (mp4, avi, ...) decoded by OpenCV, read under a lock;
+    sequential reads do not seek.
+
+    ``grayscale`` None detects it from the first frame (all channels
+    equal); ``bgr`` flips OpenCV's BGR to RGB.
+    """
+
+    filename: str = None
+    grayscale: Optional[bool] = None
+    bgr: bool = True
+    dataset: str = ""
+    input_format: str = ""
+
+    EXTS = ("mp4", "avi", "mov", "mj2", "mkv")
+
+    def __post_init__(self):
+        self._lock = threading.RLock()
+        self._reader_ = None
+        self._test_frame_ = None
 
     @property
-    def num_frames(self) -> int:
+    def _reader(self):
+        if self._reader_ is None:
+            if not os.path.isfile(self.filename):
+                raise FileNotFoundError(f"Could not find video file named {self.filename}.")
+            cv2 = _import_cv2(f"Reading the media video {self.filename}")
+            self._reader_ = cv2.VideoCapture(self.filename)
+        return self._reader_
+
+    @property
+    def test_frame(self) -> np.ndarray:
+        if self._test_frame_ is None:
+            self._test_frame_ = self.get_frame(0, grayscale=False)
+        return self._test_frame_
+
+    @property
+    def fps(self) -> float:
+        cv2 = _import_cv2(f"Reading the media video {self.filename}")
+        return self._reader.get(cv2.CAP_PROP_FPS)
+
+    @property
+    def frames(self) -> int:
+        cv2 = _import_cv2(f"Reading the media video {self.filename}")
+        return int(self._reader.get(cv2.CAP_PROP_FRAME_COUNT))
+
+    @property
+    def is_grayscale(self) -> bool:
+        if self.grayscale is None:
+            frame = self.test_frame
+            self.grayscale = bool(np.all(frame[..., 0] == frame[..., -1]))
+        return self.grayscale
+
+    @property
+    def channels(self) -> int:
+        return 1 if self.is_grayscale else self.test_frame.shape[2]
+
+    @property
+    def height(self) -> int:
+        return self.test_frame.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.test_frame.shape[1]
+
+    def reset(
+        self,
+        filename: Optional[str] = None,
+        grayscale: Optional[bool] = None,
+        bgr: Optional[bool] = None,
+    ) -> None:
+        """Drop the open reader and cached test frame, and optionally
+        repoint or reconfigure the backend. ``grayscale`` omitted means
+        detect it again from the file, whether or not a filename is passed
+        (the reference's behaviour; the JAX package re-detects only with a
+        new filename)."""
+        if self._reader_ is not None:
+            self._reader_.release()
+        self._reader_ = None
+        self._test_frame_ = None
+        if filename is not None:
+            self.filename = filename
+        self.grayscale = grayscale
+        if bgr is not None:
+            self.bgr = bgr
+
+    def get_frame(self, idx: int, grayscale: Optional[bool] = None) -> np.ndarray:
+        cv2 = _import_cv2(f"Reading the media video {self.filename}")
+        with self._lock:
+            reader = self._reader
+            if reader.get(cv2.CAP_PROP_POS_FRAMES) != idx:
+                reader.set(cv2.CAP_PROP_POS_FRAMES, idx)
+            success, frame = reader.read()
+        if not success or frame is None:
+            raise KeyError(f"Unable to load frame {idx} from {self.filename}.")
+        if grayscale is None:
+            grayscale = self.is_grayscale
+        if grayscale:
+            frame = frame[..., 0][..., None]
+        elif self.bgr:
+            frame = frame[..., ::-1]
+        return frame
+
+
+@dataclass(eq=False)
+class HDF5Video:
+    """Frames in an HDF5 dataset: raw (frames, H, W, C) or (frames, C, H,
+    W), or encoded PNG/JPEG rows of a ``.pkg.slp`` (a ``format`` attribute,
+    with a ``frame_numbers`` sibling mapping original frame numbers to
+    rows, and the original video's JSON under ``source_video``).
+
+    With ``convert_range``, frames whose maximum is at most 1 are scaled to
+    uint8. With ``enable_source_video``, a frame missing from the file is
+    read from the recorded source video.
+    """
+
+    filename: str = None
+    dataset: str = None
+    input_format: str = "channels_last"
+    convert_range: bool = True
+    enable_source_video: bool = True
+
+    EXTS = ("h5", "hdf5", "slp")
+
+    def __post_init__(self):
+        self._file_ = None
+        self._dataset_ = None
+        self._format_ = ""
+        self._frame_map: Optional[Dict[int, int]] = None
+        self._source_video_dict = None
+
+    def _open(self) -> hdf5.Dataset:
+        if self._file_ is None:
+            self._file_ = hdf5.File(self.filename)
+            name = self.dataset
+            if name is None or name not in self._file_:
+                raise KeyError(f"Dataset {self.dataset!r} not found in {self.filename}.")
+            obj = self._file_[name]
+            if isinstance(obj, hdf5.Group) and "video" in obj:
+                obj = obj["video"]  # embedded frames live under <dataset>/video
+            self._dataset_ = obj
+            fmt = obj.attrs.get("format", "")
+            self._format_ = fmt.decode() if isinstance(fmt, bytes) else str(fmt)
+            parent = obj.parent
+            if "frame_numbers" in parent:
+                self._frame_map = {int(n): i for i, n in enumerate(parent["frame_numbers"][:])}
+            if "source_video" in parent and "json" in parent["source_video"].attrs:
+                raw = parent["source_video"].attrs["json"]
+                self._source_video_dict = json.loads(raw.decode() if isinstance(raw, bytes) else raw)
+        return self._dataset_
+
+    @property
+    def embedded_frame_inds(self) -> List[int]:
+        """Original frame numbers in the file's row order."""
+        self._open()
+        if self._frame_map is None:
+            return list(range(self.frames))
+        return list(self._frame_map.keys())
+
+    @property
+    def has_embedded_images(self) -> bool:
+        """True when the file caches per-frame images: a frame-number
+        mapping exists, or the rows are encoded."""
+        self._open()
+        if self._frame_map is not None:
+            return len(self._frame_map) > 0
+        return bool(self._format_)
+
+    @property
+    def source_video(self) -> Optional["Video"]:
+        self._open()
+        if self._source_video_dict is None:
+            return None
+        return Video.from_dict(self._source_video_dict)
+
+    @property
+    def test_frame(self) -> np.ndarray:
+        if not self.embedded_frame_inds:
+            raise ValueError(f"{self.filename}: no frames are embedded in this package.")
+        return self.get_frame(self.embedded_frame_inds[0])
+
+    @property
+    def frames(self) -> int:
+        return self._open().shape[0]
+
+    def _dim(self, channels_last: int, channels_first: int, of_frame: int) -> int:
+        if self.has_embedded_images:
+            return self.test_frame.shape[of_frame]
+        shape = self._open().shape
+        return shape[channels_first] if self.input_format == "channels_first" else shape[channels_last]
+
+    @property
+    def channels(self) -> int:
+        return self._dim(3, 1, 2)
+
+    @property
+    def height(self) -> int:
+        return self._dim(1, 2, 0)
+
+    @property
+    def width(self) -> int:
+        return self._dim(2, 3, 1)
+
+    @property
+    def last_frame_idx(self) -> int:
+        """The highest original frame number where a frame-number mapping
+        exists, else the last row."""
+        self._open()
+        if self._frame_map:
+            return max(self._frame_map.keys())
+        return self.frames - 1
+
+    def close(self) -> None:
+        """Release the open file."""
+        if self._file_ is not None:
+            self._file_.close()
+        self.__post_init__()
+
+    def get_frame(self, idx: int) -> np.ndarray:
+        ds = self._open()
+        row, missing = idx, False
+        if self._frame_map is not None:
+            missing = idx not in self._frame_map
+            row = self._frame_map.get(idx, idx)
+        elif not 0 <= idx < ds.shape[0]:
+            missing = True
+        if missing:
+            if self.enable_source_video and self._source_video_dict is not None:
+                return self.source_video.get_frame(idx)
+            raise IndexError(f"Frame {idx} not embedded in {self.filename}.")
+        frame = ds[row]
+        if self._format_:
+            encoded = np.asarray(frame).tobytes()
+            if self._format_ == "png":
+                frame = png.imdecode(encoded)
+            else:
+                cv2 = _import_cv2(f"Decoding {self._format_} frames of {self.filename}")
+                frame = cv2.imdecode(np.frombuffer(encoded, np.uint8), cv2.IMREAD_UNCHANGED)
+            # No channel flip: frames are encoded straight from RGB arrays,
+            # so cv2's BGR order on decode gives back the original order.
+            if frame.ndim == 2:
+                frame = frame[..., None]
+        elif self.input_format == "channels_first":
+            frame = np.transpose(frame, (1, 2, 0))
+        if self.convert_range and np.max(frame) <= 1.0:
+            frame = (frame * 255).astype(np.uint8)
+        return frame
+
+
+@dataclass(eq=False)
+class NumpyVideo:
+    """Frames (frames, H, W, C) from an in-memory array or a ``.npy`` file;
+    (frames, H, W) gains a channel axis."""
+
+    filename: Union[str, np.ndarray] = None
+
+    EXTS = ("npy", "npz")
+
+    def __post_init__(self):
+        self._data_ = None
+
+    @property
+    def data(self) -> np.ndarray:
+        if self._data_ is None:
+            if isinstance(self.filename, np.ndarray):
+                arr = self.filename
+                self.filename = "numpy_video"
+            else:
+                arr = np.load(self.filename, mmap_mode="r")
+            self._data_ = arr[..., None] if arr.ndim == 3 else arr
+        return self._data_
+
+    @property
+    def frames(self) -> int:
         return self.data.shape[0]
 
     @property
@@ -44,10 +345,231 @@ class Video:
     def channels(self) -> int:
         return self.data.shape[3]
 
+    def get_frame(self, idx: int) -> np.ndarray:
+        return np.asarray(self.data[idx])
+
+
+@dataclass(eq=False)
+class SingleImageVideo:
+    """Still images (one per frame) read with OpenCV as RGB."""
+
+    filename: Optional[str] = None
+    filenames: List[str] = field(default_factory=list)
+    height_: Optional[int] = None
+    width_: Optional[int] = None
+    channels_: Optional[int] = None
+    grayscale: Optional[bool] = None
+
+    EXTS = ("jpg", "jpeg", "png", "bmp", "tif", "tiff")
+
+    def __post_init__(self):
+        self._cache: Dict[int, np.ndarray] = {}
+        if not self.filenames and self.filename:
+            self.filenames = [self.filename]
+        if self.filename is None and self.filenames:
+            self.filename = self.filenames[0]
+
+    @property
+    def test_frame(self) -> np.ndarray:
+        return self.get_frame(0)
+
+    @property
+    def frames(self) -> int:
+        return len(self.filenames)
+
+    @property
+    def height(self) -> int:
+        return self.height_ or self.test_frame.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.width_ or self.test_frame.shape[1]
+
+    @property
+    def channels(self) -> int:
+        return self.channels_ or self.test_frame.shape[2]
+
+    def get_frame(self, idx: int) -> np.ndarray:
+        if idx not in self._cache:
+            cv2 = _import_cv2(f"Reading the image {self.filenames[idx]}")
+            img = cv2.imread(self.filenames[idx], cv2.IMREAD_UNCHANGED)
+            if img is None:
+                raise KeyError(f"Unable to read image {self.filenames[idx]}.")
+            if img.ndim == 2:
+                img = img[..., None]
+            elif img.shape[-1] >= 3:
+                img = img[..., 2::-1]  # BGR(A) -> RGB
+            if self.grayscale:
+                img = img[..., :1]
+            self._cache[idx] = img
+        return self._cache[idx]
+
+
+BackendType = Union[MediaVideo, HDF5Video, NumpyVideo, SingleImageVideo, DummyVideo]
+_BACKENDS = {cls.__name__: cls for cls in (MediaVideo, HDF5Video, NumpyVideo, SingleImageVideo, DummyVideo)}
+
+
+class Video:
+    """A backend behind one interface: ``get_frame``, ``num_frames``,
+    ``shape``; unknown attributes are the backend's. ``Video(array)`` is
+    ``Video.from_numpy(array)``."""
+
+    def __init__(self, backend: Union[BackendType, np.ndarray]):
+        if isinstance(backend, np.ndarray):
+            backend = NumpyVideo(filename=backend)
+        self.backend = backend
+
+    def __getattr__(self, name):
+        if name == "backend" or name.startswith("__"):
+            raise AttributeError(name)
+        return getattr(self.backend, name)
+
+    def __repr__(self) -> str:
+        return f"Video(filename={self.filename!r}, backend={type(self.backend).__name__})"
+
+    @property
+    def num_frames(self) -> int:
+        return self.backend.frames
+
     @property
     def shape(self) -> Tuple[int, int, int, int]:
-        return tuple(self.data.shape)
+        b = self.backend
+        return (b.frames, b.height, b.width, b.channels)
+
+    def __len__(self) -> int:
+        return self.num_frames
 
     def get_frame(self, idx: int) -> np.ndarray:
         """Frame ``idx`` as an (H, W, C) array."""
-        return np.asarray(self.data[idx])
+        return self.backend.get_frame(idx)
+
+    def get_frames(self, idxs: Union[int, Sequence[int]]) -> np.ndarray:
+        if np.isscalar(idxs):
+            idxs = [int(idxs)]
+        return np.stack([self.get_frame(i) for i in idxs], axis=0)
+
+    def __getitem__(self, idxs) -> np.ndarray:
+        """Always (n, H, W, C), a scalar index included."""
+        if isinstance(idxs, slice):
+            idxs = list(range(*idxs.indices(self.num_frames)))
+        return self.get_frames(idxs)
+
+    @property
+    def is_missing(self) -> bool:
+        fn = getattr(self.backend, "filename", None)
+        if fn is None or isinstance(fn, np.ndarray) or isinstance(self.backend, DummyVideo):
+            return False
+        return not os.path.exists(fn)
+
+    @property
+    def filename(self) -> str:
+        fn = getattr(self.backend, "filename", "")
+        return fn if isinstance(fn, str) else "numpy_video"
+
+    # -- construction and serialization ------------------------------------ #
+    @classmethod
+    def from_numpy(cls, data: np.ndarray) -> "Video":
+        return cls(NumpyVideo(filename=np.asarray(data)))
+
+    @classmethod
+    def from_filename(cls, filename: str, **kwargs) -> "Video":
+        """A backend chosen by the filename's extension; keyword arguments
+        the backend does not take are dropped."""
+        filename = fixup_path(filename)
+        low = filename.lower()
+        if low.endswith(HDF5Video.EXTS):
+            keep, bcls = ("dataset", "input_format", "convert_range"), HDF5Video
+        elif low.endswith(NumpyVideo.EXTS):
+            keep, bcls = (), NumpyVideo
+        elif low.endswith(MediaVideo.EXTS):
+            keep, bcls = ("grayscale", "bgr"), MediaVideo
+        elif low.endswith(SingleImageVideo.EXTS):
+            keep = ("filenames", "height_", "width_", "channels_", "grayscale")
+            bcls = SingleImageVideo
+        else:
+            raise ValueError(f"Could not detect video backend for: {filename}")
+        return cls(bcls(filename=filename, **{k: v for k, v in kwargs.items() if k in keep}))
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any], video_search=None) -> "Video":
+        """From a ``videos_json`` entry, ``{"backend": {...fields...}}``:
+        by its ``type`` where it names one, else by its fields and the
+        filename's extension (an unknown one gives a :class:`DummyVideo`)."""
+        bd = dict(d.get("backend", d))
+        bd.pop("backend", None)
+        explicit = bd.pop("type", None)
+        filename = bd.pop("filename", None) or bd.pop("file", None)
+        if video_search is not None:
+            filename = video_search(filename) or filename
+        if explicit == "ImgStoreVideo":
+            raise NotImplementedError(
+                f"ImgStore videos ({filename}) are not ported yet (ROADMAP.md, queue 1)."
+            )
+        if explicit in _BACKENDS:
+            bcls = _BACKENDS[explicit]
+            names = {f.name for f in dataclasses.fields(bcls)}
+            return cls(bcls(filename=filename, **{k: v for k, v in bd.items() if k in names}))
+        if bd.get("dummy"):
+            keep = ("height", "width", "frames", "channels", "dummy")
+            return cls(DummyVideo(filename=filename or "", **{k: v for k, v in bd.items() if k in keep}))
+        if bd.get("filenames"):
+            return cls(SingleImageVideo(filename=filename, filenames=bd["filenames"],
+                                        grayscale=bd.get("grayscale")))
+        try:
+            return cls.from_filename(filename, **bd)
+        except ValueError:
+            return cls(DummyVideo(filename=filename or ""))
+
+    def to_dict(self) -> Dict[str, Any]:
+        b = self.backend
+        d = {f.name: getattr(b, f.name) for f in dataclasses.fields(b)}
+        if isinstance(d.get("filename"), np.ndarray):
+            d["filename"] = "numpy_video"
+        d["type"] = type(b).__name__
+        d.setdefault("dataset", getattr(b, "dataset", "") or "")
+        d.setdefault("input_format", getattr(b, "input_format", "") or "")
+        return {"backend": d}
+
+
+def load_video(
+    filename: str,
+    grayscale: Optional[bool] = None,
+    dataset: Optional[str] = None,
+    channels_first: bool = False,
+    **kwargs,
+) -> Video:
+    """Open a video from disk: a media file, an HDF5 dataset (embedded
+    ``.slp`` frames too), a ``.npy`` array, a still image, or a directory
+    of images (one frame each)."""
+    if os.path.isdir(filename):
+        files = sorted(
+            os.path.join(filename, f)
+            for f in os.listdir(filename)
+            if f.lower().endswith(SingleImageVideo.EXTS)
+        )
+        if not files:
+            raise ValueError(f"No images found in directory: {filename}")
+        return Video(SingleImageVideo(filenames=files, grayscale=grayscale))
+    if grayscale is not None:
+        kwargs["grayscale"] = grayscale
+    if dataset is not None:
+        kwargs["dataset"] = dataset
+    if channels_first:
+        kwargs["input_format"] = "channels_first"
+    return Video.from_filename(filename, **kwargs)
+
+
+def fixup_path(path: str, search_paths: Optional[List[str]] = None) -> str:
+    """``path`` if it exists, else its basename in the working directory or
+    in (or under) one of ``search_paths``, else ``path`` unchanged."""
+    if not isinstance(path, str) or os.path.exists(path):
+        return path
+    basename = os.path.basename(path)
+    candidates = [os.path.join(os.getcwd(), basename)]
+    for sp in search_paths or []:
+        candidates.append(os.path.join(sp, basename))
+        candidates.append(os.path.join(sp, path))
+    for c in candidates:
+        if os.path.exists(c):
+            return c
+    return path

@@ -13,9 +13,9 @@ where the flow-shift work runs:
   batched :func:`~sleap_tpu_torch.ops.optical_flow.lk_flow_pyramids` call,
   read back to the host once.
 
-Reading and writing ``.slp`` files is not ported yet, so the retrack CLI of
-the JAX module is not either (ROADMAP.md, queue 1, item 7): :func:`retrack`
-works on in-memory ``Labels``.
+:func:`retrack` works on in-memory ``Labels``; re-tracking a predictions
+file is the tracking-only branch of ``sleap_tpu_torch.cli.track`` (a
+tracker and no model), as the JAX module's retrack CLI does.
 """
 
 from __future__ import annotations

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from sleap_tpu_torch.config import TrainingJobConfig
-from sleap_tpu_torch.core.labels import Labels
+from sleap_tpu_torch.core.labels import Labels, load_file
 from sleap_tpu_torch.data.augmentation import augment
 from sleap_tpu_torch.data.instance_centroids import get_instance_centroids
 from sleap_tpu_torch.data.normalization import (
@@ -58,6 +58,7 @@ from sleap_tpu_torch.data.normalization import (
 )
 from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image
 from sleap_tpu_torch.data.streaming import stage_to_device
+from sleap_tpu_torch.io.video import _import_cv2
 from sleap_tpu_torch.models.model import Model, init_params_lecun
 from sleap_tpu_torch.ops.confmaps import (
     make_confmaps,
@@ -93,17 +94,14 @@ class DataReaders:
     @classmethod
     def from_config(cls, labels_config, training: Any = None, validation: Any = None,
                     test: Any = None) -> "DataReaders":
-        """In-memory ``Labels`` (``.slp`` paths are not read by the port
-        yet). Only user instances train; without validation labels, the
-        training labels are split by the config's indices or fraction."""
+        """In-memory ``Labels`` or ``.slp`` paths. Only user instances
+        train; without validation labels, the training labels are split by
+        the config's indices or fraction."""
 
         def load(x):
             if x is None or isinstance(x, Labels):
                 return x
-            raise NotImplementedError(
-                f"Reading labels from {x!r} is not ported yet (ROADMAP.md, queue 1): "
-                "pass in-memory Labels."
-            )
+            return load_file(x)
 
         training = load(training or labels_config.training_labels)
         validation = load(validation or labels_config.validation_labels)
@@ -132,8 +130,10 @@ def size_match_image(img: np.ndarray, target_hw: Tuple[int, int]) -> Tuple[np.nd
     scale = min(th / h, tw / w)
     new_h, new_w = int(round(h * scale)), int(round(w * scale))
     if (new_h, new_w) != (h, w):
-        import cv2
-
+        cv2 = _import_cv2(
+            "Resizing frames of videos that differ in size",
+            hint="Give the videos one frame size, or train on each size on its own.",
+        )
         resized = cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
         if resized.ndim == 2:
             resized = resized[..., None]

@@ -295,9 +295,9 @@ def test_topdown_multiclass_crops_default_to_the_class_count():
     pred = tm.TopDownMultiClassPredictor(device=torch.device("cpu"), centroid_model=tc,
                                          confmap_model=ti_)
     assert pred._max_peaks == 2
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tm.TopDownMultiClassPredictor(device=torch.device("cpu"), centroid_model=None,
-                                      confmap_model=ti_)
+    gt_mode = tm.TopDownMultiClassPredictor(device=torch.device("cpu"), centroid_model=None,
+                                            confmap_model=ti_)
+    assert gt_mode._max_peaks == 2 and not gt_mode.size_matching
 
 
 # --------------------------------------------------------------------------- #
@@ -330,6 +330,22 @@ def test_trained_multiclass_labels_match_jax(trained_multiclass):
     got, want = tpred.predict(frames), jpred.predict(frames)
     _assert_labels_match(got, want, ["female", "male"])
     assert [lf.frame_idx for lf in got] == [0, 1, 2]
+
+
+def test_trained_multiclass_ground_truth_centroids_match_jax():
+    """The multiclass folder alone crops at the labels' user instances."""
+    from sleap_tpu.io.slp import read_labels as jax_read
+    from sleap_tpu_torch.io.slp import read_labels
+
+    fixture = str(RUNS.parent / "tests" / "torch_data" / "raw.slp")
+    jpred = jm.TopDownMultiClassPredictor.from_trained_models(
+        confmap_model_path=MULTICLASS, peak_threshold=0.05, batch_size=3)
+    tpred = tp.load_model(MULTICLASS, device="cpu", peak_threshold=0.05, batch_size=3)
+    assert isinstance(tpred, tm.TopDownMultiClassPredictor) and tpred.centroid_model is None
+    jlabels, tlabels = jax_read(fixture), read_labels(fixture)
+    _assert_outputs_match(tpred.predict(tlabels, make_labels=False),
+                          jpred.predict(jlabels, make_labels=False), min_points=8)
+    _assert_labels_match(tpred.predict(tlabels), jpred.predict(jlabels), ["female", "male"])
 
 
 # --------------------------------------------------------------------------- #

@@ -7,12 +7,15 @@ from their orbax checkpoints with no ``params``, and ``predict`` returns the
 port's ``Labels``, with tracks when ``load_model`` is given
 ``tracker="flow"``; and a centroid model trained by the port for one
 epoch loads from its ``best_model.pt`` and predicts, paired with an
-instance folder. Also: the entry points
-default to the card, and paths the port cannot read yet raise.
+instance folder; and ``python -m sleap_tpu_torch.cli.track`` reads a
+``.slp`` training package (PNG frames), predicts and writes a ``.slp`` that
+h5py and the JAX reader read back. Also: the entry points default to the
+card, and paths are read.
 """
 
 import inspect
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -214,6 +217,27 @@ result["trained_here"] = {
     "centroid_shapes": [list(np.shape(ex["centroids"])) for ex in examples],
     "labels": type(pred.predict(frames)).__name__,
 }
+# sleap-track as ``python -m`` runs it, on the training package with PNG
+# frames: read, predict with the trained top-down pair, write .slp.
+import runpy
+
+from sleap_tpu_torch.io.slp import read_labels
+
+cli_out = os.path.join(tmp, "cli_out.slp")
+argv = sys.argv
+sys.argv = ["track", os.path.join("tests", "torch_data", "pkg.slp"),
+            "-m", os.path.join(runs, "minimal_instance.UNet.centroid"),
+            "-m", os.path.join(runs, "minimal_instance.UNet.centered_instance"),
+            "--cpu", "--verbosity", "none", "--peak_threshold", "0.05", "-o", cli_out]
+runpy.run_module("sleap_tpu_torch.cli.track", run_name="__main__")
+sys.argv = argv
+cli = read_labels(cli_out)
+result["cli"] = {
+    "path": cli_out,
+    "predictor": cli.provenance.get("predictor"),
+    "frames": [lf.frame_idx for lf in cli],
+    "points": [[inst.numpy().tolist() for inst in lf.instances] for lf in cli],
+}
 result["blocked_loaded"] = sorted(m for m, mod in sys.modules.items()
                                   if mod is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(result))
@@ -289,6 +313,25 @@ def test_train_then_predict_with_the_jax_side_blocked(standalone):
     assert [shape[-1] for shape in res["centroid_shapes"]] == [2, 2]
 
 
+def test_cli_writes_slp_with_the_jax_side_blocked(standalone):
+    import h5py
+    import numpy as np
+
+    from sleap_tpu.io.slp import read_labels
+
+    res = standalone["cli"]
+    assert res["predictor"] == "TopDownPredictor" and res["frames"] == list(range(8))
+    assert sum(len(points) for points in res["points"]) >= 8
+    ref = read_labels(res["path"])
+    assert [lf.frame_idx for lf in ref] == res["frames"]
+    for lf, points in zip(ref, res["points"]):
+        got = np.array(points).reshape(-1, 2, 2)
+        want = np.array([i.numpy() for i in lf.instances]).reshape(-1, 2, 2)
+        np.testing.assert_array_equal(got, want)
+    with h5py.File(res["path"], "r") as f:
+        assert len(f["frames"]) == 8 and len(f["pred_points"]) == 2 * len(f["instances"])
+
+
 def test_entry_points_default_to_the_card():
     for fn in (tp.load_model, tp.load_trained_model, tp.Predictor.from_model_paths,
                tracker.Tracker.make_tracker_by_name):
@@ -312,6 +355,36 @@ def test_entry_points_without_a_card_raise_instead_of_falling_back():
 
 
 @pytest.mark.parametrize("path", ["clip.slp", "clip.mp4"])
-def test_slp_and_media_paths_are_not_read_yet(path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tp._make_provider(path)
+def test_slp_and_media_paths_are_not_read_yet(path, tmp_path, monkeypatch):
+    """What the port does not read yet raises, naming what is missing: a
+    ``.slp`` whose video is an ImgStore, and a media file on a machine
+    without cv2."""
+    if path.endswith(".slp"):
+        import h5py
+
+        shutil.copy(REPO / "tests" / "torch_data" / "raw.slp", tmp_path / path)
+        with h5py.File(tmp_path / path, "r+") as f:
+            del f["videos_json"]
+            f["videos_json"] = [b'{"backend": {"type": "ImgStoreVideo", "filename": "s.yaml"}}']
+        with pytest.raises(NotImplementedError, match="ImgStore.*ROADMAP.md"):
+            tp._make_provider(str(tmp_path / path))
+        return
+    (tmp_path / path).write_bytes(b"")
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    provider = tp._make_provider(str(tmp_path / path))
+    with pytest.raises(ImportError, match="clip.mp4 needs cv2"):
+        next(iter(provider))
+
+
+@pytest.mark.parametrize("path", ["clip.slp", "clip.mp4"])
+def test_slp_and_media_paths_are_read(path, tmp_path):
+    """Paths are read: a missing ``.slp`` raises, and a media file is
+    opened (with cv2, imported then) only when a frame is read."""
+    if path.endswith(".slp"):
+        with pytest.raises(FileNotFoundError):
+            tp._make_provider(str(tmp_path / path))
+        return
+    provider = tp._make_provider(str(tmp_path / path))
+    assert type(provider.video.backend).__name__ == "MediaVideo"
+    with pytest.raises(FileNotFoundError, match="clip.mp4"):
+        next(iter(provider))

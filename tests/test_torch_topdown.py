@@ -288,11 +288,60 @@ def test_single_instance_matches_jax():
 
 
 def test_loading_refuses_what_is_not_ported(tmp_path):
-    """What still refuses: a folder with no weights at all, and the
-    ground-truth-centroid mode of a multiclass top-down folder alone."""
+    """What still refuses: a folder with no weights at all, and a head
+    combination no predictor takes (a ValueError, as in the JAX package)."""
     (tmp_path / "training_config.json").write_text(
         (Path(CENTROID) / "training_config.json").read_text())
     with pytest.raises(FileNotFoundError, match="No weights"):
         tp.load_trained_model(str(tmp_path), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tp.load_model(str(RUNS / "min_tracks_2node.UNet.topdown_multiclass"), device="cpu")
+    with pytest.raises(ValueError, match="Unsupported head combination"):
+        tp.load_model([CENTROID, ROBOT], device="cpu")
+
+
+def test_lone_multiclass_topdown_folder_loads_in_gt_centroid_mode():
+    pred = tp.load_model(str(RUNS / "min_tracks_2node.UNet.topdown_multiclass"), device="cpu")
+    assert pred.centroid_model is None and pred.confmap_model is not None
+
+
+# --------------------------------------------------------------------------- #
+# One model alone: the ground-truth-centroid and centroid-only modes
+# --------------------------------------------------------------------------- #
+
+FIXTURE = str(Path(__file__).resolve().parent / "torch_data" / "raw.slp")
+
+
+@pytest.mark.parametrize("folder", [INSTANCE, CENTROID], ids=["gt_centroids", "centroid_only"])
+def test_single_model_modes_match_jax(folder):
+    """Each folder alone on the same labels (user instances give the
+    centroids, or the points): the JAX predictor's outputs and ``Labels``."""
+    from sleap_tpu.io.slp import read_labels as jax_read
+    from sleap_tpu_torch.io.slp import read_labels
+
+    jpred = jp.Predictor.from_model_paths(folder, peak_threshold=0.05, batch_size=3)
+    tm = jpred.confmap_model or jpred.centroid_model
+    tpred = tp.load_model(folder, device="cpu", params={folder: _np_params(tm)},
+                          peak_threshold=0.05, batch_size=3)
+    assert type(tpred) is tp.TopDownPredictor and not tpred.size_matching
+    assert (tpred.centroid_model is None) == (folder == INSTANCE)
+    jlabels, tlabels = jax_read(FIXTURE), read_labels(FIXTURE)
+    keys = ("centroids", "centroid_vals", "centroid_mask")
+    if folder == INSTANCE:
+        keys += ("instance_peaks", "instance_peak_vals")
+    got = _merged(tpred.predict(tlabels, make_labels=False), keys)
+    want = _merged(jpred.predict(jlabels, make_labels=False), keys)
+    np.testing.assert_array_equal(got["centroid_mask"], want["centroid_mask"])
+    for key in keys[:2] + keys[3:]:
+        _assert_close_nan(got[key], want[key], PT_TOL if "peaks" in key or key == "centroids"
+                          else VAL_TOL)
+    got, want = tpred.predict(tlabels), jpred.predict(jlabels)
+    assert [len(lf.instances) for lf in got] == [len(lf.instances) for lf in want]
+    for lg, lw in zip(got, want):
+        for ig, iw in zip(lg.instances, lw.instances):
+            _assert_close_nan(ig.numpy(), iw.numpy(), PT_TOL)
+            assert ig.score == pytest.approx(iw.score, abs=VAL_TOL)
+    if folder == INSTANCE:  # one instance per user instance, each scored 1
+        assert [len(lf.instances) for lf in got] == [len(lf.user_instances) for lf in tlabels]
+        assert all(i.score == 1.0 for lf in got for i in lf.instances)
+    else:  # ground-truth points, taken whole
+        users = {inst.numpy().tobytes() for lf in tlabels for inst in lf.user_instances}
+        assert all(i.numpy().tobytes() in users for lf in got for i in lf.instances)
