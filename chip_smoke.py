@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
-inference, flow-shift tracking, training and the ``sleap-track`` CLI once on
-one CUDA card, through the run-folder loader, the trainer and the CLI a user
-calls, and the repo's trained run folders from their own checkpoints.
+inference, flow-shift tracking, training and the ``sleap-track``,
+``sleap-train`` and ``sleap-inspect`` CLIs once on one CUDA card, through the
+run-folder loader, the trainer and the CLIs a user calls, and the repo's
+trained run folders from their own checkpoints.
 
     python3 chip_smoke.py
 
@@ -154,8 +155,32 @@ Phases; any failure exits non-zero and no result line is printed:
    package's rows cycle through all five row filters), and the decode ms of
    1024^2 frames whose rows are all Average, all Paeth, or cycle through all
    five (``scripts/png_decode_time.py``'s frames), each decoded exactly.
-5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c and 8 join its rows at
-   the end.) Time each kernel and its plain version: per call with CUDA events (50
+9. ``sleap-train`` from ``.slp`` to scored run folders, after phase 8, with no
+   ``h5py`` or ``cv2``. 9a: the port's ``write_labels`` writes a ``.slp`` of
+   two HDF5 videos (TRAIN_CLI_FRAMES frames of 1024^2 and as many of 768^2,
+   which size matching scales by 4/3: the port's own uint8 bilinear resize
+   on every frame of them) of 3 blob animals a frame; ``cli.train.main``
+   trains, on the card by default, the port's copies of the shipped
+   ``baseline.centroid.json`` and ``baseline_medium_rf.topdown.json`` at
+   their own widths, strides, scaling, batch size and augmentation, with
+   epochs, batches, validation batches and learning rate cut
+   (TRAIN_CLI_*). Each run folder must hold ``best_model.pt``, the configs,
+   ``training_log.csv``, ``labels_gt``/``labels_pr`` of both splits and
+   ``metrics.{train,val}.npz``; ``load_metrics`` must read each metrics file,
+   equal to the evaluation's and to ``evaluate`` of the two label files read
+   back; the centroid folder's evaluations must launch kernel 2 alone, the
+   centered-instance folder's (ground-truth centroids) kernels 3 and 1; the
+   card's validation predictions must equal the same folder evaluated on the
+   CPU within PATH_XY_TOL and PATH_VAL_TOL; the instance model's validation
+   ``dist.p50`` and ``oks_voc.mAP`` must pass their bounds; ``sleap-track``
+   of the pair on the validation frames must find every animal within
+   TRAIN_CLI_TRACK_PX. Prints each model's CLI seconds split into setup,
+   training (images/s) and evaluation, each evaluation's seconds and scores.
+   9b: ``sleap-inspect`` (``info.labels.main``) of the instance run folder
+   must print its config's backbone, head and nodes and its log's epochs and
+   best ``val_loss``; of the project, its frames, tracks and videos.
+5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8 and 9 join its rows
+   at the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
    3.35 TB/s, or operations at the card's peak, whichever is larger) and,
@@ -168,6 +193,7 @@ object with each kernel's launches (all paths' and per path), error and
 times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import csv
 import dataclasses
 import json
 import os
@@ -275,6 +301,32 @@ CLI_FRAMES, CLI_TOL = 32, 1e-4
 FIXTURE_DIR = ("tests", "torch_data")
 CLI_TRAINED = ("minimal_instance.UNet.centroid", "minimal_instance.UNet.centered_instance",
                "minimal_instance.UNet.bottomup")
+
+# Phase 9: ``sleap-train`` (``sleap_tpu_torch.cli.train.main``) of the port's
+# copies of two shipped profiles, at their own widths, strides, input
+# scaling, batch size and augmentation, on a project of two HDF5 videos:
+# TRAIN_CLI_FRAMES frames of IMG^2 and as many of TRAIN_CLI_SMALL^2, whose
+# animals are 7c's blob animals drawn TRAIN_CLI_SMALL / IMG times smaller,
+# so size matching (4/3) makes them alike. Cuts: epochs, batches per epoch,
+# validation batches and the learning rate (1e-4 in the profiles); a CPU
+# rehearsal (scripts/train_cli_cpu.py) sized them.
+TRAIN_CLI_PROFILES = (("centroid", "baseline.centroid.json"),
+                      ("instance", "baseline_medium_rf.topdown.json"))
+TRAIN_CLI_FRAMES, TRAIN_CLI_SMALL = 24, 768
+# Animals of a size users film at 1024^2 (a blob of sigma 16 px, the nodes
+# on a ring of 24 px): OKS, whose scale is the animal's area, then reads
+# localisation errors of a fraction of a pixel as it would on real data.
+TRAIN_CLI_SIGMA, TRAIN_CLI_RING = 16.0, 24.0
+TRAIN_CLI_EPOCHS, TRAIN_CLI_BATCHES, TRAIN_CLI_VAL_BATCHES, TRAIN_CLI_LR = 20, 20, 2, 1e-3
+# Bounds from three runs on an H100 and a CPU rehearsal (PERF.md section 6,
+# PR 10): ``sleap-track`` of the trained pair on the validation frames finds
+# every animal within TRAIN_CLI_TRACK_PX of mean node error (worst max read
+# 0.647 px); the instance model's validation ``dist.p50`` is at most
+# TRAIN_CLI_P50_PX (worst 0.698 px: ground-truth centroids carry the
+# reference's half-pixel crop offset, ROADMAP queue 3) and its
+# ``oks_voc.mAP`` at least TRAIN_CLI_MAP (every reading 1.0). About twice
+# the worst error, half the worst mAP.
+TRAIN_CLI_TRACK_PX, TRAIN_CLI_P50_PX, TRAIN_CLI_MAP = 1.3, 1.4, 0.5
 
 # The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
 # the tensor cores for the kernels' few operations per byte.
@@ -1857,18 +1909,19 @@ def check_train_throughput(card):
     return results
 
 
-def blob_animals(n, seed, size=IMG, margin=PAIR_MARGIN, gap=PAIR_GAP):
+def blob_animals(n, seed, size=IMG, margin=PAIR_MARGIN, gap=PAIR_GAP, sigma=PAIR_SIGMA,
+                 radius=PAIR_RING):
     """(frames, points): ``n`` uint8 frames of PAIR_ANIMALS blobs (sigma
-    PAIR_SIGMA px, over noise, centres ``gap`` px apart and ``margin`` px
+    ``sigma`` px, over noise, centres ``gap`` px apart and ``margin`` px
     inside), each an animal whose 13 nodes lie on its blob, on a ring of
-    PAIR_RING px around the centre at fixed angles."""
+    ``radius`` px around the centre at fixed angles."""
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 40, (n, size, size, 1)).astype(np.float32)
     angles = 2 * np.pi * np.arange(N_NODES) / N_NODES
-    ring = PAIR_RING * np.stack([np.cos(angles), np.sin(angles)], -1)
-    r = int(3 * PAIR_SIGMA)
+    ring = radius * np.stack([np.cos(angles), np.sin(angles)], -1)
+    r = int(3 * sigma)
     g = np.mgrid[-r:r + 1, -r:r + 1]
-    blob = 200 * np.exp(-(g[0] ** 2 + g[1] ** 2) / (2 * PAIR_SIGMA**2))
+    blob = 200 * np.exp(-(g[0] ** 2 + g[1] ** 2) / (2 * sigma**2))
     points = np.zeros((n, PAIR_ANIMALS, N_NODES, 2))
     for i in range(n):
         centres = []
@@ -2002,6 +2055,271 @@ def check_step_card_vs_cpu(card):
             f"difference {grad_rel:.2e} of that gradient's largest value ({card})")
         check(loss_rel <= STEP_LOSS_RTOL, f"7d {head}: loss within {STEP_LOSS_RTOL} relative")
         check(grad_rel <= STEP_GRAD_RTOL, f"7d {head}: gradients within {STEP_GRAD_RTOL} relative")
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# Phase 9: sleap-train from .slp to scored run folders
+# --------------------------------------------------------------------------- #
+
+
+def write_cli_project(root):
+    """9a's project in ``root``: two HDF5 videos (IMG^2 and TRAIN_CLI_SMALL^2
+    frames of blob animals, the small video's drawn to its scale) and the
+    ``.slp`` of their user instances, written by the port's writers. Returns
+    the ``.slp`` path."""
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.io import hdf5
+    from sleap_tpu_torch.io.slp import write_labels
+    from sleap_tpu_torch.io.video import Video
+
+    skeleton, lfs = chain_skeleton(), []
+    for k, size in enumerate((IMG, TRAIN_CLI_SMALL)):
+        f = size / IMG
+        frames, points = blob_animals(TRAIN_CLI_FRAMES, seed=9 + k, size=size,
+                                      margin=int(PAIR_MARGIN * f), gap=PAIR_GAP * f,
+                                      sigma=TRAIN_CLI_SIGMA * f, radius=TRAIN_CLI_RING * f)
+        path = os.path.join(root, f"video{k}_{size}.h5")
+        with hdf5.Writer(path) as h5:
+            h5.create_dataset("video", data=frames)
+        video = Video.from_filename(path, dataset="video")
+        lfs += [LabeledFrame(video, i, [Instance(skeleton, p) for p in pts])
+                for i, pts in enumerate(points)]
+    project = os.path.join(root, "two_sizes.slp")
+    write_labels(project, Labels(lfs))
+    return project
+
+
+def cut_profile(name, root):
+    """The port's copy of the shipped profile ``name`` with phase 9's cuts
+    and ``root`` as its runs folder, written to ``root``; returns its path
+    and the config dict."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "sleap_tpu_torch", "training_profiles", name)) as f:
+        cfg = json.load(f)
+    cfg["optimization"].update(epochs=TRAIN_CLI_EPOCHS, batches_per_epoch=TRAIN_CLI_BATCHES,
+                               val_batches_per_epoch=TRAIN_CLI_VAL_BATCHES,
+                               initial_learning_rate=TRAIN_CLI_LR)
+    cfg["outputs"]["runs_folder"] = root
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path, cfg
+
+
+def train_with_cli(profile, project, run_name, wrappers, flags=()):
+    """``cli.train.main([profile, project, ...])`` with every kernel's count
+    zeroed first, the trainer's setup and each evaluation timed; returns
+    (seconds, setup seconds, launches, evaluations), an evaluation being its
+    split, seconds, launches and metrics."""
+    from sleap_tpu_torch import evals
+    from sleap_tpu_torch.cli import train as cli_train
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    original, evaluations = evals.evaluate_model, []
+    setup, setup_s = Trainer.setup, []
+
+    def timed_setup(self):
+        t0 = time.perf_counter()
+        setup(self)
+        sync()
+        setup_s.append(time.perf_counter() - t0)
+
+    def timed(cfg, labels, model_dir, **kwargs):
+        before = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.perf_counter()
+        out = original(cfg, labels, model_dir, **kwargs)
+        sync()
+        evaluations.append({"split": kwargs.get("split_name"), "seconds": time.perf_counter() - t0,
+                            "launches": {k: w.launches - before[k] for k, w in wrappers.items()},
+                            "metrics": out[1]})
+        return out
+
+    for w in wrappers.values():
+        w.launches = 0
+    evals.evaluate_model, Trainer.setup = timed, timed_setup
+    t0 = time.perf_counter()
+    try:
+        cli_train.main([profile, project, "--run_name", run_name, *flags])
+        sync()
+    finally:
+        evals.evaluate_model, Trainer.setup = original, setup
+    return (time.perf_counter() - t0, sum(setup_s), {k: w.launches for k, w in wrappers.items()},
+            evaluations)
+
+
+def same_metrics(got, want, what):
+    """Two metrics dicts with the same keys and equal values (NaN equal)."""
+    check(sorted(got) == sorted(want), f"{what}: the same metric names")
+    for key, value in want.items():
+        other = got[key]
+        if isinstance(value, (list, tuple)):
+            same = list(other) == list(value)
+        else:
+            a, b = np.asarray(other), np.asarray(value)
+            same = a.shape == b.shape and bool(np.all((a == b) | (a != a) & (b != b)))
+        check(same, f"{what}: {key} equal")
+
+
+def metric_line(metrics):
+    return ", ".join(f"{k} {float(metrics[k]):.4f}" for k in (
+        "oks.mOKS", "oks_voc.mAP", "dist.avg", "dist.p50", "dist.p90", "pck.mPCK"))
+
+
+def animal_errors(found, truth):
+    """Per ground-truth animal (user instances of ``truth``), the mean node
+    distance of the nearest instance of the same frame in ``found`` (inf
+    where there is none)."""
+    by_frame = {(os.path.basename(lf.video.filename), lf.frame_idx): lf for lf in found}
+    errs = []
+    for lf in truth:
+        pred = by_frame.get((os.path.basename(lf.video.filename), lf.frame_idx))
+        cands = [i.numpy() for i in pred.instances] if pred is not None else []
+        for inst in lf.user_instances:
+            d = [np.nanmean(np.linalg.norm(c - inst.numpy(), axis=-1)) for c in cands]
+            d = [v for v in d if np.isfinite(v)]
+            errs.append(min(d) if d else np.inf)
+    return np.asarray(errs)
+
+
+def check_sleap_train(card, wrappers, launches):
+    """Phase 9: 9a trains both profiles through the CLI on the two-size
+    project and checks the scored run folders, the evaluations' kernels and
+    predictions against the CPU, and ``sleap-track`` of the pair; 9b runs
+    ``sleap-inspect`` on a run folder and on the project."""
+    import contextlib
+    import io
+
+    from sleap_tpu_torch import evals, load_metrics
+    from sleap_tpu_torch.info import labels as info
+    from sleap_tpu_torch.io.slp import read_labels
+
+    want_kernels = {"centroid": {"local_peaks"}, "instance": {"crop_unit", "global_peaks"}}
+    files = ["best_model.pt", "training_config.json", "training_log.csv"] + [
+        f"{kind}.{split}.{ext}" for kind, ext in (("labels_gt", "slp"), ("labels_pr", "slp"),
+                                                  ("metrics", "npz"))
+        for split in ("train", "val")]
+    res, folders = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_sleap_train_")
+    try:
+        t0 = time.perf_counter()
+        project = write_cli_project(root)
+        res["project_write_s"] = time.perf_counter() - t0
+        for name, profile in TRAIN_CLI_PROFILES:
+            path, cfg = cut_profile(profile, root)
+            total_s, setup_s, counts, evaluations = train_with_cli(path, project, name, wrappers)
+            folder = folders[name] = os.path.join(root, name)
+            missing = [f for f in files if not os.path.exists(os.path.join(folder, f))]
+            check(not missing, f"9a {name}: the run folder lacks {missing}")
+            check([e["split"] for e in evaluations] == ["train", "val"],
+                  f"9a {name}: both splits evaluated")
+            launched = {k for k, n in counts.items() if n}
+            check(launched == want_kernels[name],
+                  f"9a {name}: the evaluations launched {sorted(launched)}, want "
+                  f"{sorted(want_kernels[name])}")
+            for kernel, n in counts.items():
+                if n:
+                    launches[kernel][f"sleap-train {name} evaluation (9a)"] = n
+            for ev in evaluations:
+                split = ev["split"]
+                saved = load_metrics(folder, split=split)
+                same_metrics(saved, ev["metrics"], f"9a {name} {split}: saved metrics")
+                gt = read_labels(os.path.join(folder, f"labels_gt.{split}.slp"))
+                pr = read_labels(os.path.join(folder, f"labels_pr.{split}.slp"))
+                same_metrics(evals.evaluate(gt, pr), saved,
+                             f"9a {name} {split}: evaluate of the saved labels")
+            # The card's validation predictions against the same folder on the CPU.
+            gt_val = read_labels(os.path.join(folder, "labels_gt.val.slp"))
+            cpu_pr, _ = evals.evaluate_model(None, gt_val, folder, save=False, device="cpu")
+            card_pr = read_labels(os.path.join(folder, "labels_pr.val.slp"))
+            d = compare_predictions(card_pr, cpu_pr, PATH_XY_TOL, PATH_VAL_TOL,
+                                    f"9a {name}: card vs CPU evaluation predictions")
+            eval_s = sum(e["seconds"] for e in evaluations)
+            train_s = total_s - setup_s - eval_s
+            opt = cfg["optimization"]
+            with open(os.path.join(folder, "training_log.csv")) as f:
+                rows = list(csv.DictReader(f))
+            with open(os.path.join(folder, "training_config.json")) as f:
+                crop = json.load(f)["data"]["instance_cropping"]["crop_size"]
+            # Early stopping may end the run before its last epoch.
+            images = len(rows) * TRAIN_CLI_BATCHES * opt["batch_size"]
+            res[name] = {
+                "cli_s": total_s, "setup_s": setup_s, "train_s": train_s, "evaluation_s": eval_s,
+                "images_per_s": images / train_s, "images": images, "crop_size": crop,
+                "epoch_losses": [float(r["loss"]) for r in rows],
+                "evaluations": [{k: e[k] for k in ("split", "seconds", "launches")} | {
+                    "metrics": {k: float(e["metrics"][k]) for k in (
+                        "oks.mOKS", "oks_voc.mAP", "dist.avg", "dist.p50", "dist.p90",
+                        "pck.mPCK")}} for e in evaluations],
+                "card_vs_cpu": {"max_abs_dxy": d[0], "max_abs_dscore": d[1]},
+            }
+            log(f"9a sleap-train {profile} ({opt['batch_size']} a batch, {len(rows)} of "
+                f"{TRAIN_CLI_EPOCHS} epochs of {TRAIN_CLI_BATCHES} batches, learning rate "
+                f"{TRAIN_CLI_LR}, crop size {crop}): CLI {total_s:.2f} s = setup (frames read and "
+                f"size-matched, "
+                f"model built) {setup_s:.2f} s + training {train_s:.2f} s "
+                f"({res[name]['images_per_s']:.1f} images/s with validation and checkpoints) + "
+                f"evaluation {eval_s:.2f} s; epoch losses "
+                f"{[round(float(r['loss']), 6) for r in rows]} ({card})")
+            for e in evaluations:
+                log(f"9a {name} evaluation ({e['split']}): {e['seconds']:.3f} s, launches "
+                    f"{e['launches']}; {metric_line(e['metrics'])} ({card})")
+            log(f"9a {name}: card vs CPU evaluation predictions max |dxy| {d[0]:.3g}, "
+                f"max |dscore| {d[1]:.3g}")
+        val = res["instance"]["evaluations"][1]["metrics"]
+        check(val["dist.p50"] <= TRAIN_CLI_P50_PX, f"9a instance: validation dist.p50 "
+              f"{val['dist.p50']:.3f} px, bound {TRAIN_CLI_P50_PX}")
+        check(val["oks_voc.mAP"] >= TRAIN_CLI_MAP, f"9a instance: validation oks_voc.mAP "
+              f"{val['oks_voc.mAP']:.3f}, bound {TRAIN_CLI_MAP}")
+
+        # sleap-track of the trained pair on the validation frames.
+        val_path = os.path.join(folders["instance"], "labels_gt.val.slp")
+        out = os.path.join(root, "val.predictions.slp")
+        track_s, counts = cli_run([val_path, "-m", folders["centroid"], "-m", folders["instance"],
+                                   "--verbosity", "none", "-o", out], wrappers)
+        for kernel, n in counts.items():
+            check(n > 0, f"9a sleap-track: {kernel} launched {n} times")
+            launches[kernel]["sleap-track trained pair (9a)"] = n
+        truth = read_labels(val_path)
+        errs = animal_errors(read_labels(out), truth)
+        res["track"] = {"seconds": track_s, "frames": len(truth), "animals": len(errs),
+                        "median_px": float(np.median(errs)), "max_px": float(errs.max()),
+                        "launches": counts}
+        log(f"9a sleap-track of the trained pair on {len(truth)} validation frames: "
+            f"{track_s:.3f} s; {len(errs)} animals, mean node error median "
+            f"{np.median(errs):.3f} px, max {errs.max():.3f} px (bound {TRAIN_CLI_TRACK_PX} px); "
+            f"launches {counts} ({card})")
+        check(np.isfinite(errs).all() and errs.max() <= TRAIN_CLI_TRACK_PX,
+              f"9a sleap-track: every validation animal found within {TRAIN_CLI_TRACK_PX} px")
+
+        # 9b: sleap-inspect on a run folder and on the project.
+        printed = {}
+        for key, path in (("folder", folders["instance"]), ("project", project)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                info.main([path])
+            printed[key] = buf.getvalue().splitlines()
+        with open(os.path.join(folders["instance"], "training_log.csv")) as f:
+            rows = list(csv.DictReader(f))
+        best = min(rows, key=lambda r: float(r["val_loss"]))
+        want = [f"Model: {folders['instance']}", "  backbone: unet", "  head: centered_instance",
+                f"  skeleton nodes: {[f'n{i}' for i in range(N_NODES)]}",
+                f"  epochs trained: {len(rows)}",
+                f"  best val_loss: {best['val_loss']} (epoch {best['epoch']})"]
+        check(printed["folder"] == want, f"9b sleap-inspect of the run folder: {printed['folder']}")
+        lines = printed["project"]
+        check(lines[:3] == [f"Labeled frames: {2 * TRAIN_CLI_FRAMES}", "Tracks: 0",
+                            "Video files: 2"], f"9b sleap-inspect of the project: {lines[:3]}")
+        check(sum(f"    labeled frames: {TRAIN_CLI_FRAMES} (user: {TRAIN_CLI_FRAMES})" == l
+                  for l in lines) == 2, "9b sleap-inspect: each video's frames")
+        log(f"9b sleap-inspect: {printed['folder']}; {lines[:6]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return res
 
 
@@ -2262,6 +2580,11 @@ def main() -> int:
     cli = {"full_width": check_cli_full_width(td, td_wrappers, launches, card),
            "fixtures": check_cli_fixtures(all_wrappers, launches, card)}
     log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
+
+    # Phase 9: sleap-train from .slp to scored run folders, and sleap-inspect.
+    t9 = time.perf_counter()
+    train_cli = check_sleap_train(card, td_wrappers, launches)
+    log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
 
@@ -2276,6 +2599,7 @@ def main() -> int:
         log(f"checkpoint read {name}: {value:.3f} s ({card})")
     log(f"tracking: {json.dumps(tracking)} ({card})")
     log(f"cli: {json.dumps(cli)} ({card})")
+    log(f"sleap-train: {json.dumps(train_cli)} ({card})")
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -1,6 +1,10 @@
 """PyTorch + CUDA port of sleap-tpu: inference (top-down, single-instance,
-bottom-up, multiclass), flow-shift tracking, training, ``.slp`` and video
-I/O, and the ``sleap-track`` CLI (``python -m sleap_tpu_torch.cli.track``).
+bottom-up, multiclass), flow-shift tracking, training and evaluation,
+``.slp`` and video I/O, and the ``sleap-track``, ``sleap-train`` and
+``sleap-inspect`` CLIs (``python -m sleap_tpu_torch.cli.track``,
+``python -m sleap_tpu_torch.cli.train``, ``python -m
+sleap_tpu_torch.info.labels``); the shipped training profiles are in
+``training_profiles/``.
 
 The JAX package (``sleap_tpu``) is the reference: this package mirrors its
 module names (``models/``, ``data/``, ``ops/``, ``inference/``) and keeps its
@@ -21,8 +25,10 @@ checkpoints (``best_model.ckpt``) are read by the port's own zstd, OCDBT and
 zarr readers, and ``.slp`` files, HDF5 videos and Keras weights by its own
 HDF5 reader and writer and PNG decoder (``io/``). ``h5py`` is never
 imported; ``cv2`` only inside the functions that read media videos, still
-images or JPEG frames, or resize mixed-size frames. Entry points run on
-``"cuda"`` unless the caller passes another device.
+images or JPEG frames (frames of videos that differ in size are resized by
+the port's own copy of OpenCV's bilinear resize,
+``data/resizing.resize_linear_uint8``). Entry points run on ``"cuda"``
+unless the caller passes another device.
 """
 
 
@@ -37,3 +43,10 @@ def load_file(*args, **kwargs):
     from sleap_tpu_torch.core.labels import load_file as _load_file
 
     return _load_file(*args, **kwargs)
+
+
+def load_metrics(*args, **kwargs):
+    """Read a run folder's saved evaluation metrics (``metrics.{split}.npz``)."""
+    from sleap_tpu_torch.evals import load_metrics as _load_metrics
+
+    return _load_metrics(*args, **kwargs)

@@ -418,6 +418,12 @@ class TrainingJobConfig:
             f.write(self.to_json())
 
 
+def load_config(filename: str) -> TrainingJobConfig:
+    """A training config from a JSON file or a run folder
+    (``sleap.load_config``)."""
+    return TrainingJobConfig.load_json(filename)
+
+
 # --------------------------------------------------------------------------- #
 # JSON (de)structuring
 # --------------------------------------------------------------------------- #

@@ -205,6 +205,10 @@ class LabeledFrame:
         return [i for i in self.instances if not i.predicted]
 
     @property
+    def predicted_instances(self) -> List["PredictedInstance"]:
+        return [i for i in self.instances if i.predicted]
+
+    @property
     def training_instances(self) -> List[Instance]:
         """User instances with at least one visible point."""
         return [i for i in self.user_instances if i.n_visible_points > 0]

@@ -18,7 +18,8 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from sleap_tpu_torch.core.labels import Labels
-from sleap_tpu_torch.io.video import Video, _import_cv2
+from sleap_tpu_torch.data.resizing import resize_linear_uint8
+from sleap_tpu_torch.io.video import Video
 
 
 @dataclass
@@ -128,19 +129,15 @@ class VideoReader:
 
 def resize_and_pad_example(image: np.ndarray, target_hw: Tuple[int, int]) -> Tuple[np.ndarray, float]:
     """Scale a frame to fit ``target_hw`` and pad it bottom/right; return
-    (image, scale). Needs ``cv2``, imported here only."""
+    (image, scale). The resize is OpenCV's bilinear one, done here
+    (:func:`~sleap_tpu_torch.data.resizing.resize_linear_uint8`)."""
     h, w = image.shape[:2]
     th, tw = target_hw
     if (h, w) == (th, tw):
         return image, 1.0
-    cv2 = _import_cv2(
-        "Resizing frames of videos that differ in size",
-        hint="Give the videos one frame size, or predict each size in a run of its own.",
-    )
-
     scale = min(th / h, tw / w)
     nh, nw = int(round(h * scale)), int(round(w * scale))
-    resized = cv2.resize(image, (nw, nh))
+    resized = resize_linear_uint8(image, (nh, nw))
     if resized.ndim == 2:
         resized = resized[..., None]
     out = np.zeros((th, tw, image.shape[2]), dtype=image.dtype)

@@ -28,7 +28,7 @@ import json
 import os
 import time
 import warnings
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -95,6 +95,8 @@ class TrainedModel:
     classes: List[str] = field(default_factory=list)
     class_maps_stride: Optional[int] = None
     center_on_part: Optional[str] = None
+    # The size frames were matched to in training, when the run recorded one.
+    target_hw: Optional[Tuple[int, int]] = None
 
 
 def load_trained_model(
@@ -172,6 +174,9 @@ def load_trained_model(
         edges=list(model.edges),
         classes=list(model.classes),
         class_maps_stride=None if class_maps is None else class_maps.output_stride,
+        target_hw=((int(pp.target_height), int(pp.target_width))
+                   if pp.resize_and_pad_to_target and pp.target_height and pp.target_width
+                   else None),
     )
 
 
@@ -355,9 +360,21 @@ class Predictor:
             )
         raise ValueError(f"Unsupported head combination: {sorted(paths)}.")
 
-    # Whether frames of mixed-size videos are resized to one size before
-    # batching (and the results scaled back), as the JAX predictor does.
+    # Whether frames are size-matched before batching (and the results
+    # scaled back): to the size a model's run recorded (upstream SLEAP's
+    # target_height and target_width), else, as the JAX predictor does, to
+    # the largest of the provider's videos when they differ in size.
     size_matching = True
+
+    def _trained_target(self) -> Optional[Tuple[int, int]]:
+        """The size a model of this predictor was trained to match frames
+        to, if its run recorded one (see
+        :meth:`~sleap_tpu_torch.training.trainer.Trainer.setup`)."""
+        for f in fields(self):
+            model = getattr(self, f.name)
+            if isinstance(model, TrainedModel) and model.target_hw is not None:
+                return model.target_hw
+        return None
 
     def _tracks(self) -> list:
         """Tracks every ``Labels`` of this predictor registers, in order."""
@@ -374,7 +391,8 @@ class Predictor:
             provider, batches = None, _array_batches(frames, self.batch_size)
         else:
             provider = _make_provider(data)
-            target_hw = provider_needs_size_matching(provider) if self.size_matching else None
+            target_hw = ((self._trained_target() or provider_needs_size_matching(provider))
+                         if self.size_matching else None)
             batches = prefetch(batch_examples(provider, self.batch_size, target_hw))
         total = len(provider) if provider is not None else len(frames)
         examples = self._predict_generator(batches, total)
@@ -529,7 +547,9 @@ class TopDownPredictor(Predictor):
     - no centered-instance model: centroids only, each valid one given the
       points of the nearest ground-truth instance, with scores of 1.
 
-    Neither mode resizes mixed-size frames to one size.
+    Both modes size-match frames of videos that differ in size, as the pair
+    does (the ground-truth centroids scaled with their frame); the JAX
+    predictor batches such frames unmatched there, so it cannot stack them.
     """
 
     centroid_model: Optional[TrainedModel] = None
@@ -541,17 +561,14 @@ class TopDownPredictor(Predictor):
             raise ValueError("A top-down predictor needs a centroid or a centered-instance model.")
 
     @property
-    def size_matching(self) -> bool:
-        return self.centroid_model is not None and self.confmap_model is not None
-
-    @property
     def _max_peaks(self) -> int:
         return self.max_instances or 8
 
     def _centroids(self, images: torch.Tensor, batch: dict, K: int):
-        """The top K centroids of each frame (S, K, 2) in frame coordinates,
-        with their values and validity (S, K): the centroid model's, or
-        without one the ground-truth instances' (values 1)."""
+        """The top K centroids of each frame (S, K, 2) in the coordinates of
+        the (size-matched) images, with their values and validity (S, K):
+        the centroid model's, or without one the ground-truth instances'
+        (values 1), scaled as their frame was."""
         if self.centroid_model is not None:
             return self._find_centroids(images, K)
         tm = self.confmap_model
@@ -559,10 +576,11 @@ class TopDownPredictor(Predictor):
         anchor = skeleton.node_names.index(tm.center_on_part) \
             if tm.center_on_part in skeleton.node_names else None
         centroids = np.full((images.shape[0], K, 2), np.nan)
+        scales = batch.get("scale", np.ones(images.shape[0]))
         for i, gt in enumerate(batch.get("instances", [])):
             if gt.size:
                 cents = get_instance_centroids(torch.from_numpy(gt.astype("f8")), anchor)[:K]
-                centroids[i, :len(cents)] = cents.numpy()
+                centroids[i, :len(cents)] = cents.numpy() * float(scales[i])
         centroids = torch.from_numpy(centroids.astype(np.float32)).to(images.device)
         mask = ~torch.isnan(centroids).any(dim=-1)
         return centroids, mask.float(), mask

@@ -19,7 +19,11 @@ its six per-head trainers, with the JAX loop's behaviour:
   channels-last memory while the parameters, optimizer state and loss stay
   float32;
 - weights start as flax initializes them
-  (:func:`~sleap_tpu_torch.models.model.init_params_lecun`).
+  (:func:`~sleap_tpu_torch.models.model.init_params_lecun`);
+- frames of a project whose videos differ in size are matched to the
+  largest height and width on the host, and that size is recorded in the
+  config (``target_height``, ``target_width``) as upstream SLEAP records it
+  and the JAX trainer does not, so predictors match frames to it.
 
 A run folder holds ``initial_config.json``, ``training_config.json`` (part
 names, edges and classes filled in), ``training_log.csv`` and the
@@ -27,9 +31,11 @@ checkpoints ``CheckpointingConfig`` asks for as ``torch.save`` files of the
 module's float32 CPU ``state_dict`` (``best_model.pt``, ``latest_model.pt``,
 ...), PyTorch's counterpart of the JAX package's orbax directories;
 :func:`~sleap_tpu_torch.inference.predictors.load_trained_model` reads
-``best_model.pt``. Not ported (ROADMAP.md, queue 1): ``.slp`` labels and
-their ``labels_gt`` copies, evaluation after training, visualizations,
-TensorBoard and ZMQ, and data-parallel training.
+``best_model.pt``. After training, as in JAX, the split labels are saved as
+``labels_gt.{train,val}.slp`` and the folder's model is scored on both
+splits on the trainer's device (:func:`~sleap_tpu_torch.evals.evaluate_model`:
+``labels_pr.{split}.slp``, ``metrics.{split}.npz``). Not ported (ROADMAP.md,
+queue 1): visualizations, TensorBoard and ZMQ, and data-parallel training.
 """
 
 from __future__ import annotations
@@ -56,9 +62,8 @@ from sleap_tpu_torch.data.normalization import (
     ensure_grayscale,
     ensure_rgb,
 )
-from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image
+from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image, resize_linear_uint8
 from sleap_tpu_torch.data.streaming import stage_to_device
-from sleap_tpu_torch.io.video import _import_cv2
 from sleap_tpu_torch.models.model import Model, init_params_lecun
 from sleap_tpu_torch.ops.confmaps import (
     make_confmaps,
@@ -121,8 +126,10 @@ class DataReaders:
 
 
 def size_match_image(img: np.ndarray, target_hw: Tuple[int, int]) -> Tuple[np.ndarray, float]:
-    """Scale a frame to fit inside ``target_hw`` and pad it bottom/right;
-    points map as ``pts * scale``. Returns (matched image, scale)."""
+    """Scale a frame to fit inside ``target_hw`` (OpenCV's bilinear resize,
+    done here: :func:`~sleap_tpu_torch.data.resizing.resize_linear_uint8`)
+    and pad it bottom/right; points map as ``pts * scale``. Returns
+    (matched image, scale)."""
     th, tw = target_hw
     h, w = img.shape[0], img.shape[1]
     if (h, w) == (th, tw):
@@ -130,11 +137,7 @@ def size_match_image(img: np.ndarray, target_hw: Tuple[int, int]) -> Tuple[np.nd
     scale = min(th / h, tw / w)
     new_h, new_w = int(round(h * scale)), int(round(w * scale))
     if (new_h, new_w) != (h, w):
-        cv2 = _import_cv2(
-            "Resizing frames of videos that differ in size",
-            hint="Give the videos one frame size, or train on each size on its own.",
-        )
-        resized = cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+        resized = resize_linear_uint8(img, (new_h, new_w))
         if resized.ndim == 2:
             resized = resized[..., None]
     else:
@@ -390,8 +393,36 @@ class Trainer:
             return 1
         if pp.ensure_rgb:
             return 3
-        video = self.data_readers.training_labels.video
-        return int(video.channels) if video is not None else 1
+        # The JAX trainer reads ``labels.video``, which raises for a project
+        # of several videos; here the videos need only agree.
+        channels = {int(v.channels) for v in self.data_readers.training_labels.videos}
+        if len(channels) > 1:
+            raise ValueError(f"The training videos differ in channels ({sorted(channels)}): "
+                             "set ensure_grayscale or ensure_rgb in the config.")
+        return channels.pop() if channels else 1
+
+    def _size_matching_target(self) -> Optional[Tuple[int, int]]:
+        """The (height, width) every frame is size-matched to: the config's
+        target, else, for a project whose videos differ in size, the largest
+        height and width. The latter is written into the config when
+        ``resize_and_pad_to_target`` is set, as upstream SLEAP does (the
+        JAX trainer leaves it out), so that inference matches frames to the
+        size the model trained at whatever videos it is given."""
+        pp = self.config.data.preprocessing
+        if pp.target_height and pp.target_width:
+            return int(pp.target_height), int(pp.target_width)
+        sizes = {
+            (int(v.height), int(v.width))
+            for labels in (self.data_readers.training_labels, self.data_readers.validation_labels)
+            for v in labels.videos
+            if v.height and v.width
+        }
+        if len(sizes) <= 1:
+            return None
+        target_hw = (max(h for h, _ in sizes), max(w for _, w in sizes))
+        if pp.resize_and_pad_to_target:
+            pp.target_height, pp.target_width = target_hw
+        return target_hw
 
     def _check_outputs_config(self) -> None:
         out = self.config.outputs
@@ -410,15 +441,7 @@ class Trainer:
             default=1,
         ) or 1
         self._input_channels = self._image_channels()
-        # Mixed-size projects: size-match every frame to the largest video.
-        sizes = {
-            (int(v.height), int(v.width))
-            for labels in (self.data_readers.training_labels, self.data_readers.validation_labels)
-            for v in labels.videos
-            if v.height and v.width
-        }
-        target_hw = ((max(h for h, _ in sizes), max(w for _, w in sizes))
-                     if len(sizes) > 1 else None)
+        target_hw = self._size_matching_target()
         maker = preload_examples if self.config.optimization.preload_data else LazyExamples
         class_names = list(self.model.classes) or None
         self._train_examples = maker(self.data_readers.training_labels, self._max_instances,
@@ -634,8 +657,35 @@ class Trainer:
                     writer = csv.DictWriter(f, fieldnames=list(log_rows[0].keys()))
                     writer.writeheader()
                     writer.writerows(log_rows)
+            self._save_gt_labels()
+            self.evaluate()
             if self.config.outputs.zip_outputs:
                 self.package()
+
+    def _save_gt_labels(self) -> None:
+        """The training and validation splits as ``labels_gt.{train,val}.slp``
+        (frames not embedded); a failure is logged, as in JAX."""
+        try:
+            self.data_readers.training_labels.save(
+                os.path.join(self.run_path, "labels_gt.train.slp"))
+            self.data_readers.validation_labels.save(
+                os.path.join(self.run_path, "labels_gt.val.slp"))
+        except Exception as e:
+            logger.warning("Could not save GT labels: %s", e)
+
+    def evaluate(self) -> None:
+        """Score the run folder's model on the training and validation
+        splits, on the trainer's device; a split that fails is logged, as in
+        JAX."""
+        from sleap_tpu_torch.evals import evaluate_model
+
+        for split, labels in (("train", self.data_readers.training_labels),
+                              ("val", self.data_readers.validation_labels)):
+            try:
+                evaluate_model(self.config, labels, self.run_path, split_name=split,
+                               device=self.device)
+            except Exception as e:
+                logger.warning("Evaluation on %s split failed: %s", split, e)
 
     def package(self) -> None:
         """Zip the run folder."""

@@ -298,21 +298,24 @@ def test_cv2_backends_without_cv2_raise_naming_it(tmp_path, monkeypatch):
 
 
 def test_size_matching_without_cv2_raises_naming_it(monkeypatch):
-    """Frames of videos that differ in size are resized with cv2, as in the
-    JAX package; without it, inference and training say what needs it."""
+    """Frames of videos that differ in size are resized as the JAX package
+    resizes them with cv2, and without cv2 too: inference and training no
+    longer need it (the port's own ``resize_linear_uint8``; the bitwise
+    sweep is ``tests/test_torch_resize.py``)."""
     from sleap_tpu.data.providers import resize_and_pad_example as jax_resize
+    from sleap_tpu.training.trainer import size_match_image as jax_match
     from sleap_tpu_torch.data.providers import resize_and_pad_example
     from sleap_tpu_torch.training.trainer import size_match_image
 
     img = np.random.default_rng(0).integers(0, 255, (30, 40, 1), np.uint8)
-    got, want = resize_and_pad_example(img, (48, 48)), jax_resize(img, (48, 48))
-    np.testing.assert_array_equal(got[0], want[0])
-    assert got[1] == want[1]
+    want = {resize_and_pad_example: jax_resize(img, (48, 48)),
+            size_match_image: jax_match(img, (48, 48))}
     assert resize_and_pad_example(img, (30, 40))[0] is img
     monkeypatch.setitem(sys.modules, "cv2", None)
     for resize in (resize_and_pad_example, size_match_image):
-        with pytest.raises(ImportError, match="videos that differ in size needs cv2"):
-            resize(img, (48, 48))
+        got = resize(img, (48, 48))
+        np.testing.assert_array_equal(got[0], want[resize][0])
+        assert got[1] == want[resize][1]
 
 
 def test_fixup_path(tmp_path, monkeypatch):

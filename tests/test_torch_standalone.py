@@ -9,8 +9,11 @@ port's ``Labels``, with tracks when ``load_model`` is given
 epoch loads from its ``best_model.pt`` and predicts, paired with an
 instance folder; and ``python -m sleap_tpu_torch.cli.track`` reads a
 ``.slp`` training package (PNG frames), predicts and writes a ``.slp`` that
-h5py and the JAX reader read back. Also: the entry points default to the
-card, and paths are read.
+h5py and the JAX reader read back; and ``python -m sleap_tpu_torch.cli.train``
+trains a shipped profile (at filters 4) on a project of two videos of
+different sizes, scores it and ``sleap-inspect`` describes the folder and
+the project. Also: the entry points default to the card, and paths are
+read.
 """
 
 import inspect
@@ -238,6 +241,51 @@ result["cli"] = {
     "frames": [lf.frame_idx for lf in cli],
     "points": [[inst.numpy().tolist() for inst in lf.instances] for lf in cli],
 }
+# sleap-train as ``python -m`` runs it, on a project of two videos of
+# different sizes (so frames are size-matched without cv2): a shipped
+# profile at filters 4 for one epoch, scored after training; then
+# sleap-inspect on the run folder and on the project.
+import contextlib
+import io
+
+from sleap_tpu_torch.core.instance import Instance
+from sleap_tpu_torch.info import labels as info
+from sleap_tpu_torch.io.slp import write_labels
+from sleap_tpu_torch.io.video import Video
+
+two_sizes = []
+for size, n in ((96, 4), (72, 3)):
+    video = Video.from_numpy(np.ascontiguousarray(
+        np.clip(rng.uniform(0, 255, (n, size, size, 1)), 0, 255).astype(np.uint8)))
+    for i in range(n):
+        pts = rng.uniform(16, size - 16, (1, 2)) + rng.uniform(-5, 5, (13, 2))
+        two_sizes.append(LabeledFrame(video, i, [Instance(skeleton, pts)]))
+project = os.path.join(tmp, "two_sizes.slp")
+write_labels(project, Labels(two_sizes))
+profile = json.load(open(os.path.join("sleap_tpu_torch", "training_profiles",
+                                      "baseline_medium_rf.topdown.json")))
+profile["model"]["backbone"]["unet"]["filters"] = 4
+profile["optimization"].update(epochs=1, batches_per_epoch=2, val_batches_per_epoch=1)
+profile["outputs"]["runs_folder"] = tmp
+profile_path = os.path.join(tmp, "tiny_profile.json")
+json.dump(profile, open(profile_path, "w"))
+sys.argv = ["train", profile_path, project, "--cpu", "--run_name", "cli_trained"]
+runpy.run_module("sleap_tpu_torch.cli.train", run_name="__main__")
+sys.argv = argv
+trained_cli = os.path.join(tmp, "cli_trained")
+inspected = {}
+for key, path in (("folder", trained_cli), ("project", project)):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        info.main([path])
+    inspected[key] = out.getvalue()
+result["cli_train"] = {
+    "files": sorted(os.listdir(trained_cli)),
+    "metrics": {split: sorted(sleap_tpu_torch.load_metrics(trained_cli, split=split))
+                for split in ("train", "val")},
+    "sizes": sorted({tuple(v.shape[1:3]) for v in read_labels(project).videos}),
+    "inspect": inspected,
+}
 result["blocked_loaded"] = sorted(m for m, mod in sys.modules.items()
                                   if mod is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(result))
@@ -330,6 +378,19 @@ def test_cli_writes_slp_with_the_jax_side_blocked(standalone):
         np.testing.assert_array_equal(got, want)
     with h5py.File(res["path"], "r") as f:
         assert len(f["frames"]) == 8 and len(f["pred_points"]) == 2 * len(f["instances"])
+
+
+def test_cli_trains_scores_and_inspects_two_sizes_with_the_jax_side_blocked(standalone):
+    res = standalone["cli_train"]
+    assert res["sizes"] == [[72, 72], [96, 96]]
+    assert {"best_model.pt", "training_config.json", "training_log.csv", "labels_gt.train.slp",
+            "labels_gt.val.slp", "labels_pr.train.slp", "labels_pr.val.slp",
+            "metrics.train.npz", "metrics.val.npz"} <= set(res["files"])
+    for keys in res["metrics"].values():
+        assert {"oks.mOKS", "oks_voc.mAP", "dist.avg", "pck.mPCK", "vis.tp"} <= set(keys)
+    folder, project = res["inspect"]["folder"], res["inspect"]["project"]
+    assert "  head: centered_instance" in folder and "  epochs trained: 1" in folder
+    assert project.startswith("Labeled frames: 7\nTracks: 0\nVideo files: 2\n")
 
 
 def test_entry_points_default_to_the_card():

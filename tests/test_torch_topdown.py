@@ -321,7 +321,7 @@ def test_single_model_modes_match_jax(folder):
     tm = jpred.confmap_model or jpred.centroid_model
     tpred = tp.load_model(folder, device="cpu", params={folder: _np_params(tm)},
                           peak_threshold=0.05, batch_size=3)
-    assert type(tpred) is tp.TopDownPredictor and not tpred.size_matching
+    assert type(tpred) is tp.TopDownPredictor and tpred.size_matching
     assert (tpred.centroid_model is None) == (folder == INSTANCE)
     jlabels, tlabels = jax_read(FIXTURE), read_labels(FIXTURE)
     keys = ("centroids", "centroid_vals", "centroid_mask")
@@ -345,3 +345,62 @@ def test_single_model_modes_match_jax(folder):
     else:  # ground-truth points, taken whole
         users = {inst.numpy().tobytes() for lf in tlabels for inst in lf.user_instances}
         assert all(i.numpy().tobytes() in users for lf in got for i in lf.instances)
+
+
+@pytest.mark.parametrize("folder", [INSTANCE, CENTROID], ids=["gt_centroids", "centroid_only"])
+def test_single_model_modes_size_match_mixed_sizes(folder):
+    """A project of a 384^2 and a 288^2 video in one run, batches mixing the
+    two: each frame gives what it gives alone, the small one after the size
+    matching done by hand (frame resized and padded, instances scaled, the
+    outputs scaled back). The JAX predictor cannot stack such batches in
+    these modes, so the port is held to itself; the unmatched route is held
+    to JAX above. Points within 1e-4 px (the centroids scaled before or
+    after the centroid mean), values within VAL_TOL."""
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.data.providers import resize_and_pad_example
+    from sleap_tpu_torch.data.resizing import resize_linear_uint8
+    from sleap_tpu_torch.io.slp import read_labels
+    from sleap_tpu_torch.io.video import Video
+
+    raw = read_labels(FIXTURE)
+    big = np.stack([lf.image for lf in raw][:3])
+    small = np.stack([resize_linear_uint8(f, (288, 288)) for f in big])
+    users = [[i.numpy() for i in lf.user_instances] for lf in raw][:3]
+    skeleton = raw.skeletons[0]
+
+    def project(pairs):
+        """Labels over (frames, instances) pairs, one video each."""
+        lfs = []
+        for frames, insts in pairs:
+            video = Video.from_numpy(frames)
+            lfs += [LabeledFrame(video, i, [Instance(skeleton, p) for p in pts])
+                    for i, pts in enumerate(insts)]
+        return Labels(lfs)
+
+    # Frames alternate between the videos, so every batch of 2 mixes them.
+    mixed = project([(big, users), (small, [[p * 0.75 for p in pts] for pts in users])])
+    mixed.labeled_frames = [lf for pair in zip(mixed.labeled_frames[:3], mixed.labeled_frames[3:])
+                            for lf in pair]
+    matched = np.stack([resize_and_pad_example(f, (384, 384))[0] for f in small])
+    scale = resize_and_pad_example(small[0], (384, 384))[1]
+    alone = [project([(big, users)]),
+             project([(matched, [[p * 0.75 * scale for p in pts] for pts in users])])]
+
+    pred = tp.load_model(folder, device="cpu", peak_threshold=0.05, batch_size=2)
+    keys = ("centroids", "centroid_vals", "centroid_mask")
+    if folder == INSTANCE:
+        keys += ("instance_peaks", "instance_peak_vals")
+    got = _merged(pred.predict(mixed, make_labels=False), keys)
+    want = [_merged(pred.predict(labels, make_labels=False), keys) for labels in alone]
+    for key in ("centroids", "instance_peaks"):
+        if key in want[1]:
+            want[1][key] = want[1][key] / scale
+    for key in keys:
+        ref = np.stack([w for pair in zip(want[0][key], want[1][key]) for w in pair])
+        if key == "centroid_mask":
+            np.testing.assert_array_equal(got[key], ref)
+        else:
+            _assert_close_nan(got[key], ref, 1e-4 if key in ("centroids", "instance_peaks")
+                              else VAL_TOL)
+    assert got["centroid_mask"].sum() >= 6
