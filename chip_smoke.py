@@ -2,14 +2,19 @@
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
 inference, flow-shift tracking, training and the ``sleap-track``,
 ``sleap-train`` and ``sleap-inspect`` CLIs once on one CUDA card, through the
-run-folder loader, the trainer and the CLIs a user calls, and the repo's
-trained run folders from their own checkpoints.
+run-folder loader, the trainer and the CLIs a user calls, the repo's
+trained run folders from their own checkpoints, and inference on the other
+backbones (ResNet, pretrained-encoder UNets, HRNet, Hourglass, LEAP).
 
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero and no result line is printed:
 
-1. The card: CUDA must be available; print its name and power limit.
+1. The card: CUDA must be available; print its name and power limit, then
+   what the machine offers to decode H.264 (print only, never fails):
+   ``ffmpeg`` on the path, the NVDEC library ``libnvcuvid`` (found, and
+   whether it loads), and whether ``torchvision``, ``torchcodec``, ``av``
+   and ``imageio_ffmpeg`` are installed (``find_spec``; nothing imported).
 2. Build the CUDA kernels from ``sleap_tpu_torch/csrc``; print the build time.
    Write run folders (``training_config.json`` with the skeleton in its
    jsonpickle form) for ``bench.py``'s top-down pair, its single-instance
@@ -179,8 +184,27 @@ Phases; any failure exits non-zero and no result line is printed:
    9b: ``sleap-inspect`` (``info.labels.main``) of the instance run folder
    must print its config's backbone, head and nodes and its log's epochs and
    best ``val_loss``; of the project, its frames, tracks and videos.
-5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8 and 9 join its rows
-   at the end.) Time each kernel and its plain version: per call with CUDA events (50
+10. The other backbones at their configs' default widths, after phase 9,
+   float32 with TF32 off. Folders written as phase 2's, weights seeded:
+   He-normal kernels, non-negative heads, batch-norm running means
+   N(0, 0.1^2) and variances U(0.5, 2), then each conv's kernel and bias
+   scaled so that its output has unit standard deviation on a calibration
+   batch (LSUV), handed over as flax variables. 10a: top-down 1024^2, batch
+   16, phase 4's centroid UNet with a centered-instance pretrained-encoder
+   ResNet-50 UNet (decoder 256 filters, output stride 2, crops of 160);
+   10b: the same with ``resnet`` ResNet50 (default upsampling); kernels 2,
+   3 and 1 once a batch. 10c: single-instance 512^2, batch 4, on
+   Hourglass (3 stacks), HRNet (C 18), LEAP and the pretrained-encoder
+   EfficientNet-b0 UNet; kernel 1 once a batch. Each: 8 timed batches (FPS,
+   device ms a batch from ``torch.profiler``), one batch with ``Labels``,
+   and the card against the same folders loaded with ``device="cpu"`` on
+   BB_CPU_FRAMES frames within PATH_XY_TOL and PATH_VAL_TOL. 10d: a library
+   ``predict`` leaves the caller's TF32 flags as it found them; and
+   ``python -m sleap_tpu_torch.cli.track`` in a fresh process (no TF32
+   flag set by this one) on the card against ``--cpu``, on 8b's float32
+   pair and on 10b's folders, within PATH_XY_TOL and PATH_VAL_TOL.
+5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9 and 10 join its
+   rows at the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
    3.35 TB/s, or operations at the card's peak, whichever is larger) and,
@@ -228,6 +252,9 @@ BU_XY_TOL = 1e-4
 PROB_TOL = 1e-3
 
 IMG, CROP, N_NODES, BATCH, MAX_INSTANCES = 1024, 160, 13, 16, 4
+# Phase 10c: single-instance folders of the other backbones at 512^2, batch
+# 4; every phase-10 path is held against the CPU on BB_CPU_FRAMES frames.
+BB_SI_IMG, BB_SI_BATCH, BB_CPU_FRAMES = 512, 4, 2
 TIMED_BATCHES = 8
 # Single-instance (``bench.py:160-175,287``): 192^2 frames, batch 4, bf16.
 SI_IMG, SI_BATCH = 192, 4
@@ -2324,6 +2351,314 @@ def check_sleap_train(card, wrappers, launches):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 10: the other backbones at full width, and TF32 in a fresh process
+# --------------------------------------------------------------------------- #
+
+
+def backbone_folders(root, centroid):
+    """Phase 10's run folders, at each backbone config's defaults: the
+    centered-instance models of 10a (pretrained-encoder ResNet-50) and 10b
+    (``resnet`` ResNet50), each paired with phase 4's ``centroid`` folder,
+    and 10c's single-instance models. 13 nodes; crops of CROP."""
+    from sleap_tpu_torch import config as c
+
+    skeleton = chain_skeleton()
+
+    def folder(name, backbone, heads, crop_size=None):
+        cfg = c.TrainingJobConfig(
+            data=c.DataConfig(labels=c.LabelsConfig(skeletons=[skeleton]),
+                              instance_cropping=c.InstanceCroppingConfig(crop_size=crop_size)),
+            model=c.ModelConfig(backbone=c.BackboneConfig(**backbone), heads=heads),
+        )
+        path = os.path.join(root, name)
+        os.makedirs(path)
+        cfg.save_json(os.path.join(path, "training_config.json"))
+        return path
+
+    def instance(stride):
+        return c.HeadsConfig(centered_instance=c.CenteredInstanceConfmapsHeadConfig(
+            output_stride=stride, sigma=2.5))
+
+    def single(stride):
+        return c.HeadsConfig(single_instance=c.SingleInstanceConfmapsHeadConfig(
+            output_stride=stride, sigma=2.5))
+
+    resnet50 = c.PretrainedEncoderConfig(encoder="resnet50", pretrained=False)
+    effnet = c.PretrainedEncoderConfig(encoder="efficientnetb0", pretrained=False)
+    return {
+        "pretrained-encoder ResNet-50": [centroid, folder(
+            "pe_resnet50", {"pretrained_encoder": resnet50}, instance(resnet50.output_stride),
+            crop_size=CROP)],
+        "resnet ResNet50": [centroid, folder(
+            "resnet50", {"resnet": c.ResNetConfig(weights="random")},
+            instance(c.ResNetConfig().output_stride), crop_size=CROP)],
+        "Hourglass": [folder("hourglass", {"hourglass": c.HourglassConfig()},
+                             single(c.HourglassConfig().output_stride))],
+        "HRNet": [folder("hrnet", {"hrnet": c.HRNetConfig()}, single(2))],
+        "LEAP": [folder("leap", {"leap": c.LEAPConfig()}, single(c.LEAPConfig().output_stride))],
+        "pretrained-encoder EfficientNet-b0": [folder(
+            "pe_effnetb0", {"pretrained_encoder": effnet}, single(effnet.output_stride))],
+    }
+
+
+def lsuv_variables(path, sample, gen, device):
+    """Seeded weights for a run folder, as the flax variables ``load_model``
+    takes: He-normal kernels, heads non-negative (maps cross the threshold),
+    batch-norm running means N(0, 0.1^2) and variances U(0.5, 2) drawn from
+    ``gen``; then every conv's kernel and bias scaled, in one forward on
+    ``sample`` on the card, so that its output has unit standard deviation
+    there (layer-sequential unit variance, Mishkin & Matas 2016): with
+    statistics that do not normalise, activations would otherwise grow or
+    shrink geometrically through 50-160 layers."""
+    from sleap_tpu_torch.config import TrainingJobConfig
+    from sleap_tpu_torch.models.model import Model, init_params
+    from sleap_tpu_torch.models.params import flax_variables_from_state_dict
+
+    cfg = TrainingJobConfig.load_json(path)
+    net = Model.from_config(cfg.model, skeleton=cfg.data.labels.skeletons[0]).make_module(1)
+    init_params(net, gen)
+    convs = [m for m in net.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+        for head in net.heads.values():
+            head.weight.abs_()
+
+    def unit_std(module, inputs, output):
+        std = float(output.std())
+        if std > 0:
+            module.weight.div_(std)
+            if module.bias is not None:
+                module.bias.div_(std)
+            return output / std
+        return output
+
+    net.to(device).eval()
+    hooks = [m.register_forward_hook(unit_std) for m in convs]
+    try:
+        with torch.no_grad():
+            net(torch.from_numpy(sample).to(device))
+    finally:
+        for h in hooks:
+            h.remove()
+    stats = flax_variables_from_state_dict(net)
+    check(bool(stats["batch_stats"]) == any(isinstance(m, torch.nn.BatchNorm2d)
+                                            for m in net.modules()), f"{path}: batch_stats")
+    return stats
+
+
+def device_ms_per_batch(pred, batch_frames) -> float:
+    """Device time of one ``predict`` batch (``torch.profiler``, the sum of
+    its device functions' self time, from two sessions that agree)."""
+    events = repeated_events(lambda: pred.predict(batch_frames, make_labels=False))
+    return sum(e.self_device_time_total for e in events) / 1e3
+
+
+def card_vs_cpu(name, gpu, cpu, frames, keys, point_keys):
+    """The same folder on the card and on the CPU over ``frames``: equal
+    masks and NaN patterns, points within PATH_XY_TOL, values within
+    PATH_VAL_TOL. Returns (max |dxy|, max |dval|)."""
+    g = dataclasses.replace(gpu, batch_size=len(frames)).predict(frames, make_labels=False)
+    c = cpu.predict(frames, make_labels=False)
+    d_xy = d_val = 0.0
+    for k in keys:
+        a, b = (np.concatenate([ex[k][:ex["n_valid"]] for ex in out]) for out in (g, c))
+        if a.dtype == bool:
+            check(np.array_equal(a, b), f"{name}: card vs CPU {k}")
+            continue
+        d = max_abs(torch.from_numpy(a), torch.from_numpy(b))
+        if k in point_keys:
+            d_xy = max(d_xy, d)
+        else:
+            d_val = max(d_val, d)
+    check(d_xy <= PATH_XY_TOL and d_val <= PATH_VAL_TOL,
+          f"{name}: card vs CPU max |dxy| {d_xy:.3g}, max |dval| {d_val:.3g}")
+    return d_xy, d_val
+
+
+def check_single_outputs(name, pred, frames, out, batch):
+    """Single-instance outputs: shapes, finite values, points found, and a
+    batch with ``Labels``."""
+    n_frames = len(frames) - batch
+    peaks = np.concatenate([ex["instance_peaks"][:ex["n_valid"]] for ex in out])
+    vals = np.concatenate([ex["instance_peak_vals"][:ex["n_valid"]] for ex in out])
+    check(peaks.shape == (n_frames, N_NODES, 2) and vals.shape == (n_frames, N_NODES),
+          f"{name}: shapes")
+    check(np.isfinite(vals).all() and np.isfinite(peaks).any(), f"{name}: values")
+    want = [int(not np.isnan(p).all()) for p in peaks[:batch]]
+    check_labels(name, pred, frames[batch:2 * batch], want)
+    return int(np.isfinite(peaks[..., 0]).sum())
+
+
+def check_backbones(drive, fps, td_frames, td_wrappers, si_wrappers, card):
+    """Phase 10: 10a-c, each backbone's folders loaded with ``load_model``
+    (the card by default) and driven as phase 4 drives its path, then held
+    against the same folders loaded with ``device="cpu"`` on BB_CPU_FRAMES
+    frames; 10d, TF32 in process and in a fresh CLI process. Returns the
+    figures it prints."""
+    import sleap_tpu_torch
+
+    root = tempfile.mkdtemp()
+    try:
+        figures, resnet_pair = drive_backbones(root, drive, fps, td_frames, td_wrappers,
+                                               si_wrappers, card)
+        pred = sleap_tpu_torch.load_model(resnet_pair, batch_size=2, max_instances=MAX_INSTANCES)
+        check_library_keeps_tf32_flags(pred, td_frames[:2])
+        figures["10d"] = check_cli_fresh_process(resnet_pair, td_frames, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return figures
+
+
+def drive_backbones(root, drive, fps, td_frames, td_wrappers, si_wrappers, card):
+    """10a-c; returns (figures, 10b's pair of folders with their weights
+    saved as ``best_model.pt``)."""
+    import sleap_tpu_torch
+
+    gen = torch.Generator().manual_seed(10)
+    si_frames = synthetic_frames((1 + TIMED_BATCHES) * BB_SI_BATCH, seed=10, size=BB_SI_IMG,
+                                 blobs=1, sigma=12.0)
+    centroid = write_run_folders(root)["centroid"]
+    folders = backbone_folders(root, centroid)
+    device = torch.device("cuda", 0)
+    figures = {}
+    resnet_pair = None
+    for name, paths in folders.items():
+        t0 = time.perf_counter()
+        topdown = len(paths) == 2
+        own = paths[-1]
+        sample = (td_frames[:BATCH, :CROP, :CROP] if topdown else si_frames[:BB_SI_BATCH])
+        params = {own: lsuv_variables(own, sample, gen, device)}
+        if topdown:
+            params[centroid] = seeded_params(centroid, torch.Generator().manual_seed(0))
+        kwargs = dict(params=params, max_instances=MAX_INSTANCES) if topdown else dict(params=params)
+        batch = BATCH if topdown else BB_SI_BATCH
+        frames = td_frames if topdown else si_frames
+        gpu = sleap_tpu_torch.load_model(paths if topdown else own, batch_size=batch, **kwargs)
+        cpu = sleap_tpu_torch.load_model(paths if topdown else own, device="cpu", batch_size=2,
+                                         **kwargs)
+        check(gpu.device.type == "cuda", f"{name}: on the card by default")
+        label = f"{'top-down' if topdown else 'single-instance'} {name}"
+        wrappers = td_wrappers if topdown else si_wrappers
+        out = drive(label, gpu, frames, wrappers, batch)
+        if topdown:
+            check_topdown_outputs(label, gpu, frames, out)
+            keys = ("centroids", "centroid_vals", "centroid_mask", "instance_peaks",
+                    "instance_peak_vals")
+            found = int(merged(out, len(frames) - batch)["centroid_mask"].sum())
+        else:
+            found = check_single_outputs(label, gpu, frames, out, batch)
+            keys = ("instance_peaks", "instance_peak_vals")
+        d_xy, d_val = card_vs_cpu(label, gpu, cpu, frames[:BB_CPU_FRAMES], keys,
+                                  ("centroids", "instance_peaks"))
+        dev_ms = device_ms_per_batch(gpu, frames[:batch])
+        module = (gpu.confmap_model if hasattr(gpu, "confmap_model") else gpu).module
+        n_params = sum(p.numel() for p in module.parameters())
+        fps_ = fps[label]
+        figures[name] = {"fps": fps_, "device_ms_per_batch": dev_ms, "batch": batch,
+                         "image": IMG if topdown else BB_SI_IMG, "params": n_params,
+                         "found": found, "max_abs_dxy": d_xy, "max_abs_dval": d_val,
+                         "seconds": time.perf_counter() - t0}
+        log(f"10 {label}: {n_params} parameters; {fps_:.1f} FPS, {dev_ms:.2f} device ms a batch "
+            f"of {batch}; card vs CPU ({BB_CPU_FRAMES} frames) max |dxy| {d_xy:.3g}, max |dval| "
+            f"{d_val:.3g}; {time.perf_counter() - t0:.1f} s ({card})")
+        if name == "resnet ResNet50":
+            for path, tm in zip(paths, (gpu.centroid_model, gpu.confmap_model)):
+                torch.save({k: v.float().cpu() for k, v in tm.module.state_dict().items()},
+                           os.path.join(path, "best_model.pt"))
+            resnet_pair = paths
+    return figures, resnet_pair
+
+
+def check_library_keeps_tf32_flags(pred, frames):
+    """10d, in process: a library ``predict`` runs float32 with TF32 off and
+    leaves the caller's flags as it found them."""
+    for state in ((True, True), (True, False), (False, True)):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = state
+        pred.predict(frames, make_labels=False)
+        after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        check(after == state, f"10d: predict changed the caller's TF32 flags {state} -> {after}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def check_cli_fresh_process(resnet_pair, frames, card):
+    """10d: ``python -m sleap_tpu_torch.cli.track`` in a fresh interpreter
+    (no TF32 flag set by this process; the CLI turns TF32 off itself), on
+    the card and with ``--cpu``: phase 8b's float32 pair on ``raw.slp`` and
+    10b's folders (weights in ``best_model.pt``) on a .slp of
+    BB_CPU_FRAMES frames of 1024^2; the two within PATH_XY_TOL and
+    PATH_VAL_TOL."""
+    from sleap_tpu_torch.core.instance import LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.io.slp import read_labels, write_labels
+    from sleap_tpu_torch.io.video import Video
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = os.path.join(here, ".convergence_runs")
+    figures = {}
+    with tempfile.TemporaryDirectory() as root:
+        clip = os.path.join(root, "clip.slp")
+        write_labels(clip, Labels([LabeledFrame(Video.from_numpy(frames[:BB_CPU_FRAMES]), i)
+                                   for i in range(BB_CPU_FRAMES)]))
+        cases = [
+            ("trained float32 pair (8b)", os.path.join(here, *FIXTURE_DIR, "raw.slp"),
+             ["-m", os.path.join(runs, CLI_TRAINED[0]), "-m", os.path.join(runs, CLI_TRAINED[1]),
+              "--peak_threshold", "0.05", "--batch_size", "4"]),
+            ("10b resnet ResNet50 pair", clip,
+             ["-m", resnet_pair[0], "-m", resnet_pair[1], "--max_instances", str(MAX_INSTANCES),
+              "--batch_size", str(BB_CPU_FRAMES)]),
+        ]
+        for k, (name, src, models) in enumerate(cases):
+            outs = []
+            for flag in ((), ("--cpu",)):
+                out = os.path.join(root, f"{k}{''.join(flag)}.slp")
+                t0 = time.perf_counter()
+                run = subprocess.run(
+                    [sys.executable, "-m", "sleap_tpu_torch.cli.track", src, *models,
+                     "--verbosity", "none", *flag, "-o", out],
+                    cwd=here, capture_output=True, text=True, timeout=300)
+                check(run.returncode == 0, f"10d {name} {flag}: exit {run.returncode}: "
+                      f"{run.stderr[-2000:]}")
+                outs.append((read_labels(out), time.perf_counter() - t0))
+            (got, card_s), (want, cpu_s) = outs
+            n = sum(len(lf.instances) for lf in got)
+            check(n >= len(got) > 0, f"10d {name}: instances in every frame")
+            d = compare_predictions(got, want, PATH_XY_TOL, PATH_VAL_TOL,
+                                    f"10d {name}: fresh-process CLI, card vs --cpu")
+            figures[name] = {"card_s": card_s, "cpu_s": cpu_s, "instances": n,
+                             "max_abs_dxy": d[0], "max_abs_dscore": d[1]}
+            log(f"10d fresh-process CLI {name}: card {card_s:.1f} s, --cpu {cpu_s:.1f} s, "
+                f"{n} instances; max |dxy| {d[0]:.3g}, max |dscore| {d[1]:.3g} ({card})")
+    return figures
+
+
+def decoder_probe():
+    """What the card's machine offers to decode H.264, printed only
+    (ROADMAP queue 1, item 3a): installs nothing, imports nothing heavy,
+    never fails the run."""
+    import ctypes
+    import ctypes.util
+    import importlib.util
+
+    try:
+        ctypes.CDLL("libnvcuvid.so.1")
+        nvcuvid_loads = True
+    except OSError as e:
+        nvcuvid_loads = f"no: {e}"
+    probe = {
+        "ffmpeg": shutil.which("ffmpeg"),
+        "find_library(nvcuvid)": ctypes.util.find_library("nvcuvid"),
+        "CDLL(libnvcuvid.so.1)": nvcuvid_loads,
+        "find_spec": {name: importlib.util.find_spec(name) is not None
+                      for name in ("torchvision", "torchcodec", "av", "imageio_ffmpeg")},
+    }
+    log(f"decoder probe: {json.dumps(probe)}")
+    return probe
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: times and bounds
 # --------------------------------------------------------------------------- #
 
@@ -2475,6 +2810,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     log(card)
+    decoder_probe()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -2585,6 +2921,12 @@ def main() -> int:
     t9 = time.perf_counter()
     train_cli = check_sleap_train(card, td_wrappers, launches)
     log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    # Phase 10: the other backbones at full width; TF32 in a fresh process.
+    t10 = time.perf_counter()
+    backbones = check_backbones(drive, fps, frames, td_wrappers,
+                                {"global_peaks": cuda_peaks.global_peaks_cuda}, card)
+    log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
 
@@ -2600,6 +2942,7 @@ def main() -> int:
     log(f"tracking: {json.dumps(tracking)} ({card})")
     log(f"cli: {json.dumps(cli)} ({card})")
     log(f"sleap-train: {json.dumps(train_cli)} ({card})")
+    log(f"backbones: {json.dumps(backbones)} ({card})")
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

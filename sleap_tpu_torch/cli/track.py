@@ -266,10 +266,13 @@ def _default_output(data_path: str) -> str:
 
 def main(args: Optional[List[str]] = None) -> None:
     """Predict on every input and write each one's ``.slp``; or, with a
-    tracker and no model, re-track a predictions file."""
+    tracker and no model, re-track a predictions file. Float32 runs with
+    TF32 off for the whole process."""
     from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.precision import disable_tf32
     from sleap_tpu_torch.version import __version__
 
+    disable_tf32()
     logging.basicConfig(level=logging.INFO)
     t0 = time.time()
     start_timestamp = str(datetime.now())

@@ -112,6 +112,11 @@ def create_trainer_using_cli(args: Optional[List[str]] = None):
 
 
 def main(args: Optional[List[str]] = None) -> None:
+    """Train from the command line; float32 runs with TF32 off for the
+    whole process."""
+    from sleap_tpu_torch.precision import disable_tf32
+
+    disable_tf32()
     logging.basicConfig(level=logging.INFO)
     trainer = create_trainer_using_cli(args)
     trainer.train()

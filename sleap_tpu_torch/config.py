@@ -3,8 +3,8 @@
 A dataclass copy of :mod:`sleap_tpu.config` (same field names and
 defaults), so run folders load and training runs with plain Python: no
 ``attr``, no JAX package. It covers the data (labels, preprocessing,
-cropping), the UNet backbone (the other backbones are kept as raw dicts,
-enough to see that ``unet`` is None), every head type, the optimization
+cropping), every backbone (UNet, LEAP, Hourglass, ResNet with its
+upsampling stack, the pretrained-encoder UNet and HRNet), every head type, the optimization
 (augmentation, hard keypoint mining, learning-rate schedule, early
 stopping) and the outputs (checkpoints, TensorBoard, ZMQ), so a config
 written by either package reads back equal in the other. Unknown fields are
@@ -146,6 +146,16 @@ class HeadsConfig(_OneOf):
 
 
 @dataclass
+class LEAPConfig:
+    max_stride: int = 8
+    output_stride: int = 1
+    filters: int = 64
+    filters_rate: float = 2
+    up_interpolate: bool = False
+    stacks: int = 1
+
+
+@dataclass
 class UNetConfig:
     stem_stride: Optional[int] = None
     max_stride: int = 16
@@ -160,16 +170,68 @@ class UNetConfig:
 
 
 @dataclass
-class BackboneConfig(_OneOf):
-    """Exactly one backbone may be set; only the UNet is ported, the others
-    stay raw dicts."""
+class HourglassConfig:
+    stem_stride: int = 4
+    max_stride: int = 64
+    output_stride: int = 4
+    stem_filters: int = 128
+    filters: int = 256
+    filter_increase: int = 128
+    stacks: int = 3
 
-    leap: Optional[dict] = None
+
+@dataclass
+class UpsamplingConfig:
+    method: str = "interpolation"
+    skip_connections: Optional[str] = None
+    block_stride: int = 2
+    filters: int = 64
+    filters_rate: float = 1
+    refine_convs: int = 2
+    batch_norm: bool = True
+    transposed_conv_kernel_size: int = 4
+
+
+@dataclass
+class ResNetConfig:
+    version: str = "ResNet50"
+    weights: str = "frozen"
+    upsampling: Optional[UpsamplingConfig] = None
+    max_stride: int = 32
+    output_stride: int = 4
+
+
+@dataclass
+class PretrainedEncoderConfig:
+    encoder: str = "efficientnetb0"
+    pretrained: bool = True
+    decoder_filters: int = 256
+    decoder_filters_rate: float = 1.0
+    output_stride: int = 2
+    decoder_batchnorm: bool = True
+
+
+@dataclass
+class HRNetConfig:
+    C: int = 18
+    initial_downsampling_steps: int = 2
+    n_deconv_modules: int = 1
+    bottleneck: bool = False
+    deconv_filters: int = 256
+    bilinear_upsampling: bool = False
+    stem_filters: int = 64
+
+
+@dataclass
+class BackboneConfig(_OneOf):
+    """Exactly one backbone may be set."""
+
+    leap: Optional[LEAPConfig] = None
     unet: Optional[UNetConfig] = None
-    hourglass: Optional[dict] = None
-    resnet: Optional[dict] = None
-    pretrained_encoder: Optional[dict] = None
-    hrnet: Optional[dict] = None
+    hourglass: Optional[HourglassConfig] = None
+    resnet: Optional[ResNetConfig] = None
+    pretrained_encoder: Optional[PretrainedEncoderConfig] = None
+    hrnet: Optional[HRNetConfig] = None
 
 
 @dataclass

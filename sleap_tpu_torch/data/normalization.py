@@ -44,12 +44,30 @@ def ensure_float(image: torch.Tensor) -> torch.Tensor:
     return image.float()
 
 
+def scale_to_imagenet_torch_mode(image: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float RGB -> standardized by the ImageNet mean and std."""
+    return (image - _vec(_IMAGENET_MEAN_RGB, image)) / _vec(_IMAGENET_STD_RGB, image)
+
+
+def scale_to_imagenet_caffe_mode(image: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float RGB -> BGR in 0-255, less the ImageNet mean."""
+    return image.flip(-1) * 255.0 - _vec(_CAFFE_MEAN_BGR, image)
+
+
+def scale_to_imagenet_tf_mode(image: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float -> [-1, 1]."""
+    return image * 2.0 - 1.0
+
+
+_IMAGENET_MODES = {
+    "tf": scale_to_imagenet_tf_mode,
+    "caffe": scale_to_imagenet_caffe_mode,
+    "torch": scale_to_imagenet_torch_mode,
+}
+
+
 def apply_imagenet_mode(image: torch.Tensor, mode: str) -> torch.Tensor:
     """[0, 1] float RGB -> the "tf", "caffe" or "torch" ImageNet scaling."""
-    if mode == "tf":
-        return image * 2.0 - 1.0
-    if mode == "caffe":
-        return image.flip(-1) * 255.0 - _vec(_CAFFE_MEAN_BGR, image)
-    if mode == "torch":
-        return (image - _vec(_IMAGENET_MEAN_RGB, image)) / _vec(_IMAGENET_STD_RGB, image)
-    raise ValueError(f"Unknown imagenet mode: {mode!r}")
+    if mode not in _IMAGENET_MODES:
+        raise ValueError(f"Unknown imagenet mode: {mode!r}")
+    return _IMAGENET_MODES[mode](image)

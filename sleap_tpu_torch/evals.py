@@ -31,6 +31,7 @@ import torch
 
 from sleap_tpu_torch.core.instance import Instance, LabeledFrame, PredictedInstance
 from sleap_tpu_torch.core.labels import Labels
+from sleap_tpu_torch.precision import ieee_fp32
 
 logger = logging.getLogger(__name__)
 
@@ -327,6 +328,7 @@ def evaluate(
     return metrics
 
 
+@ieee_fp32()
 def evaluate_model(
     cfg,
     labels_gt: Union[Labels, Any],

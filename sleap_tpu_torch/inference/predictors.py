@@ -55,10 +55,15 @@ from sleap_tpu_torch.data.instance_centroids import get_instance_centroids
 from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image
 from sleap_tpu_torch.data.streaming import stage_to_device
 from sleap_tpu_torch.io.keras_h5 import read_keras_weights
-from sleap_tpu_torch.io.orbax import read_params
+from sleap_tpu_torch.io.orbax import read_variables
 from sleap_tpu_torch.io.video import Video
 from sleap_tpu_torch.models.model import Model, PoseNet, find_head
-from sleap_tpu_torch.models.params import state_dict_from_flax, state_dict_from_keras
+from sleap_tpu_torch.models.params import (
+    flax_layers,
+    is_variables,
+    state_dict_from_flax,
+    state_dict_from_keras,
+)
 from sleap_tpu_torch.ops.peak_finding import (
     crop_bboxes_unit,
     find_global_peaks,
@@ -66,6 +71,7 @@ from sleap_tpu_torch.ops.peak_finding import (
     find_local_peaks,
     find_local_peaks_with_offsets,
 )
+from sleap_tpu_torch.precision import ieee_fp32
 
 # --------------------------------------------------------------------------- #
 # Trained model loading
@@ -105,17 +111,20 @@ def load_trained_model(
     params: Optional[Mapping[str, Any]] = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> TrainedModel:
-    """Load a run folder (``training_config.json`` + weights) onto ``device``.
+    """Load a run folder (``training_config.json`` + weights) onto ``device``,
+    in ``eval()`` mode (batch norm runs on its running statistics).
 
-    Weights come from ``params``, a flax ``variables["params"]`` tree with
-    numpy leaves, if given; else from the folder's Keras ``best_model.h5``;
-    else from its orbax checkpoint ``best_model.ckpt``, read by the port's
-    own readers (:func:`~sleap_tpu_torch.io.orbax.read_params`); else from
+    Weights come from ``params``, flax variables ``{"params",
+    "batch_stats"}`` or a bare ``params`` tree (a model without batch norm)
+    with numpy leaves, if given; else from the folder's Keras
+    ``best_model.h5``; else from its orbax checkpoint ``best_model.ckpt``,
+    read by the port's own readers
+    (:func:`~sleap_tpu_torch.io.orbax.read_variables`); else from
     ``best_model.pt``, the ``state_dict`` the port's trainer saves
     (:mod:`sleap_tpu_torch.training.trainer`), read with
     ``weights_only=True``. A folder with none of them raises
     ``FileNotFoundError``. ``compute_dtype`` is the
-    network's (float32 or bf16, see
+    network's (float32, or bf16 for UNets; see
     :class:`~sleap_tpu_torch.models.model.PoseNet`).
     """
     model_dir = os.path.dirname(model_path) if model_path.endswith(".json") else model_path
@@ -126,15 +135,13 @@ def load_trained_model(
     h5_path = os.path.join(model_dir, "best_model.h5")
     ckpt_path = os.path.join(model_dir, "best_model.ckpt")
     pt_path = os.path.join(model_dir, "best_model.pt")
-    name, fold = model.input_conv
-    state = None
-    keras = False
+    weights, state, keras = None, None, False
     if params is not None:
         weights = params
     elif os.path.exists(h5_path):
         weights, keras = read_keras_weights(h5_path), True
     elif os.path.isdir(ckpt_path):
-        weights = read_params(ckpt_path)
+        weights = read_variables(ckpt_path)
     elif os.path.exists(pt_path):
         state = torch.load(pt_path, map_location="cpu", weights_only=True)
     else:
@@ -142,11 +149,7 @@ def load_trained_model(
             f"No weights in {model_dir}: no params given, and none of best_model.h5, "
             "best_model.ckpt or best_model.pt there."
         )
-    if state is not None:  # the port's own checkpoint: a state_dict, OIHW kernels
-        in_channels = int(state[f"backbone.layers.{name}.weight"].shape[1]) // fold
-    else:
-        layers = weights if keras else weights.get("backbone", {})
-        in_channels = int(np.shape(layers[name]["kernel"])[2]) // fold
+    in_channels = _input_channels(model, config, weights, state, keras)
     crop = config.data.instance_cropping.crop_size
     module = model.make_module(in_channels, compute_dtype, (crop, crop) if crop else None)
     if state is None:
@@ -178,6 +181,25 @@ def load_trained_model(
                    if pp.resize_and_pad_to_target and pp.target_height and pp.target_width
                    else None),
     )
+
+
+def _input_channels(model: Model, config, weights, state, keras: bool) -> int:
+    """The frames' channel count a model was trained on: the first conv's
+    input channels over its s2d fold; for the pretrained encoders, whose
+    stem always takes RGB (grayscale is tiled), the config's
+    ``ensure_rgb`` (the JAX loader reads 1 for them otherwise)."""
+    conv = model.input_conv
+    if conv is None:
+        pp = config.data.preprocessing
+        return 3 if pp.ensure_rgb and not pp.ensure_grayscale else 1
+    name, fold = conv
+    if state is not None:  # the port's own checkpoint: a state_dict, OIHW kernels
+        return int(state[f"backbone.layers.{name}.weight"].shape[1]) // fold
+    if keras:
+        layers = weights
+    else:
+        layers = flax_layers(weights["params"] if is_variables(weights) else weights)
+    return int(np.shape(layers[name]["kernel"])[2]) // fold
 
 
 def _preprocess(
@@ -380,11 +402,14 @@ class Predictor:
         """Tracks every ``Labels`` of this predictor registers, in order."""
         return []
 
+    @ieee_fp32()
     def predict(self, data, make_labels: bool = True):
         """Run inference on numpy frames (N, H, W[, C]), a video or labels
         (the port's or the JAX package's), or the path of a ``.slp`` or
         video file; return the port's ``Labels``, or the per-batch example
-        dicts when ``make_labels`` is False."""
+        dicts when ``make_labels`` is False. Float32 runs with TF32 off,
+        and the caller's TF32 flags are restored after
+        (:func:`~sleap_tpu_torch.precision.ieee_fp32`)."""
         t0 = time.time()
         if isinstance(data, np.ndarray):
             frames = data if data.ndim == 4 else data[..., None]

@@ -12,7 +12,9 @@ A checkpoint that orbax's ``StandardCheckpointHandler`` wrote holds:
   (:mod:`sleap_tpu_torch.io.zstd`) or raw bytes.
 
 :func:`read_params` returns the ``params`` subtree with the JAX tree's
-nesting and names, the form
+nesting and names, and :func:`read_variables` the flax variables
+``{"params", "batch_stats"}`` (the JAX trainer saves both; ``batch_stats``
+holds the batch-norm running statistics, empty for a UNet): the forms
 :func:`~sleap_tpu_torch.models.params.state_dict_from_flax` takes.
 """
 
@@ -28,7 +30,7 @@ import numpy as np
 from sleap_tpu_torch.io.ocdbt import OcdbtReader
 from sleap_tpu_torch.io.zstd import decompress
 
-__all__ = ["read_params"]
+__all__ = ["read_params", "read_variables"]
 
 _HANDLER = "StandardCheckpointHandler"
 
@@ -73,9 +75,7 @@ def _read_array(store: OcdbtReader, name: str) -> np.ndarray:
     return out
 
 
-def read_params(ckpt_dir: str) -> Dict[str, Any]:
-    """The ``params`` tree of a model checkpoint (``best_model.ckpt``):
-    nested dicts of numpy arrays, keyed as the tree that was saved."""
+def _read_tree(ckpt_dir: str) -> Dict[str, Any]:
     ckpt_dir = os.fspath(ckpt_dir)
     _check_handler(ckpt_dir)
     with open(os.path.join(ckpt_dir, "_METADATA")) as f:
@@ -92,4 +92,17 @@ def read_params(ckpt_dir: str) -> Dict[str, Any]:
         node[path[-1]] = _read_array(store, ".".join(path))
     if "params" not in tree:
         raise KeyError(f"{ckpt_dir} holds no 'params' tree (top-level keys: {sorted(tree)}).")
-    return tree["params"]
+    return tree
+
+
+def read_params(ckpt_dir: str) -> Dict[str, Any]:
+    """The ``params`` tree of a model checkpoint (``best_model.ckpt``):
+    nested dicts of numpy arrays, keyed as the tree that was saved."""
+    return _read_tree(ckpt_dir)["params"]
+
+
+def read_variables(ckpt_dir: str) -> Dict[str, Any]:
+    """The flax variables of a model checkpoint: ``{"params": ...,
+    "batch_stats": ...}``, ``batch_stats`` empty when none was saved."""
+    tree = _read_tree(ckpt_dir)
+    return {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}

@@ -20,15 +20,23 @@ that is written as concat -> conv. Layers live in one flat ``ModuleDict``
 keyed by the flax layer names (``stack0_enc0_conv0`` ...), so a flax params
 tree or a Keras weight file maps onto ``state_dict`` by name
 (:mod:`sleap_tpu_torch.models.params`).
+
+The module also holds what every backbone is built from: flax's SAME
+padding (:func:`same_pads`, :class:`Conv2dSame`, the SAME pools), flax's
+batch norm as ``BatchNorm2d`` (:func:`batch_norm`), and :class:`FlaxLayers`,
+the base of the ResNet, HRNet and pretrained-encoder modules.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Tuple
+import math
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sleap_tpu_torch.models.common import IntermediateFeature
 
 # --------------------------------------------------------------------------- #
 # Block descriptor factories (tagged plain tuples, same fields as sleap_tpu)
@@ -166,19 +174,14 @@ def first_conv(stem_blocks: tuple, encoder_blocks: tuple) -> Tuple[str, int]:
                 fold *= int(blk[2]) ** 2
             elif blk[0] == "simple_conv" and blk[4] > 0:
                 return f"{prefix}{i}_conv0", fold
+            elif blk[0] == "hg_stem":
+                return f"{prefix}{i}_conv7x7", fold
     raise ValueError("Backbone has no input convolution.")
 
 
 # --------------------------------------------------------------------------- #
-# Functional pieces (NCHW)
+# Functional pieces (NCHW); flax's SAME padding
 # --------------------------------------------------------------------------- #
-
-
-class IntermediateFeature(NamedTuple):
-    """An activation tensor tagged with its stride relative to the input."""
-
-    tensor: Any
-    stride: int
 
 
 def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -193,19 +196,65 @@ def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.reshape(n, factor * factor * c, h // factor, w // factor)
 
 
-def max_pool_same(x: torch.Tensor, stride: int, pool_size: int = 2) -> torch.Tensor:
-    """``flax.linen.max_pool(..., padding="SAME")``: -inf padding, split
-    ``total // 2`` before and the rest after, as XLA's SAME rule."""
+def same_pads(n: int, window: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``padding="SAME"`` on an axis of length ``n``: the total pad
+    ``max((ceil(n/s) - 1)*s + window - n, 0)``, ``total // 2`` before and
+    the rest after. With stride 2 on an even length it is asymmetric: a
+    3x3/2 conv pads (0, 1) where torch's ``padding=1`` pads (1, 1), and a
+    7x7/2 conv pads (2, 3)."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + window - n, 0)
+    return total // 2, total - total // 2
 
-    def pads(n: int) -> Tuple[int, int]:
-        out = -(-n // stride)
-        total = max((out - 1) * stride + pool_size - n, 0)
-        return total // 2, total - total // 2
 
-    (top, bottom), (left, right) = pads(x.shape[-2]), pads(x.shape[-1])
+def pad_same(x: torch.Tensor, window: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """Pad the last two axes of ``x`` as XLA's SAME rule does for a square
+    ``window`` at ``stride``."""
+    (top, bottom), (left, right) = (same_pads(x.shape[-2], window, stride),
+                                    same_pads(x.shape[-1], window, stride))
     if top or bottom or left or right:
-        x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
-    return F.max_pool2d(x, pool_size, stride)
+        x = F.pad(x, (left, right, top, bottom), value=value)
+    return x
+
+
+class Conv2dSame(nn.Conv2d):
+    """``flax.linen.Conv(padding="SAME")``, strided, dilated and grouped
+    included. A stride-1 conv pads ``dilation*(k-1)`` in all, the same on
+    every input size, so an odd window pads symmetrically inside cuDNN; a
+    strided conv pads explicitly by :func:`same_pads` first."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1, bias: bool = True):
+        window = dilation * (kernel_size - 1) + 1
+        symmetric = stride == 1 and window % 2 == 1
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=(window - 1) // 2 if symmetric else 0,
+                         dilation=dilation, groups=groups, bias=bias)
+        self.window = None if symmetric else window
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.window is not None:
+            x = pad_same(x, self.window, self.stride[0])
+        return super().forward(x)
+
+
+def batch_norm(channels: int, epsilon: float, flax_momentum: float) -> nn.BatchNorm2d:
+    """``flax.linen.BatchNorm(epsilon=..., momentum=...)`` as a
+    ``BatchNorm2d``. Flax keeps ``momentum`` of the old statistic where
+    torch keeps ``1 - momentum``; only the running statistics are ported
+    (inference), so the update rule is not held to flax's."""
+    return nn.BatchNorm2d(channels, eps=epsilon, momentum=1.0 - flax_momentum)
+
+
+def max_pool_same(x: torch.Tensor, stride: int, pool_size: int = 2) -> torch.Tensor:
+    """``flax.linen.max_pool(..., padding="SAME")``: -inf padding."""
+    return F.max_pool2d(pad_same(x, pool_size, stride, float("-inf")), pool_size, stride)
+
+
+def avg_pool_same(x: torch.Tensor, stride: int, pool_size: int = 2) -> torch.Tensor:
+    """``flax.linen.avg_pool(..., padding="SAME")``: zero padding that
+    counts in the mean (flax's ``count_include_pad=True``)."""
+    return F.avg_pool2d(pad_same(x, pool_size, stride), pool_size, stride)
 
 
 def upsample(x: torch.Tensor, stride: int, method: str) -> torch.Tensor:
@@ -268,16 +317,89 @@ class ConvTransposeSame(nn.ConvTranspose2d):
 # Executor module
 # --------------------------------------------------------------------------- #
 
+class FlaxLayers(nn.Module):
+    """A backbone whose layers live in one flat ``ModuleDict`` keyed by the
+    flax layer names, so a flax variables tree maps onto ``state_dict`` by
+    name (:mod:`sleap_tpu_torch.models.params`).
 
-class EncoderDecoderNet(nn.Module):
+    ``flax_name`` is the backbone's key in the flax params tree (``backbone``
+    under ``PoseNet``, ``backbone_module`` under ``BackboneWithHeads``);
+    ``bn_epsilon`` and ``bn_momentum`` are its flax ``BatchNorm``'s.
+    Subclasses set ``out_channels``, ``output_stride`` and
+    ``feature_channels`` (stride -> channels of the first intermediate
+    feature at that stride), which size the heads.
+    """
+
+    flax_name = "backbone"
+    bn_epsilon = 1e-3
+    bn_momentum = 0.99
+
+    def __init__(self):
+        super().__init__()
+        self.layers = nn.ModuleDict()
+
+    def _conv(self, name: str, c_in: int, c_out: int, k: int, stride: int = 1,
+              bias: bool = True, dilation: int = 1, groups: int = 1) -> int:
+        self.layers[name] = Conv2dSame(int(c_in), int(c_out), k, stride=stride,
+                                       dilation=dilation, groups=int(groups), bias=bias)
+        return int(c_out)
+
+    def _bn(self, name: str, c: int) -> None:
+        self.layers[name] = batch_norm(int(c), self.bn_epsilon, self.bn_momentum)
+
+    def _run(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return self.layers[name](x)
+
+    # A backbone whose layer widths follow from its graph builds and runs
+    # with one walk of that graph: while ``_build`` is set, ``x`` is a
+    # channel count and each op below adds its layer and returns the count
+    # it would produce; otherwise ``x`` is a tensor and the op runs.
+    _build = False
+
+    def _width(self, x) -> int:
+        return x if self._build else int(x.shape[1])
+
+    def _conv_op(self, x, name: str, c_out: int, k: int, stride: int = 1, bias: bool = True,
+                 dilation: int = 1, groups: int = 1):
+        if self._build:
+            return self._conv(name, x, c_out, k, stride, bias, dilation, groups)
+        return self._run(name, x)
+
+    def _conv_transpose_op(self, x, name: str, c_out: int, k: int, stride: int = 2,
+                           bias: bool = True):
+        if self._build:
+            self.layers[name] = ConvTransposeSame(x, int(c_out), k, stride, bias=bias)
+            return int(c_out)
+        return self._run(name, x)
+
+    def _bn_op(self, x, name: str):
+        if self._build:
+            self._bn(name, x)
+            return x
+        return self._run(name, x)
+
+    def _map(self, fn, x, *others):
+        """``fn(x, *others)`` for an op that keeps ``x``'s width."""
+        return x if self._build else fn(x, *others)
+
+    def _cat(self, parts):
+        return sum(parts) if self._build else torch.cat(parts, dim=1)
+
+
+class EncoderDecoderNet(FlaxLayers):
     """Executes (stem, encoder, decoder) block-descriptor stacks on NCHW.
 
-    ``forward`` returns ``(output, intermediates)``: the decoder output and
-    the stride-tagged features recorded before each decoder block. Block
-    kinds: ``simple_conv``, ``pooling``, ``s2d`` and ``simple_up`` with
-    concatenated skips (the UNet's). Hourglass blocks, batch norm, additive
-    skips and stacked nets are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP.md, queue 1, item 10).
+    ``forward`` returns ``(outputs, intermediates)``: each stack's decoder
+    output, and for each stack the stride-tagged features recorded before
+    each of its decoder blocks. Block kinds: ``simple_conv`` (conv ->
+    [BN] -> act), ``pooling``, ``s2d``, ``simple_up`` with concatenated or
+    added skips (an added skip of other width goes through a 1x1 conv
+    ``{prefix}_skip_conv1x1``), and the hourglass blocks ``hg_stem``,
+    ``hg_down`` and ``hg_up``, whose order is conv -> ReLU -> BN.
+
+    With ``stacks > 1`` each stack's decoder output is the next stack's
+    encoder input; the skips of every stack still come from the one stem
+    output and that stack's own encoder, as in the JAX module.
     """
 
     def __init__(
@@ -289,12 +411,19 @@ class EncoderDecoderNet(nn.Module):
         stacks: int = 1,
     ):
         super().__init__()
-        if stacks != 1:
-            raise NotImplementedError("Stacked encoder-decoders are not ported yet.")
         self.stem_blocks = tuple(stem_blocks)
         self.encoder_blocks = tuple(encoder_blocks)
         self.decoder_blocks = tuple(decoder_blocks)
-        self.layers = nn.ModuleDict()
+        self.stacks = int(stacks)
+        if self.stacks > 1:
+            enc = math.prod(block_pooling_stride(b) for b in self.encoder_blocks if block_pool(b))
+            dec = math.prod(block_upsampling_stride(b) for b in self.decoder_blocks)
+            if enc != dec:
+                raise ValueError(
+                    "If using a stacked configuration, the backbone must define "
+                    "symmetric encoder and decoder. Create a stem for initial "
+                    "downsampling if an output stride > 1 is desired."
+                )
 
         # Skip sources: (stride, channels, key); key "stem" or an encoder
         # block index. Only the first source at each stride is ever used.
@@ -302,29 +431,33 @@ class EncoderDecoderNet(nn.Module):
         for i, blk in enumerate(self.stem_blocks):
             c = self._add_encoder_layers(blk, f"stem{i}", c)
             stride *= block_pooling_stride(blk) if block_pool(blk) else 1
-        sources: List[Tuple[int, int, Any]] = []
-        if self.stem_blocks:
-            sources.append((stride, c, "stem"))
-        enc_sources: List[Tuple[int, int, Any]] = []
-        for i, blk in enumerate(self.encoder_blocks):
-            c = self._add_encoder_layers(blk, f"stack0_enc{i}", c)
-            stride *= block_pooling_stride(blk) if block_pool(blk) else 1
-            if stride not in [s for s, _, _ in enc_sources]:
-                enc_sources.append((stride, c, i))
-        sources += enc_sources[:-1]
-        self._kept = {key for _, _, key in sources}
-        self._encoder_stride = stride
-
+        stem = [(stride, c, "stem")] if self.stem_blocks else []
+        stem_stride = stride
+        self._kept = set()
         self._skips: List[Any] = []
-        self.feature_channels = {}
-        for i, blk in enumerate(self.decoder_blocks):
-            self.feature_channels.setdefault(stride, c)
-            stride //= block_upsampling_stride(blk)
-            src = next(((ch, key) for s, ch, key in sources if s == stride), None)
-            self._skips.append(None if src is None else src[1])
-            c = self._add_decoder_layers(
-                blk, f"stack0_dec{i}", c, None if src is None else src[0]
-            )
+        for s in range(self.stacks):
+            stride = stem_stride
+            enc_sources: List[Tuple[int, int, Any]] = []
+            for i, blk in enumerate(self.encoder_blocks):
+                c = self._add_encoder_layers(blk, f"stack{s}_enc{i}", c)
+                stride *= block_pooling_stride(blk) if block_pool(blk) else 1
+                if stride not in [t for t, _, _ in enc_sources]:
+                    enc_sources.append((stride, c, i))
+            sources = stem + enc_sources[:-1]
+            self._kept |= {key for _, _, key in sources}
+            self._encoder_stride = stride
+            skips, feature_channels = [], {}
+            for i, blk in enumerate(self.decoder_blocks):
+                feature_channels.setdefault(stride, c)
+                stride //= block_upsampling_stride(blk)
+                src = next(((ch, key) for t, ch, key in sources if t == stride), None)
+                skips.append(None if src is None else src[1])
+                c = self._add_decoder_layers(
+                    blk, f"stack{s}_dec{i}", c, None if src is None else src[0]
+                )
+            self._skips = skips
+            if s == 0:
+                self.feature_channels = feature_channels
         self.out_channels = c
         self.output_stride = stride
 
@@ -332,91 +465,154 @@ class EncoderDecoderNet(nn.Module):
     def _add_encoder_layers(self, blk: tuple, prefix: str, c: int) -> int:
         kind = blk[0]
         if kind == "simple_conv":
-            (_, _, _, _, num_convs, filters, ksize, use_bias, batch_norm, _) = blk
-            if batch_norm:
-                raise NotImplementedError("Batch norm is not ported yet.")
+            (_, _, _, _, num_convs, filters, ksize, use_bias, bn, _) = blk
             for i in range(num_convs):
-                self.layers[f"{prefix}_conv{i}"] = nn.Conv2d(
-                    c, int(filters), ksize, padding="same", bias=use_bias
-                )
-                c = int(filters)
+                c = self._conv(f"{prefix}_conv{i}", c, filters, ksize, bias=use_bias)
+                if bn:
+                    self._bn(f"{prefix}_bn{i}", c)
             return c
         if kind == "pooling":
             return c
         if kind == "s2d":
             return c * int(blk[2]) ** 2
-        raise NotImplementedError(f"Encoder block kind {kind!r} is not ported yet.")
+        if kind == "hg_stem":
+            (_, pool, pstride, filters, output_filters) = blk
+            s1 = 2 if (pool and pstride == 4) else 1
+            c = self._conv(f"{prefix}_conv7x7", c, filters, 7, stride=s1)
+            self._bn(f"{prefix}_conv7x7_bn", c)
+            c = self._conv(f"{prefix}_conv3x3", c, 2 * filters, 3)
+            self._bn(f"{prefix}_conv3x3_bn", c)
+            c = self._conv(f"{prefix}_conv3x3_out", c, output_filters, 3)
+            self._bn(f"{prefix}_conv3x3_out_bn", c)
+            return c
+        if kind == "hg_down":
+            c = self._conv(f"{prefix}_conv", c, blk[3], 3)
+            self._bn(f"{prefix}_bn", c)
+            return c
+        raise TypeError(f"Unknown encoder block kind {kind!r}")
 
     def _add_decoder_layers(
         self, blk: tuple, prefix: str, c: int, skip_c: Optional[int]
     ) -> int:
+        if blk[0] == "hg_up":
+            filters = int(blk[2])
+            if skip_c is None:
+                raise ValueError(f"{prefix}: an hourglass block needs a skip at its stride.")
+            self._conv(f"{prefix}_conv", c, filters, 3)
+            self._bn(f"{prefix}_conv_bn", filters)
+            self._conv(f"{prefix}_skip", skip_c, filters, 3)
+            self._bn(f"{prefix}_skip_bn", filters)
+            return filters
         if blk[0] != "simple_up":
-            raise NotImplementedError(f"Decoder block kind {blk[0]!r} is not ported yet.")
+            raise TypeError(f"Unknown decoder block kind {blk[0]!r}")
         (_, up_stride, t_conv, t_filters, t_ksize, t_bias, t_bn, _, _, skip_conn,
          skip_add, n_refine, r_first, r_filters, r_ksize, r_bias, r_bn, _) = blk
-        if (t_conv and t_bn) or (n_refine and r_bn):
-            raise NotImplementedError("Batch norm is not ported yet.")
-        if skip_conn and skip_add:
-            raise NotImplementedError("Additive skip connections are not ported yet.")
         if t_conv:
             self.layers[f"{prefix}_trans_conv"] = ConvTransposeSame(
                 c, int(t_filters), t_ksize, up_stride, bias=t_bias
             )
             c = int(t_filters)
+            if t_bn:
+                self._bn(f"{prefix}_trans_conv_bn", c)
         if skip_conn and skip_c is not None:
-            c += skip_c
+            if not skip_add:
+                c += skip_c
+            elif skip_c != c:
+                self._conv(f"{prefix}_skip_conv1x1", skip_c, c, 1)
         for i in range(n_refine):
             filters = r_first if (i == 0 and r_first is not None) else r_filters
-            self.layers[f"{prefix}_refine_conv{i}"] = nn.Conv2d(
-                c, int(filters), r_ksize, padding="same", bias=r_bias
-            )
-            c = int(filters)
+            c = self._conv(f"{prefix}_refine_conv{i}", c, filters, r_ksize, bias=r_bias)
+            if r_bn:
+                self._bn(f"{prefix}_refine_conv{i}_bn", c)
         return c
 
     # -- execution ------------------------------------------------------- #
+    def _relu_bn(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The hourglass order: ReLU, then batch norm."""
+        return self._run(name, F.relu(x))
+
     def _encoder_block(self, x: torch.Tensor, blk: tuple, prefix: str) -> torch.Tensor:
         kind = blk[0]
         if kind == "simple_conv":
-            (_, pool, pool_before, pstride, num_convs, _, _, _, _, activation) = blk
+            (_, pool, pool_before, pstride, num_convs, _, _, _, bn, activation) = blk
             if pool and pool_before:
                 x = max_pool_same(x, pstride)
             for i in range(num_convs):
-                x = apply_activation(self.layers[f"{prefix}_conv{i}"](x), activation)
+                x = self._run(f"{prefix}_conv{i}", x)
+                if bn:
+                    x = self._run(f"{prefix}_bn{i}", x)
+                x = apply_activation(x, activation)
             if pool and not pool_before:
                 x = max_pool_same(x, pstride)
             return x
         if kind == "pooling":
             return max_pool_same(x, blk[2]) if blk[1] else x
-        return space_to_depth(x, int(blk[2]))  # "s2d"; others refused at init
+        if kind == "s2d":
+            return space_to_depth(x, int(blk[2]))
+        if kind == "hg_stem":
+            (_, pool, pstride, _, _) = blk
+            x = self._relu_bn(self._run(f"{prefix}_conv7x7", x), f"{prefix}_conv7x7_bn")
+            x = self._relu_bn(self._run(f"{prefix}_conv3x3", x), f"{prefix}_conv3x3_bn")
+            x = max_pool_same(x, 2 if (pool and pstride > 1) else 1)
+            return self._relu_bn(self._run(f"{prefix}_conv3x3_out", x),
+                                 f"{prefix}_conv3x3_out_bn")
+        # "hg_down"
+        x = max_pool_same(x, 2)
+        return self._relu_bn(self._run(f"{prefix}_conv", x), f"{prefix}_bn")
 
     def _decoder_block(
         self, x: torch.Tensor, blk: tuple, skip: Optional[torch.Tensor], prefix: str
     ) -> torch.Tensor:
-        (_, up_stride, t_conv, _, _, _, _, t_act, interp, skip_conn, _,
-         n_refine, _, _, _, _, _, r_act) = blk
+        if blk[0] == "hg_up":
+            (_, up_stride, _, interp) = blk
+            xm = self._relu_bn(self._run(f"{prefix}_conv", x), f"{prefix}_conv_bn")
+            xm = upsample(xm, up_stride, interp)
+            xs = self._relu_bn(self._run(f"{prefix}_skip", skip), f"{prefix}_skip_bn")
+            return xm + xs
+        (_, up_stride, t_conv, _, _, _, t_bn, t_act, interp, skip_conn, skip_add,
+         n_refine, _, _, _, _, r_bn, r_act) = blk
         if t_conv:
-            x = apply_activation(self.layers[f"{prefix}_trans_conv"](x), t_act)
+            x = self._run(f"{prefix}_trans_conv", x)
+            if t_bn:
+                x = self._run(f"{prefix}_trans_conv_bn", x)
+            x = apply_activation(x, t_act)
         else:
             x = upsample(x, up_stride, interp)
         if skip_conn and skip is not None:
-            x = torch.cat([skip, x], dim=1)
+            if not skip_add:
+                x = torch.cat([skip, x], dim=1)
+            elif f"{prefix}_skip_conv1x1" in self.layers:
+                x = self._run(f"{prefix}_skip_conv1x1", skip) + x
+            else:
+                x = skip + x
         for i in range(n_refine):
-            x = apply_activation(self.layers[f"{prefix}_refine_conv{i}"](x), r_act)
+            x = self._run(f"{prefix}_refine_conv{i}", x)
+            if r_bn:
+                x = self._run(f"{prefix}_refine_conv{i}_bn", x)
+            x = apply_activation(x, r_act)
         return x
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[IntermediateFeature]]:
+    def forward(
+        self, x: torch.Tensor
+    ) -> Tuple[List[torch.Tensor], List[List[IntermediateFeature]]]:
         for i, blk in enumerate(self.stem_blocks):
             x = self._encoder_block(x, blk, f"stem{i}")
-        feats = {"stem": x} if self.stem_blocks else {}
-        for i, blk in enumerate(self.encoder_blocks):
-            x = self._encoder_block(x, blk, f"stack0_enc{i}")
-            if i in self._kept:
-                feats[i] = x
-        intermediates = []
-        stride = self._encoder_stride
-        for i, blk in enumerate(self.decoder_blocks):
-            intermediates.append(IntermediateFeature(x, stride))
-            key = self._skips[i]
-            x = self._decoder_block(x, blk, None if key is None else feats[key], f"stack0_dec{i}")
-            stride //= block_upsampling_stride(blk)
-        return x, intermediates
+        stem = {"stem": x} if self.stem_blocks else {}
+        outputs, intermediates = [], []
+        for s in range(self.stacks):
+            feats = dict(stem)
+            for i, blk in enumerate(self.encoder_blocks):
+                x = self._encoder_block(x, blk, f"stack{s}_enc{i}")
+                if i in self._kept:
+                    feats[i] = x
+            stack_feats = []
+            stride = self._encoder_stride
+            for i, blk in enumerate(self.decoder_blocks):
+                stack_feats.append(IntermediateFeature(x, stride))
+                key = self._skips[i]
+                x = self._decoder_block(x, blk, None if key is None else feats[key],
+                                        f"stack{s}_dec{i}")
+                stride //= block_upsampling_stride(blk)
+            outputs.append(x)
+            intermediates.append(stack_feats)
+        return outputs, intermediates

@@ -1,20 +1,23 @@
-"""Model assembly: UNet backbone + heads -> ``nn.Module``.
+"""Model assembly: backbone + heads -> ``nn.Module``.
 
-Port of :mod:`sleap_tpu.models.model` for the UNet backbones and the heads
-of the top-down, single-instance, bottom-up and multiclass paths: 1x1 conv
-heads, and the dense class-vector head. Heads attach to the backbone output
-when their stride equals the backbone's output stride, and otherwise to the
-first decoder feature recorded at their stride (``apply_heads`` in the JAX
-package). Inputs and outputs keep the JAX
-package's NHWC layout; the network runs NCHW inside, in float32, or in bf16
-with ``torch.channels_last`` memory (see :class:`PoseNet`).
+Port of :mod:`sleap_tpu.models.model`: every backbone the JAX package builds
+(UNet, LEAP, stacked Hourglass, ResNet, HigherHRNet and the
+pretrained-encoder UNet) and the heads of the top-down, single-instance,
+bottom-up and multiclass paths: 1x1 conv heads, and the dense class-vector
+head. Heads attach to the backbone output when their stride equals the
+backbone's output stride, and otherwise to the first decoder feature
+recorded at their stride (``apply_heads`` in the JAX package); a stacked
+backbone gets heads on every stack, keyed ``{name}_stack{i}`` on all but
+the last. Inputs and outputs keep the JAX package's NHWC layout; the
+network runs NCHW inside, in float32, or, for UNets, in bf16 with
+``torch.channels_last`` memory (see :class:`PoseNet`).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +29,11 @@ from sleap_tpu_torch.models.encoder_decoder import (
     apply_activation,
     first_conv,
 )
+from sleap_tpu_torch.models.hourglass import Hourglass
+from sleap_tpu_torch.models.hrnet import HigherHRNet
+from sleap_tpu_torch.models.leap import LeapCNN
+from sleap_tpu_torch.models.pretrained_encoder import UnetPretrainedEncoder
+from sleap_tpu_torch.models.resnet import ResNet
 from sleap_tpu_torch.models.heads import (
     CenteredInstanceConfmapsHead,
     CentroidConfmapsHead,
@@ -36,8 +44,37 @@ from sleap_tpu_torch.models.heads import (
     PartAffinityFieldsHead,
     SingleInstanceConfmapsHead,
 )
-from sleap_tpu_torch.models.params import flax_from_state_dict, state_dict_from_flax
+from sleap_tpu_torch.models.params import flax_variables_from_state_dict, state_dict_from_flax
 from sleap_tpu_torch.models.unet import UNet
+
+# ``backbone`` oneof name in the config -> its description's class.
+BACKBONES = {
+    "unet": UNet,
+    "leap": LeapCNN,
+    "hourglass": Hourglass,
+    "resnet": ResNet,
+    "hrnet": HigherHRNet,
+    "pretrained_encoder": UnetPretrainedEncoder,
+}
+
+# The ROADMAP item that ports training and bf16 inference of the
+# backbones other than the UNet.
+OTHER_BACKBONES_ITEM = "ROADMAP.md, queue 1, item 14"
+
+
+def make_backbone(backbone, in_channels: int) -> nn.Module:
+    """The backbone module of a description: its own module (ResNet,
+    HRNet, pretrained encoder), or the block stacks it describes (UNet,
+    LEAP, Hourglass) run by ``EncoderDecoderNet``."""
+    if hasattr(backbone, "make_module"):
+        return backbone.make_module(in_channels)
+    return EncoderDecoderNet(
+        backbone.make_stem_blocks(),
+        backbone.make_encoder_blocks(),
+        backbone.make_decoder_blocks(),
+        in_channels=in_channels,
+        stacks=backbone.stacks,
+    )
 
 
 class HeadSpec(NamedTuple):
@@ -66,14 +103,16 @@ class HeadSpec(NamedTuple):
 
 
 class PoseNet(nn.Module):
-    """Backbone + conv heads; ``forward`` maps NHWC images to NHWC maps.
+    """Backbone + heads; ``forward`` maps NHWC images to NHWC maps, keyed
+    by head name (and ``_stack{i}`` for the heads of a stack but the last).
 
     Integer images are raw pixels and are scaled by their dtype's maximum
     (``ensure_float``'s rule) in float32; the JAX module defers that past its
     s2d stem, which moves pixels only, so the result is the same either way.
 
     ``compute_dtype`` is the JAX module's: the input is cast to it, and in
-    bf16 the weights are bf16 (flax casts its float32 params at each layer,
+    bf16 (UNets only; other backbones raise ``NotImplementedError``) the
+    weights are bf16 (flax casts its float32 params at each layer,
     which rounds them the same way) and the head outputs stay bf16. A bf16
     module keeps its weights and activations in ``torch.channels_last``
     memory: cuDNN's bf16 tensor-core convolutions take NHWC, and the NHWC
@@ -88,44 +127,51 @@ class PoseNet(nn.Module):
 
     def __init__(
         self,
-        backbone: UNet,
+        backbone,
         heads: Sequence[HeadSpec],
         in_channels: int,
         compute_dtype: torch.dtype = torch.float32,
         input_hw: Optional[Tuple[int, int]] = None,
     ):
         super().__init__()
-        self.backbone = EncoderDecoderNet(
-            backbone.make_stem_blocks(),
-            backbone.make_encoder_blocks(),
-            backbone.make_decoder_blocks(),
-            in_channels=in_channels,
-            stacks=backbone.stacks,
-        )
+        if compute_dtype != torch.float32 and not isinstance(backbone, UNet):
+            raise NotImplementedError(
+                f"{type(backbone).__name__} backbones run in float32 only: bf16 inference of "
+                f"the backbones other than the UNet is not ported ({OTHER_BACKBONES_ITEM})."
+            )
+        self.backbone = make_backbone(backbone, in_channels)
+        self.stacks = int(backbone.stacks)
         self.in_channels = int(in_channels)
         self.head_specs = tuple(heads)
         self.heads = nn.ModuleDict()
         for h in self.head_specs:
             if h.output_stride == self.backbone.output_stride:
-                c = self.backbone.out_channels
+                c0 = self.backbone.out_channels
             elif h.output_stride in self.backbone.feature_channels:
-                c = self.backbone.feature_channels[h.output_stride]
+                c0 = self.backbone.feature_channels[h.output_stride]
             else:
                 raise ValueError(f"No feature at stride {h.output_stride} for head {h.name}.")
-            if h.kind == "conv":
-                self.heads[h.name] = nn.Conv2d(c, h.channels, 1)
-                continue
-            if not h.global_pool:
-                if input_hw is None:
-                    raise ValueError(f"Head {h.name} flattens its feature: give input_hw.")
-                c *= -(-input_hw[0] // h.output_stride) * -(-input_hw[1] // h.output_stride)
-            for i in range(h.num_fc_layers):
-                self.heads[f"pre_classification{i}_fc"] = nn.Linear(c, h.num_fc_units)
-                c = h.num_fc_units
-            self.heads[h.name] = nn.Linear(c, h.channels)
+            for suffix in self.stack_suffixes:
+                c = c0
+                if h.kind == "conv":
+                    self.heads[f"{h.name}{suffix}"] = nn.Conv2d(c, h.channels, 1)
+                    continue
+                if not h.global_pool:
+                    if input_hw is None:
+                        raise ValueError(f"Head {h.name} flattens its feature: give input_hw.")
+                    c *= -(-input_hw[0] // h.output_stride) * -(-input_hw[1] // h.output_stride)
+                for i in range(h.num_fc_layers):
+                    self.heads[f"pre_classification{i}_fc{suffix}"] = nn.Linear(c, h.num_fc_units)
+                    c = h.num_fc_units
+                self.heads[f"{h.name}{suffix}"] = nn.Linear(c, h.channels)
         self.compute_dtype = compute_dtype
         if compute_dtype != torch.float32:
             self.to(dtype=compute_dtype, memory_format=torch.channels_last)
+
+    @property
+    def stack_suffixes(self) -> List[str]:
+        """Head-name suffix of each stack: ``_stack{i}``, none on the last."""
+        return [f"_stack{i}" for i in range(self.stacks - 1)] + [""]
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if not torch.is_floating_point(x):
@@ -133,21 +179,30 @@ class PoseNet(nn.Module):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         if self.compute_dtype != torch.float32:
             x = x.contiguous(memory_format=torch.channels_last)
-        out, feats = self.backbone(x)
+        outputs, intermediates = self.backbone(x)
         results = {}
         for h in self.head_specs:
-            src = out
-            if h.output_stride != self.backbone.output_stride:
-                src = next(f.tensor for f in feats if f.stride == h.output_stride)
-            if h.kind == "conv":
-                y = apply_activation(self.heads[h.name](src), h.activation)
-                results[h.name] = y.permute(0, 2, 3, 1)
-                continue
-            y = src.mean(dim=(2, 3)) if h.global_pool else src.permute(0, 2, 3, 1).flatten(1)
-            for i in range(h.num_fc_layers):
-                y = F.relu(self.heads[f"pre_classification{i}_fc"](y))
-            results[h.name] = apply_activation(self.heads[h.name](y), h.activation)
+            for suffix, out, feats in zip(self.stack_suffixes, outputs, intermediates):
+                src = out
+                if h.output_stride != self.backbone.output_stride:
+                    src = next(f.tensor for f in feats if f.stride == h.output_stride)
+                if h.kind == "conv":
+                    y = apply_activation(self.heads[f"{h.name}{suffix}"](src), h.activation)
+                    results[f"{h.name}{suffix}"] = y.permute(0, 2, 3, 1)
+                    continue
+                y = (src.mean(dim=(2, 3)) if h.global_pool
+                     else src.permute(0, 2, 3, 1).flatten(1))
+                for i in range(h.num_fc_layers):
+                    y = F.relu(self.heads[f"pre_classification{i}_fc{suffix}"](y))
+                results[f"{h.name}{suffix}"] = apply_activation(
+                    self.heads[f"{h.name}{suffix}"](y), h.activation)
         return results
+
+
+# The JAX package wraps block-stack backbones in ``PoseNet`` and module
+# backbones (ResNet, HRNet, pretrained encoders) in ``BackboneWithHeads``,
+# with one head contract; here one class runs both.
+BackboneWithHeads = PoseNet
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -176,13 +231,14 @@ _TRUNC_NORMAL_STD = 0.87962566
 def init_params_lecun(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Training's initial weights, as flax initializes the JAX module:
     every kernel ``lecun_normal`` (a normal of std
-    ``sqrt(1 / fan_in) / 0.87962566`` cut at 2 std), every bias 0.
+    ``sqrt(1 / fan_in) / 0.87962566`` cut at 2 std), every bias 0, batch
+    norm scales and running variances 1, running means 0.
 
     Kernels are drawn in the flax params tree's shapes
-    (:func:`~sleap_tpu_torch.models.params.flax_from_state_dict`), whose
-    fan-in is the product of all axes but the last, so each layer's fan-in
-    is flax's (the first decoder conv's covers the skip and the upsampled
-    channels), and loaded back through
+    (:func:`~sleap_tpu_torch.models.params.flax_variables_from_state_dict`),
+    whose fan-in is the product of all axes but the last, so each layer's
+    fan-in is flax's (the first decoder conv's covers the skip and the
+    upsampled channels), and loaded back through
     :func:`~sleap_tpu_torch.models.params.state_dict_from_flax`.
     """
     def draw(tree):
@@ -195,20 +251,23 @@ def init_params_lecun(module: nn.Module, generator: torch.Generator) -> nn.Modul
                 w = torch.empty(leaf.shape)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
                 out[name] = w.numpy()
+            elif name in ("scale", "var"):
+                out[name] = np.ones_like(leaf)
             else:
                 out[name] = np.zeros_like(leaf)
         return out
 
-    module.load_state_dict(state_dict_from_flax(module, draw(flax_from_state_dict(module))))
+    module.load_state_dict(state_dict_from_flax(module, draw(flax_variables_from_state_dict(module))))
     return module
 
 
 @dataclass
 class Model:
-    """A model description: UNet backbone + heads, with the part names, the
-    edges (PAF heads) and the classes (multiclass heads) they were built for."""
+    """A model description: a backbone description (:data:`BACKBONES`) +
+    heads, with the part names, the edges (PAF heads) and the classes
+    (multiclass heads) they were built for."""
 
-    backbone: UNet
+    backbone: Any
     heads: List[HeadSpec]
     part_names: List[str] = field(default_factory=list)
     edges: List[Tuple[str, str]] = field(default_factory=list)
@@ -223,9 +282,13 @@ class Model:
         return self.backbone.output_stride
 
     @property
-    def input_conv(self):
+    def input_conv(self) -> Optional[Tuple[str, int]]:
         """(layer name, s2d channel fold) of the first conv (see
-        :func:`~sleap_tpu_torch.models.encoder_decoder.first_conv`)."""
+        :func:`~sleap_tpu_torch.models.encoder_decoder.first_conv`), or None
+        when its kernel does not tell the input channels (the pretrained
+        encoders tile grayscale to RGB)."""
+        if hasattr(self.backbone, "make_module"):
+            return self.backbone.input_conv
         return first_conv(self.backbone.make_stem_blocks(), self.backbone.make_encoder_blocks())
 
     def make_module(
@@ -239,22 +302,20 @@ class Model:
     @classmethod
     def from_config(cls, config, skeleton=None, tracks=None, update_config=False) -> "Model":
         """From a model config (:class:`sleap_tpu_torch.config.ModelConfig`,
-        or any object with its attributes, the JAX package's included): UNet
-        backbones with single-instance, centroid, centered-instance
-        (+ offsets), multi-instance (confmaps, PAFs, + offsets), multiclass
-        bottom-up (confmaps, class maps, + offsets) or multiclass top-down
-        (confmaps, class vectors, + offsets) heads.
+        or any object with its attributes, the JAX package's included): any
+        backbone of :data:`BACKBONES` with single-instance, centroid,
+        centered-instance (+ offsets), multi-instance (confmaps, PAFs,
+        + offsets), multiclass bottom-up (confmaps, class maps, + offsets)
+        or multiclass top-down (confmaps, class vectors, + offsets) heads.
 
         Part names and edges missing from the head config come from
         ``skeleton``, and classes from the names of ``tracks``, as in the JAX
         package; with ``update_config`` they are written into the config.
-        Other backbones raise.
         """
-        unet_cfg = config.backbone.unet
-        if unet_cfg is None:
-            raise NotImplementedError(
-                "Only UNet backbones are ported (ROADMAP.md, queue 1, item 10)."
-            )
+        backbone_name = config.backbone.which_oneof_attrib_name
+        if backbone_name is None:
+            raise ValueError("Backbone architecture was not specified.")
+        backbone = BACKBONES[backbone_name].from_config(config.backbone.which_oneof)
         hc = config.heads.which_oneof
         head_name = config.heads.which_oneof_attrib_name
 
@@ -321,7 +382,7 @@ class Model:
                 OffsetRefinementHead.from_config(offsets_cfg, part_names=names or None)
             )
         return cls(
-            backbone=UNet.from_config(unet_cfg),
+            backbone=backbone,
             heads=[HeadSpec.of(h) for h in heads],
             part_names=names,
             edges=edges,

@@ -35,7 +35,8 @@ module's float32 CPU ``state_dict`` (``best_model.pt``, ``latest_model.pt``,
 ``labels_gt.{train,val}.slp`` and the folder's model is scored on both
 splits on the trainer's device (:func:`~sleap_tpu_torch.evals.evaluate_model`:
 ``labels_pr.{split}.slp``, ``metrics.{split}.npz``). Not ported (ROADMAP.md,
-queue 1): visualizations, TensorBoard and ZMQ, and data-parallel training.
+queue 1): visualizations, TensorBoard and ZMQ, data-parallel training, and
+the backbones other than the UNet, which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ from sleap_tpu_torch.data.normalization import (
 )
 from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image, resize_linear_uint8
 from sleap_tpu_torch.data.streaming import stage_to_device
-from sleap_tpu_torch.models.model import Model, init_params_lecun
+from sleap_tpu_torch.models.model import OTHER_BACKBONES_ITEM, Model, init_params_lecun
+from sleap_tpu_torch.models.unet import UNet
 from sleap_tpu_torch.ops.confmaps import (
     make_confmaps,
     make_multi_confmaps,
@@ -74,6 +76,7 @@ from sleap_tpu_torch.ops.edge_maps import get_edge_points, make_multi_pafs
 from sleap_tpu_torch.ops.grid import make_grid_vectors
 from sleap_tpu_torch.ops.offsets import make_offsets, mask_offsets
 from sleap_tpu_torch.ops.peak_finding import crop_and_resize, make_centered_bboxes
+from sleap_tpu_torch.precision import ieee_fp32
 from sleap_tpu_torch.training.losses import categorical_crossentropy, compute_ohkm_loss, mse_loss
 from sleap_tpu_torch.training.optimizers import make_optimizer, set_learning_rate
 
@@ -336,6 +339,13 @@ class Trainer:
 
     def __init__(self, config: TrainingJobConfig, data_readers: DataReaders, model: Model,
                  device: Union[str, torch.device] = "cuda"):
+        if not isinstance(model.backbone, UNet):
+            raise NotImplementedError(
+                f"Training a {type(model.backbone).__name__} backbone is not ported: only UNets "
+                "train. The others need flax's batch-norm statistics rules (momentum 0.99 "
+                "keeps the old statistic; the running variance takes the biased batch "
+                f"variance) and their own init ({OTHER_BACKBONES_ITEM})."
+            )
         self.config = config
         self.data_readers = data_readers
         self.model = model
@@ -551,6 +561,7 @@ class Trainer:
                                         opt.initial_learning_rate)
         return self.optimizer
 
+    @ieee_fp32()
     def train_step(self, batch: Batch, generator: torch.Generator) -> torch.Tensor:
         """One update on a device batch; returns the loss, on the device."""
         self.module.train()
@@ -560,6 +571,7 @@ class Trainer:
         self.optimizer.step()
         return loss.detach()
 
+    @ieee_fp32()
     @torch.no_grad()
     def val_step(self, batch: Batch, generator: torch.Generator) -> torch.Tensor:
         self.module.eval()
@@ -581,8 +593,10 @@ class Trainer:
             idx = rng.integers(0, n, batch_size)
             yield self.make_batch([examples[i % len(examples)] for i in idx], rng), batch_size
 
+    @ieee_fp32()
     def train(self) -> None:
-        """Run the optimization loop and write the run folder."""
+        """Run the optimization loop and write the run folder, with TF32
+        off (:func:`~sleap_tpu_torch.precision.ieee_fp32`)."""
         if self.module is None:
             self.setup()
         opt_cfg = self.config.optimization

@@ -303,3 +303,79 @@ def test_every_jax_config_field_exists_in_the_port():
                  "HeadsConfig", "MultiClassTopDownConfig", "UNetConfig", "LabelsConfig",
                  "InstanceCroppingConfig", "PreprocessingConfig", "EarlyStoppingConfig"):
         assert name in checked, name
+
+
+def _backbone(module, name):
+    """A non-default backbone config of ``module`` (either package's config
+    module): every field away from its default."""
+    m = module
+    return {
+        "leap": lambda: m.LEAPConfig(max_stride=16, output_stride=2, filters=32, filters_rate=1.5,
+                                     up_interpolate=True, stacks=2),
+        "hourglass": lambda: m.HourglassConfig(stem_stride=2, max_stride=32, output_stride=8,
+                                               stem_filters=64, filters=128, filter_increase=64,
+                                               stacks=2),
+        "resnet": lambda: m.ResNetConfig(
+            version="ResNet101", weights="random", max_stride=16, output_stride=2,
+            upsampling=m.UpsamplingConfig(method="transposed_conv", skip_connections="add",
+                                          block_stride=4, filters=32, filters_rate=2.0,
+                                          refine_convs=1, batch_norm=False,
+                                          transposed_conv_kernel_size=3)),
+        "resnet_defaults": lambda: m.ResNetConfig(),
+        "pretrained_encoder": lambda: m.PretrainedEncoderConfig(
+            encoder="resnet50", pretrained=False, decoder_filters=128, decoder_filters_rate=0.5,
+            output_stride=4, decoder_batchnorm=False),
+        "hrnet": lambda: m.HRNetConfig(C=32, initial_downsampling_steps=3, n_deconv_modules=2,
+                                       bottleneck=True, deconv_filters=128,
+                                       bilinear_upsampling=True, stem_filters=32),
+    }[name]()
+
+
+BACKBONE_NAMES = ["leap", "hourglass", "resnet", "resnet_defaults", "pretrained_encoder", "hrnet"]
+
+
+def _backbone_dict(cfg):
+    """The backbone oneof of a loaded config as plain data, from either package."""
+    import attr
+    import dataclasses
+
+    bb = cfg.model.backbone
+    value = bb.which_oneof
+    as_dict = attr.asdict(value) if attr.has(type(value)) else dataclasses.asdict(value)
+    return bb.which_oneof_attrib_name, as_dict
+
+
+@pytest.mark.parametrize("name", BACKBONE_NAMES)
+def test_backbone_config_json_round_trips_with_jax(name, tmp_path):
+    """Each backbone config written by the port reads back equal in the
+    JAX package and in the port, and the JAX package's reads in the port."""
+    from sleap_tpu import config as jc
+    from sleap_tpu_torch import config as tcfg
+
+    oneof = name.split("_defaults")[0]
+    ours = TrainingJobConfig(model=ModelConfig(backbone=BackboneConfig(**{oneof: _backbone(tcfg, name)})))
+    theirs = JaxConfig(model=jc.ModelConfig(backbone=jc.BackboneConfig(**{oneof: _backbone(jc, name)})))
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    ours.save_json(str(tmp_path / "a" / "training_config.json"))
+    theirs.save_json(str(tmp_path / "b" / "training_config.json"))
+    want = _backbone_dict(theirs)
+    assert want[0] == oneof
+    assert _backbone_dict(ours) == want
+    assert _backbone_dict(JaxConfig.load_json(str(tmp_path / "a"))) == want
+    assert _backbone_dict(TrainingJobConfig.load_json(str(tmp_path / "a"))) == want
+    assert _backbone_dict(TrainingJobConfig.load_json(str(tmp_path / "b"))) == want
+
+
+def test_backbone_config_defaults_match_jax():
+    import attr
+    import dataclasses
+
+    from sleap_tpu import config as jc
+    from sleap_tpu_torch import config as tcfg
+
+    for cls in ("LEAPConfig", "UNetConfig", "HourglassConfig", "UpsamplingConfig",
+                "ResNetConfig", "PretrainedEncoderConfig", "HRNetConfig"):
+        assert dataclasses.asdict(getattr(tcfg, cls)()) == attr.asdict(getattr(jc, cls)()), cls
+    assert [f.name for f in dataclasses.fields(tcfg.BackboneConfig)] == \
+        [f.name for f in attr.fields(jc.BackboneConfig)]

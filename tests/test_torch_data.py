@@ -41,6 +41,12 @@ def test_imagenet_modes(mode):
           jn.apply_imagenet_mode(jnp.asarray(RGB_F32), mode), 1e-5)
 
 
+@pytest.mark.parametrize("mode", ["tf", "caffe", "torch"])
+def test_scale_to_imagenet_functions(mode):
+    name = f"scale_to_imagenet_{mode}_mode"
+    _same(getattr(tn, name)(torch.from_numpy(RGB_F32)), getattr(jn, name)(jnp.asarray(RGB_F32)), 1e-5)
+
+
 @pytest.mark.parametrize("scale", [0.5, 0.3, [0.25, 0.75], 2.0])
 @pytest.mark.parametrize("image", [RGB_U8, RGB_F32], ids=["u8", "f32"])
 def test_resize_image(image, scale):

@@ -240,3 +240,52 @@ def test_other_handlers_are_refused(tmp_path):
         {"item_handlers": "orbax.checkpoint.JsonCheckpointHandler"}))
     with pytest.raises(ValueError, match="StandardCheckpointHandler"):
         torch_orbax.read_params(str(tmp_path))
+
+
+@pytest.mark.parametrize("folder", FOLDERS)
+def test_read_variables_of_a_unet_folder(folder):
+    """The UNet folders hold no running statistics: ``batch_stats`` is
+    empty and ``params`` is ``read_params``'s tree."""
+    ckpt = str(RUNS / folder / "best_model.ckpt")
+    got = torch_orbax.read_variables(ckpt)
+    assert set(got) == {"params", "batch_stats"} and got["batch_stats"] == {}
+    flat_got = jax.tree_util.tree_flatten_with_path(got["params"])[0]
+    flat_want = jax.tree_util.tree_flatten_with_path(torch_orbax.read_params(ckpt))[0]
+    assert [k for k, _ in flat_got] == [k for k, _ in flat_want]
+    assert all(np.array_equal(g, w) for (_, g), (_, w) in zip(flat_got, flat_want))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_read_variables_with_batch_stats_bitwise_equals_orbax_restore(tmp_path, dtype):
+    """A checkpoint as the JAX trainer saves a batch-norm backbone's
+    (``{"params", "batch_stats"}``), written by orbax, read back bitwise."""
+    import orbax.checkpoint as ocp
+
+    rng = np.random.RandomState(5)
+    variables = {
+        "params": {
+            "backbone_module": {
+                "stem_conv": {"kernel": rng.randn(7, 7, 3, 8).astype(dtype)},
+                "stem_bn": {"scale": rng.rand(8).astype(dtype), "bias": rng.randn(8).astype(dtype)},
+            },
+            "SingleInstanceConfmapsHead": {"kernel": rng.randn(1, 1, 8, 3).astype(dtype),
+                                           "bias": rng.randn(3).astype(dtype)},
+        },
+        "batch_stats": {"backbone_module": {"stem_bn": {
+            "mean": rng.randn(8).astype(dtype), "var": rng.rand(8).astype(dtype) + 0.5}}},
+    }
+    path = str(tmp_path / "best_model.ckpt")
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(path, jax.tree_util.tree_map(np.asarray, variables))
+    ckptr.wait_until_finished()
+    want = jax.tree_util.tree_map(np.asarray, ocp.StandardCheckpointer().restore(path))
+    got = torch_orbax.read_variables(path)
+    flat_got = jax.tree_util.tree_flatten_with_path(got)[0]
+    flat_want = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [k for k, _ in flat_got] == [k for k, _ in flat_want]
+    for (key, g), (_, w) in zip(flat_got, flat_want):
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), key
+        assert g.tobytes() == w.tobytes(), key
+    np.testing.assert_array_equal(got["batch_stats"]["backbone_module"]["stem_bn"]["var"],
+                                  variables["batch_stats"]["backbone_module"]["stem_bn"]["var"])
+    assert torch_orbax.read_params(path).keys() == variables["params"].keys()
