@@ -3,8 +3,9 @@
 inference, flow-shift tracking, training and the ``sleap-track``,
 ``sleap-train`` and ``sleap-inspect`` CLIs once on one CUDA card, through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
-trained run folders from their own checkpoints, and inference on the other
-backbones (ResNet, pretrained-encoder UNets, HRNet, Hourglass, LEAP).
+trained run folders from their own checkpoints, and the other backbones
+(ResNet, pretrained-encoder UNets, HRNet, Hourglass, LEAP) in inference,
+float32 and bf16, and in training.
 
     python3 chip_smoke.py
 
@@ -203,7 +204,30 @@ Phases; any failure exits non-zero and no result line is printed:
    ``python -m sleap_tpu_torch.cli.track`` in a fresh process (no TF32
    flag set by this one) on the card against ``--cpu``, on 8b's float32
    pair and on 10b's folders, within PATH_XY_TOL and PATH_VAL_TOL.
-5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9 and 10 join its
+11. Training the other backbones, and their bf16 inference, after phase 10,
+   on its configs. 11a: one train step of LEAP, Hourglass (3 stacks), HRNet
+   (C 18), ``resnet`` ResNet50 and the pretrained-encoder EfficientNet-b0
+   and ResNet-50 UNets at full width on BB_STEP_BATCH frames of
+   BB_STEP_SIZE^2, on the card and on the CPU from the same lecun-seeded
+   weights, TF32 off: in float32 through the trainer (the loss held; the
+   gradients and statistics printed), and in float64 on the same images and
+   ground truth (loss, gradients and statistics held; every statistic
+   moved). 11b: TRAIN_STEPS synchronised train steps after TRAIN_WARMUP,
+   float32 and mixed precision, single-instance BB_SI_IMG^2 batch
+   BB_SI_BATCH on Hourglass, HRNet, LEAP, EfficientNet-b0 and ResNet50, and
+   top-down pretrained-encoder ResNet-50 on crops of CROP of 1024^2 frames,
+   batch TRAIN_BATCH: images/s, ms a step, one step's device ms and launches,
+   busy share, peak memory; batch norm float32 throughout. 11c: a
+   batch-norm Hourglass through ``cli.train.main`` from a ``.slp`` written
+   here; ``best_model.pt``'s statistics moved; the folder on the card
+   (kernel 1 once a batch) finds every held-out animal within
+   BB_CLI_BOUND_PX and agrees with ``device="cpu"`` within PATH_XY_TOL and
+   PATH_VAL_TOL. 11d: phase 10's folders and weights with
+   ``compute_dtype=torch.bfloat16`` (kernels 4, 3, 1 top-down, kernel 1
+   single-instance, once a batch; batch norm float32), 8 timed batches and
+   one profiled, the card's bf16 maps through kernel 1 against the plain
+   version on the CPU (values exact, xy within XY_TOL).
+5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9, 10 and 11 join its
    rows at the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
@@ -212,7 +236,7 @@ Phases; any failure exits non-zero and no result line is printed:
    Kernel 1 on both the float32 and the bf16 top-down maps; a bf16
    ``find_global_peaks`` call must launch kernel 1 alone (no cast or copy).
 
-Then a JSON line of phase 7's numbers; the line before the last is a JSON
+Then a JSON line of phase 7's numbers, one of phase 11's; the line before the last is a JSON
 object with each kernel's launches (all paths' and per path), error and
 times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -354,6 +378,35 @@ TRAIN_CLI_EPOCHS, TRAIN_CLI_BATCHES, TRAIN_CLI_VAL_BATCHES, TRAIN_CLI_LR = 20, 2
 # ``oks_voc.mAP`` at least TRAIN_CLI_MAP (every reading 1.0). About twice
 # the worst error, half the worst mAP.
 TRAIN_CLI_TRACK_PX, TRAIN_CLI_P50_PX, TRAIN_CLI_MAP = 1.3, 1.4, 0.5
+
+# Phase 11: the other backbones (phase 10's configs) in training. 11a: one
+# step on the card and on the CPU from the same init and batch, at full width
+# on BB_STEP_BATCH frames of BB_STEP_SIZE^2; float32: the loss within
+# BB_STEP_LOSS_RTOL relative; float64 on the same images and ground truth:
+# the loss and each running statistic within BB_STEP_LOSS_RTOL and
+# BB_STEP_STATS_RTOL, each gradient within BB_STEP_GRAD_RTOL of its largest
+# value (the first H100 run read at most 4.7e-15, 3.3e-14 and 4.1e-12; in
+# float32 the gradients differ by up to 0.40 of their largest value, PERF.md
+# section 6, PR 12). 11b: BB_TRAIN_BACKBONES timed (single-instance
+# BB_SI_IMG^2 batch BB_SI_BATCH; the pretrained-encoder ResNet-50 top-down on
+# crops of CROP, batch TRAIN_BATCH). 11c: a single-instance Hourglass of
+# BB_CLI_STACKS stack (the other widths its config's defaults; sigma
+# BB_CLI_SIGMA at stride 4, the shipped baseline_large_rf.single.json's head)
+# through ``cli.train.main`` on BB_CLI_FRAMES frames of BB_CLI_IMG^2 of one
+# blob animal of phase 9's shape, held out on BB_CLI_HELD_OUT frames (a
+# warm-up batch first); every held-out animal within BB_CLI_BOUND_PX of mean
+# node error: about twice the worst read on an H100 (2.419 px, PERF.md
+# section 6, PR 12).
+BB_STEP_BACKBONES = ("LEAP", "Hourglass", "HRNet", "resnet ResNet50",
+                     "pretrained-encoder EfficientNet-b0", "pretrained-encoder ResNet-50")
+BB_STEP_SIZE, BB_STEP_BATCH = 128, 2
+BB_STEP_LOSS_RTOL, BB_STEP_GRAD_RTOL, BB_STEP_STATS_RTOL = 1e-5, 1e-4, 1e-5
+BB_TRAIN_BACKBONES = ("Hourglass", "HRNet", "LEAP", "pretrained-encoder EfficientNet-b0",
+                      "resnet ResNet50", "pretrained-encoder ResNet-50")
+BB_CLI_IMG, BB_CLI_FRAMES, BB_CLI_HELD_OUT, BB_CLI_BATCH = 256, 32, 12, 4
+BB_CLI_STACKS, BB_CLI_SIGMA = 1, 5.0
+BB_CLI_EPOCHS, BB_CLI_BATCHES, BB_CLI_LR = 20, 40, 1e-3
+BB_CLI_BOUND_PX = 5.0
 
 # The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
 # the tensor cores for the kernels' few operations per byte.
@@ -1113,15 +1166,16 @@ def head_maps(module, head, fn):
     return seen[-1][find_head(seen[-1], head)]
 
 
-def check_card_maps(name, maps):
+def check_card_maps(name, maps, slab=True):
     """The card's bf16 maps of one batch through kernel 1 and, on the CPU,
-    through the plain version: values exact, xy within XY_TOL."""
+    through the plain version: values exact, xy within XY_TOL. With
+    ``slab``, the maps must take the slab route."""
     from sleap_tpu_torch.ops import cuda_peaks
     from sleap_tpu_torch.ops.peak_finding import find_global_peaks
 
     parts = cuda_peaks.global_peaks_plan(maps, 2)
-    check(maps.dtype == torch.bfloat16 and maps.is_contiguous() and parts > 0,
-          f"{name}: bf16 channels-last maps on the slab route ({parts} blocks a sample)")
+    check(maps.dtype == torch.bfloat16 and maps.is_contiguous() and (parts > 0 or not slab),
+          f"{name}: bf16 channels-last maps ({parts} blocks a sample on the slab route, 0: band)")
     xy_k, v_k = find_global_peaks(maps, 0.2, "integral")
     xy_p, v_p = find_global_peaks(maps.cpu(), 0.2, "integral")
     e_xy, e_v = max_abs(xy_k, xy_p), max_abs(v_k, v_p)
@@ -1862,26 +1916,29 @@ def bench_trainer(head, mixed_precision=False):
     return trainer
 
 
-def bench_batch(head, device, seed=0):
-    """``bench.py``'s device batch: random uint8 frames, 3 instances at
-    uniform points 100 px inside, a random target instance (top-down)."""
+def bench_batch(head, device, seed=0, size=IMG, batch=TRAIN_BATCH, animals=3):
+    """``bench.py``'s device batch: random uint8 frames, ``animals``
+    instances at uniform points 100 px inside, a random target instance
+    (top-down)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    batch = {
-        "image": torch.randint(0, 255, (TRAIN_BATCH, IMG, IMG, 1), generator=gen, device=device,
+    out = {
+        "image": torch.randint(0, 255, (batch, size, size, 1), generator=gen, device=device,
                                dtype=torch.uint8),
-        "instances": 100 + (IMG - 200) * torch.rand(TRAIN_BATCH, 3, N_NODES, 2, generator=gen,
-                                                     device=device),
-        "track_inds": torch.zeros(TRAIN_BATCH, 3, dtype=torch.int32, device=device),
+        "instances": 100 + (size - 200) * torch.rand(batch, animals, N_NODES, 2, generator=gen,
+                                                      device=device),
+        "track_inds": torch.zeros(batch, animals, dtype=torch.int32, device=device),
     }
     if head == "topdown":
-        batch["ctr_ind"] = torch.randint(0, 3, (TRAIN_BATCH,), generator=gen, device=device,
-                                         dtype=torch.int32)
-    return batch
+        out["ctr_ind"] = torch.randint(0, animals, (batch,), generator=gen, device=device,
+                                       dtype=torch.int32)
+    return out
 
 
 def time_train_steps(name, trainer, batch, card, steps=TRAIN_STEPS):
     """Warm-up steps, then ``steps`` timed steps ending in a synchronise;
-    one step's device time and launches from ``torch.profiler``."""
+    one step's device time and launches from ``torch.profiler``. Images/s
+    counts the batch's frames."""
+    n_images = len(batch["image"])
     gen = torch.Generator(device=trainer.device).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     for _ in range(TRAIN_WARMUP):
@@ -1894,7 +1951,7 @@ def time_train_steps(name, trainer, batch, card, steps=TRAIN_STEPS):
     events = repeated_events(lambda: trainer.train_step(batch, gen))
     device_step_ms = sum(e.self_device_time_total for e in events) / 1e3
     res = {
-        "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+        "images_per_s": n_images * 1e3 / step_ms,
         "step_ms": step_ms,
         "device_step_ms": device_step_ms,
         "device_busy": device_step_ms / step_ms,
@@ -1908,7 +1965,7 @@ def time_train_steps(name, trainer, batch, card, steps=TRAIN_STEPS):
     }
     check(all(bool(torch.isfinite(l)) for l in losses), f"{name}: finite losses")
     log(f"{name}: {res['images_per_s']:.1f} images/s, {step_ms:.2f} ms a step over {steps} "
-        f"steps (batch {TRAIN_BATCH}); device {device_step_ms:.2f} ms a step "
+        f"steps (batch {n_images}); device {device_step_ms:.2f} ms a step "
         f"({100 * res['device_busy']:.1f} % busy), {res['launches_per_step']} launches a step; "
         f"peak memory {res['max_memory_gib']:.2f} GiB; loss {res['first_loss']:.6f} -> "
         f"{res['last_loss']:.6f} ({card})")
@@ -1937,8 +1994,8 @@ def check_train_throughput(card):
 
 
 def blob_animals(n, seed, size=IMG, margin=PAIR_MARGIN, gap=PAIR_GAP, sigma=PAIR_SIGMA,
-                 radius=PAIR_RING):
-    """(frames, points): ``n`` uint8 frames of PAIR_ANIMALS blobs (sigma
+                 radius=PAIR_RING, animals=PAIR_ANIMALS):
+    """(frames, points): ``n`` uint8 frames of ``animals`` blobs (sigma
     ``sigma`` px, over noise, centres ``gap`` px apart and ``margin`` px
     inside), each an animal whose 13 nodes lie on its blob, on a ring of
     ``radius`` px around the centre at fixed angles."""
@@ -1949,10 +2006,10 @@ def blob_animals(n, seed, size=IMG, margin=PAIR_MARGIN, gap=PAIR_GAP, sigma=PAIR
     r = int(3 * sigma)
     g = np.mgrid[-r:r + 1, -r:r + 1]
     blob = 200 * np.exp(-(g[0] ** 2 + g[1] ** 2) / (2 * sigma**2))
-    points = np.zeros((n, PAIR_ANIMALS, N_NODES, 2))
+    points = np.zeros((n, animals, N_NODES, 2))
     for i in range(n):
         centres = []
-        while len(centres) < PAIR_ANIMALS:
+        while len(centres) < animals:
             c = rng.integers(margin, size - margin, 2)
             if all(np.hypot(*(c - d)) >= gap for d in centres):
                 centres.append(c)
@@ -2355,50 +2412,61 @@ def check_sleap_train(card, wrappers, launches):
 # --------------------------------------------------------------------------- #
 
 
+def backbone_specs():
+    """Phase 10's and 11's backbones at their configs' defaults: name ->
+    (backbone config, head output stride)."""
+    from sleap_tpu_torch import config as c
+
+    resnet50 = c.PretrainedEncoderConfig(encoder="resnet50", pretrained=False)
+    effnet = c.PretrainedEncoderConfig(encoder="efficientnetb0", pretrained=False)
+    return {
+        "pretrained-encoder ResNet-50": ({"pretrained_encoder": resnet50}, resnet50.output_stride),
+        "resnet ResNet50": ({"resnet": c.ResNetConfig(weights="random")},
+                            c.ResNetConfig().output_stride),
+        "Hourglass": ({"hourglass": c.HourglassConfig()}, c.HourglassConfig().output_stride),
+        "HRNet": ({"hrnet": c.HRNetConfig()}, 2),
+        "LEAP": ({"leap": c.LEAPConfig()}, c.LEAPConfig().output_stride),
+        "pretrained-encoder EfficientNet-b0": ({"pretrained_encoder": effnet},
+                                               effnet.output_stride),
+    }
+
+
+# Phase 10's top-down backbones (the others are single-instance there).
+TOPDOWN_BACKBONES = ("pretrained-encoder ResNet-50", "resnet ResNet50")
+
+
+def backbone_config(name, topdown):
+    """A config of backbone ``name``: a centered-instance head on crops of
+    CROP (``topdown``) or a single-instance head; confmaps of sigma 2.5;
+    the chain skeleton of 13 nodes."""
+    from sleap_tpu_torch import config as c
+
+    backbone, stride = backbone_specs()[name]
+    heads = (c.HeadsConfig(centered_instance=c.CenteredInstanceConfmapsHeadConfig(
+        output_stride=stride, sigma=2.5)) if topdown
+        else c.HeadsConfig(single_instance=c.SingleInstanceConfmapsHeadConfig(
+            output_stride=stride, sigma=2.5)))
+    return c.TrainingJobConfig(
+        data=c.DataConfig(labels=c.LabelsConfig(skeletons=[chain_skeleton()]),
+                          instance_cropping=c.InstanceCroppingConfig(
+                              crop_size=CROP if topdown else None)),
+        model=c.ModelConfig(backbone=c.BackboneConfig(**backbone), heads=heads),
+    )
+
+
 def backbone_folders(root, centroid):
     """Phase 10's run folders, at each backbone config's defaults: the
     centered-instance models of 10a (pretrained-encoder ResNet-50) and 10b
     (``resnet`` ResNet50), each paired with phase 4's ``centroid`` folder,
     and 10c's single-instance models. 13 nodes; crops of CROP."""
-    from sleap_tpu_torch import config as c
-
-    skeleton = chain_skeleton()
-
-    def folder(name, backbone, heads, crop_size=None):
-        cfg = c.TrainingJobConfig(
-            data=c.DataConfig(labels=c.LabelsConfig(skeletons=[skeleton]),
-                              instance_cropping=c.InstanceCroppingConfig(crop_size=crop_size)),
-            model=c.ModelConfig(backbone=c.BackboneConfig(**backbone), heads=heads),
-        )
-        path = os.path.join(root, name)
+    folders = {}
+    for name in backbone_specs():
+        topdown = name in TOPDOWN_BACKBONES
+        path = os.path.join(root, name.replace(" ", "_"))
         os.makedirs(path)
-        cfg.save_json(os.path.join(path, "training_config.json"))
-        return path
-
-    def instance(stride):
-        return c.HeadsConfig(centered_instance=c.CenteredInstanceConfmapsHeadConfig(
-            output_stride=stride, sigma=2.5))
-
-    def single(stride):
-        return c.HeadsConfig(single_instance=c.SingleInstanceConfmapsHeadConfig(
-            output_stride=stride, sigma=2.5))
-
-    resnet50 = c.PretrainedEncoderConfig(encoder="resnet50", pretrained=False)
-    effnet = c.PretrainedEncoderConfig(encoder="efficientnetb0", pretrained=False)
-    return {
-        "pretrained-encoder ResNet-50": [centroid, folder(
-            "pe_resnet50", {"pretrained_encoder": resnet50}, instance(resnet50.output_stride),
-            crop_size=CROP)],
-        "resnet ResNet50": [centroid, folder(
-            "resnet50", {"resnet": c.ResNetConfig(weights="random")},
-            instance(c.ResNetConfig().output_stride), crop_size=CROP)],
-        "Hourglass": [folder("hourglass", {"hourglass": c.HourglassConfig()},
-                             single(c.HourglassConfig().output_stride))],
-        "HRNet": [folder("hrnet", {"hrnet": c.HRNetConfig()}, single(2))],
-        "LEAP": [folder("leap", {"leap": c.LEAPConfig()}, single(c.LEAPConfig().output_stride))],
-        "pretrained-encoder EfficientNet-b0": [folder(
-            "pe_effnetb0", {"pretrained_encoder": effnet}, single(effnet.output_stride))],
-    }
+        backbone_config(name, topdown).save_json(os.path.join(path, "training_config.json"))
+        folders[name] = [centroid, path] if topdown else [path]
+    return folders
 
 
 def lsuv_variables(path, sample, gen, device):
@@ -2411,6 +2479,7 @@ def lsuv_variables(path, sample, gen, device):
     statistics that do not normalise, activations would otherwise grow or
     shrink geometrically through 50-160 layers."""
     from sleap_tpu_torch.config import TrainingJobConfig
+    from sleap_tpu_torch.models.encoder_decoder import FlaxBatchNorm2d
     from sleap_tpu_torch.models.model import Model, init_params
     from sleap_tpu_torch.models.params import flax_variables_from_state_dict
 
@@ -2420,7 +2489,7 @@ def lsuv_variables(path, sample, gen, device):
     convs = [m for m in net.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
     with torch.no_grad():
         for m in net.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
+            if isinstance(m, FlaxBatchNorm2d):
                 m.running_mean.normal_(0.0, 0.1, generator=gen)
                 m.running_var.uniform_(0.5, 2.0, generator=gen)
         for head in net.heads.values():
@@ -2444,7 +2513,7 @@ def lsuv_variables(path, sample, gen, device):
         for h in hooks:
             h.remove()
     stats = flax_variables_from_state_dict(net)
-    check(bool(stats["batch_stats"]) == any(isinstance(m, torch.nn.BatchNorm2d)
+    check(bool(stats["batch_stats"]) == any(isinstance(m, FlaxBatchNorm2d)
                                             for m in net.modules()), f"{path}: batch_stats")
     return stats
 
@@ -2492,29 +2561,27 @@ def check_single_outputs(name, pred, frames, out, batch):
     return int(np.isfinite(peaks[..., 0]).sum())
 
 
-def check_backbones(drive, fps, td_frames, td_wrappers, si_wrappers, card):
-    """Phase 10: 10a-c, each backbone's folders loaded with ``load_model``
-    (the card by default) and driven as phase 4 drives its path, then held
-    against the same folders loaded with ``device="cpu"`` on BB_CPU_FRAMES
-    frames; 10d, TF32 in process and in a fresh CLI process. Returns the
-    figures it prints."""
+def check_backbones(root, drive, fps, td_frames, td_wrappers, si_wrappers, card):
+    """Phase 10, its folders in ``root``: 10a-c, each backbone's folders
+    loaded with ``load_model`` (the card by default) and driven as phase 4
+    drives its path, then held against the same folders loaded with
+    ``device="cpu"`` on BB_CPU_FRAMES frames; 10d, TF32 in process and in a
+    fresh CLI process. Returns (the figures it prints, each backbone's
+    folders and weights, 10c's frames) for phase 11d."""
     import sleap_tpu_torch
 
-    root = tempfile.mkdtemp()
-    try:
-        figures, resnet_pair = drive_backbones(root, drive, fps, td_frames, td_wrappers,
-                                               si_wrappers, card)
-        pred = sleap_tpu_torch.load_model(resnet_pair, batch_size=2, max_instances=MAX_INSTANCES)
-        check_library_keeps_tf32_flags(pred, td_frames[:2])
-        figures["10d"] = check_cli_fresh_process(resnet_pair, td_frames, card)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return figures
+    figures, resnet_pair, models, si_frames = drive_backbones(
+        root, drive, fps, td_frames, td_wrappers, si_wrappers, card)
+    pred = sleap_tpu_torch.load_model(resnet_pair, batch_size=2, max_instances=MAX_INSTANCES)
+    check_library_keeps_tf32_flags(pred, td_frames[:2])
+    figures["10d"] = check_cli_fresh_process(resnet_pair, td_frames, card)
+    return figures, models, si_frames
 
 
 def drive_backbones(root, drive, fps, td_frames, td_wrappers, si_wrappers, card):
     """10a-c; returns (figures, 10b's pair of folders with their weights
-    saved as ``best_model.pt``)."""
+    saved as ``best_model.pt``, {name: (folders, weights)}, 10c's
+    frames)."""
     import sleap_tpu_torch
 
     gen = torch.Generator().manual_seed(10)
@@ -2523,7 +2590,7 @@ def drive_backbones(root, drive, fps, td_frames, td_wrappers, si_wrappers, card)
     centroid = write_run_folders(root)["centroid"]
     folders = backbone_folders(root, centroid)
     device = torch.device("cuda", 0)
-    figures = {}
+    figures, models = {}, {}
     resnet_pair = None
     for name, paths in folders.items():
         t0 = time.perf_counter()
@@ -2536,6 +2603,7 @@ def drive_backbones(root, drive, fps, td_frames, td_wrappers, si_wrappers, card)
         kwargs = dict(params=params, max_instances=MAX_INSTANCES) if topdown else dict(params=params)
         batch = BATCH if topdown else BB_SI_BATCH
         frames = td_frames if topdown else si_frames
+        models[name] = (paths, params)
         gpu = sleap_tpu_torch.load_model(paths if topdown else own, batch_size=batch, **kwargs)
         cpu = sleap_tpu_torch.load_model(paths if topdown else own, device="cpu", batch_size=2,
                                          **kwargs)
@@ -2569,7 +2637,7 @@ def drive_backbones(root, drive, fps, td_frames, td_wrappers, si_wrappers, card)
                 torch.save({k: v.float().cpu() for k, v in tm.module.state_dict().items()},
                            os.path.join(path, "best_model.pt"))
             resnet_pair = paths
-    return figures, resnet_pair
+    return figures, resnet_pair, models, si_frames
 
 
 def check_library_keeps_tf32_flags(pred, frames):
@@ -2656,6 +2724,331 @@ def decoder_probe():
     }
     log(f"decoder probe: {json.dumps(probe)}")
     return probe
+
+
+# --------------------------------------------------------------------------- #
+# Phase 11: training the other backbones, and their bf16 inference
+# --------------------------------------------------------------------------- #
+
+
+def step_grads(trainer, init, examples, dtype, inputs=None):
+    """One train-mode forward and backward of ``trainer``'s module from the
+    weights and statistics ``init`` on ``examples``: float32 runs the
+    trainer's own ``compute_loss`` (ground truth made on the trainer's
+    device); float64 a float64 copy of the module on ``inputs`` (images and
+    ground truth, the same tensors for every device) with the trainer's loss
+    terms summed in float64 (the trainer's own loss is float32). Returns
+    (loss, gradients, running statistics) on the CPU."""
+    if dtype == torch.float32:
+        module = trainer.module
+        module.load_state_dict(init)
+        module.train()
+        module.zero_grad()
+        loss = trainer.compute_loss(trainer.to_device(trainer.make_batch(examples, None)),
+                                    torch.Generator(device=trainer.device).manual_seed(0))
+    else:
+        imgs, gt = inputs
+        module = trainer.model.make_module(trainer._input_channels, compute_dtype=dtype)
+        module.load_state_dict(init)
+        module.to(trainer.device).train()
+        preds = module(imgs.to(trainer.device))
+        loss = sum(weight * ((preds[key] - gt[name].to(trainer.device, dtype)) ** 2).mean()
+                   for name, weight, _ in trainer._loss_terms()
+                   for key in preds if key == name or key.startswith(f"{name}_stack"))
+    loss.backward()
+    stats = {k: v.detach().double().cpu() for k, v in module.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    grads = {n: p.grad.detach().double().cpu() for n, p in module.named_parameters()}
+    return float(loss.detach()), grads, stats
+
+
+def step_differences(card, cpu):
+    """(loss, gradients, statistics) of two steps: the loss's relative
+    difference; the largest gradient difference over that gradient's
+    largest magnitude, floored at BB_STEP_GRAD_RTOL of the step's largest
+    gradient (a bias in front of a train-mode batch norm has gradient 0 in
+    exact arithmetic); the largest running-statistic difference over that
+    statistic's largest magnitude, a mean's measured in units of its
+    layer's standard deviation (a mean can be 0 in exact arithmetic)."""
+    (l_a, g_a, s_a), (l_b, g_b, s_b) = card, cpu
+    largest = max(float(g.abs().max()) for g in g_b.values())
+    grad = max(float((g_a[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                     BB_STEP_GRAD_RTOL * largest)
+               for n, g in g_b.items())
+    stats = 0.0
+    for k, s in s_b.items():
+        scale = float(s.abs().max())
+        if k.endswith("running_mean"):
+            scale = max(scale, float(s_b[k[:-len("mean")] + "var"].sqrt().max()))
+        stats = max(stats, float((s_a[k] - s).abs().max()) / scale)
+    return abs(l_a - l_b) / abs(l_b), grad, stats
+
+
+def check_other_backbones(drive, fps, td_frames, td_wrappers, launches, card):
+    """Phases 10 and 11 on phase 10's folders; returns their figures."""
+    from sleap_tpu_torch.ops import cuda_peaks
+
+    si_wrappers = {"global_peaks": cuda_peaks.global_peaks_cuda}
+    root = tempfile.mkdtemp(prefix="chip_smoke_backbones_")
+    try:
+        t10 = time.perf_counter()
+        backbones, models, si_frames = check_backbones(root, drive, fps, td_frames, td_wrappers,
+                                                       si_wrappers, card)
+        log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+        t11 = time.perf_counter()
+        training = {"11a steps": check_backbone_steps(card),
+                    "11b throughput": check_backbone_train_throughput(card),
+                    "11c sleap-train Hourglass": check_backbone_cli_train(card, si_wrappers,
+                                                                          launches),
+                    "11d bf16": check_backbones_bf16(drive, fps, td_frames, si_frames, models,
+                                                     card)}
+        log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return backbones, training
+
+
+def check_backbone_steps(card):
+    """11a: one train step of each backbone at its default width on
+    BB_STEP_BATCH blob frames of BB_STEP_SIZE^2, on the card and on the
+    CPU from the same lecun-seeded weights, TF32 off. Float32, through the
+    trainer: the loss within BB_STEP_LOSS_RTOL; the gradients' and
+    statistics' differences are printed, not held (a deep batch-norm net at
+    its initial weights amplifies float32 rounding and the two devices'
+    one-ulp differences in the ground truth to 1e-2 of a gradient: PERF.md
+    section 6, PR 12). Float64, on the same images and ground truth: the
+    loss within BB_STEP_LOSS_RTOL, the gradients within BB_STEP_GRAD_RTOL
+    and the running statistics within BB_STEP_STATS_RTOL, each statistic
+    moved from the init."""
+    from sleap_tpu_torch.config import TrainingJobConfig
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    frames, points = blob_animals(BB_STEP_BATCH, seed=11, size=BB_STEP_SIZE, margin=32, gap=0,
+                                  animals=1)
+    labels = labels_of(frames, points)
+    res = {}
+    for name in BB_STEP_BACKBONES:
+        t0 = time.perf_counter()
+        cfg = backbone_config(name, topdown=False)
+        cfg.optimization.batch_size = BB_STEP_BATCH
+        cfg.outputs.save_outputs = False
+        text = cfg.to_json()
+        on_card, on_cpu = (Trainer.from_config(TrainingJobConfig.from_json(text),
+                                               training_labels=labels, validation_labels=labels,
+                                               device=d) for d in ("cuda", "cpu"))
+        for t in (on_card, on_cpu):
+            t.setup()
+        init = {k: v.clone() for k, v in on_cpu.module.state_dict().items()}
+        check(all(torch.equal(v.cpu(), init[k]) for k, v in on_card.module.state_dict().items()),
+              f"11a {name}: the same initial weights on both devices")
+        examples = [on_cpu._train_examples[i] for i in range(BB_STEP_BATCH)]
+        inputs = on_cpu.build_gt_fn()(on_cpu.to_device(on_cpu.make_batch(examples, None)),
+                                      torch.Generator().manual_seed(0))
+        row = {}
+        for dtype in (torch.float32, torch.float64):
+            steps = [step_grads(t, init, examples, dtype, inputs) for t in (on_card, on_cpu)]
+            loss_rel, grad_rel, stats_rel = step_differences(*steps)
+            moved = min((float((s - init[k].double()).abs().max()) for k, s in steps[1][2].items()),
+                        default=None)
+            row[str(dtype).split(".")[-1]] = {"loss": steps[1][0], "loss_rel": loss_rel,
+                                               "grad_rel": grad_rel, "stats_rel": stats_rel,
+                                               "least_stat_move": moved}
+        row["seconds"] = time.perf_counter() - t0
+        res[name] = row
+        log(f"11a {name} step card vs CPU ({BB_STEP_SIZE}^2, batch {BB_STEP_BATCH}): {row} ({card})")
+        f32, f64 = row["float32"], row["float64"]
+        check(f32["loss_rel"] <= BB_STEP_LOSS_RTOL, f"11a {name}: float32 loss")
+        check(f64["loss_rel"] <= BB_STEP_LOSS_RTOL and f64["grad_rel"] <= BB_STEP_GRAD_RTOL
+              and f64["stats_rel"] <= BB_STEP_STATS_RTOL, f"11a {name}: float64 step")
+        check(f64["least_stat_move"] is None or f64["least_stat_move"] > 0,
+              f"11a {name}: every running statistic moved")
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+    return res
+
+
+def backbone_trainer(name, topdown, mixed_precision):
+    """A trainer of backbone ``name`` on the card, set up on 4 random frames
+    (1024^2 of 3 instances, top-down on crops of CROP; else BB_SI_IMG^2 of
+    one); Adam at 1e-4, augmentation off."""
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    size, animals = (IMG, 3) if topdown else (BB_SI_IMG, 1)
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 255, (4, size, size, 1), np.uint8)
+    labels = labels_of(frames, rng.uniform(100, size - 100, (4, animals, N_NODES, 2)))
+    cfg = backbone_config(name, topdown)
+    cfg.optimization.batch_size = TRAIN_BATCH if topdown else BB_SI_BATCH
+    cfg.optimization.mixed_precision = mixed_precision
+    cfg.outputs.save_outputs = False
+    trainer = Trainer.from_config(cfg, training_labels=labels, validation_labels=labels)
+    trainer.setup()
+    trainer.make_optimizer()
+    return trainer
+
+
+def check_backbone_train_throughput(card):
+    """11b: TRAIN_STEPS synchronised train steps after TRAIN_WARMUP of each
+    backbone at its default width, float32 and mixed precision: single-
+    instance BB_SI_IMG^2, batch BB_SI_BATCH, and the top-down
+    centered-instance pretrained-encoder ResNet-50 on crops of CROP from
+    1024^2 frames, batch TRAIN_BATCH (``bench.py``'s train_topdown shape)."""
+    from sleap_tpu_torch.models.encoder_decoder import FlaxBatchNorm2d
+
+    results = {}
+    for name in BB_TRAIN_BACKBONES:
+        topdown = name == "pretrained-encoder ResNet-50"
+        for mixed in (False, True):
+            trainer = backbone_trainer(name, topdown, mixed)
+            batch = bench_batch("topdown" if topdown else "single", trainer.device,
+                                size=IMG if topdown else BB_SI_IMG,
+                                batch=TRAIN_BATCH if topdown else BB_SI_BATCH,
+                                animals=3 if topdown else 1)
+            key = (f"11b train {'top-down' if topdown else 'single-instance'} {name} "
+                   f"{'mixed precision' if mixed else 'f32'}")
+            results[key] = time_train_steps(key, trainer, batch, card)
+            bns = [m for m in trainer.module.modules() if isinstance(m, FlaxBatchNorm2d)]
+            check(all(t.dtype == torch.float32 for m in bns for t in (*m.parameters(), *m.buffers())),
+                  f"{key}: float32 batch norm")
+            check(all(bool(torch.isfinite(m.running_var).all()) for m in bns),
+                  f"{key}: finite running statistics")
+            del trainer, batch
+            torch.cuda.empty_cache()
+    return results
+
+
+def check_backbone_cli_train(card, wrappers, launches):
+    """11c: a single-instance Hourglass (its config's defaults, batch norm)
+    trained through ``cli.train.main`` from a ``.slp`` of BB_CLI_FRAMES blob
+    frames of BB_CLI_IMG^2 (one animal a frame, an HDF5 video written
+    here); its ``best_model.pt`` carries statistics that moved; the folder
+    predicts BB_CLI_HELD_OUT held-out frames on the card (kernel 1 once a
+    batch), every animal within BB_CLI_BOUND_PX of mean node error, and
+    agrees with the same folder on ``device="cpu"``."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.io import hdf5
+    from sleap_tpu_torch.io.slp import write_labels
+    from sleap_tpu_torch.io.video import Video
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_backbone_cli_")
+    try:
+        frames, points = blob_animals(BB_CLI_FRAMES + BB_CLI_HELD_OUT, seed=13, size=BB_CLI_IMG,
+                                      margin=64, gap=0, sigma=TRAIN_CLI_SIGMA,
+                                      radius=TRAIN_CLI_RING, animals=1)
+        video_path = os.path.join(root, "video.h5")
+        with hdf5.Writer(video_path) as h5:
+            h5.create_dataset("video", data=frames[:BB_CLI_FRAMES])
+        video, skeleton = Video.from_filename(video_path, dataset="video"), chain_skeleton()
+        project = os.path.join(root, "hourglass.slp")
+        write_labels(project, Labels([LabeledFrame(video, i, [Instance(skeleton, pts[0])])
+                                      for i, pts in enumerate(points[:BB_CLI_FRAMES])]))
+        cfg = backbone_config("Hourglass", topdown=False)
+        cfg.model.backbone.hourglass.stacks = BB_CLI_STACKS
+        cfg.model.heads.single_instance.sigma = BB_CLI_SIGMA
+        cfg.data.labels.skeletons = []
+        cfg.optimization.batch_size = BB_CLI_BATCH
+        cfg.optimization.epochs = BB_CLI_EPOCHS
+        cfg.optimization.batches_per_epoch = BB_CLI_BATCHES
+        cfg.optimization.val_batches_per_epoch = 2
+        cfg.optimization.initial_learning_rate = BB_CLI_LR
+        # A fixed schedule, as 7c's: no early stop, no learning-rate cut.
+        cfg.optimization.early_stopping.stop_training_on_plateau = False
+        cfg.optimization.learning_rate_schedule.reduce_on_plateau = False
+        cfg.outputs.runs_folder = root
+        profile = os.path.join(root, "hourglass.json")
+        cfg.save_json(profile)
+        seconds, setup_s, cli_launches, evaluations = train_with_cli(profile, project, "hourglass",
+                                                                     wrappers)
+        for kernel, n in cli_launches.items():
+            launches[kernel]["sleap-train Hourglass evaluation (11c)"] = n
+        folder = os.path.join(root, "hourglass")
+        best = torch.load(os.path.join(folder, "best_model.pt"), weights_only=True)
+        stats = {k: v for k, v in best.items() if k.endswith(("running_mean", "running_var"))}
+        check(len(stats) > 0 and all(
+            not torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))
+            for k, v in stats.items()), "11c: every running statistic moved from its init")
+        with open(os.path.join(folder, "training_log.csv")) as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f)]
+        gpu = sleap_tpu_torch.load_model(folder, batch_size=BB_CLI_BATCH)
+        cpu = sleap_tpu_torch.load_model(folder, device="cpu", batch_size=BB_CLI_BATCH)
+        check(gpu.device.type == "cuda", "11c: the trained folder loads on the card")
+        held = frames[BB_CLI_FRAMES:]
+        out, counts, fps = run_path("11c trained Hourglass single-instance", gpu, held, wrappers,
+                                    BB_CLI_BATCH)
+        for kernel, n in counts.items():
+            launches[kernel]["trained Hourglass single-instance (11c)"] = n
+        peaks = np.concatenate([ex["instance_peaks"][:ex["n_valid"]] for ex in out])
+        truth = points[BB_CLI_FRAMES + BB_CLI_BATCH:, 0]
+        errs = np.nanmean(np.linalg.norm(peaks - truth, axis=-1), axis=-1)
+        d_xy, d_val = card_vs_cpu("11c trained Hourglass", gpu, cpu, held[:BB_CLI_BATCH],
+                                  ("instance_peaks", "instance_peak_vals"), ("instance_peaks",))
+        res = {"cli_s": seconds, "setup_s": setup_s, "epoch_losses": losses,
+               "evaluation_launches": cli_launches,
+               "evaluations": [{k: e[k] for k in ("split", "seconds", "launches")}
+                               for e in evaluations],
+               "held_out_node_error_px": {"median": float(np.median(errs)),
+                                          "max": float(np.max(errs)), "animals": len(errs)},
+               "fps": fps, "max_abs_dxy": d_xy, "max_abs_dval": d_val}
+        log(f"11c sleap-train Hourglass ({BB_CLI_EPOCHS} epochs of {BB_CLI_BATCHES} batches of "
+            f"{BB_CLI_BATCH}, {BB_CLI_IMG}^2): {seconds:.1f} s (setup {setup_s:.1f}); epoch losses "
+            f"{[round(v, 6) for v in losses]}; held-out mean node error median "
+            f"{np.median(errs):.3f} px, max {np.max(errs):.3f} px over {len(errs)} animals "
+            f"(bound {BB_CLI_BOUND_PX} px); {fps:.1f} FPS; card vs CPU max |dxy| {d_xy:.3g}, "
+            f"max |dval| {d_val:.3g} ({card})")
+        check(np.isfinite(errs).all() and errs.max() <= BB_CLI_BOUND_PX,
+              f"11c: every held-out animal found within {BB_CLI_BOUND_PX} px")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def check_backbones_bf16(drive, fps, td_frames, si_frames, models, card):
+    """11d: phase 10's folders and weights loaded with
+    ``compute_dtype=torch.bfloat16`` and driven as phase 10 drives them
+    (kernels 4, 3 and 1 top-down, kernel 1 single-instance, once a batch);
+    the card's bf16 maps of one batch through kernel 1 and, on the CPU,
+    through its plain version; FPS and one batch's device ms beside phase
+    10's float32 figures."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.models.encoder_decoder import FlaxBatchNorm2d
+    from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+
+    figures = {}
+    for name, (paths, params) in models.items():
+        topdown = len(paths) == 2
+        batch = BATCH if topdown else BB_SI_BATCH
+        frames = td_frames if topdown else si_frames
+        kwargs = dict(max_instances=MAX_INSTANCES) if topdown else {}
+        pred = sleap_tpu_torch.load_model(paths if topdown else paths[0], params=params,
+                                          batch_size=batch, compute_dtype=torch.bfloat16, **kwargs)
+        label = f"{'top-down' if topdown else 'single-instance'} {name} bf16"
+        wrappers = {"global_peaks": cuda_peaks.global_peaks_cuda}
+        if topdown:
+            wrappers.update(local_peaks_hwcs=cuda_peaks.local_peaks_hwcs_cuda,
+                            crop_unit=cuda_crops.crop_unit_cuda)
+        out = drive(label, pred, frames, wrappers, batch)
+        head = "CenteredInstanceConfmapsHead" if topdown else "SingleInstanceConfmapsHead"
+        if topdown:
+            check_topdown_outputs(label, pred, frames, out)
+        else:
+            check_single_outputs(label, pred, frames, out, batch)
+        module = pred.confmap_model.module
+        bns = [m for m in module.modules() if isinstance(m, FlaxBatchNorm2d)]
+        check(all(t.dtype == torch.float32 for m in bns for t in (*m.parameters(), *m.buffers())),
+              f"{label}: float32 batch norm")
+        maps = head_maps(module, head,
+                         lambda: pred.predict(frames[batch:2 * batch], make_labels=False))
+        check_card_maps(label, maps, slab=False)
+        dev_ms = device_ms_per_batch(pred, frames[:batch])
+        f32 = fps[f"{'top-down' if topdown else 'single-instance'} {name}"]
+        figures[name] = {"fps": fps[label], "float32_fps": f32, "device_ms_per_batch": dev_ms,
+                         "batch": batch}
+        log(f"11d {label}: {fps[label]:.1f} FPS (float32 {f32:.1f}), {dev_ms:.2f} device ms a "
+            f"batch of {batch} ({card})")
+        del pred
+    return figures
 
 
 # --------------------------------------------------------------------------- #
@@ -2922,11 +3315,10 @@ def main() -> int:
     train_cli = check_sleap_train(card, td_wrappers, launches)
     log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
 
-    # Phase 10: the other backbones at full width; TF32 in a fresh process.
-    t10 = time.perf_counter()
-    backbones = check_backbones(drive, fps, frames, td_wrappers,
-                                {"global_peaks": cuda_peaks.global_peaks_cuda}, card)
-    log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+    # Phases 10 and 11: the other backbones at full width, TF32 in a fresh
+    # process; training them, and their bf16 inference.
+    backbones, backbone_training = check_other_backbones(drive, fps, frames, td_wrappers,
+                                                         launches, card)
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
 
@@ -2944,6 +3336,7 @@ def main() -> int:
     log(f"sleap-train: {json.dumps(train_cli)} ({card})")
     log(f"backbones: {json.dumps(backbones)} ({card})")
     print(json.dumps({"training": training, "card": card}), flush=True)
+    print(json.dumps({"backbone_training": backbone_training, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

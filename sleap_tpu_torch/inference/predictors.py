@@ -124,7 +124,7 @@ def load_trained_model(
     (:mod:`sleap_tpu_torch.training.trainer`), read with
     ``weights_only=True``. A folder with none of them raises
     ``FileNotFoundError``. ``compute_dtype`` is the
-    network's (float32, or bf16 for UNets; see
+    network's (float32, or bf16 for any backbone; see
     :class:`~sleap_tpu_torch.models.model.PoseNet`).
     """
     model_dir = os.path.dirname(model_path) if model_path.endswith(".json") else model_path

@@ -23,8 +23,8 @@ tree or a Keras weight file maps onto ``state_dict`` by name
 
 The module also holds what every backbone is built from: flax's SAME
 padding (:func:`same_pads`, :class:`Conv2dSame`, the SAME pools), flax's
-batch norm as ``BatchNorm2d`` (:func:`batch_norm`), and :class:`FlaxLayers`,
-the base of the ResNet, HRNet and pretrained-encoder modules.
+batch norm (:class:`FlaxBatchNorm2d`), and :class:`FlaxLayers`, the base of
+the ResNet, HRNet and pretrained-encoder modules.
 """
 
 from __future__ import annotations
@@ -238,12 +238,59 @@ class Conv2dSame(nn.Conv2d):
         return super().forward(x)
 
 
-def batch_norm(channels: int, epsilon: float, flax_momentum: float) -> nn.BatchNorm2d:
-    """``flax.linen.BatchNorm(epsilon=..., momentum=...)`` as a
-    ``BatchNorm2d``. Flax keeps ``momentum`` of the old statistic where
-    torch keeps ``1 - momentum``; only the running statistics are ported
-    (inference), so the update rule is not held to flax's."""
-    return nn.BatchNorm2d(channels, eps=epsilon, momentum=1.0 - flax_momentum)
+class FlaxBatchNorm2d(nn.Module):
+    """``flax.linen.BatchNorm(momentum=m, epsilon=eps)`` over the channels of
+    NCHW, in training and in inference.
+
+    Weight, bias and running statistics stay float32 when the module is cast
+    to a half-precision dtype (``_apply`` keeps at least float32), as flax
+    keeps its BatchNorm's under a bf16 ``dtype``; batch norm computes in at
+    least float32 and its output takes the input's dtype.
+
+    ``eval()``: the running statistics normalise (``F.batch_norm``, which
+    takes a bf16 input with float32 parameters).
+
+    ``train()``: flax's training rule, op for op. The batch's mean and
+    variance over (N, H, W) are computed from the input in float32, the
+    variance by flax's fast rule ``max(0, E[x^2] - E[x]^2)`` (biased); they
+    normalise the batch as flax's ``_normalize`` does, ``(x - mean) *
+    (rsqrt(var + eps) * weight) + bias``, with autograd through both
+    statistics; and the running statistics move once a forward, by flax's
+    ``r = m*r + (1 - m)*batch``. A Welford or two-pass variance (cuDNN's)
+    is not the same function where a channel's spread is small beside its
+    mean: after a ReLU, a channel of few nonzero values.
+    """
+
+    def __init__(self, channels: int, epsilon: float, momentum: float):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.momentum = float(momentum)
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def _apply(self, fn, recurse=True):
+        def at_least_float32(t):
+            out = fn(t)
+            return t.to(out.device) if out.is_floating_point() and out.dtype.itemsize < 4 else out
+
+        return super()._apply(at_least_float32, recurse)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.epsilon)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp_min(xf.square().mean((0, 2, 3)) - mean.square(), 0.0)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def max_pool_same(x: torch.Tensor, stride: int, pool_size: int = 2) -> torch.Tensor:
@@ -345,7 +392,7 @@ class FlaxLayers(nn.Module):
         return int(c_out)
 
     def _bn(self, name: str, c: int) -> None:
-        self.layers[name] = batch_norm(int(c), self.bn_epsilon, self.bn_momentum)
+        self.layers[name] = FlaxBatchNorm2d(int(c), self.bn_epsilon, self.bn_momentum)
 
     def _run(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return self.layers[name](x)

@@ -7,9 +7,9 @@ convs downward, 1x1 conv + nearest upsampling upward); then HigherHRNet's
 deconv modules, each a 2x up (transposed conv + BN + ReLU, or bilinear)
 and four residual blocks. Layer names are the flax module's. Its batch
 norm is flax's default (``momentum=0.9``, ``epsilon=1e-5``); the JAX
-module runs it in float32 whatever the compute dtype, and this module runs
-only in float32 (a bf16 load of a batch-norm backbone raises, see
-:mod:`sleap_tpu_torch.inference.predictors`).
+module casts its input to float32, normalises and casts back to the compute
+dtype, which :class:`~sleap_tpu_torch.models.encoder_decoder.FlaxBatchNorm2d`
+does for every backbone.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ backbone's output stride, and otherwise to the first decoder feature
 recorded at their stride (``apply_heads`` in the JAX package); a stacked
 backbone gets heads on every stack, keyed ``{name}_stack{i}`` on all but
 the last. Inputs and outputs keep the JAX package's NHWC layout; the
-network runs NCHW inside, in float32, or, for UNets, in bf16 with
-``torch.channels_last`` memory (see :class:`PoseNet`).
+network runs NCHW inside, in float32, or in bf16 with ``torch.channels_last``
+memory and float32 batch norm (see :class:`PoseNet`).
 """
 
 from __future__ import annotations
@@ -56,11 +56,6 @@ BACKBONES = {
     "hrnet": HigherHRNet,
     "pretrained_encoder": UnetPretrainedEncoder,
 }
-
-# The ROADMAP item that ports training and bf16 inference of the
-# backbones other than the UNet.
-OTHER_BACKBONES_ITEM = "ROADMAP.md, queue 1, item 14"
-
 
 def make_backbone(backbone, in_channels: int) -> nn.Module:
     """The backbone module of a description: its own module (ResNet,
@@ -111,9 +106,11 @@ class PoseNet(nn.Module):
     s2d stem, which moves pixels only, so the result is the same either way.
 
     ``compute_dtype`` is the JAX module's: the input is cast to it, and in
-    bf16 (UNets only; other backbones raise ``NotImplementedError``) the
-    weights are bf16 (flax casts its float32 params at each layer,
-    which rounds them the same way) and the head outputs stay bf16. A bf16
+    bf16 the weights are bf16 (flax casts its float32 params at each layer,
+    which rounds them the same way) and the head outputs stay bf16; batch
+    norm keeps float32 parameters and statistics and normalises in float32
+    (:class:`~sleap_tpu_torch.models.encoder_decoder.FlaxBatchNorm2d`), as
+    flax's does under a bf16 ``dtype``. A bf16
     module keeps its weights and activations in ``torch.channels_last``
     memory: cuDNN's bf16 tensor-core convolutions take NHWC, and the NHWC
     head outputs are then contiguous, the layout the bf16 peak kernel reads.
@@ -134,11 +131,6 @@ class PoseNet(nn.Module):
         input_hw: Optional[Tuple[int, int]] = None,
     ):
         super().__init__()
-        if compute_dtype != torch.float32 and not isinstance(backbone, UNet):
-            raise NotImplementedError(
-                f"{type(backbone).__name__} backbones run in float32 only: bf16 inference of "
-                f"the backbones other than the UNet is not ported ({OTHER_BACKBONES_ITEM})."
-            )
         self.backbone = make_backbone(backbone, in_channels)
         self.stacks = int(backbone.stacks)
         self.in_channels = int(in_channels)
@@ -298,6 +290,21 @@ class Model:
         input_hw: Optional[Tuple[int, int]] = None,
     ) -> PoseNet:
         return PoseNet(self.backbone, self.heads, in_channels, compute_dtype, input_hw)
+
+    def init(self, in_channels: int, generator: torch.Generator,
+             input_hw: Optional[Tuple[int, int]] = None) -> PoseNet:
+        """A float32 module with training's initial weights, as the JAX
+        package's ``Model.init``: flax's initialization
+        (:func:`init_params_lecun`), then the backbone's
+        ``init_weights_hook`` (the pretrained encoders' local weights), on
+        the flax variables. No forward runs, so the batch-norm statistics
+        stay at 0 and 1 (flax initializes with ``train=False``)."""
+        module = init_params_lecun(self.make_module(in_channels, input_hw=input_hw), generator)
+        hook = getattr(self.backbone, "init_weights_hook", None)
+        if hook is not None:
+            variables = hook(flax_variables_from_state_dict(module))
+            module.load_state_dict(state_dict_from_flax(module, variables))
+        return module
 
     @classmethod
     def from_config(cls, config, skeleton=None, tracks=None, update_config=False) -> "Model":

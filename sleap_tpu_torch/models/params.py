@@ -25,8 +25,9 @@ Layouts:
   ``Linear.weight`` is (out, in).
 - Batch norm: flax params ``scale``/``bias`` (Keras ``gamma``/``beta``) are
   ``weight``/``bias``; flax ``batch_stats`` ``mean``/``var`` (Keras
-  ``moving_mean``/``moving_variance``) are ``running_mean``/``running_var``.
-  ``num_batches_tracked`` has no counterpart and is set to 0.
+  ``moving_mean``/``moving_variance``) are ``running_mean``/``running_var``
+  of :class:`~sleap_tpu_torch.models.encoder_decoder.FlaxBatchNorm2d`, which
+  keeps no batch count (flax has none).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from sleap_tpu_torch.models.encoder_decoder import ConvTransposeSame
+from sleap_tpu_torch.models.encoder_decoder import ConvTransposeSame, FlaxBatchNorm2d
 
 _BACKBONE_KEYS = ("backbone", "backbone_module")
 
@@ -88,10 +89,7 @@ def _state_dict_from_layers(
     for key, target in module.state_dict().items():
         mod_path, lname, pname = _split(key)
         layer = module.get_submodule(mod_path)
-        if pname == "num_batches_tracked":
-            out[key] = torch.zeros_like(target)
-            continue
-        kind = "bn" if isinstance(layer, nn.modules.batchnorm._BatchNorm) else "conv"
+        kind = "bn" if isinstance(layer, FlaxBatchNorm2d) else "conv"
         collection, src_name = names[kind][pname]
         group = layers.get(collection, {})
         if lname not in group or src_name not in group[lname]:
@@ -167,10 +165,8 @@ def flax_variables_from_state_dict(module: nn.Module) -> Dict[str, Any]:
     tree: Dict[str, Dict[str, Any]] = {"params": {bname: {}}, "batch_stats": {}}
     for key, value in module.state_dict().items():
         mod_path, lname, pname = _split(key)
-        if pname == "num_batches_tracked":
-            continue
         layer = module.get_submodule(mod_path)
-        kind = "bn" if isinstance(layer, nn.modules.batchnorm._BatchNorm) else "conv"
+        kind = "bn" if isinstance(layer, FlaxBatchNorm2d) else "conv"
         collection, leaf = _FLAX[kind][pname]
         w = value.detach().float().cpu().numpy()
         if kind == "conv" and pname == "weight":

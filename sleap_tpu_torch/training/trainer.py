@@ -16,10 +16,16 @@ its six per-head trainers, with the JAX loop's behaviour:
   ``edge_maps``); then the forward, the loss, the backward and the update;
 - per-step losses stay on the device until the epoch ends;
 - ``mixed_precision`` runs the forward and backward under bf16 autocast in
-  channels-last memory while the parameters, optimizer state and loss stay
-  float32;
-- weights start as flax initializes them
-  (:func:`~sleap_tpu_torch.models.model.init_params_lecun`);
+  channels-last memory while the parameters, batch-norm statistics,
+  optimizer state and loss stay float32;
+- every backbone trains; weights start as the JAX package's ``Model.init``
+  gives them (:meth:`~sleap_tpu_torch.models.model.Model.init`: flax's
+  initialization, then the pretrained encoders' local weights);
+- batch norm follows flax's rule
+  (:class:`~sleap_tpu_torch.models.encoder_decoder.FlaxBatchNorm2d`): a
+  train step's one forward normalises with the batch's statistics and moves
+  the running ones once; validation and evaluation run on the running
+  statistics and move nothing;
 - frames of a project whose videos differ in size are matched to the
   largest height and width on the host, and that size is recorded in the
   config (``target_height``, ``target_width``) as upstream SLEAP records it
@@ -35,8 +41,7 @@ module's float32 CPU ``state_dict`` (``best_model.pt``, ``latest_model.pt``,
 ``labels_gt.{train,val}.slp`` and the folder's model is scored on both
 splits on the trainer's device (:func:`~sleap_tpu_torch.evals.evaluate_model`:
 ``labels_pr.{split}.slp``, ``metrics.{split}.npz``). Not ported (ROADMAP.md,
-queue 1): visualizations, TensorBoard and ZMQ, data-parallel training, and
-the backbones other than the UNet, which raise ``NotImplementedError``.
+queue 1): visualizations, TensorBoard and ZMQ, and data-parallel training.
 """
 
 from __future__ import annotations
@@ -65,8 +70,7 @@ from sleap_tpu_torch.data.normalization import (
 )
 from sleap_tpu_torch.data.resizing import pad_to_stride, resize_image, resize_linear_uint8
 from sleap_tpu_torch.data.streaming import stage_to_device
-from sleap_tpu_torch.models.model import OTHER_BACKBONES_ITEM, Model, init_params_lecun
-from sleap_tpu_torch.models.unet import UNet
+from sleap_tpu_torch.models.model import Model
 from sleap_tpu_torch.ops.confmaps import (
     make_confmaps,
     make_multi_confmaps,
@@ -339,13 +343,6 @@ class Trainer:
 
     def __init__(self, config: TrainingJobConfig, data_readers: DataReaders, model: Model,
                  device: Union[str, torch.device] = "cuda"):
-        if not isinstance(model.backbone, UNet):
-            raise NotImplementedError(
-                f"Training a {type(model.backbone).__name__} backbone is not ported: only UNets "
-                "train. The others need flax's batch-norm statistics rules (momentum 0.99 "
-                "keeps the old statistic; the running variance takes the biased batch "
-                f"variance) and their own init ({OTHER_BACKBONES_ITEM})."
-            )
         self.config = config
         self.data_readers = data_readers
         self.model = model
@@ -461,8 +458,8 @@ class Trainer:
         if not len(self._train_examples):
             raise ValueError("No trainable examples found.")
         init_hw = max(4 * self.model.maximum_stride, 32)
-        module = self.model.make_module(self._input_channels, input_hw=(init_hw, init_hw))
-        init_params_lecun(module, torch.Generator().manual_seed(0))
+        module = self.model.init(self._input_channels, torch.Generator().manual_seed(0),
+                                 input_hw=(init_hw, init_hw))
         if self.config.model.base_checkpoint:
             from sleap_tpu_torch.inference.predictors import load_trained_model
 
@@ -563,7 +560,10 @@ class Trainer:
 
     @ieee_fp32()
     def train_step(self, batch: Batch, generator: torch.Generator) -> torch.Tensor:
-        """One update on a device batch; returns the loss, on the device."""
+        """One update on a device batch; returns the loss, on the device.
+        Its one forward runs in ``train()`` mode: batch norm normalises with
+        the batch's statistics and moves its running ones once (every
+        stack's heads and hard keypoint mining read that same forward)."""
         self.module.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.compute_loss(batch, generator)

@@ -214,12 +214,10 @@ def _port_shapes(net):
     bname = net.backbone.flax_name
     for key, value in net.state_dict().items():
         mod_path, _, pname = key.rpartition(".")
-        if pname == "num_batches_tracked":
-            continue
         lname = mod_path.rsplit(".", 1)[-1]
         layer = net.get_submodule(mod_path)
         shape = tuple(value.shape)
-        if isinstance(layer, nn.BatchNorm2d):
+        if isinstance(layer, ted.FlaxBatchNorm2d):
             col, leaf = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                          "running_mean": ("batch_stats", "mean"),
                          "running_var": ("batch_stats", "var")}[pname]
@@ -432,22 +430,59 @@ def test_pools_match_flax(size, pool, stride):
 
 
 def test_batch_norm_matches_flax():
+    """``FlaxBatchNorm2d`` against ``flax.linen.BatchNorm`` at both packages'
+    settings: in eval mode on the running statistics; in train mode the
+    output, the updated ``batch_stats`` and the gradients of an upstream
+    gradient with respect to the input, scale and bias; float32 within
+    1e-5, and a bf16 input, whose output is bf16 while the statistics stay
+    float32, within one bf16 ulp."""
     import flax.linen as nn
 
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 5, 5, 6)).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
     for eps, momentum in ((1e-3, 0.99), (1e-5, 0.9)):
-        bn = nn.BatchNorm(use_running_average=True, epsilon=eps, momentum=momentum)
-        x = np.random.default_rng(3).normal(size=(2, 5, 5, 6)).astype(np.float32)
-        v = seeded_variables(jax.eval_shape(lambda: bn.init(jax.random.PRNGKey(0), x)))
-        want = np.asarray(bn.apply(v, x))
-        layer = ted.batch_norm(6, eps, momentum).eval()
-        assert layer.momentum == pytest.approx(1 - momentum)
-        with torch.no_grad():
-            layer.weight.copy_(torch.from_numpy(v["params"]["scale"]))
-            layer.bias.copy_(torch.from_numpy(v["params"]["bias"]))
-            layer.running_mean.copy_(torch.from_numpy(v["batch_stats"]["mean"]))
-            layer.running_var.copy_(torch.from_numpy(v["batch_stats"]["var"]))
-            got = layer(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
-        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        for train, dtype in ((False, np.float32), (True, np.float32), (False, "bfloat16"),
+                             (True, "bfloat16")):
+            bf16 = dtype == "bfloat16"
+            xin = jnp.asarray(x, jnp.bfloat16) if bf16 else jnp.asarray(x)
+            bn = nn.BatchNorm(use_running_average=not train, epsilon=eps, momentum=momentum,
+                              dtype=jnp.bfloat16 if bf16 else None)
+            v = seeded_variables(jax.eval_shape(lambda: bn.init(jax.random.PRNGKey(0), x)))
+
+            def apply(x, scale, bias):
+                y, upd = bn.apply({"params": {"scale": scale, "bias": bias},
+                                   "batch_stats": v["batch_stats"]}, x, mutable=["batch_stats"])
+                return (y.astype(jnp.float32) * g).sum(), (y, upd["batch_stats"])
+
+            (_, (want, stats)), grads = jax.value_and_grad(apply, argnums=(0, 1, 2), has_aux=True)(
+                xin, v["params"]["scale"], v["params"]["bias"])
+            layer = ted.FlaxBatchNorm2d(6, eps, momentum)
+            if bf16:
+                layer.to(torch.bfloat16)  # the parameters and statistics stay float32
+            with torch.no_grad():
+                layer.weight.copy_(torch.from_numpy(v["params"]["scale"]))
+                layer.bias.copy_(torch.from_numpy(v["params"]["bias"]))
+                layer.running_mean.copy_(torch.from_numpy(v["batch_stats"]["mean"]))
+                layer.running_var.copy_(torch.from_numpy(v["batch_stats"]["var"]))
+            assert all(t.dtype == torch.float32 for t in (*layer.parameters(), *layer.buffers()))
+            xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+            xt = (xt.bfloat16() if bf16 else xt).requires_grad_()
+            out = layer.train(train)(xt)
+            (out.float() * torch.from_numpy(g).permute(0, 3, 1, 2)).sum().backward()
+            got = out.permute(0, 2, 3, 1)
+            assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+            want = np.asarray(want.astype(jnp.float32))
+            tol = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7) if bf16 else 1e-5
+            np.testing.assert_allclose(got.float().detach().numpy(), want, atol=tol, rtol=0)
+            np.testing.assert_allclose(layer.running_mean.numpy(), stats["mean"], atol=1e-6, rtol=0)
+            np.testing.assert_allclose(layer.running_var.numpy(), stats["var"], atol=1e-6, rtol=0)
+            if train and not bf16:
+                for ours, theirs in ((xt.grad.permute(0, 2, 3, 1), grads[0]),
+                                     (layer.weight.grad, grads[1]), (layer.bias.grad, grads[2])):
+                    theirs = np.asarray(theirs)
+                    np.testing.assert_allclose(ours.numpy(), theirs, rtol=0,
+                                               atol=1e-5 * np.abs(theirs).max())
 
 
 def test_stacked_nets_need_symmetric_encoder_and_decoder():

@@ -1,13 +1,14 @@
-"""TF32 off in the port's float32 paths, and the refusals of what is not
-ported for the backbones other than the UNet.
+"""TF32 off in the port's float32 paths, on every backbone.
 
 - :func:`sleap_tpu_torch.precision.ieee_fp32` turns both TF32 flags off
   inside and gives the caller's back on exit, after an exception too, from
   every starting state; the predictors' ``predict``, the trainer's steps
   and ``evals.evaluate_model`` run inside it;
 - ``cli.track.main`` and ``cli.train.main`` leave both flags off;
-- the ``Trainer`` and a bf16 load refuse every backbone but the UNet with a
-  ``NotImplementedError`` naming the ROADMAP item.
+- the ``Trainer`` steps every backbone but the UNet with TF32 off, batch
+  norm moving its statistics; a bf16 load of each predicts, its batch norm
+  float32. (The two tests keep the names they had when these backbones
+  were refused.)
 """
 
 import contextlib
@@ -21,7 +22,8 @@ import torch
 
 from sleap_tpu_torch import config as c
 from sleap_tpu_torch.inference import predictors as tp
-from sleap_tpu_torch.models.model import OTHER_BACKBONES_ITEM, Model
+from sleap_tpu_torch.models.encoder_decoder import FlaxBatchNorm2d
+from sleap_tpu_torch.models.model import Model
 from sleap_tpu_torch.models.params import flax_variables_from_state_dict
 from sleap_tpu_torch.precision import disable_tf32, ieee_fp32
 
@@ -124,7 +126,7 @@ def test_disable_tf32():
 
 
 # --------------------------------------------------------------------------- #
-# What the other backbones refuse
+# The other backbones train and run in bf16
 # --------------------------------------------------------------------------- #
 
 BACKBONES = {
@@ -146,26 +148,83 @@ def _config(name):
             part_names=["a", "b"], output_stride=os_))))
 
 
+def _labels(n=2, size=64):
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.core.skeleton import Skeleton
+    from sleap_tpu_torch.io.video import Video
+
+    rng = np.random.default_rng(0)
+    skeleton = Skeleton("pair")
+    for node in ("a", "b"):
+        skeleton.add_node(node)
+    video = Video.from_numpy(rng.integers(0, 255, (n, size, size, 1), np.uint8))
+    return Labels([LabeledFrame(video, i, [Instance(skeleton, rng.uniform(8, size - 8, (2, 2)))])
+                   for i in range(n)])
+
+
 @pytest.mark.parametrize("name", list(BACKBONES))
 def test_trainer_refuses_other_backbones(name):
-    from sleap_tpu_torch.training.trainer import SingleInstanceTrainer
+    """Once a refusal, now the working path: the trainer of each backbone
+    takes a train step with TF32 off inside and the caller's flags back
+    after, with a finite loss, and its batch norm moves its statistics."""
+    from sleap_tpu_torch.training.trainer import SingleInstanceTrainer, Trainer
 
     cfg = _config(name)
-    model = Model.from_config(cfg.model)
-    with pytest.raises(NotImplementedError, match=OTHER_BACKBONES_ITEM):
-        SingleInstanceTrainer(config=cfg, data_readers=None, model=model, device="cpu")
+    cfg.optimization.batch_size = 2
+    cfg.outputs.save_outputs = False
+    labels = _labels()
+    trainer = Trainer.from_config(cfg, training_labels=labels, validation_labels=labels,
+                                  device="cpu")
+    assert isinstance(trainer, SingleInstanceTrainer)
+    trainer.setup()
+    trainer.make_optimizer()
+    seen = []
+    hook = trainer.module.register_forward_pre_hook(lambda m, args: seen.append(_flags()))
+    bns = [m for m in trainer.module.modules() if isinstance(m, FlaxBatchNorm2d)]
+    before = [m.running_mean.clone() for m in bns]
+    _set((True, True))
+    batch = trainer.to_device(trainer.make_batch(trainer._train_examples[:2], None))
+    loss = trainer.train_step(batch, torch.Generator().manual_seed(0))
+    hook.remove()
+    assert seen == [(False, False)] and _flags() == (True, True)
+    assert torch.isfinite(loss)
+    assert bool(bns) == (name != "leap")
+    assert all(not torch.equal(m.running_mean, b) for m, b in zip(bns, before))
 
 
 @pytest.mark.parametrize("name", list(BACKBONES))
 def test_bf16_load_refuses_other_backbones(name, tmp_path):
+    """Once a refusal, now the working path: a bf16 load of each backbone
+    keeps its batch norm float32 and everything else bf16, gives maps
+    within 5% of the float32 load's largest value (bf16 weights and
+    activations), and predicts the float32 load's shapes."""
     cfg = _config(name)
     cfg.save_json(str(tmp_path / "training_config.json"))
     net = Model.from_config(cfg.model).make_module(1)
     variables = flax_variables_from_state_dict(net)
     folder = str(tmp_path)
-    with pytest.raises(NotImplementedError, match=OTHER_BACKBONES_ITEM):
-        tp.load_trained_model(folder, device="cpu", params=variables, compute_dtype=torch.bfloat16)
-    tm = tp.load_trained_model(folder, device="cpu", params=variables)  # float32 loads
+    tm = tp.load_trained_model(folder, device="cpu", params=variables, compute_dtype=torch.bfloat16)
+    assert not tm.module.training
+    for mod in tm.module.modules():
+        want = torch.float32 if isinstance(mod, FlaxBatchNorm2d) else torch.bfloat16
+        assert all(p.dtype == want for p in mod.parameters(recurse=False)), mod
+    frames = np.random.default_rng(1).integers(0, 255, (2, 64, 64, 1), np.uint8)
+    f32 = tp.load_trained_model(folder, device="cpu", params=variables)  # float32 loads
+    with torch.no_grad():
+        maps = [m(torch.from_numpy(frames)) for m in (f32.module, tm.module)]
+    for key, want in maps[0].items():
+        got = maps[1][key]
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert float((got.float() - want).abs().max()) <= 0.05 * float(want.abs().max()), key
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pred = tp.load_model(folder, device="cpu", params={folder: variables}, compute_dtype=dtype,
+                             peak_threshold=0.0, batch_size=2)
+        out[dtype] = pred.predict(frames, make_labels=False)[0]
+    for key in ("instance_peaks", "instance_peak_vals"):
+        assert out[torch.bfloat16][key].shape == out[torch.float32][key].shape
+    tm = f32
     assert not tm.module.training
     assert tm.module.backbone.flax_name == ("backbone" if name in ("leap", "hourglass")
                                             else "backbone_module")
