@@ -3,19 +3,27 @@
 inference, flow-shift tracking, training and the ``sleap-track``,
 ``sleap-train`` and ``sleap-inspect`` CLIs once on one CUDA card, through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
-trained run folders from their own checkpoints, and the other backbones
+trained run folders from their own checkpoints, the other backbones
 (ResNet, pretrained-encoder UNets, HRNet, Hourglass, LEAP) in inference,
-float32 and bf16, and in training.
+float32 and bf16, and in training, and H.264 ``.mp4`` reading (NVDEC).
 
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero and no result line is printed:
 
 1. The card: CUDA must be available; print its name and power limit, then
-   what the machine offers to decode H.264 (print only, never fails):
-   ``ffmpeg`` on the path, the NVDEC library ``libnvcuvid`` (found, and
-   whether it loads), and whether ``torchvision``, ``torchcodec``, ``av``
-   and ``imageio_ffmpeg`` are installed (``find_spec``; nothing imported).
+   what the machine offers to decode H.264 (print only, never fails): the
+   kernel (``/proc/version``), the NVIDIA driver's version, the container's
+   ``NVIDIA_DRIVER_CAPABILITIES``, ``ffmpeg`` on the path, the NVDEC library
+   ``libnvcuvid`` (found, and whether it loads), and whether ``torchvision``, ``torchcodec``, ``av``
+   and ``imageio_ffmpeg`` are installed (``find_spec``; nothing imported);
+   and ``cuvidGetDecoderCaps`` (``sleap_tpu_torch.io.nvdec``) for H.264,
+   HEVC, MPEG-4 Part 2 and AV1 at 8-bit 4:2:0, or the error of each call:
+   where it reports H.264 at 1024^2, phase 12 decodes. Phase 12 holds the
+   card route to a refusal only on the one refusal known: a container whose
+   ``NVIDIA_DRIVER_CAPABILITIES`` lacks "video" (and "all"), where every
+   caps call fails with CUDA_ERROR_OUT_OF_MEMORY; any other error fails
+   phase 12.
 2. Build the CUDA kernels from ``sleap_tpu_torch/csrc``; print the build time.
    Write run folders (``training_config.json`` with the skeleton in its
    jsonpickle form) for ``bench.py``'s top-down pair, its single-instance
@@ -227,6 +235,34 @@ Phases; any failure exits non-zero and no result line is printed:
    single-instance, once a batch; batch norm float32), 8 timed batches and
    one profiled, the card's bf16 maps through kernel 1 against the plain
    version on the CPU (values exact, xy within XY_TOL).
+12. H.264 ``.mp4`` on the card, after phase 11 (~10 s where NVDEC is
+   refused). 12a: ``scripts/write_h264_fixture.py`` writes, at run time,
+   100 x 72 colour and gray streams (12 frames, an IDR every 4; I_PCM and
+   P_Skip macroblocks, so the decoded planes are the written ones) and a
+   colour one in 4 chunks with ``co64``, 2-byte NAL lengths and a ``ctts``;
+   the port's demuxer (``io/mp4.py``) must read the written sample tables,
+   and ``io/yuv.py`` must convert the planes alike on the card and the CPU
+   (BGR, RGB, blue alone). Where NVDEC decodes: its NV12 planes must equal
+   the written ones, ``MediaVideo`` frames on the card ``yuv.py``'s on the
+   CPU, and reads in the order 0, 7, 3, 3, 11, 1 the sequential reads, all
+   bitwise. Where it is refused: NVDEC's parser (the binding's callbacks
+   and structs) must read each stream's codec, chroma format, depth, coded
+   and display size as the SPS gives them, and ``NvdecReader`` and
+   ``MediaVideo`` on the card must raise ``cuvidCreateDecoder``'s
+   CUDA_ERROR_OUT_OF_MEMORY and no other error, with no cv2 imported.
+   12b: phase 8a's 32 frames of 1024^2 written as a gray H.264 ``.mp4`` (an
+   IDR every 8); ``python -c`` running ``sleap_tpu_torch.cli.track.main``
+   (``sleap-track clip.mp4 -m centroid -m instance``) in a fresh process on
+   the card. Where NVDEC decodes: the output must equal ``load_model`` in
+   this process on the frames the card decodes (themselves ``yuv.py``'s gray
+   frames of the written planes) within CLI_TOL, with kernels 2, 3 and 1
+   launched once a batch; prints the CLI's FPS beside phase 8a's and the
+   decode rates (frames/s in order and at random; ms a frame in NVDEC, the
+   NV12 copy, the conversion and the host copy) of this I_PCM stream, not
+   an x264 one. Where NVDEC is refused: the CLI must exit non-zero on
+   ``cuvidCreateDecoder``'s CUDA_ERROR_OUT_OF_MEMORY. The line
+   ``{"media": {"nvdec": "decoded" or "refused", ...}}`` before the
+   ``kernels`` line says which.
 5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9, 10 and 11 join its
    rows at the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
@@ -245,6 +281,7 @@ import csv
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -347,6 +384,13 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-4
 # frames: the same kernels, plans and tracker, so the same instances and
 # tracks; points and scores within CLI_TOL.
 CLI_FRAMES, CLI_TOL = 32, 1e-4
+# Phase 12: H.264 .mp4 read on the card. 12a: the fixture writer's small
+# streams (MEDIA_SMALL, IDR every MEDIA_IDR frames) and the read order that
+# seeks; 12b: CLI_FRAMES of phase 8a's frames as a gray .mp4 (an IDR every
+# MEDIA_CLI_IDR frames) through ``sleap-track`` in a fresh process against
+# ``load_model`` in this one, within CLI_TOL.
+MEDIA_SMALL, MEDIA_FRAMES, MEDIA_IDR, MEDIA_CLI_IDR = (100, 72), 12, 4, 8
+MEDIA_SEEK_ORDER = (0, 7, 3, 3, 11, 1)
 # 8b: the committed fixtures (``scripts/make_torch_slp_fixtures.py``) and the
 # trained folders the CPU tests drive on them.
 FIXTURE_DIR = ("tests", "torch_data")
@@ -2704,7 +2748,7 @@ def check_cli_fresh_process(resnet_pair, frames, card):
 
 def decoder_probe():
     """What the card's machine offers to decode H.264, printed only
-    (ROADMAP queue 1, item 3a): installs nothing, imports nothing heavy,
+    (ROADMAP queue 1, item 3g): installs nothing, imports nothing heavy,
     never fails the run."""
     import ctypes
     import ctypes.util
@@ -2715,7 +2759,17 @@ def decoder_probe():
         nvcuvid_loads = True
     except OSError as e:
         nvcuvid_loads = f"no: {e}"
+    try:
+        with open("/proc/version") as f:
+            kernel = f.read().strip()
+    except OSError:
+        kernel = None
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
     probe = {
+        "kernel": kernel,
+        "driver": driver,
+        "NVIDIA_DRIVER_CAPABILITIES": os.environ.get("NVIDIA_DRIVER_CAPABILITIES"),
         "ffmpeg": shutil.which("ffmpeg"),
         "find_library(nvcuvid)": ctypes.util.find_library("nvcuvid"),
         "CDLL(libnvcuvid.so.1)": nvcuvid_loads,
@@ -2724,6 +2778,344 @@ def decoder_probe():
     }
     log(f"decoder probe: {json.dumps(probe)}")
     return probe
+
+
+def decoder_caps():
+    """Phase 1: ``cuvidGetDecoderCaps`` for H.264, HEVC, MPEG-4 Part 2 and
+    AV1 at 8-bit 4:2:0, printed, or the error each call raised (a CUDA
+    error's call and CUresult kept apart). Never fails: phase 12 reads the
+    result (:func:`nvdec_mode`)."""
+    from sleap_tpu_torch.io import nvdec
+
+    caps = {}
+    for codec in ("H264", "HEVC", "MPEG4", "AV1"):
+        try:
+            caps[codec] = nvdec.decoder_caps(codec)
+        except nvdec.CudaError as e:
+            caps[codec] = {"call": e.call, "result": e.result, "error": str(e).split(". ")[0]}
+        except Exception as e:  # noqa: BLE001 - printed here, failed in phase 12
+            caps[codec] = {"error": f"{type(e).__name__}: {e}"}
+    free, total = torch.cuda.mem_get_info()
+    log(f"NVDEC caps (8-bit 4:2:0): {json.dumps(caps)} (device memory free "
+        f"{free / 1e9:.1f} of {total / 1e9:.1f} GB)")
+    return caps
+
+
+def nvdec_mode(caps, capabilities):
+    """How phase 12 holds the card route, from phase 1's caps and the
+    container's ``NVIDIA_DRIVER_CAPABILITIES``: "decoded" where NVDEC
+    reports H.264 at IMG^2, "refused" only on the one refusal known (the
+    variable set without "video" or "all", and every caps call failing
+    with CUDA_ERROR_OUT_OF_MEMORY); anything else fails the phase, so a
+    fault of the binding never passes for a refusal."""
+    from sleap_tpu_torch.io import nvdec
+
+    h264 = caps["H264"]
+    if "supported" in h264:
+        check(bool(h264["supported"]) and min(h264["max_width"], h264["max_height"]) >= IMG,
+              f"12: NVDEC reports H.264 8-bit 4:2:0 unsupported at {IMG}^2: {h264}")
+        return "decoded"
+    granted = capabilities is None or bool({"video", "all"} & set(capabilities.split(",")))
+    refused = all(c.get("call") == "cuvidGetDecoderCaps"
+                  and c.get("result") == nvdec.CUDA_ERROR_OUT_OF_MEMORY for c in caps.values())
+    check(refused and not granted,
+          f"12: cuvidGetDecoderCaps fails ({json.dumps(caps)}) with NVIDIA_DRIVER_CAPABILITIES="
+          f"{capabilities!r}; only CUDA_ERROR_OUT_OF_MEMORY from every call where the container "
+          f"is not granted 'video' is taken for a refusal")
+    return "refused"
+
+
+# --------------------------------------------------------------------------- #
+# Phase 12: H.264 .mp4 on the card (demuxer, NVDEC, OpenCV's colour rule)
+# --------------------------------------------------------------------------- #
+
+
+def h264_writer():
+    """``scripts/write_h264_fixture.py``, the fixture writer (test support)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import write_h264_fixture
+
+    return write_h264_fixture
+
+
+def nv12_planes(nv12, height):
+    """An NV12 tensor on the card -> numpy Y, U, V."""
+    from sleap_tpu_torch.io import yuv
+
+    return [p.cpu().numpy() for p in yuv.split_nv12(nv12, height)]
+
+
+def check_demuxer(demux, table, planes, what):
+    """The demuxer's tables equal the writer's; ``yuv.py`` on the card
+    equals it on the CPU, bitwise, over the written planes."""
+    from sleap_tpu_torch.io import yuv
+
+    read = (demux.sizes, demux.offsets, demux.sync, demux.cts)
+    written = (table["sizes"], table["offsets"], table["sync"], table["ctts"])
+    check(all(np.array_equal(a, b) for a, b in zip(read, written)),
+          f"{what}: the demuxer reads the written sample table")
+    for channels in ("bgr", "rgb", "b"):
+        cpu = yuv.yuv420_to_bgr(*(torch.from_numpy(p) for p in planes), channels=channels)
+        card = yuv.yuv420_to_bgr(*(torch.from_numpy(p).cuda() for p in planes), channels=channels)
+        check(torch.equal(card.cpu(), cpu), f"{what}: yuv.py {channels} on the card and the CPU")
+
+
+def is_refusal(e, nvdec):
+    """The one refusal known: ``cuvidCreateDecoder`` failing with
+    CUDA_ERROR_OUT_OF_MEMORY."""
+    return (isinstance(e, nvdec.CudaError) and e.call == "cuvidCreateDecoder"
+            and e.result == nvdec.CUDA_ERROR_OUT_OF_MEMORY)
+
+
+def check_refused(path, demux, what):
+    """NVDEC refused on this machine: the parser still reads the stream's
+    sequence (codec, chroma format, depth, coded and display size: the
+    binding's structs on the card), and the card route raises
+    ``cuvidCreateDecoder``'s CUDA_ERROR_OUT_OF_MEMORY and no other error,
+    with no fallback to cv2."""
+    from sleap_tpu_torch.io import nvdec
+    from sleap_tpu_torch.io.video import MediaVideo
+
+    reader = nvdec.NvdecReader(demux)
+    try:
+        try:
+            reader.frame(0)
+            raise RuntimeError(f"{what}: NVDEC decoded a frame on a machine that refuses it")
+        except nvdec.CudaError as e:
+            check(is_refusal(e, nvdec), f"{what}: the reader meets the refusal: {e}")
+        fmt = demux.format
+        want = {"codec": nvdec.CODECS["H264"], "chroma_format": 1, "bit_depth": 8,
+                "coded": (fmt["coded_width"], fmt["coded_height"]),
+                "display": (0, 0, fmt["width"], fmt["height"])}
+        got = {k: reader.sequence[k] for k in want} if reader.sequence else None
+        check(got == want, f"{what}: NVDEC's parser reads the sequence {got}, the SPS says {want}")
+    finally:
+        reader.close()
+    video = MediaVideo(path)
+    try:
+        video.get_frame(0)
+        raise RuntimeError(f"{what}: MediaVideo on the card returned a frame without NVDEC")
+    except nvdec.CudaError as e:
+        check(is_refusal(e, nvdec), f"{what}: MediaVideo on the card meets the refusal: {e}")
+    check("cv2" not in sys.modules, f"{what}: the card route imported cv2")
+
+
+def check_media_fixtures(card, mode):
+    """12a: the writer's 100 x 72 colour and gray streams (IDR every
+    MEDIA_IDR) and a colour one in several chunks with ``co64``, 2-byte NAL
+    lengths and a ``ctts``: the demuxer reads the written tables and
+    ``yuv.py`` converts alike on the card and the CPU. Where NVDEC decodes,
+    its NV12 planes equal the written ones, ``MediaVideo`` frames on the
+    card equal ``yuv.py`` on the CPU over the written planes, and reads in
+    MEDIA_SEEK_ORDER equal sequential reads, all bitwise; where it is
+    refused, :func:`check_refused`. Returns the figures it prints."""
+    from sleap_tpu_torch.io import mp4, nvdec, yuv
+    from sleap_tpu_torch.io.video import MediaVideo
+
+    w = h264_writer()
+    width, height = MEDIA_SMALL
+    cases = {
+        "colour": ({"seed": 0}, {}),
+        "gray": ({"seed": 1, "gray": True}, {}),
+        "colour co64, 4 chunks, 2-byte lengths, ctts": (
+            {"seed": 2}, {"co64": True, "chunks": [3, 3, 2, 4], "nal_length_size": 2,
+                          "ctts": [1] * MEDIA_FRAMES}),
+    }
+    figures = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, (planes_kw, container) in cases.items():
+            path = os.path.join(root, f"{len(figures)}.mp4")
+            y, u, v = w.moving_planes(MEDIA_FRAMES, width, height, **planes_kw)
+            table = w.write_h264_mp4(path, y, u, v, idr_every=MEDIA_IDR, **container)
+            demux = mp4.Mp4Video.open(path)
+            check_demuxer(demux, table, (y, u, v), f"12a {name}")
+            figures[name] = {"frames": MEDIA_FRAMES, "sync": int(sum(table["sync"])),
+                             "bytes": int(sum(table["sizes"]))}
+            if mode == "refused":
+                check_refused(path, demux, f"12a {name}")
+                continue
+            reader = nvdec.NvdecReader(demux)
+            try:
+                for i in range(MEDIA_FRAMES):
+                    got = nv12_planes(reader.frame(i), height)
+                    check(all(np.array_equal(a, b[i]) for a, b in zip(got, (y, u, v))),
+                          f"12a {name}: NVDEC's planes of frame {i} are the written ones")
+            finally:
+                reader.close()
+            video = MediaVideo(path)
+            gray = planes_kw.get("gray", False)
+            check(video.is_grayscale == gray and video.frames == MEDIA_FRAMES
+                  and (video.height, video.width) == (height, width) and video.fps == 30.0,
+                  f"12a {name}: gray {video.is_grayscale}, {video.frames} frames of "
+                  f"{video.width}x{video.height} at {video.fps} fps")
+            seq = [video.get_frame(i) for i in range(MEDIA_FRAMES)]
+            want = yuv.yuv420_to_bgr(*(torch.from_numpy(p) for p in (y, u, v)),
+                                     channels="b" if gray else "rgb").numpy()
+            check(np.array_equal(np.stack(seq), want),
+                  f"12a {name}: the card's frames are yuv.py's on the CPU")
+            video.reset()
+            for i in MEDIA_SEEK_ORDER:
+                check(np.array_equal(video.get_frame(i), seq[i]),
+                      f"12a {name}: frame {i} read out of order equals the sequential read")
+            video.reset()
+    done = ("NVDEC's planes, the card's frames and reads in the order "
+            f"{list(MEDIA_SEEK_ORDER)} bitwise" if mode == "decoded" else
+            "NVDEC refused on this machine: its parser reads each sequence, the card route "
+            "raises cuvidCreateDecoder's CUDA_ERROR_OUT_OF_MEMORY, no cv2; frames not measured")
+    log(f"12a the writer's {width}x{height} streams ({', '.join(cases)}): demuxer tables and "
+        f"yuv.py card vs CPU bitwise; {done} ({card})")
+    return figures
+
+
+def decode_rates(path, n, card):
+    """Frames/s of ``MediaVideo`` on the card reading ``path`` in order and
+    in a seeded random order, and the ms a frame spent in NVDEC's parse
+    and decode, the copy of the mapped NV12 surface, the conversion and the
+    host copy (sequential read)."""
+    from sleap_tpu_torch.io import yuv
+    from sleap_tpu_torch.io.video import MediaVideo
+
+    rates = {}
+    for order_name, order in (("sequential", list(range(n))),
+                              ("random", np.random.default_rng(0).permutation(n).tolist())):
+        video = MediaVideo(path, grayscale=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video._reader  # the demuxer's tables and the parser; the decoder comes with frame 0
+        rates[f"{order_name}_open_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for i in order:
+            video.get_frame(i)
+        rates[f"{order_name}_fps"] = n / (time.perf_counter() - t0)
+        if order_name == "sequential":
+            timing = video._reader.timing
+            copy_ms = 1e3 * timing["copy_s"] / timing["frames"]
+            parse_ms = 1e3 * timing["parse_s"] / timing["frames"]
+            nv12 = video._reader.frame(n - 1)
+            t0 = time.perf_counter()
+            frame = yuv.nv12_to_frame(nv12, video._reader.height, "b")
+            torch.cuda.synchronize()
+            convert_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            frame.cpu().numpy()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            rates.update(decode_ms=parse_ms - copy_ms, nv12_copy_ms=copy_ms,
+                         convert_ms=convert_ms, host_copy_ms=host_ms)
+        video.reset()
+    log(f"12b decode of {n} frames of an I_PCM/P_Skip H.264 stream (not an x264 one): "
+        f"{rates['sequential_fps']:.1f} frames/s in order, {rates['random_fps']:.1f} in random "
+        f"order (opening {rates['sequential_open_ms']:.1f} ms); a frame: NVDEC parse and "
+        f"decode {rates['decode_ms']:.3f} ms, NV12 copy "
+        f"{rates['nv12_copy_ms']:.3f} ms, conversion {rates['convert_ms']:.3f} ms, host copy "
+        f"{rates['host_copy_ms']:.3f} ms ({card})")
+    return rates
+
+
+_CLI_MAIN = """
+import json, sys, time, torch
+from sleap_tpu_torch.cli import track
+from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+wrappers = {"local_peaks": cuda_peaks.local_peaks_cuda, "crop_unit": cuda_crops.crop_unit_cuda,
+            "global_peaks": cuda_peaks.global_peaks_cuda}
+for w in wrappers.values():
+    w.launches = 0
+t0 = time.perf_counter()
+track.main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"cli_s": time.perf_counter() - t0,
+                  "launches": {k: w.launches for k, w in wrappers.items()}}))
+"""
+
+
+def check_media_cli(td, launches, card, fps_8a, mode):
+    """12b: CLI_FRAMES of phase 8a's 1024^2 frames written as a gray H.264
+    .mp4 and read back by the demuxer. ``sleap-track clip.mp4 -m centroid
+    -m instance`` (the CLI's ``main``) in a fresh process on the card: where
+    NVDEC decodes, its output equals ``load_model`` in this process on the
+    frames the card decodes (themselves ``yuv.py``'s over the written
+    planes) within CLI_TOL, with kernels 2, 3 and 1 launched once a batch,
+    and the CLI's FPS and the decode rates are printed beside phase 8a's
+    FPS; where NVDEC is refused, the CLI exits non-zero on
+    ``cuvidCreateDecoder``'s CUDA_ERROR_OUT_OF_MEMORY.
+    Returns the figures it prints."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.io import mp4, yuv
+    from sleap_tpu_torch.io.slp import read_labels
+    from sleap_tpu_torch.io.video import Video
+
+    w = h264_writer()
+    xy = blob_paths(CLI_FRAMES, IMG, [[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]],
+                    [150.0, 150.0], seed=8)
+    frames = moving_frames(xy, IMG, 8.0, 200.0, seed=8)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        folders = write_run_folders(root)
+        paths = [folders["centroid"], folders["instance"]]
+        for path, tm in zip(paths, (td.centroid_model, td.confmap_model)):
+            torch.save({k: v.float().cpu() for k, v in tm.module.state_dict().items()},
+                       os.path.join(path, "best_model.pt"))
+        clip, out = os.path.join(root, "clip.mp4"), os.path.join(root, "clip.predictions.slp")
+        planes = w.gray_planes(frames)
+        t0 = time.perf_counter()
+        table = w.write_h264_mp4(clip, *planes, idr_every=MEDIA_CLI_IDR)
+        write_s = time.perf_counter() - t0
+        check_demuxer(mp4.Mp4Video.open(clip), table, [p[:2] for p in planes], "12b")
+        figures = {"frames": CLI_FRAMES, "mp4_mb": sum(table["sizes"]) / 1e6, "write_s": write_s,
+                   "cli_fps_8a_hdf5": fps_8a}
+
+        if mode == "decoded":
+            video = Video.from_filename(clip)
+            decoded = video[:]
+            want_frames = yuv.yuv420_to_bgr(*(torch.from_numpy(p) for p in planes), channels="b")
+            check(video.shape == (CLI_FRAMES, IMG, IMG, 1)
+                  and np.array_equal(decoded, want_frames.numpy()),
+                  f"12b: the card decodes the clip ({video.shape}) to yuv.py's gray frames")
+            video.backend.reset()
+            figures.update(decode_rates(clip, CLI_FRAMES, card))
+            pred = sleap_tpu_torch.load_model(paths, batch_size=BATCH, max_instances=MAX_INSTANCES)
+            pred.predict(decoded[:BATCH], make_labels=False)  # warm-up
+            want = pred.predict(decoded)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", _CLI_MAIN, clip, "-m", paths[0], "-m", paths[1],
+             "--batch_size", str(BATCH), "--max_instances", str(MAX_INSTANCES),
+             "--verbosity", "none", "-o", out],
+            cwd=here, capture_output=True, text=True, timeout=300)
+        figures["process_s"] = time.perf_counter() - t0
+        if mode == "refused":
+            refusal = re.search(r"cuvidCreateDecoder for .+ \(\d+x\d+ H\.264\) failed: "
+                                r"CUresult 2 \(CUDA_ERROR_OUT_OF_MEMORY\)", run.stderr)
+            check(run.returncode != 0 and refusal is not None and not os.path.exists(out),
+                  f"12b: sleap-track clip.mp4 without NVDEC exits {run.returncode} on the "
+                  f"refusal: {run.stderr[-600:]}")
+            log(f"12b sleap-track clip.mp4 ({CLI_FRAMES} frames of {IMG}^2 gray, "
+                f"{figures['mp4_mb']:.1f} MB): demuxer tables and yuv.py card vs CPU bitwise; "
+                f"NVDEC refused on this machine, the CLI exits {run.returncode} naming it: "
+                f"{run.stderr.strip().splitlines()[-1][:300]}; CLI FPS and decode rates not "
+                f"measured ({card})")
+            return figures
+        check(run.returncode == 0, f"12b: sleap-track clip.mp4 exit {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        result = json.loads(run.stdout.strip().splitlines()[-1])
+        got = read_labels(out)
+    n_batches = -(-CLI_FRAMES // BATCH)
+    for kernel, count in result["launches"].items():
+        check(count == n_batches,
+              f"12b: {kernel} launched {count} times by the CLI, want one a batch")
+        launches[kernel]["CLI clip.mp4 (12b)"] = count
+    insts = [i for lf in got for i in lf.instances]
+    check(len(got) == CLI_FRAMES and len(insts) >= CLI_FRAMES, "12b: frames with instances")
+    d_xy, d_val = compare_predictions(got, want, CLI_TOL, CLI_TOL, "12b: CLI on .mp4 vs in-process")
+    cli_fps = CLI_FRAMES / result["cli_s"]
+    figures.update(cli_s=result["cli_s"], cli_fps=cli_fps, max_abs_dxy=d_xy, max_abs_dscore=d_val,
+                   launches=result["launches"])
+    log(f"12b sleap-track clip.mp4 ({CLI_FRAMES} frames of {IMG}^2 gray, "
+        f"{figures['mp4_mb']:.1f} MB, written in {write_s:.3f} s) in a fresh process: "
+        f"main {result['cli_s']:.3f} s = {cli_fps:.1f} FPS (8a, .slp of HDF5 frames, tracked: "
+        f"{fps_8a:.1f} FPS), process {figures['process_s']:.1f} s; {len(insts)} instances, "
+        f"launches {result['launches']}; vs in-process max |dxy| {d_xy:.3g}, max |dscore| "
+        f"{d_val:.3g} ({card})")
+    return figures
 
 
 # --------------------------------------------------------------------------- #
@@ -3204,6 +3596,7 @@ def main() -> int:
     card = card_line()
     log(card)
     decoder_probe()
+    nvdec_caps = decoder_caps()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -3319,6 +3712,14 @@ def main() -> int:
     # process; training them, and their bf16 inference.
     backbones, backbone_training = check_other_backbones(drive, fps, frames, td_wrappers,
                                                          launches, card)
+
+    # Phase 12: H.264 .mp4 on the card (demuxer, NVDEC, OpenCV's colour rule).
+    t12 = time.perf_counter()
+    nvdec_state = nvdec_mode(nvdec_caps, os.environ.get("NVIDIA_DRIVER_CAPABILITIES"))
+    media = {"nvdec": nvdec_state, "fixtures": check_media_fixtures(card, nvdec_state),
+             "cli": check_media_cli(td, launches, card, cli["full_width"]["cli_fps"],
+                                    nvdec_state)}
+    log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
 
@@ -3337,6 +3738,7 @@ def main() -> int:
     log(f"backbones: {json.dumps(backbones)} ({card})")
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"backbone_training": backbone_training, "card": card}), flush=True)
+    print(json.dumps({"media": media, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -11,6 +11,9 @@ Where it differs:
 
 - it runs on the card (``"cuda"``) unless ``--cpu`` asks for the CPU; there
   is no fallback;
+- media videos are decoded where ``--video.device`` says, by default on
+  the device the networks run on: the card reads H.264 ``.mp4`` and
+  ``.mov`` through NVDEC, the CPU any format cv2 reads;
 - ``--n-devices`` above 1 raises: multi-card inference is not ported
   (ROADMAP.md, queue 1, item 12);
 - ``--compute_dtype bfloat16`` runs the networks in bf16 (the port's
@@ -51,6 +54,12 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--video.input_format", dest="video_input_format", default="channels_last")
     parser.add_argument("--video.index", dest="video_index", default="")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
+    parser.add_argument(
+        "--video.device", dest="video_device", choices=("cuda", "cpu"), default=None,
+        help="Where media videos (.mp4, .avi, ...) are decoded: 'cuda' reads H.264 .mp4 and "
+        ".mov through NVDEC, 'cpu' reads any format cv2 reads. Defaults to the device the "
+        "networks run on.",
+    )
     parser.add_argument(
         "--n-devices", type=int, default=None, dest="n_devices",
         help="Data-parallel inference over this many devices (not ported: at most 1).",
@@ -169,7 +178,7 @@ def make_provider_from_cli(ns):
             print(f"slp file skipped: {file_path}")
             continue
         if file_path.endswith(".slp"):
-            labels = Labels.load_file(file_path)
+            labels = Labels.load_file(file_path, device=_video_device(ns))
             if ns.only_labeled_frames:
                 inds = [i for i, lf in enumerate(labels.labeled_frames) if lf.has_user_instances]
                 provider_list.append(LabelsReader(labels=labels, example_indices=inds))
@@ -191,7 +200,8 @@ def make_provider_from_cli(ns):
             if ns.video_input_format:
                 kwargs["input_format"] = ns.video_input_format
             try:
-                provider_list.append(VideoReader.from_filepath(file_path, example_indices=frames, **kwargs))
+                provider_list.append(VideoReader.from_filepath(
+                    file_path, example_indices=frames, device=_video_device(ns), **kwargs))
             except ValueError:  # no video backend for this file's extension
                 print(f"Error reading file: {file_path}")
                 continue
@@ -201,6 +211,12 @@ def make_provider_from_cli(ns):
 
 def _device(ns) -> str:
     return "cpu" if ns.cpu else "cuda"
+
+
+def _video_device(ns) -> str:
+    """Where media videos are decoded: ``--video.device``, else the device
+    the networks run on."""
+    return ns.video_device or _device(ns)
 
 
 def make_predictor_from_cli(ns):
@@ -343,7 +359,7 @@ def main(args: Optional[List[str]] = None) -> None:
         from sleap_tpu_torch.tracking.tracker import run_tracker
 
         data_path = ns.data_path
-        labels_pr = Labels.load_file(data_path)
+        labels_pr = Labels.load_file(data_path, device=_video_device(ns))
         frames = sorted(labels_pr.labeled_frames, key=lambda lf: lf.frame_idx)
         frames = run_tracker(frames=frames, tracker=tracker)
         tracker.final_pass(frames)

@@ -14,6 +14,9 @@ folder (``outputs.runs_folder``/``run_name``) ends up holding
 
 - it trains on the card (``"cuda"``) unless ``--cpu`` asks for the CPU;
   there is no fallback;
+- the labels' media videos are decoded where ``--video.device`` says, by
+  default on the device it trains on: the card reads H.264 ``.mp4`` and
+  ``.mov`` through NVDEC, the CPU any format cv2 reads;
 - ``--n-devices`` and ``--spatial-sharding`` above 1 raise: data-parallel
   and spatially sharded training are not ported (ROADMAP.md, queue 1,
   item 12);
@@ -53,6 +56,12 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--prefix", default="")
     parser.add_argument("--suffix", default="")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
+    parser.add_argument(
+        "--video.device", dest="video_device", choices=("cuda", "cpu"), default=None,
+        help="Where media videos (.mp4, .avi, ...) are decoded: 'cuda' reads H.264 .mp4 and "
+        ".mov through NVDEC, 'cpu' reads any format cv2 reads. Defaults to the device the "
+        "networks run on.",
+    )
     parser.add_argument(
         "--n-devices", type=int, default=None, dest="n_devices",
         help="Data-parallel training over this many devices; only 1 is ported.",
@@ -108,7 +117,8 @@ def create_trainer_using_cli(args: Optional[List[str]] = None):
         cfg.outputs.zmq.controller_address = f"tcp://127.0.0.1:{ns.controller_port}"
         cfg.outputs.zmq.publish_address = f"tcp://127.0.0.1:{ns.publish_port}"
 
-    return Trainer.from_config(cfg, device="cpu" if ns.cpu else "cuda")
+    return Trainer.from_config(cfg, device="cpu" if ns.cpu else "cuda",
+                               video_device=ns.video_device)
 
 
 def main(args: Optional[List[str]] = None) -> None:

@@ -232,11 +232,13 @@ class Labels:
         video_search: Optional[Union[Callable, List[str], bool]] = None,
         detect_videos: bool = True,
         search_paths: Optional[Union[str, List[str]]] = None,
+        device="cuda",
     ) -> "Labels":
         """Read a ``.slp`` file. ``video_search`` is a callback, a list of
         paths, or False to keep stored video paths verbatim
         (``detect_videos=False`` does the same); ``search_paths`` is one
-        path or a list to search for moved videos."""
+        path or a list to search for moved videos. Media videos decode on
+        ``device``."""
         from sleap_tpu_torch.io import slp
 
         if video_search is None:
@@ -244,7 +246,7 @@ class Labels:
                 video_search = False
             elif search_paths is not None:
                 video_search = [search_paths] if isinstance(search_paths, str) else list(search_paths)
-        return slp.read_labels(filename, video_search=video_search)
+        return slp.read_labels(filename, video_search=video_search, device=device)
 
 
 def load_file(filename: str, **kwargs) -> Labels:

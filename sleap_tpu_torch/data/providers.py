@@ -94,10 +94,12 @@ class VideoReader:
 
     @classmethod
     def from_filepath(cls, filename: str, example_indices: Optional[Sequence[int]] = None,
-                      **kwargs) -> "VideoReader":
-        """A reader over the video file at ``filename``; keyword arguments
-        (``dataset``, ``input_format``, ``grayscale``, ...) go to its backend."""
-        return cls(video=Video.from_filename(filename, **kwargs), example_indices=example_indices)
+                      device="cuda", **kwargs) -> "VideoReader":
+        """A reader over the video file at ``filename``, a media file decoded
+        on ``device``; keyword arguments (``dataset``, ``input_format``,
+        ``grayscale``, ...) go to its backend."""
+        return cls(video=Video.from_filename(filename, device=device, **kwargs),
+                   example_indices=example_indices)
 
     @property
     def videos(self) -> List[Any]:

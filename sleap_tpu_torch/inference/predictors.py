@@ -269,11 +269,12 @@ def _array_batches(frames: np.ndarray, batch_size: int) -> Iterator[Tuple[dict, 
         }, n_valid
 
 
-def _make_provider(data):
+def _make_provider(data, device="cuda"):
     """A provider from what ``data`` has: a provider already (iterable with
     ``videos`` and ``max_height_and_width``), labels (``labeled_frames``) or a
     video (``get_frame``): the port's types or the JAX package's; or a path,
-    a ``.slp`` file's labels or else a video file."""
+    a ``.slp`` file's labels or else a video file, media decoded on
+    ``device``."""
     if hasattr(data, "max_height_and_width") and hasattr(data, "videos"):
         return data
     if hasattr(data, "labeled_frames"):
@@ -282,8 +283,8 @@ def _make_provider(data):
         return VideoReader(video=data)
     if isinstance(data, str):
         if data.endswith(".slp"):
-            return LabelsReader(labels=load_file(data))
-        return VideoReader.from_filepath(data)
+            return LabelsReader(labels=load_file(data, device=device))
+        return VideoReader.from_filepath(data, device=device)
     raise TypeError(f"Cannot make a data provider from {type(data)}.")
 
 
@@ -406,7 +407,8 @@ class Predictor:
     def predict(self, data, make_labels: bool = True):
         """Run inference on numpy frames (N, H, W[, C]), a video or labels
         (the port's or the JAX package's), or the path of a ``.slp`` or
-        video file; return the port's ``Labels``, or the per-batch example
+        video file (a media file is decoded on the predictor's device);
+        return the port's ``Labels``, or the per-batch example
         dicts when ``make_labels`` is False. Float32 runs with TF32 off,
         and the caller's TF32 flags are restored after
         (:func:`~sleap_tpu_torch.precision.ieee_fp32`)."""
@@ -415,7 +417,7 @@ class Predictor:
             frames = data if data.ndim == 4 else data[..., None]
             provider, batches = None, _array_batches(frames, self.batch_size)
         else:
-            provider = _make_provider(data)
+            provider = _make_provider(data, device=self.device)
             target_hw = ((self._trained_target() or provider_needs_size_matching(provider))
                          if self.size_matching else None)
             batches = prefetch(batch_examples(provider, self.batch_size, target_hw))

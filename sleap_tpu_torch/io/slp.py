@@ -126,8 +126,10 @@ def _make_video_search(
 def read_labels(
     filename: str,
     video_search: Optional[Union[Callable, List[str], bool]] = None,
+    device="cuda",
 ) -> Labels:
-    """Load a ``.slp`` file into :class:`Labels`."""
+    """Load a ``.slp`` file into :class:`Labels`; its media videos decode on
+    ``device`` (the card unless the caller asks for the CPU)."""
     with hdf5.File(filename) as f:
         meta = json.loads(_as_str(f["metadata"].attrs["json"]))
         format_id = float(f["metadata"].attrs.get("format_id", 1.0))
@@ -163,12 +165,12 @@ def read_labels(
             fn = backend.get("filename")
             if fn == "." or fn == filename:
                 backend["filename"] = filename
-                video = Video.from_dict(d)
+                video = Video.from_dict(d, device=device)
             elif i in positional:
                 backend["filename"] = positional[i]
-                video = Video.from_dict(d)
+                video = Video.from_dict(d, device=device)
             else:
-                video = Video.from_dict(d, video_search=search)
+                video = Video.from_dict(d, video_search=search, device=device)
             videos.append(video)
 
         tracks: List[Track] = []

@@ -9,8 +9,13 @@ come back as numpy (H, W, C) arrays from
   reader (:mod:`sleap_tpu_torch.io.hdf5`) and PNG decoder
   (:mod:`sleap_tpu_torch.io.png`); JPEG frames need ``cv2``;
 - :class:`NumpyVideo`: an in-memory array or a ``.npy`` file;
-- :class:`MediaVideo` (mp4, avi, ...) and :class:`SingleImageVideo`, which
-  need ``cv2`` and import it only when they read a frame;
+- :class:`MediaVideo` (mp4, avi, ...): on the card (``device="cuda"``, the
+  default) H.264 ``.mp4``/``.mov`` files through the port's demuxer
+  (:mod:`~sleap_tpu_torch.io.mp4`), NVDEC (:mod:`~sleap_tpu_torch.io.nvdec`)
+  and OpenCV's colour conversion (:mod:`~sleap_tpu_torch.io.yuv`), with no
+  fallback; with ``device="cpu"`` any format through ``cv2``;
+- :class:`SingleImageVideo`, which needs ``cv2`` and imports it only when it
+  reads a frame;
 - :class:`DummyVideo`, a placeholder of a given shape.
 
 :class:`Video` wraps a backend and (de)serializes it as the ``videos_json``
@@ -21,6 +26,7 @@ entries of ``.slp`` files. Videos compare by identity, as the port's
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 import threading
@@ -28,12 +34,16 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from sleap_tpu_torch.io import hdf5, png
 
+Device = Union[str, torch.device]
 
-def _import_cv2(what: str, hint: str = "Convert the video to an HDF5 dataset or embed "
-                "its frames in a .slp to read it without cv2."):
+
+def _import_cv2(what: str, hint: str = "On the card (device='cuda') .mp4 and .mov files of "
+                "H.264 are read through NVDEC without cv2; other media can be converted to an "
+                "HDF5 dataset or embedded in a .slp."):
     try:
         import cv2
     except ImportError as e:
@@ -58,11 +68,15 @@ class DummyVideo:
 
 @dataclass(eq=False)
 class MediaVideo:
-    """A media file (mp4, avi, ...) decoded by OpenCV, read under a lock;
-    sequential reads do not seek.
+    """A media file (mp4, avi, ...), read under a lock; sequential reads do
+    not seek.
 
-    ``grayscale`` None detects it from the first frame (all channels
-    equal); ``bgr`` flips OpenCV's BGR to RGB.
+    ``device`` "cuda" (the default) reads H.264 ``.mp4``/``.mov`` through
+    NVDEC on the card and converts it there as OpenCV would; any other codec
+    or container, or a card without NVDEC, raises (no fallback). ``device``
+    "cpu" reads through OpenCV. The device is not a field: ``.slp`` files do
+    not record it. ``grayscale`` None detects it from the first frame (all
+    channels equal); ``bgr`` flips OpenCV's BGR to RGB.
     """
 
     filename: str = None
@@ -70,21 +84,34 @@ class MediaVideo:
     bgr: bool = True
     dataset: str = ""
     input_format: str = ""
+    device: dataclasses.InitVar[Device] = "cuda"
 
     EXTS = ("mp4", "avi", "mov", "mj2", "mkv")
 
-    def __post_init__(self):
+    def __post_init__(self, device: Device = "cuda"):
+        self.device = torch.device(device)
         self._lock = threading.RLock()
         self._reader_ = None
         self._test_frame_ = None
 
     @property
+    def _on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    @property
     def _reader(self):
+        """cv2's ``VideoCapture`` on the CPU; on the card an
+        :class:`~sleap_tpu_torch.io.nvdec.NvdecReader`."""
         if self._reader_ is None:
             if not os.path.isfile(self.filename):
                 raise FileNotFoundError(f"Could not find video file named {self.filename}.")
-            cv2 = _import_cv2(f"Reading the media video {self.filename}")
-            self._reader_ = cv2.VideoCapture(self.filename)
+            if self._on_card:
+                from sleap_tpu_torch.io import mp4, nvdec
+
+                self._reader_ = nvdec.NvdecReader(mp4.Mp4Video.open(self.filename), self.device)
+            else:
+                cv2 = _import_cv2(f"Reading the media video {self.filename}")
+                self._reader_ = cv2.VideoCapture(self.filename)
         return self._reader_
 
     @property
@@ -95,11 +122,15 @@ class MediaVideo:
 
     @property
     def fps(self) -> float:
+        if self._on_card:
+            return self._reader.demux.fps
         cv2 = _import_cv2(f"Reading the media video {self.filename}")
         return self._reader.get(cv2.CAP_PROP_FPS)
 
     @property
     def frames(self) -> int:
+        if self._on_card:
+            return self._reader.demux.frames
         cv2 = _import_cv2(f"Reading the media video {self.filename}")
         return int(self._reader.get(cv2.CAP_PROP_FRAME_COUNT))
 
@@ -133,7 +164,9 @@ class MediaVideo:
         detect it again from the file, whether or not a filename is passed
         (the reference's behaviour; the JAX package re-detects only with a
         new filename)."""
-        if self._reader_ is not None:
+        if self._reader_ is not None and self._on_card:
+            self._reader_.close()
+        elif self._reader_ is not None:
             self._reader_.release()
         self._reader_ = None
         self._test_frame_ = None
@@ -144,6 +177,8 @@ class MediaVideo:
             self.bgr = bgr
 
     def get_frame(self, idx: int, grayscale: Optional[bool] = None) -> np.ndarray:
+        if self._on_card:
+            return self._card_frame(idx, grayscale)
         cv2 = _import_cv2(f"Reading the media video {self.filename}")
         with self._lock:
             reader = self._reader
@@ -159,6 +194,20 @@ class MediaVideo:
         elif self.bgr:
             frame = frame[..., ::-1]
         return frame
+
+    def _card_frame(self, idx: int, grayscale: Optional[bool]) -> np.ndarray:
+        """NVDEC's NV12 frame converted on the card as OpenCV converts it:
+        the blue channel alone for gray (what the CPU route keeps), else
+        RGB, or BGR with ``bgr`` False."""
+        from sleap_tpu_torch.io import yuv
+
+        with self._lock:
+            reader = self._reader
+            nv12 = reader.frame(idx)
+        if grayscale is None:
+            grayscale = self.is_grayscale
+        channels = "b" if grayscale else ("rgb" if self.bgr else "bgr")
+        return yuv.nv12_to_frame(nv12, reader.height, channels).cpu().numpy()
 
 
 @dataclass(eq=False)
@@ -178,10 +227,12 @@ class HDF5Video:
     input_format: str = "channels_last"
     convert_range: bool = True
     enable_source_video: bool = True
+    device: dataclasses.InitVar[Device] = "cuda"  # where a source video is read
 
     EXTS = ("h5", "hdf5", "slp")
 
-    def __post_init__(self):
+    def __post_init__(self, device: Device = "cuda"):
+        self.device = device
         self._file_ = None
         self._dataset_ = None
         self._format_ = ""
@@ -230,7 +281,7 @@ class HDF5Video:
         self._open()
         if self._source_video_dict is None:
             return None
-        return Video.from_dict(self._source_video_dict)
+        return Video.from_dict(self._source_video_dict, device=self.device)
 
     @property
     def test_frame(self) -> np.ndarray:
@@ -273,7 +324,7 @@ class HDF5Video:
         """Release the open file."""
         if self._file_ is not None:
             self._file_.close()
-        self.__post_init__()
+        self.__post_init__(self.device)
 
     def get_frame(self, idx: int) -> np.ndarray:
         ds = self._open()
@@ -406,6 +457,16 @@ class SingleImageVideo:
 
 
 BackendType = Union[MediaVideo, HDF5Video, NumpyVideo, SingleImageVideo, DummyVideo]
+
+
+def _backend(bcls, filename: str, fields: Dict[str, Any], device: Device) -> BackendType:
+    """A backend of its fields, and of the device a media file decodes on
+    where the backend takes one."""
+    if "device" in inspect.signature(bcls).parameters:
+        fields = {**fields, "device": device}
+    return bcls(filename=filename, **fields)
+
+
 _BACKENDS = {cls.__name__: cls for cls in (MediaVideo, HDF5Video, NumpyVideo, SingleImageVideo, DummyVideo)}
 
 
@@ -472,9 +533,10 @@ class Video:
         return cls(NumpyVideo(filename=np.asarray(data)))
 
     @classmethod
-    def from_filename(cls, filename: str, **kwargs) -> "Video":
+    def from_filename(cls, filename: str, device: Device = "cuda", **kwargs) -> "Video":
         """A backend chosen by the filename's extension; keyword arguments
-        the backend does not take are dropped."""
+        the backend does not take are dropped. ``device`` is where a media
+        video is decoded (and an HDF5 video's source video)."""
         filename = fixup_path(filename)
         low = filename.lower()
         if low.endswith(HDF5Video.EXTS):
@@ -488,13 +550,14 @@ class Video:
             bcls = SingleImageVideo
         else:
             raise ValueError(f"Could not detect video backend for: {filename}")
-        return cls(bcls(filename=filename, **{k: v for k, v in kwargs.items() if k in keep}))
+        return cls(_backend(bcls, filename, {k: v for k, v in kwargs.items() if k in keep}, device))
 
     @classmethod
-    def from_dict(cls, d: Dict[str, Any], video_search=None) -> "Video":
+    def from_dict(cls, d: Dict[str, Any], video_search=None, device: Device = "cuda") -> "Video":
         """From a ``videos_json`` entry, ``{"backend": {...fields...}}``:
         by its ``type`` where it names one, else by its fields and the
-        filename's extension (an unknown one gives a :class:`DummyVideo`)."""
+        filename's extension (an unknown one gives a :class:`DummyVideo`).
+        ``device`` is where a media video is decoded."""
         bd = dict(d.get("backend", d))
         bd.pop("backend", None)
         explicit = bd.pop("type", None)
@@ -508,7 +571,8 @@ class Video:
         if explicit in _BACKENDS:
             bcls = _BACKENDS[explicit]
             names = {f.name for f in dataclasses.fields(bcls)}
-            return cls(bcls(filename=filename, **{k: v for k, v in bd.items() if k in names}))
+            fields = {k: v for k, v in bd.items() if k in names}
+            return cls(_backend(bcls, filename, fields, device))
         if bd.get("dummy"):
             keep = ("height", "width", "frames", "channels", "dummy")
             return cls(DummyVideo(filename=filename or "", **{k: v for k, v in bd.items() if k in keep}))
@@ -516,7 +580,7 @@ class Video:
             return cls(SingleImageVideo(filename=filename, filenames=bd["filenames"],
                                         grayscale=bd.get("grayscale")))
         try:
-            return cls.from_filename(filename, **bd)
+            return cls.from_filename(filename, device=device, **bd)
         except ValueError:
             return cls(DummyVideo(filename=filename or ""))
 
@@ -536,11 +600,12 @@ def load_video(
     grayscale: Optional[bool] = None,
     dataset: Optional[str] = None,
     channels_first: bool = False,
+    device: Device = "cuda",
     **kwargs,
 ) -> Video:
-    """Open a video from disk: a media file, an HDF5 dataset (embedded
-    ``.slp`` frames too), a ``.npy`` array, a still image, or a directory
-    of images (one frame each)."""
+    """Open a video from disk: a media file (decoded on ``device``), an
+    HDF5 dataset (embedded ``.slp`` frames too), a ``.npy`` array, a still
+    image, or a directory of images (one frame each)."""
     if os.path.isdir(filename):
         files = sorted(
             os.path.join(filename, f)
@@ -556,7 +621,7 @@ def load_video(
         kwargs["dataset"] = dataset
     if channels_first:
         kwargs["input_format"] = "channels_first"
-    return Video.from_filename(filename, **kwargs)
+    return Video.from_filename(filename, device=device, **kwargs)
 
 
 def fixup_path(path: str, search_paths: Optional[List[str]] = None) -> str:

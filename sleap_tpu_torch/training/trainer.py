@@ -105,15 +105,15 @@ class DataReaders:
 
     @classmethod
     def from_config(cls, labels_config, training: Any = None, validation: Any = None,
-                    test: Any = None) -> "DataReaders":
-        """In-memory ``Labels`` or ``.slp`` paths. Only user instances
-        train; without validation labels, the training labels are split by
-        the config's indices or fraction."""
+                    test: Any = None, device="cuda") -> "DataReaders":
+        """In-memory ``Labels`` or ``.slp`` paths (their media videos decoded
+        on ``device``). Only user instances train; without validation labels,
+        the training labels are split by the config's indices or fraction."""
 
         def load(x):
             if x is None or isinstance(x, Labels):
                 return x
-            return load_file(x)
+            return load_file(x, device=device)
 
         training = load(training or labels_config.training_labels)
         validation = load(validation or labels_config.validation_labels)
@@ -360,11 +360,13 @@ class Trainer:
     @classmethod
     def from_config(cls, config: TrainingJobConfig, training_labels: Any = None,
                     validation_labels: Any = None, test_labels: Any = None,
-                    device: Union[str, torch.device] = "cuda") -> "Trainer":
+                    device: Union[str, torch.device] = "cuda",
+                    video_device: Union[str, torch.device, None] = None) -> "Trainer":
         """The trainer of the config's head type, on ``device`` (the card by
         default; pass ``device="cpu"`` for the CPU: there is no fallback).
-        Part names, edges and classes the config leaves unset are filled in
-        from the labels' skeleton and tracks."""
+        The labels' media videos are decoded on ``video_device``, by default
+        ``device``. Part names, edges and classes the config leaves unset are
+        filled in from the labels' skeleton and tracks."""
         head_name = config.model.heads.which_oneof_attrib_name
         trainer_cls = {
             "single_instance": SingleInstanceTrainer,
@@ -378,7 +380,7 @@ class Trainer:
             raise ValueError(f"No trainer for head type {head_name!r}.")
         data_readers = DataReaders.from_config(
             config.data.labels, training=training_labels, validation=validation_labels,
-            test=test_labels,
+            test=test_labels, device=device if video_device is None else video_device,
         )
         skeleton = (config.data.labels.skeletons[0] if config.data.labels.skeletons
                     else data_readers.training_labels.skeleton)

@@ -233,13 +233,13 @@ def test_media_video_matches_jax(tmp_path):
     frames[:, 10:30, 20:40] = rng.integers(60, 200, (6, 1, 1, 3))
     path = str(tmp_path / "clip.mp4")
     _write_mp4(path, frames)
-    mine, ref = tvideo.load_video(path), jvideo.load_video(path)
+    mine, ref = tvideo.load_video(path, device="cpu"), jvideo.load_video(path)
     assert isinstance(mine.backend, tvideo.MediaVideo)
     assert mine.shape == ref.shape and mine.backend.fps == ref.backend.fps
     for i in (0, 3, 1, 5):  # out of order: seeks
         np.testing.assert_array_equal(mine.get_frame(i), ref.get_frame(i))
     assert mine.to_dict() == ref.to_dict()
-    gray = tvideo.Video.from_filename(path, grayscale=True)
+    gray = tvideo.Video.from_filename(path, grayscale=True, device="cpu")
     np.testing.assert_array_equal(gray.get_frame(2), jvideo.Video.from_filename(
         path, grayscale=True).get_frame(2))
     # reset() without a grayscale argument detects it again from the file.
@@ -290,7 +290,7 @@ def test_cv2_backends_without_cv2_raise_naming_it(tmp_path, monkeypatch):
     _write_mp4(path, np.zeros((2, 16, 16, 3), np.uint8))
     monkeypatch.setitem(sys.modules, "cv2", None)
     with pytest.raises(ImportError, match="cv2"):
-        tvideo.load_video(path).get_frame(0)
+        tvideo.load_video(path, device="cpu").get_frame(0)
     with pytest.raises(ImportError, match="cv2"):
         tvideo.Video.from_filename(str(tmp_path / "a.png")).get_frame(0)
     # PNG frames embedded in a .slp decode without cv2.

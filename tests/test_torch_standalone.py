@@ -432,7 +432,7 @@ def test_slp_and_media_paths_are_not_read_yet(path, tmp_path, monkeypatch):
         return
     (tmp_path / path).write_bytes(b"")
     monkeypatch.setitem(sys.modules, "cv2", None)
-    provider = tp._make_provider(str(tmp_path / path))
+    provider = tp._make_provider(str(tmp_path / path), device="cpu")
     with pytest.raises(ImportError, match="clip.mp4 needs cv2"):
         next(iter(provider))
 
