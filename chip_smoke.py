@@ -263,6 +263,29 @@ Phases; any failure exits non-zero and no result line is printed:
    ``cuvidCreateDecoder``'s CUDA_ERROR_OUT_OF_MEMORY. The line
    ``{"media": {"nvdec": "decoded" or "refused", ...}}`` before the
    ``kernels`` line says which.
+13. Frames in and out of users' files, after phase 12 (~30 s), with no cv2,
+   h5py or yaml. 13a: phase 8a's frames, with a user instance on each blob,
+   saved as a PNG training package (``Labels.save(with_images=True)``) and
+   through ``save_frame_data_hdf5``, then read back through
+   ``HDF5Video(device="cuda")`` (the compiled unfilter, P1): bitwise the
+   written frames; P1 bitwise the numpy wavefront on
+   ``scripts/png_decode_time.py``'s 1024^2 frames (each row filter, and
+   mixed) and on the package's rows; prints the write seconds, encode ms a
+   frame, the file sizes beside the raw ``.slp``'s, the read ms a frame and
+   P1's and the wavefront's ms. 13b: the committed JPEG fixtures
+   (``scripts/make_torch_jpeg_fixtures.py``): J1 and J2 give each still's
+   recorded cv2 sha256, the progressive one is refused, the host entropy
+   decoder gives the plain version's coefficients on the small stills, and
+   J1 and J2 give the plain PyTorch stages' output on the 1024^2 stills'
+   coefficients; prints the ms a frame of the entropy decode, the copy in,
+   J1, J2 and the copy out at 1024^2 gray and colour. 13c: ``sleap-track
+   tests/torch_data/jpeg_pkg.slp`` with phase 4's top-down float32 folders
+   in a fresh process: within CLI_TOL of ``load_model`` in this process on
+   the frames J1 and J2 decode (themselves cv2's, by the recorded hashes),
+   kernels 2, 3 and 1 once a batch and J1 and J2 at least once a frame;
+   prints its FPS beside phase 8a's. 13d: 8 of phase 8a's frames through
+   ``to_imgstore`` and ``Video.from_dict`` of its ``to_dict()``: bitwise, by
+   original frame number and by position.
 5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9, 10 and 11 join its
    rows at the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
@@ -272,8 +295,9 @@ Phases; any failure exits non-zero and no result line is printed:
    Kernel 1 on both the float32 and the bf16 top-down maps; a bf16
    ``find_global_peaks`` call must launch kernel 1 alone (no cast or copy).
 
-Then a JSON line of phase 7's numbers, one of phase 11's; the line before the last is a JSON
-object with each kernel's launches (all paths' and per path), error and
+Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's
+and one of phase 13's; the line before the last is a JSON object with each
+kernel's launches (J1 and J2 from phase 13c's run) (all paths' and per path), error and
 times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -391,6 +415,14 @@ CLI_FRAMES, CLI_TOL = 32, 1e-4
 # ``load_model`` in this one, within CLI_TOL.
 MEDIA_SMALL, MEDIA_FRAMES, MEDIA_IDR, MEDIA_CLI_IDR = (100, 72), 12, 4, 8
 MEDIA_SEEK_ORDER = (0, 7, 3, 3, 11, 1)
+
+# Phase 13: the JPEG fixtures (``scripts/make_torch_jpeg_fixtures.py``) and
+# package; stills of at most JPEG_PLAIN_BLOCKS blocks also go through the
+# plain (Python) entropy decoder; 13d stores these of phase 8a's frames.
+JPEG_DIR = ("tests", "torch_data", "jpeg")
+JPEG_PKG = ("tests", "torch_data", "jpeg_pkg.slp")
+JPEG_PLAIN_BLOCKS = 5000
+IMGSTORE_FRAMES = (0, 3, 5, 9, 14, 20, 26, 31)
 # 8b: the committed fixtures (``scripts/make_torch_slp_fixtures.py``) and the
 # trained folders the CPU tests drive on them.
 FIXTURE_DIR = ("tests", "torch_data")
@@ -2210,7 +2242,7 @@ def write_cli_project(root):
                                       sigma=TRAIN_CLI_SIGMA * f, radius=TRAIN_CLI_RING * f)
         path = os.path.join(root, f"video{k}_{size}.h5")
         with hdf5.Writer(path) as h5:
-            h5.create_dataset("video", data=frames)
+            h5.create_dataset("video", data=frames, compression=None)
         video = Video.from_filename(path, dataset="video")
         lfs += [LabeledFrame(video, i, [Instance(skeleton, p) for p in pts])
                 for i, pts in enumerate(points)]
@@ -3119,6 +3151,356 @@ def check_media_cli(td, launches, card, fps_8a, mode):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 13: frames in and out of users' files (PNG and JPEG packages, ImgStore)
+# --------------------------------------------------------------------------- #
+
+
+def cli_frames():
+    """Phase 8a's frames and their blob centres: (frames, xy)."""
+    xy = blob_paths(CLI_FRAMES, IMG, [[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]],
+                    [150.0, 150.0], seed=8)
+    return moving_frames(xy, IMG, 8.0, 200.0, seed=8), xy
+
+
+def median_ms(fn, repeats=3) -> float:
+    """Median host ms of ``fn()`` over ``repeats`` calls, after one."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def check_png_packages(card):
+    """13a: phase 8a's frames as a PNG training package and an HDF5 frame
+    file, read back through the card's route; P1 against the numpy
+    wavefront. Returns the figures it prints."""
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.core.skeleton import Skeleton
+    from sleap_tpu_torch.io import hdf5, png
+    from sleap_tpu_torch.io.slp import read_labels, write_labels
+    from sleap_tpu_torch.io.video import Video
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    import png_decode_time
+
+    frames, xy = cli_frames()
+    skeleton = Skeleton("blob")
+    skeleton.add_node("A")
+    skeleton.add_node("B")
+    video = Video.from_numpy(frames)
+    labels = Labels([LabeledFrame(video, i, [Instance(skeleton, np.array([[x - 6, y], [x + 6, y]]))
+                                             for x, y in points]) for i, points in enumerate(xy)])
+    n = len(frames)
+    figures = {"frames": n, "raw_mb": frames.nbytes / 1e6}
+    with tempfile.TemporaryDirectory() as root:
+        raw, pkg, fd = (os.path.join(root, f) for f in ("raw.slp", "pkg.slp", "frames.h5"))
+        t0 = time.perf_counter()
+        write_labels(raw, labels)
+        figures["raw_slp_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        labels.save(pkg, with_images=True)
+        figures["pkg_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        labels.save_frame_data_hdf5(fd)
+        figures["frame_data_write_s"] = time.perf_counter() - t0
+        figures["encode_ms"] = median_ms(lambda: [png.imencode(".png", f) for f in frames], 1) / n
+        for name, path in (("raw_slp", raw), ("pkg", pkg), ("frame_data", fd)):
+            figures[f"{name}_mb"] = os.path.getsize(path) / 1e6
+        for name, read in (("pkg", lambda: read_labels(pkg).video),
+                           ("frame_data", lambda: Video.from_hdf5("video0/video", fd))):
+            got = read()
+            check(torch.device(got.backend.device).type == "cuda",
+                  f"13a: the {name} video decodes on the card")
+            got.get_frame(0)
+            t0 = time.perf_counter()
+            back = np.stack([got.get_frame(i) for i in range(n)])
+            figures[f"{name}_read_ms"] = 1e3 * (time.perf_counter() - t0) / n
+            check(np.array_equal(back, frames), f"13a: the {name} file holds the frames, bitwise")
+        with hdf5.File(pkg) as f:
+            rows = [f["video0/video"][i].tobytes() for i in range(n)]
+        for row in rows:
+            p = png.read(row)
+            check(np.array_equal(png.unfilter_host(p.rows, p.bpp), png.unfilter_plain(p.rows, p.bpp)),
+                  "13a: P1 equals the wavefront on the package's rows")
+    img = png_decode_time.frame(IMG)
+    figures["p1"] = {}
+    for k, name in enumerate(png_decode_time.FILTERS):
+        data = png_decode_time.encode(img, k)
+        p = png.read(data)
+        host = png.unfilter_host(p.rows, p.bpp)
+        check(np.array_equal(host, png.unfilter_plain(p.rows, p.bpp)) and np.array_equal(host, img),
+              f"13a: P1 equals the wavefront on the {name} rows at {IMG}^2")
+        figures["p1"][name] = {
+            "p1_unfilter_ms": median_ms(lambda: png.unfilter_host(p.rows, p.bpp)),
+            "wavefront_unfilter_ms": median_ms(lambda: png.unfilter_plain(p.rows, p.bpp)),
+            "decode_cuda_ms": median_ms(lambda: png.decode(data, "cuda")),
+            "decode_cpu_ms": median_ms(lambda: png.decode(data, "cpu")),
+        }
+    log(f"13a PNG package of {n} frames of {IMG}^2 (gray, {figures['raw_mb']:.1f} MB raw): "
+        f"Labels.save(with_images) {figures['pkg_write_s']:.3f} s, save_frame_data_hdf5 "
+        f"{figures['frame_data_write_s']:.3f} s, PNG encode {figures['encode_ms']:.2f} ms a frame; "
+        f"files {figures['pkg_mb']:.2f} MB (.pkg.slp), {figures['frame_data_mb']:.2f} MB (frame "
+        f"data), {figures['raw_slp_mb']:.2f} MB (8a's raw .slp, written in "
+        f"{figures['raw_slp_write_s']:.3f} s); read on the card {figures['pkg_read_ms']:.2f} / "
+        f"{figures['frame_data_read_ms']:.2f} ms a frame, bitwise ({card})")
+    log(f"13a P1 vs the numpy wavefront at {IMG}^2, median of 3 (unfilter ms; whole decode ms "
+        "card route / CPU route): " + ", ".join(
+            f"{k} {v['p1_unfilter_ms']:.2f} vs {v['wavefront_unfilter_ms']:.2f} "
+            f"({v['decode_cuda_ms']:.2f} / {v['decode_cpu_ms']:.2f})"
+            for k, v in figures["p1"].items()) + f" ({card})")
+    return figures
+
+
+def jpeg_record():
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, *JPEG_DIR, "decoded.json")) as fh:
+        return json.load(fh)
+
+
+def sha256(img: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def check_jpeg(card):
+    """13b: the JPEG stills through the card's route against cv2's recorded
+    decode; the host entropy decoder against the plain one; J1 and J2
+    against the plain PyTorch stages at 1024^2, timed. Returns (figures,
+    {kernel: (max |err|, row numbers at 1024^2 gray)})."""
+    from sleap_tpu_torch.io import jpeg
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    record, dev = jpeg_record(), torch.device("cuda", 0)
+    stills = {}
+    for name, want in record["stills"].items():
+        with open(os.path.join(here, *JPEG_DIR, name + ".jpg"), "rb") as fh:
+            stills[name] = fh.read()
+        if "refused" in want:
+            try:
+                jpeg.imdecode(stills[name], "cuda")
+            except jpeg.UnsupportedJpeg as e:
+                check(want["refused"] in str(e), f"13b: {name} refused naming it: {e}")
+                continue
+            check(False, f"13b: {name} must be refused")
+        img = jpeg.imdecode(stills[name], "cuda")
+        check(list(img.shape) == want["shape"] and sha256(img) == want["sha256"],
+              f"13b: {name} decodes on the card to cv2's frame")
+        header = jpeg.parse(stills[name])
+        if header.blocks <= JPEG_PLAIN_BLOCKS:
+            check(np.array_equal(jpeg.coefficients_host(stills[name], header).numpy(),
+                                 jpeg.coefficients_plain(stills[name], header)),
+                  f"13b: the host entropy decoder gives the plain coefficients on {name}")
+    figures, errs = {}, {"jpeg_idct": 0.0, "jpeg_color": 0.0}
+    rows = {}
+    for name in ("gray_1024", "c420_1024"):
+        data = stills[name]
+        header = jpeg.parse(data)
+        staging = jpeg._staging(header.blocks)
+        coefs = jpeg.coefficients_host(data, header, staging)
+        c = coefs.to(dev)
+        q = torch.from_numpy(header.quant.astype(np.int32)).to(dev)
+        comp = jpeg.block_components(header).to(dev)
+        samples = jpeg.idct_cuda(c, q, header)
+        plain_samples = jpeg.idct_plain(c, q, comp)
+        out = jpeg.color_cuda(samples, header)
+        plain_out = jpeg.color_plain(jpeg.planes_of(samples, header), header)
+        errs["jpeg_idct"] = max(errs["jpeg_idct"], max_abs(samples, plain_samples))
+        errs["jpeg_color"] = max(errs["jpeg_color"], max_abs(out, plain_out))
+        check(torch.equal(samples, plain_samples) and torch.equal(out, plain_out),
+              f"13b: J1 and J2 equal the plain stages on {name}")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def events_ms(fn, iters=20):
+            fn()
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+
+        split = {
+            "entropy_ms": median_ms(lambda: jpeg.coefficients_host(data, header, staging), 5),
+            "copy_in_ms": events_ms(lambda: staging.to(dev, non_blocking=True)),
+            "j1_ms": events_ms(lambda: jpeg.idct_cuda(c, q, header)),
+            "j2_ms": events_ms(lambda: jpeg.color_cuda(samples, header)),
+            "copy_out_ms": median_ms(lambda: out.cpu(), 5),
+            "frame_ms": median_ms(lambda: jpeg.imdecode(data, "cuda"), 5),
+            "cpu_route_frame_ms": median_ms(lambda: jpeg.imdecode(data, "cpu"), 1),
+        }
+        j1_dev = device_ms(lambda: jpeg.idct_cuda(c, q, header), ["jpeg_idct_kernel"])
+        j2_dev = device_ms(lambda: jpeg.color_cuda(samples, header), ["jpeg_color_kernel"])
+        j1_plain = time_ms(lambda: jpeg.idct_plain(c, q, comp), iters=10, warmup=2)
+        planes = jpeg.planes_of(samples, header)
+        j2_plain = time_ms(lambda: jpeg.color_plain(planes, header), iters=10, warmup=2)
+        # Bounds: each input read once, each output written once; J1 a few
+        # hundred integer operations a block, J2 a few tens a pixel, both at
+        # the float32 rate outside the tensor cores.
+        j1_bytes = nbytes(c, q, samples)
+        j2_bytes = nbytes(samples, out)
+        j1_ops, j2_ops = 600 * header.blocks, 40 * out.numel()
+        rows[name] = {
+            "jpeg_idct": {"ms": split["j1_ms"], "plain_ms": j1_plain, "device_ms": j1_dev,
+                          "bytes_ms": j1_bytes / HBM_BYTES_PER_S * 1e3,
+                          "ops_ms": j1_ops / F32_OPS_PER_S * 1e3},
+            "jpeg_color": {"ms": split["j2_ms"], "plain_ms": j2_plain, "device_ms": j2_dev,
+                           "bytes_ms": j2_bytes / HBM_BYTES_PER_S * 1e3,
+                           "ops_ms": j2_ops / F32_OPS_PER_S * 1e3},
+        }
+        figures[name] = {**split, "bytes": len(data), "blocks": header.blocks,
+                         "j1_device_ms": j1_dev, "j2_device_ms": j2_dev,
+                         "j1_plain_ms": j1_plain, "j2_plain_ms": j2_plain}
+        log(f"13b JPEG {name} ({len(data)} bytes, {header.blocks} blocks), ms a frame: entropy "
+            f"(host C) {split['entropy_ms']:.3f}, copy in {split['copy_in_ms']:.3f}, J1 "
+            f"{split['j1_ms']:.4f} (device {j1_dev:.4f}, plain {j1_plain:.3f}), J2 "
+            f"{split['j2_ms']:.4f} (device {j2_dev:.4f}, plain {j2_plain:.3f}), copy out "
+            f"{split['copy_out_ms']:.3f}; whole card route {split['frame_ms']:.3f}, CPU route "
+            f"{split['cpu_route_frame_ms']:.1f}; bounds J1 {rows[name]['jpeg_idct']['bytes_ms']:.4f}"
+            f", J2 {rows[name]['jpeg_color']['bytes_ms']:.4f} ms ({card})")
+    for kernel in errs:
+        rows["gray_1024"][kernel]["colour"] = rows["c420_1024"][kernel]
+    return figures, {k: (errs[k], rows["gray_1024"][k]) for k in errs}
+
+
+_CLI_MAIN_JPEG = """
+import json, sys, time, torch
+from sleap_tpu_torch.cli import track
+from sleap_tpu_torch.io import jpeg
+from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+wrappers = {"local_peaks": cuda_peaks.local_peaks_cuda, "crop_unit": cuda_crops.crop_unit_cuda,
+            "global_peaks": cuda_peaks.global_peaks_cuda, "jpeg_idct": jpeg.idct_cuda,
+            "jpeg_color": jpeg.color_cuda}
+for w in wrappers.values():
+    w.launches = 0
+t0 = time.perf_counter()
+track.main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"cli_s": time.perf_counter() - t0,
+                  "launches": {k: w.launches for k, w in wrappers.items()}}))
+"""
+
+
+def check_jpeg_cli(td, launches, card, fps_8a):
+    """13c: ``sleap-track jpeg_pkg.slp`` in a fresh process on the card
+    against ``load_model`` in this one on the frames J1 and J2 decode.
+    Returns the figures it prints."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.io.slp import read_labels
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(here, *JPEG_PKG)
+    record = jpeg_record()["package"]
+    video = read_labels(pkg).video
+    decoded = video[:]
+    check(len(decoded) == len(record) and all(
+        sha256(f[..., 0]) == r["sha256"] for f, r in zip(decoded, record)),
+        "13c: J1 and J2 decode the package's rows to cv2's frames")
+    n = len(decoded)
+    with tempfile.TemporaryDirectory() as root:
+        folders = write_run_folders(root)
+        paths = [folders["centroid"], folders["instance"]]
+        for path, tm in zip(paths, (td.centroid_model, td.confmap_model)):
+            torch.save({k: v.float().cpu() for k, v in tm.module.state_dict().items()},
+                       os.path.join(path, "best_model.pt"))
+        pred = sleap_tpu_torch.load_model(paths, batch_size=BATCH, max_instances=MAX_INSTANCES)
+        pred.predict(decoded[:BATCH], make_labels=False)  # warm-up
+        want = pred.predict(decoded)
+        out = os.path.join(root, "jpeg.predictions.slp")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", _CLI_MAIN_JPEG, pkg, "-m", paths[0], "-m", paths[1],
+             "--batch_size", str(BATCH), "--max_instances", str(MAX_INSTANCES),
+             "--verbosity", "none", "-o", out],
+            cwd=here, capture_output=True, text=True, timeout=300)
+        process_s = time.perf_counter() - t0
+        check(run.returncode == 0, f"13c: sleap-track jpeg_pkg.slp exit {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        result = json.loads(run.stdout.strip().splitlines()[-1])
+        got = read_labels(out)
+    n_batches = -(-n // BATCH)
+    counts = result["launches"]
+    for kernel in ("local_peaks", "crop_unit", "global_peaks"):
+        check(counts[kernel] == n_batches,
+              f"13c: {kernel} launched {counts[kernel]} times by the CLI, want one a batch")
+        launches[kernel]["CLI jpeg_pkg.slp (13c)"] = counts[kernel]
+    for kernel in ("jpeg_idct", "jpeg_color"):
+        check(counts[kernel] >= n, f"13c: {kernel} launched {counts[kernel]} times for {n} frames")
+    insts = [i for lf in got for i in lf.instances]
+    check(len(got) == n and len(insts) >= n, "13c: frames with instances")
+    d_xy, d_val = compare_predictions(got, want, CLI_TOL, CLI_TOL, "13c: CLI on JPEG rows vs in-process")
+    cli_fps = n / result["cli_s"]
+    figures = {"frames": n, "cli_s": result["cli_s"], "cli_fps": cli_fps, "cli_fps_8a": fps_8a,
+               "process_s": process_s, "launches": counts, "max_abs_dxy": d_xy,
+               "max_abs_dscore": d_val}
+    log(f"13c sleap-track jpeg_pkg.slp ({n} JPEG frames of {IMG}^2 gray) in a fresh process: main "
+        f"{result['cli_s']:.3f} s = {cli_fps:.1f} FPS (8a, .slp of raw frames, tracked: "
+        f"{fps_8a:.1f} FPS), process {process_s:.1f} s; {len(insts)} instances, launches {counts}; "
+        f"vs in-process max |dxy| {d_xy:.3g}, max |dscore| {d_val:.3g} ({card})")
+    return figures
+
+
+def check_imgstore(card):
+    """13d: 8 of phase 8a's frames through ``to_imgstore`` and back through
+    ``Video.from_dict`` of its ``to_dict()``, by original frame number and by
+    position. Returns the figures it prints."""
+    from sleap_tpu_torch.io.video import Video
+
+    frames, _ = cli_frames()
+    nums = list(IMGSTORE_FRAMES)
+    figures = {}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "store")
+        t0 = time.perf_counter()
+        stored = Video.from_numpy(frames).to_imgstore(path, frame_numbers=nums)
+        figures["write_s"] = time.perf_counter() - t0
+        for by_original in (True, False):
+            d = stored.to_dict()
+            d["backend"]["index_by_original"] = by_original
+            video = Video.from_dict(json.loads(json.dumps(d)))
+            idxs = nums if by_original else range(len(nums))
+            t0 = time.perf_counter()
+            got = np.stack([video.get_frame(i) for i in idxs])
+            figures[f"read_ms_{'original' if by_original else 'position'}"] = \
+                1e3 * (time.perf_counter() - t0) / len(nums)
+            check(type(video.backend).__name__ == "ImgStoreVideo" and video.num_frames == len(nums)
+                  and np.array_equal(got, frames[nums]),
+                  f"13d: the ImgStore gives back the frames (index_by_original={by_original})")
+    log(f"13d ImgStore of {len(nums)} frames of {IMG}^2: written in {figures['write_s']:.3f} s, "
+        f"read back bitwise by frame number and by position "
+        f"({figures['read_ms_original']:.2f} / {figures['read_ms_position']:.2f} ms a frame) ({card})")
+    return figures
+
+
+def jpeg_kernel_rows(jpeg_rows, launches):
+    """The ``kernels`` line's rows of J1 and J2: numbers at 1024^2 gray (the
+    13c path's frames), the colour still's beside them."""
+    meta = {"jpeg_idct": "jpeg_idct_kernel", "jpeg_color": "jpeg_color_kernel"}
+    out = []
+    for name, func in meta.items():
+        err, r = jpeg_rows[name]
+        bound = max(r["bytes_ms"], r["ops_ms"])
+        out.append({
+            "name": name, "route": "cuda", "source": "sleap_tpu_torch/csrc/jpeg.cu",
+            "replaces": "sleap_tpu/io/video.py:327",
+            "replaces_note": "cv2.imdecode on the host in HDF5Video.get_frame; no TPU kernel",
+            "device_function": func, "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name], "max_abs_err": err, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound,
+            "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+            "library_ms": None, "device_ms": r["device_ms"],
+            "colour_420": {k: v for k, v in r["colour"].items()},
+        })
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # Phase 11: training the other backbones, and their bf16 inference
 # --------------------------------------------------------------------------- #
 
@@ -3331,7 +3713,7 @@ def check_backbone_cli_train(card, wrappers, launches):
                                       radius=TRAIN_CLI_RING, animals=1)
         video_path = os.path.join(root, "video.h5")
         with hdf5.Writer(video_path) as h5:
-            h5.create_dataset("video", data=frames[:BB_CLI_FRAMES])
+            h5.create_dataset("video", data=frames[:BB_CLI_FRAMES], compression=None)
         video, skeleton = Video.from_filename(video_path, dataset="video"), chain_skeleton()
         project = os.path.join(root, "hourglass.slp")
         write_labels(project, Labels([LabeledFrame(video, i, [Instance(skeleton, pts[0])])
@@ -3720,12 +4102,25 @@ def main() -> int:
              "cli": check_media_cli(td, launches, card, cli["full_width"]["cli_fps"],
                                     nvdec_state)}
     log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    # Phase 13: frames in and out of users' files (PNG, JPEG, ImgStore).
+    t13 = time.perf_counter()
+    png_figures = check_png_packages(card)
+    jpeg_figures, jpeg_rows = check_jpeg(card)
+    launches["jpeg_idct"], launches["jpeg_color"] = {}, {}
+    jpeg_cli = check_jpeg_cli(td, launches, card, cli["full_width"]["cli_fps"])
+    for kernel in ("jpeg_idct", "jpeg_color"):
+        launches[kernel]["CLI jpeg_pkg.slp (13c)"] = jpeg_cli["launches"][kernel]
+    frames_io = {"png": png_figures, "jpeg": jpeg_figures, "jpeg_cli": jpeg_cli,
+                 "imgstore": check_imgstore(card)}
+    log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
+    kernels += jpeg_kernel_rows(jpeg_rows, launches)
 
     leaked = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2",
-        "zstandard", "tensorstore")]
+        "zstandard", "tensorstore", "yaml", "imgstore")]
     check(not leaked, f"JAX-side modules imported: {leaked[:5]}")
 
     for name, value in fps.items():
@@ -3739,6 +4134,7 @@ def main() -> int:
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"backbone_training": backbone_training, "card": card}), flush=True)
     print(json.dumps({"media": media, "card": card}), flush=True)
+    print(json.dumps({"frames_io": frames_io, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,0 +1,173 @@
+"""Write the JPEG fixtures of the port's tests and ``chip_smoke.py`` phase 13
+with cv2 and the JAX package's writer, from a seed; nothing is downloaded.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_jpeg_fixtures.py
+
+Writes, under ``tests/torch_data``:
+
+- ``jpeg/*.jpg``: small stills as ``cv2.imencode(".jpg", ...)`` writes them
+  (baseline, standard or optimised Huffman tables): gray; colour sampled
+  4:4:4, 4:2:2 and 4:2:0; sizes 100 x 72 and 37 x 29 (no multiple of the
+  MCU); quality 50 and 95; one with a restart interval
+  (``IMWRITE_JPEG_RST_INTERVAL``), one with optimised tables
+  (``IMWRITE_JPEG_OPTIMIZE``), one progressive
+  (``IMWRITE_JPEG_PROGRESSIVE``), which the port refuses, two 3 and 2 px
+  wide (chroma planes libjpeg-turbo replicates); and a 1024^2 gray
+  and a 1024^2 colour (4:2:0) still at cv2's default quality 95;
+- ``jpeg_pkg.slp``: a training package of 16 gray 1024^2 frames, each with
+  four Gaussian blob animals (sigma 8 px) on a smooth, lightly textured
+  background (no noise: about 70 KB a frame), labeled with a two-node user
+  instance per blob, written by
+  ``sleap_tpu.io.slp.write_labels(save_frame_data=True,
+  image_format="jpg")`` (cv2's JPEG at quality 95);
+- ``jpeg/decoded.json``: for each still and each row of the package, the
+  sha256 of ``cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)``'s bytes with its
+  shape (or the feature the port must refuse), so the card, which has no
+  cv2, can hold its decoders to cv2's output.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+OUT = os.path.join(REPO, "tests", "torch_data")
+SEED, PKG_FRAMES, PKG_SIZE, SIGMA, AMPLITUDE = 0, 16, 1024, 8.0, 200.0
+HALF_SPAN = 6.0
+
+
+def still(h: int, w: int, channels: int, seed: int) -> np.ndarray:
+    """Smooth shapes and a little noise: every coefficient band in use."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    base = 110 + 70 * np.sin(xx / (w / 6.0)) * np.cos(yy / (h / 5.0))
+    img = base[..., None] + rng.normal(0, 6, (h, w, channels))
+    if channels == 3:
+        img[..., 1] = 255 - img[..., 1]
+        img[..., 2] = 40 + 180 * xx / max(w - 1, 1)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def background(size: int, noise: float, rng) -> np.ndarray:
+    """A smooth gradient with a faint texture, as a lit arena floor, plus
+    Gaussian noise of ``noise`` grey levels."""
+    yy, xx = np.mgrid[:size, :size].astype(np.float64)
+    smooth = 30 + 25 * (xx + yy) / (2 * size) + 6 * np.sin(xx / 37.0) * np.sin(yy / 53.0)
+    smooth += 2 * np.sin(xx / 2.7 + yy / 3.9)
+    return smooth + rng.normal(0, noise, (size, size))
+
+
+def package_frames():
+    """(frames (n, S, S, 1) uint8, blob centres (n, 4, 2) xy): four blobs
+    moving a few px a frame over one background."""
+    rng = np.random.default_rng(SEED)
+    bg = background(PKG_SIZE, 0.0, rng)
+    starts = np.array([[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]]) * PKG_SIZE
+    steps = rng.uniform(-3, 3, (4, 2))
+    centres = starts[None] + np.arange(PKG_FRAMES)[:, None, None] * steps[None]
+    yy, xx = np.mgrid[:PKG_SIZE, :PKG_SIZE]
+    frames = np.empty((PKG_FRAMES, PKG_SIZE, PKG_SIZE, 1), np.uint8)
+    r = int(3 * SIGMA) + 1
+    for i, points in enumerate(centres):
+        img = bg.copy()
+        for x, y in points:
+            y0, x0 = int(y) - r, int(x) - r
+            win = (slice(y0, y0 + 2 * r + 1), slice(x0, x0 + 2 * r + 1))
+            img[win] += AMPLITUDE * np.exp(-((xx[win] - x) ** 2 + (yy[win] - y) ** 2)
+                                           / (2 * SIGMA**2))
+        frames[i, ..., 0] = np.clip(img, 0, 255)
+    return frames, centres
+
+
+def stills(cv2):
+    """name -> (image, cv2.imencode parameters)."""
+    s = cv2.IMWRITE_JPEG_SAMPLING_FACTOR
+    sampling = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+                "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420}
+    out = {}
+    for (w, h), q in (((100, 72), 95), ((37, 29), 50)):
+        out[f"gray_{w}x{h}_q{q}"] = (still(h, w, 1, w + q)[..., 0], [cv2.IMWRITE_JPEG_QUALITY, q])
+        for name, flag in sampling.items():
+            out[f"c{name}_{w}x{h}_q{q}"] = (still(h, w, 3, w + q + int(name)),
+                                           [cv2.IMWRITE_JPEG_QUALITY, q, s, flag])
+    out["c420_100x72_q90_rst2"] = (still(72, 100, 3, 1), [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                                          cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+    out["gray_100x72_q80_rst1"] = (still(72, 100, 1, 2)[..., 0],
+                                   [cv2.IMWRITE_JPEG_QUALITY, 80, cv2.IMWRITE_JPEG_RST_INTERVAL, 1])
+    out["c422_100x72_q75_optimized"] = (still(72, 100, 3, 3), [cv2.IMWRITE_JPEG_QUALITY, 75,
+                                                               cv2.IMWRITE_JPEG_OPTIMIZE, 1, s,
+                                                               sampling["422"]])
+    out["c420_100x72_progressive"] = (still(72, 100, 3, 4), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    # Chroma planes 1 and 2 samples wide: replicated, not fancy-upsampled.
+    out["c420_3x50_q90"] = (still(50, 3, 3, 5), [cv2.IMWRITE_JPEG_QUALITY, 90, s, sampling["420"]])
+    out["c422_2x9_q90"] = (still(9, 2, 3, 6), [cv2.IMWRITE_JPEG_QUALITY, 90, s, sampling["422"]])
+    rng = np.random.default_rng(SEED + 1)
+    big = background(PKG_SIZE, 1.0, rng)
+    out["gray_1024"] = (np.clip(big + 60, 0, 255).astype(np.uint8), [])
+    colour = np.stack([big + 20, 200 - big, big + 90], -1)
+    out["c420_1024"] = (np.clip(colour, 0, 255).astype(np.uint8), [])
+    return out
+
+
+def digest(img: np.ndarray) -> dict:
+    return {"sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest(),
+            "shape": list(img.shape)}
+
+
+def main() -> None:
+    import cv2
+
+    from sleap_tpu.core.instance import Instance, LabeledFrame
+    from sleap_tpu.core.labels import Labels
+    from sleap_tpu.core.skeleton import Skeleton
+    from sleap_tpu.io.slp import write_labels
+    from sleap_tpu.io.video import Video
+
+    jpeg_dir = os.path.join(OUT, "jpeg")
+    os.makedirs(jpeg_dir, exist_ok=True)
+    record = {"stills": {}, "package": []}
+    for name, (img, params) in stills(cv2).items():
+        ok, buf = cv2.imencode(".jpg", img, params)
+        assert ok
+        path = os.path.join(jpeg_dir, name + ".jpg")
+        with open(path, "wb") as fh:
+            fh.write(buf.tobytes())
+        if "progressive" in name:
+            record["stills"][name] = {"refused": "progressive"}
+        else:
+            record["stills"][name] = digest(cv2.imdecode(buf, cv2.IMREAD_UNCHANGED))
+        print(f"wrote {path}: {len(buf)} bytes")
+
+    frames, centres = package_frames()
+    skeleton = Skeleton("Skeleton-0")
+    skeleton.add_node("A")
+    skeleton.add_node("B")
+    skeleton.add_edge("A", "B")
+    video = Video.from_numpy(frames)
+    lfs = [LabeledFrame(video=video, frame_idx=i, instances=[
+        Instance(skeleton=skeleton, points=np.array([[x - HALF_SPAN, y], [x + HALF_SPAN, y]]))
+        for x, y in points]) for i, points in enumerate(centres)]
+    path = os.path.join(OUT, "jpeg_pkg.slp")
+    write_labels(path, Labels(labeled_frames=lfs), save_frame_data=True, image_format="jpg")
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        for row in f["video0/video"][:]:
+            img = cv2.imdecode(np.frombuffer(row.tobytes(), np.uint8), cv2.IMREAD_UNCHANGED)
+            record["package"].append(digest(img))
+    print(f"wrote {path}: {os.path.getsize(path)} bytes")
+    with open(os.path.join(jpeg_dir, "decoded.json"), "w") as fh:
+        json.dump(record, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -215,15 +215,70 @@ class Labels:
         return new
 
     # -- .slp files ---------------------------------------------------------- #
-    def save(self, filename: str, with_images: bool = False, append: bool = False) -> None:
+    def save(self, filename: str, with_images: bool = False, embed_all_labeled: bool = False,
+             embed_suggested: bool = False, append: bool = False, image_format: str = "png") -> None:
         """Write a ``.slp`` file (making its directory); ``with_images``
-        (embedding frames) is not ported yet and raises."""
+        embeds the frames with user instances (every labeled frame with
+        ``embed_all_labeled``, and the suggested ones with
+        ``embed_suggested``) as PNG rows: a training package."""
         from sleap_tpu_torch.io import slp
 
         parent = os.path.dirname(filename)
         if parent:
             os.makedirs(parent, exist_ok=True)
-        slp.write_labels(filename, self, save_frame_data=with_images, append=append)
+        slp.write_labels(filename, self, save_frame_data=with_images, all_labeled=embed_all_labeled,
+                         suggested=embed_suggested, image_format=image_format, append=append)
+
+    def _frame_data_nums(self, video, all_labeled: bool, suggested: bool,
+                         user_labeled: bool = True) -> List[int]:
+        """The frame numbers of ``video`` whose images the exporters write."""
+        nums = {lf.frame_idx for lf in self.find(video)
+                if all_labeled or (user_labeled and lf.has_user_instances)}
+        if suggested:
+            nums.update(s.frame_idx for s in self.suggestions if s.video is video)
+        return sorted(nums)
+
+    def save_frame_data_imgstore(self, output_dir: str = "./", format: str = "png",
+                                 all_labeled: bool = False, suggested: bool = False,
+                                 progress_callback: Optional[Callable] = None,
+                                 device=None) -> list:
+        """Each video's labeled frames as a PNG ImgStore
+        ``output_dir/frame_data_vid{i}``; returns videos of them that decode
+        on ``device`` (by default each source video's), none when
+        ``progress_callback`` returns False."""
+        out = []
+        for v_idx, video in enumerate(self.videos):
+            path = os.path.join(output_dir, f"frame_data_vid{v_idx}")
+            out.append(video.to_imgstore(
+                path=path, frame_numbers=self._frame_data_nums(video, all_labeled, suggested),
+                format=format, device=device))
+            if progress_callback is not None and progress_callback(v_idx, len(self.videos)) is False:
+                return []
+        return out
+
+    def save_frame_data_hdf5(self, output_path: str, format: str = "png", user_labeled: bool = True,
+                             all_labeled: bool = False, suggested: bool = False,
+                             progress_callback: Optional[Callable] = None, device=None) -> list:
+        """Each video's labeled frames as encoded rows in one HDF5 file,
+        dataset ``video{i}`` a video, written in one pass (added to the file
+        where it exists); returns videos of them that decode on ``device``
+        (by default each source video's), none when ``progress_callback``
+        returns False."""
+        from sleap_tpu_torch.io import hdf5
+        from sleap_tpu_torch.io.video import HDF5Video, Video
+
+        out = []
+        with hdf5.Writer(output_path, "a") as f:
+            for v_idx, video in enumerate(self.videos):
+                nums = self._frame_data_nums(video, all_labeled, suggested, user_labeled=user_labeled)
+                video.write_hdf5(f, f"video{v_idx}", nums, format)
+                out.append(Video(HDF5Video(filename=output_path, dataset=f"video{v_idx}/video",
+                                           input_format="channels_last", convert_range=False,
+                                           device=video._device(device))))
+                if progress_callback is not None and \
+                        progress_callback(v_idx, len(self.videos)) is False:
+                    return []
+        return out
 
     @classmethod
     def load_file(

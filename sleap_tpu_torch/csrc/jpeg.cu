@@ -1,0 +1,351 @@
+// JPEG decoding as libjpeg-turbo decodes it (cv2.imdecode's defaults), bit
+// for bit: the Huffman entropy decoder in host C, and the inverse DCT (J1)
+// and the chroma upsampling and colour conversion (J2) hand-written for
+// Hopper (sm_90a). Bound with ctypes from sleap_tpu_torch/io/jpeg.py, which
+// holds the plain versions (Python entropy decoding, PyTorch integer code
+// for the rest) that these must equal.
+//
+// No TPU kernel has a counterpart: the JAX package decodes JPEG with cv2 on
+// the host (sleap_tpu/io/video.py, HDF5Video.get_frame).
+//
+// - sleap_jpeg_decode_scan (host): one scan's entropy-coded data, unstuffed
+//   a restart interval at a time into the caller's scratch buffer and read through a
+//   32-bit window; a symbol is one lookup of the next 16 bits in a 65536-entry
+//   table (length << 8 | symbol). Coefficients land de-zigzagged in the
+//   caller's (pinned) int16 buffer, (blocks, 64), each component's blocks
+//   row-major at its own offset.
+// - jpeg_idct_kernel (J1): dequantisation and jidctint.c's jpeg_idct_islow
+//   with 64-bit sums (JLONG), the int workspace between the passes and the
+//   10-bit post-IDCT range table. Eight threads a block of 8x8: pass 1 one
+//   column each, through shared memory, pass 2 one row each, written as 8
+//   bytes. Output (blocks, 8, 8) uint8: the component planes tiled in blocks.
+//   Bound by bytes (192 a block in and out); the 64-bit multiplies are a few
+//   hundred integer operations a block.
+// - jpeg_color_kernel (J2): one thread an output pixel. Gray copies Y;
+//   colour upsamples Cb and Cr as h2v1_fancy_upsample (3:1 on columns,
+//   rounding 1 / 2) or h2v2_fancy_upsample (3:1 on rows, then on columns,
+//   rounding 8 / 7), edges replicated at the component's downsampled size
+//   (plain replication for planes at most 2 samples wide), then converts with jdcolor.c's integer tables computed inline
+//   (SCALEBITS 16) to BGR. Bound by bytes: the planes read, H*W*3 written.
+//
+// Both kernels are the simple first design: no tiling of the chroma reads
+// in shared memory, two launches where one could do, the frame copied back
+// to the host.
+
+#include <stdint.h>
+#include <string.h>
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+namespace {
+
+// Zigzag position -> natural index; 16 more entries of 63 catch a corrupt
+// run length as libjpeg's jpeg_natural_order does.
+const int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+enum { kOk = 0, kBadCode = 1, kShortData = 2, kBadRestart = 3 };
+
+// The entropy-coded bytes from data[pos] to the next marker, with 0xFF 0x00
+// read as 0xFF; returns the marker's position, *n the bytes written.
+int64_t unstuff(const uint8_t* data, int64_t size, int64_t pos, uint8_t* out, int64_t* n) {
+  int64_t k = 0;
+  while (pos < size) {
+    const uint8_t b = data[pos];
+    if (b == 0xFF && pos + 1 < size) {
+      if (data[pos + 1] != 0) break;
+      out[k++] = 0xFF;
+      pos += 2;
+      continue;
+    }
+    out[k++] = b;
+    ++pos;
+  }
+  *n = k;
+  return pos;
+}
+
+// The 32 stream bits from bit p on, first bit highest (the buffer holds 8
+// zero bytes past its data).
+inline uint32_t peek32(const uint8_t* buf, int64_t p) {
+  const uint8_t* b = buf + (p >> 3);
+  const uint32_t w = (uint32_t)b[0] << 24 | (uint32_t)b[1] << 16 | (uint32_t)b[2] << 8 | b[3];
+  const uint32_t lo = b[4];
+  const int s = (int)(p & 7);
+  return s ? (w << s) | (lo >> (8 - s)) : w;
+}
+
+// The (length << 8 | symbol) of the code at bit p: from the 9-bit table
+// `fast` when the code is that short (most are), else from the full one.
+inline uint16_t lookup(const uint16_t* fast, const uint16_t* full, uint32_t bits) {
+  const uint16_t look = fast[bits >> 23];
+  return look ? look : full[bits >> 16];
+}
+
+// t bits from bit p as the JPEG "extend" rule reads a signed value.
+inline int receive_extend(const uint8_t* buf, int64_t p, int t) {
+  int v = (int)(peek32(buf, p) >> (32 - t));
+  if (v < (1 << (t - 1))) v -= (1 << t) - 1;
+  return v;
+}
+
+}  // namespace
+
+// Entropy-decode one scan. luts: 2 * ncomp tables of 65536 uint16 (the DC
+// tables of the scan's components, then their AC tables); info: per scan
+// component (block offset, blocks a row, blocks across an MCU, down an MCU).
+// A one-component scan walks the component's own blocks, mcux x mcuy of
+// them. restart: MCUs per restart interval, 0 for none. Returns 0, or the
+// error: 1 an invalid code, 2 data ending before the last block, 3 a
+// restart marker missing or out of order. buf: scratch of at least
+// size - start + 16 bytes, for the unstuffed data of an interval.
+extern "C" int sleap_jpeg_decode_scan(const uint8_t* data, int64_t size, int64_t start,
+                                      const uint16_t* luts, int ncomp, const int32_t* info,
+                                      int mcux, int mcuy, int restart, int16_t* coefs,
+                                      uint8_t* buf) {
+  const int64_t total = (int64_t)mcux * mcuy;
+  const int64_t interval = restart > 0 ? restart : total;
+  int64_t pos = start, mcu = 0, n_restarts = 0;
+  int err = kOk;
+  // 9-bit tables: the full table's entry where the code is at most 9 bits.
+  uint16_t fast[8][512];
+  for (int t = 0; t < 2 * ncomp && t < 8; ++t)
+    for (int j = 0; j < 512; ++j) {
+      const uint16_t look = luts[(int64_t)t * 65536 + (j << 7)];
+      fast[t][j] = (look >> 8) <= 9 ? look : 0;
+    }
+  while (err == kOk) {
+    int64_t n = 0;
+    const int64_t end = unstuff(data, size, pos, buf, &n);
+    memset(buf + n, 0, 16);
+    const int64_t n_bits = 8 * n;
+    int64_t p = 0;
+    int preds[4] = {0, 0, 0, 0};
+    const int64_t stop = mcu + interval < total ? mcu + interval : total;
+    for (; mcu < stop && err == kOk; ++mcu) {
+      const int64_t my = mcu / mcux, mx = mcu % mcux;
+      for (int s = 0; s < ncomp && err == kOk; ++s) {
+        const int32_t* ci = info + 4 * s;
+        const uint16_t* dc = luts + (int64_t)s * 65536;
+        const uint16_t* ac = luts + (int64_t)(ncomp + s) * 65536;
+        for (int by = 0; by < ci[3] && err == kOk; ++by) {
+          for (int bx = 0; bx < ci[2]; ++bx) {
+            int16_t* block = coefs + 64 * ((int64_t)ci[0] + (my * ci[3] + by) * ci[1]
+                                           + mx * ci[2] + bx);
+            uint16_t look = lookup(fast[s], dc, peek32(buf, p));
+            if (!look || (look & 0xFF) > 15) {
+              err = kBadCode;
+              break;
+            }
+            p += look >> 8;
+            const int t = look & 0xFF;
+            if (t) {
+              preds[s] += receive_extend(buf, p, t);
+              p += t;
+            }
+            block[0] = (int16_t)preds[s];
+            for (int k = 1; k < 64;) {
+              look = lookup(fast[ncomp + s], ac, peek32(buf, p));
+              if (!look) {
+                err = kBadCode;
+                break;
+              }
+              p += look >> 8;
+              const int r = (look >> 4) & 15, u = look & 15;
+              if (u) {
+                k += r;
+                block[kNatural[k]] = (int16_t)receive_extend(buf, p, u);
+                p += u;
+                ++k;
+              } else if (r == 15) {
+                k += 16;
+              } else {
+                break;
+              }
+            }
+            if (err) break;
+          }
+        }
+      }
+    }
+    if (err) break;
+    if (p > n_bits) {
+      err = kShortData;
+      break;
+    }
+    pos = end;
+    if (mcu == total) break;
+    // Restart: the next interval starts after RSTn, n counting 0..7.
+    while (pos + 1 < size && data[pos] == 0xFF && data[pos + 1] == 0xFF) ++pos;
+    if (pos + 1 >= size || data[pos] != 0xFF || data[pos + 1] != 0xD0 + (n_restarts % 8)) {
+      err = kBadRestart;
+      break;
+    }
+    pos += 2;
+    ++n_restarts;
+  }
+  return err;
+}
+
+#ifdef __CUDACC__
+
+namespace {
+
+constexpr int kBlocksPerCta = 32;  // 8x8 blocks per thread block, 8 threads each
+
+// One 1-D pass of jpeg_idct_islow on x[0..7] (JLONG arithmetic), descaled
+// by `shift` with rounding.
+__device__ __forceinline__ void idct_1d(const int64_t (&x)[8], int64_t (&o)[8], int shift) {
+  int64_t z1 = (x[2] + x[6]) * 4433;
+  const int64_t tmp2 = z1 - x[6] * 15137;
+  const int64_t tmp3 = z1 + x[2] * 6270;
+  const int64_t tmp0 = (x[0] + x[4]) * 8192;
+  const int64_t tmp1 = (x[0] - x[4]) * 8192;
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  int64_t t0 = x[7], t1 = x[5], t2 = x[3], t3 = x[1];
+  z1 = t0 + t3;
+  int64_t z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
+  const int64_t z5 = (z3 + z4) * 9633;
+  t0 *= 2446;
+  t1 *= 16819;
+  t2 *= 25172;
+  t3 *= 12299;
+  z1 *= -7373;
+  z2 *= -20995;
+  z3 = z3 * -16069 + z5;
+  z4 = z4 * -3196 + z5;
+  t0 += z1 + z3;
+  t1 += z2 + z4;
+  t2 += z2 + z3;
+  t3 += z1 + z4;
+  const int64_t half = (int64_t)1 << (shift - 1);
+  o[0] = (tmp10 + t3 + half) >> shift;
+  o[7] = (tmp10 - t3 + half) >> shift;
+  o[1] = (tmp11 + t2 + half) >> shift;
+  o[6] = (tmp11 - t2 + half) >> shift;
+  o[2] = (tmp12 + t1 + half) >> shift;
+  o[5] = (tmp12 - t1 + half) >> shift;
+  o[3] = (tmp13 + t0 + half) >> shift;
+  o[4] = (tmp13 - t0 + half) >> shift;
+}
+
+__global__ void __launch_bounds__(kBlocksPerCta * 8)
+jpeg_idct_kernel(const int16_t* __restrict__ coefs, int64_t blocks,
+                 const int32_t* __restrict__ quant, int64_t end0, int64_t end1,
+                 uint8_t* __restrict__ out) {
+  __shared__ int32_t ws[kBlocksPerCta][64];
+  const int local = threadIdx.x >> 3, lane = threadIdx.x & 7;
+  const int64_t b = (int64_t)blockIdx.x * kBlocksPerCta + local;
+  const bool live = b < blocks;
+  if (live) {
+    const int comp = b < end0 ? 0 : (b < end1 ? 1 : 2);
+    const int16_t* c = coefs + 64 * b;
+    const int32_t* q = quant + 64 * comp;
+    int64_t x[8], o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = (int64_t)c[8 * k + lane] * q[8 * k + lane];
+    idct_1d(x, o, 11);  // pass 1: column `lane`
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ws[local][8 * k + lane] = (int32_t)o[k];
+  }
+  __syncthreads();
+  if (live) {
+    int64_t x[8], o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = ws[local][8 * lane + k];
+    idct_1d(x, o, 18);  // pass 2: row `lane`
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      int64_t v = ((o[k] + 512) & 1023) - 512 + 128;  // the 10-bit range table
+      v = v < 0 ? 0 : (v > 255 ? 255 : v);
+      if (k < 4) lo |= (uint32_t)v << (8 * k);
+      else hi |= (uint32_t)v << (8 * (k - 4));
+    }
+    *reinterpret_cast<uint2*>(out + 64 * b + 8 * lane) = make_uint2(lo, hi);
+  }
+}
+
+struct Comp {
+  int offset, blocks_w, width, height, hs, vs;
+};
+
+__device__ __forceinline__ int sample(const uint8_t* __restrict__ s, const Comp& c, int y, int x) {
+  return s[64 * ((int64_t)c.offset + (int64_t)(y >> 3) * c.blocks_w + (x >> 3)) + 8 * (y & 7)
+           + (x & 7)];
+}
+
+// A chroma sample at output pixel (y, x), upsampled as libjpeg's fancy
+// upsamplers do; planes at most 2 samples wide are replicated, as
+// libjpeg-turbo's jinit_upsampler chooses.
+__device__ __forceinline__ int chroma(const uint8_t* __restrict__ s, const Comp& c, int y, int x) {
+  if (c.hs == 1) return sample(s, c, y, x);
+  if (c.width <= 2) return sample(s, c, y / c.vs, x >> 1);
+  const int cx = x >> 1, odd = x & 1;
+  const int nx = odd ? min(cx + 1, c.width - 1) : max(cx - 1, 0);
+  if (c.vs == 1) return (3 * sample(s, c, y, cx) + sample(s, c, y, nx) + 1 + odd) >> 2;
+  const int cy = y >> 1;
+  const int ny = (y & 1) ? min(cy + 1, c.height - 1) : max(cy - 1, 0);
+  const int here = 3 * sample(s, c, cy, cx) + sample(s, c, ny, cx);
+  const int next = 3 * sample(s, c, cy, nx) + sample(s, c, ny, nx);
+  return (3 * here + next + 8 - odd) >> 4;
+}
+
+__device__ __forceinline__ uint8_t clamp255(int v) {
+  return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+__global__ void jpeg_color_kernel(const uint8_t* __restrict__ s, int ncomp, int H, int W,
+                                  Comp c0, Comp c1, Comp c2, uint8_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)H * W) return;
+  const int y = (int)(i / W), x = (int)(i % W);
+  const int yv = sample(s, c0, y, x);
+  if (ncomp == 1) {
+    out[i] = (uint8_t)yv;
+    return;
+  }
+  const int cb = chroma(s, c1, y, x) - 128, cr = chroma(s, c2, y, x) - 128;
+  out[3 * i + 0] = clamp255(yv + ((116130 * cb + 32768) >> 16));
+  out[3 * i + 1] = clamp255(yv + ((-22554 * cb - 46802 * cr + 32768) >> 16));
+  out[3 * i + 2] = clamp255(yv + ((91881 * cr + 32768) >> 16));
+}
+
+}  // namespace
+
+// J1: (blocks, 64) int16 coefficients, (components, 64) int32 quant tables;
+// blocks below end0 are component 0, below end1 component 1, the rest 2.
+extern "C" int sleap_jpeg_idct(const void* coefs, int64_t blocks, const void* quant, int64_t end0,
+                               int64_t end1, void* out, void* stream) {
+  if (blocks <= 0) return 0;
+  const int64_t grid = (blocks + kBlocksPerCta - 1) / kBlocksPerCta;
+  jpeg_idct_kernel<<<(unsigned)grid, kBlocksPerCta * 8, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)coefs, blocks, (const int32_t*)quant, end0, end1, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// J2: the (blocks, 8, 8) samples of J1 -> (H, W) or (H, W, 3) BGR uint8. Per
+// component: block offset, blocks a row, downsampled width and height, and
+// the horizontal and vertical upsampling factors.
+extern "C" int sleap_jpeg_color(const void* samples, int ncomp, int H, int W,
+                                int o0, int b0, int w0, int h0, int hs0, int vs0,
+                                int o1, int b1, int w1, int h1, int hs1, int vs1,
+                                int o2, int b2, int w2, int h2, int hs2, int vs2,
+                                void* out, void* stream) {
+  const int64_t n = (int64_t)H * W;
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const Comp c0{o0, b0, w0, h0, hs0, vs0}, c1{o1, b1, w1, h1, hs1, vs1},
+      c2{o2, b2, w2, h2, hs2, vs2};
+  jpeg_color_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)samples, ncomp, H, W, c0, c1, c2, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+#endif  // __CUDACC__

@@ -1,0 +1,512 @@
+"""A loopbio ImgStore directory store of PNG frames, without ``cv2`` or
+``yaml``: a copy of :mod:`sleap_tpu.io.dirimgstore` on the port's PNG codec
+(:mod:`sleap_tpu_torch.io.png`; JPEG stores are read through
+:mod:`sleap_tpu_torch.io.jpeg`) and a reader and writer of the YAML subset
+``metadata.yaml`` holds.
+
+- ``new_for_filename(path)`` -> a store open for reading;
+- ``new_for_format(fmt, mode="w", basedir=..., imgshape=..., imgdtype=...,
+  chunksize=...)`` -> a store open for writing;
+- store methods: ``add_image``, ``get_image``, ``get_next_image``,
+  ``frame_count``, ``frame_min``, ``frame_max``, ``close``.
+
+On disk, as loopbio's ``DirectoryImgStore``::
+
+    basedir/
+      metadata.yaml          # {"__store": {class, format, chunksize, imgshape,
+                             #              imgdtype, version}}
+      000000/                # chunk 0
+        000000.png ...       # images, named by their index in the chunk
+        index.npz            # {"frame_number": [...], "frame_time": [...]}
+      000001/ ...
+
+``metadata.yaml`` is written as PyYAML's ``safe_dump`` writes it (block
+style, keys sorted). The reader takes block and flow mappings and
+sequences (flow ones across lines too), quoted and plain scalars, numbers,
+booleans and nulls, and comments: what loopbio's stores write. Anything else (anchors, tags,
+multi-line scalars) raises ``ValueError`` naming the line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from sleap_tpu_torch.io import jpeg, png
+
+STORE_MD_FILENAME = "metadata.yaml"
+_CHUNK_INDEX = "index.npz"
+
+
+# --------------------------------------------------------------------------- #
+# The YAML subset
+# --------------------------------------------------------------------------- #
+
+_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"[-+]?(\.[0-9]+|[0-9][0-9_]*(\.[0-9_]*)?)([eE][-+]?[0-9]+)?$")
+
+
+def _scalar(text: str, where: str) -> Any:
+    """A plain or quoted YAML scalar."""
+    text = text.strip()
+    if text[:1] == '"':
+        if not text.endswith('"') or len(text) < 2:
+            raise ValueError(f"{where}: unterminated double-quoted scalar.")
+        return json.loads(text)
+    if text[:1] == "'":
+        if not text.endswith("'") or len(text) < 2:
+            raise ValueError(f"{where}: unterminated single-quoted scalar.")
+        return text[1:-1].replace("''", "'")
+    if text[:1] in ("&", "*", "!", "|", ">", "%", "@", "`"):
+        raise ValueError(f"{where}: YAML {text[:1]!r} (anchors, tags, block scalars) is not supported.")
+    low = text.lower()
+    if low in ("", "~", "null"):
+        return None
+    if low in ("true", "false"):
+        return low == "true"
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if low in (".inf", "+.inf", "-.inf", ".nan"):
+        return float(low.replace(".", ""))
+    if _FLOAT.match(text) and any(ch.isdigit() for ch in text):
+        return float(text.replace("_", ""))
+    return text
+
+
+def _split_flow(body: str, where: str) -> List[str]:
+    """The comma-separated items of a flow collection's body, nested
+    brackets and quotes kept whole."""
+    items, depth, quote, start = [], 0, None, 0
+    for i, ch in enumerate(body):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            items.append(body[start:i])
+            start = i + 1
+    if quote or depth:
+        raise ValueError(f"{where}: unbalanced flow collection.")
+    items.append(body[start:])
+    return [item for item in items if item.strip()]
+
+
+def _value(text: str, where: str) -> Any:
+    """A scalar, or a flow sequence or mapping, on one line."""
+    text = text.strip()
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise ValueError(f"{where}: flow sequences must close on their line.")
+        return [_value(item, where) for item in _split_flow(text[1:-1], where)]
+    if text.startswith("{"):
+        if not text.endswith("}"):
+            raise ValueError(f"{where}: flow mappings must close on their line.")
+        out = {}
+        for item in _split_flow(text[1:-1], where):
+            key, sep, rest = _key_split(item)
+            if not sep:
+                raise ValueError(f"{where}: flow mapping item {item.strip()!r} has no key.")
+            out[_scalar(key, where)] = _value(rest, where)
+        return out
+    return _scalar(text, where)
+
+
+def _key_split(text: str) -> Tuple[str, str, str]:
+    """``key: rest`` at the first ": " (or a trailing ":") outside quotes."""
+    quote = None
+    for i, ch in enumerate(text):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == ":" and (i + 1 == len(text) or text[i + 1] in " \t"):
+            return text[:i], ":", text[i + 1:]
+        elif ch in "[{":
+            break
+    return text, "", ""
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _open_brackets(text: str) -> int:
+    """How many flow brackets ``text`` leaves open, outside quotes."""
+    depth, quote = 0, None
+    for ch in text:
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+    return depth
+
+
+def yaml_load(text: str) -> Any:
+    """Parse the YAML subset described in the module docstring."""
+    lines = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        if raw.strip() in ("---", "..."):
+            continue
+        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+            raise ValueError(f"line {n}: tabs in indentation are not YAML.")
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        if lines and _open_brackets(lines[-1][1]) > 0:  # a flow collection goes on
+            indent, head, where = lines[-1]
+            lines[-1] = (indent, head + " " + line.strip(), where)
+        else:
+            lines.append((len(line) - len(line.lstrip(" ")), line.strip(), f"line {n}"))
+    if not lines:
+        return None
+    value, end = _block(lines, 0, lines[0][0])
+    if end != len(lines):
+        raise ValueError(f"{lines[end][2]}: unexpected indentation.")
+    return value
+
+
+def _block(lines, i: int, indent: int) -> Tuple[Any, int]:
+    """The block collection (or lone scalar) whose lines start at ``i`` with
+    ``indent``; returns it and the index past it."""
+    _, text, where = lines[i]
+    if text == "-" or text.startswith("- "):
+        out = []
+        while i < len(lines) and lines[i][0] == indent and (
+                lines[i][1] == "-" or lines[i][1].startswith("- ")):
+            rest, where = lines[i][1][1:].strip(), lines[i][2]
+            i += 1
+            if rest:
+                key, sep, value = _key_split(rest)
+                if sep and not rest.startswith(("[", "{", '"', "'")):
+                    raise ValueError(f"{where}: mappings inside block sequences are not supported.")
+                out.append(_value(rest, where))
+            elif i < len(lines) and lines[i][0] > indent:
+                item, i = _block(lines, i, lines[i][0])
+                out.append(item)
+            else:
+                out.append(None)
+        return out, i
+    key, sep, _ = _key_split(text)
+    if not sep:
+        return _value(text, where), i + 1
+    out: Dict[Any, Any] = {}
+    while i < len(lines) and lines[i][0] == indent:
+        _, text, where = lines[i]
+        key, sep, rest = _key_split(text)
+        if not sep:
+            raise ValueError(f"{where}: expected 'key: value', found {text!r}.")
+        i += 1
+        if rest.strip():
+            out[_scalar(key, where)] = _value(rest, where)
+        elif i < len(lines) and (lines[i][0] > indent or (
+                lines[i][0] == indent and (lines[i][1] == "-" or lines[i][1].startswith("- ")))):
+            out[_scalar(key, where)], i = _block(lines, i, lines[i][0])
+        else:
+            out[_scalar(key, where)] = None
+    return out, i
+
+
+def _dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, (int, float)):
+        return repr(value)
+    text = str(value)
+    if text and _scalar(text, "") == text and not re.search(r"[:#,\[\]{}]|^[-?\s]|\s$", text):
+        return text
+    return "'" + text.replace("'", "''") + "'"
+
+
+def yaml_dump(value: Any, indent: int = 0) -> str:
+    """``yaml.safe_dump`` of nested dicts, lists and scalars: block style,
+    keys sorted, sequence items at their key's indentation."""
+    pad = " " * indent
+    if isinstance(value, dict):
+        out = ""
+        for key in sorted(value):
+            item = value[key]
+            if isinstance(item, dict) and item:
+                out += f"{pad}{_dump_scalar(key)}:\n" + yaml_dump(item, indent + 2)
+            elif isinstance(item, (list, tuple)) and item:
+                out += f"{pad}{_dump_scalar(key)}:\n" + yaml_dump(list(item), indent)
+            else:
+                empty = {} if isinstance(item, dict) else [] if isinstance(item, (list, tuple)) else None
+                text = "{}" if empty == {} else "[]" if empty == [] else _dump_scalar(item)
+                out += f"{pad}{_dump_scalar(key)}: {text}\n"
+        return out
+    if isinstance(value, list):
+        out = ""
+        for item in value:
+            if isinstance(item, (dict, list)) and item:
+                raise ValueError("yaml_dump writes sequences of scalars only.")
+            out += f"{pad}- {_dump_scalar(item)}\n"
+        return out
+    return f"{pad}{_dump_scalar(value)}\n"
+
+
+# --------------------------------------------------------------------------- #
+# The store
+# --------------------------------------------------------------------------- #
+
+
+def _chunk_dir(basedir: str, chunk_n: int) -> str:
+    return os.path.join(basedir, "%06d" % chunk_n)
+
+
+def _image_path(basedir: str, chunk_n: int, within_idx: int, ext: str) -> str:
+    return os.path.join(_chunk_dir(basedir, chunk_n), "%06d.%s" % (within_idx, ext))
+
+
+class DirectoryImgStore:
+    """Directory-of-PNGs frame store with loopbio's layout. Frames read are
+    decoded on ``device``'s route (:func:`sleap_tpu_torch.io.png.imdecode`)."""
+
+    def __init__(
+        self,
+        basedir: str,
+        mode: str,
+        imgshape: Optional[Tuple[int, ...]] = None,
+        imgdtype: str = "uint8",
+        chunksize: int = 200,
+        fmt: str = "png",
+        device="cuda",
+    ):
+        self.basedir = basedir
+        self.mode = mode
+        self.format = fmt
+        self.chunksize = int(chunksize)
+        self.imgshape = tuple(imgshape) if imgshape is not None else None
+        self.imgdtype = np.dtype(imgdtype).name
+        self.device = device
+        self._closed = False
+        # frame_number -> (chunk_n, within_idx); insertion order == store order
+        self._index: Dict[int, Tuple[int, int]] = {}
+        self._frame_times: Dict[int, float] = {}
+        self._cursor = 0  # store-order position for get_next_image
+
+        if mode == "w":
+            if fmt != "png":
+                raise NotImplementedError(
+                    f"Writing {fmt!r} image stores is not ported; the port writes PNG stores "
+                    "(JPEG encoding is ROADMAP.md queue 1, item 3d(2)).")
+            os.makedirs(basedir, exist_ok=True)
+            self._pending_numbers: List[int] = []
+            self._pending_times: List[float] = []
+            self._n_written = 0
+        elif mode == "r":
+            self._load()
+        else:
+            raise ValueError(f"Unsupported mode: {mode!r}")
+
+    # ------------------------------------------------------------------ write
+
+    def add_image(self, img: np.ndarray, frame_number: int, frame_time: float):
+        if self.mode != "w":
+            raise IOError("Store is not open for writing.")
+        img = np.asarray(img)
+        if self.imgshape is None:
+            self.imgshape = img.shape
+        chunk_n, within = divmod(self._n_written, self.chunksize)
+        os.makedirs(_chunk_dir(self.basedir, chunk_n), exist_ok=True)
+        out = img[..., 0] if (img.ndim == 3 and img.shape[-1] == 1) else img
+        _, buf = png.imencode(".png", out)
+        with open(_image_path(self.basedir, chunk_n, within, self.format), "wb") as fh:
+            fh.write(buf.tobytes())
+        self._pending_numbers.append(int(frame_number))
+        self._pending_times.append(float(frame_time))
+        self._index[int(frame_number)] = (chunk_n, within)
+        self._frame_times[int(frame_number)] = float(frame_time)
+        self._n_written += 1
+        if within == self.chunksize - 1:
+            self._flush_chunk_index(chunk_n)
+
+    def _flush_chunk_index(self, chunk_n: int):
+        start = chunk_n * self.chunksize
+        numbers = self._pending_numbers[start : start + self.chunksize]
+        times = self._pending_times[start : start + self.chunksize]
+        if numbers:
+            np.savez(
+                os.path.join(_chunk_dir(self.basedir, chunk_n), _CHUNK_INDEX),
+                frame_number=np.asarray(numbers, dtype=np.int64),
+                frame_time=np.asarray(times, dtype=np.float64),
+            )
+
+    def _write_metadata(self):
+        md = {
+            "__store": {
+                "class": "DirectoryImgStore",
+                "version": 1,
+                "format": self.format,
+                "chunksize": self.chunksize,
+                "imgshape": [int(n) for n in self.imgshape or ()],
+                "imgdtype": self.imgdtype,
+            }
+        }
+        with open(os.path.join(self.basedir, STORE_MD_FILENAME), "w") as f:
+            f.write(yaml_dump(md))
+
+    # ------------------------------------------------------------------- read
+
+    def _load(self):
+        with open(os.path.join(self.basedir, STORE_MD_FILENAME)) as f:
+            md = yaml_load(f.read())
+        if not isinstance(md, dict) or not isinstance(md.get("__store"), dict):
+            raise ValueError(f"{self.basedir}: {STORE_MD_FILENAME} has no __store mapping.")
+        md = md["__store"]
+        if md.get("class", "DirectoryImgStore") != "DirectoryImgStore":
+            raise NotImplementedError(
+                f"{self.basedir}: {md['class']} stores (frames in video-file chunks) are not "
+                "ported (ROADMAP.md, queue 1, item 3d(2)); directory stores of PNG or JPEG frames "
+                "are.")
+        self.format = md["format"]
+        self.chunksize = int(md["chunksize"])
+        self.imgshape = tuple(md.get("imgshape") or ())
+        self.imgdtype = md.get("imgdtype", "uint8")
+        chunk_n = 0
+        while True:
+            index_path = os.path.join(_chunk_dir(self.basedir, chunk_n), _CHUNK_INDEX)
+            if not os.path.exists(index_path):
+                break
+            with np.load(index_path) as idx:
+                for within, (fn, ft) in enumerate(
+                    zip(idx["frame_number"], idx["frame_time"])
+                ):
+                    self._index[int(fn)] = (chunk_n, within)
+                    self._frame_times[int(fn)] = float(ft)
+            chunk_n += 1
+        if not self._index:
+            raise IOError(f"Empty or unreadable image store: {self.basedir}")
+
+    def _read(self, frame_number: int) -> Tuple[np.ndarray, Tuple[int, float]]:
+        chunk_n, within = self._index[frame_number]
+        path = _image_path(self.basedir, chunk_n, within, self.format)
+        try:
+            with open(path, "rb") as fh:
+                data = fh.read()
+        except OSError as e:
+            raise IOError(f"Unable to read stored frame: {path}") from e
+        if self.format == "png":
+            img = png.imdecode(data, self.device)
+        elif self.format in ("jpg", "jpeg"):
+            img = jpeg.imdecode(data, self.device)
+        else:
+            raise NotImplementedError(f"{path}: {self.format!r} image stores are not supported "
+                                      "(PNG and JPEG only).")
+        if self.imgshape and len(self.imgshape) == 3 and img.ndim == 2:
+            img = img[..., None]
+        return img, (frame_number, self._frame_times[frame_number])
+
+    def get_image(
+        self, frame_number: Optional[int] = None, frame_index: Optional[int] = None
+    ) -> Tuple[np.ndarray, Tuple[int, float]]:
+        """Fetch by original frame number, or by position in the store."""
+        if frame_number is None:
+            if frame_index is None:
+                raise ValueError("Provide frame_number or frame_index.")
+            numbers = list(self._index)
+            if not -len(numbers) <= frame_index < len(numbers):
+                raise ValueError(
+                    f"Frame index {frame_index} out of range "
+                    f"(store holds {len(numbers)} frames)."
+                )
+            frame_number = numbers[frame_index]
+        elif frame_number not in self._index:
+            raise ValueError(f"Frame number {frame_number} not in store.")
+        img, meta = self._read(int(frame_number))
+        self._cursor = list(self._index).index(int(frame_number)) + 1
+        return img, meta
+
+    def get_next_image(self) -> Tuple[np.ndarray, Tuple[int, float]]:
+        numbers = list(self._index)
+        if self._cursor >= len(numbers):
+            self._cursor = 0
+        img, meta = self._read(numbers[self._cursor])
+        self._cursor += 1
+        return img, meta
+
+    # ------------------------------------------------------------------ props
+
+    @property
+    def frame_count(self) -> int:
+        return len(self._index) if self.mode == "r" else self._n_written
+
+    @property
+    def frame_min(self) -> int:
+        return min(self._index) if self._index else 0
+
+    @property
+    def frame_max(self) -> int:
+        return max(self._index) if self._index else 0
+
+    def close(self):
+        if self._closed:
+            return
+        if self.mode == "w":
+            last_chunk = max((self._n_written - 1) // self.chunksize, 0)
+            self._flush_chunk_index(last_chunk)
+            self._write_metadata()
+        self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def new_for_filename(path: str, device="cuda") -> DirectoryImgStore:
+    """Open an existing store from its directory or metadata.yaml path;
+    frames decode on ``device``'s route."""
+    basedir = path[: -len(STORE_MD_FILENAME)].rstrip("/\\") if path.endswith(
+        STORE_MD_FILENAME
+    ) else path
+    return DirectoryImgStore(basedir=basedir, mode="r", device=device)
+
+
+def new_for_format(
+    fmt: str,
+    mode: str = "w",
+    basedir: str = "",
+    imgshape: Optional[Tuple[int, ...]] = None,
+    imgdtype: str = "uint8",
+    chunksize: int = 200,
+    **_unused,
+) -> DirectoryImgStore:
+    """Create a new write-mode store. Only image (per-frame file) formats are
+    supported; video formats like ``mjpeg/avi`` fall back to ``png``."""
+    if "/" in fmt:  # video container formats are not supported by the fallback
+        fmt = "png"
+    return DirectoryImgStore(
+        basedir=basedir,
+        mode=mode,
+        imgshape=imgshape,
+        imgdtype=imgdtype,
+        chunksize=chunksize,
+        fmt=fmt,
+    )

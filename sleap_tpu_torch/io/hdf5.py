@@ -25,11 +25,18 @@ raises :class:`UnsupportedFeature`, which names the feature and the file.
 The API is h5py's, cut down: ``File(path)``, ``f[name]``, ``.attrs``,
 ``ds[...]``, ``ds.shape``, ``ds.dtype``, ``in``, ``keys()``.
 
-Writer (:class:`Writer`): what ``write_labels`` writes, laid out as h5py's
-``libver="earliest"`` lays it out: superblock version 0, symbol-table
-groups (nested too), contiguous uncompressed datasets of numeric, ``bool``
-(an ``int8`` enum), compound and fixed-length string types (empty ones with
-an undefined address), and attributes of those types.
+Writer (:class:`Writer`): what ``write_labels`` and the frame exporters
+write, laid out as h5py's ``libver="earliest"`` lays it out: superblock
+version 0, symbol-table groups (nested too), datasets of numeric, ``bool``
+(an ``int8`` enum), compound and fixed-length string types, and attributes
+of those types. A dataset is contiguous and uncompressed (empty ones with an
+undefined address), or, with ``compression="gzip"``, chunked (layout
+message version 3, a version 1 B-tree chunk index of node type 1) and
+deflated through a filter pipeline. The default chunk is one row of the
+first axis, grouped to at least 64 KiB where rows are smaller: one encoded
+frame or one raw frame a chunk, so a reader inflates one frame at a time.
+``Writer(path, "a")`` reads the file there first (within the reader's
+subset: no variable-length strings) and writes it again with what is added.
 """
 
 from __future__ import annotations
@@ -730,6 +737,7 @@ class Dataset:
 
 _UNDEF = (1 << 64) - 1
 _LEAF_K, _INTERNAL_K = 4, 16  # h5py's group B-tree parameters
+_CHUNK_K = 32  # HDF5's chunk B-tree K, fixed for superblock version 0
 _SNOD_SIZE = 8 + 2 * _LEAF_K * 40
 _TREE_SIZE = 24 + (2 * _INTERNAL_K + 1) * 8 + 2 * _INTERNAL_K * 8
 
@@ -806,28 +814,82 @@ class WritableGroup:
         parent, leaf = self._parent_of(name)
         return parent.children.setdefault(leaf, WritableGroup())
 
-    def create_dataset(self, name: str, data: np.ndarray) -> "WritableDataset":
+    def create_dataset(self, name: str, data: Optional[np.ndarray] = None, shape=None, dtype=None,
+                       compression: Optional[str] = "gzip", compression_opts: Optional[int] = 4,
+                       chunks: Optional[Tuple[int, ...]] = None) -> "WritableDataset":
+        """A dataset of ``data``, or of zeros of ``shape`` and ``dtype`` to
+        fill by assignment. ``compression`` "gzip" (deflate at level
+        ``compression_opts``) or ``chunks`` make it chunked; ``None`` and no
+        chunks, contiguous."""
         parent, leaf = self._parent_of(name)
         if leaf in parent.children:
             raise ValueError(f"{name!r} already exists.")
-        _encode_dtype(np.asarray(data).dtype)  # fail now on an unwritable dtype
-        parent.children[leaf] = WritableDataset(np.ascontiguousarray(data))
+        if compression not in (None, "gzip"):
+            raise ValueError(f"Compression {compression!r} is not supported (gzip or None).")
+        if data is None:
+            if shape is None:
+                raise ValueError(f"{name!r}: give data, or a shape and dtype.")
+            data = np.zeros(shape, np.dtype(dtype if dtype is not None else "f4"))
+        else:
+            data = np.asarray(data, dtype=dtype)
+            if shape is not None and tuple(shape) != data.shape:
+                raise ValueError(f"{name!r}: data of shape {data.shape} given for shape {tuple(shape)}.")
+        _encode_dtype(data.dtype)  # fail now on an unwritable dtype
+        level = (4 if compression_opts is None else int(compression_opts)) if compression else None
+        parent.children[leaf] = WritableDataset(np.ascontiguousarray(data), level, chunks)
         return parent.children[leaf]
 
 
+def _default_chunks(shape: Tuple[int, ...], itemsize: int) -> Tuple[int, ...]:
+    """One row of the first axis, or as many as make 64 KiB where rows are
+    smaller."""
+    row = itemsize * int(np.prod(shape[1:], dtype=np.int64))
+    rows = max(1, min(shape[0], (64 << 10) // max(row, 1)))
+    return (rows,) + tuple(max(1, n) for n in shape[1:])
+
+
 class WritableDataset:
-    def __init__(self, data: np.ndarray):
+    """A dataset being built by :class:`Writer`: ``ds[...] = values``
+    assigns into its array (as ``dset[i, :n] = row``)."""
+
+    def __init__(self, data: np.ndarray, level: Optional[int] = None,
+                 chunks: Optional[Tuple[int, ...]] = None):
         self.data = data
         self.attrs: Dict[str, Any] = {}
+        self.level = level
+        chunked = (level is not None or chunks is not None) and data.size > 0 and data.ndim > 0
+        if chunked and chunks is None:
+            chunks = _default_chunks(data.shape, data.dtype.itemsize)
+        if chunked and (len(chunks) != data.ndim or min(chunks) < 1):
+            raise ValueError(f"Chunks {chunks} do not fit a dataset of shape {data.shape}.")
+        self.chunks = tuple(int(c) for c in chunks) if chunked else None
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.data.shape
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self.data.dtype
+
+    def __setitem__(self, key, value) -> None:
+        self.data[key] = value
 
 
 class Writer(WritableGroup):
     """Builds an HDF5 file in memory and writes it on ``close`` (or on
-    leaving a ``with`` block without an exception): the root group."""
+    leaving a ``with`` block without an exception): the root group. Mode
+    "w" starts empty; "a" starts from the file at ``path`` where there is
+    one."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, mode: str = "w"):
         super().__init__()
+        if mode not in ("w", "a"):
+            raise ValueError(f"Writer mode {mode!r} is not supported ('w' or 'a').")
         self.filename = str(path)
+        if mode == "a" and os.path.exists(self.filename):
+            with File(self.filename) as f:
+                _copy_group(f, self)
 
     def __enter__(self) -> "Writer":
         return self
@@ -877,6 +939,8 @@ class Writer(WritableGroup):
 
     def _write_dataset(self, ds: WritableDataset) -> int:
         data = ds.data
+        if ds.chunks is not None:
+            return self._write_chunked(ds)
         if data.nbytes:
             addr = self._reserve(data.nbytes)
             self._blocks.append((addr, memoryview(data.reshape(-1).view(np.uint8))))
@@ -888,6 +952,70 @@ class Writer(WritableGroup):
             _message(_FILL, struct.pack("<4B", 2, 2, 2, 0)),  # late, if set, undefined
             _message(_LAYOUT, struct.pack("<BBQQ", 3, 1, addr, data.nbytes)),
         ]
+        return self._object_header(messages + self._attribute_messages(ds.attrs))
+
+    def _write_chunked(self, ds: WritableDataset) -> int:
+        """Chunks (deflated where the dataset has a level), indexed by a
+        version 1 B-tree of node type 1, as HDF5 writes them: each key the
+        chunk's stored size, filter mask and offsets (plus a 0 for the
+        element), the last key past the last chunk."""
+        data, chunks = ds.data, ds.chunks
+        rank = data.ndim
+        grid = [range(0, n, c) for n, c in zip(data.shape, chunks)]
+        entries = []  # (offsets, size, address), in the order of the offsets
+        for offsets in np.ndindex(*[len(g) for g in grid]):
+            start = tuple(g[i] for g, i in zip(grid, offsets))
+            block = data[tuple(slice(o, o + c) for o, c in zip(start, chunks))]
+            if block.shape != chunks:  # an edge chunk is stored whole, zero-filled
+                full = np.zeros(chunks, data.dtype)
+                full[tuple(slice(0, n) for n in block.shape)] = block
+                block = full
+            raw = np.ascontiguousarray(block).tobytes()
+            if ds.level is not None:
+                raw = zlib.compress(raw, ds.level)
+            addr = self._reserve(len(raw))
+            self._blocks.append((addr, raw))
+            entries.append((start, len(raw), addr))
+        key_size = 8 + 8 * (rank + 1)
+        node_size = 24 + (2 * _CHUNK_K + 1) * key_size + 2 * _CHUNK_K * 8
+
+        def key(offsets, size=0):
+            return struct.pack("<II", size, 0) + struct.pack(f"<{rank + 1}Q", *offsets, 0)
+
+        last = entries[-1][0]
+        end_key = key((last[0] + chunks[0],) + tuple(last[1:]))
+        # Leaves hold (first key, child, size) runs; internal levels key each
+        # child node by its first key.
+        level = [(key(o, size), addr) for o, size, addr in entries]
+        depth = 0
+        while True:
+            groups = [level[i:i + 2 * _CHUNK_K] for i in range(0, len(level), 2 * _CHUNK_K)]
+            addrs = [self._reserve(node_size) for _ in groups]
+            nodes = []
+            for n, children in enumerate(groups):
+                left = addrs[n - 1] if n else _UNDEF
+                right = addrs[n + 1] if n + 1 < len(addrs) else _UNDEF
+                block = bytearray(b"TREE" + struct.pack("<BBHQQ", 1, depth, len(children), left, right))
+                for k, child in children:
+                    block += k + struct.pack("<Q", child)
+                block += groups[n + 1][0][0] if n + 1 < len(groups) else end_key
+                self._blocks.append((addrs[n], bytes(block.ljust(node_size, b"\0"))))
+                nodes.append((children[0][0], addrs[n]))
+            if len(nodes) == 1:
+                btree = nodes[0][1]
+                break
+            level, depth = nodes, depth + 1
+        layout = struct.pack("<BBBQ", 3, 2, rank + 1, btree)
+        layout += struct.pack(f"<{rank + 1}I", *chunks, data.dtype.itemsize)
+        messages = [
+            _message(_DATASPACE, _encode_dataspace(data.shape)),
+            _message(_DATATYPE, _encode_dtype(data.dtype)),
+            _message(_FILL, struct.pack("<4B", 2, 3, 2, 0)),  # incremental, if set, undefined
+            _message(_LAYOUT, layout),
+        ]
+        if ds.level is not None:  # deflate, optional, one value: the level; padded to 8 bytes
+            pipeline = struct.pack("<BB6x", 1, 1) + struct.pack("<HHHH", 1, 0, 1, 1)
+            messages.append(_message(_FILTERS, pipeline + struct.pack("<I4x", ds.level)))
         return self._object_header(messages + self._attribute_messages(ds.attrs))
 
     def _write_group(self, group: WritableGroup) -> Tuple[int, Tuple[int, int]]:
@@ -946,3 +1074,21 @@ class Writer(WritableGroup):
 
         messages = [_message(_SYMBOL_TABLE, struct.pack("<QQ", btree, heap_addr))]
         return self._object_header(messages + self._attribute_messages(group.attrs)), (btree, heap_addr)
+
+
+def _copy_group(src: Group, dst: WritableGroup) -> None:
+    """Everything under ``src`` (a read group) into ``dst``: subgroups,
+    datasets with their chunking and deflate level, and attributes."""
+    dst.attrs.update(src.attrs)
+    for name in src.keys():
+        obj = src[name]
+        if isinstance(obj, Group):
+            _copy_group(obj, dst.require_group(name))
+            continue
+        if isinstance(obj.dtype, VlenStr):
+            raise obj.file._fail(f"rewriting variable-length strings ({obj.name})")
+        data = obj[()] if obj.shape == () else obj[...]
+        levels = [values[0] if values else 4 for fid, values in obj.filters if fid == 1]
+        ds = dst.create_dataset(name, data=data, compression="gzip" if levels else None,
+                                compression_opts=levels[0] if levels else None, chunks=obj.chunks)
+        ds.attrs.update(obj.attrs)

@@ -1,0 +1,688 @@
+"""Decode JPEG images from bytes as ``cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)``
+decodes them with libjpeg-turbo's defaults, bit for bit: the port's reader of
+the JPEG frames of ``.pkg.slp`` files and image folders, where ``cv2`` is not
+installed.
+
+Scope: baseline and extended-sequential Huffman JPEGs (SOF0, SOF1), 8-bit,
+one component (gray, returned (H, W)) or three (YCbCr, returned (H, W, 3)
+in BGR order), sampled 4:4:4, 4:2:2 or 4:2:0, with restart intervals,
+optimised Huffman tables, several scans and sizes that are no multiple of
+the MCU. Anything else (progressive SOF2, lossless, hierarchical or
+arithmetic-coded frames, 12-bit samples, CMYK, Adobe's RGB transform, other
+samplings) raises :class:`UnsupportedJpeg` naming the feature.
+
+A decode has four stages, each as libjpeg-turbo does it:
+
+1. markers and Huffman entropy decoding into de-zigzagged int16 coefficients
+   (byte stuffing; a restart marker resets the DC predictions);
+2. dequantisation and the integer inverse DCT of ``jidctint.c``
+   (``jpeg_idct_islow``: CONST_BITS 13, PASS1_BITS 2, 64-bit sums, +128 and
+   the post-IDCT range limit);
+3. "fancy" chroma upsampling (``jdsample.c``: ``h2v1_fancy_upsample``, the
+   3:1 triangle with rounding 1/2, and ``h2v2_fancy_upsample``, the 3:1
+   triangle on both axes with rounding 8/7; edge samples replicated), or
+   plain replication where the chroma plane is at most 2 samples wide;
+4. the integer YCbCr -> BGR tables of ``jdcolor.c`` (SCALEBITS 16).
+
+Two routes, by the ``device`` asked for:
+
+- ``"cpu"``: the plain version. Stage 1 in Python (slow: about a second for
+  a 1024^2 frame), stages 2-4 in PyTorch integer tensor code.
+- ``"cuda"``: stage 1 in host C (``sleap_jpeg_decode_scan`` in
+  ``csrc/jpeg.cu``) into a pinned buffer, one copy to the card, then
+  ``jpeg_idct_kernel`` (J1, stage 2) and ``jpeg_color_kernel`` (J2, stages 3
+  and 4), and the frame back to the host as numpy. A failed build or launch
+  raises; there is no fallback to the plain version.
+
+No TPU kernel has a counterpart here: the JAX package decodes with cv2 on
+the host (``sleap_tpu/io/video.py``, ``HDF5Video.get_frame``).
+"""
+
+from __future__ import annotations
+
+import functools
+import struct
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+# Zigzag position k -> natural (row-major) index, with 16 entries of 63
+# after the end, as libjpeg's ``jpeg_natural_order``, so a corrupt run
+# length lands on the last coefficient instead of past the block.
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+] + [63] * 16, np.int32)
+
+_SOF_NAMES = {
+    0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+    0xC5: "differential sequential JPEG (SOF5)", 0xC6: "differential progressive JPEG (SOF6)",
+    0xC7: "differential lossless JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
+    0xCA: "arithmetic-coded progressive JPEG (SOF10)", 0xCB: "arithmetic-coded lossless JPEG (SOF11)",
+    0xCD: "arithmetic-coded differential JPEG (SOF13)",
+    0xCE: "arithmetic-coded differential progressive JPEG (SOF14)",
+    0xCF: "arithmetic-coded differential lossless JPEG (SOF15)",
+}
+
+
+class UnsupportedJpeg(ValueError):
+    """The stream uses a JPEG feature outside the subset this module decodes."""
+
+
+@dataclass
+class Component:
+    """A frame component: its sampling factors and quantisation table, its
+    size after downsampling (``width`` x ``height`` samples, libjpeg's
+    ``downsampled_width``/``height``), and its coefficient blocks, padded
+    to whole MCUs, at block ``offset`` of the frame's coefficient buffer."""
+
+    ident: int
+    h: int
+    v: int
+    tq: int
+    width: int = 0
+    height: int = 0
+    blocks_w: int = 0
+    blocks_h: int = 0
+    offset: int = 0
+
+
+@dataclass
+class Scan:
+    """A scan: the components it codes (indices into the frame's), their DC
+    and AC tables, where its entropy-coded data starts, and the restart
+    interval in force."""
+
+    comps: List[int]
+    dc: List[int]
+    ac: List[int]
+    start: int
+    restart: int
+
+
+@dataclass
+class Header:
+    """What the markers say: the frame size, components, quantisation
+    tables latched per component (natural order), Huffman lookup tables and
+    the scans."""
+
+    height: int
+    width: int
+    components: List[Component]
+    quant: np.ndarray  # (components, 64) uint16
+    tables: Dict[Tuple[int, int], np.ndarray]  # (class, id) -> 65536 uint16 lookups
+    scans: List[Scan]
+
+    @property
+    def blocks(self) -> int:
+        return sum(c.blocks_w * c.blocks_h for c in self.components)
+
+    @property
+    def hmax(self) -> int:
+        return max(c.h for c in self.components)
+
+    @property
+    def vmax(self) -> int:
+        return max(c.v for c in self.components)
+
+
+def huffman_lookup(counts: bytes, values: bytes) -> np.ndarray:
+    """A table of 65536 entries indexed by the next 16 bits of the stream:
+    ``length << 8 | symbol`` of the code they start with, 0 where none does."""
+    table = np.zeros(1 << 16, np.uint16)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            if code >= (1 << length):
+                raise ValueError("JPEG Huffman table has more codes than its lengths allow.")
+            lo = code << (16 - length)
+            table[lo:lo + (1 << (16 - length))] = (length << 8) | values[k]
+            code, k = code + 1, k + 1
+        code <<= 1
+    return table
+
+
+def _segment(data: bytes, pos: int) -> Tuple[bytes, int]:
+    """The entropy-coded bytes from ``pos`` to the next marker, unstuffed
+    (0xFF 0x00 -> 0xFF), and the marker's position."""
+    i = pos
+    while True:
+        i = data.find(b"\xff", i)
+        if i < 0 or i + 1 >= len(data):
+            end = len(data)
+            break
+        if data[i + 1] == 0:
+            i += 2
+            continue
+        end = i
+        break
+    return data[pos:end].replace(b"\xff\x00", b"\xff"), end
+
+
+def _skip_restart(data: bytes, pos: int, expect: int) -> int:
+    """Past the restart marker RST``expect`` at ``pos`` (after fill bytes)."""
+    while pos + 1 < len(data) and data[pos] == 0xFF and data[pos + 1] == 0xFF:
+        pos += 1
+    if pos + 1 >= len(data) or data[pos] != 0xFF or data[pos + 1] != 0xD0 + expect:
+        found = data[pos + 1] if pos + 1 < len(data) else None
+        raise ValueError(f"JPEG restart marker RST{expect} expected, found "
+                         f"{'end of data' if found is None else hex(found)}.")
+    return pos + 2
+
+
+def parse(data: bytes) -> Header:
+    """Read the markers of a JPEG stream; raise :class:`UnsupportedJpeg` for
+    a feature outside the subset, ``ValueError`` for a malformed stream."""
+    data = bytes(data)
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("Not a JPEG stream (no SOI marker).")
+    pos, quant_tables, tables = 2, {}, {}
+    components: List[Component] = []
+    scans: List[Scan] = []
+    latched: Dict[int, np.ndarray] = {}
+    size, restart, adobe_transform = None, 0, None
+    while True:
+        while pos < len(data) and data[pos] != 0xFF:
+            pos += 1  # garbage between markers, as libjpeg skips it
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data):
+            raise ValueError("JPEG stream ends before its EOI marker.")
+        marker = data[pos]
+        pos += 1
+        if marker == 0xD9:  # EOI
+            break
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            continue
+        (length,) = struct.unpack_from(">H", data, pos)
+        body = data[pos + 2:pos + length]
+        if len(body) != length - 2:
+            raise ValueError("JPEG marker segment is truncated.")
+        pos += length
+        if marker in (0xC0, 0xC1):
+            precision, height, width, n = struct.unpack_from(">BHHB", body)
+            if precision != 8:
+                raise UnsupportedJpeg(f"{precision}-bit JPEG samples are not supported (8-bit only).")
+            if n == 4:
+                raise UnsupportedJpeg("CMYK (4-component) JPEGs are not supported.")
+            if n not in (1, 3):
+                raise UnsupportedJpeg(f"JPEGs of {n} components are not supported (1 or 3).")
+            if height == 0:
+                raise UnsupportedJpeg("JPEGs whose height is set by a DNL marker are not supported.")
+            size = (height, width)
+            for i in range(n):
+                ident, hv, tq = body[6 + 3 * i:9 + 3 * i]
+                components.append(Component(ident, hv >> 4, hv & 15, tq))
+        elif marker in _SOF_NAMES:
+            raise UnsupportedJpeg(f"{_SOF_NAMES[marker]} is not supported "
+                                  "(baseline and extended sequential Huffman only).")
+        elif marker == 0xCC:
+            raise UnsupportedJpeg("arithmetic coding (DAC marker) is not supported.")
+        elif marker == 0xDB:  # DQT
+            p = 0
+            while p < len(body):
+                pq, tq = body[p] >> 4, body[p] & 15
+                if pq:
+                    values = np.frombuffer(body, ">u2", 64, p + 1).astype(np.uint16)
+                    p += 129
+                else:
+                    values = np.frombuffer(body, np.uint8, 64, p + 1).astype(np.uint16)
+                    p += 65
+                table = np.empty(64, np.uint16)
+                table[ZIGZAG[:64]] = values
+                quant_tables[tq] = table
+        elif marker == 0xC4:  # DHT
+            p = 0
+            while p < len(body):
+                tc, th = body[p] >> 4, body[p] & 15
+                counts = body[p + 1:p + 17]
+                total = sum(counts)
+                tables[(tc, th)] = huffman_lookup(counts, body[p + 17:p + 17 + total])
+                p += 17 + total
+        elif marker == 0xDD:  # DRI
+            (restart,) = struct.unpack_from(">H", body)
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe_transform = body[11]
+        elif marker == 0xDC:
+            raise UnsupportedJpeg("JPEGs with a DNL marker are not supported.")
+        elif marker == 0xDA:  # SOS
+            if size is None:
+                raise ValueError("JPEG scan before its frame header.")
+            if not scans:
+                _layout(size, components, adobe_transform)
+            n = body[0]
+            idents = [c.ident for c in components]
+            comps, dc, ac = [], [], []
+            for i in range(n):
+                cs, td_ta = body[1 + 2 * i:3 + 2 * i]
+                if cs not in idents:
+                    raise ValueError(f"JPEG scan names component {cs}, which the frame lacks.")
+                comps.append(idents.index(cs))
+                dc.append(td_ta >> 4)
+                ac.append(td_ta & 15)
+            ss, se, ahal = body[1 + 2 * n:4 + 2 * n]
+            if (ss, se, ahal) != (0, 63, 0):
+                raise UnsupportedJpeg("progressive or spectral-selection scans are not supported.")
+            for ci, d, a in zip(comps, dc, ac):
+                for key in ((0, d), (1, a)):
+                    if key not in tables:
+                        raise ValueError(f"JPEG scan uses Huffman table {key}, never defined.")
+                if ci not in latched:  # libjpeg latches a table at the component's first scan
+                    tq = components[ci].tq
+                    if tq not in quant_tables:
+                        raise ValueError(f"JPEG component uses quantisation table {tq}, never defined.")
+                    latched[ci] = quant_tables[tq].copy()
+            scans.append(Scan(comps, dc, ac, pos, restart))
+            pos = _segment_end(data, pos)
+        # APPn, COM and the rest carry nothing the decode needs.
+    if size is None or not scans:
+        raise ValueError("JPEG stream has no frame or no scan.")
+    if len(latched) != len(components):
+        raise ValueError("JPEG stream leaves a component without a scan.")
+    quant = np.stack([latched[i] for i in range(len(components))])
+    return Header(size[0], size[1], components, quant, tables, scans)
+
+
+def _segment_end(data: bytes, pos: int) -> int:
+    """Where a scan's entropy-coded data (restart markers included) ends."""
+    i = pos
+    while True:
+        i = data.find(b"\xff", i)
+        if i < 0 or i + 1 >= len(data):
+            return len(data)
+        nxt = data[i + 1]
+        if nxt == 0 or 0xD0 <= nxt <= 0xD7 or nxt == 0xFF:
+            i += 1 if nxt == 0xFF else 2
+            continue
+        return i
+
+
+def _layout(size, components: List[Component], adobe_transform) -> None:
+    """Check the sampling and set each component's downsampled size and
+    block layout (libjpeg's ``downsampled_width`` and MCU padding)."""
+    height, width = size
+    if len(components) == 3:
+        if adobe_transform == 0:
+            raise UnsupportedJpeg("Adobe's RGB transform (APP14 transform 0) is not supported.")
+        if adobe_transform is None and [c.ident for c in components] == [82, 71, 66]:
+            raise UnsupportedJpeg("RGB JPEGs (component ids 'R', 'G', 'B') are not supported.")
+    hmax = max(c.h for c in components)
+    vmax = max(c.v for c in components)
+    if len(components) == 3:
+        y, cb, cr = components
+        ratios = {(hmax // c.h, vmax // c.v) for c in (cb, cr)}
+        if ((y.h, y.v) != (hmax, vmax) or any(hmax % c.h or vmax % c.v for c in (cb, cr))
+                or not ratios <= {(1, 1), (2, 1), (2, 2)}):
+            samplings = "x".join(f"{c.h}{c.v}" for c in components)
+            raise UnsupportedJpeg(f"JPEG sampling {samplings} is not supported "
+                                  "(4:4:4, 4:2:2 and 4:2:0 only).")
+    mcux = -(-width // (8 * hmax))
+    mcuy = -(-height // (8 * vmax))
+    offset = 0
+    for c in components:
+        if len(components) == 1:
+            c.h = c.v = 1  # a lone component is one block an MCU, whatever it declares
+            hmax = vmax = 1
+        c.width = -(-width * c.h // hmax)
+        c.height = -(-height * c.v // vmax)
+        c.blocks_w = mcux * c.h if len(components) > 1 else -(-c.width // 8)
+        c.blocks_h = mcuy * c.v if len(components) > 1 else -(-c.height // 8)
+        c.offset = offset
+        offset += c.blocks_w * c.blocks_h
+
+
+def _scan_geometry(header: Header, scan: Scan):
+    """(MCUs across, MCUs down, per scan component (blocks across an MCU,
+    down an MCU)): an interleaved scan walks whole MCUs, a one-component
+    scan walks that component's own blocks."""
+    if len(scan.comps) == 1:
+        c = header.components[scan.comps[0]]
+        return -(-c.width // 8), -(-c.height // 8), [(1, 1)]
+    hmax, vmax = header.hmax, header.vmax
+    mcux = -(-header.width // (8 * hmax))
+    mcuy = -(-header.height // (8 * vmax))
+    return mcux, mcuy, [(header.components[i].h, header.components[i].v) for i in scan.comps]
+
+
+# --------------------------------------------------------------------------- #
+# Stage 1, plain: Huffman decoding in Python
+# --------------------------------------------------------------------------- #
+
+
+def decode_scan_plain(data: bytes, header: Header, scan: Scan, coefs: np.ndarray) -> None:
+    """Entropy-decode ``scan`` into ``coefs`` (blocks, 64) int16, in natural
+    order. Bits are read through a window of three bytes a byte position;
+    a symbol is found by one lookup of the next 16 bits."""
+    mcux, mcuy, shape = _scan_geometry(header, scan)
+    comps = [header.components[i] for i in scan.comps]
+    dc_tabs = [header.tables[(0, t)].tolist() for t in scan.dc]
+    ac_tabs = [header.tables[(1, t)].tolist() for t in scan.ac]
+    zigzag = ZIGZAG.tolist()
+    # Units of one MCU: (component slot, block row, block column).
+    units = [(s, by, bx) for s, (h, v) in enumerate(shape) for by in range(v) for bx in range(h)]
+    total = mcux * mcuy
+    interval = scan.restart or total
+    out = np.zeros((total * len(units), 64), np.int64)
+    where = np.empty(total * len(units), np.int64)
+    pos, mcu, row, n_restarts = scan.start, 0, 0, 0
+    while True:
+        seg, end = _segment(data, pos)
+        n_bits = 8 * len(seg)
+        padded = np.frombuffer(seg + b"\0" * 8, np.uint8).astype(np.uint32)
+        window = ((padded[:-2] << 16) | (padded[1:-1] << 8) | padded[2:]).tolist()
+        p = 0
+        preds = [0] * len(comps)
+        stop = min(mcu + interval, total)
+        while mcu < stop:
+            my, mx = divmod(mcu, mcux)
+            mcu += 1
+            for s, by, bx in units:
+                c = comps[s]
+                h, v = shape[s]
+                where[row] = c.offset + (my * v + by) * c.blocks_w + mx * h + bx
+                block = out[row]
+                row += 1
+                # DC: a category, then that many bits of difference.
+                look = dc_tabs[s][((window[p >> 3] << (p & 7)) >> 8) & 0xFFFF]
+                if not look or (look & 0xFF) > 15:
+                    raise ValueError("JPEG entropy data holds an invalid Huffman code.")
+                p += look >> 8
+                t = look & 0xFF
+                diff = 0
+                if t:
+                    diff = ((window[p >> 3] << (p & 7)) >> (24 - t)) & ((1 << t) - 1)
+                    p += t
+                    if diff < (1 << (t - 1)):
+                        diff -= (1 << t) - 1
+                preds[s] += diff
+                block[0] = preds[s]
+                # AC: run/size symbols up to the end of block.
+                ac, k = ac_tabs[s], 1
+                while k < 64:
+                    look = ac[((window[p >> 3] << (p & 7)) >> 8) & 0xFFFF]
+                    if not look:
+                        raise ValueError("JPEG entropy data holds an invalid Huffman code.")
+                    p += look >> 8
+                    r, t = (look >> 4) & 15, look & 15
+                    if t:
+                        k += r
+                        val = ((window[p >> 3] << (p & 7)) >> (24 - t)) & ((1 << t) - 1)
+                        p += t
+                        if val < (1 << (t - 1)):
+                            val -= (1 << t) - 1
+                        block[zigzag[k]] = val
+                        k += 1
+                    elif r == 15:
+                        k += 16
+                    else:
+                        break
+        if p > n_bits:
+            raise ValueError("JPEG entropy data ends before its last block.")
+        if mcu == total:
+            break
+        pos = _skip_restart(data, end, n_restarts % 8)
+        n_restarts += 1
+    coefs[where] = out.astype(np.int16)  # JCOEF is 16-bit: values wrap as libjpeg's do
+
+
+def coefficients_plain(data: bytes, header: Header) -> np.ndarray:
+    """Every block's coefficients, (blocks, 64) int16, natural order."""
+    coefs = np.zeros((header.blocks, 64), np.int16)
+    for scan in header.scans:
+        decode_scan_plain(data, header, scan, coefs)
+    return coefs
+
+
+# --------------------------------------------------------------------------- #
+# Stages 2-4, plain: PyTorch integer code (the kernels' reference)
+# --------------------------------------------------------------------------- #
+
+# jidctint.c's constants: FIX(x) = round(x * 2^13).
+_C = dict(c0_298=2446, c0_390=3196, c0_541=4433, c0_765=6270, c0_899=7373, c1_175=9633,
+          c1_501=12299, c1_847=15137, c1_961=16069, c2_053=16819, c2_562=20995, c3_072=25172)
+
+
+def _idct_1d(x, shift: int):
+    """One 1-D pass of ``jpeg_idct_islow`` on the eight inputs ``x`` (int64
+    tensors), descaled by ``shift``."""
+    c = _C
+    z1 = (x[2] + x[6]) * c["c0_541"]
+    tmp2 = z1 - x[6] * c["c1_847"]
+    tmp3 = z1 + x[2] * c["c0_765"]
+    tmp0 = (x[0] + x[4]) << 13
+    tmp1 = (x[0] - x[4]) << 13
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * c["c1_175"]
+    t0, t1, t2, t3 = t0 * c["c0_298"], t1 * c["c2_053"], t2 * c["c3_072"], t3 * c["c1_501"]
+    z1, z2 = z1 * -c["c0_899"], z2 * -c["c2_562"]
+    z3, z4 = z3 * -c["c1_961"] + z5, z4 * -c["c0_390"] + z5
+    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    half = 1 << (shift - 1)
+    outs = (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
+    return [(o + half) >> shift for o in outs]
+
+
+def idct_plain(coefs: torch.Tensor, quant: torch.Tensor, block_comp: torch.Tensor) -> torch.Tensor:
+    """Stage 2: (blocks, 64) int16 coefficients, (components, 64) quant
+    tables and each block's component -> (blocks, 8, 8) uint8 samples."""
+    z = (coefs.long() * quant.long()[block_comp]).view(-1, 8, 8)
+    cols = _idct_1d([z[:, k, :] for k in range(8)], 11)  # pass 1: columns, 8 rows out
+    ws = torch.stack(cols, 1).int().long()  # libjpeg's int workspace
+    rows = _idct_1d([ws[:, :, k] for k in range(8)], 18)  # pass 2: rows
+    out = torch.stack(rows, 2)
+    out = ((out + 512) & 1023) - 512  # the post-IDCT table wraps at 10 bits
+    return (out + 128).clamp(0, 255).to(torch.uint8)
+
+
+def planes_of(samples: torch.Tensor, header: Header) -> List[torch.Tensor]:
+    """(blocks, 8, 8) samples -> each component's plane, (blocks_h * 8,
+    blocks_w * 8)."""
+    out = []
+    for c in header.components:
+        b = samples[c.offset:c.offset + c.blocks_w * c.blocks_h]
+        out.append(b.view(c.blocks_h, c.blocks_w, 8, 8).permute(0, 2, 1, 3)
+                   .reshape(c.blocks_h * 8, c.blocks_w * 8))
+    return out
+
+
+def _upsample_plain(plane: torch.Tensor, comp: Component, hs: int, vs: int,
+                    height: int, width: int) -> torch.Tensor:
+    """Stage 3: a chroma plane to (height, width) int32, as libjpeg's fancy
+    upsamplers; a plane at most 2 samples wide is replicated instead, as
+    libjpeg-turbo's ``jinit_upsampler`` chooses."""
+    x = plane[:comp.height, :comp.width].int()
+    if comp.width <= 2:
+        x = x.repeat_interleave(vs, 0).repeat_interleave(hs, 1)
+    elif vs == 2:  # h2v2: 3:1 on rows, then on columns, rounding 8 then 7
+        above = torch.cat([x[:1], x[:-1]], 0)
+        below = torch.cat([x[1:], x[-1:]], 0)
+        sums = torch.stack([3 * x + above, 3 * x + below], 1).reshape(-1, x.shape[1])
+        left = torch.cat([sums[:, :1], sums[:, :-1]], 1)
+        right = torch.cat([sums[:, 1:], sums[:, -1:]], 1)
+        x = torch.stack([(3 * sums + left + 8) >> 4, (3 * sums + right + 7) >> 4], 2)
+        x = x.reshape(sums.shape[0], -1)
+    elif hs == 2:  # h2v1: 3:1 on columns, rounding 1 then 2
+        left = torch.cat([x[:, :1], x[:, :-1]], 1)
+        right = torch.cat([x[:, 1:], x[:, -1:]], 1)
+        x = torch.stack([(3 * x + left + 1) >> 2, (3 * x + right + 2) >> 2], 2).reshape(x.shape[0], -1)
+    return x[:height, :width]
+
+
+def color_plain(planes: List[torch.Tensor], header: Header) -> torch.Tensor:
+    """Stages 3 and 4: component planes -> (H, W) gray or (H, W, 3) BGR uint8."""
+    h, w = header.height, header.width
+    if len(planes) == 1:
+        return planes[0][:h, :w].contiguous()
+    y = planes[0][:h, :w].int()
+    hmax, vmax = header.hmax, header.vmax
+    cb, cr = (_upsample_plain(planes[i], c, hmax // c.h, vmax // c.v, h, w) - 128
+              for i, c in ((1, header.components[1]), (2, header.components[2])))
+    r = y + ((91881 * cr + 32768) >> 16)
+    g = y + ((-22554 * cb - 46802 * cr + 32768) >> 16)
+    b = y + ((116130 * cb + 32768) >> 16)
+    return torch.stack([b, g, r], 2).clamp(0, 255).to(torch.uint8)
+
+
+def block_components(header: Header) -> torch.Tensor:
+    """Each block's component index, (blocks,) int64."""
+    return torch.cat([torch.full((c.blocks_w * c.blocks_h,), i, dtype=torch.int64)
+                      for i, c in enumerate(header.components)])
+
+
+def decode_plain(data: bytes) -> np.ndarray:
+    """The plain version of :func:`imdecode`: Python and PyTorch on the CPU."""
+    data = bytes(data)
+    header = parse(data)
+    coefs = torch.from_numpy(coefficients_plain(data, header))
+    samples = idct_plain(coefs, torch.from_numpy(header.quant.astype(np.int32)),
+                         block_components(header))
+    return color_plain(planes_of(samples, header), header).numpy()
+
+
+# --------------------------------------------------------------------------- #
+# The card's route: host entropy decoder, J1 and J2
+# --------------------------------------------------------------------------- #
+
+def decode_scan_host(data: bytes, header: Header, scan: Scan, coefs: torch.Tensor) -> None:
+    """Stage 1 in host C (``sleap_jpeg_decode_scan``) into ``coefs``, a
+    (blocks, 64) int16 CPU tensor (pinned on the card's route)."""
+    from sleap_tpu_torch.ops import _build
+
+    mcux, mcuy, shape = _scan_geometry(header, scan)
+    info = []
+    for slot, ci in enumerate(scan.comps):
+        c = header.components[ci]
+        info += [c.offset, c.blocks_w, *shape[slot]]
+    info = np.array(info, np.int32)
+    luts = np.stack([header.tables[(0, t)] for t in scan.dc] + [header.tables[(1, t)] for t in scan.ac])
+    buf = np.frombuffer(data, np.uint8)
+    err = _build.entry("sleap_jpeg_decode_scan")(
+        buf.ctypes.data, len(data), scan.start, luts.ctypes.data, len(scan.comps),
+        info.ctypes.data, mcux, mcuy, scan.restart, coefs.data_ptr(),
+        _scratch(len(data) + 16).ctypes.data)
+    if err:
+        raise ValueError(f"JPEG entropy data is malformed (host decoder error {err}: "
+                         f"{_HOST_ERRORS.get(err, 'unknown')}).")
+
+
+_HOST_ERRORS = {1: "invalid Huffman code", 2: "data ends before its last block",
+                3: "restart marker missing or out of order"}
+
+
+@functools.lru_cache(maxsize=4)
+def _buffer(nbytes: int) -> np.ndarray:
+    return np.empty(nbytes, np.uint8)
+
+
+def _scratch(nbytes: int) -> np.ndarray:
+    """A host buffer of at least ``nbytes``, reused across frames (sizes
+    rounded up to a power of two, so one serves a whole video; the four
+    last sizes are kept)."""
+    return _buffer(1 << max(16, (nbytes - 1).bit_length()))
+
+
+def coefficients_host(data: bytes, header: Header, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every block's coefficients from the host C decoder, (blocks, 64) int16,
+    into ``out`` where given."""
+    if out is None:
+        out = torch.empty((header.blocks, 64), dtype=torch.int16)
+    if out.shape != (header.blocks, 64) or out.dtype != torch.int16 or out.device.type != "cpu" \
+            or not out.is_contiguous():
+        raise ValueError(f"The host decoder writes a contiguous ({header.blocks}, 64) int16 CPU "
+                         f"tensor, not {tuple(out.shape)} {out.dtype} on {out.device}.")
+    out.zero_()
+    for scan in header.scans:
+        decode_scan_host(data, header, scan, out)
+    return out
+
+
+def _check_card(t: torch.Tensor, dtype, what: str) -> None:
+    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype} CUDA tensor, not "
+                         f"{t.dtype} on {t.device}{'' if t.is_contiguous() else ' (strided)'}.")
+
+
+def idct_cuda(coefs: torch.Tensor, quant: torch.Tensor, header: Header) -> torch.Tensor:
+    """J1 (``jpeg_idct_kernel``): :func:`idct_plain` on the card, (blocks,
+    64) int16 coefficients and (components, 64) int32 quant tables ->
+    (blocks, 8, 8) uint8 samples."""
+    from sleap_tpu_torch.ops import _build
+
+    _check_card(coefs, torch.int16, "coefficients")
+    _check_card(quant, torch.int32, "quantisation tables")
+    comps = header.components
+    if coefs.shape != (header.blocks, 64) or quant.shape != (len(comps), 64):
+        raise ValueError(f"coefficients {tuple(coefs.shape)} and tables {tuple(quant.shape)} do not "
+                         f"fit a frame of {header.blocks} blocks and {len(comps)} components.")
+    out = torch.empty((header.blocks, 8, 8), dtype=torch.uint8, device=coefs.device)
+    ends = [c.offset + c.blocks_w * c.blocks_h for c in comps] + [header.blocks] * (3 - len(comps))
+    _build.launch("sleap_jpeg_idct", coefs.device.index, coefs.data_ptr(), header.blocks,
+                  quant.data_ptr(), ends[0], ends[1], out.data_ptr())
+    idct_cuda.launches += 1
+    return out
+
+
+idct_cuda.launches = 0
+
+
+def color_cuda(samples: torch.Tensor, header: Header) -> torch.Tensor:
+    """J2 (``jpeg_color_kernel``): :func:`color_plain` on the card, from the
+    (blocks, 8, 8) samples J1 writes -> (H, W) or (H, W, 3) BGR uint8."""
+    from sleap_tpu_torch.ops import _build
+
+    _check_card(samples, torch.uint8, "samples")
+    if samples.shape != (header.blocks, 8, 8):
+        raise ValueError(f"samples {tuple(samples.shape)} do not fit a frame of {header.blocks} "
+                         "blocks.")
+    h, w, comps = header.height, header.width, header.components
+    shape = (h, w) if len(comps) == 1 else (h, w, 3)
+    out = torch.empty(shape, dtype=torch.uint8, device=samples.device)
+    info = []
+    for c in comps + comps[:1] * (3 - len(comps)):
+        info += [c.offset, c.blocks_w, c.width, c.height, header.hmax // c.h, header.vmax // c.v]
+    _build.launch("sleap_jpeg_color", samples.device.index, samples.data_ptr(), len(comps), h, w,
+                  *info, out.data_ptr())
+    color_cuda.launches += 1
+    return out
+
+
+color_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=4)
+def _pinned(nbytes: int) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+def _staging(blocks: int) -> torch.Tensor:
+    """A pinned (blocks, 64) int16 buffer, reused across frames: its copy to
+    the card is synchronous, so the next frame may fill it at once."""
+    size = 1 << max(12, (blocks * 128 - 1).bit_length())
+    return _pinned(size)[:blocks * 128].view(torch.int16).view(blocks, 64)
+
+
+def decode_cuda(data: bytes, device) -> torch.Tensor:
+    """The card's route, the frame left on ``device``."""
+    data = bytes(data)
+    header = parse(data)
+    coefs = coefficients_host(data, header, _staging(header.blocks))
+    device = torch.device(device)
+    on_card = coefs.to(device)
+    quant = torch.from_numpy(header.quant.astype(np.int32)).to(device)
+    return color_cuda(idct_cuda(on_card, quant, header), header)
+
+
+def imdecode(data: bytes, device="cuda") -> np.ndarray:
+    """``cv2.imdecode(data, cv2.IMREAD_UNCHANGED)`` for the JPEGs this module
+    reads: (H, W) gray, or (H, W, 3) BGR; decoded on ``device``'s route."""
+    if torch.device(device).type == "cuda":
+        return decode_cuda(data, device).cpu().numpy()
+    return decode_plain(data)

@@ -9,10 +9,13 @@ of JSON strings), and the compound tables ``frames``, ``instances``,
 ``points`` and ``pred_points``. Training packages (``.pkg.slp``) add
 embedded frames under ``video{N}/``.
 
-:func:`write_labels` writes contiguous, uncompressed datasets; in-memory
-videos are written as raw ``video{N}_raw`` datasets that the file's own
-video entries point at. Embedding frames (``save_frame_data``) is not
-ported yet.
+:func:`write_labels` writes the tables and JSON lists contiguous and
+uncompressed; in-memory videos are written as raw, deflated
+``video{N}_raw`` datasets that the file's own video entries point at. With
+``save_frame_data`` the frames of the labeled (and, if asked, suggested)
+frames are embedded as a training package: per video a group ``video{N}``
+of PNG rows (deflated int8, one row a chunk), ``frame_numbers`` and
+``source_video``, pointed at through the filename ``"."``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from sleap_tpu_torch.core.instance import (
 from sleap_tpu_torch.core.labels import Labels, SuggestionFrame
 from sleap_tpu_torch.core.skeleton import Node, Skeleton
 from sleap_tpu_torch.io import hdf5
-from sleap_tpu_torch.io.video import NumpyVideo, Video
+from sleap_tpu_torch.io.video import HDF5Video, NumpyVideo, Video, imencode_rows, write_encoded
 
 FORMAT_ID = 1.2
 
@@ -281,21 +284,22 @@ def write_labels(
     filename: str,
     labels: Labels,
     save_frame_data: bool = False,
+    all_labeled: bool = False,
+    suggested: bool = False,
+    image_format: str = "png",
     append: bool = False,
 ) -> None:
     """Write :class:`Labels` as ``.slp``.
 
     Frames and instances are written in the order of ``labeled_frames``; a
     user instance's score is NaN on disk and a missing track is -1.
-    ``append=True`` merges into an existing file: its project is read, the
-    new frames merged in (videos matched by filename, skeletons by node
+    ``save_frame_data`` embeds the images of the frames with user instances
+    (every labeled frame with ``all_labeled``, and the suggested ones with
+    ``suggested``) as ``image_format`` rows, and points the file's videos at
+    them. ``append=True`` merges into an existing file: its project is read,
+    the new frames merged in (videos matched by filename, skeletons by node
     names) and the file written again.
     """
-    if save_frame_data:
-        raise NotImplementedError(
-            "Embedding frames in a .slp (save_frame_data / with_images) is not ported yet "
-            "(ROADMAP.md, queue 1, item 3): it needs a PNG encoder and chunked writing."
-        )
     if append and os.path.exists(filename):
         base = read_labels(filename, video_search=False)
         base.extend_from(labels, unify=True)
@@ -316,6 +320,9 @@ def write_labels(
         labels = base
 
     with hdf5.Writer(filename) as f:
+        videos = list(labels.videos)
+        if save_frame_data:
+            videos = _embed_frame_data(f, labels, image_format, all_labeled, suggested)
         md = f.require_group("metadata")
         md.attrs["format_id"] = FORMAT_ID
         md.attrs["json"] = _json_bytes(_serialize_metadata(labels))
@@ -323,16 +330,20 @@ def write_labels(
         # An in-memory video is written as raw frames that the file's own
         # entry (filename ".") points at, so the project reads back whole.
         videos_json = []
-        for i, video in enumerate(labels.videos):
+        for i, video in enumerate(videos):
             if isinstance(video.backend, NumpyVideo):
                 name = f"video{i}_raw"
-                f.create_dataset(name, data=video.backend.data)
+                f.create_dataset(name, data=video.backend.data, compression="gzip")
                 videos_json.append(_json_bytes({"backend": {
                     "type": "HDF5Video", "filename": ".", "dataset": name,
                     "input_format": "channels_last", "convert_range": False,
                 }}))
-            else:
-                videos_json.append(_json_bytes(video.to_dict()))
+                continue
+            d = video.to_dict()
+            if save_frame_data and isinstance(video.backend, HDF5Video) \
+                    and video.backend.filename == filename:
+                d["backend"]["filename"] = "."
+            videos_json.append(_json_bytes(d))
         _write_json_dataset(f, "videos_json", videos_json)
         _write_json_dataset(f, "tracks_json", [_json_bytes([t.spawned_on, t.name]) for t in labels.tracks])
         video_to_idx = {id(v): i for i, v in enumerate(labels.videos)}
@@ -384,14 +395,46 @@ def write_labels(
             inst_recs["frame_id"][cursor:cursor + n] = fi
             cursor += n
 
-        f.create_dataset("points", data=np.concatenate(points_list) if points_list
-                         else np.zeros(0, dtype=POINT_DTYPE))
-        f.create_dataset("pred_points", data=np.concatenate(pred_points_list) if pred_points_list
-                         else np.zeros(0, dtype=PRED_POINT_DTYPE))
-        f.create_dataset("instances", data=inst_recs)
-        f.create_dataset("frames", data=frame_recs)
+        tables = {
+            "points": np.concatenate(points_list) if points_list else np.zeros(0, POINT_DTYPE),
+            "pred_points": np.concatenate(pred_points_list) if pred_points_list
+            else np.zeros(0, PRED_POINT_DTYPE),
+            "instances": inst_recs,
+            "frames": frame_recs,
+        }
+        for name, table in tables.items():
+            f.create_dataset(name, data=table, compression=None)
 
 
 def _write_json_dataset(f: hdf5.Writer, name: str, items: List[np.bytes_]) -> None:
     """Fixed-length strings, or an empty float64 dataset when there are none."""
-    f.create_dataset(name, data=np.array(items) if items else np.zeros(0))
+    f.create_dataset(name, data=np.array(items) if items else np.zeros(0), compression=None)
+
+
+def _embed_frame_data(f: hdf5.Writer, labels: Labels, image_format: str, all_labeled: bool,
+                      suggested: bool) -> List[Video]:
+    """Embed each video's frames (those with user instances; every labeled
+    one with ``all_labeled``; plus the suggested ones with ``suggested``)
+    as ``video{N}/video`` rows, ``video{N}/frame_numbers`` and
+    ``video{N}/source_video``; return videos of them, in the order of
+    ``labels.videos``."""
+    suggested_by_video: Dict[int, set] = {}
+    if suggested:
+        for s in labels.suggestions:
+            suggested_by_video.setdefault(id(s.video), set()).add(s.frame_idx)
+    new_videos = []
+    for v_idx, video in enumerate(labels.videos):
+        frame_nums = {lf.frame_idx for lf in labels.find(video) if all_labeled or lf.has_user_instances}
+        frame_nums = sorted(frame_nums | suggested_by_video.get(id(video), set()))
+        group = f"video{v_idx}"
+        rows = imencode_rows((video.get_frame(i) for i in frame_nums), image_format)
+        write_encoded(f, f"{group}/video", rows, image_format,
+                      (video.height, video.width, video.channels))
+        f.create_dataset(f"{group}/frame_numbers", data=np.array(frame_nums, dtype=np.int64),
+                         compression=None)
+        f.require_group(f"{group}/source_video").attrs["json"] = json.dumps(
+            video.to_dict(), separators=(",", ":"))
+        new_videos.append(Video(HDF5Video(filename=f.filename, dataset=f"{group}/video",
+                                          input_format="channels_last", convert_range=False,
+                                          device=getattr(video.backend, "device", "cuda"))))
+    return new_videos

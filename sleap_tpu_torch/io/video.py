@@ -6,16 +6,20 @@ come back as numpy (H, W, C) arrays from
 - :class:`HDF5Video`: raw frames in an HDF5 dataset (``channels_last`` or
   ``channels_first``), or encoded frames embedded in a ``.pkg.slp`` with
   their ``frame_numbers`` and ``source_video``, read by the port's own HDF5
-  reader (:mod:`sleap_tpu_torch.io.hdf5`) and PNG decoder
-  (:mod:`sleap_tpu_torch.io.png`); JPEG frames need ``cv2``;
+  reader (:mod:`sleap_tpu_torch.io.hdf5`) and its PNG and JPEG decoders
+  (:mod:`~sleap_tpu_torch.io.png`, :mod:`~sleap_tpu_torch.io.jpeg`) on the
+  backend's ``device``: on the card (the default) the compiled PNG unfilter
+  and the JPEG kernels, on the CPU their plain versions;
 - :class:`NumpyVideo`: an in-memory array or a ``.npy`` file;
 - :class:`MediaVideo` (mp4, avi, ...): on the card (``device="cuda"``, the
   default) H.264 ``.mp4``/``.mov`` files through the port's demuxer
   (:mod:`~sleap_tpu_torch.io.mp4`), NVDEC (:mod:`~sleap_tpu_torch.io.nvdec`)
   and OpenCV's colour conversion (:mod:`~sleap_tpu_torch.io.yuv`), with no
   fallback; with ``device="cpu"`` any format through ``cv2``;
-- :class:`SingleImageVideo`, which needs ``cv2`` and imports it only when it
-  reads a frame;
+- :class:`SingleImageVideo`: still images, PNG and JPEG through the port's
+  decoders on its ``device``; BMP and TIFF through ``cv2`` on the CPU only;
+- :class:`ImgStoreVideo`: a loopbio ImgStore directory of PNG frames
+  (:mod:`sleap_tpu_torch.io.dirimgstore`);
 - :class:`DummyVideo`, a placeholder of a given shape.
 
 :class:`Video` wraps a backend and (de)serializes it as the ``videos_json``
@@ -36,7 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from sleap_tpu_torch.io import hdf5, png
+from sleap_tpu_torch.io import dirimgstore, hdf5, jpeg, png
 
 Device = Union[str, torch.device]
 
@@ -340,12 +344,8 @@ class HDF5Video:
             raise IndexError(f"Frame {idx} not embedded in {self.filename}.")
         frame = ds[row]
         if self._format_:
-            encoded = np.asarray(frame).tobytes()
-            if self._format_ == "png":
-                frame = png.imdecode(encoded)
-            else:
-                cv2 = _import_cv2(f"Decoding {self._format_} frames of {self.filename}")
-                frame = cv2.imdecode(np.frombuffer(encoded, np.uint8), cv2.IMREAD_UNCHANGED)
+            frame = imdecode(np.asarray(frame).tobytes(), self._format_, self.device,
+                             f"frames of {self.filename}")
             # No channel flip: frames are encoded straight from RGB arrays,
             # so cv2's BGR order on decode gives back the original order.
             if frame.ndim == 2:
@@ -402,7 +402,10 @@ class NumpyVideo:
 
 @dataclass(eq=False)
 class SingleImageVideo:
-    """Still images (one per frame) read with OpenCV as RGB."""
+    """Still images (one per frame) read as RGB: PNG and JPEG through the
+    port's decoders on ``device`` (the card's routes by default, their plain
+    versions with "cpu"); BMP and TIFF through OpenCV with ``device`` "cpu"
+    only. The device is not a field: ``.slp`` files do not record it."""
 
     filename: Optional[str] = None
     filenames: List[str] = field(default_factory=list)
@@ -410,10 +413,12 @@ class SingleImageVideo:
     width_: Optional[int] = None
     channels_: Optional[int] = None
     grayscale: Optional[bool] = None
+    device: dataclasses.InitVar[Device] = "cuda"
 
     EXTS = ("jpg", "jpeg", "png", "bmp", "tif", "tiff")
 
-    def __post_init__(self):
+    def __post_init__(self, device: Device = "cuda"):
+        self.device = device
         self._cache: Dict[int, np.ndarray] = {}
         if not self.filenames and self.filename:
             self.filenames = [self.filename]
@@ -440,10 +445,34 @@ class SingleImageVideo:
     def channels(self) -> int:
         return self.channels_ or self.test_frame.shape[2]
 
+    @property
+    def is_grayscale(self) -> bool:
+        if self.grayscale is None:
+            frame = self.test_frame
+            self.grayscale = bool(frame.shape[-1] == 1 or np.all(frame[..., 0] == frame[..., -1]))
+        return self.grayscale
+
+    def _read(self, path: str) -> np.ndarray:
+        """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``, or None where the
+        file cannot be read."""
+        ext = path.rsplit(".", 1)[-1].lower()
+        if ext in ("png", "jpg", "jpeg"):
+            try:
+                with open(path, "rb") as fh:
+                    data = fh.read()
+            except OSError:
+                return None
+            return imdecode(data, "jpg" if ext == "jpeg" else ext, self.device, path)
+        if torch.device(self.device).type == "cuda":
+            raise NotImplementedError(
+                f"Reading .{ext} images ({path}) on the card is not ported: PNG and JPEG are. "
+                "Read them with device='cpu' (through cv2), or convert them to PNG.")
+        cv2 = _import_cv2(f"Reading the image {path}", "PNG and JPEG images are read without it.")
+        return cv2.imread(path, cv2.IMREAD_UNCHANGED)
+
     def get_frame(self, idx: int) -> np.ndarray:
         if idx not in self._cache:
-            cv2 = _import_cv2(f"Reading the image {self.filenames[idx]}")
-            img = cv2.imread(self.filenames[idx], cv2.IMREAD_UNCHANGED)
+            img = self._read(self.filenames[idx])
             if img is None:
                 raise KeyError(f"Unable to read image {self.filenames[idx]}.")
             if img.ndim == 2:
@@ -456,7 +485,92 @@ class SingleImageVideo:
         return self._cache[idx]
 
 
-BackendType = Union[MediaVideo, HDF5Video, NumpyVideo, SingleImageVideo, DummyVideo]
+@dataclass(eq=False)
+class ImgStoreVideo:
+    """Frames of a loopbio ImgStore directory store
+    (:mod:`sleap_tpu_torch.io.dirimgstore`), by original frame number
+    (``index_by_original``) or by position in the store; decoded on
+    ``device``'s route."""
+
+    filename: str = ""
+    index_by_original: bool = True
+    device: dataclasses.InitVar[Device] = "cuda"
+
+    def __post_init__(self, device: Device = "cuda"):
+        self.device = device
+        path = self.filename
+        if os.path.isdir(path):
+            path = os.path.join(path, dirimgstore.STORE_MD_FILENAME)
+        self._store = dirimgstore.new_for_filename(path, device=device)
+        self._img, _ = self._store.get_next_image()
+
+    @property
+    def frames(self) -> int:
+        return self._store.frame_count
+
+    @property
+    def height(self) -> int:
+        return self._img.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self._img.shape[1]
+
+    @property
+    def channels(self) -> int:
+        return 1 if self._img.ndim == 2 else self._img.shape[2]
+
+    @property
+    def last_frame_idx(self) -> int:
+        """The highest original frame number when indexing by them, else
+        the last position."""
+        return self._store.frame_max if self.index_by_original else self.frames - 1
+
+    def get_frame(self, idx: int) -> np.ndarray:
+        if self.index_by_original:
+            img, _ = self._store.get_image(frame_number=idx)
+        else:
+            img, _ = self._store.get_image(frame_number=None, frame_index=idx)
+        return img[..., None] if img.ndim == 2 else img
+
+
+def imdecode(data: bytes, fmt: str, device: Device, what: str) -> np.ndarray:
+    """``cv2.imdecode(data, cv2.IMREAD_UNCHANGED)`` of a PNG or JPEG on
+    ``device``'s route."""
+    if fmt == "png":
+        return png.imdecode(data, device)
+    if fmt in ("jpg", "jpeg"):
+        return jpeg.imdecode(data, device)
+    raise NotImplementedError(f"Decoding {fmt!r} images ({what}) is not ported: PNG and JPEG are.")
+
+
+def imencode_rows(frames: Sequence[np.ndarray], fmt: str) -> List[np.ndarray]:
+    """Each frame encoded as ``cv2.imencode("." + fmt, frame)`` would, as a
+    row of int8 (the layout of a ``.pkg.slp``'s embedded frames)."""
+    if fmt in ("jpg", "jpeg"):
+        raise NotImplementedError(
+            "Writing JPEG frames (format='jpg') is not ported: it needs a JPEG encoder equal to "
+            "cv2's (ROADMAP.md, queue 1, item 3d(2)). Write PNG frames (format='png').")
+    if fmt != "png":
+        raise NotImplementedError(f"Writing {fmt!r} frames is not ported: PNG is.")
+    return [png.imencode(".png", frame)[1].reshape(-1).view(np.int8) for frame in frames]
+
+
+def write_encoded(group: hdf5.WritableGroup, name: str, rows: List[np.ndarray], fmt: str,
+                  shape: Tuple[int, int, int]) -> None:
+    """Encoded rows as ``name``: int8 (frames, longest row), zero-padded,
+    deflated one row a chunk, with the ``format``, ``channels``, ``height``
+    and ``width`` attributes."""
+    longest = max((len(r) for r in rows), default=0)
+    ds = group.create_dataset(name, shape=(len(rows), longest), dtype="int8",
+                              chunks=(1, longest) if rows and longest else None)
+    for i, r in enumerate(rows):
+        ds[i, :len(r)] = r
+    ds.attrs["format"] = fmt
+    ds.attrs["height"], ds.attrs["width"], ds.attrs["channels"] = shape
+
+
+BackendType = Union[MediaVideo, HDF5Video, NumpyVideo, SingleImageVideo, DummyVideo, ImgStoreVideo]
 
 
 def _backend(bcls, filename: str, fields: Dict[str, Any], device: Device) -> BackendType:
@@ -467,7 +581,8 @@ def _backend(bcls, filename: str, fields: Dict[str, Any], device: Device) -> Bac
     return bcls(filename=filename, **fields)
 
 
-_BACKENDS = {cls.__name__: cls for cls in (MediaVideo, HDF5Video, NumpyVideo, SingleImageVideo, DummyVideo)}
+_BACKENDS = {cls.__name__: cls for cls in (MediaVideo, HDF5Video, NumpyVideo, SingleImageVideo,
+                                            DummyVideo, ImgStoreVideo)}
 
 
 class Video:
@@ -553,6 +668,82 @@ class Video:
         return cls(_backend(bcls, filename, {k: v for k, v in kwargs.items() if k in keep}, device))
 
     @classmethod
+    def from_media(cls, filename: str, device: Device = "cuda", **kwargs) -> "Video":
+        """A media file (mp4, avi, ...) decoded on ``device``."""
+        kwargs = {k: v for k, v in kwargs.items() if k in ("grayscale", "bgr")}
+        return cls(MediaVideo(filename=fixup_path(filename), device=device, **kwargs))
+
+    @classmethod
+    def from_image_filenames(cls, filenames: List[str], device: Device = "cuda", **kwargs) -> "Video":
+        """Still images, one a frame, decoded on ``device``."""
+        return cls(SingleImageVideo(filenames=list(filenames), device=device, **kwargs))
+
+    @classmethod
+    def from_hdf5(cls, dataset: str, filename: str, input_format: str = "channels_last",
+                  convert_range: bool = True, device: Device = "cuda") -> "Video":
+        return cls(HDF5Video(filename=filename, dataset=dataset, input_format=input_format,
+                             convert_range=convert_range, device=device))
+
+    def _device(self, device: Optional[Device]) -> Device:
+        """``device``, else this backend's, else the card."""
+        return device if device is not None else getattr(self.backend, "device", "cuda")
+
+    def write_hdf5(self, group: hdf5.WritableGroup, dataset: str,
+                   frame_numbers: Optional[List[int]] = None, format: str = "",
+                   index_by_original: bool = True) -> None:
+        """:meth:`to_hdf5`'s datasets, into the group of a file being
+        written: ``<dataset>/video`` (raw frames, gzip level 9; or encoded
+        rows with ``format``), ``<dataset>/frame_numbers`` and
+        ``<dataset>/source_video`` (this video's JSON)."""
+        if frame_numbers is None:
+            frame_numbers = list(range(self.num_frames))
+        frames = self.get_frames(frame_numbers) if frame_numbers else np.zeros((1, 1, 1, 1))
+        if format:
+            write_encoded(group, dataset + "/video", imencode_rows(frames, format), format,
+                          (self.height, self.width, self.channels))
+        else:
+            group.create_dataset(dataset + "/video", data=frames, compression="gzip",
+                                 compression_opts=9)
+        if index_by_original:
+            group.create_dataset(dataset + "/frame_numbers",
+                                 data=np.asarray(frame_numbers, dtype=np.int64), compression=None)
+        group.require_group(dataset + "/source_video").attrs["json"] = json.dumps(self.to_dict())
+
+    def to_hdf5(self, path: str, dataset: str, frame_numbers: Optional[List[int]] = None,
+                format: str = "", index_by_original: bool = True,
+                device: Optional[Device] = None) -> "Video":
+        """Copy frames into an HDF5 file (added to the file where it exists,
+        as h5py's mode "a") and return a video of them that decodes on
+        ``device`` (by default this video's); the layout of the JAX
+        package's ``Video.to_hdf5``: see :meth:`write_hdf5`."""
+        with hdf5.Writer(path, "a") as f:
+            self.write_hdf5(f, dataset, frame_numbers, format, index_by_original)
+        return Video(HDF5Video(filename=path, dataset=dataset + "/video", input_format="channels_last",
+                               convert_range=False, device=self._device(device)))
+
+    def to_imgstore(self, path: str, frame_numbers: Optional[List[int]] = None,
+                    format: str = "png", index_by_original: bool = True,
+                    device: Optional[Device] = None) -> "Video":
+        """Copy frames into a PNG ImgStore at ``path`` and return a video of
+        it that decodes on ``device`` (by default this video's); an empty
+        selection stores one blank frame, as the JAX package does."""
+        import time
+
+        if frame_numbers is None:
+            frame_numbers = list(range(self.num_frames))
+        store = dirimgstore.new_for_format(format, mode="w", basedir=path,
+                                           imgshape=(self.height, self.width, self.channels),
+                                           chunksize=1000)
+        for i in frame_numbers:
+            store.add_image(self.get_frame(i), i, time.time())
+        if not frame_numbers:
+            store.add_image(np.zeros((self.height, self.width, self.channels), np.uint8), 0,
+                            time.time())
+        store.close()
+        return Video(ImgStoreVideo(filename=path, index_by_original=index_by_original,
+                                   device=self._device(device)))
+
+    @classmethod
     def from_dict(cls, d: Dict[str, Any], video_search=None, device: Device = "cuda") -> "Video":
         """From a ``videos_json`` entry, ``{"backend": {...fields...}}``:
         by its ``type`` where it names one, else by its fields and the
@@ -564,10 +755,6 @@ class Video:
         filename = bd.pop("filename", None) or bd.pop("file", None)
         if video_search is not None:
             filename = video_search(filename) or filename
-        if explicit == "ImgStoreVideo":
-            raise NotImplementedError(
-                f"ImgStore videos ({filename}) are not ported yet (ROADMAP.md, queue 1)."
-            )
         if explicit in _BACKENDS:
             bcls = _BACKENDS[explicit]
             names = {f.name for f in dataclasses.fields(bcls)}
@@ -578,7 +765,7 @@ class Video:
             return cls(DummyVideo(filename=filename or "", **{k: v for k, v in bd.items() if k in keep}))
         if bd.get("filenames"):
             return cls(SingleImageVideo(filename=filename, filenames=bd["filenames"],
-                                        grayscale=bd.get("grayscale")))
+                                        grayscale=bd.get("grayscale"), device=device))
         try:
             return cls.from_filename(filename, device=device, **bd)
         except ValueError:
@@ -614,7 +801,7 @@ def load_video(
         )
         if not files:
             raise ValueError(f"No images found in directory: {filename}")
-        return Video(SingleImageVideo(filenames=files, grayscale=grayscale))
+        return Video(SingleImageVideo(filenames=files, grayscale=grayscale, device=device))
     if grayscale is not None:
         kwargs["grayscale"] = grayscale
     if dataset is not None:

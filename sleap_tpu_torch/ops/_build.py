@@ -26,7 +26,7 @@ import torch
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "build"
-SOURCES = ("peaks.cu", "crops.cu")
+SOURCES = ("peaks.cu", "crops.cu", "jpeg.cu", "png.cu")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,6 +43,11 @@ SIGNATURES = {
         _p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p, _p, _p,
     ],
     "sleap_crop_unit": [_p, _i, _i64, _i, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p],
+    "sleap_jpeg_idct": [_p, _i64, _p, _i64, _i64, _p, _p],
+    "sleap_jpeg_color": [_p, _i, _i, _i, *[_i] * 18, _p, _p],
+    # Host routines, called with no stream.
+    "sleap_jpeg_decode_scan": [_p, _i64, _i64, _p, _i, _p, _i, _i, _i, _p, _p],
+    "sleap_png_unfilter": [_p, _i64, _i64, _i, _p],
 }
 
 

@@ -90,7 +90,7 @@ def crafted(tmp_path_factory):
         length, so the file must be there."""
         path.parent.mkdir(exist_ok=True)
         with hdf5.Writer(str(path)) as f:
-            f.create_dataset("video", data=np.zeros((8, 4, 4, 1), np.uint8))
+            f.create_dataset("video", data=np.zeros((8, 4, 4, 1), np.uint8), compression=None)
         return Video.from_filename(str(path), dataset="video")
 
     gt_videos = [video(tmp / "gt" / f"cam{i}.h5") for i in range(2)]
@@ -278,7 +278,7 @@ def scored(tmp_path_factory):
     _with_threshold(mp, tpredictors.Predictor)
     _with_threshold(mp, jpredictors.Predictor)
     try:
-        fixture = tread(str(PKG))
+        fixture = tread(str(PKG), device="cpu")
         first = tpredictors.Predictor.from_model_paths(str(INSTANCE), device="cpu")
         seeds = first.predict(fixture)
         rng = np.random.default_rng(2)
@@ -297,8 +297,8 @@ def scored(tmp_path_factory):
         for name, evals, read in (("port", tevals, tread), ("jax", jevals, jread)):
             folder = tmp / name
             shutil.copytree(INSTANCE, folder)
-            labels = read(str(gt_path))
             kwargs = {"device": "cpu"} if name == "port" else {}
+            labels = read(str(gt_path), **kwargs)
             _, metrics = evals.evaluate_model(None, labels, str(folder), split_name="val",
                                               **kwargs)
             out[name] = (str(folder), metrics)

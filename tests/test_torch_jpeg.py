@@ -1,0 +1,237 @@
+"""The port's JPEG decoder (``sleap_tpu_torch.io.jpeg``), plain version,
+against ``cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)`` (libjpeg-turbo): bitwise
+(tolerance 0) on cv2-encoded gray and colour images of every supported
+sampling, size class, quality, restart interval and Huffman-table kind, on
+hypothesis-drawn sizes and qualities, and on the committed fixtures
+(``scripts/make_torch_jpeg_fixtures.py``) against their recorded cv2
+hashes. Every refused feature raises and names itself. The card's route
+(host entropy decoder, J1, J2) is held to the same hashes and to these plain
+stages by ``chip_smoke.py`` phase 13b."""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import struct
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from sleap_tpu_torch.io import jpeg
+
+FIXTURES = Path(__file__).resolve().parent / "torch_data" / "jpeg"
+RECORD = json.loads((FIXTURES / "decoded.json").read_text())
+SAMPLING = {
+    "444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+    "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+    "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+}
+
+
+def _image(h, w, channels, seed):
+    """Smooth shapes plus noise, colour channels that differ."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    base = 100 + 80 * np.sin(xx / 7.0) * np.cos(yy / 5.0)
+    img = base[..., None] + rng.integers(-30, 30, (h, w, channels))
+    if channels == 3:
+        img[..., 1] = 255 - img[..., 1]
+        img[..., 2] = xx * 255 / max(w, 1)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _encode(img, params=()):
+    ok, buf = cv2.imencode(".jpg", img, list(params))
+    assert ok
+    return buf
+
+
+def _assert_like_cv2(buf):
+    want = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+    got = jpeg.decode_plain(buf.tobytes())
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("quality", [50, 95])
+@pytest.mark.parametrize("size", [(72, 100), (29, 37), (8, 8), (17, 250), (50, 3), (9, 1)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("kind", ["gray", "444", "422", "420"])
+def test_plain_decoder_equals_cv2(kind, size, quality):
+    """Widths of 1-4 leave a chroma plane 1-2 samples wide, which
+    libjpeg-turbo replicates instead of upsampling fancily."""
+    if kind == "gray":
+        buf = _encode(_image(*size, 1, quality)[..., 0], [cv2.IMWRITE_JPEG_QUALITY, quality])
+    else:
+        buf = _encode(_image(*size, 3, quality), [cv2.IMWRITE_JPEG_QUALITY, quality,
+                                                  cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind]])
+    _assert_like_cv2(buf)
+
+
+@pytest.mark.parametrize("interval", [1, 3, 7])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_restart_intervals_equal_cv2(channels, interval):
+    img = _image(40, 70, channels, interval)
+    _assert_like_cv2(_encode(img if channels == 3 else img[..., 0],
+                             [cv2.IMWRITE_JPEG_RST_INTERVAL, interval]))
+
+
+@pytest.mark.parametrize("kind", ["gray", "444", "420"])
+def test_optimised_huffman_tables_equal_cv2(kind):
+    img = _image(33, 65, 1 if kind == "gray" else 3, 5)
+    params = [cv2.IMWRITE_JPEG_OPTIMIZE, 1, cv2.IMWRITE_JPEG_QUALITY, 85]
+    if kind != "gray":
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind]]
+    _assert_like_cv2(_encode(img[..., 0] if kind == "gray" else img, params))
+
+
+def test_saturated_and_flat_images_equal_cv2():
+    """Edges of the range: the IDCT's clamp, and blocks of DC alone."""
+    rng = np.random.default_rng(3)
+    checker = (np.indices((48, 48)).sum(0) % 2 * 255).astype(np.uint8)
+    for img in (checker, np.zeros((16, 24), np.uint8), np.full((9, 9, 3), 255, np.uint8),
+                rng.choice([0, 255], (32, 40, 3)).astype(np.uint8)):
+        _assert_like_cv2(_encode(img, [cv2.IMWRITE_JPEG_QUALITY, 100]))
+
+
+@settings(max_examples=25, deadline=None)
+@given(h=st.integers(1, 48), w=st.integers(1, 48), quality=st.integers(1, 100),
+       kind=st.sampled_from(["gray", "444", "422", "420"]), seed=st.integers(0, 2**16))
+def test_drawn_sizes_and_qualities_equal_cv2(h, w, quality, kind, seed):
+    if kind == "gray":
+        buf = _encode(_image(h, w, 1, seed)[..., 0], [cv2.IMWRITE_JPEG_QUALITY, quality])
+    else:
+        buf = _encode(_image(h, w, 3, seed), [cv2.IMWRITE_JPEG_QUALITY, quality,
+                                              cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind]])
+    _assert_like_cv2(buf)
+
+
+@pytest.mark.parametrize("name", sorted(RECORD["stills"]))
+def test_committed_stills_decode_to_recorded_cv2_frames(name):
+    data = (FIXTURES / f"{name}.jpg").read_bytes()
+    want = RECORD["stills"][name]
+    if "refused" in want:
+        with pytest.raises(jpeg.UnsupportedJpeg, match=want["refused"]):
+            jpeg.decode_plain(data)
+        return
+    img = jpeg.decode_plain(data)
+    assert list(img.shape) == want["shape"]
+    assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"]
+    np.testing.assert_array_equal(img, cv2.imdecode(np.frombuffer(data, np.uint8),
+                                                    cv2.IMREAD_UNCHANGED))
+
+
+def _segments(buf):
+    """(marker, start of segment) of each marker segment before the scan."""
+    data, pos, out = bytes(buf), 2, []
+    while data[pos + 1] != 0xDA:
+        (length,) = struct.unpack_from(">H", data, pos + 2)
+        out.append((data[pos + 1], pos))
+        pos += 2 + length
+    return data, out
+
+
+def _with_sof(buf, marker=None, precision=None):
+    data, segs = _segments(buf)
+    pos = next(p for m, p in segs if m in (0xC0, 0xC1))
+    out = bytearray(data)
+    if marker is not None:
+        out[pos + 1] = marker
+    if precision is not None:
+        out[pos + 4] = precision
+    return bytes(out)
+
+
+def _with_app14(buf, transform):
+    data = bytes(buf)
+    body = b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform)
+    return data[:2] + b"\xff\xee" + struct.pack(">H", len(body) + 2) + body + data[2:]
+
+
+def _with_ids(buf, ids):
+    data, segs = _segments(buf)
+    pos = next(p for m, p in segs if m in (0xC0, 0xC1))
+    out = bytearray(data)
+    for i, ident in enumerate(ids):
+        out[pos + 10 + 3 * i] = ident
+    # The scan header names components by id too.
+    sos = data.index(b"\xff\xda")
+    for i, ident in enumerate(ids):
+        out[sos + 5 + 2 * i] = ident
+    return bytes(out)
+
+
+def test_refused_features_raise_naming_themselves():
+    colour = _encode(_image(16, 16, 3, 0))
+    gray = _encode(_image(16, 16, 1, 0)[..., 0])
+    cases = [
+        (_encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]), "progressive"),
+        (_with_sof(colour, marker=0xC9), "arithmetic-coded"),
+        (_with_sof(colour, marker=0xC3), "lossless"),
+        (_with_sof(gray, marker=0xC5), "differential"),
+        (_with_sof(gray, precision=12), "12-bit"),
+        (_with_app14(colour, 0), "Adobe's RGB transform"),
+        (_with_ids(colour, [82, 71, 66]), "RGB JPEGs"),
+        (_encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411]), "sampling"),
+        (_encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440]), "sampling"),
+    ]
+    for data, feature in cases:
+        with pytest.raises(jpeg.UnsupportedJpeg, match=feature):
+            jpeg.decode_plain(bytes(data))
+    with pytest.raises(ValueError, match="SOI"):
+        jpeg.decode_plain(b"\x89PNG\r\n")
+    big = _encode(_image(64, 96, 3, 0))
+    with pytest.raises(ValueError, match="ends before"):
+        jpeg.decode_plain(bytes(big)[: len(big) - 200])
+
+
+def test_adobe_ycbcr_transform_is_decoded():
+    """An APP14 marker with transform 1 (YCbCr) changes nothing."""
+    buf = _encode(_image(24, 24, 3, 2))
+    want = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(jpeg.decode_plain(_with_app14(buf, 1)), want)
+
+
+def test_plain_stages_match_their_definitions():
+    """The PyTorch stages on crafted inputs: a DC-only block is flat at
+    DC * q / 8 + 128 (islow's scaling), and the colour stage maps neutral
+    chroma to gray and clamps."""
+    header = jpeg.parse(_encode(np.zeros((8, 8), np.uint8)).tobytes())
+    coefs = torch.zeros((1, 64), dtype=torch.int16)
+    coefs[0, 0] = 40
+    quant = torch.full((1, 64), 2, dtype=torch.int32)
+    samples = jpeg.idct_plain(coefs, quant, torch.zeros(1, dtype=torch.int64))
+    assert torch.equal(samples, torch.full((1, 8, 8), 138, dtype=torch.uint8))
+    coefs[0, 0] = 1000  # far past white: the clamp
+    assert int(jpeg.idct_plain(coefs, quant, torch.zeros(1, dtype=torch.int64)).min()) == 255
+    assert header.blocks == 1 and jpeg.planes_of(samples, header)[0].shape == (8, 8)
+
+
+def test_card_wrappers_refuse_cpu_tensors():
+    """J1 and J2 launch only on CUDA tensors; on the CPU the plain stages
+    are the route."""
+    header = jpeg.parse(_encode(_image(8, 8, 3, 1)).tobytes())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        jpeg.idct_cuda(torch.zeros((header.blocks, 64), dtype=torch.int16),
+                       torch.ones((3, 64), dtype=torch.int32), header)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        jpeg.color_cuda(torch.zeros((header.blocks, 8, 8), dtype=torch.uint8), header)
+
+
+def test_scan_geometry_of_the_samplings():
+    """Blocks a frame needs: each component padded to whole MCUs, at its
+    own offset, as libjpeg lays out its coefficient arrays."""
+    for kind, blocks in (("444", 3 * 6 * 9), ("422", 6 * 10 + 2 * 6 * 5), ("420", 6 * 10 + 2 * 3 * 5)):
+        buf = _encode(_image(41, 70, 3, 0), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind]])
+        header = jpeg.parse(buf.tobytes())
+        assert header.blocks == blocks, kind
+        assert [c.offset for c in header.components] == [
+            0, header.components[0].blocks_w * header.components[0].blocks_h,
+            header.blocks - header.components[2].blocks_w * header.components[2].blocks_h]

@@ -1,6 +1,6 @@
 """The port runs without the JAX side: in a fresh interpreter whose imports of
 ``sleap_tpu``, ``jax``, ``flax``, ``orbax``, ``networkx``, ``attr``, ``h5py``,
-``cv2``, ``zstandard`` and ``tensorstore`` fail, every module of
+``cv2``, ``yaml``, ``imgstore``, ``zstandard`` and ``tensorstore`` fail, every module of
 ``sleap_tpu_torch`` imports, a run folder written by the port's own config
 code loads through ``load_model``, trained ``.convergence_runs`` folders load
 from their orbax checkpoints with no ``params``, and ``predict`` returns the
@@ -12,8 +12,10 @@ instance folder; and ``python -m sleap_tpu_torch.cli.track`` reads a
 h5py and the JAX reader read back; and ``python -m sleap_tpu_torch.cli.train``
 trains a shipped profile (at filters 4) on a project of two videos of
 different sizes, scores it and ``sleap-inspect`` describes the folder and
-the project. Also: the entry points default to the card, and paths are
-read.
+the project; and frames go in and out of users' files: a PNG training
+package written and read back, an ImgStore written and read back, and the
+committed JPEG stills decoded to cv2's recorded frames. Also: the entry
+points default to the card, and paths are read.
 """
 
 import inspect
@@ -36,7 +38,7 @@ from sleap_tpu_torch.tracking import tracker
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("sleap_tpu", "jax", "jaxlib", "flax", "orbax", "networkx", "attr", "attrs", "h5py", "cv2",
-           "zstandard", "tensorstore")
+           "yaml", "imgstore", "zstandard", "tensorstore")
 
 _SCRIPT = r"""
 import importlib, json, os, pkgutil, sys
@@ -286,6 +288,31 @@ result["cli_train"] = {
     "sizes": sorted({tuple(v.shape[1:3]) for v in read_labels(project).videos}),
     "inspect": inspected,
 }
+# Frames in and out of users' files on the CPU routes: a PNG training
+# package, an ImgStore, and the JPEG stills against cv2's recorded decode.
+import hashlib
+
+from sleap_tpu_torch.io import jpeg
+
+pkg_path = os.path.join(tmp, "frames.pkg.slp")
+Labels(two_sizes).save(pkg_path, with_images=True)
+pkg_videos = read_labels(pkg_path, device="cpu").videos
+store = Video.from_numpy(frames).to_imgstore(os.path.join(tmp, "store"), frame_numbers=[0, 2],
+                                            device="cpu")
+stills = json.load(open(os.path.join("tests", "torch_data", "jpeg", "decoded.json")))["stills"]
+decoded = {}
+for name, want in stills.items():
+    if "sha256" in want and "1024" not in name:
+        data = open(os.path.join("tests", "torch_data", "jpeg", name + ".jpg"), "rb").read()
+        img = jpeg.imdecode(data, device="cpu")
+        decoded[name] = hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"]
+result["frames_io"] = {
+    "package": [bool(np.array_equal(v[:], lf.video[:]))
+                for v, lf in zip(pkg_videos, [two_sizes[0], two_sizes[-1]])],
+    "package_backends": [type(v.backend).__name__ for v in pkg_videos],
+    "imgstore": bool(np.array_equal(store.get_frames([0, 2]), frames[[0, 2]])),
+    "jpeg": decoded,
+}
 result["blocked_loaded"] = sorted(m for m, mod in sys.modules.items()
                                   if mod is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(result))
@@ -312,7 +339,8 @@ def test_every_module_imports_with_the_jax_side_blocked(standalone):
                  "ops.cuda_peaks", "ops.optical_flow", "tracking", "tracking.components",
                  "tracking.kalman", "tracking.tracker", "training.trainer",
                  "training.losses", "training.optimizers", "data.augmentation",
-                 "ops.confmaps", "ops.edge_maps"):
+                 "ops.confmaps", "ops.edge_maps", "io.hdf5", "io.png", "io.jpeg",
+                 "io.dirimgstore", "io.slp"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
 
@@ -393,6 +421,16 @@ def test_cli_trains_scores_and_inspects_two_sizes_with_the_jax_side_blocked(stan
     assert project.startswith("Labeled frames: 7\nTracks: 0\nVideo files: 2\n")
 
 
+def test_frames_in_and_out_with_the_jax_side_blocked(standalone):
+    res = standalone["frames_io"]
+    assert res["package"] == [True, True]
+    assert res["package_backends"] == ["HDF5Video", "HDF5Video"]
+    assert res["imgstore"]
+    stills = json.loads((REPO / "tests" / "torch_data" / "jpeg" / "decoded.json").read_text())
+    small = [n for n, want in stills["stills"].items() if "sha256" in want and "1024" not in n]
+    assert sorted(res["jpeg"]) == sorted(small) and all(res["jpeg"].values())
+
+
 def test_entry_points_default_to_the_card():
     for fn in (tp.load_model, tp.load_trained_model, tp.Predictor.from_model_paths,
                tracker.Tracker.make_tracker_by_name):
@@ -418,17 +456,22 @@ def test_entry_points_without_a_card_raise_instead_of_falling_back():
 @pytest.mark.parametrize("path", ["clip.slp", "clip.mp4"])
 def test_slp_and_media_paths_are_not_read_yet(path, tmp_path, monkeypatch):
     """What the port does not read yet raises, naming what is missing: a
-    ``.slp`` whose video is an ImgStore, and a media file on a machine
-    without cv2."""
+    ``.slp`` whose video is an ImgStore of video-file chunks (a directory
+    store of images is read), and a media file on a machine without cv2."""
     if path.endswith(".slp"):
         import h5py
 
+        store = tmp_path / "store"
+        store.mkdir()
+        (store / "metadata.yaml").write_text(
+            "__store:\n  chunksize: 100\n  class: VideoImgStore\n  format: mjpeg/avi\n")
         shutil.copy(REPO / "tests" / "torch_data" / "raw.slp", tmp_path / path)
         with h5py.File(tmp_path / path, "r+") as f:
             del f["videos_json"]
-            f["videos_json"] = [b'{"backend": {"type": "ImgStoreVideo", "filename": "s.yaml"}}']
+            f["videos_json"] = [json.dumps({"backend": {"type": "ImgStoreVideo",
+                                                        "filename": str(store)}}).encode()]
         with pytest.raises(NotImplementedError, match="ImgStore.*ROADMAP.md"):
-            tp._make_provider(str(tmp_path / path))
+            tp._make_provider(str(tmp_path / path), device="cpu")
         return
     (tmp_path / path).write_bytes(b"")
     monkeypatch.setitem(sys.modules, "cv2", None)
