@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
-inference, flow-shift tracking, training and the ``sleap-track``,
-``sleap-train`` and ``sleap-inspect`` CLIs once on one CUDA card, through the
+inference, flow-shift tracking, training, the ``sleap-track``,
+``sleap-train``, ``sleap-inspect`` and ``sleap-convert`` CLIs and the data
+model's API once on one CUDA card, through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
 trained run folders from their own checkpoints, the other backbones
 (ResNet, pretrained-encoder UNets, HRNet, Hourglass, LEAP) in inference,
@@ -149,8 +150,9 @@ Phases; any failure exits non-zero and no result line is printed:
    within PAIR_BOUND_PX of mean node error, and match the CPU as phase 4.
 8. ``sleap-track`` (``sleap_tpu_torch.cli.track.main``, in this process),
    after phase 7, with no ``h5py`` or ``cv2``. 8a: 32 frames of 1024^2 (4
-   sigma-8 blobs moving at most 4 px a frame over noise) written by the
-   port's ``write_labels`` as a ``.slp`` (raw ``video0_raw``), tracked by the
+   sigma-8 blobs moving at most 4 px a frame over noise, one in-memory video)
+   written by the port's ``write_labels`` as a ``.slp`` (raw ``video0_raw``),
+   tracked by the
    CLI with ``--tracking.tracker flow --batch_size 16`` on phase 4's float32
    top-down folders (their weights saved as ``best_model.pt``); the output
    read back must hold 32 frames whose instances, points, scores and tracks
@@ -286,7 +288,27 @@ Phases; any failure exits non-zero and no result line is printed:
    prints its FPS beside phase 8a's. 13d: 8 of phase 8a's frames through
    ``to_imgstore`` and ``Video.from_dict`` of its ``to_dict()``: bitwise, by
    original frame number and by position.
-5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9, 10 and 11 join its
+14. The data model on the card's Python, after phase 13 (~20 s), with no
+   pandas either: phase 8a's tracked ``.slp`` (written by the CLI on the
+   card) through ``Labels.load_file``: ``numpy()`` equals 8a's predicted
+   arrays (frames x tracks x nodes x 2), ``remove_predictions`` on a
+   ``copy()`` empties the copy and leaves the labels, ``track_swap`` over
+   the first half swaps the two columns there (and back), ``describe``
+   counts the frames and instances, and ``merge`` of the file into the
+   labels without their last frame brings that frame back and no duplicate.
+   ``python -m sleap_tpu_torch.io.convert <8a .slp> --format analysis``,
+   then ``analysis.csv``, each in a fresh process: the ``.h5``'s tracks,
+   read through the port's importer and its HDF5 reader, equal
+   ``labels.numpy()`` exactly (occupied tracks), and the CSV holds every
+   instance's points exactly. A DeepLabCut project (``config.yaml``,
+   ``labeled-data/clip/imgNNNN.png`` of DLC_FRAMES of 8a's frames,
+   ``CollectedData_me.csv`` of the blob centres, four individuals) read by
+   ``formats.read``: its points are the centres and its PNG frames decode
+   bitwise on the card; saved as ``.slp`` and tracked by ``sleap-track``
+   with phase 4's float32 pair (kernels 2, 3 and 1 once a batch), its
+   predictions equal 8a's on the same frames within CLI_TOL (instances
+   matched by their points). Prints each step's seconds and the CLI's FPS.
+5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9, 10, 11 and 14 join its
    rows at the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
@@ -295,8 +317,8 @@ Phases; any failure exits non-zero and no result line is printed:
    Kernel 1 on both the float32 and the bf16 top-down maps; a bf16
    ``find_global_peaks`` call must launch kernel 1 alone (no cast or copy).
 
-Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's
-and one of phase 13's; the line before the last is a JSON object with each
+Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
+one of phase 13's and one of phase 14's; the line before the last is a JSON object with each
 kernel's launches (J1 and J2 from phase 13c's run) (all paths' and per path), error and
 times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1762,10 +1784,14 @@ def compare_predictions(got, want, xy_tol, val_tol, what):
     return d_xy, d_val
 
 
-def check_cli_full_width(td, wrappers, launches, card):
-    """Phase 8a: a 1024^2 clip written as .slp, tracked by the CLI on phase
-    4's float32 top-down folders, against ``load_model(..., tracker="flow")``
-    in this process; returns the figures it prints."""
+def check_cli_full_width(td, wrappers, launches, card, keep=None):
+    """Phase 8a: a 1024^2 clip written as .slp (one in-memory video of 32
+    frames), tracked by the CLI on phase 4's float32 top-down folders,
+    against ``load_model(..., tracker="flow")`` in this process; returns the
+    figures it prints. With ``keep`` (a dict holding a directory under
+    "dir"), the clip and the CLI's output move there, and ``keep`` gains
+    their paths ("clip", "slp") and the predicted labels read back
+    ("labels") for phase 14."""
     import sleap_tpu_torch
     from sleap_tpu_torch.core.instance import LabeledFrame
     from sleap_tpu_torch.core.labels import Labels
@@ -1783,8 +1809,8 @@ def check_cli_full_width(td, wrappers, launches, card):
                        os.path.join(path, "best_model.pt"))
         clip, out = os.path.join(root, "clip.slp"), os.path.join(root, "clip.predictions.slp")
         t0 = time.perf_counter()
-        write_labels(clip, Labels([LabeledFrame(Video.from_numpy(frames), i)
-                                   for i in range(CLI_FRAMES)]))
+        video = Video.from_numpy(frames)
+        write_labels(clip, Labels([LabeledFrame(video, i) for i in range(CLI_FRAMES)]))
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         source = read_labels(clip)
@@ -1807,6 +1833,10 @@ def check_cli_full_width(td, wrappers, launches, card):
         got = read_labels(out)
         out_read_s = time.perf_counter() - t0
         out_mb = os.path.getsize(out) / 1e6
+        if keep is not None:
+            keep["clip"] = shutil.move(clip, os.path.join(keep["dir"], "clip.slp"))
+            keep["slp"] = shutil.move(out, os.path.join(keep["dir"], "clip.predictions.slp"))
+            keep["labels"] = got
     n_batches = -(-CLI_FRAMES // BATCH)
     for kernel, count in counts.items():
         check(count == n_batches, f"8a: {kernel} launched {count} times by the CLI, want one a batch")
@@ -3505,6 +3535,203 @@ def jpeg_kernel_rows(jpeg_rows, launches):
 # --------------------------------------------------------------------------- #
 
 
+DLC_FRAMES = tuple(range(0, CLI_FRAMES, 2))  # phase 14's DeepLabCut project: 16 of 8a's frames
+
+
+def match_instances(got, want, tol, what):
+    """Two frames' predictions in any order: each instance of ``got`` has
+    one of ``want`` whose visible points and scores are within ``tol``.
+    Returns (max |dxy|, max |dscore|)."""
+    check(len(got) == len(want), f"{what}: {len(got)} instances, want {len(want)}")
+    d_xy = d_val = 0.0
+    free = list(want)
+    for inst in got:
+        xy = inst.numpy()
+
+        def gap(other):
+            oxy = other.numpy()
+            if not np.array_equal(np.isnan(xy), np.isnan(oxy)):
+                return np.inf
+            return float(np.abs(np.nan_to_num(xy - oxy)).max())
+
+        best = min(free, key=gap)
+        d_xy = max(d_xy, gap(best))
+        d_val = max(d_val, abs(inst.score - best.score),
+                    float(np.abs(inst.points["score"] - best.points["score"]).max()))
+        free.remove(best)
+    check(d_xy <= tol and d_val <= tol,
+          f"{what}: max |dxy| {d_xy:.3g}, max |dscore| {d_val:.3g} (tolerance {tol})")
+    return d_xy, d_val
+
+
+def write_dlc_project(root, frames, xy):
+    """A multi-animal DeepLabCut project of ``DLC_FRAMES``: ``config.yaml``,
+    ``labeled-data/clip/imgNNNN.png`` (the port's PNG encoder) and
+    ``CollectedData_me.csv`` holding each blob's centre. Returns the
+    config's path and the PNG encode seconds."""
+    from sleap_tpu_torch.io import png
+
+    sub = os.path.join(root, "labeled-data", "clip")
+    os.makedirs(sub)
+    animals = [f"animal{i}" for i in range(xy.shape[1])]
+    with open(os.path.join(root, "config.yaml"), "w") as fh:
+        fh.write("Task: blobs\nscorer: me\ndate: Jan1\nmultianimalproject: true\nidentity:\n"
+                 f"project_path: {root}\nvideo_sets:\n  {root}/videos/clip.avi:\n"
+                 f"    crop: 0, {IMG}, 0, {IMG}\nindividuals:\n" + "".join(f"- {a}\n" for a in animals)
+                 + "uniquebodyparts: []\nmultianimalbodyparts:\n- blob\nbodyparts: MULTI!\nskeleton: []\n"
+                 "pcutoff: 0.6\n")
+    rows = ["scorer," + ",".join(["me"] * 2 * len(animals)),
+            "individuals," + ",".join(a for a in animals for _ in "xy"),
+            "bodyparts," + ",".join(["blob"] * 2 * len(animals)),
+            "coords," + ",".join(c for _ in animals for c in "xy")]
+    encode_s = 0.0
+    for k in DLC_FRAMES:
+        t0 = time.perf_counter()
+        data = png.encode(frames[k])
+        encode_s += time.perf_counter() - t0
+        with open(os.path.join(sub, f"img{k:04d}.png"), "wb") as fh:
+            fh.write(data)
+        rows.append(f"labeled-data/clip/img{k:04d}.png," + ",".join(repr(float(v)) for v in xy[k].reshape(-1)))
+    with open(os.path.join(sub, "CollectedData_me.csv"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    return os.path.join(root, "config.yaml"), encode_s
+
+
+def check_data_model(td, wrappers, launches, card, kept, fps_8a):
+    """Phase 14: the card's Python on the labels the card predicted (phase
+    8a's tracked ``.slp``): the data model's calls, ``sleap-convert`` to an
+    analysis ``.h5`` and ``.csv`` in fresh processes, and a DeepLabCut
+    project of 8a's frames imported and tracked by ``sleap-track``. Returns
+    the figures it prints."""
+    import contextlib
+    import io
+
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.io import formats, hdf5
+    from sleap_tpu_torch.io.slp import read_labels
+
+    seconds = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    predicted = kept["labels"]
+    labels = step("load", lambda: Labels.load_file(kept["slp"]))
+    names = [t.name for t in labels.tracks]
+    want = np.full((CLI_FRAMES, len(names), N_NODES, 2), np.nan, np.float32)
+    for lf in predicted:
+        for inst in lf.instances:
+            want[lf.frame_idx, names.index(inst.track.name)] = inst.numpy()
+    arr = step("numpy", labels.numpy)
+    check(arr.shape == want.shape and np.array_equal(arr, want, equal_nan=True),
+          f"14: Labels.numpy() {arr.shape} is 8a's predictions {want.shape}")
+    cleared = step("copy and remove_predictions",
+                   lambda: (lambda c: (c.remove_predictions(), c)[1])(labels.copy()))
+    check(len(cleared) == 0 and len(labels) == CLI_FRAMES
+          and np.array_equal(labels.numpy(), arr, equal_nan=True),
+          "14: remove_predictions empties the copy and leaves the labels")
+    a, b = labels.tracks[0], labels.tracks[1]
+    half = CLI_FRAMES // 2
+    step("track_swap", lambda: labels.track_swap(labels.video, b, a, (0, half)))
+    swapped = arr.copy()
+    swapped[:half, [0, 1]] = arr[:half, [1, 0]]
+    check(np.array_equal(labels.numpy(), swapped, equal_nan=True), "14: track_swap swaps the columns")
+    labels.track_swap(labels.video, a, b, (0, half))
+    check(np.array_equal(labels.numpy(), arr, equal_nan=True), "14: track_swap back")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        step("describe", labels.describe)
+    n_insts = sum(len(lf.instances) for lf in predicted)
+    check(f"Frames (user/predicted): 0/{CLI_FRAMES}" in printed.getvalue()
+          and f"Instances (user/predicted): 0/{n_insts}" in printed.getvalue(),
+          f"14: describe: {printed.getvalue()[-200:]}")
+    # (the merged frame brings the other file's skeleton: describe first)
+    labels.remove_frame(labels.labeled_frames[-1])
+    step("merge", lambda: labels.merge(Labels.load_file(kept["slp"])))
+    check([len(lf.instances) for lf in labels] == [len(lf.instances) for lf in predicted],
+          "14: merge adds the missing frame and no duplicate")
+    check(np.array_equal(labels.labeled_frames[-1].numpy(), predicted.labeled_frames[-1].numpy(),
+                         equal_nan=True), "14: the merged frame's points")
+
+    # sleap-convert in fresh processes: the analysis .h5, then the CSV.
+    here = os.path.dirname(os.path.abspath(__file__))
+    stem = os.path.join(kept["dir"], "clip.predictions.000_clip.analysis")
+    for fmt, suffix in (("analysis", ".h5"), ("analysis.csv", ".csv")):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "sleap_tpu_torch.io.convert", kept["slp"], "--format", fmt],
+                             cwd=here, capture_output=True, text=True, timeout=300)
+        seconds[f"convert {fmt}"] = time.perf_counter() - t0
+        check(run.returncode == 0 and f"Saved: {stem}{suffix}" in run.stdout,
+              f"14: sleap-convert --format {fmt}: exit {run.returncode} {run.stdout[-300:]} {run.stderr[-2000:]}")
+    fresh = Labels.load_file(kept["slp"]).numpy()
+    occupied = ~np.all(np.isnan(fresh), axis=(0, 2, 3))
+    imported = step("analysis import", lambda: formats.read(stem + ".h5"))
+    check(np.array_equal(imported.numpy(all_frames=False), fresh[:, occupied], equal_nan=True),
+          "14: the analysis file's tracks read back equal labels.numpy()")
+    with hdf5.File(stem + ".h5") as f:
+        raw = f["tracks"][:].T  # (frames, nodes, 2, tracks)
+    check(np.array_equal(raw.transpose(0, 3, 1, 2), fresh[:, occupied].astype(np.float64), equal_nan=True),
+          "14: the analysis file's tracks dataset")
+    with open(stem + ".csv") as fh:
+        rows = list(csv.reader(fh))
+    got_xy = {(int(r[0]), r[1]): [float(v) if v else np.nan for v in r[3:]] for r in rows[1:]}
+    check(len(got_xy) == n_insts, f"14: {len(got_xy)} CSV rows, want {n_insts}")
+    bad = [k for k, v in got_xy.items() if not np.array_equal(
+        np.asarray(v).reshape(N_NODES, 3)[:, :2],
+        fresh[k[0], names.index(k[1])].astype(np.float64), equal_nan=True)]
+    check(not bad, f"14: CSV points differ at {bad[:3]}")
+
+    # A DeepLabCut project of 8a's frames, imported and tracked.
+    frames, xy = cli_frames()
+    with tempfile.TemporaryDirectory() as root:
+        config, encode_s = write_dlc_project(os.path.join(root, "blobs-me-2026-01-01"), frames, xy)
+        seconds["dlc write (png encode)"] = encode_s
+        dlc = step("dlc import", lambda: formats.read(config))
+        check(len(dlc) == len(DLC_FRAMES) and [t.name for t in dlc.tracks] == [f"animal{i}" for i in range(4)],
+              "14: the DeepLabCut project's frames and individuals")
+        points = np.stack([[i.numpy()[0] for i in lf.instances] for lf in dlc])
+        check(np.array_equal(points, xy[list(DLC_FRAMES)]), "14: the project's points are the blob centres")
+        decoded = step("dlc frames decode", lambda: dlc.video[:])
+        check(np.array_equal(decoded, frames[list(DLC_FRAMES)]), "14: the PNG frames decode bitwise")
+        dlc_slp = os.path.join(root, "dlc.slp")
+        step("dlc save", lambda: dlc.save(dlc_slp))
+        folders = write_run_folders(root)
+        paths = [folders["centroid"], folders["instance"]]
+        for path, tm in zip(paths, (td.centroid_model, td.confmap_model)):
+            torch.save({k: v.float().cpu() for k, v in tm.module.state_dict().items()},
+                       os.path.join(path, "best_model.pt"))
+        out = os.path.join(root, "dlc.predictions.slp")
+        cli_s, counts = cli_run([dlc_slp, "-m", paths[0], "-m", paths[1], "--batch_size", str(BATCH),
+                                 "--max_instances", str(MAX_INSTANCES), "--verbosity", "none", "-o", out],
+                                wrappers)
+        seconds["dlc sleap-track"] = cli_s
+        got = read_labels(out)
+    n_batches = -(-len(DLC_FRAMES) // BATCH)
+    for kernel, count in counts.items():
+        check(count == n_batches, f"14: {kernel} launched {count} times by the CLI, want one a batch")
+        launches[kernel]["CLI DeepLabCut project (14)"] = count
+    by_frame = {lf.frame_idx: lf for lf in predicted}
+    check([lf.frame_idx for lf in got] == list(range(len(DLC_FRAMES))), "14: a prediction a project frame")
+    d_xy = d_val = 0.0
+    for lf in got:
+        dx, dv = match_instances(lf.instances, by_frame[DLC_FRAMES[lf.frame_idx]].instances, CLI_TOL,
+                                 f"14: DeepLabCut frame {lf.frame_idx} vs 8a frame {DLC_FRAMES[lf.frame_idx]}")
+        d_xy, d_val = max(d_xy, dx), max(d_val, dv)
+    fps = len(DLC_FRAMES) / cli_s
+    figures = {"seconds": seconds, "tracks_shape": list(arr.shape), "instances": n_insts,
+               "dlc_frames": len(DLC_FRAMES), "dlc_cli_fps": fps, "cli_fps_8a": fps_8a,
+               "launches": counts, "max_abs_dxy": d_xy, "max_abs_dscore": d_val}
+    for name, value in seconds.items():
+        log(f"14 {name}: {value:.3f} s ({card})")
+    log(f"14 sleap-track on the DeepLabCut project ({len(DLC_FRAMES)} PNG frames of {IMG}^2): "
+        f"{cli_s:.3f} s = {fps:.1f} FPS (8a: {fps_8a:.1f} FPS); launches {counts}; vs 8a max |dxy| "
+        f"{d_xy:.3g}, max |dscore| {d_val:.3g} ({card})")
+    return figures
+
+
 def step_grads(trainer, init, examples, dtype, inputs=None):
     """One train-mode forward and backward of ``trainer``'s module from the
     weights and statistics ``init`` on ``examples``: float32 runs the
@@ -4079,9 +4306,10 @@ def main() -> int:
                 "top-down pair": check_train_pair(card, td_wrappers, launches)}
     log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
 
-    # Phase 8: sleap-track from .slp to .slp.
+    # Phase 8: sleap-track from .slp to .slp (8a's output kept for phase 14).
     t8 = time.perf_counter()
-    cli = {"full_width": check_cli_full_width(td, td_wrappers, launches, card),
+    kept = {"dir": tempfile.mkdtemp(prefix="chip_smoke_8a_")}
+    cli = {"full_width": check_cli_full_width(td, td_wrappers, launches, card, keep=kept),
            "fixtures": check_cli_fixtures(all_wrappers, launches, card)}
     log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
 
@@ -4114,13 +4342,21 @@ def main() -> int:
     frames_io = {"png": png_figures, "jpeg": jpeg_figures, "jpeg_cli": jpeg_cli,
                  "imgstore": check_imgstore(card)}
     log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    # Phase 14: the data model, sleap-convert and a DeepLabCut project.
+    t14 = time.perf_counter()
+    try:
+        data_model = check_data_model(td, td_wrappers, launches, card, kept, cli["full_width"]["cli_fps"])
+    finally:
+        shutil.rmtree(kept["dir"], ignore_errors=True)
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
     kernels += jpeg_kernel_rows(jpeg_rows, launches)
 
     leaked = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2",
-        "zstandard", "tensorstore", "yaml", "imgstore")]
+        "zstandard", "tensorstore", "yaml", "imgstore", "pandas")]
     check(not leaked, f"JAX-side modules imported: {leaked[:5]}")
 
     for name, value in fps.items():
@@ -4135,6 +4371,7 @@ def main() -> int:
     print(json.dumps({"backbone_training": backbone_training, "card": card}), flush=True)
     print(json.dumps({"media": media, "card": card}), flush=True)
     print(json.dumps({"frames_io": frames_io, "card": card}), flush=True)
+    print(json.dumps({"data_model": data_model, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -13,7 +13,7 @@ setup(
     ),
     package_data={
         "sleap_tpu": ["skeletons/*.json", "training_profiles/*.json"],
-        "sleap_tpu_torch": ["csrc/*.cu", "training_profiles/*.json"],
+        "sleap_tpu_torch": ["csrc/*.cu", "skeletons/*.json", "training_profiles/*.json"],
     },
     python_requires=">=3.10",
     install_requires=[

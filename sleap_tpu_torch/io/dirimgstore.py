@@ -20,254 +20,23 @@ On disk, as loopbio's ``DirectoryImgStore``::
         index.npz            # {"frame_number": [...], "frame_time": [...]}
       000001/ ...
 
-``metadata.yaml`` is written as PyYAML's ``safe_dump`` writes it (block
-style, keys sorted). The reader takes block and flow mappings and
-sequences (flow ones across lines too), quoted and plain scalars, numbers,
-booleans and nulls, and comments: what loopbio's stores write. Anything else (anchors, tags,
-multi-line scalars) raises ``ValueError`` naming the line.
+``metadata.yaml`` is read and written through the port's YAML subset
+(:mod:`sleap_tpu_torch.io.yamlsubset`), as PyYAML's ``safe_load`` reads it
+and ``safe_dump`` writes it.
 """
 
 from __future__ import annotations
 
-import json
 import os
-import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from sleap_tpu_torch.io import jpeg, png
+from sleap_tpu_torch.io.yamlsubset import yaml_dump, yaml_load
 
 STORE_MD_FILENAME = "metadata.yaml"
 _CHUNK_INDEX = "index.npz"
-
-
-# --------------------------------------------------------------------------- #
-# The YAML subset
-# --------------------------------------------------------------------------- #
-
-_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
-_FLOAT = re.compile(r"[-+]?(\.[0-9]+|[0-9][0-9_]*(\.[0-9_]*)?)([eE][-+]?[0-9]+)?$")
-
-
-def _scalar(text: str, where: str) -> Any:
-    """A plain or quoted YAML scalar."""
-    text = text.strip()
-    if text[:1] == '"':
-        if not text.endswith('"') or len(text) < 2:
-            raise ValueError(f"{where}: unterminated double-quoted scalar.")
-        return json.loads(text)
-    if text[:1] == "'":
-        if not text.endswith("'") or len(text) < 2:
-            raise ValueError(f"{where}: unterminated single-quoted scalar.")
-        return text[1:-1].replace("''", "'")
-    if text[:1] in ("&", "*", "!", "|", ">", "%", "@", "`"):
-        raise ValueError(f"{where}: YAML {text[:1]!r} (anchors, tags, block scalars) is not supported.")
-    low = text.lower()
-    if low in ("", "~", "null"):
-        return None
-    if low in ("true", "false"):
-        return low == "true"
-    if _INT.match(text):
-        return int(text.replace("_", ""))
-    if low in (".inf", "+.inf", "-.inf", ".nan"):
-        return float(low.replace(".", ""))
-    if _FLOAT.match(text) and any(ch.isdigit() for ch in text):
-        return float(text.replace("_", ""))
-    return text
-
-
-def _split_flow(body: str, where: str) -> List[str]:
-    """The comma-separated items of a flow collection's body, nested
-    brackets and quotes kept whole."""
-    items, depth, quote, start = [], 0, None, 0
-    for i, ch in enumerate(body):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "\"'":
-            quote = ch
-        elif ch in "[{":
-            depth += 1
-        elif ch in "]}":
-            depth -= 1
-        elif ch == "," and depth == 0:
-            items.append(body[start:i])
-            start = i + 1
-    if quote or depth:
-        raise ValueError(f"{where}: unbalanced flow collection.")
-    items.append(body[start:])
-    return [item for item in items if item.strip()]
-
-
-def _value(text: str, where: str) -> Any:
-    """A scalar, or a flow sequence or mapping, on one line."""
-    text = text.strip()
-    if text.startswith("["):
-        if not text.endswith("]"):
-            raise ValueError(f"{where}: flow sequences must close on their line.")
-        return [_value(item, where) for item in _split_flow(text[1:-1], where)]
-    if text.startswith("{"):
-        if not text.endswith("}"):
-            raise ValueError(f"{where}: flow mappings must close on their line.")
-        out = {}
-        for item in _split_flow(text[1:-1], where):
-            key, sep, rest = _key_split(item)
-            if not sep:
-                raise ValueError(f"{where}: flow mapping item {item.strip()!r} has no key.")
-            out[_scalar(key, where)] = _value(rest, where)
-        return out
-    return _scalar(text, where)
-
-
-def _key_split(text: str) -> Tuple[str, str, str]:
-    """``key: rest`` at the first ": " (or a trailing ":") outside quotes."""
-    quote = None
-    for i, ch in enumerate(text):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "\"'":
-            quote = ch
-        elif ch == ":" and (i + 1 == len(text) or text[i + 1] in " \t"):
-            return text[:i], ":", text[i + 1:]
-        elif ch in "[{":
-            break
-    return text, "", ""
-
-
-def _strip_comment(line: str) -> str:
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "\"'":
-            quote = ch
-        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i]
-    return line
-
-
-def _open_brackets(text: str) -> int:
-    """How many flow brackets ``text`` leaves open, outside quotes."""
-    depth, quote = 0, None
-    for ch in text:
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "\"'":
-            quote = ch
-        elif ch in "[{":
-            depth += 1
-        elif ch in "]}":
-            depth -= 1
-    return depth
-
-
-def yaml_load(text: str) -> Any:
-    """Parse the YAML subset described in the module docstring."""
-    lines = []
-    for n, raw in enumerate(text.splitlines(), 1):
-        if raw.strip() in ("---", "..."):
-            continue
-        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
-            raise ValueError(f"line {n}: tabs in indentation are not YAML.")
-        line = _strip_comment(raw).rstrip()
-        if not line.strip():
-            continue
-        if lines and _open_brackets(lines[-1][1]) > 0:  # a flow collection goes on
-            indent, head, where = lines[-1]
-            lines[-1] = (indent, head + " " + line.strip(), where)
-        else:
-            lines.append((len(line) - len(line.lstrip(" ")), line.strip(), f"line {n}"))
-    if not lines:
-        return None
-    value, end = _block(lines, 0, lines[0][0])
-    if end != len(lines):
-        raise ValueError(f"{lines[end][2]}: unexpected indentation.")
-    return value
-
-
-def _block(lines, i: int, indent: int) -> Tuple[Any, int]:
-    """The block collection (or lone scalar) whose lines start at ``i`` with
-    ``indent``; returns it and the index past it."""
-    _, text, where = lines[i]
-    if text == "-" or text.startswith("- "):
-        out = []
-        while i < len(lines) and lines[i][0] == indent and (
-                lines[i][1] == "-" or lines[i][1].startswith("- ")):
-            rest, where = lines[i][1][1:].strip(), lines[i][2]
-            i += 1
-            if rest:
-                key, sep, value = _key_split(rest)
-                if sep and not rest.startswith(("[", "{", '"', "'")):
-                    raise ValueError(f"{where}: mappings inside block sequences are not supported.")
-                out.append(_value(rest, where))
-            elif i < len(lines) and lines[i][0] > indent:
-                item, i = _block(lines, i, lines[i][0])
-                out.append(item)
-            else:
-                out.append(None)
-        return out, i
-    key, sep, _ = _key_split(text)
-    if not sep:
-        return _value(text, where), i + 1
-    out: Dict[Any, Any] = {}
-    while i < len(lines) and lines[i][0] == indent:
-        _, text, where = lines[i]
-        key, sep, rest = _key_split(text)
-        if not sep:
-            raise ValueError(f"{where}: expected 'key: value', found {text!r}.")
-        i += 1
-        if rest.strip():
-            out[_scalar(key, where)] = _value(rest, where)
-        elif i < len(lines) and (lines[i][0] > indent or (
-                lines[i][0] == indent and (lines[i][1] == "-" or lines[i][1].startswith("- ")))):
-            out[_scalar(key, where)], i = _block(lines, i, lines[i][0])
-        else:
-            out[_scalar(key, where)] = None
-    return out, i
-
-
-def _dump_scalar(value: Any) -> str:
-    if value is None:
-        return "null"
-    if isinstance(value, bool):
-        return "true" if value else "false"
-    if isinstance(value, (int, float)):
-        return repr(value)
-    text = str(value)
-    if text and _scalar(text, "") == text and not re.search(r"[:#,\[\]{}]|^[-?\s]|\s$", text):
-        return text
-    return "'" + text.replace("'", "''") + "'"
-
-
-def yaml_dump(value: Any, indent: int = 0) -> str:
-    """``yaml.safe_dump`` of nested dicts, lists and scalars: block style,
-    keys sorted, sequence items at their key's indentation."""
-    pad = " " * indent
-    if isinstance(value, dict):
-        out = ""
-        for key in sorted(value):
-            item = value[key]
-            if isinstance(item, dict) and item:
-                out += f"{pad}{_dump_scalar(key)}:\n" + yaml_dump(item, indent + 2)
-            elif isinstance(item, (list, tuple)) and item:
-                out += f"{pad}{_dump_scalar(key)}:\n" + yaml_dump(list(item), indent)
-            else:
-                empty = {} if isinstance(item, dict) else [] if isinstance(item, (list, tuple)) else None
-                text = "{}" if empty == {} else "[]" if empty == [] else _dump_scalar(item)
-                out += f"{pad}{_dump_scalar(key)}: {text}\n"
-        return out
-    if isinstance(value, list):
-        out = ""
-        for item in value:
-            if isinstance(item, (dict, list)) and item:
-                raise ValueError("yaml_dump writes sequences of scalars only.")
-            out += f"{pad}- {_dump_scalar(item)}\n"
-        return out
-    return f"{pad}{_dump_scalar(value)}\n"
 
 
 # --------------------------------------------------------------------------- #

@@ -25,18 +25,22 @@ raises :class:`UnsupportedFeature`, which names the feature and the file.
 The API is h5py's, cut down: ``File(path)``, ``f[name]``, ``.attrs``,
 ``ds[...]``, ``ds.shape``, ``ds.dtype``, ``in``, ``keys()``.
 
-Writer (:class:`Writer`): what ``write_labels`` and the frame exporters
-write, laid out as h5py's ``libver="earliest"`` lays it out: superblock
-version 0, symbol-table groups (nested too), datasets of numeric, ``bool``
-(an ``int8`` enum), compound and fixed-length string types, and attributes
-of those types. A dataset is contiguous and uncompressed (empty ones with an
-undefined address), or, with ``compression="gzip"``, chunked (layout
-message version 3, a version 1 B-tree chunk index of node type 1) and
-deflated through a filter pipeline. The default chunk is one row of the
-first axis, grouped to at least 64 KiB where rows are smaller: one encoded
-frame or one raw frame a chunk, so a reader inflates one frame at a time.
-``Writer(path, "a")`` reads the file there first (within the reader's
-subset: no variable-length strings) and writes it again with what is added.
+Writer (:class:`Writer`): what ``write_labels``, the frame exporters and
+the analysis export write, laid out as h5py's ``libver="earliest"`` lays it
+out: superblock version 0, symbol-table groups (nested too), datasets of
+numeric, ``bool`` (an ``int8`` enum), compound and fixed-length string
+types, and of variable-length UTF-8 strings (a ``str``, or an object array
+of them, as h5py stores them: one global heap collection holds every
+string), and attributes of the fixed-size types. A dataset is contiguous
+and uncompressed (empty ones with an undefined address), or, with
+``compression="gzip"`` (at level ``compression_opts``) or ``chunks``,
+chunked (layout message version 3, a version 1 B-tree chunk index of node
+type 1; none for an empty dataset) and deflated through a filter pipeline.
+The default chunk is one row of the first axis, grouped to at least 64 KiB
+where rows are smaller: one encoded frame or one raw frame a chunk, so a
+reader inflates one frame at a time; :func:`guess_chunk` is h5py's own
+choice. ``Writer(path, "a")`` reads the file there first and writes it
+again with what is added.
 """
 
 from __future__ import annotations
@@ -781,6 +785,40 @@ def _message(mtype: int, data: bytes) -> bytes:
     return struct.pack("<HHB3x", mtype, len(data), 0) + data
 
 
+_CHUNK_BASE, _CHUNK_MIN, _CHUNK_MAX = 16 * 1024, 8 * 1024, 1024 * 1024
+
+
+def guess_chunk(shape: Tuple[int, ...], itemsize: int) -> Tuple[int, ...]:
+    """The chunk shape h5py picks for a dataset it chunks on its own
+    (h5py's ``filters.guess_chunk``): halve the axes in turn until a chunk
+    is near a target size that grows with the dataset's."""
+    chunks = np.array([n if n != 0 else 1024 for n in shape], dtype="=f8")
+    if len(chunks) == 0:
+        raise ValueError("Chunks not allowed for scalar datasets.")
+    target = _CHUNK_BASE * (2 ** np.log10(np.prod(chunks) * itemsize / (1024.0 * 1024)))
+    target = min(max(target, _CHUNK_MIN), _CHUNK_MAX)
+    idx = 0
+    while True:
+        chunk_bytes = np.prod(chunks) * itemsize
+        if (chunk_bytes < target or abs(chunk_bytes - target) / target < 0.5) and chunk_bytes < _CHUNK_MAX:
+            break
+        if np.prod(chunks) == 1:
+            break
+        chunks[idx % len(chunks)] = np.ceil(chunks[idx % len(chunks)] / 2.0)
+        idx += 1
+    return tuple(int(x) for x in chunks)
+
+
+# A variable-length UTF-8 string: class 9 (sequence type 1, null-terminated,
+# charset 1) of 16-byte heap IDs, over a 1-byte unsigned base type.
+_VLEN_STR_TYPE = struct.pack("<BBBBI", 0x19, 0x01, 0x01, 0x00, 16) + struct.pack(
+    "<BBxxIHH", 0x10, 0, 1, 0, 8)
+
+
+def _is_vlen(data: Any) -> bool:
+    return isinstance(data, str) or (isinstance(data, np.ndarray) and data.dtype == object)
+
+
 def _as_array(value: Any) -> np.ndarray:
     if isinstance(value, str):
         value = value.encode("utf-8")
@@ -820,12 +858,21 @@ class WritableGroup:
         """A dataset of ``data``, or of zeros of ``shape`` and ``dtype`` to
         fill by assignment. ``compression`` "gzip" (deflate at level
         ``compression_opts``) or ``chunks`` make it chunked; ``None`` and no
-        chunks, contiguous."""
+        chunks, contiguous. A ``str``, or an object array of them, is a
+        dataset of variable-length UTF-8 strings, always contiguous."""
         parent, leaf = self._parent_of(name)
         if leaf in parent.children:
             raise ValueError(f"{name!r} already exists.")
         if compression not in (None, "gzip"):
             raise ValueError(f"Compression {compression!r} is not supported (gzip or None).")
+        if _is_vlen(data):
+            strings = np.array(data, dtype=object)
+            if not all(isinstance(v, str) for v in strings.reshape(-1)):
+                raise TypeError(f"{name!r}: an object array must hold str (variable-length strings).")
+            if chunks is not None:
+                raise ValueError(f"{name!r}: variable-length strings are written contiguous.")
+            parent.children[leaf] = WritableDataset(strings)
+            return parent.children[leaf]
         if data is None:
             if shape is None:
                 raise ValueError(f"{name!r}: give data, or a shape and dtype.")
@@ -836,7 +883,7 @@ class WritableGroup:
                 raise ValueError(f"{name!r}: data of shape {data.shape} given for shape {tuple(shape)}.")
         _encode_dtype(data.dtype)  # fail now on an unwritable dtype
         level = (4 if compression_opts is None else int(compression_opts)) if compression else None
-        parent.children[leaf] = WritableDataset(np.ascontiguousarray(data), level, chunks)
+        parent.children[leaf] = WritableDataset(np.asarray(data, order="C"), level, chunks)
         return parent.children[leaf]
 
 
@@ -857,9 +904,10 @@ class WritableDataset:
         self.data = data
         self.attrs: Dict[str, Any] = {}
         self.level = level
-        chunked = (level is not None or chunks is not None) and data.size > 0 and data.ndim > 0
+        chunked = (level is not None or chunks is not None) and data.ndim > 0
         if chunked and chunks is None:
-            chunks = _default_chunks(data.shape, data.dtype.itemsize)
+            chunks = (_default_chunks(data.shape, data.dtype.itemsize) if data.size
+                      else guess_chunk(data.shape, data.dtype.itemsize))
         if chunked and (len(chunks) != data.ndim or min(chunks) < 1):
             raise ValueError(f"Chunks {chunks} do not fit a dataset of shape {data.shape}.")
         self.chunks = tuple(int(c) for c in chunks) if chunked else None
@@ -901,6 +949,8 @@ class Writer(WritableGroup):
     def close(self) -> None:
         self._blocks: List[Tuple[int, Any]] = []
         self._eof = 96  # the superblock
+        self._heap_ids: Dict[int, List[Tuple[int, int]]] = {}
+        self._write_global_heap(self)
         root, stab = self._write_group(self)
         superblock = SIGNATURE + struct.pack("<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, _LEAF_K, _INTERNAL_K, 0)
         superblock += struct.pack("<4Q", 0, _UNDEF, self._eof, _UNDEF)
@@ -918,6 +968,39 @@ class Writer(WritableGroup):
         addr = self._eof
         self._eof += _pad8(size)
         return addr
+
+    def _write_global_heap(self, root: WritableGroup) -> None:
+        """One global heap collection with every variable-length string of
+        the file, as HDF5 writes it: objects from index 1 (empty strings
+        too), then the free space (index 0) to at least 4096 bytes; each
+        dataset's (length, index) pairs go to ``self._heap_ids``."""
+        datasets, stack = [], [root]
+        while stack:
+            group = stack.pop()
+            for name in sorted(group.children, key=lambda n: n.encode()):
+                child = group.children[name]
+                if isinstance(child, WritableGroup):
+                    stack.append(child)
+                elif child.data.dtype == object:
+                    datasets.append(child)
+        if not datasets:
+            return
+        body = bytearray()
+        index = 0
+        for ds in datasets:
+            ids = []
+            for value in ds.data.reshape(-1):
+                encoded = value.encode("utf-8")
+                index += 1
+                body += struct.pack("<HHIQ", index, 0, 0, len(encoded))
+                body += encoded.ljust(_pad8(len(encoded)), b"\0")
+                ids.append((len(encoded), index))
+            self._heap_ids[id(ds)] = ids
+        size = max(4096, 16 + len(body) + 16)
+        body += struct.pack("<HHIQ", 0, 0, 0, size - 16 - len(body))
+        self._heap_addr = self._reserve(size)
+        self._blocks.append((self._heap_addr, (b"GCOL" + struct.pack("<B3xQ", 1, size) + bytes(body))
+                             .ljust(size, b"\0")))
 
     def _object_header(self, messages: List[bytes]) -> int:
         body = b"".join(messages)
@@ -941,6 +1024,19 @@ class Writer(WritableGroup):
         data = ds.data
         if ds.chunks is not None:
             return self._write_chunked(ds)
+        if data.dtype == object:
+            raw = b"".join(struct.pack("<IQI", length, self._heap_addr, index)
+                           for length, index in self._heap_ids[id(ds)])
+            addr = self._reserve(len(raw)) if raw else _UNDEF
+            if raw:
+                self._blocks.append((addr, raw))
+            messages = [
+                _message(_DATASPACE, _encode_dataspace(data.shape)),
+                _message(_DATATYPE, _VLEN_STR_TYPE),
+                _message(_FILL, struct.pack("<4BI", 2, 2, 0, 1, 0)),  # late, on alloc, defined, empty
+                _message(_LAYOUT, struct.pack("<BBQQ", 3, 1, addr, len(raw))),
+            ]
+            return self._object_header(messages + self._attribute_messages(ds.attrs))
         if data.nbytes:
             addr = self._reserve(data.nbytes)
             self._blocks.append((addr, memoryview(data.reshape(-1).view(np.uint8))))
@@ -976,6 +1072,8 @@ class Writer(WritableGroup):
             addr = self._reserve(len(raw))
             self._blocks.append((addr, raw))
             entries.append((start, len(raw), addr))
+        if not entries:  # an empty dataset: no chunk, no index
+            return self._chunked_header(ds, _UNDEF)
         key_size = 8 + 8 * (rank + 1)
         node_size = 24 + (2 * _CHUNK_K + 1) * key_size + 2 * _CHUNK_K * 8
 
@@ -1005,6 +1103,10 @@ class Writer(WritableGroup):
                 btree = nodes[0][1]
                 break
             level, depth = nodes, depth + 1
+        return self._chunked_header(ds, btree)
+
+    def _chunked_header(self, ds: WritableDataset, btree: int) -> int:
+        data, chunks, rank = ds.data, ds.chunks, ds.data.ndim
         layout = struct.pack("<BBBQ", 3, 2, rank + 1, btree)
         layout += struct.pack(f"<{rank + 1}I", *chunks, data.dtype.itemsize)
         messages = [
@@ -1085,9 +1187,14 @@ def _copy_group(src: Group, dst: WritableGroup) -> None:
         if isinstance(obj, Group):
             _copy_group(obj, dst.require_group(name))
             continue
-        if isinstance(obj.dtype, VlenStr):
-            raise obj.file._fail(f"rewriting variable-length strings ({obj.name})")
         data = obj[()] if obj.shape == () else obj[...]
+        if isinstance(obj.dtype, VlenStr):
+            strings = np.array(data, dtype=object)
+            for i, v in enumerate(strings.reshape(-1)):
+                strings.reshape(-1)[i] = v.decode("utf-8")
+            dst.create_dataset(name, data=strings if obj.shape != () else strings[()],
+                               compression=None).attrs.update(obj.attrs)
+            continue
         levels = [values[0] if values else 4 for fid, values in obj.filters if fid == 1]
         ds = dst.create_dataset(name, data=data, compression="gzip" if levels else None,
                                 compression_opts=levels[0] if levels else None, chunks=obj.chunks)

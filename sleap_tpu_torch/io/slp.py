@@ -260,7 +260,7 @@ def _serialize_metadata(labels: Labels) -> Dict[str, Any]:
         for node in skel.nodes:
             if not any(node is n for n in all_nodes):
                 all_nodes.append(node)
-    node_to_idx = {id(node): i for i, node in enumerate(all_nodes)}
+    node_to_idx = {node: i for i, node in enumerate(all_nodes)}
     anchors = labels.negative_anchors
     return {
         "version": "2.0.0",

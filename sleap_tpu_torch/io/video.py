@@ -23,8 +23,9 @@ come back as numpy (H, W, C) arrays from
 - :class:`DummyVideo`, a placeholder of a given shape.
 
 :class:`Video` wraps a backend and (de)serializes it as the ``videos_json``
-entries of ``.slp`` files. Videos compare by identity, as the port's
-``Labels`` registers them.
+entries of ``.slp`` files. Videos compare as the JAX package's do: by
+backend type, filename and dataset (an in-memory video only to itself), and
+hash by identity.
 """
 
 from __future__ import annotations
@@ -65,6 +66,10 @@ class DummyVideo:
     frames: int = 10000
     channels: int = 1
     dummy: bool = True
+
+    @property
+    def test_frame(self) -> np.ndarray:
+        return self.get_frame(0)
 
     def get_frame(self, idx: int) -> np.ndarray:
         return np.zeros((self.height, self.width, self.channels), dtype="uint8")
@@ -156,6 +161,10 @@ class MediaVideo:
     @property
     def width(self) -> int:
         return self.test_frame.shape[1]
+
+    @property
+    def dtype(self):
+        return self.test_frame.dtype
 
     def reset(
         self,
@@ -281,6 +290,13 @@ class HDF5Video:
         return bool(self._format_)
 
     @property
+    def source_video_available(self) -> bool:
+        """True when a frame missing from the file is read from the
+        recorded source video."""
+        self._open()
+        return self.enable_source_video and self._source_video_dict is not None
+
+    @property
     def source_video(self) -> Optional["Video"]:
         self._open()
         if self._source_video_dict is None:
@@ -316,6 +332,10 @@ class HDF5Video:
         return self._dim(2, 3, 1)
 
     @property
+    def dtype(self):
+        return self.test_frame.dtype
+
+    @property
     def last_frame_idx(self) -> int:
         """The highest original frame number where a frame-number mapping
         exists, else the last row."""
@@ -324,11 +344,15 @@ class HDF5Video:
             return max(self._frame_map.keys())
         return self.frames - 1
 
-    def close(self) -> None:
-        """Release the open file."""
+    def reset(self) -> None:
+        """Release the open file; the next read opens it again."""
         if self._file_ is not None:
             self._file_.close()
         self.__post_init__(self.device)
+
+    def close(self) -> None:
+        """Release the open file."""
+        self.reset()
 
     def get_frame(self, idx: int) -> np.ndarray:
         ds = self._open()
@@ -396,6 +420,17 @@ class NumpyVideo:
     def channels(self) -> int:
         return self.data.shape[3]
 
+    @property
+    def test_frame(self) -> np.ndarray:
+        return self.get_frame(0)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def reset(self) -> None:
+        pass
+
     def get_frame(self, idx: int) -> np.ndarray:
         return np.asarray(self.data[idx])
 
@@ -446,11 +481,35 @@ class SingleImageVideo:
         return self.channels_ or self.test_frame.shape[2]
 
     @property
+    def dtype(self):
+        return self.test_frame.dtype
+
+    @property
     def is_grayscale(self) -> bool:
         if self.grayscale is None:
             frame = self.test_frame
             self.grayscale = bool(frame.shape[-1] == 1 or np.all(frame[..., 0] == frame[..., -1]))
         return self.grayscale
+
+    def reset(self, filename: Optional[str] = None, filenames: Optional[List[str]] = None,
+              grayscale: Optional[bool] = None) -> None:
+        """Drop the cached frames and sizes, and optionally point at other
+        images (not both ``filename`` and ``filenames``); a new image
+        detects grayscale again unless ``grayscale`` is given."""
+        if filename is not None and filenames:
+            raise ValueError("Cannot specify both filename and filenames on reset.")
+        self._cache = {}
+        self.height_ = self.width_ = self.channels_ = None
+        if filename is not None:
+            self.filename = filename
+            self.filenames = [filename]
+        elif filenames:
+            self.filenames = list(filenames)
+            self.filename = self.filenames[0]
+        if grayscale is not None:
+            self.grayscale = grayscale
+        elif filename is not None or filenames:
+            self.grayscale = None
 
     def _read(self, path: str) -> np.ndarray:
         """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``, or None where the
@@ -519,6 +578,10 @@ class ImgStoreVideo:
     @property
     def channels(self) -> int:
         return 1 if self._img.ndim == 2 else self._img.shape[2]
+
+    @property
+    def dtype(self):
+        return self._img.dtype
 
     @property
     def last_frame_idx(self) -> int:
@@ -608,6 +671,14 @@ class Video:
         return self.backend.frames
 
     @property
+    def last_frame_idx(self) -> int:
+        """The highest frame index: the backend's where it has one (the
+        highest original frame number of embedded frames), else the last
+        frame."""
+        backend_idx = getattr(self.backend, "last_frame_idx", None)
+        return backend_idx if backend_idx is not None else self.num_frames - 1
+
+    @property
     def shape(self) -> Tuple[int, int, int, int]:
         b = self.backend
         return (b.frames, b.height, b.width, b.channels)
@@ -623,6 +694,18 @@ class Video:
         if np.isscalar(idxs):
             idxs = [int(idxs)]
         return np.stack([self.get_frame(i) for i in idxs], axis=0)
+
+    def get_frames_safely(self, idxs: Sequence[int]) -> Tuple[List[int], Optional[np.ndarray]]:
+        """The frames that can be read, with their indices (None when no
+        frame can)."""
+        out_idxs, frames = [], []
+        for i in idxs:
+            try:
+                frames.append(self.get_frame(i))
+                out_idxs.append(i)
+            except Exception:
+                continue
+        return out_idxs, (np.stack(frames, axis=0) if frames else None)
 
     def __getitem__(self, idxs) -> np.ndarray:
         """Always (n, H, W, C), a scalar index included."""
@@ -641,6 +724,27 @@ class Video:
     def filename(self) -> str:
         fn = getattr(self.backend, "filename", "")
         return fn if isinstance(fn, str) else "numpy_video"
+
+    def __eq__(self, other) -> bool:
+        """The JAX package's video equality: the same backend type, filename
+        and dataset; an in-memory video equals only itself (the JAX
+        package's in-memory videos all compare equal once read, since their
+        filename becomes "numpy_video")."""
+        if not isinstance(other, Video):
+            return NotImplemented
+        if type(self.backend) is not type(other.backend):
+            return False
+        if isinstance(self.backend, NumpyVideo):
+            return self.backend is other.backend
+        if getattr(self.backend, "filename", None) != getattr(other.backend, "filename", None):
+            return False
+        return getattr(self.backend, "dataset", None) == getattr(other.backend, "dataset", None)
+
+    def __hash__(self) -> int:
+        return id(self)
+
+    def matches(self, other: "Video") -> bool:
+        return self == other
 
     # -- construction and serialization ------------------------------------ #
     @classmethod
@@ -780,6 +884,9 @@ class Video:
         d.setdefault("dataset", getattr(b, "dataset", "") or "")
         d.setdefault("input_format", getattr(b, "input_format", "") or "")
         return {"backend": d}
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
 
 
 def load_video(

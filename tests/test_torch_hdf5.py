@@ -194,6 +194,54 @@ def test_writer_output_reads_back_through_h5py(tmp_path):
     assert assert_same_file(path) > 300
 
 
+def test_writer_variable_length_strings_read_back_through_h5py(tmp_path):
+    """Scalar and array variable-length UTF-8 strings (one global heap
+    collection, empty strings too, past 4096 bytes), as h5py writes a
+    ``str``; the port's reader and h5py read them; "a" mode keeps them."""
+    path = str(tmp_path / "strings.h5")
+    long = ["x" * 3000, "é" * 900]
+    with hdf5.Writer(path) as w:
+        w.create_dataset("scalar", data="hello wörld")
+        w.create_dataset("empty", data="")
+        w.create_dataset("array", data=np.array(["ab", "", "c"] + long, dtype=object))
+        w.create_dataset("grid", data=np.array([["a", "b"], ["cc", ""]], dtype=object))
+    with h5py.File(path, "r") as f:
+        for name in ("scalar", "empty", "array", "grid"):
+            info = h5py.check_string_dtype(f[name].dtype)
+            assert (info.encoding, info.length) == ("utf-8", None), name
+            assert f[name].compression is None and f[name].chunks is None
+        assert f["scalar"][()] == "hello wörld".encode() and f["empty"][()] == b""
+        assert [v.decode() for v in f["array"][:]] == ["ab", "", "c"] + long
+        assert f["grid"].shape == (2, 2) and f["grid"][1, 0] == b"cc"
+    with hdf5.Writer(path, "a") as w:
+        w.create_dataset("more", data="added")
+    mine = hdf5.File(path)
+    assert mine["scalar"][()] == "hello wörld".encode() and mine["more"][()] == b"added"
+    assert [v.decode() for v in mine["array"][:]] == ["ab", "", "c"] + long
+    with h5py.File(path, "r") as f:
+        assert f["grid"][0, 1] == b"b" and f["more"][()] == b"added"
+
+
+@pytest.mark.parametrize("level", [1, 4, 9])
+def test_writer_compression_level_reads_back_through_h5py(level, tmp_path):
+    path = str(tmp_path / "levels.h5")
+    data = np.random.default_rng(level).normal(size=(40, 3, 2, 5))
+    chunks = hdf5.guess_chunk(data.shape, data.dtype.itemsize)
+    with hdf5.Writer(path) as w:
+        w.create_dataset("data", data=data, compression="gzip", compression_opts=level, chunks=chunks)
+        w.create_dataset("empty", data=np.zeros(0, np.int32), compression="gzip", compression_opts=level)
+    with h5py.File(path, "r") as f:
+        assert (f["data"].compression, f["data"].compression_opts, f["data"].chunks) == ("gzip", level, chunks)
+        np.testing.assert_array_equal(f["data"][:], data)
+        assert f["empty"].shape == (0,) and f["empty"].chunks == (1024,)
+        assert f["empty"].compression_opts == level
+    with h5py.File(str(tmp_path / "ref.h5"), "w") as f:
+        ref = f.create_dataset("data", data=data, compression="gzip", compression_opts=level)
+        assert ref.chunks == chunks  # h5py's own chunk choice
+    np.testing.assert_array_equal(hdf5.File(path)["data"][:], data)
+    assert hdf5.File(path)["empty"][:].shape == (0,)
+
+
 def test_writer_refuses_what_it_cannot_write(tmp_path):
     with pytest.raises(TypeError, match="dtype"):
         hdf5.Writer(str(tmp_path / "x.h5")).create_dataset("u", data=np.array(["text"]))

@@ -1,6 +1,6 @@
 """The port runs without the JAX side: in a fresh interpreter whose imports of
 ``sleap_tpu``, ``jax``, ``flax``, ``orbax``, ``networkx``, ``attr``, ``h5py``,
-``cv2``, ``yaml``, ``imgstore``, ``zstandard`` and ``tensorstore`` fail, every module of
+``cv2``, ``yaml``, ``imgstore``, ``zstandard``, ``tensorstore`` and ``pandas`` fail, every module of
 ``sleap_tpu_torch`` imports, a run folder written by the port's own config
 code loads through ``load_model``, trained ``.convergence_runs`` folders load
 from their orbax checkpoints with no ``params``, and ``predict`` returns the
@@ -14,7 +14,10 @@ trains a shipped profile (at filters 4) on a project of two videos of
 different sizes, scores it and ``sleap-inspect`` describes the folder and
 the project; and frames go in and out of users' files: a PNG training
 package written and read back, an ImgStore written and read back, and the
-committed JPEG stills decoded to cv2's recorded frames. Also: the entry
+committed JPEG stills decoded to cv2's recorded frames; and the data
+model's calls (``numpy``, ``remove_predictions``, a track swap, ``merge``,
+``describe``), ``sleap-convert`` to an analysis ``.h5`` and ``.csv``, and a
+DeepLabCut project import. Also: the entry
 points default to the card, and paths are read.
 """
 
@@ -38,7 +41,7 @@ from sleap_tpu_torch.tracking import tracker
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("sleap_tpu", "jax", "jaxlib", "flax", "orbax", "networkx", "attr", "attrs", "h5py", "cv2",
-           "yaml", "imgstore", "zstandard", "tensorstore")
+           "yaml", "imgstore", "zstandard", "tensorstore", "pandas")
 
 _SCRIPT = r"""
 import importlib, json, os, pkgutil, sys
@@ -313,6 +316,64 @@ result["frames_io"] = {
     "imgstore": bool(np.array_equal(store.get_frames([0, 2]), frames[[0, 2]])),
     "jpeg": decoded,
 }
+# The data model, sleap-convert and a DeepLabCut import.
+from sleap_tpu_torch.core.instance import Track
+from sleap_tpu_torch.io import convert, formats, png
+from sleap_tpu_torch.io.hdf5 import File as H5File
+
+dm_skel = Skeleton("pair")
+dm_skel.add_nodes(["a", "b"])
+dm_skel.add_edge("a", "b")
+dm_tracks = [Track(0, "t0"), Track(0, "t1")]
+dm_video = Video.from_numpy(np.zeros((6, 8, 8, 1), np.uint8))
+dm_rng = np.random.default_rng(0)
+dm = Labels([LabeledFrame(dm_video, i, [PredictedInstance.from_arrays(dm_rng.uniform(0, 8, (2, 2)), np.ones(2),
+                                                                      0.5, dm_skel, track=t) for t in dm_tracks])
+             for i in range(0, 6, 2)])
+tracks_before = dm.numpy()
+first_points = np.stack([[i.numpy() for i in lf.instances] for lf in dm.labeled_frames]).astype("f4")
+cleared = dm.copy()
+cleared.remove_predictions()
+dm.track_swap(dm_video, dm_tracks[1], dm_tracks[0], (0, 3))
+other = Labels([LabeledFrame(dm_video, 5, [PredictedInstance.from_arrays(np.ones((2, 2)), np.ones(2), 0.5,
+                                                                         dm_skel, track=dm_tracks[0])])])
+dm.merge(other)
+described = io.StringIO()
+with contextlib.redirect_stdout(described):
+    dm.describe()
+dm_path = os.path.join(tmp, "dm.slp")
+dm.save(dm_path)
+with contextlib.redirect_stdout(io.StringIO()):
+    convert.main([dm_path, "--format", "analysis", "-o", os.path.join(tmp, "dm.h5")], device="cpu")
+    convert.main([dm_path, "--format", "analysis.csv", "-o", os.path.join(tmp, "dm.csv")], device="cpu")
+analysis = formats.read(os.path.join(tmp, "dm.h5"), device="cpu")
+with H5File(os.path.join(tmp, "dm.h5")) as f:
+    h5_keys = sorted(f.keys())
+dlc_dir = os.path.join(tmp, "dlc", "labeled-data", "clip")
+os.makedirs(dlc_dir)
+with open(os.path.join(tmp, "dlc", "config.yaml"), "w") as fh:
+    fh.write("Task: t\nscorer: me\nmultianimalproject: false\nbodyparts:\n- a\n- b\nskeleton:\n- - a\n  - b\n")
+rows = ["scorer,me,me,me,me", "bodyparts,a,a,b,b", "coords,x,y,x,y"]
+for i in range(3):
+    with open(os.path.join(dlc_dir, f"img{i:04d}.png"), "wb") as fh:
+        fh.write(png.encode(np.full((8, 8, 1), 40 * i, np.uint8)))
+    rows.append(f"labeled-data/clip/img{i:04d}.png,{i}.5,2.0,3.0,{i + 4}.0")
+with open(os.path.join(dlc_dir, "CollectedData_me.csv"), "w") as fh:
+    fh.write("\n".join(rows) + "\n")
+dlc = Labels.load_deeplabcut(os.path.join(tmp, "dlc", "config.yaml"), device="cpu")
+result["data_model"] = {
+    "numpy_shape": list(tracks_before.shape),
+    "numpy_equal": bool(np.array_equal(tracks_before[[0, 2, 4]], first_points)),
+    "cleared": [len(cleared), len(dm.labeled_frames) > 0],
+    "swapped": [[i.track.name for i in lf.instances] for lf in dm.labeled_frames],
+    "described": described.getvalue().splitlines()[2:4],
+    "h5_keys": h5_keys,
+    "analysis_equal": bool(np.array_equal(analysis.numpy(all_frames=False), dm.numpy(all_frames=False),
+                                          equal_nan=True)),
+    "csv_lines": len(open(os.path.join(tmp, "dm.csv")).read().splitlines()),
+    "dlc": [len(dlc), dlc.skeleton.node_names, dlc.labeled_frames[1].instances[0].numpy().tolist(),
+            int(dlc.video.get_frame(2)[0, 0, 0])],
+}
 result["blocked_loaded"] = sorted(m for m, mod in sys.modules.items()
                                   if mod is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(result))
@@ -429,6 +490,19 @@ def test_frames_in_and_out_with_the_jax_side_blocked(standalone):
     stills = json.loads((REPO / "tests" / "torch_data" / "jpeg" / "decoded.json").read_text())
     small = [n for n, want in stills["stills"].items() if "sha256" in want and "1024" not in n]
     assert sorted(res["jpeg"]) == sorted(small) and all(res["jpeg"].values())
+
+
+def test_data_model_convert_and_dlc_with_the_jax_side_blocked(standalone):
+    res = standalone["data_model"]
+    assert res["numpy_shape"] == [6, 2, 2, 2] and res["numpy_equal"]
+    assert res["cleared"] == [0, True]
+    assert res["swapped"] == [["t1", "t0"], ["t1", "t0"], ["t0", "t1"], ["t0"]]
+    assert res["described"] == ["Frames (user/predicted): 0/4", "Instances (user/predicted): 0/7"]
+    assert res["h5_keys"] == sorted(["edge_inds", "edge_names", "instance_scores", "labels_path", "node_names",
+                                     "point_scores", "provenance", "track_names", "track_occupancy", "tracks",
+                                     "tracking_scores", "video_ind", "video_path"])
+    assert res["analysis_equal"] and res["csv_lines"] == 8
+    assert res["dlc"] == [3, ["a", "b"], [[1.5, 2.0], [3.0, 5.0]], 80]
 
 
 def test_entry_points_default_to_the_card():
