@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
 inference, flow-shift tracking, training, the ``sleap-track``,
-``sleap-train``, ``sleap-inspect`` and ``sleap-convert`` CLIs and the data
-model's API once on one CUDA card, through the
+``sleap-train``, ``sleap-inspect``, ``sleap-convert`` and ``sleap-export``
+CLIs, exported programs and the data model's API once on one CUDA card,
+through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
 trained run folders from their own checkpoints, the other backbones
 (ResNet, pretrained-encoder UNets, HRNet, Hourglass, LEAP) in inference,
@@ -10,7 +11,9 @@ float32 and bf16, and in training, and H.264 ``.mp4`` reading (NVDEC).
 
     python3 chip_smoke.py
 
-Phases; any failure exits non-zero and no result line is printed:
+Phases; any failure exits non-zero and no result line is printed. Each
+phase prints its seconds on a line of its own ("phase N took S s"), and the
+script its total before the ``kernels`` line:
 
 1. The card: CUDA must be available; print its name and power limit, then
    what the machine offers to decode H.264 (print only, never fails): the
@@ -206,14 +209,15 @@ Phases; any failure exits non-zero and no result line is printed:
    10b: the same with ``resnet`` ResNet50 (default upsampling); kernels 2,
    3 and 1 once a batch. 10c: single-instance 512^2, batch 4, on
    Hourglass (3 stacks), HRNet (C 18), LEAP and the pretrained-encoder
-   EfficientNet-b0 UNet; kernel 1 once a batch. Each: 8 timed batches (FPS,
+   EfficientNet-b0 UNet; kernel 1 once a batch. Each: BB_TIMED_BATCHES timed batches (FPS,
    device ms a batch from ``torch.profiler``), one batch with ``Labels``,
    and the card against the same folders loaded with ``device="cpu"`` on
    BB_CPU_FRAMES frames within PATH_XY_TOL and PATH_VAL_TOL. 10d: a library
    ``predict`` leaves the caller's TF32 flags as it found them; and
    ``python -m sleap_tpu_torch.cli.track`` in a fresh process (no TF32
    flag set by this one) on the card against ``--cpu``, on 8b's float32
-   pair and on 10b's folders, within PATH_XY_TOL and PATH_VAL_TOL.
+   pair and on 10b's folders, within PATH_XY_TOL and PATH_VAL_TOL (the four
+   processes at once).
 11. Training the other backbones, and their bf16 inference, after phase 10,
    on its configs. 11a: one train step of LEAP, Hourglass (3 stacks), HRNet
    (C 18), ``resnet`` ResNet50 and the pretrained-encoder EfficientNet-b0
@@ -222,7 +226,7 @@ Phases; any failure exits non-zero and no result line is printed:
    weights, TF32 off: in float32 through the trainer (the loss held; the
    gradients and statistics printed), and in float64 on the same images and
    ground truth (loss, gradients and statistics held; every statistic
-   moved). 11b: TRAIN_STEPS synchronised train steps after TRAIN_WARMUP,
+   moved). 11b: BB_TRAIN_STEPS synchronised train steps after TRAIN_WARMUP,
    float32 and mixed precision, single-instance BB_SI_IMG^2 batch
    BB_SI_BATCH on Hourglass, HRNet, LEAP, EfficientNet-b0 and ResNet50, and
    top-down pretrained-encoder ResNet-50 on crops of CROP of 1024^2 frames,
@@ -234,7 +238,7 @@ Phases; any failure exits non-zero and no result line is printed:
    BB_CLI_BOUND_PX and agrees with ``device="cpu"`` within PATH_XY_TOL and
    PATH_VAL_TOL. 11d: phase 10's folders and weights with
    ``compute_dtype=torch.bfloat16`` (kernels 4, 3, 1 top-down, kernel 1
-   single-instance, once a batch; batch norm float32), 8 timed batches and
+   single-instance, once a batch; batch norm float32), BB_TIMED_BATCHES timed batches and
    one profiled, the card's bf16 maps through kernel 1 against the plain
    version on the CPU (values exact, xy within XY_TOL).
 12. H.264 ``.mp4`` on the card, after phase 11 (~10 s where NVDEC is
@@ -308,7 +312,7 @@ Phases; any failure exits non-zero and no result line is printed:
    with phase 4's float32 pair (kernels 2, 3 and 1 once a batch), its
    predictions equal 8a's on the same frames within CLI_TOL (instances
    matched by their points). Prints each step's seconds and the CLI's FPS.
-5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9, 10, 11 and 14 join its
+5. (Run after 4d, before 4e; the launches of 4e-4g, 6, 7c, 8, 9, 10, 11, 14 and 15 join its
    rows at the end.) Time each kernel and its plain version: per call with CUDA events (50
    back-to-back calls, in turns), device time with ``torch.profiler`` (the
    kernel's own device functions over 20 calls), the bound (bytes moved at
@@ -317,14 +321,30 @@ Phases; any failure exits non-zero and no result line is printed:
    Kernel 1 on both the float32 and the bf16 top-down maps; a bf16
    ``find_global_peaks`` call must launch kernel 1 alone (no cast or copy).
 
+15. ``sleap-export`` on the card, after phase 14. 15a: phase 4's float32
+   top-down ``predict``-er exported (``Predictor.export_model``, batch 16,
+   1024^2), loaded back with ``load_exported_model`` and run on phase 4's
+   frames; 15b: the same for phase 4b's bf16 bottom-up predictor; 15c: the
+   trained ``.convergence_runs`` single-instance folder (its own
+   checkpoint, 4g's frames in RGB) through ``predict`` and as a program.
+   Each program's arrays equal ``predict``'s on the same batches within
+   EXPORT_XY_TOL px and EXPORT_VAL_TOL (largest differences printed), its
+   kernels (1, 2, 3; 4; 1) launch once a batch, and its FPS is printed
+   beside ``predict``'s. 15d: phase 8a's tracked ``.slp`` re-tracked by the
+   tracker's ``main`` (flow) on the card and with ``--cpu``: the same
+   instances and tracks, tracking scores within TRACK_SCORE_TOL; then
+   ``info.trackcleaner`` to MAX_INSTANCES a frame, ``info.summary``'s series
+   and ``info.metrics``' distances (0 between the two files).
+
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
-one of phase 13's and one of phase 14's; the line before the last is a JSON object with each
+one of phase 13's, one of phase 14's and one of phase 15's; the line before the last is a JSON object with each
 kernel's launches (J1 and J2 from phase 13c's run) (all paths' and per path), error and
 times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import csv
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -501,15 +521,37 @@ BB_STEP_SIZE, BB_STEP_BATCH = 128, 2
 BB_STEP_LOSS_RTOL, BB_STEP_GRAD_RTOL, BB_STEP_STATS_RTOL = 1e-5, 1e-4, 1e-5
 BB_TRAIN_BACKBONES = ("Hourglass", "HRNet", "LEAP", "pretrained-encoder EfficientNet-b0",
                       "resnet ResNet50", "pretrained-encoder ResNet-50")
+# 11b's timed steps and phase 10's timed batches (were 20 and 8, as phase
+# 7's and phase 4's): the script must fit its recipe's time limit, and these
+# host-bound loops swing most with the machine.
+BB_TRAIN_STEPS, BB_TIMED_BATCHES = 5, 3
 BB_CLI_IMG, BB_CLI_FRAMES, BB_CLI_HELD_OUT, BB_CLI_BATCH = 256, 32, 12, 4
 BB_CLI_STACKS, BB_CLI_SIGMA = 1, 5.0
 BB_CLI_EPOCHS, BB_CLI_BATCHES, BB_CLI_LR = 20, 40, 1e-3
 BB_CLI_BOUND_PX = 5.0
 
+# Phase 15: an exported program against ``predict`` on the same frames, on
+# the card: the same kernels on the same maps, so refined points within the
+# kernels' tolerance and values within VAL_TOL's order.
+EXPORT_XY_TOL, EXPORT_VAL_TOL = 1e-4, 1e-5
+
+# The JAX side and what only it needs: the port imports none of these.
+JAX_SIDE = ("jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2",
+            "zstandard", "tensorstore", "yaml", "imgstore", "pandas")
+
 # The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
 # the tensor cores for the kernels' few operations per byte.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+
+def timed_phase(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, printing the phase's seconds on a line of
+    their own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"phase {name} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def log(msg):
@@ -2691,7 +2733,7 @@ def drive_backbones(root, drive, fps, td_frames, td_wrappers, si_wrappers, card)
     import sleap_tpu_torch
 
     gen = torch.Generator().manual_seed(10)
-    si_frames = synthetic_frames((1 + TIMED_BATCHES) * BB_SI_BATCH, seed=10, size=BB_SI_IMG,
+    si_frames = synthetic_frames((1 + BB_TIMED_BATCHES) * BB_SI_BATCH, seed=10, size=BB_SI_IMG,
                                  blobs=1, sigma=12.0)
     centroid = write_run_folders(root)["centroid"]
     folders = backbone_folders(root, centroid)
@@ -2762,8 +2804,8 @@ def check_cli_fresh_process(resnet_pair, frames, card):
     (no TF32 flag set by this process; the CLI turns TF32 off itself), on
     the card and with ``--cpu``: phase 8b's float32 pair on ``raw.slp`` and
     10b's folders (weights in ``best_model.pt``) on a .slp of
-    BB_CPU_FRAMES frames of 1024^2; the two within PATH_XY_TOL and
-    PATH_VAL_TOL."""
+    BB_CPU_FRAMES frames of 1024^2, the four processes at once; the two
+    within PATH_XY_TOL and PATH_VAL_TOL."""
     from sleap_tpu_torch.core.instance import LabeledFrame
     from sleap_tpu_torch.core.labels import Labels
     from sleap_tpu_torch.io.slp import read_labels, write_labels
@@ -2784,27 +2826,31 @@ def check_cli_fresh_process(resnet_pair, frames, card):
              ["-m", resnet_pair[0], "-m", resnet_pair[1], "--max_instances", str(MAX_INSTANCES),
               "--batch_size", str(BB_CPU_FRAMES)]),
         ]
+        # All four processes at once (each mostly imports torch and loads).
+        procs = {}
+        t0 = time.perf_counter()
         for k, (name, src, models) in enumerate(cases):
-            outs = []
             for flag in ((), ("--cpu",)):
                 out = os.path.join(root, f"{k}{''.join(flag)}.slp")
-                t0 = time.perf_counter()
-                run = subprocess.run(
+                procs[k, flag] = (out, subprocess.Popen(
                     [sys.executable, "-m", "sleap_tpu_torch.cli.track", src, *models,
                      "--verbosity", "none", *flag, "-o", out],
-                    cwd=here, capture_output=True, text=True, timeout=300)
-                check(run.returncode == 0, f"10d {name} {flag}: exit {run.returncode}: "
-                      f"{run.stderr[-2000:]}")
-                outs.append((read_labels(out), time.perf_counter() - t0))
-            (got, card_s), (want, cpu_s) = outs
+                    cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for (k, flag), (out, proc) in procs.items():
+            _, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"10d {cases[k][0]} {flag}: exit {proc.returncode}: "
+                  f"{stderr[-2000:]}")
+        figures["processes_s"] = time.perf_counter() - t0
+        for k, (name, src, models) in enumerate(cases):
+            got, want = (read_labels(procs[k, flag][0]) for flag in ((), ("--cpu",)))
             n = sum(len(lf.instances) for lf in got)
             check(n >= len(got) > 0, f"10d {name}: instances in every frame")
             d = compare_predictions(got, want, PATH_XY_TOL, PATH_VAL_TOL,
                                     f"10d {name}: fresh-process CLI, card vs --cpu")
-            figures[name] = {"card_s": card_s, "cpu_s": cpu_s, "instances": n,
-                             "max_abs_dxy": d[0], "max_abs_dscore": d[1]}
-            log(f"10d fresh-process CLI {name}: card {card_s:.1f} s, --cpu {cpu_s:.1f} s, "
-                f"{n} instances; max |dxy| {d[0]:.3g}, max |dscore| {d[1]:.3g} ({card})")
+            figures[name] = {"instances": n, "max_abs_dxy": d[0], "max_abs_dscore": d[1]}
+            log(f"10d fresh-process CLI {name}, card vs --cpu: {n} instances; max |dxy| "
+                f"{d[0]:.3g}, max |dscore| {d[1]:.3g} ({card})")
+        log(f"10d four fresh processes at once: {figures['processes_s']:.1f} s ({card})")
     return figures
 
 
@@ -3732,6 +3778,167 @@ def check_data_model(td, wrappers, launches, card, kept, fps_8a):
     return figures
 
 
+# --------------------------------------------------------------------------- #
+# Phase 15: sleap-export and re-tracking
+# --------------------------------------------------------------------------- #
+
+
+def program_arrays(out):
+    """An exported program's outputs as the host arrays ``predict`` keeps."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy() for k, v in out.items()}
+
+
+def exported_vs_predict(pred, got, want):
+    """Largest |difference| of a program batch's outputs, through the
+    predictor's host step, from one ``predict`` example: points and values
+    separately; NaN patterns and masks must be equal."""
+    host = pred._postprocess(program_arrays(got), {"scale": np.ones(len(want["frame_ind"]), np.float32)})
+    d_xy = d_val = 0.0
+    for key, value in host.items():
+        pairs = zip(value, want[key]) if isinstance(value, list) else [(value, want[key])]
+        for a, b in pairs:
+            a, b = np.asarray(a), np.asarray(b)
+            check(a.shape == b.shape and np.array_equal(np.isnan(a.astype(np.float64)),
+                                                        np.isnan(b.astype(np.float64))),
+                  f"15: {key} shapes and NaN patterns")
+            d = float(np.abs(np.nan_to_num(a.astype(np.float64) - b.astype(np.float64))).max(initial=0))
+            if key in ("instance_peaks", "centroids", "points"):
+                d_xy = max(d_xy, d)
+            else:
+                d_val = max(d_val, d)
+    return d_xy, d_val
+
+
+def check_exported(name, pred, frames, want, wrappers, launches, fps, card, batch=BATCH):
+    """15a-c: ``pred`` exported on the card at its batch and the frames'
+    size, loaded back with ``load_exported_model`` and run on the frames
+    ``predict`` ran in its timed batches (``want``, its example dicts):
+    outputs within EXPORT_XY_TOL and EXPORT_VAL_TOL of ``predict``'s, each
+    kernel of ``wrappers`` launched once a batch; FPS beside ``predict``'s."""
+    from sleap_tpu_torch.inference.export import load_exported_model
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        pred.export_model(root, image_size=frames.shape[1])
+        export_s = time.perf_counter() - t0
+        with open(os.path.join(root, "info.json")) as f:
+            info = json.load(f)
+        program_mb = os.path.getsize(os.path.join(root, "model.pt2")) / 1e6
+        t0 = time.perf_counter()
+        program = load_exported_model(root)
+        load_s = time.perf_counter() - t0
+    check(torch.device(info["device"]).type == "cuda" and info["input_shape"] == [batch, *frames.shape[1:]],
+          f"15 {name}: a program for the card and the path's batches ({info})")
+    program(frames[:batch])  # warm-up
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    outs = [program(frames[i:i + batch]) for i in range(batch, len(frames), batch)]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    for kernel, count in counts.items():
+        check(count == len(outs), f"15 {name}: {kernel} launched {count} times, want one a batch")
+        launches[kernel][f"exported {name} (15)"] = count
+    check(len(want) == len(outs), f"15 {name}: a predict batch for each program batch")
+    diffs = [exported_vs_predict(pred, got, ex) for got, ex in zip(outs, want)]
+    d_xy, d_val = max(d for d, _ in diffs), max(d for _, d in diffs)
+    program_fps = (len(frames) - batch) / run_s
+    figures = {"predictor": info["predictor"], "export_s": export_s, "load_s": load_s,
+               "program_mb": program_mb, "fps": program_fps, "predict_fps": fps,
+               "max_abs_dxy": d_xy, "max_abs_dval": d_val, "launches": counts}
+    log(f"15 exported {name} ({info['predictor']}, {info['compute_dtype']}, input "
+        f"{info['input_shape']}): export {export_s:.2f} s, {program_mb:.1f} MB, load {load_s:.2f} s; "
+        f"{len(frames) - batch} frames in {run_s:.3f} s = {program_fps:.1f} FPS (predict: {fps:.1f} "
+        f"FPS); launches {counts}; vs predict max |dxy| {d_xy:.3g}, max |dval| {d_val:.3g} ({card})")
+    check(d_xy <= EXPORT_XY_TOL and d_val <= EXPORT_VAL_TOL,
+          f"15 {name}: the program vs predict: max |dxy| {d_xy:.3g} (tolerance {EXPORT_XY_TOL}), "
+          f"max |dval| {d_val:.3g} ({EXPORT_VAL_TOL})")
+    return figures
+
+
+def check_trained_export(drive, wrappers, launches, fps, card):
+    """15c: the trained ``.convergence_runs`` single-instance folder, read
+    from its checkpoint, through ``predict`` (timed as the paths are) and
+    as an exported program, on 4g's frames (RGB, as the model was trained)."""
+    import sleap_tpu_torch
+
+    name, folders, size = TRAINED[2]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".convergence_runs", folders[0])
+    frames = np.repeat(synthetic_frames((1 + TIMED_BATCHES) * SI_BATCH, seed=0, size=size,
+                                        blobs=TRAINED_BLOBS, sigma=TRAINED_SIGMA), 3, axis=-1)
+    pred = sleap_tpu_torch.load_model(path, batch_size=SI_BATCH, peak_threshold=0.05)
+    label = f"{name} (15c)"
+    want = drive(label, pred, frames, wrappers, SI_BATCH)
+    return check_exported(name, pred, frames, want, wrappers, launches, fps[label], card, SI_BATCH)
+
+
+def check_retrack(kept, card):
+    """15d: phase 8a's tracked ``.slp`` re-tracked by the tracker's ``main``
+    (flow) on the card and with ``--cpu``: the same instances and tracks;
+    then ``trackcleaner`` to MAX_INSTANCES a frame, and ``summary`` and
+    ``metrics`` on the result. Returns the figures it prints. (Run beside
+    the exports in a second process, the CPU's flow and the exports' tracing
+    slowed each other 4-5x on the card's machine.)"""
+    import contextlib
+    import io
+
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.info import metrics, summary, trackcleaner
+    from sleap_tpu_torch.tracking import tracker
+
+    seconds, outs = {}, {}
+    for where, flags in (("card", []), ("cpu", ["--cpu"])):
+        outs[where] = os.path.join(kept["dir"], f"retracked.{where}.slp")
+        t0 = time.perf_counter()
+        tracker.main([kept["slp"], "-o", outs[where], *flags])
+        seconds[f"retrack {where}"] = time.perf_counter() - t0
+    card_labels, cpu_labels = (Labels.load_file(outs[w]) for w in ("card", "cpu"))
+    insts = [i for lf in card_labels for i in lf.instances]
+    check(len(card_labels) == CLI_FRAMES and insts and all(i.track is not None for i in insts),
+          "15d: every instance re-tracked")
+    compare_predictions(card_labels, cpu_labels, 0.0, 0.0, "15d: re-tracked on the card vs --cpu")
+    score_d = max(abs(x.tracking_score - y.tracking_score)
+                  for a, b in zip(card_labels, cpu_labels) for x, y in zip(a.instances, b.instances))
+    check(score_d <= TRACK_SCORE_TOL, f"15d: tracking scores card vs --cpu {score_d:.3g}")
+    same_as_8a = all((x.track and x.track.name) == (y.track and y.track.name)
+                     for a, b in zip(card_labels, kept["labels"]) for x, y in zip(a.instances, b.instances))
+    cleaned = os.path.join(kept["dir"], "retracked.cleaned.slp")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trackcleaner.main([outs["card"], "-c", str(MAX_INSTANCES), "-o", cleaned])
+    seconds["trackcleaner"] = time.perf_counter() - t0
+    clean = Labels.load_file(cleaned)
+    check(len(clean) == CLI_FRAMES and max(len(lf.instances) for lf in clean) <= MAX_INSTANCES
+          and all(i.track is not None for lf in clean for i in lf.instances),
+          f"15d: trackcleaner leaves at most {MAX_INSTANCES} tracked animals a frame")
+    t0 = time.perf_counter()
+    series = summary.StatisticSeries(clean)
+    counts = series.get_point_count_series(clean.video)
+    scores = series.get_instance_score_series(clean.video)
+    moves = series.get_point_displacement_series(clean.video, reduction="max")
+    # The two files hold the same instances in the same order: paired in
+    # order, every distance is 0.
+    frame_idxs, dists, _, _ = metrics.matched_instance_distances(
+        card_labels, cpu_labels, match_lists_function=lambda a, b: (a, b))
+    seconds["summary and metrics"] = time.perf_counter() - t0
+    check(sorted(counts) == list(range(CLI_FRAMES)) and all(v > 0 for v in counts.values())
+          and all(np.isfinite(v) for v in scores.values()) and len(moves) >= CLI_FRAMES - 1,
+          "15d: a statistic for every frame")
+    check(len(frame_idxs) == len(insts) and np.nanmax(dists) == 0.0,
+          "15d: metrics pair the card's and the CPU's instances at distance 0")
+    figures = {"seconds": seconds, "instances": len(insts), "tracks": len(card_labels.tracks),
+               "max_tracking_score_diff": score_d, "tracks_as_8a": same_as_8a,
+               "max_displacement_px": max(moves.values())}
+    log(f"15d re-tracked 8a's .slp ({CLI_FRAMES} frames of {IMG}^2, {len(insts)} instances): "
+        f"card {seconds['retrack card']:.2f} s, --cpu {seconds['retrack cpu']:.2f} s, equal tracks "
+        f"({len(card_labels.tracks)}), tracking scores within {score_d:.3g}, tracks as 8a's: "
+        f"{same_as_8a}; trackcleaner {seconds['trackcleaner']:.2f} s; summary and metrics "
+        f"{seconds['summary and metrics']:.3f} s ({card})")
+    return figures
+
+
 def step_grads(trainer, init, examples, dtype, inputs=None):
     """One train-mode forward and backward of ``trainer``'s module from the
     weights and statistics ``init`` on ``examples``: float32 runs the
@@ -3790,6 +3997,7 @@ def check_other_backbones(drive, fps, td_frames, td_wrappers, launches, card):
     from sleap_tpu_torch.ops import cuda_peaks
 
     si_wrappers = {"global_peaks": cuda_peaks.global_peaks_cuda}
+    td_frames = td_frames[:(1 + BB_TIMED_BATCHES) * BATCH]
     root = tempfile.mkdtemp(prefix="chip_smoke_backbones_")
     try:
         t10 = time.perf_counter()
@@ -3797,12 +4005,13 @@ def check_other_backbones(drive, fps, td_frames, td_wrappers, launches, card):
                                                        si_wrappers, card)
         log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
-        training = {"11a steps": check_backbone_steps(card),
-                    "11b throughput": check_backbone_train_throughput(card),
-                    "11c sleap-train Hourglass": check_backbone_cli_train(card, si_wrappers,
-                                                                          launches),
-                    "11d bf16": check_backbones_bf16(drive, fps, td_frames, si_frames, models,
-                                                     card)}
+        training = {
+            "11a steps": timed_phase("11a", check_backbone_steps, card),
+            "11b throughput": timed_phase("11b", check_backbone_train_throughput, card),
+            "11c sleap-train Hourglass": timed_phase("11c", check_backbone_cli_train, card,
+                                                     si_wrappers, launches),
+            "11d bf16": timed_phase("11d", check_backbones_bf16, drive, fps, td_frames, si_frames,
+                                    models, card)}
         log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3889,7 +4098,7 @@ def backbone_trainer(name, topdown, mixed_precision):
 
 
 def check_backbone_train_throughput(card):
-    """11b: TRAIN_STEPS synchronised train steps after TRAIN_WARMUP of each
+    """11b: BB_TRAIN_STEPS synchronised train steps after TRAIN_WARMUP of each
     backbone at its default width, float32 and mixed precision: single-
     instance BB_SI_IMG^2, batch BB_SI_BATCH, and the top-down
     centered-instance pretrained-encoder ResNet-50 on crops of CROP from
@@ -3900,6 +4109,7 @@ def check_backbone_train_throughput(card):
     for name in BB_TRAIN_BACKBONES:
         topdown = name == "pretrained-encoder ResNet-50"
         for mixed in (False, True):
+            t0 = time.perf_counter()
             trainer = backbone_trainer(name, topdown, mixed)
             batch = bench_batch("topdown" if topdown else "single", trainer.device,
                                 size=IMG if topdown else BB_SI_IMG,
@@ -3907,7 +4117,8 @@ def check_backbone_train_throughput(card):
                                 animals=3 if topdown else 1)
             key = (f"11b train {'top-down' if topdown else 'single-instance'} {name} "
                    f"{'mixed precision' if mixed else 'f32'}")
-            results[key] = time_train_steps(key, trainer, batch, card)
+            results[key] = time_train_steps(key, trainer, batch, card, steps=BB_TRAIN_STEPS)
+            results[key]["seconds"] = time.perf_counter() - t0  # set-up, steps, profile
             bns = [m for m in trainer.module.modules() if isinstance(m, FlaxBatchNorm2d)]
             check(all(t.dtype == torch.float32 for m in bns for t in (*m.parameters(), *m.buffers())),
                   f"{key}: float32 batch norm")
@@ -3915,6 +4126,7 @@ def check_backbone_train_throughput(card):
                   f"{key}: finite running statistics")
             del trainer, batch
             torch.cuda.empty_cache()
+            log(f"{key}: {time.perf_counter() - t0:.1f} s with set-up and profile")
     return results
 
 
@@ -4201,6 +4413,12 @@ def kernel_rows(errs, launches, card):
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU.")
+    t_start = time.perf_counter()
+    # What torch.export imports of its own (its partitioner imports
+    # networkx, a dependency of torch), before any module of the port: the
+    # JAX-side check at the end counts only what came after.
+    importlib.import_module("torch.export._trace")
+    torch_own = sorted({m.split(".")[0] for m in sys.modules} & set(JAX_SIDE))
     device = torch.device("cuda", 0)
     card = card_line()
     log(card)
@@ -4225,12 +4443,15 @@ def main() -> int:
     log(f"loaded {type(td).__name__}, {type(si).__name__}, {type(bu[0]).__name__}, "
         f"{type(td_mc).__name__} and {type(bu_mc).__name__} from run folders on {td.device}, "
         f"{si.device}, {bu[0].device}, {td_mc.device} and {bu_mc.device}")
+    log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     # Phase 3: each kernel vs its plain version.
+    t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     errs = check_kernels(device, gen)
     path_maps, heads = path_head_maps(bu[0], frames[:BATCH])
     errs["local_peaks_hwcs"] = check_hwcs(device, gen, path_maps)
+    log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     launches = {name: {} for name in errs}  # kernel -> path -> launches
     fps = {}
@@ -4247,49 +4468,63 @@ def main() -> int:
         "crop_unit": cuda_crops.crop_unit_cuda,
         "global_peaks": cuda_peaks.global_peaks_cuda,
     }
-    check_topdown(td, td_cpu, frames, drive("top-down", td, frames, td_wrappers))
+    t0 = time.perf_counter()
+    td_out = drive("top-down", td, frames, td_wrappers)
+    check_topdown(td, td_cpu, frames, td_out)
+    log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
     # Phase 4b: the bottom-up path.
-    out = drive("bottom-up", bu[0], frames, {"local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda})
-    check_bottomup(bu, frames, out, heads)
+    t0 = time.perf_counter()
+    hwcs_wrappers = {"local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda}
+    bu_out = drive("bottom-up", bu[0], frames, hwcs_wrappers)
+    check_bottomup(bu, frames, bu_out, heads)
+    log(f"phase 4b took {time.perf_counter() - t0:.1f} s")
 
     # Phase 4c: the top-down path in bf16.
+    t0 = time.perf_counter()
     bf16_wrappers = {
         "local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda,
         "crop_unit": cuda_crops.crop_unit_cuda,
         "global_peaks": cuda_peaks.global_peaks_cuda,
     }
     check_topdown_bf16(td_bf16, frames, drive("top-down bf16", td_bf16, frames, bf16_wrappers))
+    log(f"phase 4c took {time.perf_counter() - t0:.1f} s")
 
     # Phase 4d: single-instance in bf16.
-    out = drive("single-instance bf16", si, si_frames,
-               {"global_peaks": cuda_peaks.global_peaks_cuda}, SI_BATCH)
+    t0 = time.perf_counter()
+    si_wrappers = {"global_peaks": cuda_peaks.global_peaks_cuda}
+    out = drive("single-instance bf16", si, si_frames, si_wrappers, SI_BATCH)
     check_single(si, si_frames, out)
+    log(f"phase 4d took {time.perf_counter() - t0:.1f} s")
 
     # Phase 5: kernel and plain version times at the main-path shapes, with
     # the card in the state phases 4-4d leave it in; the launch counts of the
     # paths after it are added to the rows at the end.
-    kernels = kernel_rows(errs, launches, card)
+    kernels = timed_phase("5", kernel_rows, errs, launches, card)
 
     # Phase 4e: top-down multiclass, float32, on blobs of four sizes that
     # its class layer is set to tell apart.
+    t0 = time.perf_counter()
     frames_mc = mc_frames((1 + TIMED_BATCHES) * BATCH, seed=3)
     cuts, margin = fit_class_head([td_mc, td_mc_cpu], frames_mc)
     log(f"top-down multiclass class cuts {[round(c, 5) for c in cuts]}, crops at least "
         f"{margin:.3g} of the spread from a cut")
     out = drive("top-down multiclass", td_mc, frames_mc, td_wrappers)
     check_topdown_mc(td_mc, td_mc_cpu, frames_mc, out)
+    log(f"phase 4e took {time.perf_counter() - t0:.1f} s")
 
     # Phase 4f: bottom-up multiclass, bf16.
-    out = drive("bottom-up multiclass bf16", bu_mc, frames,
-                {"local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda})
+    t0 = time.perf_counter()
+    out = drive("bottom-up multiclass bf16", bu_mc, frames, hwcs_wrappers)
     check_bottomup_mc(bu_mc, frames, out)
+    log(f"phase 4f took {time.perf_counter() - t0:.1f} s")
 
     # Phase 4g: the trained folders, read from their checkpoints.
-    all_wrappers = {**td_wrappers, "local_peaks_hwcs": cuda_peaks.local_peaks_hwcs_cuda}
-    read_s = check_trained_folders(all_wrappers, launches)
+    all_wrappers = {**td_wrappers, **hwcs_wrappers}
+    read_s = timed_phase("4g", check_trained_folders, all_wrappers, launches)
 
     # Phase 6: tracking.
+    t0 = time.perf_counter()
     track_paths = blob_paths((1 + TIMED_BATCHES) * BATCH, IMG,
                              [[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]],
                              [150.0, 150.0], seed=4)
@@ -4298,6 +4533,7 @@ def main() -> int:
                                            card)
     check_tracking_card_vs_cpu(tracked)
     check_tracking_trained()
+    log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
     # Phase 7: training.
     t7 = time.perf_counter()
@@ -4306,58 +4542,72 @@ def main() -> int:
                 "top-down pair": check_train_pair(card, td_wrappers, launches)}
     log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
 
-    # Phase 8: sleap-track from .slp to .slp (8a's output kept for phase 14).
+    # Phase 8: sleap-track from .slp to .slp (8a's output kept for phases 14
+    # and 15).
     t8 = time.perf_counter()
     kept = {"dir": tempfile.mkdtemp(prefix="chip_smoke_8a_")}
-    cli = {"full_width": check_cli_full_width(td, td_wrappers, launches, card, keep=kept),
-           "fixtures": check_cli_fixtures(all_wrappers, launches, card)}
-    log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
-
-    # Phase 9: sleap-train from .slp to scored run folders, and sleap-inspect.
-    t9 = time.perf_counter()
-    train_cli = check_sleap_train(card, td_wrappers, launches)
-    log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
-
-    # Phases 10 and 11: the other backbones at full width, TF32 in a fresh
-    # process; training them, and their bf16 inference.
-    backbones, backbone_training = check_other_backbones(drive, fps, frames, td_wrappers,
-                                                         launches, card)
-
-    # Phase 12: H.264 .mp4 on the card (demuxer, NVDEC, OpenCV's colour rule).
-    t12 = time.perf_counter()
-    nvdec_state = nvdec_mode(nvdec_caps, os.environ.get("NVIDIA_DRIVER_CAPABILITIES"))
-    media = {"nvdec": nvdec_state, "fixtures": check_media_fixtures(card, nvdec_state),
-             "cli": check_media_cli(td, launches, card, cli["full_width"]["cli_fps"],
-                                    nvdec_state)}
-    log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
-
-    # Phase 13: frames in and out of users' files (PNG, JPEG, ImgStore).
-    t13 = time.perf_counter()
-    png_figures = check_png_packages(card)
-    jpeg_figures, jpeg_rows = check_jpeg(card)
-    launches["jpeg_idct"], launches["jpeg_color"] = {}, {}
-    jpeg_cli = check_jpeg_cli(td, launches, card, cli["full_width"]["cli_fps"])
-    for kernel in ("jpeg_idct", "jpeg_color"):
-        launches[kernel]["CLI jpeg_pkg.slp (13c)"] = jpeg_cli["launches"][kernel]
-    frames_io = {"png": png_figures, "jpeg": jpeg_figures, "jpeg_cli": jpeg_cli,
-                 "imgstore": check_imgstore(card)}
-    log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
-
-    # Phase 14: the data model, sleap-convert and a DeepLabCut project.
-    t14 = time.perf_counter()
     try:
-        data_model = check_data_model(td, td_wrappers, launches, card, kept, cli["full_width"]["cli_fps"])
+        cli = {"full_width": check_cli_full_width(td, td_wrappers, launches, card, keep=kept),
+               "fixtures": check_cli_fixtures(all_wrappers, launches, card)}
+        log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
+
+        # Phase 9: sleap-train from .slp to scored run folders, and sleap-inspect.
+        t9 = time.perf_counter()
+        train_cli = check_sleap_train(card, td_wrappers, launches)
+        log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+
+        # Phases 10 and 11: the other backbones at full width, TF32 in a fresh
+        # process; training them, and their bf16 inference.
+        backbones, backbone_training = check_other_backbones(drive, fps, frames, td_wrappers,
+                                                             launches, card)
+
+        # Phase 12: H.264 .mp4 on the card (demuxer, NVDEC, OpenCV's colour rule).
+        t12 = time.perf_counter()
+        nvdec_state = nvdec_mode(nvdec_caps, os.environ.get("NVIDIA_DRIVER_CAPABILITIES"))
+        media = {"nvdec": nvdec_state, "fixtures": check_media_fixtures(card, nvdec_state),
+                 "cli": check_media_cli(td, launches, card, cli["full_width"]["cli_fps"],
+                                        nvdec_state)}
+        log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
+        # Phase 13: frames in and out of users' files (PNG, JPEG, ImgStore).
+        t13 = time.perf_counter()
+        png_figures = check_png_packages(card)
+        jpeg_figures, jpeg_rows = check_jpeg(card)
+        launches["jpeg_idct"], launches["jpeg_color"] = {}, {}
+        jpeg_cli = check_jpeg_cli(td, launches, card, cli["full_width"]["cli_fps"])
+        for kernel in ("jpeg_idct", "jpeg_color"):
+            launches[kernel]["CLI jpeg_pkg.slp (13c)"] = jpeg_cli["launches"][kernel]
+        frames_io = {"png": png_figures, "jpeg": jpeg_figures, "jpeg_cli": jpeg_cli,
+                     "imgstore": check_imgstore(card)}
+        log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
+        # Phase 14: the data model, sleap-convert and a DeepLabCut project.
+        data_model = timed_phase("14", check_data_model, td, td_wrappers, launches, card, kept,
+                                 cli["full_width"]["cli_fps"])
+
+        # Phase 15: sleap-export of phase 4's and 4b's paths and the trained
+        # single-instance folder, run as programs; re-tracking 8a's .slp.
+        export = {
+            "15a top-down float32": timed_phase(
+                "15a", check_exported, "top-down", td, frames, td_out, td_wrappers, launches,
+                fps["top-down"], card),
+            "15b bottom-up bf16": timed_phase(
+                "15b", check_exported, "bottom-up", bu[0], frames, bu_out, hwcs_wrappers,
+                launches, fps["bottom-up"], card),
+            "15c trained single-instance": timed_phase(
+                "15c", check_trained_export, drive, si_wrappers, launches, fps, card),
+            "15d re-tracking": timed_phase("15d", check_retrack, kept, card),
+        }
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
-    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
     kernels += jpeg_kernel_rows(jpeg_rows, launches)
 
-    leaked = [m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2",
-        "zstandard", "tensorstore", "yaml", "imgstore", "pandas")]
+    leaked = [m for m in sys.modules if m.split(".")[0] in JAX_SIDE
+              and m.split(".")[0] not in torch_own]
     check(not leaked, f"JAX-side modules imported: {leaked[:5]}")
+    log(f"JAX-side packages none of the port imports; loaded by torch.export itself: {torch_own}")
 
     for name, value in fps.items():
         log(f"{name} path: {value:.1f} FPS ({card})")
@@ -4372,6 +4622,8 @@ def main() -> int:
     print(json.dumps({"media": media, "card": card}), flush=True)
     print(json.dumps({"frames_io": frames_io, "card": card}), flush=True)
     print(json.dumps({"data_model": data_model, "card": card}), flush=True)
+    print(json.dumps({"export": export, "card": card}), flush=True)
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -14,14 +14,17 @@ the model's head maps, so no model is built. ``launch_floor`` is the device
 time of one PyTorch kernel on 64 floats, the least any launch takes.
 
 Prints one JSON line: the rows of ``chip_smoke.py``'s kernels line
-(``launches`` null: no path runs here) and the launch floor. ``--sass``
+(``launches`` 0: no path runs here) and the launch floor. ``--sass``
 adds, per kernel function of the built library, its registers and spills
 (``nvcc -Xptxas -v``) and its SASS instruction counts (``cuobjdump -sass``):
 instructions, global and shared loads and stores, and call targets (nvcc
 emits 64-bit division as a call). ``--host-split`` adds the host time of
 the crop wrapper: whole, with its C entry point or its launch helper
-replaced by a no-op, and the allocation and lookups it makes; and of the
-global peaks wrapper with its outputs' two ways of allocating.
+replaced by a no-op, and the allocation and lookups it makes; of the
+global peaks wrapper with its outputs' two ways of allocating; and of the
+device dispatch in front of the two wrappers (``crop_unit`` and
+``global_peaks``, custom ops since the kernels were registered with
+``torch.library``), which the paths call.
 """
 
 import argparse
@@ -114,7 +117,8 @@ def host_split(cs, crop_args, global_maps):
     stays), with the launch helper a no-op (the wrapper's checks, arguments
     and allocation stay), and the calls it makes; and of the global peaks
     wrapper on the float32 path maps, beside its outputs allocated as two
-    tensors or as one with two ``as_strided`` views. Each part runs 500
+    tensors or as one with two ``as_strided`` views; and the device
+    dispatch of both. Each part runs 500
     calls without synchronising, in turns with the others, for 7 rounds;
     the median round counts (the host's clock swings by microseconds
     between rounds)."""
@@ -139,6 +143,10 @@ def host_split(cs, crop_args, global_maps):
         "current device": torch.cuda.current_device,
         "F.grid_sample": cs.grid_sample_crops(images.float(), top_left, box_inds, cs.CROP),
         "global wrapper": lambda: cuda_peaks.global_peaks_cuda(global_maps, 0.2, 2),
+        # The device dispatch the paths call: a Python test of the device in
+        # checkouts before the custom ops, ``torch.ops.sleap_tpu_torch.*`` since.
+        "crop dispatch": lambda: cuda_crops.crop_unit(images, top_left, box_inds, crop),
+        "global dispatch": lambda: cuda_peaks.global_peaks(global_maps, 0.2, 2),
         "global outputs, two new_empty": lambda: (global_maps.new_empty((S, C, 2)),
                                                   global_maps.new_empty((S, C))),
         "global outputs, one new_empty and two views": one_allocation,
@@ -182,7 +190,7 @@ def main() -> int:
     hwcs_maps = cs.planted_maps(cs.BATCH, h, h, cs.N_NODES, 12, gen, device)
     errs["local_peaks_hwcs"] = cs.check_hwcs(
         device, gen, hwcs_maps.to(torch.bfloat16).contiguous())
-    rows = cs.kernel_rows(errs, dict.fromkeys(errs), card)
+    rows = cs.kernel_rows(errs, {name: {} for name in errs}, card)
     tiny = torch.zeros(64, device=device)
     floor = cs.device_ms(lambda: tiny.add_(1.0))
     print(f"launch_floor: {floor:.4f} ms device", flush=True)

@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of sleap-tpu: inference (top-down, single-instance,
 bottom-up, multiclass), flow-shift tracking, training and evaluation,
-``.slp`` and video I/O, and the ``sleap-track``, ``sleap-train`` and
+``.slp`` and video I/O, export (``torch.export`` programs of every
+predictor), and the ``sleap-track``, ``sleap-train``, ``sleap-export`` and
 ``sleap-inspect`` CLIs (``python -m sleap_tpu_torch.cli.track``,
 ``python -m sleap_tpu_torch.cli.train``, ``python -m
-sleap_tpu_torch.info.labels``); the shipped training profiles are in
-``training_profiles/``.
+sleap_tpu_torch.cli.export``, ``python -m sleap_tpu_torch.info.labels``);
+the shipped training profiles are in ``training_profiles/``.
 
 The JAX package (``sleap_tpu``) is the reference: this package mirrors its
 module names (``models/``, ``data/``, ``ops/``, ``inference/``) and keeps its
@@ -14,8 +15,9 @@ its JAX counterpart on the same inputs.
 
 The four Pallas kernels of those paths are hand-written CUDA kernels for
 Hopper (``csrc/``, bound in ``ops/cuda_peaks.py`` and ``ops/cuda_crops.py``).
-A CPU tensor runs the plain PyTorch version of each kernel; a CUDA tensor
-launches the kernel or raises.
+Each is a custom op, ``torch.ops.sleap_tpu_torch.*``: a CPU tensor runs the
+plain PyTorch version of the kernel, a CUDA tensor launches the kernel, and
+any other tensor raises.
 
 Nothing here imports JAX or the JAX package ``sleap_tpu``: run folders,
 skeletons, videos, providers and ``Labels`` are the port's own copies in
@@ -36,6 +38,14 @@ def load_model(*args, **kwargs):
     from sleap_tpu_torch.inference.predictors import load_model as _load_model
 
     return _load_model(*args, **kwargs)
+
+
+def export_model(*args, **kwargs):
+    """Export trained run folder(s) as a ``torch.export`` program
+    (:func:`sleap_tpu_torch.inference.export.export_model`)."""
+    from sleap_tpu_torch.inference.export import export_model as _export_model
+
+    return _export_model(*args, **kwargs)
 
 
 def load_file(*args, **kwargs):

@@ -434,6 +434,15 @@ class Predictor:
         )
         return labels
 
+    def export_model(
+        self, save_path: str = "exported_model", image_size: int = 1024, **kwargs
+    ) -> str:
+        """Export this predictor's batch function as a ``torch.export``
+        program on its device (:func:`~sleap_tpu_torch.inference.export.export_predictor`)."""
+        from sleap_tpu_torch.inference.export import export_predictor
+
+        return export_predictor(self, save_path, image_size=image_size, **kwargs)
+
     def _track(self, frames: List[LabeledFrame]) -> List[LabeledFrame]:
         """Run ``tracker``, if any, over the built frames in order, then its
         final pass (the JAX package's ``_attach_tracker``)."""

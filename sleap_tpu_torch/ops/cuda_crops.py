@@ -20,6 +20,10 @@ gate (C == 1, crop_h % 8, crop_w % 128) was a Mosaic tiling limit: this
 kernel takes uint8 or float32 frames with up to :data:`MAX_CHANNELS`
 channels, any crop size and any strides.
 
+The kernel is the custom op ``torch.ops.sleap_tpu_torch.crop_unit``: the
+plain version on a CPU tensor, the kernel on a CUDA tensor, a refusal for
+anything else, in eager code and in ``torch.export`` programs alike.
+
 The blend uses round-to-nearest intrinsics in the plain version's order (no
 FMA), so kernel and plain version agree bitwise (tolerance 0); see the note
 in ``csrc/crops.cu``.
@@ -72,24 +76,13 @@ def crop_unit_plain(
     return top * (1 - fy) + bot * fy
 
 
-def crop_unit_cuda(
-    images: torch.Tensor,
-    top_left: torch.Tensor,
-    box_indices: torch.Tensor,
-    crop_size: Tuple[int, int],
-) -> torch.Tensor:
-    """Launch kernel ``crop_unit``; same contract as :func:`crop_unit_plain`.
-
-    A box index outside ``[0, B)`` reads zeros instead of faulting.
-    """
-    dtype = _DTYPES.get(images.dtype)
-    if not images.is_cuda:
-        raise ValueError(f"The CUDA crop kernel takes CUDA tensors, got {images.device}.")
-    if dtype is None or images.ndim != 4:
+def _check_crops(images: torch.Tensor, top_left: torch.Tensor, box_indices: torch.Tensor,
+                 ch: int, cw: int) -> None:
+    """The wrapper's refusals of inputs the kernel cannot take."""
+    if images.dtype not in _DTYPES or images.ndim != 4:
         raise ValueError(
             f"Expected (B, H, W, C) uint8 or float32 images, got {images.dtype} {tuple(images.shape)}."
         )
-    ch, cw = int(crop_size[0]), int(crop_size[1])
     n = top_left.shape[0]
     if top_left.shape != (n, 2) or box_indices.shape != (n,):
         raise ValueError("Expected top_left (n, 2) and box_indices (n,).")
@@ -101,6 +94,26 @@ def crop_unit_cuda(
     if (n * ch * cw * C > _INT32_MAX or (H - 1) * sH + (W - 1) * sW + (C - 1) * sC > _INT32_MAX
             or (W + cw + 2) * C > _INT32_MAX):
         raise ValueError("The CUDA crop kernel takes frames and crop batches of < 2**31 elements.")
+
+
+def crop_unit_cuda(
+    images: torch.Tensor,
+    top_left: torch.Tensor,
+    box_indices: torch.Tensor,
+    crop_size: Tuple[int, int],
+) -> torch.Tensor:
+    """Launch kernel ``crop_unit``; same contract as :func:`crop_unit_plain`.
+
+    A box index outside ``[0, B)`` reads zeros instead of faulting.
+    """
+    if not images.is_cuda:
+        raise ValueError(f"The CUDA crop kernel takes CUDA tensors, got {images.device}.")
+    ch, cw = int(crop_size[0]), int(crop_size[1])
+    _check_crops(images, top_left, box_indices, ch, cw)
+    dtype = _DTYPES[images.dtype]
+    n = top_left.shape[0]
+    B, H, W, C = images.shape
+    sB, sH, sW, sC = images.stride()
     out = images.new_empty((n, ch, cw, C), dtype=torch.float32)
     if n * ch * cw * C == 0:
         return out
@@ -123,8 +136,35 @@ def crop_unit_cuda(
 crop_unit_cuda.launches = 0
 
 
+# The kernel as the op ``torch.ops.sleap_tpu_torch.crop_unit``: the plain
+# version on the CPU, the wrapper above on the card (counting the launches),
+# no kernel for other devices; the fake kernel gives the output's shape and,
+# for images on the card, raises the wrapper's errors while ``torch.export``
+# traces (see ``cuda_peaks.py``).
+
+
+@torch.library.custom_op("sleap_tpu_torch::crop_unit", mutates_args=(), device_types="cpu")
+def _crop_unit_op(images: torch.Tensor, top_left: torch.Tensor, box_indices: torch.Tensor,
+                  crop_h: int, crop_w: int) -> torch.Tensor:
+    return crop_unit_plain(images, top_left, box_indices, (crop_h, crop_w)).contiguous()
+
+
+@_crop_unit_op.register_kernel("cuda")
+def _(images, top_left, box_indices, crop_h, crop_w):
+    return crop_unit_cuda(images, top_left, box_indices, (crop_h, crop_w))
+
+
+@_crop_unit_op.register_fake
+def _(images, top_left, box_indices, crop_h, crop_w):
+    if images.device.type not in ("cpu", "cuda"):  # a meta tensor: no kernel takes it
+        raise ValueError(f"The CUDA crop kernel takes CUDA tensors, got {images.device}.")
+    if images.device.type == "cuda":
+        _check_crops(images, top_left, box_indices, crop_h, crop_w)
+    return images.new_empty((top_left.shape[0], crop_h, crop_w, images.shape[3]),
+                            dtype=torch.float32)
+
+
 def crop_unit(images, top_left, box_indices, crop_size) -> torch.Tensor:
-    """CPU tensor -> plain version; otherwise the CUDA kernel (or raise)."""
-    if images.device.type == "cpu":
-        return crop_unit_plain(images, top_left, box_indices, crop_size)
-    return crop_unit_cuda(images, top_left, box_indices, crop_size)
+    """CPU tensor -> plain version; CUDA tensor -> the kernel; else raise."""
+    return torch.ops.sleap_tpu_torch.crop_unit(
+        images, top_left, box_indices, int(crop_size[0]), int(crop_size[1]))

@@ -64,7 +64,10 @@ Three CUDA kernels (``csrc/peaks.cu``) replace the Pallas kernels of
     bands' candidates and refines the winners from the raw map, in the same
     launch. The workspace (candidates, tickets) is kept per device and
     stream.
-A CPU tensor runs the plain version (:func:`global_peaks_plain`,
+Each kernel is a custom op (``torch.ops.sleap_tpu_torch.global_peaks``,
+``local_peaks``, ``local_peaks_hwcs``, registered with ``torch.library``), so
+``torch.export`` traces through it and eager code and exported programs take
+one route: a CPU tensor runs the plain version (:func:`global_peaks_plain`,
 :func:`local_peaks_plain`, :func:`local_peaks_hwcs_plain`); a CUDA tensor
 launches the kernel, and anything else raises. The plain versions are also
 what the tests and ``chip_smoke.py`` hold the kernels against. Tolerance:
@@ -300,13 +303,42 @@ def hwcs_fast_rows(cms: torch.Tensor) -> bool:
 
 
 def _check_maps(cms: torch.Tensor, dtypes=(torch.float32,)) -> None:
-    if not cms.is_cuda:
-        raise ValueError(f"The CUDA peak kernels take CUDA tensors, got {cms.device}.")
     if cms.dtype not in dtypes or cms.ndim != 4:
         names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         raise ValueError(f"Expected (S, H, W, C) {names} maps, got {cms.dtype} {tuple(cms.shape)}.")
     if cms.shape[1] * cms.shape[2] >= 2**31:
         raise ValueError("Maps larger than 2**31 pixels are not supported.")
+
+
+def _check_cuda(cms: torch.Tensor) -> None:
+    if not cms.is_cuda:
+        raise ValueError(f"The CUDA peak kernels take CUDA tensors, got {cms.device}.")
+
+
+def _check_op_device(cms: torch.Tensor) -> None:
+    """The ops take CPU tensors (plain versions) and CUDA tensors (kernels)."""
+    if cms.device.type != "cpu":
+        _check_cuda(cms)
+
+
+def _check_max_peaks(max_peaks: int) -> None:
+    if not 1 <= max_peaks <= MAX_K:
+        raise ValueError(f"The local peaks kernel takes 1 <= max_peaks <= {MAX_K}, got {max_peaks}.")
+
+
+def _check_hwcs(cms: torch.Tensor, max_peaks: int, threshold: float, half: int) -> None:
+    if cms.dtype != torch.bfloat16 or cms.ndim != 4:
+        raise ValueError(f"Expected (S, H, W, C) bfloat16 maps, got {cms.dtype} {tuple(cms.shape)}.")
+    S, H, W, C = cms.shape
+    if H * W > HWCS_MAX_PIXELS:
+        raise ValueError(f"The bf16 local peaks kernel takes H * W <= 2**16, got {H} x {W}.")
+    if half not in (-1, HWCS_HALF):
+        raise ValueError("The bf16 local peaks kernel refines with the 5 x 5 window only.")
+    if not threshold > 0:
+        raise ValueError(f"The bf16 local peaks kernel takes threshold > 0, got {threshold}.")
+    _check_max_peaks(max_peaks)
+    if S > 65535:
+        raise ValueError(f"The bf16 local peaks kernel takes at most 65535 samples, got {S}.")
 
 
 def _launch(name: str, cms: torch.Tensor, *args) -> None:
@@ -318,13 +350,12 @@ def global_peaks_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel ``global_peaks`` on float32 or bf16 maps, read in place;
     same contract as :func:`global_peaks_plain`, float32 outputs."""
+    _check_cuda(cms)
     _check_maps(cms, GLOBAL_DTYPES)
     S, H, W, C = cms.shape
-    # One allocation, xy then vals; as_strided views cost the host less than
-    # slicing.
-    out = cms.new_empty(3 * S * C, dtype=torch.float32)
-    xy = out.as_strided((S, C, 2), (2 * C, 2, 1))
-    vals = out.as_strided((S, C), (C, 1), 2 * S * C)
+    # Two allocations: the outputs of a custom op may not share storage.
+    xy = cms.new_empty((S, C, 2), dtype=torch.float32)
+    vals = cms.new_empty((S, C), dtype=torch.float32)
     if S * C == 0:
         return xy, vals
     if H * W == 0:
@@ -356,9 +387,9 @@ def local_peaks_cuda(
     cms: torch.Tensor, max_peaks: int, threshold: float, half: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel ``local_peaks``; same contract as :func:`local_peaks_plain`."""
+    _check_cuda(cms)
     _check_maps(cms)
-    if not 1 <= max_peaks <= MAX_K:
-        raise ValueError(f"The local peaks kernel takes 1 <= max_peaks <= {MAX_K}, got {max_peaks}.")
+    _check_max_peaks(max_peaks)
     S, H, W, C = cms.shape
     peaks = cms.new_empty((S, C, max_peaks, 2))
     vals = cms.new_empty((S, C, max_peaks))
@@ -398,21 +429,9 @@ def local_peaks_hwcs_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel ``local_peaks_hwcs``; same contract as
     :func:`local_peaks_hwcs_plain`."""
-    if cms.dtype != torch.bfloat16 or cms.ndim != 4:
-        raise ValueError(f"Expected (S, H, W, C) bfloat16 maps, got {cms.dtype} {tuple(cms.shape)}.")
+    _check_hwcs(cms, max_peaks, threshold, half)
+    _check_cuda(cms)
     S, H, W, C = cms.shape
-    if H * W > HWCS_MAX_PIXELS:
-        raise ValueError(f"The bf16 local peaks kernel takes H * W <= 2**16, got {H} x {W}.")
-    if half not in (-1, HWCS_HALF):
-        raise ValueError("The bf16 local peaks kernel refines with the 5 x 5 window only.")
-    if not threshold > 0:
-        raise ValueError(f"The bf16 local peaks kernel takes threshold > 0, got {threshold}.")
-    if not 1 <= max_peaks <= MAX_K:
-        raise ValueError(f"The local peaks kernel takes 1 <= max_peaks <= {MAX_K}, got {max_peaks}.")
-    if S > 65535:
-        raise ValueError(f"The bf16 local peaks kernel takes at most 65535 samples, got {S}.")
-    if not cms.is_cuda:
-        raise ValueError(f"The CUDA peak kernels take CUDA tensors, got {cms.device}.")
     peaks = cms.new_empty((S, C, max_peaks, 2), dtype=torch.float32)
     vals = cms.new_empty((S, C, max_peaks), dtype=torch.float32)
     if S * C == 0:
@@ -431,26 +450,96 @@ local_peaks_hwcs_cuda.launches = 0
 
 
 # --------------------------------------------------------------------------- #
-# Device dispatch
+# Custom ops: the device dispatch
 # --------------------------------------------------------------------------- #
+#
+# Each kernel is the op ``torch.ops.sleap_tpu_torch.<name>``: its CPU kernel
+# is the plain version, its CUDA kernel the wrapper above (which counts the
+# launches), and a tensor on any other device raises (no kernel registered).
+# The fake kernels give the outputs' shapes and dtypes and, for maps on the
+# card, raise the wrappers' errors, so ``torch.export`` traces through the
+# ops and refuses maps the kernels cannot take while it exports. (They are
+# the ops' Meta kernels too: a meta tensor raises there, as no kernel takes
+# it.)
+
+
+def _contiguous(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The plain versions' outputs laid out as the fake kernels say."""
+    return tuple(t.contiguous() for t in tensors)
+
+
+@torch.library.custom_op("sleap_tpu_torch::global_peaks", mutates_args=(), device_types="cpu")
+def _global_peaks_op(
+    cms: torch.Tensor, threshold: float, half: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _contiguous(*global_peaks_plain(cms, threshold, half))
+
+
+_global_peaks_op.register_kernel("cuda")(global_peaks_cuda)
+
+
+@_global_peaks_op.register_fake
+def _(cms, threshold, half):
+    _check_op_device(cms)
+    if cms.device.type == "cuda":
+        _check_maps(cms, GLOBAL_DTYPES)
+    S, _, _, C = cms.shape
+    return (cms.new_empty((S, C, 2), dtype=torch.float32),
+            cms.new_empty((S, C), dtype=torch.float32))
+
+
+@torch.library.custom_op("sleap_tpu_torch::local_peaks", mutates_args=(), device_types="cpu")
+def _local_peaks_op(
+    cms: torch.Tensor, max_peaks: int, threshold: float, half: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _contiguous(*local_peaks_plain(cms, max_peaks, threshold, half))
+
+
+_local_peaks_op.register_kernel("cuda")(local_peaks_cuda)
+
+
+@_local_peaks_op.register_fake
+def _(cms, max_peaks, threshold, half):
+    _check_op_device(cms)
+    if cms.device.type == "cuda":
+        _check_maps(cms)
+        _check_max_peaks(max_peaks)
+    S, _, _, C = cms.shape
+    return (cms.new_empty((S, C, max_peaks, 2), dtype=torch.float32),
+            cms.new_empty((S, C, max_peaks), dtype=torch.float32))
+
+
+@torch.library.custom_op("sleap_tpu_torch::local_peaks_hwcs", mutates_args=(), device_types="cpu")
+def _local_peaks_hwcs_op(
+    cms: torch.Tensor, max_peaks: int, threshold: float, half: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _contiguous(*local_peaks_hwcs_plain(cms, max_peaks, threshold, half))
+
+
+_local_peaks_hwcs_op.register_kernel("cuda")(local_peaks_hwcs_cuda)
+
+
+@_local_peaks_hwcs_op.register_fake
+def _(cms, max_peaks, threshold, half):
+    _check_op_device(cms)
+    if cms.device.type == "cuda":
+        _check_hwcs(cms, max_peaks, threshold, half)
+    S, _, _, C = cms.shape
+    return (cms.new_empty((S, C, max_peaks, 2), dtype=torch.float32),
+            cms.new_empty((S, C, max_peaks), dtype=torch.float32))
 
 
 def global_peaks(cms: torch.Tensor, threshold: float, half: int):
-    """CPU tensor -> plain version; otherwise the CUDA kernel (or raise)."""
-    if cms.device.type == "cpu":
-        return global_peaks_plain(cms, threshold, half)
-    return global_peaks_cuda(cms, threshold, half)
+    """CPU tensor -> plain version; CUDA tensor -> the kernel; else raise."""
+    return torch.ops.sleap_tpu_torch.global_peaks(cms, float(threshold), int(half))
 
 
 def local_peaks(cms: torch.Tensor, max_peaks: int, threshold: float, half: int):
-    """CPU tensor -> plain version; otherwise the CUDA kernel (or raise)."""
-    if cms.device.type == "cpu":
-        return local_peaks_plain(cms, max_peaks, threshold, half)
-    return local_peaks_cuda(cms, max_peaks, threshold, half)
+    """CPU tensor -> plain version; CUDA tensor -> the kernel; else raise."""
+    return torch.ops.sleap_tpu_torch.local_peaks(cms, int(max_peaks), float(threshold), int(half))
 
 
 def local_peaks_hwcs(cms: torch.Tensor, max_peaks: int, threshold: float, half: int):
-    """CPU tensor -> plain version; otherwise the CUDA kernel (or raise)."""
-    if cms.device.type == "cpu":
-        return local_peaks_hwcs_plain(cms, max_peaks, threshold, half)
-    return local_peaks_hwcs_cuda(cms, max_peaks, threshold, half)
+    """CPU tensor -> plain version; CUDA tensor -> the kernel; else raise."""
+    return torch.ops.sleap_tpu_torch.local_peaks_hwcs(
+        cms, int(max_peaks), float(threshold), int(half))

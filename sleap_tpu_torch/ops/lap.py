@@ -9,7 +9,8 @@ with the JAX solver's tie-breaks, so both packages pick the same
 - n > 12: the shortest-augmenting-path solver (scipy's ``_lsap`` family),
   whose column pick prefers unassigned columns on ties. The JAX version is a
   ``vmap`` over ``while_loop``s; here every matrix steps in one batched,
-  masked loop until all are done.
+  masked loop until all are done, or, while ``torch.export`` traces, for
+  the fixed number of steps that bounds every matrix.
 
 Plain tensor code on either device: the JAX solver is XLA, not Pallas.
 Padding contract: callers give forbidden entries ``PAD_COST``, not inf/NaN.
@@ -63,8 +64,16 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return mask.to(torch.uint8).argmax(dim=-1)
 
 
-def _solve_lap_jv(cost: torch.Tensor) -> torch.Tensor:
-    """col4row of (B, n, n) float32 costs by shortest augmenting paths."""
+def _solve_lap_jv(cost: torch.Tensor, bounded: bool = False) -> torch.Tensor:
+    """col4row of (B, n, n) float32 costs by shortest augmenting paths.
+
+    Eagerly each loop runs until every matrix is done. ``bounded`` runs each
+    a fixed number of masked steps instead, with no read of the data on the
+    host, which ``torch.export`` can trace: at row r, r columns are taken,
+    so the Dijkstra scan meets a free column within r + 1 steps and the
+    path it augments has at most r + 1 columns. A matrix that is done keeps
+    its state through the extra steps, so both forms give the same result.
+    """
     B, n, _ = cost.shape
     dev = cost.device
     inf = float("inf")
@@ -75,6 +84,15 @@ def _solve_lap_jv(cost: torch.Tensor) -> torch.Tensor:
     row4col = torch.full((B, n), -1, dtype=torch.long, device=dev)
     col4row = torch.full((B, n), -1, dtype=torch.long, device=dev)
 
+    def steps(r: int, not_done):
+        """Step numbers of a loop at row r: r + 1 when bounded, else until
+        ``not_done()`` is false."""
+        if bounded:
+            yield from range(r + 1)
+        else:
+            while not_done():
+                yield
+
     for cur_row in range(n):
         i = torch.full((B,), cur_row, dtype=torch.long, device=dev)
         minval = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -84,10 +102,8 @@ def _solve_lap_jv(cost: torch.Tensor) -> torch.Tensor:
         path = torch.full((B, n), -1, dtype=torch.long, device=dev)
         sink = torch.full((B,), -1, dtype=torch.long, device=dev)
         # Dijkstra over columns; matrices that found their sink keep state.
-        while True:
+        for _ in steps(cur_row, lambda: bool((sink < 0).any())):
             active = sink < 0
-            if not bool(active.any()):
-                break
             act = active[:, None]
             sr = sr | (act & (cols[None, :] == i[:, None]))
             r = minval[:, None] + cost[bi, i] - u[bi, i][:, None] - v
@@ -115,17 +131,20 @@ def _solve_lap_jv(cost: torch.Tensor) -> torch.Tensor:
         u = torch.where(other, u + minval[:, None] - spc_at_col4row, u)
         v = torch.where(sc, v - (minval[:, None] - spc), v)
 
-        # Augment along the alternating path ending at each sink.
+        # Augment along the alternating path ending at each sink; matrices
+        # whose path is done write their own entries back.
         j = sink
         done = torch.zeros(B, dtype=torch.bool, device=dev)
-        while not bool(done.all()):
+        for _ in steps(cur_row, lambda: not bool(done.all())):
             act = ~done
             jc = j.clamp(0, n - 1)
             i = path[bi, jc]
             ic = i.clamp(0, n - 1)
             next_j = col4row[bi, ic]
-            row4col[bi[act], jc[act]] = i[act]
-            col4row[bi[act], ic[act]] = jc[act]
+            row4col = row4col.scatter(
+                1, jc[:, None], torch.where(act, i, row4col[bi, jc])[:, None])
+            col4row = col4row.scatter(
+                1, ic[:, None], torch.where(act, jc, col4row[bi, ic])[:, None])
             done = done | (act & (i == cur_row))
             j = torch.where(act, next_j, j)
     return col4row
@@ -150,7 +169,7 @@ def solve_lap(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     elif n <= _MAX_DP_N:
         col4row = _solve_lap_dp(flat)
     else:
-        col4row = _solve_lap_jv(flat)
+        col4row = _solve_lap_jv(flat, bounded=torch.compiler.is_exporting())
     row4col = torch.empty_like(col4row).scatter_(
         1, col4row, torch.arange(n, device=cost.device).expand_as(col4row)
     )

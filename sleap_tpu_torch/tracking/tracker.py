@@ -13,9 +13,12 @@ where the flow-shift work runs:
   batched :func:`~sleap_tpu_torch.ops.optical_flow.lk_flow_pyramids` call,
   read back to the host once.
 
-:func:`retrack` works on in-memory ``Labels``; re-tracking a predictions
-file is the tracking-only branch of ``sleap_tpu_torch.cli.track`` (a
-tracker and no model), as the JAX module's retrack CLI does.
+:func:`retrack` works on in-memory ``Labels``; :func:`main` re-tracks a
+saved predictions file, as the JAX module's CLI does, with flow on the card
+unless ``--cpu`` asks for the CPU (``python -m
+sleap_tpu_torch.tracking.tracker predictions.slp [-o out.slp] [--cpu]``);
+so does the tracking-only branch of ``sleap_tpu_torch.cli.track`` (a
+tracker and no model).
 """
 
 from __future__ import annotations
@@ -663,3 +666,57 @@ def retrack(labels, tracker):
                 tracks.append(inst.track)
     labels.tracks = tracks
     return labels
+
+
+def main(args=None) -> None:
+    """Re-track saved predictions: the JAX module's CLI and flags, and
+    ``--cpu`` (flow runs on the card otherwise)."""
+    import argparse
+
+    from sleap_tpu_torch.core.labels import Labels
+
+    parser = argparse.ArgumentParser(description="Run tracking on predictions.")
+    parser.add_argument("data_path", help="Path to predictions (.slp).")
+    parser.add_argument("-o", "--output", default=None)
+    parser.add_argument("--tracking.tracker", dest="tracker", default="flow")
+    parser.add_argument("--tracking.similarity", dest="similarity", default="instance")
+    parser.add_argument("--tracking.match", dest="match", default="greedy")
+    parser.add_argument("--tracking.track_window", dest="track_window", type=int, default=5)
+    parser.add_argument("--tracking.max_tracks", dest="max_tracks", type=int, default=None)
+    parser.add_argument(
+        "--tracking.kf_init_frame_count", dest="kf_init_frame_count", type=int, default=0,
+        help="If >0, init Kalman filters from this many flow-tracked frames.",
+    )
+    parser.add_argument(
+        "--tracking.kf_node_indices", dest="kf_node_indices", default=None,
+        help="Comma-separated node indices the Kalman filters track.",
+    )
+    parser.add_argument("--frames", default=None,
+                        help="Frame range to retrack, e.g. 0-100 (default: all).")
+    parser.add_argument("--cpu", action="store_true", help="Run the flow on the CPU.")
+    ns = parser.parse_args(args)
+
+    device = "cpu" if ns.cpu else "cuda"
+    labels = Labels.load_file(ns.data_path, device=device)
+    if ns.frames:
+        lo, _, hi = ns.frames.partition("-")
+        lo, hi = int(lo), int(hi or lo)
+        labels = Labels([lf for lf in labels if lo <= lf.frame_idx <= hi])
+    kf_nodes = [int(i) for i in ns.kf_node_indices.split(",")] if ns.kf_node_indices else None
+    tracker = Tracker.make_tracker_by_name(
+        tracker=ns.tracker,
+        similarity=ns.similarity,
+        match=ns.match,
+        track_window=ns.track_window,
+        max_tracks=ns.max_tracks,
+        kf_init_frame_count=ns.kf_init_frame_count,
+        kf_node_indices=kf_nodes,
+        device=device,
+    )
+    retrack(labels, tracker)
+    out = ns.output or (ns.data_path + ".retracked.slp")
+    labels.save(out)
+
+
+if __name__ == "__main__":
+    main()

@@ -435,8 +435,6 @@ class Trainer:
 
     def _check_outputs_config(self) -> None:
         out = self.config.outputs
-        if out.tensorboard.write_logs or out.tensorboard.profile_graph:
-            raise NotImplementedError("TensorBoard logging is not ported (ROADMAP.md, queue 1).")
         if out.zmq.publish_updates or out.zmq.subscribe_to_controller:
             raise NotImplementedError("ZMQ progress and control are not ported (ROADMAP.md, "
                                       "queue 1).")
@@ -588,6 +586,37 @@ class Trainer:
             torch.save(state if state is not None else self._state_dict(),
                        os.path.join(self.run_path, name))
 
+    def _setup_tensorboard(self):
+        """A ``SummaryWriter`` on the run folder when the config asks for
+        logs, as the JAX trainer's; without the ``tensorboard`` package a
+        warning, and training goes on."""
+        if not (self.config.outputs.tensorboard.write_logs and self.run_path):
+            return None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            return SummaryWriter(log_dir=self.run_path)
+        except ImportError:
+            logger.warning("TensorBoard logging requested but unavailable.")
+            return None
+
+    def _start_profile(self):
+        """With ``profile_graph``, a ``torch.profiler`` trace of the first
+        epoch (host and, on the card, device timelines) into
+        ``<run>/profile``, the JAX trainer's folder; viewable in TensorBoard
+        or Perfetto."""
+        if not (self.config.outputs.tensorboard.profile_graph and self.run_path):
+            return None
+        profile_dir = os.path.join(self.run_path, "profile")
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
+        profiler.start()
+        return profiler
+
     def _epoch_batches(self, examples, n_batches: int, batch_size: int,
                        rng: np.random.Generator) -> Iterator[Tuple[Batch, int]]:
         n = max(len(examples), 1)
@@ -622,6 +651,8 @@ class Trainer:
         ckpt_cfg = self.config.outputs.checkpointing
         if ckpt_cfg.initial_model:
             self._save_checkpoint("initial_model.pt")
+        tb_writer = self._setup_tensorboard()
+        profiler = self._start_profile()
         for epoch in range(opt_cfg.epochs):
             t0 = time.time()
             train_losses = [
@@ -646,8 +677,17 @@ class Trainer:
             lr = lr_sched.update(val_loss)
             set_learning_rate(self.optimizer, lr)
             log_rows.append({"epoch": epoch, "loss": train_loss, "val_loss": val_loss, "lr": lr})
+            if tb_writer is not None:
+                tb_writer.add_scalar("loss", train_loss, epoch)
+                tb_writer.add_scalar("val_loss", val_loss, epoch)
+                tb_writer.add_scalar("lr", lr, epoch)
             logger.info("Epoch %d/%d - loss: %.6f - val_loss: %.6f (%.1fs)", epoch + 1,
                         opt_cfg.epochs, train_loss, val_loss, time.time() - t0)
+            if profiler is not None:
+                profiler.stop()
+                logger.info("Saved first-epoch profiler trace to %s",
+                            os.path.join(self.run_path, "profile"))
+                profiler = None
             if val_loss < best_val and ckpt_cfg.best_model:
                 best_val = val_loss
                 best_state = self._state_dict()
@@ -659,6 +699,8 @@ class Trainer:
             if stopper.should_stop(val_loss):
                 logger.info("Early stopping at epoch %d.", epoch + 1)
                 break
+        if profiler is not None:  # no epoch ran
+            profiler.stop()
         if ckpt_cfg.final_model:
             self._save_checkpoint("final_model.pt")
         # The module keeps the best weights, as the JAX trainer's variables do.
@@ -675,8 +717,10 @@ class Trainer:
                     writer.writerows(log_rows)
             self._save_gt_labels()
             self.evaluate()
-            if self.config.outputs.zip_outputs:
-                self.package()
+        if tb_writer is not None:
+            tb_writer.close()
+        if self.run_path and self.config.outputs.zip_outputs:
+            self.package()
 
     def _save_gt_labels(self) -> None:
         """The training and validation splits as ``labels_gt.{train,val}.slp``

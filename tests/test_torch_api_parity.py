@@ -29,7 +29,6 @@ EXCLUDED = {
     "__init__.py": {
         "disable_preallocation": "JAX's device memory preallocation switch; torch allocates on demand",
         "use_cpu_only": "JAX's platform switch; the port's entry points take device=",
-        "export_model": "ROADMAP.md queue 1, item 11 (open): export",
         "load_config": ITEM_13,
         "system_summary": "ROADMAP.md queue 1, item 13 (open): system.py",
     },
@@ -67,7 +66,6 @@ EXCLUDED = {
             "peak_threshold", "tracker")},
     },
     "inference/predictors.py": {
-        "Predictor.export_model": "ROADMAP.md queue 1, item 11 (open): export",
         "Predictor.report_rate": ITEM_13,
         **{f"{c}.{n}": ITEM_13 for c, names in (
             ("SingleInstancePredictor", ("batch_size", "confmap_config", "from_trained_models",
@@ -128,7 +126,7 @@ EXCLUDED = {
     "tracking/kalman.py": {n: ITEM_13 for n in ("BareKalmanTracker.has_stale_filters", "BareKalmanTracker.initialize",
                                                 "BareKalmanTracker.reset_gap_size", "KalmanTracker.is_valid")},
     "tracking/tracker.py": {n: ITEM_13 for n in ("Tracker.is_valid", "Tracker.unique_tracks_in_queue",
-                                                 "logger", "main")},
+                                                 "logger")},
     "training/trainer.py": {
         "Trainer.keras_model": "the JAX trainer's Keras export; the port writes best_model.pt",
         "Trainer.variables": FLAX,
@@ -141,13 +139,7 @@ EXCLUDED = {
 UNPORTED_MODULES = {
     "io/formats/ndx_pose.py": "ROADMAP.md queue 1, item 3f (NWB on the port's HDF5 writer)",
     "io/formats/nix.py": "ROADMAP.md queue 1, item 3f (NIX on the port's HDF5 writer)",
-    "io/pathutils.py": ITEM_13,
-    "info/align.py": ITEM_13,
-    "info/feature_suggestions.py": ITEM_13,
-    "info/metrics.py": ITEM_13,
-    "info/suggestions.py": ITEM_13,
-    "info/summary.py": ITEM_13,
-    "info/trackcleaner.py": ITEM_13,
+    "info/feature_suggestions.py": "ROADMAP.md queue 1, item 13b (open): image-feature suggestions",
     "util.py": ITEM_13,
     "system.py": ITEM_13,
     "prefs.py": ITEM_13,
@@ -156,8 +148,6 @@ UNPORTED_MODULES = {
     "io/videowriter.py": "ROADMAP.md queue 1, item 13 (open): needs a video encoder on the card",
     "io/visuals.py": "ROADMAP.md queue 1, item 13 (open): needs a video encoder on the card",
     "nn_viz.py": "ROADMAP.md queue 1, item 13 (open): needs matplotlib",
-    "cli/export.py": "ROADMAP.md queue 1, item 11 (open): export",
-    "inference/export.py": "ROADMAP.md queue 1, item 11 (open): export",
     "inference/movenet.py": "ROADMAP.md queue 1, item 10 (open): MoveNet",
     "data/inference.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",
     "data/pipelines.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",

@@ -4,8 +4,8 @@ package's, on the CPU.
 
 - ``create_trainer_using_cli`` builds the same config (equal as JSON) as the
   JAX CLI for the same flags, profiles and run folders;
-- the multi-card flags raise, naming the ROADMAP item, and ``--tensorboard``
-  reaches the trainer's refusal;
+- the multi-card flags raise, naming the ROADMAP item, ``--tensorboard``
+  reaches the trainer and ``--zmq`` the trainer's refusal;
 - ``main([... --cpu])`` trains a shipped profile at a tiny width for one
   epoch on ``tests/torch_data/pkg.slp`` and writes the whole run folder; the
   JAX package's ``evaluate`` of the folder's ``labels_gt``/``labels_pr``
@@ -78,8 +78,14 @@ def test_multi_card_flags_raise(flags):
 
 
 def test_tensorboard_flag_reaches_the_trainers_refusal(tmp_path):
-    with pytest.raises(NotImplementedError, match="TensorBoard"):
-        ttrain.main([str(PROFILES / "baseline.centroid.json"), PKG, "--cpu", "--tensorboard"])
+    """``--tensorboard`` reaches the trainer, which now writes the logs
+    (``tests/test_torch_trainer_tensorboard.py``); ``--zmq`` still reaches
+    its refusal (ROADMAP.md queue 1, item 9)."""
+    profile = str(PROFILES / "baseline.centroid.json")
+    trainer = ttrain.create_trainer_using_cli([profile, PKG, "--cpu", "--tensorboard"])
+    assert trainer.config.outputs.tensorboard.write_logs
+    with pytest.raises(NotImplementedError, match="ZMQ"):
+        ttrain.main([profile, PKG, "--cpu", "--zmq"])
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in JAX_PROFILES.glob("*.json")))

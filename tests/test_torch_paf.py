@@ -115,6 +115,39 @@ def test_solve_lap_matches_jax(n):
         assert cost[np.arange(n), cols].sum() == pytest.approx(cost[r, c].sum(), abs=1e-3)
 
 
+@pytest.mark.parametrize("kind", ["real", "ties", "padded"])
+@pytest.mark.parametrize("n", [13, 14, 15, 16])
+def test_bounded_lap_solver_equals_the_eager_one(n, kind):
+    """The fixed-step form ``torch.export`` traces gives the eager solver's
+    ``col4row`` exactly, on random costs, costs heavy with ties and costs
+    padded with ``PAD_COST``."""
+    batch = 32
+    rng = np.random.default_rng(100 * n + len(kind))
+    real = rng.uniform(-2, 2, (batch, n, n)).astype(np.float32)
+    costs = {
+        "real": real,
+        "ties": rng.integers(-2, 2, (batch, n, n)).astype(np.float32),
+        "padded": np.where(rng.uniform(size=(batch, n, n)) < 0.4, np.float32(tlap.PAD_COST), real),
+    }[kind]
+    cost = torch.from_numpy(costs)
+    eager = tlap._solve_lap_jv(cost)
+    np.testing.assert_array_equal(tlap._solve_lap_jv(cost, bounded=True).numpy(), eager.numpy())
+
+
+def test_solve_lap_exports_through_the_bounded_solver():
+    """``solve_lap`` past the DP's n traces under ``torch.export`` (the eager
+    loops would read the data on the host) and the program gives the eager
+    ``col4row``."""
+
+    class Solve(torch.nn.Module):
+        def forward(self, c):
+            return tlap.solve_lap(c)[0]
+
+    cost = torch.from_numpy(_lap_costs(13, seed=7))
+    program = torch.export.export(Solve(), (cost,), strict=False).module()
+    np.testing.assert_array_equal(program(cost).numpy(), tlap.solve_lap(cost)[0].numpy())
+
+
 def test_prepare_cost_and_assignment_is_valid():
     rng = np.random.default_rng(3)
     cost = rng.uniform(-1, 1, (5, 5)).astype(np.float32)

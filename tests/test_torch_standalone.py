@@ -17,7 +17,8 @@ package written and read back, an ImgStore written and read back, and the
 committed JPEG stills decoded to cv2's recorded frames; and the data
 model's calls (``numpy``, ``remove_predictions``, a track swap, ``merge``,
 ``describe``), ``sleap-convert`` to an analysis ``.h5`` and ``.csv``, and a
-DeepLabCut project import. Also: the entry
+DeepLabCut project import; and, in an interpreter of its own, ``sleap-export``
+of a trained folder on the CPU, loaded back and run. Also: the entry
 points default to the card, and paths are read.
 """
 
@@ -401,7 +402,9 @@ def test_every_module_imports_with_the_jax_side_blocked(standalone):
                  "tracking.kalman", "tracking.tracker", "training.trainer",
                  "training.losses", "training.optimizers", "data.augmentation",
                  "ops.confmaps", "ops.edge_maps", "io.hdf5", "io.png", "io.jpeg",
-                 "io.dirimgstore", "io.slp"):
+                 "io.dirimgstore", "io.slp", "inference.export", "cli.export", "io.pathutils",
+                 "info.align", "info.metrics", "info.suggestions", "info.summary",
+                 "info.trackcleaner"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
 
@@ -448,6 +451,55 @@ def test_train_then_predict_with_the_jax_side_blocked(standalone):
     assert res["predictor"] == "TopDownPredictor"
     assert res["n_valid"] == 3 and res["labels"] == "Labels"
     assert [shape[-1] for shape in res["centroid_shapes"]] == [2, 2]
+
+
+_EXPORT_SCRIPT = """
+import contextlib, io, json, os, sys
+
+# torch.export's own imports come first: its partitioner imports networkx,
+# a dependency of torch, not of the port. Those stay; the rest is blocked.
+import torch.export._trace
+
+BLOCKED = set(sys.argv[1].split(",")) - {m.split(".")[0] for m in sys.modules}
+for name in BLOCKED:
+    sys.modules[name] = None
+
+import numpy as np
+import torch
+
+from sleap_tpu_torch.cli import export as export_cli
+from sleap_tpu_torch.inference.export import load_exported_model
+
+torch.set_num_threads(1)
+exported = os.path.join(sys.argv[2], "exported")
+with contextlib.redirect_stdout(io.StringIO()):
+    export_cli.main(["-m", os.path.join(".convergence_runs", "minimal_robot.UNet.single_instance"),
+                     "-e", exported, "--cpu", "--batch_size", "1", "--image_size", "64"])
+out = load_exported_model(exported)(np.zeros((1, 64, 64, 3), np.uint8))
+print(json.dumps({
+    "files": sorted(os.listdir(exported)),
+    "outputs": {k: list(v.shape) for k, v in out.items()},
+    "blocked": sorted(BLOCKED),
+    "blocked_loaded": sorted(m for m, mod in sys.modules.items()
+                             if mod is not None and m.split(".")[0] in BLOCKED),
+}))
+"""
+
+
+def test_export_with_the_jax_side_blocked(tmp_path):
+    """``sleap-export`` on the CPU in a fresh interpreter with the JAX side
+    blocked (all but what torch.export itself imports first), and the
+    program loaded back and run."""
+    out = subprocess.run(
+        [sys.executable, "-c", _EXPORT_SCRIPT, ",".join(BLOCKED), str(tmp_path)], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["files"] == ["info.json", "model.pt2"]
+    assert res["outputs"] == {"instance_peaks": [1, 2, 2], "instance_peak_vals": [1, 2]}
+    assert {"sleap_tpu", "jax", "h5py", "cv2"} <= set(res["blocked"])
+    assert res["blocked_loaded"] == []
 
 
 def test_cli_writes_slp_with_the_jax_side_blocked(standalone):
