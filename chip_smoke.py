@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
 inference, flow-shift tracking, training, the ``sleap-track``,
-``sleap-train``, ``sleap-inspect``, ``sleap-convert`` and ``sleap-export``
-CLIs, exported programs and the data model's API once on one CUDA card,
+``sleap-train``, ``sleap-inspect``, ``sleap-convert``, ``sleap-export`` and
+``sleap-diagnostic`` CLIs, exported programs, the data model's API and the
+host modules (NWB/NIX, image-feature suggestions, prefs, util, message)
+once on one CUDA card,
 through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
 trained run folders from their own checkpoints, the other backbones
@@ -335,9 +337,38 @@ script its total before the ``kernels`` line:
    instances and tracks, tracking scores within TRACK_SCORE_TOL; then
    ``info.trackcleaner`` to MAX_INSTANCES a frame, ``info.summary``'s series
    and ``info.metrics``' distances (0 between the two files).
+16. The host modules, after phase 15 (aim: under 30 s). A child process
+   for 16d and 16e starts first and runs beside 16a-16c (what may import an
+   optional package runs there: PyYAML, scikit-learn, which imports attr
+   and pandas, and pyzmq, while this process's JAX-side check counts yaml,
+   attr and pandas). 16e: preferences saved in a temporary HOME and read
+   back (or saving refused naming PyYAML where it is absent), ``util``'s
+   HDF5 helpers through the port's writer and reader, and a
+   ``PairedSender``/``PairedReceiver`` handshake and message on a local port
+   (or the ImportError naming pyzmq). 16a:
+   ``python -m sleap_tpu_torch.diagnostic`` in a fresh process names the
+   card (``torch.cuda.get_device_name(0)``) and imports nothing of the JAX
+   side or of OPTIONAL_PACKAGES; ``system.get_all_gpus()`` finds the card,
+   ``is_accelerator_system()``, ``best_logical_device_name()`` is cuda:0,
+   and ``system.summary()`` is printed. 16b: each trained head type
+   (4g's folders and frames) built by ``from_trained_models`` on the card
+   equals ``load_model``'s predictor exactly, kernels 1, 2 and 3 launching
+   (the launches join the kernels line); ``VisualPredictor`` on phase 4's
+   float32 centroid model (its folder written again, phase 4's weights;
+   1024^2, batch 16, full width) and on the trained bottom-up folder: its
+   maps equal the module's head outputs on the card exactly and the CPU's
+   within PATH_VAL_TOL on VISUAL_CPU_FRAMES frames. 16c: 8a's tracked
+   labels through ``labels_to_pose_arrays`` and
+   ``tracks_numpy_to_labeled_frames`` give every point back exactly,
+   ``assemble_nix_arrays`` holds every instance, and ``export_nwb``,
+   ``export_nix``, ``load_nwb`` and ``sleap-convert --format nwb`` raise the
+   ImportError naming pynwb or nixio (or write and read back where those
+   are installed). 16d: the "raw" and "hog" features of 8a's 32 frames
+   (decoded on the card), then ``image_feature_based_method`` (or its
+   ImportError naming scikit-learn); which of the two happened is printed.
 
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
-one of phase 13's, one of phase 14's and one of phase 15's; the line before the last is a JSON object with each
+one of phase 13's, one of phase 14's, one of phase 15's and one of phase 16's; the line before the last is a JSON object with each
 kernel's launches (J1 and J2 from phase 13c's run) (all paths' and per path), error and
 times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1961,7 +1992,7 @@ def check_cli_fixtures(wrappers, launches, card):
         rows = [f["video0/video"][i].tobytes() for i in range(f["video0/video"].shape[0])]
     t0 = time.perf_counter()
     for row in rows:
-        png.imdecode(row)
+        png.imdecode(row, device="cpu")
     decode_ms = 1e3 * (time.perf_counter() - t0) / len(rows)
     figures["png"] = {"frame_ms": frame_ms, "decode_ms": decode_ms}
     log(f"8b pkg.slp PNG frames (384^2 gray, rows in all five filters): {frame_ms:.3f} ms a "
@@ -1977,7 +2008,7 @@ def check_cli_fixtures(wrappers, launches, card):
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            out = png.decode(data)
+            out = png.decode(data, device="cpu")
             times.append(time.perf_counter() - t0)
         check(np.array_equal(out[..., 0], img), f"8b: the {name} PNG at {IMG}^2 decodes exactly")
         figures["png"][f"{name}_{IMG}_ms"] = 1e3 * float(np.median(times))
@@ -4265,6 +4296,377 @@ def check_backbones_bf16(drive, fps, td_frames, si_frames, models, card):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 16: the host modules (diagnostic, system, from_trained_models,
+# VisualPredictor, NWB/NIX, image-feature suggestions, prefs, util, message)
+# --------------------------------------------------------------------------- #
+
+# The optional packages the port imports only inside the functions that need
+# them; sleap-diagnostic must import none of them either.
+OPTIONAL_PACKAGES = ("sklearn", "zmq", "pynwb", "ndx_pose", "nixio")
+VISUAL_CPU_FRAMES = 4
+
+_HOST_MODULES_CHILD = r"""
+import json, os, socket, sys, tempfile, threading, time
+
+import numpy as np
+
+from sleap_tpu_torch import message, prefs, util
+from sleap_tpu_torch.core.labels import Labels
+from sleap_tpu_torch.info.feature_suggestions import FeatureSuggestionPipeline
+from sleap_tpu_torch.info.suggestions import VideoFrameSuggestions
+from sleap_tpu_torch.io import hdf5
+
+clip, n_frames = sys.argv[1], int(sys.argv[2])
+out = {}
+
+# 16d: features of the clip's frames (decoded on the card), then suggestions.
+labels = Labels.load_file(clip)
+video = labels.videos[0]
+for feature in ("raw", "hog"):
+    pipeline = FeatureSuggestionPipeline(per_video=n_frames, feature_type=feature)
+    t0 = time.perf_counter()
+    feats = np.stack([pipeline._frame_feature(video.get_frame(i)) for i in pipeline.get_sample_idxs(video)])
+    out[feature] = {"shape": list(feats.shape), "finite": bool(np.isfinite(feats).all()),
+                    "varies": bool(feats.std(axis=0).max() > 0), "s": time.perf_counter() - t0}
+params = {"videos": labels.videos, "per_video": n_frames, "sample_method": "stride", "scale": 1.0,
+          "merge_video_features": "across all videos", "feature_type": "hog", "pca_components": 3,
+          "n_clusters": 4, "per_cluster": 2}
+try:
+    got = VideoFrameSuggestions.image_feature_based_method(labels=labels, **params)
+    out["suggestions"] = {"ran": True, "frames": sorted([s.frame_idx, s.group] for s in got)}
+except ImportError as e:
+    out["suggestions"] = {"ran": False, "error": str(e)}
+
+with tempfile.TemporaryDirectory() as home:
+    # prefs in a temporary HOME: never the machine's own.
+    prefs.Preferences._filename = os.path.join(home, ".sleap_tpu", "preferences.yaml")
+    p = prefs.Preferences()
+    p["marker size"], p["palette"] = 9, "alphabet"
+    try:
+        p.save()
+        q = prefs.Preferences()
+        out["prefs"] = {"saved": True, "read_back": [q["marker size"], q["palette"], q["trail width"]]}
+    except ImportError as e:
+        out["prefs"] = {"saved": False, "error": str(e)}
+    path = os.path.join(home, "dict.h5")
+    data = {"a": np.arange(12, dtype="f4").reshape(3, 4), "b": {"c": ["x", "yy"], "d": np.int64(7)}}
+    with hdf5.Writer(path) as w:
+        util.save_dict_to_hdf5(w, "root", data)
+    group = util.read_hdf5_group(path, "root")
+    out["hdf5"] = {"keys": sorted(group),
+                   "equal": bool(np.array_equal(group["root/a"], data["a"])
+                                 and [v.decode() for v in group["root/b/c"]] == data["b"]["c"]
+                                 and int(util.read_hdf5_dataset(path, "root/b/d")) == 7)}
+try:
+    import zmq  # noqa: F401
+except ImportError:
+    zmq = None
+if zmq is None:
+    try:
+        message.PairedSender("tcp://127.0.0.1:1").setup()
+        out["zmq"] = {"present": False, "error": None}
+    except ImportError as e:
+        out["zmq"] = {"present": False, "error": str(e)}
+else:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    sender, receiver = message.PairedSender(address), message.PairedReceiver(address)
+    sender.setup()
+    receiver.setup()
+    done = threading.Event()
+    thread = threading.Thread(target=lambda: [receiver.check_messages(0.01) for _ in iter(done.is_set, True)])
+    thread.start()
+    shook = sender.send_handshake(timeout=10.0)
+    done.set()
+    thread.join()
+    sender.send_dict({"event": "epoch_end"})
+    got = []
+    for _ in range(50):
+        got += receiver.check_messages(0.1)
+        if got:
+            break
+    sender.close()
+    receiver.close()
+    out["zmq"] = {"present": True, "handshake": shook, "received": got}
+print(json.dumps(out))
+"""
+
+
+def start_host_modules_child(here, clip):
+    """16d's and 16e's child process, started first so it runs beside
+    16a-16c. What may import an optional package runs there, not in this
+    process, whose JAX-side check counts yaml, attr and pandas: PyYAML to
+    save preferences, scikit-learn (which imports attr and pandas) for the
+    suggestions, pyzmq for the pair."""
+    return subprocess.Popen([sys.executable, "-c", _HOST_MODULES_CHILD, clip, str(CLI_FRAMES)],
+                            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def check_diagnostic(here, card):
+    """16a: ``python -m sleap_tpu_torch.diagnostic`` in a fresh process
+    names this card and imports nothing of the JAX side or of the optional
+    packages; this process's ``system`` finds the card."""
+    from sleap_tpu_torch import system
+
+    watched = JAX_SIDE + OPTIONAL_PACKAGES
+    code = ("import runpy, sys; runpy.run_module('sleap_tpu_torch.diagnostic', run_name='__main__'); "
+            f"print(sorted({{m.split('.')[0] for m in sys.modules}} & set({watched!r})))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True, text=True,
+                          timeout=300)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"16a: sleap-diagnostic exit {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    summary, loaded = lines[:-1], lines[-1]
+    for line in summary:
+        log(f"16a sleap-diagnostic | {line}")
+    name = torch.cuda.get_device_name(0)
+    check(any(name in line for line in summary), f"16a: sleap-diagnostic names the card ({name})")
+    check(loaded == "[]", f"16a: sleap-diagnostic imported {loaded}")
+    gpus = system.get_all_gpus()
+    check(len(gpus) >= 1 and system.is_accelerator_system() and system.get_all_tpus() == gpus,
+          f"16a: system finds the card ({gpus})")
+    check(system.best_logical_device_name() == "cuda:0", "16a: cuda:0 is the current device")
+    log("16a system.summary():")
+    system.summary()
+    log(f"16a sleap-diagnostic in a fresh process: {seconds:.1f} s ({card})")
+    return {"fresh_process_s": seconds, "summary": summary, "gpus": len(gpus)}
+
+
+def from_trained_vs_load_model(name, build, folders, runs, wrappers, launches, total):
+    """16b for one trained head type: its predictor from
+    ``from_trained_models`` against ``load_model``'s on 4g's frames, both
+    warmed up; the kernels' launches of the former's run are counted."""
+    import sleap_tpu_torch
+
+    size = next(s for n, _, s in TRAINED if n == name)
+    paths = [os.path.join(runs, f) for f in folders]
+    frames = synthetic_frames(4, seed=0, size=size, blobs=TRAINED_BLOBS, sigma=TRAINED_SIGMA)
+    built = build(paths)
+    loaded = sleap_tpu_torch.load_model(paths, batch_size=4, peak_threshold=0.05)
+    check(type(built) is type(loaded) and built.device.type == "cuda", f"16b {name}: on the card")
+    for pred in (loaded, built):  # warm-up: cuDNN plans
+        pred.predict(frames, make_labels=False)
+    want = loaded.predict(frames, make_labels=False)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    got = built.predict(frames, make_labels=False)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+    for kernel, count in counts.items():
+        launches[kernel][f"from_trained_models {name} (16b)"] = count
+        total[kernel] += count
+    d_xy, d_val = outputs_diff(got, want)
+    r_xy, r_val = outputs_diff(loaded.predict(frames, make_labels=False), want)
+    check(d_xy == 0.0 and d_val == 0.0, f"16b {name}: from_trained_models equals load_model "
+          f"(max |dxy| {d_xy}, max |dval| {d_val}; load_model against itself {r_xy}, {r_val})")
+    log(f"16b {name} ({type(built).__name__}) from_trained_models vs load_model on the card: "
+        f"max |dxy| {d_xy}, max |dval| {d_val} (load_model against itself {r_xy}, {r_val}); "
+        f"launches {counts}")
+    return {"launches": counts}
+
+
+def check_from_trained_models(td_cpu, wrappers, launches, card):
+    """16b with cuDNN's deterministic convolutions: two runs of the same
+    weights agree bit for bit only with them (the default ones differ by a
+    few ulps from call to call: 3.8e-06 px on the trained top-down pair)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _check_from_trained_models(td_cpu, wrappers, launches, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _check_from_trained_models(td_cpu, wrappers, launches, card):
+    """16b: each head type built with ``from_trained_models`` from the
+    trained ``.convergence_runs`` folders, on the card, on 4g's frames:
+    outputs equal ``load_model``'s exactly, and kernels 1, 2 and 3 launch.
+    Then VisualPredictor on phase 4's float32 centroid folder (full width,
+    1024^2, batch 16; the weights phase 4 ran) and on the trained bottom-up
+    folder: its maps equal the module's head outputs on the card and the
+    same predictor's on the CPU within PATH_VAL_TOL."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.inference.bottomup import BottomUpPredictor
+    from sleap_tpu_torch.inference.multiclass import TopDownMultiClassPredictor
+    from sleap_tpu_torch.inference.predictors import (
+        SingleInstancePredictor,
+        TopDownPredictor,
+        VisualPredictor,
+        _preprocess,
+    )
+    from sleap_tpu_torch.models.params import flax_from_state_dict
+    from sleap_tpu_torch.precision import ieee_fp32
+
+    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".convergence_runs")
+    builders = {
+        "trained top-down": lambda p: TopDownPredictor.from_trained_models(
+            centroid_model_path=p[0], confmap_model_path=p[1], batch_size=4, peak_threshold=0.05),
+        "trained bottom-up": lambda p: BottomUpPredictor.from_trained_models(
+            p[0], batch_size=4, peak_threshold=0.05),
+        "trained single-instance": lambda p: SingleInstancePredictor.from_trained_models(
+            p[0], batch_size=4, peak_threshold=0.05),
+        "trained multiclass": lambda p: TopDownMultiClassPredictor.from_trained_models(
+            centroid_model_path=p[0], confmap_model_path=p[1], batch_size=4, peak_threshold=0.05),
+    }
+    figures, total = {}, {k: 0 for k in wrappers}
+    for name, folders, _ in TRAINED:
+        figures[name] = from_trained_vs_load_model(name, builders[name], folders, runs, wrappers,
+                                                   launches, total)
+    for kernel in ("global_peaks", "local_peaks", "crop_unit"):
+        check(total[kernel] > 0, f"16b: kernel {kernel} launched by from_trained_models predictors")
+
+    # VisualPredictor on phase 4's float32 centroid model, and the trained
+    # bottom-up folder; the CPU runs the first VISUAL_CPU_FRAMES frames.
+    visual = {}
+    with tempfile.TemporaryDirectory() as root:
+        folder = write_run_folders(root)["centroid"]
+        params = {folder: flax_from_state_dict(td_cpu.centroid_model.module)}
+        cases = [("phase 4 centroid float32", folder, params, synthetic_frames(BATCH, seed=16), BATCH),
+                 ("trained bottom-up", os.path.join(runs, TRAINED[1][1][0]), None,
+                  synthetic_frames(4, seed=0, size=TRAINED[1][2], blobs=TRAINED_BLOBS,
+                                   sigma=TRAINED_SIGMA), 4)]
+        for name, path, weights, frames, batch in cases:
+            gpu = VisualPredictor.from_trained_models(path, params=weights, batch_size=batch)
+            cpu = VisualPredictor.from_trained_models(path, device="cpu", params=weights,
+                                                      batch_size=VISUAL_CPU_FRAMES)
+            gpu.predict(frames)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = gpu.predict(frames)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            want = cpu.predict(frames[:VISUAL_CPU_FRAMES])
+            tm = gpu.model
+            with torch.inference_mode(), ieee_fp32():
+                imgs = _preprocess(torch.from_numpy(frames).cuda(), tm.grayscale, tm.input_scale,
+                                   tm.pad_to_stride, imagenet_mode=tm.imagenet_mode)
+                heads = {k: v.float().cpu().numpy() for k, v in tm.module(imgs).items()}
+            check(len(got) == 1 and set(got[0]) >= set(gpu.head_specific_output_keys()),
+                  f"16b VisualPredictor {name}: one batch of {gpu.head_specific_output_keys()}")
+            d_cpu, d_module = 0.0, 0.0
+            for key, value in got[0].items():
+                if key in ("frame_ind", "video_ind"):
+                    continue
+                d_cpu = max(d_cpu, float(np.abs(value[:VISUAL_CPU_FRAMES] - want[0][key]).max()))
+                head = next(k for k in heads if VisualPredictor._NAMES.get(k) == key)
+                d_module = max(d_module, float(np.abs(value - heads[head]).max()))
+            check(d_module == 0.0, f"16b VisualPredictor {name}: maps equal the module's ({d_module})")
+            check(d_cpu <= PATH_VAL_TOL, f"16b VisualPredictor {name}: card vs CPU {d_cpu}")
+            shapes = {k: list(v.shape) for k, v in got[0].items() if k not in ("frame_ind", "video_ind")}
+            visual[name] = {"maps": shapes, "max_abs_vs_module": d_module, "max_abs_vs_cpu": d_cpu,
+                            "card_s": card_s}
+            log(f"16b VisualPredictor {name}: maps {shapes}; vs the module's heads {d_module}, card vs "
+                f"CPU max |d| {d_cpu:.3g}; {card_s:.3f} s a batch of {batch} on the card ({card})")
+    return {"from_trained_models": figures, "visual": visual}
+
+
+def check_nwb_nix(kept, card):
+    """16c: NWB and NIX on 8a's tracked .slp: the pose arrays go back to the
+    same points exactly, the nixtrack arrays assemble, and the writers,
+    the reader and ``sleap-convert --format nwb`` raise the ImportError that
+    names pynwb/nixio where it is absent (or write and read back)."""
+    import contextlib
+    import io
+
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.io import convert
+    from sleap_tpu_torch.io.formats import ndx_pose, nix
+
+    labels = Labels.load_file(kept["slp"])  # its video, the clip beside it
+    video = labels.videos[0]
+    arr, untracked = ndx_pose.labels_to_pose_arrays(labels, video)
+    lfs = ndx_pose.tracks_numpy_to_labeled_frames(arr[..., :2], arr[..., 2], not untracked, video,
+                                                  labels.skeleton)
+    n_rows = int((~np.isnan(arr[..., :2]).all(axis=(-1, -2))).sum())
+    exact = all(np.array_equal(arr[lf.frame_idx, int(inst.track.name[5:]), :, :2], inst.numpy(),
+                               equal_nan=True)
+                for lf in lfs for inst in lf.instances)
+    n_insts = sum(len(lf.instances) for lf in lfs)
+    check(not untracked and exact and n_insts == n_rows > 0,
+          f"16c: the pose arrays give the points back exactly ({n_insts} instances of {n_rows} rows)")
+    data = nix.assemble_nix_arrays(labels, video)
+    check(data["n_instances"] == len(labels.predicted_instances), "16c: the nixtrack arrays assemble")
+    outcomes = {}
+    with tempfile.TemporaryDirectory() as root:
+        calls = {
+            "export_nwb": ("pynwb", lambda: labels.export_nwb(os.path.join(root, "a.nwb"))),
+            "export_nix": ("nixio", lambda: labels.export_nix(os.path.join(root, "a.nix"))),
+            "load_nwb": ("pynwb", lambda: Labels.load_nwb(os.path.join(root, "a.nwb"))),
+            "sleap-convert --format nwb": ("pynwb", lambda: convert.main(
+                [kept["slp"], "--format", "nwb"])),
+        }
+        for name, (package, call) in calls.items():
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    result = call()
+                outcomes[name] = "wrote" if result is None else f"read {len(result)} frames"
+            except ImportError as e:
+                check(package in str(e), f"16c {name}: the ImportError names {package}: {e}")
+                outcomes[name] = f"ImportError: {e}"
+    for name, outcome in outcomes.items():
+        log(f"16c {name}: {outcome}")
+    return {"instances": n_insts, "nix_instances": data["n_instances"], "calls": outcomes}
+
+
+def finish_host_modules_child(proc, card):
+    """16d and 16e from the child: the "raw" and "hog" features of 8a's
+    frames and the image-feature suggestions (or their ImportError naming
+    scikit-learn); the prefs round trip, HDF5 helpers and ZMQ pair."""
+    stdout, stderr = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"16d/16e: exit {proc.returncode}: {stderr[-2000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    for feature, size in (("raw", 1024), ("hog", 144)):
+        f = out[feature]
+        check(f["shape"] == [CLI_FRAMES, size] and f["finite"] and f["varies"],
+              f"16d: {feature} features of 8a's frames {f}")
+    sug = out["suggestions"]
+    if sug["ran"]:
+        check(0 < len(sug["frames"]) <= 8 and all(0 <= i < CLI_FRAMES for i, _ in sug["frames"]),
+              f"16d: image-feature suggestions {sug}")
+        log(f"16d image-feature suggestions ran (scikit-learn present): {sug['frames']}")
+    else:
+        check("scikit-learn" in sug["error"], f"16d: the ImportError names scikit-learn: {sug}")
+        log(f"16d image-feature suggestions: scikit-learn absent here: {sug['error']}")
+    log(f"16d raw features {out['raw']['s']:.3f} s, hog {out['hog']['s']:.3f} s for {CLI_FRAMES} "
+        f"frames of {IMG}^2 ({card})")
+    p = out["prefs"]
+    if p["saved"]:
+        check(p["read_back"] == [9, "alphabet", 4.0], f"16e: preferences read back {p}")
+    else:
+        check("PyYAML" in p["error"], f"16e: saving preferences names PyYAML: {p}")
+    check(out["hdf5"]["equal"] and out["hdf5"]["keys"] == ["root/a", "root/b/c", "root/b/d"],
+          f"16e: util's HDF5 helpers {out['hdf5']}")
+    z = out["zmq"]
+    if z["present"]:
+        check(z["handshake"] and z["received"] == [{"event": "epoch_end"}], f"16e: the ZMQ pair {z}")
+    else:
+        check("pyzmq" in (z["error"] or ""), f"16e: the ImportError names pyzmq {z}")
+    log(f"16e prefs {'saved and read back' if p['saved'] else 'refused to save: ' + p['error']}; "
+        f"HDF5 helpers {out['hdf5']['keys']}; ZMQ "
+        f"{'handshake ' + str(z['handshake']) if z['present'] else 'absent: ' + z['error']}")
+    return out
+
+
+def check_host_modules(td_cpu, wrappers, launches, kept, card):
+    """Phase 16: the child of 16d and 16e first, then 16a-16c here."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = start_host_modules_child(here, kept["clip"])
+    try:
+        res = {"16a diagnostic": check_diagnostic(here, card),
+               "16b from_trained_models": check_from_trained_models(td_cpu, wrappers, launches, card),
+               "16c nwb nix": check_nwb_nix(kept, card)}
+    except BaseException:
+        child.kill()
+        child.communicate()
+        raise
+    res["16d 16e child"] = finish_host_modules_child(child, card)
+    return res
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: times and bounds
 # --------------------------------------------------------------------------- #
 
@@ -4598,6 +5000,11 @@ def main() -> int:
                 "15c", check_trained_export, drive, si_wrappers, launches, fps, card),
             "15d re-tracking": timed_phase("15d", check_retrack, kept, card),
         }
+
+        # Phase 16: sleap-diagnostic, system, from_trained_models and
+        # VisualPredictor, NWB/NIX and image-feature suggestions on 8a's
+        # .slp, prefs, util and message.
+        host_modules = timed_phase("16", check_host_modules, td_cpu, all_wrappers, launches, kept, card)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -4623,6 +5030,7 @@ def main() -> int:
     print(json.dumps({"frames_io": frames_io, "card": card}), flush=True)
     print(json.dumps({"data_model": data_model, "card": card}), flush=True)
     print(json.dumps({"export": export, "card": card}), flush=True)
+    print(json.dumps({"host_modules": host_modules, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

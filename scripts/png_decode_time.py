@@ -76,7 +76,7 @@ def main() -> None:
             times = []
             for _ in range(args.repeats):
                 t0 = time.perf_counter()
-                out = png.decode(data)
+                out = png.decode(data, device="cpu")
                 times.append(time.perf_counter() - t0)
             if not np.array_equal(out[..., 0], img):
                 raise SystemExit(f"decode of the {name} frame at {size}^2 is wrong")

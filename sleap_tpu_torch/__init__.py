@@ -4,7 +4,8 @@ bottom-up, multiclass), flow-shift tracking, training and evaluation,
 predictor), and the ``sleap-track``, ``sleap-train``, ``sleap-export`` and
 ``sleap-inspect`` CLIs (``python -m sleap_tpu_torch.cli.track``,
 ``python -m sleap_tpu_torch.cli.train``, ``python -m
-sleap_tpu_torch.cli.export``, ``python -m sleap_tpu_torch.info.labels``);
+sleap_tpu_torch.cli.export``, ``python -m sleap_tpu_torch.info.labels``),
+and ``sleap-diagnostic`` (``python -m sleap_tpu_torch.diagnostic``);
 the shipped training profiles are in ``training_profiles/``.
 
 The JAX package (``sleap_tpu``) is the reference: this package mirrors its
@@ -60,3 +61,18 @@ def load_metrics(*args, **kwargs):
     from sleap_tpu_torch.evals import load_metrics as _load_metrics
 
     return _load_metrics(*args, **kwargs)
+
+
+def load_config(*args, **kwargs):
+    """A training config from a JSON file or a run folder
+    (:func:`sleap_tpu_torch.config.load_config`)."""
+    from sleap_tpu_torch.config import load_config as _load_config
+
+    return _load_config(*args, **kwargs)
+
+
+def system_summary():
+    """Print the CUDA devices (:func:`sleap_tpu_torch.system.summary`)."""
+    from sleap_tpu_torch.system import summary
+
+    summary()

@@ -14,8 +14,9 @@ nodes x 2 or 3), ``to_dict``, ``describe``, the analysis exports
 (:mod:`sleap_tpu_torch.info.write_tracking_h5`) and the importers of
 :mod:`sleap_tpu_torch.io.formats`. ``save`` and :func:`load_file` write and
 read ``.slp`` files through the port's own reader and writer
-(:mod:`sleap_tpu_torch.io.slp`). NWB and NIX need HDF5 features the port's
-writer lacks and raise naming ROADMAP.md queue 1, item 3f.
+(:mod:`sleap_tpu_torch.io.slp`). NWB and NIX go through ``pynwb``/``ndx_pose``
+and ``nixio`` (:mod:`sleap_tpu_torch.io.formats.ndx_pose`,
+:mod:`~sleap_tpu_torch.io.formats.nix`), imported only when called.
 """
 
 from __future__ import annotations
@@ -38,16 +39,6 @@ from sleap_tpu_torch.core.instance import (
 from sleap_tpu_torch.core.rangelist import RangeList
 from sleap_tpu_torch.core.skeleton import Node, Skeleton
 from sleap_tpu_torch.io.video import Video
-
-NWB_NIX_ITEM = (
-    "needs HDF5 soft links and object references in the port's writer, and the NWB "
-    "schema without pynwb; it is ROADMAP.md queue 1, item 3f (with NWB and NIX)"
-)
-
-
-def nwb_nix_unavailable(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {NWB_NIX_ITEM}.")
-
 
 @dataclass(eq=False)
 class SuggestionFrame:
@@ -872,10 +863,18 @@ class Labels(MutableSequence):
         export_analysis_file(self, filename, csv=True)
 
     def export_nwb(self, filename: str, **kwargs) -> None:
-        raise nwb_nix_unavailable("NWB export")
+        """Write the predicted instances to NWB (needs ``pynwb`` and
+        ``ndx-pose``; :func:`sleap_tpu_torch.io.formats.ndx_pose.write_labels`)."""
+        from sleap_tpu_torch.io.formats import ndx_pose
+
+        ndx_pose.write_labels(filename, self, **kwargs)
 
     def export_nix(self, filename: str, video=None, **kwargs) -> None:
-        raise nwb_nix_unavailable("NIX export")
+        """Write a nixtrack file of ``video`` (needs ``nixio``;
+        :func:`sleap_tpu_torch.io.formats.nix.write_labels`)."""
+        from sleap_tpu_torch.io.formats import nix
+
+        nix.write_labels(filename, self, video=video, **kwargs)
 
     def to_dict(self, skip_labels: bool = False) -> Dict[str, Any]:
         """The JSON project structure: one node list that skeletons refer to
@@ -1033,7 +1032,7 @@ class Labels(MutableSequence):
 
     @classmethod
     def load_nwb(cls, filename: str, **kwargs) -> "Labels":
-        raise nwb_nix_unavailable("Reading NWB")
+        return cls._load_as(filename, "nwb", **kwargs)
 
     @classmethod
     def load_file(

@@ -44,6 +44,32 @@ def ensure_float(image: torch.Tensor) -> torch.Tensor:
     return image.float()
 
 
+def ensure_int(image: torch.Tensor) -> torch.Tensor:
+    """Float images -> uint8: scaled by 255 first when their maximum is at
+    most 1, clipped to [0, 255] and truncated; integer images pass through."""
+    if not torch.is_floating_point(image):
+        return image
+    scaled = image * 255.0 if image.max() <= 1.0 else image
+    return scaled.clamp(0, 255).to(torch.uint8)
+
+
+def convert_rgb_to_bgr(image: torch.Tensor) -> torch.Tensor:
+    """Reverse the channel axis (a grayscale image is made RGB first)."""
+    return ensure_rgb(image).flip(-1)
+
+
+def ensure_min_image_rank(image: torch.Tensor) -> torch.Tensor:
+    """Append a channel axis to a rank-2 (H, W) image."""
+    if image.ndim == 2:
+        return image[..., None]
+    return image
+
+
+def scale_image_range(image: torch.Tensor, min_val: float, max_val: float) -> torch.Tensor:
+    """Rescale a [0, 1] image to [min_val, max_val]."""
+    return image * (max_val - min_val) + min_val
+
+
 def scale_to_imagenet_torch_mode(image: torch.Tensor) -> torch.Tensor:
     """[0, 1] float RGB -> standardized by the ImageNet mean and std."""
     return (image - _vec(_IMAGENET_MEAN_RGB, image)) / _vec(_IMAGENET_STD_RGB, image)

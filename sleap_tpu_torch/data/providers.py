@@ -31,7 +31,18 @@ class LabelsReader:
     NaN."""
 
     labels: Any
+    user_instances_only: bool = False
     example_indices: Optional[Sequence[int]] = None
+
+    @classmethod
+    def from_user_instances(cls, labels: Any) -> "LabelsReader":
+        """A reader of the frames with user instances, each giving only its
+        training instances. Instances with no visible point are removed from
+        ``labels`` in place first, and frames left empty dropped, as the
+        JAX package does."""
+        labels.remove_empty_instances(keep_empty_frames=False)
+        inds = [i for i, lf in enumerate(labels.labeled_frames) if lf.has_user_instances]
+        return cls(labels=labels, user_instances_only=True, example_indices=inds)
 
     @classmethod
     def from_unlabeled_suggestions(cls, labels: Any) -> "LabelsReader":
@@ -57,6 +68,11 @@ class LabelsReader:
     def max_height_and_width(self) -> Tuple[int, int]:
         return max(v.height for v in self.videos), max(v.width for v in self.videos)
 
+    @property
+    def is_from_multi_size_videos(self) -> bool:
+        """True when the videos differ in frame size."""
+        return len({(v.height, v.width) for v in self.videos}) > 1
+
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         video_ids = {id(v): i for i, v in enumerate(self.videos)}
         frames = self.labels.labeled_frames
@@ -67,7 +83,7 @@ class LabelsReader:
                 image = lf.image
             except (KeyError, IndexError, FileNotFoundError):
                 continue  # a frame its video lacks, or a missing video, is skipped
-            instances = lf.instances
+            instances = lf.training_instances if self.user_instances_only else lf.instances
             yield {
                 "image": image,
                 "video_ind": video_ids[id(lf.video)],

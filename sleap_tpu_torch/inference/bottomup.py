@@ -14,15 +14,17 @@ sizes are not resized to one, and coordinates are not rescaled.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from sleap_tpu_torch.core.instance import LabeledFrame, PredictedInstance
+from sleap_tpu_torch.config import TrainingJobConfig
 from sleap_tpu_torch.inference.predictors import (
     Predictor,
     TrainedModel,
+    _loader,
     _preprocess,
     _skeleton,
 )
@@ -48,6 +50,20 @@ class BottomUpPredictor(Predictor):
     max_peaks_per_node: int = 16
 
     size_matching = False
+
+    @classmethod
+    def from_trained_models(cls, model_path: str, *, device: Union[str, torch.device] = "cuda",
+                            params: Optional[Mapping[str, Any]] = None,
+                            compute_dtype: torch.dtype = torch.float32, **kwargs) -> "BottomUpPredictor":
+        """A predictor of a multi-instance run folder on ``device``;
+        ``params`` maps the folder to weights that replace its own, and the
+        other keyword arguments are the predictor's fields."""
+        load = _loader(device, params, compute_dtype)
+        return cls(bottomup_model=load(model_path), device=torch.device(device), **kwargs)
+
+    @property
+    def bottomup_config(self) -> TrainingJobConfig:
+        return self.bottomup_model.config
 
     def __post_init__(self):
         tm = self.bottomup_model

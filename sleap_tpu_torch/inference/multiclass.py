@@ -18,17 +18,19 @@ Each batch runs on the caller's device (the card unless the caller passes
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from sleap_tpu_torch.core.instance import LabeledFrame, PredictedInstance, Track
+from sleap_tpu_torch.config import TrainingJobConfig
 from sleap_tpu_torch.inference.predictors import (
     Predictor,
     TopDownPredictor,
     TrainedModel,
     _adjust_peaks,
+    _loader,
     _preprocess,
     _skeleton,
 )
@@ -95,6 +97,26 @@ class BottomUpMultiClassPredictor(_ClassFrames, Predictor):
     max_peaks_per_node: int = 8
 
     size_matching = False
+
+    @classmethod
+    def from_trained_models(cls, model_path: str, *, device: Union[str, torch.device] = "cuda",
+                            params: Optional[Mapping[str, Any]] = None,
+                            compute_dtype: torch.dtype = torch.float32,
+                            **kwargs) -> "BottomUpMultiClassPredictor":
+        """A predictor of a multi-class bottom-up run folder on ``device``;
+        ``params`` maps the folder to weights that replace its own, and the
+        other keyword arguments are the predictor's fields."""
+        kwargs.pop("max_instances", None)
+        load = _loader(device, params, compute_dtype)
+        return cls(model=load(model_path), device=torch.device(device), **kwargs)
+
+    @property
+    def config(self) -> TrainingJobConfig:
+        return self.model.config
+
+    @property
+    def classes(self) -> List[str]:
+        return self.config.model.heads.multi_class_bottomup.class_maps.classes
 
     def __post_init__(self):
         self.class_tracks = [Track(spawned_on=0, name=c) for c in self.model.classes]
@@ -163,6 +185,10 @@ class TopDownMultiClassPredictor(_ClassFrames, TopDownPredictor):
     @property
     def _skeleton_model(self) -> TrainedModel:
         return self.confmap_model
+
+    @property
+    def classes(self) -> List[str]:
+        return self.confmap_config.model.heads.multi_class_topdown.class_vectors.classes
 
     @property
     def _max_peaks(self) -> int:

@@ -20,6 +20,9 @@ Run folders, providers and ``Labels`` are the port's own
 points run on ``"cuda"`` unless the caller passes another device. A
 predictor given a ``tracker`` (:mod:`sleap_tpu_torch.tracking`) runs it over
 the frames it built before it returns ``Labels``, as the JAX predictors do.
+Each predictor class builds itself from its run folders with
+``from_trained_models``, and :class:`VisualPredictor` returns a model's head
+maps instead of peaks.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from sleap_tpu_torch.io.video import Video
 from sleap_tpu_torch.models.model import Model, PoseNet, find_head
 from sleap_tpu_torch.models.params import (
     flax_layers,
+    flax_variables_from_state_dict,
     is_variables,
     state_dict_from_flax,
     state_dict_from_keras,
@@ -84,7 +88,11 @@ class TrainedModel:
 
     ``output_stride`` is the confidence maps' stride; bottom-up models also
     carry the PAFs' stride and the skeleton's edges as part-name pairs,
-    multiclass models their classes and the class maps' stride.
+    multiclass models their classes and the class maps' stride. ``config``,
+    ``model`` (the description the module was made from) and
+    ``input_channels`` are the run folder's, as the JAX package's
+    ``TrainedModel`` holds them; :attr:`variables` gives the weights back as
+    flax variables.
     """
 
     module: PoseNet
@@ -103,6 +111,15 @@ class TrainedModel:
     center_on_part: Optional[str] = None
     # The size frames were matched to in training, when the run recorded one.
     target_hw: Optional[Tuple[int, int]] = None
+    config: Optional[TrainingJobConfig] = None
+    model: Optional[Model] = None
+    input_channels: int = 1
+
+    @property
+    def variables(self) -> Dict[str, Any]:
+        """The module's weights as flax variables ``{"params",
+        "batch_stats"}`` of numpy arrays (:func:`~sleap_tpu_torch.models.params.flax_variables_from_state_dict`)."""
+        return flax_variables_from_state_dict(self.module)
 
 
 def load_trained_model(
@@ -180,6 +197,9 @@ def load_trained_model(
         target_hw=((int(pp.target_height), int(pp.target_width))
                    if pp.resize_and_pad_to_target and pp.target_height and pp.target_width
                    else None),
+        config=config,
+        model=model,
+        input_channels=in_channels,
     )
 
 
@@ -288,6 +308,18 @@ def _make_provider(data, device="cuda"):
     raise TypeError(f"Cannot make a data provider from {type(data)}.")
 
 
+def _loader(device, params: Optional[Mapping[str, Any]], compute_dtype: torch.dtype):
+    """Loads a run folder (None for none) onto ``device``, with the weights
+    ``params`` maps its path to, if any: the loading of every
+    ``from_trained_models``."""
+    def load(path: Optional[str]) -> Optional[TrainedModel]:
+        if not path:
+            return None
+        return load_trained_model(path, device, (params or {}).get(path), compute_dtype=compute_dtype)
+
+    return load
+
+
 # --------------------------------------------------------------------------- #
 # Predictor base
 # --------------------------------------------------------------------------- #
@@ -306,6 +338,7 @@ class Predictor:
     batch_size: int = 4
     tracker: Any = None
     verbosity: str = "none"
+    report_rate: float = 2.0
 
     @classmethod
     def from_model_paths(
@@ -338,15 +371,10 @@ class Predictor:
                 os.path.dirname(path) if path.endswith(".json") else path
             )
             paths[config.model.heads.which_oneof_attrib_name] = path
-        params = params or {}
-
-        def load(head):
-            return load_trained_model(
-                paths[head], device, params.get(paths[head]), compute_dtype=compute_dtype
-            )
-
         common = dict(
-            device=torch.device(device),
+            device=device,
+            params=params,
+            compute_dtype=compute_dtype,
             peak_threshold=peak_threshold,
             integral_refinement=integral_refinement,
             integral_patch_size=integral_patch_size,
@@ -354,30 +382,30 @@ class Predictor:
             verbosity=verbosity,
         )
         if set(paths) == {"single_instance"}:
-            return SingleInstancePredictor(confmap_model=load("single_instance"), **common)
+            return SingleInstancePredictor.from_trained_models(paths["single_instance"], **common)
         if paths and set(paths) <= {"centroid", "centered_instance"}:
-            return TopDownPredictor(
-                centroid_model=load("centroid") if "centroid" in paths else None,
-                confmap_model=load("centered_instance") if "centered_instance" in paths else None,
+            return TopDownPredictor.from_trained_models(
+                centroid_model_path=paths.get("centroid"),
+                confmap_model_path=paths.get("centered_instance"),
                 max_instances=max_instances,
                 **common,
             )
         if set(paths) == {"multi_instance"}:
             from sleap_tpu_torch.inference.bottomup import BottomUpPredictor
 
-            return BottomUpPredictor(
-                bottomup_model=load("multi_instance"), max_instances=max_instances, **common
+            return BottomUpPredictor.from_trained_models(
+                paths["multi_instance"], max_instances=max_instances, **common
             )
         if set(paths) == {"multi_class_bottomup"}:
             from sleap_tpu_torch.inference.multiclass import BottomUpMultiClassPredictor
 
-            return BottomUpMultiClassPredictor(model=load("multi_class_bottomup"), **common)
+            return BottomUpMultiClassPredictor.from_trained_models(paths["multi_class_bottomup"], **common)
         if set(paths) in ({"multi_class_topdown"}, {"centroid", "multi_class_topdown"}):
             from sleap_tpu_torch.inference.multiclass import TopDownMultiClassPredictor
 
-            return TopDownMultiClassPredictor(
-                centroid_model=load("centroid") if "centroid" in paths else None,
-                confmap_model=load("multi_class_topdown"),
+            return TopDownMultiClassPredictor.from_trained_models(
+                centroid_model_path=paths.get("centroid"),
+                confmap_model_path=paths["multi_class_topdown"],
                 max_instances=max_instances,
                 **common,
             )
@@ -515,6 +543,21 @@ class SingleInstancePredictor(Predictor):
 
     confmap_model: TrainedModel
 
+    @classmethod
+    def from_trained_models(cls, model_path: str, *, device: Union[str, torch.device] = "cuda",
+                            params: Optional[Mapping[str, Any]] = None,
+                            compute_dtype: torch.dtype = torch.float32, **kwargs) -> "SingleInstancePredictor":
+        """A predictor of a single-instance run folder on ``device``;
+        ``params`` maps the folder to weights that replace its own, and the
+        other keyword arguments are the predictor's fields."""
+        kwargs.pop("max_instances", None)
+        load = _loader(device, params, compute_dtype)
+        return cls(confmap_model=load(model_path), device=torch.device(device), **kwargs)
+
+    @property
+    def confmap_config(self) -> TrainingJobConfig:
+        return self.confmap_model.config
+
     def _infer(self, images, batch):
         tm = self.confmap_model
         imgs = _preprocess(
@@ -595,6 +638,28 @@ class TopDownPredictor(Predictor):
     def __post_init__(self):
         if self.centroid_model is None and self.confmap_model is None:
             raise ValueError("A top-down predictor needs a centroid or a centered-instance model.")
+
+    @classmethod
+    def from_trained_models(cls, centroid_model_path: Optional[str] = None,
+                            confmap_model_path: Optional[str] = None, *,
+                            device: Union[str, torch.device] = "cuda",
+                            params: Optional[Mapping[str, Any]] = None,
+                            compute_dtype: torch.dtype = torch.float32, **kwargs) -> "TopDownPredictor":
+        """A predictor of a centroid and a centered-instance run folder (one
+        of them alone: an evaluation mode) on ``device``; ``params`` maps a
+        folder to weights that replace its own, and the other keyword
+        arguments are the predictor's fields."""
+        load = _loader(device, params, compute_dtype)
+        return cls(centroid_model=load(centroid_model_path), confmap_model=load(confmap_model_path),
+                   device=torch.device(device), **kwargs)
+
+    @property
+    def centroid_config(self) -> Optional[TrainingJobConfig]:
+        return self.centroid_model.config if self.centroid_model else None
+
+    @property
+    def confmap_config(self) -> Optional[TrainingJobConfig]:
+        return self.confmap_model.config if self.confmap_model else None
 
     @property
     def _max_peaks(self) -> int:
@@ -809,3 +874,79 @@ def load_model(
             device=predictor.device,
         )
     return predictor
+
+
+# --------------------------------------------------------------------------- #
+# Raw maps
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(kw_only=True)
+class VisualPredictor(Predictor):
+    """A model's head outputs, renamed by what they hold ("confmaps",
+    "part_affinity_fields", "class_maps", "offsets"), a batch at a time: the
+    maps a user overlays on frames. Frames are preprocessed as the model's
+    predictor preprocesses them; the network runs on ``device``, and no peak
+    is found."""
+
+    model: TrainedModel
+
+    size_matching = False
+
+    _NAMES = {
+        "SingleInstanceConfmapsHead": "confmaps",
+        "CentroidConfmapsHead": "confmaps",
+        "CenteredInstanceConfmapsHead": "confmaps",
+        "MultiInstanceConfmapsHead": "confmaps",
+        "PartAffinityFieldsHead": "part_affinity_fields",
+        "ClassMapsHead": "class_maps",
+        "OffsetRefinementHead": "offsets",
+    }
+
+    @classmethod
+    def from_trained_models(cls, model_path: str, *, device: Union[str, torch.device] = "cuda",
+                            params: Optional[Mapping[str, Any]] = None,
+                            compute_dtype: torch.dtype = torch.float32, **kwargs) -> "VisualPredictor":
+        """The maps of any run folder's model on ``device``; ``params`` maps
+        the folder to weights that replace its own."""
+        load = _loader(device, params, compute_dtype)
+        return cls(model=load(model_path), device=torch.device(device), **kwargs)
+
+    @property
+    def config(self) -> TrainingJobConfig:
+        return self.model.config
+
+    def head_specific_output_keys(self) -> list:
+        """The renamed maps of the model's head type (the JAX package's list)."""
+        head = self.config.model.heads.which_oneof_attrib_name
+        if head in ("single_instance", "centroid", "centered_instance"):
+            return ["confmaps"]
+        if head == "multi_instance":
+            return ["confmaps", "part_affinity_fields"]
+        if head == "multi_class_bottomup":
+            return ["confmaps", "class_maps"]
+        return []
+
+    def _infer(self, images, batch):
+        tm = self.model
+        imgs = _preprocess(images, tm.grayscale, tm.input_scale, tm.pad_to_stride,
+                           imagenet_mode=tm.imagenet_mode)
+        renamed = {}
+        for key, val in tm.module(imgs).items():
+            if "_stack" in key:
+                continue
+            for head_name, friendly in self._NAMES.items():
+                if head_name in key:
+                    renamed[friendly] = val.float()
+                    break
+        return renamed
+
+    def predict(self, data, make_labels: bool = False):
+        """A dict a batch: each renamed map (frames, H', W', channels) as
+        float32 numpy, with the frames' ``frame_ind`` and ``video_ind``."""
+        results = []
+        for ex in super().predict(data, make_labels=False):
+            n = ex["n_valid"]
+            keep = [k for k in ex if k in self._NAMES.values()] + ["frame_ind", "video_ind"]
+            results.append({k: np.asarray(ex[k])[:n] for k in keep})
+        return results

@@ -4,8 +4,8 @@ Given a ``Labels`` project, propose frames worth labeling or proofreading
 by one of six methods, each skipping frames already suggested:
 
 - ``sample``: random or strided frames per video;
-- ``image_features``: raw-image or feature PCA and k-means; not ported yet
-  (raises; ROADMAP.md queue 1, item 13b);
+- ``image_features``: raw-image or feature PCA and k-means
+  (:mod:`sleap_tpu_torch.info.feature_suggestions`; needs scikit-learn);
 - ``prediction_score``: frames whose count of low-scoring predicted
   instances lies in a band;
 - ``velocity``: frames where a node's displacement series spikes;
@@ -96,12 +96,30 @@ class VideoFrameSuggestions:
         per_cluster: int,
         **kwargs,
     ) -> List[SuggestionFrame]:
-        """The image-feature pipeline (raw image or BRISK features, PCA,
-        k-means): not ported yet, ROADMAP.md queue 1, item 13b
-        (``info/feature_suggestions.py``)."""
-        raise NotImplementedError(
-            "Image-feature suggestions are not ported (ROADMAP.md queue 1, item 13b)."
+        """The image-feature pipeline (raw pixels, HOG or BRISK features,
+        PCA, k-means; :mod:`sleap_tpu_torch.info.feature_suggestions`), over
+        all videos at once or per video, less the frames already suggested."""
+        from sleap_tpu_torch.info.feature_suggestions import (
+            FeatureSuggestionPipeline,
+            ParallelFeaturePipeline,
         )
+
+        pipeline = FeatureSuggestionPipeline(
+            per_video=per_video,
+            scale=scale,
+            sample_method=sample_method,
+            feature_type=feature_type,
+            brisk_threshold=kwargs.get("brisk_threshold", 80),
+            vocab_size=kwargs.get("vocab_size", 20),
+            n_components=pca_components,
+            n_clusters=n_clusters,
+            per_cluster=per_cluster,
+        )
+        if merge_video_features == "across all videos":
+            proposed = pipeline.get_suggestion_frames(videos=videos)
+        else:
+            proposed = ParallelFeaturePipeline.run(pipeline, videos)
+        return cls.filter_unique_suggestions(labels, videos, proposed)
 
     @classmethod
     def prediction_score(

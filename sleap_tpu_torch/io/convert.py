@@ -10,8 +10,9 @@ labeled frames embedded; ``analysis`` and ``analysis.csv`` write each
 video's analysis file (``-o`` once a video, else
 :func:`default_analysis_filename`; ``--video`` keeps the first video whose
 path holds it; a video without labeled frames is reported and skipped).
-``nwb``, ``nix`` and ``analysis.nix`` raise naming ROADMAP.md queue 1,
-item 3f. Videos decode on ``device`` (the card by default; a Python
+``nwb`` writes ``<input>.nwb`` through ``pynwb`` and ``ndx_pose``, ``nix``
+and ``analysis.nix`` nixtrack files through ``nixio``; where those packages
+are absent they raise ``ImportError`` naming them. Videos decode on ``device`` (the card by default; a Python
 caller may pass ``device="cpu"``).
 """
 

@@ -6,8 +6,10 @@ on the port's own readers (no ``h5py``, ``yaml`` or ``pandas``).
 zip), ``dlc`` (a DeepLabCut ``CollectedData`` CSV or project
 ``config.yaml``), ``coco``, ``alphatracker`` and ``leap`` (``.mat``);
 :func:`sleap_tpu_torch.io.formats.deepposekit.read_labels` takes its three
-paths. NWB and NIX raise naming ROADMAP.md queue 1, item 3f. Videos made from the files decode on ``device`` (the card by
-default).
+paths. ``nwb`` reads through ``pynwb`` and ``ndx_pose``
+(:mod:`~sleap_tpu_torch.io.formats.ndx_pose`, imported when called); NIX is
+write-only, as in the JAX package. Videos made from the files decode on
+``device`` (the card by default).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import json
 from typing import Optional
 
-from sleap_tpu_torch.core.labels import Labels, nwb_nix_unavailable
+from sleap_tpu_torch.core.labels import Labels
 
 
 def read(filename: str, for_object: str = "labels", as_format: Optional[str] = None, **kwargs) -> Labels:
@@ -57,9 +59,11 @@ def read(filename: str, for_object: str = "labels", as_format: Optional[str] = N
 
         return labels_json.read_labels(filename, **kwargs)
     if fmt == "nwb":
-        raise nwb_nix_unavailable("Reading NWB")
+        from sleap_tpu_torch.io.formats import ndx_pose
+
+        return ndx_pose.read_labels(filename, **kwargs)
     if fmt == "nix":
-        raise nwb_nix_unavailable("NIX (write-only in the JAX package)")
+        raise ValueError("The NIX format is write-only; use Labels.export_nix() to write it.")
     if fmt == "genericjson":
         return read_json(filename)
     if fmt in ("text", "txt"):

@@ -206,11 +206,12 @@ def read(data: bytes) -> Png:
     return Png(rows, width, bpp, color, palette, trns)
 
 
-def decode(data: bytes, device="cpu") -> np.ndarray:
+def decode(data: bytes, device="cuda") -> np.ndarray:
     """A PNG's pixels as (H, W, C) uint8, channels in the file's order
     (gray, gray and alpha, R G B, or R G B A; palette colours expanded to
     R G B, and A where the file gives transparency). ``device`` "cuda"
-    unfilters the rows in host C, "cpu" in numpy."""
+    (the default, as for every entry point of the port) unfilters the rows
+    in host C, "cpu" in numpy."""
     p = read(data)
     if torch.device(device).type == "cuda":
         out = unfilter_host(p.rows, p.bpp)
@@ -234,7 +235,7 @@ def decode(data: bytes, device="cpu") -> np.ndarray:
     return np.concatenate([p.palette, alpha[:, None]], 1)[index]
 
 
-def imdecode(data: bytes, device="cpu") -> np.ndarray:
+def imdecode(data: bytes, device="cuda") -> np.ndarray:
     """``cv2.imdecode(data, cv2.IMREAD_UNCHANGED)`` for the PNGs
     :func:`decode` reads: (H, W) gray, (H, W, 3) BGR, or (H, W, 4) BGRA."""
     img = decode(data, device)

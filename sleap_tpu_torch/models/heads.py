@@ -40,6 +40,7 @@ class Head:
 @dataclass
 class SingleInstanceConfmapsHead(Head):
     part_names: List[str] = field(default_factory=list)
+    sigma: float = 5.0
 
     @property
     def channels(self) -> int:
@@ -47,25 +48,30 @@ class SingleInstanceConfmapsHead(Head):
 
     @classmethod
     def from_config(cls, config, part_names=None) -> "SingleInstanceConfmapsHead":
-        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride,
-                   loss_weight=config.loss_weight)
+        return cls(part_names=part_names or config.part_names, sigma=config.sigma,
+                   output_stride=config.output_stride, loss_weight=config.loss_weight)
 
 
 @dataclass
 class CentroidConfmapsHead(Head):
+    anchor_part: Optional[str] = None
+    sigma: float = 5.0
+
     @property
     def channels(self) -> int:
         return 1
 
     @classmethod
     def from_config(cls, config) -> "CentroidConfmapsHead":
-        return cls(output_stride=config.output_stride,
+        return cls(anchor_part=config.anchor_part, sigma=config.sigma, output_stride=config.output_stride,
                    loss_weight=config.loss_weight)
 
 
 @dataclass
 class CenteredInstanceConfmapsHead(Head):
     part_names: List[str] = field(default_factory=list)
+    anchor_part: Optional[str] = None
+    sigma: float = 5.0
 
     @property
     def channels(self) -> int:
@@ -73,13 +79,14 @@ class CenteredInstanceConfmapsHead(Head):
 
     @classmethod
     def from_config(cls, config, part_names=None) -> "CenteredInstanceConfmapsHead":
-        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride,
-                   loss_weight=config.loss_weight)
+        return cls(part_names=part_names or config.part_names, anchor_part=config.anchor_part,
+                   sigma=config.sigma, output_stride=config.output_stride, loss_weight=config.loss_weight)
 
 
 @dataclass
 class MultiInstanceConfmapsHead(Head):
     part_names: List[str] = field(default_factory=list)
+    sigma: float = 5.0
 
     @property
     def channels(self) -> int:
@@ -87,13 +94,14 @@ class MultiInstanceConfmapsHead(Head):
 
     @classmethod
     def from_config(cls, config, part_names=None) -> "MultiInstanceConfmapsHead":
-        return cls(part_names=part_names or config.part_names, output_stride=config.output_stride,
-                   loss_weight=config.loss_weight)
+        return cls(part_names=part_names or config.part_names, sigma=config.sigma,
+                   output_stride=config.output_stride, loss_weight=config.loss_weight)
 
 
 @dataclass
 class PartAffinityFieldsHead(Head):
     edges: Sequence[Tuple[str, str]] = field(default_factory=list)
+    sigma: float = 15.0
 
     @property
     def channels(self) -> int:
@@ -101,7 +109,7 @@ class PartAffinityFieldsHead(Head):
 
     @classmethod
     def from_config(cls, config, edges=None) -> "PartAffinityFieldsHead":
-        return cls(edges=edges or config.edges, output_stride=config.output_stride,
+        return cls(edges=edges or config.edges, sigma=config.sigma, output_stride=config.output_stride,
                    loss_weight=config.loss_weight)
 
 
@@ -110,6 +118,7 @@ class ClassMapsHead(Head):
     """Per-pixel class probabilities: one sigmoid map per class."""
 
     classes: List[str] = field(default_factory=list)
+    sigma: float = 5.0
 
     @property
     def channels(self) -> int:
@@ -121,8 +130,8 @@ class ClassMapsHead(Head):
 
     @classmethod
     def from_config(cls, config, classes=None) -> "ClassMapsHead":
-        return cls(classes=classes or config.classes, output_stride=config.output_stride,
-                   loss_weight=config.loss_weight)
+        return cls(classes=classes or config.classes, sigma=config.sigma,
+                   output_stride=config.output_stride, loss_weight=config.loss_weight)
 
 
 @dataclass
@@ -167,6 +176,7 @@ class OffsetRefinementHead(Head):
     one part, its (possibly unset) anchor."""
 
     part_names: List[Optional[str]] = field(default_factory=list)
+    sigma_threshold: float = 0.2
 
     @property
     def channels(self) -> int:
@@ -180,4 +190,5 @@ class OffsetRefinementHead(Head):
             elif hasattr(config, "anchor_part"):
                 part_names = [config.anchor_part]
         return cls(part_names=part_names, output_stride=config.output_stride,
-                   loss_weight=config.loss_weight)
+                   loss_weight=config.loss_weight,
+                   sigma_threshold=getattr(config, "sigma_threshold", 0.2))

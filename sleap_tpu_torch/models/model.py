@@ -266,6 +266,10 @@ class Model:
     classes: List[str] = field(default_factory=list)
 
     @property
+    def head_names(self) -> List[str]:
+        return [h.name for h in self.heads]
+
+    @property
     def maximum_stride(self) -> int:
         return self.backbone.maximum_stride
 

@@ -176,6 +176,10 @@ def solve_lap(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return col4row.reshape(*lead, n), row4col.reshape(*lead, n)
 
 
+# solve_lap takes a batch already: the JAX package's vmap of its solver.
+batched_solve_lap = solve_lap
+
+
 def prepare_cost(
     cost: torch.Tensor,
     row_mask: Optional[torch.Tensor] = None,

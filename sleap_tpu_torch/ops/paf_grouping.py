@@ -16,6 +16,10 @@ samples. Results equal the JAX functions' on the same inputs:
   instance holds two peaks of a node, ranks instances by creation order,
   and selects rather than multiplies around NaN.
 
+The host form of assembly, one sample at a time on numpy arrays
+(:func:`assign_connections_to_instances`, :func:`make_predicted_instances`,
+:meth:`PAFScorer.group_sample`), is the JAX package's too.
+
 Nothing here imports ``networkx``: :func:`toposort_edges` reproduces its
 topological sort and breadth-first walk.
 """
@@ -26,6 +30,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from sleap_tpu_torch.ops.lap import PAD_COST, solve_lap
@@ -263,6 +268,85 @@ def group_instances_batch(
     }
 
 
+def assign_connections_to_instances(
+    connections: Dict[int, List[Tuple[int, int, float]]],
+    edge_inds: Sequence[Tuple[int, int]],
+    sorted_edge_inds: Sequence[int],
+    min_instance_peaks: Union[int, float] = 0,
+    n_nodes: Optional[int] = None,
+) -> Dict[Tuple[int, int], int]:
+    """Greedy union of one sample's connections ``{edge: [(src_peak,
+    dst_peak, score), ...]}``, edges in ``sorted_edge_inds`` order, into
+    ``{(node, peak): instance id}``; two partial instances merge when they
+    share no node. Instances with fewer than ``min_instance_peaks`` peaks
+    (a fraction of ``n_nodes`` when a float) are dropped."""
+    instance_assignments: Dict[Tuple[int, int], int] = {}
+    for e in sorted_edge_inds:
+        src_node, dst_node = edge_inds[e]
+        for src_peak, dst_peak, _score in connections.get(e, []):
+            src_id = (src_node, src_peak)
+            dst_id = (dst_node, dst_peak)
+            src_instance = instance_assignments.get(src_id)
+            dst_instance = instance_assignments.get(dst_id)
+            if src_instance is None and dst_instance is None:
+                new_instance = max(instance_assignments.values(), default=-1) + 1
+                instance_assignments[src_id] = new_instance
+                instance_assignments[dst_id] = new_instance
+            elif src_instance is not None and dst_instance is None:
+                instance_assignments[dst_id] = src_instance
+            elif src_instance is not None and dst_instance is not None:
+                instance_assignments[dst_id] = src_instance
+                src_nodes = {pid[0] for pid, inst in instance_assignments.items() if inst == src_instance}
+                dst_nodes = {pid[0] for pid, inst in instance_assignments.items() if inst == dst_instance}
+                if not src_nodes & dst_nodes:
+                    for pid, inst in list(instance_assignments.items()):
+                        if inst == dst_instance:
+                            instance_assignments[pid] = src_instance
+
+    if min_instance_peaks > 0:
+        if isinstance(min_instance_peaks, float):
+            if n_nodes is None:
+                n_nodes = len({n for e in edge_inds for n in e})
+            min_instance_peaks = int(min_instance_peaks * n_nodes)
+        ids, counts = np.unique(list(instance_assignments.values()), return_counts=True)
+        keep = {i for i, c in zip(ids, counts) if c >= min_instance_peaks}
+        instance_assignments = {pid: inst for pid, inst in instance_assignments.items() if inst in keep}
+    return instance_assignments
+
+
+def make_predicted_instances(
+    peaks: np.ndarray,
+    peak_vals: np.ndarray,
+    connections: Dict[int, List[Tuple[int, int, float]]],
+    instance_assignments: Dict[Tuple[int, int], int],
+    edge_inds: Sequence[Tuple[int, int]],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One sample's instances (n_instances, n_nodes, 2), peak scores
+    (n_instances, n_nodes) and instance scores (the sum of the scores of
+    the connections whose source peak it holds), NaN where an instance has
+    no peak of a node; ``peaks`` (n_nodes, K, 2), ``peak_vals`` (n_nodes, K)."""
+    instance_ids = sorted(set(instance_assignments.values()))
+    remap = {old: new for new, old in enumerate(instance_ids)}
+    n_instances = len(instance_ids)
+    n_nodes = peaks.shape[0]
+
+    instance_scores = np.zeros(n_instances, "float32")
+    for e, conns in connections.items():
+        src_node, _ = edge_inds[e]
+        for src_peak, _dst_peak, score in conns:
+            src_id = (src_node, src_peak)
+            if src_id in instance_assignments:
+                instance_scores[remap[instance_assignments[src_id]]] += score
+
+    pred_instances = np.full((n_instances, n_nodes, 2), np.nan, "float32")
+    pred_peak_scores = np.full((n_instances, n_nodes), np.nan, "float32")
+    for (node_ind, peak_ind), inst in instance_assignments.items():
+        i = remap[inst]
+        pred_instances[i, node_ind] = peaks[node_ind, peak_ind]
+        pred_peak_scores[i, node_ind] = peak_vals[node_ind, peak_ind]
+    return pred_instances, pred_peak_scores, instance_scores
+
+
 @dataclass
 class PAFScorer:
     """Peak grouping by PAFs: line scores, matching and assembly."""
@@ -335,3 +419,46 @@ class PAFScorer:
             min_instance_peaks=self.resolved_min_instance_peaks(),
             max_instances=max_instances,
         )
+
+    def group_sample(
+        self,
+        peaks: np.ndarray,
+        peak_vals: np.ndarray,
+        dst_for_src: np.ndarray,
+        match_scores: np.ndarray,
+        match_valid: np.ndarray,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Host assembly of one sample from its matches: each edge's valid
+        connections scoring at least ``min_line_scores``, in source-peak
+        order, through :func:`assign_connections_to_instances` and
+        :func:`make_predicted_instances`."""
+        connections: Dict[int, List[Tuple[int, int, float]]] = {}
+        E, K = dst_for_src.shape
+        for e in range(E):
+            conns = []
+            for src_peak in range(K):
+                if not match_valid[e, src_peak]:
+                    continue
+                score = float(match_scores[e, src_peak])
+                if score < self.min_line_scores:
+                    continue
+                conns.append((src_peak, int(dst_for_src[e, src_peak]), score))
+            connections[e] = conns
+        assignments = assign_connections_to_instances(
+            connections, self.edge_inds, self.sorted_edge_inds,
+            min_instance_peaks=self.min_instance_peaks, n_nodes=len(self.part_names),
+        )
+        return make_predicted_instances(peaks, peak_vals, connections, assignments, self.edge_inds)
+
+    def predict(self, pafs: torch.Tensor, peaks: torch.Tensor, peak_vals: torch.Tensor,
+                peak_mask: torch.Tensor) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Score and match a batch on its device, then assemble each sample
+        on the host: (instances, peak scores, instance scores) a sample.
+        ``pafs`` (S, H', W', 2 * n_edges), ``peaks`` (S, n_nodes, K, 2),
+        ``peak_vals`` and ``peak_mask`` (S, n_nodes, K)."""
+        dst_for_src, match_scores, match_valid = self.score_and_match(pafs, peaks)
+        peaks, peak_vals = peaks.cpu().numpy(), peak_vals.cpu().numpy()
+        dst_for_src, match_scores = dst_for_src.cpu().numpy(), match_scores.cpu().numpy()
+        match_valid = match_valid.cpu().numpy()
+        return [self.group_sample(peaks[s], peak_vals[s], dst_for_src[s], match_scores[s], match_valid[s])
+                for s in range(peaks.shape[0])]

@@ -16,9 +16,12 @@ beside the Pallas kernels.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sleap_tpu_torch.ops.cuda_crops import crop_unit
 from sleap_tpu_torch.ops.cuda_peaks import (
@@ -33,6 +36,7 @@ from sleap_tpu_torch.ops.cuda_peaks import (
 
 __all__ = [
     "crop_and_resize",
+    "crop_bboxes",
     "crop_bboxes_unit",
     "find_global_peaks",
     "find_global_peaks_rough",
@@ -40,9 +44,31 @@ __all__ = [
     "find_local_peaks",
     "find_local_peaks_with_offsets",
     "find_offsets_local_direction",
+    "flatten_local_peaks",
     "integral_regression",
     "make_centered_bboxes",
+    "make_gaussian_kernel",
+    "smooth_imgs",
 ]
+
+
+def make_gaussian_kernel(size: int, sigma: float) -> torch.Tensor:
+    """(2 * (size // 2) + 1)-square unnormalized float32 Gaussian, 1 at the
+    centre."""
+    gv = torch.arange(-(size // 2), size // 2 + 1, dtype=torch.float32)
+    return torch.exp(-(gv.reshape(1, -1) ** 2 + gv.reshape(-1, 1) ** 2) / (2 * sigma**2))
+
+
+def smooth_imgs(imgs: torch.Tensor, kernel_size: int = 5, sigma: float = 1.0) -> torch.Tensor:
+    """Channelwise Gaussian blur (normalized by ``2 pi sigma^2``) of
+    (samples, height, width, channels) maps: a depthwise convolution with
+    SAME zero padding, in float32."""
+    channels = imgs.shape[-1]
+    kernel = make_gaussian_kernel(kernel_size, sigma) / (2 * math.pi * sigma**2)
+    k = kernel.shape[0]
+    weight = kernel.to(imgs.device).reshape(1, 1, k, k).expand(channels, 1, k, k)
+    x = imgs.float().permute(0, 3, 1, 2)
+    return F.conv2d(x, weight, padding=k // 2, groups=channels).permute(0, 2, 3, 1)
 
 
 def make_centered_bboxes(
@@ -103,6 +129,16 @@ def crop_and_resize(
     top = gather(y0, x0) * (1 - wx) + gather(y0, x0 + 1) * wx
     bot = gather(y0 + 1, x0) * (1 - wx) + gather(y0 + 1, x0 + 1) * wx
     return top * (1 - wy) + bot * wy
+
+
+def crop_bboxes(
+    images: torch.Tensor,
+    bboxes: torch.Tensor,
+    sample_inds: torch.Tensor,
+    crop_size: Tuple[int, int],
+) -> torch.Tensor:
+    """:func:`crop_and_resize` under the JAX package's older name."""
+    return crop_and_resize(images, bboxes, sample_inds, crop_size)
 
 
 def crop_bboxes_unit(
@@ -240,3 +276,20 @@ def find_local_peaks_with_offsets(
     ch = torch.arange(C, device=cms.device)[None, :, None]
     refined = peaks + off[sm, yi, xi, ch]
     return torch.where(mask[..., None], refined, float("nan")), vals, mask
+
+
+def flatten_local_peaks(peaks, vals, mask) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Local peaks (S, C, K, ...) with their mask (S, C, K) as flat host
+    arrays of the valid ones: points (n, 2), values (n,), and their sample
+    and channel indices (n,) as int32."""
+    peaks, vals, mask = (np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t) for t in (peaks, vals, mask))
+    S, C, K = mask.shape
+    sm = np.broadcast_to(np.arange(S)[:, None, None], (S, C, K))
+    ch = np.broadcast_to(np.arange(C)[None, :, None], (S, C, K))
+    m = mask.reshape(-1)
+    return (
+        peaks.reshape(-1, 2)[m],
+        vals.reshape(-1)[m],
+        sm.reshape(-1)[m].astype(np.int32),
+        ch.reshape(-1)[m].astype(np.int32),
+    )

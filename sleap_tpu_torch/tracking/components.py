@@ -274,6 +274,10 @@ class FrameMatches:
     cost_matrix: np.ndarray
     unmatched_instances: List[Any] = field(default_factory=list)
 
+    @property
+    def has_only_first_choice_matches(self) -> bool:
+        return all(m.is_first_choice for m in self.matches)
+
     @classmethod
     def from_candidate_instances(
         cls,

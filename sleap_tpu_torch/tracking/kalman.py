@@ -101,10 +101,22 @@ class BareKalmanTracker:
     node_indices: List[int]
     instance_count: int
     instance_score_thresh: float = 0.3
+    reset_gap_size: int = 5
 
     kalman_filters: Dict[Track, ConstantVelocityKF] = field(default_factory=dict)
     tracks: List[Track] = field(default_factory=list)
     last_frame_for_track: Dict[Track, int] = field(default_factory=dict)
+
+    @classmethod
+    def initialize(cls, frames, instance_count: int, node_indices: List[int],
+                   instance_score_thresh: float = 0.3, reset_gap_size: int = 5) -> "BareKalmanTracker":
+        """A tracker whose filters start from the predicted instances of
+        ``frames``."""
+        instances = [inst for lf in frames for inst in lf.predicted_instances]
+        obj = cls(node_indices=node_indices, instance_count=instance_count,
+                  instance_score_thresh=instance_score_thresh, reset_gap_size=reset_gap_size)
+        obj.init_filters(instances)
+        return obj
 
     def _coords(self, inst) -> np.ndarray:
         return inst.numpy()[self.node_indices].flatten()
@@ -190,6 +202,11 @@ class BareKalmanTracker:
         """Most recent frame index where any track matched an instance."""
         return max(self.last_frame_for_track.values(), default=-1)
 
+    def has_stale_filters(self, t: int) -> bool:
+        """True when no track has matched within the last ``reset_gap_size``
+        frames before ``t``."""
+        return self.last_frame_with_tracks < t - self.reset_gap_size
+
 
 @dataclass
 class KalmanTracker:
@@ -227,6 +244,10 @@ class KalmanTracker:
     @property
     def uses_image(self) -> bool:
         return getattr(self.init_tracker, "uses_image", False)
+
+    @property
+    def is_valid(self) -> bool:
+        return True
 
     def track(self, untracked_instances, img=None, t=None, img_hw=None):
         self._frame_count += 1

@@ -24,6 +24,7 @@ tracker and no model).
 from __future__ import annotations
 
 import functools
+import logging
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple, Union
@@ -50,6 +51,8 @@ from sleap_tpu_torch.tracking.components import (
 
 # cv2's luma weights of a three-channel frame in BGR order.
 _BGR_LUMA = np.array([0.114, 0.587, 0.299])
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass(eq=False)
@@ -396,6 +399,22 @@ class Tracker:
     @property
     def uses_image(self) -> bool:
         return getattr(self.candidate_maker, "uses_image", False)
+
+    @property
+    def is_valid(self) -> bool:
+        return self.similarity_function is not None
+
+    @property
+    def unique_tracks_in_queue(self) -> List[Track]:
+        """The tracks of the instances in the matching queue(s)."""
+        tracks = set()
+        if self.has_max_tracking:
+            tracks.update(self.track_matching_queue_dict.keys())
+        else:
+            for item in self.track_matching_queue:
+                for inst in item.instances_t:
+                    tracks.add(inst.track)
+        return list(tracks)
 
     def reset_candidates(self):
         if self.has_max_tracking:

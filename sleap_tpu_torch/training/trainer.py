@@ -396,6 +396,11 @@ class Trainer:
     def skeleton(self):
         return self.config.data.labels.skeletons[0]
 
+    @property
+    def head_config(self):
+        """The config of the model's head set (``heads.which_oneof``)."""
+        return self.config.model.heads.which_oneof
+
     def _image_channels(self) -> int:
         pp = self.config.data.preprocessing
         if pp.ensure_grayscale:

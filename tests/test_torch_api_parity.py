@@ -23,63 +23,25 @@ PORT_ROOT = os.path.join(REPO, "sleap_tpu_torch")
 
 TPU_ONLY = "a TPU-only form of the same math (ROADMAP.md North star: leave the TPU-only forms behind)"
 FLAX = "a field of the flax module; the port's torch.nn.Module carries its weights through models/params"
-ITEM_13 = "ROADMAP.md queue 1, item 13 (open): public names still missing from ported modules"
+USE_CPU_ONLY = "JAX's platform switch; the port's entry points take device="
+PREALLOCATION = "JAX's device memory preallocation switch; torch allocates on demand"
+TRAINER_ONLY_IN_JAX = {
+    "keras_model": "the JAX trainer's Keras export; the port writes best_model.pt",
+    "variables": FLAX,
+    "n_devices": "ROADMAP.md queue 1, item 12 (open): parallel",
+    "spatial_sharding": "ROADMAP.md queue 1, item 12 (open): parallel",
+}
+TRAINERS = ("Trainer", "SingleInstanceTrainer", "CentroidTrainer", "TopdownConfmapsTrainer", "BottomUpTrainer",
+            "BottomUpMultiClassTrainer", "TopDownMultiClassTrainer")
 
 EXCLUDED = {
-    "__init__.py": {
-        "disable_preallocation": "JAX's device memory preallocation switch; torch allocates on demand",
-        "use_cpu_only": "JAX's platform switch; the port's entry points take device=",
-        "load_config": ITEM_13,
-        "system_summary": "ROADMAP.md queue 1, item 13 (open): system.py",
-    },
-    "version.py": {"versions": "ROADMAP.md queue 1, item 13 (open): system.py"},
-    "config/__init__.py": {
-        "BackboneConfig.which_oneof": ITEM_13,
-        "BackboneConfig.which_oneof_attrib_name": ITEM_13,
-        "HeadsConfig.which_oneof": ITEM_13,
-        "HeadsConfig.which_oneof_attrib_name": ITEM_13,
-    },
+    "__init__.py": {"disable_preallocation": PREALLOCATION, "use_cpu_only": USE_CPU_ONLY},
+    "system.py": {"disable_preallocation": PREALLOCATION, "enable_gpu_memory_growth": PREALLOCATION,
+                  "use_cpu_only": USE_CPU_ONLY},
+    "diagnostic.py": {"use_cpu_only": USE_CPU_ONLY},
     "data/augmentation.py": {"augment_example": "the JAX trainer's per-example augmentation; the port's "
                                                 "trainer augments whole batches (training/trainer.py)"},
-    "data/normalization.py": {n: ITEM_13 for n in ("convert_rgb_to_bgr", "ensure_int", "ensure_min_image_rank",
-                                                   "scale_image_range")},
-    "data/providers.py": {n: ITEM_13 for n in ("LabelsReader.from_user_instances",
-                                               "LabelsReader.is_from_multi_size_videos",
-                                               "LabelsReader.user_instances_only")},
-    "data/resizing.py": {n: ITEM_13 for n in (
-        "PointsRescaler", "PointsRescaler.input_keys", "PointsRescaler.invert", "PointsRescaler.output_keys",
-        "PointsRescaler.points_key", "PointsRescaler.scale_key", "PointsRescaler.transform_dataset",
-        "resize_and_pad_to_target")},
-    "inference/bottomup.py": {
-        "CHANNELS_FIRST_CONFMAPS": TPU_ONLY,
-        **{f"BottomUpPredictor.{n}": ITEM_13 for n in (
-            "batch_size", "bottomup_config", "from_trained_models", "integral_patch_size",
-            "integral_refinement", "peak_threshold", "tracker")},
-    },
-    "inference/multiclass.py": {
-        **{f"BottomUpMultiClassPredictor.{n}": ITEM_13 for n in (
-            "batch_size", "classes", "config", "from_trained_models", "integral_patch_size",
-            "integral_refinement", "peak_threshold", "tracker")},
-        **{f"TopDownMultiClassPredictor.{n}": ITEM_13 for n in (
-            "batch_size", "centroid_config", "classes", "confmap_config", "confmap_model",
-            "from_trained_models", "integral_patch_size", "integral_refinement", "max_instances",
-            "peak_threshold", "tracker")},
-    },
-    "inference/predictors.py": {
-        "Predictor.report_rate": ITEM_13,
-        **{f"{c}.{n}": ITEM_13 for c, names in (
-            ("SingleInstancePredictor", ("batch_size", "confmap_config", "from_trained_models",
-                                         "integral_patch_size", "integral_refinement", "peak_threshold",
-                                         "tracker")),
-            ("TopDownPredictor", ("batch_size", "centroid_config", "confmap_config", "from_trained_models",
-                                  "integral_patch_size", "integral_refinement", "peak_threshold", "tracker")),
-            ("TrainedModel", ("config", "input_channels", "model", "variables")),
-        ) for n in names},
-        **{n: "ROADMAP.md queue 1, item 13 (open): VisualPredictor" for n in (
-            "VisualPredictor", "VisualPredictor.batch_size", "VisualPredictor.config",
-            "VisualPredictor.from_trained_models", "VisualPredictor.head_specific_output_keys",
-            "VisualPredictor.model", "VisualPredictor.predict")},
-    },
+    "inference/bottomup.py": {"CHANNELS_FIRST_CONFMAPS": TPU_ONLY},
     "io/keras_h5.py": {"load_keras_weights_into_variables": "fills flax variables; the port loads Keras "
                                                            "weights into a state_dict (models/params)"},
     "models/encoder_decoder.py": {
@@ -87,16 +49,6 @@ EXCLUDED = {
                                  "fold_s2d_kernel", "fused_up2_conv", "EncoderDecoderNet.fold_s2d_stem")},
         "EncoderDecoderNet.compute_dtype": FLAX,
     },
-    "models/heads.py": {f"{c}.{n}": ITEM_13 for c, names in (
-        ("CenteredInstanceConfmapsHead", ("anchor_part", "loss_weight", "output_stride", "sigma")),
-        ("CentroidConfmapsHead", ("anchor_part", "loss_weight", "output_stride", "sigma")),
-        ("ClassMapsHead", ("loss_weight", "output_stride", "sigma")),
-        ("ClassVectorsHead", ("loss_weight", "output_stride")),
-        ("MultiInstanceConfmapsHead", ("loss_weight", "output_stride", "sigma")),
-        ("OffsetRefinementHead", ("loss_weight", "output_stride", "sigma_threshold")),
-        ("PartAffinityFieldsHead", ("loss_weight", "output_stride", "sigma")),
-        ("SingleInstanceConfmapsHead", ("loss_weight", "output_stride", "sigma")),
-    ) for n in names},
     "models/hrnet.py": {"HigherHRNetModule.compute_dtype": FLAX},
     "models/leap.py": {"LeapCNN.stem_stride": FLAX},
     "models/model.py": {
@@ -107,47 +59,21 @@ EXCLUDED = {
             "PoseNet.stem_blocks", "apply_heads")},
         **{n: TPU_ONLY for n in ("BackboneWithHeads.channels_first_heads", "PoseNet.channels_first_heads",
                                  "PoseNet.fold_s2d_stem")},
-        "Model.head_names": ITEM_13,
     },
     "models/pretrained_encoder.py": {n: FLAX for n in (
         "UnetPretrainedEncoder.down_blocks", "UnetPretrainedEncoder.up_blocks",
         "UnetPretrainedEncoderModule.compute_dtype")},
     "models/resnet.py": {"ResNetV1Module.compute_dtype": FLAX},
     "models/unet.py": {"UNet.fold_s2d_stem": TPU_ONLY, "UNet.stem_stride": FLAX},
-    "ops/lap.py": {"batched_solve_lap": ITEM_13},
-    "ops/paf_grouping.py": {n: ITEM_13 for n in ("PAFScorer.group_sample", "PAFScorer.predict",
-                                                 "assign_connections_to_instances", "make_predicted_instances")},
-    "ops/peak_finding.py": {
-        "FORCE_XLA_PEAKS": TPU_ONLY,
-        **{n: ITEM_13 for n in ("crop_bboxes", "flatten_local_peaks", "integral_regression",
-                                "make_gaussian_kernel", "smooth_imgs")},
-    },
-    "tracking/components.py": {"FrameMatches.has_only_first_choice_matches": ITEM_13},
-    "tracking/kalman.py": {n: ITEM_13 for n in ("BareKalmanTracker.has_stale_filters", "BareKalmanTracker.initialize",
-                                                "BareKalmanTracker.reset_gap_size", "KalmanTracker.is_valid")},
-    "tracking/tracker.py": {n: ITEM_13 for n in ("Tracker.is_valid", "Tracker.unique_tracks_in_queue",
-                                                 "logger")},
-    "training/trainer.py": {
-        "Trainer.keras_model": "the JAX trainer's Keras export; the port writes best_model.pt",
-        "Trainer.variables": FLAX,
-        "Trainer.n_devices": "ROADMAP.md queue 1, item 12 (open): parallel",
-        "Trainer.spatial_sharding": "ROADMAP.md queue 1, item 12 (open): parallel",
-        "Trainer.head_config": ITEM_13,
-    },
+    "ops/peak_finding.py": {"FORCE_XLA_PEAKS": TPU_ONLY},
+    # Every trainer inherits these from the JAX Trainer.
+    "training/trainer.py": {f"{c}.{n}": reason for c in TRAINERS for n, reason in TRAINER_ONLY_IN_JAX.items()},
 }
 
 UNPORTED_MODULES = {
-    "io/formats/ndx_pose.py": "ROADMAP.md queue 1, item 3f (NWB on the port's HDF5 writer)",
-    "io/formats/nix.py": "ROADMAP.md queue 1, item 3f (NIX on the port's HDF5 writer)",
-    "info/feature_suggestions.py": "ROADMAP.md queue 1, item 13b (open): image-feature suggestions",
-    "util.py": ITEM_13,
-    "system.py": ITEM_13,
-    "prefs.py": ITEM_13,
-    "message.py": ITEM_13,
-    "diagnostic.py": ITEM_13,
-    "io/videowriter.py": "ROADMAP.md queue 1, item 13 (open): needs a video encoder on the card",
-    "io/visuals.py": "ROADMAP.md queue 1, item 13 (open): needs a video encoder on the card",
-    "nn_viz.py": "ROADMAP.md queue 1, item 13 (open): needs matplotlib",
+    "io/videowriter.py": "ROADMAP.md queue 1, item 13e (open): needs a video encoder on the card",
+    "io/visuals.py": "ROADMAP.md queue 1, item 13e (open): needs a video encoder on the card",
+    "nn_viz.py": "ROADMAP.md queue 1, item 13e (open): needs matplotlib",
     "inference/movenet.py": "ROADMAP.md queue 1, item 10 (open): MoveNet",
     "data/inference.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",
     "data/pipelines.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",
@@ -162,8 +88,12 @@ UNPORTED_MODULES = {
     "ops/pallas_crops.py": "the Pallas kernel; its Hopper form is csrc/crops.cu behind ops/cuda_crops.py",
 }
 
-# This slice's modules: nothing of theirs may be excluded.
-SLICE = ("core/", "io/video.py", "io/slp.py", "info/write_tracking_h5.py", "io/convert.py", "io/formats/")
+# This slice's modules: nothing of theirs may be excluded but JAX's
+# platform and preallocation switches.
+SLICE = ("io/formats/ndx_pose.py", "io/formats/nix.py", "info/feature_suggestions.py", "util.py", "system.py",
+         "prefs.py", "message.py", "diagnostic.py")
+SLICE_SWITCHES = {"system.py": {"disable_preallocation", "enable_gpu_memory_growth", "use_cpu_only"},
+                  "diagnostic.py": {"use_cpu_only"}}
 
 
 def _public(name: str) -> bool:
@@ -174,15 +104,73 @@ def _assigned(target) -> list:
     return [t.id for t in ast.walk(target) if isinstance(t, ast.Name)]
 
 
+_TREES: dict = {}
+
+
+def _tree(path: str) -> ast.Module:
+    if path not in _TREES:
+        with open(path) as f:
+            _TREES[path] = ast.parse(f.read())
+    return _TREES[path]
+
+
+def _package_root(path: str) -> str:
+    """The outermost package folder that holds ``path``."""
+    root = os.path.dirname(os.path.abspath(path))
+    while os.path.exists(os.path.join(os.path.dirname(root), "__init__.py")):
+        root = os.path.dirname(root)
+    return root
+
+
+def _module_file(root: str, dotted: str):
+    """The file of module ``dotted`` of the package at ``root``, if any."""
+    base = os.path.join(os.path.dirname(root), *dotted.split("."))
+    for candidate in (os.path.join(base, "__init__.py"), base + ".py"):
+        if os.path.exists(candidate):
+            return candidate
+    return None
+
+
+def _bases(path: str, cls: ast.ClassDef) -> list:
+    """(file, ClassDef) of each base of ``cls`` that is defined in its
+    module or imported (``from <package>.x import Base``) from a module of
+    the same package; other bases (the standard library's, torch's) are
+    not followed."""
+    tree = _tree(path)
+    root = _package_root(path)
+    local = {n.name: n for n in tree.body if isinstance(n, ast.ClassDef)}
+    imported = {}
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and node.module \
+                and node.module.split(".")[0] == os.path.basename(root):
+            for alias in node.names:
+                imported[alias.asname or alias.name] = (node.module, alias.name)
+    out = []
+    for base in cls.bases:
+        if not isinstance(base, ast.Name):
+            continue
+        if base.id in local:
+            out.append((path, local[base.id]))
+        elif base.id in imported:
+            module, name = imported[base.id]
+            other = _module_file(root, module)
+            found = other and [n for n in _tree(other).body if isinstance(n, ast.ClassDef) and n.name == name]
+            if found:
+                out.append((other, found[0]))
+    return out
+
+
 def inventory(path: str) -> set:
     """Public module-level names (functions, classes, assignments,
-    ``Class.attr = ...``) and class members (methods, properties, class
-    attributes, nested classes, ``self.<name>`` assignments), no imports."""
-    with open(path) as f:
-        tree = ast.parse(f.read())
+    ``Class.attr = ...``, and the names ``__all__`` lists) and class members
+    (methods, properties, class attributes, nested classes, ``self.<name>``
+    assignments); other imports are not counted. A class has the members of
+    its bases too, where a base is defined in the same module or imported
+    from a module of the same package."""
+    tree = _tree(path)
     names = set()
 
-    def members(cls: ast.ClassDef, prefix: str) -> None:
+    def members(cls: ast.ClassDef, prefix: str, where: str, seen: frozenset = frozenset()) -> None:
         for node in cls.body:
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 names.add(f"{prefix}.{node.name}")
@@ -196,21 +184,29 @@ def inventory(path: str) -> set:
                                 names.add(f"{prefix}.{t.attr}")
             elif isinstance(node, ast.ClassDef):
                 names.add(f"{prefix}.{node.name}")
-                members(node, f"{prefix}.{node.name}")
+                members(node, f"{prefix}.{node.name}", where)
             elif isinstance(node, (ast.Assign, ast.AnnAssign)):
                 for target in (node.targets if isinstance(node, ast.Assign) else [node.target]):
                     names.update(f"{prefix}.{n}" for n in _assigned(target))
+        for base_path, base in _bases(where, cls):
+            key = (base_path, base.name)
+            if key not in seen:
+                members(base, prefix, base_path, seen | {key})
 
     for node in tree.body:
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             names.add(node.name)
         elif isinstance(node, ast.ClassDef):
             names.add(node.name)
-            members(node, node.name)
+            members(node, node.name, path)
         elif isinstance(node, (ast.Assign, ast.AnnAssign)):
             for target in (node.targets if isinstance(node, ast.Assign) else [node.target]):
                 if isinstance(target, ast.Attribute) and isinstance(target.value, ast.Name):
                     names.add(f"{target.value.id}.{target.attr}")
+                elif isinstance(target, ast.Name) and target.id == "__all__" \
+                        and isinstance(node.value, (ast.List, ast.Tuple)):
+                    # An imported name the module exports is its public API.
+                    names.update(e.value for e in node.value.elts if isinstance(e, ast.Constant))
                 else:
                     names.update(_assigned(target))
     return {n for n in names if _public(n)}
@@ -248,13 +244,14 @@ def test_every_jax_module_is_ported_or_listed():
 def test_exclusions_have_reasons_and_spare_this_slice():
     for rel, names in EXCLUDED.items():
         assert rel in PORTED, rel
-        assert not rel.startswith(SLICE), f"{rel} is this slice's: nothing of it may be excluded"
+        if rel.startswith(SLICE):
+            assert set(names) <= SLICE_SWITCHES.get(rel, set()), f"{rel} is this slice's: nothing of it may be excluded"
         for name, reason in names.items():
             assert reason and len(reason) > 20, name
     for rel, reason in UNPORTED_MODULES.items():
-        assert not rel.startswith(SLICE[:1]) and reason, rel
+        assert not rel.startswith(SLICE) and reason, rel
     slice_modules = [rel for rel in PORTED if rel.startswith(SLICE)]
-    assert len(slice_modules) == 17, slice_modules
+    assert len(slice_modules) == 8, slice_modules
 
 
 def test_the_inventory_sees_classes_members_and_attributes():
@@ -262,3 +259,30 @@ def test_the_inventory_sees_classes_members_and_attributes():
     assert {"Labels", "Labels.numpy", "Labels.merge", "Labels.export_csv", "Labels.labeled_frames",
             "SuggestionFrame.frame_idx", "load_file"} <= names
     assert not any(n.startswith("_") or "._" in n for n in names)
+
+
+def test_the_inventory_sees_inherited_members(tmp_path):
+    """A class has its bases' members, where the base is in the same module
+    or imported from the same package; a name on neither still counts as
+    missing."""
+    predictors = inventory(_port_path("inference/predictors.py"))
+    assert {"SingleInstancePredictor.batch_size", "SingleInstancePredictor.peak_threshold",
+            "SingleInstancePredictor.tracker", "TopDownPredictor.report_rate"} <= predictors  # same module
+    assert "SingleInstancePredictor.centroid_config" not in predictors
+    bottomup = inventory(_port_path("inference/bottomup.py"))
+    assert {"BottomUpPredictor.batch_size", "BottomUpPredictor.predict"} <= bottomup  # imported base
+    heads = inventory(_port_path("models/heads.py"))
+    assert {"CentroidConfmapsHead.output_stride", "CentroidConfmapsHead.loss_weight"} <= heads
+
+    # A package of two modules: C gets x from Base (imported) and y from Mixin
+    # (local); the reference's C.z is on neither, so it is missing.
+    for pkg, body in (("pkg_a", "class C(Base, Mixin):\n    w = 0\n"),
+                      ("pkg_b", "class C(Base, Mixin):\n    w = 0\n    z = 3\n")):
+        root = tmp_path / pkg
+        root.mkdir()
+        (root / "__init__.py").write_text("")
+        (root / "base.py").write_text("class Base:\n    x: int = 1\n\n    def _hidden(self):\n        pass\n")
+        (root / "mod.py").write_text(f"from {pkg}.base import Base\n\n\nclass Mixin:\n    y = 2\n\n\n{body}")
+    mine, ref = inventory(str(tmp_path / "pkg_a" / "mod.py")), inventory(str(tmp_path / "pkg_b" / "mod.py"))
+    assert {"C.w", "C.x", "C.y"} <= mine and "C.z" not in mine
+    assert ref - mine == {"C.z"}

@@ -358,3 +358,40 @@ def test_mixed_size_videos_are_not_size_matched(shrunken):
     got = tpred.predict(labels, make_labels=False)
     assert [ex["image"].shape[1:3] for ex in got] == [(128, 128), (96, 96)]
     _assert_bottomup_equal(got, jpred.predict(labels, make_labels=False), min_instances=2)
+
+
+def test_from_trained_models_matches_load_model_and_jax(trained):
+    """``from_trained_models`` of the trained folder (its own checkpoint)
+    equals ``load_model``'s predictor exactly and JAX's within the file's
+    tolerances, with the JAX predictor's config and model names."""
+    jpred, _, _, frames = trained
+    kw = dict(batch_size=2, peak_threshold=0.1)
+    mine = BottomUpPredictor.from_trained_models(BOTTOMUP, device="cpu", **kw)
+    loaded = tp.load_model(BOTTOMUP, device="cpu", **kw)
+    got, same = _flat(mine.predict(frames, make_labels=False)), _flat(loaded.predict(frames, make_labels=False))
+    for key in KEYS:
+        for g, s in zip(got[key], same[key]):
+            np.testing.assert_array_equal(g, s)
+    _assert_bottomup_equal(mine.predict(frames, make_labels=False), jpred.predict(frames, make_labels=False),
+                           min_instances=2)
+    assert mine.bottomup_config.model.heads.which_oneof_attrib_name == "multi_instance"
+    assert mine.bottomup_model.model.head_names == jpred.bottomup_model.model.head_names
+    assert mine.bottomup_model.input_channels == jpred.bottomup_model.input_channels
+    assert mine.report_rate == jpred.report_rate
+
+
+def test_visual_predictor_on_the_trained_folder_matches_jax(trained):
+    """The trained folder's maps (confidence maps, PAFs and offsets), each
+    within 1e-3 of the JAX package's VisualPredictor."""
+    from sleap_tpu_torch.inference.predictors import VisualPredictor
+
+    _, _, _, frames = trained
+    ref = jp.VisualPredictor.from_trained_models(BOTTOMUP, batch_size=2)
+    mine = VisualPredictor.from_trained_models(BOTTOMUP, device="cpu", batch_size=2)
+    assert mine.head_specific_output_keys() == ref.head_specific_output_keys() == ["confmaps",
+                                                                                    "part_affinity_fields"]
+    for g, w in zip(mine.predict(frames), ref.predict(frames)):
+        assert sorted(g) == sorted(w) == ["confmaps", "frame_ind", "offsets", "part_affinity_fields",
+                                          "video_ind"]
+        for key in w:
+            np.testing.assert_allclose(g[key], np.asarray(w[key]), atol=1e-3, rtol=0)

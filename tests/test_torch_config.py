@@ -379,3 +379,63 @@ def test_backbone_config_defaults_match_jax():
         assert dataclasses.asdict(getattr(tcfg, cls)()) == attr.asdict(getattr(jc, cls)()), cls
     assert [f.name for f in dataclasses.fields(tcfg.BackboneConfig)] == \
         [f.name for f in attr.fields(jc.BackboneConfig)]
+
+
+# --------------------------------------------------------------------------- #
+# The heads' fields, Model.head_names, Trainer.head_config, load_config
+# --------------------------------------------------------------------------- #
+
+
+def _jax_head_configs():
+    from sleap_tpu import config as jc
+
+    return {
+        "SingleInstanceConfmapsHead": jc.SingleInstanceConfmapsHeadConfig(
+            part_names=["a", "b"], sigma=2.5, output_stride=2, loss_weight=0.5),
+        "CentroidConfmapsHead": jc.CentroidsHeadConfig(anchor_part="b", sigma=3.5, output_stride=4,
+                                                       loss_weight=2.0),
+        "CenteredInstanceConfmapsHead": jc.CenteredInstanceConfmapsHeadConfig(
+            part_names=["a", "b", "c"], anchor_part="a", sigma=1.5, output_stride=2),
+        "MultiInstanceConfmapsHead": jc.MultiInstanceConfmapsHeadConfig(part_names=["a"], sigma=4.0,
+                                                                        output_stride=8),
+        "PartAffinityFieldsHead": jc.PartAffinityFieldsHeadConfig(edges=[("a", "b")], sigma=9.0,
+                                                                  output_stride=4, loss_weight=0.25),
+        "ClassMapsHead": jc.ClassMapsHeadConfig(classes=["x", "y"], sigma=6.0, output_stride=4),
+        "ClassVectorsHead": jc.ClassVectorsHeadConfig(classes=["x", "y"], num_fc_layers=2, num_fc_units=32,
+                                                      global_pool=False, output_stride=16),
+        "OffsetRefinementHead": jc.CentroidsHeadConfig(anchor_part="b", output_stride=2, loss_weight=3.0),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_jax_head_configs()))
+def test_heads_have_the_jax_heads_fields(name):
+    import attr
+
+    from sleap_tpu.models import heads as jheads
+    from sleap_tpu_torch.models import heads as theads
+
+    config = _jax_head_configs()[name]
+    mine, ref = getattr(theads, name).from_config(config), getattr(jheads, name).from_config(config)
+    for f in attr.fields(type(ref)):
+        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+    assert (mine.name, mine.channels, mine.activation, mine.loss_function) == \
+        (ref.name, ref.channels, ref.activation, ref.loss_function)
+
+
+@pytest.mark.parametrize("run", RUN_NAMES)
+def test_model_head_names_and_trainer_head_config_match_jax(run):
+    from types import SimpleNamespace
+
+    import sleap_tpu_torch
+    from sleap_tpu.models.model import Model as JaxModel
+    from sleap_tpu.training.trainer import Trainer as JaxTrainer
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    mine, ref = TrainingJobConfig.load_json(str(RUNS / run)), JaxConfig.load_json(str(RUNS / run))
+    assert Model.from_config(mine.model).head_names == JaxModel.from_config(ref.model).head_names
+    got = Trainer.head_config.fget(SimpleNamespace(config=mine))
+    want = JaxTrainer.head_config.fget(SimpleNamespace(config=ref))
+    assert type(got).__name__ == type(want).__name__
+    assert got is mine.model.heads.which_oneof
+    assert sleap_tpu_torch.load_config(str(RUNS / run)).model.heads.which_oneof_attrib_name == \
+        ref.model.heads.which_oneof_attrib_name

@@ -73,3 +73,39 @@ def test_pad_to_stride_and_preprocess():
     got = tp._preprocess(torch.from_numpy(RGB_U8), True, 0.5, 8)
     want = jp._preprocess(jnp.asarray(RGB_U8), True, 0.5, 8)
     _same(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("image", [RGB_U8, RGB_F32, RGB_F32 * 300, RGB_U8[0, ..., :1]],
+                         ids=["u8", "f32_unit", "f32_wide", "gray_rank3"])
+def test_normalization_helpers_match_jax(image):
+    _same(tn.ensure_int(torch.from_numpy(image)), jn.ensure_int(jnp.asarray(image)))
+    _same(tn.convert_rgb_to_bgr(torch.from_numpy(image)), jn.convert_rgb_to_bgr(jnp.asarray(image)))
+    _same(tn.ensure_min_image_rank(torch.from_numpy(image)), jn.ensure_min_image_rank(jnp.asarray(image)))
+    _same(tn.ensure_min_image_rank(torch.from_numpy(image[..., 0])),
+          jn.ensure_min_image_rank(jnp.asarray(image[..., 0])))
+    unit = RGB_F32 if image.dtype == np.uint8 else image
+    _same(tn.scale_image_range(torch.from_numpy(unit), -1.0, 1.0),
+          jn.scale_image_range(jnp.asarray(unit), -1.0, 1.0), 1e-5)
+
+
+@pytest.mark.parametrize("target", [(64, 64), (40, 90), (20, 30), (37, 53)])
+@pytest.mark.parametrize("image", [RGB_U8, RGB_F32, RGB_F32[0]], ids=["u8", "f32", "f32_unbatched"])
+def test_resize_and_pad_to_target_matches_jax(image, target):
+    got, got_scale = tr.resize_and_pad_to_target(torch.from_numpy(image), *target)
+    want, want_scale = jr.resize_and_pad_to_target(jnp.asarray(image), *target)
+    assert got_scale == want_scale
+    _same(got, want, 2e-4 * (255 if image.dtype == np.uint8 else 1))
+
+
+@pytest.mark.parametrize("invert", [True, False])
+def test_points_rescaler_matches_jax(invert):
+    rng = np.random.default_rng(2)
+    examples = [{"predicted_instances": rng.uniform(0, 100, (3, 4, 2)).astype(np.float32),
+                 "scale": np.array([0.5, 0.25], np.float32), "frame_ind": i} for i in range(3)]
+    mine = tr.PointsRescaler(invert=invert)
+    ref = jr.PointsRescaler(invert=invert)
+    assert (mine.input_keys, mine.output_keys) == (ref.input_keys, ref.output_keys)
+    for g, w in zip(mine.transform_dataset(examples), ref.transform_dataset(examples)):
+        assert sorted(g) == sorted(w)
+        np.testing.assert_array_equal(g["predicted_instances"], np.asarray(w["predicted_instances"]))
+        assert g["frame_ind"] == w["frame_ind"]

@@ -19,6 +19,7 @@ from __future__ import annotations
 import os
 import random
 import shutil
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -223,13 +224,20 @@ def test_suggestion_helpers_and_refusals_match_jax():
         with pytest.raises(ValueError, match="No nope method"):
             cls.suggest({"method": "nope"}, labels)
     assert results[0] == results[1]
-    labels = make_project(TORCH, 0, False)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        t_suggestions.VideoFrameSuggestions.suggest(
-            {"method": "image features", "videos": labels.videos, "per_video": 2,
-             "sample_method": "stride", "scale": 1.0, "merge_video_features": "per video",
-             "feature_type": "raw images", "pca_components": 2, "n_clusters": 2,
-             "per_cluster": 1}, labels)
+    # The image-feature method runs the ported pipeline
+    # (tests/test_torch_feature_suggestions.py): the same suggestions.
+    keyed = []
+    for P, mod in ((TORCH, t_suggestions), (JAX, j_suggestions)):
+        labels = make_project(P, 0, False)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # k-means of the blank frames finds one cluster
+            got = mod.VideoFrameSuggestions.suggest(
+                {"method": "image features", "videos": labels.videos, "per_video": 2,
+                 "sample_method": "stride", "scale": 1.0, "merge_video_features": "across all videos",
+                 "feature_type": "raw images", "pca_components": 2, "n_clusters": 2,
+                 "per_cluster": 1}, labels)
+        keyed.append(_keyed(labels, got))
+    assert keyed[0] == keyed[1] and keyed[0]
 
 
 # --------------------------------------------------------------------------- #

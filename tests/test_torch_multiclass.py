@@ -401,3 +401,39 @@ def test_bf16_class_vectors_postprocessed_match_jax():
         tvecs = ttm.module(torch.from_numpy(np.asarray(crops)))["ClassVectorsHead"]
     assert tvecs.dtype == torch.bfloat16 and tuple(tvecs.shape) == (6, 2)
     np.testing.assert_allclose(tvecs.float().sum(-1).numpy(), 1.0, atol=1e-2)
+
+
+def test_topdown_multiclass_from_trained_models_matches_load_model_and_jax(trained_multiclass):
+    jpred, loaded, frames = trained_multiclass
+    mine = tm.TopDownMultiClassPredictor.from_trained_models(
+        centroid_model_path=CENTROID, confmap_model_path=MULTICLASS, device="cpu",
+        peak_threshold=0.05, batch_size=2)
+    got = mine.predict(frames, make_labels=False)
+    for g, s in zip(got, loaded.predict(frames, make_labels=False)):
+        for key in KEYS:
+            np.testing.assert_array_equal(g[key], s[key])
+    with jax.default_matmul_precision("highest"):
+        want = jpred.predict(frames, make_labels=False)
+    _assert_outputs_match(got, want, min_points=2)
+    assert mine.classes == jpred.classes == ["female", "male"]
+    assert mine.confmap_config.model.heads.which_oneof_attrib_name == "multi_class_topdown"
+    assert mine.centroid_config.model.heads.which_oneof_attrib_name == "centroid"
+
+
+def test_bottomup_multiclass_from_trained_models_matches_jax(tmp_path):
+    """A seeded multi-class bottom-up run folder (there is no trained one):
+    ``from_trained_models`` with the seeded weights against the JAX
+    predictor of the same model."""
+    jtm, _ = _pair(_bottomup_heads(True), seed=3, input_scaling=0.5)
+    folder = tmp_path / "bottomup_multiclass"
+    folder.mkdir()
+    jtm.config.save_json(str(folder / "training_config.json"))
+    jpred = jm.BottomUpMultiClassPredictor(model=jtm, batch_size=2)
+    mine = tm.BottomUpMultiClassPredictor.from_trained_models(
+        str(folder), device="cpu", params={str(folder): jtm.variables["params"]}, batch_size=2,
+        max_instances=5)
+    frames = _frames(3, 128, seed=4)
+    _assert_outputs_match(mine.predict(frames, make_labels=False), jpred.predict(frames, make_labels=False),
+                          min_points=3)
+    assert mine.classes == jpred.classes == CLASSES
+    assert mine.config.model.heads.which_oneof_attrib_name == "multi_class_bottomup"

@@ -354,3 +354,63 @@ def test_paf_scorer_end_to_end_matches_jax():
     np.testing.assert_allclose(got["instance_scores"].numpy(), np.asarray(want["instance_scores"]),
                                rtol=SCORE_RTOL, atol=0)
     assert tsc.sorted_edge_inds == tuple(jsc.sorted_edge_inds)
+
+
+# --------------------------------------------------------------------------- #
+# The host assembly of one sample, and the batched LAP name
+# --------------------------------------------------------------------------- #
+
+
+def test_batched_solve_lap_matches_jax():
+    costs = _lap_costs(5, seed=11)
+    for got, want in zip(tlap.batched_solve_lap(torch.from_numpy(costs)),
+                         jlap.batched_solve_lap(jnp.asarray(costs))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _connections(seed, E, K):
+    rng = np.random.default_rng(seed)
+    return {e: [(int(k), int(rng.integers(K)), float(rng.uniform())) for k in rng.permutation(K)[:K - 1]]
+            for e in range(E)}
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("min_instance_peaks", [0, 3, 0.5])
+def test_host_assembly_matches_jax(seed, min_instance_peaks):
+    edges = [(0, 1), (1, 2), (2, 0), (1, 3), (3, 4)]
+    order = [0, 1, 3, 4, 2]
+    conns = _connections(seed, len(edges), 4)
+    kw = dict(min_instance_peaks=min_instance_peaks, n_nodes=5)
+    got = tpg.assign_connections_to_instances(conns, edges, order, **kw)
+    want = jpg.assign_connections_to_instances(conns, edges, order, **kw)
+    assert got == want and got
+    rng = np.random.default_rng(seed)
+    peaks = rng.uniform(0, 50, (5, 4, 2)).astype(np.float32)
+    vals = rng.uniform(size=(5, 4)).astype(np.float32)
+    for g, w in zip(tpg.make_predicted_instances(peaks, vals, conns, got, edges),
+                    jpg.make_predicted_instances(peaks, vals, conns, want, edges)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_paf_scorer_group_sample_and_predict_match_jax():
+    pafs, peaks = _paf_inputs(5, S=2, N=4, K=3)
+    names = ["a", "b", "c", "d"]
+    edges = [(names[s], names[d]) for s, d in EDGES]
+    vals = np.where(np.isnan(peaks[..., 0]), 0.0, 0.5).astype(np.float32)
+    mask = ~np.isnan(peaks[..., 0])
+    jsc = jpg.PAFScorer(part_names=names, edges=edges, pafs_stride=2, min_line_scores=-1.0)
+    tsc = tpg.PAFScorer(part_names=names, edges=edges, pafs_stride=2, min_line_scores=-1.0)
+    got = tsc.predict(torch.from_numpy(pafs), torch.from_numpy(peaks), torch.from_numpy(vals),
+                      torch.from_numpy(mask))
+    want = jsc.predict(jnp.asarray(pafs), jnp.asarray(peaks), jnp.asarray(vals), jnp.asarray(mask))
+    assert len(got) == len(want) == 2 and sum(len(g[0]) for g in got) >= 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+        np.testing.assert_array_equal(g[1], w[1])
+        np.testing.assert_allclose(g[2], w[2], rtol=SCORE_RTOL, atol=0)
+    dst, scores, valid = (t.numpy() for t in tsc.score_and_match(torch.from_numpy(pafs), torch.from_numpy(peaks)))
+    one = tsc.group_sample(peaks[1], vals[1], dst[1], scores[1], valid[1])
+    ref = jsc.group_sample(peaks[1], vals[1], dst[1], scores[1], valid[1])
+    for g, w in zip(one, ref):
+        np.testing.assert_array_equal(g, w)

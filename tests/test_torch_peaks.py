@@ -308,3 +308,48 @@ def test_cuda_wrappers_refuse_non_cuda_tensors():
         )
     for wrapper in (global_peaks_cuda, local_peaks_cuda, crop_unit_cuda):
         assert wrapper.launches == 0
+
+
+# --------------------------------------------------------------------------- #
+# The JAX module's other helpers
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("size,sigma", [(5, 1.0), (3, 0.7), (7, 2.5), (4, 1.0)])
+def test_gaussian_kernel_matches_jax(size, sigma):
+    got = tpf.make_gaussian_kernel(size, sigma)
+    want = np.asarray(jpf.make_gaussian_kernel(size, sigma))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("kernel_size,sigma,shape", [(5, 1.0, (2, 32, 40, 3)), (3, 0.5, (1, 17, 9, 1)),
+                                                     (7, 2.0, (3, 24, 24, 2))])
+def test_smooth_imgs_matches_jax(kernel_size, sigma, shape):
+    cms = _planted_maps(seed=sum(shape), S=shape[0], H=shape[1], W=shape[2], C=shape[3])
+    got = tpf.smooth_imgs(torch.from_numpy(cms), kernel_size, sigma)
+    want = np.asarray(jpf.smooth_imgs(jnp.asarray(cms), kernel_size, sigma))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_crop_bboxes_matches_jax():
+    rng = np.random.default_rng(3)
+    images = rng.uniform(0, 255, (2, 40, 36, 3)).astype(np.float32)
+    centroids = rng.uniform(-4, 40, (5, 2)).astype(np.float32)
+    boxes = tpf.make_centered_bboxes(torch.from_numpy(centroids), 11, 9)
+    inds = np.array([0, 1, 1, 0, 1])
+    got = tpf.crop_bboxes(torch.from_numpy(images), boxes, torch.from_numpy(inds), (11, 9))
+    want = jpf.crop_bboxes(jnp.asarray(images), jnp.asarray(boxes.numpy()), jnp.asarray(inds), (11, 9))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=0)
+
+
+def test_flatten_local_peaks_matches_jax():
+    cms = _planted_maps(seed=5)
+    peaks, vals, mask = tpf.find_local_peaks(torch.from_numpy(cms), max_peaks=8, threshold=0.3)
+    assert 0 < int(mask.sum()) < mask.numel()
+    got = tpf.flatten_local_peaks(peaks, vals, mask)
+    want = jpf.flatten_local_peaks(peaks.numpy(), vals.numpy(), mask.numpy())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

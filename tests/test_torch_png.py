@@ -70,7 +70,7 @@ def test_imdecode_matches_cv2_on_cv2_encoded_frames(channels, size):
     img = _frame(*size, channels, seed=channels)
     ok, buf = cv2.imencode(".png", img if channels == 3 else img[..., 0])
     assert ok
-    mine = png.imdecode(buf.tobytes())
+    mine = png.imdecode(buf.tobytes(), device="cpu")
     ref = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
     assert mine.dtype == ref.dtype and mine.shape == ref.shape
     np.testing.assert_array_equal(mine, ref)
@@ -82,9 +82,9 @@ def test_imdecode_matches_cv2_on_cv2_encoded_frames(channels, size):
 def test_each_row_filter_decodes_exactly(filters, channels):
     img = _frame(21, 19, channels, seed=7)
     data = _encode(img, filters)
-    np.testing.assert_array_equal(png.decode(data), img)
+    np.testing.assert_array_equal(png.decode(data, device="cpu"), img)
     ref = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
-    np.testing.assert_array_equal(png.imdecode(data), ref)
+    np.testing.assert_array_equal(png.imdecode(data, device="cpu"), ref)
 
 
 @pytest.mark.parametrize("size", [(40, 7), (7, 40), (1, 9), (9, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
@@ -96,7 +96,7 @@ def test_wavefront_blocks_decode_exactly(size, channels):
     filters = np.random.default_rng(size[1]).integers(0, 5, size[0]).tolist()
     filters[0], filters[-1] = 1, 2
     data = _encode(img, filters)
-    np.testing.assert_array_equal(png.decode(data), img)
+    np.testing.assert_array_equal(png.decode(data, device="cpu"), img)
 
 
 @pytest.mark.parametrize("mode", ["L", "RGB"])
@@ -109,24 +109,24 @@ def test_imdecode_matches_cv2_on_adaptively_filtered_frames(mode, tmp_path):
     image.fromarray(img[..., 0] if mode == "L" else img, mode).save(path)
     data = path.read_bytes()
     np.testing.assert_array_equal(
-        png.imdecode(data), cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED))
+        png.imdecode(data, device="cpu"), cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED))
 
 
 def test_unsupported_pngs_raise_naming_the_feature():
     for depth, color, name in ((4, 3, "4-bit palette"), (1, 0, "1-bit grayscale")):
         with pytest.raises(ValueError, match=name):
-            png.decode(_crafted(8, 2, color, depth, b"\0\0\0\0" * 2))
+            png.decode(_crafted(8, 2, color, depth, b"\0\0\0\0" * 2), device="cpu")
     with pytest.raises(ValueError, match="Interlaced"):
-        png.decode(_crafted(4, 4, 0, 8, b"\0" * 40, interlace=1))
+        png.decode(_crafted(4, 4, 0, 8, b"\0" * 40, interlace=1), device="cpu")
     ok, buf = cv2.imencode(".png", np.zeros((4, 4), np.uint16))
     with pytest.raises(ValueError, match="16-bit"):
-        png.decode(buf.tobytes())
+        png.decode(buf.tobytes(), device="cpu")
     data = bytearray(_encode(np.zeros((4, 4, 1), np.uint8), [0]))
     data[-20] ^= 0xFF  # inside the IDAT chunk
     with pytest.raises(ValueError, match="CRC"):
-        png.decode(bytes(data))
+        png.decode(bytes(data), device="cpu")
     with pytest.raises(ValueError, match="signature"):
-        png.decode(b"\xff\xd8\xff")
+        png.decode(b"\xff\xd8\xff", device="cpu")
 
 
 # --------------------------------------------------------------------------- #
@@ -143,10 +143,10 @@ def test_encoder_is_lossless_for_cv2_and_the_port(shape):
     assert ok and buf.dtype == np.uint8 and buf.shape[1] == 1
     want = img[..., 0] if img.ndim == 3 and img.shape[2] == 1 else img
     np.testing.assert_array_equal(cv2.imdecode(buf, cv2.IMREAD_UNCHANGED), want)
-    np.testing.assert_array_equal(png.imdecode(buf.tobytes()), want)
+    np.testing.assert_array_equal(png.imdecode(buf.tobytes(), device="cpu"), want)
     # encode writes the channels as given: R, G, B in the file.
     if img.ndim == 3 and img.shape[2] == 3:
-        np.testing.assert_array_equal(png.decode(png.encode(img)), img)
+        np.testing.assert_array_equal(png.decode(png.encode(img), device="cpu"), img)
 
 
 @pytest.mark.parametrize("channels", [1, 3])
@@ -177,10 +177,10 @@ def test_alpha_pngs_match_cv2(color, channels, filters):
     img = _frame(13, 11, channels, seed=color)
     data = _crafted(11, 13, color, 8, _rows(img, filters))
     want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
-    got = png.imdecode(data)
+    got = png.imdecode(data, device="cpu")
     assert got.shape == want.shape == (13, 11, 4)
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(png.decode(data), img)
+    np.testing.assert_array_equal(png.decode(data, device="cpu"), img)
 
 
 @pytest.mark.parametrize("trns", [None, bytes([10, 20, 0]), bytes(range(0, 250, 10))],
@@ -200,10 +200,10 @@ def test_palette_pngs_match_cv2(trns):
     extra = chunk(b"PLTE", palette.tobytes()) + (chunk(b"tRNS", trns) if trns else b"")
     data = _crafted(14, 9, 3, 8, raw, extra=extra)
     want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
-    got = png.imdecode(data)
+    got = png.imdecode(data, device="cpu")
     assert got.shape == want.shape == ((9, 14, 3) if trns is None else (9, 14, 4))
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(png.decode(data)[..., :3], palette[index])
+    np.testing.assert_array_equal(png.decode(data, device="cpu")[..., :3], palette[index])
 
 
 def test_gray_transparency_is_ignored_as_cv2_ignores_it():
@@ -214,5 +214,5 @@ def test_gray_transparency_is_ignored_as_cv2_ignores_it():
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
     data = _crafted(7, 6, 0, 8, raw, extra=chunk(b"tRNS", struct.pack(">H", int(img[0, 0, 0]))))
-    np.testing.assert_array_equal(png.imdecode(data),
+    np.testing.assert_array_equal(png.imdecode(data, device="cpu"),
                                   cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED))

@@ -372,3 +372,30 @@ def test_trainer_reads_slp_paths():
     readers = DataReaders.from_config(LabelsConfig(), training=FIXTURES[0], validation=FIXTURES[1])
     assert len(readers.training_labels) == len(readers.validation_labels) == 8
     assert len(readers.training_labels.user_instances) == 16
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_user_instances_reader_matches_jax(seed):
+    """``from_user_instances`` on the same seeded project in each package:
+    the same frames, each with its training instances (user instances and
+    unlabeled predictions), the same instances removed from the project,
+    and ``is_from_multi_size_videos`` alike."""
+    from sleap_tpu.data.providers import LabelsReader as JReader
+    from test_torch_data_model import JAX, TORCH, make_project
+
+    results = []
+    for P, Reader in ((TORCH, LabelsReader), (JAX, JReader)):
+        labels = make_project(P, seed, two_skeletons=False)
+        reader = Reader.from_user_instances(labels)
+        assert reader.user_instances_only
+        frames = [(ex["video_ind"], ex["frame_ind"], ex["instances"]) for ex in reader]
+        multi = [reader.is_from_multi_size_videos]
+        labels.videos[1].backend.height = 32  # make the two videos differ in size
+        multi.append(reader.is_from_multi_size_videos)
+        results.append((list(reader.example_indices), len(labels), multi, frames))
+    (mine_inds, mine_n, mine_multi, mine), (ref_inds, ref_n, ref_multi, ref) = results
+    assert (mine_inds, mine_n, mine_multi) == (ref_inds, ref_n, ref_multi) and mine_multi == [False, True]
+    assert len(mine) == len(ref) > 0
+    for (gv, gf, gi), (wv, wf, wi) in zip(mine, ref):
+        assert (gv, gf) == (wv, wf)
+        np.testing.assert_array_equal(gi, wi)

@@ -1,6 +1,7 @@
 """The port runs without the JAX side: in a fresh interpreter whose imports of
 ``sleap_tpu``, ``jax``, ``flax``, ``orbax``, ``networkx``, ``attr``, ``h5py``,
-``cv2``, ``yaml``, ``imgstore``, ``zstandard``, ``tensorstore`` and ``pandas`` fail, every module of
+``cv2``, ``yaml``, ``imgstore``, ``zstandard``, ``tensorstore``, ``pandas``,
+``sklearn``, ``zmq``, ``pynwb``, ``ndx_pose`` and ``nixio`` fail, every module of
 ``sleap_tpu_torch`` imports, a run folder written by the port's own config
 code loads through ``load_model``, trained ``.convergence_runs`` folders load
 from their orbax checkpoints with no ``params``, and ``predict`` returns the
@@ -17,7 +18,11 @@ package written and read back, an ImgStore written and read back, and the
 committed JPEG stills decoded to cv2's recorded frames; and the data
 model's calls (``numpy``, ``remove_predictions``, a track swap, ``merge``,
 ``describe``), ``sleap-convert`` to an analysis ``.h5`` and ``.csv``, and a
-DeepLabCut project import; and, in an interpreter of its own, ``sleap-export``
+DeepLabCut project import; and the functions that need an optional package
+(NWB, NIX, image-feature suggestions, paired messages, saving preferences)
+raise ``ImportError`` naming it, while ``sleap-diagnostic``'s summary, the
+HDF5 helpers of ``util`` and reading preferences work; and, in an
+interpreter of its own, ``sleap-export``
 of a trained folder on the CPU, loaded back and run. Also: the entry
 points default to the card, and paths are read.
 """
@@ -42,7 +47,8 @@ from sleap_tpu_torch.tracking import tracker
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("sleap_tpu", "jax", "jaxlib", "flax", "orbax", "networkx", "attr", "attrs", "h5py", "cv2",
-           "yaml", "imgstore", "zstandard", "tensorstore", "pandas")
+           "yaml", "imgstore", "zstandard", "tensorstore", "pandas", "sklearn", "zmq", "pynwb", "ndx_pose",
+           "nixio")
 
 _SCRIPT = r"""
 import importlib, json, os, pkgutil, sys
@@ -375,6 +381,34 @@ result["data_model"] = {
     "dlc": [len(dlc), dlc.skeleton.node_names, dlc.labeled_frames[1].instances[0].numpy().tolist(),
             int(dlc.video.get_frame(2)[0, 0, 0])],
 }
+# The optional packages' gates, and what needs none of them.
+from sleap_tpu_torch import diagnostic, message, prefs, util
+from sleap_tpu_torch.info.feature_suggestions import FeatureSuggestionPipeline
+from sleap_tpu_torch.io.hdf5 import Writer as H5Writer
+
+prefs.Preferences._filename = os.path.join(tmp, "prefs", "preferences.yaml")  # never the real home
+gates = {}
+for name, call in (
+    ("nwb", lambda: dm.export_nwb(os.path.join(tmp, "dm.nwb"))),
+    ("load_nwb", lambda: Labels.load_nwb(os.path.join(tmp, "dm.nwb"), device="cpu")),
+    ("nix", lambda: dm.export_nix(os.path.join(tmp, "dm.nix"))),
+    ("suggestions", lambda: FeatureSuggestionPipeline(per_video=3, n_clusters=2).get_suggestion_frames([dm_video])),
+    ("zmq", lambda: message.PairedSender("tcp://127.0.0.1:1").setup()),
+    ("prefs_save", lambda: prefs.Preferences().save()),
+):
+    try:
+        call()
+        gates[name] = "ran"
+    except ImportError as e:
+        gates[name] = str(e)
+with H5Writer(os.path.join(tmp, "dict.h5")) as w:
+    util.save_dict_to_hdf5(w, "d", {"a": np.arange(3), "b": {"c": ["x", "y"]}})
+result["gates"] = {
+    **gates,
+    "prefs_read": prefs.Preferences()["marker size"],
+    "hdf5": sorted(util.read_hdf5_group(os.path.join(tmp, "dict.h5"), "d")),
+    "summary": diagnostic.system_summary().splitlines()[0],
+}
 result["blocked_loaded"] = sorted(m for m, mod in sys.modules.items()
                                   if mod is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(result))
@@ -404,9 +438,21 @@ def test_every_module_imports_with_the_jax_side_blocked(standalone):
                  "ops.confmaps", "ops.edge_maps", "io.hdf5", "io.png", "io.jpeg",
                  "io.dirimgstore", "io.slp", "inference.export", "cli.export", "io.pathutils",
                  "info.align", "info.metrics", "info.suggestions", "info.summary",
-                 "info.trackcleaner"):
+                 "info.trackcleaner", "io.formats.ndx_pose", "io.formats.nix",
+                 "info.feature_suggestions", "util", "system", "prefs", "message", "diagnostic"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
+
+
+@pytest.mark.parametrize("gate,package", [("nwb", "pynwb"), ("load_nwb", "pynwb"), ("nix", "nixio"),
+                                          ("suggestions", "scikit-learn"), ("zmq", "pyzmq"),
+                                          ("prefs_save", "PyYAML")])
+def test_optional_packages_are_named_with_the_jax_side_blocked(standalone, gate, package):
+    gates = standalone["gates"]
+    assert package in gates[gate]
+    assert gates["prefs_read"] == 4
+    assert gates["hdf5"] == ["d/a", "d/b/c"]
+    assert gates["summary"].startswith("sleap-tpu-torch version: ")
 
 
 @pytest.mark.parametrize("path", ["topdown", "bottomup"])

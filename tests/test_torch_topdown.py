@@ -404,3 +404,113 @@ def test_single_model_modes_size_match_mixed_sizes(folder):
             _assert_close_nan(got[key], ref, 1e-4 if key in ("centroids", "instance_peaks")
                               else VAL_TOL)
     assert got["centroid_mask"].sum() >= 6
+
+
+# --------------------------------------------------------------------------- #
+# from_trained_models, the predictors' config names, VisualPredictor
+# --------------------------------------------------------------------------- #
+
+
+def _same_tree(a, b):
+    """Two nested dicts of arrays with the same keys and values."""
+    assert sorted(a) == sorted(b)
+    for key in a:
+        if isinstance(a[key], dict):
+            _same_tree(a[key], b[key])
+        else:
+            np.testing.assert_array_equal(np.asarray(a[key]), np.asarray(b[key]))
+
+
+def _same_trained_model(tm, jtm):
+    assert tm.input_channels == jtm.input_channels
+    assert tm.model.head_names == jtm.model.head_names
+    assert tm.config.model.heads.which_oneof_attrib_name == jtm.config.model.heads.which_oneof_attrib_name
+    _same_tree(tm.variables["params"], jax.tree_util.tree_map(np.asarray, jtm.variables["params"]))
+
+
+@pytest.mark.parametrize("case", ["single_instance", "topdown"])
+def test_from_trained_models_matches_load_model_and_jax(case):
+    """Built by ``from_trained_models`` from the trained folders, the
+    predictor equals ``load_model``'s exactly and JAX's within the file's
+    tolerances, with the JAX predictor's config and model names."""
+    if case == "single_instance":
+        def build(mod, **kw):
+            return mod.SingleInstancePredictor.from_trained_models(ROBOT, **kw)
+        folders, kw, frames = [ROBOT], dict(peak_threshold=0.1, batch_size=2), _frames(3, 160, seed=2, blobs=1)
+        keys, models = ("instance_peaks", "instance_peak_vals"), ("confmap_model",)
+    else:
+        def build(mod, **kw):
+            return mod.TopDownPredictor.from_trained_models(centroid_model_path=CENTROID,
+                                                            confmap_model_path=INSTANCE, **kw)
+        folders, kw, frames = [CENTROID, INSTANCE], dict(peak_threshold=0.05, batch_size=2), _frames(2, 384, seed=0)
+        keys, models = TOPDOWN_KEYS, ("centroid_model", "confmap_model")
+    mine, loaded, ref = build(tp, device="cpu", **kw), tp.load_model(folders, device="cpu", **kw), build(jp, **kw)
+    assert type(mine) is type(loaded) and mine.device == torch.device("cpu")
+    got = _merged(mine.predict(frames, make_labels=False), keys)
+    same = _merged(loaded.predict(frames, make_labels=False), keys)
+    for key in keys:
+        np.testing.assert_array_equal(got[key], same[key])
+    want = _merged(ref.predict(frames, make_labels=False), keys)
+    for key in keys:
+        if want[key].dtype == bool:
+            np.testing.assert_array_equal(got[key], want[key])
+        else:
+            _assert_close_nan(got[key], want[key], PT_TOL if key in ("instance_peaks", "centroids") else VAL_TOL)
+    assert mine.report_rate == ref.report_rate
+    for name in models:
+        _same_trained_model(getattr(mine, name), getattr(ref, name))
+    for prop in ("confmap_config", "centroid_config"):
+        if hasattr(ref, prop):
+            assert getattr(mine, prop).model.heads.which_oneof_attrib_name == \
+                getattr(ref, prop).model.heads.which_oneof_attrib_name
+
+
+def _seeded_run_folder(tmp_path, head):
+    """A seeded 2-node UNet run folder (input scaling 0.5), as the JAX
+    package's ``TrainedModel`` and as the folder and params the port loads."""
+    from sleap_tpu.config import (
+        MultiInstanceConfig,
+        MultiInstanceConfmapsHeadConfig,
+        PartAffinityFieldsHeadConfig,
+    )
+
+    if head == "single_instance":
+        heads = HeadsConfig(single_instance=SingleInstanceConfmapsHeadConfig(part_names=["a", "b"],
+                                                                             output_stride=2))
+    else:
+        heads = HeadsConfig(multi_instance=MultiInstanceConfig(
+            confmaps=MultiInstanceConfmapsHeadConfig(part_names=["a", "b"], output_stride=2),
+            pafs=PartAffinityFieldsHeadConfig(edges=[("a", "b")], output_stride=4)))
+    cfg = TrainingJobConfig(
+        model=ModelConfig(backbone=BackboneConfig(unet=UNetConfig(max_stride=16, output_stride=2, filters=8,
+                                                                  filters_rate=2.0)), heads=heads),
+        data=DataConfig(preprocessing=PreprocessingConfig(input_scaling=0.5, pad_to_stride=16)),
+    )
+    folder = tmp_path / head
+    folder.mkdir()
+    cfg.save_json(str(folder / "training_config.json"))
+    jmodel = JaxModel.from_config(cfg.model)
+    module, variables = jmodel.init(jax.random.PRNGKey(7), (64, 64, 1))
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    jtm = jp.TrainedModel(config=cfg, model=jmodel, module=module, variables={"params": params},
+                          input_channels=1)
+    return str(folder), params, jtm
+
+
+@pytest.mark.parametrize("head", ["single_instance", "multi_instance"])
+def test_visual_predictor_maps_match_jax(head, tmp_path):
+    """The renamed head maps of a seeded model, its weights carried by
+    ``models/params.py``, within 1e-3 of the JAX package's VisualPredictor."""
+    folder, params, jtm = _seeded_run_folder(tmp_path, head)
+    ref = jp.VisualPredictor(model=jtm, batch_size=2)
+    mine = tp.VisualPredictor.from_trained_models(folder, device="cpu", params={folder: params}, batch_size=2)
+    assert mine.head_specific_output_keys() == ref.head_specific_output_keys()
+    assert mine.config.model.heads.which_oneof_attrib_name == head
+    frames = _frames(3, 96, seed=4)
+    got, want = mine.predict(frames), ref.predict(frames)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) == sorted(ref.head_specific_output_keys() + ["frame_ind", "video_ind"])
+        for key in w:
+            assert g[key].shape == np.asarray(w[key]).shape, key
+            np.testing.assert_allclose(g[key], np.asarray(w[key]), atol=1e-3, rtol=0)

@@ -186,6 +186,7 @@ def test_frame_matches_match_jax(robust, batched):
     assert len(got.matches) >= 2
     assert [untracked_index(i, untracked, 1) for i in got.unmatched_instances] == [
         untracked_index(i, untracked, 0) for i in want.unmatched_instances]
+    assert got.has_only_first_choice_matches == want.has_only_first_choice_matches
 
 
 def untracked_index(inst, pairs, side):
@@ -536,3 +537,56 @@ def test_load_model_with_flow_tracker_matches_jax(path):
         [i.track.name for i in lf.instances] for lf in want]
     assert [t.name for t in got.tracks] == [t.name for t in want.tracks]
     assert all(i.track is not None for lf in got for i in lf.instances)
+
+
+# --------------------------------------------------------------------------- #
+# The trackers' helpers
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("gap", [1, 5])
+def test_bare_kalman_initialize_and_stale_filters_match_jax(gap):
+    jframes, tframes = stream_frames(*render_stream())
+    jt.run_tracker(jframes[:4], jt.Tracker.make_tracker_by_name(tracker="simple"))
+    tt.run_tracker(tframes[:4], tt.Tracker.make_tracker_by_name(tracker="simple", device="cpu"))
+    jkf = jk.BareKalmanTracker.initialize(jframes[:4], instance_count=3, node_indices=[0, 1],
+                                          reset_gap_size=gap)
+    tkf = tk.BareKalmanTracker.initialize(tframes[:4], instance_count=3, node_indices=[0, 1],
+                                          reset_gap_size=gap)
+    assert [t.name for t in tkf.tracks] == [t.name for t in jkf.tracks] and tkf.tracks
+    assert tkf.reset_gap_size == jkf.reset_gap_size == gap
+    stale = []
+    for jf, tf in zip(jframes[4:], tframes[4:]):
+        for inst in jf.instances + tf.instances:
+            inst.track = None
+        jkf.track_frame(list(jf.instances), jf.frame_idx)
+        tkf.track_frame(list(tf.instances), tf.frame_idx)
+        for t in (jf.frame_idx, jf.frame_idx + 3, jf.frame_idx + 9):
+            stale.append((tkf.has_stale_filters(t), jkf.has_stale_filters(t)))
+    assert_same_tracking(tframes[4:], jframes[4:])
+    assert tkf.last_frame_with_tracks == jkf.last_frame_with_tracks > 4
+    assert all(a == b for a, b in stale) and {a for a, _ in stale} == {False, True}
+
+
+@pytest.mark.parametrize("tracker", ["simple", "simplemaxtracks"])
+def test_tracker_helpers_match_jax(tracker):
+    frames, insts = render_stream()
+    jframes, tframes = stream_frames(frames, insts)
+    opts = {"max_tracks": 3} if tracker.endswith("maxtracks") else {}
+    jtracker = jt.Tracker.make_tracker_by_name(tracker=tracker, **opts)
+    ttracker = tt.Tracker.make_tracker_by_name(tracker=tracker, device="cpu", **opts)
+    assert ttracker.is_valid == jtracker.is_valid is True
+    assert tt.Tracker(similarity_function=None).is_valid == jt.Tracker(similarity_function=None).is_valid
+    assert ttracker.unique_tracks_in_queue == jtracker.unique_tracks_in_queue == []
+    jt.run_tracker(jframes, jtracker)
+    tt.run_tracker(tframes, ttracker)
+    got = sorted(t.name for t in ttracker.unique_tracks_in_queue if t is not None)
+    want = sorted(t.name for t in jtracker.unique_tracks_in_queue if t is not None)
+    assert got == want and got
+    kalman = tt.Tracker.make_tracker_by_name(tracker="flow", kf_init_frame_count=5, kf_node_indices=[0, 1],
+                                             target_instance_count=3, device="cpu")
+    jkalman = jt.Tracker.make_tracker_by_name(tracker="flow", kf_init_frame_count=5, kf_node_indices=[0, 1],
+                                              target_instance_count=3)
+    assert type(kalman).__name__ == type(jkalman).__name__ == "KalmanTracker"
+    assert kalman.is_valid == jkalman.is_valid is True
+    assert tt.logger.name == "sleap_tpu_torch.tracking.tracker"
