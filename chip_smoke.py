@@ -2,8 +2,9 @@
 """Drive sleap_tpu_torch's top-down, single-instance, bottom-up and multiclass
 inference, flow-shift tracking, training, the ``sleap-track``,
 ``sleap-train``, ``sleap-inspect``, ``sleap-convert``, ``sleap-export`` and
-``sleap-diagnostic`` CLIs, exported programs, the data model's API and the
-host modules (NWB/NIX, image-feature suggestions, prefs, util, message)
+``sleap-diagnostic`` CLIs, exported programs, the data model's API, the
+host modules (NWB/NIX, image-feature suggestions, prefs, util, message),
+the pipeline blocks and builders, ZMQ training and MoveNet
 once on one CUDA card,
 through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
@@ -366,9 +367,36 @@ script its total before the ``kernels`` line:
    are installed). 16d: the "raw" and "hog" features of 8a's 32 frames
    (decoded on the card), then ``image_feature_based_method`` (or its
    ImportError naming scikit-learn); which of the two happened is printed.
+17. The pipeline blocks, the training pipelines, ZMQ training with its
+   visualizations, MoveNet and the host helpers, after phase 16. 17a: phase
+   4's float32 pair as blocks (``sleap_tpu_torch.data.inference``) over
+   phase 4's frames in batches of 16: the frames scaled to the centroid
+   model's input, the centroid ``ModelPredictor``, ``LocalPeakFinder``
+   (kernel 2), unit crops at the centroids (kernel 3), the instance
+   ``ModelPredictor``, ``GlobalPeakFinder`` (kernel 1) and, per instance,
+   ``PredictedCenterInstanceNormalizer``; each kernel launches once a
+   timed batch (the launches join the kernels line), the card equals the
+   CPU within PATH_XY_TOL / PATH_VAL_TOL on 4 frames, and
+   ``MockGlobalPeakFinder`` is exact on phase 7's ground truth. 17b: the
+   six builders' ``make_training_pipeline`` (``data/pipelines.py``) on 24
+   frames of phase 7's recipe with tracks, batch 16, two batches each:
+   equal to the trainer's ``make_batch`` and ``build_gt_fn`` exactly, the
+   first within PIPE_CPU_TOL of the CPU's. 17c: ``cli.train.main --zmq``
+   of phase 9's centroid profile (4 epochs of 5 batches) with a monitor
+   thread holding a SUB and a PUB: ``set_lr`` after the first epoch and
+   ``stop`` after the second; the events in order, the log's learning
+   rates, the early stop, the folder loading, and ``viz/epoch_NNN.png``
+   where matplotlib imports (none where it does not). 17d:
+   ``MoveNetPredictor`` ("lightning", "thunder") with a seeded stand-in
+   model computing on the card, on 8 gray 1024^2 and 8 RGB 640 x 480
+   frames, equal to the CPU's exactly; ``load_model("movenet-thunder")``'s
+   offline error; whether tensorflow is installed (never imported). 17e:
+   ``match_points`` on card tensors equal to the CPU's, a Shuffler ->
+   Batcher -> Prefetcher -> Unbatcher chain over 8a's ``.slp``, and a
+   skeleton preview PNG where matplotlib imports.
 
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
-one of phase 13's, one of phase 14's, one of phase 15's and one of phase 16's; the line before the last is a JSON object with each
+one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's and one of phase 17's; the line before the last is a JSON object with each
 kernel's launches (J1 and J2 from phase 13c's run) (all paths' and per path), error and
 times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -568,7 +596,7 @@ EXPORT_XY_TOL, EXPORT_VAL_TOL = 1e-4, 1e-5
 
 # The JAX side and what only it needs: the port imports none of these.
 JAX_SIDE = ("jax", "jaxlib", "flax", "orbax", "sleap_tpu", "networkx", "attr", "attrs", "h5py", "cv2",
-            "zstandard", "tensorstore", "yaml", "imgstore", "pandas")
+            "zstandard", "tensorstore", "yaml", "imgstore", "pandas", "tensorflow")
 
 # The card's peaks (H100 SXM data sheet): memory rate, and float32 outside
 # the tensor cores for the kernels' few operations per byte.
@@ -2066,16 +2094,26 @@ def train_config(head, filters=64, crop=CROP, input_scaling=1.0, lr=1e-4, batch=
     return cfg
 
 
-def labels_of(frames, points):
+def labels_of(frames, points, tracked=False):
     """The port's Labels: ``frames`` (n, H, W, 1) uint8 and ``points``
-    (n, animals, N_NODES, 2) user instances."""
-    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    (n, animals, N_NODES, 2) user instances; with ``tracked``, animal a is
+    on track "animal{a}" in every frame."""
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame, Track
     from sleap_tpu_torch.core.labels import Labels
     from sleap_tpu_torch.io.video import Video
 
     skeleton, video = chain_skeleton(), Video.from_numpy(frames)
-    return Labels([LabeledFrame(video, i, [Instance(skeleton, p) for p in pts])
+    tracks = [Track(0, f"animal{a}") if tracked else None for a in range(points.shape[1])]
+    return Labels([LabeledFrame(video, i, [Instance(skeleton, p, track=t) for p, t in zip(pts, tracks)])
                    for i, pts in enumerate(points)])
+
+
+def phase7_recipe(n, seed=0):
+    """Phase 7's frames and animals: ``n`` uniform noise frames of IMG^2 and
+    3 animals a frame at uniform points 100 px inside."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 255, (n, IMG, IMG, 1), np.uint8)
+    return frames, rng.uniform(100, IMG - 100, (n, 3, N_NODES, 2))
 
 
 def bench_trainer(head, mixed_precision=False):
@@ -2083,9 +2121,7 @@ def bench_trainer(head, mixed_precision=False):
     set up on its 4 labeled frames of 3 instances."""
     from sleap_tpu_torch.training.trainer import Trainer
 
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 255, (4, IMG, IMG, 1), np.uint8)
-    labels = labels_of(frames, rng.uniform(100, IMG - 100, (4, 3, N_NODES, 2)))
+    labels = labels_of(*phase7_recipe(4))
     cfg = train_config(head)
     cfg.optimization.mixed_precision = mixed_precision
     trainer = Trainer.from_config(cfg, training_labels=labels, validation_labels=labels)
@@ -4667,6 +4703,443 @@ def check_host_modules(td_cpu, wrappers, launches, kept, card):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 17: the pipeline blocks, the training pipelines, sleap-train --zmq
+# with the trainer's visualizations, MoveNet, and the host helpers
+# --------------------------------------------------------------------------- #
+
+# 17b: phase 7's recipe (uniform noise frames at IMG^2, 3 animals of 13
+# nodes at uniform places 100 px inside), 24 frames so that each builder
+# gives two batches of TRAIN_BATCH, each animal on its own track (the
+# multiclass builders' classes). Card vs CPU: crops sample the frames at
+# float32 positions near 1024 px, whose ulp is 6.1e-5 px, and neighbouring
+# noise pixels differ by up to 1 after scaling, so one ulp of position moves
+# a crop's value by up to 6.1e-5 (a trial read 2.9e-5); maps move less.
+PIPE_FRAMES, PIPE_BATCHES, PIPE_CPU_TOL = 24, 2, 1e-4
+# 17c: phase 9's centroid profile cut to ZMQ_EPOCHS epochs of ZMQ_BATCHES
+# batches; the learning rate asked for over ZMQ after the first epoch.
+ZMQ_EPOCHS, ZMQ_BATCHES, ZMQ_LR = 4, 5, 1e-5
+# 17d: MOVENET_FRAMES of phase 4's gray frames and as many seeded RGB
+# 640 x 480 frames.
+MOVENET_FRAMES = 8
+
+
+def block_chain(td, frames, device, batch):
+    """Phase 4's top-down pair as pipeline blocks on ``device``: the frames
+    scaled by the centroid model's input scale, the centroid
+    ``ModelPredictor``, ``LocalPeakFinder`` (kernel 2; MAX_INSTANCES a
+    frame), unit crops of the frames at the centroids
+    (``crop_bboxes_unit``, kernel 3), the instance ``ModelPredictor``,
+    ``GlobalPeakFinder`` (kernel 1), and, per instance,
+    ``PredictedCenterInstanceNormalizer``. Returns the per-instance
+    examples."""
+    from sleap_tpu_torch.data import dataset_ops as ops
+    from sleap_tpu_torch.data import inference as blocks
+    from sleap_tpu_torch.data.normalization import ensure_float
+    from sleap_tpu_torch.data.resizing import resize_image
+    from sleap_tpu_torch.ops.peak_finding import crop_bboxes_unit
+
+    cm, im = td.centroid_model, td.confmap_model
+    crop = int(im.crop_size)
+
+    def scaled(ex):
+        x = ensure_float(torch.from_numpy(ex["image"]).to(device))
+        return {**ex, "centroid_image": resize_image(x, cm.input_scale).cpu().numpy()}
+
+    def crops(ex):
+        cents = ex["predicted_centroids"]
+        top_left = (cents - (crop - 1) / 2.0).astype(np.float32)
+        inds = ex["predicted_centroid_sample_inds"]
+        c = crop_bboxes_unit(torch.from_numpy(ex["image"]).to(device), torch.from_numpy(top_left).to(device),
+                             torch.from_numpy(inds.astype(np.int64)).to(device), (crop, crop))
+        return {"instance_image": torch.trunc(c).to(torch.uint8).cpu().numpy(), "centroid": cents,
+                "centroid_confidence": ex["predicted_centroid_confidences"],
+                "bbox": np.concatenate([top_left[:, ::-1], top_left[:, ::-1] + crop - 1], axis=1),
+                "scale": np.ones((len(cents), 2), np.float32), "frame_ind": ex["frame_ind"][inds]}
+
+    stream = ({"image": frames[i:i + batch], "frame_ind": np.arange(i, min(i + batch, len(frames)))}
+              for i in range(0, len(frames), batch))
+    for block in (
+            ops.LambdaMap(scaled),
+            blocks.ModelPredictor(model=cm, model_input_keys="centroid_image",
+                                  model_output_keys="centroid_confidence_maps", device=device),
+            blocks.LocalPeakFinder(confmaps_stride=int(cm.output_stride / cm.input_scale),
+                                   peak_threshold=td.peak_threshold, max_peaks=MAX_INSTANCES,
+                                   keep_confmaps=False, device=device),
+            ops.LambdaMap(crops),
+            blocks.ModelPredictor(model=im, model_input_keys="instance_image", device=device),
+            blocks.GlobalPeakFinder(confmaps_stride=im.output_stride, peak_threshold=td.peak_threshold,
+                                    keep_confmaps=False, device=device),
+            ops.Unbatcher(),
+            blocks.PredictedCenterInstanceNormalizer()):
+        stream = block.transform_dataset(stream)
+    return list(stream)
+
+
+def chain_arrays(examples):
+    keys = ("frame_ind", "predicted_centroid", "predicted_centroid_confidence", "predicted_instance",
+            "predicted_instance_confidences")
+    return {k: np.stack([np.asarray(ex[k]) for ex in examples]) for k in keys}
+
+
+def check_block_chain(td, td_cpu, frames, wrappers, launches, card):
+    """17a: the chain on the card over phase 4's frames in batches of BATCH
+    (one warm-up batch, then the timed ones, each launching kernels 1, 2
+    and 3 once), the card against the CPU on the first 4 frames (phase 4's
+    PATH_XY_TOL and PATH_VAL_TOL), and ``MockGlobalPeakFinder`` on phase 7's
+    ground truth."""
+    from sleap_tpu_torch.data.inference import MockGlobalPeakFinder
+
+    block_chain(td, frames[:BATCH], td.device, BATCH)  # warm-up
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = block_chain(td, frames[BATCH:], td.device, BATCH)  # the results are on the host
+    seconds = time.perf_counter() - t0
+    n_batches = -(-(len(frames) - BATCH) // BATCH)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    for kernel, n in counts.items():
+        check(n == n_batches, f"17a: {kernel} launched {n} times for {n_batches} batches")
+        launches[kernel]["pipeline blocks (17a)"] = n
+    res = chain_arrays(out)
+    check(len(out) >= n_batches and np.isfinite(res["predicted_instance"]).any(),
+          f"17a: {len(out)} instances, finite points")
+    check(np.isfinite(res["predicted_instance_confidences"]).all(), "17a: finite values")
+    g = chain_arrays(block_chain(td, frames[:4], td.device, 4))
+    c = chain_arrays(block_chain(td_cpu, frames[:4], td_cpu.device, 4))
+    check(np.array_equal(g["frame_ind"], c["frame_ind"]), "17a: card vs CPU, the same instances")
+    d = {k: float(np.nanmax(np.abs(g[k] - c[k]))) for k in g if k != "frame_ind"}
+    check(all(np.array_equal(np.isnan(g[k]), np.isnan(c[k])) for k in g), "17a: card vs CPU NaNs")
+    check(d["predicted_centroid"] <= PATH_XY_TOL and d["predicted_instance"] <= PATH_XY_TOL,
+          f"17a: card vs CPU points {d}")
+    check(d["predicted_centroid_confidence"] <= PATH_VAL_TOL
+          and d["predicted_instance_confidences"] <= PATH_VAL_TOL, f"17a: card vs CPU values {d}")
+
+    _, points = phase7_recipe(4)
+    mocked = 0
+    for i, pts in enumerate(points):
+        for a in range(len(pts)):
+            centroid = pts[a, 0]  # its anchor: nearer to its own nodes than to any other's
+            bbox = np.array([centroid[1] - 80, centroid[0] - 80, centroid[1] + 79, centroid[0] + 79])
+            (ex,) = MockGlobalPeakFinder(keep_confmaps=False).transform_dataset(
+                [{"instances": pts, "centroid": centroid, "bbox": bbox, "scale": np.ones(2)}])
+            want = (pts[a] - bbox[[1, 0]]).astype(np.float32)
+            check(np.array_equal(ex["predicted_center_instance_points"], want), "17a: mock peaks exact")
+            mocked += 1
+    ms = 1000 * seconds / n_batches
+    log(f"17a blocks: {len(out)} instances in {n_batches} batches of {BATCH} {IMG}^2 frames, "
+        f"{ms:.1f} ms a batch; launches {counts}; card vs CPU {d}; mock exact on {mocked} "
+        f"instances ({card})")
+    return {"ms_a_batch": ms, "instances": len(out), "launches": counts, "card_vs_cpu": d}
+
+
+def pipeline_builders(device):
+    """The six builders at phase 7's widths and strides, batch
+    TRAIN_BATCH, augmentation off (the default), on ``device``."""
+    from sleap_tpu_torch import config as c
+    from sleap_tpu_torch.data import pipelines as P
+
+    def data(crop=None):
+        d = c.DataConfig(preprocessing=c.PreprocessingConfig(pad_to_stride=16))
+        d.instance_cropping.crop_size = crop
+        return d
+
+    opt = c.OptimizationConfig()
+    opt.batch_size = TRAIN_BATCH
+    cm = dict(output_stride=4, sigma=2.5)
+    kw = dict(optimization_config=opt, device=device)
+    return {
+        "single_instance": P.SingleInstanceConfmapsPipeline(
+            data_config=data(), single_instance_confmap_head=c.SingleInstanceConfmapsHeadConfig(**cm), **kw),
+        "centroid": P.CentroidConfmapsPipeline(
+            data_config=data(), centroid_confmap_head=c.CentroidsHeadConfig(**cm), **kw),
+        "centered_instance": P.TopdownConfmapsPipeline(
+            data_config=data(CROP), instance_confmap_head=c.CenteredInstanceConfmapsHeadConfig(**cm), **kw),
+        "multi_instance": P.BottomUpPipeline(
+            data_config=data(), confmaps_head=c.MultiInstanceConfmapsHeadConfig(**cm),
+            pafs_head=c.PartAffinityFieldsHeadConfig(output_stride=8, sigma=5.0), **kw),
+        "multi_class_bottomup": P.BottomUpMultiClassPipeline(
+            data_config=data(), confmaps_head=c.MultiInstanceConfmapsHeadConfig(**cm),
+            class_maps_head=c.ClassMapsHeadConfig(output_stride=4, sigma=5.0), **kw),
+        "multi_class_topdown": P.TopDownMultiClassPipeline(
+            data_config=data(CROP), instance_confmap_head=c.CenteredInstanceConfmapsHeadConfig(**cm),
+            class_vectors_head=c.ClassVectorsHeadConfig(num_fc_layers=1), **kw),
+    }
+
+
+def check_training_pipelines(device, card):
+    """17b: each builder's ``make_training_pipeline`` on the card, its first
+    PIPE_BATCHES batches: equal to the trainer's own ``make_batch`` and
+    ``build_gt_fn`` on the same examples (the pipeline's order and
+    padding), exactly; the first batch within PIPE_CPU_TOL of the same
+    pipeline on the CPU."""
+    labels = labels_of(*phase7_recipe(PIPE_FRAMES), tracked=True)
+    card_builders, cpu_builders = pipeline_builders(device), pipeline_builders("cpu")
+    res = {}
+    for head, builder in card_builders.items():
+        pipe = builder.make_training_pipeline(labels)
+        trainer = pipe.example_maker.__self__
+        check(trainer.device == device, f"17b {head}: the trainer is on the card")
+        gt_fn = trainer.build_gt_fn()
+        order = np.random.default_rng(pipe.seed).permutation(len(pipe.examples))
+        batches, t0 = [], time.perf_counter()
+        for batch, n_valid in pipe:
+            batches.append((batch, n_valid))
+            if len(batches) == PIPE_BATCHES:
+                break
+        ms = 1000 * (time.perf_counter() - t0) / PIPE_BATCHES  # the batches are on the host
+        for k, (batch, n_valid) in enumerate(batches):
+            idx = order[k * TRAIN_BATCH:(k + 1) * TRAIN_BATCH]
+            check(n_valid == len(idx), f"17b {head}: batch {k} holds {n_valid} examples, want {len(idx)}")
+            while len(idx) < TRAIN_BATCH:  # the pipeline pads by repeating examples
+                idx = np.concatenate([idx, idx])[:TRAIN_BATCH]
+            ref = trainer.make_batch([pipe.examples[i] for i in idx], None)
+            with torch.no_grad():
+                imgs, gt = gt_fn(trainer.to_device(ref), torch.Generator(device=device).manual_seed(0))
+            check(np.array_equal(batch["image"], imgs.cpu().numpy()), f"17b {head}: images equal the trainer's")
+            check(sorted(batch) == sorted(["image", "instances", *gt]), f"17b {head}: keys {sorted(batch)}")
+            for key, value in gt.items():
+                check(np.array_equal(batch[key], value.cpu().numpy()), f"17b {head}: {key} equals the trainer's")
+        cpu_batch, _ = next(iter(cpu_builders[head].make_training_pipeline(labels)))
+        diffs = {k: float(np.abs(cpu_batch[k] - batches[0][0][k]).max()) for k in cpu_batch if k != "instances"}
+        diff = max(diffs.values())
+        check(diff <= PIPE_CPU_TOL, f"17b {head}: card vs CPU {diffs}")
+        shapes = {k: list(v.shape) for k, v in batches[0][0].items()}
+        res[head] = {"ms_a_batch": ms, "card_vs_cpu": diffs, "shapes": shapes}
+        log(f"17b {head}: {ms:.1f} ms a batch of {TRAIN_BATCH} ({card}); card vs CPU {diffs}; {shapes}")
+    return res
+
+
+def zmq_monitor(publish_port, controller_port, events, sent):
+    """17c's GUI stand-in, in a thread: a SUB on the trainer's progress and
+    a PUB on its controller. After the first ``epoch_end`` it sends
+    ``set_lr`` ZMQ_LR, after the second ``stop``, once each (the trainer
+    takes one command a batch, so a repeated one would queue). ``events``
+    gets every message, ``sent`` the epoch after whose end each command
+    went."""
+    import zmq
+
+    ctx = zmq.Context()
+    sub, pub = ctx.socket(zmq.SUB), ctx.socket(zmq.PUB)
+    sub.setsockopt_string(zmq.SUBSCRIBE, "")
+    sub.setsockopt(zmq.RECONNECT_IVL, 10)
+    sub.connect(f"tcp://127.0.0.1:{publish_port}")
+    pub.bind(f"tcp://127.0.0.1:{controller_port}")
+    commands = [{"command": "set_lr", "lr": ZMQ_LR}, {"command": "stop"}]
+    deadline = time.time() + 600
+    try:
+        while time.time() < deadline:
+            if not sub.poll(10, zmq.POLLIN):
+                continue
+            msg = json.loads(sub.recv_string())
+            events.append(msg)
+            if msg["what"] == "train_end":
+                break
+            if msg["what"] == "epoch_end" and commands:
+                command = commands.pop(0)
+                pub.send_string(json.dumps(command))
+                sent[command["command"]] = msg["epoch"]
+    finally:
+        sub.close(linger=0)
+        pub.close(linger=0)
+        ctx.term()
+
+
+def check_zmq_train(device, card):
+    """17c: ``cli.train.main --zmq`` of phase 9's centroid profile on the
+    card (its project), a monitor thread holding the other ends; the event
+    order, the learning rate (from the epoch after the request) and the
+    stop in ``training_log.csv``, the folder loading with ``load_model``,
+    and the visualizations."""
+    import importlib.util
+    import socket
+    import threading
+
+    import sleap_tpu_torch
+    from sleap_tpu_torch.cli import train as cli_train
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    log(f"17c matplotlib on the card: {has_mpl}; pyzmq: {importlib.util.find_spec('zmq') is not None}")
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    root = tempfile.mkdtemp(prefix="chip_smoke_17c_")
+    try:
+        project = write_cli_project(root)
+        profile, cfg = cut_profile(TRAIN_CLI_PROFILES[0][1], root)
+        cfg["optimization"].update(epochs=ZMQ_EPOCHS, batches_per_epoch=ZMQ_BATCHES)
+        cfg["outputs"].update(save_visualizations=True, keep_viz_images=True)
+        with open(profile, "w") as f:
+            json.dump(cfg, f)
+        events, sent = [], {}
+        monitor = threading.Thread(target=zmq_monitor, args=(ports[1], ports[0], events, sent), daemon=True)
+        monitor.start()
+        setup_zmq = Trainer._setup_zmq
+
+        def joined(self):  # the monitor's SUB joins before the first event, as a GUI's does
+            setup_zmq(self)
+            time.sleep(0.5)
+
+        Trainer._setup_zmq = joined
+        t0 = time.perf_counter()
+        try:
+            cli_train.main([profile, project, "--run_name", "zmq", "--zmq", "--controller_port", str(ports[0]),
+                            "--publish_port", str(ports[1]), *(["--cpu"] if device.type == "cpu" else [])])
+        finally:
+            Trainer._setup_zmq = setup_zmq
+        seconds = time.perf_counter() - t0
+        monitor.join(timeout=60)
+        check(not monitor.is_alive(), "17c: the monitor saw train_end")
+        kinds = [m["what"] for m in events]
+        folder = os.path.join(root, "zmq")
+        with open(os.path.join(folder, "training_log.csv")) as f:
+            rows = list(csv.DictReader(f))
+        want = []
+        for e, row in enumerate(rows):
+            n = sum(1 for m in events if m["what"] == "batch_end" and m["epoch"] == e)
+            want += ["epoch_begin"] + ["batch_end"] * n + ["epoch_end"]
+            check([m["batch"] for m in events if m["what"] == "batch_end" and m["epoch"] == e] == list(range(n))
+                  and 1 <= n <= ZMQ_BATCHES, f"17c: epoch {e}'s batches")
+        check(kinds == want + ["train_end"], f"17c: events in order {kinds}")
+        check(sent.get("set_lr") == 0 and sent.get("stop") == 1, f"17c: commands sent {sent}")
+        lrs = [float(r["lr"]) for r in rows]
+        check(all(lr == ZMQ_LR for lr in lrs[1:]) and lrs[0] != ZMQ_LR, f"17c: set_lr in the log {lrs}")
+        check(2 <= len(rows) < ZMQ_EPOCHS, f"17c: stopped early ({len(rows)} epochs)")
+        pred = sleap_tpu_torch.load_model(folder, device=device)
+        check(pred.centroid_model is not None, "17c: the folder loads")
+        viz = os.path.join(folder, "viz")
+        pngs = sorted(os.listdir(viz)) if os.path.isdir(viz) else []
+        if has_mpl:
+            check(pngs == [f"epoch_{e:03d}.png" for e in range(len(rows))]
+                  and all(os.path.getsize(os.path.join(viz, p)) > 0 for p in pngs), f"17c: visualizations {pngs}")
+        else:
+            check(pngs == [], f"17c: no visualizations without matplotlib {pngs}")
+        log(f"17c sleap-train --zmq: {len(rows)} epochs in {seconds:.1f} s, {len(events)} events, lr {lrs}, "
+            f"visualizations {pngs} ({card})")
+        return {"seconds": seconds, "epochs": len(rows), "events": len(events), "lr": lrs,
+                "matplotlib": has_mpl, "visualizations": pngs}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class MoveNetStandIn:
+    """MoveNet's contract computed on ``device``: int32 (1, S, S, 3) in,
+    (1, 1, 17, 3) [y, x, score] out; each keypoint the first argmax of a
+    seeded 17-channel integer 5 x 5 convolution (stride 4) of the image, its
+    score the sum there mod 100 over 100. Integer sums below 2^24 make the
+    card and the CPU agree exactly."""
+
+    def __init__(self, device, seed=0):
+        gen = torch.Generator().manual_seed(seed)
+        self.weight = torch.randint(-2, 3, (17, 3, 5, 5), generator=gen).float().to(device)
+        self.device = device
+
+    def __call__(self, images):
+        size = images.shape[1]
+        x = torch.from_numpy(images).to(self.device).permute(0, 3, 1, 2).float()
+        y = torch.round(F.conv2d(x, self.weight, stride=4))[0].flatten(1).long()  # (17, h*w)
+        w, n = (size - 5) // 4 + 1, y.shape[1]
+        idx = (y * n + (n - 1 - torch.arange(n, device=self.device))).argmax(dim=1)
+        val = y.gather(1, idx[:, None])[:, 0]
+        idx, val = idx.cpu().numpy(), val.cpu().numpy()
+        out = np.stack([(4 * (idx // w) + 2) / size, (4 * (idx % w) + 2) / size, (val % 100) / 100.0], axis=-1)
+        return out.astype(np.float32).reshape(1, 1, 17, 3)
+
+
+def check_movenet(frames, device, card):
+    """17d: ``MoveNetPredictor`` of both sizes with the stand-in on the card
+    and on the CPU, on MOVENET_FRAMES of phase 4's gray frames and as many
+    RGB 640 x 480 ones: the same points and scores exactly; the offline
+    error of ``load_model("movenet-thunder")``."""
+    import importlib.util
+
+    import sleap_tpu_torch
+    from sleap_tpu_torch.inference.movenet import MoveNetPredictor
+
+    rgb = np.random.default_rng(17).integers(0, 255, (MOVENET_FRAMES, 480, 640, 3), np.uint8)
+    res = {}
+    for name in ("lightning", "thunder"):
+        for what, data in (("gray", frames[:MOVENET_FRAMES]), ("rgb", rgb)):
+            out = {}
+            for where in ("card", "cpu"):
+                dev = device if where == "card" else torch.device("cpu")
+                pred = MoveNetPredictor.from_trained_models(name, model_path=MoveNetStandIn(dev), device=dev)
+                check(pred.device == dev, "17d: the predictor's device")
+                t0 = time.perf_counter()
+                labels = pred.predict(data)
+                out[where] = (np.stack([lf.instances[0].numpy() for lf in labels]),
+                              np.stack([lf.instances[0].scores for lf in labels]), time.perf_counter() - t0)
+            same = all(np.array_equal(a, b, equal_nan=True) for a, b in zip(out["card"][:2], out["cpu"][:2]))
+            check(same, f"17d {name} {what}: card vs CPU points")
+            check(np.isfinite(out["card"][0]).any() and np.isnan(out["card"][0]).any(),
+                  f"17d {name} {what}: points and thresholded NaNs")
+            res[f"{name} {what}"] = {"ms_a_frame": 1000 * out["card"][2] / len(data),
+                                     "finite_points": int(np.isfinite(out["card"][0][..., 0]).sum())}
+    try:
+        sleap_tpu_torch.load_model("movenet-thunder")
+        check(False, "17d: load_model('movenet-thunder') without a model must raise")
+    except NotImplementedError as e:
+        check("offline" in str(e) and "tfhub.dev/google/movenet/singlepose/thunder" in str(e),
+              f"17d: the offline error {e}")
+    res["tensorflow"] = importlib.util.find_spec("tensorflow") is not None
+    log(f"17d MoveNet: {res} ({card})")
+    return res
+
+
+def check_host_helpers(kept, device, card):
+    """17e: ``match_points`` on card tensors against the CPU; a
+    Shuffler -> Batcher -> Prefetcher -> Unbatcher chain over 8a's
+    ``.slp``; ``generate_skeleton_preview_image`` where matplotlib imports."""
+    from sleap_tpu_torch import nn_viz
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.data import dataset_ops as ops
+    from sleap_tpu_torch.data.providers import LabelsReader
+    from sleap_tpu_torch.ops.utils import match_points
+
+    rng = np.random.default_rng(18)
+    for n, m in ((40, 35), (12, 30), (7, 7)):
+        p1, p2 = rng.uniform(0, IMG, (n, 2)), rng.uniform(0, IMG, (m, 2))
+        got = match_points(torch.from_numpy(p1).to(device), torch.from_numpy(p2).to(device))
+        want = match_points(p1, p2)
+        check(all(np.array_equal(a, b) and a.dtype == np.int32 for a, b in zip(got, want)),
+              f"17e: match_points {n} x {m} card vs CPU")
+    labels = Labels.load_file(kept["slp"], device=device)
+    direct = {int(ex["frame_ind"]): ex["image"] for ex in LabelsReader(labels=labels)}
+    chain = ops.Unbatcher().transform_dataset(ops.Prefetcher(buffer_size=2).transform_dataset(
+        ops.Batcher(batch_size=5).transform_dataset(ops.Shuffler(seed=0, buffer_size=8).transform_dataset(
+            LabelsReader(labels=labels)))))
+    back = {int(ex["frame_ind"]): ex["image"] for ex in chain}
+    check(sorted(back) == sorted(direct) and all(np.array_equal(back[k], direct[k]) for k in direct),
+          "17e: the dataset_ops chain gives every example back")
+    try:
+        png = nn_viz.generate_skeleton_preview_image(labels[0].instances[0])
+        check(png[:8] == b"\x89PNG\r\n\x1a\n", "17e: a PNG preview")
+        preview = len(png)
+    except ImportError as e:
+        check("matplotlib" in str(e), f"17e: the ImportError names matplotlib {e}")
+        preview = None
+    log(f"17e match_points card = CPU; {len(back)} examples through the chain; preview PNG bytes {preview} "
+        f"({card})")
+    return {"examples": len(back), "preview_png_bytes": preview}
+
+
+def check_slice_modules(td, td_cpu, frames, wrappers, launches, kept, card):
+    """Phase 17: 17a-17e, on the card of ``td``."""
+    device = td.device
+    return {"17a blocks": check_block_chain(td, td_cpu, frames, wrappers, launches, card),
+            "17b training pipelines": check_training_pipelines(device, card),
+            "17c sleap-train --zmq": check_zmq_train(device, card),
+            "17d movenet": check_movenet(frames, device, card),
+            "17e host helpers": check_host_helpers(kept, device, card)}
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: times and bounds
 # --------------------------------------------------------------------------- #
 
@@ -5005,6 +5478,12 @@ def main() -> int:
         # VisualPredictor, NWB/NIX and image-feature suggestions on 8a's
         # .slp, prefs, util and message.
         host_modules = timed_phase("16", check_host_modules, td_cpu, all_wrappers, launches, kept, card)
+
+        # Phase 17: the pipeline blocks (kernels 2, 3 and 1), the training
+        # pipelines, sleap-train --zmq with its visualizations, MoveNet, and
+        # the host helpers.
+        slice_modules = timed_phase("17", check_slice_modules, td, td_cpu, frames, td_wrappers, launches,
+                                    kept, card)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -5031,6 +5510,7 @@ def main() -> int:
     print(json.dumps({"data_model": data_model, "card": card}), flush=True)
     print(json.dumps({"export": export, "card": card}), flush=True)
     print(json.dumps({"host_modules": host_modules, "card": card}), flush=True)
+    print(json.dumps({"pipelines": slice_modules, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -20,9 +20,10 @@ folder (``outputs.runs_folder``/``run_name``) ends up holding
 - ``--n-devices`` and ``--spatial-sharding`` above 1 raise: data-parallel
   and spatially sharded training are not ported (ROADMAP.md, queue 1,
   item 12);
-- ``--tensorboard`` and ``--zmq`` set the config as in JAX; the trainer
-  writes TensorBoard logs, and raises ``NotImplementedError`` for ZMQ (not
-  ported);
+- ``--tensorboard`` and ``--zmq`` set the config as in JAX, and the
+  trainer acts on both: it writes TensorBoard logs, and with ``--zmq`` it
+  publishes its progress on ``--publish_port`` and takes ``stop`` and
+  ``set_lr`` commands on ``--controller_port`` (pyzmq);
 - ``--save_viz`` is parsed and not applied, as in the JAX package's CLI.
 """
 

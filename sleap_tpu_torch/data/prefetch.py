@@ -1,7 +1,8 @@
 """Threaded host-side prefetching (a copy of :mod:`sleap_tpu.data.prefetch`).
 
 A producer thread reads and batches the next frames while the device runs
-the current batch: a bounded queue of depth 2 is double buffering.
+the current batch: a bounded queue of ``buffer_size`` items, by default 2,
+which is double buffering.
 """
 
 from __future__ import annotations
@@ -10,8 +11,6 @@ import queue
 import threading
 from typing import Any, Iterator
 
-BUFFER_SIZE = 2
-
 
 class ThreadedPrefetcher:
     """Wrap an iterator with a background producer thread; an exception in
@@ -19,8 +18,8 @@ class ThreadedPrefetcher:
 
     _SENTINEL = object()
 
-    def __init__(self, iterator: Iterator[Any]):
-        self._queue: "queue.Queue" = queue.Queue(maxsize=BUFFER_SIZE)
+    def __init__(self, iterator: Iterator[Any], buffer_size: int = 2):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=buffer_size)
         self._error = None
         self._iterator = iterator
         self._thread = threading.Thread(target=self._produce, daemon=True)
@@ -47,6 +46,6 @@ class ThreadedPrefetcher:
         return item
 
 
-def prefetch(iterator: Iterator[Any]) -> Iterator[Any]:
+def prefetch(iterator: Iterator[Any], buffer_size: int = 2) -> Iterator[Any]:
     """``for batch in prefetch(batches): ...``"""
-    return ThreadedPrefetcher(iterator)
+    return ThreadedPrefetcher(iterator, buffer_size=buffer_size)

@@ -852,18 +852,29 @@ def load_model(
     ("flow", "simple", ...), with a window of ``tracker_window`` frames and
     at most ``tracker_max_instances`` tracks; its flow runs on ``device``.
     Multiclass predictors keep the identities of their class heads and run
-    no tracker, as in the JAX package.
+    no tracker, as in the JAX package. ``"movenet-lightning"`` and
+    ``"movenet-thunder"``, with a local SavedModel as
+    ``"movenet-<name>:<path>"``, give a
+    :class:`~sleap_tpu_torch.inference.movenet.MoveNetPredictor`, as in JAX.
     """
-    predictor = Predictor.from_model_paths(
-        model_path,
-        device=device,
-        peak_threshold=peak_threshold,
-        integral_refinement=(refinement == "integral"),
-        batch_size=batch_size,
-        max_instances=max_instances,
-        params=params,
-        compute_dtype=compute_dtype,
-    )
+    if isinstance(model_path, str) and model_path.startswith("movenet-"):
+        from sleap_tpu_torch.inference.movenet import MoveNetPredictor
+
+        name, _, local = model_path[len("movenet-"):].partition(":")
+        predictor = MoveNetPredictor.from_trained_models(
+            model_name=name, model_path=local or None, peak_threshold=peak_threshold,
+            device=device)
+    else:
+        predictor = Predictor.from_model_paths(
+            model_path,
+            device=device,
+            peak_threshold=peak_threshold,
+            integral_refinement=(refinement == "integral"),
+            batch_size=batch_size,
+            max_instances=max_instances,
+            params=params,
+            compute_dtype=compute_dtype,
+        )
     if tracker is not None:
         from sleap_tpu_torch.tracking.tracker import Tracker
 

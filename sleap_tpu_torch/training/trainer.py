@@ -40,8 +40,14 @@ module's float32 CPU ``state_dict`` (``best_model.pt``, ``latest_model.pt``,
 ``best_model.pt``. After training, as in JAX, the split labels are saved as
 ``labels_gt.{train,val}.slp`` and the folder's model is scored on both
 splits on the trainer's device (:func:`~sleap_tpu_torch.evals.evaluate_model`:
-``labels_pr.{split}.slp``, ``metrics.{split}.npz``). Not ported (ROADMAP.md,
-queue 1): visualizations, TensorBoard and ZMQ, and data-parallel training.
+``labels_pr.{split}.slp``, ``metrics.{split}.npz``). As in JAX, the trainer
+writes TensorBoard logs and profiles the first epoch when the config asks;
+with ``outputs.save_visualizations`` it draws a confidence-map PNG each
+epoch into ``<run>/viz`` (matplotlib, imported there; removed at the end
+unless ``keep_viz_images``); and with ``outputs.zmq`` it publishes its
+events and takes ``stop`` and ``set_lr`` commands
+(:mod:`~sleap_tpu_torch.training.callbacks`, pyzmq). Not ported (ROADMAP.md,
+queue 1, item 12): data-parallel training.
 """
 
 from __future__ import annotations
@@ -332,6 +338,13 @@ class EarlyStopping:
 # --------------------------------------------------------------------------- #
 
 
+def _host_losses(losses: list) -> List[float]:
+    """An epoch's losses as floats: device tensors fetched in one copy."""
+    if losses and isinstance(losses[0], torch.Tensor):
+        return torch.stack(losses).double().cpu().tolist()
+    return [float(x) for x in losses]
+
+
 def _one_hot(inds: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.nn.one_hot``: float32, all 0 for an index out of range (-1)."""
     return (inds[..., None] == torch.arange(n, device=inds.device)).float()
@@ -355,6 +368,8 @@ class Trainer:
         self._max_instances = 1
         self._input_channels = 1
         self._gt_fn: Optional[Callable] = None
+        self._zmq_reporter = None
+        self._zmq_controller = None
         self.log_rows: List[Dict[str, float]] = []
 
     @classmethod
@@ -438,16 +453,10 @@ class Trainer:
             pp.target_height, pp.target_width = target_hw
         return target_hw
 
-    def _check_outputs_config(self) -> None:
-        out = self.config.outputs
-        if out.zmq.publish_updates or out.zmq.subscribe_to_controller:
-            raise NotImplementedError("ZMQ progress and control are not ported (ROADMAP.md, "
-                                      "queue 1).")
-
     def setup(self) -> None:
         """Decode the examples, build and initialize the module on the
-        device, and write the run folder's configs."""
-        self._check_outputs_config()
+        device, write the run folder's configs, and open the ZMQ sockets
+        the config asks for."""
         self._max_instances = max(
             (len(lf.training_instances) for lf in self.data_readers.training_labels.labeled_frames),
             default=1,
@@ -475,6 +484,7 @@ class Trainer:
             module.to(memory_format=torch.channels_last)
         self.module = module
         self._setup_run_folder()
+        self._setup_zmq()
 
     def _setup_run_folder(self) -> None:
         out = self.config.outputs
@@ -605,6 +615,54 @@ class Trainer:
             logger.warning("TensorBoard logging requested but unavailable.")
             return None
 
+    def _setup_zmq(self) -> None:
+        zmq_cfg = self.config.outputs.zmq
+        if zmq_cfg.publish_updates:
+            from sleap_tpu_torch.training.callbacks import ProgressReporterZMQ
+
+            self._zmq_reporter = ProgressReporterZMQ(zmq_cfg.publish_address)
+        if zmq_cfg.subscribe_to_controller:
+            from sleap_tpu_torch.training.callbacks import TrainingControllerZMQ
+
+            self._zmq_controller = TrainingControllerZMQ(
+                zmq_cfg.controller_address, zmq_cfg.controller_polling_timeout)
+
+    def _save_visualization(self, epoch: int, batch: Batch, gt_fn: Callable) -> None:
+        """``<run>/viz/epoch_{epoch:03d}.png``: the first image of ``batch``
+        beside the maximum over the predicted confidence-map channels, the
+        module in eval mode. The ground truth function draws from its own
+        generator seeded 0 (JAX's ``PRNGKey(0)``), so the training stream
+        does not move. A failure, such as matplotlib missing, is logged at
+        debug level and training goes on, as in JAX."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            generator = torch.Generator(device=self.device).manual_seed(0)
+            self.module.eval()
+            with torch.no_grad():
+                imgs, _ = gt_fn(self.to_device(batch), generator)
+                with self._autocast():
+                    preds = self.module(imgs)
+            key = next(k for k in preds if "Confmaps" in k and "_stack" not in k)
+            img = imgs[0].float().cpu().numpy()
+            cms = preds[key][0].float().cpu().numpy()
+            fig, axes = plt.subplots(1, 2, figsize=(8, 4))
+            axes[0].imshow(img.squeeze(), cmap="gray")
+            axes[0].set_title("input")
+            axes[1].imshow(cms.max(axis=-1))
+            axes[1].set_title(f"predicted {key}")
+            for ax in axes:
+                ax.set_axis_off()
+            viz_dir = os.path.join(self.run_path, "viz")
+            os.makedirs(viz_dir, exist_ok=True)
+            fig.savefig(os.path.join(viz_dir, f"epoch_{epoch:03d}.png"), dpi=72)
+            plt.close(fig)
+        except Exception as e:  # a visualization never stops training
+            logger.debug("Visualization failed: %s", e)
+
     def _start_profile(self):
         """With ``profile_graph``, a ``torch.profiler`` trace of the first
         epoch (host and, on the card, device timelines) into
@@ -657,15 +715,35 @@ class Trainer:
         if ckpt_cfg.initial_model:
             self._save_checkpoint("initial_model.pt")
         tb_writer = self._setup_tensorboard()
+        save_viz = (self.config.outputs.save_visualizations and self.config.outputs.save_outputs
+                    and self.run_path)
+        viz_gt_fn = self.build_gt_fn() if save_viz else None
+        stop_requested = False
         profiler = self._start_profile()
         for epoch in range(opt_cfg.epochs):
+            if self._zmq_reporter:
+                self._zmq_reporter.epoch_begin(epoch)
             t0 = time.time()
-            train_losses = [
-                self.train_step(self.to_device(batch, image), generator)
-                for batch, _, image in stage_to_device(
+            train_losses = []
+            for b, (batch, _, image) in enumerate(stage_to_device(
                     self._epoch_batches(self._train_examples, batches_per_epoch, batch_size, rng),
-                    self.device)
-            ]
+                    self.device)):
+                loss = self.train_step(self.to_device(batch, image), generator)
+                # The loss stays on the device until the epoch ends, unless
+                # ZMQ progress reports it a batch at a time.
+                if self._zmq_reporter:
+                    train_losses.append(float(loss))
+                    self._zmq_reporter.batch_end(epoch, b, train_losses[-1])
+                else:
+                    train_losses.append(loss)
+                if self._zmq_controller:
+                    if self._zmq_controller.poll() == "stop":
+                        stop_requested = True
+                        break
+                    new_lr = self._zmq_controller.take_requested_lr()
+                    if new_lr is not None:
+                        lr_sched.lr = new_lr
+                        set_learning_rate(self.optimizer, new_lr)
             # No usable validation examples: val_loss falls back to the train loss.
             val_losses = [
                 self.val_step(self.to_device(batch, image), generator)
@@ -675,8 +753,7 @@ class Trainer:
                                         batch_size, rng),
                     self.device)
             ]
-            train_losses = torch.stack(train_losses).double().cpu().tolist() if train_losses else []
-            val_losses = torch.stack(val_losses).double().cpu().tolist() if val_losses else []
+            train_losses, val_losses = _host_losses(train_losses), _host_losses(val_losses)
             train_loss = float(np.mean(train_losses)) if train_losses else np.nan
             val_loss = float(np.mean(val_losses)) if val_losses else train_loss
             lr = lr_sched.update(val_loss)
@@ -686,6 +763,9 @@ class Trainer:
                 tb_writer.add_scalar("loss", train_loss, epoch)
                 tb_writer.add_scalar("val_loss", val_loss, epoch)
                 tb_writer.add_scalar("lr", lr, epoch)
+            if save_viz and len(self._val_examples):
+                self._save_visualization(
+                    epoch, self.make_batch([self._val_examples[0]] * batch_size, rng), viz_gt_fn)
             logger.info("Epoch %d/%d - loss: %.6f - val_loss: %.6f (%.1fs)", epoch + 1,
                         opt_cfg.epochs, train_loss, val_loss, time.time() - t0)
             if profiler is not None:
@@ -693,6 +773,8 @@ class Trainer:
                 logger.info("Saved first-epoch profiler trace to %s",
                             os.path.join(self.run_path, "profile"))
                 profiler = None
+            if self._zmq_reporter:
+                self._zmq_reporter.epoch_end(epoch, train_loss, val_loss)
             if val_loss < best_val and ckpt_cfg.best_model:
                 best_val = val_loss
                 best_state = self._state_dict()
@@ -701,7 +783,7 @@ class Trainer:
                 self._save_checkpoint(f"model.epoch{epoch:04d}.pt")
             if ckpt_cfg.latest_model:
                 self._save_checkpoint("latest_model.pt")
-            if stopper.should_stop(val_loss):
+            if stop_requested or stopper.should_stop(val_loss):
                 logger.info("Early stopping at epoch %d.", epoch + 1)
                 break
         if profiler is not None:  # no epoch ran
@@ -724,8 +806,14 @@ class Trainer:
             self.evaluate()
         if tb_writer is not None:
             tb_writer.close()
+        if save_viz and not self.config.outputs.keep_viz_images:
+            shutil.rmtree(os.path.join(self.run_path, "viz"), ignore_errors=True)
         if self.run_path and self.config.outputs.zip_outputs:
             self.package()
+        if self._zmq_reporter:
+            self._zmq_reporter.close()
+        if self._zmq_controller:
+            self._zmq_controller.close()
 
     def _save_gt_labels(self) -> None:
         """The training and validation splits as ``labels_gt.{train,val}.slp``

@@ -71,16 +71,8 @@ EXCLUDED = {
 }
 
 UNPORTED_MODULES = {
-    "io/videowriter.py": "ROADMAP.md queue 1, item 13e (open): needs a video encoder on the card",
-    "io/visuals.py": "ROADMAP.md queue 1, item 13e (open): needs a video encoder on the card",
-    "nn_viz.py": "ROADMAP.md queue 1, item 13e (open): needs matplotlib",
-    "inference/movenet.py": "ROADMAP.md queue 1, item 10 (open): MoveNet",
-    "data/inference.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",
-    "data/pipelines.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",
-    "data/dataset_ops.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",
-    "data/utils.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",
-    "ops/utils.py": "ROADMAP.md queue 1, items 7 and 8 (open): pipeline blocks",
-    "training/callbacks.py": "ROADMAP.md queue 1, item 9 (open): training callbacks",
+    "io/videowriter.py": "ROADMAP.md queue 1, item 13e (open, sleap-render): needs a video encoder on the card",
+    "io/visuals.py": "ROADMAP.md queue 1, item 13e (open, sleap-render): cv2-exact lines and circles",
     "parallel/__init__.py": "ROADMAP.md queue 1, item 12 (open): parallel",
     "parallel/mesh.py": "ROADMAP.md queue 1, item 12 (open): parallel",
     "parallel/distributed.py": "ROADMAP.md queue 1, item 12 (open): parallel",
@@ -88,12 +80,10 @@ UNPORTED_MODULES = {
     "ops/pallas_crops.py": "the Pallas kernel; its Hopper form is csrc/crops.cu behind ops/cuda_crops.py",
 }
 
-# This slice's modules: nothing of theirs may be excluded but JAX's
-# platform and preallocation switches.
-SLICE = ("io/formats/ndx_pose.py", "io/formats/nix.py", "info/feature_suggestions.py", "util.py", "system.py",
-         "prefs.py", "message.py", "diagnostic.py")
-SLICE_SWITCHES = {"system.py": {"disable_preallocation", "enable_gpu_memory_growth", "use_cpu_only"},
-                  "diagnostic.py": {"use_cpu_only"}}
+# This slice's modules: nothing of theirs may be excluded.
+SLICE = ("inference/movenet.py", "data/inference.py", "data/pipelines.py", "data/dataset_ops.py", "data/utils.py",
+         "ops/utils.py", "training/callbacks.py", "nn_viz.py")
+SLICE_SWITCHES: dict = {}
 
 
 def _public(name: str) -> bool:

@@ -4,8 +4,9 @@ package's, on the CPU.
 
 - ``create_trainer_using_cli`` builds the same config (equal as JSON) as the
   JAX CLI for the same flags, profiles and run folders;
-- the multi-card flags raise, naming the ROADMAP item, ``--tensorboard``
-  reaches the trainer and ``--zmq`` the trainer's refusal;
+- the multi-card flags raise, naming the ROADMAP item; ``--tensorboard``
+  and ``--zmq`` reach the trainer, which opens the ZMQ sockets on the
+  flags' ports;
 - ``main([... --cpu])`` trains a shipped profile at a tiny width for one
   epoch on ``tests/torch_data/pkg.slp`` and writes the whole run folder; the
   JAX package's ``evaluate`` of the folder's ``labels_gt``/``labels_pr``
@@ -22,6 +23,7 @@ package's, on the CPU.
 from __future__ import annotations
 
 import json
+import socket
 from pathlib import Path
 
 import numpy as np
@@ -79,13 +81,34 @@ def test_multi_card_flags_raise(flags):
 
 def test_tensorboard_flag_reaches_the_trainers_refusal(tmp_path):
     """``--tensorboard`` reaches the trainer, which now writes the logs
-    (``tests/test_torch_trainer_tensorboard.py``); ``--zmq`` still reaches
-    its refusal (ROADMAP.md queue 1, item 9)."""
+    (``tests/test_torch_trainer_tensorboard.py``); ``--zmq`` reaches it too,
+    which no longer refuses it: ``setup`` binds the progress socket on
+    ``--publish_port`` and connects the controller on ``--controller_port``
+    (training with them: ``tests/test_torch_callbacks.py``)."""
+    zmq = pytest.importorskip("zmq")
     profile = str(PROFILES / "baseline.centroid.json")
     trainer = ttrain.create_trainer_using_cli([profile, PKG, "--cpu", "--tensorboard"])
     assert trainer.config.outputs.tensorboard.write_logs
-    with pytest.raises(NotImplementedError, match="ZMQ"):
-        ttrain.main([profile, PKG, "--cpu", "--zmq"])
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    trainer = ttrain.create_trainer_using_cli([
+        profile, PKG, "--cpu", "--zmq", "--controller_port", str(ports[0]), "--publish_port", str(ports[1])])
+    zmq_cfg = trainer.config.outputs.zmq
+    assert zmq_cfg.publish_updates and zmq_cfg.subscribe_to_controller
+    assert zmq_cfg.publish_address == f"tcp://127.0.0.1:{ports[1]}"
+    trainer.config.outputs.save_outputs = False
+    trainer.setup()
+    try:
+        assert trainer._zmq_controller.socket.getsockopt_string(zmq.LAST_ENDPOINT) == \
+            f"tcp://127.0.0.1:{ports[0]}"
+        assert trainer._zmq_reporter.socket.getsockopt_string(zmq.LAST_ENDPOINT) == \
+            f"tcp://127.0.0.1:{ports[1]}"
+    finally:
+        trainer._zmq_reporter.close()
+        trainer._zmq_controller.close()
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in JAX_PROFILES.glob("*.json")))

@@ -1,7 +1,8 @@
 """The port runs without the JAX side: in a fresh interpreter whose imports of
 ``sleap_tpu``, ``jax``, ``flax``, ``orbax``, ``networkx``, ``attr``, ``h5py``,
 ``cv2``, ``yaml``, ``imgstore``, ``zstandard``, ``tensorstore``, ``pandas``,
-``sklearn``, ``zmq``, ``pynwb``, ``ndx_pose`` and ``nixio`` fail, every module of
+``sklearn``, ``zmq``, ``pynwb``, ``ndx_pose``, ``nixio``, ``matplotlib`` and
+``tensorflow`` fail, every module of
 ``sleap_tpu_torch`` imports, a run folder written by the port's own config
 code loads through ``load_model``, trained ``.convergence_runs`` folders load
 from their orbax checkpoints with no ``params``, and ``predict`` returns the
@@ -18,9 +19,12 @@ package written and read back, an ImgStore written and read back, and the
 committed JPEG stills decoded to cv2's recorded frames; and the data
 model's calls (``numpy``, ``remove_predictions``, a track swap, ``merge``,
 ``describe``), ``sleap-convert`` to an analysis ``.h5`` and ``.csv``, and a
-DeepLabCut project import; and the functions that need an optional package
-(NWB, NIX, image-feature suggestions, paired messages, saving preferences)
-raise ``ImportError`` naming it, while ``sleap-diagnostic``'s summary, the
+DeepLabCut project import; and a ``dataset_ops`` chain (shuffle, batch,
+prefetch, unbatch) over a labels reader, the pipeline blocks' top-down
+chain, and a ``MoveNetPredictor`` with an injected model; and the
+functions that need an optional package (NWB, NIX, image-feature
+suggestions, paired messages, saving preferences, ZMQ training progress,
+drawing, a MoveNet SavedModel) raise ``ImportError`` naming it, while ``sleap-diagnostic``'s summary, the
 HDF5 helpers of ``util`` and reading preferences work; and, in an
 interpreter of its own, ``sleap-export``
 of a trained folder on the CPU, loaded back and run. Also: the entry
@@ -41,6 +45,7 @@ from sleap_tpu_torch.config import TrainingJobConfig
 from sleap_tpu_torch.inference import bottomup as tb
 from sleap_tpu_torch.inference import multiclass as tm
 from sleap_tpu_torch.inference import predictors as tp
+from sleap_tpu_torch.inference.movenet import MoveNetPredictor
 from sleap_tpu_torch.models.model import Model
 from sleap_tpu_torch.models.params import flax_from_state_dict
 from sleap_tpu_torch.tracking import tracker
@@ -48,7 +53,7 @@ from sleap_tpu_torch.tracking import tracker
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("sleap_tpu", "jax", "jaxlib", "flax", "orbax", "networkx", "attr", "attrs", "h5py", "cv2",
            "yaml", "imgstore", "zstandard", "tensorstore", "pandas", "sklearn", "zmq", "pynwb", "ndx_pose",
-           "nixio")
+           "nixio", "matplotlib", "tensorflow")
 
 _SCRIPT = r"""
 import importlib, json, os, pkgutil, sys
@@ -381,8 +386,37 @@ result["data_model"] = {
     "dlc": [len(dlc), dlc.skeleton.node_names, dlc.labeled_frames[1].instances[0].numpy().tolist(),
             int(dlc.video.get_frame(2)[0, 0, 0])],
 }
+# The pipeline blocks, the example-stream blocks and MoveNet.
+from sleap_tpu_torch.data import dataset_ops as dso
+from sleap_tpu_torch.data import inference as dinf
+from sleap_tpu_torch.data.providers import LabelsReader
+from sleap_tpu_torch.inference.movenet import MoveNetPredictor
+from sleap_tpu_torch.ops.utils import match_points
+
+chain = dso.Unbatcher().transform_dataset(dso.Prefetcher(buffer_size=2).transform_dataset(
+    dso.Batcher(batch_size=2).transform_dataset(dso.Shuffler(seed=0, buffer_size=2).transform_dataset(
+        LabelsReader(labels=dm)))))
+blocks_td = sleap_tpu_torch.load_model([centroid, instance], device="cpu", params={centroid: c_params, instance: i_params})
+stream = [{"image": frames}]
+for block in (dinf.ModelPredictor(model=blocks_td.centroid_model, model_input_keys="image",
+                                  model_output_keys="cms", device="cpu"),
+              dinf.LocalPeakFinder(confmaps_key="cms", confmaps_stride=4, device="cpu")):
+    stream = block.transform_dataset(stream)
+(peaks,) = list(stream)
+movenet_labels = MoveNetPredictor.from_trained_models(
+    "lightning", model_path=lambda img: np.full((1, 1, 17, 3), 0.5, np.float32), device="cpu").predict(frames)
+result["slice"] = {
+    "chain_frames": sorted(int(ex["frame_ind"]) for ex in chain),
+    "frames": [lf.frame_idx for lf in dm.labeled_frames],
+    "peaks": [len(peaks["predicted_centroids"]), peaks["cms"].shape[-1]],
+    "movenet": [len(movenet_labels), movenet_labels[0].instances[0].numpy()[0].tolist()],
+    "match": [a.tolist() for a in match_points(np.array([[0.0, 0.0], [9.0, 9.0]]), np.array([[9.0, 8.0]]))],
+}
+
 # The optional packages' gates, and what needs none of them.
-from sleap_tpu_torch import diagnostic, message, prefs, util
+from sleap_tpu_torch import diagnostic, message, nn_viz, prefs, util
+from sleap_tpu_torch.inference.movenet import load_local_movenet
+from sleap_tpu_torch.training.callbacks import ProgressReporterZMQ
 from sleap_tpu_torch.info.feature_suggestions import FeatureSuggestionPipeline
 from sleap_tpu_torch.io.hdf5 import Writer as H5Writer
 
@@ -395,6 +429,9 @@ for name, call in (
     ("suggestions", lambda: FeatureSuggestionPipeline(per_video=3, n_clusters=2).get_suggestion_frames([dm_video])),
     ("zmq", lambda: message.PairedSender("tcp://127.0.0.1:1").setup()),
     ("prefs_save", lambda: prefs.Preferences().save()),
+    ("viz", lambda: nn_viz.generate_skeleton_preview_image(np.zeros((2, 2)))),
+    ("movenet_saved_model", lambda: load_local_movenet(os.path.join(tmp, "movenet"))),
+    ("zmq_progress", lambda: ProgressReporterZMQ("tcp://127.0.0.1:1")),
 ):
     try:
         call()
@@ -439,13 +476,17 @@ def test_every_module_imports_with_the_jax_side_blocked(standalone):
                  "io.dirimgstore", "io.slp", "inference.export", "cli.export", "io.pathutils",
                  "info.align", "info.metrics", "info.suggestions", "info.summary",
                  "info.trackcleaner", "io.formats.ndx_pose", "io.formats.nix",
-                 "info.feature_suggestions", "util", "system", "prefs", "message", "diagnostic"):
+                 "info.feature_suggestions", "util", "system", "prefs", "message", "diagnostic",
+                 "data.inference", "data.pipelines", "data.dataset_ops", "data.utils", "ops.utils",
+                 "inference.movenet", "training.callbacks", "nn_viz"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
 
 
 @pytest.mark.parametrize("gate,package", [("nwb", "pynwb"), ("load_nwb", "pynwb"), ("nix", "nixio"),
                                           ("suggestions", "scikit-learn"), ("zmq", "pyzmq"),
+                                          ("viz", "matplotlib"), ("movenet_saved_model", "tensorflow"),
+                                          ("zmq_progress", "pyzmq"),
                                           ("prefs_save", "PyYAML")])
 def test_optional_packages_are_named_with_the_jax_side_blocked(standalone, gate, package):
     gates = standalone["gates"]
@@ -590,6 +631,14 @@ def test_frames_in_and_out_with_the_jax_side_blocked(standalone):
     assert sorted(res["jpeg"]) == sorted(small) and all(res["jpeg"].values())
 
 
+def test_slice_modules_run_with_the_jax_side_blocked(standalone):
+    res = standalone["slice"]
+    assert res["chain_frames"] == sorted(res["frames"])
+    assert res["peaks"][0] >= 2 and res["peaks"][1] == 1
+    assert res["movenet"] == [3, [48.0, 48.0]]
+    assert res["match"] == [[1], [0]]
+
+
 def test_data_model_convert_and_dlc_with_the_jax_side_blocked(standalone):
     res = standalone["data_model"]
     assert res["numpy_shape"] == [6, 2, 2, 2] and res["numpy_equal"]
@@ -609,7 +658,7 @@ def test_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert tracker.FlowCandidateMaker().device == "cuda"
     for cls in (tp.SingleInstancePredictor, tp.TopDownPredictor, tb.BottomUpPredictor,
-                tm.BottomUpMultiClassPredictor, tm.TopDownMultiClassPredictor):
+                tm.BottomUpMultiClassPredictor, tm.TopDownMultiClassPredictor, MoveNetPredictor):
         device = next(f for f in cls.__dataclass_fields__.values() if f.name == "device")
         assert device.default_factory() == torch.device("cuda"), cls
 
