@@ -4,8 +4,8 @@ inference, flow-shift tracking, training, the ``sleap-track``,
 ``sleap-train``, ``sleap-inspect``, ``sleap-convert``, ``sleap-export`` and
 ``sleap-diagnostic`` CLIs, exported programs, the data model's API, the
 host modules (NWB/NIX, image-feature suggestions, prefs, util, message),
-the pipeline blocks and builders, ZMQ training and MoveNet
-once on one CUDA card,
+the pipeline blocks and builders, ZMQ training and MoveNet, JPEG writing
+and ``sleap-render`` once on one CUDA card,
 through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
 trained run folders from their own checkpoints, the other backbones
@@ -394,17 +394,47 @@ script its total before the ``kernels`` line:
    ``match_points`` on card tensors equal to the CPU's, a Shuffler ->
    Batcher -> Prefetcher -> Unbatcher chain over 8a's ``.slp``, and a
    skeleton preview PNG where matplotlib imports.
+18. JPEG encoding, after phase 17 (aim: 15-40 s). 18a: the committed
+   stills but the progressive one, decoded on the card (phase 13 holds that
+   decode to cv2's), and crops (W x H) of the 1024^2 ones to 1x1, 3x50,
+   17x33 and 1023x1021, encoded on the card (``jpeg.imencode``: J3
+   ``jpeg_ycc_kernel``, J4 ``jpeg_fdct_kernel``, the host entropy coder) to
+   the sha256 that ``scripts/make_torch_jpeg_fixtures.py`` recorded from
+   cv2 (``tests/torch_data/jpeg/encoded.json``); the host coder equals the
+   plain one on the frames of up to ENCODE_PLAIN_BLOCKS blocks; J3 and J4
+   equal ``ycc_plain`` and ``fdct_plain`` exactly at 1024^2 gray and
+   colour; prints the ms of a 1024^2 frame by stage, each kernel's device
+   and per-call time, the plain stages' and the bound. 18b: phase 8a's 32
+   frames saved on the card as a JPEG ``.pkg.slp`` and a JPEG ImgStore
+   (J3 and J4 once a frame each; their launches join the kernels line):
+   the first ENCODE_CPU_ROWS rows and files are the CPU route's bytes,
+   every frame reads back through J1 and J2 as ``imdecode`` of its own row;
+   prints write seconds and MB. 18c: ``python -m sleap_tpu_torch.io.visuals``
+   on 8a's tracked ``.slp`` in two fresh processes started together, whose
+   imports of cv2 and imageio fail (as on a machine with neither): at the
+   defaults and with ``--scale 0.5 --crop 256,256 --background black``;
+   the writer chosen (the Motion-JPEG one) is printed, each AVI holds 32
+   ``00dc`` chunks, each the card's ``imencode`` of the frame
+   ``save_labeled_video`` draws on the CPU route (the first
+   RENDER_CPU_CHUNKS the CPU route's encode too), J3 and J4 once a frame
+   (the launches join the kernels line); prints the render FPS. Then
+   ``render_frame`` on ``tests/torch_data/jpeg_pkg.slp``'s 16 frames
+   (decoded by J1 and J2) at scale 1 and 0.5 gives the JAX package's
+   recorded sha256 (``rendered.json``).
 
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
-one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's and one of phase 17's; the line before the last is a JSON object with each
-kernel's launches (J1 and J2 from phase 13c's run) (all paths' and per path), error and
-times; the last line is ``{"ok": true, "device": {...}}``.
+one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
+one of phase 17's and one of phase 18's; the line before the last is a JSON
+object with each kernel's launches (J1 and J2 from phase 13c's run, J3 and
+J4 from 18b's and 18c's) (all paths' and per path), error and times; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import csv
 import dataclasses
 import importlib
 import json
+import math
 import os
 import re
 import shutil
@@ -3399,16 +3429,17 @@ def check_png_packages(card):
     return figures
 
 
-def jpeg_record():
+def jpeg_record(name="decoded.json"):
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, *JPEG_DIR, "decoded.json")) as fh:
+    with open(os.path.join(here, *JPEG_DIR, name)) as fh:
         return json.load(fh)
 
 
-def sha256(img: np.ndarray) -> str:
+def sha256(data) -> str:
+    """The sha256 of ``bytes``, or of an array's bytes."""
     import hashlib
 
-    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+    return hashlib.sha256(data if isinstance(data, bytes) else np.ascontiguousarray(data).tobytes()).hexdigest()
 
 
 def check_jpeg(card):
@@ -3621,18 +3652,435 @@ def check_imgstore(card):
     return figures
 
 
+# --------------------------------------------------------------------------- #
+# Phase 18: JPEG encoding (J3, J4), JPEG writes, and sleap-render
+# --------------------------------------------------------------------------- #
+
+
+ENCODE_PLAIN_BLOCKS = 5000  # 18a: the host coder vs the plain one on frames up to this many blocks
+ENCODE_CPU_ROWS = 4  # 18b: rows held to the CPU route's bytes (18a's cpu_route_frame_ms a 1024^2 frame)
+RENDER_CPU_CHUNKS = 2  # 18c: AVI chunks of each run held to the CPU route's encode
+RENDER_RUNS = {"defaults": [], "scaled": ["--scale", "0.5", "--crop", "256,256", "--background", "black"]}
+
+
+def once_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def check_jpeg_encode(card):
+    """18a: the committed stills, decoded on the card (phase 13 holds that
+    decode to cv2's), and crops of the 1024^2 ones, encoded on the card to
+    the bytes cv2 writes (``encoded.json``'s sha256); the host entropy coder
+    against the plain one; J3 and J4 exactly equal to their plain stages at
+    1024^2 gray and colour, timed by stage. Returns (figures, {kernel: (max
+    |err|, row numbers at 1024^2 gray)})."""
+    from sleap_tpu_torch.io import jpeg
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    record, dev = jpeg_record("encoded.json")["frames"], torch.device("cuda", 0)
+    decoded = {}
+    for name in record:
+        if "_crop_" not in name:
+            with open(os.path.join(here, *JPEG_DIR, name + ".jpg"), "rb") as fh:
+                decoded[name] = jpeg.imdecode(fh.read(), "cuda")
+    frames, checked_host = {}, 0
+    for name, want in record.items():
+        if "_crop_" in name:
+            base, size = name.split("_crop_")
+            w, h = (int(v) for v in size.split("x"))
+            img = np.ascontiguousarray(decoded[base][1:1 + h, 1:1 + w])
+        else:
+            img = decoded[name]
+        check(list(img.shape) == want["shape"], f"18a: {name} is {img.shape}, want {want['shape']}")
+        data = jpeg.imencode(img, "cuda")
+        check(len(data) == want["bytes"] and sha256(data) == want["sha256"],
+              f"18a: {name} encodes on the card to cv2's bytes")
+        frames[name] = jpeg._as_frame(img)
+        frame = jpeg.frame_layout(img.shape[0], img.shape[1], 1 if frames[name].ndim == 2 else 3)
+        if frame.blocks <= ENCODE_PLAIN_BLOCKS:
+            src = torch.from_numpy(frames[name]).to(dev)
+            coefs = jpeg.fdct_cuda(jpeg.ycc_cuda(src, frame), jpeg.card_divisors(dev), frame).cpu()
+            check(jpeg.encode_scan_host(coefs, frame) == jpeg.encode_scan_plain(coefs.numpy(), frame),
+                  f"18a: the host entropy coder gives the plain coder's bytes on {name}")
+            checked_host += 1
+    figures = {"frames": len(record), "host_coder_frames": checked_host}
+    errs, rows = {"jpeg_ycc": 0.0, "jpeg_fdct": 0.0}, {}
+    for name in ("gray_1024", "c420_1024"):
+        img = frames[name]
+        frame = jpeg.frame_layout(img.shape[0], img.shape[1], 1 if img.ndim == 2 else 3)
+        src = torch.from_numpy(img).to(dev)
+        divs = jpeg.card_divisors(dev)
+        table = jpeg.block_tables(frame).to(dev)
+        samples = jpeg.ycc_cuda(src, frame)
+        coefs = jpeg.fdct_cuda(samples, divs, frame)
+        plain_samples = jpeg.ycc_plain(src, frame)
+        plain_coefs = jpeg.fdct_plain(samples, divs, table)
+        errs["jpeg_ycc"] = max(errs["jpeg_ycc"], max_abs(samples, plain_samples))
+        errs["jpeg_fdct"] = max(errs["jpeg_fdct"], max_abs(coefs, plain_coefs))
+        check(torch.equal(samples, plain_samples) and torch.equal(coefs, plain_coefs),
+              f"18a: J3 and J4 equal the plain stages on {name}")
+        host_coefs = coefs.cpu()
+        split = {
+            "copy_in_ms": time_ms(lambda: torch.from_numpy(img).to(dev), iters=20, warmup=1),
+            "j3_ms": time_ms(lambda: jpeg.ycc_cuda(src, frame), iters=20, warmup=1),
+            "j4_ms": time_ms(lambda: jpeg.fdct_cuda(samples, divs, frame), iters=20, warmup=1),
+            "copy_out_ms": median_ms(lambda: coefs.cpu(), 5),
+            "entropy_ms": median_ms(lambda: jpeg.encode_scan_host(host_coefs, frame), 5),
+            "frame_ms": median_ms(lambda: jpeg.imencode(img, "cuda"), 5),
+            "cpu_route_frame_ms": once_ms(lambda: jpeg.imencode(img, "cpu")),
+        }
+        j3_dev = device_ms(lambda: jpeg.ycc_cuda(src, frame), ["jpeg_ycc_kernel"])
+        j4_dev = device_ms(lambda: jpeg.fdct_cuda(samples, divs, frame), ["jpeg_fdct_kernel"])
+        j3_plain = time_ms(lambda: jpeg.ycc_plain(src, frame), iters=10, warmup=2)
+        j4_plain = time_ms(lambda: jpeg.fdct_plain(samples, divs, table), iters=10, warmup=2)
+        # Bounds: each input read once, each output written once; J3 about
+        # 25 integer operations a pixel, J4 about 900 a block (two 1-D passes
+        # of eight rows and the quantisation), at the float32 rate outside
+        # the tensor cores.
+        j3_bytes, j4_bytes = nbytes(src, samples), nbytes(samples, divs, coefs)
+        j3_ops, j4_ops = 25 * img.size, 900 * frame.blocks
+        rows[name] = {
+            "jpeg_ycc": {"ms": split["j3_ms"], "plain_ms": j3_plain, "device_ms": j3_dev,
+                         "bytes_ms": j3_bytes / HBM_BYTES_PER_S * 1e3,
+                         "ops_ms": j3_ops / F32_OPS_PER_S * 1e3},
+            "jpeg_fdct": {"ms": split["j4_ms"], "plain_ms": j4_plain, "device_ms": j4_dev,
+                          "bytes_ms": j4_bytes / HBM_BYTES_PER_S * 1e3,
+                          "ops_ms": j4_ops / F32_OPS_PER_S * 1e3},
+        }
+        figures[name] = {**split, "bytes": len(jpeg.imencode(img, "cuda")), "blocks": frame.blocks,
+                         "j3_device_ms": j3_dev, "j4_device_ms": j4_dev,
+                         "j3_plain_ms": j3_plain, "j4_plain_ms": j4_plain}
+        log(f"18a JPEG encode {name} ({frame.blocks} blocks), ms a frame: copy in "
+            f"{split['copy_in_ms']:.4f}, J3 {split['j3_ms']:.4f} (device {j3_dev:.4f}, plain "
+            f"{j3_plain:.3f}), J4 {split['j4_ms']:.4f} (device {j4_dev:.4f}, plain {j4_plain:.3f}), "
+            f"copy out {split['copy_out_ms']:.3f}, entropy (host C) {split['entropy_ms']:.3f}; whole "
+            f"card route {split['frame_ms']:.3f}, CPU route {split['cpu_route_frame_ms']:.1f}; bounds "
+            f"J3 {rows[name]['jpeg_ycc']['bytes_ms']:.4f}, J4 {rows[name]['jpeg_fdct']['bytes_ms']:.4f} "
+            f"ms ({card})")
+    log(f"18a {len(record)} frames (stills and crops) encoded on the card to cv2's bytes; the host "
+        f"coder equals the plain one on {checked_host} of them ({card})")
+    for kernel in errs:
+        rows["gray_1024"][kernel]["colour"] = rows["c420_1024"][kernel]
+    return figures, {k: (errs[k], rows["gray_1024"][k]) for k in errs}
+
+
+def check_jpeg_writes(card, launches, kept):
+    """18b: phase 8a's frames written on the card as a JPEG ``.pkg.slp`` and
+    a JPEG ImgStore, read back through J1 and J2: the first rows and files
+    are the CPU route's bytes, every frame reads back as ``imdecode`` of its
+    own row. The package stays in ``kept`` for 18c (``jpeg_pkg``, and its
+    rows' sizes ``jpeg_rows``). Returns the figures it prints."""
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.core.skeleton import Skeleton
+    from sleap_tpu_torch.io import hdf5, jpeg
+    from sleap_tpu_torch.io.slp import read_labels
+    from sleap_tpu_torch.io.video import Video
+
+    frames, xy = cli_frames()
+    skeleton = Skeleton("blob")
+    skeleton.add_node("A")
+    skeleton.add_node("B")
+    video = Video.from_numpy(frames)
+    labels = Labels([LabeledFrame(video, i, [Instance(skeleton, np.array([[x - 6, y], [x + 6, y]]))
+                                             for x, y in points]) for i, points in enumerate(xy)])
+    n = len(frames)
+    cpu_rows = [jpeg.imencode(f, "cpu") for f in frames[:ENCODE_CPU_ROWS]]
+    encoders = {"jpeg_ycc": jpeg.ycc_cuda, "jpeg_fdct": jpeg.fdct_cuda}
+    figures = {"frames": n}
+    with tempfile.TemporaryDirectory() as root:
+        pkg, store = os.path.join(kept["dir"], "jpeg.pkg.slp"), os.path.join(root, "store")
+        for w in encoders.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        labels.save(pkg, with_images=True, image_format="jpg")
+        figures["pkg_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stored = video.to_imgstore(store, format="jpg")
+        figures["imgstore_write_s"] = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in encoders.items()}
+        for kernel, count in counts.items():
+            check(count == 2 * n, f"18b: {kernel} launched {count} times for {2 * n} frames written")
+            launches[kernel]["JPEG package and ImgStore writes (18b)"] = count
+        with hdf5.File(pkg) as f:
+            rows = [f["video0/video"][i].tobytes().rstrip(b"\0") for i in range(n)]  # JPEGs end in EOI
+        files = []
+        for i in range(n):
+            with open(os.path.join(store, "000000", "%06d.jpg" % i), "rb") as fh:
+                files.append(fh.read())
+        figures["pkg_mb"] = os.path.getsize(pkg) / 1e6
+        figures["imgstore_mb"] = sum(len(b) for b in files) / 1e6
+        check(rows[:ENCODE_CPU_ROWS] == cpu_rows and files[:ENCODE_CPU_ROWS] == cpu_rows,
+              "18b: the first rows and files are the CPU route's bytes")
+        check(rows == files, "18b: the package's rows and the store's files are the same JPEGs")
+        kept["jpeg_pkg"], kept["jpeg_rows"] = pkg, [len(r) for r in rows]
+        got = read_labels(pkg).video
+        check(torch.device(got.backend.device).type == "cuda", "18b: the package decodes on the card")
+        t0 = time.perf_counter()
+        back = [got.get_frame(i) for i in range(n)]
+        figures["pkg_read_ms"] = 1e3 * (time.perf_counter() - t0) / n
+        back_store = [stored.get_frame(i) for i in range(n)]
+        for i in range(n):
+            want = jpeg.imdecode(rows[i], "cuda")
+            check(np.array_equal(back[i][..., 0], want) and np.array_equal(back_store[i][..., 0], want),
+                  f"18b: frame {i} reads back as imdecode of its row")
+        check(np.array_equal(jpeg.imdecode(rows[0], "cpu"), back[0][..., 0]),
+              "18b: the card's read equals the CPU route's decode")
+        worst = max(int(np.abs(b.astype(int) - f.astype(int)).max()) for b, f in zip(back, frames))
+        figures["max_abs_vs_raw"] = worst
+    log(f"18b {n} frames of {IMG}^2 gray written on the card as JPEG: .pkg.slp "
+        f"{figures['pkg_write_s']:.3f} s ({figures['pkg_mb']:.2f} MB), ImgStore "
+        f"{figures['imgstore_write_s']:.3f} s ({figures['imgstore_mb']:.2f} MB); read back on the card "
+        f"{figures['pkg_read_ms']:.2f} ms a frame; first {ENCODE_CPU_ROWS} rows the CPU route's bytes; "
+        f"largest difference from the raw frames {worst} levels (quality 95) ({card})")
+    return figures
+
+
+_RENDER_MAIN = """
+import json, logging, sys, time, torch
+for name in ("cv2", "imageio"):  # as on a machine with neither: the Motion-JPEG writer
+    sys.modules[name] = None
+logging.basicConfig(level=logging.INFO, stream=sys.stderr, format="%(name)s: %(message)s")
+from sleap_tpu_torch.io import jpeg, video, videowriter, visuals
+wrappers = {"jpeg_ycc": jpeg.ycc_cuda, "jpeg_fdct": jpeg.fdct_cuda,
+            "jpeg_idct": jpeg.idct_cuda, "jpeg_color": jpeg.color_cuda}
+busy = {"decode": 0.0, "draw": 0.0, "encode": 0.0}  # each stage's own thread, so they overlap
+first = {}  # each stage's first call, set-up included (in busy too)
+
+def timed(stage, fn):
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            busy[stage] += time.perf_counter() - t0
+            first.setdefault(stage, time.perf_counter() - t0)
+    return call
+
+video.Video.get_frame = timed("decode", video.Video.get_frame)
+visuals.render_frame = timed("draw", visuals.render_frame)
+videowriter.VideoWriterMJPEG.add_frame = timed("encode", videowriter.VideoWriterMJPEG.add_frame)
+for w in wrappers.values():
+    w.launches = 0
+t0 = time.perf_counter()
+visuals.main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"render_s": time.perf_counter() - t0, "busy_s": busy, "first_call_s": first,
+                  "launches": {k: w.launches for k, w in wrappers.items()}}))
+"""
+
+
+class FrameCapture:
+    """A writer that keeps the frames ``save_labeled_video`` hands it."""
+
+    def __init__(self, sink):
+        self.sink = sink
+
+    def add_frame(self, img, bgr=False):
+        self.sink.append(np.array(img))
+
+    def close(self):
+        pass
+
+
+def drawn_frames(labels, flags):
+    """The frames ``save_labeled_video`` draws for ``sleap-render`` with
+    ``flags`` on the CPU route, from a writer patched in for the call."""
+    from sleap_tpu_torch.io import visuals
+
+    opts = dict(zip(flags[0::2], flags[1::2]))
+    crop = tuple(int(v) for v in opts["--crop"].split(",")) if "--crop" in opts else None
+    sink = []
+    builder = visuals.VideoWriter.__dict__["safe_builder"]
+    visuals.VideoWriter.safe_builder = staticmethod(lambda *a, **k: FrameCapture(sink))
+    try:
+        visuals.save_labeled_video("unused.avi", labels, video=labels.videos[0],
+                                   scale=float(opts.get("--scale", 1.0)), crop_size_xy=crop,
+                                   background=opts.get("--background", "original"), device="cpu")
+    finally:
+        visuals.VideoWriter.safe_builder = builder
+    return sink
+
+
+def writer_probe() -> dict:
+    """Which of the JAX package's video backends this machine has."""
+    import importlib.util
+
+    return {name: importlib.util.find_spec(name) is not None
+            for name in ("imageio", "imageio_ffmpeg", "av", "cv2")}
+
+
+def check_render(kept, card, launches):
+    """18c: ``python -m sleap_tpu_torch.io.visuals`` on phase 8a's tracked
+    ``.slp`` in fresh processes, one at a time, whose imports of cv2 and
+    imageio fail (as on a machine with neither, where ``safe_builder``
+    takes the Motion-JPEG writer; a machine with cv2 writes with OpenCV),
+    at the defaults and scaled, cropped and on black: the writer chosen, 32
+    chunks each, every chunk the card's ``imencode`` of the frame
+    ``render_frame`` draws on the CPU route (the first ones the CPU route's
+    encode too), the render's FPS and each stage's busy seconds; and
+    ``render_frame`` on ``jpeg_pkg.slp``'s frames decoded on the card to
+    the JAX package's recorded hashes. Returns the figures it prints."""
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.io import avi, jpeg, visuals
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    labels = Labels.load_file(kept["slp"], device="cpu")
+    figures = {"backends_installed": writer_probe()}
+    log(f"18c the JAX package's video backends installed here: {figures['backends_installed']}; the "
+        "render processes block cv2 and imageio")
+    with tempfile.TemporaryDirectory() as root:
+        for name, flags in RENDER_RUNS.items():
+            out = os.path.join(root, name + ".avi")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _RENDER_MAIN, kept["slp"], "-o", out, *flags], cwd=here,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            try:
+                stdout, stderr = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            process_s = time.perf_counter() - t0
+            check(proc.returncode == 0, f"18c: sleap-render ({name}) exit {proc.returncode}: "
+                  f"{stderr[-2000:]}")
+            chosen = re.search(r"sleap-render writes \S+ with (\w+)", stderr)
+            backend = chosen.group(1) if chosen else None
+            log(f"18c sleap-render ({name}) chose {backend} ({card})")
+            check(backend == "VideoWriterMJPEG", f"18c: sleap-render ({name}) wrote with {backend}, "
+                  "want the Motion-JPEG writer (cv2 and imageio are blocked)")
+            result = json.loads(stdout.strip().splitlines()[-1])
+            chunks = avi.read_frames(out)
+            check(len(chunks) == CLI_FRAMES, f"18c: {name}: {len(chunks)} chunks, want {CLI_FRAMES}")
+            drawn = drawn_frames(labels, RENDER_RUNS[name])
+            check(len(drawn) == CLI_FRAMES and all(
+                chunk == jpeg.imencode(img, "cuda") for chunk, img in zip(chunks, drawn)),
+                f"18c: {name}: every chunk is imencode of the frame render_frame draws")
+            check(all(chunk == jpeg.imencode(img, "cpu")
+                      for chunk, img in zip(chunks[:RENDER_CPU_CHUNKS], drawn)),
+                  f"18c: {name}: the first chunks are the CPU route's encode")
+            counts = result["launches"]
+            for kernel in ("jpeg_ycc", "jpeg_fdct"):
+                check(counts[kernel] == CLI_FRAMES,
+                      f"18c: {name}: {kernel} launched {counts[kernel]} times for {CLI_FRAMES} frames")
+                launches[kernel][f"sleap-render {name} (18c)"] = counts[kernel]
+            figures[name] = {"flags": RENDER_RUNS[name], "backend": backend, "render_s": result["render_s"],
+                             "fps": CLI_FRAMES / result["render_s"], "process_s": process_s,
+                             "busy_s": result["busy_s"], "first_call_s": result["first_call_s"],
+                             "mb": os.path.getsize(out) / 1e6,
+                             "shape": list(drawn[0].shape), "launches": counts}
+            busy = ", ".join(f"{k} {v:.3f} (first call {result['first_call_s'].get(k, 0.0):.3f})"
+                             for k, v in result["busy_s"].items())
+            log(f"18c sleap-render ({name}: {' '.join(RENDER_RUNS[name]) or 'defaults'}) in a fresh "
+                f"process, alone: {CLI_FRAMES} frames of {drawn[0].shape} in {result['render_s']:.3f} s = "
+                f"{figures[name]['fps']:.1f} FPS (process {process_s:.1f} s); threads busy (s): {busy}; AVI "
+                f"{figures[name]['mb']:.2f} MB, launches {counts} ({card})")
+    record = jpeg_record("rendered.json")["scales"]
+    pkg = Labels.load_file(os.path.join(here, *JPEG_PKG))
+    check(torch.device(pkg.video.backend.device).type == "cuda", "18c: jpeg_pkg.slp decodes on the card")
+    for scale in (1.0, 0.5):
+        for i, want in enumerate(record[str(scale)]):
+            drawn = visuals.render_frame(pkg, visuals.resize_image(pkg.video.get_frame(i), scale), i,
+                                         scale=scale)
+            check(sha256(drawn) == want["sha256"],
+                  f"18c: render_frame of jpeg_pkg.slp frame {i} at scale {scale} equals the JAX package's")
+    figures["jpeg_pkg_rendered"] = sum(len(v) for v in record.values())
+    log(f"18c render_frame on jpeg_pkg.slp (decoded by J1 and J2): {figures['jpeg_pkg_rendered']} frames "
+        f"equal the JAX package's recorded hashes ({card})")
+    return figures
+
+
+def check_render_pipelined(kept, card, launches):
+    """18c: 18b's JPEG package rendered in this process through the
+    Motion-JPEG writer on the card, pipelined and serial. The pipelined
+    render's reader thread decodes (host entropy decoder, J1, J2) while
+    the caller encodes (J3, J4, host entropy coder); the crop is sized so
+    that the encoder's host buffer rounds to the decoder's size, where one
+    pool shared by the threads would mix their bytes. Every chunk of the
+    pipelined AVI must be the serial one's. Returns the figures it prints."""
+    from collections import Counter
+
+    from sleap_tpu_torch.io import avi, jpeg, videowriter, visuals
+    from sleap_tpu_torch.io.slp import read_labels
+
+    labels = read_labels(kept["jpeg_pkg"])
+    check(torch.device(labels.video.backend.device).type == "cuda", "18c: the JPEG package decodes on the card")
+    pool = Counter(1 << max(16, (n + 15).bit_length()) for n in kept["jpeg_rows"]).most_common(1)[0][0]
+    side = 16 * math.isqrt((pool - 64) // (512 * 6))  # 6 blocks a 16x16 MCU of a 4:2:0 frame
+    check(pool // 2 < 512 * 6 * (side // 16) ** 2 + 64 <= pool,
+          f"18c: a {side}^2 frame's encoder buffer rounds to the decoder's {pool} bytes")
+    wrappers = {"jpeg_idct": jpeg.idct_cuda, "jpeg_color": jpeg.color_cuda,
+                "jpeg_ycc": jpeg.ycc_cuda, "jpeg_fdct": jpeg.fdct_cuda}
+    builder = visuals.VideoWriter.__dict__["safe_builder"]
+    visuals.VideoWriter.safe_builder = staticmethod(
+        lambda filename, height, width, fps=30.0, device="cuda":
+        videowriter.VideoWriterMJPEG(filename, height, width, fps, device=device))
+    chunks, figures = {}, {"crop": side, "pool_bytes": pool}
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for mode in ("pipelined", "serial"):
+                out = os.path.join(root, mode + ".avi")
+                for w in wrappers.values():
+                    w.launches = 0
+                t0 = time.perf_counter()
+                visuals.save_labeled_video(out, labels, crop_size_xy=(side, side),
+                                           pipelined=mode == "pipelined", device="cuda")
+                seconds = time.perf_counter() - t0
+                chunks[mode] = avi.read_frames(out)
+                figures[mode] = {"render_s": seconds, "fps": len(chunks[mode]) / seconds,
+                                 "launches": {k: w.launches for k, w in wrappers.items()}}
+    finally:
+        visuals.VideoWriter.safe_builder = builder
+    n = len(kept["jpeg_rows"])
+    check(len(chunks["pipelined"]) == len(chunks["serial"]) == n,
+          f"18c: the JPEG package renders to {len(chunks['pipelined'])} and {len(chunks['serial'])} "
+          f"chunks, want {n}")
+    same = sum(a == b for a, b in zip(chunks["pipelined"], chunks["serial"]))
+    check(same == n, f"18c: {same} of {n} chunks of the pipelined render are the serial render's")
+    counts = figures["pipelined"]["launches"]
+    for kernel, count in counts.items():
+        # Each frame decoded and encoded once; the video's height and width
+        # decode its first frame once more each, as the JAX package's do.
+        want = n if kernel in ("jpeg_ycc", "jpeg_fdct") else n + 2
+        check(count == want, f"18c: {kernel} launched {count} times for {n} frames rendered, want {want}")
+        launches[kernel]["sleap-render JPEG package, pipelined (18c)"] = count
+    log(f"18c sleap-render of 18b's JPEG package ({n} frames, {side}^2 crops, host buffers of "
+        f"{pool} bytes for both coders) in this process: pipelined {figures['pipelined']['fps']:.1f} FPS, "
+        f"serial {figures['serial']['fps']:.1f} FPS, every chunk the same; launches {counts} ({card})")
+    return figures
+
+
+def check_jpeg_encoding(card, launches, kept):
+    """Phase 18: 18a, 18b and 18c. Returns (figures, J3/J4 rows)."""
+    launches["jpeg_ycc"], launches["jpeg_fdct"] = {}, {}
+    encode, rows = check_jpeg_encode(card)
+    figures = {"encode": encode, "writes": check_jpeg_writes(card, launches, kept),
+               "render": check_render(kept, card, launches),
+               "render_jpeg_package": check_render_pipelined(kept, card, launches)}
+    return figures, rows
+
+
 def jpeg_kernel_rows(jpeg_rows, launches):
-    """The ``kernels`` line's rows of J1 and J2: numbers at 1024^2 gray (the
-    13c path's frames), the colour still's beside them."""
-    meta = {"jpeg_idct": "jpeg_idct_kernel", "jpeg_color": "jpeg_color_kernel"}
+    """The ``kernels`` line's rows of J1 and J2 (decoding) and J3 and J4
+    (encoding): numbers at 1024^2 gray (the 13c and 18b paths' frames), the
+    colour still's beside them."""
+    meta = {"jpeg_idct": "jpeg_idct_kernel", "jpeg_color": "jpeg_color_kernel",
+            "jpeg_ycc": "jpeg_ycc_kernel", "jpeg_fdct": "jpeg_fdct_kernel"}
+    replaces = {"jpeg_idct": "sleap_tpu/io/video.py:327", "jpeg_color": "sleap_tpu/io/video.py:327",
+                "jpeg_ycc": "sleap_tpu/io/slp.py:529", "jpeg_fdct": "sleap_tpu/io/slp.py:529"}
+    notes = {"sleap_tpu/io/video.py:327": "cv2.imdecode on the host in HDF5Video.get_frame; no TPU kernel",
+             "sleap_tpu/io/slp.py:529": "cv2.imencode on the host (.pkg.slp rows, Video.to_hdf5, "
+                                        "DirectoryImgStore); no TPU kernel"}
     out = []
     for name, func in meta.items():
         err, r = jpeg_rows[name]
         bound = max(r["bytes_ms"], r["ops_ms"])
         out.append({
             "name": name, "route": "cuda", "source": "sleap_tpu_torch/csrc/jpeg.cu",
-            "replaces": "sleap_tpu/io/video.py:327",
-            "replaces_note": "cv2.imdecode on the host in HDF5Video.get_frame; no TPU kernel",
+            "replaces": replaces[name], "replaces_note": notes[replaces[name]],
             "device_function": func, "launches": sum(launches[name].values()),
             "launches_by_path": launches[name], "max_abs_err": err, "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound,
@@ -5484,6 +5932,11 @@ def main() -> int:
         # the host helpers.
         slice_modules = timed_phase("17", check_slice_modules, td, td_cpu, frames, td_wrappers, launches,
                                     kept, card)
+
+        # Phase 18: JPEG encoding on the card (J3, J4), the JPEG writes, and
+        # sleap-render writing a Motion-JPEG AVI.
+        jpeg_encoding, encode_rows = timed_phase("18", check_jpeg_encoding, card, launches, kept)
+        jpeg_rows.update(encode_rows)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -5511,6 +5964,7 @@ def main() -> int:
     print(json.dumps({"export": export, "card": card}), flush=True)
     print(json.dumps({"host_modules": host_modules, "card": card}), flush=True)
     print(json.dumps({"pipelines": slice_modules, "card": card}), flush=True)
+    print(json.dumps({"jpeg_encoding": jpeg_encoding, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -23,7 +23,19 @@ Writes, under ``tests/torch_data``:
 - ``jpeg/decoded.json``: for each still and each row of the package, the
   sha256 of ``cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)``'s bytes with its
   shape (or the feature the port must refuse), so the card, which has no
-  cv2, can hold its decoders to cv2's output.
+  cv2, can hold its decoders to cv2's output;
+- ``jpeg/encoded.json``: the sha256 (and length) of ``cv2.imencode(".jpg",
+  frame)`` at cv2's defaults for each still's decoded frame but the
+  progressive one, and for crops (W x H) of the 1024^2 stills' frames to
+  1x1, 3x50, 17x33 and 1023x1021, so the card can hold its encoder (J3, J4
+  and the host entropy coder) to cv2's bytes;
+- ``jpeg/rendered.json``: the sha256 of the JAX package's ``render_frame``
+  for each of ``jpeg_pkg.slp``'s 16 frames at scale 1, and at scale 0.5 on
+  ``resize_image``'s half-size frame, as ``save_labeled_video`` draws them.
+
+Both records name the cv2 and libjpeg-turbo that wrote them.
+``--records`` writes only ``encoded.json`` and ``rendered.json``, from the
+committed stills and package, and leaves every other file as it is.
 """
 
 from __future__ import annotations
@@ -122,8 +134,77 @@ def digest(img: np.ndarray) -> dict:
             "shape": list(img.shape)}
 
 
+#: Crops (W, H) of the 1024^2 stills' frames that encoded.json records,
+#: taken at (1, 1): a pixel, a column narrower than a chroma sample, sizes
+#: past one MCU that no MCU divides, and the full frame less its edges.
+CROPS = ((1, 1), (3, 50), (17, 33), (1023, 1021))
+CROP_AT = 1
+
+
+def encode_frames(cv2) -> dict:
+    """name -> the frame encoded.json holds the encoding of: each committed
+    still but the progressive one as cv2 decodes it, and the crops."""
+    jpeg_dir = os.path.join(OUT, "jpeg")
+    out = {}
+    for name in sorted(stills(cv2)):
+        if "progressive" in name:
+            continue
+        img = cv2.imread(os.path.join(jpeg_dir, name + ".jpg"), cv2.IMREAD_UNCHANGED)
+        out[name] = img
+        if name.endswith("_1024"):
+            for w, h in CROPS:
+                out[f"{name}_crop_{w}x{h}"] = np.ascontiguousarray(
+                    img[CROP_AT:CROP_AT + h, CROP_AT:CROP_AT + w])
+    return out
+
+
+def versions(cv2) -> dict:
+    jpeg_line = [line for line in cv2.getBuildInformation().splitlines() if "JPEG:" in line]
+    return {"cv2": cv2.__version__, "jpeg": jpeg_line[0].split(":", 1)[1].strip() if jpeg_line else ""}
+
+
+def write_records(cv2) -> None:
+    """encoded.json and rendered.json, from the committed stills and package."""
+    from sleap_tpu.core.labels import Labels
+    from sleap_tpu.io import visuals
+
+    record = {"versions": versions(cv2), "frames": {}}
+    for name, img in encode_frames(cv2).items():
+        ok, buf = cv2.imencode(".jpg", img)
+        assert ok
+        record["frames"][name] = {"sha256": hashlib.sha256(buf.tobytes()).hexdigest(),
+                                  "bytes": int(buf.size), "shape": list(img.shape)}
+    with open(os.path.join(OUT, "jpeg", "encoded.json"), "w") as fh:
+        json.dump(record, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    labels = Labels.load_file(os.path.join(OUT, "jpeg_pkg.slp"))
+    rendered = {"versions": versions(cv2), "scales": {}}
+    for scale in (1.0, 0.5):
+        out = []
+        for i in range(len(labels.video.backend.embedded_frame_inds)):
+            img = labels.video.get_frame(i)
+            if scale != 1.0:
+                img = visuals.resize_image(img, scale)
+            drawn = visuals.render_frame(labels, img, i, scale=scale)
+            out.append({"sha256": hashlib.sha256(drawn.tobytes()).hexdigest(), "shape": list(drawn.shape)})
+        rendered["scales"][str(scale)] = out
+    with open(os.path.join(OUT, "jpeg", "rendered.json"), "w") as fh:
+        json.dump(rendered, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    print("wrote encoded.json and rendered.json")
+
+
 def main() -> None:
+    import argparse
+
     import cv2
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--records", action="store_true",
+                        help="write only encoded.json and rendered.json")
+    if parser.parse_args().records:
+        write_records(cv2)
+        return
 
     from sleap_tpu.core.instance import Instance, LabeledFrame
     from sleap_tpu.core.labels import Labels
@@ -167,6 +248,7 @@ def main() -> None:
     with open(os.path.join(jpeg_dir, "decoded.json"), "w") as fh:
         json.dump(record, fh, indent=1, sort_keys=True)
         fh.write("\n")
+    write_records(cv2)
 
 
 if __name__ == "__main__":

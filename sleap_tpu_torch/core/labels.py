@@ -927,18 +927,21 @@ class Labels(MutableSequence):
 
     # -- .slp files --------------------------------------------------------- #
     def save(self, filename: str, with_images: bool = False, embed_all_labeled: bool = False,
-             embed_suggested: bool = False, append: bool = False, image_format: str = "png") -> None:
+             embed_suggested: bool = False, append: bool = False, image_format: str = "png",
+             device=None) -> None:
         """Write a ``.slp`` file (making its directory); ``with_images``
         embeds the frames with user instances (every labeled frame with
         ``embed_all_labeled``, and the suggested ones with
-        ``embed_suggested``) as PNG rows: a training package."""
+        ``embed_suggested``) as ``image_format`` rows, PNG or JPEG (encoded
+        on ``device``, by default each video's): a training package."""
         from sleap_tpu_torch.io import slp
 
         parent = os.path.dirname(filename)
         if parent:
             os.makedirs(parent, exist_ok=True)
         slp.write_labels(filename, self, save_frame_data=with_images, all_labeled=embed_all_labeled,
-                         suggested=embed_suggested, image_format=image_format, append=append)
+                         suggested=embed_suggested, image_format=image_format, append=append,
+                         device=device)
 
     @staticmethod
     def save_file(labels: "Labels", filename: str, **kwargs) -> None:
@@ -985,8 +988,8 @@ class Labels(MutableSequence):
         """Each video's labeled frames as encoded rows in one HDF5 file,
         dataset ``video{i}`` a video, written in one pass (added to the file
         where it exists); returns videos of them that decode on ``device``
-        (by default each source video's), none when ``progress_callback``
-        returns False."""
+        (by default each source video's), where JPEG rows are encoded too,
+        none when ``progress_callback`` returns False."""
         from sleap_tpu_torch.io import hdf5
         from sleap_tpu_torch.io.video import HDF5Video
 
@@ -994,7 +997,7 @@ class Labels(MutableSequence):
         with hdf5.Writer(output_path, "a") as f:
             for v_idx, video in enumerate(self.videos):
                 nums = self._frame_data_nums(video, all_labeled, suggested, user_labeled=user_labeled)
-                video.write_hdf5(f, f"video{v_idx}", nums, format)
+                video.write_hdf5(f, f"video{v_idx}", nums, format, device=device)
                 out.append(Video(HDF5Video(filename=output_path, dataset=f"video{v_idx}/video",
                                            input_format="channels_last", convert_range=False,
                                            device=video._device(device))))

@@ -1,12 +1,15 @@
-// JPEG decoding as libjpeg-turbo decodes it (cv2.imdecode's defaults), bit
-// for bit: the Huffman entropy decoder in host C, and the inverse DCT (J1)
-// and the chroma upsampling and colour conversion (J2) hand-written for
-// Hopper (sm_90a). Bound with ctypes from sleap_tpu_torch/io/jpeg.py, which
-// holds the plain versions (Python entropy decoding, PyTorch integer code
-// for the rest) that these must equal.
+// JPEG decoding as libjpeg-turbo decodes it (cv2.imdecode's defaults), and
+// encoding as it encodes (cv2.imencode(".jpg") at quality 95), bit for bit:
+// the Huffman entropy decoder and encoder in host C, and the inverse DCT
+// (J1), the chroma upsampling and colour conversion (J2), the colour
+// conversion and downsampling (J3) and the forward DCT and quantisation (J4)
+// hand-written for Hopper (sm_90a). Bound with ctypes from
+// sleap_tpu_torch/io/jpeg.py, which holds the plain versions (Python entropy
+// coding, PyTorch integer code for the rest) that these must equal.
 //
-// No TPU kernel has a counterpart: the JAX package decodes JPEG with cv2 on
-// the host (sleap_tpu/io/video.py, HDF5Video.get_frame).
+// No TPU kernel has a counterpart: the JAX package decodes and encodes JPEG
+// with cv2 on the host (sleap_tpu/io/video.py, HDF5Video.get_frame and
+// Video.to_hdf5; sleap_tpu/io/slp.py; sleap_tpu/io/dirimgstore.py).
 //
 // - sleap_jpeg_decode_scan (host): one scan's entropy-coded data, unstuffed
 //   a restart interval at a time into the caller's scratch buffer and read through a
@@ -27,10 +30,27 @@
 //   rounding 8 / 7), edges replicated at the component's downsampled size
 //   (plain replication for planes at most 2 samples wide), then converts with jdcolor.c's integer tables computed inline
 //   (SCALEBITS 16) to BGR. Bound by bytes: the planes read, H*W*3 written.
+// - jpeg_ycc_kernel (J3): gray or BGR uint8 -> the components' 8x8 blocks
+//   (blocks, 64) uint8. Gray is one thread a sample of the padded plane.
+//   Colour is one thread a chroma sample: jccolor.c's rgb_ycc_convert
+//   (SCALEBITS 16; Y adds ONE_HALF, Cb and Cr CBCR_OFFSET + ONE_HALF - 1)
+//   of the 2x2 pixels under it, h2v2_downsample's sum with its bias of 1 on
+//   even and 2 on odd columns, and the up to four Y samples it covers. Edges
+//   repeat as jcprepct.c and jcsample.c repeat them: the last column and row
+//   of the frame, and the last chroma row down to whole MCUs. Bound by bytes.
+// - jpeg_fdct_kernel (J4): the level shift, jfdctint.c's jpeg_fdct_islow
+//   (CONST_BITS 13, PASS1_BITS 2, 16-bit DCTELEM between the passes) and
+//   jcdctmgr.c's quantize with compute_reciprocal's tables, in unsigned 32
+//   bits. Eight threads a block: pass 1 one row each, through shared memory,
+//   pass 2 and the quantisation one column each. Output (blocks, 64) int16 in
+//   natural order. Bound by bytes (192 a block in and out).
+// - sleap_jpeg_encode_scan (host): jchuff.c's encode_one_block over the MCUs
+//   in jccoefct.c's order, with its dummy blocks past Y's right and bottom
+//   edges (no AC, the DC of the block before); 0xFF stuffed, the last byte
+//   padded with 1-bits.
 //
-// Both kernels are the simple first design: no tiling of the chroma reads
-// in shared memory, two launches where one could do, the frame copied back
-// to the host.
+// All are the simple first design: no tiling of the chroma reads in shared
+// memory, two launches where one could do, the frame copied back to the host.
 
 #include <stdint.h>
 #include <string.h>
@@ -192,6 +212,93 @@ extern "C" int sleap_jpeg_decode_scan(const uint8_t* data, int64_t size, int64_t
   return err;
 }
 
+// Huffman-encode one frame's quantised coefficients ((blocks, 64) int16,
+// natural order) as one interleaved scan (one component: its own blocks).
+// info: per component (block offset, blocks a row, block rows, blocks across
+// an MCU, down an MCU, table 0 or 1). codes: int32 (4, 2, 256), the code and
+// code length of each symbol of DC0, AC0, DC1, AC1. Writes at most capacity
+// bytes to out and their count to *written; returns 0, or 1 when out is too
+// small.
+extern "C" int sleap_jpeg_encode_scan(const int16_t* coefs, int ncomp, const int32_t* info,
+                                      int mcux, int mcuy, const int32_t* codes, uint8_t* out,
+                                      int64_t capacity, int64_t* written) {
+  uint64_t acc = 0;
+  int nacc = 0;
+  int64_t pos = 0;
+  bool full = false;
+  auto put = [&](uint32_t code, int size) {
+    acc = (acc << size) | code;
+    nacc += size;
+    while (nacc >= 8) {
+      nacc -= 8;
+      const uint8_t b = (uint8_t)(acc >> nacc);
+      if (pos + 2 > capacity) {
+        full = true;
+        return;
+      }
+      out[pos++] = b;
+      if (b == 0xFF) out[pos++] = 0;
+    }
+  };
+  auto bits = [](int v) {
+    int t = v < 0 ? -v : v, n = 0;
+    while (t) {
+      ++n;
+      t >>= 1;
+    }
+    return n;
+  };
+  int last[4] = {0, 0, 0, 0};
+  for (int my = 0; my < mcuy && !full; ++my) {
+    for (int mx = 0; mx < mcux && !full; ++mx) {
+      int dc = 0;
+      for (int s = 0; s < ncomp; ++s) {
+        const int32_t* ci = info + 6 * s;
+        const int32_t* dco = codes + 2 * 256 * (2 * ci[5]);
+        const int32_t* aco = codes + 2 * 256 * (2 * ci[5] + 1);
+        for (int uy = 0; uy < ci[4]; ++uy) {
+          for (int ux = 0; ux < ci[3]; ++ux) {
+            const int by = my * ci[4] + uy, bx = mx * ci[3] + ux;
+            const int16_t* block = nullptr;
+            if (by < ci[2] && bx < ci[1]) {
+              block = coefs + 64 * ((int64_t)ci[0] + (int64_t)by * ci[1] + bx);
+              dc = block[0];
+            }  // else a dummy block: the DC before it, no AC
+            const int diff = dc - last[s];
+            last[s] = dc;
+            int n = bits(diff);
+            put((uint32_t)dco[n], dco[256 + n]);
+            if (n) put((uint32_t)(diff < 0 ? diff - 1 : diff) & ((1u << n) - 1), n);
+            int run = 0;
+            if (block) {
+              for (int k = 1; k < 64; ++k) {
+                const int v = block[kNatural[k]];
+                if (v == 0) {
+                  ++run;
+                  continue;
+                }
+                while (run > 15) {
+                  put((uint32_t)aco[0xF0], aco[256 + 0xF0]);
+                  run -= 16;
+                }
+                n = bits(v);
+                const int sym = (run << 4) | n;
+                put((uint32_t)aco[sym], aco[256 + sym]);
+                put((uint32_t)(v < 0 ? v - 1 : v) & ((1u << n) - 1), n);
+                run = 0;
+              }
+            }
+            if (run || !block) put((uint32_t)aco[0], aco[256]);
+          }
+        }
+      }
+    }
+  }
+  if (nacc && !full) put((1u << (8 - nacc)) - 1, 8 - nacc);
+  *written = pos;
+  return full ? 1 : 0;
+}
+
 #ifdef __CUDACC__
 
 namespace {
@@ -272,6 +379,136 @@ jpeg_idct_kernel(const int16_t* __restrict__ coefs, int64_t blocks,
   }
 }
 
+// jccolor.c's rgb_ycc_convert of one BGR pixel.
+__device__ __forceinline__ void ycc(const uint8_t* __restrict__ p, int& y, int& cb, int& cr) {
+  const int b = p[0], g = p[1], r = p[2];
+  y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16;
+  cb = (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + 32767) >> 16;
+  cr = (32768 * r - 27439 * g - 5329 * b + (128 << 16) + 32767) >> 16;
+}
+
+// The byte of sample (y, x) of a plane of blocks_w blocks a row, tiled in
+// 8x8 blocks from block `offset`.
+__device__ __forceinline__ int64_t tile(int64_t offset, int blocks_w, int y, int x) {
+  return 64 * (offset + (int64_t)(y >> 3) * blocks_w + (x >> 3)) + 8 * (y & 7) + (x & 7);
+}
+
+__global__ void jpeg_ycc_kernel(const uint8_t* __restrict__ img, int H, int W, int ncomp, int bw,
+                                int bh, int mcux, int mcuy, uint8_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (ncomp == 1) {
+    const int64_t cols = 8 * (int64_t)bw;
+    if (i >= cols * 8 * bh) return;
+    const int y = (int)(i / cols), x = (int)(i % cols);
+    out[tile(0, bw, y, x)] = img[(int64_t)min(y, H - 1) * W + min(x, W - 1)];
+    return;
+  }
+  const int64_t cols = 8 * (int64_t)mcux;
+  if (i >= cols * 8 * mcuy) return;
+  const int cy = (int)(i / cols), cx = (int)(i % cols);
+  // Y: the 2x2 samples under this chroma sample that lie in Y's blocks.
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx) {
+      const int y = 2 * cy + dy, x = 2 * cx + dx;
+      if (y < 8 * bh && x < 8 * bw) {
+        const uint8_t* p = img + 3 * ((int64_t)min(y, H - 1) * W + min(x, W - 1));
+        out[tile(0, bw, y, x)] = (uint8_t)((19595 * p[2] + 38470 * p[1] + 7471 * p[0] + 32768) >> 16);
+      }
+    }
+  }
+  // Chroma: rows past the downsampled height repeat its last row.
+  const int sy = min(cy, (H + 1) / 2 - 1);
+  const int r0 = min(2 * sy, H - 1), r1 = min(2 * sy + 1, H - 1);
+  const int c0 = min(2 * cx, W - 1), c1 = min(2 * cx + 1, W - 1);
+  int yy, cb, cr, sb = 0, sr = 0;
+  const int rows[2] = {r0, r1}, cs[2] = {c0, c1};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      ycc(img + 3 * ((int64_t)rows[a] * W + cs[b]), yy, cb, cr);
+      sb += cb;
+      sr += cr;
+    }
+  }
+  const int bias = 1 + (cx & 1);
+  const int64_t cb_off = (int64_t)bw * bh, cr_off = cb_off + (int64_t)mcux * mcuy;
+  out[tile(cb_off, mcux, cy, cx)] = (uint8_t)((sb + bias) >> 2);
+  out[tile(cr_off, mcux, cy, cx)] = (uint8_t)((sr + bias) >> 2);
+}
+
+// One 1-D pass of jpeg_fdct_islow on d[0..7] (JLONG arithmetic): pass 1
+// scales by 2^PASS1_BITS, pass 2 removes it.
+__device__ __forceinline__ void fdct_1d(const int64_t (&d)[8], int64_t (&o)[8], bool pass1) {
+  const int64_t tmp0 = d[0] + d[7], tmp7 = d[0] - d[7];
+  const int64_t tmp1 = d[1] + d[6], tmp6 = d[1] - d[6];
+  const int64_t tmp2 = d[2] + d[5], tmp5 = d[2] - d[5];
+  const int64_t tmp3 = d[3] + d[4], tmp4 = d[3] - d[4];
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int n = pass1 ? 11 : 15;
+  const int64_t half = (int64_t)1 << (n - 1);
+  if (pass1) {
+    o[0] = (tmp10 + tmp11) * 4;
+    o[4] = (tmp10 - tmp11) * 4;
+  } else {
+    o[0] = (tmp10 + tmp11 + 2) >> 2;
+    o[4] = (tmp10 - tmp11 + 2) >> 2;
+  }
+  int64_t z1 = (tmp12 + tmp13) * 4433;
+  o[2] = (z1 + tmp13 * 6270 + half) >> n;
+  o[6] = (z1 - tmp12 * 15137 + half) >> n;
+  z1 = tmp4 + tmp7;
+  int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+  const int64_t z5 = (z3 + z4) * 9633;
+  const int64_t t4 = tmp4 * 2446, t5 = tmp5 * 16819, t6 = tmp6 * 25172, t7 = tmp7 * 12299;
+  z1 *= -7373;
+  z2 *= -20995;
+  z3 = z3 * -16069 + z5;
+  z4 = z4 * -3196 + z5;
+  o[7] = (t4 + z1 + z3 + half) >> n;
+  o[5] = (t5 + z2 + z4 + half) >> n;
+  o[3] = (t6 + z2 + z3 + half) >> n;
+  o[1] = (t7 + z1 + z4 + half) >> n;
+}
+
+__global__ void __launch_bounds__(kBlocksPerCta * 8)
+jpeg_fdct_kernel(const uint8_t* __restrict__ samples, int64_t blocks,
+                 const int32_t* __restrict__ divs, int64_t end0, int16_t* __restrict__ out) {
+  __shared__ int16_t ws[kBlocksPerCta][64];
+  const int local = threadIdx.x >> 3, lane = threadIdx.x & 7;
+  const int64_t b = (int64_t)blockIdx.x * kBlocksPerCta + local;
+  const bool live = b < blocks;
+  if (live) {
+    const uint8_t* s = samples + 64 * b + 8 * lane;
+    int64_t x[8], o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = (int64_t)s[k] - 128;
+    fdct_1d(x, o, true);  // pass 1: row `lane`
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ws[local][8 * lane + k] = (int16_t)o[k];
+  }
+  __syncthreads();
+  if (live) {
+    int64_t x[8], o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = ws[local][8 * k + lane];
+    fdct_1d(x, o, false);  // pass 2: column `lane`
+    const int32_t* d = divs + (b < end0 ? 0 : 3 * 64);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = 8 * k + lane;
+      const int v = (int16_t)o[k];
+      const uint32_t recip = (uint32_t)d[i], corr = (uint32_t)d[64 + i];
+      const int shift = d[128 + i];
+      const uint32_t q = ((uint32_t)(v < 0 ? -v : v) + corr) * recip >> (shift + 16);
+      out[64 * b + i] = (int16_t)(v < 0 ? -(int)q : (int)q);
+    }
+  }
+}
+
 struct Comp {
   int offset, blocks_w, width, height, hs, vs;
 };
@@ -345,6 +582,30 @@ extern "C" int sleap_jpeg_color(const void* samples, int ncomp, int H, int W,
       c2{o2, b2, w2, h2, hs2, vs2};
   jpeg_color_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)samples, ncomp, H, W, c0, c1, c2, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// J3: (H, W) gray or (H, W, 3) BGR uint8 -> (blocks, 64) uint8: Y's bw x bh
+// blocks, then (colour) Cb's and Cr's mcux x mcuy.
+extern "C" int sleap_jpeg_ycc(const void* img, int H, int W, int ncomp, int bw, int bh, int mcux,
+                              int mcuy, void* out, void* stream) {
+  const int64_t n = ncomp == 1 ? 64 * (int64_t)bw * bh : 64 * (int64_t)mcux * mcuy;
+  if (n <= 0) return 0;
+  const int threads = 256;
+  jpeg_ycc_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)img, H, W, ncomp, bw, bh, mcux, mcuy, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// J4: (blocks, 64) uint8 samples -> (blocks, 64) int16 coefficients; divs:
+// int32 (2, 3, 64) reciprocals, corrections and shifts of the two tables;
+// blocks below end0 use table 0, the rest table 1.
+extern "C" int sleap_jpeg_fdct(const void* samples, int64_t blocks, const void* divs, int64_t end0,
+                               void* out, void* stream) {
+  if (blocks <= 0) return 0;
+  const int64_t grid = (blocks + kBlocksPerCta - 1) / kBlocksPerCta;
+  jpeg_fdct_kernel<<<(unsigned)grid, kBlocksPerCta * 8, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)samples, blocks, (const int32_t*)divs, end0, (int16_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
-"""A loopbio ImgStore directory store of PNG frames, without ``cv2`` or
-``yaml``: a copy of :mod:`sleap_tpu.io.dirimgstore` on the port's PNG codec
-(:mod:`sleap_tpu_torch.io.png`; JPEG stores are read through
-:mod:`sleap_tpu_torch.io.jpeg`) and a reader and writer of the YAML subset
-``metadata.yaml`` holds.
+"""A loopbio ImgStore directory store of PNG or JPEG frames, without ``cv2``
+or ``yaml``: a copy of :mod:`sleap_tpu.io.dirimgstore` on the port's codecs
+(:mod:`sleap_tpu_torch.io.png`; :mod:`sleap_tpu_torch.io.jpeg`, whose files
+are the bytes ``cv2.imwrite`` writes, encoded on the store's ``device``) and
+a reader and writer of the YAML subset ``metadata.yaml`` holds.
 
 - ``new_for_filename(path)`` -> a store open for reading;
 - ``new_for_format(fmt, mode="w", basedir=..., imgshape=..., imgdtype=...,
@@ -53,8 +53,8 @@ def _image_path(basedir: str, chunk_n: int, within_idx: int, ext: str) -> str:
 
 
 class DirectoryImgStore:
-    """Directory-of-PNGs frame store with loopbio's layout. Frames read are
-    decoded on ``device``'s route (:func:`sleap_tpu_torch.io.png.imdecode`)."""
+    """Directory-of-images frame store (PNG or JPEG) with loopbio's layout.
+    Frames are decoded, and JPEG frames encoded, on ``device``'s route."""
 
     def __init__(
         self,
@@ -80,10 +80,10 @@ class DirectoryImgStore:
         self._cursor = 0  # store-order position for get_next_image
 
         if mode == "w":
-            if fmt != "png":
+            if fmt not in ("png", "jpg", "jpeg"):
                 raise NotImplementedError(
-                    f"Writing {fmt!r} image stores is not ported; the port writes PNG stores "
-                    "(JPEG encoding is ROADMAP.md queue 1, item 3d(2)).")
+                    f"Writing {fmt!r} image stores is not ported; the port writes PNG and JPEG "
+                    "stores (BMP and TIFF are ROADMAP.md queue 1, item 3d(2)).")
             os.makedirs(basedir, exist_ok=True)
             self._pending_numbers: List[int] = []
             self._pending_times: List[float] = []
@@ -104,9 +104,12 @@ class DirectoryImgStore:
         chunk_n, within = divmod(self._n_written, self.chunksize)
         os.makedirs(_chunk_dir(self.basedir, chunk_n), exist_ok=True)
         out = img[..., 0] if (img.ndim == 3 and img.shape[-1] == 1) else img
-        _, buf = png.imencode(".png", out)
+        if self.format == "png":
+            data = png.imencode(".png", out)[1].tobytes()
+        else:
+            data = jpeg.imencode(out, self.device)
         with open(_image_path(self.basedir, chunk_n, within, self.format), "wb") as fh:
-            fh.write(buf.tobytes())
+            fh.write(data)
         self._pending_numbers.append(int(frame_number))
         self._pending_times.append(float(frame_time))
         self._index[int(frame_number)] = (chunk_n, within)
@@ -265,10 +268,12 @@ def new_for_format(
     imgshape: Optional[Tuple[int, ...]] = None,
     imgdtype: str = "uint8",
     chunksize: int = 200,
+    device="cuda",
     **_unused,
 ) -> DirectoryImgStore:
     """Create a new write-mode store. Only image (per-frame file) formats are
-    supported; video formats like ``mjpeg/avi`` fall back to ``png``."""
+    supported; video formats like ``mjpeg/avi`` fall back to ``png``. JPEG
+    frames are encoded on ``device``."""
     if "/" in fmt:  # video container formats are not supported by the fallback
         fmt = "png"
     return DirectoryImgStore(
@@ -278,4 +283,5 @@ def new_for_format(
         imgdtype=imgdtype,
         chunksize=chunksize,
         fmt=fmt,
+        device=device,
     )

@@ -1,7 +1,8 @@
 """Decode JPEG images from bytes as ``cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)``
-decodes them with libjpeg-turbo's defaults, bit for bit: the port's reader of
-the JPEG frames of ``.pkg.slp`` files and image folders, where ``cv2`` is not
-installed.
+decodes them with libjpeg-turbo's defaults, bit for bit, and encode them as
+``cv2.imencode(".jpg", img)`` encodes them, byte for byte: the port's JPEG
+codec for ``.pkg.slp`` files, HDF5 frame files, image folders, ImgStores and
+``sleap-render``'s Motion-JPEG, where ``cv2`` is not installed.
 
 Scope: baseline and extended-sequential Huffman JPEGs (SOF0, SOF1), 8-bit,
 one component (gray, returned (H, W)) or three (YCbCr, returned (H, W, 3)
@@ -34,14 +35,36 @@ Two routes, by the ``device`` asked for:
   and 4), and the frame back to the host as numpy. A failed build or launch
   raises; there is no fallback to the plain version.
 
-No TPU kernel has a counterpart here: the JAX package decodes with cv2 on
-the host (``sleap_tpu/io/video.py``, ``HDF5Video.get_frame``).
+Encoding (:func:`imencode`) writes cv2's defaults, all the JAX package
+writes: quality 95, baseline, the standard Huffman tables, gray as one
+component and colour (BGR) as YCbCr 4:2:0, JFIF 1.01. Its stages, each as
+libjpeg-turbo's C does it (its SIMD paths give the same bits):
+
+1. colour conversion (``jccolor.c``, SCALEBITS 16), edge repetition to whole
+   blocks and MCUs (``jcprepct.c``, ``jcsample.c``) and ``h2v2_downsample``
+   with its alternating bias;
+2. the level shift, ``jpeg_fdct_islow`` (16-bit ``DCTELEM`` between the
+   passes) and ``jcdctmgr.c``'s reciprocal quantisation;
+3. Huffman coding of the MCUs with ``jccoefct.c``'s dummy blocks past Y's
+   edges, byte stuffing and 1-bit padding; then the markers.
+
+On ``"cpu"`` these are :func:`ycc_plain`, :func:`fdct_plain` (PyTorch
+integer code) and :func:`encode_scan_plain` (Python: the whole plain
+route takes 0.19-0.42 s a 1024^2 frame on an H100 server's host, by
+``chip_smoke.py`` 18a). On ``"cuda"``: ``jpeg_ycc_kernel`` (J3) and ``jpeg_fdct_kernel`` (J4)
+on the card, one copy of the coefficients back, and
+``sleap_jpeg_encode_scan`` in host C; no fallback.
+
+No TPU kernel has a counterpart here: the JAX package decodes and encodes
+with cv2 on the host (``sleap_tpu/io/video.py``, ``HDF5Video.get_frame`` and
+``Video.to_hdf5``; ``sleap_tpu/io/slp.py``; ``sleap_tpu/io/dirimgstore.py``).
 """
 
 from __future__ import annotations
 
 import functools
 import struct
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -577,16 +600,18 @@ _HOST_ERRORS = {1: "invalid Huffman code", 2: "data ends before its last block",
                 3: "restart marker missing or out of order"}
 
 
-@functools.lru_cache(maxsize=4)
-def _buffer(nbytes: int) -> np.ndarray:
+@functools.lru_cache(maxsize=8)
+def _buffer(nbytes: int, thread: int) -> np.ndarray:
     return np.empty(nbytes, np.uint8)
 
 
 def _scratch(nbytes: int) -> np.ndarray:
-    """A host buffer of at least ``nbytes``, reused across frames (sizes
-    rounded up to a power of two, so one serves a whole video; the four
-    last sizes are kept)."""
-    return _buffer(1 << max(16, (nbytes - 1).bit_length()))
+    """A host buffer of at least ``nbytes``, reused across frames by the
+    calling thread (sizes rounded up to a power of two, so one serves a
+    whole video; the eight last sizes and threads are kept). Each thread
+    has its own: the host coders release the GIL, so a render's reader
+    thread decodes while its caller encodes."""
+    return _buffer(1 << max(16, (nbytes - 1).bit_length()), threading.get_ident())
 
 
 def coefficients_host(data: bytes, header: Header, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -657,16 +682,17 @@ def color_cuda(samples: torch.Tensor, header: Header) -> torch.Tensor:
 color_cuda.launches = 0
 
 
-@functools.lru_cache(maxsize=4)
-def _pinned(nbytes: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=8)
+def _pinned(nbytes: int, thread: int) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
 
 
 def _staging(blocks: int) -> torch.Tensor:
-    """A pinned (blocks, 64) int16 buffer, reused across frames: its copy to
-    the card is synchronous, so the next frame may fill it at once."""
+    """A pinned (blocks, 64) int16 buffer, reused across frames by the
+    calling thread, as :func:`_scratch` is: its copy to the card is
+    synchronous, so the thread's next frame may fill it at once."""
     size = 1 << max(12, (blocks * 128 - 1).bit_length())
-    return _pinned(size)[:blocks * 128].view(torch.int16).view(blocks, 64)
+    return _pinned(size, threading.get_ident())[:blocks * 128].view(torch.int16).view(blocks, 64)
 
 
 def decode_cuda(data: bytes, device) -> torch.Tensor:
@@ -686,3 +712,488 @@ def imdecode(data: bytes, device="cuda") -> np.ndarray:
     if torch.device(device).type == "cuda":
         return decode_cuda(data, device).cpu().numpy()
     return decode_plain(data)
+
+
+# --------------------------------------------------------------------------- #
+# Encoding: cv2.imencode(".jpg", img) at cv2's defaults
+# --------------------------------------------------------------------------- #
+
+QUALITY = 95  # cv2's IMWRITE_JPEG_QUALITY default, the only quality the JAX package writes
+
+# The standard quantisation tables (ITU T.81 Annex K, natural order), which
+# jcparam.c's jpeg_set_quality scales.
+STD_LUMA = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+            14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+            18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+            49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99)
+STD_CHROMA = (17, 18, 24, 47) + (99,) * 4 + (18, 21, 26, 66) + (99,) * 4 + (24, 26, 56) + (99,) * 5 \
+    + (47, 66) + (99,) * 38
+
+# The standard Huffman tables (Annex K.3, jstdhuff.c) as DHT bodies: 16
+# counts of codes by length, then the symbols. DC luma, AC luma, DC chroma,
+# AC chroma, which cv2 writes in that order.
+STD_HUFFMAN = tuple(bytes.fromhex(h) for h in (
+    "00010501010101010100000000000000000102030405060708090a0b",
+    "0002010303020403050504040000017d01020300041105122131410613516107227114328191a108"
+    "2342b1c11552d1f02433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a9293949596979899"
+    "9aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3"
+    "e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa",
+    "00030101010101010101010000000000000102030405060708090a0b",
+    "0002010204040304070504040001027700010203110405213106124151076171132232810814429"
+    "1a1b1c109233352f0156272d10a162434e125f11718191a262728292a35363738393a4344454647"
+    "48494a535455565758595a636465666768696a737475767778797a82838485868788898a92939495"
+    "969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9"
+    "dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa",
+))
+
+
+def quant_table(basic, quality: int = QUALITY) -> np.ndarray:
+    """``jpeg_add_quant_table(..., jpeg_quality_scaling(quality), TRUE)``:
+    a standard table scaled, clamped to 1..255 (baseline), natural order."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    t = (np.asarray(basic, np.int64) * scale + 50) // 100
+    return np.clip(t, 1, 255).astype(np.uint16)
+
+
+def divisors(quant: np.ndarray) -> np.ndarray:
+    """``jcdctmgr.c``'s ``compute_reciprocal`` for each entry of a table, with
+    libjpeg-turbo's SIMD types (``DCTELEM`` short): (3, 64) int32 rows of the
+    reciprocal, the correction (rounding) and the shift past 16 bits, for
+    the divisor ``quantval << 3`` (the DCT leaves its output scaled by 8)."""
+    out = np.empty((3, 64), np.int32)
+    for i, q in enumerate(np.asarray(quant, np.int64)):
+        d = int(q) << 3
+        if d == 1:
+            out[:, i] = (1, 0, -16)
+            continue
+        r = 16 + d.bit_length() - 1
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:  # a power of two: fq is one bit too wide
+            fq >>= 1
+            r -= 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        out[:, i] = (fq, c, r - 16)
+    return out
+
+
+@dataclass
+class Frame:
+    """An encoded frame's layout, as libjpeg lays out cv2's defaults: gray is
+    one component of 8x8 MCUs; colour is Y, Cb, Cr sampled 2x2, 1x1, 1x1
+    (4:2:0) in MCUs of 16x16. Each component's DCT blocks (``blocks_w`` x
+    ``blocks_h``, libjpeg's ``width_in_blocks`` and ``height_in_blocks``)
+    lie row-major at ``offset`` of the frame's (blocks, 64) buffers; the
+    MCUs may reach past them on the right and bottom of Y, where the
+    encoder writes libjpeg's dummy blocks."""
+
+    height: int
+    width: int
+    components: List[Component]
+    mcux: int
+    mcuy: int
+
+    @property
+    def blocks(self) -> int:
+        return sum(c.blocks_w * c.blocks_h for c in self.components)
+
+
+def frame_layout(height: int, width: int, channels: int) -> Frame:
+    """The layout of an (height, width) frame of 1 or 3 channels."""
+    height, width = int(height), int(width)
+    if height < 1 or width < 1 or height > 65535 or width > 65535:
+        raise ValueError(f"A JPEG frame is 1 to 65535 pixels a side, not {height} x {width}.")
+    if channels not in (1, 3):
+        raise ValueError(f"JPEG frames are encoded from 1 or 3 channels, not {channels}.")
+    if channels == 1:
+        bw, bh = -(-width // 8), -(-height // 8)
+        return Frame(height, width, [Component(1, 1, 1, 0, width, height, bw, bh, 0)], bw, bh)
+    mcux, mcuy = -(-width // 16), -(-height // 16)
+    bw, bh = -(-width // 8), -(-height // 8)
+    y = Component(1, 2, 2, 0, width, height, bw, bh, 0)
+    cb = Component(2, 1, 1, 1, -(-width // 2), -(-height // 2), mcux, mcuy, bw * bh)
+    cr = Component(3, 1, 1, 1, cb.width, cb.height, mcux, mcuy, bw * bh + mcux * mcuy)
+    return Frame(height, width, [y, cb, cr], mcux, mcuy)
+
+
+def _as_frame(img) -> np.ndarray:
+    """(H, W), (H, W, 1) or (H, W, 3) uint8 as (H, W) or (H, W, 3)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"JPEG frames are encoded from uint8, not {img.dtype}.")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"JPEG frames are (H, W), (H, W, 1) or (H, W, 3) BGR, not {img.shape}.")
+    return np.ascontiguousarray(img)
+
+
+def _fix16(x: float) -> int:
+    return int(x * 65536 + 0.5)
+
+
+# jccolor.c's rgb_ycc_convert coefficients (SCALEBITS 16): Y adds ONE_HALF,
+# Cb and Cr add CBCR_OFFSET + ONE_HALF - 1.
+YCC = ((_fix16(0.299), _fix16(0.587), _fix16(0.114), 1 << 15),
+       (-_fix16(0.16874), -_fix16(0.33126), _fix16(0.5), (128 << 16) + (1 << 15) - 1),
+       (_fix16(0.5), -_fix16(0.41869), -_fix16(0.08131), (128 << 16) + (1 << 15) - 1))
+
+
+def tiles(plane: torch.Tensor) -> torch.Tensor:
+    """(8 * bh, 8 * bw) -> (bh * bw, 64): the plane's 8x8 blocks row-major."""
+    bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+    return plane.reshape(bh, 8, bw, 8).permute(0, 2, 1, 3).reshape(bh * bw, 64)
+
+
+def _edge(plane: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``plane`` grown to (rows, cols) by repeating its last row and column."""
+    r = torch.arange(rows, device=plane.device).clamp(max=plane.shape[0] - 1)
+    c = torch.arange(cols, device=plane.device).clamp(max=plane.shape[1] - 1)
+    return plane[r][:, c]
+
+
+def ycc_plain(img: torch.Tensor, frame: Frame) -> torch.Tensor:
+    """J3's stages, plain: (H, W) gray or (H, W, 3) BGR uint8 -> the
+    components' (blocks, 64) uint8 samples. Colour converts with
+    ``rgb_ycc_convert``; the right and bottom edges repeat to whole blocks
+    (``expand_right_edge``, ``expand_bottom_edge``); chroma is downsampled
+    by ``h2v2_downsample``, whose 2x2 sums add a bias of 1, 2, 1, 2, ...
+    along each output row, then repeats its last row to whole MCUs."""
+    y = frame.components[0]
+    if len(frame.components) == 1:
+        return tiles(_edge(img, 8 * y.blocks_h, 8 * y.blocks_w))
+    b, g, r = (img[..., k].long() for k in range(3))
+    planes = [(cr * r + cg * g + cb * b + add) >> 16 for cr, cg, cb, add in YCC]
+    out = [tiles(_edge(planes[0], 8 * y.blocks_h, 8 * y.blocks_w))]
+    for plane, c in zip(planes[1:], frame.components[1:]):
+        p = _edge(plane, 2 * c.height, 16 * c.blocks_w)
+        sums = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
+        bias = 1 + (torch.arange(sums.shape[1], device=sums.device) & 1)
+        out.append(tiles(_edge((sums + bias) >> 2, 8 * c.blocks_h, 8 * c.blocks_w)))
+    return torch.cat(out).to(torch.uint8)
+
+
+def _fdct_1d(d, pass1: bool):
+    """One 1-D pass of ``jpeg_fdct_islow`` (CONST_BITS 13, PASS1_BITS 2) on
+    the eight int64 tensors ``d``: pass 1 scales by 4, pass 2 removes it
+    and leaves the output scaled by 8."""
+    c = _C
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    n = 11 if pass1 else 15
+
+    def descale(x, bits):
+        return (x + (1 << (bits - 1))) >> bits
+
+    out = [None] * 8
+    out[0] = (tmp10 + tmp11) << 2 if pass1 else descale(tmp10 + tmp11, 2)
+    out[4] = (tmp10 - tmp11) << 2 if pass1 else descale(tmp10 - tmp11, 2)
+    z1 = (tmp12 + tmp13) * c["c0_541"]
+    out[2] = descale(z1 + tmp13 * c["c0_765"], n)
+    out[6] = descale(z1 - tmp12 * c["c1_847"], n)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * c["c1_175"]
+    tmp4, tmp5 = tmp4 * c["c0_298"], tmp5 * c["c2_053"]
+    tmp6, tmp7 = tmp6 * c["c3_072"], tmp7 * c["c1_501"]
+    z1, z2 = z1 * -c["c0_899"], z2 * -c["c2_562"]
+    z3, z4 = z3 * -c["c1_961"] + z5, z4 * -c["c0_390"] + z5
+    out[7] = descale(tmp4 + z1 + z3, n)
+    out[5] = descale(tmp5 + z2 + z4, n)
+    out[3] = descale(tmp6 + z2 + z3, n)
+    out[1] = descale(tmp7 + z1 + z4, n)
+    return out
+
+
+def fdct_plain(samples: torch.Tensor, divs: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """J4's stages, plain: (blocks, 64) uint8 samples, the (tables, 3, 64)
+    :func:`divisors` and each block's table -> (blocks, 64) int16 quantised
+    coefficients, natural order. The samples are level-shifted by 128,
+    transformed by ``jpeg_fdct_islow`` (rows, then columns, through 16-bit
+    ``DCTELEM``) and quantised as ``jcdctmgr.c``'s ``quantize``:
+    ``(|x| + corr) * recip >> (16 + shift)`` in unsigned 32 bits, the sign
+    put back."""
+    x = samples.view(-1, 8, 8).long() - 128
+    rows = _fdct_1d([x[:, :, k] for k in range(8)], True)
+    ws = torch.stack(rows, 2).to(torch.int16).long()  # DCTELEM between the passes
+    cols = _fdct_1d([ws[:, k, :] for k in range(8)], False)
+    coef = torch.stack(cols, 1).to(torch.int16).long().view(-1, 64)
+    d = divs.long().to(coef.device)[block_table.to(coef.device)]
+    recip, corr, shift = d[:, 0], d[:, 1], d[:, 2]
+    q = (((coef.abs() + corr) * recip) & 0xFFFFFFFF) >> (shift + 16)
+    return torch.where(coef < 0, -q, q).to(torch.int16)
+
+
+def huffman_codes(table: bytes) -> Tuple[List[int], List[int]]:
+    """``jpeg_make_c_derived_tbl``: each symbol's code and code length (0
+    for a symbol the table lacks), from a DHT body."""
+    counts, symbols = table[:16], table[16:]
+    code, k = 0, 0
+    ehufco, ehufsi = [0] * 256, [0] * 256
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            ehufco[symbols[k]], ehufsi[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return ehufco, ehufsi
+
+
+@functools.lru_cache(maxsize=None)
+def _std_codes():
+    return tuple(huffman_codes(t) for t in STD_HUFFMAN)
+
+
+def _mcu_units(frame: Frame):
+    """The blocks of one MCU in coding order: (component slot, block row,
+    block column)."""
+    return [(s, by, bx) for s, c in enumerate(frame.components)
+            for by in range(c.v if len(frame.components) > 1 else 1)
+            for bx in range(c.h if len(frame.components) > 1 else 1)]
+
+
+def encode_scan_plain(coefs: np.ndarray, frame: Frame) -> bytes:
+    """The Huffman stage, plain (``jchuff.c``'s ``encode_one_block`` over
+    the MCUs, as ``jccoefct.c`` feeds it): each block's DC difference from
+    its component's last, then the AC run/size symbols with ZRL and EOB;
+    a value ``v < 0`` is sent as the low bits of ``v - 1``. A block past
+    the right or bottom edge of Y is libjpeg's dummy: no AC, and the DC of
+    the block before it in the MCU. 0xFF bytes are stuffed with 0x00 and
+    the last byte is padded with 1-bits. ``coefs``: (blocks, 64) int16."""
+    codes = _std_codes()
+    comps = frame.components
+    tabs = [(codes[0], codes[1]) if c.tq == 0 else (codes[2], codes[3]) for c in comps]
+    zigzag = ZIGZAG[1:64].tolist()
+    rows = coefs.astype(np.int64).tolist()
+    out = bytearray()
+    acc, nacc = 0, 0
+    last = [0] * len(comps)
+
+    def put(code, size):
+        nonlocal acc, nacc
+        acc = (acc << size) | code
+        nacc += size
+        while nacc >= 8:
+            nacc -= 8
+            byte = (acc >> nacc) & 0xFF
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+        acc &= (1 << nacc) - 1
+
+    units = _mcu_units(frame)
+    for my in range(frame.mcuy):
+        for mx in range(frame.mcux):
+            dc = None
+            for s, uy, ux in units:
+                c = comps[s]
+                h, v = (c.h, c.v) if len(comps) > 1 else (1, 1)
+                by, bx = my * v + uy, mx * h + ux
+                (dco, dcs), (aco, acs) = tabs[s]
+                if by < c.blocks_h and bx < c.blocks_w:
+                    block = rows[c.offset + by * c.blocks_w + bx]
+                    dc = block[0]
+                    ac = [block[k] for k in zigzag]
+                else:
+                    ac = None  # a dummy block keeps the DC before it
+                diff = dc - last[s]
+                last[s] = dc
+                t = -diff if diff < 0 else diff
+                nbits = t.bit_length()
+                put(dco[nbits], dcs[nbits])
+                if nbits:
+                    put((diff - 1 if diff < 0 else diff) & ((1 << nbits) - 1), nbits)
+                run = 0
+                for val in ac or ():
+                    if val == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        put(aco[0xF0], acs[0xF0])
+                        run -= 16
+                    t = -val if val < 0 else val
+                    nbits = t.bit_length()
+                    sym = (run << 4) | nbits
+                    put(aco[sym], acs[sym])
+                    put((val - 1 if val < 0 else val) & ((1 << nbits) - 1), nbits)
+                    run = 0
+                if run or ac is None:
+                    put(aco[0], acs[0])
+    if nacc:
+        put((1 << (8 - nacc)) - 1, 8 - nacc)
+    return bytes(out)
+
+
+def _segment_bytes(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+@functools.lru_cache(maxsize=64)
+def headers(height: int, width: int, channels: int) -> Tuple[bytes, bytes]:
+    """The bytes before and after the entropy-coded data, in cv2's order:
+    SOI; APP0 JFIF 1.01, density 1:1; a DQT per table; SOF0; a DHT per
+    table, DC0, AC0, DC1, AC1; SOS; and EOI after the data."""
+    frame = frame_layout(height, width, channels)
+    comps = frame.components
+    out = [b"\xff\xd8", _segment_bytes(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for t, basic in enumerate((STD_LUMA, STD_CHROMA)[:1 + (channels > 1)]):
+        table = quant_table(basic)
+        out.append(_segment_bytes(0xDB, bytes([t]) + table[ZIGZAG[:64]].astype(np.uint8).tobytes()))
+    sof = struct.pack(">BHHB", 8, height, width, len(comps))
+    for c in comps:
+        sof += bytes([c.ident, (c.h << 4) | c.v, c.tq])
+    out.append(_segment_bytes(0xC0, sof))
+    for k, table in enumerate(STD_HUFFMAN[:2 * (1 + (channels > 1))]):
+        out.append(_segment_bytes(0xC4, bytes([(k & 1) << 4 | (k >> 1)]) + table))
+    sos = bytes([len(comps)])
+    for c in comps:
+        sos += bytes([c.ident, c.tq << 4 | c.tq])
+    out.append(_segment_bytes(0xDA, sos + b"\x00\x3f\x00"))
+    return b"".join(out), b"\xff\xd9"
+
+
+@functools.lru_cache(maxsize=None)
+def _divisor_tables() -> torch.Tensor:
+    """(2, 3, 64) int32: the luma and chroma tables' :func:`divisors`."""
+    return torch.from_numpy(np.stack([divisors(quant_table(t)) for t in (STD_LUMA, STD_CHROMA)]))
+
+
+def block_tables(frame: Frame) -> torch.Tensor:
+    """Each block's quantisation table, (blocks,) int64."""
+    return torch.cat([torch.full((c.blocks_w * c.blocks_h,), c.tq, dtype=torch.int64)
+                      for c in frame.components])
+
+
+def encode_plain(img) -> bytes:
+    """The plain version of :func:`imencode`: PyTorch and Python on the CPU."""
+    img = _as_frame(img)
+    channels = 1 if img.ndim == 2 else 3
+    frame = frame_layout(img.shape[0], img.shape[1], channels)
+    samples = ycc_plain(torch.from_numpy(img), frame)
+    coefs = fdct_plain(samples, _divisor_tables(), block_tables(frame))
+    head, tail = headers(frame.height, frame.width, channels)
+    return head + encode_scan_plain(coefs.numpy(), frame) + tail
+
+
+# --------------------------------------------------------------------------- #
+# The card's encoding route: J3, J4 and the host entropy coder
+# --------------------------------------------------------------------------- #
+
+
+@functools.lru_cache(maxsize=None)
+def _code_table() -> np.ndarray:
+    """int32 (4, 2, 256): each standard table's codes and code lengths."""
+    return np.array([list(t) for t in _std_codes()], np.int32)
+
+
+def _encode_info(frame: Frame) -> np.ndarray:
+    comps = frame.components
+    info = []
+    for c in comps:
+        h, v = (c.h, c.v) if len(comps) > 1 else (1, 1)
+        info += [c.offset, c.blocks_w, c.blocks_h, h, v, c.tq]
+    return np.array(info, np.int32)
+
+
+def encode_scan_host(coefs: torch.Tensor, frame: Frame) -> bytes:
+    """The Huffman stage in host C (``sleap_jpeg_encode_scan``), from a
+    contiguous (blocks, 64) int16 CPU tensor."""
+    from sleap_tpu_torch.ops import _build
+
+    if coefs.shape != (frame.blocks, 64) or coefs.dtype != torch.int16 \
+            or coefs.device.type != "cpu" or not coefs.is_contiguous():
+        raise ValueError(f"The host encoder reads a contiguous ({frame.blocks}, 64) int16 CPU "
+                         f"tensor, not {tuple(coefs.shape)} {coefs.dtype} on {coefs.device}.")
+    units = len(_mcu_units(frame)) * frame.mcux * frame.mcuy
+    out = _scratch(512 * units + 64)  # a block codes to at most ~430 bytes, stuffed
+    info, codes = _encode_info(frame), _code_table()
+    written = np.zeros(1, np.int64)
+    err = _build.entry("sleap_jpeg_encode_scan")(
+        coefs.data_ptr(), len(frame.components), info.ctypes.data, frame.mcux, frame.mcuy,
+        codes.ctypes.data, out.ctypes.data, out.size, written.ctypes.data)
+    if err:
+        raise RuntimeError("sleap_jpeg_encode_scan ran out of output buffer.")
+    return out[:int(written[0])].tobytes()
+
+
+def ycc_cuda(img: torch.Tensor, frame: Frame) -> torch.Tensor:
+    """J3 (``jpeg_ycc_kernel``): :func:`ycc_plain` on the card, (H, W) gray
+    or (H, W, 3) BGR uint8 -> (blocks, 64) uint8 samples."""
+    from sleap_tpu_torch.ops import _build
+
+    _check_card(img, torch.uint8, "the frame")
+    ncomp = len(frame.components)
+    want = (frame.height, frame.width) if ncomp == 1 else (frame.height, frame.width, 3)
+    if tuple(img.shape) != want:
+        raise ValueError(f"the frame {tuple(img.shape)} does not fit a layout of {want}.")
+    y = frame.components[0]
+    out = torch.empty((frame.blocks, 64), dtype=torch.uint8, device=img.device)
+    _build.launch("sleap_jpeg_ycc", img.device.index, img.data_ptr(), frame.height, frame.width,
+                  ncomp, y.blocks_w, y.blocks_h, frame.mcux, frame.mcuy, out.data_ptr())
+    ycc_cuda.launches += 1
+    return out
+
+
+ycc_cuda.launches = 0
+
+
+def fdct_cuda(samples: torch.Tensor, divs: torch.Tensor, frame: Frame) -> torch.Tensor:
+    """J4 (``jpeg_fdct_kernel``): :func:`fdct_plain` on the card, (blocks,
+    64) uint8 samples and the (2, 3, 64) int32 :func:`divisors` -> (blocks,
+    64) int16 coefficients."""
+    from sleap_tpu_torch.ops import _build
+
+    _check_card(samples, torch.uint8, "samples")
+    _check_card(divs, torch.int32, "divisor tables")
+    if samples.shape != (frame.blocks, 64) or divs.shape != (2, 3, 64):
+        raise ValueError(f"samples {tuple(samples.shape)} and divisors {tuple(divs.shape)} do not "
+                         f"fit a frame of {frame.blocks} blocks.")
+    y = frame.components[0]
+    out = torch.empty((frame.blocks, 64), dtype=torch.int16, device=samples.device)
+    _build.launch("sleap_jpeg_fdct", samples.device.index, samples.data_ptr(), frame.blocks,
+                  divs.data_ptr(), y.blocks_w * y.blocks_h, out.data_ptr())
+    fdct_cuda.launches += 1
+    return out
+
+
+fdct_cuda.launches = 0
+
+@functools.lru_cache(maxsize=None)
+def _card_divisors(device: torch.device) -> torch.Tensor:
+    return _divisor_tables().to(device)
+
+
+def card_divisors(device) -> torch.Tensor:
+    """The :func:`divisors` of both tables on ``device``, uploaded once."""
+    return _card_divisors(torch.device(device))
+
+
+def encode_cuda(img, device) -> bytes:
+    """The card's route: the frame to ``device``, J3, J4, one copy of the
+    coefficients back, the host entropy coder and the markers."""
+    img = _as_frame(img)
+    channels = 1 if img.ndim == 2 else 3
+    frame = frame_layout(img.shape[0], img.shape[1], channels)
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    samples = ycc_cuda(torch.from_numpy(img).to(device), frame)
+    coefs = fdct_cuda(samples, card_divisors(device), frame).cpu()
+    head, tail = headers(frame.height, frame.width, channels)
+    return head + encode_scan_host(coefs, frame) + tail
+
+
+def imencode(img, device="cuda") -> bytes:
+    """``cv2.imencode(".jpg", img)[1].tobytes()`` at cv2's defaults (quality
+    95, baseline, standard Huffman tables, 4:2:0 for colour, JFIF 1.01): the
+    JPEG of an (H, W) or (H, W, 1) gray or (H, W, 3) BGR uint8 frame,
+    encoded on ``device``'s route."""
+    if torch.device(device).type == "cuda":
+        return encode_cuda(img, device)
+    return encode_plain(img)

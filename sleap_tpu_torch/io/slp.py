@@ -288,6 +288,7 @@ def write_labels(
     suggested: bool = False,
     image_format: str = "png",
     append: bool = False,
+    device=None,
 ) -> None:
     """Write :class:`Labels` as ``.slp``.
 
@@ -295,9 +296,10 @@ def write_labels(
     user instance's score is NaN on disk and a missing track is -1.
     ``save_frame_data`` embeds the images of the frames with user instances
     (every labeled frame with ``all_labeled``, and the suggested ones with
-    ``suggested``) as ``image_format`` rows, and points the file's videos at
-    them. ``append=True`` merges into an existing file: its project is read,
-    the new frames merged in (videos matched by filename, skeletons by node
+    ``suggested``) as ``image_format`` rows (JPEG encoded on ``device``, by
+    default each video's), and points the file's videos at them.
+    ``append=True`` merges into an existing file: its project is read, the
+    new frames merged in (videos matched by filename, skeletons by node
     names) and the file written again.
     """
     if append and os.path.exists(filename):
@@ -322,7 +324,7 @@ def write_labels(
     with hdf5.Writer(filename) as f:
         videos = list(labels.videos)
         if save_frame_data:
-            videos = _embed_frame_data(f, labels, image_format, all_labeled, suggested)
+            videos = _embed_frame_data(f, labels, image_format, all_labeled, suggested, device)
         md = f.require_group("metadata")
         md.attrs["format_id"] = FORMAT_ID
         md.attrs["json"] = _json_bytes(_serialize_metadata(labels))
@@ -412,7 +414,7 @@ def _write_json_dataset(f: hdf5.Writer, name: str, items: List[np.bytes_]) -> No
 
 
 def _embed_frame_data(f: hdf5.Writer, labels: Labels, image_format: str, all_labeled: bool,
-                      suggested: bool) -> List[Video]:
+                      suggested: bool, device=None) -> List[Video]:
     """Embed each video's frames (those with user instances; every labeled
     one with ``all_labeled``; plus the suggested ones with ``suggested``)
     as ``video{N}/video`` rows, ``video{N}/frame_numbers`` and
@@ -427,7 +429,8 @@ def _embed_frame_data(f: hdf5.Writer, labels: Labels, image_format: str, all_lab
         frame_nums = {lf.frame_idx for lf in labels.find(video) if all_labeled or lf.has_user_instances}
         frame_nums = sorted(frame_nums | suggested_by_video.get(id(video), set()))
         group = f"video{v_idx}"
-        rows = imencode_rows((video.get_frame(i) for i in frame_nums), image_format)
+        rows = imencode_rows((video.get_frame(i) for i in frame_nums), image_format,
+                             video._device(device))
         write_encoded(f, f"{group}/video", rows, image_format,
                       (video.height, video.width, video.channels))
         f.create_dataset(f"{group}/frame_numbers", data=np.array(frame_nums, dtype=np.int64),

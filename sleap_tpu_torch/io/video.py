@@ -607,15 +607,16 @@ def imdecode(data: bytes, fmt: str, device: Device, what: str) -> np.ndarray:
     raise NotImplementedError(f"Decoding {fmt!r} images ({what}) is not ported: PNG and JPEG are.")
 
 
-def imencode_rows(frames: Sequence[np.ndarray], fmt: str) -> List[np.ndarray]:
+def imencode_rows(frames: Sequence[np.ndarray], fmt: str, device: Device = "cuda") -> List[np.ndarray]:
     """Each frame encoded as ``cv2.imencode("." + fmt, frame)`` would, as a
-    row of int8 (the layout of a ``.pkg.slp``'s embedded frames)."""
+    row of int8 (the layout of a ``.pkg.slp``'s embedded frames): PNG on the
+    host, JPEG on ``device``'s route (:func:`jpeg.imencode`: J3 and J4 on
+    the card), byte for byte as cv2 writes it."""
     if fmt in ("jpg", "jpeg"):
-        raise NotImplementedError(
-            "Writing JPEG frames (format='jpg') is not ported: it needs a JPEG encoder equal to "
-            "cv2's (ROADMAP.md, queue 1, item 3d(2)). Write PNG frames (format='png').")
+        return [np.frombuffer(jpeg.imencode(frame, device), np.int8) for frame in frames]
     if fmt != "png":
-        raise NotImplementedError(f"Writing {fmt!r} frames is not ported: PNG is.")
+        raise NotImplementedError(f"Writing {fmt!r} frames is not ported: PNG and JPEG are (BMP "
+                                  "and TIFF are ROADMAP.md, queue 1, item 3d(2)).")
     return [png.imencode(".png", frame)[1].reshape(-1).view(np.int8) for frame in frames]
 
 
@@ -794,16 +795,18 @@ class Video:
 
     def write_hdf5(self, group: hdf5.WritableGroup, dataset: str,
                    frame_numbers: Optional[List[int]] = None, format: str = "",
-                   index_by_original: bool = True) -> None:
+                   index_by_original: bool = True, device: Optional[Device] = None) -> None:
         """:meth:`to_hdf5`'s datasets, into the group of a file being
         written: ``<dataset>/video`` (raw frames, gzip level 9; or encoded
-        rows with ``format``), ``<dataset>/frame_numbers`` and
-        ``<dataset>/source_video`` (this video's JSON)."""
+        rows with ``format``, JPEG encoded on ``device``, by default this
+        video's), ``<dataset>/frame_numbers`` and ``<dataset>/source_video``
+        (this video's JSON)."""
         if frame_numbers is None:
             frame_numbers = list(range(self.num_frames))
         frames = self.get_frames(frame_numbers) if frame_numbers else np.zeros((1, 1, 1, 1))
         if format:
-            write_encoded(group, dataset + "/video", imencode_rows(frames, format), format,
+            write_encoded(group, dataset + "/video",
+                          imencode_rows(frames, format, self._device(device)), format,
                           (self.height, self.width, self.channels))
         else:
             group.create_dataset(dataset + "/video", data=frames, compression="gzip",
@@ -818,26 +821,28 @@ class Video:
                 device: Optional[Device] = None) -> "Video":
         """Copy frames into an HDF5 file (added to the file where it exists,
         as h5py's mode "a") and return a video of them that decodes on
-        ``device`` (by default this video's); the layout of the JAX
-        package's ``Video.to_hdf5``: see :meth:`write_hdf5`."""
+        ``device`` (by default this video's), where JPEG rows are encoded
+        too; the layout of the JAX package's ``Video.to_hdf5``: see
+        :meth:`write_hdf5`."""
         with hdf5.Writer(path, "a") as f:
-            self.write_hdf5(f, dataset, frame_numbers, format, index_by_original)
+            self.write_hdf5(f, dataset, frame_numbers, format, index_by_original, device)
         return Video(HDF5Video(filename=path, dataset=dataset + "/video", input_format="channels_last",
                                convert_range=False, device=self._device(device)))
 
     def to_imgstore(self, path: str, frame_numbers: Optional[List[int]] = None,
                     format: str = "png", index_by_original: bool = True,
                     device: Optional[Device] = None) -> "Video":
-        """Copy frames into a PNG ImgStore at ``path`` and return a video of
-        it that decodes on ``device`` (by default this video's); an empty
-        selection stores one blank frame, as the JAX package does."""
+        """Copy frames into a PNG or JPEG ImgStore at ``path`` and return a
+        video of it that decodes on ``device`` (by default this video's),
+        where JPEG frames are encoded too; an empty selection stores one
+        blank frame, as the JAX package does."""
         import time
 
         if frame_numbers is None:
             frame_numbers = list(range(self.num_frames))
         store = dirimgstore.new_for_format(format, mode="w", basedir=path,
                                            imgshape=(self.height, self.width, self.channels),
-                                           chunksize=1000)
+                                           chunksize=1000, device=self._device(device))
         for i in frame_numbers:
             store.add_image(self.get_frame(i), i, time.time())
         if not frame_numbers:

@@ -335,12 +335,26 @@ def test_to_hdf5_matches_jax(fmt, tmp_path):
 
 
 def test_jpeg_writing_raises_naming_the_roadmap_item(tmp_path):
+    """JPEG rows (``Video.to_hdf5`` and ``save_frame_data_hdf5`` with
+    ``format="jpg"``) are byte-equal to the JAX package's, which cv2
+    encodes; the formats still unported (BMP, TIFF) raise naming the
+    ROADMAP item."""
+    for channels in (1, 3):
+        frames = _frames(4, 21, 35, channels, seed=channels)
+        mine, ref = str(tmp_path / f"mine{channels}.h5"), str(tmp_path / f"ref{channels}.h5")
+        tvideo.Video.from_numpy(frames).to_hdf5(mine, "v", [0, 2, 3], format="jpg", device="cpu")
+        jvideo.Video.from_numpy(frames).to_hdf5(ref, "v", [0, 2, 3], format="jpg")
+        _port_project(frames).save_frame_data_hdf5(mine, format="jpg", device="cpu")
+        _jax_project(frames).save_frame_data_hdf5(ref, format="jpg")
+        with h5py.File(mine, "r") as fm, h5py.File(ref, "r") as fr:
+            for key in ("v/video", "video0/video"):
+                np.testing.assert_array_equal(fm[key][()], fr[key][()])
+                for attr in ("format", "channels", "height", "width"):  # bytes or str
+                    a, b = fm[key].attrs[attr], fr[key].attrs[attr]
+                    assert (a.decode() if isinstance(a, bytes) else a) == b
     video = tvideo.Video.from_numpy(_frames(2, 8, 8, 1, seed=0))
     with pytest.raises(NotImplementedError, match=r"item 3d\(2\)"):
-        video.to_hdf5(str(tmp_path / "x.h5"), "v", format="jpg")
-    with pytest.raises(NotImplementedError, match=r"item 3d\(2\)"):
-        _port_project(_frames(4, 8, 8, 1, seed=0)).save_frame_data_hdf5(
-            str(tmp_path / "y.h5"), format="jpg")
+        video.to_hdf5(str(tmp_path / "x.h5"), "v", format="bmp", device="cpu")
 
 
 def test_raw_in_memory_videos_are_written_deflated(tmp_path):

@@ -161,12 +161,27 @@ def test_pre_1_1_files_shift_user_points(tmp_path):
 
 
 def test_embedding_frames_is_refused(tmp_path):
-    """Embedding frames as JPEG needs an encoder equal to cv2's, not ported:
-    it raises naming the ROADMAP item, and writes nothing."""
+    """Embedding frames as JPEG writes the rows the JAX package writes with
+    cv2, byte for byte, and the JAX package reads them; embedding BMP frames
+    is still refused naming the ROADMAP item, and writes nothing."""
+    rng = np.random.default_rng(5)
+    frames = np.clip(rng.normal(120, 40, (4, 30, 44, 1)), 0, 255).astype(np.uint8)
+    project = _port_project(frames)
+    path, raw, ref = (str(tmp_path / n) for n in ("x.pkg.slp", "raw.slp", "ref.pkg.slp"))
+    project.save(path, with_images=True, image_format="jpg", device="cpu")
+    project.save(raw)  # the same project, read by the JAX package and embedded by it
+    jslp.write_labels(ref, jslp.read_labels(raw), save_frame_data=True, image_format="jpg")
+    with h5py.File(path, "r") as fm, h5py.File(ref, "r") as fr:
+        np.testing.assert_array_equal(fm["video0/video"][()], fr["video0/video"][()])
+        np.testing.assert_array_equal(fm["video0/frame_numbers"][()], fr["video0/frame_numbers"][()])
+        assert fm["video0/video"].attrs["format"] in (b"jpg", "jpg")
+        assert fr["video0/video"].attrs["format"] == "jpg"
+    video = jslp.read_labels(path).videos[0]
+    assert video.backend.embedded_frame_inds == [1, 2]
     labels = _port_project(np.zeros((2, 8, 8, 1), np.uint8))
     with pytest.raises(NotImplementedError, match=r"item 3d\(2\)"):
-        labels.save(str(tmp_path / "x.pkg.slp"), with_images=True, image_format="jpg")
-    assert not (tmp_path / "x.pkg.slp").exists()
+        labels.save(str(tmp_path / "y.pkg.slp"), with_images=True, image_format="bmp", device="cpu")
+    assert not (tmp_path / "y.pkg.slp").exists()
 
 
 def test_labels_lookups():

@@ -16,7 +16,8 @@ trains a shipped profile (at filters 4) on a project of two videos of
 different sizes, scores it and ``sleap-inspect`` describes the folder and
 the project; and frames go in and out of users' files: a PNG training
 package written and read back, an ImgStore written and read back, and the
-committed JPEG stills decoded to cv2's recorded frames; and the data
+committed JPEG stills decoded to cv2's recorded frames, and a JPEG package
+rendered by ``sleap-render`` to a Motion-JPEG AVI; and the data
 model's calls (``numpy``, ``remove_predictions``, a track swap, ``merge``,
 ``describe``), ``sleap-convert`` to an analysis ``.h5`` and ``.csv``, and a
 DeepLabCut project import; and a ``dataset_ops`` chain (shuffle, batch,
@@ -321,12 +322,25 @@ for name, want in stills.items():
         data = open(os.path.join("tests", "torch_data", "jpeg", name + ".jpg"), "rb").read()
         img = jpeg.imdecode(data, device="cpu")
         decoded[name] = hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"]
+# A JPEG package, rendered by sleap-render: with cv2 blocked (and imageio
+# unable to write an AVI), a Motion-JPEG AVI.
+from sleap_tpu_torch.io import avi, visuals
+
+jpg_path = os.path.join(tmp, "frames.jpg.pkg.slp")
+Labels(two_sizes).save(jpg_path, with_images=True, image_format="jpg", device="cpu")
+jpg_video = read_labels(jpg_path, device="cpu").videos[0]
+rendered = os.path.join(tmp, "rendered.avi")
+visuals.main([jpg_path, "--cpu", "-o", rendered])
+chunks = avi.read_frames(rendered)
 result["frames_io"] = {
     "package": [bool(np.array_equal(v[:], lf.video[:]))
                 for v, lf in zip(pkg_videos, [two_sizes[0], two_sizes[-1]])],
     "package_backends": [type(v.backend).__name__ for v in pkg_videos],
     "imgstore": bool(np.array_equal(store.get_frames([0, 2]), frames[[0, 2]])),
     "jpeg": decoded,
+    "render": {"chunks": len(chunks), "want": len(jpg_video.backend.embedded_frame_inds),
+               "shape": list(jpeg.imdecode(chunks[0], "cpu").shape),
+               "want_shape": [jpg_video.height, jpg_video.width, 3]},
 }
 # The data model, sleap-convert and a DeepLabCut import.
 from sleap_tpu_torch.core.instance import Track
@@ -629,6 +643,8 @@ def test_frames_in_and_out_with_the_jax_side_blocked(standalone):
     stills = json.loads((REPO / "tests" / "torch_data" / "jpeg" / "decoded.json").read_text())
     small = [n for n, want in stills["stills"].items() if "sha256" in want and "1024" not in n]
     assert sorted(res["jpeg"]) == sorted(small) and all(res["jpeg"].values())
+    render = res["render"]
+    assert render["chunks"] == render["want"] > 0 and render["shape"] == render["want_shape"]
 
 
 def test_slice_modules_run_with_the_jax_side_blocked(standalone):
