@@ -5,7 +5,8 @@ inference, flow-shift tracking, training, the ``sleap-track``,
 ``sleap-diagnostic`` CLIs, exported programs, the data model's API, the
 host modules (NWB/NIX, image-feature suggestions, prefs, util, message),
 the pipeline blocks and builders, ZMQ training and MoveNet, JPEG writing
-and ``sleap-render`` once on one CUDA card,
+and ``sleap-render``, and still images (progressive JPEG, BMP, TIFF) once
+on one CUDA card,
 through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
 trained run folders from their own checkpoints, the other backbones
@@ -283,8 +284,10 @@ script its total before the ``kernels`` line:
    frame, the file sizes beside the raw ``.slp``'s, the read ms a frame and
    P1's and the wavefront's ms. 13b: the committed JPEG fixtures
    (``scripts/make_torch_jpeg_fixtures.py``): J1 and J2 give each still's
-   recorded cv2 sha256, the progressive one is refused, the host entropy
-   decoder gives the plain version's coefficients on the small stills, and
+   recorded cv2 sha256, the truncated progressive one is refused naming
+   block smoothing, the host entropy decoder gives the plain version's
+   coefficients on the small baseline stills (19a holds the progressive
+   ones), and
    J1 and J2 give the plain PyTorch stages' output on the 1024^2 stills'
    coefficients; prints the ms a frame of the entropy decode, the copy in,
    J1, J2 and the copy out at 1024^2 gray and colour. 13c: ``sleap-track
@@ -421,13 +424,37 @@ script its total before the ``kernels`` line:
    ``render_frame`` on ``tests/torch_data/jpeg_pkg.slp``'s 16 frames
    (decoded by J1 and J2) at scale 1 and 0.5 gives the JAX package's
    recorded sha256 (``rendered.json``).
+19. Still images, after phase 18 (aim: 15-30 s). 19a: the committed
+   progressive JPEGs (``tests/torch_data/jpeg/*progressive*``: cv2's and
+   PIL's scan scripts, gray, 4:2:0, 4:2:2, 4:4:4, restarts, odd sizes,
+   1024^2) through the card's route (the host progressive entropy decoder,
+   J1, J2) to ``decoded.json``'s cv2 sha256, the truncated one refused
+   naming block smoothing; J1 and J2 once a decoded frame (counts zeroed
+   just before, read just after; they join the kernels line); the host
+   progressive coefficients equal the plain decoder's on the stills of up
+   to JPEG_PLAIN_BLOCKS blocks; a 1024^2 progressive frame's ms (host
+   entropy decode, J1 + J2 on the device, whole frame) beside the baseline
+   1024^2 frame's. 19b: every committed BMP and TIFF still
+   (``tests/torch_data/stills``, ``scripts/make_torch_still_fixtures.py``)
+   decoded on the card's route (TIFF's LZW and PackBits in host C) to
+   ``decoded.json``'s cv2 sha256 and dtype, or refused naming its feature;
+   the host C LZW and PackBits equal the plain ones both ways on the strips
+   of the 1024^2 TIFF; decode ms a 1024^2 frame, card route and CPU route.
+   19c: ``encoded.json``'s write cases encoded on the card's route to
+   cv2's sha256; phase 8a's 32 gray 1024^2 frames saved as a TIFF
+   ``.pkg.slp`` (``Labels.save(image_format="tif")``) and as BMP and TIFF
+   ImgStores (``to_imgstore``), read back on the card bitwise; prints write
+   seconds and MB. 19d: ``sleap-track`` (in this process) on the TIFF
+   package and on a PNG package of the same frames with phase 4's float32
+   pair on the card: the same predictions exactly (the pixels are the
+   same), kernels 2, 3 and 1 once a batch; prints the FPS.
 
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
 one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
-one of phase 17's and one of phase 18's; the line before the last is a JSON
-object with each kernel's launches (J1 and J2 from phase 13c's run, J3 and
-J4 from 18b's and 18c's) (all paths' and per path), error and times; the
-last line is ``{"ok": true, "device": {...}}``.
+one of phase 17's, one of phase 18's and one of phase 19's; the line before
+the last is a JSON object with each kernel's launches (J1 and J2 from phase
+13c's and 19a's runs, J3 and J4 from 18b's and 18c's) (all paths' and per
+path), error and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import csv
@@ -3466,7 +3493,7 @@ def check_jpeg(card):
         check(list(img.shape) == want["shape"] and sha256(img) == want["sha256"],
               f"13b: {name} decodes on the card to cv2's frame")
         header = jpeg.parse(stills[name])
-        if header.blocks <= JPEG_PLAIN_BLOCKS:
+        if header.blocks <= JPEG_PLAIN_BLOCKS and not header.progressive:  # 19a: progressive
             check(np.array_equal(jpeg.coefficients_host(stills[name], header).numpy(),
                                  jpeg.coefficients_plain(stills[name], header)),
                   f"13b: the host entropy decoder gives the plain coefficients on {name}")
@@ -4089,6 +4116,279 @@ def jpeg_kernel_rows(jpeg_rows, launches):
             "colour_420": {k: v for k, v in r["colour"].items()},
         })
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Phase 19: still images (progressive JPEG through J1 and J2, BMP, TIFF)
+# --------------------------------------------------------------------------- #
+
+
+STILLS_DIR = ("tests", "torch_data", "stills")
+
+
+def still_record(name):
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, *STILLS_DIR, name)) as fh:
+        return json.load(fh)
+
+
+def read_still(name, folder=STILLS_DIR) -> bytes:
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, *folder, name), "rb") as fh:
+        return fh.read()
+
+
+def check_progressive(card, launches):
+    """19a: the committed progressive JPEGs through the card's route (host
+    progressive entropy decoder, J1, J2) to cv2's recorded frames, the
+    truncated one refused; J1 and J2 once a decoded frame; the host
+    coefficients against the plain decoder's on the small stills; a 1024^2
+    progressive frame's ms beside a baseline one's. Returns the figures it
+    prints."""
+    from sleap_tpu_torch.io import jpeg
+
+    record = jpeg_record()["stills"]
+    names = sorted(n for n in record if "progressive" in n)
+    files = {n: read_still(n + ".jpg", JPEG_DIR) for n in names}
+    wrappers = {"jpeg_idct": jpeg.idct_cuda, "jpeg_color": jpeg.color_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    decoded = 0
+    for name in names:
+        want = record[name]
+        if "refused" in want:
+            try:
+                jpeg.imdecode(files[name], "cuda")
+            except jpeg.UnsupportedJpeg as e:
+                check(want["refused"] in str(e), f"19a: {name} refused naming {want['refused']}: {e}")
+                continue
+            check(False, f"19a: {name} must be refused")
+        img = jpeg.imdecode(files[name], "cuda")
+        check(list(img.shape) == want["shape"] and sha256(img) == want["sha256"],
+              f"19a: {name} decodes on the card to cv2's frame")
+        decoded += 1
+    counts = {k: w.launches for k, w in wrappers.items()}
+    for kernel, count in counts.items():
+        check(count == decoded, f"19a: {kernel} launched {count} times for {decoded} progressive frames")
+        launches[kernel]["progressive JPEG stills (19a)"] = count
+    host_checked = 0
+    for name in names:
+        if "refused" in record[name]:
+            continue
+        header = jpeg.parse(files[name])
+        if header.blocks <= JPEG_PLAIN_BLOCKS:
+            check(np.array_equal(jpeg.coefficients_host(files[name], header).numpy(),
+                                 jpeg.coefficients_plain(files[name], header)),
+                  f"19a: the host progressive decoder gives the plain coefficients on {name}")
+            host_checked += 1
+    dev = torch.device("cuda", 0)
+    timing = {}
+    for name in ("gray_1024", "gray_1024_progressive", "c420_1024", "c420_1024_progressive"):
+        data = files.get(name) or read_still(name + ".jpg", JPEG_DIR)
+        header = jpeg.parse(data)
+        staging = jpeg._staging(header.blocks)
+        coefs = jpeg.coefficients_host(data, header, staging).to(dev)
+        q = torch.from_numpy(header.quant.astype(np.int32)).to(dev)
+        timing[name] = {
+            "bytes": len(data), "scans": len(header.scans), "blocks": header.blocks,
+            "entropy_ms": median_ms(lambda: jpeg.coefficients_host(data, header, staging), 5),
+            "j1_j2_device_ms": device_ms(lambda: jpeg.color_cuda(jpeg.idct_cuda(coefs, q, header), header),
+                                         ["jpeg_idct_kernel", "jpeg_color_kernel"]),
+            "frame_ms": median_ms(lambda: jpeg.imdecode(data, "cuda"), 5),
+        }
+    figures = {"files": len(names), "decoded": decoded, "host_vs_plain": host_checked,
+               "launches": counts, "ms_1024": timing}
+    log(f"19a {decoded} progressive JPEGs decoded on the card to cv2's frames (the truncated one "
+        f"refused, block smoothing); J1/J2 launches {counts}; host vs plain coefficients on "
+        f"{host_checked} ({card})")
+    for name, t in timing.items():
+        log(f"19a {name} ({t['bytes']} bytes, {t['scans']} scans, {t['blocks']} blocks): host entropy "
+            f"{t['entropy_ms']:.3f} ms, J1 + J2 on the device {t['j1_j2_device_ms']:.4f} ms, whole "
+            f"frame on the card's route {t['frame_ms']:.3f} ms ({card})")
+    return figures
+
+
+def check_still_decodes(card):
+    """19b: every committed BMP and TIFF still on the card's route to cv2's
+    recorded frame or refused naming its feature; the host C LZW and
+    PackBits against the plain ones both ways on the strips of the 1024^2
+    TIFF; decode ms a 1024^2 frame. Returns the figures it prints."""
+    from sleap_tpu_torch.io import stills, tiff
+
+    record = still_record("decoded.json")["stills"]
+    decoded = refused = 0
+    for name, want in sorted(record.items()):
+        data = read_still(name)
+        if "refused" in want:
+            try:
+                stills.imdecode(data, "cuda", name)
+            except ValueError as e:
+                check(want["refused"] in str(e), f"19b: {name} refused naming {want['refused']}: {e}")
+                refused += 1
+                continue
+            check(False, f"19b: {name} must be refused")
+        img = stills.imdecode(data, "cuda", name)
+        check([list(img.shape), str(img.dtype)] == [want["shape"], want["dtype"]]
+              and sha256(img) == want["sha256"], f"19b: {name} decodes on the card to cv2's frame")
+        decoded += 1
+    # The host codecs against the plain ones on the 1024^2 TIFF's strips.
+    frame = stills.imdecode(read_still("cv2_gray_1024.tif"), "cuda")
+    diff = frame.copy()
+    diff[:, 1:] -= frame[:, :-1]
+    rows = max(1, 8192 // frame.shape[1])
+    strips = [diff[y:y + rows].tobytes() for y in range(0, frame.shape[0], rows)]
+    for strip in strips:
+        lzw = tiff.lzw_encode_host(strip)
+        packed = tiff.packbits_encode_host(strip)
+        check(lzw == tiff.lzw_encode_plain(strip) and packed == tiff.packbits_encode_plain(strip),
+              "19b: the host LZW and PackBits encoders give the plain ones' bytes")
+        check(tiff.lzw_decode_host(lzw, len(strip)) == tiff.lzw_decode_plain(lzw, len(strip)) == strip
+              and tiff.packbits_decode_host(packed, len(strip)) == strip
+              == tiff.packbits_decode_plain(packed, len(strip)),
+              "19b: the host LZW and PackBits decoders give the plain ones' bytes")
+    timing = {}
+    for name in ("cv2_gray_1024.tif", "cv2_gray16_1024.tif"):
+        data = read_still(name)
+        timing[name] = {"bytes": len(data),
+                        "card_route_ms": median_ms(lambda: stills.imdecode(data, "cuda"), 5),
+                        "cpu_route_ms": median_ms(lambda: stills.imdecode(data, "cpu"), 1)}
+    figures = {"decoded": decoded, "refused": refused, "lzw_strips": len(strips), "ms_1024": timing}
+    log(f"19b {decoded} BMP and TIFF stills decoded on the card's route to cv2's frames, {refused} "
+        f"refused naming their features; host LZW and PackBits equal the plain ones both ways on "
+        f"{len(strips)} strips; 1024^2 decode ms card route / CPU route: " + ", ".join(
+            f"{k} {v['card_route_ms']:.2f} / {v['cpu_route_ms']:.1f}" for k, v in timing.items())
+        + f" ({card})")
+    return figures
+
+
+def check_still_writes(card, kept):
+    """19c: ``encoded.json``'s write cases on the card's route to cv2's
+    bytes; phase 8a's frames as a TIFF package (and a PNG one for 19d) and
+    as BMP and TIFF ImgStores, read back bitwise on the card. The packages
+    stay in ``kept`` ("tif_pkg", "png_pkg"). Returns the figures it
+    prints."""
+    from sleap_tpu_torch.core.instance import Instance, LabeledFrame
+    from sleap_tpu_torch.core.labels import Labels
+    from sleap_tpu_torch.core.skeleton import Skeleton
+    from sleap_tpu_torch.io import stills
+    from sleap_tpu_torch.io.slp import read_labels
+    from sleap_tpu_torch.io.video import Video
+
+    record = still_record("encoded.json")["frames"]
+    t0 = time.perf_counter()
+    sources = {}
+    for name, want in record.items():
+        base, fmt = name.rsplit(".", 1)
+        src = base.split("_crop_")[0]
+        if src not in sources:
+            sources[src] = stills.imdecode(read_still(src), "cuda")
+        img = sources[src]
+        if "_crop_" in base:
+            w, h = (int(v) for v in base.split("_crop_")[1].split("x"))
+            img = np.ascontiguousarray(img[1:1 + h, 1:1 + w])
+        data = stills.imencode(img, fmt, "cuda")
+        check(len(data) == want["bytes"] and sha256(data) == want["sha256"],
+              f"19c: {name} encodes on the card's route to cv2's bytes")
+    cases_s = time.perf_counter() - t0
+    frames, xy = cli_frames()
+    skeleton = Skeleton("blob")
+    skeleton.add_node("A")
+    skeleton.add_node("B")
+    video = Video.from_numpy(frames)
+    labels = Labels([LabeledFrame(video, i, [Instance(skeleton, np.array([[x - 6, y], [x + 6, y]]))
+                                             for x, y in points]) for i, points in enumerate(xy)])
+    n = len(frames)
+    figures = {"write_cases": len(record), "write_cases_s": cases_s, "frames": n}
+    kept["tif_pkg"] = os.path.join(kept["dir"], "frames.tif.pkg.slp")
+    kept["png_pkg"] = os.path.join(kept["dir"], "frames.png.pkg.slp")
+    t0 = time.perf_counter()
+    labels.save(kept["tif_pkg"], with_images=True, image_format="tif")
+    figures["tif_pkg_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels.save(kept["png_pkg"], with_images=True)
+    figures["png_pkg_write_s"] = time.perf_counter() - t0
+    figures["tif_pkg_mb"] = os.path.getsize(kept["tif_pkg"]) / 1e6
+    figures["png_pkg_mb"] = os.path.getsize(kept["png_pkg"]) / 1e6
+    got = read_labels(kept["tif_pkg"]).video
+    check(torch.device(got.backend.device).type == "cuda", "19c: the TIFF package decodes on the card")
+    t0 = time.perf_counter()
+    back = np.stack([got.get_frame(i) for i in range(n)])
+    figures["tif_pkg_read_ms"] = 1e3 * (time.perf_counter() - t0) / n
+    check(np.array_equal(back, frames), "19c: the TIFF package holds the frames, bitwise")
+    with tempfile.TemporaryDirectory() as root:
+        for fmt in ("bmp", "tif"):
+            path = os.path.join(root, fmt)
+            t0 = time.perf_counter()
+            store = video.to_imgstore(path, format=fmt)
+            figures[f"{fmt}_imgstore_write_s"] = time.perf_counter() - t0
+            figures[f"{fmt}_imgstore_mb"] = sum(
+                os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs) / 1e6
+            t0 = time.perf_counter()
+            back = np.stack([store.get_frame(i) for i in range(n)])
+            figures[f"{fmt}_imgstore_read_ms"] = 1e3 * (time.perf_counter() - t0) / n
+            check(np.array_equal(back, frames), f"19c: the {fmt} ImgStore holds the frames, bitwise")
+    log(f"19c {len(record)} write cases encoded on the card's route to cv2's bytes in {cases_s:.2f} s; "
+        f"{n} frames of {IMG}^2 gray: TIFF .pkg.slp {figures['tif_pkg_write_s']:.3f} s "
+        f"({figures['tif_pkg_mb']:.2f} MB; PNG {figures['png_pkg_write_s']:.3f} s, "
+        f"{figures['png_pkg_mb']:.2f} MB), read on the card {figures['tif_pkg_read_ms']:.2f} ms a frame; "
+        f"BMP ImgStore {figures['bmp_imgstore_write_s']:.3f} s ({figures['bmp_imgstore_mb']:.2f} MB, "
+        f"read {figures['bmp_imgstore_read_ms']:.2f} ms a frame), TIFF ImgStore "
+        f"{figures['tif_imgstore_write_s']:.3f} s ({figures['tif_imgstore_mb']:.2f} MB, read "
+        f"{figures['tif_imgstore_read_ms']:.2f} ms a frame); all bitwise ({card})")
+    return figures
+
+
+def check_tiff_cli(td, wrappers, launches, card, kept):
+    """19d: ``sleap-track`` on 19c's TIFF package and on its PNG one with
+    phase 4's float32 pair on the card, in this process: the same
+    predictions exactly, kernels 2, 3 and 1 once a batch. Returns the
+    figures it prints."""
+    from sleap_tpu_torch.io.slp import read_labels
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        folders = write_run_folders(root)
+        paths = [folders["centroid"], folders["instance"]]
+        for path, tm in zip(paths, (td.centroid_model, td.confmap_model)):
+            torch.save({k: v.float().cpu() for k, v in tm.module.state_dict().items()},
+                       os.path.join(path, "best_model.pt"))
+        for name in ("png_pkg", "tif_pkg"):
+            out = os.path.join(root, name + ".predictions.slp")
+            seconds, counts = cli_run([kept[name], "-m", paths[0], "-m", paths[1], "--batch_size",
+                                       str(BATCH), "--max_instances", str(MAX_INSTANCES),
+                                       "--verbosity", "none", "-o", out], wrappers)
+            runs[name] = {"cli_s": seconds, "launches": counts, "labels": read_labels(out)}
+    n = len(runs["tif_pkg"]["labels"])
+    n_batches = -(-n // BATCH)
+    for name, run in runs.items():
+        for kernel, count in run["launches"].items():
+            check(count == n_batches, f"19d: {kernel} launched {count} times on the {name}, want one a batch")
+    for kernel, count in runs["tif_pkg"]["launches"].items():
+        launches[kernel]["CLI TIFF package (19d)"] = count
+    insts = [i for lf in runs["tif_pkg"]["labels"] for i in lf.instances]
+    check(n == CLI_FRAMES and len(insts) >= n, "19d: frames with instances")
+    compare_predictions(runs["tif_pkg"]["labels"], runs["png_pkg"]["labels"], 0.0, 0.0,
+                        "19d: TIFF package vs PNG package")
+    figures = {"frames": n, "instances": len(insts),
+               **{f"{k}_cli_s": v["cli_s"] for k, v in runs.items()},
+               **{f"{k}_cli_fps": n / v["cli_s"] for k, v in runs.items()},
+               "launches": runs["tif_pkg"]["launches"]}
+    log(f"19d sleap-track on the TIFF package: {figures['tif_pkg_cli_fps']:.1f} FPS "
+        f"({runs['tif_pkg']['cli_s']:.3f} s for {n} frames; PNG package {figures['png_pkg_cli_fps']:.1f} "
+        f"FPS), {len(insts)} instances, the PNG package's predictions exactly; launches "
+        f"{runs['tif_pkg']['launches']} ({card})")
+    return figures
+
+
+def check_still_images(td, wrappers, launches, card, kept):
+    """Phase 19: 19a-19d, each part's seconds printed."""
+    figures = {}
+    for part, fn, args in (("19a", check_progressive, (card, launches)),
+                           ("19b", check_still_decodes, (card,)),
+                           ("19c", check_still_writes, (card, kept)),
+                           ("19d", check_tiff_cli, (td, wrappers, launches, card, kept))):
+        figures[part] = timed_phase(part, fn, *args)
+    return figures
 
 
 # --------------------------------------------------------------------------- #
@@ -5937,6 +6237,11 @@ def main() -> int:
         # sleap-render writing a Motion-JPEG AVI.
         jpeg_encoding, encode_rows = timed_phase("18", check_jpeg_encoding, card, launches, kept)
         jpeg_rows.update(encode_rows)
+
+        # Phase 19: still images: progressive JPEG through J1 and J2, BMP and
+        # TIFF decoded and written on the card's route, sleap-track on a
+        # TIFF package.
+        still_images = timed_phase("19", check_still_images, td, td_wrappers, launches, card, kept)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -5965,6 +6270,7 @@ def main() -> int:
     print(json.dumps({"host_modules": host_modules, "card": card}), flush=True)
     print(json.dumps({"pipelines": slice_modules, "card": card}), flush=True)
     print(json.dumps({"jpeg_encoding": jpeg_encoding, "card": card}), flush=True)
+    print(json.dumps({"still_images": still_images, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -10,10 +10,16 @@ Writes, under ``tests/torch_data``:
   4:4:4, 4:2:2 and 4:2:0; sizes 100 x 72 and 37 x 29 (no multiple of the
   MCU); quality 50 and 95; one with a restart interval
   (``IMWRITE_JPEG_RST_INTERVAL``), one with optimised tables
-  (``IMWRITE_JPEG_OPTIMIZE``), one progressive
-  (``IMWRITE_JPEG_PROGRESSIVE``), which the port refuses, two 3 and 2 px
-  wide (chroma planes libjpeg-turbo replicates); and a 1024^2 gray
-  and a 1024^2 colour (4:2:0) still at cv2's default quality 95;
+  (``IMWRITE_JPEG_OPTIMIZE``), two 3 and 2 px wide (chroma planes
+  libjpeg-turbo replicates); and a 1024^2 gray and a 1024^2 colour (4:2:0)
+  still at cv2's default quality 95;
+- ``jpeg/*progressive*.jpg``: progressive stills, as cv2 writes them
+  (``IMWRITE_JPEG_PROGRESSIVE``: libjpeg's ``jpeg_simple_progression``
+  script, Huffman tables optimised per scan) in gray, 4:2:0, 4:2:2 and
+  4:4:4, with a restart interval, at 37 x 29 and 3 x 50, and the two 1024^2
+  frames; as PIL writes them (``progressive=True, optimize=True``); and one
+  of cv2's cut after its third scan (an incomplete script, which
+  libjpeg-turbo decodes with block smoothing and the port refuses);
 - ``jpeg_pkg.slp``: a training package of 16 gray 1024^2 frames, each with
   four Gaussian blob animals (sigma 8 px) on a smooth, lightly textured
   background (no noise: about 70 KB a frame), labeled with a two-node user
@@ -26,7 +32,7 @@ Writes, under ``tests/torch_data``:
   cv2, can hold its decoders to cv2's output;
 - ``jpeg/encoded.json``: the sha256 (and length) of ``cv2.imencode(".jpg",
   frame)`` at cv2's defaults for each still's decoded frame but the
-  progressive one, and for crops (W x H) of the 1024^2 stills' frames to
+  progressive ones, and for crops (W x H) of the 1024^2 stills' frames to
   1x1, 3x50, 17x33 and 1023x1021, so the card can hold its encoder (J3, J4
   and the host entropy coder) to cv2's bytes;
 - ``jpeg/rendered.json``: the sha256 of the JAX package's ``render_frame``
@@ -35,7 +41,8 @@ Writes, under ``tests/torch_data``:
 
 Both records name the cv2 and libjpeg-turbo that wrote them.
 ``--records`` writes only ``encoded.json`` and ``rendered.json``, from the
-committed stills and package, and leaves every other file as it is.
+committed stills and package, and leaves every other file as it is;
+``--stills`` writes only the stills and their entries in ``decoded.json``.
 """
 
 from __future__ import annotations
@@ -117,7 +124,15 @@ def stills(cv2):
     out["c422_100x72_q75_optimized"] = (still(72, 100, 3, 3), [cv2.IMWRITE_JPEG_QUALITY, 75,
                                                                cv2.IMWRITE_JPEG_OPTIMIZE, 1, s,
                                                                sampling["422"]])
-    out["c420_100x72_progressive"] = (still(72, 100, 3, 4), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    p = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    out["c420_100x72_progressive"] = (still(72, 100, 3, 4), p)
+    out["gray_100x72_progressive"] = (still(72, 100, 1, 7)[..., 0], p)
+    out["c422_100x72_progressive"] = (still(72, 100, 3, 8), p + [s, sampling["422"]])
+    out["c444_100x72_progressive"] = (still(72, 100, 3, 9), p + [s, sampling["444"]])
+    out["c420_100x72_progressive_rst3"] = (still(72, 100, 3, 10), p + [cv2.IMWRITE_JPEG_RST_INTERVAL, 3])
+    out["gray_37x29_progressive"] = (still(29, 37, 1, 11)[..., 0], p + [cv2.IMWRITE_JPEG_QUALITY, 50])
+    out["c420_37x29_progressive"] = (still(29, 37, 3, 12), p)
+    out["c420_3x50_progressive"] = (still(50, 3, 3, 13), p)
     # Chroma planes 1 and 2 samples wide: replicated, not fancy-upsampled.
     out["c420_3x50_q90"] = (still(50, 3, 3, 5), [cv2.IMWRITE_JPEG_QUALITY, 90, s, sampling["420"]])
     out["c422_2x9_q90"] = (still(9, 2, 3, 6), [cv2.IMWRITE_JPEG_QUALITY, 90, s, sampling["422"]])
@@ -126,6 +141,46 @@ def stills(cv2):
     out["gray_1024"] = (np.clip(big + 60, 0, 255).astype(np.uint8), [])
     colour = np.stack([big + 20, 200 - big, big + 90], -1)
     out["c420_1024"] = (np.clip(colour, 0, 255).astype(np.uint8), [])
+    out["gray_1024_progressive"] = (out["gray_1024"][0], p)
+    out["c420_1024_progressive"] = (out["c420_1024"][0], p)
+    return out
+
+
+def pil_stills() -> dict:
+    """name -> JPEG bytes as PIL writes them with ``progressive=True,
+    optimize=True``: its scan script with spectral selection and successive
+    approximation, and its own optimised tables."""
+    import io
+
+    from PIL import Image
+
+    out = {}
+    for name, (img, quality, sampling) in {
+            "pil_gray_100x72_progressive": (still(72, 100, 1, 14)[..., 0], 90, 0),
+            "pil_c420_100x72_progressive": (still(72, 100, 3, 15), 85, 2),
+            "pil_c444_37x29_progressive": (still(29, 37, 3, 16), 75, 0)}.items():
+        buf = io.BytesIO()
+        Image.fromarray(img[..., ::-1] if img.ndim == 3 else img).save(
+            buf, "JPEG", progressive=True, optimize=True, quality=quality, subsampling=sampling)
+        out[name] = buf.getvalue()
+    return out
+
+
+def truncated(data: bytes, scans: int) -> bytes:
+    """``data`` cut before its ``scans``-th scan header, with an EOI."""
+    at = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"][scans]
+    return data[:at] + b"\xff\xd9"
+
+
+def still_files(cv2) -> dict:
+    """name -> the bytes of every committed still."""
+    out = {}
+    for name, (img, params) in stills(cv2).items():
+        ok, buf = cv2.imencode(".jpg", img, params)
+        assert ok
+        out[name] = buf.tobytes()
+    out.update(pil_stills())
+    out["c420_100x72_progressive_truncated"] = truncated(out["c420_100x72_progressive"], 3)
     return out
 
 
@@ -143,7 +198,7 @@ CROP_AT = 1
 
 def encode_frames(cv2) -> dict:
     """name -> the frame encoded.json holds the encoding of: each committed
-    still but the progressive one as cv2 decodes it, and the crops."""
+    still but the progressive ones as cv2 decodes it, and the crops."""
     jpeg_dir = os.path.join(OUT, "jpeg")
     out = {}
     for name in sorted(stills(cv2)):
@@ -202,7 +257,10 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--records", action="store_true",
                         help="write only encoded.json and rendered.json")
-    if parser.parse_args().records:
+    parser.add_argument("--stills", action="store_true",
+                        help="write only the stills and their records in decoded.json")
+    args = parser.parse_args()
+    if args.records:
         write_records(cv2)
         return
 
@@ -215,17 +273,23 @@ def main() -> None:
     jpeg_dir = os.path.join(OUT, "jpeg")
     os.makedirs(jpeg_dir, exist_ok=True)
     record = {"stills": {}, "package": []}
-    for name, (img, params) in stills(cv2).items():
-        ok, buf = cv2.imencode(".jpg", img, params)
-        assert ok
+    for name, data in still_files(cv2).items():
         path = os.path.join(jpeg_dir, name + ".jpg")
         with open(path, "wb") as fh:
-            fh.write(buf.tobytes())
-        if "progressive" in name:
-            record["stills"][name] = {"refused": "progressive"}
+            fh.write(data)
+        if "truncated" in name:
+            record["stills"][name] = {"refused": "block smoothing"}
         else:
-            record["stills"][name] = digest(cv2.imdecode(buf, cv2.IMREAD_UNCHANGED))
-        print(f"wrote {path}: {len(buf)} bytes")
+            record["stills"][name] = digest(cv2.imdecode(np.frombuffer(data, np.uint8),
+                                                         cv2.IMREAD_UNCHANGED))
+        print(f"wrote {path}: {len(data)} bytes")
+    if args.stills:
+        with open(os.path.join(jpeg_dir, "decoded.json")) as fh:
+            record["package"] = json.load(fh)["package"]
+        with open(os.path.join(jpeg_dir, "decoded.json"), "w") as fh:
+            json.dump(record, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        return
 
     frames, centres = package_frames()
     skeleton = Skeleton("Skeleton-0")

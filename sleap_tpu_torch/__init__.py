@@ -26,10 +26,10 @@ plain Python (``config.py``, ``core/``, ``io/``, ``data/``), so
 ``load_model(folder)`` runs where only PyTorch is installed; orbax
 checkpoints (``best_model.ckpt``) are read by the port's own zstd, OCDBT and
 zarr readers, and ``.slp`` files, HDF5 videos and Keras weights by its own
-HDF5 reader and writer and PNG decoder (``io/``). ``h5py`` is never
-imported; ``cv2`` only inside the functions that read media videos, still
-images or JPEG frames (frames of videos that differ in size are resized by
-the port's own copy of OpenCV's bilinear resize,
+HDF5 reader and writer and still-image codecs (PNG, JPEG, BMP, TIFF:
+``io/stills.py``). ``h5py`` is never imported; ``cv2`` only inside the
+functions that read media videos on the CPU (frames of videos that differ
+in size are resized by the port's own copy of OpenCV's bilinear resize,
 ``data/resizing.resize_linear_uint8``). Entry points run on ``"cuda"``
 unless the caller passes another device.
 """

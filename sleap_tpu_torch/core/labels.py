@@ -932,8 +932,9 @@ class Labels(MutableSequence):
         """Write a ``.slp`` file (making its directory); ``with_images``
         embeds the frames with user instances (every labeled frame with
         ``embed_all_labeled``, and the suggested ones with
-        ``embed_suggested``) as ``image_format`` rows, PNG or JPEG (encoded
-        on ``device``, by default each video's): a training package."""
+        ``embed_suggested``) as ``image_format`` rows, PNG, JPEG, BMP or TIFF
+        (JPEG and TIFF encoded on ``device``, by default each video's): a
+        training package."""
         from sleap_tpu_torch.io import slp
 
         parent = os.path.dirname(filename)

@@ -17,6 +17,12 @@
 //   table (length << 8 | symbol). Coefficients land de-zigzagged in the
 //   caller's (pinned) int16 buffer, (blocks, 64), each component's blocks
 //   row-major at its own offset.
+// - sleap_jpeg_decode_progressive (host): one progressive scan as jdphuff.c
+//   decodes it (DC first with its point transform, DC refinement, AC first
+//   with end-of-band runs, AC refinement with correction bits), adding to the
+//   coefficients the scans before it left in the same buffer; read as
+//   sleap_jpeg_decode_scan reads. A restart resets the DC predictions and the
+//   end-of-band run.
 // - jpeg_idct_kernel (J1): dequantisation and jidctint.c's jpeg_idct_islow
 //   with 64-bit sums (JLONG), the int workspace between the passes and the
 //   10-bit post-IDCT range table. Eight threads a block of 8x8: pass 1 one
@@ -201,6 +207,148 @@ extern "C" int sleap_jpeg_decode_scan(const uint8_t* data, int64_t size, int64_t
     pos = end;
     if (mcu == total) break;
     // Restart: the next interval starts after RSTn, n counting 0..7.
+    while (pos + 1 < size && data[pos] == 0xFF && data[pos + 1] == 0xFF) ++pos;
+    if (pos + 1 >= size || data[pos] != 0xFF || data[pos + 1] != 0xD0 + (n_restarts % 8)) {
+      err = kBadRestart;
+      break;
+    }
+    pos += 2;
+    ++n_restarts;
+  }
+  return err;
+}
+
+// Entropy-decode one progressive scan (jdphuff.c's decode_mcu_DC_first,
+// _DC_refine, _AC_first and _AC_refine) into coefs, which holds what the
+// scans before it decoded. luts: ncomp tables of 65536 uint16, the DC tables
+// of a DC-first scan or the one AC table of an AC scan (none for a DC
+// refinement); info, mcux, mcuy and restart as sleap_jpeg_decode_scan's;
+// ss, se, ah, al the scan's band and successive-approximation bits. Returns
+// sleap_jpeg_decode_scan's errors.
+extern "C" int sleap_jpeg_decode_progressive(const uint8_t* data, int64_t size, int64_t start,
+                                             const uint16_t* luts, int ncomp, const int32_t* info,
+                                             int mcux, int mcuy, int restart, int ss, int se,
+                                             int ah, int al, int16_t* coefs, uint8_t* buf) {
+  const int64_t total = (int64_t)mcux * mcuy;
+  const int64_t interval = restart > 0 ? restart : total;
+  const int p1 = 1 << al, m1 = -(1 << al);
+  const bool dc = ss == 0, refine = ah != 0;
+  int64_t pos = start, mcu = 0, n_restarts = 0;
+  int err = kOk;
+  while (err == kOk) {
+    int64_t n = 0;
+    const int64_t end = unstuff(data, size, pos, buf, &n);
+    memset(buf + n, 0, 16);
+    const int64_t n_bits = 8 * n;
+    int64_t p = 0;
+    int preds[4] = {0, 0, 0, 0};
+    unsigned eobrun = 0;
+    auto bits = [&](int t) {
+      const int v = t ? (int)(peek32(buf, p) >> (32 - t)) : 0;
+      p += t;
+      return v;
+    };
+    auto symbol = [&](const uint16_t* table, int* out) {
+      if (p > n_bits) return kShortData;
+      const uint16_t look = table[peek32(buf, p) >> 16];
+      if (!look) return kBadCode;
+      p += look >> 8;
+      *out = look & 0xFF;
+      return kOk;
+    };
+    auto correct = [&](int16_t* block, int k) {  // a correction bit for a nonzero coefficient
+      int16_t* c = block + kNatural[k];
+      if (bits(1) && (*c & p1) == 0) *c = (int16_t)(*c + (*c >= 0 ? p1 : m1));
+    };
+    const int64_t stop = mcu + interval < total ? mcu + interval : total;
+    for (; mcu < stop && err == kOk; ++mcu) {
+      const int64_t my = mcu / mcux, mx = mcu % mcux;
+      for (int s = 0; s < ncomp && err == kOk; ++s) {
+        const int32_t* ci = info + 4 * s;
+        const uint16_t* table = luts + (int64_t)s * 65536;
+        for (int by = 0; by < ci[3] && err == kOk; ++by) {
+          for (int bx = 0; bx < ci[2] && err == kOk; ++bx) {
+            int16_t* block = coefs + 64 * ((int64_t)ci[0] + (my * ci[3] + by) * ci[1]
+                                           + mx * ci[2] + bx);
+            if (dc && !refine) {
+              int t = 0;
+              if ((err = symbol(table, &t)) != kOk) break;
+              if (t > 15) {
+                err = kBadCode;
+                break;
+              }
+              if (t) {
+                int v = bits(t);
+                if (v < (1 << (t - 1))) v -= (1 << t) - 1;
+                preds[s] += v;
+              }
+              block[0] = (int16_t)(int)((unsigned)preds[s] << al);
+            } else if (dc) {
+              if (bits(1)) block[0] = (int16_t)(block[0] | p1);
+            } else if (!refine) {
+              if (eobrun > 0) {
+                --eobrun;
+                continue;
+              }
+              for (int k = ss; k <= se; ++k) {
+                int rs = 0;
+                if ((err = symbol(table, &rs)) != kOk) break;
+                const int r = rs >> 4, t = rs & 15;
+                if (t) {
+                  k += r;
+                  int v = bits(t);
+                  if (v < (1 << (t - 1))) v -= (1 << t) - 1;
+                  block[kNatural[k]] = (int16_t)(int)((unsigned)v << al);
+                } else if (r == 15) {
+                  k += 15;
+                } else {
+                  eobrun = (1u << r) + (unsigned)bits(r) - 1;
+                  break;
+                }
+              }
+            } else {
+              int k = ss;
+              if (eobrun == 0) {
+                for (; k <= se; ++k) {
+                  int rs = 0;
+                  if ((err = symbol(table, &rs)) != kOk) break;
+                  int r = rs >> 4, t = rs & 15;
+                  if (t) {
+                    t = bits(1) ? p1 : m1;  // a newly nonzero coefficient
+                  } else if (r != 15) {
+                    eobrun = (1u << r) + (unsigned)bits(r);
+                    break;
+                  }
+                  // Past r zero coefficients, correcting the nonzero ones.
+                  do {
+                    if (block[kNatural[k]] != 0) {
+                      correct(block, k);
+                    } else if (--r < 0) {
+                      break;
+                    }
+                    ++k;
+                  } while (k <= se);
+                  if (t) block[kNatural[k]] = (int16_t)t;
+                }
+                if (err) break;
+              }
+              if (eobrun > 0) {
+                for (; k <= se; ++k)
+                  if (block[kNatural[k]] != 0) correct(block, k);
+                --eobrun;
+              }
+            }
+          }
+        }
+      }
+    }
+    if (err) break;
+    if (p > n_bits) {
+      err = kShortData;
+      break;
+    }
+    pos = end;
+    if (mcu == total) break;
     while (pos + 1 < size && data[pos] == 0xFF && data[pos + 1] == 0xFF) ++pos;
     if (pos + 1 >= size || data[pos] != 0xFF || data[pos + 1] != 0xD0 + (n_restarts % 8)) {
       err = kBadRestart;

@@ -1,8 +1,13 @@
-"""A loopbio ImgStore directory store of PNG or JPEG frames, without ``cv2``
-or ``yaml``: a copy of :mod:`sleap_tpu.io.dirimgstore` on the port's codecs
-(:mod:`sleap_tpu_torch.io.png`; :mod:`sleap_tpu_torch.io.jpeg`, whose files
-are the bytes ``cv2.imwrite`` writes, encoded on the store's ``device``) and
-a reader and writer of the YAML subset ``metadata.yaml`` holds.
+"""A loopbio ImgStore directory store of PNG, JPEG, BMP or TIFF frames,
+without ``cv2`` or ``yaml``: a copy of :mod:`sleap_tpu.io.dirimgstore` on
+the port's codecs (:mod:`sleap_tpu_torch.io.stills`: JPEG, BMP and TIFF
+files are the bytes ``cv2.imwrite`` writes, JPEG and TIFF encoded on the
+store's ``device``) and a reader and writer of the YAML subset
+``metadata.yaml`` holds. A store of another class (loopbio's
+``VideoImgStore``, frames in video-file chunks) opens through loopbio's
+``imgstore`` package, as the JAX package opens every store where that
+package is installed; without it, opening one raises ``ImportError``
+naming it.
 
 - ``new_for_filename(path)`` -> a store open for reading;
 - ``new_for_format(fmt, mode="w", basedir=..., imgshape=..., imgdtype=...,
@@ -32,7 +37,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from sleap_tpu_torch.io import jpeg, png
+from sleap_tpu_torch.io import stills
 from sleap_tpu_torch.io.yamlsubset import yaml_dump, yaml_load
 
 STORE_MD_FILENAME = "metadata.yaml"
@@ -53,8 +58,9 @@ def _image_path(basedir: str, chunk_n: int, within_idx: int, ext: str) -> str:
 
 
 class DirectoryImgStore:
-    """Directory-of-images frame store (PNG or JPEG) with loopbio's layout.
-    Frames are decoded, and JPEG frames encoded, on ``device``'s route."""
+    """Directory-of-images frame store (PNG, JPEG, BMP or TIFF) with
+    loopbio's layout. Frames are decoded, and JPEG and TIFF frames encoded,
+    on ``device``'s route."""
 
     def __init__(
         self,
@@ -80,10 +86,7 @@ class DirectoryImgStore:
         self._cursor = 0  # store-order position for get_next_image
 
         if mode == "w":
-            if fmt not in ("png", "jpg", "jpeg"):
-                raise NotImplementedError(
-                    f"Writing {fmt!r} image stores is not ported; the port writes PNG and JPEG "
-                    "stores (BMP and TIFF are ROADMAP.md queue 1, item 3d(2)).")
+            stills.check_format(fmt)
             os.makedirs(basedir, exist_ok=True)
             self._pending_numbers: List[int] = []
             self._pending_times: List[float] = []
@@ -104,10 +107,7 @@ class DirectoryImgStore:
         chunk_n, within = divmod(self._n_written, self.chunksize)
         os.makedirs(_chunk_dir(self.basedir, chunk_n), exist_ok=True)
         out = img[..., 0] if (img.ndim == 3 and img.shape[-1] == 1) else img
-        if self.format == "png":
-            data = png.imencode(".png", out)[1].tobytes()
-        else:
-            data = jpeg.imencode(out, self.device)
+        data = stills.imencode(out, self.format, self.device)
         with open(_image_path(self.basedir, chunk_n, within, self.format), "wb") as fh:
             fh.write(data)
         self._pending_numbers.append(int(frame_number))
@@ -151,11 +151,6 @@ class DirectoryImgStore:
         if not isinstance(md, dict) or not isinstance(md.get("__store"), dict):
             raise ValueError(f"{self.basedir}: {STORE_MD_FILENAME} has no __store mapping.")
         md = md["__store"]
-        if md.get("class", "DirectoryImgStore") != "DirectoryImgStore":
-            raise NotImplementedError(
-                f"{self.basedir}: {md['class']} stores (frames in video-file chunks) are not "
-                "ported (ROADMAP.md, queue 1, item 3d(2)); directory stores of PNG or JPEG frames "
-                "are.")
         self.format = md["format"]
         self.chunksize = int(md["chunksize"])
         self.imgshape = tuple(md.get("imgshape") or ())
@@ -183,13 +178,7 @@ class DirectoryImgStore:
                 data = fh.read()
         except OSError as e:
             raise IOError(f"Unable to read stored frame: {path}") from e
-        if self.format == "png":
-            img = png.imdecode(data, self.device)
-        elif self.format in ("jpg", "jpeg"):
-            img = jpeg.imdecode(data, self.device)
-        else:
-            raise NotImplementedError(f"{path}: {self.format!r} image stores are not supported "
-                                      "(PNG and JPEG only).")
+        img = stills.imdecode(data, self.device, path)
         if self.imgshape and len(self.imgshape) == 3 and img.ndim == 2:
             img = img[..., None]
         return img, (frame_number, self._frame_times[frame_number])
@@ -252,12 +241,33 @@ class DirectoryImgStore:
         self.close()
 
 
-def new_for_filename(path: str, device="cuda") -> DirectoryImgStore:
-    """Open an existing store from its directory or metadata.yaml path;
-    frames decode on ``device``'s route."""
+def store_class(basedir: str) -> str:
+    """The ``class`` ``metadata.yaml`` gives the store at ``basedir``."""
+    with open(os.path.join(basedir, STORE_MD_FILENAME)) as f:
+        md = yaml_load(f.read())
+    if not isinstance(md, dict) or not isinstance(md.get("__store"), dict):
+        raise ValueError(f"{basedir}: {STORE_MD_FILENAME} has no __store mapping.")
+    return str(md["__store"].get("class", "DirectoryImgStore"))
+
+
+def new_for_filename(path: str, device="cuda"):
+    """Open an existing store from its directory or metadata.yaml path: a
+    directory store whose frames decode on ``device``'s route, or a store
+    of another class (frames in video-file chunks) through loopbio's
+    ``imgstore.new_for_filename``, imported here (``device`` does not
+    apply: that package decodes on the host)."""
     basedir = path[: -len(STORE_MD_FILENAME)].rstrip("/\\") if path.endswith(
         STORE_MD_FILENAME
     ) else path
+    kind = store_class(basedir)
+    if kind != "DirectoryImgStore":
+        try:
+            import imgstore
+        except ImportError as e:
+            raise ImportError(f"{basedir} is a {kind} (frames in video-file chunks), which loopbio's "
+                              "imgstore package reads; it is not installed. Directory stores of "
+                              "PNG, JPEG, BMP or TIFF frames are read without it.") from e
+        return imgstore.new_for_filename(os.path.join(basedir, STORE_MD_FILENAME))
     return DirectoryImgStore(basedir=basedir, mode="r", device=device)
 
 
@@ -273,7 +283,7 @@ def new_for_format(
 ) -> DirectoryImgStore:
     """Create a new write-mode store. Only image (per-frame file) formats are
     supported; video formats like ``mjpeg/avi`` fall back to ``png``. JPEG
-    frames are encoded on ``device``."""
+    and TIFF frames are encoded on ``device``."""
     if "/" in fmt:  # video container formats are not supported by the fallback
         fmt = "png"
     return DirectoryImgStore(

@@ -4,18 +4,30 @@ decodes them with libjpeg-turbo's defaults, bit for bit, and encode them as
 codec for ``.pkg.slp`` files, HDF5 frame files, image folders, ImgStores and
 ``sleap-render``'s Motion-JPEG, where ``cv2`` is not installed.
 
-Scope: baseline and extended-sequential Huffman JPEGs (SOF0, SOF1), 8-bit,
-one component (gray, returned (H, W)) or three (YCbCr, returned (H, W, 3)
-in BGR order), sampled 4:4:4, 4:2:2 or 4:2:0, with restart intervals,
-optimised Huffman tables, several scans and sizes that are no multiple of
-the MCU. Anything else (progressive SOF2, lossless, hierarchical or
+Scope: baseline, extended-sequential and progressive Huffman JPEGs (SOF0,
+SOF1, SOF2), 8-bit, one component (gray, returned (H, W)) or three (YCbCr,
+returned (H, W, 3) in BGR order), sampled 4:4:4, 4:2:2 or 4:2:0, with
+restart intervals, optimised Huffman tables (redefined between scans too),
+several scans and sizes that are no multiple of the MCU. A progressive file
+may use any scan script libjpeg accepts (spectral selection and successive
+approximation; DC scans of several components, AC scans of one), as long as
+it leaves every component's DC and first nine AC coefficients at full
+precision: where it does not (a truncated file, a partial script),
+libjpeg-turbo smooths the blocks (``jdcoefct.c``'s ``smoothing_ok`` and
+``decompress_smooth_data``), and this module raises naming block smoothing
+rather than return other pixels. Anything else (lossless, hierarchical or
 arithmetic-coded frames, 12-bit samples, CMYK, Adobe's RGB transform, other
 samplings) raises :class:`UnsupportedJpeg` naming the feature.
 
 A decode has four stages, each as libjpeg-turbo does it:
 
 1. markers and Huffman entropy decoding into de-zigzagged int16 coefficients
-   (byte stuffing; a restart marker resets the DC predictions);
+   (byte stuffing; a restart marker resets the DC predictions and, in a
+   progressive scan, the end-of-band run). Progressive scans are those of
+   ``jdphuff.c``: DC first (with its point transform), DC refinement (one
+   bit a block), AC first (with end-of-band runs across blocks) and AC
+   refinement (correction bits for the coefficients already nonzero); a
+   scan of one component walks that component's own blocks;
 2. dequantisation and the integer inverse DCT of ``jidctint.c``
    (``jpeg_idct_islow``: CONST_BITS 13, PASS1_BITS 2, 64-bit sums, +128 and
    the post-IDCT range limit);
@@ -29,8 +41,9 @@ Two routes, by the ``device`` asked for:
 
 - ``"cpu"``: the plain version. Stage 1 in Python (slow: about a second for
   a 1024^2 frame), stages 2-4 in PyTorch integer tensor code.
-- ``"cuda"``: stage 1 in host C (``sleap_jpeg_decode_scan`` in
-  ``csrc/jpeg.cu``) into a pinned buffer, one copy to the card, then
+- ``"cuda"``: stage 1 in host C (``sleap_jpeg_decode_scan`` and, for
+  progressive scans, ``sleap_jpeg_decode_progressive`` in ``csrc/jpeg.cu``)
+  into a pinned buffer, one copy to the card, then
   ``jpeg_idct_kernel`` (J1, stage 2) and ``jpeg_color_kernel`` (J2, stages 3
   and 4), and the frame back to the host as numpy. A failed build or launch
   raises; there is no fallback to the plain version.
@@ -65,7 +78,7 @@ from __future__ import annotations
 import functools
 import struct
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -82,7 +95,7 @@ ZIGZAG = np.array([
 ] + [63] * 16, np.int32)
 
 _SOF_NAMES = {
-    0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+    0xC3: "lossless JPEG (SOF3)",
     0xC5: "differential sequential JPEG (SOF5)", 0xC6: "differential progressive JPEG (SOF6)",
     0xC7: "differential lossless JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
     0xCA: "arithmetic-coded progressive JPEG (SOF10)", 0xCB: "arithmetic-coded lossless JPEG (SOF11)",
@@ -117,28 +130,42 @@ class Component:
 @dataclass
 class Scan:
     """A scan: the components it codes (indices into the frame's), their DC
-    and AC tables, where its entropy-coded data starts, and the restart
-    interval in force."""
+    and AC tables (by id, and the lookups defined when the scan starts),
+    where its entropy-coded data starts, the restart interval in force, and
+    its spectral band and successive-approximation bits (``ss``, ``se``,
+    ``ah``, ``al``: 0, 63, 0, 0 for a sequential scan)."""
 
     comps: List[int]
     dc: List[int]
     ac: List[int]
     start: int
     restart: int
+    luts: List[np.ndarray] = field(default_factory=list)
+    ss: int = 0
+    se: int = 63
+    ah: int = 0
+    al: int = 0
+
+    @property
+    def kind(self) -> str:
+        """"sequential", "dc_first", "dc_refine", "ac_first" or "ac_refine"."""
+        if (self.ss, self.se, self.ah, self.al) == (0, 63, 0, 0):
+            return "sequential"
+        return ("dc" if self.ss == 0 else "ac") + ("_refine" if self.ah else "_first")
 
 
 @dataclass
 class Header:
     """What the markers say: the frame size, components, quantisation
-    tables latched per component (natural order), Huffman lookup tables and
-    the scans."""
+    tables latched per component (natural order) and the scans (each with
+    its Huffman lookups)."""
 
     height: int
     width: int
     components: List[Component]
     quant: np.ndarray  # (components, 64) uint16
-    tables: Dict[Tuple[int, int], np.ndarray]  # (class, id) -> 65536 uint16 lookups
     scans: List[Scan]
+    progressive: bool = False
 
     @property
     def blocks(self) -> int:
@@ -207,7 +234,8 @@ def parse(data: bytes) -> Header:
     components: List[Component] = []
     scans: List[Scan] = []
     latched: Dict[int, np.ndarray] = {}
-    size, restart, adobe_transform = None, 0, None
+    size, restart, adobe_transform, progressive = None, 0, None, False
+    coef_bits: List[List[int]] = []  # progressive: each component's precision so far (-1: none)
     while True:
         while pos < len(data) and data[pos] != 0xFF:
             pos += 1  # garbage between markers, as libjpeg skips it
@@ -226,7 +254,7 @@ def parse(data: bytes) -> Header:
         if len(body) != length - 2:
             raise ValueError("JPEG marker segment is truncated.")
         pos += length
-        if marker in (0xC0, 0xC1):
+        if marker in (0xC0, 0xC1, 0xC2):
             precision, height, width, n = struct.unpack_from(">BHHB", body)
             if precision != 8:
                 raise UnsupportedJpeg(f"{precision}-bit JPEG samples are not supported (8-bit only).")
@@ -236,13 +264,14 @@ def parse(data: bytes) -> Header:
                 raise UnsupportedJpeg(f"JPEGs of {n} components are not supported (1 or 3).")
             if height == 0:
                 raise UnsupportedJpeg("JPEGs whose height is set by a DNL marker are not supported.")
-            size = (height, width)
+            size, progressive = (height, width), marker == 0xC2
             for i in range(n):
                 ident, hv, tq = body[6 + 3 * i:9 + 3 * i]
                 components.append(Component(ident, hv >> 4, hv & 15, tq))
+            coef_bits = [[-1] * 64 for _ in range(n)]
         elif marker in _SOF_NAMES:
             raise UnsupportedJpeg(f"{_SOF_NAMES[marker]} is not supported "
-                                  "(baseline and extended sequential Huffman only).")
+                                  "(baseline, extended sequential and progressive Huffman only).")
         elif marker == 0xCC:
             raise UnsupportedJpeg("arithmetic coding (DAC marker) is not supported.")
         elif marker == 0xDB:  # DQT
@@ -288,18 +317,28 @@ def parse(data: bytes) -> Header:
                 dc.append(td_ta >> 4)
                 ac.append(td_ta & 15)
             ss, se, ahal = body[1 + 2 * n:4 + 2 * n]
-            if (ss, se, ahal) != (0, 63, 0):
-                raise UnsupportedJpeg("progressive or spectral-selection scans are not supported.")
-            for ci, d, a in zip(comps, dc, ac):
-                for key in ((0, d), (1, a)):
-                    if key not in tables:
-                        raise ValueError(f"JPEG scan uses Huffman table {key}, never defined.")
+            ah, al = ahal >> 4, ahal & 15
+            scan = Scan(comps, dc, ac, pos, restart, [], ss, se, ah, al)
+            if not progressive and (ss, se, ahal) != (0, 63, 0):
+                raise UnsupportedJpeg("spectral-selection or successive-approximation scans in a "
+                                      "sequential (SOF0/SOF1) JPEG are not supported.")
+            if progressive:
+                _check_progression(scan, coef_bits)
+            # The lookups this scan decodes with: DC tables for a sequential
+            # or DC-first scan, AC tables for a sequential or AC scan.
+            keys = ([(0, d) for d in dc] if scan.kind in ("sequential", "dc_first") else []) \
+                + ([(1, a) for a in ac] if scan.kind in ("sequential", "ac_first", "ac_refine") else [])
+            for key in keys:
+                if key not in tables:
+                    raise ValueError(f"JPEG scan uses Huffman table {key}, never defined.")
+            scan.luts = [tables[key] for key in keys]
+            for ci in comps:
                 if ci not in latched:  # libjpeg latches a table at the component's first scan
                     tq = components[ci].tq
                     if tq not in quant_tables:
                         raise ValueError(f"JPEG component uses quantisation table {tq}, never defined.")
                     latched[ci] = quant_tables[tq].copy()
-            scans.append(Scan(comps, dc, ac, pos, restart))
+            scans.append(scan)
             pos = _segment_end(data, pos)
         # APPn, COM and the rest carry nothing the decode needs.
     if size is None or not scans:
@@ -307,7 +346,34 @@ def parse(data: bytes) -> Header:
     if len(latched) != len(components):
         raise ValueError("JPEG stream leaves a component without a scan.")
     quant = np.stack([latched[i] for i in range(len(components))])
-    return Header(size[0], size[1], components, quant, tables, scans)
+    if progressive and _smoothing_ok(quant, coef_bits):
+        raise UnsupportedJpeg("this progressive JPEG's scans leave coefficients short of full "
+                              "precision, where libjpeg-turbo applies block smoothing (not supported).")
+    return Header(size[0], size[1], components, quant, scans, progressive)
+
+
+def _check_progression(scan: Scan, coef_bits: List[List[int]]) -> None:
+    """``jdphuff.c``'s checks of a progressive scan's parameters (fatal in
+    libjpeg) and its record of each coefficient's precision."""
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    bad = (se != 0) if ss == 0 else (ss > se or se > 63 or len(scan.comps) != 1)
+    if (ah and al != ah - 1) or al > 13 or bad:
+        raise ValueError(f"JPEG progressive scan parameters Ss={ss} Se={se} Ah={ah} Al={al} are "
+                         "invalid.")
+    for ci in scan.comps:
+        coef_bits[ci][ss:se + 1] = [al] * (se - ss + 1)
+
+
+def _smoothing_ok(quant: np.ndarray, coef_bits: List[List[int]]) -> bool:
+    """libjpeg-turbo's ``smoothing_ok`` at the output pass: every component's
+    DC known and its table's first ten entries nonzero, and some component
+    with one of AC coefficients 1-9 short of full precision."""
+    useful = False
+    for table, bits in zip(quant, coef_bits):
+        if (table[:10] == 0).any() or bits[0] < 0:
+            return False
+        useful |= any(b != 0 for b in bits[1:10])
+    return useful
 
 
 def _segment_end(data: bytes, pos: int) -> int:
@@ -377,13 +443,13 @@ def _scan_geometry(header: Header, scan: Scan):
 
 
 def decode_scan_plain(data: bytes, header: Header, scan: Scan, coefs: np.ndarray) -> None:
-    """Entropy-decode ``scan`` into ``coefs`` (blocks, 64) int16, in natural
-    order. Bits are read through a window of three bytes a byte position;
-    a symbol is found by one lookup of the next 16 bits."""
+    """Entropy-decode a sequential ``scan`` into ``coefs`` (blocks, 64)
+    int16, in natural order. Bits are read through a window of three bytes a
+    byte position; a symbol is found by one lookup of the next 16 bits."""
     mcux, mcuy, shape = _scan_geometry(header, scan)
     comps = [header.components[i] for i in scan.comps]
-    dc_tabs = [header.tables[(0, t)].tolist() for t in scan.dc]
-    ac_tabs = [header.tables[(1, t)].tolist() for t in scan.ac]
+    dc_tabs = [t.tolist() for t in scan.luts[:len(comps)]]
+    ac_tabs = [t.tolist() for t in scan.luts[len(comps):]]
     zigzag = ZIGZAG.tolist()
     # Units of one MCU: (component slot, block row, block column).
     units = [(s, by, bx) for s, (h, v) in enumerate(shape) for by in range(v) for bx in range(h)]
@@ -452,9 +518,144 @@ def decode_scan_plain(data: bytes, header: Header, scan: Scan, coefs: np.ndarray
     coefs[where] = out.astype(np.int16)  # JCOEF is 16-bit: values wrap as libjpeg's do
 
 
+def _w16(v: int) -> int:
+    """``v`` stored in a 16-bit JCOEF."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def decode_progressive_scan_plain(data: bytes, header: Header, scan: Scan,
+                                  blocks: List[List[int]]) -> None:
+    """One progressive scan of ``jdphuff.c`` (``decode_mcu_DC_first``,
+    ``_DC_refine``, ``_AC_first``, ``_AC_refine``) into ``blocks``, each
+    block's 64 coefficients in natural order as Python ints."""
+    mcux, mcuy, shape = _scan_geometry(header, scan)
+    comps = [header.components[i] for i in scan.comps]
+    tabs = [t.tolist() for t in scan.luts]
+    natural = ZIGZAG.tolist()
+    units = [(s, by, bx) for s, (h, v) in enumerate(shape) for by in range(v) for bx in range(h)]
+    kind, ss, se, al = scan.kind, scan.ss, scan.se, scan.al
+    p1, m1 = 1 << al, -1 << al
+    total = mcux * mcuy
+    interval = scan.restart or total
+    pos, mcu, n_restarts = scan.start, 0, 0
+    while True:
+        seg, end = _segment(data, pos)
+        n_bits = 8 * len(seg)
+        padded = np.frombuffer(seg + b"\0" * 8, np.uint8).astype(np.uint32)
+        window = ((padded[:-2] << 16) | (padded[1:-1] << 8) | padded[2:]).tolist()
+        p = 0
+
+        def bits(n):
+            nonlocal p
+            v = ((window[p >> 3] << (p & 7)) >> (24 - n)) & ((1 << n) - 1)
+            p += n
+            return v
+
+        def symbol(table):
+            nonlocal p
+            if p > n_bits:
+                raise ValueError("JPEG entropy data ends before its last block.")
+            look = table[((window[p >> 3] << (p & 7)) >> 8) & 0xFFFF]
+            if not look:
+                raise ValueError("JPEG entropy data holds an invalid Huffman code.")
+            p += look >> 8
+            return look & 0xFF
+
+        def extend(v, t):
+            return v - (1 << t) + 1 if v < (1 << (t - 1)) else v
+
+        def correct(block, k):
+            """A correction bit for the already-nonzero coefficient at k."""
+            at = natural[k]
+            v = block[at]
+            if bits(1) and (v & p1) == 0:
+                block[at] = _w16(v + (p1 if v >= 0 else m1))
+
+        preds = [0] * len(comps)
+        eobrun = 0
+        stop = min(mcu + interval, total)
+        while mcu < stop:
+            my, mx = divmod(mcu, mcux)
+            mcu += 1
+            for s, by, bx in units:
+                c = comps[s]
+                h, v = shape[s]
+                block = blocks[c.offset + (my * v + by) * c.blocks_w + mx * h + bx]
+                if kind == "dc_first":
+                    t = symbol(tabs[s])
+                    if t > 15:
+                        raise ValueError("JPEG entropy data holds an invalid Huffman code.")
+                    if t:
+                        preds[s] += extend(bits(t), t)
+                    block[0] = _w16(preds[s] << al)
+                elif kind == "dc_refine":
+                    if bits(1):
+                        block[0] = _w16(block[0] | p1)
+                elif kind == "ac_first":
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    k = ss
+                    while k <= se:
+                        rs = symbol(tabs[0])
+                        r, t = rs >> 4, rs & 15
+                        if t:
+                            k += r
+                            block[natural[k]] = _w16(extend(bits(t), t) << al)
+                        elif r == 15:
+                            k += 15
+                        else:
+                            eobrun = (1 << r) + (bits(r) if r else 0) - 1
+                            break
+                        k += 1
+                else:  # ac_refine
+                    k = ss
+                    if eobrun == 0:
+                        while k <= se:
+                            rs = symbol(tabs[0])
+                            r, t = rs >> 4, rs & 15
+                            if t:
+                                t = p1 if bits(1) else m1  # a newly nonzero coefficient
+                            elif r != 15:
+                                eobrun = (1 << r) + (bits(r) if r else 0)
+                                break
+                            # Past r zero coefficients, with a correction bit
+                            # for each nonzero one on the way.
+                            while True:
+                                if block[natural[k]]:
+                                    correct(block, k)
+                                else:
+                                    r -= 1
+                                    if r < 0:
+                                        break
+                                k += 1
+                                if k > se:
+                                    break
+                            if t:
+                                block[natural[k]] = t
+                            k += 1
+                    if eobrun:
+                        while k <= se:
+                            if block[natural[k]]:
+                                correct(block, k)
+                            k += 1
+                        eobrun -= 1
+        if p > n_bits:
+            raise ValueError("JPEG entropy data ends before its last block.")
+        if mcu == total:
+            break
+        pos = _skip_restart(data, end, n_restarts % 8)
+        n_restarts += 1
+
+
 def coefficients_plain(data: bytes, header: Header) -> np.ndarray:
     """Every block's coefficients, (blocks, 64) int16, natural order."""
     coefs = np.zeros((header.blocks, 64), np.int16)
+    if header.progressive:
+        blocks = [[0] * 64 for _ in range(header.blocks)]
+        for scan in header.scans:
+            decode_progressive_scan_plain(data, header, scan, blocks)
+        return np.array(blocks, np.int64).astype(np.int16)
     for scan in header.scans:
         decode_scan_plain(data, header, scan, coefs)
     return coefs
@@ -575,8 +776,10 @@ def decode_plain(data: bytes) -> np.ndarray:
 # --------------------------------------------------------------------------- #
 
 def decode_scan_host(data: bytes, header: Header, scan: Scan, coefs: torch.Tensor) -> None:
-    """Stage 1 in host C (``sleap_jpeg_decode_scan``) into ``coefs``, a
-    (blocks, 64) int16 CPU tensor (pinned on the card's route)."""
+    """Stage 1 in host C (``sleap_jpeg_decode_scan``, or
+    ``sleap_jpeg_decode_progressive`` for a progressive scan) into
+    ``coefs``, a (blocks, 64) int16 CPU tensor (pinned on the card's
+    route)."""
     from sleap_tpu_torch.ops import _build
 
     mcux, mcuy, shape = _scan_geometry(header, scan)
@@ -585,12 +788,16 @@ def decode_scan_host(data: bytes, header: Header, scan: Scan, coefs: torch.Tenso
         c = header.components[ci]
         info += [c.offset, c.blocks_w, *shape[slot]]
     info = np.array(info, np.int32)
-    luts = np.stack([header.tables[(0, t)] for t in scan.dc] + [header.tables[(1, t)] for t in scan.ac])
+    luts = np.stack(scan.luts) if scan.luts else np.zeros((1, 1 << 16), np.uint16)
     buf = np.frombuffer(data, np.uint8)
-    err = _build.entry("sleap_jpeg_decode_scan")(
-        buf.ctypes.data, len(data), scan.start, luts.ctypes.data, len(scan.comps),
-        info.ctypes.data, mcux, mcuy, scan.restart, coefs.data_ptr(),
-        _scratch(len(data) + 16).ctypes.data)
+    common = (buf.ctypes.data, len(data), scan.start, luts.ctypes.data, len(scan.comps),
+              info.ctypes.data, mcux, mcuy, scan.restart)
+    scratch = _scratch(len(data) + 16).ctypes.data
+    if scan.kind == "sequential":
+        err = _build.entry("sleap_jpeg_decode_scan")(*common, coefs.data_ptr(), scratch)
+    else:
+        err = _build.entry("sleap_jpeg_decode_progressive")(
+            *common, scan.ss, scan.se, scan.ah, scan.al, coefs.data_ptr(), scratch)
     if err:
         raise ValueError(f"JPEG entropy data is malformed (host decoder error {err}: "
                          f"{_HOST_ERRORS.get(err, 'unknown')}).")

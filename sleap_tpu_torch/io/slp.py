@@ -296,8 +296,9 @@ def write_labels(
     user instance's score is NaN on disk and a missing track is -1.
     ``save_frame_data`` embeds the images of the frames with user instances
     (every labeled frame with ``all_labeled``, and the suggested ones with
-    ``suggested``) as ``image_format`` rows (JPEG encoded on ``device``, by
-    default each video's), and points the file's videos at them.
+    ``suggested``) as ``image_format`` rows (``png``, ``jpg``, ``bmp`` or
+    ``tif``; JPEG and TIFF encoded on ``device``, by default each video's),
+    and points the file's videos at them.
     ``append=True`` merges into an existing file: its project is read, the
     new frames merged in (videos matched by filename, skeletons by node
     names) and the file written again.

@@ -6,20 +6,21 @@ come back as numpy (H, W, C) arrays from
 - :class:`HDF5Video`: raw frames in an HDF5 dataset (``channels_last`` or
   ``channels_first``), or encoded frames embedded in a ``.pkg.slp`` with
   their ``frame_numbers`` and ``source_video``, read by the port's own HDF5
-  reader (:mod:`sleap_tpu_torch.io.hdf5`) and its PNG and JPEG decoders
-  (:mod:`~sleap_tpu_torch.io.png`, :mod:`~sleap_tpu_torch.io.jpeg`) on the
-  backend's ``device``: on the card (the default) the compiled PNG unfilter
-  and the JPEG kernels, on the CPU their plain versions;
+  reader (:mod:`sleap_tpu_torch.io.hdf5`) and its PNG, JPEG, BMP and TIFF
+  decoders (:mod:`~sleap_tpu_torch.io.stills`) on the backend's
+  ``device``: on the card (the default) the compiled PNG unfilter, the JPEG
+  kernels and the compiled TIFF codecs, on the CPU their plain versions;
 - :class:`NumpyVideo`: an in-memory array or a ``.npy`` file;
 - :class:`MediaVideo` (mp4, avi, ...): on the card (``device="cuda"``, the
   default) H.264 ``.mp4``/``.mov`` files through the port's demuxer
   (:mod:`~sleap_tpu_torch.io.mp4`), NVDEC (:mod:`~sleap_tpu_torch.io.nvdec`)
   and OpenCV's colour conversion (:mod:`~sleap_tpu_torch.io.yuv`), with no
   fallback; with ``device="cpu"`` any format through ``cv2``;
-- :class:`SingleImageVideo`: still images, PNG and JPEG through the port's
-  decoders on its ``device``; BMP and TIFF through ``cv2`` on the CPU only;
-- :class:`ImgStoreVideo`: a loopbio ImgStore directory of PNG frames
-  (:mod:`sleap_tpu_torch.io.dirimgstore`);
+- :class:`SingleImageVideo`: still images, PNG, JPEG, BMP and TIFF through
+  the port's decoders on its ``device``;
+- :class:`ImgStoreVideo`: a loopbio ImgStore: a directory store of PNG,
+  JPEG, BMP or TIFF frames (:mod:`sleap_tpu_torch.io.dirimgstore`), or a
+  store of video-file chunks through loopbio's ``imgstore`` package;
 - :class:`DummyVideo`, a placeholder of a given shape.
 
 :class:`Video` wraps a backend and (de)serializes it as the ``videos_json``
@@ -41,7 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from sleap_tpu_torch.io import dirimgstore, hdf5, jpeg, png
+from sleap_tpu_torch.io import dirimgstore, hdf5, stills
 
 Device = Union[str, torch.device]
 
@@ -226,7 +227,7 @@ class MediaVideo:
 @dataclass(eq=False)
 class HDF5Video:
     """Frames in an HDF5 dataset: raw (frames, H, W, C) or (frames, C, H,
-    W), or encoded PNG/JPEG rows of a ``.pkg.slp`` (a ``format`` attribute,
+    W), or encoded PNG, JPEG, BMP or TIFF rows of a ``.pkg.slp`` (a ``format`` attribute,
     with a ``frame_numbers`` sibling mapping original frame numbers to
     rows, and the original video's JSON under ``source_video``).
 
@@ -368,8 +369,8 @@ class HDF5Video:
             raise IndexError(f"Frame {idx} not embedded in {self.filename}.")
         frame = ds[row]
         if self._format_:
-            frame = imdecode(np.asarray(frame).tobytes(), self._format_, self.device,
-                             f"frames of {self.filename}")
+            frame = stills.imdecode(np.asarray(frame).tobytes(), self.device,
+                                    f"frames of {self.filename}")
             # No channel flip: frames are encoded straight from RGB arrays,
             # so cv2's BGR order on decode gives back the original order.
             if frame.ndim == 2:
@@ -437,10 +438,11 @@ class NumpyVideo:
 
 @dataclass(eq=False)
 class SingleImageVideo:
-    """Still images (one per frame) read as RGB: PNG and JPEG through the
-    port's decoders on ``device`` (the card's routes by default, their plain
-    versions with "cpu"); BMP and TIFF through OpenCV with ``device`` "cpu"
-    only. The device is not a field: ``.slp`` files do not record it."""
+    """Still images (one per frame) read as RGB: PNG, JPEG, BMP and TIFF
+    through the port's decoders on ``device`` (the card's routes by default,
+    their plain versions with "cpu"), in the file's dtype (a 16-bit TIFF
+    stays uint16). The device is not a field: ``.slp`` files do not record
+    it."""
 
     filename: Optional[str] = None
     filenames: List[str] = field(default_factory=list)
@@ -514,20 +516,12 @@ class SingleImageVideo:
     def _read(self, path: str) -> np.ndarray:
         """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``, or None where the
         file cannot be read."""
-        ext = path.rsplit(".", 1)[-1].lower()
-        if ext in ("png", "jpg", "jpeg"):
-            try:
-                with open(path, "rb") as fh:
-                    data = fh.read()
-            except OSError:
-                return None
-            return imdecode(data, "jpg" if ext == "jpeg" else ext, self.device, path)
-        if torch.device(self.device).type == "cuda":
-            raise NotImplementedError(
-                f"Reading .{ext} images ({path}) on the card is not ported: PNG and JPEG are. "
-                "Read them with device='cpu' (through cv2), or convert them to PNG.")
-        cv2 = _import_cv2(f"Reading the image {path}", "PNG and JPEG images are read without it.")
-        return cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        try:
+            with open(path, "rb") as fh:
+                data = fh.read()
+        except OSError:
+            return None
+        return stills.imdecode(data, self.device, path)
 
     def get_frame(self, idx: int) -> np.ndarray:
         if idx not in self._cache:
@@ -597,27 +591,14 @@ class ImgStoreVideo:
         return img[..., None] if img.ndim == 2 else img
 
 
-def imdecode(data: bytes, fmt: str, device: Device, what: str) -> np.ndarray:
-    """``cv2.imdecode(data, cv2.IMREAD_UNCHANGED)`` of a PNG or JPEG on
-    ``device``'s route."""
-    if fmt == "png":
-        return png.imdecode(data, device)
-    if fmt in ("jpg", "jpeg"):
-        return jpeg.imdecode(data, device)
-    raise NotImplementedError(f"Decoding {fmt!r} images ({what}) is not ported: PNG and JPEG are.")
-
-
 def imencode_rows(frames: Sequence[np.ndarray], fmt: str, device: Device = "cuda") -> List[np.ndarray]:
     """Each frame encoded as ``cv2.imencode("." + fmt, frame)`` would, as a
-    row of int8 (the layout of a ``.pkg.slp``'s embedded frames): PNG on the
-    host, JPEG on ``device``'s route (:func:`jpeg.imencode`: J3 and J4 on
-    the card), byte for byte as cv2 writes it."""
-    if fmt in ("jpg", "jpeg"):
-        return [np.frombuffer(jpeg.imencode(frame, device), np.int8) for frame in frames]
-    if fmt != "png":
-        raise NotImplementedError(f"Writing {fmt!r} frames is not ported: PNG and JPEG are (BMP "
-                                  "and TIFF are ROADMAP.md, queue 1, item 3d(2)).")
-    return [png.imencode(".png", frame)[1].reshape(-1).view(np.int8) for frame in frames]
+    row of int8 (the layout of a ``.pkg.slp``'s embedded frames): PNG and
+    BMP on the host, JPEG and TIFF on ``device``'s route
+    (:func:`stills.imencode`); JPEG, BMP and TIFF byte for byte as cv2
+    writes them."""
+    stills.check_format(fmt)
+    return [np.frombuffer(stills.imencode(frame, fmt, device), np.int8) for frame in frames]
 
 
 def write_encoded(group: hdf5.WritableGroup, name: str, rows: List[np.ndarray], fmt: str,
@@ -798,8 +779,8 @@ class Video:
                    index_by_original: bool = True, device: Optional[Device] = None) -> None:
         """:meth:`to_hdf5`'s datasets, into the group of a file being
         written: ``<dataset>/video`` (raw frames, gzip level 9; or encoded
-        rows with ``format``, JPEG encoded on ``device``, by default this
-        video's), ``<dataset>/frame_numbers`` and ``<dataset>/source_video``
+        rows with ``format``, JPEG and TIFF encoded on ``device``, by
+        default this video's), ``<dataset>/frame_numbers`` and ``<dataset>/source_video``
         (this video's JSON)."""
         if frame_numbers is None:
             frame_numbers = list(range(self.num_frames))
@@ -821,8 +802,8 @@ class Video:
                 device: Optional[Device] = None) -> "Video":
         """Copy frames into an HDF5 file (added to the file where it exists,
         as h5py's mode "a") and return a video of them that decodes on
-        ``device`` (by default this video's), where JPEG rows are encoded
-        too; the layout of the JAX package's ``Video.to_hdf5``: see
+        ``device`` (by default this video's), where JPEG and TIFF rows are
+        encoded too; the layout of the JAX package's ``Video.to_hdf5``: see
         :meth:`write_hdf5`."""
         with hdf5.Writer(path, "a") as f:
             self.write_hdf5(f, dataset, frame_numbers, format, index_by_original, device)
@@ -832,9 +813,9 @@ class Video:
     def to_imgstore(self, path: str, frame_numbers: Optional[List[int]] = None,
                     format: str = "png", index_by_original: bool = True,
                     device: Optional[Device] = None) -> "Video":
-        """Copy frames into a PNG or JPEG ImgStore at ``path`` and return a
-        video of it that decodes on ``device`` (by default this video's),
-        where JPEG frames are encoded too; an empty selection stores one
+        """Copy frames into a PNG, JPEG, BMP or TIFF ImgStore at ``path`` and
+        return a video of it that decodes on ``device`` (by default this
+        video's), where JPEG and TIFF frames are encoded too; an empty selection stores one
         blank frame, as the JAX package does."""
         import time
 

@@ -26,7 +26,7 @@ import torch
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "build"
-SOURCES = ("peaks.cu", "crops.cu", "jpeg.cu", "png.cu")
+SOURCES = ("peaks.cu", "crops.cu", "jpeg.cu", "png.cu", "tiff.cu")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,8 +49,13 @@ SIGNATURES = {
     "sleap_jpeg_fdct": [_p, _i64, _p, _i64, _p, _p],
     # Host routines, called with no stream.
     "sleap_jpeg_decode_scan": [_p, _i64, _i64, _p, _i, _p, _i, _i, _i, _p, _p],
+    "sleap_jpeg_decode_progressive": [_p, _i64, _i64, _p, _i, _p, _i, _i, _i, _i, _i, _i, _i, _p, _p],
     "sleap_jpeg_encode_scan": [_p, _i, _p, _i, _i, _p, _p, _i64, _p],
     "sleap_png_unfilter": [_p, _i64, _i64, _i, _p],
+    "sleap_tiff_lzw_decode": [_p, _i64, _p, _i64, _p],
+    "sleap_tiff_lzw_encode": [_p, _i64, _p, _i64, _p],
+    "sleap_tiff_packbits_decode": [_p, _i64, _p, _i64, _p],
+    "sleap_tiff_packbits_encode": [_p, _i64, _p, _i64, _p],
 }
 
 

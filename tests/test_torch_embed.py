@@ -5,8 +5,8 @@ package, all exact (tolerance 0):
   deflated datasets of every dtype and shape it writes, row assignment,
   multi-level chunk B-trees and the append mode, read back by ``h5py`` and
   by the port's own ``File``, bitwise;
-- ``.pkg.slp`` training packages: JAX-written PNG and JPEG rows read by the
-  port's ``HDF5Video(device="cpu")`` as JAX's ``HDF5Video.get_frame`` reads
+- ``.pkg.slp`` training packages: JAX-written PNG, JPEG, BMP and TIFF rows
+  read by the port's ``HDF5Video(device="cpu")`` as JAX's ``HDF5Video.get_frame`` reads
   them; port-written packages read by ``sleap_tpu.io.slp.read_labels`` to
   the same frames, frame numbers, instances and source video;
 - ``save_frame_data_hdf5``, ``Video.to_hdf5`` and ``embed_all_labeled`` /
@@ -202,7 +202,7 @@ def _port_project(frames, labeled=(0, 2, 3), predicted=(), suggested=()):
     return labels
 
 
-@pytest.mark.parametrize("fmt", ["png", "jpg"])
+@pytest.mark.parametrize("fmt", ["png", "jpg", "bmp", "tif"])
 @pytest.mark.parametrize("channels", [1, 3])
 def test_jax_written_packages_read_by_the_port(fmt, channels, tmp_path):
     frames = _frames(5, 24, 40, channels, seed=channels)
@@ -335,26 +335,28 @@ def test_to_hdf5_matches_jax(fmt, tmp_path):
 
 
 def test_jpeg_writing_raises_naming_the_roadmap_item(tmp_path):
-    """JPEG rows (``Video.to_hdf5`` and ``save_frame_data_hdf5`` with
-    ``format="jpg"``) are byte-equal to the JAX package's, which cv2
-    encodes; the formats still unported (BMP, TIFF) raise naming the
-    ROADMAP item."""
-    for channels in (1, 3):
-        frames = _frames(4, 21, 35, channels, seed=channels)
-        mine, ref = str(tmp_path / f"mine{channels}.h5"), str(tmp_path / f"ref{channels}.h5")
-        tvideo.Video.from_numpy(frames).to_hdf5(mine, "v", [0, 2, 3], format="jpg", device="cpu")
-        jvideo.Video.from_numpy(frames).to_hdf5(ref, "v", [0, 2, 3], format="jpg")
-        _port_project(frames).save_frame_data_hdf5(mine, format="jpg", device="cpu")
-        _jax_project(frames).save_frame_data_hdf5(ref, format="jpg")
-        with h5py.File(mine, "r") as fm, h5py.File(ref, "r") as fr:
-            for key in ("v/video", "video0/video"):
-                np.testing.assert_array_equal(fm[key][()], fr[key][()])
-                for attr in ("format", "channels", "height", "width"):  # bytes or str
-                    a, b = fm[key].attrs[attr], fr[key].attrs[attr]
-                    assert (a.decode() if isinstance(a, bytes) else a) == b
+    """JPEG, BMP and TIFF rows (``Video.to_hdf5`` and
+    ``save_frame_data_hdf5`` with ``format="jpg"``, ``"bmp"`` or ``"tif"``)
+    are byte-equal to the JAX package's, which cv2 encodes; a format the
+    port does not write raises naming the ones it does."""
+    for fmt in ("jpg", "bmp", "tif"):
+        for channels in (1, 3):
+            frames = _frames(4, 21, 35, channels, seed=channels)
+            mine = str(tmp_path / f"mine_{fmt}{channels}.h5")
+            ref = str(tmp_path / f"ref_{fmt}{channels}.h5")
+            tvideo.Video.from_numpy(frames).to_hdf5(mine, "v", [0, 2, 3], format=fmt, device="cpu")
+            jvideo.Video.from_numpy(frames).to_hdf5(ref, "v", [0, 2, 3], format=fmt)
+            _port_project(frames).save_frame_data_hdf5(mine, format=fmt, device="cpu")
+            _jax_project(frames).save_frame_data_hdf5(ref, format=fmt)
+            with h5py.File(mine, "r") as fm, h5py.File(ref, "r") as fr:
+                for key in ("v/video", "video0/video"):
+                    np.testing.assert_array_equal(fm[key][()], fr[key][()])
+                    for attr in ("format", "channels", "height", "width"):  # bytes or str
+                        a, b = fm[key].attrs[attr], fr[key].attrs[attr]
+                        assert (a.decode() if isinstance(a, bytes) else a) == b
     video = tvideo.Video.from_numpy(_frames(2, 8, 8, 1, seed=0))
-    with pytest.raises(NotImplementedError, match=r"item 3d\(2\)"):
-        video.to_hdf5(str(tmp_path / "x.h5"), "v", format="bmp", device="cpu")
+    with pytest.raises(NotImplementedError, match="'webp'.*png, jpg, jpeg, bmp, tif, tiff"):
+        video.to_hdf5(str(tmp_path / "x.h5"), "v", format="webp", device="cpu")
 
 
 def test_raw_in_memory_videos_are_written_deflated(tmp_path):

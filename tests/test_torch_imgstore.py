@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import json
 import os
+import sys
+import types
 
 import cv2
 import numpy as np
@@ -101,8 +103,8 @@ def test_jpeg_stores_are_read_as_jax_reads_them(tmp_path):
             assert a.read() == b.read()
     back = jstore.new_for_filename(mine_path)
     np.testing.assert_array_equal(back.get_image(frame_number=11)[0], ref.get_image(frame_number=11)[0])
-    with pytest.raises(NotImplementedError, match=r"item 3d\(2\)"):
-        tstore.new_for_format("bmp", mode="w", basedir=str(tmp_path / "bmp"))
+    with pytest.raises(NotImplementedError, match="'webp'"):
+        tstore.new_for_format("webp", mode="w", basedir=str(tmp_path / "webp"))
 
 
 def test_metadata_is_written_as_pyyaml_writes_it():
@@ -188,13 +190,38 @@ def test_save_frame_data_imgstore_matches_jax(tmp_path):
         tvideo.Video.from_dict(want[0].to_dict(), device="cpu").get_frame(1), frames[1])
 
 
-def test_video_chunk_stores_raise_naming_the_roadmap(tmp_path):
+def test_video_chunk_stores_raise_naming_the_roadmap(tmp_path, monkeypatch):
+    """A store of video-file chunks opens through loopbio's ``imgstore``
+    package (a stand-in here): the port hands it the metadata path, as the
+    JAX package does; without the package, the error names it."""
     path = tmp_path / "store"
     path.mkdir()
     (path / "metadata.yaml").write_text("__store: {class: VideoImgStore, format: mjpeg/avi, "
                                         "chunksize: 100}\n")
-    with pytest.raises(NotImplementedError, match=r"VideoImgStore.*item 3d\(2\)"):
+    monkeypatch.setitem(sys.modules, "imgstore", None)
+    with pytest.raises(ImportError, match="VideoImgStore.*imgstore package"):
         tstore.new_for_filename(str(path), device="cpu")
+    frames = np.arange(3 * 4 * 5, dtype=np.uint8).reshape(3, 4, 5)
+    opened = []
+
+    class StandIn:
+        frame_count, frame_max = 3, 12
+
+        def get_next_image(self):
+            return frames[0], (10, 0.0)
+
+        def get_image(self, frame_number=None, frame_index=None):
+            i = frame_index if frame_number is None else frame_number - 10
+            return frames[i], (10 + i, 0.0)
+
+    stub = types.ModuleType("imgstore")
+    stub.new_for_filename = lambda p: opened.append(p) or StandIn()
+    monkeypatch.setitem(sys.modules, "imgstore", stub)
+    video = tvideo.Video.from_dict({"backend": {"type": "ImgStoreVideo", "filename": str(path)}},
+                                   device="cpu")
+    assert opened == [str(path / "metadata.yaml")]
+    assert video.shape == (3, 4, 5, 1)
+    np.testing.assert_array_equal(video.get_frame(11)[..., 0], frames[1])
 
 
 # --------------------------------------------------------------------------- #
@@ -231,10 +258,14 @@ def test_single_image_folders_match_jax(kind, grayscale, tmp_path):
 
 
 def test_other_still_formats_read_through_cv2_on_the_cpu_only(tmp_path):
+    """BMP and TIFF stills read through the port's own codecs, as the JAX
+    package's cv2 reads them; BMP has one route (numpy on the host), so the
+    default device reads it here too."""
     img = np.random.default_rng(0).integers(0, 255, (12, 9, 3), dtype=np.uint8)
-    path = str(tmp_path / "a.bmp")
-    cv2.imwrite(path, img)
-    np.testing.assert_array_equal(tvideo.Video.from_filename(path, device="cpu").get_frame(0),
-                                  jvideo.Video.from_filename(path).get_frame(0))
-    with pytest.raises(NotImplementedError, match=r"\.bmp"):
-        tvideo.Video.from_filename(path).get_frame(0)
+    for ext in ("bmp", "tif"):
+        path = str(tmp_path / f"a.{ext}")
+        cv2.imwrite(path, img)
+        np.testing.assert_array_equal(tvideo.Video.from_filename(path, device="cpu").get_frame(0),
+                                      jvideo.Video.from_filename(path).get_frame(0))
+    np.testing.assert_array_equal(tvideo.Video.from_filename(str(tmp_path / "a.bmp")).get_frame(0),
+                                  img[..., ::-1])

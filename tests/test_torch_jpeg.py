@@ -2,17 +2,26 @@
 against ``cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)`` (libjpeg-turbo): bitwise
 (tolerance 0) on cv2-encoded gray and colour images of every supported
 sampling, size class, quality, restart interval and Huffman-table kind, on
-hypothesis-drawn sizes and qualities, and on the committed fixtures
+hypothesis-drawn sizes and qualities, on progressive files (cv2's and PIL's
+scan scripts, restarts, scripts with scans left out that need no block
+smoothing), and on the committed fixtures
 (``scripts/make_torch_jpeg_fixtures.py``) against their recorded cv2
-hashes. Every refused feature raises and names itself. The card's route
-(host entropy decoder, J1, J2) is held to the same hashes and to these plain
-stages by ``chip_smoke.py`` phase 13b."""
+hashes. Every refused feature raises and names itself, block smoothing of
+an incomplete progressive script among them. The host entropy decoder
+(``csrc/jpeg.cu``, built with the system C++ compiler) gives the plain
+coefficients on baseline and progressive files. The card's route (host
+entropy decoder, J1, J2) is held to the same hashes and to these plain
+stages by ``chip_smoke.py`` phases 13b and 19a."""
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import io
 import json
+import shutil
 import struct
+import subprocess
 from pathlib import Path
 
 import cv2
@@ -23,6 +32,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from sleap_tpu_torch.io import jpeg
+from sleap_tpu_torch.ops import _build
 
 FIXTURES = Path(__file__).resolve().parent / "torch_data" / "jpeg"
 RECORD = json.loads((FIXTURES / "decoded.json").read_text())
@@ -138,7 +148,7 @@ def _segments(buf):
 
 def _with_sof(buf, marker=None, precision=None):
     data, segs = _segments(buf)
-    pos = next(p for m, p in segs if m in (0xC0, 0xC1))
+    pos = next(p for m, p in segs if m in (0xC0, 0xC1, 0xC2))
     out = bytearray(data)
     if marker is not None:
         out[pos + 1] = marker
@@ -169,8 +179,10 @@ def _with_ids(buf, ids):
 def test_refused_features_raise_naming_themselves():
     colour = _encode(_image(16, 16, 3, 0))
     gray = _encode(_image(16, 16, 1, 0)[..., 0])
+    progressive = _encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
     cases = [
-        (_encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]), "progressive"),
+        (_truncated(progressive, 3), "block smoothing"),
+        (_with_sof(progressive, marker=0xCA), r"arithmetic-coded progressive JPEG \(SOF10\)"),
         (_with_sof(colour, marker=0xC9), "arithmetic-coded"),
         (_with_sof(colour, marker=0xC3), "lossless"),
         (_with_sof(gray, marker=0xC5), "differential"),
@@ -235,3 +247,161 @@ def test_scan_geometry_of_the_samplings():
         assert [c.offset for c in header.components] == [
             0, header.components[0].blocks_w * header.components[0].blocks_h,
             header.blocks - header.components[2].blocks_w * header.components[2].blocks_h]
+
+
+# --------------------------------------------------------------------------- #
+# Progressive JPEG
+# --------------------------------------------------------------------------- #
+
+
+def _scan_starts(data: bytes):
+    return [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+
+
+def _truncated(data: bytes, scans: int) -> bytes:
+    """``data`` cut before its ``scans``-th scan, with an EOI."""
+    return data[:_scan_starts(data)[scans]] + b"\xff\xd9"
+
+
+def _without_scans(data: bytes, drop) -> bytes:
+    """``data`` with the scans numbered in ``drop`` taken out (their
+    headers and entropy-coded data; the tables between scans stay)."""
+    out, last = b"", 0
+    for k, at in enumerate(_scan_starts(data)):
+        if k in drop:
+            (length,) = struct.unpack_from(">H", data, at + 2)
+            out += data[last:at]
+            last = jpeg._segment_end(data, at + 2 + length)
+    return out + data[last:]
+
+
+def _pil_progressive(img, quality, subsampling) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img[..., ::-1] if img.ndim == 3 else img).save(
+        buf, "JPEG", progressive=True, optimize=True, quality=quality, subsampling=subsampling)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("size", [(72, 100), (29, 37), (50, 3), (8, 8), (1, 1)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("kind", ["gray", "444", "422", "420"])
+def test_progressive_cv2_files_equal_cv2(kind, size, restart):
+    """libjpeg's simple progression (spectral selection and successive
+    approximation, DC scans interleaved, tables optimised per scan)."""
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    if kind == "gray":
+        buf = _encode(_image(*size, 1, restart)[..., 0], params)
+    else:
+        buf = _encode(_image(*size, 3, restart), params + [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind]])
+    assert jpeg.parse(buf.tobytes()).progressive
+    _assert_like_cv2(buf)
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+@pytest.mark.parametrize("size", [(72, 100), (29, 37), (50, 3)], ids=lambda s: f"{s[1]}x{s[0]}")
+def test_progressive_pil_files_equal_cv2(size, subsampling):
+    """PIL's ``progressive=True, optimize=True``: its own scan script and
+    tables (4:4:4, 4:2:2, 4:2:0; gray too)."""
+    for img, quality in ((_image(*size, 3, subsampling), 85), (_image(*size, 1, 7)[..., 0], 60)):
+        _assert_like_cv2(np.frombuffer(_pil_progressive(img, quality, subsampling), np.uint8))
+
+
+@settings(max_examples=20, deadline=None)
+@given(h=st.integers(1, 40), w=st.integers(1, 40), quality=st.integers(1, 100),
+       kind=st.sampled_from(["gray", "444", "422", "420"]), restart=st.integers(0, 4),
+       seed=st.integers(0, 2**16))
+def test_drawn_progressive_files_equal_cv2(h, w, quality, kind, restart, seed):
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, quality,
+              cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    if kind == "gray":
+        buf = _encode(_image(h, w, 1, seed)[..., 0], params)
+    else:
+        buf = _encode(_image(h, w, 3, seed), params + [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind]])
+    _assert_like_cv2(buf)
+
+
+def test_progressive_scripts_that_need_no_smoothing_equal_cv2():
+    """Scans left out of a script, where libjpeg-turbo's ``smoothing_ok``
+    still says no: a DC refinement (the AC bands stay at full precision),
+    or every DC scan (no DC at all turns smoothing off)."""
+    gray = _encode(_image(72, 100, 1, 3)[..., 0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
+    colour = _encode(_image(72, 100, 3, 4), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
+    kinds = {k: [s.kind for s in jpeg.parse(d).scans] for k, d in (("gray", gray), ("colour", colour))}
+    for name, data in (("gray", gray), ("colour", colour)):
+        dc_refine = [i for i, kind in enumerate(kinds[name]) if kind == "dc_refine"]
+        dc_first = [i for i, kind in enumerate(kinds[name]) if kind == "dc_first"]
+        for drop in (dc_refine, dc_first):
+            _assert_like_cv2(np.frombuffer(_without_scans(data, drop), np.uint8))
+
+
+@pytest.mark.parametrize("scans", [1, 2, 4, 6])
+def test_incomplete_progressive_scripts_raise_naming_block_smoothing(scans):
+    """A file cut after its first scans: libjpeg-turbo smooths the blocks
+    (cv2's frame differs from the plain decode), and the port refuses."""
+    data = _encode(_image(72, 100, 3, 5), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
+    cut = _truncated(data, scans)
+    assert cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_UNCHANGED) is not None
+    with pytest.raises(jpeg.UnsupportedJpeg, match="block smoothing"):
+        jpeg.decode_plain(cut)
+
+
+def test_invalid_progressive_parameters_raise():
+    """``jdphuff.c``'s fatal checks: an AC scan of two components, a DC
+    band past coefficient 0, a refinement whose Al is not Ah - 1."""
+    data = bytearray(_encode(_image(16, 16, 3, 6), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes())
+    header = jpeg.parse(bytes(data))
+    refine = next(s for s in header.scans if s.kind == "ac_refine")
+    at = refine.start - 1  # the scan header's Ah/Al byte
+    data[at] = 0x20  # Ah 2, Al 0
+    with pytest.raises(ValueError, match="progressive scan parameters"):
+        jpeg.parse(bytes(data))
+
+
+@pytest.fixture(scope="module")
+def host_library(tmp_path_factory):
+    """``csrc/jpeg.cu``'s host C built with the system C++ compiler, bound
+    as the kernel library binds it."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no C++ compiler to build the host entropy decoder")
+    lib = tmp_path_factory.mktemp("host") / "libjpeghost.so"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-o", str(lib),
+                    str(Path(_build.CSRC) / "jpeg.cu")], check=True, capture_output=True)
+    cdll = ctypes.CDLL(str(lib))
+
+    def entry(name):
+        fn = getattr(cdll, name)
+        fn.argtypes = _build.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        return fn
+
+    return entry
+
+
+@pytest.mark.parametrize("name", sorted(n for n in RECORD["stills"] if "refused" not in RECORD["stills"][n]
+                                        and not n.endswith("1024")
+                                        and not n.endswith("1024_progressive")))
+def test_host_entropy_decoder_equals_the_plain_one(name, host_library, monkeypatch):
+    """On every small committed still, baseline and progressive: the same
+    coefficients as the plain decoder."""
+    monkeypatch.setattr(_build, "entry", host_library)
+    data = (FIXTURES / f"{name}.jpg").read_bytes()
+    header = jpeg.parse(data)
+    np.testing.assert_array_equal(jpeg.coefficients_host(data, header).numpy(),
+                                  jpeg.coefficients_plain(data, header))
+
+
+def test_host_entropy_decoder_equals_the_plain_one_on_pil_scripts(host_library, monkeypatch):
+    monkeypatch.setattr(_build, "entry", host_library)
+    for subsampling in (0, 2):
+        data = _pil_progressive(_image(41, 70, 3, subsampling), 80, subsampling)
+        header = jpeg.parse(data)
+        np.testing.assert_array_equal(jpeg.coefficients_host(data, header).numpy(),
+                                      jpeg.coefficients_plain(data, header))
+    with pytest.raises(ValueError, match="malformed"):
+        data = _encode(_image(64, 96, 3, 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
+        cut = data[:_scan_starts(data)[4] - 60] + data[_scan_starts(data)[4]:]
+        jpeg.coefficients_host(cut, jpeg.parse(cut))

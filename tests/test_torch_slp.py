@@ -24,7 +24,7 @@ from sleap_tpu_torch.core.instance import Instance, LabeledFrame, PredictedInsta
 from sleap_tpu_torch.core.labels import Labels, SuggestionFrame, load_file
 from sleap_tpu_torch.core.skeleton import Skeleton
 from sleap_tpu_torch.data.providers import LabelsReader, VideoReader
-from sleap_tpu_torch.io import slp
+from sleap_tpu_torch.io import bmp, slp
 from sleap_tpu_torch.io import video as tvideo
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -161,26 +161,31 @@ def test_pre_1_1_files_shift_user_points(tmp_path):
 
 
 def test_embedding_frames_is_refused(tmp_path):
-    """Embedding frames as JPEG writes the rows the JAX package writes with
-    cv2, byte for byte, and the JAX package reads them; embedding BMP frames
-    is still refused naming the ROADMAP item, and writes nothing."""
+    """Embedding frames as JPEG, BMP or TIFF writes the rows the JAX
+    package writes with cv2, byte for byte, and the JAX package reads them;
+    embedding frames in a format the port does not write is refused naming
+    the ones it does, and writes nothing."""
     rng = np.random.default_rng(5)
     frames = np.clip(rng.normal(120, 40, (4, 30, 44, 1)), 0, 255).astype(np.uint8)
     project = _port_project(frames)
-    path, raw, ref = (str(tmp_path / n) for n in ("x.pkg.slp", "raw.slp", "ref.pkg.slp"))
-    project.save(path, with_images=True, image_format="jpg", device="cpu")
+    raw = str(tmp_path / "raw.slp")
     project.save(raw)  # the same project, read by the JAX package and embedded by it
-    jslp.write_labels(ref, jslp.read_labels(raw), save_frame_data=True, image_format="jpg")
-    with h5py.File(path, "r") as fm, h5py.File(ref, "r") as fr:
-        np.testing.assert_array_equal(fm["video0/video"][()], fr["video0/video"][()])
-        np.testing.assert_array_equal(fm["video0/frame_numbers"][()], fr["video0/frame_numbers"][()])
-        assert fm["video0/video"].attrs["format"] in (b"jpg", "jpg")
-        assert fr["video0/video"].attrs["format"] == "jpg"
-    video = jslp.read_labels(path).videos[0]
-    assert video.backend.embedded_frame_inds == [1, 2]
+    for fmt in ("jpg", "bmp", "tif"):
+        path, ref = str(tmp_path / f"x.{fmt}.pkg.slp"), str(tmp_path / f"ref.{fmt}.pkg.slp")
+        project.save(path, with_images=True, image_format=fmt, device="cpu")
+        jslp.write_labels(ref, jslp.read_labels(raw), save_frame_data=True, image_format=fmt)
+        with h5py.File(path, "r") as fm, h5py.File(ref, "r") as fr:
+            np.testing.assert_array_equal(fm["video0/video"][()], fr["video0/video"][()])
+            np.testing.assert_array_equal(fm["video0/frame_numbers"][()], fr["video0/frame_numbers"][()])
+            assert fm["video0/video"].attrs["format"] in (fmt.encode(), fmt)
+            assert fr["video0/video"].attrs["format"] == fmt
+        video = jslp.read_labels(path).videos[0]
+        assert video.backend.embedded_frame_inds == [1, 2]
+        if fmt != "jpg":  # lossless
+            np.testing.assert_array_equal(video.get_frame(2), frames[2])
     labels = _port_project(np.zeros((2, 8, 8, 1), np.uint8))
-    with pytest.raises(NotImplementedError, match=r"item 3d\(2\)"):
-        labels.save(str(tmp_path / "y.pkg.slp"), with_images=True, image_format="bmp", device="cpu")
+    with pytest.raises(NotImplementedError, match="'webp'"):
+        labels.save(str(tmp_path / "y.pkg.slp"), with_images=True, image_format="webp", device="cpu")
     assert not (tmp_path / "y.pkg.slp").exists()
 
 
@@ -316,9 +321,10 @@ def test_cv2_backends_without_cv2_raise_naming_it(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "cv2", None)
     with pytest.raises(ImportError, match="cv2"):
         tvideo.load_video(path, device="cpu").get_frame(0)
-    with pytest.raises(ImportError, match="cv2"):
-        tvideo.Video.from_filename(str(tmp_path / "a.bmp"), device="cpu").get_frame(0)
-    # PNG frames embedded in a .slp decode without cv2.
+    # BMP stills, and PNG frames embedded in a .slp, decode without cv2.
+    bmp_path = tmp_path / "a.bmp"
+    bmp_path.write_bytes(bmp.imencode(np.full((3, 5, 3), 7, np.uint8)))
+    assert tvideo.Video.from_filename(str(bmp_path), device="cpu").get_frame(0).shape == (3, 5, 3)
     assert slp.read_labels(FIXTURES[1], device="cpu").video.get_frame(3).shape == (384, 384, 1)
 
 

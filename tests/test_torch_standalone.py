@@ -15,9 +15,10 @@ h5py and the JAX reader read back; and ``python -m sleap_tpu_torch.cli.train``
 trains a shipped profile (at filters 4) on a project of two videos of
 different sizes, scores it and ``sleap-inspect`` describes the folder and
 the project; and frames go in and out of users' files: a PNG training
-package written and read back, an ImgStore written and read back, and the
-committed JPEG stills decoded to cv2's recorded frames, and a JPEG package
-rendered by ``sleap-render`` to a Motion-JPEG AVI; and the data
+package written and read back, an ImgStore written and read back, the
+committed JPEG, BMP and TIFF stills decoded to cv2's recorded frames, a TIFF
+package and BMP and TIFF ImgStores written and read back, and a JPEG
+package rendered by ``sleap-render`` to a Motion-JPEG AVI; and the data
 model's calls (``numpy``, ``remove_predictions``, a track swap, ``merge``,
 ``describe``), ``sleap-convert`` to an analysis ``.h5`` and ``.csv``, and a
 DeepLabCut project import; and a ``dataset_ops`` chain (shuffle, batch,
@@ -332,6 +333,27 @@ jpg_video = read_labels(jpg_path, device="cpu").videos[0]
 rendered = os.path.join(tmp, "rendered.avi")
 visuals.main([jpg_path, "--cpu", "-o", rendered])
 chunks = avi.read_frames(rendered)
+# BMP and TIFF: the committed stills against cv2's recorded decode, and a
+# TIFF package and BMP and TIFF ImgStores written and read back.
+from sleap_tpu_torch.io import stills as still_codecs
+
+still_record = json.load(open(os.path.join("tests", "torch_data", "stills", "decoded.json")))["stills"]
+bmp_tiff = {}
+for name, want in still_record.items():
+    if "sha256" in want and "1024" not in name:
+        data = open(os.path.join("tests", "torch_data", "stills", name), "rb").read()
+        img = still_codecs.imdecode(data, "cpu")
+        bmp_tiff[name] = hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"]
+tif_path = os.path.join(tmp, "frames.tif.pkg.slp")
+Labels(two_sizes).save(tif_path, with_images=True, image_format="tif", device="cpu")
+tif_videos = read_labels(tif_path, device="cpu").videos
+written = {"package": [bool(np.array_equal(v[:], lf.video[:]))
+                       for v, lf in zip(tif_videos, [two_sizes[0], two_sizes[-1]])]}
+for fmt in ("bmp", "tif"):
+    kept = Video.from_numpy(frames).to_imgstore(os.path.join(tmp, "store_" + fmt), frame_numbers=[0, 2],
+                                               format=fmt, device="cpu")
+    written[fmt] = bool(np.array_equal(kept.get_frames([0, 2]), frames[[0, 2]]))
+result["bmp_tiff"] = {"stills": bmp_tiff, "written": written}
 result["frames_io"] = {
     "package": [bool(np.array_equal(v[:], lf.video[:]))
                 for v, lf in zip(pkg_videos, [two_sizes[0], two_sizes[-1]])],
@@ -647,6 +669,17 @@ def test_frames_in_and_out_with_the_jax_side_blocked(standalone):
     assert render["chunks"] == render["want"] > 0 and render["shape"] == render["want_shape"]
 
 
+def test_bmp_and_tiff_in_and_out_with_the_jax_side_blocked(standalone):
+    """With cv2 blocked: the committed BMP and TIFF stills decode to cv2's
+    recorded frames on the CPU routes, and a TIFF training package and BMP
+    and TIFF ImgStores are written and read back bitwise."""
+    res = standalone["bmp_tiff"]
+    record = json.loads((REPO / "tests" / "torch_data" / "stills" / "decoded.json").read_text())
+    small = [n for n, want in record["stills"].items() if "sha256" in want and "1024" not in n]
+    assert sorted(res["stills"]) == sorted(small) and all(res["stills"].values())
+    assert res["written"] == {"package": [True, True], "bmp": True, "tif": True}
+
+
 def test_slice_modules_run_with_the_jax_side_blocked(standalone):
     res = standalone["slice"]
     assert res["chain_frames"] == sorted(res["frames"])
@@ -692,9 +725,10 @@ def test_entry_points_without_a_card_raise_instead_of_falling_back():
 
 @pytest.mark.parametrize("path", ["clip.slp", "clip.mp4"])
 def test_slp_and_media_paths_are_not_read_yet(path, tmp_path, monkeypatch):
-    """What the port does not read yet raises, naming what is missing: a
-    ``.slp`` whose video is an ImgStore of video-file chunks (a directory
-    store of images is read), and a media file on a machine without cv2."""
+    """What needs a package that is not installed raises, naming it: a
+    ``.slp`` whose video is an ImgStore of video-file chunks (loopbio's
+    imgstore reads those; a directory store of images is read without
+    it), and a media file on a machine without cv2."""
     if path.endswith(".slp"):
         import h5py
 
@@ -707,7 +741,8 @@ def test_slp_and_media_paths_are_not_read_yet(path, tmp_path, monkeypatch):
             del f["videos_json"]
             f["videos_json"] = [json.dumps({"backend": {"type": "ImgStoreVideo",
                                                         "filename": str(store)}}).encode()]
-        with pytest.raises(NotImplementedError, match="ImgStore.*ROADMAP.md"):
+        monkeypatch.setitem(sys.modules, "imgstore", None)
+        with pytest.raises(ImportError, match="VideoImgStore.*imgstore package"):
             tp._make_provider(str(tmp_path / path), device="cpu")
         return
     (tmp_path / path).write_bytes(b"")
