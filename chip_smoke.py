@@ -5,8 +5,8 @@ inference, flow-shift tracking, training, the ``sleap-track``,
 ``sleap-diagnostic`` CLIs, exported programs, the data model's API, the
 host modules (NWB/NIX, image-feature suggestions, prefs, util, message),
 the pipeline blocks and builders, ZMQ training and MoveNet, JPEG writing
-and ``sleap-render``, and still images (progressive JPEG, BMP, TIFF) once
-on one CUDA card,
+and ``sleap-render``, still images (progressive JPEG, BMP, TIFF) and users'
+own HDF5 files (latest format, SWMR, LZF) once on one CUDA card,
 through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
 trained run folders from their own checkpoints, the other backbones
@@ -449,12 +449,31 @@ script its total before the ``kernels`` line:
    pair on the card: the same predictions exactly (the pixels are the
    same), kernels 2, 3 and 1 once a batch; prints the FPS.
 
+20. Users' own HDF5 files, after phase 19 (aim: under 20 s). 20a: every
+   object of the committed fixtures (``tests/torch_data/hdf5``,
+   ``scripts/make_torch_hdf5_fixtures.py``: ``libver="latest"`` files with
+   dense links and attributes, the five chunk indexes, lzf, fletcher32,
+   scale-offset, links, committed types and references, an earliest-format
+   one, and ``latest_raw.slp``, whose frames a SWMR writer appended) read
+   with ``hdf5.File(..., device="cuda")`` (LZF in host C,
+   ``sleap_hdf5_lzf_decode``) to what h5py read (``manifest.json``), each
+   refused feature (a region reference, the nbit filter) raised by name.
+   20b: every LZF chunk decoded by the host C decoder and the plain one to
+   the same bytes; ms a 384^2 frame and MB/s on each route. 20c:
+   ``sleap-track`` (in this process) with phase 8b's trained top-down pair
+   on ``latest_raw.slp`` and on ``raw.slp``, cuDNN's algorithms set
+   deterministic for both (at its defaults two runs of the pair on one file
+   differ by up to 3.05e-5 px): the same predictions exactly,
+   kernels 2, 3 and 1 once a batch (counted into the kernels line as "CLI
+   latest_raw.slp (20c)"); prints each one's FPS and ms a frame read.
+
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
 one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
-one of phase 17's, one of phase 18's and one of phase 19's; the line before
-the last is a JSON object with each kernel's launches (J1 and J2 from phase
-13c's and 19a's runs, J3 and J4 from 18b's and 18c's) (all paths' and per
-path), error and times; the last line is ``{"ok": true, "device": {...}}``.
+one of phase 17's, one of phase 18's, one of phase 19's and one of phase
+20's; the line before the last is a JSON object with each kernel's launches
+(J1 and J2 from phase 13c's and 19a's runs, J3 and J4 from 18b's and 18c's)
+(all paths' and per path), error and times; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import csv
@@ -581,6 +600,8 @@ JPEG_DIR = ("tests", "torch_data", "jpeg")
 JPEG_PKG = ("tests", "torch_data", "jpeg_pkg.slp")
 JPEG_PLAIN_BLOCKS = 5000
 IMGSTORE_FRAMES = (0, 3, 5, 9, 14, 20, 26, 31)
+# Phase 20: the HDF5 fixtures (``scripts/make_torch_hdf5_fixtures.py``).
+HDF5_DIR = ("tests", "torch_data", "hdf5")
 # 8b: the committed fixtures (``scripts/make_torch_slp_fixtures.py``) and the
 # trained folders the CPU tests drive on them.
 FIXTURE_DIR = ("tests", "torch_data")
@@ -4392,6 +4413,180 @@ def check_still_images(td, wrappers, launches, card, kept):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 20: users' own HDF5 files
+# --------------------------------------------------------------------------- #
+
+
+def hdf5_manifest_module():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import hdf5_manifest
+
+    return hdf5_manifest
+
+
+def check_hdf5_fixtures(card):
+    """20a: every object of every committed HDF5 fixture read on the card's
+    route (``device="cuda"``: LZF in host C) against ``manifest.json``
+    (h5py's read), each refusal raised naming its feature."""
+    from sleap_tpu_torch.io import hdf5, lzf
+
+    hm = hdf5_manifest_module()
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), *HDF5_DIR)
+    with open(os.path.join(folder, "manifest.json")) as fh:
+        record = json.load(fh)
+    figures, cwd = {}, os.getcwd()
+    os.chdir(folder)  # the external raw file is named relative to it, as libhdf5 resolves it
+    try:
+        for name, entry in record["files"].items():
+            t0 = time.perf_counter()
+            with hdf5.File(name, device="cuda") as f:
+                got = hm.manifest(f, entry["refused"], probe=True)
+                route = f._lzf_decode
+            seconds = time.perf_counter() - t0
+            diffs = hm.differences(entry["objects"], got)
+            check(not diffs, f"20a {name}: the card's route reads what h5py read: {diffs[:3]}")
+            check(route is lzf.decode_host, f"20a {name}: LZF decoded in host C ({route})")
+            refused = {e["path"]: e["refused"] for e in got if "refused" in e}
+            check(refused == entry["refused"], f"20a {name}: refusals {refused}")
+            figures[name] = {"objects": len(got), "refused": sorted(refused), "read_s": seconds}
+    finally:
+        os.chdir(cwd)
+    log(f"20a HDF5 fixtures read on the card's route as h5py read them (h5py {record['h5py']}, HDF5 "
+        f"{record['hdf5']}): {figures} ({card})")
+    return figures
+
+
+def lzf_streams(path):
+    """(stored LZF stream, decoded size) of every LZF chunk of ``path``
+    that lzf compressed (a chunk it could not shrink is stored raw), with
+    the Fletcher-32 checksum that follows it on the file stripped."""
+    from sleap_tpu_torch.io import hdf5
+
+    streams = []
+
+    def walk(group):
+        for key, target in group._members.items():
+            if isinstance(target, tuple):
+                continue  # links to other files: their own chunks are listed there
+            try:
+                obj = group[key]
+            except hdf5.UnsupportedFeature:
+                continue  # a refused object (20a holds it to its refusal)
+            if isinstance(obj, hdf5.Group):
+                walk(obj)
+                continue
+            ids = [fid for fid, _ in getattr(obj, "filters", [])]
+            if 32000 not in ids:
+                continue
+            at = ids.index(32000)
+            size = int(np.prod(obj.chunks)) * obj.dtype.itemsize
+            for _, mask, stored, addr in obj._chunk_entries():
+                if not mask >> at & 1:
+                    stream = bytes(f._buf[addr:addr + stored])
+                    streams.append((stream[:-4] if 3 in ids[at + 1:] else stream, size))
+
+    with hdf5.File(path, device="cpu") as f:
+        walk(f)
+    return streams
+
+
+def check_lzf_routes(card):
+    """20b: LZF decoded by the host C decoder and by the plain one: equal
+    bytes on every LZF chunk of the fixtures; ms a 384^2 frame of
+    ``latest_raw.slp`` and MB/s on each route."""
+    from sleap_tpu_torch.io import lzf
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), *HDF5_DIR)
+    streams = {name: lzf_streams(os.path.join(folder, name)) for name in ("latest_raw.slp", "features.h5",
+                                                                       "features_earliest.h5")}
+    for name, chunks in streams.items():
+        for stream, size in chunks:
+            check(lzf.decode_host(stream, size) == lzf.decode_plain(stream),
+                  f"20b {name}: host and plain LZF decode to the same bytes")
+    frames = streams["latest_raw.slp"]
+    check(len(frames) == 8 and all(size == 384 * 384 for _, size in frames), "20b: 8 LZF frames of 384^2")
+    routes = {"host": lambda s, n: lzf.decode_host(s, n), "plain": lambda s, n: lzf.decode_plain(s)}
+    times = {}
+    for label in ("host", "plain", "plain", "host"):  # in turns
+        t0 = time.perf_counter()
+        for stream, size in frames:
+            routes[label](stream, size)
+        times.setdefault(label, []).append((time.perf_counter() - t0) / len(frames))
+    figures = {"chunks": {k: len(v) for k, v in streams.items()},
+               "stored_bytes_a_frame": float(np.mean([len(s) for s, _ in frames]))}
+    for label, values in times.items():
+        ms = 1e3 * float(np.mean(values))
+        figures[f"{label}_ms_a_frame"] = ms
+        figures[f"{label}_MB_s"] = 384 * 384 / ms / 1e3
+    log(f"20b LZF, {sum(map(len, streams.values()))} chunks equal on both routes; a 384^2 frame "
+        f"({figures['stored_bytes_a_frame']:.0f} bytes stored): host C {figures['host_ms_a_frame']:.3f} ms "
+        f"({figures['host_MB_s']:.1f} MB/s), plain {figures['plain_ms_a_frame']:.3f} ms "
+        f"({figures['plain_MB_s']:.1f} MB/s) ({card})")
+    return figures
+
+
+def check_latest_cli(wrappers, launches, card):
+    """20c: ``sleap-track`` (in this process) with phase 8b's trained
+    top-down pair on ``latest_raw.slp`` and on ``raw.slp`` (8b's run,
+    again), with cuDNN's deterministic algorithms: the same predictions
+    exactly, kernels 2, 3 and 1 once a batch; FPS and ms a frame read of
+    each. (At cuDNN's defaults two runs of this pair on one file differ by
+    up to 3.05e-5 px: the convolutions' algorithm is not bitwise
+    repeatable.)"""
+    from sleap_tpu_torch.io.slp import read_labels
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = os.path.join(here, ".convergence_runs")
+    centroid, instance = (os.path.join(runs, f) for f in CLI_TRAINED[:2])
+    sources = {"latest_raw.slp": os.path.join(here, *HDF5_DIR, "latest_raw.slp"),
+               "raw.slp": os.path.join(here, *FIXTURE_DIR, "raw.slp")}
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    root = tempfile.mkdtemp()
+    try:
+        for name, src in sources.items():
+            dst = os.path.join(root, name + ".predictions.slp")
+            seconds, counts = cli_run([src, "-m", centroid, "-m", instance, "--peak_threshold", "0.05",
+                                       "--batch_size", "4", "--verbosity", "none", "-o", dst], wrappers)
+            video = read_labels(src).video
+            video.get_frame(0)
+            t0 = time.perf_counter()
+            for i in range(video.num_frames):
+                video.get_frame(i)
+            read_ms = 1e3 * (time.perf_counter() - t0) / video.num_frames
+            out[name] = {"labels": read_labels(dst), "seconds": seconds, "launches": counts,
+                         "read_ms": read_ms, "frames": video.num_frames}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    latest = out["latest_raw.slp"]
+    n_batches = -(-latest["frames"] // 4)
+    for kernel, count in latest["launches"].items():
+        check(count == n_batches, f"20c: {kernel} launched {count} times on latest_raw.slp, want one a batch")
+        launches[kernel]["CLI latest_raw.slp (20c)"] = count
+    compare_predictions(latest["labels"], out["raw.slp"]["labels"], 0.0, 0.0,
+                        "20c: latest_raw.slp vs raw.slp")
+    check(sum(len(lf.instances) for lf in latest["labels"]) >= 8, "20c: instances found")
+    figures = {name: {"fps": run["frames"] / run["seconds"], "cli_s": run["seconds"],
+                      "read_ms_a_frame": run["read_ms"], "launches": run["launches"]}
+               for name, run in out.items()}
+    log(f"20c sleap-track on latest_raw.slp: {figures['latest_raw.slp']['fps']:.1f} FPS, "
+        f"{figures['latest_raw.slp']['read_ms_a_frame']:.3f} ms a frame read (SWMR layout, lzf, host C); "
+        f"raw.slp: {figures['raw.slp']['fps']:.1f} FPS, {figures['raw.slp']['read_ms_a_frame']:.3f} ms a "
+        f"frame read (gzip); the same predictions (cuDNN deterministic); launches {latest['launches']} ({card})")
+    return figures
+
+
+def check_hdf5_files(wrappers, launches, card):
+    """Phase 20: 20a-20c, each part's seconds printed."""
+    return {part: timed_phase(part, fn, *args)
+            for part, fn, args in (("20a", check_hdf5_fixtures, (card,)),
+                                   ("20b", check_lzf_routes, (card,)),
+                                   ("20c", check_latest_cli, (wrappers, launches, card)))}
+
+
+# --------------------------------------------------------------------------- #
 # Phase 11: training the other backbones, and their bf16 inference
 # --------------------------------------------------------------------------- #
 
@@ -6242,6 +6437,10 @@ def main() -> int:
         # TIFF decoded and written on the card's route, sleap-track on a
         # TIFF package.
         still_images = timed_phase("19", check_still_images, td, td_wrappers, launches, card, kept)
+
+        # Phase 20: users' own HDF5 files (latest format, SWMR, LZF in host
+        # C), and sleap-track on the latest-format twin of raw.slp.
+        hdf5_files = timed_phase("20", check_hdf5_files, td_wrappers, launches, card)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -6271,6 +6470,7 @@ def main() -> int:
     print(json.dumps({"pipelines": slice_modules, "card": card}), flush=True)
     print(json.dumps({"jpeg_encoding": jpeg_encoding, "card": card}), flush=True)
     print(json.dumps({"still_images": still_images, "card": card}), flush=True)
+    print(json.dumps({"hdf5": hdf5_files, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

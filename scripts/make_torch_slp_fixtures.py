@@ -55,13 +55,12 @@ def every_filter_imencode(ext: str, img: np.ndarray):
     return True, np.frombuffer(encode(img[..., 0], FILTERS.index("mixed")), np.uint8)
 
 
-def main() -> None:
-    import cv2
-
+def fixture_labels():
+    """The fixtures' labels, as the JAX package's ``Labels`` of an in-memory
+    video of :func:`fixture_frames`."""
     from sleap_tpu.core.instance import Instance, LabeledFrame, Track
     from sleap_tpu.core.labels import Labels
     from sleap_tpu.core.skeleton import Skeleton
-    from sleap_tpu.io.slp import write_labels
     from sleap_tpu.io.video import Video
 
     frames, centres = fixture_frames()
@@ -79,6 +78,16 @@ def main() -> None:
             for (x, y), track in zip(points, tracks)
         ]
         lfs.append(LabeledFrame(video=video, frame_idx=i, instances=instances))
+    return Labels(labeled_frames=lfs)
+
+
+def main() -> None:
+    import cv2
+
+    from sleap_tpu.core.labels import Labels
+    from sleap_tpu.io.slp import write_labels
+
+    lfs = fixture_labels().labeled_frames
     out = os.path.join(REPO, "tests", "torch_data")
     os.makedirs(out, exist_ok=True)
     for name, embed in (("raw.slp", False), ("pkg.slp", True)):

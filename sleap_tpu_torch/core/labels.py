@@ -995,7 +995,8 @@ class Labels(MutableSequence):
         from sleap_tpu_torch.io.video import HDF5Video
 
         out = []
-        with hdf5.Writer(output_path, "a") as f:
+        read_device = self.videos[0]._device(device) if self.videos else device or "cuda"
+        with hdf5.Writer(output_path, "a", device=read_device) as f:
             for v_idx, video in enumerate(self.videos):
                 nums = self._frame_data_nums(video, all_labeled, suggested, user_labeled=user_labeled)
                 video.write_hdf5(f, f"video{v_idx}", nums, format, device=device)

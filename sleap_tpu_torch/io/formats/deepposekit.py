@@ -34,7 +34,7 @@ def read_labels(filename: str, video_path: str, skeleton_path: str, device="cuda
             except ValueError:
                 pass
 
-    with hdf5.File(filename) as f:
+    with hdf5.File(filename, device=device) as f:
         pose = f["pose"][:]
     track_count, frame_count, _, _ = pose.shape
     tracks = [Track(0, f"Track {i}") for i in range(track_count)]

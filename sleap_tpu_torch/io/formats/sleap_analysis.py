@@ -24,7 +24,7 @@ def _names(values) -> list:
 
 
 def read_labels(filename: str, video: Optional[Video] = None, device="cuda") -> Labels:
-    with hdf5.File(filename) as f:
+    with hdf5.File(filename, device=device) as f:
         tracks_mat = f["tracks"][:].T  # -> (frames, nodes, 2, tracks)
         node_names = _names(f["node_names"][:])
         track_names = _names(f["track_names"][:] if f["track_names"].shape[0] else [])

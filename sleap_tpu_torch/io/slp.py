@@ -132,8 +132,9 @@ def read_labels(
     device="cuda",
 ) -> Labels:
     """Load a ``.slp`` file into :class:`Labels`; its media videos decode on
-    ``device`` (the card unless the caller asks for the CPU)."""
-    with hdf5.File(filename) as f:
+    ``device`` (the card unless the caller asks for the CPU), and its LZF
+    chunks on that device's route (:class:`~sleap_tpu_torch.io.hdf5.File`)."""
+    with hdf5.File(filename, device=device) as f:
         meta = json.loads(_as_str(f["metadata"].attrs["json"]))
         format_id = float(f["metadata"].attrs.get("format_id", 1.0))
 

@@ -241,7 +241,7 @@ class HDF5Video:
     input_format: str = "channels_last"
     convert_range: bool = True
     enable_source_video: bool = True
-    device: dataclasses.InitVar[Device] = "cuda"  # where a source video is read
+    device: dataclasses.InitVar[Device] = "cuda"  # where a source video is read; LZF's route
 
     EXTS = ("h5", "hdf5", "slp")
 
@@ -255,7 +255,7 @@ class HDF5Video:
 
     def _open(self) -> hdf5.Dataset:
         if self._file_ is None:
-            self._file_ = hdf5.File(self.filename)
+            self._file_ = hdf5.File(self.filename, device=self.device)
             name = self.dataset
             if name is None or name not in self._file_:
                 raise KeyError(f"Dataset {self.dataset!r} not found in {self.filename}.")
@@ -805,7 +805,7 @@ class Video:
         ``device`` (by default this video's), where JPEG and TIFF rows are
         encoded too; the layout of the JAX package's ``Video.to_hdf5``: see
         :meth:`write_hdf5`."""
-        with hdf5.Writer(path, "a") as f:
+        with hdf5.Writer(path, "a", device=self._device(device)) as f:
             self.write_hdf5(f, dataset, frame_numbers, format, index_by_original, device)
         return Video(HDF5Video(filename=path, dataset=dataset + "/video", input_format="channels_last",
                                convert_range=False, device=self._device(device)))

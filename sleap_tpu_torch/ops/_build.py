@@ -26,7 +26,7 @@ import torch
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "build"
-SOURCES = ("peaks.cu", "crops.cu", "jpeg.cu", "png.cu", "tiff.cu")
+SOURCES = ("peaks.cu", "crops.cu", "jpeg.cu", "png.cu", "tiff.cu", "hdf5.cu")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,6 +56,7 @@ SIGNATURES = {
     "sleap_tiff_lzw_encode": [_p, _i64, _p, _i64, _p],
     "sleap_tiff_packbits_decode": [_p, _i64, _p, _i64, _p],
     "sleap_tiff_packbits_encode": [_p, _i64, _p, _i64, _p],
+    "sleap_hdf5_lzf_decode": [_p, _i64, _p, _i64, _p],
 }
 
 

@@ -142,7 +142,7 @@ def test_row_assignment_and_attributes(tmp_path):
         want[i, :len(r)] = r
     with h5py.File(path, "r") as f:
         np.testing.assert_array_equal(f["video0/video"][()], want)
-        assert f["video0/video"].attrs["format"] == b"png"
+        assert f["video0/video"].attrs["format"] == "png"  # a str, stored as h5py stores one
         assert f["video0/video"].attrs["height"] == 4
 
 

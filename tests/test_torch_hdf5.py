@@ -22,9 +22,25 @@ SLP_FILES = sorted(glob.glob(os.path.join(REPO, ".convergence_runs", "*", "*.slp
 POINTS = np.dtype([("x", "<f8"), ("y", "<f8"), ("visible", "?"), ("complete", "?")])
 
 
-def _same_value(a, b) -> None:
+def _same_value(a, b, files=None) -> None:
+    """``a`` as h5py reads it and ``b`` as the port reads it: equal values
+    of equal dtypes; references to objects of the same name (``files``:
+    the two open files)."""
+    if isinstance(a, h5py.Reference):
+        assert isinstance(b, hdf5.Reference) and bool(a) == bool(b)
+        if a:
+            ref, mine = files
+            assert ref[a].name == mine[b].name
+        return
+    if isinstance(a, h5py.Empty):
+        assert b is None
+        return
     if isinstance(a, np.ndarray) and a.dtype == object:
         assert isinstance(b, np.ndarray) and b.shape == a.shape
+        if a.size and isinstance(a.flat[0], h5py.Reference):
+            for x, y in zip(a.ravel(), b.ravel()):
+                _same_value(x, y, files)
+            return
         assert [bytes(x) if isinstance(x, bytes) else x for x in a.ravel()] == list(b.ravel())
         return
     if isinstance(a, (bytes, str)):
@@ -36,26 +52,38 @@ def _same_value(a, b) -> None:
     assert a.tobytes() == b.tobytes()
 
 
-def assert_same_file(path: str) -> int:
-    """Every group, dataset and attribute of ``path`` as h5py and the port
-    read it; returns the number of objects compared."""
+def assert_same_file(path: str, refused=None) -> int:
+    """Every group, dataset, named datatype and attribute of ``path`` as
+    h5py and the port (on the CPU route) read it: attribute names and
+    ``keys()`` in the same order, soft and external links followed.
+    ``refused`` maps an object's path to the feature the port must name
+    when it is opened or read. Returns the number of objects compared."""
     n = 0
-    with h5py.File(path, "r") as ref, hdf5.File(path) as mine:
+    refused = refused or {}
+    with h5py.File(path, "r") as ref, hdf5.File(path, device="cpu") as mine:
         def check(name, ref_obj, my_obj):
             nonlocal n
             n += 1
-            assert sorted(ref_obj.attrs.keys()) == sorted(my_obj.attrs.keys()), name
+            assert list(ref_obj.attrs.keys()) == list(my_obj.attrs.keys()), name
             for key in ref_obj.attrs:
-                _same_value(ref_obj.attrs[key], my_obj.attrs[key])
+                _same_value(ref_obj.attrs[key], my_obj.attrs[key], (ref, mine))
             if isinstance(ref_obj, h5py.Group):
                 assert isinstance(my_obj, hdf5.Group), name
                 assert list(ref_obj.keys()) == my_obj.keys(), name
                 for key in ref_obj:
+                    if f"{name}/{key}" in refused:
+                        with pytest.raises(hdf5.UnsupportedFeature, match=refused[f"{name}/{key}"]) as err:
+                            my_obj[key][()]
+                        assert os.path.basename(path) in str(err.value)
+                        continue
                     check(f"{name}/{key}", ref_obj[key], my_obj[key])
+            elif isinstance(ref_obj, h5py.Datatype):
+                assert isinstance(my_obj, hdf5.Datatype) and my_obj.dtype == ref_obj.dtype, name
             else:
                 assert isinstance(my_obj, hdf5.Dataset), name
                 assert ref_obj.shape == my_obj.shape, name
-                _same_value(ref_obj[()], my_obj[()])
+                assert (ref_obj.chunks, ref_obj.maxshape) == (my_obj.chunks, my_obj.maxshape), name
+                _same_value(ref_obj[()], my_obj[()], (ref, mine))
 
         check("", ref, mine)
     return n
@@ -131,28 +159,49 @@ def test_reader_matches_h5py_on_latest_format(tmp_path):
     assert assert_same_file(path) == 5
 
 
-def test_reader_raises_on_unsupported_features(tmp_path):
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+def test_reader_raises_on_unsupported_features(libver, tmp_path):
+    """What stays outside the subset raises UnsupportedFeature naming the
+    feature and the file (the rest of the file reads as h5py reads it):
+    nbit and szip filters, region references, virtual datasets, and, in
+    files patched to hold them (h5py writes neither), a shared object
+    header message table's message and a fractal heap with I/O filters."""
     path = str(tmp_path / "unsupported.h5")
-    with h5py.File(path, "w", libver="latest") as f:
-        f.create_dataset("v4_chunks", data=np.arange(10), chunks=(5,))
+    with h5py.File(path, "w", libver=libver) as f:
+        d = f.create_dataset("data", data=np.arange(20).reshape(4, 5))
+        d.attrs["note"] = 1
+        f.create_dataset("region", data=[d.regionref[1:3, 2:4]], dtype=h5py.regionref_dtype)
+        f.create_dataset("szip", data=np.arange(64, dtype="i4"), chunks=(32,), compression="szip")
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk((8,))
+        dcpl.set_filter(h5py.h5z.FILTER_NBIT)
+        f.create_dataset("nbit", shape=(16,), dtype="i4", dcpl=dcpl)[...] = np.arange(16)
+        layout = h5py.VirtualLayout(shape=(4, 5), dtype=d.dtype)
+        layout[...] = h5py.VirtualSource(d)
+        f.create_virtual_dataset("virtual", layout)
         dense = f.create_group("dense")
-        for i in range(20):  # past 8 links, libhdf5 moves them to a fractal heap
+        for i in range(20):  # past 8 links: a fractal heap in the latest format
             dense.create_dataset(f"d{i}", data=[i])
-        f["link"] = h5py.SoftLink("/v4_chunks")
-    with hdf5.File(path) as mine:
-        with pytest.raises(hdf5.UnsupportedFeature, match="chunk indexes"):
-            mine["v4_chunks"]
-        with pytest.raises(hdf5.UnsupportedFeature, match="dense link storage"):
-            mine["dense"].keys()
-        with pytest.raises(hdf5.UnsupportedFeature, match="soft links"):
-            mine["link"]
-    path = str(tmp_path / "fletcher.h5")
-    with h5py.File(path, "w") as f:
-        f.create_dataset("checked", data=np.arange(10), chunks=(5,), fletcher32=True)
-    with hdf5.File(path) as mine:
-        with pytest.raises(hdf5.UnsupportedFeature, match="fletcher32") as err:
-            mine["checked"]
-        assert path in str(err.value)
+    refused = {"/region": "region references", "/szip": "the szip filter", "/nbit": "the nbit filter",
+               "/virtual": "virtual datasets"}
+    assert assert_same_file(path, refused) > 20
+    data = bytearray(open(path, "rb").read())
+    with hdf5.File(path, device="cpu") as mine:
+        note = next(m for m in mine._messages(mine["data"]._oh) if m[0] == 0xC)
+    head = 8 if libver == "earliest" else 4
+    data[note[2] - head + (4 if libver == "earliest" else 3)] |= 0x02  # the attribute, "shared"
+    if libver == "latest":
+        heap = data.index(b"FRHP")
+        data[heap + 7] = 1  # I/O filters on the heap's blocks
+    patched = str(tmp_path / "patched.h5")
+    open(patched, "wb").write(bytes(data))
+    with hdf5.File(patched, device="cpu") as mine:
+        with pytest.raises(hdf5.UnsupportedFeature, match="shared object header message tables") as err:
+            mine["data"].attrs
+        assert patched in str(err.value)
+        if libver == "latest":
+            with pytest.raises(hdf5.UnsupportedFeature, match="fractal heaps with I/O filters"):
+                mine["dense"].keys()
 
 
 def test_writer_output_reads_back_through_h5py(tmp_path):
