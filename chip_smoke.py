@@ -5,8 +5,9 @@ inference, flow-shift tracking, training, the ``sleap-track``,
 ``sleap-diagnostic`` CLIs, exported programs, the data model's API, the
 host modules (NWB/NIX, image-feature suggestions, prefs, util, message),
 the pipeline blocks and builders, ZMQ training and MoveNet, JPEG writing
-and ``sleap-render``, still images (progressive JPEG, BMP, TIFF) and users'
-own HDF5 files (latest format, SWMR, LZF) once on one CUDA card,
+and ``sleap-render``, still images (progressive JPEG, BMP, TIFF), users'
+own HDF5 files (latest format, SWMR, LZF) and users' AVI videos
+(Motion-JPEG through J5, raw frames) once on one CUDA card,
 through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
 trained run folders from their own checkpoints, the other backbones
@@ -467,11 +468,31 @@ script its total before the ``kernels`` line:
    kernels 2, 3 and 1 once a batch (counted into the kernels line as "CLI
    latest_raw.slp (20c)"); prints each one's FPS and ms a frame read.
 
+21. Users' AVI videos, after phase 20. 21a: every committed AVI
+   (``tests/torch_data/avi``, ``scripts/make_torch_avi_fixtures.py``: cv2's
+   and OpenCV's Motion-JPEG writers, PIL's gray, 4:2:2 and 4:4:4 JPEGs,
+   DHT-less AVI1 frames, OpenDML, no ``idx1``, ``LIST 'rec '`` with audio,
+   zero-length chunks, raw ``BI_RGB`` and ``Y800`` frames, the IDCT probe
+   clip) through ``MediaVideo``'s card route, colour and gray, in order and
+   at random, to cv2's (FFmpeg backend) recorded frames (``manifest.json``)
+   with cv2's frame count and fps; the odd-height 4:2:0 one refused by name;
+   J5 (``jpeg_idct_ffmpeg_kernel``, FFmpeg's IDCT) equal to its plain
+   version on every Motion-JPEG frame up to AVI_PLAIN_BLOCKS blocks;
+   DHT-less copies of the baseline JPEG stills decoded on the card to cv2's
+   frames; ms a 1024^2 frame by stage (host entropy decoding, copy in, J5,
+   conversion, copy out), gray and 4:2:0. 21b: ``sleap-track gray_1024.avi``
+   (8 gray 1024^2 Motion-JPEG frames) with phase 8b's trained top-down pair
+   in a fresh process against ``load_model`` in this one on the frames the
+   card decodes (held to cv2's hashes), within CLI_TOL; kernels 2, 3 and 1
+   once a batch of 4, J5 once a decoded frame (counted into the kernels
+   line as "CLI clip.avi (21b)"); prints its FPS beside 12b's and 13c's.
+
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
 one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
-one of phase 17's, one of phase 18's, one of phase 19's and one of phase
-20's; the line before the last is a JSON object with each kernel's launches
-(J1 and J2 from phase 13c's and 19a's runs, J3 and J4 from 18b's and 18c's)
+one of phase 17's, one of phase 18's, one of phase 19's, one of phase
+20's and one of phase 21's; the line before the last is a JSON object with
+each kernel's launches (J1 and J2 from phase 13c's and 19a's runs, J3 and J4
+from 18b's and 18c's, J5 from 21b's)
 (all paths' and per path), error and times; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -484,6 +505,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -725,6 +747,19 @@ def time_ms(fn, iters=50, warmup=5) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def events_ms(fn, iters=20) -> float:
+    """ms a call of ``fn`` by CUDA events over ``iters`` calls, after one."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
     start.record()
     for _ in range(iters):
         fn()
@@ -3536,18 +3571,6 @@ def check_jpeg(card):
         errs["jpeg_color"] = max(errs["jpeg_color"], max_abs(out, plain_out))
         check(torch.equal(samples, plain_samples) and torch.equal(out, plain_out),
               f"13b: J1 and J2 equal the plain stages on {name}")
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-        def events_ms(fn, iters=20):
-            fn()
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / iters
-
         split = {
             "entropy_ms": median_ms(lambda: jpeg.coefficients_host(data, header, staging), 5),
             "copy_in_ms": events_ms(lambda: staging.to(dev, non_blocking=True)),
@@ -6228,6 +6251,286 @@ def kernel_rows(errs, launches, card):
     return kernels
 
 
+# --------------------------------------------------------------------------- #
+# Phase 21: users' AVI videos (the demuxer, Motion-JPEG through J5, raw frames)
+# --------------------------------------------------------------------------- #
+
+
+AVI_DIR = ("tests", "torch_data", "avi")
+AVI_CLIP = "gray_1024.avi"  # 21b's clip: 8 gray 1024^2 frames of 8a's kind
+AVI_REFUSED = {"opencv_mjpeg_37x29.avi": "odd height"}  # swscale's scaler, not modelled
+AVI_PLAIN_BLOCKS = 5000  # 21a: J5 vs its plain version on every MJPEG frame up to this many blocks
+AVI_BATCH = 4
+
+_CLI_MAIN_AVI = """
+import time
+t_start = time.perf_counter()
+import json, sys, torch
+from sleap_tpu_torch.cli import track
+from sleap_tpu_torch.io import mjpeg
+from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+wrappers = {"local_peaks": cuda_peaks.local_peaks_cuda, "crop_unit": cuda_crops.crop_unit_cuda,
+            "global_peaks": cuda_peaks.global_peaks_cuda, "jpeg_idct_ffmpeg": mjpeg.idct_cuda}
+for w in wrappers.values():
+    w.launches = 0
+torch.backends.cudnn.deterministic = True
+t0 = time.perf_counter()
+track.main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"cli_s": time.perf_counter() - t0, "import_s": t0 - t_start,
+                  "launches": {k: w.launches for k, w in wrappers.items()}}))
+"""
+
+
+def avi_path(name) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *AVI_DIR, name)
+
+
+def avi_manifest() -> dict:
+    with open(avi_path("manifest.json")) as fh:
+        return json.load(fh)["files"]
+
+
+def without_dht(data: bytes) -> bytes:
+    """A JPEG with its DHT segments cut out, as Motion-JPEG frames come."""
+    out, pos = bytearray(data[:2]), 2
+    while data[pos + 1] != 0xDA:
+        (length,) = struct.unpack_from(">H", data, pos + 2)
+        if data[pos + 1] != 0xC4:
+            out += data[pos:pos + 2 + length]
+        pos += 2 + length
+    return bytes(out + data[pos:])
+
+
+def check_avi_fixtures(card):
+    """21a: every committed AVI through ``MediaVideo``'s card route to the
+    manifest's cv2 frames (BGR and the blue channel), in order and at
+    random, with cv2's frame count and fps; the odd-height colour one
+    refused by name; J5 bitwise against its plain version on the card on
+    every MJPEG frame of up to AVI_PLAIN_BLOCKS blocks; DHT-less copies of
+    the baseline JPEG stills through ``jpeg.imdecode`` on the card to cv2's
+    recorded frames. Returns the figures it prints."""
+    from sleap_tpu_torch.io import avi, jpeg, mjpeg
+    from sleap_tpu_torch.io.video import MediaVideo
+
+    manifest, dev = avi_manifest(), torch.device("cuda", 0)
+    figures = {"files": 0, "frames_read": 0, "j5_frames_vs_plain": 0}
+    j5_err = 0
+    t0 = time.perf_counter()
+    for name, want in sorted(manifest.items()):
+        path = avi_path(name)
+        colour, gray = MediaVideo(path, grayscale=False, bgr=False), MediaVideo(path, grayscale=True)
+        if name in AVI_REFUSED:
+            try:
+                colour.get_frame(0)
+            except NotImplementedError as e:
+                check(AVI_REFUSED[name] in str(e) and "ROADMAP.md item 3g" in str(e),
+                      f"21a: {name} refused naming it: {e}")
+                continue
+            check(False, f"21a: {name} must be refused")
+        check((colour.frames, colour.fps) == (want["frames"], want["fps"]),
+              f"21a: {name} has cv2's count and fps {(colour.frames, colour.fps)}")
+        n = want["readable"]
+        order = list(range(n)) + [int(i) for i in np.random.default_rng(0).permutation(n)]
+        for i in order:
+            check(sha256(colour.get_frame(i)) == want["bgr"][i]
+                  and sha256(gray.get_frame(i)) == want["gray"][i],
+                  f"21a: frame {i} of {name} is cv2's")
+        figures["frames_read"] += 2 * len(order)
+        figures["files"] += 1
+        demux = colour._reader.demux
+        if demux.codec != "mjpeg":
+            continue
+        with open(path, "rb") as fh:
+            for i in range(n):
+                data = demux.read(fh, i)
+                frame = mjpeg.parse_frame(data, abs(demux.height))
+                if frame.header.blocks > AVI_PLAIN_BLOCKS:
+                    continue
+                coefs = jpeg.coefficients_host(data, frame.header).to(dev)
+                quant = torch.from_numpy(frame.header.quant.astype(np.int32)).to(dev)
+                card_out = mjpeg.idct_cuda(coefs, quant, frame.header)
+                plain = mjpeg.idct_plain(coefs, quant, jpeg.block_components(frame.header).to(dev))
+                j5_err = max(j5_err, max_abs(card_out, plain))
+                check(torch.equal(card_out, plain), f"21a: J5 equals its plain version on {name} {i}")
+                figures["j5_frames_vs_plain"] += 1
+    figures["fixtures_s"] = time.perf_counter() - t0
+    record = jpeg_record()["stills"]
+    for name in sorted(n for n in record if "refused" not in record[n] and "progressive" not in n
+                       and "optimized" not in n and not n.startswith("pil_")):
+        cut = without_dht(read_still(name + ".jpg", JPEG_DIR))
+        check(sha256(jpeg.imdecode(cut, "cuda")) == record[name]["sha256"],
+              f"21a: {name} without DHT decodes on the card to cv2's frame")
+        figures["dht_less_stills"] = figures.get("dht_less_stills", 0) + 1
+    figures["j5_max_abs_err"] = j5_err
+    log(f"21a {figures['files']} AVI fixtures on the card: {figures['frames_read']} reads equal to "
+        f"cv2's (FFmpeg) frames in order and at random, counts and fps equal, "
+        f"{sorted(AVI_REFUSED)} refused; J5 equals its plain version on "
+        f"{figures['j5_frames_vs_plain']} frames; {figures['dht_less_stills']} DHT-less stills "
+        f"equal cv2's; {figures['fixtures_s']:.2f} s ({card})")
+    return figures, j5_err
+
+
+def time_avi_stages(card):
+    """21a: ms a 1024^2 frame by stage (host entropy decoding, copy in, J5,
+    conversion, copy out) on the 21b clip's gray frame and on the 1024^2
+    4:2:0 JPEG still taken as a Motion-JPEG frame; J5's device ms, plain ms
+    and bound. Returns (figures, the J5 row's numbers)."""
+    from sleap_tpu_torch.io import avi, jpeg, mjpeg, yuv
+
+    dev = torch.device("cuda", 0)
+    demux = avi.AviVideo.open(avi_path(AVI_CLIP))
+    with open(demux.filename, "rb") as fh:
+        frames = {"gray_1024": demux.read(fh, 0)}
+    frames["c420_1024"] = read_still("c420_1024.jpg", JPEG_DIR)
+    figures, row = {}, None
+    for name, data in frames.items():
+        frame = mjpeg.parse_frame(data)
+        header = frame.header
+        staging = jpeg._staging(header.blocks)
+        coefs = jpeg.coefficients_host(data, header, staging)
+        c = coefs.to(dev)
+        q = torch.from_numpy(header.quant.astype(np.int32)).to(dev)
+        comp = jpeg.block_components(header).to(dev)
+        samples = mjpeg.idct_cuda(c, q, header)
+        check(torch.equal(samples, mjpeg.idct_plain(c, q, comp)), f"21a: J5 equals plain on {name}")
+        planes = [p[:k.height, :k.width] for p, k in zip(jpeg.planes_of(samples, header),
+                                                        header.components)]
+
+        def convert():
+            if frame.sampling == "gray":
+                return planes[0][..., None].expand(*planes[0].shape, 3).contiguous()
+            return yuv.to_bgr(*planes, sampling=frame.sampling, full_range=frame.full_range)
+
+        out = convert()
+        split = {
+            "entropy_ms": median_ms(lambda: jpeg.coefficients_host(data, header, staging), 5),
+            "copy_in_ms": events_ms(lambda: staging.to(dev, non_blocking=True)),
+            "j5_ms": events_ms(lambda: mjpeg.idct_cuda(c, q, header)),
+            "convert_ms": events_ms(convert),
+            "copy_out_ms": median_ms(lambda: out.cpu(), 5),
+            "frame_ms": median_ms(lambda: mjpeg.decode(data, "cuda").cpu(), 5),
+        }
+        j5_dev = device_ms(lambda: mjpeg.idct_cuda(c, q, header), ["jpeg_idct_ffmpeg_kernel"])
+        j5_plain = time_ms(lambda: mjpeg.idct_plain(c, q, comp), iters=10, warmup=2)
+        # Bound: the coefficients and tables read once, the samples written
+        # once; about 600 integer operations a block (two passes of eight
+        # 1-D transforms) at the float32 rate outside the tensor cores.
+        j5_bytes, j5_ops = nbytes(c, q, samples), 600 * header.blocks
+        numbers = {"ms": split["j5_ms"], "plain_ms": j5_plain, "device_ms": j5_dev,
+                   "bytes_ms": j5_bytes / HBM_BYTES_PER_S * 1e3,
+                   "ops_ms": j5_ops / F32_OPS_PER_S * 1e3}
+        figures[name] = {**split, "bytes": len(data), "blocks": header.blocks,
+                         "sampling": frame.sampling, "j5_device_ms": j5_dev, "j5_plain_ms": j5_plain,
+                         "j5_bound_ms": max(numbers["bytes_ms"], numbers["ops_ms"])}
+        row = row or numbers  # the row is the gray clip's frame, 21b's
+        log(f"21a Motion-JPEG {name} ({len(data)} bytes, {header.blocks} blocks, "
+            f"{frame.sampling}), ms a frame: entropy (host C) {split['entropy_ms']:.3f}, copy in "
+            f"{split['copy_in_ms']:.3f}, J5 {split['j5_ms']:.4f} (device {j5_dev:.4f}, plain "
+            f"{j5_plain:.3f}, bound {figures[name]['j5_bound_ms']:.4f}), conversion "
+            f"{split['convert_ms']:.4f}, copy out {split['copy_out_ms']:.3f}; whole card route "
+            f"{split['frame_ms']:.3f} ({card})")
+    row["colour"] = figures["c420_1024"]
+    return figures, row
+
+
+def check_avi_cli(launches, card, fps_12b, fps_13c):
+    """21b: ``sleap-track clip.avi`` (the committed 1024^2 gray Motion-JPEG
+    AVI) with phase 8b's trained top-down pair in a fresh process on the
+    card, against ``load_model`` in this process on the frames the card
+    decodes (held to cv2's hashes): predictions within CLI_TOL, kernels 2,
+    3 and 1 once a batch, J5 once a decoded frame. Both sides run cuDNN's
+    deterministic algorithms: at its defaults they differ by a float32 ulp
+    of the points (6.1e-5 px), too near CLI_TOL (as in 20c). Returns the
+    figures it prints."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.io.slp import read_labels
+    from sleap_tpu_torch.io.video import Video
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = os.path.join(here, ".convergence_runs")
+    centroid, instance = (os.path.join(runs, f) for f in CLI_TRAINED[:2])
+    clip, want_frames = avi_path(AVI_CLIP), avi_manifest()[AVI_CLIP]
+    video = Video.from_filename(clip)
+    decoded = video[:]
+    n = len(decoded)
+    check(video.shape == (n, IMG, IMG, 1) and n == want_frames["readable"]
+          and all(sha256(f) == h for f, h in zip(decoded, want_frames["gray"])),
+          f"21b: the card decodes {AVI_CLIP} ({video.shape}) to cv2's gray frames")
+    pred = sleap_tpu_torch.load_model([centroid, instance], batch_size=AVI_BATCH,
+                                      peak_threshold=0.05, max_instances=MAX_INSTANCES)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = pred.predict(decoded)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "clip.predictions.slp")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", _CLI_MAIN_AVI, clip, "-m", centroid, "-m", instance,
+             "--peak_threshold", "0.05", "--batch_size", str(AVI_BATCH), "--max_instances",
+             str(MAX_INSTANCES), "--verbosity", "none", "-o", out],
+            cwd=here, capture_output=True, text=True, timeout=300)
+        process_s = time.perf_counter() - t0
+        check(run.returncode == 0, f"21b: sleap-track clip.avi exit {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        result = json.loads(run.stdout.strip().splitlines()[-1])
+        got = read_labels(out)
+    n_batches = -(-n // AVI_BATCH)
+    counts = result["launches"]
+    for kernel in ("local_peaks", "crop_unit", "global_peaks"):
+        check(counts[kernel] == n_batches,
+              f"21b: {kernel} launched {counts[kernel]} times by the CLI, want one a batch")
+        launches[kernel]["CLI clip.avi (21b)"] = counts[kernel]
+    check(counts["jpeg_idct_ffmpeg"] >= n, f"21b: J5 launched {counts['jpeg_idct_ffmpeg']} times "
+          f"for {n} frames")
+    launches["jpeg_idct_ffmpeg"]["CLI clip.avi (21b)"] = counts["jpeg_idct_ffmpeg"]
+    insts = [i for lf in got for i in lf.instances]
+    check(len(got) == n and len(insts) >= n, f"21b: instances in every frame ({len(insts)})")
+    d_xy, d_val = compare_predictions(got, want, CLI_TOL, CLI_TOL, "21b: CLI on clip.avi vs in-process")
+    cli_fps = n / result["cli_s"]
+    figures = {"frames": n, "cli_s": result["cli_s"], "cli_fps": cli_fps, "cli_fps_12b": fps_12b,
+               "cli_fps_13c": fps_13c, "process_s": process_s, "launches": counts,
+               "instances": len(insts), "max_abs_dxy": d_xy, "max_abs_dscore": d_val}
+    log(f"21b sleap-track {AVI_CLIP} ({n} Motion-JPEG frames of {IMG}^2 gray) with the trained pair "
+        f"in a fresh process: main {result['cli_s']:.3f} s = {cli_fps:.1f} FPS (12b clip.mp4: "
+        f"{'not measured' if fps_12b is None else f'{fps_12b:.1f} FPS'}; 13c jpeg_pkg.slp: "
+        f"{fps_13c:.1f} FPS), process {process_s:.1f} s; {len(insts)} instances, launches {counts}; "
+        f"vs in-process max |dxy| {d_xy:.3g}, max |dscore| {d_val:.3g} ({card})")
+    return figures
+
+
+def check_avi_videos(launches, card, fps_12b, fps_13c):
+    """Phase 21: 21a and 21b, each part's seconds printed. Returns (figures,
+    J5's (max |err|, row numbers))."""
+    fixtures, j5_err = timed_phase("21a fixtures", check_avi_fixtures, card)
+    stages, j5_row = timed_phase("21a stages", time_avi_stages, card)
+    launches["jpeg_idct_ffmpeg"] = {}
+    cli = timed_phase("21b", check_avi_cli, launches, card, fps_12b, fps_13c)
+    return {"fixtures": fixtures, "stages": stages, "cli": cli}, (j5_err, j5_row)
+
+
+def avi_kernel_row(j5, launches):
+    """The ``kernels`` line's row of J5, at the 21b clip's 1024^2 gray frame."""
+    err, r = j5
+    return {
+        "name": "jpeg_idct_ffmpeg", "route": "cuda", "source": "sleap_tpu_torch/csrc/jpeg.cu",
+        "replaces": "sleap_tpu/io/video.py:73",
+        "replaces_note": "cv2.VideoCapture (FFmpeg's Motion-JPEG decoder) on the host in "
+                         "MediaVideo; no TPU kernel",
+        "device_function": "jpeg_idct_ffmpeg_kernel",
+        "launches": sum(launches["jpeg_idct_ffmpeg"].values()),
+        "launches_by_path": launches["jpeg_idct_ffmpeg"], "max_abs_err": err, "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+        "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+        "library_ms": None, "device_ms": r["device_ms"],
+        "colour_420": {k: r["colour"][k] for k in ("j5_ms", "j5_device_ms", "j5_plain_ms",
+                                                   "j5_bound_ms", "convert_ms")},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU.")
@@ -6441,11 +6744,18 @@ def main() -> int:
         # Phase 20: users' own HDF5 files (latest format, SWMR, LZF in host
         # C), and sleap-track on the latest-format twin of raw.slp.
         hdf5_files = timed_phase("20", check_hdf5_files, td_wrappers, launches, card)
+
+        # Phase 21: users' AVI videos on the card (the demuxer, Motion-JPEG
+        # through J5, raw frames), and sleap-track clip.avi.
+        fps_12b = media["cli"].get("cli_fps")
+        avi_videos, j5 = timed_phase("21", check_avi_videos, launches, card, fps_12b,
+                                     jpeg_cli["cli_fps"])
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
     kernels += jpeg_kernel_rows(jpeg_rows, launches)
+    kernels.append(avi_kernel_row(j5, launches))
 
     leaked = [m for m in sys.modules if m.split(".")[0] in JAX_SIDE
               and m.split(".")[0] not in torch_own]
@@ -6471,6 +6781,7 @@ def main() -> int:
     print(json.dumps({"jpeg_encoding": jpeg_encoding, "card": card}), flush=True)
     print(json.dumps({"still_images": still_images, "card": card}), flush=True)
     print(json.dumps({"hdf5": hdf5_files, "card": card}), flush=True)
+    print(json.dumps({"avi": avi_videos, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

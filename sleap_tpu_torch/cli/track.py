@@ -56,9 +56,10 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
     parser.add_argument(
         "--video.device", dest="video_device", choices=("cuda", "cpu"), default=None,
-        help="Where media videos (.mp4, .avi, ...) are decoded: 'cuda' reads H.264 .mp4 and "
-        ".mov through NVDEC, 'cpu' reads any format cv2 reads. Defaults to the device the "
-        "networks run on.",
+        help="Where media videos (.mp4, .avi, ...) are decoded: 'cuda' reads AVI files of "
+        "Motion-JPEG (decoded as OpenCV's FFmpeg backend decodes it) or of uncompressed frames, "
+        "and H.264 .mp4 and .mov through NVDEC; 'cpu' reads any format cv2 reads. Defaults to "
+        "the device the networks run on.",
     )
     parser.add_argument(
         "--n-devices", type=int, default=None, dest="n_devices",

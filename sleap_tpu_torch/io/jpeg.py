@@ -7,7 +7,9 @@ codec for ``.pkg.slp`` files, HDF5 frame files, image folders, ImgStores and
 Scope: baseline, extended-sequential and progressive Huffman JPEGs (SOF0,
 SOF1, SOF2), 8-bit, one component (gray, returned (H, W)) or three (YCbCr,
 returned (H, W, 3) in BGR order), sampled 4:4:4, 4:2:2 or 4:2:0, with
-restart intervals, optimised Huffman tables (redefined between scans too),
+restart intervals, optimised Huffman tables (redefined between scans too)
+or none (a stream without DHT, as Motion-JPEG frames come, takes the
+Annex K.3 tables, as libjpeg-turbo's ``jinit_huff_decoder`` does),
 several scans and sizes that are no multiple of the MCU. A progressive file
 may use any scan script libjpeg accepts (spectral selection and successive
 approximation; DC scans of several components, AC scans of one), as long as
@@ -196,6 +198,14 @@ def huffman_lookup(counts: bytes, values: bytes) -> np.ndarray:
     return table
 
 
+@functools.lru_cache(maxsize=4)
+def _standard_lookup(tc: int, th: int) -> np.ndarray:
+    """The lookup of the Annex K.3 table of class ``tc`` (0 DC, 1 AC) and id
+    ``th`` (0 luma, 1 chroma), which a stream without DHT decodes with."""
+    table = STD_HUFFMAN[2 * th + tc]
+    return huffman_lookup(table[:16], table[16:])
+
+
 def _segment(data: bytes, pos: int) -> Tuple[bytes, int]:
     """The entropy-coded bytes from ``pos`` to the next marker, unstuffed
     (0xFF 0x00 -> 0xFF), and the marker's position."""
@@ -329,6 +339,10 @@ def parse(data: bytes) -> Header:
             keys = ([(0, d) for d in dc] if scan.kind in ("sequential", "dc_first") else []) \
                 + ([(1, a) for a in ac] if scan.kind in ("sequential", "ac_first", "ac_refine") else [])
             for key in keys:
+                if key not in tables and key[1] < 2:
+                    # Motion-JPEG frames leave out DHT: libjpeg-turbo's
+                    # jinit_huff_decoder then installs the Annex K.3 tables.
+                    tables[key] = _standard_lookup(*key)
                 if key not in tables:
                     raise ValueError(f"JPEG scan uses Huffman table {key}, never defined.")
             scan.luts = [tables[key] for key in keys]

@@ -30,8 +30,9 @@ _TODO = "(ROADMAP.md, queue 1, item 3g: other codecs and containers)"
 
 
 def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not read on the card yet {_TODO}; only H.264 "
-                               f"in .mp4 or .mov is.")
+    return NotImplementedError(f"{what} is not read on the card yet {_TODO}; only AVI files of "
+                               f"Motion-JPEG or uncompressed frames, and H.264 in .mp4 or .mov, "
+                               f"are.")
 
 
 def _boxes(data: bytes, start: int = 0,

@@ -12,10 +12,13 @@ come back as numpy (H, W, C) arrays from
   kernels and the compiled TIFF codecs, on the CPU their plain versions;
 - :class:`NumpyVideo`: an in-memory array or a ``.npy`` file;
 - :class:`MediaVideo` (mp4, avi, ...): on the card (``device="cuda"``, the
-  default) H.264 ``.mp4``/``.mov`` files through the port's demuxer
-  (:mod:`~sleap_tpu_torch.io.mp4`), NVDEC (:mod:`~sleap_tpu_torch.io.nvdec`)
-  and OpenCV's colour conversion (:mod:`~sleap_tpu_torch.io.yuv`), with no
-  fallback; with ``device="cpu"`` any format through ``cv2``;
+  default) AVI files of Motion-JPEG or uncompressed frames through the
+  port's demuxer (:mod:`~sleap_tpu_torch.io.avi`) and FFmpeg's Motion-JPEG
+  decoding (:mod:`~sleap_tpu_torch.io.mjpeg`, kernel J5), and H.264
+  ``.mp4``/``.mov`` files through the port's demuxer
+  (:mod:`~sleap_tpu_torch.io.mp4`) and NVDEC (:mod:`~sleap_tpu_torch.io.nvdec`),
+  each with OpenCV's colour conversion (:mod:`~sleap_tpu_torch.io.yuv`) and
+  no fallback; with ``device="cpu"`` any format through ``cv2``;
 - :class:`SingleImageVideo`: still images, PNG, JPEG, BMP and TIFF through
   the port's decoders on its ``device``;
 - :class:`ImgStoreVideo`: a loopbio ImgStore: a directory store of PNG,
@@ -81,10 +84,13 @@ class MediaVideo:
     """A media file (mp4, avi, ...), read under a lock; sequential reads do
     not seek.
 
-    ``device`` "cuda" (the default) reads H.264 ``.mp4``/``.mov`` through
-    NVDEC on the card and converts it there as OpenCV would; any other codec
-    or container, or a card without NVDEC, raises (no fallback). ``device``
-    "cpu" reads through OpenCV. The device is not a field: ``.slp`` files do
+    ``device`` "cuda" (the default) picks the route by the file's leading
+    bytes: an AVI (``RIFF ... AVI ``) of Motion-JPEG or uncompressed frames
+    is demuxed and decoded as OpenCV's FFmpeg backend decodes it, on the
+    card; an ISO-BMFF file of H.264 goes through NVDEC and is converted
+    there as OpenCV would. Any other codec or container, or a card without
+    NVDEC for H.264, raises (no fallback). ``device`` "cpu" reads through
+    OpenCV. The device is not a field: ``.slp`` files do
     not record it. ``grayscale`` None detects it from the first frame (all
     channels equal); ``bgr`` flips OpenCV's BGR to RGB.
     """
@@ -116,9 +122,7 @@ class MediaVideo:
             if not os.path.isfile(self.filename):
                 raise FileNotFoundError(f"Could not find video file named {self.filename}.")
             if self._on_card:
-                from sleap_tpu_torch.io import mp4, nvdec
-
-                self._reader_ = nvdec.NvdecReader(mp4.Mp4Video.open(self.filename), self.device)
+                self._reader_ = _card_reader(self.filename, self.device)
             else:
                 cv2 = _import_cv2(f"Reading the media video {self.filename}")
                 self._reader_ = cv2.VideoCapture(self.filename)
@@ -210,18 +214,35 @@ class MediaVideo:
         return frame
 
     def _card_frame(self, idx: int, grayscale: Optional[bool]) -> np.ndarray:
-        """NVDEC's NV12 frame converted on the card as OpenCV converts it:
-        the blue channel alone for gray (what the CPU route keeps), else
-        RGB, or BGR with ``bgr`` False."""
-        from sleap_tpu_torch.io import yuv
+        """The card's frame as OpenCV gives it: the blue channel alone for
+        gray (what the CPU route keeps), else RGB, or BGR with ``bgr``
+        False. An AVI reader decodes to those channels; NVDEC's NV12 frame
+        is converted on the card."""
+        from sleap_tpu_torch.io import avi, yuv
 
-        with self._lock:
-            reader = self._reader
-            nv12 = reader.frame(idx)
         if grayscale is None:
             grayscale = self.is_grayscale
         channels = "b" if grayscale else ("rgb" if self.bgr else "bgr")
+        with self._lock:
+            reader = self._reader
+            if isinstance(reader, avi.AviReader):
+                return reader.frame(idx, channels).cpu().numpy()
+            nv12 = reader.frame(idx)
         return yuv.nv12_to_frame(nv12, reader.height, channels).cpu().numpy()
+
+
+def _card_reader(filename: str, device: torch.device):
+    """The card's reader of a media file, by its leading bytes: an AVI's
+    :class:`~sleap_tpu_torch.io.avi.AviReader`, else the NVDEC reader of an
+    ISO-BMFF file (whose demuxer refuses other containers by name)."""
+    from sleap_tpu_torch.io import avi, mp4, nvdec
+
+    ext = os.path.splitext(filename)[1].lower().lstrip(".")
+    with open(filename, "rb") as f:
+        head = f.read(12)
+    if ext not in ("mkv", "mj2") and head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+        return avi.AviReader(avi.AviVideo.open(filename), device)
+    return nvdec.NvdecReader(mp4.Mp4Video.open(filename), device)
 
 
 @dataclass(eq=False)

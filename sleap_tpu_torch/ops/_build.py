@@ -44,6 +44,7 @@ SIGNATURES = {
     ],
     "sleap_crop_unit": [_p, _i, _i64, _i, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p],
     "sleap_jpeg_idct": [_p, _i64, _p, _i64, _i64, _p, _p],
+    "sleap_jpeg_idct_ffmpeg": [_p, _i64, _p, _i64, _i64, _p, _p],
     "sleap_jpeg_color": [_p, _i, _i, _i, *[_i] * 18, _p, _p],
     "sleap_jpeg_ycc": [_p, _i, _i, _i, _i, _i, _i, _i, _p, _p],
     "sleap_jpeg_fdct": [_p, _i64, _p, _i64, _p, _p],

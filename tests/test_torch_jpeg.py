@@ -136,6 +136,42 @@ def test_committed_stills_decode_to_recorded_cv2_frames(name):
                                                     cv2.IMREAD_UNCHANGED))
 
 
+def _without_dht(data: bytes) -> bytes:
+    """``data`` with its DHT segments cut out, as Motion-JPEG frames come."""
+    out, pos = bytearray(data[:2]), 2
+    while data[pos + 1] != 0xDA:
+        (length,) = struct.unpack_from(">H", data, pos + 2)
+        if data[pos + 1] != 0xC4:
+            out += data[pos:pos + 2 + length]
+        pos += 2 + length
+    return bytes(out + data[pos:])
+
+
+BASELINE_STANDARD_TABLES = sorted(
+    n for n in RECORD["stills"] if "refused" not in RECORD["stills"][n]
+    and "progressive" not in n and "optimized" not in n and not n.startswith("pil_"))
+
+
+@pytest.mark.parametrize("name", BASELINE_STANDARD_TABLES)
+def test_streams_without_dht_take_the_standard_tables(name, host_library, monkeypatch):
+    """A JPEG without DHT decodes as libjpeg-turbo decodes it (its
+    ``jinit_huff_decoder`` installs the Annex K.3 tables): on the committed
+    baseline stills of every sampling, cut of their DHT segments, the plain
+    route equals ``cv2.imdecode`` of the cut file and of the whole one, and
+    the card route's host entropy decoder gives the plain coefficients."""
+    data = (FIXTURES / f"{name}.jpg").read_bytes()
+    cut = _without_dht(data)
+    assert b"\xff\xc4" not in cut[:cut.index(b"\xff\xda")] and len(cut) < len(data)
+    want = cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(want, cv2.imdecode(np.frombuffer(data, np.uint8),
+                                                     cv2.IMREAD_UNCHANGED))
+    np.testing.assert_array_equal(jpeg.decode_plain(cut), want)
+    monkeypatch.setattr(_build, "entry", host_library)
+    header = jpeg.parse(cut)
+    np.testing.assert_array_equal(jpeg.coefficients_host(cut, header).numpy(),
+                                  jpeg.coefficients_plain(cut, header))
+
+
 def _segments(buf):
     """(marker, start of segment) of each marker segment before the scan."""
     data, pos, out = bytes(buf), 2, []

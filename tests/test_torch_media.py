@@ -16,8 +16,9 @@ frames are the written planes exactly. Held here:
   on every (Y, U) and (Y, V) pair and on random planes, and the JAX
   ``MediaVideo``'s frames of the H.264 fixtures, gray and colour, bitwise;
 - ``device="cuda"`` (the default) never falls back to cv2: without NVDEC
-  it raises naming it, and other codecs, formats and containers raise
-  naming them; the device reaches every reader and is not written to
+  it raises naming it, and other codecs (an AVI of MPEG-4 among them; AVI
+  of Motion-JPEG or raw frames is read, ``tests/test_torch_avi.py``),
+  formats and containers raise naming them; the device reaches every reader and is not written to
   ``.slp`` files;
 - the NVDEC reader's logic (timestamps, seeking from sync samples, the
   NV12 surface's chroma offset and pitch, errors from the callbacks,
@@ -280,7 +281,16 @@ def test_other_codecs_and_containers_raise_naming_them(tmp_path):
     out.release()
     with pytest.raises(NotImplementedError, match="'mp4v'.*ROADMAP.md"):
         tvideo.MediaVideo(path).get_frame(0)
-    for ext in ("avi", "mkv", "mj2"):
+    # An AVI is read on the card when it holds Motion-JPEG or raw frames
+    # (tests/test_torch_avi.py); one of another codec raises naming its fourcc.
+    in_avi = str(tmp_path / "mpeg4.avi")
+    out = cv2.VideoWriter(in_avi, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 32))
+    for _ in range(3):
+        out.write(np.zeros((32, 32, 3), np.uint8))
+    out.release()
+    with pytest.raises(NotImplementedError, match="AVI of codec 'mp4v'.*ROADMAP.md"):
+        tvideo.Video.from_filename(in_avi).get_frame(0)
+    for ext in ("mkv", "mj2"):
         other = tmp_path / f"clip.{ext}"
         other.write_bytes(b"RIFF" + bytes(60))
         with pytest.raises(NotImplementedError, match=rf"\.{ext} container.*ROADMAP.md"):
