@@ -285,8 +285,8 @@ script its total before the ``kernels`` line:
    frame, the file sizes beside the raw ``.slp``'s, the read ms a frame and
    P1's and the wavefront's ms. 13b: the committed JPEG fixtures
    (``scripts/make_torch_jpeg_fixtures.py``): J1 and J2 give each still's
-   recorded cv2 sha256, the truncated progressive one is refused naming
-   block smoothing, the host entropy decoder gives the plain version's
+   recorded cv2 sha256 (the cut progressive ones through J6 as well), the
+   host entropy decoder gives the plain version's
    coefficients on the small baseline stills (19a holds the progressive
    ones), and
    J1 and J2 give the plain PyTorch stages' output on the 1024^2 stills'
@@ -429,8 +429,8 @@ script its total before the ``kernels`` line:
    progressive JPEGs (``tests/torch_data/jpeg/*progressive*``: cv2's and
    PIL's scan scripts, gray, 4:2:0, 4:2:2, 4:4:4, restarts, odd sizes,
    1024^2) through the card's route (the host progressive entropy decoder,
-   J1, J2) to ``decoded.json``'s cv2 sha256, the truncated one refused
-   naming block smoothing; J1 and J2 once a decoded frame (counts zeroed
+   J1, J2; J6 for the cut ones) to ``decoded.json``'s cv2 sha256; J1 and
+   J2 once a decoded frame (counts zeroed
    just before, read just after; they join the kernels line); the host
    progressive coefficients equal the plain decoder's on the stills of up
    to JPEG_PLAIN_BLOCKS blocks; a 1024^2 progressive frame's ms (host
@@ -487,12 +487,38 @@ script its total before the ``kernels`` line:
    once a batch of 4, J5 once a decoded frame (counted into the kernels
    line as "CLI clip.avi (21b)"); prints its FPS beside 12b's and 13c's.
 
+22. Every still cv2 reads, after phase 21 (aim: under 15 s). The stills
+   of this slice (``scripts/make_torch_still_fixtures.py`` and
+   ``scripts/make_torch_jpeg_fixtures.py``: TIFF orientations, signed and
+   wide samples, min-is-white, palettes, bilevel and CCITT pages, YCbCr,
+   CMYK, gray and alpha, JPEG-in-TIFF; 4:4:0, 4:1:1, RGB, CMYK and YCCK
+   JPEGs and progressive ones cut short) decode on the card's route to the
+   recorded cv2 sha256 in 13b (JPEG) and 19b (TIFF). 22a: on each JPEG
+   still whose parsed header reaches what this slice added to the kernels
+   (a colour space other than gray or YCbCr, an upsampling other than
+   4:4:4, 4:2:2 or 4:2:0, four components, block smoothing), J6
+   (``jpeg_smooth_kernel``, libjpeg-turbo's block smoothing), J1 and J2
+   (``jpeg_color_kernel``, its new colour modes and upsamplings) bitwise
+   equal to ``smooth_plain``, ``idct_plain`` and ``color_plain``; the host
+   CCITT decoder equal to the plain one on every TIFF of compression 2-4;
+   ms a 1024^2 frame of the four frames of animals (4:4:0 JPEG, cut
+   progressive JPEG, JPEG-in-TIFF, CCITT Group 4), the host stage split
+   out, and J6's device ms, per-call ms, plain ms and bound. 22b: top-down
+   ``predict`` with phase 4g's trained pair over a ``SingleImageVideo`` of
+   those four (on the card) against the same frames as a ``NumpyVideo``:
+   the same predictions exactly (cuDNN deterministic), kernels 2, 3 and 1
+   once (one batch), J1 and J2 once a JPEG stream (each JPEG, each strip
+   of the JPEG-in-TIFF: 18), J6 once a smoothed one (counted into the
+   kernels line as "SingleImageVideo 1024^2 stills (22b)"). No rate is
+   taken from one batch.
+
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
 one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
 one of phase 17's, one of phase 18's, one of phase 19's, one of phase
-20's and one of phase 21's; the line before the last is a JSON object with
-each kernel's launches (J1 and J2 from phase 13c's and 19a's runs, J3 and J4
-from 18b's and 18c's, J5 from 21b's)
+20's, one of phase 21's and one of phase 22's; the line before the last is a
+JSON object with each kernel's launches (J1 and J2 from phase 13c's, 19a's
+and 22b's runs, J3 and J4 from 18b's and 18c's, J5 from 21b's, J6 from
+22b's)
 (all paths' and per path), error and times; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -4185,7 +4211,7 @@ def read_still(name, folder=STILLS_DIR) -> bytes:
 def check_progressive(card, launches):
     """19a: the committed progressive JPEGs through the card's route (host
     progressive entropy decoder, J1, J2) to cv2's recorded frames, the
-    truncated one refused; J1 and J2 once a decoded frame; the host
+    cut ones smoothed by J6; J1 and J2 once a decoded frame; the host
     coefficients against the plain decoder's on the small stills; a 1024^2
     progressive frame's ms beside a baseline one's. Returns the figures it
     prints."""
@@ -4213,7 +4239,8 @@ def check_progressive(card, launches):
         decoded += 1
     counts = {k: w.launches for k, w in wrappers.items()}
     for kernel, count in counts.items():
-        check(count == decoded, f"19a: {kernel} launched {count} times for {decoded} progressive frames")
+        check(count == decoded, f"19a: {kernel} launched {count} times for {decoded} progressive "
+                                f"frames, want {decoded}")
         launches[kernel]["progressive JPEG stills (19a)"] = count
     host_checked = 0
     for name in names:
@@ -4242,8 +4269,8 @@ def check_progressive(card, launches):
         }
     figures = {"files": len(names), "decoded": decoded, "host_vs_plain": host_checked,
                "launches": counts, "ms_1024": timing}
-    log(f"19a {decoded} progressive JPEGs decoded on the card to cv2's frames (the truncated one "
-        f"refused, block smoothing); J1/J2 launches {counts}; host vs plain coefficients on "
+    log(f"19a {decoded} progressive JPEGs decoded on the card to cv2's frames (the truncated ones "
+        f"smoothed by J6); J1/J2 launches {counts}; host vs plain coefficients on "
         f"{host_checked} ({card})")
     for name, t in timing.items():
         log(f"19a {name} ({t['bytes']} bytes, {t['scans']} scans, {t['blocks']} blocks): host entropy "
@@ -6531,6 +6558,235 @@ def avi_kernel_row(j5, launches):
     }
 
 
+# --------------------------------------------------------------------------- #
+# Phase 22: every still cv2 reads (TIFF and JPEG layouts, J2's modes, J6)
+# --------------------------------------------------------------------------- #
+
+#: The four 1024^2 frames of animals (two blobs the trained top-down pair
+#: finds): a 4:4:0 JPEG, a progressive JPEG cut short (J6), a JPEG-in-TIFF
+#: of 16 strips and a CCITT Group 4 page.
+ANIMAL_STILLS = (("jpeg", "animals_c440_1024.jpg"), ("jpeg", "animals_c420_1024_progressive_truncated.jpg"),
+                 ("stills", "animals_jpeg_ycbcr22_1024.tif"), ("stills", "animals_ccitt_g4_1024.tif"))
+def jpeg_streams(folder, data):
+    """The headers of the JPEG streams a decode of a still runs through J1
+    and J2: the file's own, or a JPEG-in-TIFF's strips or tiles each with
+    its JPEGTables, in the colour space libtiff sets; none for another
+    TIFF."""
+    from sleap_tpu_torch.io import jpeg, tiff
+
+    if folder == "jpeg":
+        return [jpeg.parse(data)]
+    lay = tiff._layout(*tiff.read_ifd(data))
+    if lay["compression"] != 7:
+        return []
+    return [jpeg.parse(jpeg.with_tables(lay["tables"], data[o:o + c]), lay["jpeg_colorspace"])
+            for o, c in zip(lay["offsets"], lay["counts"])]
+
+
+#: The samplings J2 upsampled before this slice (4:4:4, 4:2:2, 4:2:0).
+FIRST_UPSAMPLINGS = ((1, 1), (2, 1), (2, 2))
+
+
+def check_slice_kernels(card):
+    """22a: on each JPEG still that reaches what this slice added to the
+    kernels (a colour space other than gray or YCbCr, an upsampling other
+    than 4:4:4, 4:2:2 or 4:2:0, four components, or block smoothing), J6,
+    J1 and J2 bitwise equal to ``smooth_plain``, ``idct_plain`` and
+    ``color_plain`` on the same inputs; the host CCITT decoder equal to the
+    plain one on every TIFF of compression 2-4. Which still that is comes
+    from its parsed header. (13b and 19b hold every still's decode on the
+    card's route to cv2's recorded frame.) Returns (figures, J6's max
+    |err|)."""
+    from sleap_tpu_torch.io import jpeg, tiff
+
+    dev = torch.device("cuda", 0)
+    checked = {"j6": [], "j1_j2": [], "ccitt": []}
+    ccitt_strips, j6_err = 0, 0.0
+    for name, want in sorted(jpeg_record()["stills"].items()):
+        if "refused" in want:
+            continue
+        data = read_still(name + ".jpg", JPEG_DIR)
+        header = jpeg.parse(data)
+        new = (header.color not in ("gray", "ycc") or len(header.components) == 4 or header.smooth
+               or any(jpeg.upsampling(header, c)[:2] not in FIRST_UPSAMPLINGS for c in header.components))
+        if not new:
+            continue
+        coefs = jpeg.coefficients_host(data, header).to(dev)
+        if header.smooth:
+            smoothed = jpeg.smooth_cuda(coefs, header)
+            plain = jpeg.smooth_plain(coefs.cpu(), header)
+            j6_err = max(j6_err, max_abs(smoothed.cpu(), plain))
+            check(torch.equal(smoothed.cpu(), plain), f"22a: J6 equals smooth_plain on {name}")
+            checked["j6"].append(name)
+            coefs = smoothed
+        q = torch.from_numpy(header.quant.astype(np.int32)).to(dev)
+        samples = jpeg.idct_cuda(coefs, q, header)
+        out = jpeg.color_cuda(samples, header)
+        check(torch.equal(samples.cpu(), jpeg.idct_plain(coefs.cpu(), q.cpu(), jpeg.block_components(header)))
+              and torch.equal(out.cpu(), jpeg.color_plain(jpeg.planes_of(samples.cpu(), header), header)),
+              f"22a: J1 and J2 ({header.color}) equal idct_plain and color_plain on {name}")
+        checked["j1_j2"].append(name)
+    for name, want in sorted(still_record("decoded.json")["stills"].items()):
+        if "refused" in want or not name.endswith(".tif"):
+            continue
+        data = read_still(name)
+        lay = tiff._layout(*tiff.read_ifd(data))
+        if lay["compression"] in (2, 3, 4):
+            check(np.array_equal(tiff.samples_of(data, lay, "cuda"), tiff.samples_of(data, lay, "cpu")),
+                  f"22a: the host CCITT decoder gives the plain one's rows on {name}")
+            checked["ccitt"].append(name)
+            ccitt_strips += len(lay["offsets"])
+    figures = {"j6_vs_plain": len(checked["j6"]), "j1_j2_vs_plain": len(checked["j1_j2"]),
+               "ccitt_files_host_vs_plain": len(checked["ccitt"]), "ccitt_strips_host_vs_plain": ccitt_strips}
+    log(f"22a J6 equals smooth_plain on {len(checked['j6'])} JPEGs, J1 and J2 equal idct_plain and "
+        f"color_plain on {len(checked['j1_j2'])} (new colour spaces, samplings, CMYK, smoothing); host "
+        f"CCITT equals the plain decoder on {len(checked['ccitt'])} TIFFs ({ccitt_strips} strips) ({card})")
+    return figures, j6_err
+
+
+def time_animal_stills(card):
+    """22a: ms a 1024^2 frame of each of ANIMAL_STILLS on the card's route,
+    with its host stage (entropy decoding, or CCITT) split out, and J6's
+    numbers on the cut progressive one (the kernels line's row). Returns
+    (figures, J6's row numbers)."""
+    from sleap_tpu_torch.io import jpeg, stills, tiff
+
+    dev = torch.device("cuda", 0)
+    figures, j6_row = {}, None
+    for folder, name in ANIMAL_STILLS:
+        data = read_still(name, ("tests", "torch_data", folder))
+        t = {"bytes": len(data), "frame_ms": median_ms(lambda: stills.imdecode(data, "cuda"), 5)}
+        if folder == "jpeg":
+            header = jpeg.parse(data)
+            staging = jpeg._staging(header.blocks)
+            t["host_entropy_ms"] = median_ms(lambda: jpeg.coefficients_host(data, header, staging), 5)
+            coefs = jpeg.coefficients_host(data, header, staging).to(dev)
+            q = torch.from_numpy(header.quant.astype(np.int32)).to(dev)
+            if header.smooth:
+                smoothed = jpeg.smooth_cuda(coefs, header)
+                cpu_coefs = coefs.cpu()
+                # Bound: each block's 64 coefficients read once and written
+                # once; some 25 multiply-adds for each of up to ten estimates.
+                j6_row = {"ms": events_ms(lambda: jpeg.smooth_cuda(coefs, header)),
+                          "device_ms": device_ms(lambda: jpeg.smooth_cuda(coefs, header),
+                                                 ["jpeg_smooth_kernel"]),
+                          "plain_ms": median_ms(lambda: jpeg.smooth_plain(cpu_coefs, header), 3),
+                          "bytes_ms": nbytes(coefs, smoothed) / HBM_BYTES_PER_S * 1e3,
+                          "ops_ms": 500 * header.blocks / F32_OPS_PER_S * 1e3,
+                          "blocks": header.blocks}
+                t["j6_device_ms"] = j6_row["device_ms"]
+                coefs = smoothed
+            samples = jpeg.idct_cuda(coefs, q, header)
+            t["j1_j2_device_ms"] = device_ms(lambda: jpeg.color_cuda(jpeg.idct_cuda(coefs, q, header), header),
+                                             ["jpeg_idct_kernel", "jpeg_color_kernel"])
+            del samples
+        else:
+            lay = tiff._layout(*tiff.read_ifd(data))
+            chunks = [data[o:o + c] for o, c in zip(lay["offsets"], lay["counts"])]
+            if lay["compression"] == 7:
+                streams = [jpeg.with_tables(lay["tables"], c) for c in chunks]
+                headers = jpeg_streams(folder, data)
+                t["strips"] = len(chunks)
+                t["host_entropy_ms"] = median_ms(
+                    lambda: [jpeg.coefficients_host(x, h) for x, h in zip(streams, headers)], 5)
+            else:
+                t["host_ccitt_ms"] = median_ms(lambda: tiff.samples_of(data, lay, "cuda"), 5)
+                t["plain_ccitt_ms"] = median_ms(lambda: tiff.samples_of(data, lay, "cpu"), 1)
+        figures[name] = t
+        log(f"22a {name} ({len(data)} bytes), ms a 1024^2 frame on the card's route: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if k.endswith("_ms")) + f" ({card})")
+    check(j6_row is not None, "22a: J6 timed on the cut progressive frame")
+    log(f"22a J6 at 1024^2 ({j6_row['blocks']} blocks): {j6_row['ms']:.4f} ms a call, device "
+        f"{j6_row['device_ms']:.4f}, plain {j6_row['plain_ms']:.2f}, bound {j6_row['bytes_ms']:.4f} ms "
+        f"({card})")
+    return figures, j6_row
+
+
+def check_animal_stills_predict(launches, card):
+    """22b: top-down ``predict`` with phase 4g's trained pair over a
+    ``SingleImageVideo`` of the four 1024^2 frames of animals on the card
+    (decoded by J6, J1, J2, host CCITT) against the same frames given as a
+    ``NumpyVideo``: the same predictions exactly (cuDNN deterministic);
+    kernels 2, 3 and 1 once a batch; J1 and J2 once a JPEG stream (each
+    file's, each strip of the JPEG-in-TIFF), J6 once a smoothed one
+    (counted into the kernels line). An equality check: one batch of four
+    frames is no rate, and none is taken. Returns the figures it prints."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.io import jpeg
+    from sleap_tpu_torch.io.video import SingleImageVideo, Video
+    from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = os.path.join(here, ".convergence_runs")
+    paths = [os.path.join(runs, f) for f in TRAINED[0][1]]
+    files = [os.path.join(here, "tests", "torch_data", folder, name) for folder, name in ANIMAL_STILLS]
+    streams = [h for folder, name in ANIMAL_STILLS
+               for h in jpeg_streams(folder, read_still(name, ("tests", "torch_data", folder)))]
+    expected = {"local_peaks": 1, "crop_unit": 1, "global_peaks": 1, "jpeg_idct": len(streams),
+                "jpeg_color": len(streams), "jpeg_smooth": sum(h.smooth for h in streams)}
+    pred = sleap_tpu_torch.load_model(paths, batch_size=len(files), peak_threshold=0.05)
+    wrappers = {"local_peaks": cuda_peaks.local_peaks_cuda, "crop_unit": cuda_crops.crop_unit_cuda,
+                "global_peaks": cuda_peaks.global_peaks_cuda, "jpeg_idct": jpeg.idct_cuda,
+                "jpeg_color": jpeg.color_cuda, "jpeg_smooth": jpeg.smooth_cuda}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pred.predict(np.zeros((len(files), 1024, 1024, 1), np.uint8), make_labels=False)  # warm-up
+        video = Video(backend=SingleImageVideo(filenames=files, grayscale=True))
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        got = pred.predict(video)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        frames = np.stack([video.get_frame(i) for i in range(len(files))])
+        want = pred.predict(Video.from_numpy(frames))
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    check(torch.device(video.backend.device).type == "cuda", "22b: the stills decode on the card")
+    for kernel, count in counts.items():
+        check(count == expected[kernel], f"22b: {kernel} launched {count} times, want {expected[kernel]} "
+                                         f"(one batch; {len(streams)} JPEG streams)")
+        launches.setdefault(kernel, {})["SingleImageVideo 1024^2 stills (22b)"] = count
+    compare_predictions(got, want, 0.0, 0.0, "22b: SingleImageVideo vs NumpyVideo")
+    insts = [i for lf in got for i in lf.instances]
+    check(len(got) == len(files) and all(len(lf.instances) for lf in got),
+          "22b: animals found in every frame")
+    figures = {"frames": len(files), "instances": len(insts), "launches": counts}
+    log(f"22b top-down predict on a SingleImageVideo of {len(files)} 1024^2 stills (4:4:0 JPEG, cut "
+        f"progressive JPEG, JPEG-in-TIFF, CCITT G4): {len(insts)} instances, the NumpyVideo run's "
+        f"predictions exactly; launches {counts} as expected ({card})")
+    return figures
+
+
+def check_all_stills(launches, card):
+    """Phase 22: 22a and 22b, each part's seconds printed. Returns (figures,
+    J6's (max |err|, row numbers))."""
+    kernels, j6_err = timed_phase("22a kernels", check_slice_kernels, card)
+    timing, j6_row = timed_phase("22a timing", time_animal_stills, card)
+    launches["jpeg_smooth"] = {}
+    predict = timed_phase("22b", check_animal_stills_predict, launches, card)
+    return {"kernels_vs_plain": kernels, "timing_1024": timing, "predict": predict}, (j6_err, j6_row)
+
+
+def smooth_kernel_row(j6, launches):
+    """The ``kernels`` line's row of J6, at the cut 1024^2 progressive frame."""
+    err, r = j6
+    return {
+        "name": "jpeg_smooth", "route": "cuda", "source": "sleap_tpu_torch/csrc/jpeg.cu",
+        "replaces": "sleap_tpu/io/video.py:477",
+        "replaces_note": "cv2.imread (libjpeg-turbo's block smoothing) on the host in "
+                         "SingleImageVideo.get_frame; no TPU kernel",
+        "device_function": "jpeg_smooth_kernel",
+        "launches": sum(launches["jpeg_smooth"].values()),
+        "launches_by_path": launches["jpeg_smooth"], "max_abs_err": err, "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+        "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+        "library_ms": None, "device_ms": r["device_ms"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU.")
@@ -6750,12 +7006,18 @@ def main() -> int:
         fps_12b = media["cli"].get("cli_fps")
         avi_videos, j5 = timed_phase("21", check_avi_videos, launches, card, fps_12b,
                                      jpeg_cli["cli_fps"])
+
+        # Phase 22: every still cv2 reads: the TIFF and JPEG layouts of this
+        # slice on the card (J2's new modes, J6, host CCITT), and top-down
+        # predict on a SingleImageVideo of four 1024^2 ones.
+        all_stills, j6 = timed_phase("22", check_all_stills, launches, card)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
         row["launches"] = sum(row["launches_by_path"].values())
     kernels += jpeg_kernel_rows(jpeg_rows, launches)
     kernels.append(avi_kernel_row(j5, launches))
+    kernels.append(smooth_kernel_row(j6, launches))
 
     leaked = [m for m in sys.modules if m.split(".")[0] in JAX_SIDE
               and m.split(".")[0] not in torch_own]
@@ -6782,6 +7044,7 @@ def main() -> int:
     print(json.dumps({"still_images": still_images, "card": card}), flush=True)
     print(json.dumps({"hdf5": hdf5_files, "card": card}), flush=True)
     print(json.dumps({"avi": avi_videos, "card": card}), flush=True)
+    print(json.dumps({"all_stills": all_stills, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -19,7 +19,16 @@ Writes, under ``tests/torch_data``:
   4:4:4, with a restart interval, at 37 x 29 and 3 x 50, and the two 1024^2
   frames; as PIL writes them (``progressive=True, optimize=True``); and one
   of cv2's cut after its third scan (an incomplete script, which
-  libjpeg-turbo decodes with block smoothing and the port refuses);
+  libjpeg-turbo decodes with block smoothing), and more cut ones (after the
+  DC scan alone, 4:4:0, CMYK, and a gray one whose frame header declares
+  1x2 sampling);
+- ``jpeg/{c440,c411}_*.jpg``: cv2's 4:4:0 and 4:1:1 samplings, baseline and
+  progressive; ``adobe_rgb_37x29.jpg`` and ``ids_rgb_37x29.jpg`` (RGB as
+  stored, by an Adobe transform of 0 or component ids 'R', 'G', 'B');
+  ``pil_cmyk_*.jpg`` (PIL's CMYK) and ``ycck_37x29.jpg`` (its Adobe
+  transform set to 2); two 1024^2 frames of two blob animals
+  (``make_torch_still_fixtures.animal_scene``), 4:4:0 and a progressive one
+  cut after three scans;
 - ``jpeg_pkg.slp``: a training package of 16 gray 1024^2 frames, each with
   four Gaussian blob animals (sigma 8 px) on a smooth, lightly textured
   background (no noise: about 70 KB a frame), labeled with a two-node user
@@ -39,7 +48,7 @@ Writes, under ``tests/torch_data``:
   for each of ``jpeg_pkg.slp``'s 16 frames at scale 1, and at scale 0.5 on
   ``resize_image``'s half-size frame, as ``save_labeled_video`` draws them.
 
-Both records name the cv2 and libjpeg-turbo that wrote them.
+The records name the cv2, libjpeg-turbo, Pillow and numpy that wrote them.
 ``--records`` writes only ``encoded.json`` and ``rendered.json``, from the
 committed stills and package, and leaves every other file as it is;
 ``--stills`` writes only the stills and their entries in ``decoded.json``.
@@ -56,6 +65,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 OUT = os.path.join(REPO, "tests", "torch_data")
 SEED, PKG_FRAMES, PKG_SIZE, SIGMA, AMPLITUDE = 0, 16, 1024, 8.0, 200.0
@@ -143,6 +153,18 @@ def stills(cv2):
     out["c420_1024"] = (np.clip(colour, 0, 255).astype(np.uint8), [])
     out["gray_1024_progressive"] = (out["gray_1024"][0], p)
     out["c420_1024_progressive"] = (out["c420_1024"][0], p)
+    # cv2's other two samplings: 4:4:0 (h1v2, fancy-upsampled) and 4:1:1
+    # (h4v1, replicated).
+    for name in ("440", "411"):
+        flag = getattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR_" + name)
+        out[f"c{name}_37x29_q75"] = (still(29, 37, 3, 20 + int(name)), [cv2.IMWRITE_JPEG_QUALITY, 75, s, flag])
+        out[f"c{name}_100x72_progressive"] = (still(72, 100, 3, 21 + int(name)), p + [s, flag])
+    # Two 1024^2 frames of animals (two blobs the trained top-down pair
+    # finds): 4:4:0, and a progressive one that still_files cuts short.
+    from make_torch_still_fixtures import animal_scene
+
+    out["animals_c440_1024"] = (animal_scene(PKG_SIZE, 60, 3), [s, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
+    out["animals_c420_1024_progressive"] = (animal_scene(PKG_SIZE, 61, 3), p)
     return out
 
 
@@ -166,6 +188,58 @@ def pil_stills() -> dict:
     return out
 
 
+def pil_cmyk(img: np.ndarray, **kw) -> bytes:
+    """A CMYK JPEG as PIL writes it (Adobe marker, transform 0: the
+    inverted CMYK that libjpeg and cv2 read)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def with_adobe(data: bytes, transform: int) -> bytes:
+    """``data`` without its JFIF marker, with an Adobe APP14 marker of
+    ``transform`` (0: RGB or CMYK as stored, 2: YCCK)."""
+    import struct
+
+    (length,) = struct.unpack(">H", data[4:6])
+    assert data[2:4] == b"\xff\xe0"
+    body = b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform)
+    return data[:2] + b"\xff\xee" + struct.pack(">H", len(body) + 2) + body + data[4 + length:]
+
+
+def with_ids(data: bytes, ids) -> bytes:
+    """``data`` without its JFIF marker, with its components renamed
+    ``ids`` in the frame and every scan header."""
+    import struct
+
+    (length,) = struct.unpack(">H", data[4:6])
+    out = bytearray(data[:2] + data[4 + length:])
+    sof = next(out.index(m) for m in (b"\xff\xc0", b"\xff\xc2") if m in out)
+    old = [out[sof + 10 + 3 * i] for i in range(len(ids))]
+    for i, ident in enumerate(ids):
+        out[sof + 10 + 3 * i] = ident
+    for at in [i for i in range(len(out) - 1) if out[i:i + 2] == b"\xff\xda"]:
+        for k in range(out[at + 4]):
+            out[at + 5 + 2 * k] = ids[old.index(out[at + 5 + 2 * k])]
+    return bytes(out)
+
+
+def with_sampling(data: bytes, hv: int) -> bytes:
+    """A one-component ``data`` whose frame header declares sampling ``hv``
+    (h << 4 | v): the entropy-coded data stays as it is (a lone
+    component's scans walk its blocks one by one whatever it declares),
+    but libjpeg's iMCU rows become ``v`` block rows."""
+    out = bytearray(data)
+    sof = next(out.index(m) for m in (b"\xff\xc0", b"\xff\xc2") if m in out)
+    assert out[sof + 9] == 1, "one component"
+    out[sof + 11] = hv
+    return bytes(out)
+
+
 def truncated(data: bytes, scans: int) -> bytes:
     """``data`` cut before its ``scans``-th scan header, with an EOI."""
     at = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"][scans]
@@ -180,7 +254,31 @@ def still_files(cv2) -> dict:
         assert ok
         out[name] = buf.tobytes()
     out.update(pil_stills())
+    # Progressive files cut short, which libjpeg-turbo decodes with block
+    # smoothing: after the first three scans (DC, luma 1-5, Cr: Cb has no AC
+    # data, so its DC is smoothed too), after the DC scan alone, and more.
     out["c420_100x72_progressive_truncated"] = truncated(out["c420_100x72_progressive"], 3)
+    out["gray_37x29_progressive_dc_only"] = truncated(out["gray_37x29_progressive"], 1)
+    out["c440_100x72_progressive_truncated"] = truncated(out["c440_100x72_progressive"], 2)
+    out["animals_c420_1024_progressive_truncated"] = truncated(out.pop("animals_c420_1024_progressive"), 3)
+    # A gray one cut after two scans whose frame header declares 1x2
+    # sampling: iMCU rows of two block rows, 37 rows high (5 block rows) so
+    # that smoothing's window names the zeroed row past the last.
+    ok, gray = cv2.imencode(".jpg", still(37, 29, 1, 32)[..., 0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert ok
+    out["gray_29x37_v2_progressive_truncated"] = with_sampling(truncated(gray.tobytes(), 2), 0x12)
+    # Colour spaces other than YCbCr: RGB (Adobe transform 0, or ids 'R',
+    # 'G', 'B'), CMYK as PIL writes it, YCCK (its Adobe transform set to 2).
+    rgb = out["c444_37x29_q50"]
+    out["adobe_rgb_37x29"] = with_adobe(rgb, 0)
+    out["ids_rgb_37x29"] = with_ids(rgb, [82, 71, 66])
+    cmyk = np.concatenate([still(29, 37, 3, 30), still(29, 37, 1, 31)], -1)
+    out["pil_cmyk_37x29"] = pil_cmyk(cmyk, quality=80)
+    out["pil_cmyk_37x29_progressive"] = pil_cmyk(cmyk, quality=80, progressive=True)
+    out["pil_cmyk_37x29_progressive_truncated"] = truncated(out["pil_cmyk_37x29_progressive"], 2)
+    ycck = bytearray(out["pil_cmyk_37x29"])
+    ycck[ycck.index(b"Adobe") + 11] = 2
+    out["ycck_37x29"] = bytes(ycck)
     return out
 
 
@@ -214,8 +312,11 @@ def encode_frames(cv2) -> dict:
 
 
 def versions(cv2) -> dict:
+    import PIL
+
     jpeg_line = [line for line in cv2.getBuildInformation().splitlines() if "JPEG:" in line]
-    return {"cv2": cv2.__version__, "jpeg": jpeg_line[0].split(":", 1)[1].strip() if jpeg_line else ""}
+    return {"cv2": cv2.__version__, "jpeg": jpeg_line[0].split(":", 1)[1].strip() if jpeg_line else "",
+            "pillow": PIL.__version__, "numpy": np.__version__}
 
 
 def write_records(cv2) -> None:
@@ -272,16 +373,14 @@ def main() -> None:
 
     jpeg_dir = os.path.join(OUT, "jpeg")
     os.makedirs(jpeg_dir, exist_ok=True)
-    record = {"stills": {}, "package": []}
+    record = {"versions": versions(cv2), "stills": {}, "package": []}
     for name, data in still_files(cv2).items():
         path = os.path.join(jpeg_dir, name + ".jpg")
         with open(path, "wb") as fh:
             fh.write(data)
-        if "truncated" in name:
-            record["stills"][name] = {"refused": "block smoothing"}
-        else:
-            record["stills"][name] = digest(cv2.imdecode(np.frombuffer(data, np.uint8),
-                                                         cv2.IMREAD_UNCHANGED))
+        reads = [cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED) for _ in range(3)]
+        assert reads[0] is not None and all(np.array_equal(reads[0], r) for r in reads), name
+        record["stills"][name] = digest(reads[0])
         print(f"wrote {path}: {len(data)} bytes")
     if args.stills:
         with open(os.path.join(jpeg_dir, "decoded.json")) as fh:

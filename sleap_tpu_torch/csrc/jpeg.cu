@@ -2,8 +2,9 @@
 // encoding as it encodes (cv2.imencode(".jpg") at quality 95), bit for bit:
 // the Huffman entropy decoder and encoder in host C, and the inverse DCT
 // (J1), the chroma upsampling and colour conversion (J2), the colour
-// conversion and downsampling (J3) and the forward DCT and quantisation (J4)
-// hand-written for Hopper (sm_90a). Bound with ctypes from
+// conversion and downsampling (J3), the forward DCT and quantisation (J4)
+// and progressive JPEG's block smoothing (J6) hand-written for Hopper
+// (sm_90a). Bound with ctypes from
 // sleap_tpu_torch/io/jpeg.py, which holds the plain versions (Python entropy
 // coding, PyTorch integer code for the rest) that these must equal.
 //
@@ -27,15 +28,35 @@
 //   with 64-bit sums (JLONG), the int workspace between the passes and the
 //   10-bit post-IDCT range table. Eight threads a block of 8x8: pass 1 one
 //   column each, through shared memory, pass 2 one row each, written as 8
-//   bytes. Output (blocks, 8, 8) uint8: the component planes tiled in blocks.
-//   Bound by bytes (192 a block in and out); the 64-bit multiplies are a few
-//   hundred integer operations a block.
-// - jpeg_color_kernel (J2): one thread an output pixel. Gray copies Y;
-//   colour upsamples Cb and Cr as h2v1_fancy_upsample (3:1 on columns,
-//   rounding 1 / 2) or h2v2_fancy_upsample (3:1 on rows, then on columns,
-//   rounding 8 / 7), edges replicated at the component's downsampled size
-//   (plain replication for planes at most 2 samples wide), then converts with jdcolor.c's integer tables computed inline
-//   (SCALEBITS 16) to BGR. Bound by bytes: the planes read, H*W*3 written.
+//   bytes. Output (blocks, 8, 8) uint8: the component planes tiled in blocks,
+//   each block's table picked by three component boundaries (up to four
+//   components, CMYK's in one launch). Bound by bytes (192 a block in and
+//   out); the 64-bit multiplies are a few hundred integer operations a block.
+// - jpeg_color_kernel (J2): one thread an output pixel. Each component is
+//   brought to full size as libjpeg-turbo's jinit_upsampler picks:
+//   h2v1_fancy_upsample (3:1 on columns, rounding 1 / 2),
+//   h2v2_fancy_upsample (3:1 on rows, then on columns, rounding 8 / 7) for
+//   planes more than 2 samples wide, h1v2_fancy_upsample (4:4:0: 3:1 on
+//   rows, rounding 1 / 2), else replication (4:1:1 and the rest:
+//   int_upsample), edges replicated at the component's downsampled size.
+//   Then the colour mode: gray copies Y; YCbCr converts with jdcolor.c's
+//   integer tables computed inline (SCALEBITS 16) to BGR; RGB (Adobe
+//   transform 0, ids 'R' 'G' 'B', JPEG-in-TIFF's RGB) is written B, G, R as
+//   stored; CMYK (and YCCK, converted to R, G, B and inverted to C, M, Y)
+//   goes through OpenCV's icvCvt_CMYK2BGR_8u_C4C3R to BGR. Bound by bytes:
+//   the planes read, H*W*3 written.
+// - jpeg_smooth_kernel (J6): jdcoefct.c's decompress_smooth_data, where
+//   libjpeg-turbo's smoothing_ok holds (a progressive file whose scans leave
+//   AC coefficients 1-9 short of full precision): one thread a block, which
+//   copies its 64 coefficients and, for each of AC01, AC10, AC20, AC11, AC02
+//   (and AC03, AC12, AC21, AC30 and the DC itself where the component has
+//   no AC data yet) that is zero and not known exact, writes the estimate
+//   from the 5 x 5 DC values around the block (64-bit sums, rounded to the
+//   coefficient's quantisation step, capped below 1 << Al). Rows and columns
+//   are clamped at the image's edge as libjpeg-turbo's sliding registers
+//   and image_block_row test clamp them. Input and output are separate
+//   buffers: a block's DC estimate must not reach its neighbours'. Bound by
+//   bytes (256 a block in and out); the DC reads of the neighbours hit L1/L2.
 // - jpeg_ycc_kernel (J3): gray or BGR uint8 -> the components' 8x8 blocks
 //   (blocks, 64) uint8. Gray is one thread a sample of the padded plane.
 //   Colour is one thread a chroma sample: jccolor.c's rgb_ycc_convert
@@ -56,7 +77,7 @@
 //   padded with 1-bits.
 //
 // All are the simple first design: no tiling of the chroma reads in shared
-// memory, two launches where one could do, the frame copied back to the host.
+// memory, the frame copied back to the host.
 
 #include <stdint.h>
 #include <string.h>
@@ -493,13 +514,13 @@ __device__ __forceinline__ void idct_1d(const int64_t (&x)[8], int64_t (&o)[8], 
 __global__ void __launch_bounds__(kBlocksPerCta * 8)
 jpeg_idct_kernel(const int16_t* __restrict__ coefs, int64_t blocks,
                  const int32_t* __restrict__ quant, int64_t end0, int64_t end1,
-                 uint8_t* __restrict__ out) {
+                 int64_t end2, uint8_t* __restrict__ out) {
   __shared__ int32_t ws[kBlocksPerCta][64];
   const int local = threadIdx.x >> 3, lane = threadIdx.x & 7;
   const int64_t b = (int64_t)blockIdx.x * kBlocksPerCta + local;
   const bool live = b < blocks;
   if (live) {
-    const int comp = b < end0 ? 0 : (b < end1 ? 1 : 2);
+    const int comp = b < end0 ? 0 : (b < end1 ? 1 : (b < end2 ? 2 : 3));
     const int16_t* c = coefs + 64 * b;
     const int32_t* q = quant + 64 * comp;
     int64_t x[8], o[8];
@@ -749,23 +770,29 @@ jpeg_fdct_kernel(const uint8_t* __restrict__ samples, int64_t blocks,
 }
 
 struct Comp {
-  int offset, blocks_w, width, height, hs, vs;
+  int offset, blocks_w, width, height, hs, vs, method;
 };
+
+enum { kReplicate = 0, kH2V1 = 1, kH2V2 = 2, kH1V2 = 3 };
+enum { kGray = 0, kYcc = 1, kRgb = 2, kCmyk = 3, kYcck = 4 };
 
 __device__ __forceinline__ int sample(const uint8_t* __restrict__ s, const Comp& c, int y, int x) {
   return s[64 * ((int64_t)c.offset + (int64_t)(y >> 3) * c.blocks_w + (x >> 3)) + 8 * (y & 7)
            + (x & 7)];
 }
 
-// A chroma sample at output pixel (y, x), upsampled as libjpeg's fancy
-// upsamplers do; planes at most 2 samples wide are replicated, as
-// libjpeg-turbo's jinit_upsampler chooses.
-__device__ __forceinline__ int chroma(const uint8_t* __restrict__ s, const Comp& c, int y, int x) {
-  if (c.hs == 1) return sample(s, c, y, x);
-  if (c.width <= 2) return sample(s, c, y / c.vs, x >> 1);
+// A component's sample at output pixel (y, x), upsampled by the method
+// libjpeg-turbo's jinit_upsampler picks for it (io/jpeg.py's upsampling).
+__device__ __forceinline__ int upsampled(const uint8_t* __restrict__ s, const Comp& c, int y, int x) {
+  if (c.method == kH1V2) {
+    const int cy = y >> 1, odd = y & 1;
+    const int ny = odd ? min(cy + 1, c.height - 1) : max(cy - 1, 0);
+    return (3 * sample(s, c, cy, x) + sample(s, c, ny, x) + 1 + odd) >> 2;
+  }
+  if (c.method == kReplicate) return sample(s, c, y / c.vs, x / c.hs);
   const int cx = x >> 1, odd = x & 1;
   const int nx = odd ? min(cx + 1, c.width - 1) : max(cx - 1, 0);
-  if (c.vs == 1) return (3 * sample(s, c, y, cx) + sample(s, c, y, nx) + 1 + odd) >> 2;
+  if (c.method == kH2V1) return (3 * sample(s, c, y, cx) + sample(s, c, y, nx) + 1 + odd) >> 2;
   const int cy = y >> 1;
   const int ny = (y & 1) ? min(cy + 1, c.height - 1) : max(cy - 1, 0);
   const int here = 3 * sample(s, c, cy, cx) + sample(s, c, ny, cx);
@@ -777,36 +804,147 @@ __device__ __forceinline__ uint8_t clamp255(int v) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-__global__ void jpeg_color_kernel(const uint8_t* __restrict__ s, int ncomp, int H, int W,
-                                  Comp c0, Comp c1, Comp c2, uint8_t* __restrict__ out) {
+__global__ void jpeg_color_kernel(const uint8_t* __restrict__ s, int mode, int H, int W, Comp c0,
+                                  Comp c1, Comp c2, Comp c3, uint8_t* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)H * W) return;
   const int y = (int)(i / W), x = (int)(i % W);
-  const int yv = sample(s, c0, y, x);
-  if (ncomp == 1) {
-    out[i] = (uint8_t)yv;
+  const int v0 = upsampled(s, c0, y, x);
+  if (mode == kGray) {
+    out[i] = (uint8_t)v0;
     return;
   }
-  const int cb = chroma(s, c1, y, x) - 128, cr = chroma(s, c2, y, x) - 128;
-  out[3 * i + 0] = clamp255(yv + ((116130 * cb + 32768) >> 16));
-  out[3 * i + 1] = clamp255(yv + ((-22554 * cb - 46802 * cr + 32768) >> 16));
-  out[3 * i + 2] = clamp255(yv + ((91881 * cr + 32768) >> 16));
+  const int v1 = upsampled(s, c1, y, x), v2 = upsampled(s, c2, y, x);
+  int r = v0, g = v1, b = v2;
+  if (mode != kRgb && mode != kCmyk) {  // YCbCr (of YCCK too) to R, G, B
+    const int cb = v1 - 128, cr = v2 - 128;
+    r = clamp255(v0 + ((91881 * cr + 32768) >> 16));
+    g = clamp255(v0 + ((-22554 * cb - 46802 * cr + 32768) >> 16));
+    b = clamp255(v0 + ((116130 * cb + 32768) >> 16));
+  }
+  if (mode == kCmyk || mode == kYcck) {  // OpenCV's CMYK -> BGR
+    const int k = upsampled(s, c3, y, x);
+    const int c = mode == kCmyk ? v0 : 255 - r, m = mode == kCmyk ? v1 : 255 - g,
+              ye = mode == kCmyk ? v2 : 255 - b;
+    r = k - (((255 - c) * k) >> 8);
+    g = k - (((255 - m) * k) >> 8);
+    b = k - (((255 - ye) * k) >> 8);
+  }
+  out[3 * i + 0] = clamp255(b);
+  out[3 * i + 1] = clamp255(g);
+  out[3 * i + 2] = clamp255(r);
+}
+
+// J6's arguments per component (io/jpeg.py's smooth_params): block offset,
+// blocks a row of the buffer, blocks across and down the image, block rows
+// an iMCU row, iMCU rows, coef_bits of zigzag coefficients 1-9, quantisation
+// values of coefficients 0-9, block rows of the buffer (a row past them,
+// which a lone component's iMCU rows can name, reads as zeros).
+struct SmoothComp {
+  int offset, blocks_w, wib, hib, v, total, bits[9], q[10], blocks_h;
+};
+struct SmoothArgs {
+  SmoothComp c[4];
+  int ncomp;
+};
+
+// Natural positions of zigzag coefficients 1-9, and each estimate's weights
+// on the 5 x 5 DC values (rows above to below, columns left to right):
+// with DC interpolation (AC01..AC30, then the DC), and without (AC01..AC02).
+__constant__ int kSmoothPos[9] = {1, 8, 16, 9, 2, 3, 10, 17, 24};
+__constant__ int16_t kWChangeDc[10][25] = {
+    {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+    {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+    {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+    {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+    {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0},
+    {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8, -6, 6, 42, 6, -6, -2, -6, -8, -6, -2}};
+__constant__ int8_t kWAc[5][25] = {
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+    {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+    {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+    {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}};
+
+// decompress_smooth_data's pred: |num| rounded to a multiple of q << 8,
+// capped below 1 << al where al > 0, with num's sign.
+__device__ __forceinline__ int64_t smooth_estimate(int64_t num, int64_t q, int al) {
+  int64_t pred = ((q << 7) + (num < 0 ? -num : num)) / (q << 8);
+  if (al > 0 && pred >= ((int64_t)1 << al)) pred = ((int64_t)1 << al) - 1;
+  return num < 0 ? -pred : pred;
+}
+
+__global__ void __launch_bounds__(128)
+jpeg_smooth_kernel(const int16_t* __restrict__ in, int64_t blocks, SmoothArgs a,
+                   int16_t* __restrict__ out) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= blocks) return;
+  int ci = 0;
+  while (ci + 1 < a.ncomp && b >= a.c[ci + 1].offset) ++ci;
+  const SmoothComp& c = a.c[ci];
+  const int64_t base = 64 * b;
+  const int4* src = reinterpret_cast<const int4*>(in + base);
+  int4* dst = reinterpret_cast<int4*>(out + base);
+  for (int k = 0; k < 8; ++k) dst[k] = src[k];
+  const int64_t local = b - c.offset;
+  const int row = (int)(local / c.blocks_w), col = (int)(local % c.blocks_w);
+  if (row >= c.hib || col >= c.wib) return;
+  // The rows decompress_smooth_data reads: its image_block_row counts the
+  // last iMCU row's rows as if every iMCU row had as many.
+  const int imcu = row / c.v, br = row % c.v;
+  const int rows_here = imcu < c.total - 1 ? c.v : (c.hib % c.v ? c.hib % c.v : c.v);
+  const int ibr = imcu * rows_here + br, ibrs = rows_here * c.total;
+  int r5[5];
+  r5[2] = row;
+  r5[1] = ibr > 0 ? row - 1 : row;
+  r5[0] = ibr > 1 ? row - 2 : r5[1];
+  r5[3] = ibr < ibrs - 1 ? row + 1 : row;
+  r5[4] = ibr < ibrs - 2 ? row + 2 : r5[3];
+  int dc[25];
+  for (int i = 0; i < 5; ++i) {
+    for (int j = 0; j < 5; ++j) {
+      const int x = min(max(col + j - 2, 0), c.wib - 1);
+      dc[5 * i + j] =
+          r5[i] < c.blocks_h ? in[64 * ((int64_t)c.offset + (int64_t)r5[i] * c.blocks_w + x)] : 0;
+    }
+  }
+  bool change_dc = true;
+  for (int k = 0; k < 9; ++k) change_dc &= c.bits[k] == -1;
+  const int n_ac = change_dc ? 9 : 5;
+  for (int k = 0; k < n_ac; ++k) {
+    const int al = c.bits[k], pos = kSmoothPos[k];
+    if (al == 0 || in[base + pos] != 0) continue;
+    int64_t sum = 0;
+    for (int j = 0; j < 25; ++j) sum += (int64_t)(change_dc ? kWChangeDc[k][j] : kWAc[k][j]) * dc[j];
+    out[base + pos] = (int16_t)smooth_estimate((int64_t)c.q[0] * sum, c.q[k + 1], al);
+  }
+  if (change_dc) {
+    int64_t sum = 0;
+    for (int j = 0; j < 25; ++j) sum += (int64_t)kWChangeDc[9][j] * dc[j];
+    out[base] = (int16_t)smooth_estimate((int64_t)c.q[0] * sum, c.q[0], 0);
+  }
 }
 
 }  // namespace
 
 // J1: (blocks, 64) int16 coefficients, (components, 64) int32 quant tables;
-// blocks below end0 are component 0, below end1 component 1, the rest 2.
+// blocks below end0 are component 0, below end1 component 1, below end2
+// component 2, the rest 3.
 extern "C" int sleap_jpeg_idct(const void* coefs, int64_t blocks, const void* quant, int64_t end0,
-                               int64_t end1, void* out, void* stream) {
+                               int64_t end1, int64_t end2, void* out, void* stream) {
   if (blocks <= 0) return 0;
   const int64_t grid = (blocks + kBlocksPerCta - 1) / kBlocksPerCta;
   jpeg_idct_kernel<<<(unsigned)grid, kBlocksPerCta * 8, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)coefs, blocks, (const int32_t*)quant, end0, end1, (uint8_t*)out);
+      (const int16_t*)coefs, blocks, (const int32_t*)quant, end0, end1, end2, (uint8_t*)out);
   return (int)cudaGetLastError();
 }
 
-// J5: FFmpeg's dequantisation and IDCT, J1's layout and arguments.
+// J5: FFmpeg's dequantisation and IDCT, J1's layout; Motion-JPEG frames are
+// gray or YCbCr, so blocks map to three tables by two boundaries.
 extern "C" int sleap_jpeg_idct_ffmpeg(const void* coefs, int64_t blocks, const void* quant,
                                       int64_t end0, int64_t end1, void* out, void* stream) {
   if (blocks <= 0) return 0;
@@ -816,21 +954,52 @@ extern "C" int sleap_jpeg_idct_ffmpeg(const void* coefs, int64_t blocks, const v
   return (int)cudaGetLastError();
 }
 
-// J2: the (blocks, 8, 8) samples of J1 -> (H, W) or (H, W, 3) BGR uint8. Per
-// component: block offset, blocks a row, downsampled width and height, and
-// the horizontal and vertical upsampling factors.
-extern "C" int sleap_jpeg_color(const void* samples, int ncomp, int H, int W,
-                                int o0, int b0, int w0, int h0, int hs0, int vs0,
-                                int o1, int b1, int w1, int h1, int hs1, int vs1,
-                                int o2, int b2, int w2, int h2, int hs2, int vs2,
+// J2: the (blocks, 8, 8) samples of J1 -> (H, W) or (H, W, 3) BGR uint8, in
+// colour mode `mode` (0 gray, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK). Per component
+// (four; unused ones repeat the first): block offset, blocks a row,
+// downsampled width and height, the horizontal and vertical upsampling
+// factors and the upsampling method (0 replication, 1 h2v1, 2 h2v2 and 3
+// h1v2 fancy).
+extern "C" int sleap_jpeg_color(const void* samples, int mode, int H, int W,
+                                int o0, int b0, int w0, int h0, int hs0, int vs0, int m0,
+                                int o1, int b1, int w1, int h1, int hs1, int vs1, int m1,
+                                int o2, int b2, int w2, int h2, int hs2, int vs2, int m2,
+                                int o3, int b3, int w3, int h3, int hs3, int vs3, int m3,
                                 void* out, void* stream) {
   const int64_t n = (int64_t)H * W;
   if (n <= 0) return 0;
   const int threads = 256;
-  const Comp c0{o0, b0, w0, h0, hs0, vs0}, c1{o1, b1, w1, h1, hs1, vs1},
-      c2{o2, b2, w2, h2, hs2, vs2};
+  const Comp c0{o0, b0, w0, h0, hs0, vs0, m0}, c1{o1, b1, w1, h1, hs1, vs1, m1},
+      c2{o2, b2, w2, h2, hs2, vs2, m2}, c3{o3, b3, w3, h3, hs3, vs3, m3};
   jpeg_color_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)samples, ncomp, H, W, c0, c1, c2, (uint8_t*)out);
+      (const uint8_t*)samples, mode, H, W, c0, c1, c2, c3, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// J6: (blocks, 64) int16 coefficients -> smoothed ones in `out`; params: the
+// host's (ncomp, 32) int32 rows of io/jpeg.py's smooth_params.
+extern "C" int sleap_jpeg_smooth(const void* coefs, int64_t blocks, const void* params, int ncomp,
+                                 void* out, void* stream) {
+  if (blocks <= 0) return 0;
+  if (ncomp < 1 || ncomp > 4) return (int)cudaErrorInvalidValue;
+  SmoothArgs a{};
+  const int32_t* p = (const int32_t*)params;
+  for (int ci = 0; ci < ncomp; ++ci, p += 32) {
+    SmoothComp& c = a.c[ci];
+    c.offset = p[0];
+    c.blocks_w = p[1];
+    c.wib = p[2];
+    c.hib = p[3];
+    c.v = p[4];
+    c.total = p[5];
+    for (int k = 0; k < 9; ++k) c.bits[k] = p[6 + k];
+    for (int k = 0; k < 10; ++k) c.q[k] = p[15 + k];
+    c.blocks_h = p[25];
+  }
+  a.ncomp = ncomp;
+  const int threads = 128;
+  jpeg_smooth_kernel<<<(unsigned)((blocks + threads - 1) / threads), threads, 0,
+                       (cudaStream_t)stream>>>((const int16_t*)coefs, blocks, a, (int16_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -5,21 +5,26 @@ codec for ``.pkg.slp`` files, HDF5 frame files, image folders, ImgStores and
 ``sleap-render``'s Motion-JPEG, where ``cv2`` is not installed.
 
 Scope: baseline, extended-sequential and progressive Huffman JPEGs (SOF0,
-SOF1, SOF2), 8-bit, one component (gray, returned (H, W)) or three (YCbCr,
-returned (H, W, 3) in BGR order), sampled 4:4:4, 4:2:2 or 4:2:0, with
-restart intervals, optimised Huffman tables (redefined between scans too)
-or none (a stream without DHT, as Motion-JPEG frames come, takes the
-Annex K.3 tables, as libjpeg-turbo's ``jinit_huff_decoder`` does),
+SOF1, SOF2), 8-bit, of one component (gray, returned (H, W)), three
+(returned (H, W, 3) in BGR order: YCbCr, or RGB as stored where an Adobe
+marker's transform is 0 or the component ids are 'R', 'G', 'B', as
+libjpeg-turbo's ``default_decompress_parms`` guesses, JFIF first) or four
+(CMYK, or YCCK where an Adobe marker's transform is not 0; returned BGR as
+OpenCV's ``icvCvt_CMYK2BGR_8u_C4C3R`` converts libjpeg's inverted CMYK), with
+any sampling whose factors divide the largest (4:4:4, 4:2:2, 4:2:0, 4:4:0,
+4:1:1, ...), restart intervals, optimised Huffman tables (redefined between
+scans too) or none (a stream without DHT, as Motion-JPEG frames come, takes
+the Annex K.3 tables, as libjpeg-turbo's ``jinit_huff_decoder`` does),
 several scans and sizes that are no multiple of the MCU. A progressive file
 may use any scan script libjpeg accepts (spectral selection and successive
-approximation; DC scans of several components, AC scans of one), as long as
-it leaves every component's DC and first nine AC coefficients at full
-precision: where it does not (a truncated file, a partial script),
-libjpeg-turbo smooths the blocks (``jdcoefct.c``'s ``smoothing_ok`` and
-``decompress_smooth_data``), and this module raises naming block smoothing
-rather than return other pixels. Anything else (lossless, hierarchical or
-arithmetic-coded frames, 12-bit samples, CMYK, Adobe's RGB transform, other
-samplings) raises :class:`UnsupportedJpeg` naming the feature.
+approximation; DC scans of several components, AC scans of one); where its
+scans leave AC coefficients 1-9 short of full precision (a truncated file, a
+partial script), the blocks are smoothed as libjpeg-turbo 3's
+``jdcoefct.c`` ``decompress_smooth_data`` smooths them (``smoothing_ok``;
+:func:`smooth_plain`, J6 on the card). Lossless and hierarchical
+(differential) frames and 12-bit samples, which cv2 returns nothing for,
+and arithmetic-coded frames (nothing here writes a real one to hold cv2
+to) raise :class:`UnsupportedJpeg` naming the feature.
 
 A decode has four stages, each as libjpeg-turbo does it:
 
@@ -33,11 +38,17 @@ A decode has four stages, each as libjpeg-turbo does it:
 2. dequantisation and the integer inverse DCT of ``jidctint.c``
    (``jpeg_idct_islow``: CONST_BITS 13, PASS1_BITS 2, 64-bit sums, +128 and
    the post-IDCT range limit);
-3. "fancy" chroma upsampling (``jdsample.c``: ``h2v1_fancy_upsample``, the
-   3:1 triangle with rounding 1/2, and ``h2v2_fancy_upsample``, the 3:1
-   triangle on both axes with rounding 8/7; edge samples replicated), or
-   plain replication where the chroma plane is at most 2 samples wide;
-4. the integer YCbCr -> BGR tables of ``jdcolor.c`` (SCALEBITS 16).
+3. upsampling as ``jinit_upsampler`` picks it (``jdsample.c``:
+   ``h2v1_fancy_upsample``, the 3:1 triangle with rounding 1/2,
+   ``h2v2_fancy_upsample``, the 3:1 triangle on both axes with rounding
+   8/7, and ``h1v2_fancy_upsample`` for 4:4:0; edge samples replicated),
+   or plain replication (a plane at most 2 samples wide, 4:1:1 and other
+   integral factors: ``int_upsample``);
+4. the integer YCbCr -> BGR tables of ``jdcolor.c`` (SCALEBITS 16), RGB as
+   stored, or CMYK and YCCK through OpenCV's CMYK conversion.
+
+Progressive files that libjpeg-turbo smooths take a stage between 1 and 2:
+block smoothing (J6 on the card).
 
 Two routes, by the ``device`` asked for:
 
@@ -45,10 +56,11 @@ Two routes, by the ``device`` asked for:
   a 1024^2 frame), stages 2-4 in PyTorch integer tensor code.
 - ``"cuda"``: stage 1 in host C (``sleap_jpeg_decode_scan`` and, for
   progressive scans, ``sleap_jpeg_decode_progressive`` in ``csrc/jpeg.cu``)
-  into a pinned buffer, one copy to the card, then
-  ``jpeg_idct_kernel`` (J1, stage 2) and ``jpeg_color_kernel`` (J2, stages 3
-  and 4), and the frame back to the host as numpy. A failed build or launch
-  raises; there is no fallback to the plain version.
+  into a pinned buffer, one copy to the card, then ``jpeg_smooth_kernel``
+  (J6, block smoothing, where it applies), ``jpeg_idct_kernel`` (J1, stage
+  2) and ``jpeg_color_kernel`` (J2, stages 3 and 4, its colour space and
+  upsamplers arguments), and the frame back to the host as numpy. A failed build or launch raises; there is no fallback
+  to the plain version.
 
 Encoding (:func:`imencode`) writes cv2's defaults, all the JAX package
 writes: quality 95, baseline, the standard Huffman tables, gray as one
@@ -127,6 +139,7 @@ class Component:
     blocks_w: int = 0
     blocks_h: int = 0
     offset: int = 0
+    declared_v: int = 1  # the frame header's vertical factor (a lone component's v is reset to 1)
 
 
 @dataclass
@@ -168,6 +181,13 @@ class Header:
     quant: np.ndarray  # (components, 64) uint16
     scans: List[Scan]
     progressive: bool = False
+    #: "gray", "ycc", "rgb" (no colour transform), "cmyk" or "ycck", as
+    #: libjpeg-turbo's ``default_decompress_parms`` picks the colour space.
+    color: str = "gray"
+    #: Each component's ``coef_bits`` for zigzag coefficients 0-9 after the
+    #: last scan (-1: none yet), and whether libjpeg-turbo smooths the blocks.
+    coef_bits: List[List[int]] = field(default_factory=list)
+    smooth: bool = False
 
     @property
     def blocks(self) -> int:
@@ -182,9 +202,12 @@ class Header:
         return max(c.v for c in self.components)
 
 
+@functools.lru_cache(maxsize=64)
 def huffman_lookup(counts: bytes, values: bytes) -> np.ndarray:
     """A table of 65536 entries indexed by the next 16 bits of the stream:
-    ``length << 8 | symbol`` of the code they start with, 0 where none does."""
+    ``length << 8 | symbol`` of the code they start with, 0 where none does
+    (read-only; kept for the tables seen last, which a JPEG-in-TIFF's strips
+    and a video's frames repeat)."""
     table = np.zeros(1 << 16, np.uint16)
     code, k = 0, 0
     for length in range(1, 17):
@@ -195,6 +218,7 @@ def huffman_lookup(counts: bytes, values: bytes) -> np.ndarray:
             table[lo:lo + (1 << (16 - length))] = (length << 8) | values[k]
             code, k = code + 1, k + 1
         code <<= 1
+    table.setflags(write=False)
     return table
 
 
@@ -234,9 +258,28 @@ def _skip_restart(data: bytes, pos: int, expect: int) -> int:
     return pos + 2
 
 
-def parse(data: bytes) -> Header:
+def _color_space(components: List[Component], jfif: bool, adobe_transform) -> str:
+    """libjpeg-turbo's guess of the stored colour space
+    (``jdapimin.c``'s ``default_decompress_parms``): for three components
+    a JFIF marker means YCbCr, else an Adobe marker's transform (0 RGB),
+    else component ids 'R', 'G', 'B' mean RGB; four are CMYK, or YCCK where
+    an Adobe marker's transform is not 0."""
+    if len(components) == 1:
+        return "gray"
+    if len(components) == 3:
+        if jfif:
+            return "ycc"
+        if adobe_transform is not None:
+            return "rgb" if adobe_transform == 0 else "ycc"
+        return "rgb" if [c.ident for c in components] == [82, 71, 66] else "ycc"
+    return "cmyk" if adobe_transform in (None, 0) else "ycck"
+
+
+def parse(data: bytes, colorspace: Optional[str] = None) -> Header:
     """Read the markers of a JPEG stream; raise :class:`UnsupportedJpeg` for
-    a feature outside the subset, ``ValueError`` for a malformed stream."""
+    a feature outside the subset, ``ValueError`` for a malformed stream.
+    ``colorspace`` ("ycc" or "rgb") overrides the guess from the markers, as
+    libtiff sets libjpeg's for a JPEG-in-TIFF strip."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise ValueError("Not a JPEG stream (no SOI marker).")
@@ -244,7 +287,7 @@ def parse(data: bytes) -> Header:
     components: List[Component] = []
     scans: List[Scan] = []
     latched: Dict[int, np.ndarray] = {}
-    size, restart, adobe_transform, progressive = None, 0, None, False
+    size, restart, adobe_transform, progressive, jfif = None, 0, None, False, False
     coef_bits: List[List[int]] = []  # progressive: each component's precision so far (-1: none)
     while True:
         while pos < len(data) and data[pos] != 0xFF:
@@ -268,16 +311,14 @@ def parse(data: bytes) -> Header:
             precision, height, width, n = struct.unpack_from(">BHHB", body)
             if precision != 8:
                 raise UnsupportedJpeg(f"{precision}-bit JPEG samples are not supported (8-bit only).")
-            if n == 4:
-                raise UnsupportedJpeg("CMYK (4-component) JPEGs are not supported.")
-            if n not in (1, 3):
-                raise UnsupportedJpeg(f"JPEGs of {n} components are not supported (1 or 3).")
+            if n not in (1, 3, 4):
+                raise UnsupportedJpeg(f"JPEGs of {n} components are not supported (1, 3 or 4).")
             if height == 0:
                 raise UnsupportedJpeg("JPEGs whose height is set by a DNL marker are not supported.")
             size, progressive = (height, width), marker == 0xC2
             for i in range(n):
                 ident, hv, tq = body[6 + 3 * i:9 + 3 * i]
-                components.append(Component(ident, hv >> 4, hv & 15, tq))
+                components.append(Component(ident, hv >> 4, hv & 15, tq, declared_v=hv & 15))
             coef_bits = [[-1] * 64 for _ in range(n)]
         elif marker in _SOF_NAMES:
             raise UnsupportedJpeg(f"{_SOF_NAMES[marker]} is not supported "
@@ -303,19 +344,21 @@ def parse(data: bytes) -> Header:
                 tc, th = body[p] >> 4, body[p] & 15
                 counts = body[p + 1:p + 17]
                 total = sum(counts)
-                tables[(tc, th)] = huffman_lookup(counts, body[p + 17:p + 17 + total])
+                tables[(tc, th)] = huffman_lookup(bytes(counts), bytes(body[p + 17:p + 17 + total]))
                 p += 17 + total
         elif marker == 0xDD:  # DRI
             (restart,) = struct.unpack_from(">H", body)
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe_transform = body[11]
+        elif marker == 0xE0 and body[:5] == b"JFIF\0" and len(body) >= 14:
+            jfif = True
         elif marker == 0xDC:
             raise UnsupportedJpeg("JPEGs with a DNL marker are not supported.")
         elif marker == 0xDA:  # SOS
             if size is None:
                 raise ValueError("JPEG scan before its frame header.")
             if not scans:
-                _layout(size, components, adobe_transform)
+                _layout(size, components)
             n = body[0]
             idents = [c.ident for c in components]
             comps, dc, ac = [], [], []
@@ -360,10 +403,11 @@ def parse(data: bytes) -> Header:
     if len(latched) != len(components):
         raise ValueError("JPEG stream leaves a component without a scan.")
     quant = np.stack([latched[i] for i in range(len(components))])
-    if progressive and _smoothing_ok(quant, coef_bits):
-        raise UnsupportedJpeg("this progressive JPEG's scans leave coefficients short of full "
-                              "precision, where libjpeg-turbo applies block smoothing (not supported).")
-    return Header(size[0], size[1], components, quant, scans, progressive)
+    smooth = progressive and _smoothing_ok(quant, coef_bits)
+    color = colorspace if colorspace and len(components) == 3 else _color_space(
+        components, jfif, adobe_transform)
+    return Header(size[0], size[1], components, quant, scans, progressive, color,
+                  [bits[:SMOOTH_COEFS] for bits in coef_bits], smooth)
 
 
 def _check_progression(scan: Scan, coef_bits: List[List[int]]) -> None:
@@ -378,15 +422,19 @@ def _check_progression(scan: Scan, coef_bits: List[List[int]]) -> None:
         coef_bits[ci][ss:se + 1] = [al] * (se - ss + 1)
 
 
+SMOOTH_COEFS = 10  # jdcoefct.c's SAVED_COEFS: zigzag coefficients 0-9
+
+
 def _smoothing_ok(quant: np.ndarray, coef_bits: List[List[int]]) -> bool:
     """libjpeg-turbo's ``smoothing_ok`` at the output pass: every component's
-    DC known and its table's first ten entries nonzero, and some component
-    with one of AC coefficients 1-9 short of full precision."""
+    DC known and its table's entries for zigzag coefficients 0-9 nonzero,
+    and some component with one of AC coefficients 1-9 short of full
+    precision."""
     useful = False
     for table, bits in zip(quant, coef_bits):
-        if (table[:10] == 0).any() or bits[0] < 0:
+        if (table[ZIGZAG[:SMOOTH_COEFS]] == 0).any() or bits[0] < 0:
             return False
-        useful |= any(b != 0 for b in bits[1:10])
+        useful |= any(b != 0 for b in bits[1:SMOOTH_COEFS])
     return useful
 
 
@@ -404,25 +452,18 @@ def _segment_end(data: bytes, pos: int) -> int:
         return i
 
 
-def _layout(size, components: List[Component], adobe_transform) -> None:
+def _layout(size, components: List[Component]) -> None:
     """Check the sampling and set each component's downsampled size and
     block layout (libjpeg's ``downsampled_width`` and MCU padding)."""
     height, width = size
-    if len(components) == 3:
-        if adobe_transform == 0:
-            raise UnsupportedJpeg("Adobe's RGB transform (APP14 transform 0) is not supported.")
-        if adobe_transform is None and [c.ident for c in components] == [82, 71, 66]:
-            raise UnsupportedJpeg("RGB JPEGs (component ids 'R', 'G', 'B') are not supported.")
     hmax = max(c.h for c in components)
     vmax = max(c.v for c in components)
-    if len(components) == 3:
-        y, cb, cr = components
-        ratios = {(hmax // c.h, vmax // c.v) for c in (cb, cr)}
-        if ((y.h, y.v) != (hmax, vmax) or any(hmax % c.h or vmax % c.v for c in (cb, cr))
-                or not ratios <= {(1, 1), (2, 1), (2, 2)}):
-            samplings = "x".join(f"{c.h}{c.v}" for c in components)
-            raise UnsupportedJpeg(f"JPEG sampling {samplings} is not supported "
-                                  "(4:4:4, 4:2:2 and 4:2:0 only).")
+    if len(components) > 1 and any(not c.h or not c.v or hmax % c.h or vmax % c.v
+                                   for c in components):
+        # libjpeg-turbo's jinit_upsampler: JERR_FRACT_SAMPLE_NOTIMPL
+        samplings = "x".join(f"{c.h}{c.v}" for c in components)
+        raise UnsupportedJpeg(f"JPEG sampling {samplings} is not supported: a component's factors "
+                              "do not divide the largest (libjpeg refuses fractional upsampling).")
     mcux = -(-width // (8 * hmax))
     mcuy = -(-height // (8 * vmax))
     offset = 0
@@ -731,15 +772,34 @@ def planes_of(samples: torch.Tensor, header: Header) -> List[torch.Tensor]:
     return out
 
 
-def _upsample_plain(plane: torch.Tensor, comp: Component, hs: int, vs: int,
-                    height: int, width: int) -> torch.Tensor:
-    """Stage 3: a chroma plane to (height, width) int32, as libjpeg's fancy
-    upsamplers; a plane at most 2 samples wide is replicated instead, as
-    libjpeg-turbo's ``jinit_upsampler`` chooses."""
+REPLICATE, H2V1, H2V2, H1V2 = 0, 1, 2, 3
+COLOR_MODES = {"gray": 0, "ycc": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
+
+
+def upsampling(header: Header, comp: Component) -> Tuple[int, int, int]:
+    """(horizontal factor, vertical factor, method) by which libjpeg-turbo's
+    ``jinit_upsampler`` brings a component to full size: ``h2v1_fancy``,
+    ``h2v2_fancy`` (for planes more than 2 samples wide) or ``h1v2_fancy``
+    upsampling, else plain replication (``fullsize``, ``h2v1``, ``h2v2`` and
+    ``int_upsample``)."""
+    hs, vs = header.hmax // comp.h, header.vmax // comp.v
+    if (hs, vs) == (2, 1) and comp.width > 2:
+        return hs, vs, H2V1
+    if (hs, vs) == (2, 2) and comp.width > 2:
+        return hs, vs, H2V2
+    if (hs, vs) == (1, 2):
+        return hs, vs, H1V2
+    return hs, vs, REPLICATE
+
+
+def _upsample_plain(plane: torch.Tensor, comp: Component, header: Header) -> torch.Tensor:
+    """Stage 3: a component's plane to (height, width) int32 as
+    :func:`upsampling` says: the fancy upsamplers' 3:1 triangles (edge
+    samples replicated at the component's downsampled size), or plain
+    replication."""
+    hs, vs, method = upsampling(header, comp)
     x = plane[:comp.height, :comp.width].int()
-    if comp.width <= 2:
-        x = x.repeat_interleave(vs, 0).repeat_interleave(hs, 1)
-    elif vs == 2:  # h2v2: 3:1 on rows, then on columns, rounding 8 then 7
+    if method == H2V2:  # 3:1 on rows, then on columns, rounding 8 then 7
         above = torch.cat([x[:1], x[:-1]], 0)
         below = torch.cat([x[1:], x[-1:]], 0)
         sums = torch.stack([3 * x + above, 3 * x + below], 1).reshape(-1, x.shape[1])
@@ -747,26 +807,170 @@ def _upsample_plain(plane: torch.Tensor, comp: Component, hs: int, vs: int,
         right = torch.cat([sums[:, 1:], sums[:, -1:]], 1)
         x = torch.stack([(3 * sums + left + 8) >> 4, (3 * sums + right + 7) >> 4], 2)
         x = x.reshape(sums.shape[0], -1)
-    elif hs == 2:  # h2v1: 3:1 on columns, rounding 1 then 2
+    elif method == H2V1:  # 3:1 on columns, rounding 1 then 2
         left = torch.cat([x[:, :1], x[:, :-1]], 1)
         right = torch.cat([x[:, 1:], x[:, -1:]], 1)
         x = torch.stack([(3 * x + left + 1) >> 2, (3 * x + right + 2) >> 2], 2).reshape(x.shape[0], -1)
-    return x[:height, :width]
+    elif method == H1V2:  # 3:1 on rows, rounding 1 then 2
+        above = torch.cat([x[:1], x[:-1]], 0)
+        below = torch.cat([x[1:], x[-1:]], 0)
+        x = torch.stack([(3 * x + above + 1) >> 2, (3 * x + below + 2) >> 2], 1).reshape(-1, x.shape[1])
+    else:
+        x = x.repeat_interleave(vs, 0).repeat_interleave(hs, 1)
+    return x[:header.height, :header.width]
 
 
-def color_plain(planes: List[torch.Tensor], header: Header) -> torch.Tensor:
-    """Stages 3 and 4: component planes -> (H, W) gray or (H, W, 3) BGR uint8."""
-    h, w = header.height, header.width
-    if len(planes) == 1:
-        return planes[0][:h, :w].contiguous()
-    y = planes[0][:h, :w].int()
-    hmax, vmax = header.hmax, header.vmax
-    cb, cr = (_upsample_plain(planes[i], c, hmax // c.h, vmax // c.v, h, w) - 128
-              for i, c in ((1, header.components[1]), (2, header.components[2])))
+def _ycc_to_rgb(y, cb, cr):
+    """jdcolor.c's integer YCbCr -> R, G, B (SCALEBITS 16), clamped."""
+    cb, cr = cb - 128, cr - 128
     r = y + ((91881 * cr + 32768) >> 16)
     g = y + ((-22554 * cb - 46802 * cr + 32768) >> 16)
     b = y + ((116130 * cb + 32768) >> 16)
-    return torch.stack([b, g, r], 2).clamp(0, 255).to(torch.uint8)
+    return [v.clamp(0, 255) for v in (r, g, b)]
+
+
+def cmyk_to_bgr(c, m, y, k):
+    """OpenCV's ``icvCvt_CMYK2BGR_8u_C4C3R`` (the inverted Adobe CMYK that
+    libjpeg returns): each of C, M, Y becomes ``k - ((255 - v) * k >> 8)``,
+    written B, G, R from Y, M, C."""
+    return [k - (((255 - v) * k) >> 8) for v in (y, m, c)]
+
+
+def color_plain(planes: List[torch.Tensor], header: Header) -> torch.Tensor:
+    """Stages 3 and 4: component planes -> (H, W) gray or (H, W, 3) BGR
+    uint8, by the header's colour space: YCbCr through jdcolor.c's tables,
+    RGB as stored, CMYK and YCCK (YCbCr to R, G, B, each inverted to C, M,
+    Y; K as stored) through OpenCV's CMYK conversion."""
+    h, w = header.height, header.width
+    if header.color == "gray":
+        return planes[0][:h, :w].contiguous()
+    v = [_upsample_plain(p, c, header) for p, c in zip(planes, header.components)]
+    if header.color == "ycc":
+        r, g, b = _ycc_to_rgb(*v)
+        out = [b, g, r]
+    elif header.color == "rgb":
+        out = v[2::-1]
+    else:
+        cmy = v[:3] if header.color == "cmyk" else [255 - x for x in _ycc_to_rgb(*v[:3])]
+        out = cmyk_to_bgr(*cmy, v[3])
+    return torch.stack(out, 2).clamp(0, 255).to(torch.uint8)
+
+
+# --------------------------------------------------------------------------- #
+# Block smoothing, plain: jdcoefct.c's decompress_smooth_data (J6's reference)
+# --------------------------------------------------------------------------- #
+
+#: The natural positions of zigzag coefficients 1-9: AC01, AC10, AC20,
+#: AC11, AC02, AC03, AC12, AC21, AC30.
+SMOOTH_POS = ZIGZAG[1:SMOOTH_COEFS].tolist()
+#: Each estimate's weights on the 5 x 5 DC values around the block (rows
+#: above to below, columns left to right; libjpeg-turbo's DC01-DC25), with
+#: DC interpolation (``change_dc``: the component has no AC data yet) and
+#: without it (coefficients 1-5 only); the last row is the DC estimate.
+_W_CHANGE_DC = np.array([
+    [-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1],
+    [-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1],
+    [0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0],
+    [-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1],
+    [0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0],
+    [0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0],
+    [0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0],
+    [0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0],
+    [0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0],
+    [-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8, -6, 6, 42, 6, -6, -2, -6, -8, -6, -2],
+], np.int64)
+_W_AC = np.array([
+    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    [0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0],
+    [0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0],
+    [0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0],
+    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+], np.int64)
+
+
+def smooth_rows(hib: int, v: int, total: int) -> np.ndarray:
+    """(hib, 5) the block rows whose DC values ``decompress_smooth_data``
+    reads for each block row: two above, itself, two below, edges
+    replicated by its test on ``image_block_row``, which counts the rows of
+    the last iMCU row as if every iMCU row had as many."""
+    out = np.empty((hib, 5), np.int64)
+    for r in range(hib):
+        i, br = divmod(r, v)
+        rows = v if i < total - 1 else (hib % v or v)
+        ibr, ibrs = i * rows + br, rows * total
+        prev = r - 1 if ibr > 0 else r
+        prev2 = r - 2 if ibr > 1 else prev
+        nxt = r + 1 if ibr < ibrs - 1 else r
+        nxt2 = r + 2 if ibr < ibrs - 2 else nxt
+        out[r] = (prev2, prev, r, nxt, nxt2)
+    return out
+
+
+def smooth_params(header: Header) -> np.ndarray:
+    """(components, 32) int32, J6's and :func:`smooth_plain`'s arguments per
+    component: block offset, blocks a row of the buffer, blocks across and
+    down the image, block rows an iMCU row, iMCU rows, coef_bits of zigzag
+    coefficients 1-9, the quantisation values of coefficients 0-9 (DC,
+    then :data:`SMOOTH_POS`), then the block rows of the buffer. A lone
+    component's iMCU row is as many block rows as its frame header
+    declares (libjpeg keeps ``v_samp_factor``); the buffer holds only its
+    image's rows, and a row past them reads as zeros, as libjpeg's
+    pre-zeroed padding row does."""
+    out = np.zeros((len(header.components), 32), np.int32)
+    lone = len(header.components) == 1
+    vmax = header.components[0].declared_v if lone else header.vmax
+    total = -(-header.height // (8 * vmax))
+    for ci, c in enumerate(header.components):
+        q = header.quant[ci].astype(np.int64)
+        out[ci, :6] = (c.offset, c.blocks_w, -(-c.width // 8), -(-c.height // 8),
+                       vmax if lone else c.v, total)
+        out[ci, 6:15] = header.coef_bits[ci][1:SMOOTH_COEFS]
+        out[ci, 15:25] = [q[0]] + [q[p] for p in SMOOTH_POS]
+        out[ci, 25] = c.blocks_h
+    return out
+
+
+def _estimate(num: torch.Tensor, q: int, al: int) -> torch.Tensor:
+    """``pred`` of ``decompress_smooth_data``: |num| rounded to a multiple of
+    ``q << 8``, capped below ``1 << al`` where ``al`` > 0, with num's sign."""
+    pred = ((q << 7) + num.abs()) // (q << 8)
+    if al > 0:
+        pred = pred.clamp(max=(1 << al) - 1)
+    return torch.where(num >= 0, pred, -pred)
+
+
+def smooth_plain(coefs: torch.Tensor, header: Header) -> torch.Tensor:
+    """Block smoothing, as libjpeg-turbo 3's ``decompress_smooth_data``
+    computes it where ``smoothing_ok`` holds: (blocks, 64) int16
+    coefficients -> new ones, each block's AC coefficients 1-9 that are
+    zero and short of full precision estimated from the 5 x 5 DC values
+    around it (its DC too, where the component has no AC data yet); blocks
+    outside the image are copied."""
+    out = coefs.clone()
+    for ci, p in enumerate(smooth_params(header)):
+        offset, bw, wib, hib, v, total = (int(x) for x in p[:6])
+        bits, quant = p[6:15].tolist(), p[15:25].tolist()
+        bh = int(p[25])
+        blocks = coefs[offset:offset + bw * bh].view(bh, bw, 64)
+        dc = torch.cat([blocks[..., 0].long(), blocks.new_zeros((1, bw), dtype=torch.long)])
+        rows = torch.from_numpy(smooth_rows(hib, v, total))
+        cols = (torch.arange(wib)[:, None] + torch.arange(-2, 3)[None]).clamp(0, wib - 1)
+        window = dc[rows[:, :, None, None], cols[None, None]]  # (hib, 5, wib, 5)
+        window = window.permute(0, 2, 1, 3).reshape(hib, wib, 25)
+        change_dc = all(b == -1 for b in bits)
+        weights = torch.from_numpy(_W_CHANGE_DC if change_dc else _W_AC)
+        work = blocks[:hib, :wib].long().clone()
+        for k, (pos, al) in enumerate(zip(SMOOTH_POS, bits)):
+            if k >= (9 if change_dc else 5) or al == 0:
+                continue
+            num = quant[0] * (window * weights[k]).sum(-1)
+            est = _estimate(num, quant[k + 1], al)
+            work[..., pos] = torch.where(work[..., pos] == 0, est, work[..., pos])
+        if change_dc:
+            work[..., 0] = _estimate(quant[0] * (window * weights[-1]).sum(-1), quant[0], 0)
+        view = out[offset:offset + bw * bh].view(bh, bw, 64)
+        view[:hib, :wib] = ((work + 0x8000) & 0xFFFF) - 0x8000  # JCOEF is 16-bit
+    return out
 
 
 def block_components(header: Header) -> torch.Tensor:
@@ -775,11 +979,13 @@ def block_components(header: Header) -> torch.Tensor:
                       for i, c in enumerate(header.components)])
 
 
-def decode_plain(data: bytes) -> np.ndarray:
+def decode_plain(data: bytes, colorspace: Optional[str] = None) -> np.ndarray:
     """The plain version of :func:`imdecode`: Python and PyTorch on the CPU."""
     data = bytes(data)
-    header = parse(data)
+    header = parse(data, colorspace)
     coefs = torch.from_numpy(coefficients_plain(data, header))
+    if header.smooth:
+        coefs = smooth_plain(coefs, header)
     samples = idct_plain(coefs, torch.from_numpy(header.quant.astype(np.int32)),
                          block_components(header))
     return color_plain(planes_of(samples, header), header).numpy()
@@ -869,14 +1075,38 @@ def idct_cuda(coefs: torch.Tensor, quant: torch.Tensor, header: Header) -> torch
         raise ValueError(f"coefficients {tuple(coefs.shape)} and tables {tuple(quant.shape)} do not "
                          f"fit a frame of {header.blocks} blocks and {len(comps)} components.")
     out = torch.empty((header.blocks, 8, 8), dtype=torch.uint8, device=coefs.device)
-    ends = [c.offset + c.blocks_w * c.blocks_h for c in comps] + [header.blocks] * (3 - len(comps))
+    ends = [c.offset + c.blocks_w * c.blocks_h for c in comps[:3]]
+    ends += [header.blocks] * (3 - len(ends))
     _build.launch("sleap_jpeg_idct", coefs.device.index, coefs.data_ptr(), header.blocks,
-                  quant.data_ptr(), ends[0], ends[1], out.data_ptr())
+                  quant.data_ptr(), *ends, out.data_ptr())
     idct_cuda.launches += 1
     return out
 
 
 idct_cuda.launches = 0
+
+
+def smooth_cuda(coefs: torch.Tensor, header: Header) -> torch.Tensor:
+    """J6 (``jpeg_smooth_kernel``): :func:`smooth_plain` on the card,
+    (blocks, 64) int16 coefficients -> smoothed ones, one thread a block."""
+    from sleap_tpu_torch.ops import _build
+
+    _check_card(coefs, torch.int16, "coefficients")
+    if coefs.shape != (header.blocks, 64):
+        raise ValueError(f"coefficients {tuple(coefs.shape)} do not fit a frame of {header.blocks} "
+                         "blocks.")
+    if coefs.data_ptr() % 16:
+        raise ValueError("J6 reads each block's coefficients as 16-byte words: the coefficients "
+                         "must start on a 16-byte boundary.")
+    params = np.ascontiguousarray(smooth_params(header))
+    out = torch.empty_like(coefs)
+    _build.launch("sleap_jpeg_smooth", coefs.device.index, coefs.data_ptr(), header.blocks,
+                  params.ctypes.data, len(header.components), out.data_ptr())
+    smooth_cuda.launches += 1
+    return out
+
+
+smooth_cuda.launches = 0
 
 
 def color_cuda(samples: torch.Tensor, header: Header) -> torch.Tensor:
@@ -892,10 +1122,10 @@ def color_cuda(samples: torch.Tensor, header: Header) -> torch.Tensor:
     shape = (h, w) if len(comps) == 1 else (h, w, 3)
     out = torch.empty(shape, dtype=torch.uint8, device=samples.device)
     info = []
-    for c in comps + comps[:1] * (3 - len(comps)):
-        info += [c.offset, c.blocks_w, c.width, c.height, header.hmax // c.h, header.vmax // c.v]
-    _build.launch("sleap_jpeg_color", samples.device.index, samples.data_ptr(), len(comps), h, w,
-                  *info, out.data_ptr())
+    for c in comps + comps[:1] * (4 - len(comps)):
+        info += [c.offset, c.blocks_w, c.width, c.height, *upsampling(header, c)]
+    _build.launch("sleap_jpeg_color", samples.device.index, samples.data_ptr(),
+                  COLOR_MODES[header.color], h, w, *info, out.data_ptr())
     color_cuda.launches += 1
     return out
 
@@ -916,23 +1146,41 @@ def _staging(blocks: int) -> torch.Tensor:
     return _pinned(size, threading.get_ident())[:blocks * 128].view(torch.int16).view(blocks, 64)
 
 
-def decode_cuda(data: bytes, device) -> torch.Tensor:
-    """The card's route, the frame left on ``device``."""
+def decode_cuda(data: bytes, device, colorspace: Optional[str] = None) -> torch.Tensor:
+    """The card's route, the frame left on ``device``: the host entropy
+    decoder, J6 where libjpeg-turbo smooths the blocks, J1, J2."""
     data = bytes(data)
-    header = parse(data)
+    header = parse(data, colorspace)
     coefs = coefficients_host(data, header, _staging(header.blocks))
     device = torch.device(device)
     on_card = coefs.to(device)
+    if header.smooth:
+        on_card = smooth_cuda(on_card, header)
     quant = torch.from_numpy(header.quant.astype(np.int32)).to(device)
     return color_cuda(idct_cuda(on_card, quant, header), header)
 
 
-def imdecode(data: bytes, device="cuda") -> np.ndarray:
+def imdecode(data: bytes, device="cuda", colorspace: Optional[str] = None) -> np.ndarray:
     """``cv2.imdecode(data, cv2.IMREAD_UNCHANGED)`` for the JPEGs this module
-    reads: (H, W) gray, or (H, W, 3) BGR; decoded on ``device``'s route."""
+    reads: (H, W) gray, or (H, W, 3) BGR; decoded on ``device``'s route.
+    ``colorspace`` ("ycc" or "rgb") overrides the markers' colour space."""
     if torch.device(device).type == "cuda":
-        return decode_cuda(data, device).cpu().numpy()
-    return decode_plain(data)
+        return decode_cuda(data, device, colorspace).cpu().numpy()
+    return decode_plain(data, colorspace)
+
+
+def with_tables(tables: bytes, stream: bytes) -> bytes:
+    """An abbreviated JPEG stream (a JPEG-in-TIFF strip or tile) with the
+    tables-only stream ``tables`` (the JPEGTables tag) put ahead of its
+    markers, as libtiff hands both to libjpeg."""
+    stream = bytes(stream)
+    if not tables:
+        return stream
+    tables = bytes(tables)
+    if tables[:2] != b"\xff\xd8" or stream[:2] != b"\xff\xd8":
+        raise ValueError("JPEG-in-TIFF tables or strip lack their SOI marker.")
+    end = tables.rfind(b"\xff\xd9")
+    return tables[:end if end > 0 else len(tables)] + stream[2:]
 
 
 # --------------------------------------------------------------------------- #

@@ -73,12 +73,14 @@ class Frame:
 
     @property
     def sampling(self) -> str:
-        """"gray", "420", "422" or "444"."""
+        """"gray", "420", "422" or "444", else ""."""
         comps = self.header.components
         if len(comps) == 1:
             return "gray"
-        return {(2, 2): "420", (2, 1): "422", (1, 1): "444"}[
-            (self.header.hmax // comps[1].h, self.header.vmax // comps[1].v)]
+        if (comps[0].h, comps[0].v) != (self.header.hmax, self.header.vmax):
+            return ""
+        return {(2, 2): "420", (2, 1): "422", (1, 1): "444"}.get(
+            (self.header.hmax // comps[1].h, self.header.vmax // comps[1].v), "")
 
 
 def _comments(data: bytes) -> List[bytes]:
@@ -117,6 +119,9 @@ def parse_frame(data: bytes, container_height: Optional[int] = None) -> Frame:
         raise unsupported(f"Interlaced Motion-JPEG (a {header.height}-row field of a "
                           f"{container_height}-row frame)")
     frame = Frame(header, full_range=b"CS=ITU601" not in comments)
+    if header.color not in ("gray", "ycc") or not frame.sampling:
+        samplings = "x".join(f"{c.h}{c.v}" for c in header.components)
+        raise unsupported(f"A Motion-JPEG frame in colour space {header.color}, sampled {samplings}")
     if frame.sampling in ("420", "422") and header.height % 2:
         raise unsupported(f"Motion-JPEG of odd height ({header.height}) sampled "
                           f"{frame.sampling[0]}:{frame.sampling[1]}:{frame.sampling[2]} (swscale "

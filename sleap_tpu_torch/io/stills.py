@@ -2,9 +2,10 @@
 ``cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)`` and ``cv2.imencode("." + fmt,
 img)`` do for the JAX package's image folders, ``.pkg.slp`` and HDF5 frame
 rows and ImgStores, for PNG (:mod:`~sleap_tpu_torch.io.png`), JPEG
-(:mod:`~sleap_tpu_torch.io.jpeg`: J1 and J2 decode and J3 and J4 encode on
-the card), BMP (:mod:`~sleap_tpu_torch.io.bmp`) and TIFF
-(:mod:`~sleap_tpu_torch.io.tiff`).
+(:mod:`~sleap_tpu_torch.io.jpeg`: J6, J1 and J2 decode and J3 and J4 encode
+on the card), BMP (:mod:`~sleap_tpu_torch.io.bmp`) and TIFF
+(:mod:`~sleap_tpu_torch.io.tiff`); :func:`imread` is ``cv2.imread``'s
+view of a file's bytes, which image folders read through.
 
 A still is decoded by what its bytes are, as cv2 decodes it, whatever its
 file's extension or row's ``format`` says; it is encoded in the format
@@ -14,7 +15,7 @@ runs on ``device``'s route; another format raises naming itself.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -54,6 +55,17 @@ def imdecode(data: bytes, device: Device = "cuda", what: str = "the image") -> n
         return tiff.imdecode(data, device)
     raise ValueError(f"{what} is not a PNG, JPEG, BMP or TIFF image (it starts with "
                      f"{bytes(data[:8])!r}): the port reads those.")
+
+
+def imread(data: bytes, device: Device = "cuda", what: str = "the image") -> Optional[np.ndarray]:
+    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` of a file's bytes: as
+    :func:`imdecode`, but None for a TIFF whose orientation (5 to 8)
+    transposes a frame that is not square, which ``imread`` refuses where
+    ``imdecode`` reads it (OpenCV's ``imread_`` allocates the header's H x W
+    and fails when the decoder hands back W x H)."""
+    if kind_of(data) == "tif" and tiff.transposed(data):
+        return None
+    return imdecode(data, device, what)
 
 
 def check_format(fmt: str) -> str:

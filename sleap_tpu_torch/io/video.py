@@ -542,7 +542,7 @@ class SingleImageVideo:
                 data = fh.read()
         except OSError:
             return None
-        return stills.imdecode(data, self.device, path)
+        return stills.imread(data, self.device, path)
 
     def get_frame(self, idx: int) -> np.ndarray:
         if idx not in self._cache:

@@ -43,9 +43,10 @@ SIGNATURES = {
         _p, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _f, _i, _p, _p, _p, _p, _p,
     ],
     "sleap_crop_unit": [_p, _i, _i64, _i, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p],
-    "sleap_jpeg_idct": [_p, _i64, _p, _i64, _i64, _p, _p],
+    "sleap_jpeg_idct": [_p, _i64, _p, _i64, _i64, _i64, _p, _p],
     "sleap_jpeg_idct_ffmpeg": [_p, _i64, _p, _i64, _i64, _p, _p],
-    "sleap_jpeg_color": [_p, _i, _i, _i, *[_i] * 18, _p, _p],
+    "sleap_jpeg_color": [_p, _i, _i, _i, *[_i] * 28, _p, _p],
+    "sleap_jpeg_smooth": [_p, _i64, _p, _i, _p, _p],
     "sleap_jpeg_ycc": [_p, _i, _i, _i, _i, _i, _i, _i, _p, _p],
     "sleap_jpeg_fdct": [_p, _i64, _p, _i64, _p, _p],
     # Host routines, called with no stream.
@@ -57,6 +58,7 @@ SIGNATURES = {
     "sleap_tiff_lzw_encode": [_p, _i64, _p, _i64, _p],
     "sleap_tiff_packbits_decode": [_p, _i64, _p, _i64, _p],
     "sleap_tiff_packbits_encode": [_p, _i64, _p, _i64, _p],
+    "sleap_tiff_ccitt_decode": [_p, _i64, _p, _i64, _i64, _i64, _i64],
     "sleap_hdf5_lzf_decode": [_p, _i64, _p, _i64, _p],
 }
 

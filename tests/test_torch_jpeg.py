@@ -6,8 +6,9 @@ hypothesis-drawn sizes and qualities, on progressive files (cv2's and PIL's
 scan scripts, restarts, scripts with scans left out that need no block
 smoothing), and on the committed fixtures
 (``scripts/make_torch_jpeg_fixtures.py``) against their recorded cv2
-hashes. Every refused feature raises and names itself, block smoothing of
-an incomplete progressive script among them. The host entropy decoder
+hashes; 4:4:0 and 4:1:1 sampling, RGB and CMYK/YCCK colour, and block
+smoothing of incomplete progressive scripts too. Every feature still
+refused (cv2 reads none of it) raises and names itself. The host entropy decoder
 (``csrc/jpeg.cu``, built with the system C++ compiler) gives the plain
 coefficients on baseline and progressive files. The card's route (host
 entropy decoder, J1, J2) is held to the same hashes and to these plain
@@ -199,6 +200,21 @@ def _with_app14(buf, transform):
     return data[:2] + b"\xff\xee" + struct.pack(">H", len(body) + 2) + body + data[2:]
 
 
+def _without_jfif(buf):
+    data = bytes(buf)
+    assert data[2:4] == b"\xff\xe0"
+    (length,) = struct.unpack_from(">H", data, 4)
+    return data[:2] + data[4 + length:]
+
+
+def _pil_cmyk(img):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG")
+    return buf.getvalue()
+
+
 def _with_ids(buf, ids):
     data, segs = _segments(buf)
     pos = next(p for m, p in segs if m in (0xC0, 0xC1))
@@ -212,24 +228,44 @@ def _with_ids(buf, ids):
     return bytes(out)
 
 
+def _formerly_refused():
+    """Streams the port refused before it read every JPEG cv2 reads."""
+    colour = _encode(_image(16, 16, 3, 0))
+    progressive = _encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
+    return {
+        "block smoothing": _truncated(progressive, 3),
+        "Adobe's RGB transform": _with_app14(_without_jfif(colour), 0),
+        "RGB component ids": _with_ids(_without_jfif(colour), [82, 71, 66]),
+        "4:1:1": _encode(_image(16, 40, 3, 0), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411]),
+        "4:4:0": _encode(_image(40, 16, 3, 0), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440]),
+        "CMYK": _pil_cmyk(_image(16, 24, 4, 1)),
+    }
+
+
+@pytest.mark.parametrize("feature", ("4:1:1", "4:4:0", "Adobe's RGB transform", "CMYK", "RGB component ids", "block smoothing"))
+def test_formerly_refused_streams_equal_cv2(feature):
+    _assert_like_cv2(np.frombuffer(bytes(_formerly_refused()[feature]), np.uint8))
+
+
 def test_refused_features_raise_naming_themselves():
+    """What cv2 gives no frame for stays refused, naming the feature (the
+    "arithmetic" streams are Huffman data under a patched SOF: no real
+    arithmetic-coded file is written here to hold cv2 to); the streams this
+    test once held that cv2 reads are test_formerly_refused_streams_equal_cv2's."""
     colour = _encode(_image(16, 16, 3, 0))
     gray = _encode(_image(16, 16, 1, 0)[..., 0])
     progressive = _encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
     cases = [
-        (_truncated(progressive, 3), "block smoothing"),
         (_with_sof(progressive, marker=0xCA), r"arithmetic-coded progressive JPEG \(SOF10\)"),
         (_with_sof(colour, marker=0xC9), "arithmetic-coded"),
         (_with_sof(colour, marker=0xC3), "lossless"),
         (_with_sof(gray, marker=0xC5), "differential"),
         (_with_sof(gray, precision=12), "12-bit"),
-        (_with_app14(colour, 0), "Adobe's RGB transform"),
-        (_with_ids(colour, [82, 71, 66]), "RGB JPEGs"),
-        (_encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411]), "sampling"),
-        (_encode(_image(16, 16, 3, 0), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440]), "sampling"),
     ]
+    for data, feature in cases[2:]:
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED) is None
     for data, feature in cases:
         with pytest.raises(jpeg.UnsupportedJpeg, match=feature):
             jpeg.decode_plain(bytes(data))
@@ -375,13 +411,45 @@ def test_progressive_scripts_that_need_no_smoothing_equal_cv2():
 
 @pytest.mark.parametrize("scans", [1, 2, 4, 6])
 def test_incomplete_progressive_scripts_raise_naming_block_smoothing(scans):
-    """A file cut after its first scans: libjpeg-turbo smooths the blocks
-    (cv2's frame differs from the plain decode), and the port refuses."""
+    """A file cut after its first scans: libjpeg-turbo smooths the blocks,
+    and the port, which once refused such files naming block smoothing,
+    smooths them as it does (``smooth_plain``): cv2's frame, bitwise."""
     data = _encode(_image(72, 100, 3, 5), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
     cut = _truncated(data, scans)
-    assert cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_UNCHANGED) is not None
-    with pytest.raises(jpeg.UnsupportedJpeg, match="block smoothing"):
-        jpeg.decode_plain(cut)
+    assert jpeg.parse(cut).smooth
+    _assert_like_cv2(np.frombuffer(cut, np.uint8))
+
+
+@settings(max_examples=25, deadline=None)
+@given(h=st.integers(1, 40), w=st.integers(1, 40), quality=st.integers(1, 100),
+       kind=st.sampled_from(["gray", "444", "422", "420", "411", "440"]), cut=st.integers(1, 9),
+       seed=st.integers(0, 2**16))
+def test_drawn_truncated_progressive_files_equal_cv2(h, w, quality, kind, cut, seed):
+    """Block smoothing over drawn sizes, samplings, qualities and cut points
+    (with DC interpolation where a component has no AC data yet)."""
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, quality]
+    if kind == "gray":
+        buf = _encode(_image(h, w, 1, seed)[..., 0], params).tobytes()
+    else:
+        flag = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{kind}")
+        buf = _encode(_image(h, w, 3, seed), params + [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, flag]).tobytes()
+    scans = len(_scan_starts(buf))
+    _assert_like_cv2(np.frombuffer(_truncated(buf, cut % scans) if cut % scans else buf, np.uint8))
+
+
+@pytest.mark.parametrize("hv", [0x12, 0x22, 0x13, 0x14, 0x21])
+@pytest.mark.parametrize("size", [(37, 29), (29, 37), (72, 100), (41, 9)], ids=lambda s: f"{s[1]}x{s[0]}")
+def test_smoothing_of_a_lone_component_that_declares_its_sampling_equals_cv2(size, hv):
+    """A gray file cut after its first scans whose frame header declares
+    sampling ``hv``: libjpeg keeps ``v`` block rows an iMCU row, which
+    smoothing's edge tests count, and reads the zeroed row past the last
+    where the last iMCU row is short."""
+    data = _encode(_image(*size, 1, hv)[..., 0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).tobytes()
+    for scans in (1, 2):
+        cut = bytearray(_truncated(data, scans))
+        cut[cut.index(b"\xff\xc2") + 11] = hv
+        assert jpeg.parse(bytes(cut)).smooth
+        _assert_like_cv2(np.frombuffer(bytes(cut), np.uint8))
 
 
 def test_invalid_progressive_parameters_raise():

@@ -234,4 +234,4 @@ def test_recorded_hashes_of_the_small_frames():
         data = jpeg.imencode(img, "cpu")
         assert hashlib.sha256(data).hexdigest() == want["sha256"] and len(data) == want["bytes"], name
         checked += 1
-    assert checked == 13
+    assert checked == 15  # 13, and the 4:4:0 and 4:1:1 stills

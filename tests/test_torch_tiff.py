@@ -9,7 +9,8 @@ dtype included; the committed fixtures
 (``scripts/make_torch_still_fixtures.py``) to their recorded cv2 hashes;
 the host C codecs (``csrc/tiff.cu``, built with the system C++ compiler as
 the kernel library binds it) equal the plain LZW and PackBits both ways;
-and every refused feature raises naming itself. The card's route is held
+the layouts once refused decode to cv2's array, and every feature still
+refused (cv2 gives no frame for it) raises naming itself. The card's route is held
 to the same records by ``chip_smoke.py`` phase 19."""
 
 from __future__ import annotations
@@ -210,27 +211,53 @@ def test_committed_write_cases_encode_to_recorded_cv2_bytes(name):
     assert hashlib.sha256(data).hexdigest() == ENCODED[name]["sha256"]
 
 
+def _formerly_refused():
+    """Layouts the port refused before it read every still cv2 reads."""
+    gray = _frame(9, 13, 1, np.uint8, 1)
+    rgb = _frame(9, 13, 3, np.uint8, 2)
+    return {
+        "JPEG-in-TIFF": _pil(rgb, "RGB", "jpeg"),
+        "CCITT": _pil(rgb, "1", "group4"),
+        "bilevel": _pil(rgb, "1", "raw"),
+        "palette": _pil(rgb, "P", "raw"),
+        "YCbCr": _pil(rgb, "YCbCr", "raw"),
+        "CMYK": _pil(rgb, "CMYK", "raw"),
+        "min-is-white": fixtures.tiff_bytes(gray, photometric=0),
+        "signed 16": fixtures.tiff_bytes(gray.astype(np.int16)),
+        "signed 32": fixtures.tiff_bytes(gray.astype(np.int32)),
+        "32-bit integer": fixtures.tiff_bytes(gray.astype(np.uint32)),
+        "64-bit": fixtures.tiff_bytes(gray.astype(np.float64)),
+        "orientation": fixtures.tiff_bytes(gray, orientation=3),
+    }
+
+
+@pytest.mark.parametrize("feature", ("32-bit integer", "64-bit", "CCITT", "CMYK", "JPEG-in-TIFF", "YCbCr", "bilevel", "min-is-white", "orientation", "palette", "signed 16", "signed 32"))
+def test_formerly_refused_layouts_equal_cv2(feature):
+    _assert_like_cv2(_formerly_refused()[feature])
+
+
 def test_refused_features_raise_naming_themselves():
+    """What cv2 gives no frame for (None, or unset memory that differs read
+    to read) stays refused, naming the feature; the layouts this test once
+    held that cv2 reads are test_formerly_refused_layouts_equal_cv2's."""
     gray = _frame(9, 13, 1, np.uint8, 1)
     rgb = _frame(9, 13, 3, np.uint8, 2)
     cases = [
         (b"II+\0\x08\0\0\0" + bytes(16), "BigTIFF"),
-        (_pil(rgb, "RGB", "jpeg"), "JPEG-in-TIFF"),
-        (_pil(rgb, "1", "group4"), "CCITT"),
-        (_pil(rgb, "1", "raw"), "bilevel"),
-        (_pil(rgb, "P", "raw"), "palette"),
-        (_pil(rgb, "YCbCr", "raw"), "YCbCr"),
-        (_pil(rgb, "CMYK", "raw"), "CMYK"),
-        (fixtures.tiff_bytes(gray, photometric=0), "min-is-white"),
-        (fixtures.tiff_bytes(gray.astype(np.int16)), "signed"),
-        (fixtures.tiff_bytes(gray.astype(np.int32)), "signed"),
-        (fixtures.tiff_bytes(gray.astype(np.uint32)), "32-bit integer"),
-        (fixtures.tiff_bytes(gray.astype(np.float64)), "64-bit"),
         (fixtures.tiff_bytes(rgb.astype(np.uint16), planar=2), "planar-separate"),
-        (fixtures.tiff_bytes(gray, orientation=3), "orientation"),
         (fixtures.tiff_bytes(np.dstack([gray, gray])), "2 samples"),
+        (fixtures.tiff_bytes(gray // 16, bits=4), "4-bit"),
+        (fixtures.tiff_bytes(gray // 64, bits=2), "2-bit"),
+        (fixtures.tiff_bytes(gray, tile=(16, 16)), "uncompressed tiles"),
+        (fixtures.tiff_bytes(gray.astype(np.float16)), "16-bit floating-point"),
+        (fixtures.tiff_bytes(gray.astype(np.uint16), photometric=3,
+                             colormap=np.zeros((3, 65536), np.uint16)), "16-bit"),
+        (fixtures.tiff_bytes(np.dstack([gray] * 4).astype(np.uint16), photometric=5), "16-bit"),
+        (fixtures.tiff_bytes(np.dstack([gray] * 3), photometric=6, subsampling=(1, 4), rows=4),
+         "subsampling"),
     ]
     for data, feature in cases:
+        assert feature == "planar-separate" or _cv2_decode(data) is None  # planar: unset memory
         with pytest.raises(tiff.UnsupportedTiff, match=feature):
             tiff.imdecode(data, "cpu")
     with pytest.raises(tiff.UnsupportedTiff, match="old-style"):
