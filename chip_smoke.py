@@ -8,7 +8,7 @@ the pipeline blocks and builders, ZMQ training and MoveNet, JPEG writing
 and ``sleap-render``, still images (progressive JPEG, BMP, TIFF), users'
 own HDF5 files (latest format, SWMR, LZF) and users' AVI videos
 (Motion-JPEG through J5, raw frames) once on one CUDA card,
-through the
+and data-parallel across replicas and ranks, through the
 run-folder loader, the trainer and the CLIs a user calls, the repo's
 trained run folders from their own checkpoints, the other backbones
 (ResNet, pretrained-encoder UNets, HRNet, Hourglass, LEAP) in inference,
@@ -512,14 +512,38 @@ script its total before the ``kernels`` line:
    kernels line as "SingleImageVideo 1024^2 stills (22b)"). No rate is
    taken from one batch.
 
+23. Data-parallel inference and training (``sleap_tpu_torch.parallel``),
+   after phase 22, on a mesh naming the card twice (two replicas, or two
+   ranks over gloo) and, where the machine has two cards, on ``cuda:0`` and
+   ``cuda:1`` too (NCCL); each mesh and backend is printed first. 23a:
+   phase 4's float32 top-down pair through ``make_sharded_predictor`` at 16
+   frames a replica (a global batch of 32) on 96 of phase 4's frames after
+   a warm-up batch, against the unsharded predictor at 32: points within
+   1e-3 px (the JAX package's ``tests/test_parallel.py`` bound) with the
+   same NaNs, kernels 2, 3 and 1 launched once a replica a batch (counted
+   into the kernels line as "sharded top-down (23a, ...)"); both FPS.
+   23b: phase 4b's bf16 bottom-up the same way at 512^2, 4 frames a
+   replica (kernel 4). 23c: ``Trainer.train()`` with ``devices`` naming the
+   mesh (the caller rank 0, a spawned rank 1) against one process on the
+   card, on phase 7's centroid UNet at full width (global batch 16, 3
+   steps) and a pretrained-encoder ResNet-18 with batch norm throughout
+   and hard keypoint mining (random weights, 512^2, global batch 8, 2
+   steps), one train and one validation step an epoch: per-step losses
+   within 1e-5 relative (the ResNet in float32: its first step's; it runs
+   in float64 too, as phase 11a's float64 step does, all steps), weights
+   and running statistics within rtol 2e-3, atol 2e-4, one run folder
+   (rank 0's); ``train()`` seconds and epoch seconds beside one process's.
+
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
 one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
 one of phase 17's, one of phase 18's, one of phase 19's, one of phase
-20's, one of phase 21's and one of phase 22's; the line before the last is a
+20's, one of phase 21's, one of phase 22's and one of phase 23's; the line
+before the last is a
 JSON object with each kernel's launches (J1 and J2 from phase 13c's, 19a's
 and 22b's runs, J3 and J4 from 18b's and 18c's, J5 from 21b's, J6 from
 22b's)
-(all paths' and per path), error and times; the last line is ``{"ok": true,
+(all paths' and per path, 23a/23b's replicas too), error and times; the last
+line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -6787,6 +6811,242 @@ def smooth_kernel_row(j6, launches):
     }
 
 
+# --------------------------------------------------------------------------- #
+# Phase 23: data-parallel inference and training
+# --------------------------------------------------------------------------- #
+
+PARALLEL_BATCH = BATCH  # 23a: each replica's batch (the global batch is twice it)
+PARALLEL_TIMED_BATCHES = 3  # 23a: global batches timed after one warm-up batch
+PARALLEL_BU_BATCH, PARALLEL_BU_IMG = 4, 512  # 23b: the cut size
+SHARDED_XY_TOL = 1e-3  # tests/test_parallel.py's bound, sharded vs unsharded
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_RTOL, DP_PARAM_ATOL = 2e-3, 2e-4  # tests/test_parallel.py's bound
+DP_IMG_BN = 512  # 23c workload 2's frames
+DP_WORKLOADS = {  # name: (steps, global batch)
+    "centroid UNet": (3, 16),
+    "ResNet-18 batch norm, OHKM": (2, 8),
+}
+
+
+def parallel_meshes():
+    """The meshes of phase 23: the card named twice (two replicas or ranks
+    on one card, gloo), and the first two cards (NCCL) where there are two."""
+    from sleap_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = {"one card twice": make_mesh(devices=["cuda:0", "cuda:0"])}
+    if torch.cuda.device_count() >= 2:
+        meshes["two cards"] = make_mesh(2)
+    return meshes
+
+
+def sharded_path(name, pred, frames, wrappers, launches, mesh, batch):
+    """``pred`` at ``batch`` a replica sharded over ``mesh`` against the
+    unsharded predictor at the global batch, on the same frames after one
+    warm-up batch each: (sharded outputs, unsharded outputs, sharded FPS,
+    unsharded FPS). Every kernel of ``wrappers`` launches once a replica a
+    global batch; the counts are zeroed just before the sharded run and
+    read just after it."""
+    from sleap_tpu_torch.parallel.distributed import make_sharded_predictor
+
+    n_data = mesh.shape["data"]
+    sharded = make_sharded_predictor(dataclasses.replace(pred, batch_size=batch), mesh)
+    whole = dataclasses.replace(pred, batch_size=batch * n_data)
+    check(sharded.batch_size == whole.batch_size, f"{name}: the global batch")
+    gb = whole.batch_size
+    outs, rates = [], []
+    for which, p in (("sharded", sharded), ("unsharded", whole)):
+        p.predict(frames[:gb], make_labels=False)  # warm-up
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        outs.append(p.predict(frames[gb:], make_labels=False))
+        torch.cuda.synchronize()
+        rates.append((len(frames) - gb) / (time.perf_counter() - t0))
+        if which == "sharded":
+            counts = {k: w.launches for k, w in wrappers.items()}
+    n_batches = -(-(len(frames) - gb) // gb)
+    for kernel, count in counts.items():
+        launches[kernel][name] = count
+        check(count == n_batches * n_data,
+              f"{name}: {kernel} launched {count} times, want once a replica a batch "
+              f"({n_batches} x {n_data})")
+    log(f"{name}: {len(frames) - gb} frames, global batch {gb} ({n_data} x {batch}); sharded "
+        f"{rates[0]:.1f} FPS, unsharded {rates[1]:.1f} FPS; launches {counts}")
+    return outs[0], outs[1], rates[0], rates[1]
+
+
+def same_points(name, got, want, keys):
+    """Points within SHARDED_XY_TOL with the same NaN pattern; the largest
+    difference of each key."""
+    worst = {}
+    for k in keys:
+        g, w = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        check(g.shape == w.shape and np.array_equal(np.isnan(g), np.isnan(w)), f"{name}: {k} NaNs")
+        worst[k] = float(np.abs(np.nan_to_num(g) - np.nan_to_num(w)).max()) if g.size else 0.0
+        check(worst[k] <= SHARDED_XY_TOL, f"{name}: {k} differ by {worst[k]:.3g} px")
+    return worst
+
+
+def check_sharded_inference(td, bu, frames, td_wrappers, hwcs_wrappers, launches, meshes):
+    """23a: phase 4's float32 top-down pair, 1024^2, 16 frames a replica;
+    23b: phase 4b's bf16 bottom-up at 512^2, 4 frames a replica."""
+    out = {}
+    n_td = (1 + PARALLEL_TIMED_BATCHES) * 2 * PARALLEL_BATCH
+    small = synthetic_frames(6 * 2 * PARALLEL_BU_BATCH, seed=7, size=PARALLEL_BU_IMG)
+    for mesh_name, mesh in meshes.items():
+        name = f"sharded top-down (23a, {mesh_name})"
+        got, want, fps, fps_whole = sharded_path(name, td, frames[:n_td], td_wrappers, launches,
+                                                 mesh, PARALLEL_BATCH)
+        n = n_td - 2 * PARALLEL_BATCH
+        g, w = merged(got, n), merged(want, n)
+        check(np.array_equal(g["centroid_mask"], w["centroid_mask"]) and g["centroid_mask"].any(),
+              f"{name}: centroid masks")
+        diff = same_points(name, g, w, ("centroids", "instance_peaks"))
+        check(np.abs(np.nan_to_num(g["instance_peak_vals"] - w["instance_peak_vals"])).max()
+              <= PATH_VAL_TOL, f"{name}: peak values")
+        out[f"23a {mesh_name}"] = {"replicas": [str(d) for d in mesh.data_devices],
+                                   "fps": fps, "unsharded_fps": fps_whole, "max_dxy": diff}
+
+        name = f"sharded bottom-up bf16 (23b, {mesh_name})"
+        got, want, fps, fps_whole = sharded_path(name, bu, small, hwcs_wrappers, launches, mesh,
+                                                 PARALLEL_BU_BATCH)
+        g, w = frames_instances(got), frames_instances(want)
+        check([len(x[0]) for x in g] == [len(x[0]) for x in w] and sum(len(x[0]) for x in g) > 0,
+              f"{name}: instance counts")
+        diff = same_points(name, {"points": np.concatenate([x[0] for x in g])},
+                           {"points": np.concatenate([x[0] for x in w])}, ("points",))
+        out[f"23b {mesh_name}"] = {"replicas": [str(d) for d in mesh.data_devices],
+                                   "fps": fps, "unsharded_fps": fps_whole, "max_dxy": diff}
+    return out
+
+
+def dp_config(name, root):
+    """23c's workloads: phase 7's centroid UNet at full width, and a
+    pretrained-encoder ResNet-18 (random weights; batch norm throughout, the
+    decoder's too) single-instance model with hard keypoint mining; one
+    train step and one validation step an epoch, a run folder under
+    ``root``."""
+    from sleap_tpu_torch import config as c
+
+    steps, batch = DP_WORKLOADS[name]
+    if name.startswith("centroid"):
+        cfg = train_config("centroid", batch=batch)
+    else:
+        cfg = c.TrainingJobConfig()
+        cfg.model.backbone.pretrained_encoder = c.PretrainedEncoderConfig(
+            encoder="resnet18", pretrained=False, output_stride=4)
+        cfg.model.heads.single_instance = c.SingleInstanceConfmapsHeadConfig(output_stride=4,
+                                                                            sigma=2.5)
+        cfg.optimization.batch_size = batch
+        cfg.optimization.hard_keypoint_mining.online_mining = True
+    cfg.optimization.epochs = steps
+    cfg.optimization.batches_per_epoch = 1
+    cfg.optimization.val_batches_per_epoch = 1
+    cfg.outputs.save_outputs = True
+    cfg.outputs.runs_folder = root
+    cfg.outputs.run_name = "run"
+    return cfg
+
+
+def dp_labels(name):
+    if name.startswith("centroid"):
+        return labels_of(*phase7_recipe(8, seed=5))
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 255, (8, DP_IMG_BN, DP_IMG_BN, 1), np.uint8)
+    return labels_of(frames, rng.uniform(60, DP_IMG_BN - 60, (8, 1, N_NODES, 2)))
+
+
+def dp_train(name, root, devices, float64=False):
+    """``Trainer.train()`` of workload ``name`` on the card (``devices``
+    None) or data-parallel over ``devices``; with ``float64``, the module
+    set up is swapped for its float64 twin first, as phase 11a's float64
+    step does; (trainer, seconds)."""
+    from sleap_tpu_torch.training.trainer import Trainer
+
+    labels = dp_labels(name)
+    trainer = Trainer.from_config(dp_config(name, root), training_labels=labels,
+                                  validation_labels=labels, devices=devices)
+    trainer.group_timeout = 300.0
+    t0 = time.perf_counter()
+    if float64:
+        trainer.setup()
+        module = trainer.model.make_module(trainer._input_channels, compute_dtype=torch.float64)
+        module.load_state_dict(trainer.module.state_dict())
+        trainer.module = module.to(trainer.device)
+    trainer.train()
+    torch.cuda.synchronize()
+    return trainer, time.perf_counter() - t0
+
+
+def dp_runs():
+    """23c's runs: (workload, float64). The batch-norm workload runs in
+    float64 too: in float32 the single-process and two-rank runs agree
+    bitwise in the first step's loss and drift after it by rounding that
+    Adam's normalisation and the deep batch-norm net amplify (the CPU:
+    2e-6 relative after one update, 7e-5 after two; float64: equal)."""
+    return [(name, False) for name in DP_WORKLOADS] + [(n, True) for n in DP_WORKLOADS
+                                                        if "batch norm" in n]
+
+
+def check_data_parallel_training(meshes, card):
+    """23c: each run of ``dp_runs`` trained by one process on the card and
+    by two ranks over each mesh: per-step losses within DP_LOSS_RTOL (in
+    float32 on the batch-norm net, the first step's), parameters and
+    batch-norm running statistics within DP_PARAM_RTOL/ATOL, exactly one run
+    folder (rank 0's)."""
+    from sleap_tpu_torch.parallel.distributed import backend_for
+
+    out = {}
+    for name, float64 in dp_runs():
+        run = f"{name}{', float64' if float64 else ''}"
+        with tempfile.TemporaryDirectory() as root:
+            single, single_s = dp_train(name, os.path.join(root, "single"), None, float64)
+            want_loss = [r["loss"] for r in single.log_rows]
+            want = single.module.state_dict()
+            for mesh_name, mesh in meshes.items():
+                folder = os.path.join(root, mesh_name.replace(" ", "_"))
+                backend = backend_for(mesh.data_devices)
+                log(f"23c {run}: 2 ranks on {[str(d) for d in mesh.data_devices]} over {backend}")
+                dp, dp_s = dp_train(name, folder, mesh.data_devices, float64)
+                what = f"23c {run} ({mesh_name})"
+                loss = [r["loss"] for r in dp.log_rows]
+                rel = [abs(a - b) / abs(b) for a, b in zip(loss, want_loss)]
+                check(len(loss) == len(want_loss) == DP_WORKLOADS[name][0], f"{what}: steps")
+                held = rel[:1] if "batch norm" in name and not float64 else rel
+                check(max(held) <= DP_LOSS_RTOL, f"{what}: losses {loss} vs {want_loss}")
+                got = dp.module.state_dict()
+                margin = max(float(((got[k] - w).abs() - (DP_PARAM_ATOL + DP_PARAM_RTOL * w.abs()))
+                                   .max()) for k, w in want.items())
+                check(margin <= 0, f"{what}: weights beyond rtol {DP_PARAM_RTOL}, atol {DP_PARAM_ATOL}")
+                n_stats = sum(k.endswith(("running_mean", "running_var")) for k in got)
+                check((n_stats > 0) == ("batch norm" in name), f"{what}: running statistics")
+                check(os.listdir(folder) == ["run"], f"{what}: one run folder")
+                check(os.path.exists(os.path.join(folder, "run", "best_model.pt")),
+                      f"{what}: best_model.pt")
+                out[f"{run}, {mesh_name}"] = {
+                    "backend": backend, "steps": len(loss), "global_batch": DP_WORKLOADS[name][1],
+                    "loss": loss, "loss_rel": rel, "running_stats": n_stats,
+                    "param_margin": margin, "train_s": dp_s, "epoch_s": dp.epoch_seconds,
+                    "single_train_s": single_s, "single_epoch_s": single.epoch_seconds}
+                log(f"{what}: losses {loss}, relative to one process {rel}; train() {dp_s:.1f} s "
+                    f"(one process {single_s:.1f} s); epochs {[round(s, 3) for s in dp.epoch_seconds]} "
+                    f"s vs {[round(s, 3) for s in single.epoch_seconds]} s ({card})")
+    return out
+
+
+def check_parallel(td, bu, frames, td_wrappers, hwcs_wrappers, launches, card):
+    """Phase 23: sharded inference (23a, 23b) and data-parallel training
+    (23c) on each mesh of ``parallel_meshes``."""
+    meshes = parallel_meshes()
+    for mesh_name, mesh in meshes.items():
+        log(f"phase 23 mesh {mesh_name}: {mesh.shape}, data devices "
+            f"{[str(d) for d in mesh.data_devices]}")
+    return {"inference": check_sharded_inference(td, bu, frames, td_wrappers, hwcs_wrappers,
+                                                 launches, meshes),
+            "training": check_data_parallel_training(meshes, card)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU.")
@@ -7011,6 +7271,11 @@ def main() -> int:
         # slice on the card (J2's new modes, J6, host CCITT), and top-down
         # predict on a SingleImageVideo of four 1024^2 ones.
         all_stills, j6 = timed_phase("22", check_all_stills, launches, card)
+
+        # Phase 23: data-parallel inference (23a top-down, 23b bottom-up, on
+        # replicas) and training (23c, two ranks).
+        parallel = timed_phase("23", check_parallel, td, bu[0], frames, td_wrappers, hwcs_wrappers,
+                               launches, card)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -7045,6 +7310,7 @@ def main() -> int:
     print(json.dumps({"hdf5": hdf5_files, "card": card}), flush=True)
     print(json.dumps({"avi": avi_videos, "card": card}), flush=True)
     print(json.dumps({"all_stills": all_stills, "card": card}), flush=True)
+    print(json.dumps({"parallel": parallel, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -14,8 +14,11 @@ Where it differs:
 - media videos are decoded where ``--video.device`` says, by default on
   the device the networks run on: the card reads H.264 ``.mp4`` and
   ``.mov`` through NVDEC, the CPU any format cv2 reads;
-- ``--n-devices`` above 1 raises: multi-card inference is not ported
-  (ROADMAP.md, queue 1, item 12);
+- ``--n-devices N`` runs each batch data-parallel over N replicas, as the
+  JAX CLI does: on the first N cards, or with ``--cpu`` on the CPU N times
+  (:func:`~sleap_tpu_torch.parallel.distributed.make_sharded_predictor`;
+  ``--batch_size`` stays each replica's batch); asking for more cards than
+  there are raises;
 - ``--compute_dtype bfloat16`` runs the networks in bf16 (the port's
   ``load_model(..., compute_dtype=torch.bfloat16)``).
 """
@@ -63,7 +66,8 @@ def make_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--n-devices", type=int, default=None, dest="n_devices",
-        help="Data-parallel inference over this many devices (not ported: at most 1).",
+        help="Data-parallel inference over this many devices: each takes a slice of every "
+        "batch (--batch_size frames). With --cpu, that many replicas on the CPU.",
     )
     parser.add_argument(
         "--compute_dtype", choices=("float32", "bfloat16"), default="float32",
@@ -294,11 +298,6 @@ def main(args: Optional[List[str]] = None) -> None:
     t0 = time.time()
     start_timestamp = str(datetime.now())
     ns = make_parser().parse_args(args)
-    if ns.n_devices and ns.n_devices > 1:
-        raise NotImplementedError(
-            f"--n-devices {ns.n_devices}: multi-card inference is not ported yet "
-            "(ROADMAP.md, queue 1, item 12)."
-        )
 
     provider_list, data_path_list, output_path_list = make_provider_from_cli(ns)
 
@@ -326,9 +325,19 @@ def main(args: Optional[List[str]] = None) -> None:
             }
         )
 
+    mesh = None
+    if ns.models is not None and ns.n_devices and ns.n_devices > 1:
+        from sleap_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_devices=ns.n_devices, devices=[_device(ns)] * ns.n_devices if ns.cpu else None)
+
     if ns.models is not None:
         for i, (data_path, provider) in enumerate(zip(data_path_list, provider_list)):
             predictor = make_predictor_from_cli(ns)
+            if mesh is not None:
+                from sleap_tpu_torch.parallel.distributed import make_sharded_predictor
+
+                predictor = make_sharded_predictor(predictor, mesh)
             predictor.tracker = tracker
             labels_pr = predictor.predict(provider)
 

@@ -17,9 +17,12 @@ folder (``outputs.runs_folder``/``run_name``) ends up holding
 - the labels' media videos are decoded where ``--video.device`` says, by
   default on the device it trains on: the card reads H.264 ``.mp4`` and
   ``.mov`` through NVDEC, the CPU any format cv2 reads;
-- ``--n-devices`` and ``--spatial-sharding`` above 1 raise: data-parallel
-  and spatially sharded training are not ported (ROADMAP.md, queue 1,
-  item 12);
+- ``--n-devices N`` trains data-parallel as the JAX CLI does, one process
+  per device: on the first N cards, or with ``--cpu`` on the CPU N times;
+  the caller spawns the other ranks (under ``torchrun`` each process is a
+  rank of its group instead) and alone writes the run folder; asking for
+  more cards than there are raises. ``--spatial-sharding`` above 1 raises:
+  it is not ported (ROADMAP.md, queue 1, item 12(b));
 - ``--tensorboard`` and ``--zmq`` set the config as in JAX, and the
   trainer acts on both: it writes TensorBoard logs, and with ``--zmq`` it
   publishes its progress on ``--publish_port`` and takes ``stop`` and
@@ -66,7 +69,9 @@ def make_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--n-devices", type=int, default=None, dest="n_devices",
-        help="Data-parallel training over this many devices; only 1 is ported.",
+        help="Data-parallel training over this many devices (default: 1): one process each, "
+        "params replicated, batches split, gradients averaged. With --cpu, that many ranks on "
+        "the CPU.",
     )
     parser.add_argument(
         "--mixed-precision", action="store_true", dest="mixed_precision",
@@ -75,7 +80,8 @@ def make_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--spatial-sharding", type=int, default=1, dest="spatial_sharding",
-        help="Shard frame height over this many devices; only 1 is ported.",
+        help="Shard frame height over this many devices; only 1 is ported (ROADMAP.md, queue 1, "
+        "item 12(b)).",
     )
     return parser
 
@@ -87,13 +93,6 @@ def create_trainer_using_cli(args: Optional[List[str]] = None):
     from sleap_tpu_torch.training.trainer import Trainer
 
     ns = make_parser().parse_args(args)
-    for flag, value in (("--n-devices", ns.n_devices), ("--spatial-sharding", ns.spatial_sharding)):
-        if value is not None and value > 1:
-            raise NotImplementedError(
-                f"{flag} {value}: multi-card training is not ported yet "
-                "(ROADMAP.md, queue 1, item 12)."
-            )
-
     cfg = TrainingJobConfig.load_json(ns.training_job_path)
     if ns.labels_path:
         cfg.data.labels.training_labels = ns.labels_path
@@ -120,7 +119,8 @@ def create_trainer_using_cli(args: Optional[List[str]] = None):
         cfg.outputs.zmq.publish_address = f"tcp://127.0.0.1:{ns.publish_port}"
 
     return Trainer.from_config(cfg, device="cpu" if ns.cpu else "cuda",
-                               video_device=ns.video_device)
+                               video_device=ns.video_device, n_devices=ns.n_devices,
+                               spatial_sharding=ns.spatial_sharding)
 
 
 def main(args: Optional[List[str]] = None) -> None:

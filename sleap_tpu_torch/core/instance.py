@@ -430,6 +430,11 @@ class InstancesList(list):
         for inst in self:
             inst.frame = labeled_frame
 
+    def __reduce__(self):
+        # Rebuilt through the constructor, which sets the owner: a list's
+        # own pickle appends before the attributes are back.
+        return _instances_list, (list(self), self._labeled_frame)
+
     @property
     def labeled_frame(self) -> Optional["LabeledFrame"]:
         return self._labeled_frame
@@ -486,6 +491,10 @@ class InstancesList(list):
 
     def copy(self) -> list:
         return list(self)
+
+
+def _instances_list(instances: list, labeled_frame: Optional["LabeledFrame"]) -> InstancesList:
+    return InstancesList(instances, labeled_frame=labeled_frame)
 
 
 class LabeledFrame:

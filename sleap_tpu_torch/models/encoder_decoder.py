@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sleap_tpu_torch.models.common import IntermediateFeature
+from sleap_tpu_torch.parallel.distributed import current_data_group
 
 # --------------------------------------------------------------------------- #
 # Block descriptor factories (tagged plain tuples, same fields as sleap_tpu)
@@ -259,6 +260,13 @@ class FlaxBatchNorm2d(nn.Module):
     ``r = m*r + (1 - m)*batch``. A Welford or two-pass variance (cuDNN's)
     is not the same function where a channel's spread is small beside its
     mean: after a ReLU, a channel of few nonzero values.
+
+    In a data-parallel train step
+    (:func:`~sleap_tpu_torch.parallel.distributed.current_data_group`) the
+    batch is the global batch spread over the ranks: each rank's
+    per-channel sums of x and x^2 and its count are summed across the ranks
+    (differentiably) before the same rule, so every rank normalises with,
+    and moves its running statistics by, the global batch's statistics.
     """
 
     def __init__(self, channels: int, epsilon: float, momentum: float):
@@ -282,8 +290,16 @@ class FlaxBatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.epsilon)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp_min(xf.square().mean((0, 2, 3)) - mean.square(), 0.0)
+        data = current_data_group()
+        if data is None:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp_min(xf.square().mean((0, 2, 3)) - mean.square(), 0.0)
+        else:
+            C = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() // C)
+            sums = data.all_reduce(torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count]))
+            mean = sums[:C] / sums[-1]
+            var = torch.clamp_min(sums[C:2 * C] / sums[-1] - mean.square(), 0.0)
         m = self.momentum
         with torch.no_grad():
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)

@@ -6,7 +6,7 @@ device: nothing here reads a value back to the host.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -23,14 +23,18 @@ def compute_ohkm_loss(
     min_hard_keypoints: int = 2,
     max_hard_keypoints: Optional[int] = None,
     loss_scale: float = 5.0,
+    channel_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Online hard keypoint mining: the channels whose mean squared error
     exceeds ``hard_to_easy_ratio`` times the easiest channel's are hard
     (at least ``min_hard_keypoints``, at most ``max_hard_keypoints`` and the
     channel count); the mean of the hardest that many losses, times
-    ``loss_scale``."""
+    ``loss_scale``. ``channel_mean`` maps this shard's channel losses to the
+    whole batch's (a data-parallel step's mean across ranks)."""
     n_channels = y_gt.shape[-1]
     ch_losses = torch.mean(torch.square(y_gt - y_pr), dim=tuple(range(y_gt.ndim - 1)))
+    if channel_mean is not None:
+        ch_losses = channel_mean(ch_losses)
     easy = torch.min(ch_losses)
     n_hard = torch.sum(ch_losses > easy * hard_to_easy_ratio)
     k = torch.clamp(n_hard, min=min_hard_keypoints)

@@ -46,8 +46,13 @@ with ``outputs.save_visualizations`` it draws a confidence-map PNG each
 epoch into ``<run>/viz`` (matplotlib, imported there; removed at the end
 unless ``keep_viz_images``); and with ``outputs.zmq`` it publishes its
 events and takes ``stop`` and ``set_lr`` commands
-(:mod:`~sleap_tpu_torch.training.callbacks`, pyzmq). Not ported (ROADMAP.md,
-queue 1, item 12): data-parallel training.
+(:mod:`~sleap_tpu_torch.training.callbacks`, pyzmq).
+
+``n_devices > 1`` trains data-parallel: one process per data index of a
+mesh, the caller rank 0 and the only one that writes
+(:mod:`~sleap_tpu_torch.parallel.distributed` says how a step keeps the
+single-device run's function). ``spatial_sharding > 1`` raises: it is not
+ported yet (ROADMAP.md, queue 1, item 12(b)).
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sleap_tpu_torch.config import TrainingJobConfig
 from sleap_tpu_torch.core.labels import Labels, load_file
@@ -86,6 +92,8 @@ from sleap_tpu_torch.ops.edge_maps import get_edge_points, make_multi_pafs
 from sleap_tpu_torch.ops.grid import make_grid_vectors
 from sleap_tpu_torch.ops.offsets import make_offsets, mask_offsets
 from sleap_tpu_torch.ops.peak_finding import crop_and_resize, make_centered_bboxes
+from sleap_tpu_torch.parallel.distributed import current_data_group, in_process_group
+from sleap_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, make_mesh
 from sleap_tpu_torch.precision import ieee_fp32
 from sleap_tpu_torch.training.losses import categorical_crossentropy, compute_ohkm_loss, mse_loss
 from sleap_tpu_torch.training.optimizers import make_optimizer, set_learning_rate
@@ -352,14 +360,39 @@ def _one_hot(inds: torch.Tensor, n: int) -> torch.Tensor:
 
 class Trainer:
     """Base trainer; the per-head subclasses build the batches and the
-    ground truth."""
+    ground truth.
+
+    ``n_devices > 1`` trains data-parallel over a mesh of that many
+    devices: by default the visible cards (raising where there are fewer),
+    the CPU that many times for ``device="cpu"``, or the ``devices`` named
+    (one card twice: two ranks share it). Under ``torchrun``, or in a
+    process group the caller opened, ``n_devices`` is the group's size and
+    each process trains on its ``LOCAL_RANK``'s card. Process groups time
+    out after ``group_timeout`` seconds."""
 
     def __init__(self, config: TrainingJobConfig, data_readers: DataReaders, model: Model,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", n_devices: Optional[int] = None,
+                 spatial_sharding: int = 1,
+                 devices: Optional[List[Union[str, torch.device]]] = None):
         self.config = config
         self.data_readers = data_readers
         self.model = model
         self.device = torch.device(device)
+        if spatial_sharding and spatial_sharding > 1:
+            raise NotImplementedError(f"spatial_sharding={spatial_sharding}: {SPATIAL_NOT_PORTED}.")
+        self.n_devices = len(devices) if n_devices is None and devices is not None else n_devices
+        self.spatial_sharding = spatial_sharding
+        self.group_timeout = 600.0
+        self.mesh = None
+        if self.n_devices and self.n_devices > 1:
+            if in_process_group():
+                if self.device.type == "cuda":
+                    self.device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            else:
+                if devices is None and self.device.type == "cpu":
+                    devices = ["cpu"] * self.n_devices
+                self.mesh = make_mesh(self.n_devices, devices=devices)
+                self.device = self.mesh.data_devices[0]
         self.module: Optional[torch.nn.Module] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.run_path: Optional[str] = None
@@ -371,14 +404,18 @@ class Trainer:
         self._zmq_reporter = None
         self._zmq_controller = None
         self.log_rows: List[Dict[str, float]] = []
+        self.epoch_seconds: List[float] = []  # each epoch's host wall time, as logged
 
     @classmethod
     def from_config(cls, config: TrainingJobConfig, training_labels: Any = None,
                     validation_labels: Any = None, test_labels: Any = None,
                     device: Union[str, torch.device] = "cuda",
-                    video_device: Union[str, torch.device, None] = None) -> "Trainer":
+                    video_device: Union[str, torch.device, None] = None,
+                    n_devices: Optional[int] = None, spatial_sharding: int = 1,
+                    devices: Optional[List[Union[str, torch.device]]] = None) -> "Trainer":
         """The trainer of the config's head type, on ``device`` (the card by
-        default; pass ``device="cpu"`` for the CPU: there is no fallback).
+        default; pass ``device="cpu"`` for the CPU: there is no fallback),
+        data-parallel over ``n_devices`` (or ``devices``) where more than one.
         The labels' media videos are decoded on ``video_device``, by default
         ``device``. Part names, edges and classes the config leaves unset are
         filled in from the labels' skeleton and tracks."""
@@ -404,7 +441,8 @@ class Trainer:
         tracks = data_readers.training_labels.tracks or None
         model = Model.from_config(config.model, skeleton=skeleton, tracks=tracks,
                                   update_config=True)
-        return trainer_cls(config=config, data_readers=data_readers, model=model, device=device)
+        return trainer_cls(config=config, data_readers=data_readers, model=model, device=device,
+                           n_devices=n_devices, spatial_sharding=spatial_sharding, devices=devices)
 
     # ------------------------------------------------------------------ #
     @property
@@ -483,8 +521,16 @@ class Trainer:
         if self.config.optimization.mixed_precision:
             module.to(memory_format=torch.channels_last)
         self.module = module
-        self._setup_run_folder()
-        self._setup_zmq()
+        if self._is_first_rank():
+            self._setup_run_folder()
+            self._setup_zmq()
+
+    def _is_first_rank(self) -> bool:
+        """Whether this process is rank 0: the one that writes."""
+        if self.mesh is not None or not (self.n_devices and self.n_devices > 1):
+            return True
+        rank = dist.get_rank() if dist.is_initialized() else int(os.environ.get("RANK", 0))
+        return rank == 0
 
     def _setup_run_folder(self) -> None:
         out = self.config.outputs
@@ -537,10 +583,16 @@ class Trainer:
 
     def compute_loss(self, batch: Batch, generator: torch.Generator) -> torch.Tensor:
         """The weighted sum of every head's loss (plus hard keypoint mining
-        where configured) on one device batch, in float32."""
+        where configured) on one device batch, in float32. In a
+        data-parallel step the batch is the global one: the ground truth is
+        built for all of it, then this rank's rows are kept, and hard
+        keypoint mining reads the channel losses averaged across ranks."""
         if self._gt_fn is None:
             self._gt_fn = self.build_gt_fn()
         imgs, gt = self._gt_fn(batch, generator)
+        data = current_data_group()
+        if data is not None:
+            imgs, gt = data.rows(imgs), {k: data.rows(v) for k, v in gt.items()}
         with self._autocast():
             preds = self.module(imgs)
         ohkm = self.config.optimization.hard_keypoint_mining
@@ -563,6 +615,7 @@ class Trainer:
                             min_hard_keypoints=ohkm.min_hard_keypoints,
                             max_hard_keypoints=ohkm.max_hard_keypoints,
                             loss_scale=ohkm.loss_scale,
+                            channel_mean=data.mean if data is not None else None,
                         )
                 loss = loss + weight * term
         return loss
@@ -578,11 +631,17 @@ class Trainer:
         """One update on a device batch; returns the loss, on the device.
         Its one forward runs in ``train()`` mode: batch norm normalises with
         the batch's statistics and moves its running ones once (every
-        stack's heads and hard keypoint mining read that same forward)."""
+        stack's heads and hard keypoint mining read that same forward). In a
+        data-parallel step the gradients are averaged across ranks before the
+        update, and the loss returned is the mean across ranks."""
         self.module.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.compute_loss(batch, generator)
         loss.backward()
+        data = current_data_group()
+        if data is not None:
+            data.average_gradients(self.module)
+            loss = data.mean(loss.detach())
         self.optimizer.step()
         return loss.detach()
 
@@ -590,7 +649,9 @@ class Trainer:
     @torch.no_grad()
     def val_step(self, batch: Batch, generator: torch.Generator) -> torch.Tensor:
         self.module.eval()
-        return self.compute_loss(batch, generator)
+        loss = self.compute_loss(batch, generator)
+        data = current_data_group()
+        return loss if data is None else data.mean(loss)
 
     def _state_dict(self) -> Dict[str, torch.Tensor]:
         """The module's weights as float32 CPU tensors."""
@@ -690,12 +751,40 @@ class Trainer:
     @ieee_fp32()
     def train(self) -> None:
         """Run the optimization loop and write the run folder, with TF32
-        off (:func:`~sleap_tpu_torch.precision.ieee_fp32`)."""
+        off (:func:`~sleap_tpu_torch.precision.ieee_fp32`); with
+        ``n_devices > 1``, data-parallel: the peers are spawned here, or this
+        process joins the caller's group as one rank."""
+        if not (self.n_devices and self.n_devices > 1):
+            self.train_rank(None)
+            return
+        from sleap_tpu_torch.parallel import distributed
+
+        if self.mesh is not None:
+            distributed.train_data_parallel(self)
+        else:
+            self.train_rank(distributed.join_data_group(self))
+
+    @ieee_fp32()
+    def train_rank(self, data=None) -> None:
+        """The optimization loop of one rank of ``data``
+        (:class:`~sleap_tpu_torch.parallel.distributed.DataGroup`, None for a
+        single device): the steps run as that rank, the weights start as rank
+        0's, and rank 0 writes the run folder."""
         if self.module is None:
             self.setup()
         opt_cfg = self.config.optimization
-        self.make_optimizer()
+        train_step, val_step = self.train_step, self.val_step
         batch_size = opt_cfg.batch_size
+        if data is not None:
+            from sleap_tpu_torch.parallel.distributed import sharded_train_step, sharded_val_step
+
+            data.broadcast_module(self.module)
+            train_step, val_step = sharded_train_step(train_step, data), sharded_val_step(val_step, data)
+            # Round up so every rank gets an equal block of rows.
+            batch_size = -(-batch_size // data.size) * data.size
+            logger.info("Data-parallel rank %d of %d on %s (batch_size=%d).", data.rank, data.size,
+                        self.device, batch_size)
+        self.make_optimizer()
         n_train = len(self._train_examples)
         batches_per_epoch = opt_cfg.batches_per_epoch or max(
             opt_cfg.min_batches_per_epoch, -(-n_train // batch_size)
@@ -708,6 +797,7 @@ class Trainer:
         rng = np.random.default_rng(0)
         generator = torch.Generator(device=self.device).manual_seed(42)
         log_rows = []
+        self.epoch_seconds = []
         best_val = np.inf
         best_state = None
         t_train = time.time()
@@ -719,6 +809,9 @@ class Trainer:
                     and self.run_path)
         viz_gt_fn = self.build_gt_fn() if save_viz else None
         stop_requested = False
+        # Every rank takes part in the controller's broadcast; rank 0 reads it.
+        controlled = self._zmq_controller is not None or (
+            data is not None and self.config.outputs.zmq.subscribe_to_controller)
         profiler = self._start_profile()
         for epoch in range(opt_cfg.epochs):
             if self._zmq_reporter:
@@ -728,7 +821,7 @@ class Trainer:
             for b, (batch, _, image) in enumerate(stage_to_device(
                     self._epoch_batches(self._train_examples, batches_per_epoch, batch_size, rng),
                     self.device)):
-                loss = self.train_step(self.to_device(batch, image), generator)
+                loss = train_step(self.to_device(batch, image), generator)
                 # The loss stays on the device until the epoch ends, unless
                 # ZMQ progress reports it a batch at a time.
                 if self._zmq_reporter:
@@ -736,17 +829,17 @@ class Trainer:
                     self._zmq_reporter.batch_end(epoch, b, train_losses[-1])
                 else:
                     train_losses.append(loss)
-                if self._zmq_controller:
-                    if self._zmq_controller.poll() == "stop":
+                if controlled:
+                    stop, new_lr = self._poll_controller(data)
+                    if stop:
                         stop_requested = True
                         break
-                    new_lr = self._zmq_controller.take_requested_lr()
                     if new_lr is not None:
                         lr_sched.lr = new_lr
                         set_learning_rate(self.optimizer, new_lr)
             # No usable validation examples: val_loss falls back to the train loss.
             val_losses = [
-                self.val_step(self.to_device(batch, image), generator)
+                val_step(self.to_device(batch, image), generator)
                 for batch, _, image in stage_to_device(
                     self._epoch_batches(self._val_examples,
                                         val_batches if len(self._val_examples) else 0,
@@ -766,8 +859,9 @@ class Trainer:
             if save_viz and len(self._val_examples):
                 self._save_visualization(
                     epoch, self.make_batch([self._val_examples[0]] * batch_size, rng), viz_gt_fn)
+            self.epoch_seconds.append(time.time() - t0)
             logger.info("Epoch %d/%d - loss: %.6f - val_loss: %.6f (%.1fs)", epoch + 1,
-                        opt_cfg.epochs, train_loss, val_loss, time.time() - t0)
+                        opt_cfg.epochs, train_loss, val_loss, self.epoch_seconds[-1])
             if profiler is not None:
                 profiler.stop()
                 logger.info("Saved first-epoch profiler trace to %s",
@@ -814,6 +908,17 @@ class Trainer:
             self._zmq_reporter.close()
         if self._zmq_controller:
             self._zmq_controller.close()
+
+    def _poll_controller(self, data) -> Tuple[bool, Optional[float]]:
+        """The ZMQ controller's ``stop`` and requested learning rate, read on
+        rank 0 (the only one listening) and shared with every rank."""
+        stop, lr = False, None
+        if self._zmq_controller:
+            stop = self._zmq_controller.poll() == "stop"
+            lr = None if stop else self._zmq_controller.take_requested_lr()
+        if data is not None:
+            stop, lr = data.share_control(stop, lr)
+        return stop, lr
 
     def _save_gt_labels(self) -> None:
         """The training and validation splits as ``labels_gt.{train,val}.slp``

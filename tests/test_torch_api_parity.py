@@ -28,8 +28,6 @@ PREALLOCATION = "JAX's device memory preallocation switch; torch allocates on de
 TRAINER_ONLY_IN_JAX = {
     "keras_model": "the JAX trainer's Keras export; the port writes best_model.pt",
     "variables": FLAX,
-    "n_devices": "ROADMAP.md queue 1, item 12 (open): parallel",
-    "spatial_sharding": "ROADMAP.md queue 1, item 12 (open): parallel",
 }
 TRAINERS = ("Trainer", "SingleInstanceTrainer", "CentroidTrainer", "TopdownConfmapsTrainer", "BottomUpTrainer",
             "BottomUpMultiClassTrainer", "TopDownMultiClassTrainer")
@@ -71,15 +69,12 @@ EXCLUDED = {
 }
 
 UNPORTED_MODULES = {
-    "parallel/__init__.py": "ROADMAP.md queue 1, item 12 (open): parallel",
-    "parallel/mesh.py": "ROADMAP.md queue 1, item 12 (open): parallel",
-    "parallel/distributed.py": "ROADMAP.md queue 1, item 12 (open): parallel",
     "ops/pallas_peaks.py": "the Pallas kernels; their Hopper forms are csrc/peaks.cu behind ops/cuda_peaks.py",
     "ops/pallas_crops.py": "the Pallas kernel; its Hopper form is csrc/crops.cu behind ops/cuda_crops.py",
 }
 
 # This slice's modules: nothing of theirs may be excluded.
-SLICE = ("io/visuals.py", "io/videowriter.py")
+SLICE = ("parallel/mesh.py", "parallel/distributed.py")
 SLICE_SWITCHES: dict = {}
 
 

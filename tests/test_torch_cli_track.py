@@ -1,7 +1,8 @@
 """The port's ``sleap-track`` (``sleap_tpu_torch.cli.track.main``) against
 the JAX package's on the committed ``.slp`` fixtures, both on the CPU: the
-trained ``minimal_instance`` top-down pair with and without flow tracking,
-the single-model modes, frame selection, empty-frame removal, the
+trained ``minimal_instance`` top-down pair with and without flow tracking
+and over two replicas (``--n-devices 2``), the single-model modes, frame
+selection, empty-frame removal, the
 tracking-only branch and the output-path rules. Outputs are compared through
 the JAX package's ``read_labels``.
 
@@ -103,6 +104,16 @@ def test_topdown_pair_matches_jax(data, tracker):
     assert provenance["args"]["cpu"] is True and provenance["output_path"] == port
 
 
+def test_n_devices_matches_jax(data):
+    """``--n-devices 2``: each batch split over two replicas (the CPU twice;
+    JAX: two of its virtual CPU devices), each at ``--batch_size``."""
+    port, ref = run_both([str(data / "pkg.slp"), *PAIR, *QUIET, "--n-devices", "2", "--batch_size", "2"],
+                         data, "n-devices")
+    labels = assert_same_predictions(port, ref)
+    assert len(labels) == 8 and all(lf.instances for lf in labels)
+    assert tread(port).provenance["args"]["n_devices"] == 2
+
+
 def test_ground_truth_centroid_mode_matches_jax(data):
     port, ref = run_both([str(data / "raw.slp"), "-m", INSTANCE, *QUIET], data, "gt")
     labels = assert_same_predictions(port, ref)
@@ -181,8 +192,10 @@ def test_output_path_rules_match_jax(tmp_path):
 
 
 def test_port_only_flags(data):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttrack.main([str(data / "raw.slp"), *PAIR, *QUIET, "--n-devices", "2"])
+    # More cards than there are (none here): refused before any model loads.
+    n = str(max(2, torch.cuda.device_count() + 1))
+    with pytest.raises((RuntimeError, ValueError), match="No CUDA device|available"):
+        ttrack.main([str(data / "raw.slp"), *PAIR, "--verbosity", "none", "--n-devices", n])
     with pytest.raises(ValueError, match="at least one model"):
         ttrack.main([str(data / "raw.slp"), *QUIET])
     with pytest.raises(ValueError, match="does not exist"):

@@ -4,9 +4,11 @@ package's, on the CPU.
 
 - ``create_trainer_using_cli`` builds the same config (equal as JSON) as the
   JAX CLI for the same flags, profiles and run folders;
-- the multi-card flags raise, naming the ROADMAP item; ``--tensorboard``
-  and ``--zmq`` reach the trainer, which opens the ZMQ sockets on the
-  flags' ports;
+- ``--n-devices`` beyond the cards raises, and ``--spatial-sharding``
+  above 1 names its ROADMAP item; ``--cpu --n-devices 2`` trains on two
+  gloo ranks (spawned, or under ``torchrun``) into one run folder;
+  ``--tensorboard`` and ``--zmq`` reach the trainer, which opens the ZMQ
+  sockets on the flags' ports;
 - ``main([... --cpu])`` trains a shipped profile at a tiny width for one
   epoch on ``tests/torch_data/pkg.slp`` and writes the whole run folder; the
   JAX package's ``evaluate`` of the folder's ``labels_gt``/``labels_pr``
@@ -23,7 +25,10 @@ package's, on the CPU.
 from __future__ import annotations
 
 import json
+import os
 import socket
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -73,10 +78,62 @@ def test_cli_builds_the_jax_config(profile, flags):
     assert got.device == torch.device("cpu" if "--cpu" in flags else "cuda")
 
 
-@pytest.mark.parametrize("flags", [["--n-devices", "2"], ["--spatial-sharding", "2"]])
+@pytest.mark.parametrize("flags", [["--n-devices", str(max(2, torch.cuda.device_count() + 1))],
+                                   ["--spatial-sharding", "2"]])
 def test_multi_card_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+    """More cards than there are (none here) raises, and so does spatial
+    sharding, naming its ROADMAP item."""
+    error, match = ((NotImplementedError, r"queue 1, item 12\(b\)") if "--spatial-sharding" in flags
+                    else ((RuntimeError, ValueError), "No CUDA device|available"))
+    with pytest.raises(error, match=match):
         ttrain.create_trainer_using_cli([str(PROFILES / "baseline.centroid.json"), PKG, *flags])
+
+
+def _tiny_centroid_profile(tmp_path) -> str:
+    profile = json.loads((PROFILES / "baseline.centroid.json").read_text())
+    profile["model"]["backbone"]["unet"]["filters"] = 4
+    profile["optimization"].update({"epochs": 1, "batches_per_epoch": 2, "val_batches_per_epoch": 1,
+                                    "batch_size": 3})
+    profile["outputs"]["runs_folder"] = str(tmp_path / "models")
+    path = tmp_path / "profile.json"
+    path.write_text(json.dumps(profile))
+    return str(path)
+
+
+def _assert_one_scored_run_folder(tmp_path, name):
+    assert sorted(p.name for p in (tmp_path / "models").iterdir()) == [name]
+    folder = tmp_path / "models" / name
+    assert {"best_model.pt", "training_config.json", "training_log.csv", "metrics.val.npz",
+            "labels_pr.val.slp"} <= {p.name for p in folder.iterdir()}
+    assert load_metrics(str(folder), split="val")
+    return folder
+
+
+def test_n_devices_trains_on_two_cpu_ranks(tmp_path):
+    """``sleap-train --cpu --n-devices 2`` spawns a second gloo rank and
+    writes one run folder, scored as a one-device run's is."""
+    ttrain.main([_tiny_centroid_profile(tmp_path), PKG, "--cpu", "--n-devices", "2", "--run_name", "dp"])
+    _assert_one_scored_run_folder(tmp_path, "dp")
+
+
+def test_n_devices_joins_the_group_under_torchrun(tmp_path):
+    """Under ``torchrun`` (``python -m torch.distributed.run``) each of the
+    two processes joins the group as one rank, and only rank 0 writes the
+    run folder; the log holds the losses both ranks agreed on."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    done = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2", "--master-addr",
+         "127.0.0.1", "--master-port", str(port), "-m", "sleap_tpu_torch.cli.train",
+         _tiny_centroid_profile(tmp_path), PKG, "--cpu", "--n-devices", "2", "--run_name", "tr"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert "rank 1 of 2" in done.stderr and "rank 0 of 2" in done.stderr
+    folder = _assert_one_scored_run_folder(tmp_path, "tr")
+    assert len((folder / "training_log.csv").read_text().splitlines()) == 2
 
 
 def test_tensorboard_flag_reaches_the_trainers_refusal(tmp_path):

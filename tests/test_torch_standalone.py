@@ -514,7 +514,8 @@ def test_every_module_imports_with_the_jax_side_blocked(standalone):
                  "info.trackcleaner", "io.formats.ndx_pose", "io.formats.nix",
                  "info.feature_suggestions", "util", "system", "prefs", "message", "diagnostic",
                  "data.inference", "data.pipelines", "data.dataset_ops", "data.utils", "ops.utils",
-                 "inference.movenet", "training.callbacks", "nn_viz"):
+                 "inference.movenet", "training.callbacks", "nn_viz", "parallel", "parallel.mesh",
+                 "parallel.distributed"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
 
