@@ -235,8 +235,10 @@ script its total before the ``kernels`` line:
    float32 and mixed precision, single-instance BB_SI_IMG^2 batch
    BB_SI_BATCH on Hourglass, HRNet, LEAP, EfficientNet-b0 and ResNet50, and
    top-down pretrained-encoder ResNet-50 on crops of CROP of 1024^2 frames,
-   batch TRAIN_BATCH: images/s, ms a step, one step's device ms and launches,
-   busy share, peak memory; batch norm float32 throughout. 11c: a
+   batch TRAIN_BATCH: images/s, ms a step, peak memory, and in float32 one
+   step's device ms and launches and the busy share (the mixed-precision
+   steps' profiler sessions are left out: host bound); batch norm float32
+   throughout. 11c: a
    batch-norm Hourglass through ``cli.train.main`` from a ``.slp`` written
    here; ``best_model.pt``'s statistics moved; the folder on the card
    (kernel 1 once a batch) finds every held-out animal within
@@ -534,10 +536,25 @@ script its total before the ``kernels`` line:
    and running statistics within rtol 2e-3, atol 2e-4, one run folder
    (rank 0's); ``train()`` seconds and epoch seconds beside one process's.
 
+24. Spatially sharded training (``sleap_tpu_torch.parallel.spatial``),
+   after phase 23: 23c's three runs on a ``(1, 2)`` mesh, each rank a
+   horizontal band of every frame and map (the card named twice over gloo;
+   and ``cuda:0``, ``cuda:1`` over NCCL where there are two cards), as
+   ``torchrun`` runs ranks: two spawned processes, started during 23c,
+   open a group and each calls ``Trainer.from_config(..., n_devices=2,
+   spatial_sharding=2).train()`` for every run, so their start is paid
+   once; held to 23c's one-process runs (losses: float64 every step
+   1e-5, float32 the first step 1e-5 and every step 1e-4; weights and
+   statistics rtol 2e-3, atol 2e-4; one run folder, rank 0's), each rank
+   saving less for its backward
+   than one process; ``train()`` seconds, each rank's peak memory and the
+   bytes its first step saves for the backward beside one process's.
+
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
 one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
 one of phase 17's, one of phase 18's, one of phase 19's, one of phase
-20's, one of phase 21's, one of phase 22's and one of phase 23's; the line
+20's, one of phase 21's, one of phase 22's, one of phase 23's and one of
+phase 24's; the line
 before the last is a
 JSON object with each kernel's launches (J1 and J2 from phase 13c's, 19a's
 and 22b's runs, J3 and J4 from 18b's and 18c's, J5 from 21b's, J6 from
@@ -2312,10 +2329,11 @@ def bench_batch(head, device, seed=0, size=IMG, batch=TRAIN_BATCH, animals=3):
     return out
 
 
-def time_train_steps(name, trainer, batch, card, steps=TRAIN_STEPS):
+def time_train_steps(name, trainer, batch, card, steps=TRAIN_STEPS, profile=True):
     """Warm-up steps, then ``steps`` timed steps ending in a synchronise;
-    one step's device time and launches from ``torch.profiler``. Images/s
-    counts the batch's frames."""
+    with ``profile``, one step's device time and launches from
+    ``torch.profiler`` (else None: not measured). Images/s counts the
+    batch's frames."""
     n_images = len(batch["image"])
     gen = torch.Generator(device=trainer.device).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
@@ -2326,28 +2344,34 @@ def time_train_steps(name, trainer, batch, card, steps=TRAIN_STEPS):
     losses = [trainer.train_step(batch, gen) for _ in range(steps)]
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    events = repeated_events(lambda: trainer.train_step(batch, gen))
-    device_step_ms = sum(e.self_device_time_total for e in events) / 1e3
     res = {
         "images_per_s": n_images * 1e3 / step_ms,
         "step_ms": step_ms,
-        "device_step_ms": device_step_ms,
-        "device_busy": device_step_ms / step_ms,
-        "launches_per_step": sum(e.count for e in events),
+        "device_step_ms": None,
+        "device_busy": None,
+        "launches_per_step": None,
         "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "first_loss": float(losses[0]),
         "last_loss": float(losses[-1]),
-        # The step's largest device functions: (name, ms, launches).
-        "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in sorted(
-            events, key=lambda e: -e.self_device_time_total)[:6]],
+        "top_kernels": None,
     }
     check(all(bool(torch.isfinite(l)) for l in losses), f"{name}: finite losses")
+    device = "device not measured"
+    if profile:
+        events = repeated_events(lambda: trainer.train_step(batch, gen))
+        device_step_ms = sum(e.self_device_time_total for e in events) / 1e3
+        res.update(device_step_ms=device_step_ms, device_busy=device_step_ms / step_ms,
+                   launches_per_step=sum(e.count for e in events),
+                   # The step's largest device functions: (name, ms, launches).
+                   top_kernels=[(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                                for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]])
+        device = (f"device {device_step_ms:.2f} ms a step ({100 * res['device_busy']:.1f} % busy), "
+                  f"{res['launches_per_step']} launches a step")
     log(f"{name}: {res['images_per_s']:.1f} images/s, {step_ms:.2f} ms a step over {steps} "
-        f"steps (batch {n_images}); device {device_step_ms:.2f} ms a step "
-        f"({100 * res['device_busy']:.1f} % busy), {res['launches_per_step']} launches a step; "
-        f"peak memory {res['max_memory_gib']:.2f} GiB; loss {res['first_loss']:.6f} -> "
-        f"{res['last_loss']:.6f} ({card})")
-    log(f"{name}: largest device functions a step (name, ms, launches): {res['top_kernels']}")
+        f"steps (batch {n_images}); {device}; peak memory {res['max_memory_gib']:.2f} GiB; loss "
+        f"{res['first_loss']:.6f} -> {res['last_loss']:.6f} ({card})")
+    if profile:
+        log(f"{name}: largest device functions a step (name, ms, launches): {res['top_kernels']}")
     return res
 
 
@@ -5201,7 +5225,10 @@ def check_backbone_train_throughput(card):
                                 animals=3 if topdown else 1)
             key = (f"11b train {'top-down' if topdown else 'single-instance'} {name} "
                    f"{'mixed precision' if mixed else 'f32'}")
-            results[key] = time_train_steps(key, trainer, batch, card, steps=BB_TRAIN_STEPS)
+            # The profiler sessions of a mixed-precision step (15-20 s each
+            # for HRNet and EfficientNet-b0, host bound) are left out.
+            results[key] = time_train_steps(key, trainer, batch, card, steps=BB_TRAIN_STEPS,
+                                            profile=not mixed)
             results[key]["seconds"] = time.perf_counter() - t0  # set-up, steps, profile
             bns = [m for m in trainer.module.modules() if isinstance(m, FlaxBatchNorm2d)]
             check(all(t.dtype == torch.float32 for m in bns for t in (*m.parameters(), *m.buffers())),
@@ -6957,16 +6984,47 @@ def dp_labels(name):
     return labels_of(frames, rng.uniform(60, DP_IMG_BN - 60, (8, 1, N_NODES, 2)))
 
 
-def dp_train(name, root, devices, float64=False):
+def count_saved_activations(trainer):
+    """Count the bytes autograd saves for the backward of ``trainer``'s
+    first train step (distinct storages: activations, weights and halos),
+    which a band divides; peak memory also holds cuDNN's workspace, which
+    cuDNN sizes to the free memory. Returns a dict that holds ``gib`` once
+    that step has run. (The trainer no longer pickles.)"""
+    out = {}
+    compute_loss = trainer.compute_loss
+
+    def counted(batch, generator):
+        if out or not torch.is_grad_enabled():
+            return compute_loss(batch, generator)
+        storages = {}
+
+        def pack(t):
+            storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = compute_loss(batch, generator)
+        out["gib"] = sum(storages.values()) / 2**30
+        return loss
+
+    trainer.compute_loss = counted
+    return out
+
+
+def dp_train(name, root, devices, float64=False, saved=None, **placement):
     """``Trainer.train()`` of workload ``name`` on the card (``devices``
-    None) or data-parallel over ``devices``; with ``float64``, the module
-    set up is swapped for its float64 twin first, as phase 11a's float64
-    step does; (trainer, seconds)."""
+    None) or data-parallel over ``devices`` (or as ``placement`` says:
+    ``n_devices`` and ``spatial_sharding`` in a group already open); with
+    ``float64``, the module set up is swapped for its float64 twin first, as
+    phase 11a's float64 step does; with ``saved`` (a dict), the first
+    step's saved activations are counted into it; (trainer, seconds)."""
     from sleap_tpu_torch.training.trainer import Trainer
 
     labels = dp_labels(name)
     trainer = Trainer.from_config(dp_config(name, root), training_labels=labels,
-                                  validation_labels=labels, devices=devices)
+                                  validation_labels=labels, devices=devices, **placement)
+    if saved is not None:
+        saved.update(count=count_saved_activations(trainer))
     trainer.group_timeout = 300.0
     t0 = time.perf_counter()
     if float64:
@@ -6989,21 +7047,55 @@ def dp_runs():
                                                         if "batch norm" in n]
 
 
-def check_data_parallel_training(meshes, card):
+def held_to_one_process(what, name, float64, trainer_loss, got, single, folder, later_rtol=None):
+    """A sharded run of workload ``name`` against the one-process run
+    ``single`` (its losses, weights): per-step losses within DP_LOSS_RTOL
+    (in float32 on the batch-norm net, the first step's; in float32 with
+    ``later_rtol``, the first step's, and every step's within
+    ``later_rtol``), weights and running statistics within
+    DP_PARAM_RTOL/ATOL, one run folder (rank 0's) with its
+    ``best_model.pt``; (relative losses, margin, statistics)."""
+    want_loss, want = single["loss"], single["state"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(trainer_loss, want_loss)]
+    check(len(trainer_loss) == len(want_loss) == DP_WORKLOADS[name][0], f"{what}: steps")
+    float32_first = not float64 and ("batch norm" in name or later_rtol is not None)
+    held = rel[:1] if float32_first else rel
+    check(max(held) <= DP_LOSS_RTOL, f"{what}: losses {trainer_loss} vs {want_loss}")
+    if later_rtol is not None and not float64:
+        check(max(rel) <= later_rtol, f"{what}: losses {trainer_loss} vs {want_loss} "
+              f"beyond {later_rtol} after the first step")
+    margin = max(float(((got[k].to(w.device) - w).abs() - (DP_PARAM_ATOL + DP_PARAM_RTOL * w.abs()))
+                       .max()) for k, w in want.items())
+    check(margin <= 0, f"{what}: weights beyond rtol {DP_PARAM_RTOL}, atol {DP_PARAM_ATOL}")
+    n_stats = sum(k.endswith(("running_mean", "running_var")) for k in got)
+    check((n_stats > 0) == ("batch norm" in name), f"{what}: running statistics")
+    check(os.listdir(folder) == ["run"], f"{what}: one run folder")
+    check(os.path.exists(os.path.join(folder, "run", "best_model.pt")), f"{what}: best_model.pt")
+    return rel, margin, n_stats
+
+
+def check_data_parallel_training(meshes, card, singles):
     """23c: each run of ``dp_runs`` trained by one process on the card and
-    by two ranks over each mesh: per-step losses within DP_LOSS_RTOL (in
-    float32 on the batch-norm net, the first step's), parameters and
-    batch-norm running statistics within DP_PARAM_RTOL/ATOL, exactly one run
-    folder (rank 0's)."""
+    by two ranks over each mesh, held by ``held_to_one_process``; the
+    one-process runs' losses, weights (on the CPU), seconds and peak memory
+    are kept in ``singles`` for phase 24."""
     from sleap_tpu_torch.parallel.distributed import backend_for
 
     out = {}
     for name, float64 in dp_runs():
         run = f"{name}{', float64' if float64 else ''}"
         with tempfile.TemporaryDirectory() as root:
-            single, single_s = dp_train(name, os.path.join(root, "single"), None, float64)
-            want_loss = [r["loss"] for r in single.log_rows]
-            want = single.module.state_dict()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            saved = {}
+            single, single_s = dp_train(name, os.path.join(root, "single"), None, float64, saved)
+            singles[run] = {"loss": [r["loss"] for r in single.log_rows],
+                            "state": {k: v.cpu() for k, v in single.module.state_dict().items()},
+                            "train_s": single_s, "epoch_s": single.epoch_seconds,
+                            "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+                            "saved_gib": saved["count"]["gib"]}
+            del single
             for mesh_name, mesh in meshes.items():
                 folder = os.path.join(root, mesh_name.replace(" ", "_"))
                 backend = backend_for(mesh.data_devices)
@@ -7011,40 +7103,192 @@ def check_data_parallel_training(meshes, card):
                 dp, dp_s = dp_train(name, folder, mesh.data_devices, float64)
                 what = f"23c {run} ({mesh_name})"
                 loss = [r["loss"] for r in dp.log_rows]
-                rel = [abs(a - b) / abs(b) for a, b in zip(loss, want_loss)]
-                check(len(loss) == len(want_loss) == DP_WORKLOADS[name][0], f"{what}: steps")
-                held = rel[:1] if "batch norm" in name and not float64 else rel
-                check(max(held) <= DP_LOSS_RTOL, f"{what}: losses {loss} vs {want_loss}")
-                got = dp.module.state_dict()
-                margin = max(float(((got[k] - w).abs() - (DP_PARAM_ATOL + DP_PARAM_RTOL * w.abs()))
-                                   .max()) for k, w in want.items())
-                check(margin <= 0, f"{what}: weights beyond rtol {DP_PARAM_RTOL}, atol {DP_PARAM_ATOL}")
-                n_stats = sum(k.endswith(("running_mean", "running_var")) for k in got)
-                check((n_stats > 0) == ("batch norm" in name), f"{what}: running statistics")
-                check(os.listdir(folder) == ["run"], f"{what}: one run folder")
-                check(os.path.exists(os.path.join(folder, "run", "best_model.pt")),
-                      f"{what}: best_model.pt")
+                rel, margin, n_stats = held_to_one_process(what, name, float64, loss,
+                                                           dp.module.state_dict(), singles[run],
+                                                           folder)
+                single_s = singles[run]["train_s"]
                 out[f"{run}, {mesh_name}"] = {
                     "backend": backend, "steps": len(loss), "global_batch": DP_WORKLOADS[name][1],
                     "loss": loss, "loss_rel": rel, "running_stats": n_stats,
                     "param_margin": margin, "train_s": dp_s, "epoch_s": dp.epoch_seconds,
-                    "single_train_s": single_s, "single_epoch_s": single.epoch_seconds}
+                    "single_train_s": single_s, "single_epoch_s": singles[run]["epoch_s"]}
                 log(f"{what}: losses {loss}, relative to one process {rel}; train() {dp_s:.1f} s "
                     f"(one process {single_s:.1f} s); epochs {[round(s, 3) for s in dp.epoch_seconds]} "
-                    f"s vs {[round(s, 3) for s in single.epoch_seconds]} s ({card})")
+                    f"s vs {[round(s, 3) for s in singles[run]['epoch_s']]} s ({card})")
+                del dp
+            torch.cuda.empty_cache()
     return out
 
 
-def check_parallel(td, bu, frames, td_wrappers, hwcs_wrappers, launches, card):
+def check_parallel(td, bu, frames, td_wrappers, hwcs_wrappers, launches, card, singles,
+                   before_training=lambda: None):
     """Phase 23: sharded inference (23a, 23b) and data-parallel training
-    (23c) on each mesh of ``parallel_meshes``."""
+    (23c) on each mesh of ``parallel_meshes``; ``before_training`` is called
+    between them (phase 24's ranks start up then)."""
     meshes = parallel_meshes()
     for mesh_name, mesh in meshes.items():
         log(f"phase 23 mesh {mesh_name}: {mesh.shape}, data devices "
             f"{[str(d) for d in mesh.data_devices]}")
-    return {"inference": check_sharded_inference(td, bu, frames, td_wrappers, hwcs_wrappers,
-                                                 launches, meshes),
-            "training": check_data_parallel_training(meshes, card)}
+    inference = check_sharded_inference(td, bu, frames, td_wrappers, hwcs_wrappers, launches,
+                                        meshes)
+    before_training()
+    return {"inference": inference, "training": check_data_parallel_training(meshes, card, singles)}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 24: spatially sharded training
+# --------------------------------------------------------------------------- #
+
+SPATIAL_TIMEOUT = 600.0  # s: a rank's wait for its go, and each collective
+# A float32 band run against one process: the first step's loss within
+# DP_LOSS_RTOL, every step's within SPATIAL_LATER_RTOL. cuDNN picks other
+# algorithms for a band than for a frame, and some are not deterministic, so
+# float32 losses after the first Adam update differ by rounding that Adam
+# amplifies (centroid UNet's third step: 3.0e-6 to 1.3e-5 relative in four
+# runs on one card; float64 runs are held at every step to DP_LOSS_RTOL).
+# parallel_scaling.py --spatial holds its epochs to the same pair of bounds.
+SPATIAL_LATER_RTOL = 1e-4
+
+
+def spatial_meshes():
+    """Phase 24's ``(1, 2)`` meshes: (name, card of each rank, backend): the
+    card named twice (gloo), and the first two cards (NCCL) where there are
+    two."""
+    meshes = [("one card twice", (0, 0), "gloo")]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("two cards", (0, 1), "nccl"))
+    return meshes
+
+
+def spatial_rank(rank, cards, backend, tmp, go):
+    """A rank of phase 24, as ``torchrun`` runs one: a process of a group
+    that ``Trainer.train()`` joins. It starts up (CUDA context, imports)
+    while 23c runs, waits for ``go``, then trains each run of ``dp_runs``
+    with ``n_devices=2, spatial_sharding=2``; its seconds and peak memory,
+    and rank 0's losses, weights and run folder, are pickled into ``tmp``
+    (a traceback on failure, and exit code 1)."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        os.environ["LOCAL_RANK"] = str(cards[rank])
+        torch.cuda.set_device(cards[rank])
+        torch.zeros(1, device="cuda")
+        importlib.import_module("torch._dynamo")  # the optimizer's first step imports it
+        importlib.import_module("sleap_tpu_torch.training.trainer")
+        if not go.wait(SPATIAL_TIMEOUT):
+            raise RuntimeError("phase 24: no go")
+        dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
+                                world_size=2, rank=rank, timeout=timedelta(seconds=SPATIAL_TIMEOUT))
+        for name, float64 in dp_runs():
+            run = f"{name}{', float64' if float64 else ''}"
+            folder = os.path.join(tmp, f"run{len(out)}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            saved = {}
+            trainer, seconds = dp_train(name, folder, None, float64, saved, n_devices=2,
+                                        spatial_sharding=2)
+            row = {"train_s": seconds, "epoch_s": trainer.epoch_seconds,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "saved_gib": saved["count"]["gib"]}
+            if rank == 0:
+                row.update(loss=[r["loss"] for r in trainer.log_rows], folder=folder,
+                           state={k: v.cpu() for k, v in trainer.module.state_dict().items()})
+            out[run] = row
+            del trainer
+            torch.cuda.empty_cache()
+        result = (True, out)
+    except BaseException:
+        result = (False, traceback.format_exc())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+    if not result[0]:
+        sys.exit(1)
+
+
+def start_spatial_ranks():
+    """Phase 24's two ranks of each mesh of ``spatial_meshes``, spawned to
+    start up and wait: (mesh name, backend, folder, go event, processes)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    groups = []
+    for mesh_name, cards, backend in spatial_meshes():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_24_")
+        go = ctx.Event()
+        procs = [ctx.Process(target=spatial_rank, args=(r, cards, backend, tmp, go), daemon=True)
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        groups.append((mesh_name, backend, tmp, go, procs))
+    return groups
+
+
+def check_spatial_training(groups, singles, card):
+    """Phase 24: each run of ``dp_runs`` trained by two ranks on a ``(1, 2)``
+    mesh, each rank a horizontal band of every frame, over each mesh of
+    ``spatial_meshes``, held to 23c's one-process run by
+    ``held_to_one_process``; ``train()`` seconds and each rank's peak
+    memory beside one process's."""
+    import pickle
+
+    out = {}
+    try:
+        for mesh_name, backend, tmp, go, procs in groups:
+            go.set()
+            for p in procs:
+                p.join(SPATIAL_TIMEOUT)
+            results = []
+            for r, p in enumerate(procs):
+                path = os.path.join(tmp, f"rank{r}.pkl")
+                check(os.path.exists(path), f"24 ({mesh_name}): rank {r} ended with exit code "
+                      f"{p.exitcode} and no result")
+                with open(path, "rb") as f:
+                    ok, value = pickle.load(f)
+                check(ok, f"24 ({mesh_name}): rank {r} failed:\n{value}")
+                results.append(value)
+            for run, row in results[0].items():
+                float64 = run.endswith(", float64")
+                name = run[:-len(", float64")] if float64 else run
+                what = f"24 {run} ({mesh_name})"
+                rel, margin, n_stats = held_to_one_process(what, name, float64, row["loss"],
+                                                           row["state"], singles[run], row["folder"],
+                                                           later_rtol=SPATIAL_LATER_RTOL)
+                single = singles[run]
+                peaks = [results[r][run]["peak_gib"] for r in range(2)]
+                saved = [results[r][run]["saved_gib"] for r in range(2)]
+                out[f"{run}, {mesh_name}"] = {
+                    "backend": backend, "mesh": {"data": 1, "spatial": 2},
+                    "steps": len(row["loss"]), "global_batch": DP_WORKLOADS[name][1],
+                    "loss": row["loss"], "loss_rel": rel, "running_stats": n_stats,
+                    "param_margin": margin, "train_s": [results[r][run]["train_s"] for r in range(2)],
+                    "epoch_s": row["epoch_s"], "peak_gib": peaks, "saved_gib": saved,
+                    "single_train_s": single["train_s"], "single_epoch_s": single["epoch_s"],
+                    "single_peak_gib": single["peak_gib"], "single_saved_gib": single["saved_gib"]}
+                log(f"{what}: losses {row['loss']}, relative to one process {rel}; train() "
+                    f"{row['train_s']:.1f} s (one process {single['train_s']:.1f} s); epochs "
+                    f"{[round(s, 3) for s in row['epoch_s']]} s vs "
+                    f"{[round(s, 3) for s in single['epoch_s']]} s; peak memory by rank "
+                    f"{[round(g, 3) for g in peaks]} GiB vs one process "
+                    f"{single['peak_gib']:.3f} GiB; saved for backward by rank "
+                    f"{[round(g, 3) for g in saved]} GiB vs {single['saved_gib']:.3f} GiB ({card})")
+                check(max(saved) < single["saved_gib"],
+                      f"{what}: a band saves less for the backward than the whole frame")
+    finally:
+        for _, _, tmp, go, procs in groups:
+            go.set()
+            for p in procs:
+                p.join(5.0)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -7273,9 +7517,16 @@ def main() -> int:
         all_stills, j6 = timed_phase("22", check_all_stills, launches, card)
 
         # Phase 23: data-parallel inference (23a top-down, 23b bottom-up, on
-        # replicas) and training (23c, two ranks).
+        # replicas) and training (23c, two ranks); phase 24's ranks start up
+        # during 23c.
+        singles, spatial_groups = {}, []
         parallel = timed_phase("23", check_parallel, td, bu[0], frames, td_wrappers, hwcs_wrappers,
-                               launches, card)
+                               launches, card, singles,
+                               lambda: spatial_groups.extend(start_spatial_ranks()))
+
+        # Phase 24: spatially sharded training (two ranks, a band each),
+        # against 23c's one-process runs.
+        spatial = timed_phase("24", check_spatial_training, spatial_groups, singles, card)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -7311,6 +7562,7 @@ def main() -> int:
     print(json.dumps({"avi": avi_videos, "card": card}), flush=True)
     print(json.dumps({"all_stills": all_stills, "card": card}), flush=True)
     print(json.dumps({"parallel": parallel, "card": card}), flush=True)
+    print(json.dumps({"spatial": spatial, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

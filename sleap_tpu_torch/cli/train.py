@@ -21,8 +21,10 @@ folder (``outputs.runs_folder``/``run_name``) ends up holding
   per device: on the first N cards, or with ``--cpu`` on the CPU N times;
   the caller spawns the other ranks (under ``torchrun`` each process is a
   rank of its group instead) and alone writes the run folder; asking for
-  more cards than there are raises. ``--spatial-sharding`` above 1 raises:
-  it is not ported (ROADMAP.md, queue 1, item 12(b));
+  more cards than there are raises. ``--spatial-sharding S`` shares each
+  data index among S of those devices, each holding a horizontal band of
+  its frames (``--n-devices`` defaults to S, where the JAX CLI ignores S
+  without ``--n-devices``);
 - ``--tensorboard`` and ``--zmq`` set the config as in JAX, and the
   trainer acts on both: it writes TensorBoard logs, and with ``--zmq`` it
   publishes its progress on ``--publish_port`` and takes ``stop`` and
@@ -80,8 +82,10 @@ def make_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--spatial-sharding", type=int, default=1, dest="spatial_sharding",
-        help="Shard frame height over this many devices; only 1 is ported (ROADMAP.md, queue 1, "
-        "item 12(b)).",
+        help="Shard frame height over this many devices (default: 1): each data index's frames "
+        "are split into this many horizontal bands, one a device, exchanging rows at the band "
+        "edges; it lets frames too large for one card's memory train. --n-devices must be a "
+        "multiple (it defaults to this).",
     )
     return parser
 

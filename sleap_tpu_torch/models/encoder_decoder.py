@@ -38,6 +38,7 @@ from torch import nn
 
 from sleap_tpu_torch.models.common import IntermediateFeature
 from sleap_tpu_torch.parallel.distributed import current_data_group
+from sleap_tpu_torch.parallel.spatial import current_bands, halo_rows, halos
 
 # --------------------------------------------------------------------------- #
 # Block descriptor factories (tagged plain tuples, same fields as sleap_tpu)
@@ -210,11 +211,35 @@ def same_pads(n: int, window: int, stride: int) -> Tuple[int, int]:
 
 def pad_same(x: torch.Tensor, window: int, stride: int, value: float = 0.0) -> torch.Tensor:
     """Pad the last two axes of ``x`` as XLA's SAME rule does for a square
-    ``window`` at ``stride``."""
+    ``window`` at ``stride``.
+
+    On a band of a spatially sharded frame
+    (:func:`~sleap_tpu_torch.parallel.spatial.current_bands`) the rule is
+    the frame's: the rows the band's outputs read, the frame's height
+    deciding the pads, are fetched from the neighbouring bands, and ``value``
+    pads only at the frame's top and bottom edges."""
+    bands = current_bands()
+    if bands is not None:
+        return _pad_same_band(x, bands, window, stride, value)
     (top, bottom), (left, right) = (same_pads(x.shape[-2], window, stride),
                                     same_pads(x.shape[-1], window, stride))
     if top or bottom or left or right:
         x = F.pad(x, (left, right, top, bottom), value=value)
+    return x
+
+
+def _pad_same_band(x, bands, window: int, stride: int, value: float) -> torch.Tensor:
+    def wants(r0, r1, n):
+        # Output rows [r0 / stride, end) read input rows [a, b); the last
+        # band's outputs end with the frame's.
+        top = same_pads(n, window, stride)[0]
+        end = -(-n // stride) if r1 == n else r1 // stride
+        return r0 - top, (end - 1) * stride - top + window
+
+    x, above, below = halo_rows(x, bands, wants)
+    left, right = same_pads(x.shape[-1], window, stride)
+    if above or below or left or right:
+        x = F.pad(x, (left, right, above, below), value=value)
     return x
 
 
@@ -234,9 +259,36 @@ class Conv2dSame(nn.Conv2d):
         self.window = None if symmetric else window
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bands = current_bands()
+        window = self.dilation[0] * (self.kernel_size[0] - 1) + 1
+        # On a band (a 1x1 conv reads only its own rows, on a band or on a
+        # whole-frame reduction such as squeeze-excite's):
+        if bands is not None and (window, self.stride[0]) != (1, 1):
+            if self.window is None and x.shape[2] >= window - 1:
+                return self._band_rows(x, bands, window)
+            # Its halo and the frame-edge pads explicitly, as a padding
+            # inside cuDNN would zero-pad the band's edges.
+            x = pad_same(x, window, self.stride[0])
+            return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
         if self.window is not None:
             x = pad_same(x, self.window, self.stride[0])
         return super().forward(x)
+
+    def _band_rows(self, x: torch.Tensor, bands, window: int) -> torch.Tensor:
+        """A symmetric stride-1 conv on a band: cuDNN on the band as it is
+        (zero-padded at its edges), then its ``p`` first and last rows again
+        from strips of the neighbours' ``p`` rows and its own ``2p``, so that
+        the backward keeps ``x`` and two strips instead of a padded copy."""
+        p = (window - 1) // 2
+        above, below, _, pad_above, pad_below = halos(x, bands, lambda r0, r1, n: (r0 - p, r1 + p))
+        y = super().forward(x)
+        h = x.shape[2]
+        for rows, strip, pads in ((slice(0, p), [above, x[:, :, :2 * p]], (pad_above, 0)),
+                                  (slice(h - p, h), [x[:, :, h - 2 * p:], below], (0, pad_below))):
+            strip = F.pad(torch.cat(strip, dim=2), (0, 0, *pads))
+            y[:, :, rows] = F.conv2d(strip, self.weight, self.bias, 1, (0, self.padding[1]),
+                                     self.dilation, self.groups)
+        return y
 
 
 class FlaxBatchNorm2d(nn.Module):
@@ -321,10 +373,23 @@ def avg_pool_same(x: torch.Tensor, stride: int, pool_size: int = 2) -> torch.Ten
 
 
 def upsample(x: torch.Tensor, stride: int, method: str) -> torch.Tensor:
-    """UpSampling2D: nearest repeat or half-pixel bilinear (no antialias)."""
+    """UpSampling2D: nearest repeat or half-pixel bilinear (no antialias).
+
+    On a band, bilinear reads one input row each side (the edge row
+    repeated at the frame's edges, as the unsharded op clamps there) and
+    crops: at an integer scale the source coordinate of an output row is a
+    shift of the unsharded one."""
     if method == "nearest":
         return x.repeat_interleave(stride, dim=2).repeat_interleave(stride, dim=3)
-    return F.interpolate(x, scale_factor=stride, mode="bilinear", align_corners=False)
+    bands = current_bands()
+    if bands is None:
+        return F.interpolate(x, scale_factor=stride, mode="bilinear", align_corners=False)
+    h = x.shape[2]
+    x, above, below = halo_rows(x, bands, lambda r0, r1, n: (r0 - 1, r1 + 1))
+    if above or below:
+        x = F.pad(x, (0, 0, above, below), mode="replicate")
+    y = F.interpolate(x, scale_factor=stride, mode="bilinear", align_corners=False)
+    return y[:, :, stride:stride * (1 + h)]
 
 
 def apply_activation(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -369,11 +434,23 @@ class ConvTransposeSame(nn.ConvTranspose2d):
         self.offset = kernel_size - 1 - _conv_transpose_pad_before(kernel_size, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x, self.weight, self.bias, stride=self.stride)
-        s = self.stride[0]
+        s, o = self.stride[0], self.offset
         h, w = x.shape[-2] * s, x.shape[-1] * s
-        o = self.offset
-        return y[..., o:o + h, o:o + w]
+        bands = current_bands()
+        if bands is None:
+            y = F.conv_transpose2d(x, self.weight, self.bias, stride=self.stride)
+            return y[..., o:o + h, o:o + w]
+        # A band [r0, r1) gives output rows [r0*s, r1*s), rows [r0*s + o,
+        # r1*s + o) of the uncropped output, which the input rows [a, b)
+        # reach; rows beyond the frame's edges are zeros.
+        k = self.kernel_size[0]
+        x, above, below = halo_rows(x, bands, lambda r0, r1, n: (
+            -((k - 1 - o - r0 * s) // s), (r1 * s + o - 1) // s + 1))
+        if above or below:
+            x = F.pad(x, (0, 0, above, below))
+        y = F.conv_transpose2d(x, self.weight, self.bias, stride=self.stride)
+        top = o - -(-(o - k + 1) // s) * s  # where [r0*s + o, ...) starts in y
+        return y[..., top:top + h, o:o + w]
 
 
 # --------------------------------------------------------------------------- #

@@ -46,6 +46,7 @@ from sleap_tpu_torch.models.heads import (
 )
 from sleap_tpu_torch.models.params import flax_variables_from_state_dict, state_dict_from_flax
 from sleap_tpu_torch.models.unet import UNet
+from sleap_tpu_torch.parallel.spatial import frame_mean, gather_frame
 
 # ``backbone`` oneof name in the config -> its description's class.
 BACKBONES = {
@@ -182,8 +183,9 @@ class PoseNet(nn.Module):
                     y = apply_activation(self.heads[f"{h.name}{suffix}"](src), h.activation)
                     results[f"{h.name}{suffix}"] = y.permute(0, 2, 3, 1)
                     continue
-                y = (src.mean(dim=(2, 3)) if h.global_pool
-                     else src.permute(0, 2, 3, 1).flatten(1))
+                # Over the whole frame when ``src`` is a band of it.
+                y = (frame_mean(src).flatten(1) if h.global_pool
+                     else gather_frame(src).permute(0, 2, 3, 1).flatten(1))
                 for i in range(h.num_fc_layers):
                     y = F.relu(self.heads[f"pre_classification{i}_fc{suffix}"](y))
                 results[f"{h.name}{suffix}"] = apply_activation(

@@ -37,6 +37,7 @@ from sleap_tpu_torch.models.encoder_decoder import (
     max_pool_same,
     upsample,
 )
+from sleap_tpu_torch.parallel.spatial import frame_mean
 
 logger = logging.getLogger(__name__)
 
@@ -141,10 +142,6 @@ def _se_gate(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(s)
 
 
-def _spatial_mean(x: torch.Tensor) -> torch.Tensor:
-    return x.mean(dim=(2, 3), keepdim=True)
-
-
 class UnetPretrainedEncoderModule(FlaxLayers):
     """Encoder (max stride 32) + Unet upsampling decoder. ``forward`` returns
     ``([output], [features after each decoder block])``, the
@@ -189,7 +186,7 @@ class UnetPretrainedEncoderModule(FlaxLayers):
 
     def _se(self, x, name, reduced, act):
         """Squeeze-excite: mean -> 1x1 reduce -> act -> 1x1 expand -> gate."""
-        s = self._map(_spatial_mean, x)
+        s = self._map(frame_mean, x)
         s = self._map(act, self._conv_op(s, f"{name}_se_reduce", reduced, 1))
         s = self._conv_op(s, f"{name}_se_expand", self._width(x), 1)
         return self._map(_se_gate, x, s)

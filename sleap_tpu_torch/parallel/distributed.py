@@ -1,8 +1,10 @@
 """Data-parallel inference and training across cards, and the multi-host
 helpers (port of :mod:`sleap_tpu.parallel.distributed`).
 
-The port runs the ``data`` axis of a mesh (:mod:`sleap_tpu_torch.parallel.mesh`);
-spatial (frame height) sharding raises (ROADMAP.md, queue 1, item 12(b)).
+Inference runs on the ``data`` axis of a mesh
+(:mod:`sleap_tpu_torch.parallel.mesh`), as the JAX package's does; training
+on both axes, ``data`` and ``spatial`` (frame height,
+:mod:`sleap_tpu_torch.parallel.spatial`).
 
 Inference: one process, one replica per data index.
 :func:`make_sharded_predictor` multiplies a predictor's ``batch_size`` by
@@ -21,7 +23,9 @@ asynchronous, so replicas on distinct cards overlap as far as a replica's
 work does not wait on the host. A replica on the predictor's own device is
 the predictor itself; elsewhere it is a copy with its modules moved there.
 
-Training: one process per data index, over ``torch.distributed``.
+Training: one process per device of the mesh, over ``torch.distributed``:
+rank ``r`` is data index ``r // s`` and spatial index ``r % s`` of an
+``(n/s, s)`` mesh (``spatial_sharding=s``, 1 by default).
 ``Trainer(n_devices=n).train()`` outside a process group spawns its
 ``n - 1`` peers itself (the spawn start method, a rendezvous file in a
 temporary folder, :func:`_peer_main` as the entry point), after building
@@ -36,34 +40,41 @@ that group instead. The backend is chosen from the mesh up front and
 logged: NCCL between distinct cards, gloo on the CPU and where ranks share
 a card (NCCL refuses two ranks on one GPU).
 
-A data-parallel step computes the JAX package's sharded jit step on the
+A sharded step computes the JAX package's sharded jit step on the
 global batch, which is where PyTorch's usual idiom (DDP, per-rank batch
 norm) would compute another function:
 
 a. every rank draws the same indices from ``np.random.default_rng(0)``
    and builds the same global batch, whose size is rounded up to a
-   multiple of the data-axis size; rank r keeps rows ``[r*b, (r+1)*b)``;
+   multiple of the data-axis size; data index i keeps rows
+   ``[i*b, (i+1)*b)``;
 b. every rank augments and builds the ground truth of the whole global
    batch from the same ``torch.Generator`` (seeded 42), so the draws are
-   the single-device run's, then keeps its rows;
+   the single-device run's, then keeps its rows, and with a spatial axis
+   its band of the image and of every map (the map's band is the image's
+   divided by its stride; class vectors are whole);
 c. batch norm (``models/encoder_decoder.FlaxBatchNorm2d``) all-reduces
-   its per-channel sums of x and x^2 and its count across the group,
+   its per-channel sums of x and x^2 and its count across every rank,
    differentiably, before flax's variance rule, so the statistics, the
    normalisation and the running statistics are the global batch's and
    equal on every rank (``SyncBatchNorm`` uses Welford's variance, another
    function);
-d. hard keypoint mining picks hard channels from the per-channel losses
-   averaged across ranks, differentiably; the mean squared error and the
-   cross-entropy are means over equal shards, so their mean across ranks
-   is the global loss;
-e. gradients are averaged across ranks before ``optimizer.step()``
-   (summed through the all-reduces of c and d, whose backward sums too);
-   the weights are broadcast from rank 0 before the first step, after the
-   initialization and any ``base_checkpoint``;
-f. the reported losses are averaged across ranks, so the learning-rate
-   schedule, early stopping and the best-model choice take the same branch
-   on every rank; the ZMQ ``stop`` and ``set_lr`` requests are read on rank
-   0 and broadcast each batch;
+d. each rank's loss is its share of the global loss: its sums of squared
+   errors and cross-entropies over the global batch's counts, so the
+   shares sum to the global loss whatever the rows' or bands' sizes (a
+   mean of per-shard means is another function where shards differ);
+   hard keypoint mining picks hard channels from the per-channel losses
+   of the whole batch, summed across ranks differentiably, and every rank
+   takes a 1/n share of that term;
+e. gradients are summed across ranks before ``optimizer.step()`` (each
+   rank's being its share's), and the all-reduces of c and d, and the
+   halo exchanges of the spatial axis, sum their gradients in their
+   backward; the weights are broadcast from rank 0 before the first step,
+   after the initialization and any ``base_checkpoint``;
+f. the reported losses are the shares summed across ranks, so the
+   learning-rate schedule, early stopping and the best-model choice take
+   the same branch on every rank; the ZMQ ``stop`` and ``set_lr`` requests
+   are read on rank 0 and broadcast each batch;
 g. rank 0 alone writes the run folder, checkpoints, CSV log, TensorBoard
    logs, visualizations and ZMQ reports, and evaluates the model;
 h. every process group has a timeout (``Trainer.group_timeout`` seconds);
@@ -71,6 +82,12 @@ h. every process group has a timeout (``Trainer.group_timeout`` seconds);
    rank that raises makes ``train()`` raise in the caller, with the
    rank's traceback. Over gloo a peer that dies ends the collectives at
    once; over NCCL the group's timeout ends them.
+
+i. with a spatial axis the ranks of a data index hold bands of each frame,
+   and the backbones' convolutions, pools, resizes and per-sample frame
+   reductions exchange rows across band edges
+   (:mod:`sleap_tpu_torch.parallel.spatial`); the losses and the reported
+   loss are as in d and f.
 
 The collectives are ``all_reduce`` and ``broadcast``, which gloo runs on
 card tensors too.
@@ -90,13 +107,16 @@ import tempfile
 import traceback
 from datetime import timedelta
 from pathlib import Path
-from typing import Any, Callable, List, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from sleap_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, Mesh, make_mesh, split_rows
+from sleap_tpu_torch.parallel.mesh import Mesh, make_mesh, split_rows
+
+if TYPE_CHECKING:
+    from sleap_tpu_torch.parallel.spatial import SpatialGroup
 
 logger = logging.getLogger(__name__)
 
@@ -306,37 +326,39 @@ class _AllReduceSum(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class DataGroup:
-    """This process's place on the data axis of a training mesh: its rank
-    among ``size`` ranks, its device, and the process group (None: the
-    default one)."""
+    """This process's place on a training mesh: its rank among ``size``
+    ranks, its device, the process group (None: the default one), and the
+    mesh's ``spatial`` size (ranks ``spatial * i`` to ``spatial * (i + 1) - 1``
+    hold data index ``i``)."""
 
     rank: int
     size: int
     device: torch.device
     group: Any = None
+    spatial: int = 1
 
     @classmethod
-    def of_world(cls, device: torch.device) -> "DataGroup":
-        return cls(dist.get_rank(), dist.get_world_size(), torch.device(device))
+    def of_world(cls, device: torch.device, spatial: int = 1) -> "DataGroup":
+        return cls(dist.get_rank(), dist.get_world_size(), torch.device(device), spatial=spatial)
+
+    @property
+    def n_data(self) -> int:
+        """The size of the data axis."""
+        return self.size // self.spatial
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the global batch ``x``."""
-        return split_rows(x, self.size)[self.rank]
+        """This rank's data index's block of the global batch ``x``."""
+        return split_rows(x, self.n_data)[self.rank // self.spatial]
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks, differentiable (its backward
         sums the gradients over the ranks)."""
         return _AllReduceSum.apply(t, self.group)
 
-    def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean of ``t`` over the ranks, differentiable."""
-        return self.all_reduce(t) / self.size
-
-    def average_gradients(self, module: torch.nn.Module) -> None:
-        """Each parameter's gradient replaced by its mean over the ranks."""
+    def sum_gradients(self, module: torch.nn.Module) -> None:
+        """Each parameter's gradient replaced by its sum over the ranks."""
         grads = [p.grad for p in module.parameters() if p.grad is not None]
-        _flat_collective(grads, lambda flat: (dist.all_reduce(flat, group=self.group),
-                                              flat.div_(self.size)))
+        _flat_collective(grads, lambda flat: dist.all_reduce(flat, group=self.group))
 
     def broadcast_module(self, module: torch.nn.Module) -> None:
         """Rank 0's parameters and buffers on every rank."""
@@ -372,37 +394,42 @@ def data_parallel(data: DataGroup):
         _DATA_GROUP = previous
 
 
-def _step_wrapper(step: Callable, data: Optional[DataGroup], spatial: bool) -> Callable:
-    if spatial:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+def _step_wrapper(step: Callable, data: Optional[DataGroup],
+                  spatial: Optional[SpatialGroup]) -> Callable:
+    from sleap_tpu_torch.parallel.spatial import spatially_sharded
+
+    mesh_spatial = 1 if data is None else data.spatial
+    if (1 if spatial is None else spatial.size) != mesh_spatial:
+        raise ValueError(f"A spatial group of {1 if spatial is None else spatial.size} on a mesh "
+                         f"of spatial size {mesh_spatial}.")
 
     def wrapped(batch, generator):
-        with data_parallel(data or DataGroup.of_world(batch["image"].device)):
+        with data_parallel(data or DataGroup.of_world(batch["image"].device)), \
+                spatially_sharded(spatial):
             return step(batch, generator)
 
     return wrapped
 
 
 def sharded_train_step(train_step: Callable, data: Optional[DataGroup] = None,
-                       spatial: bool = False) -> Callable:
+                       spatial: Optional[SpatialGroup] = None) -> Callable:
     """A trainer's ``train_step(batch, generator)`` run as a rank of
     ``data`` (the default group's ranks if None): the batch is the global
-    batch; the step keeps this rank's rows, all-reduces batch norm and hard
-    keypoint mining, averages the gradients, and returns the loss averaged
-    across ranks."""
+    batch; the step keeps this rank's rows, and with ``spatial`` (the
+    :class:`~sleap_tpu_torch.parallel.spatial.SpatialGroup` of ``data``'s
+    mesh, needed where ``data.spatial > 1``) its band of the frames;
+    batch norm and hard keypoint mining read the whole batch, each rank's
+    loss is its share of the global loss, the gradients are summed, and the
+    loss returned is the global loss."""
     return _step_wrapper(train_step, data, spatial)
 
 
 def sharded_val_step(val_step: Callable, data: Optional[DataGroup] = None,
-                     spatial: bool = False) -> Callable:
+                     spatial: Optional[SpatialGroup] = None) -> Callable:
     """A trainer's ``val_step(batch, generator)`` as a rank of ``data``:
-    this rank's rows, the loss averaged across ranks."""
+    this rank's rows (and band, with ``spatial``), the loss of the global
+    batch."""
     return _step_wrapper(val_step, data, spatial)
-
-
-# --------------------------------------------------------------------------- #
-# Training: the processes
-# --------------------------------------------------------------------------- #
 
 
 def in_process_group() -> bool:
@@ -413,7 +440,8 @@ def in_process_group() -> bool:
 
 def join_data_group(trainer) -> DataGroup:
     """The trainer's rank in the caller's group, opened from ``torchrun``'s
-    environment if not yet open; its world size must be ``n_devices``."""
+    environment if not yet open; its world size must be ``n_devices``, and
+    ``spatial_sharding`` consecutive ranks share a data index."""
     if not dist.is_initialized():
         backend = "nccl" if trainer.device.type == "cuda" else "gloo"
         if backend == "nccl":
@@ -425,7 +453,7 @@ def join_data_group(trainer) -> DataGroup:
                          f"{dist.get_world_size()} ranks.")
     logger.info("Data-parallel training: rank %d of %d on %s (%s).", dist.get_rank(),
                 dist.get_world_size(), trainer.device, dist.get_backend())
-    return DataGroup.of_world(trainer.device)
+    return DataGroup.of_world(trainer.device, trainer.spatial_sharding)
 
 
 def _peer_main(rank: int, world: int, device: torch.device, init_method: str, backend: str,
@@ -448,7 +476,7 @@ def _peer_main(rank: int, world: int, device: torch.device, init_method: str, ba
             trainer = pickle.load(f)
         trainer.device = device
         trainer.module.to(device)
-        trainer.train_rank(DataGroup(rank, world, device))
+        trainer.train_rank(DataGroup(rank, world, device, spatial=trainer.spatial_sharding))
     except BaseException:
         with open(error_file, "w") as f:
             f.write(traceback.format_exc())
@@ -472,11 +500,11 @@ def _peer_payload(trainer) -> bytes:
 
 
 def train_data_parallel(trainer) -> None:
-    """Train ``trainer`` over its mesh's data axis: spawn a rank per data
-    index after the first (they start up while this process sets up and
+    """Train ``trainer`` over its mesh: spawn a rank per device after the
+    first, in mesh order (they start up while this process sets up and
     writes their payload), train as rank 0 in this process, and join them.
     Raises if a rank failed, with its traceback."""
-    devices = trainer.mesh.data_devices
+    devices = [d for row in trainer.mesh.devices for d in row]
     world = len(devices)
     backend = backend_for(devices)
     logger.info("Data-parallel training over %d ranks on %s (%s).", world,
@@ -509,7 +537,7 @@ def train_data_parallel(trainer) -> None:
         dist.init_process_group(backend, init_method=init_method, world_size=world, rank=0,
                                 timeout=timedelta(seconds=trainer.group_timeout))
         logger.info("All %d ranks joined the group.", world)
-        trainer.train_rank(DataGroup(0, world, devices[0]))
+        trainer.train_rank(DataGroup(0, world, devices[0], spatial=trainer.spatial_sharding))
     except BaseException as e:
         failure = e
     finally:

@@ -1,12 +1,13 @@
 """Device meshes (port of :mod:`sleap_tpu.parallel.mesh`).
 
 A :class:`Mesh` is a ``(data, spatial)`` grid of explicit ``torch.device``
-objects. The data axis is what the port runs: a batch is split along its
-leading axis into equal row blocks, one per data index, and a module's
-weights are copied to each data index's device
-(:mod:`sleap_tpu_torch.parallel.distributed` runs inference and training on
-it). Placing along the spatial axis (frame height across devices) raises:
-it is not ported yet (ROADMAP.md, queue 1, item 12(b)).
+objects. A batch is split along its leading axis into equal row blocks, one
+per data index, and a module's weights are copied to each data index's
+device (:mod:`sleap_tpu_torch.parallel.distributed` runs inference and
+training on it); a sharding that names the spatial axis also splits an
+axis (frame height) into equal parts across a data index's devices, as
+JAX's ``NamedSharding`` does (a training step's bands are aligned to the
+backbone's strides instead: :mod:`sleap_tpu_torch.parallel.spatial`).
 
 Where the JAX package differs:
 
@@ -26,10 +27,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-
-SPATIAL_NOT_PORTED = ("spatial (frame height) sharding is not ported yet "
-                      "(ROADMAP.md, queue 1, item 12(b))")
-
 
 def _device(d: Union[str, torch.device]) -> torch.device:
     """``d`` as a device with an index where it is a card."""
@@ -100,14 +97,24 @@ class Sharding:
     spec: Tuple[Optional[str], ...] = ()
 
     def shard(self, x: Any) -> List[torch.Tensor]:
-        """``x`` as one tensor per data index, on that index's device."""
-        if "spatial" in self.spec:
-            raise NotImplementedError(SPATIAL_NOT_PORTED)
+        """``x`` as one tensor per data index, on that index's device; with
+        the spatial axis in ``spec``, one per device of the mesh in its
+        order (``devices[i][j]``: data index ``i``'s rows, the ``j``-th
+        equal part of the spatial axis), as JAX's ``addressable_shards``."""
         x = torch.as_tensor(x)
         devices = self.mesh.data_devices
         if self.spec[:1] != ("data",):
             return [x.to(d) for d in devices]
-        return [rows.to(d) for rows, d in zip(split_rows(x, len(devices)), devices)]
+        blocks = split_rows(x, len(devices))
+        if "spatial" not in self.spec:
+            return [rows.to(d) for rows, d in zip(blocks, devices)]
+        axis, s = self.spec.index("spatial"), self.mesh.shape["spatial"]
+        if x.shape[axis] % s:
+            raise ValueError(f"A spatial axis of {s} devices splits dimension {axis} of "
+                             f"{tuple(x.shape)} into equal parts only where it divides "
+                             f"{x.shape[axis]}.")
+        return [part.to(d) for rows, row_devices in zip(blocks, self.mesh.devices)
+                for part, d in zip(rows.chunk(s, axis), row_devices)]
 
 
 def batch_sharding(mesh: Mesh, spatial_axis: Optional[int] = None) -> Sharding:

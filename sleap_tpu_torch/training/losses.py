@@ -11,8 +11,11 @@ from typing import Callable, Optional
 import torch
 
 
-def mse_loss(y_gt: torch.Tensor, y_pr: torch.Tensor) -> torch.Tensor:
-    """Mean squared error over all elements."""
+def mse_loss(y_gt: torch.Tensor, y_pr: torch.Tensor, count: Optional[int] = None) -> torch.Tensor:
+    """Mean squared error over all elements; with ``count``, their sum over
+    ``count`` (a band's share of a larger batch's mean)."""
+    if count is not None:
+        return torch.sum(torch.square(y_gt - y_pr)) / count
     return torch.mean(torch.square(y_gt - y_pr))
 
 
@@ -23,18 +26,22 @@ def compute_ohkm_loss(
     min_hard_keypoints: int = 2,
     max_hard_keypoints: Optional[int] = None,
     loss_scale: float = 5.0,
-    channel_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    channel_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    count: Optional[int] = None,
 ) -> torch.Tensor:
     """Online hard keypoint mining: the channels whose mean squared error
     exceeds ``hard_to_easy_ratio`` times the easiest channel's are hard
     (at least ``min_hard_keypoints``, at most ``max_hard_keypoints`` and the
     channel count); the mean of the hardest that many losses, times
-    ``loss_scale``. ``channel_mean`` maps this shard's channel losses to the
-    whole batch's (a data-parallel step's mean across ranks)."""
+    ``loss_scale``. ``channel_sum`` maps this shard's per-channel sums of
+    squared errors to the whole batch's, which ``count`` elements a channel
+    divide (a sharded step's sum over its ranks)."""
     n_channels = y_gt.shape[-1]
-    ch_losses = torch.mean(torch.square(y_gt - y_pr), dim=tuple(range(y_gt.ndim - 1)))
-    if channel_mean is not None:
-        ch_losses = channel_mean(ch_losses)
+    axes = tuple(range(y_gt.ndim - 1))
+    if channel_sum is None:
+        ch_losses = torch.mean(torch.square(y_gt - y_pr), dim=axes)
+    else:
+        ch_losses = channel_sum(torch.sum(torch.square(y_gt - y_pr), dim=axes)) / count
     easy = torch.min(ch_losses)
     n_hard = torch.sum(ch_losses > easy * hard_to_easy_ratio)
     k = torch.clamp(n_hard, min=min_hard_keypoints)
@@ -47,7 +54,12 @@ def compute_ohkm_loss(
     return hard_loss * loss_scale
 
 
-def categorical_crossentropy(y_gt: torch.Tensor, y_pr: torch.Tensor) -> torch.Tensor:
-    """Mean categorical cross-entropy of softmax outputs, clipped at 1e-7."""
+def categorical_crossentropy(y_gt: torch.Tensor, y_pr: torch.Tensor,
+                             count: Optional[int] = None) -> torch.Tensor:
+    """Mean categorical cross-entropy of softmax outputs, clipped at 1e-7;
+    with ``count``, the sum over the samples over ``count``."""
     eps = 1e-7
-    return -torch.mean(torch.sum(y_gt * torch.log(torch.clamp(y_pr, eps, 1.0)), dim=-1))
+    per_sample = torch.sum(y_gt * torch.log(torch.clamp(y_pr, eps, 1.0)), dim=-1)
+    if count is not None:
+        return -torch.sum(per_sample) / count
+    return -torch.mean(per_sample)

@@ -48,11 +48,13 @@ unless ``keep_viz_images``); and with ``outputs.zmq`` it publishes its
 events and takes ``stop`` and ``set_lr`` commands
 (:mod:`~sleap_tpu_torch.training.callbacks`, pyzmq).
 
-``n_devices > 1`` trains data-parallel: one process per data index of a
-mesh, the caller rank 0 and the only one that writes
-(:mod:`~sleap_tpu_torch.parallel.distributed` says how a step keeps the
-single-device run's function). ``spatial_sharding > 1`` raises: it is not
-ported yet (ROADMAP.md, queue 1, item 12(b)).
+``n_devices > 1`` trains data-parallel: one process per device of an
+``(n_devices / spatial_sharding, spatial_sharding)`` mesh, the caller rank 0
+and the only one that writes (:mod:`~sleap_tpu_torch.parallel.distributed`
+says how a step keeps the single-device run's function). With
+``spatial_sharding > 1`` the ranks of a data index hold horizontal bands of
+its frames and maps, so a frame too large for one card's memory at the
+batch size trains across several (:mod:`~sleap_tpu_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import logging
+import math
 import os
 import shutil
 import time
@@ -93,7 +96,8 @@ from sleap_tpu_torch.ops.grid import make_grid_vectors
 from sleap_tpu_torch.ops.offsets import make_offsets, mask_offsets
 from sleap_tpu_torch.ops.peak_finding import crop_and_resize, make_centered_bboxes
 from sleap_tpu_torch.parallel.distributed import current_data_group, in_process_group
-from sleap_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, make_mesh
+from sleap_tpu_torch.parallel.mesh import make_mesh
+from sleap_tpu_torch.parallel.spatial import banded, current_spatial_group
 from sleap_tpu_torch.precision import ieee_fp32
 from sleap_tpu_torch.training.losses import categorical_crossentropy, compute_ohkm_loss, mse_loss
 from sleap_tpu_torch.training.optimizers import make_optimizer, set_learning_rate
@@ -365,7 +369,9 @@ class Trainer:
     ``n_devices > 1`` trains data-parallel over a mesh of that many
     devices: by default the visible cards (raising where there are fewer),
     the CPU that many times for ``device="cpu"``, or the ``devices`` named
-    (one card twice: two ranks share it). Under ``torchrun``, or in a
+    (one card twice: two ranks share it). ``spatial_sharding`` of them share
+    each data index, each holding a band of its frames (``n_devices``
+    defaults to ``spatial_sharding``). Under ``torchrun``, or in a
     process group the caller opened, ``n_devices`` is the group's size and
     each process trains on its ``LOCAL_RANK``'s card. Process groups time
     out after ``group_timeout`` seconds."""
@@ -378,10 +384,10 @@ class Trainer:
         self.data_readers = data_readers
         self.model = model
         self.device = torch.device(device)
-        if spatial_sharding and spatial_sharding > 1:
-            raise NotImplementedError(f"spatial_sharding={spatial_sharding}: {SPATIAL_NOT_PORTED}.")
+        self.spatial_sharding = max(int(spatial_sharding or 1), 1)
         self.n_devices = len(devices) if n_devices is None and devices is not None else n_devices
-        self.spatial_sharding = spatial_sharding
+        if self.n_devices is None and self.spatial_sharding > 1:
+            self.n_devices = self.spatial_sharding
         self.group_timeout = 600.0
         self.mesh = None
         if self.n_devices and self.n_devices > 1:
@@ -391,7 +397,8 @@ class Trainer:
             else:
                 if devices is None and self.device.type == "cpu":
                     devices = ["cpu"] * self.n_devices
-                self.mesh = make_mesh(self.n_devices, devices=devices)
+                self.mesh = make_mesh(self.n_devices, spatial=self.spatial_sharding,
+                                      devices=devices)
                 self.device = self.mesh.data_devices[0]
         self.module: Optional[torch.nn.Module] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
@@ -583,40 +590,57 @@ class Trainer:
 
     def compute_loss(self, batch: Batch, generator: torch.Generator) -> torch.Tensor:
         """The weighted sum of every head's loss (plus hard keypoint mining
-        where configured) on one device batch, in float32. In a
-        data-parallel step the batch is the global one: the ground truth is
-        built for all of it, then this rank's rows are kept, and hard
-        keypoint mining reads the channel losses averaged across ranks."""
+        where configured) on one device batch, in float32. In a sharded
+        step the batch is the global one: the ground truth is built for all
+        of it, then this rank keeps its rows, and with a spatial axis its
+        band of the frames and maps, and returns its share of the global
+        loss: its sums over the global counts (hard keypoint mining on the
+        global channel losses, and the class vectors, which every band of a
+        sample holds, shared out evenly)."""
         if self._gt_fn is None:
             self._gt_fn = self.build_gt_fn()
         imgs, gt = self._gt_fn(batch, generator)
         data = current_data_group()
+        bands, counts = None, {}
         if data is not None:
             imgs, gt = data.rows(imgs), {k: data.rows(v) for k, v in gt.items()}
-        with self._autocast():
+            # Each target's count in the global batch: a map's elements, and
+            # the class vectors once a band (every band of a sample holds them).
+            n_samples = imgs.shape[0] * data.n_data
+            counts = {k: n_samples * (math.prod(v.shape[1:]) if v.ndim >= 3 else data.spatial)
+                      for k, v in gt.items()}
+        spatial = current_spatial_group()
+        if spatial is not None:
+            bands = spatial.bands(imgs.shape[1], imgs.shape[2], self.model.maximum_stride)
+            imgs = bands.rows_of(imgs)
+            gt = {k: bands.rows_of(v) if v.ndim >= 3 else v for k, v in gt.items()}
+        with self._autocast(), banded(bands):
             preds = self.module(imgs)
         ohkm = self.config.optimization.hard_keypoint_mining
         stacks = getattr(self.model.backbone, "stacks", 1)
         loss = torch.zeros((), device=imgs.device)
         for name, weight, kind in self._loss_terms():
-            target = gt[name]
+            target, count = gt[name], counts.get(name)
             for key in [name] + [f"{name}_stack{i}" for i in range(stacks - 1)]:
                 if key not in preds:
                     continue
                 pred = preds[key].float()
                 if kind == "xent":
-                    term = categorical_crossentropy(target, pred)
+                    term = categorical_crossentropy(target, pred, count)
                 else:
-                    term = mse_loss(target, pred)
+                    term = mse_loss(target, pred, count)
                     if ohkm.online_mining:
-                        term = term + compute_ohkm_loss(
+                        hard = compute_ohkm_loss(
                             target, pred,
                             hard_to_easy_ratio=ohkm.hard_to_easy_ratio,
                             min_hard_keypoints=ohkm.min_hard_keypoints,
                             max_hard_keypoints=ohkm.max_hard_keypoints,
                             loss_scale=ohkm.loss_scale,
-                            channel_mean=data.mean if data is not None else None,
+                            channel_sum=None if data is None else data.all_reduce,
+                            count=None if count is None else count // target.shape[-1],
                         )
+                        # Every rank computes the whole batch's term: a share each.
+                        term = term + (hard if data is None else hard / data.size)
                 loss = loss + weight * term
         return loss
 
@@ -632,16 +656,16 @@ class Trainer:
         Its one forward runs in ``train()`` mode: batch norm normalises with
         the batch's statistics and moves its running ones once (every
         stack's heads and hard keypoint mining read that same forward). In a
-        data-parallel step the gradients are averaged across ranks before the
-        update, and the loss returned is the mean across ranks."""
+        sharded step each rank's loss is its share of the global loss, so the
+        gradients and the loss returned are summed over the ranks."""
         self.module.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.compute_loss(batch, generator)
         loss.backward()
         data = current_data_group()
         if data is not None:
-            data.average_gradients(self.module)
-            loss = data.mean(loss.detach())
+            data.sum_gradients(self.module)
+            loss = data.all_reduce(loss.detach())
         self.optimizer.step()
         return loss.detach()
 
@@ -651,7 +675,7 @@ class Trainer:
         self.module.eval()
         loss = self.compute_loss(batch, generator)
         data = current_data_group()
-        return loss if data is None else data.mean(loss)
+        return loss if data is None else data.all_reduce(loss)
 
     def _state_dict(self) -> Dict[str, torch.Tensor]:
         """The module's weights as float32 CPU tensors."""
@@ -777,13 +801,16 @@ class Trainer:
         batch_size = opt_cfg.batch_size
         if data is not None:
             from sleap_tpu_torch.parallel.distributed import sharded_train_step, sharded_val_step
+            from sleap_tpu_torch.parallel.spatial import SpatialGroup
 
+            spatial = SpatialGroup.of(data) if data.spatial > 1 else None
             data.broadcast_module(self.module)
-            train_step, val_step = sharded_train_step(train_step, data), sharded_val_step(val_step, data)
-            # Round up so every rank gets an equal block of rows.
-            batch_size = -(-batch_size // data.size) * data.size
-            logger.info("Data-parallel rank %d of %d on %s (batch_size=%d).", data.rank, data.size,
-                        self.device, batch_size)
+            train_step = sharded_train_step(train_step, data, spatial)
+            val_step = sharded_val_step(val_step, data, spatial)
+            # Round up so every data index gets an equal block of rows.
+            batch_size = -(-batch_size // data.n_data) * data.n_data
+            logger.info("Data-parallel rank %d of %d on %s (batch_size=%d, spatial=%d).",
+                        data.rank, data.size, self.device, batch_size, data.spatial)
         self.make_optimizer()
         n_train = len(self._train_examples)
         batches_per_epoch = opt_cfg.batches_per_epoch or max(

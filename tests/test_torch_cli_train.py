@@ -4,8 +4,8 @@ package's, on the CPU.
 
 - ``create_trainer_using_cli`` builds the same config (equal as JSON) as the
   JAX CLI for the same flags, profiles and run folders;
-- ``--n-devices`` beyond the cards raises, and ``--spatial-sharding``
-  above 1 names its ROADMAP item; ``--cpu --n-devices 2`` trains on two
+- ``--n-devices`` beyond the cards raises, and so does ``--spatial-sharding
+  2`` with no cards (it needs two); ``--cpu --n-devices 2`` trains on two
   gloo ranks (spawned, or under ``torchrun``) into one run folder;
   ``--tensorboard`` and ``--zmq`` reach the trainer, which opens the ZMQ
   sockets on the flags' ports;
@@ -81,11 +81,10 @@ def test_cli_builds_the_jax_config(profile, flags):
 @pytest.mark.parametrize("flags", [["--n-devices", str(max(2, torch.cuda.device_count() + 1))],
                                    ["--spatial-sharding", "2"]])
 def test_multi_card_flags_raise(flags):
-    """More cards than there are (none here) raises, and so does spatial
-    sharding, naming its ROADMAP item."""
-    error, match = ((NotImplementedError, r"queue 1, item 12\(b\)") if "--spatial-sharding" in flags
-                    else ((RuntimeError, ValueError), "No CUDA device|available"))
-    with pytest.raises(error, match=match):
+    """More cards than there are (none here) raises; so does spatial
+    sharding, whose bands go on as many cards (``--n-devices`` defaults to
+    ``--spatial-sharding``)."""
+    with pytest.raises((RuntimeError, ValueError), match="No CUDA device|available"):
         ttrain.create_trainer_using_cli([str(PROFILES / "baseline.centroid.json"), PKG, *flags])
 
 

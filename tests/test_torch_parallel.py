@@ -6,7 +6,9 @@ one thread each, 60 s group timeouts).
 
 - ``make_mesh``: the shapes of the JAX meshes, the same ``ValueError`` for
   6 devices and spatial 4; asking for more devices than there are raises,
-  where JAX builds a smaller mesh; no card and no ``devices`` raises;
+  where JAX builds a smaller mesh; no card and no ``devices`` raises; a
+  spatial sharding's blocks are JAX's ``addressable_shards``, and the
+  trainer's ``(n/s, s)`` mesh JAX's;
 - ``shard_pytree_batch``'s blocks are the rows of JAX's shards;
 - ``sharded_infer_fn`` on ``tests/test_parallel.py``'s conv + sum, the
   same weights (HWIO -> OIHW), 4 entries: 1e-5 relative;
@@ -110,8 +112,20 @@ def test_make_mesh_refuses_like_jax_and_where_jax_truncates():
             tmesh.make_mesh(2)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmesh.make_mesh(devices=["cuda:0", "cuda:0"])
-    with pytest.raises(NotImplementedError, match=r"item 12\(b\)"):
-        tmesh.batch_sharding(tmesh.make_mesh(devices=cpus(4), spatial=2), 1).shard(np.zeros((2, 4, 4, 1)))
+    # A spatial axis splits height into equal parts, as JAX's NamedSharding
+    # does: its addressable shards, device for device; JAX's refusal of a
+    # height the spatial size does not divide.
+    images = np.random.default_rng(1).integers(0, 255, (4, 12, 4, 1), np.uint8)
+    want = jax.device_put(images, jmesh.batch_sharding(jmesh.make_mesh(n_devices=6, spatial=3), 1))
+    got = tmesh.batch_sharding(tmesh.make_mesh(devices=cpus(6), spatial=3), 1).shard(images)
+    assert len(got) == len(want.addressable_shards) == 6
+    for i, shard in enumerate(sorted(want.addressable_shards, key=lambda s: s.device.id)):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(shard.data))
+        np.testing.assert_array_equal(got[i].numpy(), images[shard.index])
+    with pytest.raises(ValueError, match="divisible by 3"):
+        jax.device_put(images[:, :7], jmesh.batch_sharding(jmesh.make_mesh(n_devices=6, spatial=3), 1))
+    with pytest.raises(ValueError, match="equal parts only where it divides 7"):
+        tmesh.batch_sharding(tmesh.make_mesh(devices=cpus(6), spatial=3), 1).shard(images[:, :7])
 
 
 def test_batch_split_equals_the_rows_of_jax_shards():
@@ -383,11 +397,19 @@ def test_labels_pickle_for_spawned_ranks():
 
 
 def test_trainer_refuses_spatial_sharding_and_missing_cards():
+    """Spatial sharding builds an (n/s, s) mesh (n defaults to s), as JAX's
+    trainer does; missing cards and an indivisible mesh raise."""
     labels = _labels_pair()[0]
     cfg = TrainingJobConfig.from_json(_config_json("centroid"))
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 12\(b\)"):
+    for n, s, shape in [(4, 2, (2, 2)), (2, 2, (1, 2)), (None, 3, (1, 3)), (6, 3, (2, 3))]:
+        trainer = tt.Trainer.from_config(cfg, training_labels=labels, validation_labels=labels,
+                                         device="cpu", n_devices=n, spatial_sharding=s)
+        assert trainer.mesh.shape == {"data": shape[0], "spatial": shape[1]}
+        assert trainer.mesh.shape == dict(jmesh.make_mesh(n_devices=n or s, spatial=s).shape)
+        assert trainer.n_devices == shape[0] * shape[1] and trainer.spatial_sharding == s
+    with pytest.raises(ValueError, match="6 devices not divisible by spatial=4"):
         tt.Trainer.from_config(cfg, training_labels=labels, validation_labels=labels, device="cpu",
-                               n_devices=2, spatial_sharding=2)
+                               n_devices=6, spatial_sharding=4)
     n = max(2, torch.cuda.device_count() + 1)
     with pytest.raises((RuntimeError, ValueError), match="No CUDA device|available"):
         tt.Trainer.from_config(cfg, training_labels=labels, validation_labels=labels, n_devices=n)
