@@ -525,12 +525,16 @@ script its total before the ``kernels`` line:
    same NaNs, kernels 2, 3 and 1 launched once a replica a batch (counted
    into the kernels line as "sharded top-down (23a, ...)"); both FPS.
    23b: phase 4b's bf16 bottom-up the same way at 512^2, 4 frames a
-   replica (kernel 4). 23c: ``Trainer.train()`` with ``devices`` naming the
-   mesh (the caller rank 0, a spawned rank 1) against one process on the
+   replica (kernel 4). 23c: two-rank training against one process on the
    card, on phase 7's centroid UNet at full width (global batch 16, 3
-   steps) and a pretrained-encoder ResNet-18 with batch norm throughout
-   and hard keypoint mining (random weights, 512^2, global batch 8, 2
-   steps), one train and one validation step an epoch: per-step losses
+   steps), through ``Trainer.train()`` with ``devices`` naming the mesh
+   (the caller rank 0, a spawned rank 1), and on a pretrained-encoder
+   ResNet-18 with batch norm throughout and hard keypoint mining (random
+   weights, 512^2, global batch 8, 2 steps) on the two ranks phase 24
+   starts before 23c, which open their group once and each call
+   ``Trainer.from_config(..., n_devices=2).train()`` (as ``torchrun``
+   ranks do: one rank start paid, not three), one train and one
+   validation step an epoch: per-step losses
    within 1e-5 relative (the ResNet in float32: its first step's; it runs
    in float64 too, as phase 11a's float64 step does, all steps), weights
    and running statistics within rtol 2e-3, atol 2e-4, one run folder
@@ -540,25 +544,49 @@ script its total before the ``kernels`` line:
    after phase 23: 23c's three runs on a ``(1, 2)`` mesh, each rank a
    horizontal band of every frame and map (the card named twice over gloo;
    and ``cuda:0``, ``cuda:1`` over NCCL where there are two cards), as
-   ``torchrun`` runs ranks: two spawned processes, started during 23c,
-   open a group and each calls ``Trainer.from_config(..., n_devices=2,
-   spatial_sharding=2).train()`` for every run, so their start is paid
-   once; held to 23c's one-process runs (losses: float64 every step
+   ``torchrun`` runs ranks: two spawned processes, started before 23c,
+   train 23c's ResNet runs in their group, then each calls
+   ``Trainer.from_config(..., n_devices=2, spatial_sharding=2).train()``
+   for every run, so their start is paid once; held to 23c's one-process runs (losses: float64 every step
    1e-5, float32 the first step 1e-5 and every step 1e-4; weights and
    statistics rtol 2e-3, atol 2e-4; one run folder, rank 0's), each rank
    saving less for its backward
    than one process; ``train()`` seconds, each rank's peak memory and the
    bytes its first step saves for the backward beside one process's.
 
+25. Users' QuickTime and Matroska videos, after phase 24 (aim: under
+   20 s). 25a: every committed fixture of ``tests/torch_data/containers``
+   (``scripts/make_torch_container_fixtures.py``: cv2's Motion-JPEG in
+   ``.mov`` and ``.mkv``, an ``mjpa`` entry, edit lists that trim the
+   start, begin with an empty edit, cut out a frame, come as version 1 or
+   start between sync samples, and under ``ctts`` offsets; Matroska
+   without Cues, with BlockGroups, an unknown-size cluster, header
+   stripping, the three lacings,
+   ``V_MS/VFW/FOURCC``, a short and a missing ``Duration``; an AVI named
+   ``.mkv`` and Matroska named ``.mov``) through ``MediaVideo``'s card
+   route, picked by content, colour and gray, in order and at random, to
+   cv2's recorded frames with cv2's count and fps; J5 equal to its plain
+   version on every Motion-JPEG frame up to AVI_PLAIN_BLOCKS blocks; the
+   H.264 fixtures (the I_PCM stream in Matroska, and in an ``.mp4`` whose
+   edit list trims 2 frames) meet phase 12's NVDEC refusal exactly where
+   the machine refuses it, else give cv2's frames. 25b: ``sleap-track`` in
+   this process on ``gray_1024.mov`` and ``gray_1024.mkv`` (21b's 8 JPEG
+   payloads, byte for byte) with phase 8b's trained pair, cuDNN
+   deterministic: predictions equal to 21b's on ``gray_1024.avi``, kernels
+   2, 3 and 1 once a batch, J5 once a decoded frame (counted into the
+   kernels line as "CLI gray_1024.mov (25b)" and "... .mkv (25b)"); FPS
+   beside 21b's and ms a 1024^2 frame by stage (demux, entropy decoding,
+   copy in, J5, conversion, copy out) for each container.
+
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
 one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
 one of phase 17's, one of phase 18's, one of phase 19's, one of phase
-20's, one of phase 21's, one of phase 22's, one of phase 23's and one of
-phase 24's; the line
+20's, one of phase 21's, one of phase 22's, one of phase 23's, one of
+phase 24's and one of phase 25's; the line
 before the last is a
 JSON object with each kernel's launches (J1 and J2 from phase 13c's, 19a's
-and 22b's runs, J3 and J4 from 18b's and 18c's, J5 from 21b's, J6 from
-22b's)
+and 22b's runs, J3 and J4 from 18b's and 18c's, J5 from 21b's and 25b's,
+J6 from 22b's)
 (all paths' and per path, 23a/23b's replicas too), error and times; the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -6449,70 +6477,82 @@ def check_avi_fixtures(card):
     return figures, j5_err
 
 
+def mjpeg_stages(data):
+    """ms a Motion-JPEG frame by stage on the card (host entropy decoding,
+    copy in, J5, conversion, copy out, and the whole route), J5 checked
+    against its plain version; returns (split, frame, J5's row numbers)."""
+    from sleap_tpu_torch.io import jpeg, mjpeg, yuv
+
+    dev = torch.device("cuda", 0)
+    frame = mjpeg.parse_frame(data)
+    header = frame.header
+    staging = jpeg._staging(header.blocks)
+    coefs = jpeg.coefficients_host(data, header, staging)
+    c = coefs.to(dev)
+    q = torch.from_numpy(header.quant.astype(np.int32)).to(dev)
+    comp = jpeg.block_components(header).to(dev)
+    samples = mjpeg.idct_cuda(c, q, header)
+    check(torch.equal(samples, mjpeg.idct_plain(c, q, comp)), "J5 equals its plain version")
+    planes = [p[:k.height, :k.width] for p, k in zip(jpeg.planes_of(samples, header),
+                                                    header.components)]
+
+    def convert():
+        if frame.sampling == "gray":
+            return planes[0][..., None].expand(*planes[0].shape, 3).contiguous()
+        return yuv.to_bgr(*planes, sampling=frame.sampling, full_range=frame.full_range)
+
+    out = convert()
+    split = {
+        "entropy_ms": median_ms(lambda: jpeg.coefficients_host(data, header, staging), 5),
+        "copy_in_ms": events_ms(lambda: staging.to(dev, non_blocking=True)),
+        "j5_ms": events_ms(lambda: mjpeg.idct_cuda(c, q, header)),
+        "convert_ms": events_ms(convert),
+        "copy_out_ms": median_ms(lambda: out.cpu(), 5),
+        "frame_ms": median_ms(lambda: mjpeg.decode(data, "cuda").cpu(), 5),
+    }
+    j5_dev = device_ms(lambda: mjpeg.idct_cuda(c, q, header), ["jpeg_idct_ffmpeg_kernel"])
+    j5_plain = time_ms(lambda: mjpeg.idct_plain(c, q, comp), iters=10, warmup=2)
+    # Bound: the coefficients and tables read once, the samples written
+    # once; about 600 integer operations a block (two passes of eight
+    # 1-D transforms) at the float32 rate outside the tensor cores.
+    j5_bytes, j5_ops = nbytes(c, q, samples), 600 * header.blocks
+    numbers = {"ms": split["j5_ms"], "plain_ms": j5_plain, "device_ms": j5_dev,
+               "bytes_ms": j5_bytes / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": j5_ops / F32_OPS_PER_S * 1e3}
+    split.update(j5_device_ms=j5_dev, j5_plain_ms=j5_plain,
+                 j5_bound_ms=max(numbers["bytes_ms"], numbers["ops_ms"]))
+    return split, frame, numbers
+
+
 def time_avi_stages(card):
     """21a: ms a 1024^2 frame by stage (host entropy decoding, copy in, J5,
     conversion, copy out) on the 21b clip's gray frame and on the 1024^2
     4:2:0 JPEG still taken as a Motion-JPEG frame; J5's device ms, plain ms
     and bound. Returns (figures, the J5 row's numbers)."""
-    from sleap_tpu_torch.io import avi, jpeg, mjpeg, yuv
+    from sleap_tpu_torch.io import avi
 
-    dev = torch.device("cuda", 0)
     demux = avi.AviVideo.open(avi_path(AVI_CLIP))
     with open(demux.filename, "rb") as fh:
         frames = {"gray_1024": demux.read(fh, 0)}
     frames["c420_1024"] = read_still("c420_1024.jpg", JPEG_DIR)
     figures, row = {}, None
     for name, data in frames.items():
-        frame = mjpeg.parse_frame(data)
+        split, frame, numbers = mjpeg_stages(data)
         header = frame.header
-        staging = jpeg._staging(header.blocks)
-        coefs = jpeg.coefficients_host(data, header, staging)
-        c = coefs.to(dev)
-        q = torch.from_numpy(header.quant.astype(np.int32)).to(dev)
-        comp = jpeg.block_components(header).to(dev)
-        samples = mjpeg.idct_cuda(c, q, header)
-        check(torch.equal(samples, mjpeg.idct_plain(c, q, comp)), f"21a: J5 equals plain on {name}")
-        planes = [p[:k.height, :k.width] for p, k in zip(jpeg.planes_of(samples, header),
-                                                        header.components)]
-
-        def convert():
-            if frame.sampling == "gray":
-                return planes[0][..., None].expand(*planes[0].shape, 3).contiguous()
-            return yuv.to_bgr(*planes, sampling=frame.sampling, full_range=frame.full_range)
-
-        out = convert()
-        split = {
-            "entropy_ms": median_ms(lambda: jpeg.coefficients_host(data, header, staging), 5),
-            "copy_in_ms": events_ms(lambda: staging.to(dev, non_blocking=True)),
-            "j5_ms": events_ms(lambda: mjpeg.idct_cuda(c, q, header)),
-            "convert_ms": events_ms(convert),
-            "copy_out_ms": median_ms(lambda: out.cpu(), 5),
-            "frame_ms": median_ms(lambda: mjpeg.decode(data, "cuda").cpu(), 5),
-        }
-        j5_dev = device_ms(lambda: mjpeg.idct_cuda(c, q, header), ["jpeg_idct_ffmpeg_kernel"])
-        j5_plain = time_ms(lambda: mjpeg.idct_plain(c, q, comp), iters=10, warmup=2)
-        # Bound: the coefficients and tables read once, the samples written
-        # once; about 600 integer operations a block (two passes of eight
-        # 1-D transforms) at the float32 rate outside the tensor cores.
-        j5_bytes, j5_ops = nbytes(c, q, samples), 600 * header.blocks
-        numbers = {"ms": split["j5_ms"], "plain_ms": j5_plain, "device_ms": j5_dev,
-                   "bytes_ms": j5_bytes / HBM_BYTES_PER_S * 1e3,
-                   "ops_ms": j5_ops / F32_OPS_PER_S * 1e3}
         figures[name] = {**split, "bytes": len(data), "blocks": header.blocks,
-                         "sampling": frame.sampling, "j5_device_ms": j5_dev, "j5_plain_ms": j5_plain,
-                         "j5_bound_ms": max(numbers["bytes_ms"], numbers["ops_ms"])}
+                         "sampling": frame.sampling}
         row = row or numbers  # the row is the gray clip's frame, 21b's
         log(f"21a Motion-JPEG {name} ({len(data)} bytes, {header.blocks} blocks, "
             f"{frame.sampling}), ms a frame: entropy (host C) {split['entropy_ms']:.3f}, copy in "
-            f"{split['copy_in_ms']:.3f}, J5 {split['j5_ms']:.4f} (device {j5_dev:.4f}, plain "
-            f"{j5_plain:.3f}, bound {figures[name]['j5_bound_ms']:.4f}), conversion "
+            f"{split['copy_in_ms']:.3f}, J5 {split['j5_ms']:.4f} (device {split['j5_device_ms']:.4f}, "
+            f"plain {split['j5_plain_ms']:.3f}, bound {split['j5_bound_ms']:.4f}), conversion "
             f"{split['convert_ms']:.4f}, copy out {split['copy_out_ms']:.3f}; whole card route "
             f"{split['frame_ms']:.3f} ({card})")
     row["colour"] = figures["c420_1024"]
     return figures, row
 
 
-def check_avi_cli(launches, card, fps_12b, fps_13c):
+def check_avi_cli(launches, card, fps_12b, fps_13c, keep):
     """21b: ``sleap-track clip.avi`` (the committed 1024^2 gray Motion-JPEG
     AVI) with phase 8b's trained top-down pair in a fresh process on the
     card, against ``load_model`` in this process on the frames the card
@@ -6520,7 +6560,8 @@ def check_avi_cli(launches, card, fps_12b, fps_13c):
     3 and 1 once a batch, J5 once a decoded frame. Both sides run cuDNN's
     deterministic algorithms: at its defaults they differ by a float32 ulp
     of the points (6.1e-5 px), too near CLI_TOL (as in 20c). Returns the
-    figures it prints."""
+    figures it prints; ``keep["avi_labels"]`` gets the CLI's predictions,
+    phase 25b's reference."""
     import sleap_tpu_torch
     from sleap_tpu_torch.io.slp import read_labels
     from sleap_tpu_torch.io.video import Video
@@ -6556,6 +6597,7 @@ def check_avi_cli(launches, card, fps_12b, fps_13c):
               f"{run.stderr[-2000:]}")
         result = json.loads(run.stdout.strip().splitlines()[-1])
         got = read_labels(out)
+    keep["avi_labels"] = got
     n_batches = -(-n // AVI_BATCH)
     counts = result["launches"]
     for kernel in ("local_peaks", "crop_unit", "global_peaks"):
@@ -6580,13 +6622,13 @@ def check_avi_cli(launches, card, fps_12b, fps_13c):
     return figures
 
 
-def check_avi_videos(launches, card, fps_12b, fps_13c):
+def check_avi_videos(launches, card, fps_12b, fps_13c, keep):
     """Phase 21: 21a and 21b, each part's seconds printed. Returns (figures,
-    J5's (max |err|, row numbers))."""
+    J5's (max |err|, row numbers)); ``keep`` gets 21b's predictions."""
     fixtures, j5_err = timed_phase("21a fixtures", check_avi_fixtures, card)
     stages, j5_row = timed_phase("21a stages", time_avi_stages, card)
     launches["jpeg_idct_ffmpeg"] = {}
-    cli = timed_phase("21b", check_avi_cli, launches, card, fps_12b, fps_13c)
+    cli = timed_phase("21b", check_avi_cli, launches, card, fps_12b, fps_13c, keep)
     return {"fixtures": fixtures, "stages": stages, "cli": cli}, (j5_err, j5_row)
 
 
@@ -7074,15 +7116,19 @@ def held_to_one_process(what, name, float64, trainer_loss, got, single, folder, 
     return rel, margin, n_stats
 
 
-def check_data_parallel_training(meshes, card, singles):
+def check_data_parallel_training(meshes, card, singles, groups):
     """23c: each run of ``dp_runs`` trained by one process on the card and
     by two ranks over each mesh, held by ``held_to_one_process``; the
     one-process runs' losses, weights (on the CPU), seconds and peak memory
-    are kept in ``singles`` for phase 24."""
+    are kept in ``singles`` for phase 24. The first run's ranks are
+    ``Trainer.train()``'s own (the caller and a spawned rank 1); the later
+    runs go to ``groups`` (``start_spatial_ranks``'), each mesh's pair
+    opening its group once, as ``torchrun`` ranks do, so their start
+    (~17 s a spawned rank) is paid once."""
     from sleap_tpu_torch.parallel.distributed import backend_for
 
-    out = {}
-    for name, float64 in dp_runs():
+    out, runs = {}, dp_runs()
+    for k, (name, float64) in enumerate(runs):
         run = f"{name}{', float64' if float64 else ''}"
         with tempfile.TemporaryDirectory() as root:
             torch.cuda.synchronize()
@@ -7096,43 +7142,59 @@ def check_data_parallel_training(meshes, card, singles):
                             "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
                             "saved_gib": saved["count"]["gib"]}
             del single
+            if k:
+                continue
             for mesh_name, mesh in meshes.items():
                 folder = os.path.join(root, mesh_name.replace(" ", "_"))
                 backend = backend_for(mesh.data_devices)
-                log(f"23c {run}: 2 ranks on {[str(d) for d in mesh.data_devices]} over {backend}")
+                log(f"23c {run}: 2 ranks on {[str(d) for d in mesh.data_devices]} over {backend}, "
+                    f"rank 1 spawned by train()")
                 dp, dp_s = dp_train(name, folder, mesh.data_devices, float64)
-                what = f"23c {run} ({mesh_name})"
                 loss = [r["loss"] for r in dp.log_rows]
-                rel, margin, n_stats = held_to_one_process(what, name, float64, loss,
-                                                           dp.module.state_dict(), singles[run],
-                                                           folder)
-                single_s = singles[run]["train_s"]
-                out[f"{run}, {mesh_name}"] = {
-                    "backend": backend, "steps": len(loss), "global_batch": DP_WORKLOADS[name][1],
-                    "loss": loss, "loss_rel": rel, "running_stats": n_stats,
-                    "param_margin": margin, "train_s": dp_s, "epoch_s": dp.epoch_seconds,
-                    "single_train_s": single_s, "single_epoch_s": singles[run]["epoch_s"]}
-                log(f"{what}: losses {loss}, relative to one process {rel}; train() {dp_s:.1f} s "
-                    f"(one process {single_s:.1f} s); epochs {[round(s, 3) for s in dp.epoch_seconds]} "
-                    f"s vs {[round(s, 3) for s in singles[run]['epoch_s']]} s ({card})")
+                out[f"{run}, {mesh_name}"] = held_data_parallel(
+                    f"23c {run} ({mesh_name})", run, backend, loss, dp.module.state_dict(), folder,
+                    dp_s, dp.epoch_seconds, singles, card)
                 del dp
             torch.cuda.empty_cache()
+    for group in groups:
+        results = group_results(group, "23c", "dp")
+        for run, row in results[0].items():
+            out[f"{run}, {group['mesh']}"] = held_data_parallel(
+                f"23c {run} ({group['mesh']}, started ranks)", run, group["backend"], row["loss"],
+                row["state"], row["folder"], row["train_s"], row["epoch_s"], singles, card)
     return out
 
 
+def held_data_parallel(what, run, backend, loss, state, folder, seconds, epoch_s, singles, card):
+    """A two-rank run of 23c held to its one-process run; its figures."""
+    float64 = run.endswith(", float64")
+    name = run[:-len(", float64")] if float64 else run
+    rel, margin, n_stats = held_to_one_process(what, name, float64, loss, state, singles[run], folder)
+    single = singles[run]
+    log(f"{what}: losses {loss}, relative to one process {rel}; train() {seconds:.1f} s (one "
+        f"process {single['train_s']:.1f} s); epochs {[round(s, 3) for s in epoch_s]} s vs "
+        f"{[round(s, 3) for s in single['epoch_s']]} s ({card})")
+    return {"backend": backend, "steps": len(loss), "global_batch": DP_WORKLOADS[name][1],
+            "loss": loss, "loss_rel": rel, "running_stats": n_stats, "param_margin": margin,
+            "train_s": seconds, "epoch_s": epoch_s, "single_train_s": single["train_s"],
+            "single_epoch_s": single["epoch_s"]}
+
+
 def check_parallel(td, bu, frames, td_wrappers, hwcs_wrappers, launches, card, singles,
-                   before_training=lambda: None):
+                   before_training):
     """Phase 23: sharded inference (23a, 23b) and data-parallel training
     (23c) on each mesh of ``parallel_meshes``; ``before_training`` is called
-    between them (phase 24's ranks start up then)."""
+    between them (phase 24's ranks start up then) and returns the groups of
+    ranks that train 23c's later runs."""
     meshes = parallel_meshes()
     for mesh_name, mesh in meshes.items():
         log(f"phase 23 mesh {mesh_name}: {mesh.shape}, data devices "
             f"{[str(d) for d in mesh.data_devices]}")
     inference = check_sharded_inference(td, bu, frames, td_wrappers, hwcs_wrappers, launches,
                                         meshes)
-    before_training()
-    return {"inference": inference, "training": check_data_parallel_training(meshes, card, singles)}
+    groups = before_training()
+    return {"inference": inference,
+            "training": check_data_parallel_training(meshes, card, singles, groups)}
 
 
 # --------------------------------------------------------------------------- #
@@ -7160,73 +7222,125 @@ def spatial_meshes():
     return meshes
 
 
-def spatial_rank(rank, cards, backend, tmp, go):
-    """A rank of phase 24, as ``torchrun`` runs one: a process of a group
-    that ``Trainer.train()`` joins. It starts up (CUDA context, imports)
-    while 23c runs, waits for ``go``, then trains each run of ``dp_runs``
-    with ``n_devices=2, spatial_sharding=2``; its seconds and peak memory,
-    and rank 0's losses, weights and run folder, are pickled into ``tmp``
-    (a traceback on failure, and exit code 1)."""
+def spatial_rank(rank, cards, backend, tmp, go, staged):
+    """A rank of phases 23c and 24, as ``torchrun`` runs one: a process of a
+    group that ``Trainer.train()`` joins. It starts up (CUDA context,
+    imports) while 23c's first runs go, waits for ``go["dp"]``, opens its
+    group and trains 23c's later runs with ``n_devices=2``, sets
+    ``staged``, waits for ``go["spatial"]`` and trains each run of
+    ``dp_runs`` with ``n_devices=2, spatial_sharding=2``. Each stage's
+    seconds and peak memory, and rank 0's losses, weights and run folder,
+    are pickled into ``tmp`` (a traceback on failure, and exit code 1)."""
     import pickle
     import traceback
     from datetime import timedelta
 
     import torch.distributed as dist
 
-    out = {}
+    failed = False
     try:
         os.environ["LOCAL_RANK"] = str(cards[rank])
         torch.cuda.set_device(cards[rank])
         torch.zeros(1, device="cuda")
         importlib.import_module("torch._dynamo")  # the optimizer's first step imports it
         importlib.import_module("sleap_tpu_torch.training.trainer")
-        if not go.wait(SPATIAL_TIMEOUT):
-            raise RuntimeError("phase 24: no go")
-        dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
-                                world_size=2, rank=rank, timeout=timedelta(seconds=SPATIAL_TIMEOUT))
-        for name, float64 in dp_runs():
-            run = f"{name}{', float64' if float64 else ''}"
-            folder = os.path.join(tmp, f"run{len(out)}")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            saved = {}
-            trainer, seconds = dp_train(name, folder, None, float64, saved, n_devices=2,
-                                        spatial_sharding=2)
-            row = {"train_s": seconds, "epoch_s": trainer.epoch_seconds,
-                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                   "saved_gib": saved["count"]["gib"]}
-            if rank == 0:
-                row.update(loss=[r["loss"] for r in trainer.log_rows], folder=folder,
-                           state={k: v.cpu() for k, v in trainer.module.state_dict().items()})
-            out[run] = row
-            del trainer
-            torch.cuda.empty_cache()
-        result = (True, out)
-    except BaseException:
-        result = (False, traceback.format_exc())
+        for stage, spatial, runs in (("dp", 1, dp_runs()[1:]), ("spatial", 2, dp_runs())):
+            out = {}
+            try:
+                if not go[stage].wait(SPATIAL_TIMEOUT):
+                    raise RuntimeError(f"ranks: no go for {stage}")
+                if not dist.is_initialized():
+                    dist.init_process_group(backend, timeout=timedelta(seconds=SPATIAL_TIMEOUT),
+                                            init_method="file://" + os.path.join(tmp, "rendezvous"),
+                                            world_size=2, rank=rank)
+                for name, float64 in runs:
+                    run = f"{name}{', float64' if float64 else ''}"
+                    folder = os.path.join(tmp, f"{stage}{len(out)}")
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    saved = {}
+                    trainer, seconds = dp_train(name, folder, None, float64, saved, n_devices=2,
+                                                spatial_sharding=spatial)
+                    row = {"train_s": seconds, "epoch_s": trainer.epoch_seconds,
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "saved_gib": saved["count"]["gib"]}
+                    if rank == 0:
+                        row.update(loss=[r["loss"] for r in trainer.log_rows], folder=folder,
+                                   state={k: v.cpu() for k, v in trainer.module.state_dict().items()})
+                    out[run] = row
+                    del trainer
+                    torch.cuda.empty_cache()
+                result = (True, out)
+            except BaseException:
+                result, failed = (False, traceback.format_exc()), True
+            with open(os.path.join(tmp, f"rank{rank}_{stage}.pkl"), "wb") as f:
+                pickle.dump(result, f)
+            if stage == "dp":
+                staged.set()
+            if failed:
+                break
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(result, f)
-    if not result[0]:
+    if failed:
         sys.exit(1)
 
 
 def start_spatial_ranks():
-    """Phase 24's two ranks of each mesh of ``spatial_meshes``, spawned to
-    start up and wait: (mesh name, backend, folder, go event, processes)."""
+    """The two ranks of each mesh of ``spatial_meshes`` (23c's later runs,
+    then phase 24's), spawned to start up and wait: each group a dict of
+    its mesh name, backend, folder, go events, staged events and
+    processes."""
     ctx = torch.multiprocessing.get_context("spawn")
     groups = []
     for mesh_name, cards, backend in spatial_meshes():
         tmp = tempfile.mkdtemp(prefix="chip_smoke_24_")
-        go = ctx.Event()
-        procs = [ctx.Process(target=spatial_rank, args=(r, cards, backend, tmp, go), daemon=True)
-                 for r in range(2)]
+        go = {"dp": ctx.Event(), "spatial": ctx.Event()}
+        staged = [ctx.Event() for _ in range(2)]
+        procs = [ctx.Process(target=spatial_rank, args=(r, cards, backend, tmp, go, staged[r]),
+                             daemon=True) for r in range(2)]
         for p in procs:
             p.start()
-        groups.append((mesh_name, backend, tmp, go, procs))
+        groups.append({"mesh": mesh_name, "backend": backend, "tmp": tmp, "go": go,
+                       "staged": staged, "procs": procs})
     return groups
+
+
+def group_results(group, phase, stage):
+    """Start a group's ``stage``, wait for both ranks and read their pickled
+    results (rank 0's first)."""
+    import pickle
+
+    group["go"][stage].set()
+    for r, p in enumerate(group["procs"]):
+        if stage == "dp":
+            group["staged"][r].wait(SPATIAL_TIMEOUT)
+        else:
+            p.join(SPATIAL_TIMEOUT)
+    results = []
+    for r, p in enumerate(group["procs"]):
+        path = os.path.join(group["tmp"], f"rank{r}_{stage}.pkl")
+        check(os.path.exists(path), f"{phase} ({group['mesh']}): rank {r} ended with exit code "
+              f"{p.exitcode} and no result")
+        with open(path, "rb") as f:
+            ok, value = pickle.load(f)
+        check(ok, f"{phase} ({group['mesh']}): rank {r} failed:\n{value}")
+        results.append(value)
+    return results
+
+
+def stop_ranks(groups):
+    """Release every group's ranks (each go set), join them, kill any that
+    hang, and remove their folders."""
+    for group in groups:
+        for event in group["go"].values():
+            event.set()
+        for p in group["procs"]:
+            p.join(5.0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(group["tmp"], ignore_errors=True)
 
 
 def check_spatial_training(groups, singles, card):
@@ -7235,23 +7349,11 @@ def check_spatial_training(groups, singles, card):
     ``spatial_meshes``, held to 23c's one-process run by
     ``held_to_one_process``; ``train()`` seconds and each rank's peak
     memory beside one process's."""
-    import pickle
-
     out = {}
     try:
-        for mesh_name, backend, tmp, go, procs in groups:
-            go.set()
-            for p in procs:
-                p.join(SPATIAL_TIMEOUT)
-            results = []
-            for r, p in enumerate(procs):
-                path = os.path.join(tmp, f"rank{r}.pkl")
-                check(os.path.exists(path), f"24 ({mesh_name}): rank {r} ended with exit code "
-                      f"{p.exitcode} and no result")
-                with open(path, "rb") as f:
-                    ok, value = pickle.load(f)
-                check(ok, f"24 ({mesh_name}): rank {r} failed:\n{value}")
-                results.append(value)
+        for group in groups:
+            mesh_name, backend = group["mesh"], group["backend"]
+            results = group_results(group, "24", "spatial")
             for run, row in results[0].items():
                 float64 = run.endswith(", float64")
                 name = run[:-len(", float64")] if float64 else run
@@ -7280,15 +7382,185 @@ def check_spatial_training(groups, singles, card):
                 check(max(saved) < single["saved_gib"],
                       f"{what}: a band saves less for the backward than the whole frame")
     finally:
-        for _, _, tmp, go, procs in groups:
-            go.set()
-            for p in procs:
-                p.join(5.0)
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-            shutil.rmtree(tmp, ignore_errors=True)
+        stop_ranks(groups)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Phase 25: users' QuickTime and Matroska videos (edit lists, Motion-JPEG
+# through J5, H.264 in Matroska to NVDEC)
+# --------------------------------------------------------------------------- #
+
+CONTAINER_DIR = ("tests", "torch_data", "containers")
+#: 25b's clips: 21b's 8 JPEG payloads in QuickTime and Matroska.
+CONTAINER_CLIPS = ("gray_1024.mov", "gray_1024.mkv")
+
+
+def container_path(name) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *CONTAINER_DIR, name)
+
+
+def container_manifest() -> dict:
+    with open(container_path("manifest.json")) as fh:
+        return json.load(fh)["files"]
+
+
+def check_container_fixtures(card, mode):
+    """25a: every committed QuickTime/ISO-BMFF and Matroska fixture through
+    ``MediaVideo``'s card route (colour BGR and gray) to the manifest's cv2
+    frames, in order and at random, with cv2's frame count and fps; the
+    route picked by content (an AVI named .mkv, Matroska named .mov); J5
+    bitwise against its plain version on every Motion-JPEG frame of up to
+    AVI_PLAIN_BLOCKS blocks. The H.264 fixtures (Matroska, an edit list
+    trimming an .mp4) meet phase 12's refusal where NVDEC is refused
+    (:func:`check_refused`), else hold cv2's frames too. Returns (figures,
+    J5's max |err|)."""
+    from sleap_tpu_torch.io import avi, jpeg, mjpeg, mkv, mp4
+    from sleap_tpu_torch.io.video import MediaVideo, container_of
+
+    manifest, dev = container_manifest(), torch.device("cuda", 0)
+    figures = {"files": 0, "frames_read": 0, "j5_frames_vs_plain": 0, "h264": {}}
+    j5_err = 0
+    for name, want in sorted(manifest.items()):
+        path = container_path(name)
+        with open(path, "rb") as fh:
+            kind = container_of(fh.read(12))
+        n = want["readable"]
+        order = list(range(n)) + [int(i) for i in np.random.default_rng(0).permutation(n)]
+        if name.startswith("h264"):
+            demux = (mkv.MkvVideo if kind == "matroska" else mp4.Mp4Video).open(path)
+            check((demux.frames, demux.fps, demux.readable) == (want["frames"], want["fps"], n),
+                  f"25a: {name} has cv2's count, fps and readable frames")
+            if mode == "refused":
+                check_refused(path, demux, f"25a {name}")
+                figures["h264"][name] = "refused: cuvidCreateDecoder, CUDA_ERROR_OUT_OF_MEMORY"
+                continue
+            video = MediaVideo(path, grayscale=False, bgr=False)
+            for i in order:
+                check(sha256(video.get_frame(i)) == want["bgr"][i], f"25a: frame {i} of {name} is cv2's")
+            figures["h264"][name] = f"decoded: {len(order)} reads equal to cv2's"
+            figures["frames_read"] += len(order)
+            continue
+        colour, gray = MediaVideo(path, grayscale=False, bgr=False), MediaVideo(path, grayscale=True)
+        check((colour.frames, colour.fps) == (want["frames"], want["fps"]),
+              f"25a: {name} has cv2's count and fps {(colour.frames, colour.fps)}")
+        for i in order:
+            check(sha256(colour.get_frame(i)) == want["bgr"][i]
+                  and sha256(gray.get_frame(i)) == want["gray"][i], f"25a: frame {i} of {name} is cv2's")
+        reader = colour._reader
+        check(isinstance(reader, avi.AviReader if kind == "avi" else mjpeg.MotionJpegReader),
+              f"25a: {name} ({kind}) read by {type(reader).__name__}")
+        figures["frames_read"] += 2 * len(order)
+        figures["files"] += 1
+        demux = reader.demux
+        height = abs(demux.height)  # the container's: strf, the sample entry or PixelHeight
+        with open(path, "rb") as fh:
+            for i in range(n):
+                data = demux.read(fh, i)
+                frame = mjpeg.parse_frame(data, height)
+                if frame.header.blocks > AVI_PLAIN_BLOCKS:
+                    continue
+                coefs = jpeg.coefficients_host(data, frame.header).to(dev)
+                quant = torch.from_numpy(frame.header.quant.astype(np.int32)).to(dev)
+                card_out = mjpeg.idct_cuda(coefs, quant, frame.header)
+                plain = mjpeg.idct_plain(coefs, quant, jpeg.block_components(frame.header).to(dev))
+                j5_err = max(j5_err, max_abs(card_out, plain))
+                check(torch.equal(card_out, plain), f"25a: J5 equals its plain version on {name} {i}")
+                figures["j5_frames_vs_plain"] += 1
+        colour.reset()
+        gray.reset()
+    check("cv2" not in sys.modules, "25a: the card route imported cv2")
+    figures["j5_max_abs_err"] = j5_err
+    log(f"25a {figures['files']} QuickTime/ISO-BMFF and Matroska Motion-JPEG fixtures on the card: "
+        f"{figures['frames_read']} reads equal to cv2's (FFmpeg) frames in order and at random, "
+        f"counts and fps equal; J5 equals its plain version on {figures['j5_frames_vs_plain']} "
+        f"frames; H.264: {figures['h264']} ({card})")
+    return figures, j5_err
+
+
+def check_container_cli(launches, card, avi_labels, fps_21b):
+    """25b: ``sleap-track`` (in this process) on ``gray_1024.mov`` and
+    ``gray_1024.mkv`` with phase 8b's trained top-down pair, cuDNN's
+    algorithms deterministic: the card decodes cv2's frames, and the
+    predictions equal 21b's on ``gray_1024.avi`` (the same JPEG bytes)
+    exactly; kernels 2, 3 and 1 once a batch, J5 once a decoded frame (and
+    the test frame); FPS beside 21b's; ms a 1024^2 frame by stage (demux,
+    entropy decoding, copy in, J5, conversion, copy out), the AVI's demux
+    beside. Returns the figures it prints."""
+    from sleap_tpu_torch.io import avi, mjpeg
+    from sleap_tpu_torch.io.slp import read_labels
+    from sleap_tpu_torch.io.video import Video
+    from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = os.path.join(here, ".convergence_runs")
+    centroid, instance = (os.path.join(runs, f) for f in CLI_TRAINED[:2])
+    wrappers = {"local_peaks": cuda_peaks.local_peaks_cuda, "crop_unit": cuda_crops.crop_unit_cuda,
+                "global_peaks": cuda_peaks.global_peaks_cuda, "jpeg_idct_ffmpeg": mjpeg.idct_cuda}
+    manifest = container_manifest()
+    figures = {}
+    demuxers = {AVI_CLIP: avi.AviVideo.open(avi_path(AVI_CLIP))}
+    for name in CONTAINER_CLIPS:
+        path, want = container_path(name), manifest[name]
+        video = Video.from_filename(path)
+        decoded = video[:]
+        n = len(decoded)
+        check(video.shape == (n, IMG, IMG, 1) and n == want["readable"]
+              and all(sha256(f) == h for f, h in zip(decoded, want["gray"])),
+              f"25b: the card decodes {name} ({video.shape}) to cv2's gray frames")
+        demuxers[name] = video.backend._reader.demux
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        with tempfile.TemporaryDirectory() as root:
+            out = os.path.join(root, name + ".predictions.slp")
+            try:
+                seconds, counts = cli_run(
+                    [path, "-m", centroid, "-m", instance, "--peak_threshold", "0.05", "--batch_size",
+                     str(AVI_BATCH), "--max_instances", str(MAX_INSTANCES), "--verbosity", "none",
+                     "-o", out], wrappers)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            got = read_labels(out)
+        n_batches = -(-n // AVI_BATCH)
+        for kernel in ("local_peaks", "crop_unit", "global_peaks"):
+            check(counts[kernel] == n_batches,
+                  f"25b: {kernel} launched {counts[kernel]} times on {name}, want one a batch")
+            launches[kernel][f"CLI {name} (25b)"] = counts[kernel]
+        check(counts["jpeg_idct_ffmpeg"] >= n, f"25b: J5 launched {counts['jpeg_idct_ffmpeg']} times "
+              f"for {n} frames of {name}")
+        launches["jpeg_idct_ffmpeg"][f"CLI {name} (25b)"] = counts["jpeg_idct_ffmpeg"]
+        d_xy, d_val = compare_predictions(got, avi_labels, 0.0, 0.0,
+                                          f"25b: sleap-track {name} vs 21b's {AVI_CLIP}")
+        insts = sum(len(lf.instances) for lf in got)
+        figures[name] = {"frames": n, "cli_s": seconds, "cli_fps": n / seconds, "launches": counts,
+                         "instances": insts, "max_abs_dxy": d_xy, "max_abs_dscore": d_val}
+        log(f"25b sleap-track {name} ({n} Motion-JPEG frames of {IMG}^2 gray) with the trained pair "
+            f"in this process: {seconds:.3f} s = {n / seconds:.1f} FPS (21b {AVI_CLIP} in a fresh "
+            f"process: {fps_21b:.1f} FPS); {insts} instances equal to 21b's exactly; launches "
+            f"{counts} ({card})")
+    stages = {}
+    for name, demux in demuxers.items():
+        with open(demux.filename, "rb") as fh:
+            data = demux.read(fh, 0)
+            demux_ms = median_ms(lambda: demux.read(fh, 0), 5)
+        split, frame, _ = mjpeg_stages(data)
+        stages[name] = {"demux_ms": demux_ms, **split}
+        log(f"25b {name} frame 0 ({len(data)} bytes, {frame.header.blocks} blocks), ms a frame: "
+            f"demux {demux_ms:.4f}, entropy (host C) {split['entropy_ms']:.3f}, copy in "
+            f"{split['copy_in_ms']:.3f}, J5 {split['j5_ms']:.4f} (device "
+            f"{split['j5_device_ms']:.4f}), conversion {split['convert_ms']:.4f}, copy out "
+            f"{split['copy_out_ms']:.3f}; whole decode {split['frame_ms']:.3f} ({card})")
+    figures["stages"] = stages
+    figures["fps_21b"] = fps_21b
+    return figures
+
+
+def check_containers(launches, card, mode, avi_labels, fps_21b):
+    """Phase 25: 25a and 25b, each part's seconds printed. Returns (figures,
+    J5's max |err| over 25a)."""
+    fixtures, j5_err = timed_phase("25a", check_container_fixtures, card, mode)
+    cli = timed_phase("25b", check_container_cli, launches, card, avi_labels, fps_21b)
+    return {"fixtures": fixtures, "cli": cli}, j5_err
 
 
 def main() -> int:
@@ -7509,7 +7781,7 @@ def main() -> int:
         # through J5, raw frames), and sleap-track clip.avi.
         fps_12b = media["cli"].get("cli_fps")
         avi_videos, j5 = timed_phase("21", check_avi_videos, launches, card, fps_12b,
-                                     jpeg_cli["cli_fps"])
+                                     jpeg_cli["cli_fps"], kept)
 
         # Phase 22: every still cv2 reads: the TIFF and JPEG layouts of this
         # slice on the card (J2's new modes, J6, host CCITT), and top-down
@@ -7520,13 +7792,24 @@ def main() -> int:
         # replicas) and training (23c, two ranks); phase 24's ranks start up
         # during 23c.
         singles, spatial_groups = {}, []
+
+        def start_ranks():
+            spatial_groups.extend(start_spatial_ranks())
+            return spatial_groups
+
         parallel = timed_phase("23", check_parallel, td, bu[0], frames, td_wrappers, hwcs_wrappers,
-                               launches, card, singles,
-                               lambda: spatial_groups.extend(start_spatial_ranks()))
+                               launches, card, singles, start_ranks)
 
         # Phase 24: spatially sharded training (two ranks, a band each),
         # against 23c's one-process runs.
         spatial = timed_phase("24", check_spatial_training, spatial_groups, singles, card)
+
+        # Phase 25: users' QuickTime and Matroska videos on the card (edit
+        # lists, Motion-JPEG through J5, H.264 in Matroska to NVDEC), and
+        # sleap-track clip.mov / clip.mkv against 21b's clip.avi.
+        containers, j5_25a = timed_phase("25", check_containers, launches, card, nvdec_state,
+                                         kept.pop("avi_labels"), avi_videos["cli"]["cli_fps"])
+        j5 = (max(j5[0], j5_25a), j5[1])
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -7563,6 +7846,7 @@ def main() -> int:
     print(json.dumps({"all_stills": all_stills, "card": card}), flush=True)
     print(json.dumps({"parallel": parallel, "card": card}), flush=True)
     print(json.dumps({"spatial": spatial, "card": card}), flush=True)
+    print(json.dumps({"containers": containers, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -336,9 +336,19 @@ def written_record(name):
     return video.frames, video.fps, frames
 
 
-def write_records():
+def cv2_versions() -> dict:
+    """cv2's version and those of the FFmpeg libraries it was built with."""
     import cv2
 
+    build = cv2.getBuildInformation()
+    versions = {"cv2": cv2.__version__}
+    for lib in ("avcodec", "avformat", "swscale"):
+        line = next((ln for ln in build.splitlines() if ln.strip().startswith(lib + ":")), "")
+        versions[lib] = line.split("(")[-1].rstrip(")") if "(" in line else line.strip()
+    return versions
+
+
+def write_records():
     files = {}
     for name in sorted(os.listdir(OUT)):
         if not name.endswith(".avi"):
@@ -352,13 +362,8 @@ def write_records():
         files[name] = {"frames": count, "fps": fps, "readable": len(frames),
                        "shape": list(frames[0].shape), "source": source,
                        "bgr": [digest(f) for f in frames], "gray": [digest(f[..., 0]) for f in frames]}
-    build = cv2.getBuildInformation()
-    versions = {"cv2": cv2.__version__}
-    for lib in ("avcodec", "avformat", "swscale"):
-        line = next((ln for ln in build.splitlines() if ln.strip().startswith(lib + ":")), "")
-        versions[lib] = line.split("(")[-1].rstrip(")") if "(" in line else line.strip()
     with open(os.path.join(OUT, "manifest.json"), "w") as fh:
-        json.dump({"versions": versions, "files": files}, fh, indent=1, sort_keys=True)
+        json.dump({"versions": cv2_versions(), "files": files}, fh, indent=1, sort_keys=True)
         fh.write("\n")
 
 

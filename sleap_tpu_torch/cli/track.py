@@ -12,8 +12,9 @@ Where it differs:
 - it runs on the card (``"cuda"``) unless ``--cpu`` asks for the CPU; there
   is no fallback;
 - media videos are decoded where ``--video.device`` says, by default on
-  the device the networks run on: the card reads H.264 ``.mp4`` and
-  ``.mov`` through NVDEC, the CPU any format cv2 reads;
+  the device the networks run on: the card reads Motion-JPEG in AVI,
+  QuickTime/MP4 and Matroska files, raw AVI frames, and H.264 in MP4 and
+  Matroska through NVDEC (each by content), the CPU any format cv2 reads;
 - ``--n-devices N`` runs each batch data-parallel over N replicas, as the
   JAX CLI does: on the first N cards, or with ``--cpu`` on the CPU N times
   (:func:`~sleap_tpu_torch.parallel.distributed.make_sharded_predictor`;
@@ -59,9 +60,10 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
     parser.add_argument(
         "--video.device", dest="video_device", choices=("cuda", "cpu"), default=None,
-        help="Where media videos (.mp4, .avi, ...) are decoded: 'cuda' reads AVI files of "
-        "Motion-JPEG (decoded as OpenCV's FFmpeg backend decodes it) or of uncompressed frames, "
-        "and H.264 .mp4 and .mov through NVDEC; 'cpu' reads any format cv2 reads. Defaults to "
+        help="Where media videos (.mp4, .mov, .mkv, .avi, ...) are decoded: 'cuda' reads, by "
+        "content, Motion-JPEG in AVI, QuickTime/MP4 and Matroska files (as OpenCV's FFmpeg "
+        "backend decodes it, edit lists applied), AVI files of uncompressed frames, and H.264 in "
+        "MP4/QuickTime and Matroska through NVDEC; 'cpu' reads any format cv2 reads. Defaults to "
         "the device the networks run on.",
     )
     parser.add_argument(

@@ -15,8 +15,9 @@ folder (``outputs.runs_folder``/``run_name``) ends up holding
 - it trains on the card (``"cuda"``) unless ``--cpu`` asks for the CPU;
   there is no fallback;
 - the labels' media videos are decoded where ``--video.device`` says, by
-  default on the device it trains on: the card reads H.264 ``.mp4`` and
-  ``.mov`` through NVDEC, the CPU any format cv2 reads;
+  default on the device it trains on: the card reads Motion-JPEG in AVI,
+  QuickTime/MP4 and Matroska files, raw AVI frames, and H.264 in MP4 and
+  Matroska through NVDEC (each by content), the CPU any format cv2 reads;
 - ``--n-devices N`` trains data-parallel as the JAX CLI does, one process
   per device: on the first N cards, or with ``--cpu`` on the CPU N times;
   the caller spawns the other ranks (under ``torchrun`` each process is a
@@ -65,9 +66,11 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
     parser.add_argument(
         "--video.device", dest="video_device", choices=("cuda", "cpu"), default=None,
-        help="Where media videos (.mp4, .avi, ...) are decoded: 'cuda' reads H.264 .mp4 and "
-        ".mov through NVDEC, 'cpu' reads any format cv2 reads. Defaults to the device the "
-        "networks run on.",
+        help="Where media videos (.mp4, .mov, .mkv, .avi, ...) are decoded: 'cuda' reads, by "
+        "content, Motion-JPEG in AVI, QuickTime/MP4 and Matroska files (as OpenCV's FFmpeg "
+        "backend decodes it, edit lists applied), AVI files of uncompressed frames, and H.264 in "
+        "MP4/QuickTime and Matroska through NVDEC; 'cpu' reads any format cv2 reads. Defaults to "
+        "the device the networks run on.",
     )
     parser.add_argument(
         "--n-devices", type=int, default=None, dest="n_devices",

@@ -209,6 +209,15 @@ MJPEG_FOURCCS = frozenset({"MJPG", "LJPG", "DMB1", "MJPA", "JR24", "ACDV", "QIVG
                            "CJPG", "IJPG", "MTSJ", "ZJPG", "MMJP"})
 #: Fourccs of raw 8-bit gray frames.
 GRAY_FOURCCS = frozenset({"Y800", "GREY", "Y8  "})
+
+
+def bitmap_info(header: bytes) -> Tuple[int, int, int, str]:
+    """A BITMAPINFOHEADER's (width, signed height, bits a pixel, compression
+    fourcc): AVI's ``strf`` and Matroska's ``V_MS/VFW/FOURCC`` private data."""
+    width, height, _planes, bit_count, compression = struct.unpack_from("<iiHH4s", header, 4)
+    return width, height, bit_count, compression.decode("latin-1")
+
+
 @dataclass
 class AviVideo:
     """An AVI file's first video stream: its format (``strf``'s
@@ -290,13 +299,13 @@ class AviVideo:
         scale, rate, _start, length = struct.unpack_from("<IIII", strh, 20)
         if not (scale and rate):  # avidec.c's repair of broken writers' headers
             rate, scale = (1000000, frame_period) if frame_period else (25, 1)
-        width, height, _planes, bit_count, compression = struct.unpack_from("<iiHH4s", strf, 4)
+        width, height, bit_count, compression = bitmap_info(strf)
         extra = strf[40:]
         palette = None
         if extra and bit_count <= 8:  # avidec.c: the last entries of the extradata
             n = min((1 << bit_count) * 4, len(extra)) // 4
             palette = np.frombuffer(extra[len(extra) - 4 * n:], np.uint8).reshape(n, 4)
-        video = cls(filename, compression.decode("latin-1"), bit_count, abs(width), height, rate, scale,
+        video = cls(filename, compression, bit_count, abs(width), height, rate, scale,
                     length, np.zeros(0, np.int64), np.zeros(0, np.int64), palette, stream=index,
                     streams=stream, headers=parts)
         return video
@@ -483,23 +492,25 @@ def raw_frame(video: AviVideo, data: bytes) -> np.ndarray:
 
 class AviReader:
     """Frames of an :class:`AviVideo` on ``device``: Motion-JPEG through
-    :func:`sleap_tpu_torch.io.mjpeg.decode` (J5 on the card), raw frames
-    unpacked on the host and copied once. Every frame is a key frame, so a
-    read never decodes another frame."""
+    :class:`sleap_tpu_torch.io.mjpeg.MotionJpegReader` (J5 on the card), raw
+    frames unpacked on the host and copied once. Every frame is a key frame,
+    so a read never decodes another frame."""
 
     def __init__(self, demux: AviVideo, device="cuda"):
         self.demux = demux
         self.device = torch.device(device)
         self.codec = demux.codec  # raises for a codec the card route does not decode
-        self._f = open(demux.filename, "rb")
+        if self.codec == "mjpeg":
+            self._mjpeg = mjpeg.MotionJpegReader(demux, abs(demux.height), self.device)
+        else:
+            self._f = open(demux.filename, "rb")
 
     def frame(self, i: int, channels: str = "bgr"):
         """Frame ``i``, (H, W, C) uint8 on the device: ``channels`` "bgr",
         "rgb" or "b" (the blue channel alone)."""
-        data = self.demux.read(self._f, i)
         if self.codec == "mjpeg":
-            return mjpeg.decode(data, self.device, channels, abs(self.demux.height))
-        px = raw_frame(self.demux, data)
+            return self._mjpeg.frame(i, channels)
+        px = raw_frame(self.demux, self.demux.read(self._f, i))
         if px.shape[2] == 1:
             px = px if channels == "b" else np.repeat(px, 3, 2)
         else:
@@ -507,5 +518,4 @@ class AviReader:
         return torch.from_numpy(np.array(px)).to(self.device)
 
     def close(self) -> None:
-        self._f.close()
-
+        (self._mjpeg if self.codec == "mjpeg" else self._f).close()

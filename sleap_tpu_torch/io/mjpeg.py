@@ -1,6 +1,7 @@
 """Decode Motion-JPEG frames as OpenCV's FFmpeg backend decodes them: the
-frames of :class:`sleap_tpu_torch.io.video.MediaVideo`'s card route for AVI
-files of Motion-JPEG.
+frames of :class:`sleap_tpu_torch.io.video.MediaVideo`'s card route for
+Motion-JPEG in AVI, QuickTime/ISO-BMFF and Matroska files
+(:class:`MotionJpegReader` over any of their demuxers).
 
 The JAX package reads a video with ``cv2.VideoCapture(filename)``, which
 picks OpenCV's FFmpeg backend. FFmpeg's Motion-JPEG decoder (``mjpegdec``)
@@ -223,3 +224,27 @@ def decode(data: bytes, device="cuda", channels: str = "bgr",
         return y if channels == "b" else y.expand(*y.shape[:2], 3).contiguous()
     return yuv.to_bgr(*ps, sampling=frame.sampling, full_range=frame.full_range,
                       channels=channels)
+
+
+class MotionJpegReader:
+    """Frames of a demuxer whose packets are Motion-JPEG frames, as OpenCV's
+    FFmpeg backend gives them, on ``device``: an AVI
+    (:class:`~sleap_tpu_torch.io.avi.AviVideo`), ISO-BMFF
+    (:class:`~sleap_tpu_torch.io.mp4.Mp4Video`) or Matroska
+    (:class:`~sleap_tpu_torch.io.mkv.MkvVideo`) track, whose ``read(f, i)``
+    gives presentation frame ``i``'s bytes. ``height`` is the container's
+    (``strf``, the sample entry, ``PixelHeight``): ``mjpegdec`` takes a frame
+    under three quarters of it for one field of an interlaced pair. Every
+    frame is a key frame, so a read never decodes another frame."""
+
+    def __init__(self, demux, height: int, device="cuda"):
+        self.demux, self.height, self.device = demux, int(height), torch.device(device)
+        self._f = open(demux.filename, "rb")
+
+    def frame(self, i: int, channels: str = "bgr") -> torch.Tensor:
+        """Frame ``i``, (H, W, C) uint8 on the device: ``channels`` "bgr",
+        "rgb" or "b" (the blue channel alone)."""
+        return decode(self.demux.read(self._f, i), self.device, channels, self.height)
+
+    def close(self) -> None:
+        self._f.close()

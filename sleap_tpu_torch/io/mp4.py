@@ -1,38 +1,86 @@
-"""A pure-Python ISO-BMFF (``.mp4``, ``.mov``) demuxer for H.264 video.
+"""A pure-Python ISO-BMFF (``.mp4``, ``.mov``, QuickTime) demuxer for H.264
+and Motion-JPEG video, and what the card's readers share of a demuxed track.
 
-It reads what a decoder needs from the file's first video track: the
-``stsd`` entry (``avc1``/``avc3`` with ``avcC``: profile, NAL length size,
-SPS and PPS), the sample table (sizes from ``stsz``, offsets from
-``stco``/``co64`` and ``stsc``, sync samples from ``stss``, where its absence
-means every sample is one, and timing from ``stts``/``ctts``), the frame
-rate, and the display size from the SPS's frame cropping.
+:class:`Mp4Video` reads what a decoder needs from the file's first video
+track, found by content, whatever the file's extension: the sample entry
+(``avc1``/``avc3`` with ``avcC``: profile, NAL length size, SPS and PPS, the
+display size from the SPS's frame cropping; or ``jpeg``/``mjpa``, one JPEG a
+sample, at the ``VisualSampleEntry``'s size), the sample table (sizes from
+``stsz``, offsets from ``stco``/``co64`` and ``stsc``, sync samples from
+``stss``, where its absence means every sample is one, and timing from
+``stts``/``ctts``), and the edit list (``edts/elst``, versions 0 and 1).
 
-Frame ``i``, as OpenCV numbers frames, is the ``i``-th sample in
-presentation order (decoding time plus ``ctts``). :meth:`Mp4Video.to_annexb`
-gives a sample (:meth:`Mp4Video.read_sample`) as an Annex-B byte stream (a
-start code before each NAL unit), with the SPS and PPS in front of the
-sample that decoding starts from. Any other codec or container raises :class:`NotImplementedError`
-naming it.
+Frames are numbered as OpenCV's FFmpeg backend numbers them. Its count
+(``CAP_PROP_FRAME_COUNT``) is ``stts``'s samples and its fps the samples over
+their duration, edit list or not. Its ``read()`` sequence is what is left
+after FFmpeg's mov demuxer applies the edit list (``mov_fix_index``,
+:func:`edit_packets`): each edit starts at the last sync sample at or before
+its media time, decodes on to the first sync sample that reaches its end,
+and the decoder drops every packet presented outside the edit. Empty edits
+(media time -1) only delay the start; an edit may repeat samples. Without
+an edit list frame ``i`` is the ``i``-th sample in presentation order
+(decoding time plus ``ctts``). :meth:`Track.to_annexb` gives an H.264
+packet as an Annex-B byte stream (a start code before each NAL unit), with
+the SPS and PPS in front of the packet that decoding starts from. Any other
+codec (``mjpb``, whose frames carry no markers, ``mjp2``, ``mp4v``, ...)
+raises :class:`NotImplementedError` naming it.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import struct
-from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-EXTS = ("mp4", "mov")
 START_CODE = b"\x00\x00\x00\x01"
 _TODO = "(ROADMAP.md, queue 1, item 3g: other codecs and containers)"
+INT_MAX = (1 << 31) - 1
+#: Sample entries by the codec the card decodes them with.
+ENTRIES = {b"avc1": "h264", b"avc3": "h264", b"jpeg": "mjpeg", b"mjpa": "mjpeg"}
+#: ISO-BMFF top-level boxes a file may start with (from FFmpeg's ``mov_probe``).
+TOP_LEVEL = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"udta", b"uuid")
 
 
 def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not read on the card yet {_TODO}; only AVI files of "
-                               f"Motion-JPEG or uncompressed frames, and H.264 in .mp4 or .mov, "
-                               f"are.")
+    return NotImplementedError(f"{what} is not read on the card yet {_TODO}; read it with "
+                               f"--video.device cpu (cv2). The card reads AVI files of Motion-JPEG "
+                               f"or uncompressed frames, Motion-JPEG in QuickTime/ISO-BMFF and "
+                               f"Matroska files, and H.264 in ISO-BMFF and Matroska files.")
+
+
+def av_reduce(num: int, den: int, limit: int) -> Tuple[int, int]:
+    """FFmpeg's ``av_reduce``: ``num / den`` as the nearest fraction whose
+    terms are at most ``limit`` (a convergent of its continued fraction, or
+    the best semiconvergent), for non-negative terms."""
+    g = math.gcd(num, den) or 1
+    num, den = num // g, den // g
+    if num <= limit and den <= limit:
+        return num, den
+    a0, a1 = (0, 1), (1, 0)
+    while den:
+        x, rest = divmod(num, den)
+        a2 = (x * a1[0] + a0[0], x * a1[1] + a0[1])
+        if a2[0] > limit or a2[1] > limit:
+            if a1[0]:
+                x = (limit - a0[0]) // a1[0]
+            if a1[1]:
+                x = min(x, (limit - a0[1]) // a1[1])
+            if den * (2 * x * a1[1] + a0[1]) > num * a1[1]:
+                a1 = (x * a1[0] + a0[0], x * a1[1] + a0[1])
+            break
+        a0, a1, num, den = a1, a2, den, rest
+    return a1
+
+
+def av_rescale(a: int, b: int, c: int) -> int:
+    """FFmpeg's ``av_rescale``: ``a * b / c`` rounded to nearest, halves away
+    from zero."""
+    q = (abs(a) * b + c // 2) // c
+    return q if a >= 0 else -q
 
 
 def _boxes(data: bytes, start: int = 0,
@@ -179,20 +227,159 @@ def parse_sps(nal: bytes) -> Dict[str, int]:
     return sps
 
 
-@dataclass
-class Mp4Video:
-    """The first video track of an ``.mp4``/``.mov`` file, H.264 only.
+def parse_avcc(avcc: bytes, filename: str) -> Tuple[int, List[bytes], List[bytes]]:
+    """An ``avcC`` record (ISO 14496-15 5.3.3.1; Matroska's
+    ``V_MPEG4/ISO/AVC`` ``CodecPrivate``): (NAL length size, SPSs, PPSs)."""
+    try:
+        nal_length_size = (avcc[4] & 3) + 1
+        sps, pps, pos = [], [], 6
+        for out, count in ((sps, avcc[5] & 0x1F), (pps, None)):
+            if count is None:
+                count, pos = avcc[pos], pos + 1
+            for _ in range(count):
+                n = struct.unpack_from(">H", avcc, pos)[0]
+                out.append(bytes(avcc[pos + 2:pos + 2 + n]))
+                pos += 2 + n
+    except (IndexError, struct.error) as e:
+        raise ValueError(f"{filename}: a truncated 'avcC' record") from e
+    return nal_length_size, sps, pps
 
-    Per sample, in decoding order: ``sizes``, ``offsets``, ``sync``,
-    ``dts`` and ``cts`` (``ctts`` offsets) in ``timescale`` units, and
-    the track's ``duration`` (the sum of ``stts``);
-    ``order[i]`` is the decoding index of presentation frame ``i``."""
+
+def edit_packets(dts: np.ndarray, pts: np.ndarray, sync: np.ndarray, has_ctts: bool,
+                 edits: Sequence[Tuple[int, int]], media_timescale: int, movie_timescale: int):
+    """FFmpeg's ``mov_fix_index``: the packets the mov demuxer hands its
+    decoder for ``edits`` ((duration in the movie's timescale, media time in
+    the track's), in order). Returns each packet's sample, whether its frame
+    is kept (presented inside its edit; the decoder drops the rest) and its
+    edit's number. Empty edits (media time -1) give no packets. An edit
+    starts at :func:`_edit_start`'s sample and runs to the first sync sample
+    whose end reaches the edit's end (with ``ctts``, to the second, for the
+    B-frames that may trail it)."""
+    n = len(dts)
+    if not len(edits):
+        return np.arange(n), np.ones(n, bool), np.zeros(n, np.int64)
+    packets, keep, edit_of = [], [], []
+    for e, (duration, media_time) in enumerate(edits):
+        if media_time == -1:
+            continue
+        end = media_time + av_rescale(duration, media_timescale, movie_timescale)
+        after_end = False
+        for k in range(_edit_start(dts, pts, sync, has_ctts, media_time), n):
+            packets.append(k)
+            keep.append(media_time <= pts[k] < end)
+            edit_of.append(e)
+            frame_duration = dts[k + 1] - dts[k] if k + 1 < n else end - media_time
+            if pts[k] + frame_duration >= end and sync[k]:
+                if has_ctts and not after_end:
+                    after_end = True
+                    continue
+                break
+    return (np.array(packets, np.int64), np.array(keep, bool).reshape(-1),
+            np.array(edit_of, np.int64))
+
+
+def _edit_start(dts, pts, sync, has_ctts: bool, media_time: int) -> int:
+    """``find_prev_closest_index``: the last sync sample decoded at or before
+    ``media_time`` (with ``ctts``: also presented at or before it); else,
+    without ``ctts``, the last sample decoded by then; else the first."""
+    last = int(np.searchsorted(dts, media_time, "right")) - 1
+    syncs = np.flatnonzero(sync[:last + 1])
+    if has_ctts:
+        syncs = syncs[pts[syncs] <= media_time]
+        return int(syncs[-1]) if len(syncs) else 0
+    return int(syncs[-1]) if len(syncs) else max(last, 0)
+
+
+class Track:
+    """A demuxed video track as the card's readers take it.
+
+    Samples are the container's frames in file (decoding) order, with
+    ``sync`` flags. Packets are what the demuxer hands the decoder, in order:
+    ``packets[k]`` is packet ``k``'s sample (an edit list may skip or repeat
+    samples). Presentation frame ``i``, cv2's ``i``-th ``read()``, is packet
+    ``order[i]``; ``rank[k]`` is packet ``k``'s frame, -1 where the decoder
+    drops it. ``frames`` and ``fps`` are cv2's ``CAP_PROP_FRAME_COUNT`` and
+    ``CAP_PROP_FPS``, which need not equal :attr:`readable`. ``kind`` is
+    "h264" (then ``nal_length_size``, ``sps``, ``pps`` and the SPS's
+    ``format``) or "mjpeg"."""
 
     filename: str
-    codec: str
+    kind: str
+    sync: np.ndarray
     nal_length_size: int
     sps: List[bytes]
     pps: List[bytes]
+
+    def _present(self, packets: np.ndarray, keep: np.ndarray, keys: Sequence[np.ndarray] = ()):
+        """Set ``packets``, ``order`` and ``rank``: the kept packets in file
+        order, or sorted by ``keys`` (``np.lexsort``'s, the last the primary)."""
+        self.packets = np.asarray(packets, np.int64)
+        kept = np.flatnonzero(keep)
+        if len(keys):
+            kept = kept[np.lexsort([np.asarray(k)[kept] for k in keys])]
+        self.order = kept
+        self.rank = np.full(len(self.packets), -1, np.int64)
+        self.rank[kept] = np.arange(len(kept))
+        if self.kind == "h264":
+            if not self.sps:
+                raise ValueError(f"{self.filename}: the 'avcC' record holds no SPS")
+            self.format = parse_sps(self.sps[0])
+
+    @property
+    def readable(self) -> int:
+        """Frames ``read()`` gives before it fails."""
+        return len(self.order)
+
+    def sync_before(self, frame: int) -> int:
+        """The packet of the last sync sample at or before presentation frame
+        ``frame``'s packet: where decoding it starts."""
+        k = int(self.order[frame])
+        syncs = np.flatnonzero(self.sync[self.packets[:k + 1]])
+        if not len(syncs):
+            raise ValueError(f"{self.filename}: no sync sample before frame {frame}")
+        return int(syncs[-1])
+
+    def read_sample(self, f, k: int) -> bytes:
+        raise NotImplementedError
+
+    def read_packet(self, f, k: int) -> bytes:
+        return self.read_sample(f, int(self.packets[k]))
+
+    def read(self, f, i: int) -> bytes:
+        """Presentation frame ``i``'s bytes from the open file ``f``."""
+        if not 0 <= i < self.readable:
+            raise KeyError(f"Unable to load frame {i} from {self.filename}.")
+        return self.read_packet(f, int(self.order[i]))
+
+    def to_annexb(self, sample: bytes, parameter_sets: bool = False) -> bytes:
+        """An H.264 sample's length-prefixed NAL units as Annex-B, with the
+        SPS and PPS first when ``parameter_sets``."""
+        out = [START_CODE + nal for nal in (self.sps + self.pps)] if parameter_sets else []
+        pos, n = 0, self.nal_length_size
+        while pos < len(sample):
+            if pos + n > len(sample):
+                raise ValueError(f"{self.filename}: a NAL length runs past its sample")
+            size = int.from_bytes(sample[pos:pos + n], "big")
+            if pos + n + size > len(sample):
+                raise ValueError(f"{self.filename}: a NAL unit runs past its sample")
+            out.append(START_CODE + sample[pos + n:pos + n + size])
+            pos += n + size
+        return b"".join(out)
+
+
+@dataclass
+class Mp4Video(Track):
+    """The first video track of an ISO-BMFF file (``.mp4``, ``.mov``, ...).
+
+    Per sample, in decoding order: ``sizes``, ``offsets``, ``sync``, ``dts``
+    and ``cts`` (``ctts`` offsets) in ``timescale`` units; the track's
+    ``duration`` (the sum of ``stts``) over ``samples`` (its count);
+    ``codec`` the sample entry's fourcc and ``entry_size`` its (width,
+    height); ``edits`` the edit list as (duration in ``movie_timescale``
+    units, media time) pairs, empty without one."""
+
+    filename: str
+    codec: str
     sizes: np.ndarray
     offsets: np.ndarray
     sync: np.ndarray
@@ -200,29 +387,41 @@ class Mp4Video:
     cts: np.ndarray
     timescale: int
     duration: int
+    samples: int
+    entry_size: Tuple[int, int] = (0, 0)
+    nal_length_size: int = 0
+    sps: List[bytes] = field(default_factory=list)
+    pps: List[bytes] = field(default_factory=list)
+    movie_timescale: int = 0
+    edits: List[Tuple[int, int]] = field(default_factory=list)
+    has_ctts: bool = False
 
     @classmethod
     def open(cls, filename: str) -> "Mp4Video":
-        ext = os.path.splitext(filename)[1].lower().lstrip(".")
-        if ext not in EXTS:
-            raise _unsupported(f"{filename}: the .{ext} container")
         if not os.path.isfile(filename):
             raise FileNotFoundError(f"Could not find video file named {filename}.")
         with open(filename, "rb") as f:
             head = f.read(12)
             if head[:4] == b"RIFF" or head[:4] == b"\x1a\x45\xdf\xa3":
-                raise _unsupported(f"{filename}: an AVI or Matroska container named .{ext}")
+                ext = os.path.splitext(filename)[1]
+                raise _unsupported(f"{filename}: an AVI or Matroska container named {ext} given "
+                                   f"to the ISO-BMFF demuxer")
             moov = _top_level_moov(f, os.fstat(f.fileno()).st_size)
+        mvhd = _find(moov, [b"mvhd"])
+        movie_timescale = 0
+        if mvhd:
+            movie_timescale = struct.unpack_from(">I", moov, mvhd[0] + (20 if moov[mvhd[0]] == 1 else 12))[0]
         for kind, a, b in _boxes(moov):
             if kind != b"trak":
                 continue
             hdlr = _find(moov, [b"mdia", b"hdlr"], a, b)
             if hdlr and moov[hdlr[0] + 8:hdlr[0] + 12] == b"vide":
-                return cls._from_trak(filename, moov, a, b)
+                return cls._from_trak(filename, moov, a, b, movie_timescale)
         raise ValueError(f"{filename}: no video track")
 
     @classmethod
-    def _from_trak(cls, filename: str, moov: bytes, a: int, b: int) -> "Mp4Video":
+    def _from_trak(cls, filename: str, moov: bytes, a: int, b: int,
+                   movie_timescale: int) -> "Mp4Video":
         mdhd = _find(moov, [b"mdia", b"mdhd"], a, b)
         version = moov[mdhd[0]]
         timescale = struct.unpack_from(">I", moov, mdhd[0] + (20 if version == 1 else 12))[0]
@@ -232,21 +431,19 @@ class Mp4Video:
         s, _ = tables[b"stsd"]
         entry_size, fourcc = struct.unpack_from(">I4s", moov, s + 8)
         name = fourcc.decode("latin-1")
-        if fourcc not in (b"avc1", b"avc3"):
-            raise _unsupported(f"{filename}: video coded as {name!r}")
-        avcc = _find(moov, [b"avcC"], s + 16 + 78, s + 8 + entry_size)
-        if avcc is None:
-            raise ValueError(f"{filename}: an {name} entry without 'avcC'")
-        c = avcc[0]
-        nal_length_size = (moov[c + 4] & 3) + 1
-        sps, pps, pos = [], [], c + 6
-        for out, count in ((sps, moov[c + 5] & 0x1F), (pps, None)):
-            if count is None:
-                count, pos = moov[pos], pos + 1
-            for _ in range(count):
-                n = struct.unpack_from(">H", moov, pos)[0]
-                out.append(bytes(moov[pos + 2:pos + 2 + n]))
-                pos += 2 + n
+        kind = ENTRIES.get(fourcc)
+        if kind is None:
+            what = {b"mjpb": "Motion-JPEG format B ('mjpb': its frames carry no JPEG markers)",
+                    b"mjp2": "Motion JPEG 2000 ('mjp2')"}.get(fourcc, f"video coded as {name!r}")
+            raise _unsupported(f"{filename}: {what}")
+        width, height = struct.unpack_from(">HH", moov, s + 16 + 24)
+        config = {}
+        if kind == "h264":
+            avcc = _find(moov, [b"avcC"], s + 16 + 78, s + 8 + entry_size)
+            if avcc is None:
+                raise ValueError(f"{filename}: an {name} entry without 'avcC'")
+            config = dict(zip(("nal_length_size", "sps", "pps"),
+                              parse_avcc(moov[avcc[0]:avcc[1]], filename)))
 
         def table(kind, fmt, per=1, offset=8):
             """A full box's entries: a count at ``offset - 4``, then ``per``
@@ -289,43 +486,44 @@ class Mp4Video:
             if moov[tables[b"ctts"][0]] == 1:  # version 1: signed offsets
                 offs = offs.astype(np.uint32).view(np.int32).astype(np.int64)
             cts = np.repeat(offs, ctts[:, 0])[:n]
-        return cls(filename, name, nal_length_size, sps, pps, sizes, offsets, sync, dts, cts,
-                   timescale, int(deltas.sum()))
+        edits = _edit_list(filename, moov, a, b)
+        return cls(filename, name, sizes, offsets, sync, dts, cts, timescale,
+                   int((stts[:, 0] * stts[:, 1]).sum()), int(stts[:, 0].sum()), (width, height),
+                   movie_timescale=movie_timescale, edits=edits, has_ctts=b"ctts" in tables,
+                   **config)
 
-    # -- derived ----------------------------------------------------------- #
     def __post_init__(self):
-        self.order = np.argsort(self.dts + self.cts, kind="stable")  # presentation -> decoding
-        self.rank = np.empty_like(self.order)  # decoding -> presentation
-        self.rank[self.order] = np.arange(len(self.order))
-        if not self.sps:
-            raise ValueError(f"{self.filename}: 'avcC' holds no SPS")
-        self.format = parse_sps(self.sps[0])
+        self.kind = ENTRIES[self.codec.encode("latin-1")]
+        if self.edits and not self.movie_timescale:
+            raise _unsupported(f"{self.filename}: an edit list under a movie timescale of 0")
+        pts = self.dts + self.cts
+        packets, keep, edit_of = edit_packets(self.dts, pts, self.sync, self.has_ctts, self.edits,
+                                              self.timescale, self.movie_timescale)
+        # H.264 frames leave the decoder in presentation order within an edit;
+        # Motion-JPEG frames in the order they went in.
+        keys = (pts[packets], edit_of) if self.kind == "h264" else ()
+        self._present(packets, keep, keys)
 
     @property
     def frames(self) -> int:
-        return len(self.sizes)
+        """cv2's frame count: ``stts``'s samples, whatever the edit list."""
+        return self.samples
 
     @property
     def fps(self) -> float:
         """Samples over the track's duration, as FFmpeg's ``avg_frame_rate``."""
-        return self.timescale * self.frames / self.duration if self.duration else 0.0
+        if not self.duration:
+            return 0.0
+        num, den = av_reduce(self.timescale * self.samples, self.duration, INT_MAX)
+        return num / den
 
     @property
     def width(self) -> int:
-        return self.format["width"]
+        return self.format["width"] if self.kind == "h264" else self.entry_size[0]
 
     @property
     def height(self) -> int:
-        return self.format["height"]
-
-    def sync_before(self, frame: int) -> int:
-        """The decoding index of the last sync sample at or before the
-        sample of presentation frame ``frame``: where decoding it starts."""
-        d = int(self.order[frame])
-        syncs = np.flatnonzero(self.sync[:d + 1])
-        if not len(syncs):
-            raise ValueError(f"{self.filename}: no sync sample before frame {frame}")
-        return int(syncs[-1])
+        return self.format["height"] if self.kind == "h264" else self.entry_size[1]
 
     def read_sample(self, f, k: int) -> bytes:
         f.seek(int(self.offsets[k]))
@@ -334,17 +532,26 @@ class Mp4Video:
             raise ValueError(f"{self.filename}: sample {k} runs past the end of the file")
         return data
 
-    def to_annexb(self, sample: bytes, parameter_sets: bool = False) -> bytes:
-        """A sample's length-prefixed NAL units as Annex-B, with the SPS and
-        PPS first when ``parameter_sets``."""
-        out = [START_CODE + nal for nal in (self.sps + self.pps)] if parameter_sets else []
-        pos, n = 0, self.nal_length_size
-        while pos < len(sample):
-            if pos + n > len(sample):
-                raise ValueError(f"{self.filename}: a NAL length runs past its sample")
-            size = int.from_bytes(sample[pos:pos + n], "big")
-            if pos + n + size > len(sample):
-                raise ValueError(f"{self.filename}: a NAL unit runs past its sample")
-            out.append(START_CODE + sample[pos + n:pos + n + size])
-            pos += n + size
-        return b"".join(out)
+
+def _edit_list(filename: str, moov: bytes, a: int, b: int) -> List[Tuple[int, int]]:
+    """A ``trak``'s ``edts/elst`` as (segment duration, media time) pairs;
+    an edit of another rate than 1, or of a negative media time but -1,
+    raises naming it."""
+    elst = _find(moov, [b"edts", b"elst"], a, b)
+    if elst is None:
+        return []
+    s, e = elst
+    version = moov[s]
+    (count,) = struct.unpack_from(">I", moov, s + 4)
+    fmt = ">QqHH" if version == 1 else ">IiHH"
+    size = struct.calcsize(fmt)
+    if s + 8 + count * size > e:
+        raise ValueError(f"{filename}: an 'elst' of {count} edits runs past its box")
+    edits = []
+    for duration, media_time, rate, frac in struct.iter_unpack(fmt, moov[s + 8:s + 8 + count * size]):
+        if (rate, frac) != (1, 0):
+            raise _unsupported(f"{filename}: an edit of rate {rate + frac / 65536}")
+        if media_time < -1:
+            raise _unsupported(f"{filename}: an edit of media time {media_time}")
+        edits.append((duration, media_time))
+    return edits

@@ -7,11 +7,13 @@ layout (Video Codec SDK 12.1; the fields used have kept their offsets since
 SDK 9). Pictures the parser hands over (``CUVIDPICPARAMS``) pass through as
 opaque pointers.
 
-:class:`NvdecReader` decodes an :class:`~sleap_tpu_torch.io.mp4.Mp4Video`
-into NV12 frames on the card: the parser calls back on a new sequence
-(create the decoder), a picture to decode (``cuvidDecodePicture``) and a
-picture to display (map it, copy it into a torch tensor, unmap it). Each
-sample goes in with its presentation index as timestamp, which the display
+:class:`NvdecReader` decodes an H.264 :class:`~sleap_tpu_torch.io.mp4.Track`
+(an ISO-BMFF :class:`~sleap_tpu_torch.io.mp4.Mp4Video` or a Matroska
+:class:`~sleap_tpu_torch.io.mkv.MkvVideo`) into NV12 frames on the card:
+the parser calls back on a new sequence (create the decoder), a picture to
+decode (``cuvidDecodePicture``) and a picture to display (map it, copy it
+into a torch tensor, unmap it). Each packet goes in with its presentation
+index as timestamp (-1 for one an edit list drops), which the display
 callback gets back, so frames are known by index whatever the reordering.
 
 Traps, named where the code meets them:
@@ -274,7 +276,7 @@ class _DeviceView:
 
 
 class NvdecReader:
-    """Frames of an H.264 :class:`~sleap_tpu_torch.io.mp4.Mp4Video` decoded
+    """Frames of an H.264 :class:`~sleap_tpu_torch.io.mp4.Track` decoded
     by NVDEC: ``frame(i)`` is presentation frame ``i`` as an NV12 uint8
     tensor on the card, (H + H/2, W): the luma rows, then the interleaved
     chroma rows. Sequential reads decode forward; a read behind the decoder,
@@ -394,6 +396,8 @@ class NvdecReader:
             return 1
         try:
             info = info_p.contents
+            if info.timestamp < 0:  # a packet the edit list drops (Track.rank -1)
+                return 1
             proc = ProcParams(progressive_frame=info.progressive_frame,
                               second_field=info.repeat_first_field + 1,
                               top_field_first=info.top_field_first,
@@ -464,7 +468,7 @@ class NvdecReader:
 
     def frame(self, i: int) -> torch.Tensor:
         demux = self.demux
-        if not 0 <= i < demux.frames:
+        if not 0 <= i < demux.readable:
             raise KeyError(f"Unable to load frame {i} from {demux.filename}.")
         with self._lock:
             if i not in self._ready:
@@ -477,13 +481,13 @@ class NvdecReader:
                 else:
                     first = False
                 while i not in self._ready:
-                    if self._pos is None or self._pos >= demux.frames:
+                    if self._pos is None or self._pos >= len(demux.packets):
                         self._flush(keep=True)
                         if i not in self._ready:
                             raise KeyError(f"Unable to load frame {i} from {demux.filename}.")
                         break
                     k = self._pos
-                    data = demux.to_annexb(demux.read_sample(self._file, k), first)
+                    data = demux.to_annexb(demux.read_packet(self._file, k), first)
                     flags = PKT_TIMESTAMP | PKT_ENDOFPICTURE | (PKT_DISCONTINUITY if first else 0)
                     self._parse(data, flags, int(demux.rank[k]))
                     self._pos, first = k + 1, False

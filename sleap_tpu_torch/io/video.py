@@ -11,14 +11,16 @@ come back as numpy (H, W, C) arrays from
   ``device``: on the card (the default) the compiled PNG unfilter, the JPEG
   kernels and the compiled TIFF codecs, on the CPU their plain versions;
 - :class:`NumpyVideo`: an in-memory array or a ``.npy`` file;
-- :class:`MediaVideo` (mp4, avi, ...): on the card (``device="cuda"``, the
-  default) AVI files of Motion-JPEG or uncompressed frames through the
-  port's demuxer (:mod:`~sleap_tpu_torch.io.avi`) and FFmpeg's Motion-JPEG
-  decoding (:mod:`~sleap_tpu_torch.io.mjpeg`, kernel J5), and H.264
-  ``.mp4``/``.mov`` files through the port's demuxer
-  (:mod:`~sleap_tpu_torch.io.mp4`) and NVDEC (:mod:`~sleap_tpu_torch.io.nvdec`),
-  each with OpenCV's colour conversion (:mod:`~sleap_tpu_torch.io.yuv`) and
-  no fallback; with ``device="cpu"`` any format through ``cv2``;
+- :class:`MediaVideo` (mp4, mov, mkv, avi, ...): on the card
+  (``device="cuda"``, the default) the container picked by content and
+  demuxed by the port (:mod:`~sleap_tpu_torch.io.avi`,
+  :mod:`~sleap_tpu_torch.io.mp4` with edit lists applied,
+  :mod:`~sleap_tpu_torch.io.mkv`); Motion-JPEG in any of them through
+  FFmpeg's decoding (:mod:`~sleap_tpu_torch.io.mjpeg`, kernel J5), AVI's
+  uncompressed frames on the host, and H.264 in ISO-BMFF or Matroska through
+  NVDEC (:mod:`~sleap_tpu_torch.io.nvdec`), each with OpenCV's colour
+  conversion (:mod:`~sleap_tpu_torch.io.yuv`) and no fallback; with
+  ``device="cpu"`` any format through ``cv2``;
 - :class:`SingleImageVideo`: still images, PNG, JPEG, BMP and TIFF through
   the port's decoders on its ``device``;
 - :class:`ImgStoreVideo`: a loopbio ImgStore: a directory store of PNG,
@@ -50,9 +52,10 @@ from sleap_tpu_torch.io import dirimgstore, hdf5, stills
 Device = Union[str, torch.device]
 
 
-def _import_cv2(what: str, hint: str = "On the card (device='cuda') .mp4 and .mov files of "
-                "H.264 are read through NVDEC without cv2; other media can be converted to an "
-                "HDF5 dataset or embedded in a .slp."):
+def _import_cv2(what: str, hint: str = "On the card (device='cuda') Motion-JPEG in AVI, "
+                "QuickTime/MP4 and Matroska files, raw AVI frames, and H.264 (through NVDEC) are "
+                "read without cv2; other media can be converted to an HDF5 dataset or embedded in "
+                "a .slp."):
     try:
         import cv2
     except ImportError as e:
@@ -84,12 +87,14 @@ class MediaVideo:
     """A media file (mp4, avi, ...), read under a lock; sequential reads do
     not seek.
 
-    ``device`` "cuda" (the default) picks the route by the file's leading
-    bytes: an AVI (``RIFF ... AVI ``) of Motion-JPEG or uncompressed frames
-    is demuxed and decoded as OpenCV's FFmpeg backend decodes it, on the
-    card; an ISO-BMFF file of H.264 goes through NVDEC and is converted
-    there as OpenCV would. Any other codec or container, or a card without
-    NVDEC for H.264, raises (no fallback). ``device`` "cpu" reads through
+    ``device`` "cuda" (the default) picks the route by the file's content,
+    whatever its extension (:func:`_card_reader`): an AVI, ISO-BMFF
+    (QuickTime, MP4) or Matroska file of Motion-JPEG, or an AVI of
+    uncompressed frames, is demuxed and decoded as OpenCV's FFmpeg backend
+    decodes it, on the card, with the frame count, fps and frame numbering
+    cv2 gives (edit lists applied); H.264 in ISO-BMFF or Matroska goes
+    through NVDEC and is converted there as OpenCV would. Any other codec or
+    container, or a card without NVDEC for H.264, raises (no fallback). ``device`` "cpu" reads through
     OpenCV. The device is not a field: ``.slp`` files do
     not record it. ``grayscale`` None detects it from the first frame (all
     channels equal); ``bgr`` flips OpenCV's BGR to RGB.
@@ -218,31 +223,56 @@ class MediaVideo:
         gray (what the CPU route keeps), else RGB, or BGR with ``bgr``
         False. An AVI reader decodes to those channels; NVDEC's NV12 frame
         is converted on the card."""
-        from sleap_tpu_torch.io import avi, yuv
+        from sleap_tpu_torch.io import avi, mjpeg, yuv
 
         if grayscale is None:
             grayscale = self.is_grayscale
         channels = "b" if grayscale else ("rgb" if self.bgr else "bgr")
         with self._lock:
             reader = self._reader
-            if isinstance(reader, avi.AviReader):
+            if isinstance(reader, (avi.AviReader, mjpeg.MotionJpegReader)):
                 return reader.frame(idx, channels).cpu().numpy()
             nv12 = reader.frame(idx)
         return yuv.nv12_to_frame(nv12, reader.height, channels).cpu().numpy()
 
 
-def _card_reader(filename: str, device: torch.device):
-    """The card's reader of a media file, by its leading bytes: an AVI's
-    :class:`~sleap_tpu_torch.io.avi.AviReader`, else the NVDEC reader of an
-    ISO-BMFF file (whose demuxer refuses other containers by name)."""
-    from sleap_tpu_torch.io import avi, mp4, nvdec
+def container_of(head: bytes) -> Optional[str]:
+    """The container a file's leading bytes name, as FFmpeg's probes find
+    it: "avi" (``RIFF ... AVI ``), "matroska" (the EBML magic) or "isobmff"
+    (a top-level box: ``ftyp``, ``moov``, ``mdat``, ``free``, ``skip``,
+    ``wide``, ...); else None."""
+    from sleap_tpu_torch.io import mkv, mp4
 
-    ext = os.path.splitext(filename)[1].lower().lstrip(".")
+    if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+        return "avi"
+    if head[:4] == mkv.EBML_MAGIC:
+        return "matroska"
+    if head[4:8] in mp4.TOP_LEVEL:
+        return "isobmff"
+    return None
+
+
+def _card_reader(filename: str, device: torch.device):
+    """The card's reader of a media file, by its content, whatever its
+    extension: the container by its leading bytes (:func:`container_of`),
+    then the codec: an AVI's :class:`~sleap_tpu_torch.io.avi.AviReader`,
+    Motion-JPEG's :class:`~sleap_tpu_torch.io.mjpeg.MotionJpegReader`, or
+    H.264's NVDEC reader."""
+    from sleap_tpu_torch.io import avi, mjpeg, mkv, mp4, nvdec
+
     with open(filename, "rb") as f:
         head = f.read(12)
-    if ext not in ("mkv", "mj2") and head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+    kind = container_of(head)
+    if kind == "avi":
         return avi.AviReader(avi.AviVideo.open(filename), device)
-    return nvdec.NvdecReader(mp4.Mp4Video.open(filename), device)
+    if kind is None:
+        ext = os.path.splitext(filename)[1]
+        raise mp4._unsupported(f"{filename}: the {ext} container whose leading bytes {head[:8]!r} "
+                               f"name no AVI, Matroska or ISO-BMFF file")
+    demux = (mkv.MkvVideo if kind == "matroska" else mp4.Mp4Video).open(filename)
+    if demux.kind == "mjpeg":
+        return mjpeg.MotionJpegReader(demux, demux.height, device)
+    return nvdec.NvdecReader(demux, device)
 
 
 @dataclass(eq=False)

@@ -515,7 +515,8 @@ def test_every_module_imports_with_the_jax_side_blocked(standalone):
                  "info.feature_suggestions", "util", "system", "prefs", "message", "diagnostic",
                  "data.inference", "data.pipelines", "data.dataset_ops", "data.utils", "ops.utils",
                  "inference.movenet", "training.callbacks", "nn_viz", "parallel", "parallel.mesh",
-                 "parallel.distributed"):
+                 "parallel.distributed", "io.avi", "io.mjpeg", "io.mp4", "io.mkv", "io.nvdec",
+                 "io.yuv"):
         assert f"sleap_tpu_torch.{name}" in modules
     assert standalone["blocked_loaded"] == []
 
