@@ -662,8 +662,11 @@ TRAINED = [
 TRAINED_BLOBS, TRAINED_SIGMA = 2, 14.0
 # Phase 6: blob paths of at most this many px a frame; the card's and the
 # CPU's trackers on this many frames; their tracking scores (exp(-d^2) of
-# flow points that differ by ~1e-5 px) and flow-shifted points.
-TRACK_MAX_STEP, CARD_CPU_FRAMES = 4.0, 32
+# flow points that differ by ~1e-5 px) and flow-shifted points. 6a times the
+# tracked path over TRACK_TIMED_BATCHES batches after a warm-up one (fewer
+# than the paths' TIMED_BATCHES: the tracker's ~84 ms a frame on the host
+# makes each batch ~1.3 s).
+TRACK_MAX_STEP, CARD_CPU_FRAMES, TRACK_TIMED_BATCHES = 4.0, 32, 4
 TRACK_SCORE_TOL, SHIFT_TOL = 1e-4, 1e-3
 # 6c: the trained top-down pair on 32 frames of two blobs over one static
 # noise background. On sigma-14 blobs over fresh noise (4g's blobs) the
@@ -5075,21 +5078,23 @@ def check_retrack(kept, card):
     return figures
 
 
-def step_grads(trainer, init, examples, dtype, inputs=None):
-    """One train-mode forward and backward of ``trainer``'s module from the
-    weights and statistics ``init`` on ``examples``: float32 runs the
-    trainer's own ``compute_loss`` (ground truth made on the trainer's
-    device); float64 a float64 copy of the module on ``inputs`` (images and
-    ground truth, the same tensors for every device) with the trainer's loss
-    terms summed in float64 (the trainer's own loss is float32). Returns
-    (loss, gradients, running statistics) on the CPU."""
+def step_grads(trainer, init, examples, dtype, inputs=None, backward=True):
+    """One train-mode forward (and, with ``backward``, backward) of
+    ``trainer``'s module from the weights and statistics ``init`` on
+    ``examples``: float32 runs the trainer's own ``compute_loss`` (ground
+    truth made on the trainer's device); float64 a float64 copy of the module
+    on ``inputs`` (images and ground truth, the same tensors for every
+    device) with the trainer's loss terms summed in float64 (the trainer's
+    own loss is float32). Returns (loss, gradients (empty without
+    ``backward``), running statistics) on the CPU."""
     if dtype == torch.float32:
         module = trainer.module
         module.load_state_dict(init)
         module.train()
         module.zero_grad()
-        loss = trainer.compute_loss(trainer.to_device(trainer.make_batch(examples, None)),
-                                    torch.Generator(device=trainer.device).manual_seed(0))
+        with torch.set_grad_enabled(backward):
+            loss = trainer.compute_loss(trainer.to_device(trainer.make_batch(examples, None)),
+                                        torch.Generator(device=trainer.device).manual_seed(0))
     else:
         imgs, gt = inputs
         module = trainer.model.make_module(trainer._input_channels, compute_dtype=dtype)
@@ -5099,10 +5104,12 @@ def step_grads(trainer, init, examples, dtype, inputs=None):
         loss = sum(weight * ((preds[key] - gt[name].to(trainer.device, dtype)) ** 2).mean()
                    for name, weight, _ in trainer._loss_terms()
                    for key in preds if key == name or key.startswith(f"{name}_stack"))
-    loss.backward()
+    grads = {}
+    if backward:
+        loss.backward()
+        grads = {n: p.grad.detach().double().cpu() for n, p in module.named_parameters()}
     stats = {k: v.detach().double().cpu() for k, v in module.state_dict().items()
              if k.endswith(("running_mean", "running_var"))}
-    grads = {n: p.grad.detach().double().cpu() for n, p in module.named_parameters()}
     return float(loss.detach()), grads, stats
 
 
@@ -5113,12 +5120,15 @@ def step_differences(card, cpu):
     gradient (a bias in front of a train-mode batch norm has gradient 0 in
     exact arithmetic); the largest running-statistic difference over that
     statistic's largest magnitude, a mean's measured in units of its
-    layer's standard deviation (a mean can be 0 in exact arithmetic)."""
+    layer's standard deviation (a mean can be 0 in exact arithmetic); the
+    gradient difference is None where the steps computed no gradients."""
     (l_a, g_a, s_a), (l_b, g_b, s_b) = card, cpu
-    largest = max(float(g.abs().max()) for g in g_b.values())
-    grad = max(float((g_a[n] - g).abs().max()) / max(float(g.abs().max()),
-                                                     BB_STEP_GRAD_RTOL * largest)
-               for n, g in g_b.items())
+    grad = None  # a step without gradients
+    if g_b:
+        largest = max(float(g.abs().max()) for g in g_b.values())
+        grad = max(float((g_a[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                         BB_STEP_GRAD_RTOL * largest)
+                   for n, g in g_b.items())
     stats = 0.0
     for k, s in s_b.items():
         scale = float(s.abs().max())
@@ -5158,14 +5168,15 @@ def check_backbone_steps(card):
     """11a: one train step of each backbone at its default width on
     BB_STEP_BATCH blob frames of BB_STEP_SIZE^2, on the card and on the
     CPU from the same lecun-seeded weights, TF32 off. Float32, through the
-    trainer: the loss within BB_STEP_LOSS_RTOL; the gradients' and
-    statistics' differences are printed, not held (a deep batch-norm net at
-    its initial weights amplifies float32 rounding and the two devices'
-    one-ulp differences in the ground truth to 1e-2 of a gradient: PERF.md
-    section 6, PR 12). Float64, on the same images and ground truth: the
-    loss within BB_STEP_LOSS_RTOL, the gradients within BB_STEP_GRAD_RTOL
-    and the running statistics within BB_STEP_STATS_RTOL, each statistic
-    moved from the init."""
+    trainer, forward only: the loss within BB_STEP_LOSS_RTOL; the
+    statistics' differences are printed, not held, and no float32 gradient
+    is computed (a deep batch-norm net at its initial weights amplifies
+    float32 rounding and the two devices' one-ulp differences in the ground
+    truth to 1e-2 of a gradient, PERF.md section 6, so no gate read them;
+    their backward pass on the CPU was host time). Float64, on the
+    same images and ground truth: the loss within BB_STEP_LOSS_RTOL, the
+    gradients within BB_STEP_GRAD_RTOL and the running statistics within
+    BB_STEP_STATS_RTOL, each statistic moved from the init."""
     from sleap_tpu_torch.config import TrainingJobConfig
     from sleap_tpu_torch.training.trainer import Trainer
 
@@ -5192,7 +5203,8 @@ def check_backbone_steps(card):
                                       torch.Generator().manual_seed(0))
         row = {}
         for dtype in (torch.float32, torch.float64):
-            steps = [step_grads(t, init, examples, dtype, inputs) for t in (on_card, on_cpu)]
+            steps = [step_grads(t, init, examples, dtype, inputs, backward=dtype == torch.float64)
+                     for t in (on_card, on_cpu)]
             loss_rel, grad_rel, stats_rel = step_differences(*steps)
             moved = min((float((s - init[k].double()).abs().max()) for k, s in steps[1][2].items()),
                         default=None)
@@ -5254,9 +5266,12 @@ def check_backbone_train_throughput(card):
             key = (f"11b train {'top-down' if topdown else 'single-instance'} {name} "
                    f"{'mixed precision' if mixed else 'f32'}")
             # The profiler sessions of a mixed-precision step (15-20 s each
-            # for HRNet and EfficientNet-b0, host bound) are left out.
+            # for HRNet and EfficientNet-b0, host bound) are left out, and
+            # HRNet's float32 ones (~14 s of its 19: 22,866 launches a step,
+            # profiled until two sessions agree; PERF.md section 5 has its
+            # busy share). No gate reads them.
             results[key] = time_train_steps(key, trainer, batch, card, steps=BB_TRAIN_STEPS,
-                                            profile=not mixed)
+                                            profile=not mixed and name != "HRNet")
             results[key]["seconds"] = time.perf_counter() - t0  # set-up, steps, profile
             bns = [m for m in trainer.module.modules() if isinstance(m, FlaxBatchNorm2d)]
             check(all(t.dtype == torch.float32 for m in bns for t in (*m.parameters(), *m.buffers())),
@@ -7563,6 +7578,306 @@ def check_containers(launches, card, mode, avi_labels, fps_21b):
     return {"fixtures": fixtures, "cli": cli}, j5_err
 
 
+# --------------------------------------------------------------------------- #
+# Phase 26: MPEG-4 Part 2 on the card (host C entropy decoding, M1, M2)
+# --------------------------------------------------------------------------- #
+
+MPEG4_DIR = ("tests", "torch_data", "mpeg4")
+MPEG4_CLIP = "fmp4_gray_1024.avi"  # 26b's clip: 24 gray 1024^2 frames, two GOPs
+#: 26a: the fixtures whose VOPs the host C decoder is held to the plain
+#: Python one on, and M1 and M2 to their plain versions: name -> VOPs (None:
+#: all). cv2's 200 x 120 clip's first four, and the random-syntax streams (an
+#: I-VOP and three P-VOPs at 200 x 120, all at the smaller sizes): 4MV, MPEG
+#: quantisation, video packets, not-coded VOPs.
+MPEG4_PLAIN = {"fmp4_200x120.avi": 4, "syntax_64x48.avi": None, "syntax_200x120.avi": 4,
+               "syntax_gray_48x32.avi": None, "syntax_4mv_200x120.avi": 4,
+               "syntax_mpeg_quant_64x48.avi": None, "syntax_mpeg_quant_default_48x32.avi": None,
+               "syntax_packets_200x120.avi": 4, "syntax_nvop_64x48.avi": None}
+
+
+def mpeg4_path(name) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *MPEG4_DIR, name)
+
+
+def mpeg4_manifest() -> dict:
+    with open(mpeg4_path("manifest.json")) as fh:
+        return json.load(fh)["files"]
+
+
+def mpeg4_packets(name, limit=None):
+    """The AVI fixture ``name``'s packets (at most ``limit``) and its fourcc."""
+    from sleap_tpu_torch.io import avi
+
+    demux = avi.AviVideo.open(mpeg4_path(name))
+    n = len(demux.offsets) if limit is None else min(limit, len(demux.offsets))
+    with open(demux.filename, "rb") as fh:
+        return [demux.read(fh, i) for i in range(n)], demux.compression
+
+
+def mpeg4_vs_plain(inputs, layout, ref, rounding, err, what):
+    """M2 then M1 (``mpeg4.reconstruct``) on the card and as their plain
+    versions, on the same inputs and reference: the planes held equal, each
+    kernel's max |err| folded into ``err``. M2 and M1 write disjoint blocks,
+    so the card's M2 under M1's plain version tells their errors apart.
+    Returns the card's planes."""
+    from sleap_tpu_torch.io import mpeg4
+
+    card = mpeg4.reconstruct(inputs, layout, ref, rounding, mpeg4.CARD)
+    want = mpeg4.reconstruct(inputs, layout, ref, rounding, mpeg4.PLAIN)
+    m2 = mpeg4.reconstruct(inputs, layout, ref, rounding, (mpeg4.inter_cuda, mpeg4.intra_plain))
+    err["M2"] = max(err["M2"], *(max_abs(a, b) for a, b in zip(m2, want)))
+    err["M1"] = max(err["M1"], *(max_abs(a, b) for a, b in zip(card, m2)))
+    check(all(torch.equal(a, b) for a, b in zip(card, want)),
+          f"26a: M1 and M2 equal their plain versions on {what} (max |err| {err})")
+    return card
+
+
+def check_mpeg4_plain(dev, err):
+    """26a: on every VOP of MPEG4_PLAIN, the host C decoder against the plain
+    Python one (coefficients and jobs equal), and M1 and M2 against their
+    plain versions on the card's tensors (:func:`mpeg4_vs_plain`). Returns
+    the VOPs held."""
+    from sleap_tpu_torch.io import mpeg4
+
+    vops = 0
+    for name, limit in MPEG4_PLAIN.items():
+        packets, fourcc = mpeg4_packets(name, limit)
+        stream, ref, staging = mpeg4.Stream(fourcc), None, None
+        for k, data in enumerate(packets):
+            vop = stream.headers(data)
+            if vop.kind == "N":  # not coded: the reference stays
+                continue
+            layout = mpeg4.Layout(*stream.vol.mb_size)
+            staging = staging or mpeg4.Staging(layout.mb_w * layout.mb_h, pin=True)
+            plain = mpeg4.decode_macroblocks(data, stream.vol, vop)
+            inputs = mpeg4.entropy_decode(data, stream.vol, vop, dev, staging)
+            check(all(np.array_equal(t.cpu().numpy(), a)
+                      for t, a in zip(inputs, (plain.coefs, plain.intra, plain.inter))),
+                  f"26a: the host C decoder equals the plain one on {name} VOP {k}")
+            ref = mpeg4_vs_plain(inputs, layout, ref, vop.rounding, err, f"{name} VOP {k}")
+            vops += 1
+    return vops
+
+
+def time_mpeg4_stages(card, err):
+    """26a: ms a 1024^2 frame by stage over a sequential read of the 26b
+    clip (Mpeg4Reader's host-clock stages, the card synchronised at each:
+    demux, entropy (host C), upload, M2, M1, to_bgr, and the copy to the
+    host); then, on the clip's first I-VOP and P-VOP, M1 and M2 held to their
+    plain versions (:func:`mpeg4_vs_plain`, into ``err``) and M1's device ms
+    on the I-VOP and M2's on the P-VOP, against their plain versions and
+    bounds. Returns (stages, {"M1": numbers, "M2": numbers})."""
+    from sleap_tpu_torch.io import avi, mpeg4
+
+    dev = torch.device("cuda", 0)
+    demux = avi.AviVideo.open(mpeg4_path(MPEG4_CLIP))
+    reader = avi.AviReader(demux, dev)._decoder
+    reader.timing = {}
+    copy_s = 0.0
+    n = len(demux.offsets)
+    for i in range(n):
+        out = reader.frame(i, "b")
+        t0 = time.perf_counter()
+        out.cpu()
+        copy_s += time.perf_counter() - t0
+    vops = reader.timing.pop("vops")
+    stages = {f"{k}_ms": 1e3 * v / n for k, v in reader.timing.items()}
+    stages["host_copy_ms"] = 1e3 * copy_s / n
+    stages["vops"] = vops
+    reader.timing = None
+    packets, fourcc = mpeg4_packets(MPEG4_CLIP, 2)
+    stream = mpeg4.Stream(fourcc)
+    rows = {}
+    layout, staging, ref = None, None, None
+    for k, data in enumerate(packets):  # an I-VOP (M1), then a P-VOP (M2)
+        vop = stream.headers(data)
+        layout = mpeg4.Layout(*stream.vol.mb_size)
+        staging = staging or mpeg4.Staging(layout.mb_w * layout.mb_h, pin=True)
+        coefs, intra, inter = inputs = mpeg4.entropy_decode(data, stream.vol, vop, dev, staging)
+        decoded = mpeg4_vs_plain(inputs, layout, ref, vop.rounding, err,
+                                 f"{MPEG4_CLIP} VOP {k} ({len(intra)} intra, {len(inter)} inter jobs)")
+        planes = layout.planes(dev)
+        if k == 0:
+            def card_fn():
+                mpeg4.intra_cuda(planes, coefs, intra, layout)
+
+            def plain_fn():
+                mpeg4.intra_plain(planes, coefs, intra, layout)
+            name, jobs, fn_name = "M1", intra, "mpeg4_intra_kernel"
+            # Each job's 16-byte job and 128-byte block read, its 64 samples written.
+            moved = (16 + 128 + 64) * len(jobs)
+            ops = 600 * len(jobs)  # J5's count: two passes of eight 1-D transforms
+        else:
+            def card_fn():
+                mpeg4.inter_cuda(planes, ref, coefs, inter, layout, vop.rounding)
+
+            def plain_fn():
+                mpeg4.inter_plain(planes, ref, coefs, inter, layout, vop.rounding)
+            name, jobs, fn_name = "M2", inter, "mpeg4_inter_kernel"
+            residual = int((inter[:, 1] >= 0).sum())
+            # Each job's 16-byte job and 8x8 reference samples read, its
+            # residual's 128 bytes where it has one, its 64 samples written.
+            moved = (16 + 64 + 64) * len(jobs) + 128 * residual
+            ops = 4 * 64 * len(jobs) + 600 * residual
+        rows[name] = {"jobs": len(jobs), "ms": events_ms(card_fn),
+                      "device_ms": device_ms(card_fn, [fn_name]),
+                      "plain_ms": time_ms(plain_fn, iters=3, warmup=1),
+                      "bytes_ms": moved / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / F32_OPS_PER_S * 1e3}
+        ref = decoded
+    log(f"26a MPEG-4 {MPEG4_CLIP} ({layout.mb_w * 16}^2 gray, {n} frames read in order), ms a frame "
+        f"by stage: " + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in stages.items() if k.endswith("_ms"))
+        + "; " + "; ".join(f"{k} {r['jobs']} jobs: {r['ms']:.4f} ms a call (device {r['device_ms']:.4f}"
+                           f", plain {r['plain_ms']:.3f}, bound {max(r['bytes_ms'], r['ops_ms']):.5f})"
+                           for k, r in rows.items())
+        + f"; M1 and M2 equal their plain versions on its first I-VOP and P-VOP ({card})")
+    return stages, rows
+
+
+def check_mpeg4_fixtures(card):
+    """26a: every MPEG-4 fixture through ``MediaVideo``'s card route to the
+    manifest's cv2 frames (BGR, and its blue channel, the gray route's
+    frame), in order and at random, with cv2's count and fps; then
+    :func:`check_mpeg4_plain` and :func:`time_mpeg4_stages`, each part's
+    seconds kept. Returns (figures, M1's and M2's max |err|, their rows'
+    numbers)."""
+    from sleap_tpu_torch.io import avi, mpeg4
+    from sleap_tpu_torch.io.video import MediaVideo
+
+    manifest = mpeg4_manifest()
+    figures = {"files": 0, "frames_read": 0}
+    t0 = time.perf_counter()
+    for name, want in sorted(manifest.items()):
+        path = mpeg4_path(name)
+        n = want["readable"]
+        order = list(range(n)) + [int(i) for i in np.random.default_rng(0).permutation(n)]
+        colour = MediaVideo(path, grayscale=False, bgr=False)
+        check((colour.frames, colour.fps) == (want["frames"], want["fps"]),
+              f"26a: {name} has cv2's count and fps {(colour.frames, colour.fps)}")
+        for i in order:
+            frame = colour.get_frame(i)
+            check(sha256(frame) == want["bgr"][i] and sha256(frame[..., 0]) == want["gray"][i],
+                  f"26a: frame {i} of {name} is cv2's")
+        reader = colour._reader
+        check(isinstance(reader, mpeg4.Mpeg4Reader) or (isinstance(reader, avi.AviReader)
+                                                         and reader.codec == "mpeg4"),
+              f"26a: {name} read by {type(reader).__name__}")
+        figures["frames_read"] += len(order)
+        figures["files"] += 1
+        colour.reset()
+    check("cv2" not in sys.modules, "26a: the card route imported cv2")
+    figures["reads_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    err = {"M1": 0.0, "M2": 0.0}
+    vops = check_mpeg4_plain(torch.device("cuda", 0), err)
+    figures["vops_vs_plain"] = vops
+    figures["vs_plain_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stages, rows = time_mpeg4_stages(card, err)
+    figures["stages_s"] = time.perf_counter() - t0
+    figures["stages"] = stages
+    figures["max_abs_err"] = err
+    log(f"26a {figures['files']} MPEG-4 Part 2 fixtures (AVI, ISO-BMFF, Matroska) on the card: "
+        f"{figures['frames_read']} reads equal to cv2's (FFmpeg) frames in order and at random, "
+        f"counts and fps equal ({figures['reads_s']:.1f} s); host C entropy decoder equal to the "
+        f"plain one, M1 and M2 equal to their plain versions on {vops} VOPs "
+        f"({figures['vs_plain_s']:.1f} s); stages {figures['stages_s']:.1f} s ({card})")
+    return figures, err, rows
+
+
+def check_mpeg4_cli(launches, card):
+    """26b: ``sleap-track`` (in this process) on the 1024^2 gray MPEG-4 clip
+    with phase 8b's trained top-down pair, cuDNN's algorithms deterministic,
+    against ``load_model`` on the frames the card decodes (held to cv2's
+    hashes): the points and scores equal; kernels 2, 3 and 1 once a batch,
+    M2 once a P-VOP and M1 at least once an I-VOP. Returns the figures it
+    prints."""
+    import sleap_tpu_torch
+    from sleap_tpu_torch.io import mpeg4
+    from sleap_tpu_torch.io.slp import read_labels
+    from sleap_tpu_torch.io.video import Video
+    from sleap_tpu_torch.ops import cuda_crops, cuda_peaks
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = os.path.join(here, ".convergence_runs")
+    centroid, instance = (os.path.join(runs, f) for f in CLI_TRAINED[:2])
+    wrappers = {"local_peaks": cuda_peaks.local_peaks_cuda, "crop_unit": cuda_crops.crop_unit_cuda,
+                "global_peaks": cuda_peaks.global_peaks_cuda, "mpeg4_intra": mpeg4.intra_cuda,
+                "mpeg4_inter": mpeg4.inter_cuda}
+    clip, want = mpeg4_path(MPEG4_CLIP), mpeg4_manifest()[MPEG4_CLIP]
+    video = Video.from_filename(clip)
+    decoded = video[:]
+    n = len(decoded)
+    check(video.shape == (n, IMG, IMG, 1) and n == want["readable"]
+          and all(sha256(f) == h for f, h in zip(decoded, want["gray"])),
+          f"26b: the card decodes {MPEG4_CLIP} ({video.shape}) to cv2's gray frames")
+    packets, _ = mpeg4_packets(MPEG4_CLIP)
+    i_vops = sum(p[p.find(b"\x00\x00\x01\xb6") + 4] >> 6 == 0 for p in packets)
+    pred = sleap_tpu_torch.load_model([centroid, instance], batch_size=AVI_BATCH,
+                                      peak_threshold=0.05, max_instances=MAX_INSTANCES)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        expected = pred.predict(decoded)
+        with tempfile.TemporaryDirectory() as root:
+            out = os.path.join(root, "clip.predictions.slp")
+            seconds, counts = cli_run(
+                [clip, "-m", centroid, "-m", instance, "--peak_threshold", "0.05", "--batch_size",
+                 str(AVI_BATCH), "--max_instances", str(MAX_INSTANCES), "--verbosity", "none",
+                 "-o", out], wrappers)
+            got = read_labels(out)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    n_batches = -(-n // AVI_BATCH)
+    for kernel in ("local_peaks", "crop_unit", "global_peaks"):
+        check(counts[kernel] == n_batches,
+              f"26b: {kernel} launched {counts[kernel]} times on {MPEG4_CLIP}, want one a batch")
+        launches[kernel][f"CLI {MPEG4_CLIP} (26b)"] = counts[kernel]
+    check(counts["mpeg4_inter"] >= n - i_vops and counts["mpeg4_intra"] >= i_vops,
+          f"26b: M2 launched {counts['mpeg4_inter']} and M1 {counts['mpeg4_intra']} times for "
+          f"{n - i_vops} P-VOPs and {i_vops} I-VOPs")
+    for kernel in ("mpeg4_intra", "mpeg4_inter"):
+        launches[kernel] = {f"CLI {MPEG4_CLIP} (26b)": counts[kernel]}
+    insts = sum(len(lf.instances) for lf in got)
+    check(len(got) == n and insts >= n, f"26b: instances in every frame ({insts})")
+    d_xy, d_val = compare_predictions(got, expected, 0.0, 0.0,
+                                      f"26b: sleap-track {MPEG4_CLIP} vs load_model")
+    figures = {"frames": n, "i_vops": i_vops, "cli_s": seconds, "cli_fps": n / seconds,
+               "launches": counts, "instances": insts, "max_abs_dxy": d_xy, "max_abs_dscore": d_val}
+    log(f"26b sleap-track {MPEG4_CLIP} ({n} MPEG-4 frames of {IMG}^2 gray, {i_vops} I-VOPs) with "
+        f"the trained pair in this process: {seconds:.3f} s = {n / seconds:.1f} FPS; {insts} "
+        f"instances equal to load_model's exactly; launches {counts} ({card})")
+    return figures
+
+
+def mpeg4_kernel_rows(err, rows, launches):
+    """The ``kernels`` line's rows of M1 and M2, at the 26b clip's 1024^2
+    frames."""
+    out = []
+    for name, kernel, fn in (("M1", "mpeg4_intra", "mpeg4_intra_kernel"),
+                             ("M2", "mpeg4_inter", "mpeg4_inter_kernel")):
+        r = rows[name]
+        out.append({
+            "name": kernel, "route": "cuda", "source": "sleap_tpu_torch/csrc/mpeg4.cu",
+            "replaces": "sleap_tpu/io/video.py:73",
+            "replaces_note": "cv2.VideoCapture (FFmpeg's MPEG-4 Part 2 decoder) on the host in "
+                             "MediaVideo; no TPU kernel",
+            "device_function": fn, "launches": sum(launches[kernel].values()),
+            "launches_by_path": launches[kernel], "max_abs_err": err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+            "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+            "library_ms": None, "device_ms": r["device_ms"], "jobs": r["jobs"],
+        })
+    return out
+
+
+def check_mpeg4(launches, card):
+    """Phase 26: 26a and 26b, each part's seconds printed. Returns (figures,
+    the M1 and M2 rows)."""
+    fixtures, err, rows = timed_phase("26a", check_mpeg4_fixtures, card)
+    cli = timed_phase("26b", check_mpeg4_cli, launches, card)
+    return {"fixtures": fixtures, "cli": cli}, mpeg4_kernel_rows(err, rows, launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU.")
@@ -7678,7 +7993,7 @@ def main() -> int:
 
     # Phase 6: tracking.
     t0 = time.perf_counter()
-    track_paths = blob_paths((1 + TIMED_BATCHES) * BATCH, IMG,
+    track_paths = blob_paths((1 + TRACK_TIMED_BATCHES) * BATCH, IMG,
                              [[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]],
                              [150.0, 150.0], seed=4)
     track_frames = moving_frames(track_paths, IMG, 8.0, 200.0, seed=4)
@@ -7810,6 +8125,10 @@ def main() -> int:
         containers, j5_25a = timed_phase("25", check_containers, launches, card, nvdec_state,
                                          kept.pop("avi_labels"), avi_videos["cli"]["cli_fps"])
         j5 = (max(j5[0], j5_25a), j5[1])
+
+        # Phase 26: MPEG-4 Part 2 videos on the card (host C entropy decoding,
+        # M1 and M2), and sleap-track on a 1024^2 FMP4 clip.
+        mpeg4_videos, mpeg4_rows = timed_phase("26", check_mpeg4, launches, card)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     for row in kernels:
@@ -7817,6 +8136,7 @@ def main() -> int:
     kernels += jpeg_kernel_rows(jpeg_rows, launches)
     kernels.append(avi_kernel_row(j5, launches))
     kernels.append(smooth_kernel_row(j6, launches))
+    kernels += mpeg4_rows
 
     leaked = [m for m in sys.modules if m.split(".")[0] in JAX_SIDE
               and m.split(".")[0] not in torch_own]
@@ -7847,6 +8167,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel, "card": card}), flush=True)
     print(json.dumps({"spatial": spatial, "card": card}), flush=True)
     print(json.dumps({"containers": containers, "card": card}), flush=True)
+    print(json.dumps({"mpeg4": mpeg4_videos, "card": card}), flush=True)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -12,9 +12,10 @@ Where it differs:
 - it runs on the card (``"cuda"``) unless ``--cpu`` asks for the CPU; there
   is no fallback;
 - media videos are decoded where ``--video.device`` says, by default on
-  the device the networks run on: the card reads Motion-JPEG in AVI,
-  QuickTime/MP4 and Matroska files, raw AVI frames, and H.264 in MP4 and
-  Matroska through NVDEC (each by content), the CPU any format cv2 reads;
+  the device the networks run on: the card reads Motion-JPEG and MPEG-4
+  Part 2 (cv2's ``mp4v``/``FMP4``/``XVID``/``DIVX``) in AVI, QuickTime/MP4
+  and Matroska files, raw AVI frames, and H.264 in MP4 and Matroska through
+  NVDEC (each by content), the CPU any format cv2 reads;
 - ``--n-devices N`` runs each batch data-parallel over N replicas, as the
   JAX CLI does: on the first N cards, or with ``--cpu`` on the CPU N times
   (:func:`~sleap_tpu_torch.parallel.distributed.make_sharded_predictor`;
@@ -61,10 +62,11 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--video.device", dest="video_device", choices=("cuda", "cpu"), default=None,
         help="Where media videos (.mp4, .mov, .mkv, .avi, ...) are decoded: 'cuda' reads, by "
-        "content, Motion-JPEG in AVI, QuickTime/MP4 and Matroska files (as OpenCV's FFmpeg "
-        "backend decodes it, edit lists applied), AVI files of uncompressed frames, and H.264 in "
-        "MP4/QuickTime and Matroska through NVDEC; 'cpu' reads any format cv2 reads. Defaults to "
-        "the device the networks run on.",
+        "content, Motion-JPEG and MPEG-4 Part 2 (mp4v, FMP4, XVID, DIVX: I- and P-VOPs) in AVI, "
+        "QuickTime/MP4 and Matroska files (as OpenCV's FFmpeg backend decodes them, edit lists "
+        "applied), AVI files of uncompressed frames, and H.264 in MP4/QuickTime and Matroska "
+        "through NVDEC; 'cpu' reads any format cv2 reads. Defaults to the device the networks "
+        "run on.",
     )
     parser.add_argument(
         "--n-devices", type=int, default=None, dest="n_devices",

@@ -83,6 +83,8 @@
 #include <string.h>
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include "simple_idct.cuh"
 #endif
 
 namespace {
@@ -557,36 +559,6 @@ jpeg_idct_kernel(const int16_t* __restrict__ coefs, int64_t blocks,
 // clipped to 0-255). AC coefficients are dequantised with a 16-bit wrap;
 // the DC carries the level shift (+1024) and saturates. Sums wrap at 32
 // bits, so the arithmetic is unsigned.
-__device__ __forceinline__ int16_t wrap16(uint32_t v) { return (int16_t)(uint16_t)v; }
-
-__device__ __forceinline__ int16_t sat16(int32_t v) {
-  return (int16_t)(v < -32768 ? -32768 : (v > 32767 ? 32767 : v));
-}
-
-// The even and odd halves of one 1-D pass: a[0..3] + b[0..3] -> outputs 0-3,
-// a - b -> outputs 7-4. `a0` already holds W4 * x0 plus the rounding.
-__device__ __forceinline__ void simple_1d(uint32_t a0, const int32_t (&x)[8], uint32_t (&o)[8]) {
-  constexpr int32_t W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873, W6 = 8867,
-                    W7 = 4520;
-  uint32_t a1 = a0, a2 = a0, a3 = a0;
-  a0 += (uint32_t)(W2 * x[2]) + (uint32_t)(W4 * x[4]) + (uint32_t)(W6 * x[6]);
-  a1 += (uint32_t)(W6 * x[2]) - (uint32_t)(W4 * x[4]) - (uint32_t)(W2 * x[6]);
-  a2 += -(uint32_t)(W6 * x[2]) - (uint32_t)(W4 * x[4]) + (uint32_t)(W2 * x[6]);
-  a3 += -(uint32_t)(W2 * x[2]) + (uint32_t)(W4 * x[4]) - (uint32_t)(W6 * x[6]);
-  const uint32_t b0 = (uint32_t)(W1 * x[1]) + (uint32_t)(W3 * x[3]) + (uint32_t)(W5 * x[5]) +
-                      (uint32_t)(W7 * x[7]);
-  const uint32_t b1 = (uint32_t)(W3 * x[1]) - (uint32_t)(W7 * x[3]) - (uint32_t)(W1 * x[5]) -
-                      (uint32_t)(W5 * x[7]);
-  const uint32_t b2 = (uint32_t)(W5 * x[1]) - (uint32_t)(W1 * x[3]) + (uint32_t)(W7 * x[5]) +
-                      (uint32_t)(W3 * x[7]);
-  const uint32_t b3 = (uint32_t)(W7 * x[1]) - (uint32_t)(W5 * x[3]) + (uint32_t)(W3 * x[5]) -
-                      (uint32_t)(W1 * x[7]);
-  o[0] = a0 + b0; o[7] = a0 - b0;
-  o[1] = a1 + b1; o[6] = a1 - b1;
-  o[2] = a2 + b2; o[5] = a2 - b2;
-  o[3] = a3 + b3; o[4] = a3 - b3;
-}
-
 __global__ void __launch_bounds__(kBlocksPerCta * 8)
 jpeg_idct_ffmpeg_kernel(const int16_t* __restrict__ coefs, int64_t blocks,
                         const int32_t* __restrict__ quant, int64_t end0, int64_t end1,
@@ -601,37 +573,19 @@ jpeg_idct_ffmpeg_kernel(const int16_t* __restrict__ coefs, int64_t blocks,
     const int16_t* c = coefs + 64 * b + 8 * lane;
     const int32_t* q = quant + 64 * comp + 8 * lane;
     int32_t x[8];
-    bool ac = false;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int32_t v = (int32_t)c[k] * q[k];
       x[k] = (lane == 0 && k == 0) ? sat16(v + 1024) : wrap16((uint32_t)v);
-      if (k) ac |= x[k] != 0;
     }
-    if (!ac) {
-      const int16_t dc = wrap16((uint32_t)x[0] << 3);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) ws[local][8 * lane + k] = dc;
-    } else {
-      uint32_t o[8];
-      simple_1d((uint32_t)(16383 * x[0]) + (1u << 10), x, o);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) ws[local][8 * lane + k] = sat16((int32_t)o[k] >> 11);
-    }
+    simple_row(x, &ws[local][8 * lane]);
   }
   __syncthreads();
   if (live) {  // pass 2: column `lane`
-    int32_t x[8];
+    int32_t v[8];
+    simple_column(ws[local], lane, v);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) x[k] = ws[local][8 * k + lane];
-    const int32_t dc = wrap16((uint32_t)(x[0] + 32));
-    uint32_t o[8];
-    simple_1d((uint32_t)(16383 * dc), x, o);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int32_t v = (int32_t)o[k] >> 20;
-      px[local][8 * k + lane] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
-    }
+    for (int k = 0; k < 8; ++k) px[local][8 * k + lane] = clamp255(v[k]);
   }
   __syncthreads();
   if (live)
@@ -798,10 +752,6 @@ __device__ __forceinline__ int upsampled(const uint8_t* __restrict__ s, const Co
   const int here = 3 * sample(s, c, cy, cx) + sample(s, c, ny, cx);
   const int next = 3 * sample(s, c, cy, nx) + sample(s, c, ny, nx);
   return (3 * here + next + 8 - odd) >> 4;
-}
-
-__device__ __forceinline__ uint8_t clamp255(int v) {
-  return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
 __global__ void jpeg_color_kernel(const uint8_t* __restrict__ s, int mode, int H, int W, Comp c0,

@@ -25,7 +25,9 @@ back, whichever segment they are in.
 :class:`AviVideo` is the demuxer of the card's media route
 (:class:`sleap_tpu_torch.io.video.MediaVideo`): it reads any AVI's first
 video stream as OpenCV's FFmpeg backend (``libavformat``'s ``avidec.c``)
-reads it. Its frame count is ``strh``'s ``dwLength`` and its fps ``dwRate /
+reads it, and :class:`AviReader` decodes its Motion-JPEG, MPEG-4 Part 2
+(the fourccs ``riff.c`` maps to it: ``FMP4``, ``XVID``, ``DIVX``, ``mp4v``,
+...) or uncompressed frames. Its frame count is ``strh``'s ``dwLength`` and its fps ``dwRate /
 dwScale``, which are cv2's ``CAP_PROP_FRAME_COUNT`` and ``CAP_PROP_FPS``.
 Frames come from the OpenDML ``indx``/``ix##`` indexes where ``strl`` has
 one (across ``AVIX`` segments), else from ``idx1`` (its offsets counted
@@ -48,7 +50,7 @@ from typing import BinaryIO, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sleap_tpu_torch.io import mjpeg
+from sleap_tpu_torch.io import mjpeg, mpeg4
 
 #: The most bytes one RIFF may hold before the next frame opens an AVIX
 #: segment (AVI 1.0's limit); tests lower it to write OpenDML files.
@@ -322,8 +324,8 @@ class AviVideo:
 
     @property
     def codec(self) -> str:
-        """"mjpeg", "bgr24", "bgra", "pal8" or "gray"; raise naming a codec
-        the card route does not decode."""
+        """"mjpeg", "mpeg4", "bgr24", "bgra", "pal8" or "gray"; raise naming
+        a codec the card route does not decode."""
         tag = self.compression.upper()
         if tag == "\0\0\0\0":
             kinds = {24: "bgr24", 32: "bgra", 8: "pal8"}
@@ -335,6 +337,8 @@ class AviVideo:
             return kinds[self.bit_count]
         if tag in MJPEG_FOURCCS:
             return "mjpeg"
+        if tag in mpeg4.FOURCCS:
+            return "mpeg4"
         if self.compression in GRAY_FOURCCS:
             return "gray"
         shown = self.compression if self.compression.isprintable() else repr(self.compression)
@@ -492,24 +496,29 @@ def raw_frame(video: AviVideo, data: bytes) -> np.ndarray:
 
 class AviReader:
     """Frames of an :class:`AviVideo` on ``device``: Motion-JPEG through
-    :class:`sleap_tpu_torch.io.mjpeg.MotionJpegReader` (J5 on the card), raw
-    frames unpacked on the host and copied once. Every frame is a key frame,
-    so a read never decodes another frame."""
+    :class:`sleap_tpu_torch.io.mjpeg.MotionJpegReader` (J5 on the card),
+    MPEG-4 Part 2 through :class:`sleap_tpu_torch.io.mpeg4.Mpeg4Reader` (M1
+    and M2 on the card), raw frames unpacked on the host and copied once.
+    A Motion-JPEG or raw read never decodes another frame; an MPEG-4 read
+    decodes on from the I-VOP at or before it."""
 
     def __init__(self, demux: AviVideo, device="cuda"):
         self.demux = demux
         self.device = torch.device(device)
         self.codec = demux.codec  # raises for a codec the card route does not decode
         if self.codec == "mjpeg":
-            self._mjpeg = mjpeg.MotionJpegReader(demux, abs(demux.height), self.device)
+            self._decoder = mjpeg.MotionJpegReader(demux, abs(demux.height), self.device)
+        elif self.codec == "mpeg4":  # strf's extradata may hold the VOL
+            self._decoder = mpeg4.Mpeg4Reader(demux, self.device, demux.headers["strf"][40:],
+                                              demux.compression)
         else:
             self._f = open(demux.filename, "rb")
 
     def frame(self, i: int, channels: str = "bgr"):
         """Frame ``i``, (H, W, C) uint8 on the device: ``channels`` "bgr",
         "rgb" or "b" (the blue channel alone)."""
-        if self.codec == "mjpeg":
-            return self._mjpeg.frame(i, channels)
+        if self.codec in ("mjpeg", "mpeg4"):
+            return self._decoder.frame(i, channels)
         px = raw_frame(self.demux, self.demux.read(self._f, i))
         if px.shape[2] == 1:
             px = px if channels == "b" else np.repeat(px, 3, 2)
@@ -518,4 +527,4 @@ class AviReader:
         return torch.from_numpy(np.array(px)).to(self.device)
 
     def close(self) -> None:
-        (self._mjpeg if self.codec == "mjpeg" else self._f).close()
+        (self._decoder if self.codec in ("mjpeg", "mpeg4") else self._f).close()

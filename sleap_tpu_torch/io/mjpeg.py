@@ -153,6 +153,19 @@ def _simple_1d(a0: torch.Tensor, x) -> List[torch.Tensor]:
     return [_i32(v) for v in (a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0)]
 
 
+def simple_idct(z: torch.Tensor) -> torch.Tensor:
+    """FFmpeg's simple IDCT as fitted above, of (blocks, 64) int64 terms in
+    int16 range, raster order: (blocks, 8, 8) int64 samples before
+    saturation (J5's and MPEG-4's M1 and M2's arithmetic)."""
+    rows = z.view(-1, 8, 8)
+    x = [rows[:, :, k] for k in range(8)]  # pass 1: each row, (blocks, 8) a term
+    out = torch.stack([(v >> 11).clamp(-32768, 32767) for v in _simple_1d(W4 * x[0] + 1024, x)], 2)
+    dc_only = (rows[:, :, 1:] == 0).all(2)
+    out = torch.where(dc_only[..., None], _i16(x[0] << 3)[..., None], out)
+    x = [out[:, k, :] for k in range(8)]  # pass 2: each column
+    return torch.stack([v >> 20 for v in _simple_1d(W4 * _i16(x[0] + 32), x)], 1)
+
+
 def idct_plain(coefs: torch.Tensor, quant: torch.Tensor, block_comp: torch.Tensor) -> torch.Tensor:
     """Stage 2, J5's plain version: (blocks, 64) int16 coefficients, (components,
     64) quant tables and each block's component -> (blocks, 8, 8) uint8."""
@@ -160,14 +173,7 @@ def idct_plain(coefs: torch.Tensor, quant: torch.Tensor, block_comp: torch.Tenso
     dc = (z[:, 0] + 1024).clamp(-32768, 32767)
     z = _i16(z)
     z[:, 0] = dc
-    rows = z.view(-1, 8, 8)
-    x = [rows[:, :, k] for k in range(8)]  # pass 1: each row, (blocks, 8) a term
-    out = torch.stack([(v >> 11).clamp(-32768, 32767) for v in _simple_1d(W4 * x[0] + 1024, x)], 2)
-    dc_only = (rows[:, :, 1:] == 0).all(2)
-    out = torch.where(dc_only[..., None], _i16(x[0] << 3)[..., None], out)
-    x = [out[:, k, :] for k in range(8)]  # pass 2: each column
-    cols = _simple_1d(W4 * _i16(x[0] + 32), x)
-    return torch.stack([(v >> 20).clamp(0, 255) for v in cols], 1).to(torch.uint8)
+    return simple_idct(z).clamp(0, 255).to(torch.uint8)
 
 
 def idct_cuda(coefs: torch.Tensor, quant: torch.Tensor, header: jpeg.Header) -> torch.Tensor:

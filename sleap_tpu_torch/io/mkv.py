@@ -13,8 +13,11 @@ unknown, as a live writer leaves a cluster it never closed) and a body.
   ``PixelWidth``/``PixelHeight``, ``DefaultDuration`` and
   ``ContentEncodings``. ``V_MJPEG`` and ``V_MS/VFW/FOURCC`` whose
   BITMAPINFOHEADER names a Motion-JPEG fourcc (:func:`avi.bitmap_info`) are
-  Motion-JPEG; ``V_MPEG4/ISO/AVC`` is H.264, its ``CodecPrivate`` an
-  ``avcC`` (:func:`mp4.parse_avcc`). Header stripping (``ContentCompAlgo``
+  Motion-JPEG; ``V_MPEG4/ISO/SP``, ``/ASP`` and ``/AP``, and
+  ``V_MS/VFW/FOURCC`` of an MPEG-4 fourcc (the bytes after the
+  BITMAPINFOHEADER then hold any VOL header), are MPEG-4 Part 2, their
+  ``CodecPrivate`` the VOL header; ``V_MPEG4/ISO/AVC`` is H.264, its
+  ``CodecPrivate`` an ``avcC`` (:func:`mp4.parse_avcc`). Header stripping (``ContentCompAlgo``
   3) puts its bytes back in front of every frame; zlib, bzlib, LZO and
   encryption raise naming them;
 - the index: each ``Cluster``'s ``Timecode`` and its ``SimpleBlock``\\ s and
@@ -26,7 +29,7 @@ unknown, as a live writer leaves a cluster it never closed) and a body.
 
 Decoding order is file order. Presentation order is by block timecode for
 H.264 (the decoder reorders) and file order for Motion-JPEG (``mjpegdec``
-outputs frames as they come). FFmpeg gives a Matroska stream no frame count,
+outputs frames as they come) and MPEG-4 Part 2 (I- and P-VOPs). FFmpeg gives a Matroska stream no frame count,
 so cv2's ``CAP_PROP_FRAME_COUNT`` is ``floor(duration * fps + 0.5)`` of the
 segment's ``Duration`` (:attr:`MkvVideo.frames`), and may differ from the
 frames ``read()`` gives (:attr:`~sleap_tpu_torch.io.mp4.Track.readable`).
@@ -45,7 +48,7 @@ from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from sleap_tpu_torch.io import avi, mp4
+from sleap_tpu_torch.io import avi, mp4, mpeg4
 
 EBML_MAGIC = b"\x1a\x45\xdf\xa3"
 DOCTYPE = 0x4282
@@ -65,7 +68,8 @@ _TOP_LEVEL = frozenset({CLUSTER, 0x1C53BB6B, 0x114D9B74, INFO, TRACKS, 0x1254C36
                         0x1941A469})
 #: ContentCompAlgo values refused, by name.
 _COMPRESSION = {0: "zlib", 1: "bzlib", 2: "LZO"}
-CODECS = {"V_MJPEG": "mjpeg", "V_MPEG4/ISO/AVC": "h264", "V_MS/VFW/FOURCC": "mjpeg"}
+CODECS = {"V_MJPEG": "mjpeg", "V_MPEG4/ISO/AVC": "h264", "V_MS/VFW/FOURCC": "mjpeg",
+          "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/ASP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4"}
 #: cv2's frame count without a ``Duration``: FFmpeg's unset duration
 #: (``AV_NOPTS_VALUE``) taken as a number.
 NOPTS = -(1 << 63)
@@ -159,6 +163,8 @@ class MkvVideo(mp4.Track):
     nal_length_size: int = 0
     sps: List[bytes] = field(default_factory=list)
     pps: List[bytes] = field(default_factory=list)
+    config: bytes = b""  # MPEG-4 Part 2: the VOL header (CodecPrivate, or past the BITMAPINFOHEADER)
+    fourcc: str = ""  # V_MS/VFW/FOURCC's compression
 
     @classmethod
     def open(cls, filename: str) -> "MkvVideo":
@@ -207,7 +213,7 @@ class MkvVideo(mp4.Track):
             raise ValueError(f"{filename}: the video track has no frames.")
         return cls(filename, track["codec_id"], track["kind"], track["width"], track["height"],
                    offsets, sizes, sync, timecodes, track["default_duration"], scale, duration,
-                   track["strip"], *track["avc"])
+                   track["strip"], *track["avc"], config=track["config"], fourcc=track["fourcc"])
 
     def __post_init__(self):
         if not self.default_duration:
@@ -260,13 +266,17 @@ def _video_track(filename: str, tracks: bytes) -> dict:
         codec_id = entry.get(CODECID, b"").rstrip(b"\0").decode("latin-1")
         private = entry.get(CODECPRIVATE, b"")
         kind = CODECS.get(codec_id)
+        fourcc, config = "", private
         if codec_id == "V_MS/VFW/FOURCC":
             if len(private) < 40:
                 raise ValueError(f"{filename}: a V_MS/VFW/FOURCC track without BITMAPINFOHEADER")
-            compression = avi.bitmap_info(private)[3]
-            if compression.upper() not in avi.MJPEG_FOURCCS:
+            fourcc = avi.bitmap_info(private)[3]
+            config = private[40:]
+            kind = ("mjpeg" if fourcc.upper() in avi.MJPEG_FOURCCS else
+                    "mpeg4" if fourcc.upper() in mpeg4.FOURCCS else None)
+            if kind is None:
                 raise mp4._unsupported(f"{filename}: Matroska V_MS/VFW/FOURCC video of fourcc "
-                                       f"{compression!r}")
+                                       f"{fourcc!r}")
         elif kind is None:
             raise mp4._unsupported(f"{filename}: Matroska video of CodecID {codec_id!r}")
         video = _children(entry.get(VIDEO, b""), 0, len(entry.get(VIDEO, b"")))
@@ -277,7 +287,8 @@ def _video_track(filename: str, tracks: bytes) -> dict:
                 "width": _uint(video.get(PIXELWIDTH, b"")),
                 "height": _uint(video.get(PIXELHEIGHT, b"")),
                 "default_duration": _uint(entry.get(DEFAULTDURATION, b"")),
-                "strip": _header_stripping(filename, entry.get(CONTENTENCODINGS)), "avc": avc}
+                "strip": _header_stripping(filename, entry.get(CONTENTENCODINGS)), "avc": avc,
+                "config": config if kind == "mpeg4" else b"", "fourcc": fourcc}
     raise ValueError(f"{filename}: no video track")
 
 

@@ -1,11 +1,14 @@
-"""A pure-Python ISO-BMFF (``.mp4``, ``.mov``, QuickTime) demuxer for H.264
-and Motion-JPEG video, and what the card's readers share of a demuxed track.
+"""A pure-Python ISO-BMFF (``.mp4``, ``.mov``, QuickTime) demuxer for H.264,
+Motion-JPEG and MPEG-4 Part 2 video, and what the card's readers share of a
+demuxed track.
 
 :class:`Mp4Video` reads what a decoder needs from the file's first video
 track, found by content, whatever the file's extension: the sample entry
 (``avc1``/``avc3`` with ``avcC``: profile, NAL length size, SPS and PPS, the
 display size from the SPS's frame cropping; or ``jpeg``/``mjpa``, one JPEG a
-sample, at the ``VisualSampleEntry``'s size), the sample table (sizes from
+sample, at the ``VisualSampleEntry``'s size; or ``mp4v`` whose ``esds`` names
+MPEG-4 Visual (objectTypeIndication 0x20), its DecoderSpecificInfo the VOL
+header, one VOP a sample), the sample table (sizes from
 ``stsz``, offsets from ``stco``/``co64`` and ``stsc``, sync samples from
 ``stss``, where its absence means every sample is one, and timing from
 ``stts``/``ctts``), and the edit list (``edts/elst``, versions 0 and 1).
@@ -22,8 +25,8 @@ an edit list frame ``i`` is the ``i``-th sample in presentation order
 (decoding time plus ``ctts``). :meth:`Track.to_annexb` gives an H.264
 packet as an Annex-B byte stream (a start code before each NAL unit), with
 the SPS and PPS in front of the packet that decoding starts from. Any other
-codec (``mjpb``, whose frames carry no markers, ``mjp2``, ``mp4v``, ...)
-raises :class:`NotImplementedError` naming it.
+codec (``mjpb``, whose frames carry no markers, ``mjp2``, an ``mp4v`` entry
+of MPEG-1 or MPEG-2 video, ...) raises :class:`NotImplementedError` naming it.
 """
 
 from __future__ import annotations
@@ -40,16 +43,17 @@ START_CODE = b"\x00\x00\x00\x01"
 _TODO = "(ROADMAP.md, queue 1, item 3g: other codecs and containers)"
 INT_MAX = (1 << 31) - 1
 #: Sample entries by the codec the card decodes them with.
-ENTRIES = {b"avc1": "h264", b"avc3": "h264", b"jpeg": "mjpeg", b"mjpa": "mjpeg"}
+ENTRIES = {b"avc1": "h264", b"avc3": "h264", b"jpeg": "mjpeg", b"mjpa": "mjpeg",
+           b"mp4v": "mpeg4"}
 #: ISO-BMFF top-level boxes a file may start with (from FFmpeg's ``mov_probe``).
 TOP_LEVEL = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"udta", b"uuid")
 
 
 def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not read on the card yet {_TODO}; read it with "
-                               f"--video.device cpu (cv2). The card reads AVI files of Motion-JPEG "
-                               f"or uncompressed frames, Motion-JPEG in QuickTime/ISO-BMFF and "
-                               f"Matroska files, and H.264 in ISO-BMFF and Matroska files.")
+                               f"--video.device cpu (cv2). The card reads Motion-JPEG and MPEG-4 "
+                               f"Part 2 in AVI, QuickTime/ISO-BMFF and Matroska files, AVI files of "
+                               f"uncompressed frames, and H.264 in ISO-BMFF and Matroska files.")
 
 
 def av_reduce(num: int, den: int, limit: int) -> Tuple[int, int]:
@@ -245,6 +249,48 @@ def parse_avcc(avcc: bytes, filename: str) -> Tuple[int, List[bytes], List[bytes
     return nal_length_size, sps, pps
 
 
+def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
+    """An MPEG-4 descriptor's (tag, body start, body end) at ``pos``: its size
+    in up to four bytes of seven bits, the high bit continuing."""
+    tag, size, pos = data[pos], 0, pos + 1
+    for _ in range(4):
+        b = data[pos]
+        pos += 1
+        size = (size << 7) | (b & 0x7F)
+        if not b & 0x80:
+            break
+    return tag, pos, pos + size
+
+
+def parse_esds(esds: bytes, filename: str) -> Tuple[int, bytes]:
+    """An ``esds`` box body's objectTypeIndication and DecoderSpecificInfo
+    (an MPEG-4 Visual stream's VOL header), as FFmpeg's ``ff_mp4_read_dec_config_descr``
+    reads them."""
+    try:
+        tag, a, end = _descriptor(esds, 4)  # after the full box's version and flags
+        if tag != 0x03:
+            raise ValueError
+        flags = esds[a + 2]
+        a += 3 + (2 if flags & 0x80 else 0)  # ES_ID, flags, dependsOn_ES_ID
+        if flags & 0x40:  # a URL
+            a += 1 + esds[a]
+        a += 2 if flags & 0x20 else 0  # OCR_ES_Id
+        tag, a, end = _descriptor(esds, a)
+        if tag != 0x04:
+            raise ValueError
+        oti = esds[a]
+        a += 13
+        info = b""
+        if a < end:
+            tag, b, e = _descriptor(esds, a)
+            if tag == 0x05:
+                info = esds[b:e]
+        return oti, info
+    except (ValueError, IndexError):
+        raise ValueError(f"{filename}: an 'esds' box without an ES and decoder configuration "
+                         f"descriptor") from None
+
+
 def edit_packets(dts: np.ndarray, pts: np.ndarray, sync: np.ndarray, has_ctts: bool,
                  edits: Sequence[Tuple[int, int]], media_timescale: int, movie_timescale: int):
     """FFmpeg's ``mov_fix_index``: the packets the mov demuxer hands its
@@ -395,6 +441,7 @@ class Mp4Video(Track):
     movie_timescale: int = 0
     edits: List[Tuple[int, int]] = field(default_factory=list)
     has_ctts: bool = False
+    config: bytes = b""  # MPEG-4 Part 2: the VOL header (esds's DecoderSpecificInfo)
 
     @classmethod
     def open(cls, filename: str) -> "Mp4Video":
@@ -438,6 +485,15 @@ class Mp4Video(Track):
             raise _unsupported(f"{filename}: {what}")
         width, height = struct.unpack_from(">HH", moov, s + 16 + 24)
         config = {}
+        if kind == "mpeg4":
+            esds = _find(moov, [b"esds"], s + 16 + 78, s + 8 + entry_size)
+            if esds is None:
+                raise ValueError(f"{filename}: an 'mp4v' entry without 'esds'")
+            oti, info = parse_esds(moov[esds[0]:esds[1]], filename)
+            if oti != 0x20:
+                raise _unsupported(f"{filename}: an 'mp4v' entry of objectTypeIndication "
+                                   f"{oti:#x} (not MPEG-4 Visual)")
+            config = {"config": info}
         if kind == "h264":
             avcc = _find(moov, [b"avcC"], s + 16 + 78, s + 8 + entry_size)
             if avcc is None:
@@ -500,7 +556,8 @@ class Mp4Video(Track):
         packets, keep, edit_of = edit_packets(self.dts, pts, self.sync, self.has_ctts, self.edits,
                                               self.timescale, self.movie_timescale)
         # H.264 frames leave the decoder in presentation order within an edit;
-        # Motion-JPEG frames in the order they went in.
+        # Motion-JPEG and MPEG-4 Part 2 (I- and P-VOPs) frames in the order
+        # they went in.
         keys = (pts[packets], edit_of) if self.kind == "h264" else ()
         self._present(packets, keep, keys)
 

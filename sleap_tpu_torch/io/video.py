@@ -89,13 +89,15 @@ class MediaVideo:
 
     ``device`` "cuda" (the default) picks the route by the file's content,
     whatever its extension (:func:`_card_reader`): an AVI, ISO-BMFF
-    (QuickTime, MP4) or Matroska file of Motion-JPEG, or an AVI of
-    uncompressed frames, is demuxed and decoded as OpenCV's FFmpeg backend
-    decodes it, on the card, with the frame count, fps and frame numbering
-    cv2 gives (edit lists applied); H.264 in ISO-BMFF or Matroska goes
-    through NVDEC and is converted there as OpenCV would. Any other codec or
-    container, or a card without NVDEC for H.264, raises (no fallback). ``device`` "cpu" reads through
-    OpenCV. The device is not a field: ``.slp`` files do
+    (QuickTime, MP4) or Matroska file of Motion-JPEG or MPEG-4 Part 2
+    (``mp4v``, ``FMP4``, ``XVID``, ``DIVX``: I- and P-VOPs,
+    :mod:`~sleap_tpu_torch.io.mpeg4`), or an AVI of uncompressed frames, is
+    demuxed and decoded as OpenCV's FFmpeg backend decodes it, on the card,
+    with the frame count, fps and frame numbering cv2 gives (edit lists
+    applied); H.264 in ISO-BMFF or Matroska goes through NVDEC and is
+    converted there as OpenCV would. Any other codec or container, an
+    MPEG-4 tool the card does not decode, or a card without NVDEC for H.264,
+    raises (no fallback). ``device`` "cpu" reads through OpenCV. The device is not a field: ``.slp`` files do
     not record it. ``grayscale`` None detects it from the first frame (all
     channels equal); ``bgr`` flips OpenCV's BGR to RGB.
     """
@@ -223,14 +225,14 @@ class MediaVideo:
         gray (what the CPU route keeps), else RGB, or BGR with ``bgr``
         False. An AVI reader decodes to those channels; NVDEC's NV12 frame
         is converted on the card."""
-        from sleap_tpu_torch.io import avi, mjpeg, yuv
+        from sleap_tpu_torch.io import avi, mjpeg, mpeg4, yuv
 
         if grayscale is None:
             grayscale = self.is_grayscale
         channels = "b" if grayscale else ("rgb" if self.bgr else "bgr")
         with self._lock:
             reader = self._reader
-            if isinstance(reader, (avi.AviReader, mjpeg.MotionJpegReader)):
+            if isinstance(reader, (avi.AviReader, mjpeg.MotionJpegReader, mpeg4.Mpeg4Reader)):
                 return reader.frame(idx, channels).cpu().numpy()
             nv12 = reader.frame(idx)
         return yuv.nv12_to_frame(nv12, reader.height, channels).cpu().numpy()
@@ -256,9 +258,10 @@ def _card_reader(filename: str, device: torch.device):
     """The card's reader of a media file, by its content, whatever its
     extension: the container by its leading bytes (:func:`container_of`),
     then the codec: an AVI's :class:`~sleap_tpu_torch.io.avi.AviReader`,
-    Motion-JPEG's :class:`~sleap_tpu_torch.io.mjpeg.MotionJpegReader`, or
+    Motion-JPEG's :class:`~sleap_tpu_torch.io.mjpeg.MotionJpegReader`,
+    MPEG-4 Part 2's :class:`~sleap_tpu_torch.io.mpeg4.Mpeg4Reader`, or
     H.264's NVDEC reader."""
-    from sleap_tpu_torch.io import avi, mjpeg, mkv, mp4, nvdec
+    from sleap_tpu_torch.io import avi, mjpeg, mkv, mp4, mpeg4, nvdec
 
     with open(filename, "rb") as f:
         head = f.read(12)
@@ -272,6 +275,9 @@ def _card_reader(filename: str, device: torch.device):
     demux = (mkv.MkvVideo if kind == "matroska" else mp4.Mp4Video).open(filename)
     if demux.kind == "mjpeg":
         return mjpeg.MotionJpegReader(demux, demux.height, device)
+    if demux.kind == "mpeg4":
+        return mpeg4.Mpeg4Reader(demux, device, config=demux.config,
+                                 fourcc=getattr(demux, "fourcc", ""))
     return nvdec.NvdecReader(demux, device)
 
 

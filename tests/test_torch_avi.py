@@ -235,12 +235,26 @@ def test_idct_plain_is_the_simple_idct_on_hand_blocks():
 
 
 def test_other_codecs_formats_and_frames_raise_naming_them(tmp_path):
+    # cv2's mp4v AVI is MPEG-4 Part 2, read on the card's route as cv2 reads
+    # it (tests/test_torch_mpeg4.py); cv2's FFV1 AVI is refused naming it.
     path = str(tmp_path / "mpeg4.avi")
     writer = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 32))
     for _ in range(3):
         writer.write(np.zeros((32, 32, 3), np.uint8))
     writer.release()
-    with pytest.raises(NotImplementedError, match="codec 'mp4v'.*ROADMAP.md item 3g"):
+    mpeg4_reader = avi.AviReader(avi.AviVideo.open(path), "cpu")
+    assert mpeg4_reader.codec == "mpeg4"
+    cap = cv2.VideoCapture(path, cv2.CAP_FFMPEG)
+    for i in range(3):
+        ok, want = cap.read()
+        assert ok and np.array_equal(mpeg4_reader.frame(i).numpy(), want), i
+    cap.release()
+    path = str(tmp_path / "ffv1.avi")
+    writer = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*"FFV1"), 10, (32, 32))
+    for _ in range(3):
+        writer.write(np.zeros((32, 32, 3), np.uint8))
+    writer.release()
+    with pytest.raises(NotImplementedError, match="codec 'FFV1'.*ROADMAP.md item 3g"):
         avi.AviReader(avi.AviVideo.open(path), "cpu")
     base = (FIXTURES / "cv2_mjpg_100x72.avi").read_bytes()
     for fourcc, bits, what in ((b"\0\0\0\0", 16, "16-bit uncompressed"), (b"H264", 24, "'H264'")):

@@ -373,12 +373,24 @@ def test_what_the_card_does_not_read_raises_naming_it(tmp_path):
         (retag("cv2_mjpg_100x72.mkv", b"matroska", b"notmatro", tmp_path, "d.mkv"), "DocType"),
         (retag("vfw_mjpg_100x72.mkv", b"MJPG", b"H264", tmp_path, "v.mkv"), "fourcc 'H264'"),
     ]
+    # cv2's mp4v .mov is MPEG-4 Part 2, read as cv2 reads it
+    # (tests/test_torch_mpeg4.py); cv2's FFV1 .mkv is refused naming it.
     path = str(tmp_path / "mp4v.mov")
     writer = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 32))
     for _ in range(3):
         writer.write(np.zeros((32, 32, 3), np.uint8))
     writer.release()
-    cases.append((path, "'mp4v'"))
+    cap, route = cv2.VideoCapture(path, cv2.CAP_FFMPEG), tvideo._card_reader(path, "cpu")
+    for i in range(3):
+        ok, want = cap.read()
+        assert ok and np.array_equal(route.frame(i).numpy(), want), i
+    cap.release()
+    path = str(tmp_path / "ffv1.mkv")
+    writer = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*"FFV1"), 10, (32, 32))
+    for _ in range(3):
+        writer.write(np.zeros((32, 32, 3), np.uint8))
+    writer.release()
+    cases.append((path, "FFV1"))
     no_rate = tmp_path / "rate.mkv"
     no_rate.write_bytes(fixtures.mkv_bytes(fixtures.read_payloads(str(FIXTURES / "nocues_100x72.mkv")),
                                            [100 * k for k in range(6)], 100, 72, default_duration=0))

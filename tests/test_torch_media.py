@@ -274,21 +274,27 @@ def test_card_route_is_the_default_and_never_falls_back_to_cv2(tmp_path, monkeyp
 
 
 def test_other_codecs_and_containers_raise_naming_them(tmp_path):
-    path = str(tmp_path / "mpeg4.mp4")
-    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 32))
+    # MPEG-4 Part 2 (cv2's mp4v) in .mp4 and .avi reads on the card's route
+    # (tests/test_torch_mpeg4.py) as cv2 reads it; a codec the route does not
+    # decode, cv2's HuffYUV in an AVI, raises naming its fourcc.
+    for name in ("mpeg4.mp4", "mpeg4.avi"):
+        path = str(tmp_path / name)
+        out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 32))
+        for _ in range(3):
+            out.write(np.zeros((32, 32, 3), np.uint8))
+        out.release()
+        cap, route = cv2.VideoCapture(path), tvideo._card_reader(path, "cpu")
+        for i in range(3):
+            ok, want = cap.read()
+            assert ok
+            np.testing.assert_array_equal(route.frame(i).numpy(), want, err_msg=f"{name} {i}")
+        cap.release()
+    in_avi = str(tmp_path / "huffyuv.avi")
+    out = cv2.VideoWriter(in_avi, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*"HFYU"), 10, (32, 32))
     for _ in range(3):
         out.write(np.zeros((32, 32, 3), np.uint8))
     out.release()
-    with pytest.raises(NotImplementedError, match="'mp4v'.*ROADMAP.md"):
-        tvideo.MediaVideo(path).get_frame(0)
-    # An AVI is read on the card when it holds Motion-JPEG or raw frames
-    # (tests/test_torch_avi.py); one of another codec raises naming its fourcc.
-    in_avi = str(tmp_path / "mpeg4.avi")
-    out = cv2.VideoWriter(in_avi, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 32))
-    for _ in range(3):
-        out.write(np.zeros((32, 32, 3), np.uint8))
-    out.release()
-    with pytest.raises(NotImplementedError, match="AVI of codec 'mp4v'.*ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="AVI of codec 'HFYU'.*ROADMAP.md"):
         tvideo.Video.from_filename(in_avi).get_frame(0)
     for ext in ("mkv", "mj2"):
         other = tmp_path / f"clip.{ext}"
