@@ -125,7 +125,7 @@ script its total before the ``kernels`` line:
    the tracker's host ms a frame, and the flow's device ms and launches per
    call and the tracker's device launches per frame (``torch.profiler``,
    one call a session, from two sessions that agree on every count).
-   6b: the card's instances of 32 of those frames tracked by a card tracker
+   6b: the card's instances of 16 of those frames tracked by a card tracker
    and a CPU tracker: the same track per instance, tracking scores within
    TRACK_SCORE_TOL, the saved flow-shifted instances within SHIFT_TOL px
    with the same status. 6c: the trained top-down pair from its checkpoint
@@ -577,16 +577,33 @@ script its total before the ``kernels`` line:
    kernels line as "CLI gray_1024.mov (25b)" and "... .mkv (25b)"); FPS
    beside 21b's and ms a 1024^2 frame by stage (demux, entropy decoding,
    copy in, J5, conversion, copy out) for each container.
+26. MPEG-4 Part 2 on the card (``io/mpeg4.py``: host C entropy decoding,
+   M1 intra, M2 P-VOP and M3 B-VOP blocks, each with FFmpeg's simple IDCT
+   or Xvid's). 26a: every ``tests/torch_data/mpeg4`` fixture (cv2's
+   streams in AVI, ISO-BMFF and Matroska; the writer's I/P streams, B-VOPs
+   of every kind, GOVs, Xvid's and DivX's user data, packed bitstreams,
+   intra VOPs of chosen coefficients) through ``MediaVideo``'s card route,
+   in order and at random, to cv2's recorded frames, count and fps, the
+   six kernels' counts zeroed before and each launched; the host C decoder
+   equal to the plain one and M1, M2 and M3 to their plain versions (max
+   |err| 0) on every VOP of MPEG4_PLAIN (B-VOPs included) and at 1024^2
+   (the 26b clip's first I- and P-VOP, the Xvid clip's first I-, P- and
+   B-VOP, M3 with both IDCTs), with each kernel's ms; ms a 1024^2 frame by
+   stage and frames/s over sequential reads of both clips. 26b:
+   ``sleap-track`` on ``fmp4_gray_1024.avi`` with phase 8b's trained pair,
+   predictions equal to ``load_model``'s on the decoded frames, M1 and M2
+   launched; 26c: the same on ``xvid_gray_1024.avi`` (I, P and B-VOPs,
+   Xvid's IDCT), the Xvid forms of M1, M2 and M3 launched.
 
 Then a JSON line of phase 7's numbers, one of phase 11's, one of phase 12's,
 one of phase 13's, one of phase 14's, one of phase 15's, one of phase 16's,
 one of phase 17's, one of phase 18's, one of phase 19's, one of phase
 20's, one of phase 21's, one of phase 22's, one of phase 23's, one of
-phase 24's and one of phase 25's; the line
+phase 24's, one of phase 25's and one of phase 26's; the line
 before the last is a
 JSON object with each kernel's launches (J1 and J2 from phase 13c's, 19a's
 and 22b's runs, J3 and J4 from 18b's and 18c's, J5 from 21b's and 25b's,
-J6 from 22b's)
+J6 from 22b's, M1, M2 and M3 from 26a's, 26b's and 26c's)
 (all paths' and per path, 23a/23b's replicas too), error and times; the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -595,6 +612,7 @@ line is ``{"ok": true,
 import csv
 import dataclasses
 import importlib
+import itertools
 import json
 import math
 import os
@@ -666,7 +684,7 @@ TRAINED_BLOBS, TRAINED_SIGMA = 2, 14.0
 # tracked path over TRACK_TIMED_BATCHES batches after a warm-up one (fewer
 # than the paths' TIMED_BATCHES: the tracker's ~84 ms a frame on the host
 # makes each batch ~1.3 s).
-TRACK_MAX_STEP, CARD_CPU_FRAMES, TRACK_TIMED_BATCHES = 4.0, 32, 4
+TRACK_MAX_STEP, CARD_CPU_FRAMES, TRACK_TIMED_BATCHES = 4.0, 16, 4
 TRACK_SCORE_TOL, SHIFT_TOL = 1e-4, 1e-3
 # 6c: the trained top-down pair on 32 frames of two blobs over one static
 # noise background. On sigma-14 blobs over fresh noise (4g's blobs) the
@@ -7579,20 +7597,47 @@ def check_containers(launches, card, mode, avi_labels, fps_21b):
 
 
 # --------------------------------------------------------------------------- #
-# Phase 26: MPEG-4 Part 2 on the card (host C entropy decoding, M1, M2)
+# Phase 26: MPEG-4 Part 2 on the card (host C entropy decoding, M1, M2, M3;
+# FFmpeg's simple IDCT and Xvid's)
 # --------------------------------------------------------------------------- #
 
 MPEG4_DIR = ("tests", "torch_data", "mpeg4")
 MPEG4_CLIP = "fmp4_gray_1024.avi"  # 26b's clip: 24 gray 1024^2 frames, two GOPs
+#: 26a's and 26c's clip: 12 gray 1024^2 frames, I, P and B-VOPs, Xvid's IDCT.
+MPEG4_XVID_CLIP = "xvid_gray_1024.avi"
 #: 26a: the fixtures whose VOPs the host C decoder is held to the plain
-#: Python one on, and M1 and M2 to their plain versions: name -> VOPs (None:
-#: all). cv2's 200 x 120 clip's first four, and the random-syntax streams (an
-#: I-VOP and three P-VOPs at 200 x 120, all at the smaller sizes): 4MV, MPEG
-#: quantisation, video packets, not-coded VOPs.
+#: Python one on, and M1, M2 and M3 to their plain versions: name -> VOPs
+#: decoded (None: all). cv2's 200 x 120 clip's first four, and the
+#: random-syntax streams (an I-VOP and three P-VOPs at 200 x 120, all the
+#: others): 4MV, MPEG quantisation, video packets, not-coded VOPs, B-VOPs of
+#: every kind, Xvid's IDCT, packed bitstreams.
 MPEG4_PLAIN = {"fmp4_200x120.avi": 4, "syntax_64x48.avi": None, "syntax_200x120.avi": 4,
                "syntax_gray_48x32.avi": None, "syntax_4mv_200x120.avi": 4,
                "syntax_mpeg_quant_64x48.avi": None, "syntax_mpeg_quant_default_48x32.avi": None,
-               "syntax_packets_200x120.avi": 4, "syntax_nvop_64x48.avi": None}
+               "syntax_packets_200x120.avi": 4, "syntax_nvop_64x48.avi": None,
+               "bvop_64x48.avi": None, "bvop_simple_vol_48x32.avi": None,
+               "bvop_gov_closed_64x48.avi": None, "bvop_gov_broken_64x48.avi": None,
+               "bvop_open_200x120.avi": None, "bvop_packets_96x64.avi": None,
+               "bvop_mpeg_quant_48x32.avi": None, "xvid_bvop_200x120.avi": None,
+               "divx_packed_64x48.avi": None, "xvid_packed_64x48.avi": None,
+               "xvid_idct_64x48.avi": None}
+#: The kernels of phase 26: row name -> (wrapper name in io/mpeg4.py, device
+#: function, max |err| key). M1, M2 and M3 in their simple-IDCT and Xvid-IDCT
+#: instantiations.
+MPEG4_KERNELS = {
+    "mpeg4_intra": ("intra_cuda", "mpeg4_intra_kernel", "M1"),
+    "mpeg4_inter": ("inter_cuda", "mpeg4_inter_kernel", "M2"),
+    "mpeg4_bidir": ("bidir_cuda", "mpeg4_bidir_kernel", "M3"),
+    "mpeg4_intra_xvid": ("intra_xvid_cuda", "mpeg4_intra_kernel", "M1x"),
+    "mpeg4_inter_xvid": ("inter_xvid_cuda", "mpeg4_inter_kernel", "M2x"),
+    "mpeg4_bidir_xvid": ("bidir_xvid_cuda", "mpeg4_bidir_kernel", "M3x"),
+}
+
+
+def mpeg4_wrappers() -> dict:
+    from sleap_tpu_torch.io import mpeg4
+
+    return {name: getattr(mpeg4, w) for name, (w, _, _) in MPEG4_KERNELS.items()}
 
 
 def mpeg4_path(name) -> str:
@@ -7614,137 +7659,202 @@ def mpeg4_packets(name, limit=None):
         return [demux.read(fh, i) for i in range(n)], demux.compression
 
 
-def mpeg4_vs_plain(inputs, layout, ref, rounding, err, what):
-    """M2 then M1 (``mpeg4.reconstruct``) on the card and as their plain
-    versions, on the same inputs and reference: the planes held equal, each
-    kernel's max |err| folded into ``err``. M2 and M1 write disjoint blocks,
-    so the card's M2 under M1's plain version tells their errors apart.
-    Returns the card's planes."""
+def mpeg4_units(name, limit=None):
+    """The VOPs FFmpeg decodes of the AVI fixture ``name`` (at most
+    ``limit``), in decoding order (``mpeg4.scheduled_vops``)."""
     from sleap_tpu_torch.io import mpeg4
 
-    card = mpeg4.reconstruct(inputs, layout, ref, rounding, mpeg4.CARD)
-    want = mpeg4.reconstruct(inputs, layout, ref, rounding, mpeg4.PLAIN)
-    m2 = mpeg4.reconstruct(inputs, layout, ref, rounding, (mpeg4.inter_cuda, mpeg4.intra_plain))
-    err["M2"] = max(err["M2"], *(max_abs(a, b) for a, b in zip(m2, want)))
-    err["M1"] = max(err["M1"], *(max_abs(a, b) for a, b in zip(card, m2)))
+    packets, fourcc = mpeg4_packets(name)
+    return list(itertools.islice(mpeg4.scheduled_vops(packets, fourcc), limit))
+
+
+def mpeg4_vs_plain(inputs, layout, ref, rounding, err, what, idct="simple"):
+    """A VOP's kernels (``mpeg4.reconstruct``: M2 then M1, or M3) on the card
+    and as their plain versions, with ``idct``, on the same inputs and
+    references: the planes held equal, each kernel's max |err| folded into
+    ``err``. M2 and M1 write disjoint blocks, so the card's M2 under M1's
+    plain version tells their errors apart. Returns the card's planes."""
+    from sleap_tpu_torch.io import mpeg4
+
+    x = "x" if idct == "xvid" else ""
+    card_kernels, plain_kernels = mpeg4.CARD[idct], mpeg4.PLAIN[idct]
+    card = mpeg4.reconstruct(inputs, layout, ref, rounding, card_kernels, idct=idct)
+    want = mpeg4.reconstruct(inputs, layout, ref, rounding, plain_kernels, idct=idct)
+    if len(inputs) == 2:
+        err["M3" + x] = max(err["M3" + x], *(max_abs(a, b) for a, b in zip(card, want)))
+    else:
+        m2 = mpeg4.reconstruct(inputs, layout, ref, rounding,
+                               (card_kernels[0], plain_kernels[1], card_kernels[2]), idct=idct)
+        err["M2" + x] = max(err["M2" + x], *(max_abs(a, b) for a, b in zip(m2, want)))
+        err["M1" + x] = max(err["M1" + x], *(max_abs(a, b) for a, b in zip(card, m2)))
     check(all(torch.equal(a, b) for a, b in zip(card, want)),
-          f"26a: M1 and M2 equal their plain versions on {what} (max |err| {err})")
+          f"26a: M1, M2 and M3 ({idct} IDCT) equal their plain versions on {what} (max |err| {err})")
     return card
 
 
 def check_mpeg4_plain(dev, err):
-    """26a: on every VOP of MPEG4_PLAIN, the host C decoder against the plain
-    Python one (coefficients and jobs equal), and M1 and M2 against their
-    plain versions on the card's tensors (:func:`mpeg4_vs_plain`). Returns
-    the VOPs held."""
+    """26a: on every VOP FFmpeg decodes of MPEG4_PLAIN, the host C decoder
+    against the plain Python one (coefficients, jobs and the co-located
+    macroblocks a B-VOP reads equal), and M1, M2 and M3 against their plain
+    versions on the card's tensors (:func:`mpeg4_vs_plain`). Returns (the
+    VOPs held, the B-VOPs among them)."""
     from sleap_tpu_torch.io import mpeg4
 
-    vops = 0
+    vops = b_vops = 0
     for name, limit in MPEG4_PLAIN.items():
-        packets, fourcc = mpeg4_packets(name, limit)
-        stream, ref, staging = mpeg4.Stream(fourcc), None, None
-        for k, data in enumerate(packets):
-            vop = stream.headers(data)
-            if vop.kind == "N":  # not coded: the reference stays
-                continue
-            layout = mpeg4.Layout(*stream.vol.mb_size)
-            staging = staging or mpeg4.Staging(layout.mb_w * layout.mb_h, pin=True)
-            plain = mpeg4.decode_macroblocks(data, stream.vol, vop)
-            inputs = mpeg4.entropy_decode(data, stream.vol, vop, dev, staging)
-            check(all(np.array_equal(t.cpu().numpy(), a)
-                      for t, a in zip(inputs, (plain.coefs, plain.intra, plain.inter))),
-                  f"26a: the host C decoder equals the plain one on {name} VOP {k}")
-            ref = mpeg4_vs_plain(inputs, layout, ref, vop.rounding, err, f"{name} VOP {k}")
+        staging, planes = None, {}
+        for u, unit, data, vop in mpeg4_units(name, limit):
+            vol = unit.vol
+            layout = mpeg4.Layout(*vol.mb_size)
+            n = layout.mb_w * layout.mb_h
+            if staging is None or staging.coefs.shape[0] != 6 * n:
+                staging = mpeg4.Staging(n, pin=True)
+            col = planes[unit.future][1] if vop.kind == "B" else None
+            plain = mpeg4.decode_macroblocks(data, vol, vop, col)
+            inputs, colocated = mpeg4.entropy_decode(data, vol, vop, dev, staging, colocated=col)
+            want = (plain.coefs, plain.bidir) if vop.kind == "B" else (plain.coefs, plain.intra,
+                                                                       plain.inter)
+            check(all(np.array_equal(t.cpu().numpy(), a) for t, a in zip(inputs, want))
+                  and (vop.kind == "B" or np.array_equal(colocated, plain.colocated)),
+                  f"26a: the host C decoder equals the plain one on {name} VOP {u} ({vop.kind})")
+            ref = ((planes[unit.past][0], planes[unit.future][0]) if vop.kind == "B"
+                   else planes.get(unit.past, (None,))[0])
+            out = mpeg4_vs_plain(inputs, layout, ref, vop.rounding, err,
+                                 f"{name} VOP {u} ({vop.kind})", unit.idct)
+            if vop.kind != "B":
+                planes[u] = (out, colocated)
             vops += 1
-    return vops
+            b_vops += vop.kind == "B"
+    return vops, b_vops
 
 
-def time_mpeg4_stages(card, err):
-    """26a: ms a 1024^2 frame by stage over a sequential read of the 26b
-    clip (Mpeg4Reader's host-clock stages, the card synchronised at each:
-    demux, entropy (host C), upload, M2, M1, to_bgr, and the copy to the
-    host); then, on the clip's first I-VOP and P-VOP, M1 and M2 held to their
-    plain versions (:func:`mpeg4_vs_plain`, into ``err``) and M1's device ms
-    on the I-VOP and M2's on the P-VOP, against their plain versions and
-    bounds. Returns (stages, {"M1": numbers, "M2": numbers})."""
-    from sleap_tpu_torch.io import avi, mpeg4
+def mpeg4_row(kind, jobs, card_fn, plain_fn, fn_name, residual):
+    """A kernel's numbers on one VOP's jobs: ms a call (events), device ms,
+    plain ms, and its bound's two parts. Each job's int4 (M3: two) read,
+    its reference samples (8 x 8 a direction, 9 x 9 where half-pel) and
+    residual (128 bytes, where it has one) read and its 64 samples written;
+    600 operations an IDCT, 4 a predicted sample and direction."""
+    if kind == "M1":
+        moved, ops = (16 + 128 + 64) * len(jobs), 600 * len(jobs)
+    else:
+        dirs = jobs[:, 6].cpu() if kind == "M3" else None
+        n_dirs = len(jobs) if kind == "M2" else int(((dirs & 1) + (dirs >> 1)).sum())
+        moved = (16 * (1 + (kind == "M3")) + 64) * len(jobs) + 64 * n_dirs + 128 * residual
+        ops = 4 * 64 * n_dirs + 600 * residual
+    return {"jobs": len(jobs), "ms": events_ms(card_fn), "device_ms": device_ms(card_fn, [fn_name]),
+            "plain_ms": time_ms(plain_fn, iters=3, warmup=1),
+            "bytes_ms": moved / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / F32_OPS_PER_S * 1e3}
 
-    dev = torch.device("cuda", 0)
-    demux = avi.AviVideo.open(mpeg4_path(MPEG4_CLIP))
-    reader = avi.AviReader(demux, dev)._decoder
+
+def read_stages(clip):
+    """ms a 1024^2 frame by stage over a sequential read of ``clip``
+    (Mpeg4Reader's host-clock stages, the card synchronised at each: demux,
+    entropy (host C), upload, M2, M1, M3, to_bgr, and the copy to the host),
+    and its frames/s."""
+    from sleap_tpu_torch.io import avi
+
+    demux = avi.AviVideo.open(mpeg4_path(clip))
+    reader = avi.AviReader(demux, torch.device("cuda", 0))._decoder
     reader.timing = {}
     copy_s = 0.0
     n = len(demux.offsets)
+    t0 = time.perf_counter()
     for i in range(n):
         out = reader.frame(i, "b")
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         out.cpu()
-        copy_s += time.perf_counter() - t0
+        copy_s += time.perf_counter() - t1
+    total = time.perf_counter() - t0
     vops = reader.timing.pop("vops")
     stages = {f"{k}_ms": 1e3 * v / n for k, v in reader.timing.items()}
     stages["host_copy_ms"] = 1e3 * copy_s / n
     stages["vops"] = vops
-    reader.timing = None
-    packets, fourcc = mpeg4_packets(MPEG4_CLIP, 2)
-    stream = mpeg4.Stream(fourcc)
+    stages["frames_per_s"] = n / total
+    reader.close()
+    return stages
+
+
+def time_mpeg4_stages(card, err):
+    """26a: :func:`read_stages` over the 26b clip and the Xvid I/P/B clip;
+    then, on the 26b clip's first I-VOP and P-VOP, M1 and M2, on the Xvid
+    clip's first I-, P- and B-VOP, the Xvid forms of M1, M2 and M3, and on
+    that B-VOP M3 (simple IDCT), each held to its plain version
+    (:func:`mpeg4_vs_plain`, into ``err``) and timed (:func:`mpeg4_row`).
+    Returns (stages by clip, rows by kernel key)."""
+    from sleap_tpu_torch.io import mpeg4
+
+    dev = torch.device("cuda", 0)
+    stages = {clip: read_stages(clip) for clip in (MPEG4_CLIP, MPEG4_XVID_CLIP)}
     rows = {}
-    layout, staging, ref = None, None, None
-    for k, data in enumerate(packets):  # an I-VOP (M1), then a P-VOP (M2)
-        vop = stream.headers(data)
-        layout = mpeg4.Layout(*stream.vol.mb_size)
-        staging = staging or mpeg4.Staging(layout.mb_w * layout.mb_h, pin=True)
-        coefs, intra, inter = inputs = mpeg4.entropy_decode(data, stream.vol, vop, dev, staging)
-        decoded = mpeg4_vs_plain(inputs, layout, ref, vop.rounding, err,
-                                 f"{MPEG4_CLIP} VOP {k} ({len(intra)} intra, {len(inter)} inter jobs)")
-        planes = layout.planes(dev)
-        if k == 0:
-            def card_fn():
-                mpeg4.intra_cuda(planes, coefs, intra, layout)
-
-            def plain_fn():
-                mpeg4.intra_plain(planes, coefs, intra, layout)
-            name, jobs, fn_name = "M1", intra, "mpeg4_intra_kernel"
-            # Each job's 16-byte job and 128-byte block read, its 64 samples written.
-            moved = (16 + 128 + 64) * len(jobs)
-            ops = 600 * len(jobs)  # J5's count: two passes of eight 1-D transforms
-        else:
-            def card_fn():
-                mpeg4.inter_cuda(planes, ref, coefs, inter, layout, vop.rounding)
-
-            def plain_fn():
-                mpeg4.inter_plain(planes, ref, coefs, inter, layout, vop.rounding)
-            name, jobs, fn_name = "M2", inter, "mpeg4_inter_kernel"
-            residual = int((inter[:, 1] >= 0).sum())
-            # Each job's 16-byte job and 8x8 reference samples read, its
-            # residual's 128 bytes where it has one, its 64 samples written.
-            moved = (16 + 64 + 64) * len(jobs) + 128 * residual
-            ops = 4 * 64 * len(jobs) + 600 * residual
-        rows[name] = {"jobs": len(jobs), "ms": events_ms(card_fn),
-                      "device_ms": device_ms(card_fn, [fn_name]),
-                      "plain_ms": time_ms(plain_fn, iters=3, warmup=1),
-                      "bytes_ms": moved / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / F32_OPS_PER_S * 1e3}
-        ref = decoded
-    log(f"26a MPEG-4 {MPEG4_CLIP} ({layout.mb_w * 16}^2 gray, {n} frames read in order), ms a frame "
-        f"by stage: " + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in stages.items() if k.endswith("_ms"))
-        + "; " + "; ".join(f"{k} {r['jobs']} jobs: {r['ms']:.4f} ms a call (device {r['device_ms']:.4f}"
-                           f", plain {r['plain_ms']:.3f}, bound {max(r['bytes_ms'], r['ops_ms']):.5f})"
-                           for k, r in rows.items())
-        + f"; M1 and M2 equal their plain versions on its first I-VOP and P-VOP ({card})")
+    for clip in (MPEG4_CLIP, MPEG4_XVID_CLIP):
+        staging, planes, seen = None, {}, set()
+        for u, unit, data, vop in mpeg4_units(clip):
+            if seen >= {"I", "P", "B"} or (clip == MPEG4_CLIP and seen >= {"I", "P"}):
+                break
+            layout = mpeg4.Layout(*unit.vol.mb_size)
+            staging = staging or mpeg4.Staging(layout.mb_w * layout.mb_h, pin=True)
+            col = planes[unit.future][1] if vop.kind == "B" else None
+            inputs, colocated = mpeg4.entropy_decode(data, unit.vol, vop, dev, staging,
+                                                     colocated=col)
+            ref = ((planes[unit.past][0], planes[unit.future][0]) if vop.kind == "B"
+                   else planes.get(unit.past, (None,))[0])
+            decoded = mpeg4_vs_plain(inputs, layout, ref, vop.rounding, err,
+                                     f"{clip} VOP {u} ({vop.kind})", unit.idct)
+            if vop.kind != "B":
+                planes[u] = (decoded, colocated)
+            if vop.kind in seen:
+                continue
+            seen.add(vop.kind)
+            out = layout.planes(dev)
+            for idct in ((unit.idct, "simple") if vop.kind == "B" else (unit.idct,)):
+                x = "x" if idct == "xvid" else ""
+                m2, m1, m3 = mpeg4.CARD[idct]
+                p2, p1, p3 = mpeg4.PLAIN[idct]
+                coefs = inputs[0]
+                if vop.kind == "I":
+                    kind, jobs = "M1", inputs[1]
+                    fns = (lambda: m1(out, coefs, jobs, layout), lambda: p1(out, coefs, jobs, layout))
+                elif vop.kind == "P":
+                    kind, jobs = "M2", inputs[2]
+                    fns = (lambda: m2(out, ref, coefs, jobs, layout, vop.rounding),
+                           lambda: p2(out, ref, coefs, jobs, layout, vop.rounding))
+                else:
+                    kind, jobs = "M3", inputs[1]
+                    if idct != unit.idct:  # the other instantiation on the same inputs
+                        mpeg4_vs_plain(inputs, layout, ref, 0, err, f"{clip} VOP {u} (B)", idct)
+                    fns = (lambda: m3(out, *ref, coefs, jobs, layout),
+                           lambda: p3(out, *ref, coefs, jobs, layout))
+                fn_name = {"M1": "mpeg4_intra_kernel", "M2": "mpeg4_inter_kernel",
+                           "M3": "mpeg4_bidir_kernel"}[kind]
+                rows[kind + x] = mpeg4_row(kind, jobs, *fns, fn_name, int((jobs[:, 1] >= 0).sum()))
+                rows[kind + x]["clip"] = clip
+    for clip, st in stages.items():
+        log(f"26a MPEG-4 {clip} (1024^2 gray, {st['vops']} VOPs, read in order): "
+            f"{st['frames_per_s']:.1f} frames/s; ms a frame by stage: "
+            + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in st.items() if k.endswith("_ms")) + f" ({card})")
+    log("26a kernels at 1024^2: " + "; ".join(
+        f"{k} {r['jobs']} jobs: {r['ms']:.4f} ms a call (device {r['device_ms']:.4f}, plain "
+        f"{r['plain_ms']:.3f}, bound {max(r['bytes_ms'], r['ops_ms']):.5f})" for k, r in rows.items())
+        + f"; each equal to its plain version ({card})")
     return stages, rows
 
 
-def check_mpeg4_fixtures(card):
+def check_mpeg4_fixtures(card, launches):
     """26a: every MPEG-4 fixture through ``MediaVideo``'s card route to the
     manifest's cv2 frames (BGR, and its blue channel, the gray route's
-    frame), in order and at random, with cv2's count and fps; then
+    frame), in order and at random, with cv2's count and fps, the kernels'
+    counts zeroed before and read after (each of the six launched); then
     :func:`check_mpeg4_plain` and :func:`time_mpeg4_stages`, each part's
-    seconds kept. Returns (figures, M1's and M2's max |err|, their rows'
+    seconds kept. Returns (figures, the kernels' max |err|, their rows'
     numbers)."""
     from sleap_tpu_torch.io import avi, mpeg4
     from sleap_tpu_torch.io.video import MediaVideo
 
     manifest = mpeg4_manifest()
     figures = {"files": 0, "frames_read": 0}
+    wrappers = mpeg4_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     for name, want in sorted(manifest.items()):
         path = mpeg4_path(name)
@@ -7764,32 +7874,40 @@ def check_mpeg4_fixtures(card):
         figures["frames_read"] += len(order)
         figures["files"] += 1
         colour.reset()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    check(all(counts.values()), f"26a: every MPEG-4 kernel launched reading the fixtures ({counts})")
+    for k, c in counts.items():
+        launches.setdefault(k, {})["MediaVideo MPEG-4 fixtures (26a)"] = c
     check("cv2" not in sys.modules, "26a: the card route imported cv2")
     figures["reads_s"] = time.perf_counter() - t0
+    figures["launches"] = counts
     t0 = time.perf_counter()
-    err = {"M1": 0.0, "M2": 0.0}
-    vops = check_mpeg4_plain(torch.device("cuda", 0), err)
-    figures["vops_vs_plain"] = vops
+    err = {key: 0.0 for _, _, key in MPEG4_KERNELS.values()}
+    vops, b_vops = check_mpeg4_plain(torch.device("cuda", 0), err)
+    figures["vops_vs_plain"], figures["b_vops_vs_plain"] = vops, b_vops
     figures["vs_plain_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     stages, rows = time_mpeg4_stages(card, err)
     figures["stages_s"] = time.perf_counter() - t0
     figures["stages"] = stages
     figures["max_abs_err"] = err
-    log(f"26a {figures['files']} MPEG-4 Part 2 fixtures (AVI, ISO-BMFF, Matroska) on the card: "
-        f"{figures['frames_read']} reads equal to cv2's (FFmpeg) frames in order and at random, "
-        f"counts and fps equal ({figures['reads_s']:.1f} s); host C entropy decoder equal to the "
-        f"plain one, M1 and M2 equal to their plain versions on {vops} VOPs "
+    log(f"26a {figures['files']} MPEG-4 Part 2 fixtures (AVI, ISO-BMFF, Matroska; B-VOPs, Xvid, "
+        f"packed) on the card: {figures['frames_read']} reads equal to cv2's (FFmpeg) frames in "
+        f"order and at random, counts and fps equal, launches {counts} ({figures['reads_s']:.1f} "
+        f"s); host C entropy decoder equal to the plain one, M1, M2 and M3 (both IDCTs) equal to "
+        f"their plain versions on {vops} VOPs, {b_vops} of them B-VOPs "
         f"({figures['vs_plain_s']:.1f} s); stages {figures['stages_s']:.1f} s ({card})")
     return figures, err, rows
 
 
-def check_mpeg4_cli(launches, card):
-    """26b: ``sleap-track`` (in this process) on the 1024^2 gray MPEG-4 clip
-    with phase 8b's trained top-down pair, cuDNN's algorithms deterministic,
-    against ``load_model`` on the frames the card decodes (held to cv2's
-    hashes): the points and scores equal; kernels 2, 3 and 1 once a batch,
-    M2 once a P-VOP and M1 at least once an I-VOP. Returns the figures it
+def check_mpeg4_cli(launches, card, clip=MPEG4_CLIP, part="26b", kernels=("mpeg4_intra",
+                                                                          "mpeg4_inter")):
+    """26b (26c): ``sleap-track`` (in this process) on a 1024^2 gray MPEG-4
+    clip with phase 8b's trained top-down pair, cuDNN's algorithms
+    deterministic, against ``load_model`` on the frames the card decodes
+    (held to cv2's hashes): the points and scores equal; kernels 2, 3 and 1
+    once a batch, the clip's MPEG-4 ``kernels`` each at least once (M2 once
+    a P-VOP and M1 once an I-VOP, M3 once a B-VOP). Returns the figures it
     prints."""
     import sleap_tpu_torch
     from sleap_tpu_torch.io import mpeg4
@@ -7801,17 +7919,17 @@ def check_mpeg4_cli(launches, card):
     runs = os.path.join(here, ".convergence_runs")
     centroid, instance = (os.path.join(runs, f) for f in CLI_TRAINED[:2])
     wrappers = {"local_peaks": cuda_peaks.local_peaks_cuda, "crop_unit": cuda_crops.crop_unit_cuda,
-                "global_peaks": cuda_peaks.global_peaks_cuda, "mpeg4_intra": mpeg4.intra_cuda,
-                "mpeg4_inter": mpeg4.inter_cuda}
-    clip, want = mpeg4_path(MPEG4_CLIP), mpeg4_manifest()[MPEG4_CLIP]
-    video = Video.from_filename(clip)
+                "global_peaks": cuda_peaks.global_peaks_cuda, **mpeg4_wrappers()}
+    path, want = mpeg4_path(clip), mpeg4_manifest()[clip]
+    video = Video.from_filename(path)
     decoded = video[:]
     n = len(decoded)
     check(video.shape == (n, IMG, IMG, 1) and n == want["readable"]
           and all(sha256(f) == h for f, h in zip(decoded, want["gray"])),
-          f"26b: the card decodes {MPEG4_CLIP} ({video.shape}) to cv2's gray frames")
-    packets, _ = mpeg4_packets(MPEG4_CLIP)
-    i_vops = sum(p[p.find(b"\x00\x00\x01\xb6") + 4] >> 6 == 0 for p in packets)
+          f"{part}: the card decodes {clip} ({video.shape}) to cv2's gray frames")
+    packets, fourcc = mpeg4_packets(clip)
+    stream = mpeg4.Stream(fourcc)
+    kinds = [stream.headers(p).kind for p in packets]
     pred = sleap_tpu_torch.load_model([centroid, instance], batch_size=AVI_BATCH,
                                       peak_threshold=0.05, max_instances=MAX_INSTANCES)
     deterministic = torch.backends.cudnn.deterministic
@@ -7821,7 +7939,7 @@ def check_mpeg4_cli(launches, card):
         with tempfile.TemporaryDirectory() as root:
             out = os.path.join(root, "clip.predictions.slp")
             seconds, counts = cli_run(
-                [clip, "-m", centroid, "-m", instance, "--peak_threshold", "0.05", "--batch_size",
+                [path, "-m", centroid, "-m", instance, "--peak_threshold", "0.05", "--batch_size",
                  str(AVI_BATCH), "--max_instances", str(MAX_INSTANCES), "--verbosity", "none",
                  "-o", out], wrappers)
             got = read_labels(out)
@@ -7830,52 +7948,60 @@ def check_mpeg4_cli(launches, card):
     n_batches = -(-n // AVI_BATCH)
     for kernel in ("local_peaks", "crop_unit", "global_peaks"):
         check(counts[kernel] == n_batches,
-              f"26b: {kernel} launched {counts[kernel]} times on {MPEG4_CLIP}, want one a batch")
-        launches[kernel][f"CLI {MPEG4_CLIP} (26b)"] = counts[kernel]
-    check(counts["mpeg4_inter"] >= n - i_vops and counts["mpeg4_intra"] >= i_vops,
-          f"26b: M2 launched {counts['mpeg4_inter']} and M1 {counts['mpeg4_intra']} times for "
-          f"{n - i_vops} P-VOPs and {i_vops} I-VOPs")
-    for kernel in ("mpeg4_intra", "mpeg4_inter"):
-        launches[kernel] = {f"CLI {MPEG4_CLIP} (26b)": counts[kernel]}
+              f"{part}: {kernel} launched {counts[kernel]} times on {clip}, want one a batch")
+        launches[kernel][f"CLI {clip} ({part})"] = counts[kernel]
+    need = {"I": kinds.count("I"), "P": kinds.count("P"), "B": kinds.count("B")}
+    m2, m1 = kernels[1], kernels[0]
+    check(counts[m2] >= need["P"] and counts[m1] >= need["I"]
+          and (len(kernels) < 3 or counts[kernels[2]] >= 1)
+          and all(counts[k] == 0 for k in MPEG4_KERNELS if k not in kernels),
+          f"{part}: MPEG-4 launches {({k: counts[k] for k in MPEG4_KERNELS})} for {need} VOPs")
+    for kernel in kernels:
+        launches.setdefault(kernel, {})[f"CLI {clip} ({part})"] = counts[kernel]
     insts = sum(len(lf.instances) for lf in got)
-    check(len(got) == n and insts >= n, f"26b: instances in every frame ({insts})")
+    # 26c's frames are noise: only 26b's clip has an animal in every frame.
+    check(part != "26b" or (len(got) == n and insts >= n), f"{part}: instances ({insts})")
     d_xy, d_val = compare_predictions(got, expected, 0.0, 0.0,
-                                      f"26b: sleap-track {MPEG4_CLIP} vs load_model")
-    figures = {"frames": n, "i_vops": i_vops, "cli_s": seconds, "cli_fps": n / seconds,
+                                      f"{part}: sleap-track {clip} vs load_model")
+    figures = {"frames": n, "vops": need, "cli_s": seconds, "cli_fps": n / seconds,
                "launches": counts, "instances": insts, "max_abs_dxy": d_xy, "max_abs_dscore": d_val}
-    log(f"26b sleap-track {MPEG4_CLIP} ({n} MPEG-4 frames of {IMG}^2 gray, {i_vops} I-VOPs) with "
+    log(f"{part} sleap-track {clip} ({n} MPEG-4 frames of {IMG}^2 gray, VOPs {need}) with "
         f"the trained pair in this process: {seconds:.3f} s = {n / seconds:.1f} FPS; {insts} "
         f"instances equal to load_model's exactly; launches {counts} ({card})")
     return figures
 
 
 def mpeg4_kernel_rows(err, rows, launches):
-    """The ``kernels`` line's rows of M1 and M2, at the 26b clip's 1024^2
-    frames."""
+    """The ``kernels`` line's rows of M1, M2 and M3, each IDCT, at the
+    1024^2 clips' VOPs."""
     out = []
-    for name, kernel, fn in (("M1", "mpeg4_intra", "mpeg4_intra_kernel"),
-                             ("M2", "mpeg4_inter", "mpeg4_inter_kernel")):
-        r = rows[name]
+    for name, (_, fn, key) in MPEG4_KERNELS.items():
+        r = rows[key]
         out.append({
-            "name": kernel, "route": "cuda", "source": "sleap_tpu_torch/csrc/mpeg4.cu",
+            "name": name, "route": "cuda", "source": "sleap_tpu_torch/csrc/mpeg4.cu",
             "replaces": "sleap_tpu/io/video.py:73",
             "replaces_note": "cv2.VideoCapture (FFmpeg's MPEG-4 Part 2 decoder) on the host in "
                              "MediaVideo; no TPU kernel",
-            "device_function": fn, "launches": sum(launches[kernel].values()),
-            "launches_by_path": launches[kernel], "max_abs_err": err[name], "ms": r["ms"],
+            "device_function": fn + ("<true>" if key.endswith("x") else "<false>"),
+            "idct": "xvid" if key.endswith("x") else "simple",
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name], "max_abs_err": err[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-            "library_ms": None, "device_ms": r["device_ms"], "jobs": r["jobs"],
+            "library_ms": None, "device_ms": r["device_ms"], "jobs": r["jobs"], "clip": r["clip"],
         })
     return out
 
 
 def check_mpeg4(launches, card):
-    """Phase 26: 26a and 26b, each part's seconds printed. Returns (figures,
-    the M1 and M2 rows)."""
-    fixtures, err, rows = timed_phase("26a", check_mpeg4_fixtures, card)
+    """Phase 26: 26a, 26b and 26c (sleap-track on the Xvid I/P/B clip),
+    each part's seconds printed. Returns (figures, the kernels' rows)."""
+    fixtures, err, rows = timed_phase("26a", check_mpeg4_fixtures, card, launches)
     cli = timed_phase("26b", check_mpeg4_cli, launches, card)
-    return {"fixtures": fixtures, "cli": cli}, mpeg4_kernel_rows(err, rows, launches)
+    xvid_cli = timed_phase("26c", check_mpeg4_cli, launches, card, MPEG4_XVID_CLIP, "26c",
+                           ("mpeg4_intra_xvid", "mpeg4_inter_xvid", "mpeg4_bidir_xvid"))
+    return ({"fixtures": fixtures, "cli": cli, "xvid_cli": xvid_cli},
+            mpeg4_kernel_rows(err, rows, launches))
 
 
 def main() -> int:
@@ -8127,7 +8253,8 @@ def main() -> int:
         j5 = (max(j5[0], j5_25a), j5[1])
 
         # Phase 26: MPEG-4 Part 2 videos on the card (host C entropy decoding,
-        # M1 and M2), and sleap-track on a 1024^2 FMP4 clip.
+        # M1, M2 and M3 with FFmpeg's simple IDCT or Xvid's), and sleap-track
+        # on a 1024^2 FMP4 clip and a 1024^2 Xvid clip with B-VOPs.
         mpeg4_videos, mpeg4_rows = timed_phase("26", check_mpeg4, launches, card)
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)

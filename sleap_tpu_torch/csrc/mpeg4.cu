@@ -1,9 +1,12 @@
-// MPEG-4 Part 2 (the I- and P-VOPs of the Simple Profile's tools) decoding as
-// OpenCV's FFmpeg backend decodes it, bit for bit: the macroblock layer's entropy decoder in
-// host C and the reconstruction kernels M1 and M2 hand-written for Hopper
-// (sm_90a). Bound with ctypes from sleap_tpu_torch/io/mpeg4.py, which holds
-// the plain versions (the Python entropy decoder, PyTorch integer code for
-// M1 and M2) that these must equal.
+// MPEG-4 Part 2 (the I-, P- and B-VOPs of the Simple and Advanced Simple
+// Profiles' tools) decoding as OpenCV's FFmpeg backend decodes it, bit for
+// bit: the macroblock layer's entropy decoder in host C and the
+// reconstruction kernels M1, M2 and M3 hand-written for Hopper (sm_90a), each
+// in two instantiations: FFmpeg's simple IDCT (simple_idct.cuh) or Xvid's
+// (xvid_idct.cuh), which FFmpeg runs for streams an Xvid build wrote. Bound
+// with ctypes from sleap_tpu_torch/io/mpeg4.py, which holds the plain
+// versions (the Python entropy decoder, PyTorch integer code for M1, M2 and
+// M3) that these must equal.
 //
 // No TPU kernel has a counterpart: the JAX package decodes videos with cv2 on
 // the host (sleap_tpu/io/video.py, MediaVideo).
@@ -18,20 +21,25 @@
 //   prediction with FFmpeg's clip of the stored value, TCOEF run-levels with
 //   the three escapes, AC prediction (rescaled across quantisers with
 //   ROUNDED_DIV) and H.263 or MPEG dequantisation (the latter in 16-bit
-//   lanes, as FFmpeg's x86 code). A symbol is one lookup of the next
-//   bits (up to 13) in a table of (symbol << 8 | length). Output: the
-//   dequantised blocks (rows of 64 int16, raster order) and one job of 4
-//   int32 an 8x8 block for each kernel (below). Errors return 1-6 (an
-//   invalid code, the data ends inside a macroblock, more than 64
+//   lanes, as FFmpeg's x86 code). A B-VOP (decode_b): macroblocks whose
+//   co-located one the future reference skipped are skipped unread; MODB,
+//   MB_TYPE, CBPB, DBQUANT, forward and backward vectors predicted from the
+//   last of their direction, direct mode's delta over the co-located
+//   vectors scaled by pb_time / pp_time (ff_mpeg4_set_direct_mv). An I- or
+//   P-VOP returns its co-located macroblocks (skipped, four vectors, intra,
+//   and motion_val's four vectors once decoded) for the B-VOPs after it. A
+//   symbol is one lookup of the next bits (up to 13) in a table of (symbol
+//   << 8 | length). Output: the dequantised blocks (rows of 64 int16, raster
+//   order) and one job an 8x8 block for each kernel (below). Errors return
+//   1-6 (an invalid code, the data ends inside a macroblock, more than 64
 //   coefficients, a marker bit missing, an escape after an escape, a video
 //   packet header of another prefix or macroblock). Video packets: after each
 //   macroblock, where the VOL enables resync markers, a marker and its
 //   header (ff_mpeg4_decode_video_packet_header) start a packet, whose first
 //   row sees no neighbour outside it (decode_slice's first_slice_line in DC
 //   and vector prediction) and whose start clears the AC predictors around
-//   it (ff_mpeg4_clean_buffers).
-// - mpeg4_intra_kernel (M1): FFmpeg's simple IDCT "put" of intra blocks
-//   (simple_idct.cuh, as J5, without JPEG's level shift). Eight threads a
+//   it (ff_mpeg4_clean_buffers), and a B-VOP's vector predictors.
+// - mpeg4_intra_kernel (M1): the IDCT "put" of intra blocks. Eight threads a
 //   block: pass 1 one row each, through shared memory, pass 2 one column
 //   each, the block written as eight 8-byte rows into its plane. Job: (mb *
 //   6 + block, coefficient row, 0, 0). Bound by bytes (128 in, 64 out a
@@ -50,8 +58,15 @@
 //   6 + block | kNarrow, coefficient row or -1, vector x, vector y), the
 //   vector in half samples of the block's own plane, relative to the block.
 //   Bound by bytes.
+// - mpeg4_bidir_kernel (M3): a B-VOP's block: the forward prediction from
+//   the past reference, the backward one from the future reference, or both
+//   averaged as (f + b + 1) >> 1 (FFmpeg's put then avg_pixels, exact at
+//   rounding 0 in its 16- and 8-wide forms), each as M2's at r = 0; then the
+//   residual. Job: 8 int32 (mb * 6 + block, coefficient row or -1, forward
+//   x, y, backward x, y, directions 1 forward / 2 backward / 3 both, 0).
+//   Bound by bytes.
 //
-// Both kernels are the simple first design: one launch each a VOP, no tiling
+// The kernels are the simple first design: one launch each a VOP, no tiling
 // of the reference reads.
 
 #include <stdint.h>
@@ -60,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "simple_idct.cuh"
+#include "xvid_idct.cuh"
 #endif
 
 namespace {
@@ -339,18 +355,22 @@ void dequantise_mpeg_inter(int* block, int qscale, const int64_t* matrix) {
 // of 0 keeps the running one; the header extension is read and passed over,
 // as FFmpeg does) and return 1, else 0 with the reader past any stuffing;
 // an error code where the header is wrong.
-int video_packet(Bits& r, bool p_vop, int f_code, int n_mb, int next_mb, int quant_precision,
-                 int time_bits, int& quant) {
+// `kind` 0 I, 1 P, 2 B; with `later` (a B-VOP whose next macroblock is
+// skipped unread) a marker of a later macroblock is left for then, as
+// FFmpeg's SLICE_OK leaves it.
+int video_packet(Bits& r, int kind, int f_code, int b_code, int n_mb, int next_mb,
+                 int quant_precision, int time_bits, bool later, int& quant) {
   uint32_t v = r.peek(16);
-  const int pict = p_vop ? 2 : 1;
-  while (v <= 0xFF && (v >> (8 - pict)) == 1) {
+  const int pict = kind == 0 ? 1 : 2;
+  while (kind != 2 && v <= 0xFF && (v >> (8 - pict)) == 1) {
     r.pos += 8 + pict;
     v = r.peek(16);
   }
   if (r.pos + 8 >= 8 * r.cap || v != kResyncPrefix[r.pos & 7]) return 0;
   const int64_t start = r.pos;
   r.pos = (r.pos + 1 + 7) & ~(int64_t)7;
-  const int prefix = p_vop ? 15 + f_code : 16;
+  const int fb = f_code > b_code ? f_code : b_code;
+  const int prefix = kind == 0 ? 16 : (kind == 1 ? 15 + f_code : 15 + (fb > 2 ? fb : 2));
   int zeros = 0;
   while (zeros < 32 && !r.read(1)) ++zeros;
   if (zeros < prefix) {
@@ -360,7 +380,12 @@ int video_packet(Bits& r, bool p_vop, int f_code, int n_mb, int next_mb, int qua
   if (zeros != prefix) return kResync;
   int bits = 1;
   while ((1 << bits) < n_mb) ++bits;  // av_log2(n_mb - 1) + 1, at least 1
-  if ((int)r.read(bits) != next_mb) return kResync;
+  const int mb = (int)r.read(bits);
+  if (later && mb > next_mb) {
+    r.pos = start;
+    return 0;
+  }
+  if (mb != next_mb) return kResync;
   quant = (int)r.read(quant_precision);
   if (r.read(1)) {  // header_extension_code
     while (r.read(1))
@@ -368,24 +393,172 @@ int video_packet(Bits& r, bool p_vop, int f_code, int n_mb, int next_mb, int qua
     if (!r.read(1)) return kMarker;
     r.read(time_bits);
     if (!r.read(1)) return kMarker;
-    r.read(2 + 3 + (p_vop ? 3 : 0));  // vop_coding_type, intra_dc_vlc_thr, f_code
+    r.read(2 + 3 + 3 * kind);  // vop_coding_type, intra_dc_vlc_thr, f_code, b_code
   }
   return 1;
 }
 
+// C's division toward zero, b > 0.
+inline int cdiv(int a, int b) { return a < 0 ? -(-a / b) : a / b; }
+
+// Colocated flags (io/mpeg4.py's COLOCATED_*).
+constexpr int kColSkipped = 1, kColFour = 2, kColIntra = 4;
+
+// A macroblock's six blocks' vectors from one vector (16x16: the chroma one
+// as FFmpeg's H.263 path derives it) or four (apply_8x8's hpel_motion clips
+// and chroma_4mv_motion), relative to each block, in half samples.
+void block_vectors(const int* vx, const int* vy, int n, int mb_x, int mb_y, int width, int height,
+                   int* jx, int* jy) {
+  if (n == 1) {
+    for (int k = 0; k < 4; ++k) jx[k] = vx[0], jy[k] = vy[0];
+    jx[4] = 2 * ((vx[0] >> 1) >> 1) + ((vx[0] & 1) | ((vx[0] >> 1) & 1));
+    jy[4] = 2 * ((vy[0] >> 1) >> 1) + ((vy[0] & 1) | ((vy[0] >> 1) & 1));
+  } else {
+    int sum_x = 0, sum_y = 0;
+    for (int k = 0; k < 4; ++k) {
+      const int x0 = 16 * mb_x + 8 * (k & 1), y0 = 16 * mb_y + 8 * (k >> 1);
+      const int sx = clampi(x0 + (vx[k] >> 1), -16, width);
+      const int sy = clampi(y0 + (vy[k] >> 1), -16, height);
+      jx[k] = 2 * (sx - x0) + (sx != width ? vx[k] & 1 : 0);
+      jy[k] = 2 * (sy - y0) + (sy != height ? vy[k] & 1 : 0);
+      sum_x += vx[k], sum_y += vy[k];
+    }
+    const int cx = kChromaRound[sum_x & 15] + ((sum_x >> 3) & ~1);
+    const int cy = kChromaRound[sum_y & 15] + ((sum_y >> 3) & ~1);
+    const int sx = clampi(8 * mb_x + (cx >> 1), -8, width >> 1);
+    const int sy = clampi(8 * mb_y + (cy >> 1), -8, height >> 1);
+    jx[4] = 2 * (sx - 8 * mb_x) + (sx != width >> 1 ? cx & 1 : 0);
+    jy[4] = 2 * (sy - 8 * mb_y) + (sy != height >> 1 ? cy & 1 : 0);
+  }
+  jx[5] = jx[4], jy[5] = jy[4];
+}
+
+// A B-VOP's macroblocks (mpeg4_decode_mb's B branch): a macroblock whose
+// co-located one the future reference skipped is skipped unread (forward,
+// zero vector, no residual); else MODB, MB_TYPE, CBPB, DBQUANT, the forward
+// and backward vectors (predicted from the last of their direction, both
+// reset at each row and video packet), direct mode's delta scaled by
+// ff_mpeg4_set_direct_mv, the blocks as a P-VOP's. One M3 job of 8 int32 a
+// block: mb * 6 + block, coefficient row or -1, forward x, y, backward x, y,
+// directions (1 forward, 2 backward, 3 both), 0.
+int decode_b(Bits& r, const int64_t* params, const int32_t* col, int16_t* coefs, int32_t* jobs,
+             int64_t& n_coefs, int64_t& n_jobs, int& mb) {
+  const int mb_w = (int)params[0], mb_h = (int)params[1];
+  int qscale = (int)params[3];
+  const int f_code = (int)params[4];
+  const bool resync = params[6] != 0;
+  const int width = (int)params[8], height = (int)params[9];
+  const bool mpeg_quant = params[10] != 0;
+  const int64_t* inter_matrix = params + 75;
+  const int quant_precision = (int)params[139], time_bits = (int)params[140];
+  const int b_code = (int)params[141], pp = (int)params[142], pb = (int)params[143];
+  const Tables& t = tables();
+  const int n_mb = mb_w * mb_h;
+  int last[2][2] = {};
+  int err = kOk;
+  for (mb = 0; mb < n_mb && !err; ++mb) {
+    const int mb_x = mb % mb_w, mb_y = mb / mb_w;
+    if (mb_x == 0) memset(last, 0, sizeof(last));
+    const int32_t* c = col + 9 * mb;
+    int cbp = 0, dirs = 1, nv = 1, fx[4] = {}, fy[4] = {}, bx[4] = {}, by[4] = {};
+    if (!(c[0] & kColSkipped)) {
+      int mb_type = 0, dx = 0, dy = 0;
+      if (!r.read(1)) {
+        const int no_cbp = r.read(1);
+        while (!r.read(1))
+          if (++mb_type > 3) return kBadCode;
+        cbp = no_cbp ? 0 : (int)r.read(6);
+        if (mb_type && cbp && r.read(1)) qscale = clampi(qscale + 4 * (int)r.read(1) - 2, 1, 31);
+        if (mb_type == 1 || mb_type == 3) {
+          last[0][0] = motion(r, last[0][0], f_code, err);
+          if (!err) last[0][1] = motion(r, last[0][1], f_code, err);
+        }
+        if (!err && (mb_type == 1 || mb_type == 2)) {
+          last[1][0] = motion(r, last[1][0], b_code, err);
+          if (!err) last[1][1] = motion(r, last[1][1], b_code, err);
+        }
+        if (!err && mb_type == 0) {
+          dx = motion(r, 0, 1, err);
+          if (!err) dy = motion(r, 0, 1, err);
+        }
+        if (err) return err;
+      }
+      if (mb_type == 0) {  // direct
+        dirs = 3;
+        nv = c[0] & kColFour ? 4 : 1;
+        for (int i = 0; i < nv; ++i) {
+          const int px = c[1 + 2 * i], py = c[2 + 2 * i];
+          fx[i] = cdiv(px * pb, pp) + dx, fy[i] = cdiv(py * pb, pp) + dy;
+          bx[i] = dx ? fx[i] - px : cdiv(px * (pb - pp), pp);
+          by[i] = dy ? fy[i] - py : cdiv(py * (pb - pp), pp);
+        }
+      } else {
+        dirs = mb_type == 1 ? 3 : (mb_type == 2 ? 2 : 1);
+        fx[0] = last[0][0], fy[0] = last[0][1], bx[0] = last[1][0], by[0] = last[1][1];
+      }
+    }
+    int jfx[6], jfy[6], jbx[6], jby[6];
+    block_vectors(fx, fy, nv, mb_x, mb_y, width, height, jfx, jfy);
+    block_vectors(bx, by, nv, mb_x, mb_y, width, height, jbx, jby);
+    const int qmul = mpeg_quant ? 1 : qscale << 1, qadd = mpeg_quant ? 0 : (qscale - 1) | 1;
+    for (int n = 0; n < 6; ++n) {
+      int row = -1;
+      if (cbp & (32 >> n)) {
+        int block[64] = {};
+        err = tcoef(r, block, -1, false, kZigzag, qmul, qadd);
+        if (err) return err;
+        if (mpeg_quant) dequantise_mpeg_inter(block, qscale, inter_matrix);
+        row = (int)n_coefs++;
+        for (int k = 0; k < 64; ++k) coefs[64 * (int64_t)row + k] = wrap16h(block[k]);
+      }
+      int32_t* j = jobs + 8 * n_jobs++;
+      j[0] = mb * 6 + n, j[1] = row, j[2] = jfx[n], j[3] = jfy[n], j[4] = jbx[n], j[5] = jby[n];
+      j[6] = dirs, j[7] = 0;
+    }
+    if (r.pos > 8 * r.cap) return kShort;
+    if (resync && mb + 1 < n_mb) {
+      int quant = 0;
+      const bool later = (col[9 * (mb + 1)] & kColSkipped) != 0;
+      const int packet = video_packet(r, 2, f_code, b_code, n_mb, mb + 1, quant_precision,
+                                      time_bits, later, quant);
+      if (packet > 1) return packet;
+      if (packet) {
+        if (quant) qscale = quant;
+        memset(last, 0, sizeof(last));  // ff_mpeg4_clean_buffers
+      }
+    }
+  }
+  (void)t;
+  return err;
+}
+
 }  // namespace
 
-// params: macroblocks a row and a column, P-VOP, quantiser, f_code,
+// params: macroblocks a row and a column, the VOP's kind (0 I, 1 P, 2 B), quantiser, f_code,
 // intra_dc_vlc_thr's threshold, resync markers possible, the first bit of the
 // macroblocks, the VOL's width and height, MPEG quantisation, its intra and
-// inter matrices (64 each, raster order), quant_precision, and the bits of
-// vop_time_increment. coefs: (6 * macroblocks, 64) int16; jobs: (2, 6 * macroblocks,
-// 4) int32, M1's then M2's; counts: coefficient rows, M1 jobs, M2 jobs, and
-// the macroblock an error stopped at.
+// inter matrices (64 each, raster order), quant_precision, the bits of
+// vop_time_increment, b_code, and a B-VOP's pp_time and pb_time. coefs: (6 *
+// macroblocks, 64) int16; jobs: (2, 6 * macroblocks, 4) int32, M1's then
+// M2's, or a B-VOP's M3 jobs (6 * macroblocks, 8); counts: coefficient rows,
+// M1 jobs, M2 (or M3) jobs, and the macroblock an error stopped at.
+// colocated_in: a B-VOP's future reference's co-located macroblocks;
+// colocated_out: an I- or P-VOP's, (macroblocks, 9) int32 each: flags (1
+// skipped, 2 four vectors, 4 intra) and the four luma blocks' vectors as
+// FFmpeg's motion_val holds them once the VOP is decoded.
 extern "C" int sleap_mpeg4_decode_vop(const uint8_t* data, int64_t size, const int64_t* params,
-                                      int16_t* coefs, int32_t* jobs, int64_t* counts) {
+                                      int16_t* coefs, int32_t* jobs, int64_t* counts,
+                                      const int32_t* colocated_in, int32_t* colocated_out) {
   const int mb_w = (int)params[0], mb_h = (int)params[1];
-  const bool P = params[2] != 0;
+  if (params[2] == 2) {
+    Bits rb{data, size, params[7]};
+    int64_t n_coefs = 0, n_jobs = 0;
+    int mb = 0;
+    const int err = decode_b(rb, params, colocated_in, coefs, jobs, n_coefs, n_jobs, mb);
+    counts[0] = n_coefs, counts[1] = 0, counts[2] = n_jobs, counts[3] = err ? mb : mb_w * mb_h;
+    return err;
+  }
+  const bool P = params[2] == 1;
   int qscale = (int)params[3];
   const int f_code = (int)params[4], dc_threshold = (int)params[5];
   const bool resync = params[6] != 0;
@@ -407,6 +580,7 @@ extern "C" int sleap_mpeg4_decode_vop(const uint8_t* data, int64_t size, const i
   int16_t* acbuf = new int16_t[16 * (n_luma + 2 * n_chroma)]();
   int* mv = new int[2 * (2 * mb_h + 1) * vw]();
   int* qtab = new int[n_mb];
+  uint8_t* mbflag = new uint8_t[n_mb]();
   for (int k = 0; k < n_luma + 2 * n_chroma; ++k) buf[k] = 1024;
   dc[0] = buf, dc[1] = buf + n_luma, dc[2] = buf + n_luma + n_chroma;
   ac[0] = acbuf, ac[1] = acbuf + 16 * n_luma, ac[2] = acbuf + 16 * (n_luma + n_chroma);
@@ -445,6 +619,7 @@ extern "C" int sleap_mpeg4_decode_vop(const uint8_t* data, int64_t size, const i
     const int base = 2 * mb_y * vw + 2 * mb_x + 1;  // the b8 row above block 0
     if (skipped || !intra) {
       int cbp = 0, vectors = 1, vx[4] = {}, vy[4] = {};
+      mbflag[mb] = skipped ? kColSkipped : ((cbpc & 16) ? kColFour : 0);
       if (!skipped) {
         const int cbpy = r.vlc(t.cbpy);
         if (cbpy < 0) { err = kBadCode; break; }
@@ -479,32 +654,12 @@ extern "C" int sleap_mpeg4_decode_vop(const uint8_t* data, int64_t size, const i
         }
         if (err) break;
       }
-      // Each job's vector relative to its block (half samples) and flag.
+      // Each job's vector relative to its block (half samples); the flag of
+      // FFmpeg's 8-wide half-pel functions (chroma, a 4MV macroblock's luma).
       int jx[6], jy[6], flag[6];
-      if (vectors == 1) {
-        set_vector(mv, base, vw, vx[0], vy[0]);
-        for (int n = 0; n < 4; ++n) jx[n] = vx[0], jy[n] = vy[0], flag[n] = 0;
-        jx[4] = 2 * ((vx[0] >> 1) >> 1) + ((vx[0] & 1) | ((vx[0] >> 1) & 1));
-        jy[4] = 2 * ((vy[0] >> 1) >> 1) + ((vy[0] & 1) | ((vy[0] >> 1) & 1));
-      } else {  // apply_8x8: hpel_motion's clip, chroma_4mv_motion
-        int sum_x = 0, sum_y = 0;
-        for (int n = 0; n < 4; ++n) {
-          const int x0 = 16 * mb_x + 8 * (n & 1), y0 = 16 * mb_y + 8 * (n >> 1);
-          const int sx = clampi(x0 + (vx[n] >> 1), -16, width);
-          const int sy = clampi(y0 + (vy[n] >> 1), -16, height);
-          jx[n] = 2 * (sx - x0) + (sx != width ? vx[n] & 1 : 0);
-          jy[n] = 2 * (sy - y0) + (sy != height ? vy[n] & 1 : 0);
-          flag[n] = kNarrow;
-          sum_x += vx[n], sum_y += vy[n];
-        }
-        const int cx = kChromaRound[sum_x & 15] + ((sum_x >> 3) & ~1);
-        const int cy = kChromaRound[sum_y & 15] + ((sum_y >> 3) & ~1);
-        const int sx = clampi(8 * mb_x + (cx >> 1), -8, width >> 1);
-        const int sy = clampi(8 * mb_y + (cy >> 1), -8, height >> 1);
-        jx[4] = 2 * (sx - 8 * mb_x) + (sx != width >> 1 ? cx & 1 : 0);
-        jy[4] = 2 * (sy - 8 * mb_y) + (sy != height >> 1 ? cy & 1 : 0);
-      }
-      jx[5] = jx[4], jy[5] = jy[4], flag[4] = flag[5] = kNarrow;
+      if (vectors == 1) set_vector(mv, base, vw, vx[0], vy[0]);
+      block_vectors(vx, vy, vectors, mb_x, mb_y, width, height, jx, jy);
+      for (int n = 0; n < 6; ++n) flag[n] = n > 3 || vectors == 4 ? kNarrow : 0;
       const int qmul = mpeg_quant ? 1 : qscale << 1, qadd = mpeg_quant ? 0 : (qscale - 1) | 1;
       for (int n = 0; n < 6 && !err; ++n) {
         int row = -1;
@@ -604,12 +759,14 @@ extern "C" int sleap_mpeg4_decode_vop(const uint8_t* data, int64_t size, const i
       }
       if (err) break;
       set_vector(mv, base, vw, 0, 0);
+      mbflag[mb] = kColIntra;
     }
     qtab[mb] = qscale;
     if (r.pos > 8 * size) { err = kShort; break; }
     if (resync && mb + 1 < n_mb) {
       int quant = 0;
-      const int packet = video_packet(r, P, f_code, n_mb, mb + 1, quant_precision, time_bits, quant);
+      const int packet = video_packet(r, P ? 1 : 0, f_code, 1, n_mb, mb + 1, quant_precision,
+                                      time_bits, false, quant);
       if (packet > 1) { err = packet; break; }
       if (packet) {
         resync_x = (mb + 1) % mb_w, resync_y = (mb + 1) / mb_w, first_line = true;
@@ -622,10 +779,19 @@ extern "C" int sleap_mpeg4_decode_vop(const uint8_t* data, int64_t size, const i
       }
     }
   }
+  if (!err)
+    for (int k = 0; k < n_mb; ++k) {
+      const int base = 2 * (k / mb_w) * vw + 2 * (k % mb_w) + 1;
+      const int at[4] = {base + vw, base + vw + 1, base + 2 * vw, base + 2 * vw + 1};
+      int32_t* c = colocated_out + 9 * k;
+      c[0] = mbflag[k];
+      for (int b = 0; b < 4; ++b) c[1 + 2 * b] = mv[2 * at[b]], c[2 + 2 * b] = mv[2 * at[b] + 1];
+    }
   delete[] buf;
   delete[] acbuf;
   delete[] mv;
   delete[] qtab;
+  delete[] mbflag;
   counts[0] = n_coefs, counts[1] = n_intra, counts[2] = n_inter, counts[3] = mb;
   return err;
 }
@@ -656,19 +822,68 @@ __device__ __forceinline__ void origin(int pos, int mb_w, int mb_h, int& plane, 
   }
 }
 
-// Pass 1 of the IDCT: row `lane` of coefficient row `c` into ws.
+// Pass 1 of the IDCT (simple or Xvid's): row `lane` of coefficient row `c`
+// into ws.
+template <bool kXvid>
 __device__ __forceinline__ void idct_rows(const int16_t* __restrict__ coefs, int64_t c, int lane,
                                           int16_t* ws) {
   const int16_t* src = coefs + 64 * c + 8 * lane;
   int32_t x[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) x[k] = src[k];
-  simple_row(x, ws + 8 * lane);
+  if (kXvid)
+    xvid_row(x, lane, ws + 8 * lane);
+  else
+    simple_row(x, ws + 8 * lane);
+}
+
+// Pass 2: column `lane` of ws, the values before saturation.
+template <bool kXvid>
+__device__ __forceinline__ void idct_column(const int16_t* ws, int lane, int32_t (&v)[8]) {
+  if (kXvid)
+    xvid_column(ws, lane, v);
+  else
+    simple_column(ws, lane, v);
 }
 
 // A sample position clamped into a plane of `n` samples: emulated edges.
 __device__ __forceinline__ int clampi_d(int v, int n) { return v < 0 ? 0 : (v >= n ? n - 1 : v); }
 
+// Column `lane` of an 8x8 block's half-pel prediction from `src` (a w x h
+// plane) at (x, y) moved by (mvx, mvy) half samples, every position clamped
+// to the plane: (a + b + 1 - r) >> 1, (a + b + c + d + 2 - r) >> 2, and, with
+// `approx` at r = 1, MMXEXT's 8-wide no_rnd x and y halves.
+__device__ __forceinline__ void predict_column(const uint8_t* __restrict__ src, int x, int y,
+                                               int mvx, int mvy, int lane, int w, int h,
+                                               int rounding, bool approx, int (&out)[8]) {
+  const int hx = mvx & 1, hy = mvy & 1;
+  const int sx = x + (mvx >> 1) + lane, sy = y + (mvy >> 1);
+  const int c0 = clampi_d(sx, w), c1 = clampi_d(sx + 1, w);
+  const int row0 = clampi_d(sy, h);
+  int a = src[(int64_t)row0 * w + c0], bb = src[(int64_t)row0 * w + c1];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int row1 = clampi_d(sy + k + 1, h);
+    const int c = src[(int64_t)row1 * w + c0], d = src[(int64_t)row1 * w + c1];
+    int p;
+    if (hx && hy) {
+      p = (a + bb + c + d + 2 - rounding) >> 2;
+    } else if (hx) {
+      p = approx ? ((a > 0 ? a - 1 : 0) + bb + 1) >> 1 : (a + bb + 1 - rounding) >> 1;
+    } else if (hy) {
+      if (approx)
+        p = (k & 1) ? ((a > 0 ? a - 1 : 0) + c + 1) >> 1 : (a + (c > 0 ? c - 1 : 0) + 1) >> 1;
+      else
+        p = (a + c + 1 - rounding) >> 1;
+    } else {
+      p = a;
+    }
+    out[k] = p;
+    a = c, bb = d;
+  }
+}
+
+template <bool kXvid>
 __global__ void __launch_bounds__(kBlocksPerCta * 8)
 mpeg4_intra_kernel(const int16_t* __restrict__ coefs, const int32_t* __restrict__ jobs, int64_t n,
                    int mb_w, Planes out) {
@@ -680,12 +895,12 @@ mpeg4_intra_kernel(const int16_t* __restrict__ coefs, const int32_t* __restrict_
   int4 job = make_int4(0, 0, 0, 0);
   if (live) {
     job = reinterpret_cast<const int4*>(jobs)[b];
-    idct_rows(coefs, job.y, lane, ws[local]);
+    idct_rows<kXvid>(coefs, job.y, lane, ws[local]);
   }
   __syncthreads();
   if (live) {
     int32_t v[8];
-    simple_column(ws[local], lane, v);
+    idct_column<kXvid>(ws[local], lane, v);
 #pragma unroll
     for (int k = 0; k < 8; ++k) px[local][8 * k + lane] = clamp255(v[k]);
   }
@@ -698,6 +913,7 @@ mpeg4_intra_kernel(const int16_t* __restrict__ coefs, const int32_t* __restrict_
   }
 }
 
+template <bool kXvid>
 __global__ void __launch_bounds__(kBlocksPerCta * 8)
 mpeg4_inter_kernel(const int16_t* __restrict__ coefs, const int32_t* __restrict__ jobs, int64_t n,
                    int mb_w, int mb_h, int rounding, RefPlanes ref, Planes out) {
@@ -709,40 +925,60 @@ mpeg4_inter_kernel(const int16_t* __restrict__ coefs, const int32_t* __restrict_
   int4 job = make_int4(0, -1, 0, 0);
   if (live) {
     job = reinterpret_cast<const int4*>(jobs)[b];
-    if (job.y >= 0) idct_rows(coefs, job.y, lane, ws[local]);
+    if (job.y >= 0) idct_rows<kXvid>(coefs, job.y, lane, ws[local]);
   }
   __syncthreads();
   int plane = 0, x = 0, y = 0, w = 0, h = 0;
   if (live) {
     origin(job.x, mb_w, mb_h, plane, x, y, w, h);
     int32_t res[8] = {};
-    if (job.y >= 0) simple_column(ws[local], lane, res);
-    const uint8_t* __restrict__ src = ref.p[plane];
-    const int hx = job.z & 1, hy = job.w & 1;
-    const int sx = x + (job.z >> 1) + lane, sy = y + (job.w >> 1);
-    const int c0 = clampi_d(sx, w), c1 = clampi_d(sx + 1, w);
-    const bool approx = rounding && (job.x & kNarrow);
-    int row0 = clampi_d(sy, h);
-    int a = src[(int64_t)row0 * w + c0], bb = src[(int64_t)row0 * w + c1];
+    if (job.y >= 0) idct_column<kXvid>(ws[local], lane, res);
+    int p[8];
+    predict_column(ref.p[plane], x, y, job.z, job.w, lane, w, h, rounding,
+                   rounding && (job.x & kNarrow), p);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) px[local][8 * k + lane] = clamp255(p[k] + res[k]);
+  }
+  __syncthreads();
+  if (live)
+    *reinterpret_cast<uint2*>(out.p[plane] + (int64_t)(y + lane) * w + x) =
+        *reinterpret_cast<const uint2*>(&px[local][8 * lane]);
+}
+
+// M3: a B-VOP's block: the forward prediction from `past`, the backward one
+// from `future`, or both averaged as (f + b + 1) >> 1, rounding 0; then the
+// IDCT residual added with saturation. Job (8 int32): mb * 6 + block,
+// coefficient row or -1, forward x, y, backward x, y, directions (1
+// forward, 2 backward, 3 both), 0.
+template <bool kXvid>
+__global__ void __launch_bounds__(kBlocksPerCta * 8)
+mpeg4_bidir_kernel(const int16_t* __restrict__ coefs, const int32_t* __restrict__ jobs, int64_t n,
+                   int mb_w, int mb_h, RefPlanes past, RefPlanes future, Planes out) {
+  __shared__ int16_t ws[kBlocksPerCta][64];
+  __shared__ __align__(8) uint8_t px[kBlocksPerCta][64];
+  const int local = threadIdx.x >> 3, lane = threadIdx.x & 7;
+  const int64_t b = (int64_t)blockIdx.x * kBlocksPerCta + local;
+  const bool live = b < n;
+  int4 j0 = make_int4(0, -1, 0, 0), j1 = make_int4(0, 0, 0, 0);
+  if (live) {
+    j0 = reinterpret_cast<const int4*>(jobs)[2 * b];
+    j1 = reinterpret_cast<const int4*>(jobs)[2 * b + 1];
+    if (j0.y >= 0) idct_rows<kXvid>(coefs, j0.y, lane, ws[local]);
+  }
+  __syncthreads();
+  int plane = 0, x = 0, y = 0, w = 0, h = 0;
+  if (live) {
+    origin(j0.x, mb_w, mb_h, plane, x, y, w, h);
+    int32_t res[8] = {};
+    if (j0.y >= 0) idct_column<kXvid>(ws[local], lane, res);
+    const int dirs = j1.z;
+    int f[8], p[8];
+    if (dirs & 1) predict_column(past.p[plane], x, y, j0.z, j0.w, lane, w, h, 0, false, f);
+    if (dirs & 2) predict_column(future.p[plane], x, y, j1.x, j1.y, lane, w, h, 0, false, p);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const int row1 = clampi_d(sy + k + 1, h);
-      const int c = src[(int64_t)row1 * w + c0], d = src[(int64_t)row1 * w + c1];
-      int p;
-      if (hx && hy) {
-        p = (a + bb + c + d + 2 - rounding) >> 2;
-      } else if (hx) {
-        p = approx ? ((a > 0 ? a - 1 : 0) + bb + 1) >> 1 : (a + bb + 1 - rounding) >> 1;
-      } else if (hy) {
-        if (approx)
-          p = (k & 1) ? ((a > 0 ? a - 1 : 0) + c + 1) >> 1 : (a + (c > 0 ? c - 1 : 0) + 1) >> 1;
-        else
-          p = (a + c + 1 - rounding) >> 1;
-      } else {
-        p = a;
-      }
-      px[local][8 * k + lane] = clamp255(p + res[k]);
-      a = c, bb = d;
+      const int v = dirs == 3 ? (f[k] + p[k] + 1) >> 1 : (dirs == 1 ? f[k] : p[k]);
+      px[local][8 * k + lane] = clamp255(v + res[k]);
     }
   }
   __syncthreads();
@@ -753,25 +989,43 @@ mpeg4_inter_kernel(const int16_t* __restrict__ coefs, const int32_t* __restrict_
 
 }  // namespace
 
-extern "C" int sleap_mpeg4_intra(const void* coefs, const void* jobs, int64_t n, int mb_w, void* y,
-                                 void* u, void* v, void* stream) {
+// `xvid` picks the instantiation: 0 FFmpeg's simple IDCT, 1 Xvid's.
+extern "C" int sleap_mpeg4_intra(const void* coefs, const void* jobs, int64_t n, int mb_w, int xvid,
+                                 void* y, void* u, void* v, void* stream) {
   if (n <= 0) return 0;
   const Planes out{{(uint8_t*)y, (uint8_t*)u, (uint8_t*)v}};
   const unsigned grid = (unsigned)((n + kBlocksPerCta - 1) / kBlocksPerCta);
-  mpeg4_intra_kernel<<<grid, kBlocksPerCta * 8, 0, (cudaStream_t)stream>>>(
+  auto kernel = xvid ? mpeg4_intra_kernel<true> : mpeg4_intra_kernel<false>;
+  kernel<<<grid, kBlocksPerCta * 8, 0, (cudaStream_t)stream>>>(
       (const int16_t*)coefs, (const int32_t*)jobs, n, mb_w, out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sleap_mpeg4_inter(const void* coefs, const void* jobs, int64_t n, int mb_w, int mb_h,
-                                 int rounding, const void* ry, const void* ru, const void* rv,
-                                 void* y, void* u, void* v, void* stream) {
+                                 int rounding, int xvid, const void* ry, const void* ru,
+                                 const void* rv, void* y, void* u, void* v, void* stream) {
   if (n <= 0) return 0;
   const RefPlanes ref{{(const uint8_t*)ry, (const uint8_t*)ru, (const uint8_t*)rv}};
   const Planes out{{(uint8_t*)y, (uint8_t*)u, (uint8_t*)v}};
   const unsigned grid = (unsigned)((n + kBlocksPerCta - 1) / kBlocksPerCta);
-  mpeg4_inter_kernel<<<grid, kBlocksPerCta * 8, 0, (cudaStream_t)stream>>>(
+  auto kernel = xvid ? mpeg4_inter_kernel<true> : mpeg4_inter_kernel<false>;
+  kernel<<<grid, kBlocksPerCta * 8, 0, (cudaStream_t)stream>>>(
       (const int16_t*)coefs, (const int32_t*)jobs, n, mb_w, mb_h, rounding, ref, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sleap_mpeg4_bidir(const void* coefs, const void* jobs, int64_t n, int mb_w, int mb_h,
+                                 int xvid, const void* py, const void* pu, const void* pv,
+                                 const void* fy, const void* fu, const void* fv, void* y, void* u,
+                                 void* v, void* stream) {
+  if (n <= 0) return 0;
+  const RefPlanes past{{(const uint8_t*)py, (const uint8_t*)pu, (const uint8_t*)pv}};
+  const RefPlanes future{{(const uint8_t*)fy, (const uint8_t*)fu, (const uint8_t*)fv}};
+  const Planes out{{(uint8_t*)y, (uint8_t*)u, (uint8_t*)v}};
+  const unsigned grid = (unsigned)((n + kBlocksPerCta - 1) / kBlocksPerCta);
+  auto kernel = xvid ? mpeg4_bidir_kernel<true> : mpeg4_bidir_kernel<false>;
+  kernel<<<grid, kBlocksPerCta * 8, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)coefs, (const int32_t*)jobs, n, mb_w, mb_h, past, future, out);
   return (int)cudaGetLastError();
 }
 

@@ -497,10 +497,10 @@ def raw_frame(video: AviVideo, data: bytes) -> np.ndarray:
 class AviReader:
     """Frames of an :class:`AviVideo` on ``device``: Motion-JPEG through
     :class:`sleap_tpu_torch.io.mjpeg.MotionJpegReader` (J5 on the card),
-    MPEG-4 Part 2 through :class:`sleap_tpu_torch.io.mpeg4.Mpeg4Reader` (M1
-    and M2 on the card), raw frames unpacked on the host and copied once.
+    MPEG-4 Part 2 through :class:`sleap_tpu_torch.io.mpeg4.Mpeg4Reader` (M1,
+    M2 and M3 on the card), raw frames unpacked on the host and copied once.
     A Motion-JPEG or raw read never decodes another frame; an MPEG-4 read
-    decodes on from the I-VOP at or before it."""
+    decodes on from the I-VOP at or before the reference it needs."""
 
     def __init__(self, demux: AviVideo, device="cuda"):
         self.demux = demux

@@ -2,60 +2,77 @@
 bit: the frames of :class:`sleap_tpu_torch.io.video.MediaVideo`'s card route
 for what ``cv2.VideoWriter`` writes with ``mp4v``, ``FMP4``, ``XVID`` or
 ``DIVX`` (and Bonsai's ``FMP4``) in AVI, ISO-BMFF (``.mp4``, ``.mov``) and
-Matroska files (:class:`Mpeg4Reader` over any of their demuxers).
+Matroska files, and for Xvid's and DivX's AVIs (:class:`Mpeg4Reader` over any
+of their demuxers).
 
 A stream is a VOL header (in-band before each I-VOP in AVI, or in ``strf``'s
 extradata; in ``esds``'s DecoderSpecificInfo in ISO-BMFF; in
-``CodecPrivate`` in Matroska), then one VOP a packet. A VOP goes through
-four stages:
+``CodecPrivate`` in Matroska), then one VOP a packet (two in DivX's packed
+bitstream). A VOP goes through four stages:
 
 1. the headers (VOS, VO, VOL, user data, GOV and VOP: :meth:`Stream.headers`)
    on the host in Python, then the macroblock layer's entropy decoding
    (:func:`decode_macroblocks`): modes, motion vectors (median prediction,
-   ``f_code`` wrap) and dequantised coefficient blocks with DC and AC
-   prediction applied, as FFmpeg's ``mpeg4videodec.c`` and ``h263.c`` do.
-   On the card's route that is ``sleap_mpeg4_decode_vop`` in host C
-   (``csrc/mpeg4.cu``); on the CPU the plain Python decoder here;
-2. intra blocks: FFmpeg's simple IDCT "put" (:func:`intra_plain`; kernel M1,
-   ``mpeg4_intra_kernel``): the IDCT that :mod:`~sleap_tpu_torch.io.mjpeg`
-   fitted for J5, without JPEG's level shift;
-3. inter and skipped blocks: half-pel prediction from the previous VOP
-   (:func:`inter_plain`; kernel M2, ``mpeg4_inter_kernel``):
-   ``(a + b + 1 - r) >> 1`` and ``(a + b + c + d + 2 - r) >> 2`` with
-   ``vop_rounding_type`` r (the 8-wide blocks rounding as FFmpeg's MMXEXT
-   ``no_rnd`` forms do, :data:`NARROW`), every sample position clamped to
-   the plane's edge (FFmpeg's ``emulated_edge_mc`` at ``h_edge_pos`` and
-   ``v_edge_pos``, which are the macroblock-padded sizes), the chroma vector
-   as FFmpeg's H.263 path derives it; then the IDCT residual added with
-   saturation;
+   ``f_code`` wrap; a B-VOP's forward and backward predictors and direct
+   mode's scaling of the future reference's co-located vectors) and
+   dequantised coefficient blocks with DC and AC prediction applied, as
+   FFmpeg's ``mpeg4videodec.c`` and ``h263.c`` do. On the card's route that
+   is ``sleap_mpeg4_decode_vop`` in host C (``csrc/mpeg4.cu``); on the CPU
+   the plain Python decoder here;
+2. intra blocks: the IDCT "put" (:func:`intra_plain`; kernel M1,
+   ``mpeg4_intra_kernel``);
+3. inter and skipped blocks of a P-VOP: half-pel prediction from the
+   previous reference (:func:`inter_plain`; kernel M2,
+   ``mpeg4_inter_kernel``): ``(a + b + 1 - r) >> 1`` and ``(a + b + c + d + 2
+   - r) >> 2`` with ``vop_rounding_type`` r (the 8-wide blocks rounding as
+   FFmpeg's MMXEXT ``no_rnd`` forms do, :data:`NARROW`), every sample
+   position clamped to the plane's edge (FFmpeg's ``emulated_edge_mc`` at
+   ``h_edge_pos`` and ``v_edge_pos``, which are the macroblock-padded
+   sizes), the chroma vector as FFmpeg's H.263 path derives it; then the
+   IDCT residual added with saturation. A B-VOP's blocks (:func:`bidir_plain`;
+   kernel M3, ``mpeg4_bidir_kernel``): forward from the past reference,
+   backward from the future one, or both averaged as ``(f + b + 1) >> 1``
+   (interpolated and direct macroblocks), rounding 0, then the residual;
 4. the padded planes cropped to the VOL's size and converted by swscale's
    unscaled ``yuv420p`` rule (:func:`sleap_tpu_torch.io.yuv.to_bgr`,
    limited range).
 
-What is decoded: rectangular 8-bit 4:2:0 VOLs of even size; I- and P-VOPs;
-H.263 and MPEG quantisation (default and loaded matrices, dequantised as
-FFmpeg's x86 code does in 16-bit lanes); one or four motion vectors a
-macroblock (half-pel, unrestricted); intra DC and AC prediction with the
-alternate scans; ``intra_dc_vlc_thr``; DQUANT; skipped macroblocks and
-intra macroblocks in P-VOPs; the three TCOEF escapes; video packets
-(resync markers, as FFmpeg's slices: no prediction from outside a packet's
-first row, its AC predictors cleared around its start); not-coded VOPs,
-which give no frame (cv2 reads one frame a coded VOP). What FFmpeg decodes
-and this module does not raises ``NotImplementedError`` naming it (ROADMAP.md
-item 3g(7)): B-VOPs, S(GMC)-VOPs and sprites, quarter-pel, interlaced VOLs,
-data partitioning and reversible VLC, NEWPRED, reduced resolution,
+The IDCT is the stream's: FFmpeg's simple IDCT (:func:`idct_values`, the one
+:mod:`~sleap_tpu_torch.io.mjpeg` fitted for J5, without JPEG's level shift),
+or, where the user data names an Xvid build or the fourcc is Xvid's and no
+encoder is named, Xvid's as FFmpeg's x86-64 SSE2 form computes it
+(:func:`xvid_idct_values`, fitted to cv2's decodes of crafted intra VOPs).
+M1, M2 and M3 each have an instantiation of either.
+
+What is decoded: rectangular 8-bit 4:2:0 VOLs of even size; I-, P- and
+B-VOPs (every MB_TYPE, direct mode over one- and four-vector, skipped and
+intra co-located macroblocks, DBQUANT, FFmpeg's timing rules and one-VOP
+delay, :class:`Schedule`); H.263 and MPEG quantisation (default and loaded
+matrices, dequantised as FFmpeg's x86 code does in 16-bit lanes); one or
+four motion vectors a macroblock (half-pel, unrestricted); intra DC and AC
+prediction with the alternate scans; ``intra_dc_vlc_thr``; DQUANT; skipped
+macroblocks and intra macroblocks in P-VOPs; the three TCOEF escapes; video
+packets (resync markers, as FFmpeg's slices: no prediction from outside a
+packet's first row, its AC predictors cleared around its start); not-coded
+VOPs, which give no frame; Xvid's IDCT (builds 33 on); DivX's packed
+bitstream (a packet's second VOP decoded at the next packet). What FFmpeg
+decodes and this module does not raises ``NotImplementedError`` naming it
+(ROADMAP.md item 3g(7)): S(GMC)-VOPs and sprites, quarter-pel, interlaced
+VOLs, data partitioning and reversible VLC, NEWPRED, reduced resolution,
 scalability, complexity estimation headers, other shapes, chroma formats and
-bit depths, full-range video, odd sizes, streams whose user data (or, naming
-no encoder, whose fourcc) makes FFmpeg use Xvid's IDCT, DivX's packed
-bitstream, and the old encoders FFmpeg works around with ``FF_BUG_EDGE``.
+bit depths, full-range video, odd sizes, B-VOPs in ISO-BMFF and Matroska
+tracks, the old encoders FFmpeg works around with ``FF_BUG_EDGE`` (DivX 4,
+libavcodec before build 4670, Xvid to build 12) and Xvid's builds to 32
+(``FF_BUG_DC_CLIP``).
 
-:class:`Mpeg4Reader` keeps its reference VOP on its device: a read of frame
-``i`` decodes from the I-VOP at or before it, and sequential reads carry the
-decoder on, so a GOP is decoded once when read in order.
+:class:`Mpeg4Reader` keeps its two references on its device: a read of frame
+``i`` (the ``i``-th of cv2's sequential read) decodes from the I-VOP at or
+before the reference it needs, and sequential reads carry the decoder on, so
+a GOP is decoded once when read in order.
 """
-
 from __future__ import annotations
 
+import functools
 import re
 import threading
 from dataclasses import dataclass
@@ -183,6 +200,10 @@ FOURCCS = frozenset({
     "PLV1", "GLV4", "GMP4", "MNM4", "GTM4"})
 #: Fourccs FFmpeg takes for Xvid when the stream names no encoder.
 XVID_TAGS = frozenset({"XVID", "XVIX", "RMP4", "ZMP4", "SIPP"})
+#: The last Xvid build FFmpeg decodes with workarounds that change pixels
+#: (``ff_mpeg4_workaround_bugs``: FF_BUG_EDGE to build 12, FF_BUG_DC_CLIP
+#: to 32), refused here.
+OLD_XVID = 32
 
 
 def _max_tables(run, level, last_from):
@@ -276,6 +297,10 @@ class Vol:
     #: MPEG quantisation's matrices (raster order); None: H.263 quantisation.
     intra_matrix: Optional[Tuple[int, ...]] = None
     inter_matrix: Optional[Tuple[int, ...]] = None
+    #: The control parameters' ``low_delay`` bit (None without them).
+    low_delay: Optional[int] = None
+    #: ``vop_time_increment_resolution``: ticks a second.
+    resolution: int = 1
 
     @property
     def mb_size(self) -> Tuple[int, int]:
@@ -297,11 +322,12 @@ def parse_vol(r: BitReader) -> Vol:
     if r.read(4) == 15:  # aspect_ratio_info: extended PAR
         r.read(16)
     control = bool(r.read(1))
+    low_delay = None
     if control:
         chroma_format = r.read(2)
         if chroma_format != 1:
             raise unsupported(f"MPEG-4 video of chroma_format {chroma_format} (not 4:2:0)")
-        r.read(1)  # low_delay
+        low_delay = r.read(1)
         if r.read(1):  # vbv_parameters
             r.read(15), r.marker("after first_half_bit_rate"), r.read(15)
             r.marker("after latter_half_bit_rate"), r.read(15)
@@ -362,7 +388,8 @@ def parse_vol(r: BitReader) -> Vol:
     if width % 2 or height % 2:
         raise unsupported(f"MPEG-4 video of odd size ({width} x {height}) in 4:2:0 (swscale "
                           f"converts it through its scaler, which the port does not model)")
-    return Vol(vo_type, width, height, time_bits, quant_precision, resync, control, *matrices)
+    return Vol(vo_type, width, height, time_bits, quant_precision, resync, control, *matrices,
+               low_delay, resolution)
 
 
 def _matrix(r: BitReader, default: Sequence[int]) -> Tuple[int, ...]:
@@ -415,31 +442,39 @@ class Encoder:
         if m:
             self.xvid_build = int(m.group(1))
 
-    def check(self, fourcc: str, vol: Vol) -> None:
-        """Raise for what makes FFmpeg decode otherwise than this module."""
-        xvid = self.xvid_build
-        if xvid < 0 and self.divx_version < 0 and self.lavc_build < 0 and not vol.vo_type \
-                and not vol.control_parameters and fourcc.upper() in XVID_TAGS:
+    def check(self, fourcc: str, vol: Vol) -> str:
+        """The IDCT FFmpeg decodes the stream with, "simple" or "xvid" (an
+        Xvid build in the user data, or an Xvid fourcc where no encoder is
+        named, as ``ff_mpeg4_workaround_bugs`` decides); raise for what makes
+        FFmpeg decode otherwise than this module."""
+        xvid, divx = self.xvid_build, self.divx_version
+        if xvid < 0 and divx < 0 and self.lavc_build < 0 and fourcc.upper() in XVID_TAGS:
             xvid = 0  # FFmpeg's guess from the fourcc
         if xvid >= 0:
-            raise unsupported(f"An Xvid-encoded MPEG-4 stream (FFmpeg decodes it with Xvid's "
-                              f"IDCT; build {xvid})")
-        if self.divx_packed:
-            raise unsupported("DivX's packed MPEG-4 bitstream")
-        divx = self.divx_version
-        if divx < 0 and self.lavc_build < 0 and not vol.vo_type and not vol.control_parameters \
-                and fourcc.upper() == "DIVX":
+            divx = -1  # FFmpeg forgets a DivX version where Xvid is named too
+        elif divx < 0 and self.lavc_build < 0 and not vol.vo_type \
+                and not vol.control_parameters and fourcc.upper() == "DIVX":
             divx = 400
+        if 0 <= xvid <= OLD_XVID:
+            raise unsupported(f"An MPEG-4 stream of Xvid build {xvid} (an old build, or one "
+                              f"guessed from the fourcc), which FFmpeg decodes with its "
+                              f"FF_BUG_EDGE and FF_BUG_DC_CLIP workarounds")
         if 0 <= divx < 500 or 0 <= self.lavc_build < 4670:
             raise unsupported("An MPEG-4 stream of an old encoder that FFmpeg decodes with its "
                               "FF_BUG_EDGE workaround (DivX 4, libavcodec before build 4670)")
+        return "xvid" if xvid >= 0 else "simple"
 
 
 @dataclass
 class Vop:
-    """A VOP's header: ``kind`` "I", "P" or "N" (not coded: it leaves the
-    reference as it was and gives no frame), and where its macroblocks start
-    (``bit``, from the start of the packet)."""
+    """A VOP's header: ``kind`` "I", "P", "B" or "N" (not coded: it leaves
+    the references as they were and gives no frame; ``coding`` is its
+    ``vop_coding_type`` all the same), where its macroblocks start (``bit``,
+    from the start of the packet), its time (``modulo`` seconds of
+    ``modulo_time_base`` and ``time`` ticks), and, for a B-VOP,
+    the times FFmpeg's direct mode scales by (``pp_time`` between its
+    references, ``pb_time`` from the past one; set by the reader's
+    schedule)."""
 
     kind: str
     rounding: int
@@ -447,6 +482,15 @@ class Vop:
     quant: int
     f_code: int
     bit: int
+    b_code: int = 1
+    modulo: int = 0
+    time: int = 0
+    pp_time: int = 0
+    pb_time: int = 0
+    coding: str = ""
+
+    def __post_init__(self):
+        self.coding = self.coding or self.kind
 
 
 def _start_codes(data: bytes) -> List[int]:
@@ -457,44 +501,56 @@ def _start_codes(data: bytes) -> List[int]:
 def parse_vop(r: BitReader, vol: Vol) -> Vop:
     """A VOP header from after its start code (``decode_vop_header``)."""
     kind = r.read(2)
-    if kind >= 2:
-        raise unsupported(("MPEG-4 B-VOPs", "MPEG-4 S(GMC)-VOPs")[kind - 2])
+    if kind == 3:
+        raise unsupported("MPEG-4 S(GMC)-VOPs")
+    modulo = 0
     while r.read(1):  # modulo_time_base
+        modulo += 1
         if r.left <= 0:
             raise ValueError("MPEG-4: a VOP header runs past its packet")
     r.marker("before vop_time_increment")
-    r.read(vol.time_bits)
+    time = r.read(vol.time_bits)
     r.marker("before vop_coded")
     if not r.read(1):  # not coded: FFmpeg outputs no frame for it
-        return Vop("N", 0, 0, 0, 0, r.pos)
+        return Vop("N", 0, 0, 0, 0, r.pos, modulo=modulo, time=time, coding="IPB"[kind])
     rounding = r.read(1) if kind == 1 else 0
     dc_threshold = DC_THRESHOLD[r.read(3)]
     quant = r.read(vol.quant_precision)
     if not quant:
         raise ValueError("MPEG-4: a VOP of quantiser 0")
-    f_code = r.read(3) if kind == 1 else 1
-    if not f_code:
-        raise ValueError("MPEG-4: a P-VOP of f_code 0")
+    f_code = r.read(3) if kind else 1
+    b_code = r.read(3) if kind == 2 else 1
+    if not f_code or not b_code:
+        raise ValueError("MPEG-4: a VOP of f_code or b_code 0")
     if r.left < 0:
         raise ValueError("MPEG-4: a VOP header runs past its packet")
-    return Vop("IP"[kind], rounding, dc_threshold, quant, f_code, r.pos)
+    return Vop("IPB"[kind], rounding, dc_threshold, quant, f_code, r.pos, b_code, modulo, time)
 
 
 class Stream:
     """What a stream's headers set: its VOL, its encoder, its fourcc (the
-    AVI or ``V_MS/VFW/FOURCC`` tag, "" elsewhere)."""
+    AVI or ``V_MS/VFW/FOURCC`` tag, "" elsewhere), the IDCT FFmpeg decodes
+    it with (``idct``), and, of the last :meth:`headers` call, the time code
+    of a GOV header (``gov_seconds``, None without one) and where its VOP
+    starts (``vop_at``, the byte after its start code)."""
 
     def __init__(self, fourcc: str = "", config: bytes = b""):
         self.fourcc = fourcc
         self.vol: Optional[Vol] = None
         self.encoder = Encoder()
+        self.idct = "simple"
+        self.gov_seconds: Optional[int] = None
+        self.vop_at = -1
         if config:
             self.headers(config)
 
     def headers(self, data: bytes) -> Optional[Vop]:
-        """Read every header in ``data`` (a packet, or a container's
-        configuration record); the VOP's, where there is one."""
-        vop = None
+        """Read the headers in ``data`` (a packet, or a container's
+        configuration record) up to its first VOP, as FFmpeg's
+        ``ff_mpeg4_decode_picture_header`` does; that VOP's header, where
+        there is one (what follows it, a packed bitstream's second VOP, is
+        the reader's)."""
+        self.gov_seconds, self.vop_at = None, -1
         for at in _start_codes(data):
             code = data[at]
             r = BitReader(data, 8 * (at + 1))
@@ -503,16 +559,19 @@ class Stream:
             elif code == 0xB2:
                 end = data.find(b"\x00\x00\x01", at + 1)
                 self.encoder.read(data[at + 1:end if end >= 0 else len(data)][:255])
+            elif code == 0xB3:  # GOV: FFmpeg takes its time code, not its flags
+                hours, minutes = r.read(5), r.read(6)
+                r.read(1)
+                self.gov_seconds = r.read(6) + 60 * (minutes + 60 * hours)
             elif code == 0xB5:
                 _visual_object(r)
             elif code == 0xB6:
-                if vop is not None:
-                    raise unsupported("Two VOPs in one packet (a packed MPEG-4 bitstream)")
                 if self.vol is None:
                     raise ValueError("MPEG-4: a VOP before any VOL header")
-                self.encoder.check(self.fourcc, self.vol)
-                vop = parse_vop(r, self.vol)
-        return vop
+                self.idct = self.encoder.check(self.fourcc, self.vol)
+                self.vop_at = at + 1
+                return parse_vop(r, self.vol)
+        return None
 
 
 def _visual_object(r: BitReader) -> None:
@@ -533,7 +592,7 @@ def _visual_object(r: BitReader) -> None:
 
 @dataclass
 class Macroblocks:
-    """A VOP's decoded macroblock layer, what M1 and M2 take:
+    """A VOP's decoded macroblock layer, what M1, M2 and M3 take:
 
     - ``coefs`` (n, 64) int16: dequantised blocks in raster order, DC and AC
       prediction applied;
@@ -541,12 +600,31 @@ class Macroblocks:
       M2, one an 8x8 block: ``mb * 6 + block`` (blocks 0-3 luma, 4 Cb, 5
       Cr), the block's row of ``coefs`` (-1: no residual), and its motion
       vector in half samples of its own plane (0 for intra blocks);
-    - ``modes`` (macroblocks,) int8: 0 intra, 1 inter, 2 skipped."""
+    - ``bidir`` (k, 8) int32 jobs of M3 (a B-VOP's blocks): ``mb * 6 +
+      block``, the row of ``coefs``, the forward and the backward vector,
+      the directions (1 forward, 2 backward, 3 both), 0;
+    - ``modes`` (macroblocks,) int8: 0 intra, 1 inter, 2 skipped; a
+      B-VOP's :data:`B_MODES`;
+    - ``colocated`` (macroblocks, 9) int32 of an I- or P-VOP, what the
+      B-VOPs after it read of it: :data:`COLOCATED_SKIPPED`,
+      :data:`COLOCATED_8X8` and :data:`COLOCATED_INTRA` flags, then the four
+      luma blocks' vectors as FFmpeg's ``motion_val`` holds them once the
+      VOP is decoded."""
 
     coefs: np.ndarray
     intra: np.ndarray
     inter: np.ndarray
     modes: np.ndarray
+    bidir: np.ndarray = None
+    colocated: np.ndarray = None
+
+
+#: :attr:`Macroblocks.colocated`'s flags.
+COLOCATED_SKIPPED, COLOCATED_8X8, COLOCATED_INTRA = 1, 2, 4
+#: MB_TYPE of B-VOPs (``mb_type_b_map``): code length - 1 -> type.
+B_DIRECT, B_INTERPOLATE, B_BACKWARD, B_FORWARD = range(4)
+#: A B-VOP's :attr:`Macroblocks.modes`.
+B_MODES = ("skipped", "forward", "backward", "interpolated", "direct", "direct 8x8")
 
 
 def _rounded_div(a: int, b: int) -> int:
@@ -686,11 +764,15 @@ def _dequantise_mpeg_inter(block: List[int], qscale: int, matrix: Sequence[int])
     block[63] ^= parity
 
 
-def decode_macroblocks(data: bytes, vol: Vol, vop: Vop) -> Macroblocks:
+def decode_macroblocks(data: bytes, vol: Vol, vop: Vop,
+                       colocated: Optional[np.ndarray] = None) -> Macroblocks:
     """The plain entropy decoder: every macroblock of the VOP in ``data``
     (its packet), as FFmpeg's ``mpeg4_decode_mb`` and ``mpeg4_decode_block``
     decode them, with ``ff_mpeg4_pred_dc``, ``ff_mpeg4_pred_ac``,
-    ``ff_h263_pred_motion`` and H.263 dequantisation."""
+    ``ff_h263_pred_motion`` and H.263 dequantisation. A B-VOP reads the
+    future reference's ``colocated`` (:attr:`Macroblocks.colocated`)."""
+    if vop.kind == "B":
+        return _decode_b(data, vol, vop, colocated)
     r = BitReader(data, vop.bit)
     mb_w, mb_h = vol.mb_size
     P = vop.kind == "P"
@@ -705,6 +787,7 @@ def decode_macroblocks(data: bytes, vol: Vol, vop: Vop) -> Macroblocks:
     intra_jobs: List[Tuple[int, int, int, int]] = []
     inter_jobs: List[Tuple[int, int, int, int]] = []
     modes = np.zeros(mb_w * mb_h, np.int8)
+    four = np.zeros(mb_w * mb_h, bool)
 
     def cell(n, x, y):  # (grid, index) of block n of macroblock (x, y)
         if n < 4:
@@ -785,6 +868,7 @@ def decode_macroblocks(data: bytes, vol: Vol, vop: Vop) -> Macroblocks:
                         mv[base + o] = (mx, my)
                 else:
                     moved = four_vectors(vectors, mb_x, mb_y, vol.width, vol.height)
+                    four[mb] = True
                 for n, block in enumerate(blocks):
                     k = -1
                     if block is not None:
@@ -888,27 +972,152 @@ def decode_macroblocks(data: bytes, vol: Vol, vop: Vop) -> Macroblocks:
     out = np.zeros((len(coefs), 64), np.int64)
     if coefs:
         out[:] = coefs
+    colocated = np.zeros((mb_w * mb_h, 9), np.int32)
+    colocated[:, 0] = np.select([modes == 0, modes == 2, four],
+                                [COLOCATED_INTRA, COLOCATED_SKIPPED, COLOCATED_8X8], 0)
+    for mb in range(mb_w * mb_h):
+        base = 2 * (mb // mb_w) * vw + 2 * (mb % mb_w) + 1
+        colocated[mb, 1:] = [c for o in (vw, vw + 1, 2 * vw, 2 * vw + 1) for c in mv[base + o]]
     return Macroblocks(out.astype(np.int16), np.array(intra_jobs, np.int32).reshape(-1, 4),
-                       np.array(inter_jobs, np.int32).reshape(-1, 4), modes)
+                       np.array(inter_jobs, np.int32).reshape(-1, 4), modes,
+                       np.zeros((0, 8), np.int32), colocated)
 
 
-def _video_packet(r: BitReader, vol: Vol, vop: Vop, next_mb: int) -> Optional[int]:
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division (toward zero), ``b`` > 0."""
+    return -(-a // b) if a < 0 else a // b
+
+
+def direct_vectors(col: Sequence[int], dx: int, dy: int, pp: int, pb: int):
+    """``ff_mpeg4_set_direct_mv``: a direct macroblock's forward and
+    backward vectors from the co-located ones (``col``, a row of
+    :attr:`Macroblocks.colocated`) and the delta: four of each where the
+    co-located macroblock had four, else one. Each component of the
+    co-located vector p gives ``p * pb / pp + d`` forward and, backward,
+    the forward one less p where its delta d is not 0, else ``p * (pb -
+    pp) / pp`` (C's division)."""
+    n = 4 if col[0] & COLOCATED_8X8 else 1
+    fwd, bwd = [], []
+    for i in range(n):
+        f, b = [], []
+        for p, d in ((col[1 + 2 * i], dx), (col[2 + 2 * i], dy)):
+            f.append(_cdiv(p * pb, pp) + d)
+            b.append(f[-1] - p if d else _cdiv(p * (pb - pp), pp))
+        fwd.append(tuple(f))
+        bwd.append(tuple(b))
+    return fwd, bwd
+
+
+def _block_vectors(vectors, mb_x: int, mb_y: int, vol: Vol):
+    """Six blocks' vectors from one (a 16x16 prediction: the chroma one as
+    FFmpeg's H.263 path derives it) or four (:func:`four_vectors`)."""
+    if len(vectors) == 1:
+        mx, my = vectors[0]
+        return [(mx, my)] * 4 + [chroma_vector(mx, my)] * 2
+    return [v[:2] for v in four_vectors(vectors, mb_x, mb_y, vol.width, vol.height)]
+
+
+def _decode_b(data: bytes, vol: Vol, vop: Vop, colocated: np.ndarray) -> Macroblocks:
+    """A B-VOP's macroblocks (``mpeg4_decode_mb``'s B branch): a macroblock
+    whose co-located one the future reference skipped is skipped unread
+    (forward, zero vector, no residual); else MODB, MB_TYPE, CBPB, DBQUANT,
+    the forward and backward vectors (predicted from the last of their
+    direction, both reset at each row and video packet), direct mode's
+    delta (:func:`direct_vectors`), then the blocks as a P-VOP's."""
+    r = BitReader(data, vop.bit)
+    mb_w, mb_h = vol.mb_size
+    qscale = vop.quant
+    coefs: List[List[int]] = []
+    jobs: List[Tuple[int, ...]] = []
+    modes = np.zeros(mb_w * mb_h, np.int8)
+    last = [(0, 0), (0, 0)]
+    for mb in range(mb_w * mb_h):
+        mb_x, mb_y = mb % mb_w, mb // mb_w
+        if mb_x == 0:
+            last = [(0, 0), (0, 0)]
+        col = colocated[mb]
+        cbp, blocks = 0, [None] * 6
+        if col[0] & COLOCATED_SKIPPED:
+            dirs, fwd, bwd = 1, [(0, 0)], [(0, 0)]
+        else:
+            delta = (0, 0)
+            if r.read(1):  # MODB '1': direct, nothing more
+                mb_type = B_DIRECT
+            else:
+                no_cbp = r.read(1)
+                mb_type = 0
+                while not r.read(1):
+                    mb_type += 1
+                    if mb_type > 3:
+                        raise ValueError(f"MPEG-4: an invalid B-VOP MB_TYPE at bit {r.pos}")
+                cbp = 0 if no_cbp else r.read(6)
+                if mb_type != B_DIRECT and cbp and r.read(1):
+                    qscale = min(max(qscale + 4 * r.read(1) - 2, 1), 31)
+                if mb_type in (B_INTERPOLATE, B_FORWARD):
+                    last[0] = (_motion(r, last[0][0], vop.f_code), _motion(r, last[0][1], vop.f_code))
+                if mb_type in (B_INTERPOLATE, B_BACKWARD):
+                    last[1] = (_motion(r, last[1][0], vop.b_code), _motion(r, last[1][1], vop.b_code))
+                if mb_type == B_DIRECT:
+                    delta = (_motion(r, 0, 1), _motion(r, 0, 1))
+            if mb_type == B_DIRECT:
+                dirs = 3
+                fwd, bwd = direct_vectors(col, *delta, vop.pp_time, vop.pb_time)
+                modes[mb] = 4 + (len(fwd) == 4)
+            else:
+                dirs = {B_INTERPOLATE: 3, B_BACKWARD: 2, B_FORWARD: 1}[mb_type]
+                fwd, bwd = [last[0]], [last[1]]
+                modes[mb] = {B_INTERPOLATE: 3, B_BACKWARD: 2, B_FORWARD: 1}[mb_type]
+            qmul, qadd = (1, 0) if vol.inter_matrix else (qscale << 1, (qscale - 1) | 1)
+            for n in range(6):
+                if cbp & (32 >> n):
+                    block = [0] * 64
+                    _tcoef(r, block, -1, False, ZIGZAG, qmul, qadd)
+                    if vol.inter_matrix:
+                        _dequantise_mpeg_inter(block, qscale, vol.inter_matrix)
+                    blocks[n] = block
+        fv, bv = _block_vectors(fwd, mb_x, mb_y, vol), _block_vectors(bwd, mb_x, mb_y, vol)
+        for n in range(6):
+            k = -1
+            if blocks[n] is not None:
+                k = len(coefs)
+                coefs.append(blocks[n])
+            jobs.append((mb * 6 + n, k, *fv[n], *bv[n], dirs, 0))
+        if r.left < 0:
+            raise ValueError(f"MPEG-4: the VOP's data ends inside macroblock {mb}")
+        if vol.resync and mb + 1 < mb_w * mb_h:
+            # A marker of a later macroblock waits while the next is skipped.
+            later = bool(colocated[mb + 1, 0] & COLOCATED_SKIPPED)
+            packet_quant = _video_packet(r, vol, vop, mb + 1, later)
+            if packet_quant is not None:
+                qscale = packet_quant or qscale
+                last = [(0, 0), (0, 0)]  # ff_mpeg4_clean_buffers
+    out = np.zeros((len(coefs), 64), np.int64)
+    if coefs:
+        out[:] = coefs
+    return Macroblocks(out.astype(np.int16), np.zeros((0, 4), np.int32), np.zeros((0, 4), np.int32),
+                       modes, np.array(jobs, np.int32).reshape(-1, 8))
+
+
+def _video_packet(r: BitReader, vol: Vol, vop: Vop, next_mb: int,
+                  later: bool = False) -> Optional[int]:
     """Where a resync marker follows (``mpeg4_is_resync``, MCBPC stuffing
     before it passed over), read the video packet header after it
     (``ff_mpeg4_decode_video_packet_header``: its macroblock number, which
     must be ``next_mb``, and the header extension, read and passed over as
     FFmpeg does) and return its quantiser (0: keep the running one); else
-    None, ``r`` where it was, past any stuffing."""
+    None, ``r`` where it was, past any stuffing. With ``later`` (a B-VOP
+    whose next macroblock is skipped unread) a marker of a later
+    macroblock is left for then, as FFmpeg's ``SLICE_OK`` leaves it."""
     v = r.peek(16)
     pict = 1 if vop.kind == "I" else 2
-    while v <= 0xFF and (v >> (8 - pict)) == 1:  # MCBPC stuffing
+    while vop.kind != "B" and v <= 0xFF and (v >> (8 - pict)) == 1:  # MCBPC stuffing
         r.pos += 8 + pict
         v = r.peek(16)
     if r.pos + 8 >= r.end or v != RESYNC_PREFIX[r.pos & 7]:
         return None
     start = r.pos
     r.pos = ((r.pos + 1) + 7) & ~7
-    prefix = 16 if vop.kind == "I" else 15 + vop.f_code
+    prefix = {"I": 16, "P": 15 + vop.f_code, "B": 15 + max(vop.f_code, vop.b_code, 2)}[vop.kind]
     zeros = 0
     while zeros < 32 and not r.read(1):
         zeros += 1
@@ -919,6 +1128,9 @@ def _video_packet(r: BitReader, vol: Vol, vop: Vop, next_mb: int) -> Optional[in
         raise ValueError(f"MPEG-4: a resync marker of {zeros} zeros, not {prefix}")
     mb_w, mb_h = vol.mb_size
     mb = r.read(max(1, (mb_w * mb_h - 1).bit_length()))
+    if later and mb > next_mb:
+        r.pos = start
+        return None
     if mb != next_mb:
         raise ValueError(f"MPEG-4: a video packet starts at macroblock {mb}, not {next_mb}")
     quant = r.read(vol.quant_precision)
@@ -929,7 +1141,7 @@ def _video_packet(r: BitReader, vol: Vol, vop: Vop, next_mb: int) -> Optional[in
         r.marker("before a video packet's time increment")
         r.read(vol.time_bits)
         r.marker("before a video packet's vop_coding_type")
-        r.read(2 + 3 + (3 if vop.kind == "P" else 0))  # type, intra_dc_vlc_thr, f_code
+        r.read(2 + 3 + {"I": 0, "P": 3, "B": 6}[vop.kind])  # type, intra_dc_vlc_thr, f/b_code
     return quant
 
 
@@ -943,6 +1155,87 @@ def idct_values(coefs: torch.Tensor) -> torch.Tensor:
     64) int16 coefficients in raster order, without JPEG's dequantisation
     and level shift: (blocks, 8, 8) int64 values before saturation."""
     return mjpeg.simple_idct(coefs.long())
+
+
+def _xvid_row_table() -> List[List[int]]:
+    """The row pass's constants: for each row, 2^14 sqrt(2) cos(k pi / 16)
+    (k = 1..7; k = 0 takes cos(pi / 4)) of the column index, times the same
+    factor of the row's own index folded into 0..4 (rows 5, 6, 7 share the
+    tables of rows 3, 2, 1), rounded (the AP-922 tables)."""
+    f = [1.0] + [np.sqrt(2) * np.cos(k * np.pi / 16) for k in range(1, 8)]
+    f[4] = 1.0
+    return [[int(np.floor(16384 * f[min(r, 8 - r) % 8] * f[k] + 0.5)) for k in range(8)]
+            for r in range(8)]
+
+
+XVID_ROW = _xvid_row_table()
+#: The row pass's rounding, by row (Walken's rounders).
+XVID_ROUNDERS = (65536, 3597, 2260, 1203, 0, 120, 512, 512)
+#: The column pass's constants: tan(pi/16), tan(pi/8) and tan(3pi/16) - 1 in
+#: Q16, cos(pi/4) / 2 in Q16.
+XVID_T1, XVID_T2, XVID_T3, XVID_C4 = 13036, 27146, -21746, 23170
+
+
+def _sat16(v: torch.Tensor) -> torch.Tensor:
+    return v.clamp(-32768, 32767)
+
+
+def _mulhi(a: torch.Tensor, c: int) -> torch.Tensor:
+    return (a * c) >> 16
+
+
+def xvid_idct_values(coefs: torch.Tensor) -> torch.Tensor:
+    """Xvid's IDCT as FFmpeg's x86-64 SSE2 form (``ff_xvid_idct_sse2``)
+    computes it, of (blocks, 64) int16 coefficients in raster order: (blocks,
+    8, 8) int64 values before saturation to 8 bits. Rows: AP-922's matrix
+    product in 32 bits with Walken's rounders, shifted right by 11 and
+    saturated to 16 bits; columns: Loeffler's butterflies in saturating
+    16-bit arithmetic with ``pmulhw`` products, shifted right by 6."""
+    z = coefs.long().view(-1, 8, 8)
+    rows = []
+    for r in range(8):
+        c = XVID_ROW[r]
+        x = [z[:, r, k] for k in range(8)]
+        rnd = XVID_ROUNDERS[r]
+        a = (c[0] * x[0] + c[2] * x[2] + c[4] * x[4] + c[6] * x[6] + rnd,
+             c[0] * x[0] + c[6] * x[2] - c[4] * x[4] - c[2] * x[6] + rnd,
+             c[0] * x[0] - c[6] * x[2] - c[4] * x[4] + c[2] * x[6] + rnd,
+             c[0] * x[0] - c[2] * x[2] + c[4] * x[4] - c[6] * x[6] + rnd)
+        b = (c[1] * x[1] + c[3] * x[3] + c[5] * x[5] + c[7] * x[7],
+             c[3] * x[1] - c[7] * x[3] - c[1] * x[5] - c[5] * x[7],
+             c[5] * x[1] - c[1] * x[3] + c[7] * x[5] + c[3] * x[7],
+             c[7] * x[1] - c[5] * x[3] + c[3] * x[5] - c[1] * x[7])
+        out = [0] * 8
+        for k in range(4):
+            out[k] = _sat16(_i32(a[k] + b[k]) >> 11)
+            out[7 - k] = _sat16(_i32(a[k] - b[k]) >> 11)
+        rows.append(torch.stack(out, 1))
+    w = torch.stack(rows, 1)  # (blocks, row, column)
+    x = [w[:, k, :] for k in range(8)]
+    s = _sat16
+    tm35 = s(s(_mulhi(x[3], XVID_T3) + x[3]) - x[5])
+    tp35 = s(s(_mulhi(x[5], XVID_T3) + x[5]) + x[3])
+    tp17 = s(_mulhi(x[7], XVID_T1) + x[1])
+    tm17 = s(_mulhi(x[1], XVID_T1) - x[7])
+    b0, b3 = s(tp17 + tp35), s(tm17 - tm35)
+    t1, t2 = s(tp17 - tp35), s(tm17 + tm35)
+    b1, b2 = s(2 * _mulhi(s(t1 + t2), XVID_C4)), s(2 * _mulhi(s(t1 - t2), XVID_C4))
+    tm26 = s(_mulhi(x[2], XVID_T2) - x[6])
+    tp26 = s(_mulhi(x[6], XVID_T2) + x[2])
+    tp04, tm04 = s(x[0] + x[4]), s(x[0] - x[4])
+    a0, a1, a2, a3 = s(tp04 + tp26), s(tm04 + tm26), s(tm04 - tm26), s(tp04 - tp26)
+    out = [s(a0 + b0), s(a1 + b1), s(a2 + b2), s(a3 + b3),
+           s(a3 - b3), s(a2 - b2), s(a1 - b1), s(a0 - b0)]
+    return torch.stack([v >> 6 for v in out], 1)
+
+
+def _i32(v: torch.Tensor) -> torch.Tensor:
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+#: The IDCTs FFmpeg runs, by name: its simple IDCT, and Xvid's (for streams
+#: whose user data or fourcc names Xvid).
+IDCTS = {"simple": idct_values, "xvid": xvid_idct_values}
 
 
 @dataclass
@@ -976,14 +1269,15 @@ def _blocks_of(plane: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
 
 
 def intra_plain(planes: List[torch.Tensor], coefs: torch.Tensor, jobs: torch.Tensor,
-                layout: Layout) -> None:
-    """M1's plain version: each intra job's block, IDCT'd and saturated, put
-    into ``planes`` (Y, Cb, Cr uint8, padded) in place."""
+                layout: Layout, idct: str = "simple") -> None:
+    """M1's plain version: each intra job's block, IDCT'd (``idct`` "simple"
+    or "xvid") and saturated, put into ``planes`` (Y, Cb, Cr uint8, padded)
+    in place."""
     if not len(jobs):
         return
     jobs = jobs.long()
     plane, x, y = layout.origins(jobs[:, 0])
-    px = idct_values(coefs[jobs[:, 1]]).clamp(0, 255).to(torch.uint8)
+    px = IDCTS[idct](coefs[jobs[:, 1]]).clamp(0, 255).to(torch.uint8)
     for p in range(3):
         sel = plane == p
         planes[p].view(-1)[_blocks_of(planes[p], x[sel], y[sel])] = px[sel]
@@ -1015,7 +1309,7 @@ def predict(ref: torch.Tensor, x: torch.Tensor, y: torch.Tensor, mvx: torch.Tens
 
 
 def inter_plain(planes: List[torch.Tensor], ref: List[torch.Tensor], coefs: torch.Tensor,
-                jobs: torch.Tensor, layout: Layout, rounding: int) -> None:
+                jobs: torch.Tensor, layout: Layout, rounding: int, idct: str = "simple") -> None:
     """M2's plain version: each inter job's prediction from ``ref`` plus its
     IDCT residual (where it has one), saturated, put into ``planes``."""
     if not len(jobs):
@@ -1031,12 +1325,38 @@ def inter_plain(planes: List[torch.Tensor], ref: List[torch.Tensor], coefs: torc
                      approx=(j[:, 0] & NARROW).bool()[:, None, None])
         has = j[:, 1] >= 0
         if has.any():
-            px[has] = px[has] + idct_values(coefs[j[has, 1]])
+            px[has] = px[has] + IDCTS[idct](coefs[j[has, 1]])
+        planes[p].view(-1)[_blocks_of(planes[p], x[sel], y[sel])] = px.clamp(0, 255).to(torch.uint8)
+
+
+def bidir_plain(planes: List[torch.Tensor], past: List[torch.Tensor], future: List[torch.Tensor],
+                coefs: torch.Tensor, jobs: torch.Tensor, layout: Layout,
+                idct: str = "simple") -> None:
+    """M3's plain version: each B-VOP job's half-pel prediction (rounding 0)
+    from ``past`` (forward), ``future`` (backward) or both, averaged as
+    ``(f + b + 1) >> 1``, plus its IDCT residual (where it has one),
+    saturated, put into ``planes``."""
+    if not len(jobs):
+        return
+    jobs = jobs.long()
+    plane, x, y = layout.origins(jobs[:, 0])
+    for p in range(3):
+        sel = plane == p
+        if not sel.any():
+            continue
+        j = jobs[sel]
+        f = predict(past[p], x[sel], y[sel], j[:, 2], j[:, 3], 0)
+        b = predict(future[p], x[sel], y[sel], j[:, 4], j[:, 5], 0)
+        dirs = j[:, 6][:, None, None]
+        px = torch.where(dirs == 3, (f + b + 1) >> 1, torch.where(dirs == 1, f, b))
+        has = j[:, 1] >= 0
+        if has.any():
+            px[has] = px[has] + IDCTS[idct](coefs[j[has, 1]])
         planes[p].view(-1)[_blocks_of(planes[p], x[sel], y[sel])] = px.clamp(0, 255).to(torch.uint8)
 
 
 # --------------------------------------------------------------------------- #
-# The card's route: the host C decoder, M1 and M2
+# The card's route: the host C decoder, M1, M2 and M3
 # --------------------------------------------------------------------------- #
 
 #: ``sleap_mpeg4_decode_vop``'s error codes.
@@ -1049,84 +1369,133 @@ _HOST_ERRORS = {1: "an invalid code", 2: "the VOP's data ends inside a macrobloc
 class Staging:
     """Host buffers of the host decoder's output for ``macroblocks``
     macroblocks, reused across frames; pinned where ``pin``, and their
-    copies to the card are synchronous."""
+    copies to the card are synchronous. ``jobs`` holds M1's then M2's jobs
+    of an I- or P-VOP, or (as (6 macroblocks, 8)) M3's of a B-VOP."""
 
     def __init__(self, macroblocks: int, pin: bool):
         n = 6 * macroblocks
         self.coefs = torch.empty((n, 64), dtype=torch.int16, pin_memory=pin)
         self.jobs = torch.empty((2, n, 4), dtype=torch.int32, pin_memory=pin)
+        self.colocated = np.zeros((macroblocks, 9), np.int32)
         self.counts = np.zeros(4, np.int64)
 
 
-def decode_macroblocks_host(data: bytes, vol: Vol, vop: Vop, staging: Staging):
+def decode_macroblocks_host(data: bytes, vol: Vol, vop: Vop, staging: Staging,
+                            colocated: Optional[np.ndarray] = None):
     """:func:`decode_macroblocks` in host C (``sleap_mpeg4_decode_vop``):
-    (coefs, intra jobs, inter jobs) as views of ``staging``."""
+    (coefs, intra jobs, inter jobs) of an I- or P-VOP as views of
+    ``staging``, with its co-located array (a copy); (coefs, M3 jobs) of a
+    B-VOP, which reads the future reference's ``colocated``, with None."""
     from sleap_tpu_torch.ops import _build
 
     mb_w, mb_h = vol.mb_size
-    if staging.coefs.shape[0] < 6 * mb_w * mb_h:
+    n_mb = mb_w * mb_h
+    if staging.coefs.shape[0] < 6 * n_mb:
         raise ValueError(f"MPEG-4: staging for {staging.coefs.shape[0] // 6} macroblocks, "
-                         f"the VOP has {mb_w * mb_h}")
+                         f"the VOP has {n_mb}")
+    B = vop.kind == "B"
+    if B and (colocated is None or colocated.shape != (n_mb, 9)):
+        raise ValueError("MPEG-4: a B-VOP needs its future reference's co-located macroblocks")
     src = np.frombuffer(bytes(data) + bytes(8), np.uint8)
     mpeg_quant = vol.intra_matrix is not None
-    params = np.array([mb_w, mb_h, vop.kind == "P", vop.quant, vop.f_code, vop.dc_threshold,
+    params = np.array([mb_w, mb_h, "IPB".index(vop.kind), vop.quant, vop.f_code, vop.dc_threshold,
                        int(vol.resync), vop.bit, vol.width, vol.height, mpeg_quant,
                        *(vol.intra_matrix or (0,) * 64), *(vol.inter_matrix or (0,) * 64),
-                       vol.quant_precision, vol.time_bits], np.int64)
+                       vol.quant_precision, vol.time_bits, vop.b_code, vop.pp_time,
+                       vop.pb_time], np.int64)
+    col_in = np.ascontiguousarray(colocated if B else staging.colocated, np.int32)
     err = _build.entry("sleap_mpeg4_decode_vop")(
         src.ctypes.data, len(data), params.ctypes.data, staging.coefs.data_ptr(),
-        staging.jobs.data_ptr(), staging.counts.ctypes.data)
+        staging.jobs.data_ptr(), staging.counts.ctypes.data, col_in.ctypes.data,
+        staging.colocated.ctypes.data)
     if err:
         raise ValueError(f"MPEG-4: {_HOST_ERRORS.get(err, err)} (sleap_mpeg4_decode_vop, "
                          f"macroblock {int(staging.counts[3])})")
     n_coefs, n_intra, n_inter = (int(c) for c in staging.counts[:3])
-    return staging.coefs[:n_coefs], staging.jobs[0, :n_intra], staging.jobs[1, :n_inter]
+    if B:
+        jobs = staging.jobs.view(-1)[:8 * 6 * n_mb].view(6 * n_mb, 8)
+        return (staging.coefs[:n_coefs], jobs[:n_inter]), None
+    return ((staging.coefs[:n_coefs], staging.jobs[0, :n_intra], staging.jobs[1, :n_inter]),
+            staging.colocated[:n_mb].copy())
 
 
-def intra_cuda(planes: List[torch.Tensor], coefs: torch.Tensor, jobs: torch.Tensor,
-               layout: Layout) -> None:
-    """M1 (``mpeg4_intra_kernel``): :func:`intra_plain` on the card."""
+def _check_inputs(planes, refs, coefs, jobs, what):
     from sleap_tpu_torch.io import jpeg
-    from sleap_tpu_torch.ops import _build
 
     jpeg._check_card(coefs, torch.int16, "coefficients")
-    jpeg._check_card(jobs, torch.int32, "M1 jobs")
-    for p in planes:
+    jpeg._check_card(jobs, torch.int32, f"{what} jobs")
+    for p in (*planes, *refs):
         jpeg._check_card(p, torch.uint8, "planes")
-    if not len(jobs):
-        return
-    _build.launch("sleap_mpeg4_intra", coefs.device.index, coefs.data_ptr(), jobs.data_ptr(),
-                  len(jobs), layout.mb_w, *(p.data_ptr() for p in planes))
-    intra_cuda.launches += 1
 
 
-intra_cuda.launches = 0
+def _m1(xvid: int):
+    def m1(planes: List[torch.Tensor], coefs: torch.Tensor, jobs: torch.Tensor,
+           layout: Layout) -> None:
+        from sleap_tpu_torch.ops import _build
+
+        _check_inputs(planes, (), coefs, jobs, "M1")
+        if not len(jobs):
+            return
+        _build.launch("sleap_mpeg4_intra", coefs.device.index, coefs.data_ptr(), jobs.data_ptr(),
+                      len(jobs), layout.mb_w, xvid, *(p.data_ptr() for p in planes))
+        m1.launches += 1
+
+    m1.launches = 0
+    return m1
 
 
-def inter_cuda(planes: List[torch.Tensor], ref: List[torch.Tensor], coefs: torch.Tensor,
-               jobs: torch.Tensor, layout: Layout, rounding: int) -> None:
-    """M2 (``mpeg4_inter_kernel``): :func:`inter_plain` on the card."""
-    from sleap_tpu_torch.io import jpeg
-    from sleap_tpu_torch.ops import _build
+def _m2(xvid: int):
+    def m2(planes: List[torch.Tensor], ref: List[torch.Tensor], coefs: torch.Tensor,
+           jobs: torch.Tensor, layout: Layout, rounding: int) -> None:
+        from sleap_tpu_torch.ops import _build
 
-    jpeg._check_card(coefs, torch.int16, "coefficients")
-    jpeg._check_card(jobs, torch.int32, "M2 jobs")
-    for p in (*planes, *ref):
-        jpeg._check_card(p, torch.uint8, "planes")
-    if not len(jobs):
-        return
-    _build.launch("sleap_mpeg4_inter", coefs.device.index, coefs.data_ptr(), jobs.data_ptr(),
-                  len(jobs), layout.mb_w, layout.mb_h, rounding,
-                  *(p.data_ptr() for p in (*ref, *planes)))
-    inter_cuda.launches += 1
+        _check_inputs(planes, ref, coefs, jobs, "M2")
+        if not len(jobs):
+            return
+        _build.launch("sleap_mpeg4_inter", coefs.device.index, coefs.data_ptr(), jobs.data_ptr(),
+                      len(jobs), layout.mb_w, layout.mb_h, rounding, xvid,
+                      *(p.data_ptr() for p in (*ref, *planes)))
+        m2.launches += 1
+
+    m2.launches = 0
+    return m2
 
 
-inter_cuda.launches = 0
+def _m3(xvid: int):
+    def m3(planes: List[torch.Tensor], past: List[torch.Tensor], future: List[torch.Tensor],
+           coefs: torch.Tensor, jobs: torch.Tensor, layout: Layout) -> None:
+        from sleap_tpu_torch.ops import _build
 
-#: M2 and M1, as :func:`reconstruct` takes them: the card's wrappers and
-#: their plain versions.
-CARD = (inter_cuda, intra_cuda)
-PLAIN = (inter_plain, intra_plain)
+        _check_inputs(planes, (*past, *future), coefs, jobs, "M3")
+        if not len(jobs):
+            return
+        _build.launch("sleap_mpeg4_bidir", coefs.device.index, coefs.data_ptr(), jobs.data_ptr(),
+                      len(jobs), layout.mb_w, layout.mb_h, xvid,
+                      *(p.data_ptr() for p in (*past, *future, *planes)))
+        m3.launches += 1
+
+    m3.launches = 0
+    return m3
+
+
+#: M1 (``mpeg4_intra_kernel``), M2 (``mpeg4_inter_kernel``) and M3
+#: (``mpeg4_bidir_kernel``) on the card, each in its simple-IDCT and its
+#: Xvid-IDCT instantiation: :func:`intra_plain`, :func:`inter_plain` and
+#: :func:`bidir_plain` on CUDA tensors. Each counts its launches.
+intra_cuda, intra_xvid_cuda = _m1(0), _m1(1)
+inter_cuda, inter_xvid_cuda = _m2(0), _m2(1)
+bidir_cuda, bidir_xvid_cuda = _m3(0), _m3(1)
+for _fn, _name in ((intra_cuda, "intra_cuda"), (intra_xvid_cuda, "intra_xvid_cuda"),
+                   (inter_cuda, "inter_cuda"), (inter_xvid_cuda, "inter_xvid_cuda"),
+                   (bidir_cuda, "bidir_cuda"), (bidir_xvid_cuda, "bidir_xvid_cuda")):
+    _fn.__name__ = _fn.__qualname__ = _name
+
+#: (M2, M1, M3) by IDCT, as :func:`reconstruct` takes them: the card's
+#: wrappers and their plain versions.
+CARD = {"simple": (inter_cuda, intra_cuda, bidir_cuda),
+        "xvid": (inter_xvid_cuda, intra_xvid_cuda, bidir_xvid_cuda)}
+PLAIN = {idct: (functools.partial(inter_plain, idct=idct), functools.partial(intra_plain, idct=idct),
+                functools.partial(bidir_plain, idct=idct)) for idct in IDCTS}
 
 
 def _no_lap(stage: str) -> None:
@@ -1134,39 +1503,49 @@ def _no_lap(stage: str) -> None:
 
 
 def entropy_decode(data: bytes, vol: Vol, vop: Vop, device: torch.device,
-                   staging: Optional[Staging] = None, lap: Callable[[str], None] = _no_lap):
+                   staging: Optional[Staging] = None, lap: Callable[[str], None] = _no_lap,
+                   colocated: Optional[np.ndarray] = None):
     """A coded VOP's macroblocks (``vop`` the headers a :class:`Stream`
-    parsed from ``data``): (coefficients, intra jobs, inter jobs) on
-    ``device``. On the card the host C decoder fills ``staging`` (sized to
-    the VOP's macroblocks) and the arrays are copied up; on the CPU the plain
-    decoder runs. ``lap(stage)`` is called as "entropy" and "upload" end."""
+    parsed from ``data``; a B-VOP's ``colocated`` its future reference's)
+    on ``device``: (inputs, colocated), the inputs (coefficients, intra
+    jobs, inter jobs) of an I- or P-VOP with its co-located array, or
+    (coefficients, M3 jobs) of a B-VOP with None. On the card the host C
+    decoder fills ``staging`` (sized to the VOP's macroblocks) and the
+    arrays are copied up; on the CPU the plain decoder runs. ``lap(stage)``
+    is called as "entropy" and "upload" end."""
     if device.type != "cuda":
-        mbs = decode_macroblocks(data, vol, vop)
+        mbs = decode_macroblocks(data, vol, vop, colocated)
         lap("entropy")
-        return tuple(torch.from_numpy(a) for a in (mbs.coefs, mbs.intra, mbs.inter))
-    host = decode_macroblocks_host(data, vol, vop, staging)
+        arrays = (mbs.coefs, mbs.bidir) if vop.kind == "B" else (mbs.coefs, mbs.intra, mbs.inter)
+        return tuple(torch.from_numpy(a) for a in arrays), mbs.colocated
+    host, colocated = decode_macroblocks_host(data, vol, vop, staging, colocated)
     lap("entropy")
     inputs = tuple(t.to(device) for t in host)
     lap("upload")
-    return inputs
+    return inputs, colocated
 
 
-def reconstruct(inputs, layout: Layout, ref: Optional[List[torch.Tensor]], rounding: int,
-                kernels=None, lap: Callable[[str], None] = _no_lap) -> List[torch.Tensor]:
+def reconstruct(inputs, layout: Layout, ref, rounding: int, kernels=None,
+                lap: Callable[[str], None] = _no_lap, idct: str = "simple") -> List[torch.Tensor]:
     """A VOP's planes (Y, Cb, Cr, padded) from :func:`entropy_decode`'s
-    ``inputs`` and the reference VOP's planes ``ref`` (None where there is
-    none of this size): M2, then M1 over M2's output. ``kernels`` is an
-    (M2, M1) pair, by default :data:`CARD` for tensors on the card and
-    :data:`PLAIN` on the CPU. ``lap(stage)`` is called as "M2" and "M1"
-    end."""
-    coefs, intra, inter = inputs
+    ``inputs``: an I- or P-VOP's from the previous reference's planes
+    ``ref`` (None where there is none of this size), M2 then M1 over M2's
+    output; a B-VOP's (two inputs) from ``ref`` = (past, future) planes,
+    M3. ``kernels`` is an (M2, M1, M3) triple, by default ``CARD[idct]``
+    for tensors on the card and ``PLAIN[idct]`` on the CPU. ``lap(stage)``
+    is called as "M2", "M1" or "M3" end."""
+    coefs = inputs[0]
     planes = layout.planes(coefs.device)
+    m2, m1, m3 = kernels or (CARD if coefs.device.type == "cuda" else PLAIN)[idct]
+    if len(inputs) == 2:
+        m3(planes, *ref, coefs, inputs[1], layout)
+        lap("M3")
+        return planes
     if ref is None or [p.shape for p in ref] != [p.shape for p in planes]:
         ref = planes
-    m2, m1 = kernels or (CARD if coefs.device.type == "cuda" else PLAIN)
-    m2(planes, ref, coefs, inter, layout, rounding)
+    m2(planes, ref, coefs, inputs[2], layout, rounding)
     lap("M2")
-    m1(planes, coefs, intra, layout)
+    m1(planes, coefs, inputs[1], layout)
     lap("M1")
     return planes
 
@@ -1193,21 +1572,192 @@ def first_difference(got: np.ndarray, want: np.ndarray) -> Optional[Tuple[int, i
     return int(col), int(row)
 
 
+#: FFmpeg's ``MAX_NVOP_SIZE``: a packet this short after a packed VOP is a
+#: placeholder.
+MAX_NVOP_SIZE = 19
+
+
+@dataclass
+class Unit:
+    """A VOP the decoder decodes, in decoding order: its bytes start at
+    ``offset`` of packet ``packet`` (a packed bitstream's second VOP: past
+    the first one), its kind, VOL and IDCT, and the units of its
+    references (a B-VOP's past and future; an I- or P-VOP's previous
+    reference, -1 where none), with a B-VOP's ``pp_time`` and ``pb_time``."""
+
+    packet: int
+    offset: int
+    kind: str
+    vol: Vol
+    idct: str
+    past: int = -1
+    future: int = -1
+    pp_time: int = 0
+    pb_time: int = 0
+
+
+class Schedule:
+    """FFmpeg's MPEG-4 decode loop (``ff_h263_decode_frame`` with
+    ``decode_vop_header``'s timing and ``ff_mpeg4_frame_end``'s packed
+    bitstream) run on the headers alone: which VOPs are decoded
+    (:attr:`units`) and which of them each frame cv2 reads in order is
+    (:attr:`frames`). Per packet: a packed VOP kept from the last packet
+    is decoded in its place (dropped where the packet starts a visual
+    object sequence); a not-coded VOP, or a B-VOP out of time order
+    (``pb_time`` not inside ``pp_time``), is skipped, a B-VOP without a past
+    reference dropped; an I- or P-VOP makes the future reference the past
+    one. The frame out: a B-VOP's own, or every VOP's while ``low_delay``,
+    else the past reference. ``low_delay`` is the VOL's control-parameter
+    bit, else set for Simple and Advanced Simple VOLs before the first
+    picture (and for an unnamed encoder's object type 0), cleared at the
+    first B-VOP of a VOL without control parameters. At the end the future
+    reference comes out where ``low_delay`` is clear or the stream ended in
+    a skipped VOP (then once more, where it came out already).
+    ``packet(k)`` gives packet ``k`` of ``count``."""
+
+    def __init__(self, packet: Callable[[int], bytes], count: int, fourcc: str = "",
+                 config: bytes = b""):
+        self._packet, self.count = packet, count
+        self.stream = Stream(fourcc)
+        self.units: List[Unit] = []
+        self.frames: List[int] = []
+        self._next = 0  # the next packet
+        self._done = False
+        self._saved: Optional[Tuple[int, int]] = None  # a packed VOP: (packet, offset)
+        self._last = self._future = -1
+        self._low_delay = 1
+        self._pictures = 0
+        self._time_base = self._last_time_base = self._last_non_b = self._pp = 0
+        self._skipped_last = False
+        if config:
+            self._headers(config)
+
+    def _headers(self, data: bytes) -> Optional[Vop]:
+        stream, vol = self.stream, self.stream.vol
+        vop = stream.headers(data)
+        if stream.vol is not vol:  # a VOL header
+            v = stream.vol
+            if v.control_parameters:
+                self._low_delay = v.low_delay
+            elif not self._pictures:
+                self._low_delay = int(v.vo_type in (1, 17))
+        if stream.gov_seconds is not None:
+            self._time_base = stream.gov_seconds
+        return vop
+
+    def until(self, frames: int) -> None:
+        """Run until ``frames`` frames are out or the stream ends."""
+        while len(self.frames) < frames and not self._done:
+            if self._next < self.count:
+                self._step(self._next)
+                self._next += 1
+            else:
+                self._flush()
+
+    def _flush(self) -> None:
+        if (not self._low_delay or self._skipped_last) and self._future >= 0:
+            self.frames.append(self._future)
+        self._done = True
+
+    def _step(self, k: int) -> None:
+        data = self._packet(k)
+        enc = self.stream.encoder
+        if self._saved is not None and enc.divx_packed:
+            first = _start_codes(data)
+            if first and data[first[0]] == 0xB0:
+                self._saved = None  # FFmpeg: "Discarding excessive bitstream in packed xvid"
+        src, self._saved = (self._saved or (k, 0)), None
+        buf = self._packet(src[0])[src[1]:] if src[0] != k else data[src[1]:]
+        vop = self._headers(buf)
+        if vop is None:
+            return
+        vol = self.stream.vol
+        B = vop.coding == "B"
+        if B and self._low_delay and not vol.control_parameters:
+            self._low_delay = 0
+        # decode_vop_header's clock: a B-VOP's from the past reference's base.
+        res = vol.resolution
+        if not B:
+            self._last_time_base = self._time_base
+            self._time_base += vop.modulo
+            time = self._time_base * res + vop.time
+            self._pp = time - self._last_non_b
+            self._last_non_b = time
+        else:
+            time = (self._last_time_base + vop.modulo) * res + vop.time
+            pb = self._pp - (self._last_non_b - time)
+            if self._pp <= pb or self._pp <= self._pp - pb or self._pp <= 0:
+                self._skipped_last = True  # FRAME_SKIPPED
+                return
+            vop.pp_time, vop.pb_time = self._pp, pb
+        if vop.kind == "N":
+            self._skipped_last = True
+            return
+        if not vol.vo_type and not vol.control_parameters and enc.divx_version < 0 \
+                and not self._pictures:
+            self._low_delay = 1  # FFmpeg's guess: DivX 4, old Xvid or OpenDivX
+        self._pictures += 1
+        self._skipped_last = False
+        if B and self._last < 0:
+            return  # no past reference: FFmpeg skips the B-VOP
+        u = len(self.units)
+        unit = Unit(src[0], src[1], vop.kind, vol, self.stream.idct)
+        if B:
+            unit.past, unit.future = self._last, self._future
+            unit.pp_time, unit.pb_time = vop.pp_time, vop.pb_time
+        else:
+            self._last, self._future = self._future, u
+            unit.past = self._last
+        self.units.append(unit)
+        if enc.divx_packed:  # ff_mpeg4_frame_end: keep a packed I- or B-VOP
+            at = data.find(b"\x00\x00\x01\xb6", 0 if src[0] != k else src[1] + self.stream.vop_at)
+            if at >= 0 and at + 4 < len(data) and not data[at + 4] & 0x40:
+                self._saved = (k, at)
+        if B or self._low_delay:
+            self.frames.append(u)
+        elif self._last >= 0:
+            self.frames.append(self._last)
+
+
+def unit_header(stream: Stream, unit: Unit, data: bytes) -> Vop:
+    """The VOP header of ``unit`` from its bytes ``data`` (the packet from
+    its offset), read by ``stream`` under the VOL the schedule saw before
+    it, with a B-VOP's times."""
+    stream.vol = unit.vol
+    vop = stream.headers(data)
+    if vop is None or vop.kind != unit.kind:
+        raise ValueError(f"MPEG-4: packet {unit.packet} holds no {unit.kind}-VOP")
+    vop.pp_time, vop.pb_time = unit.pp_time, unit.pb_time
+    return vop
+
+
+def scheduled_vops(packets: Sequence[bytes], fourcc: str = ""):
+    """Every VOP FFmpeg decodes of a stream's ``packets`` (decoding order):
+    (its unit index, :class:`Unit`, bytes, :func:`unit_header`) each."""
+    schedule = Schedule(lambda k: packets[k], len(packets), fourcc)
+    schedule.until(len(packets) + 2)
+    stream = Stream(fourcc)
+    for u, unit in enumerate(schedule.units):
+        data = packets[unit.packet][unit.offset:]
+        yield u, unit, data, unit_header(stream, unit, data)
+
+
 class Mpeg4Reader:
     """Frames of a demuxer whose packets are MPEG-4 Part 2 VOPs, as OpenCV's
     FFmpeg backend gives them, on ``device``: an AVI
-    (:class:`~sleap_tpu_torch.io.avi.AviVideo`, frame ``i`` its packet
-    ``i``), ISO-BMFF (:class:`~sleap_tpu_torch.io.mp4.Mp4Video`) or Matroska
+    (:class:`~sleap_tpu_torch.io.avi.AviVideo`), ISO-BMFF
+    (:class:`~sleap_tpu_torch.io.mp4.Mp4Video`) or Matroska
     (:class:`~sleap_tpu_torch.io.mkv.MkvVideo`) track (packets in decoding
-    order, presentation frame ``i`` its packet ``order[i]``). ``config`` is
-    the container's VOL bytes (``esds``, ``CodecPrivate``); ``fourcc`` the
-    AVI's tag. On the card the host C decoder, M1 and M2 run; on the CPU
-    the plain versions. Frame ``i`` is the ``i``-th coded VOP in presentation
-    order: FFmpeg gives no frame for a not-coded VOP (the container's frame
-    count still holds it), so the packets are scanned for them as far as a
-    read reaches. The reference VOP stays on the device; a read decodes on
-    from the last one where no I-VOP lies between, else from the I-VOP at or
-    before the frame. Thread-safe."""
+    order, presentation frame ``i`` its packet ``order[i]``; B-VOPs there
+    raise). ``config`` is the container's VOL bytes (``esds``,
+    ``CodecPrivate``); ``fourcc`` the AVI's tag. On the card the host C
+    decoder, M1, M2 and M3 run; on the CPU the plain versions. Frame ``i``
+    is the ``i``-th frame of cv2's sequential read, as :class:`Schedule`
+    finds it, scanning the packets' headers as far as a read reaches. The
+    two references stay on the device: a read decodes on from the last one
+    where no I-VOP lies between, else from the I-VOP at or before the
+    reference it needs (a B-VOP: its past one), through its future one.
+    Thread-safe."""
 
     def __init__(self, demux, device="cuda", config: bytes = b"", fourcc: str = ""):
         self.demux = demux
@@ -1215,28 +1765,27 @@ class Mpeg4Reader:
         self._config, self._fourcc = config, fourcc
         self._f = open(demux.filename, "rb")
         self._lock = threading.RLock()
-        self._kinds: Dict[int, str] = {}  # packet -> "I", "P" or "N", as learned
-        # Presentation order's packets, and its coded ones found so far (cv2's
-        # frames: FFmpeg gives no frame for a not-coded VOP).
         self._sequence = demux.order if hasattr(demux, "order") else range(len(demux.offsets))
-        self._coded: List[int] = []
-        self._scanned = 0
         self._peeked: Tuple[int, bytes] = (-1, b"")
+        self.schedule = Schedule(self._ordered_packet, len(self._sequence), fourcc, config)
         self._stream = Stream(fourcc, config)
-        self._pos: Optional[int] = None  # the packet the reference holds
-        self._ref: Optional[List[torch.Tensor]] = None
+        # The references decoded: chain position -> (planes, co-located), the
+        # last two; the last B-VOP decoded: (unit, planes).
+        self._chain: List[int] = []  # the I- and P-VOP units, in decoding order
+        self._chain_pos: Dict[int, int] = {}
+        self._refs: Dict[int, Tuple[List[torch.Tensor], np.ndarray]] = {}
+        self._pos: Optional[int] = None  # the chain position of the last reference decoded
+        self._b: Tuple[int, Optional[List[torch.Tensor]]] = (-1, None)
         self._staging: Optional[Staging] = None
         self._t0 = 0.0
         #: Seconds a stage (host clock; the card's stages synchronised) and
         #: VOPs decoded, where ``timing`` is a dict.
         self.timing: Optional[Dict[str, float]] = None
-        first = int(self._sequence[0]) if len(self._sequence) else 0
-        peek = self._stream.headers(self._packet(first))
-        if self._stream.vol is None:
+        self.schedule.until(1)
+        vol = self.schedule.stream.vol
+        if vol is None:
             raise ValueError(f"{demux.filename}: no MPEG-4 VOL header before the first VOP")
-        if peek is not None:
-            self._kinds[first] = peek.kind
-        self.width, self.height = self._stream.vol.width, self._stream.vol.height
+        self.width, self.height = vol.width, vol.height
 
     @property
     def _track(self) -> bool:
@@ -1249,46 +1798,65 @@ class Mpeg4Reader:
         self._peeked = (k, data)
         return data
 
-    def _frame_packet(self, i: int) -> int:
-        """The packet of frame ``i``: the ``i``-th coded VOP in presentation
-        order, the packets scanned as far as it."""
-        while len(self._coded) <= i and self._scanned < len(self._sequence):
-            k = int(self._sequence[self._scanned])
-            self._scanned += 1
-            if self._kind(k) != "N":
-                self._coded.append(k)
-        if not 0 <= i < len(self._coded):
+    def _ordered_packet(self, k: int) -> bytes:
+        return self._packet(int(self._sequence[k]))
+
+    def _frame_unit(self, i: int) -> int:
+        """The unit of frame ``i``, the packets scanned as far as it."""
+        self.schedule.until(i + 1)
+        if not 0 <= i < len(self.schedule.frames):
             raise KeyError(f"Unable to load frame {i} from {self.demux.filename}.")
-        return self._coded[i]
+        return self.schedule.frames[i]
 
-    def _kind(self, k: int) -> str:
-        """Packet ``k``'s VOP kind, from its headers (refused VOPs raise)."""
-        if k not in self._kinds:
-            probe = Stream(self._fourcc)
-            probe.vol, probe.encoder = self._stream.vol, self._stream.encoder
-            vop = probe.headers(self._packet(k))
-            self._kinds[k] = vop.kind if vop is not None else "?"
-        return self._kinds[k]
-
-    def _key_before(self, k: int) -> int:
-        for j in range(k, -1, -1):
-            if self._kind(j) == "I":
-                return j
-        raise ValueError(f"{self.demux.filename}: no I-VOP at or before packet {k}")
+    def _frame_packet(self, i: int) -> int:
+        """The packet frame ``i`` is decoded from."""
+        return self.schedule.units[self._frame_unit(i)].packet
 
     def frame(self, i: int, channels: str = "bgr") -> torch.Tensor:
         """Frame ``i``, (H, W, C) uint8 on the device: ``channels`` "bgr",
         "rgb" or "b" (the blue channel alone)."""
         with self._lock:
-            k = self._frame_packet(i)
-            key = self._key_before(k)
-            start = self._pos + 1 if self._pos is not None and key <= self._pos < k else key
-            if self._pos == k:
-                start = k + 1
-            for j in range(start, k + 1):
-                self._decode(j)
-            y, u, v = self._ref
-            return self._convert(y, u, v, channels)
+            u = self._frame_unit(i)
+            unit = self.schedule.units[u]
+            if unit.kind == "B":
+                if self._track:
+                    raise unsupported("MPEG-4 B-VOPs in an ISO-BMFF or Matroska track")
+                if self._b[0] != u:
+                    self._to_reference(unit.future, unit.past)
+                    self._b = (u, self._decode(u))
+                y, v, w = self._b[1]
+            else:
+                self._to_reference(u, -1)
+                y, v, w = self._refs[self._pos][0]
+            return self._convert(y, v, w, channels)
+
+    def _chain_of(self, u: int) -> int:
+        units = self.schedule.units
+        while len(self._chain) < len(units) and (not self._chain or self._chain[-1] < u):
+            k = self._chain[-1] + 1 if self._chain else 0
+            while k < len(units) and units[k].kind == "B":
+                k += 1
+            if k >= len(units):
+                break
+            self._chain_pos[k] = len(self._chain)
+            self._chain.append(k)
+        return self._chain_pos[u]
+
+    def _to_reference(self, u: int, past: int) -> None:
+        """Decode the references on to unit ``u``, keeping the one before it
+        (``past``, where not -1)."""
+        target = self._chain_of(u)
+        need = self._chain_of(past) if past >= 0 else target
+        units = self.schedule.units
+        key = next(c for c in range(need, -1, -1) if units[self._chain[c]].kind == "I")
+        have = self._pos is not None and key <= self._pos <= target and \
+            (self._pos < target or need == target or need in self._refs)
+        for c in range(self._pos + 1 if have else key, target + 1):
+            prev = self._refs.get(c - 1)
+            planes, colocated = self._decode(self._chain[c], prev[0] if prev else None)
+            self._refs = {k: v for k, v in self._refs.items() if k == c - 1}
+            self._refs[c] = (planes, colocated)
+            self._pos = c
 
     def _convert(self, y, u, v, channels: str) -> torch.Tensor:
         h, w = self.height, self.width
@@ -1317,29 +1885,34 @@ class Mpeg4Reader:
             self.timing[stage] = self.timing.get(stage, 0.0) + now - self._t0
             self._t0 = now
 
-    def _decode(self, k: int) -> None:
+    def _decode(self, u: int, ref: Optional[List[torch.Tensor]] = None):
+        """Decode unit ``u``: a B-VOP's planes from the references held, or
+        an I- or P-VOP's (planes, co-located) from ``ref``."""
+        unit = self.schedule.units[u]
         self._start()
-        data = self._packet(k)
+        data = self._ordered_packet(unit.packet)[unit.offset:]
         self._lap("demux")
-        vop = self._stream.headers(data)
-        if vop is None:
-            raise ValueError(f"{self.demux.filename}: packet {k} holds no VOP")
-        self._kinds[k] = vop.kind
-        if vop.kind == "N":  # the reference stays
-            self._pos = k
-            return
+        vop = unit_header(self._stream, unit, data)
         vol = self._stream.vol
-        if vop.kind == "P" and (self._ref is None or self._pos != k - 1):
-            raise ValueError(f"{self.demux.filename}: a P-VOP (packet {k}) without its reference")
         layout = Layout(*vol.mb_size)
         n = layout.mb_w * layout.mb_h
         if self.device.type == "cuda" and (self._staging is None or self._staging.coefs.shape[0] != 6 * n):
             self._staging = Staging(n, pin=True)
-        inputs = entropy_decode(data, vol, vop, self.device, self._staging, self._lap)
-        self._ref = reconstruct(inputs, layout, self._ref, vop.rounding, lap=self._lap)
-        self._pos = k
+        if unit.kind == "B":
+            past, future = (self._refs[self._pos - 1][0], self._refs[self._pos][0])
+            inputs, _ = entropy_decode(data, vol, vop, self.device, self._staging, self._lap,
+                                       self._refs[self._pos][1])
+            out = reconstruct(inputs, layout, (past, future), 0, lap=self._lap, idct=unit.idct)
+        else:
+            if vop.kind == "P" and ref is None:
+                raise ValueError(f"{self.demux.filename}: a P-VOP (packet {unit.packet}) without "
+                                 f"its reference")
+            inputs, colocated = entropy_decode(data, vol, vop, self.device, self._staging, self._lap)
+            out = (reconstruct(inputs, layout, ref, vop.rounding, lap=self._lap, idct=unit.idct),
+                   colocated)
         if self.timing is not None:
             self.timing["vops"] = self.timing.get("vops", 0) + 1
+        return out
 
     def close(self) -> None:
         self._f.close()

@@ -28,7 +28,7 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "build"
 SOURCES = ("peaks.cu", "crops.cu", "jpeg.cu", "png.cu", "tiff.cu", "hdf5.cu", "mpeg4.cu")
 #: Headers the sources include: part of the build's hash.
-HEADERS = ("simple_idct.cuh",)
+HEADERS = ("simple_idct.cuh", "xvid_idct.cuh")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,8 +51,9 @@ SIGNATURES = {
     "sleap_jpeg_smooth": [_p, _i64, _p, _i, _p, _p],
     "sleap_jpeg_ycc": [_p, _i, _i, _i, _i, _i, _i, _i, _p, _p],
     "sleap_jpeg_fdct": [_p, _i64, _p, _i64, _p, _p],
-    "sleap_mpeg4_intra": [_p, _p, _i64, _i, _p, _p, _p, _p],
-    "sleap_mpeg4_inter": [_p, _p, _i64, _i, _i, _i, _p, _p, _p, _p, _p, _p, _p],
+    "sleap_mpeg4_intra": [_p, _p, _i64, _i, _i, _p, _p, _p, _p],
+    "sleap_mpeg4_inter": [_p, _p, _i64, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p, _p],
+    "sleap_mpeg4_bidir": [_p, _p, _i64, _i, _i, _i, *[_p] * 9, _p],
     # Host routines, called with no stream.
     "sleap_jpeg_decode_scan": [_p, _i64, _i64, _p, _i, _p, _i, _i, _i, _p, _p],
     "sleap_jpeg_decode_progressive": [_p, _i64, _i64, _p, _i, _p, _i, _i, _i, _i, _i, _i, _i, _p, _p],
@@ -64,7 +65,7 @@ SIGNATURES = {
     "sleap_tiff_packbits_encode": [_p, _i64, _p, _i64, _p],
     "sleap_tiff_ccitt_decode": [_p, _i64, _p, _i64, _i64, _i64, _i64],
     "sleap_hdf5_lzf_decode": [_p, _i64, _p, _i64, _p],
-    "sleap_mpeg4_decode_vop": [_p, _i64, _p, _p, _p, _p],
+    "sleap_mpeg4_decode_vop": [_p, _i64, _p, _p, _p, _p, _p, _p],
 }
 
 
